@@ -1,20 +1,24 @@
-"""Stacked BiLSTM encoder, eval path (counterpart of ``avsr_tpu/models/encoder.py``).
+"""Stacked BiLSTM encoder (counterpart of ``avsr_tpu/models/encoder.py``).
 
 Time-major [T, B, D] throughout.  Pyramidal time reduction folds r
 consecutive frames into the feature dim before a layer (padded steps are
-zeroed first, so a partly valid last group carries zeros).  Dropout is a
-training-time operation and is not part of this serving port.
+zeroed first, so a partly valid last group carries zeros).  In train mode
+each layer's output gets inverted dropout (the reference's
+``_post_layer``), drawn from the step's generator; recurrent dropout and
+the residual / highway / LN variants are not ported and raise.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 
 from avsr_tpu.configs import EncoderConfig
 from avsr_tpu_torch.ops import rnn
 from avsr_tpu_torch.utils.params import Params
+from avsr_tpu_torch.utils.rng import dropout_mask
 
 
 def time_reductions(cfg: EncoderConfig) -> Tuple[int, ...]:
@@ -27,6 +31,10 @@ def time_reductions(cfg: EncoderConfig) -> Tuple[int, ...]:
             f"time_reduction {cfg.time_reduction} must list one factor >= 1 "
             f"per layer ({len(cfg.hidden_units)} layers)")
     return r
+
+
+def total_time_reduction(cfg: EncoderConfig) -> int:
+    return math.prod(time_reductions(cfg))
 
 
 def encoder_output_lengths(cfg: EncoderConfig, lengths):
@@ -76,10 +84,14 @@ def _step_mask(T: int, lengths: torch.Tensor) -> torch.Tensor:
 
 
 def encoder_apply(params: Params, cfg: EncoderConfig, x_tbd: torch.Tensor,
-                  lengths: torch.Tensor, cdt: torch.dtype):
+                  lengths: torch.Tensor, cdt: torch.dtype, *, train: bool = False,
+                  generator: Optional[torch.Generator] = None):
     """[T, B, D] features -> ([T_out, B, 2H] fp32, zeros at padded steps;
-    final state of the last layer)."""
+    final state of the last layer).  ``train`` with a generator applies
+    the per-layer output dropout."""
     _check_supported(cfg)
+    if train and cfg.recurrent_dropout_rate > 0.0:
+        raise ValueError("recurrent dropout is not ported")
     mask = _step_mask(x_tbd.shape[0], lengths)
     h = x_tbd
     final_state = None
@@ -90,4 +102,7 @@ def encoder_apply(params: Params, cfg: EncoderConfig, x_tbd: torch.Tensor,
             mask = _step_mask(h.shape[0], lengths)
         h, final_state = rnn.bidirectional_scan(
             cfg.cell_type, layer["fwd"], layer["bwd"], h, mask, cdt)
+        if train and cfg.dropout_rate > 0.0 and generator is not None:
+            keep = 1.0 - cfg.dropout_rate
+            h = h * dropout_mask(generator, keep, h.shape, h.dtype)
     return h * mask[:, :, None], final_state

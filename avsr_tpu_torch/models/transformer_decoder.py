@@ -1,7 +1,7 @@
-"""Transformer decoder, autoregressive decode (counterpart of
+"""Transformer decoder (counterpart of
 ``avsr_tpu/models/transformer_decoder.py``: ``transformer_decoder_init``,
 ``prepare_cross``, ``initial_cache``, ``_cross_attend_rows``,
-``decode_step``).
+``decode_step``, ``teacher_forced_logits``).
 
 Pre-LN causal self-attention over compute-dtype KV caches ([N, L, D],
 batch-leading so the beam engine's parent gather works row-wise), then
@@ -12,18 +12,23 @@ one shared position as a host integer and the cache write is a single
 slice at that position.  ``decode_step`` writes the new position's keys
 and values into the caches IN PLACE (the caller's state is consumed); the
 beam engine's parent gather makes a fresh copy every step anyway.
-Teacher forcing (training) is not part of this serving port.
+
+``teacher_forced_logits`` runs every label position in one causal pass
+(training), with inverted dropout on the self-attention, cross-attention
+and FFN outputs drawn from the step's generator.  Plain PyTorch: its
+attention (K5) is the next kernel to port.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from avsr_tpu.configs import DecoderConfig
+from avsr_tpu.data.units import GO_ID
 from avsr_tpu_torch.models.transformer_common import layer_norm, sinusoidal_pe
 from avsr_tpu_torch.ops import attention as attn
 from avsr_tpu_torch.utils.params import Params, glorot_uniform, normal_init, zeros
@@ -162,3 +167,77 @@ def decode_step(params: Params, cfg: DecoderConfig, tokens: torch.Tensor,
     out = layer_norm(h, params["ln_f_scale"], params["ln_f_bias"])
     logits = (out.to(cdt) @ params["out_w"].to(cdt)).float() + params["out_b"]
     return TransformerDecoderState(caches=tuple(new_caches), step=state.step + 1), logits
+
+
+def _dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout (the reference's ``inverted_dropout``)."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=generator.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def teacher_forced_logits(params: Params, cfg: DecoderConfig, targets: torch.Tensor,
+                          target_lengths: torch.Tensor,
+                          memories: Sequence[attn.AttentionMemory], cdt: torch.dtype, *,
+                          generator: Optional[torch.Generator] = None,
+                          dropout: bool = False) -> torch.Tensor:
+    """Parallel teacher forcing: position k consumes token k-1 (GO at k=0)
+    under a causal mask and predicts targets[:, k].  fp32 logits [B, K, V]."""
+    d = cfg.hidden_units[0]
+    nh = cfg.num_heads
+    dh = d // nh
+    A = cfg.attention_units
+    B, K = targets.shape
+    dev = targets.device
+    drop = cfg.dropout_rate if (dropout and generator is not None) else 0.0
+
+    go = torch.full((B, 1), GO_ID, dtype=targets.dtype, device=dev)
+    shifted = torch.cat([go, targets[:, :-1]], dim=1)
+    # F.embedding: its backward sums the rows of repeated ids by segments;
+    # advanced indexing's backward serializes them (2 ms per step at B=128)
+    emb = F.embedding(shifted.long(), params["embedding"])
+    h = (emb.to(cdt) @ params["in_proj"].to(cdt)).float()
+    h = h * math.sqrt(d) + sinusoidal_pe(K, d, dev)[None]
+    causal = (torch.arange(K, device=dev)[None, :] <= torch.arange(K, device=dev)[:, None]).float()
+
+    for layer in params["layers"]:
+        y = layer_norm(h, layer["ln1_scale"], layer["ln1_bias"]).to(cdt)
+        q = (y @ layer["wq"].to(cdt)).reshape(B, K, nh, dh)
+        k = (y @ layer["wk"].to(cdt)).reshape(B, K, nh, dh)
+        v = (y @ layer["wv"].to(cdt)).reshape(B, K, nh, dh)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(dh)
+        scores = scores + (1.0 - causal)[None, None] * -1e9
+        w = torch.softmax(scores, dim=-1).to(cdt)
+        att = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, K, d)
+        att = (att @ layer["wo"].to(cdt)).float()
+        if drop > 0.0:
+            att = _dropout(att, drop, generator)
+        h = h + att
+
+        y = layer_norm(h, layer["ln_c_scale"], layer["ln_c_bias"]).to(cdt)
+        q = (y @ layer["cq"].to(cdt)).reshape(B, K, nh, A)
+        ctxs = []
+        for mem, ck in zip(memories, layer["ck"]):
+            S = mem.values.shape[1]
+            mk = (mem.values.to(cdt) @ ck.to(cdt)).reshape(B, S, nh, A)
+            cs = torch.einsum("bqha,bsha->bhqs", q, mk).float()
+            cs = cs / math.sqrt(A) + mem.bias[:, None, None, :]
+            cw = torch.softmax(cs, dim=-1).to(cdt)
+            mv = mem.values.shape[-1]
+            mvh = mem.values.to(cdt).reshape(B, S, nh, mv // nh)
+            ctxs.append(torch.einsum("bhqs,bshd->bqhd", cw, mvh).reshape(B, K, mv))
+        ctx = torch.cat(ctxs, dim=-1)
+        ctx = (ctx.to(cdt) @ layer["co"].to(cdt)).float()
+        if drop > 0.0:
+            ctx = _dropout(ctx, drop, generator)
+        h = h + ctx
+
+        y = layer_norm(h, layer["ln2_scale"], layer["ln2_bias"]).to(cdt)
+        y = F.gelu(y @ layer["ff_w1"].to(cdt) + layer["ff_b1"].to(cdt), approximate="tanh")
+        y = (y @ layer["ff_w2"].to(cdt) + layer["ff_b2"].to(cdt)).float()
+        if drop > 0.0:
+            y = _dropout(y, drop, generator)
+        h = h + y
+
+    out = layer_norm(h, params["ln_f_scale"], params["ln_f_bias"])
+    return (out.to(cdt) @ params["out_w"].to(cdt)).float() + params["out_b"]

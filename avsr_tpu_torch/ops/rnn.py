@@ -1,4 +1,4 @@
-"""Fused-gate LSTM scans, forward (counterpart of ``avsr_tpu/ops/rnn.py``).
+"""Fused-gate LSTM scans (counterpart of ``avsr_tpu/ops/rnn.py``).
 
 The reference hoists the input projection ``x @ Wx`` for all timesteps out
 of the scan (one large matmul, stored in the compute dtype) and runs both
@@ -7,11 +7,15 @@ with the backward direction's stream and mask flipped in time.  Padded
 steps carry (h, c) through unchanged and emit zeros.
 
 The recurrence itself — ``_bilstm_scan_core`` in the reference, its
-hand-derived custom-VJP core — is kernel K1 here: ``bilstm_scan_core``
-launches the CUDA kernel (``csrc/lstm_scan.cu``) for tensors on a GPU and
-runs ``bilstm_scan_core_plain`` for tensors on the CPU.  Only the forward
-direction of autodiff exists so far (serving); the backward kernel is
-later work.
+hand-derived custom-VJP core — is kernel K1 here, forward and backward.
+``BiLSTMScanCore`` is the ``torch.autograd.Function`` around it: its
+forward saves the bf16 carries entering each step (only when a gradient
+is wanted) and its backward is the reference's reverse scan with gate
+recompute.  ``scan_core_fwd`` / ``scan_core_bwd`` launch the CUDA kernels
+(``csrc/lstm_scan.cu``) for tensors on a GPU and run the plain versions
+(``bilstm_scan_core_fwd_impl`` / ``bilstm_scan_core_bwd_plain``) for
+tensors on the CPU, so the CPU tests run the hand-written backward's twin
+rather than torch's autodiff of the forward.
 """
 
 from __future__ import annotations
@@ -42,17 +46,22 @@ def project_inputs(params: Params, x_tbd: torch.Tensor, cdt: torch.dtype) -> tor
     return x_tbd.to(cdt) @ params["wx"].to(cdt)
 
 
-def bilstm_scan_core_plain(wh, b, xw, mask, h0, c0, cdt):
-    """Plain-PyTorch K1: the reference's ``_bilstm_scan_core`` forward.
+def bilstm_scan_core_fwd_impl(wh, b, xw, mask, h0, c0, cdt, save):
+    """Plain-PyTorch K1 forward: the reference's ``_bilstm_scan_core_fwd_impl``.
 
     wh [G,H,4H], b [G,4H], xw [T,G,B,4H] (any float dtype), mask [T,G,B]
-    fp32, h0/c0 [G,B,H] fp32 -> (ys [T,G,B,H] in ``cdt``, hT, cT fp32).
+    fp32, h0/c0 [G,B,H] fp32 -> ((ys [T,G,B,H] in ``cdt``, hT, cT fp32),
+    res), where res is (h_res, c_res), the ``cdt`` carries entering each
+    step [T,G,B,H], when ``save``, else None.
     """
     wh_c = wh.to(cdt).float()  # compute-dtype operands, fp32 products
     b_e = b[:, None, :]
     h, c = h0, c0
-    ys = []
+    ys, h_res, c_res = [], [], []
     for t in range(xw.shape[0]):
+        if save:
+            h_res.append(h.to(cdt))
+            c_res.append(c.to(cdt))
         gates = xw[t].float() + torch.bmm(h.to(cdt).float(), wh_c) + b_e
         i, f, g, o = gates.chunk(4, dim=-1)
         i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
@@ -63,24 +72,139 @@ def bilstm_scan_core_plain(wh, b, xw, mask, h0, c0, cdt):
         h = m * h_new + (1.0 - m) * h
         c = m * c_new + (1.0 - m) * c
         ys.append((h_new * m).to(cdt))
-    return torch.stack(ys), h, c
+    res = (torch.stack(h_res), torch.stack(c_res)) if save else None
+    return (torch.stack(ys), h, c), res
 
 
-def bilstm_scan_core(wh, b, xw, mask, h0, c0, cdt):
-    """K1 wrapper: CUDA kernel for GPU tensors, plain version on the CPU.
+def bilstm_scan_core_plain(wh, b, xw, mask, h0, c0, cdt):
+    """Plain-PyTorch K1 forward, outputs only: (ys, hT, cT)."""
+    out, _ = bilstm_scan_core_fwd_impl(wh, b, xw, mask, h0, c0, cdt, save=False)
+    return out
+
+
+def bilstm_scan_core_bwd_plain(wh, b, xw, mask, h_res, c_res, dys, dhT, dcT, cdt):
+    """Plain-PyTorch K1 backward: the reference's ``_bilstm_scan_core_bwd``
+    (``avsr_tpu/ops/rnn.py:382-454``), line for line.
+
+    Returns (dwh, db, dxw, dh0, dc0): dwh/db in the parameters' dtypes, dxw
+    in ``xw``'s (it is the ``cdt``-rounded dgates), dh0/dc0 fp32.
+    """
+    wh_c = wh.to(cdt).float()
+    b_e = b[:, None, :].float()
+    dh_out, dc_out = dhT.float(), dcT.float()
+    db_acc = torch.zeros_like(b, dtype=torch.float32)
+    dxw = [None] * xw.shape[0]
+    for t in reversed(range(xw.shape[0])):
+        c_prev = c_res[t].float()
+        m = mask[t][..., None]
+        gates = xw[t].float() + torch.bmm(h_res[t].float(), wh_c) + b_e
+        gi, gf, gg, go = gates.chunk(4, dim=-1)
+        i, f, o = torch.sigmoid(gi), torch.sigmoid(gf), torch.sigmoid(go)
+        g = torch.tanh(gg)
+        c_new = f * c_prev + i * g
+        tc = torch.tanh(c_new)
+
+        dh_new = (dh_out + dys[t].float()) * m
+        dh_prev_direct = dh_out * (1.0 - m)
+        dc_new = dc_out * m
+        dc_prev_direct = dc_out * (1.0 - m)
+
+        do = dh_new * tc
+        dc_new = dc_new + dh_new * o * (1.0 - tc * tc)
+        df = dc_new * c_prev
+        di = dc_new * g
+        dg = dc_new * i
+        dc_prev = dc_new * f + dc_prev_direct
+
+        dgates = torch.cat([di * i * (1.0 - i), df * f * (1.0 - f),
+                            dg * (1.0 - g * g), do * o * (1.0 - o)], dim=-1)
+        dgates_c = dgates.to(cdt)
+        dh_prev = torch.bmm(dgates_c.float(), wh_c.transpose(1, 2)) + dh_prev_direct
+        db_acc = db_acc + dgates.sum(dim=1)
+        dh_out, dc_out = dh_prev, dc_prev
+        dxw[t] = dgates_c
+    dxw = torch.stack(dxw)
+    return (_dwh(h_res, dxw).to(wh.dtype), db_acc.to(b.dtype), dxw.to(xw.dtype),
+            dh_out, dc_out)
+
+
+def _dwh(h_res, dxw):
+    """dWh = sum over steps and rows of h_res^T dxw, fp32 (the reference
+    hoists this out of the scan as one einsum, ``rnn.py:445-447``)."""
+    return torch.einsum("tgbh,tgbk->ghk", h_res.float(), dxw.float())
+
+
+def _check_policy(cdt):
+    if cdt != torch.bfloat16:
+        raise ValueError(f"the LSTM scan kernels run the bf16 policy only, got {cdt}")
+
+
+def scan_core_fwd(wh, b, xw, mask, h0, c0, cdt, save):
+    """K1 forward wrapper: the CUDA kernel for GPU tensors, the plain
+    version on the CPU; same contract as ``bilstm_scan_core_fwd_impl``.
 
     The kernel implements the main path's bf16 policy only; any other
     compute dtype on a GPU raises rather than falling back.
     """
     if xw.device.type == "cpu":
-        return bilstm_scan_core_plain(wh, b, xw, mask, h0, c0, cdt)
-    if cdt != torch.bfloat16:
-        raise ValueError(f"the LSTM scan kernel runs the bf16 policy only, got {cdt}")
-    return kernels.lstm_scan_fwd(
+        return bilstm_scan_core_fwd_impl(wh, b, xw, mask, h0, c0, cdt, save)
+    _check_policy(cdt)
+    ys, hT, cT, h_res, c_res = kernels.lstm_scan_fwd(
         wh.to(torch.bfloat16).contiguous(), b.float().contiguous(),
         xw.to(torch.bfloat16).contiguous(), mask.float().contiguous(),
-        h0.float().contiguous(), c0.float().contiguous(),
+        h0.float().contiguous(), c0.float().contiguous(), save=save,
     )
+    return (ys, hT, cT), ((h_res, c_res) if save else None)
+
+
+def scan_core_bwd(wh, b, xw, mask, h_res, c_res, dys, dhT, dcT, cdt):
+    """K1 backward wrapper: the CUDA kernel for GPU tensors, the plain
+    version on the CPU; same contract as ``bilstm_scan_core_bwd_plain``."""
+    if xw.device.type == "cpu":
+        return bilstm_scan_core_bwd_plain(wh, b, xw, mask, h_res, c_res, dys, dhT, dcT, cdt)
+    _check_policy(cdt)
+    dxw, db, dh0, dc0 = kernels.lstm_scan_bwd(
+        wh.to(torch.bfloat16).contiguous(), b.float().contiguous(),
+        xw.to(torch.bfloat16).contiguous(), mask.float().contiguous(),
+        h_res.contiguous(), c_res.contiguous(), dys.to(torch.bfloat16).contiguous(),
+        dhT.float().contiguous(), dcT.float().contiguous(),
+    )
+    return _dwh(h_res, dxw).to(wh.dtype), db.to(b.dtype), dxw.to(xw.dtype), dh0, dc0
+
+
+class BiLSTMScanCore(torch.autograd.Function):
+    """K1 with its hand-written gradient (the reference's ``jax.custom_vjp``).
+
+    The forward saves the ``cdt`` carries entering each step, and only
+    when an input asks for a gradient; the backward recomputes the gates
+    from them.  ``mask`` gets no gradient (the reference returns zeros).
+    """
+
+    @staticmethod
+    def forward(ctx, wh, b, xw, mask, h0, c0, cdt):
+        save = any(ctx.needs_input_grad)
+        (ys, hT, cT), res = scan_core_fwd(wh, b, xw, mask, h0, c0, cdt, save)
+        ctx.cdt = cdt
+        if save:
+            ctx.save_for_backward(wh, b, xw, mask, *res)
+        return ys, hT, cT
+
+    @staticmethod
+    def backward(ctx, dys, dhT, dcT):
+        wh, b, xw, mask, h_res, c_res = ctx.saved_tensors
+        dwh, db, dxw, dh0, dc0 = scan_core_bwd(wh, b, xw, mask, h_res, c_res,
+                                               dys, dhT, dcT, ctx.cdt)
+        return dwh, db, dxw, None, dh0, dc0, None
+
+
+def bilstm_scan_core(wh, b, xw, mask, h0, c0, cdt):
+    """K1 as the encoders call it: (ys, hT, cT).  With autograd recording
+    and an input that needs a gradient it goes through ``BiLSTMScanCore``;
+    otherwise (serving) straight to the forward wrapper, saving nothing."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (wh, b, xw, h0, c0)):
+        return BiLSTMScanCore.apply(wh, b, xw, mask, h0, c0, cdt)
+    out, _ = scan_core_fwd(wh, b, xw, mask, h0, c0, cdt, save=False)
+    return out
 
 
 def fused_bilstm_scan(

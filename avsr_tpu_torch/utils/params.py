@@ -14,7 +14,7 @@ moved to ``device``.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
 
 import torch
 
@@ -59,6 +59,25 @@ def tree_map(fn, tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def tree_leaves(tree) -> List[Tuple[Tuple, Any]]:
+    """(path, leaf) for every leaf of a nested dict/list/tuple, in the
+    tree's own order (dict insertion, then list index)."""
+    out: List[Tuple[Tuple, Any]] = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, path + (k,))
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                walk(v, path + (i,))
+        else:
+            out.append((path, t))
+
+    walk(tree, ())
+    return out
 
 
 def param_count(params: Params) -> int:
