@@ -3,20 +3,24 @@
 The JAX package ``avsr_tpu`` is the reference; this package mirrors its
 layout module by module (``ops/``, ``models/``, ``decode/``, ``serve.py``)
 so each function's counterpart is found under the same path.  It imports
-``torch`` and never ``jax``.  The framework-free parts of the reference
-(``avsr_tpu.configs``, ``avsr_tpu.data.units``) are imported as they are.
+``torch`` and nothing of ``jax`` or ``avsr_tpu``: the framework-free parts
+of the reference it needs are copies of their own (``configs.py``,
+``data/units.py``).  Its entry points place tensors on the card unless the
+caller asks for the CPU.
 
-Covered so far: the serving path and the training step of the
-``lrs2_av_fast`` preset — compact-transfer dequantization, on-device noise
-mixing, the log-mel frontend, the BiLSTM encoders with pyramidal time
-reduction and dropout, the lip-ROI CNN, cross-attention fusion with the AU
-head, the transformer decoder (teacher-forced, and its KV-cache step for
-width-W beam search), the losses, the optimizer and the train step
-(``train/``).  The compute cores the JAX package hand-wrote or that carry
-its hand-written gradients (the direction-batched LSTM recurrence forward
-and backward, the post-DFT log-mel chain, the fusion attention forward and
-backward) run as hand-written CUDA kernels on a GPU (``kernels/``,
-``csrc/``) and as plain PyTorch on the CPU.
+Covered so far: the serving path, the eval-time greedy decode and the
+training step of the ``lrs2_av_fast`` preset — compact-transfer
+dequantization, on-device noise mixing, the log-mel frontend, the BiLSTM
+encoders with pyramidal time reduction and dropout, the lip-ROI CNN,
+cross-attention fusion with the AU head, the transformer decoder
+(teacher-forced, and its KV-cache step for width-W beam search and greedy
+decode), the losses, the optimizer and the train step (``train/``).  The
+compute cores run as hand-written CUDA kernels on a GPU (``kernels/``,
+``csrc/``) and as plain PyTorch on the CPU: the direction-batched LSTM
+recurrence forward and backward (K1), the post-DFT log-mel chain (K3), the
+fusion attention forward and backward (K4), the teacher-forced decoder
+attention forward and backward (K5), the single-query decode attention
+(K6) and the fused beam step (K7).
 
 Layouts follow the reference: time-major [T, B, D] inside the recurrent
 core and the fusion, batch-major at the API and for decoder memories.

@@ -39,7 +39,7 @@ def _walk(tree: Any, path: Tuple, leaf_fn):
     return leaf_fn(path, tree)
 
 
-def from_jax(tree: Any, *, device="cpu") -> Params:
+def from_jax(tree: Any, *, device="cuda") -> Params:
     """JAX parameter tree (numpy leaves) -> port parameters on ``device``."""
 
     def leaf(path, x):

@@ -11,6 +11,11 @@ Same semantics as the reference, top-1 only:
   descending sort, so ties resolve to the lower flat index exactly like
   ``lax.top_k``;
 * the decoder state is gathered by parent every step;
+* the step after the decoder (log-softmax, masks, length penalty, top-W,
+  gathers, trellis row) is kernel K7: ``beam_step`` launches
+  ``csrc/beam_step.cu`` for GPU tensors and runs ``beam_step_plain`` for
+  CPU tensors; the length penalty of every length is one table, computed
+  once, so both divide by the same values;
 * the loop exits early, on the host, once every beam of every row is
   finished or dead (score still ~NEG_INF) — the remaining steps would only
   append zero-score EOS continuations;
@@ -26,8 +31,9 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from avsr_tpu.configs import DecoderConfig
-from avsr_tpu.data.units import EOS_ID, GO_ID, PAD_ID
+from avsr_tpu_torch import kernels
+from avsr_tpu_torch.configs import DecoderConfig
+from avsr_tpu_torch.data.units import EOS_ID, GO_ID, PAD_ID
 from avsr_tpu_torch.models import decoder as dec
 from avsr_tpu_torch.ops import attention as attn
 
@@ -41,15 +47,69 @@ class BeamResult(NamedTuple):
     steps: int             # decode steps actually executed (early exit)
 
 
-def _length_penalty(lengths: torch.Tensor, alpha: float) -> torch.Tensor:
+class StepOut(NamedTuple):
+    flat_parent: torch.Tensor  # [B*W] int64: b * W + parent, the cache gather index
+    feed: torch.Tensor         # [B, W] int64: next input, EOS where the parent had finished
+    logp: torch.Tensor         # [B, W] f32
+    lens: torch.Tensor         # [B, W] int32
+    finished: torch.Tensor     # [B, W] bool
+
+
+def length_penalty_table(max_length: int, alpha: float, device) -> torch.Tensor:
+    """((5 + len) / 6)^alpha for len in [0, max_length], or ones for alpha 0."""
+    lengths = torch.arange(max_length + 1, device=device)
     if alpha == 0.0:
         return torch.ones_like(lengths, dtype=torch.float32)
     return torch.pow((5.0 + lengths.float()) / 6.0, alpha)
 
 
-def _tile_memory(mem: attn.AttentionMemory, width: int) -> attn.AttentionMemory:
-    """[B, ...] -> [B*W, ...] with beams contiguous per batch row."""
-    return attn.AttentionMemory(*(x.repeat_interleave(width, dim=0) for x in mem))
+def beam_step_plain(logits, logp, lens, finished, lp_table, tokens_row,
+                    parents_row) -> StepOut:
+    """Plain-PyTorch K7: one beam step from the decoder's fp32 logits
+    [B*W, V] and the beam state (logp [B,W] f32, lens [B,W] int32,
+    finished [B,W] bool).  Writes the chosen tokens and parents into the
+    trellis rows ``tokens_row`` / ``parents_row`` [B,W] int64."""
+    B, W = logp.shape
+    V = logits.shape[-1]
+    step_logp = torch.log_softmax(logits, dim=-1)
+    step_logp[:, PAD_ID] = NEG_INF
+    step_logp[:, GO_ID] = NEG_INF
+    eos_only = torch.full((V,), NEG_INF, device=logits.device)
+    eos_only[EOS_ID] = 0.0
+    step_logp = torch.where(finished[:, :, None], eos_only, step_logp.reshape(B, W, V))
+
+    cand_logp = logp[:, :, None] + step_logp                                  # [B, W, V]
+    cand_lens = (lens + (~finished).int())[:, :, None].expand(B, W, V)
+    cand_scores = cand_logp / lp_table[cand_lens.long()]
+    flat_idx = torch.sort(cand_scores.reshape(B, W * V), dim=1, descending=True,
+                          stable=True).indices[:, :W]
+    parent = flat_idx // V
+    token = flat_idx % V
+    was_finished = torch.gather(finished, 1, parent)
+    tokens_row.copy_(token)
+    parents_row.copy_(parent)
+    return StepOut(
+        flat_parent=(torch.arange(B, device=logits.device)[:, None] * W + parent).reshape(B * W),
+        feed=torch.where(was_finished, torch.full_like(token, EOS_ID), token),
+        logp=torch.gather(cand_logp.reshape(B, W * V), 1, flat_idx),
+        lens=torch.gather(cand_lens.reshape(B, W * V), 1, flat_idx),
+        finished=was_finished | (token == EOS_ID))
+
+
+def beam_step(logits, logp, lens, finished, lp_table, tokens_row, parents_row) -> StepOut:
+    """K7 wrapper: the CUDA kernel for GPU tensors, the plain version on the
+    CPU; same contract as ``beam_step_plain``."""
+    if logits.device.type == "cpu":
+        return beam_step_plain(logits, logp, lens, finished, lp_table, tokens_row, parents_row)
+    return StepOut(*kernels.beam_step(logits.float().contiguous(), logp, lens, finished,
+                                      lp_table, tokens_row, parents_row))
+
+
+def _tile_memory(mem: attn.AttentionMemory, width: int, cdt: torch.dtype) -> attn.AttentionMemory:
+    """[B, ...] -> [B*W, ...] with beams contiguous per batch row; the values
+    in the compute dtype, cast once here instead of at every step."""
+    values, mask, bias = (x.repeat_interleave(width, dim=0) for x in mem)
+    return attn.AttentionMemory(values=values.to(cdt), mask=mask, bias=bias)
 
 
 def beam_search(params, cfg: DecoderConfig, memories: Sequence[attn.AttentionMemory],
@@ -58,64 +118,39 @@ def beam_search(params, cfg: DecoderConfig, memories: Sequence[attn.AttentionMem
     B = memories[0].values.shape[0]
     W = beam_width
     dev = memories[0].values.device
-    tiled = [_tile_memory(m, W) for m in memories]
+    tiled = [_tile_memory(m, W, cdt) for m in memories]
     state = dec.initial_state(cfg, B * W, max_length, cdt, dev)
     cross_kv = dec.prepare_cross(params, cfg, tiled, cdt)
+    lp_table = length_penalty_table(max_length, length_penalty, dev)
 
-    tok = torch.full((B, W), GO_ID, dtype=torch.long, device=dev)
+    tok = torch.full((B * W,), GO_ID, dtype=torch.long, device=dev)
     logp = torch.full((B, W), NEG_INF, dtype=torch.float32, device=dev)
     logp[:, 0] = 0.0  # only beam 0 is live at step 0 (all beams start identical)
     finished = torch.zeros((B, W), dtype=torch.bool, device=dev)
-    lens = torch.zeros((B, W), dtype=torch.long, device=dev)
-    batch_offset = (torch.arange(B, device=dev) * W)[:, None]
+    lens = torch.zeros((B, W), dtype=torch.int32, device=dev)
     # Trellis pre-filled with the no-op continuation (token EOS, parent =
     # self): steps the early exit skips read as "every beam keeps feeding
     # EOS", which is what the full-horizon loop would have recorded.
     tokens_buf = torch.full((max_length, B, W), EOS_ID, dtype=torch.long, device=dev)
     parents_buf = torch.arange(W, device=dev).expand(max_length, B, W).clone()
-    eos_only = None
 
     t = 0
     while t < max_length:
         settled = finished | (logp < NEG_INF / 2)
         if bool(settled.all()):
             break
-        state, logits = dec.decoder_step(params, cfg, tok.reshape(B * W), state, tiled,
-                                         cross_kv, cdt)
-        V = logits.shape[-1]
-        step_logp = torch.log_softmax(logits, dim=-1)
-        step_logp[:, PAD_ID] = NEG_INF
-        step_logp[:, GO_ID] = NEG_INF
-        step_logp = step_logp.reshape(B, W, V)
-        if eos_only is None:
-            eos_only = torch.full((V,), NEG_INF, device=dev)
-            eos_only[EOS_ID] = 0.0
-        step_logp = torch.where(finished[:, :, None], eos_only, step_logp)
-
-        cand_logp = logp[:, :, None] + step_logp                                  # [B, W, V]
-        cand_lens = (lens + (~finished).long())[:, :, None].expand(B, W, V)
-        cand_scores = cand_logp / _length_penalty(cand_lens, length_penalty)
-        flat_idx = torch.sort(cand_scores.reshape(B, W * V), dim=1, descending=True,
-                              stable=True).indices[:, :W]
-        parent = flat_idx // V
-        token = flat_idx % V
-
-        logp = torch.gather(cand_logp.reshape(B, W * V), 1, flat_idx)
-        lens = torch.gather(cand_lens.reshape(B, W * V), 1, flat_idx)
-        was_finished = torch.gather(finished, 1, parent)
-        finished = was_finished | (token == EOS_ID)
-        flat_parent = (batch_offset + parent).reshape(B * W)
+        state, logits = dec.decoder_step(params, cfg, tok, state, tiled, cross_kv, cdt)
+        out = beam_step(logits, logp, lens, finished, lp_table, tokens_buf[t], parents_buf[t])
+        logp, lens, finished = out.logp, out.lens, out.finished
         state = state._replace(caches=tuple(
-            (k.index_select(0, flat_parent), v.index_select(0, flat_parent))
+            (k.index_select(0, out.flat_parent), v.index_select(0, out.flat_parent))
             for k, v in state.caches))
-        tok = torch.where(was_finished, torch.full_like(token, EOS_ID), token)
-        tokens_buf[t] = token
-        parents_buf[t] = parent
+        tok = out.feed.reshape(B * W)
         t += 1
 
     # Final ranking: normalized score, strongly preferring finished beams
     # when any beam of the row finished.
-    final_scores = logp / _length_penalty(lens, length_penalty)
+    final_scores = logp / lp_table[lens.long()]
     any_finished = finished.any(dim=1, keepdim=True)
     eff = torch.where(finished | ~any_finished, final_scores,
                       torch.full_like(final_scores, NEG_INF)).cpu()

@@ -11,8 +11,9 @@ flags, and is reused while they are unchanged.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no ``nvcc`` and no GPU.  The functions below are the CUDA side
-of the wrappers in ``ops/rnn.py``, ``ops/audio_features.py`` and
-``models/fusion.py``; each one checks its tensors, allocates the outputs
+of the wrappers in ``ops/rnn.py``, ``ops/audio_features.py``,
+``models/fusion.py``, ``models/transformer_decoder.py`` and
+``decode/beam.py``; each one checks its tensors, allocates the outputs
 and scratch with ``torch.empty`` / ``torch.zeros``, launches on the current
 stream, raises on a nonzero CUDA status, and adds one to its entry of
 ``LAUNCHES``.
@@ -43,6 +44,8 @@ NVCC_FLAGS = (
 LAUNCHES: Dict[str, int] = {
     "lstm_scan_fwd": 0, "lstm_scan_bwd": 0, "logmel_post_dft": 0,
     "fusion_attention_fwd": 0, "fusion_attention_bwd": 0,
+    "decoder_attention_fwd": 0, "decoder_attention_bwd": 0,
+    "decode_attention": 0, "beam_step": 0,
 }
 
 LSTM_UNIT_TILE = 16  # hidden units per block of the LSTM kernels (UT in the source)
@@ -134,12 +137,22 @@ def _load() -> ctypes.CDLL:
             p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p,
         ]
         lib.avsr_logmel_post_dft.restype = i
+        lib.avsr_decoder_attn_smem.argtypes = [i, i, i, i]
+        lib.avsr_decoder_attn_smem.restype = ctypes.c_longlong
+        lib.avsr_decoder_attn_fwd.argtypes = [p] * 6 + [i] * 6 + [p]
+        lib.avsr_decoder_attn_fwd.restype = i
+        lib.avsr_decoder_attn_bwd.argtypes = [p] * 9 + [i] * 6 + [p]
+        lib.avsr_decoder_attn_bwd.restype = i
+        lib.avsr_decode_attn.argtypes = [p] * 5 + [i] * 6 + [p]
+        lib.avsr_decode_attn.restype = i
+        lib.avsr_beam_step.argtypes = [p] * 12 + [i] * 4 + [p]
+        lib.avsr_beam_step.restype = i
         _lib = lib
     return _lib
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: Tuple,
-           device: torch.device) -> None:
+           device: torch.device, align: int = 16) -> None:
     if x.device != device or x.device.type != "cuda":
         raise ValueError(f"{name}: expected a tensor on {device}, got {x.device}")
     if x.dtype != dtype:
@@ -148,8 +161,8 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: Tuple,
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
-    if x.data_ptr() % 16:
-        raise ValueError(f"{name}: expected a 16-byte aligned tensor")
+    if x.data_ptr() % align:
+        raise ValueError(f"{name}: expected a {align}-byte aligned tensor")
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -330,26 +343,157 @@ def fusion_attention_fwd(q, k, v, video_lengths):
     return ctx, P
 
 
+def _attention_bwd(name, entry, q, k, v, weights, dctx, dims):
+    """The softmax-attention backward that K4 and K5 share
+    (``csrc/attention_core.cuh``, two launches): the forward's q, k, v, its
+    fp32 weights [B,nh,T_q,T_k] and the context cotangent dctx
+    [B,T_q,nh,dv] bf16 -> (dq, dk, dv) in bf16."""
+    B, Ta, Tv, nh, A, dv = dims
+    dev = q.device
+    _check("weights", weights, torch.float32, (B, nh, Ta, Tv), dev)
+    _check("dctx", dctx, torch.bfloat16, (B, Ta, nh, dv), dev)
+    dsc = torch.empty((B, nh, Ta, Tv), dtype=torch.bfloat16, device=dev)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dvv = torch.empty_like(v)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), weights.data_ptr(), dctx.data_ptr(),
+                dsc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
+                B, Ta, Tv, nh, A, dv, stream)
+    _raise_on(err, f"{name} launch")
+    LAUNCHES[name] += 1
+    return dq, dk, dvv
+
+
 def fusion_attention_bwd(q, k, v, weights, dctx):
     """K4: the cross-attention fusion core, backward (CUDA).
 
     The forward's q, k, v, its fp32 weights [B,nh,T_a,T_v] and the context
     cotangent dctx [B,T_a,nh,dv] bf16 -> (dq, dk, dv) in bf16.
     """
+    dims = _check_fusion(q, k, v, q.device)
+    return _attention_bwd("fusion_attention_bwd", _load().avsr_fusion_attn_bwd, q, k, v,
+                          weights, dctx, dims)
+
+
+def _check_decoder_attention(q, k, v, dev):
+    B, Q, nh, dk = q.shape
+    S, dv = k.shape[1], v.shape[-1]
+    _check("q", q, torch.bfloat16, (B, Q, nh, dk), dev)
+    _check("k", k, torch.bfloat16, (B, S, nh, dk), dev)
+    _check("v", v, torch.bfloat16, (B, S, nh, dv), dev)
+    if dk % 8 or dv % 8 or Q < 1 or S < 1:
+        raise ValueError(f"decoder attention: head dims {dk}/{dv} must be multiples of 8, "
+                         f"Q={Q} and S={S} at least 1")
+    smem = _load().avsr_decoder_attn_smem(Q, S, dk, dv)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"decoder attention: Q={Q}, S={S}, dk={dk}, dv={dv} need {smem} "
+                         f"bytes of shared memory per block (limit {SMEM_LIMIT})")
+    return B, Q, S, nh, dk, dv
+
+
+def decoder_attention_fwd(q, k, v, bias, *, save: bool):
+    """K5: the teacher-forced decoder attention, forward (CUDA).
+
+    q [B,Q,nh,dk], k [B,S,nh,dk], v [B,S,nh,dv] bf16; ``bias`` [B,S] f32
+    (the memory's additive key bias) or None for the causal mask (Q == S)
+    -> (ctx [B,Q,nh,dv] bf16, weights [B,nh,Q,S] f32 when ``save``, else
+    None: the backward's residual).
+    """
     dev = q.device
-    B, Ta, Tv, nh, A, dv = _check_fusion(q, k, v, dev)
-    _check("weights", weights, torch.float32, (B, nh, Ta, Tv), dev)
-    _check("dctx", dctx, torch.bfloat16, (B, Ta, nh, dv), dev)
+    B, Q, S, nh, dk, dv = _check_decoder_attention(q, k, v, dev)
+    if bias is None and Q != S:
+        raise ValueError(f"decoder attention: the causal mask needs Q == S, got {Q} and {S}")
+    if bias is not None:
+        _check("bias", bias, torch.float32, (B, S), dev)
     lib = _load()
-    dsc = torch.empty((B, nh, Ta, Tv), dtype=torch.bfloat16, device=dev)
-    dq = torch.empty_like(q)
-    dk = torch.empty_like(k)
-    dvv = torch.empty_like(v)
+    P = torch.empty((B, nh, Q, S), dtype=torch.float32, device=dev) if save else None
+    ctx = torch.empty((B, Q, nh, dv), dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.avsr_fusion_attn_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), weights.data_ptr(), dctx.data_ptr(),
-        dsc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
-        B, Ta, Tv, nh, A, dv, stream)
-    _raise_on(err, "fusion_attention_bwd launch")
-    LAUNCHES["fusion_attention_bwd"] += 1
-    return dq, dk, dvv
+    err = lib.avsr_decoder_attn_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
+        None if P is None else P.data_ptr(), ctx.data_ptr(), B, Q, S, nh, dk, dv, stream)
+    _raise_on(err, "decoder_attention_fwd launch")
+    LAUNCHES["decoder_attention_fwd"] += 1
+    return ctx, P
+
+
+def decoder_attention_bwd(q, k, v, weights, dctx):
+    """K5: the teacher-forced decoder attention, backward (CUDA).
+
+    The forward's q, k, v, its fp32 weights [B,nh,Q,S] and the context
+    cotangent dctx [B,Q,nh,dv] bf16 -> (dq, dk, dv) in bf16.  The mask
+    enters only through the weights.
+    """
+    dims = _check_decoder_attention(q, k, v, q.device)
+    return _attention_bwd("decoder_attention_bwd", _load().avsr_decoder_attn_bwd, q, k, v,
+                          weights, dctx, dims)
+
+
+def decode_attention(q, k, v, bias, n_keys: int):
+    """K6: single-query decode attention (CUDA).
+
+    q [N,nh,dk] bf16 against k [N,L,nh,dk] and v [N,L,nh,dv] bf16; ``bias``
+    [N,L] f32 adds the memory's key bias to all L keys (cross attention,
+    ``n_keys`` == L), or None: self attention over keys [0, n_keys) of the
+    cache -> ctx [N,nh,dv] bf16.
+    """
+    N, nh, dk = q.shape
+    L, dv = k.shape[1], v.shape[-1]
+    dev = q.device
+    _check("q", q, torch.bfloat16, (N, nh, dk), dev)
+    _check("k", k, torch.bfloat16, (N, L, nh, dk), dev)
+    _check("v", v, torch.bfloat16, (N, L, nh, dv), dev)
+    if bias is not None:
+        _check("bias", bias, torch.float32, (N, L), dev)
+    if dk % 8 or dv % 8:
+        raise ValueError(f"decode attention: head dims {dk}/{dv} must be multiples of 8")
+    if not 1 <= n_keys <= L or (bias is not None and n_keys != L):
+        raise ValueError(f"decode attention: n_keys={n_keys} with L={L}")
+    lib = _load()
+    ctx = torch.empty((N, nh, dv), dtype=torch.bfloat16, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.avsr_decode_attn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
+        ctx.data_ptr(), N, L, n_keys, nh, dk, dv, stream)
+    _raise_on(err, "decode_attention launch")
+    LAUNCHES["decode_attention"] += 1
+    return ctx
+
+
+def beam_step(logits, logp, lens, finished, lp_table, tokens_row, parents_row):
+    """K7: one fused beam step (CUDA).
+
+    logits [B*W,V] f32, logp [B,W] f32, lens [B,W] int32, finished [B,W]
+    bool, lp_table [n] f32 (the length penalty of each length); the token
+    and parent rows [B,W] int64 (row t of the trellis) are written in place
+    -> (flat_parent [B*W] int64, feed [B,W] int64, logp, lens, finished).
+    """
+    B, W = logp.shape
+    V = logits.shape[-1]
+    dev = logits.device
+    _check("logits", logits, torch.float32, (B * W, V), dev)
+    _check("logp", logp, torch.float32, (B, W), dev)
+    _check("lens", lens, torch.int32, (B, W), dev)
+    _check("finished", finished, torch.bool, (B, W), dev)
+    _check("lp_table", lp_table, torch.float32, tuple(lp_table.shape), dev)
+    # rows of the [L, B, W] trellis: 8-byte aligned whatever B * W is
+    _check("tokens_row", tokens_row, torch.int64, (B, W), dev, align=8)
+    _check("parents_row", parents_row, torch.int64, (B, W), dev, align=8)
+    if lp_table.dim() != 1 or 2 * W * V * 4 + 32 * 4 > 48 * 1024:
+        raise ValueError(f"beam step: W={W}, V={V} or a length table of {tuple(lp_table.shape)}")
+    lib = _load()
+    flat_parent = torch.empty((B * W,), dtype=torch.int64, device=dev)
+    feed = torch.empty((B, W), dtype=torch.int64, device=dev)
+    logp_out = torch.empty_like(logp)
+    lens_out = torch.empty_like(lens)
+    finished_out = torch.empty_like(finished)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.avsr_beam_step(
+        logits.data_ptr(), logp.data_ptr(), lens.data_ptr(), finished.data_ptr(),
+        lp_table.data_ptr(), tokens_row.data_ptr(), parents_row.data_ptr(),
+        flat_parent.data_ptr(), feed.data_ptr(), logp_out.data_ptr(), lens_out.data_ptr(),
+        finished_out.data_ptr(), B, W, V, lp_table.shape[0], stream)
+    _raise_on(err, "beam_step launch")
+    LAUNCHES["beam_step"] += 1
+    return flat_parent, feed, logp_out, lens_out, finished_out

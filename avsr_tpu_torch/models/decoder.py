@@ -12,7 +12,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from avsr_tpu.configs import DecoderConfig
+from avsr_tpu_torch.configs import DecoderConfig
 from avsr_tpu_torch.models import transformer_decoder as tdec
 from avsr_tpu_torch.ops import attention as attn
 from avsr_tpu_torch.utils.params import Params
@@ -24,7 +24,7 @@ def _check(cfg: DecoderConfig) -> None:
 
 
 def decoder_init(gen: torch.Generator, cfg: DecoderConfig, memory_dims: Sequence[int],
-                 vocab_size: int, device="cpu") -> Params:
+                 vocab_size: int, device) -> Params:
     _check(cfg)
     return tdec.transformer_decoder_init(gen, cfg, memory_dims, vocab_size, device)
 

@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from avsr_tpu.configs import EncoderConfig
+from avsr_tpu_torch.configs import EncoderConfig
 from avsr_tpu_torch.ops import rnn
 from avsr_tpu_torch.utils.params import Params
 from avsr_tpu_torch.utils.rng import dropout_mask
@@ -54,7 +54,7 @@ def _check_supported(cfg: EncoderConfig) -> None:
 
 
 def encoder_init(gen: torch.Generator, cfg: EncoderConfig, input_dim: int,
-                 device="cpu") -> Params:
+                 device) -> Params:
     _check_supported(cfg)
     layers = []
     d = input_dim

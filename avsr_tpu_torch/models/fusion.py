@@ -24,7 +24,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from avsr_tpu.configs import FusionConfig
+from avsr_tpu_torch.configs import FusionConfig
 from avsr_tpu_torch import kernels
 from avsr_tpu_torch.utils.numerics import dot_f32
 from avsr_tpu_torch.utils.params import Params, glorot_uniform, zeros
@@ -37,7 +37,7 @@ class FusionOutput(NamedTuple):
 
 
 def cross_attention_fusion_init(gen: torch.Generator, cfg: FusionConfig, audio_dim: int,
-                                video_dim: int, device="cpu") -> Params:
+                                video_dim: int, device) -> Params:
     ctx_dim = cfg.memory_value_dim or video_dim
     if ctx_dim % cfg.num_heads != 0:
         raise ValueError(

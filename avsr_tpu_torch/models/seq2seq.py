@@ -24,7 +24,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from avsr_tpu.configs import ExperimentConfig
+from avsr_tpu_torch.configs import ExperimentConfig
 from avsr_tpu_torch.models import decoder as dec
 from avsr_tpu_torch.models import encoder as enc
 from avsr_tpu_torch.models import fusion as fus
@@ -68,7 +68,7 @@ def memory_dims_of(cfg: ExperimentConfig) -> List[int]:
 
 
 def model_init(cfg: ExperimentConfig, vocab_size: int, generator: torch.Generator,
-               device="cpu") -> Params:
+               device="cuda") -> Params:
     """Random parameters with the reference tree's keys, shapes and
     distributions (``avsr_tpu/models/seq2seq.py:model_init``)."""
     _check_supported(cfg)

@@ -15,8 +15,20 @@ beam engine's parent gather makes a fresh copy every step anyway.
 
 ``teacher_forced_logits`` runs every label position in one causal pass
 (training), with inverted dropout on the self-attention, cross-attention
-and FFN outputs drawn from the step's generator.  Plain PyTorch: its
-attention (K5) is the next kernel to port.
+and FFN outputs drawn from the step's generator.
+
+The attention cores are kernels; the projections, LayerNorms, FFN and
+logits stay matrix products, as the reference leaves them to XLA:
+
+* K5, the teacher-forced attention (causal self attention, and cross
+  attention under the memory's key bias): ``DecoderAttention`` is its
+  ``torch.autograd.Function``; ``decoder_attention_fwd`` / ``_bwd`` launch
+  the CUDA kernels (``csrc/decoder_attention.cu``) for GPU tensors and run
+  ``decoder_attention_fwd_plain`` / ``_bwd_plain`` for CPU tensors.
+* K6, the single-query attention of ``decode_step`` (self attention over
+  the KV cache, cross attention over the prepared memory):
+  ``decode_attention`` launches ``csrc/decode_attention.cu`` for GPU
+  tensors and runs ``decode_attention_plain`` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -27,8 +39,10 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from avsr_tpu.configs import DecoderConfig
-from avsr_tpu.data.units import GO_ID
+from avsr_tpu_torch import kernels
+from avsr_tpu_torch.configs import DecoderConfig
+from avsr_tpu_torch.data.units import GO_ID
+from avsr_tpu_torch.models.fusion import fusion_attention_bwd_plain
 from avsr_tpu_torch.models.transformer_common import layer_norm, sinusoidal_pe
 from avsr_tpu_torch.ops import attention as attn
 from avsr_tpu_torch.utils.params import Params, glorot_uniform, normal_init, zeros
@@ -51,9 +65,113 @@ def validate_config(cfg: DecoderConfig, ctx_dims: Sequence[int]) -> int:
     return d
 
 
+def _check_policy(q: torch.Tensor) -> None:
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the decoder attention kernels run the bf16 policy only, got {q.dtype}")
+
+
+def decoder_attention_fwd_plain(q, k, v, bias):
+    """Plain-PyTorch K5 forward.  q [B,Q,nh,dk], k [B,S,nh,dk], v [B,S,nh,dv]
+    in the compute dtype; ``bias`` [B,S] fp32 adds the memory's key bias,
+    None applies the causal mask (-1e9 where key > query, Q == S) ->
+    (ctx [B,Q,nh,dv] in the compute dtype, weights [B,nh,Q,S] fp32)."""
+    Q, S, dk = q.shape[1], k.shape[1], q.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(dk)
+    if bias is None:
+        causal = (torch.arange(S, device=q.device)[None, :]
+                  <= torch.arange(Q, device=q.device)[:, None]).float()
+        scores = scores + (1.0 - causal)[None, None] * -1e9
+    else:
+        scores = scores + bias[:, None, None, :]
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w.to(q.dtype), v), w
+
+
+def decoder_attention_bwd_plain(q, k, v, weights, dctx):
+    """Plain-PyTorch K5 backward: the gradient JAX's autodiff takes through
+    the reference core, with its rounding points.  The mask enters only
+    through the weights (masked entries are exactly 0), so this is the
+    softmax-attention backward K4 uses -> (dq, dk, dv)."""
+    return fusion_attention_bwd_plain(q, k, v, weights, dctx)
+
+
+def decoder_attention_fwd(q, k, v, bias, *, save: bool = False):
+    """K5 forward wrapper: the CUDA kernel for GPU tensors, the plain
+    version on the CPU -> (ctx, weights if ``save`` else None)."""
+    if q.device.type == "cpu":
+        ctx, w = decoder_attention_fwd_plain(q, k, v, bias)
+        return ctx, (w if save else None)
+    _check_policy(q)
+    return kernels.decoder_attention_fwd(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        None if bias is None else bias.contiguous(), save=save)
+
+
+def decoder_attention_bwd(q, k, v, weights, dctx):
+    """K5 backward wrapper: the CUDA kernel for GPU tensors, the plain
+    version on the CPU; same contract as ``decoder_attention_bwd_plain``."""
+    if q.device.type == "cpu":
+        return decoder_attention_bwd_plain(q, k, v, weights, dctx)
+    _check_policy(q)
+    return kernels.decoder_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                                         weights.contiguous(),
+                                         dctx.to(torch.bfloat16).contiguous())
+
+
+class DecoderAttention(torch.autograd.Function):
+    """K5 with its gradient: ctx from q, k, v under the causal mask (bias
+    None) or the memory's key bias, which takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        out, w = decoder_attention_fwd(q, k, v, bias, save=True)
+        ctx.save_for_backward(q, k, v, w)
+        return out
+
+    @staticmethod
+    def backward(ctx, dctx):
+        q, k, v, w = ctx.saved_tensors
+        dq, dk, dv = decoder_attention_bwd(q, k, v, w, dctx)
+        return dq, dk, dv, None
+
+
+def decoder_attention(q, k, v, bias):
+    """K5 as the decoder calls it: through ``DecoderAttention`` when autograd
+    records a gradient for q, k or v, else straight to the forward wrapper."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return DecoderAttention.apply(q, k, v, bias)
+    return decoder_attention_fwd(q, k, v, bias)[0]
+
+
+def decode_attention_plain(q, k, v, bias, n_keys: int):
+    """Plain-PyTorch K6.  q [N,nh,dk] against k [N,L,nh,dk], v [N,L,nh,dv]
+    in the compute dtype.  ``bias`` [N,L] fp32 adds the memory's key bias
+    (cross attention); None is the self attention at position
+    ``n_keys - 1``: keys at or past ``n_keys`` get -1e9 -> ctx [N,nh,dv]."""
+    L, dk = k.shape[1], q.shape[-1]
+    scores = torch.einsum("nhd,nlhd->nhl", q, k).float() / math.sqrt(dk)
+    if bias is None:
+        valid = (torch.arange(L, device=q.device) < n_keys).float()
+        scores = scores + (1.0 - valid) * -1e9
+    else:
+        scores = scores + bias[:, None, :]
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("nhl,nlhd->nhd", w, v)
+
+
+def decode_attention(q, k, v, bias, n_keys: int):
+    """K6 wrapper: the CUDA kernel for GPU tensors, the plain version on the
+    CPU; same contract as ``decode_attention_plain``."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, bias, n_keys)
+    _check_policy(q)
+    return kernels.decode_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                    None if bias is None else bias.contiguous(), n_keys)
+
+
 def transformer_decoder_init(gen: torch.Generator, cfg: DecoderConfig,
                              memory_dims: Sequence[int], vocab_size: int,
-                             device="cpu") -> Params:
+                             device) -> Params:
     ctx_dims = [cfg.memory_value_dim or m for m in memory_dims]
     d = validate_config(cfg, ctx_dims)
     qk = cfg.attention_units * cfg.num_heads
@@ -116,12 +234,9 @@ def _cross_attend_rows(layer, cfg: DecoderConfig, h, memories, cross_keys, cdt):
     for mem, k_proj in zip(memories, cross_keys):
         N, S, _ = k_proj.shape
         k = k_proj.reshape(N, S, nh, A)
-        scores = torch.einsum("nha,nsha->nhs", q, k).float()
-        scores = scores / math.sqrt(A) + mem.bias[:, None, :]
-        w = torch.softmax(scores, dim=-1).to(cdt)
         mv = mem.values.shape[-1]
         v = mem.values.to(cdt).reshape(N, S, nh, mv // nh)
-        ctxs.append(torch.einsum("nhs,nshd->nhd", w, v).reshape(N, mv))
+        ctxs.append(decode_attention(q, k, v, mem.bias, S).reshape(N, mv))
     return torch.cat(ctxs, dim=-1)
 
 
@@ -140,7 +255,6 @@ def decode_step(params: Params, cfg: DecoderConfig, tokens: torch.Tensor,
     emb = params["embedding"][tokens]
     h = (emb.to(cdt) @ params["in_proj"].to(cdt)).float()
     h = h * math.sqrt(d) + sinusoidal_pe(L, d, dev)[pos]
-    causal = (torch.arange(L, device=dev) <= pos).float()  # [L]
 
     new_caches: List[Tuple[torch.Tensor, torch.Tensor]] = []
     for layer, (k_cache, v_cache), cross_keys in zip(params["layers"], state.caches, cross_kv):
@@ -151,10 +265,7 @@ def decode_step(params: Params, cfg: DecoderConfig, tokens: torch.Tensor,
         new_caches.append((k_cache, v_cache))
         kh = k_cache.to(cdt).reshape(N, L, nh, dh)
         vh = v_cache.to(cdt).reshape(N, L, nh, dh)
-        scores = torch.einsum("nhd,nlhd->nhl", q, kh).float() / math.sqrt(dh)
-        scores = scores + (1.0 - causal) * -1e9
-        w = torch.softmax(scores, dim=-1).to(cdt)
-        att = torch.einsum("nhl,nlhd->nhd", w, vh).reshape(N, d)
+        att = decode_attention(q, kh, vh, None, pos + 1).reshape(N, d)
         h = h + (att @ layer["wo"].to(cdt)).float()
 
         ctx = _cross_attend_rows(layer, cfg, h, memories, cross_keys, cdt)
@@ -198,17 +309,13 @@ def teacher_forced_logits(params: Params, cfg: DecoderConfig, targets: torch.Ten
     emb = F.embedding(shifted.long(), params["embedding"])
     h = (emb.to(cdt) @ params["in_proj"].to(cdt)).float()
     h = h * math.sqrt(d) + sinusoidal_pe(K, d, dev)[None]
-    causal = (torch.arange(K, device=dev)[None, :] <= torch.arange(K, device=dev)[:, None]).float()
 
     for layer in params["layers"]:
         y = layer_norm(h, layer["ln1_scale"], layer["ln1_bias"]).to(cdt)
         q = (y @ layer["wq"].to(cdt)).reshape(B, K, nh, dh)
         k = (y @ layer["wk"].to(cdt)).reshape(B, K, nh, dh)
         v = (y @ layer["wv"].to(cdt)).reshape(B, K, nh, dh)
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(dh)
-        scores = scores + (1.0 - causal)[None, None] * -1e9
-        w = torch.softmax(scores, dim=-1).to(cdt)
-        att = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, K, d)
+        att = decoder_attention(q, k, v, None).reshape(B, K, d)
         att = (att @ layer["wo"].to(cdt)).float()
         if drop > 0.0:
             att = _dropout(att, drop, generator)
@@ -220,12 +327,9 @@ def teacher_forced_logits(params: Params, cfg: DecoderConfig, targets: torch.Ten
         for mem, ck in zip(memories, layer["ck"]):
             S = mem.values.shape[1]
             mk = (mem.values.to(cdt) @ ck.to(cdt)).reshape(B, S, nh, A)
-            cs = torch.einsum("bqha,bsha->bhqs", q, mk).float()
-            cs = cs / math.sqrt(A) + mem.bias[:, None, None, :]
-            cw = torch.softmax(cs, dim=-1).to(cdt)
             mv = mem.values.shape[-1]
             mvh = mem.values.to(cdt).reshape(B, S, nh, mv // nh)
-            ctxs.append(torch.einsum("bhqs,bshd->bqhd", cw, mvh).reshape(B, K, mv))
+            ctxs.append(decoder_attention(q, mk, mvh, mem.bias).reshape(B, K, mv))
         ctx = torch.cat(ctxs, dim=-1)
         ctx = (ctx.to(cdt) @ layer["co"].to(cdt)).float()
         if drop > 0.0:

@@ -16,12 +16,12 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from avsr_tpu.configs import VideoFrontendConfig
+from avsr_tpu_torch.configs import VideoFrontendConfig
 from avsr_tpu_torch.utils.numerics import dot_f32
 from avsr_tpu_torch.utils.params import Params, glorot_uniform, zeros
 
 
-def video_cnn_init(gen: torch.Generator, cfg: VideoFrontendConfig, device="cpu") -> Params:
+def video_cnn_init(gen: torch.Generator, cfg: VideoFrontendConfig, device) -> Params:
     if cfg.use_au_features:
         raise ValueError("the port runs the CNN video frontend only (no AU features)")
     params: Params = {"convs": []}
@@ -29,9 +29,9 @@ def video_cnn_init(gen: torch.Generator, cfg: VideoFrontendConfig, device="cpu")
     h, w = cfg.roi_height, cfg.roi_width
     k = cfg.conv_kernel
     for c_out in cfg.conv_channels:
-        hwio = glorot_uniform(gen, (k * k * c_in, c_out)).reshape(k, k, c_in, c_out)
+        hwio = glorot_uniform(gen, (k * k * c_in, c_out), device).reshape(k, k, c_in, c_out)
         params["convs"].append({
-            "w": hwio.permute(3, 2, 0, 1).contiguous().to(device),
+            "w": hwio.permute(3, 2, 0, 1).contiguous(),
             "b": zeros((c_out,), device),
         })
         c_in = c_out

@@ -27,7 +27,7 @@ class AttentionMemory(NamedTuple):
 
 
 def value_only_init(gen: torch.Generator, memory_dim: int, value_dim: Optional[int],
-                    device="cpu") -> Params:
+                    device) -> Params:
     params: Params = {}
     if value_dim is not None:
         params["wv"] = glorot_uniform(gen, (memory_dim, value_dim), device)

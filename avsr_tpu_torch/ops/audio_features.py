@@ -21,7 +21,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from avsr_tpu.configs import AudioFrontendConfig
+from avsr_tpu_torch.configs import AudioFrontendConfig
 from avsr_tpu_torch import kernels
 from avsr_tpu_torch.utils.numerics import dot_f32
 

@@ -28,7 +28,7 @@ from avsr_tpu_torch import kernels
 from avsr_tpu_torch.utils.params import Params, glorot_uniform, orthogonal
 
 
-def lstm_init(gen: torch.Generator, input_dim: int, hidden: int, device="cpu") -> Params:
+def lstm_init(gen: torch.Generator, input_dim: int, hidden: int, device) -> Params:
     """``wx [D,4H]`` Glorot, ``wh [H,4H]`` block-orthogonal, ``b [4H]``
     zeros with forget-gate bias 1 (gate order i, f, g, o)."""
     b = torch.zeros(4 * hidden, dtype=torch.float32)

@@ -19,8 +19,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from avsr_tpu.configs import ExperimentConfig
-from avsr_tpu.data.units import EOS_ID, GO_ID, PAD_ID, UnitDict
+from avsr_tpu_torch.configs import ExperimentConfig
+from avsr_tpu_torch.data.units import EOS_ID, GO_ID, PAD_ID, UnitDict
 from avsr_tpu_torch.decode.beam import BeamResult, beam_search
 from avsr_tpu_torch.models import seq2seq
 from avsr_tpu_torch.utils.numerics import compute_dtype_of

@@ -29,7 +29,7 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
-from avsr_tpu.configs import TrainConfig
+from avsr_tpu_torch.configs import TrainConfig
 
 Schedule = Callable[[int], float]
 

@@ -23,7 +23,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from avsr_tpu.configs import ExperimentConfig
+from avsr_tpu_torch.configs import ExperimentConfig
 from avsr_tpu_torch.models import seq2seq
 from avsr_tpu_torch.models.seq2seq import Batch
 from avsr_tpu_torch.train.optim import Optimizer, build_optimizer, global_norm

@@ -21,14 +21,14 @@ import torch
 Params = Dict[str, Any]
 
 
-def glorot_uniform(gen: torch.Generator, shape, device="cpu") -> torch.Tensor:
+def glorot_uniform(gen: torch.Generator, shape, device) -> torch.Tensor:
     fan_in, fan_out = shape[0], shape[-1]
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     u = torch.rand(shape, generator=gen, dtype=torch.float32)
     return (u * (2.0 * limit) - limit).to(device)
 
 
-def orthogonal(gen: torch.Generator, shape, device="cpu", gain=1.0) -> torch.Tensor:
+def orthogonal(gen: torch.Generator, shape, device, gain=1.0) -> torch.Tensor:
     """Orthogonal init (rows x cols); for [H, 4H] builds 4 orthogonal blocks."""
     rows, cols = shape
     if cols % rows == 0 and cols != rows:
@@ -44,11 +44,11 @@ def _orthogonal_square(gen: torch.Generator, n: int) -> torch.Tensor:
     return q * torch.sign(torch.diagonal(r))[None, :]
 
 
-def normal_init(gen: torch.Generator, shape, device="cpu", stddev=0.02) -> torch.Tensor:
+def normal_init(gen: torch.Generator, shape, device, stddev=0.02) -> torch.Tensor:
     return (stddev * torch.randn(shape, generator=gen, dtype=torch.float32)).to(device)
 
 
-def zeros(shape, device="cpu") -> torch.Tensor:
+def zeros(shape, device) -> torch.Tensor:
     return torch.zeros(shape, dtype=torch.float32, device=device)
 
 

@@ -40,9 +40,35 @@ Phases, in order; any failure exits nonzero before the final line:
              training steps; (c) 10 steps on one batch at a constant lr,
              the last loss below the first; (d) median ms per step after 2
              warm-up steps, 10 ms audio frames/s, peak device memory.
+9. K5      — the teacher-forced decoder attention kernels, forward and
+             backward, against their plain twins at both main-path
+             instances: causal self attention [B=128, Q=S=80, 4 heads,
+             dk=dv=64] and cross attention [B=128, Q=80, S=50, dk=128,
+             dv=256] under the memory bias, with a row whose every key is
+             masked: errors on ctx, P, dq, dk, dv; times; a one-call
+             library yardstick (scaled_dot_product_attention, same mask).
+10. K6     — single-query decode attention against its plain twin at N=80
+             and N=128, pos 0/37/149 over the self KV cache [L=150, 4x64]
+             and over the memory [S=50, dk=128, dv=256] with a length-0
+             row; times and the yardstick at N=80.
+11. K7     — the fused beam step against its plain twin at [B=8, W=10,
+             V=44]: random logits and states, finished beams, alpha 0 and
+             0.6 (identical parents, tokens, lens, finished, feeds; logp
+             within tolerance), then crafted exact ties (lower flat index
+             first); times.
+12. greedy — greedy decode of one B=128 batch of 6 s utterances, horizon
+             150, on the kernel path (K6 launches counted) and on the plain
+             path: decode ms, steps, rows with identical ids.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+Serve (5) also beams the same memories through the plain path and holds
+the best scores to a tolerance.  Serve, train and greedy each end with a
+``torch.profiler`` reading of one run: the device's busy share of the host
+span, device events per beam, train or decode step, and the top kernels.
+The line before the last is a JSON object with one entry per kernel
+(launches over the serve, train and greedy runs, errors, kernel / plain /
+library ms from CUDA events, the kernel's device ms from the profiler, the
+bound from this run's shapes); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -75,8 +101,32 @@ K4_GRAD_REL_TOL = 2e-2
 # rounding flips through 4 recurrent layers, forward and backward.
 LOSS_REL_TOL = 1e-2
 GRAD_LEAF_REL_TOL = 5e-2
+# K5: the K4 tolerances, for the same reasons (bf16 ctx and gradients, fp32
+# P from bf16-rounded scores).
+K5_CTX_TOL = 2e-2
+K5_P_TOL = 5e-3
+K5_GRAD_REL_TOL = 2e-2
+# K6: bf16 context of order one; a score whose bf16 rounding flips after
+# another summation order moves its weight by ~0.4% of itself.
+K6_TOL = 2e-2
+# K7: parents, tokens, lens, finished and feeds identical; the new log probs
+# add a log-softmax whose max/sum are reduced in another order (fp32 ulps of
+# values up to ~30): |kernel - plain| <= 1e-4 + 1e-6 * |plain|.
+K7_LOGP_ATOL, K7_LOGP_RTOL = 1e-4, 1e-6
+# serve: best beam scores of the kernel and the plain path, 150 steps of
+# log probs (~-600) whose logits differ by bf16 ulps at each K6 read; near
+# ties may send the two beams down different, equally scored paths.
+BEAM_SCORE_REL_TOL = 1e-2
 
-SERVE_KERNELS = ("lstm_scan_fwd", "logmel_post_dft", "fusion_attention_fwd")
+# H100 SXM peaks (NVIDIA data sheet): the bounds of the kernels line
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+
+SERVE_KERNELS = ("lstm_scan_fwd", "logmel_post_dft", "fusion_attention_fwd",
+                 "decode_attention", "beam_step")
+TRAIN_KERNELS = ("lstm_scan_fwd", "lstm_scan_bwd", "logmel_post_dft", "fusion_attention_fwd",
+                 "fusion_attention_bwd", "decoder_attention_fwd", "decoder_attention_bwd")
+GREEDY_KERNELS = ("decode_attention",)
 
 
 def fail(phase: str, msg: str) -> None:
@@ -101,6 +151,88 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_events(fn):
+    """Run ``fn`` under ``torch.profiler``: (the device's kernel and copy
+    events as (start us, end us, name), the host span of the run in us)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = prof.events()
+    dev = [(e.time_range.start, e.time_range.end, e.name) for e in evs
+           if e.device_type == DeviceType.CUDA]
+    host = [e.time_range for e in evs if e.device_type == DeviceType.CPU]
+    span = (max(r.end for r in host) - min(r.start for r in host)) if host else 0.0
+    return dev, span
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 3):
+    """Device time of one call of ``fn`` from the profiler's kernel events
+    (no host dispatch in it), or None where the profiler saw no device."""
+    for _ in range(warmup):
+        fn()
+    dev, _ = device_events(lambda: [fn() for _ in range(reps)])
+    if not dev:
+        return None
+    return sum(end - start for start, end, _ in dev) / reps / 1e3
+
+
+def busy_share(dev, span):
+    """(device busy us, busy share of the host span): the union of the
+    device events' intervals."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for start, end, _ in sorted(dev):
+        if cur_e is None or start > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = start, end
+        else:
+            cur_e = max(cur_e, end)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy, (busy / span if span else 0.0)
+
+
+def profile_report(label, fn, per=1, per_name="call"):
+    """Profile one run of ``fn``: device busy share, device events per
+    ``per_name`` and the device time of the top kernels."""
+    import collections
+
+    dev, span = device_events(fn)
+    busy, share = busy_share(dev, span)
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for start, end, name in dev:
+        by_name[name][0] += 1
+        by_name[name][1] += end - start
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    print(f"profile {label}: host span {span / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
+          f"busy share {share:.3f}, {len(dev)} device events ({len(dev) / per:.1f} per "
+          f"{per_name})")
+    for name, (n, us) in top:
+        print(f"  {us / 1e3:8.3f} ms {n:6d}x  {name[:100]}")
+
+
+def bound(nbytes: float, flops: float, dtype: str = "bf16"):
+    """The least time the card could take: (ms, what bounds it), the larger
+    of the bytes over HBM bandwidth and the operations over the peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sum_or_none(xs):
+    xs = list(xs)
+    return None if any(x is None for x in xs) else sum(xs)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def max_err(a, b) -> float:
@@ -179,6 +311,16 @@ def k4_inputs(B, nh, Ta, Tv, A, dev, seed=2):
     return [x.to(dev) for x in (q, k, v, vlen, dctx)]
 
 
+def sdpa(q, k, v, mask):
+    """The library yardstick: one ``scaled_dot_product_attention`` call on
+    the same [B, T, heads, d] operands and additive mask (timed here only;
+    the port never calls it)."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                          v.transpose(1, 2), attn_mask=mask)
+
+
 def request(rng, n, seconds=6.0, fps=25.0):
     audio, video = [], []
     for _ in range(n):
@@ -198,7 +340,7 @@ def train_batch(cfg, vocab_size, dev, B=128, seconds=6.0, label_cap=80, seed=3):
     crops, ragged 2-6 s utterances, EOS-terminated targets up to the label
     cap, AU targets at the frontend rate.  Returns (batch, 10 ms audio
     frames per step as ``bench.py`` counts them)."""
-    from avsr_tpu.data.units import EOS_ID
+    from avsr_tpu_torch.data.units import EOS_ID
     from avsr_tpu_torch.models import seq2seq
 
     rng = np.random.default_rng(seed)
@@ -250,15 +392,24 @@ def noise_bank(cfg, dev, seed=4, rows=8, length=120000):
 @contextlib.contextmanager
 def plain_cores():
     """Route every kernel wrapper to its plain version (reference runs)."""
+    from avsr_tpu_torch.decode import beam
     from avsr_tpu_torch.models import fusion as fus
+    from avsr_tpu_torch.models import transformer_decoder as tdec
     from avsr_tpu_torch.ops import audio_features as af
     from avsr_tpu_torch.ops import rnn
+
+    def k5_fwd_plain(q, k, v, bias, *, save=False):
+        return tdec.decoder_attention_fwd_plain(q, k, v, bias)
 
     with mock.patch.object(rnn, "scan_core_fwd", rnn.bilstm_scan_core_fwd_impl), \
             mock.patch.object(rnn, "scan_core_bwd", rnn.bilstm_scan_core_bwd_plain), \
             mock.patch.object(af, "logmel_post_dft", af.logmel_post_dft_plain), \
             mock.patch.object(fus, "fusion_attention_fwd", fus.fusion_attention_fwd_plain), \
-            mock.patch.object(fus, "fusion_attention_bwd", fus.fusion_attention_bwd_plain):
+            mock.patch.object(fus, "fusion_attention_bwd", fus.fusion_attention_bwd_plain), \
+            mock.patch.object(tdec, "decoder_attention_fwd", k5_fwd_plain), \
+            mock.patch.object(tdec, "decoder_attention_bwd", tdec.decoder_attention_bwd_plain), \
+            mock.patch.object(tdec, "decode_attention", tdec.decode_attention_plain), \
+            mock.patch.object(beam, "beam_step", beam.beam_step_plain):
         yield
 
 
@@ -283,7 +434,12 @@ def phase_k1(dev, report):
         k1[B] = (time_ms(lambda: rnn.bilstm_scan_core(*args, torch.bfloat16)),
                  time_ms(lambda: rnn.bilstm_scan_core_plain(*args, torch.bfloat16), reps=5))
         print(f"K1 [T=99,G=2,B={B},H=256] kernel {k1[B][0]:.4f} ms  plain {k1[B][1]:.4f} ms")
-    report["lstm_scan_fwd"] = (k1_err, k1[128][0], k1[128][1])
+    flops = 2 * 99 * 2 * 128 * 256 * 1024  # h @ Wh at every step, both directions
+    report["lstm_scan_fwd"] = dict(
+        max_abs_err=k1_err, ms=k1[128][0], plain_ms=k1[128][1], library_ms=None,
+        device_ms=device_ms(lambda: rnn.bilstm_scan_core(wh, b, xw, mask, h0, c0,
+                                                         torch.bfloat16)),
+        bound=bound(nbytes(wh, b, xw, mask, h0, c0, ys_k, hT_k, cT_k), flops))
 
 
 def phase_k3(dev, report, cfg):
@@ -307,13 +463,19 @@ def phase_k3(dev, report, cfg):
         k3[B] = (time_ms(lambda: af.logmel_post_dft(*args, cfg.audio)),
                  time_ms(lambda: af.logmel_post_dft_plain(*args, cfg.audio), reps=10))
         print(f"K3 [B={B},S=96000] kernel {k3[B][0]:.4f} ms  plain {k3[B][1]:.4f} ms")
-    report["logmel_post_dft"] = (k3_err, k3[128][0], k3[128][1])
+    B, T, F = re.shape
+    mel_bytes = F * cfg.audio.num_mel_bins * 4
+    report["logmel_post_dft"] = dict(
+        max_abs_err=k3_err, ms=k3[128][0], plain_ms=k3[128][1], library_ms=None,
+        device_ms=device_ms(lambda: af.logmel_post_dft(re, im, feat_len, cfg.audio)),
+        bound=bound(nbytes(re, im, feat_len, f_k, n_k) + mel_bytes,
+                    2 * B * T * F * cfg.audio.num_mel_bins, "fp32"))
 
 
 def phase_serve(dev, card, cfg):
     import torch
 
-    from avsr_tpu.data.units import builtin_unit_dict
+    from avsr_tpu_torch.data.units import builtin_unit_dict
     from avsr_tpu_torch import kernels
     from avsr_tpu_torch.models import seq2seq
     from avsr_tpu_torch.serve import Predictor
@@ -362,8 +524,21 @@ def phase_serve(dev, card, cfg):
     before = dict(kernels.LAUNCHES)
     with plain_cores():
         enc_p = pred.encode(arrays)
+        t0 = time.perf_counter()
+        res_p = pred.beam(enc_k)  # the same memories through the plain K6/K7
+        torch.cuda.synchronize()
+        t_beam_p = (time.perf_counter() - t0) * 1e3
     if kernels.LAUNCHES != before:
         fail("serve", "the plain reference run launched a kernel")
+    same = [bool(torch.equal(a, b)) for a, b in zip(res.ids, res_p.ids)]
+    score_rel = float(((res.scores - res_p.scores).abs() / res_p.scores.abs()).max())
+    print(f"serve beam kernel path vs plain path on the same memories: {sum(same)} of 8 rows "
+          f"with identical ids; best scores {[round(float(x), 3) for x in res.scores]} vs "
+          f"{[round(float(x), 3) for x in res_p.scores]}, max rel diff {score_rel:.3e} "
+          f"(tol {BEAM_SCORE_REL_TOL}); steps {res.steps} / {res_p.steps}; plain beam "
+          f"{t_beam_p:.3f} ms")
+    if not score_rel <= BEAM_SCORE_REL_TOL:
+        fail("serve", f"kernel path beam scores disagree with the plain path: {score_rel}")
     mk, mp = enc_k.memories[0].values, enc_p.memories[0].values
     if tuple(mk.shape) != (8, 50, 1024) or not torch.isfinite(mk).all():
         fail("serve", f"fused memory of shape {tuple(mk.shape)} or not finite")
@@ -377,6 +552,10 @@ def phase_serve(dev, card, cfg):
           f"{[round(x, 3) for x in latencies]} median {statistics.median(latencies):.3f}; "
           f"encode {t_enc:.3f} ms, beam {t_beam:.3f} ms ({res.steps} steps)")
     print(f"serve sample transcript: {texts[0][0][:60]!r}")
+    profile_report("serve request (B=8, width 10)",
+                   lambda: pred.transcribe(audio=requests[1][0], video=requests[1][1]),
+                   per=res.steps, per_name="beam step")
+    return launches
 
 
 def phase_k1_bwd(dev, report):
@@ -410,7 +589,11 @@ def phase_k1_bwd(dev, report):
                     time_ms(lambda: rnn.bilstm_scan_core_bwd_plain(*a), reps=5))
         print(f"K1 bwd [T=99,G=2,B={B},H=256] kernel {times[B][0]:.4f} ms  "
               f"plain {times[B][1]:.4f} ms")
-    report["lstm_scan_bwd"] = (max(abs_errs.values()), times[128][0], times[128][1])
+    flops = 3 * 2 * 99 * 2 * 128 * 256 * 1024  # gate recompute, dh product, dWh
+    report["lstm_scan_bwd"] = dict(
+        max_abs_err=max(abs_errs.values()), ms=times[128][0], plain_ms=times[128][1],
+        library_ms=None, device_ms=device_ms(lambda: rnn.scan_core_bwd(*args)),
+        bound=bound(nbytes(*args[:9], *out_k), flops))
 
 
 def phase_k4(dev, report):
@@ -447,17 +630,29 @@ def phase_k4(dev, report):
     if not (long_errs["ctx"] <= K4_CTX_TOL and long_errs["P"] <= K4_P_TOL
             and max(long_errs[n] for n in ("dq", "dk", "dv")) <= K4_GRAD_REL_TOL):
         fail("K4", f"kernels disagree with the plain twins at T_v=400: {long_errs}")
+    key_bias = ((torch.arange(150, device=dev)[None, :] >= vlen[:, None]).float() * -1e9)
+    lib_mask = key_bias.to(torch.bfloat16)[:, None, None, :]
     t = {
         "fwd": (time_ms(lambda: fus.fusion_attention_fwd(q, k, v, vlen)),
-                time_ms(lambda: fus.fusion_attention_fwd_plain(q, k, v, vlen))),
+                time_ms(lambda: fus.fusion_attention_fwd_plain(q, k, v, vlen)),
+                time_ms(lambda: sdpa(q, k, v, lib_mask))),
         "bwd": (time_ms(lambda: fus.fusion_attention_bwd(q, k, v, w_p, dctx)),
-                time_ms(lambda: fus.fusion_attention_bwd_plain(q, k, v, w_p, dctx))),
+                time_ms(lambda: fus.fusion_attention_bwd_plain(q, k, v, w_p, dctx)), None),
     }
-    for name, (tk, tp) in t.items():
+    for name, (tk, tp, tl) in t.items():
         print(f"K4 {name} [B=128,nh=4,T_a=50,T_v=150,A=128] kernel {tk:.4f} ms  "
-              f"plain {tp:.4f} ms")
-    report["fusion_attention_fwd"] = (max(fwd_errs.values()), *t["fwd"])
-    report["fusion_attention_bwd"] = (max(grad_abs.values()), *t["bwd"])
+              f"plain {tp:.4f} ms  library {tl if tl is None else round(tl, 4)} ms")
+    pairs = 128 * 4 * 50 * 150
+    report["fusion_attention_fwd"] = dict(
+        max_abs_err=max(fwd_errs.values()), ms=t["fwd"][0], plain_ms=t["fwd"][1],
+        library_ms=t["fwd"][2],
+        device_ms=device_ms(lambda: fus.fusion_attention_fwd(q, k, v, vlen)),
+        bound=bound(nbytes(q, k, v, vlen, ctx_k, w_k), 2 * pairs * 256))
+    report["fusion_attention_bwd"] = dict(
+        max_abs_err=max(grad_abs.values()), ms=t["bwd"][0], plain_ms=t["bwd"][1],
+        library_ms=None,
+        device_ms=device_ms(lambda: fus.fusion_attention_bwd(q, k, v, w_p, dctx)),
+        bound=bound(nbytes(q, k, v, w_p, dctx, *g_k), 2 * pairs * 512))
 
 
 def phase_train(dev, card, cfg):
@@ -465,8 +660,8 @@ def phase_train(dev, card, cfg):
 
     import torch
 
-    from avsr_tpu.configs import NoiseConfig
-    from avsr_tpu.data.units import builtin_unit_dict
+    from avsr_tpu_torch.configs import NoiseConfig
+    from avsr_tpu_torch.data.units import builtin_unit_dict
     from avsr_tpu_torch import kernels
     from avsr_tpu_torch.train import step as tstep
     from avsr_tpu_torch.utils import rng as trng
@@ -527,8 +722,8 @@ def phase_train(dev, card, cfg):
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     print(f"train (b) launches over 10 steps {launches}")
-    for name, n in launches.items():
-        if n == 0:
+    for name in TRAIN_KERNELS:
+        if launches[name] == 0:
             fail("train", f"kernel {name} was not launched by the training steps")
     print(f"train (c) losses {[round(x, 4) for x in losses]} (ce, au) "
           f"{[(round(c, 4), round(a, 4)) for c, a in parts]}; grad_norm last "
@@ -536,9 +731,289 @@ def phase_train(dev, card, cfg):
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         fail("train", "the loss did not fall over 10 steps")
     step_ms = statistics.median(times[2:])
+
+    def three_steps():
+        st = state
+        for _ in range(3):
+            st, _ = tstep.train_step(st, batch, cfg=cfg_c, optimizer=opt, generator=gen,
+                                     noise_bank=bank)
+
+    profile_report("train (B=128, 3 steps)", three_steps, per=3, per_name="step")
     print(f"train (d) [{card}] lrs2_av_fast B=128 6 s: ms/step {[round(x, 3) for x in times]} "
           f"median after 2 warm-up {step_ms:.3f}; {frames_per_step / step_ms * 1e3:.0f} "
           f"10 ms audio frames/s; peak memory {peak / 2**30:.3f} GiB")
+    return launches
+
+
+def k5_inputs(B, Q, S, dk, dv, dev, causal, seed):
+    """q, k, v, the key bias (None: causal) and a context cotangent; the
+    bias masks a ragged tail of each row and every key of row 1."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, Q, 4, dk), generator=g).to(torch.bfloat16)
+    k = torch.randn((B, S, 4, dk), generator=g).to(torch.bfloat16)
+    v = torch.randn((B, S, 4, dv), generator=g).to(torch.bfloat16)
+    dctx = torch.randn((B, Q, 4, dv), generator=g).to(torch.bfloat16)
+    bias = None
+    if not causal:
+        lens = torch.randint(1, S + 1, (B,), generator=g)
+        lens[0], lens[1] = S, 0  # row 1: a memory of length 0
+        bias = (1.0 - (torch.arange(S)[None, :] < lens[:, None]).float()) * -1e30
+    return [None if x is None else x.to(dev) for x in (q, k, v, bias, dctx)]
+
+
+def phase_k5(dev, report):
+    import torch
+
+    from avsr_tpu_torch.models import transformer_decoder as tdec
+
+    shapes = {"self": (80, 80, 64, 64, True), "cross": (80, 50, 128, 256, False)}
+    t = {}
+    fwd_err, bwd_err, lib, dms = 0.0, 0.0, {}, {}
+    nb_fwd = nb_bwd = fl = 0
+    for name, (Q, S, dk, dv, causal) in shapes.items():
+        q, k, v, bias, dctx = k5_inputs(128, Q, S, dk, dv, dev, causal, seed=5)
+        ctx_k, w_k = tdec.decoder_attention_fwd(q, k, v, bias, save=True)
+        ctx_p, w_p = tdec.decoder_attention_fwd_plain(q, k, v, bias)
+        g_k = tdec.decoder_attention_bwd(q, k, v, w_p, dctx)
+        g_p = tdec.decoder_attention_bwd_plain(q, k, v, w_p, dctx)
+        torch.cuda.synchronize()
+        errs = {"ctx": max_err(ctx_k, ctx_p), "P": max_err(w_k, w_p)}
+        grel = {n: rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), g_k, g_p)}
+        gabs = {n: max_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), g_k, g_p)}
+        extra = ""
+        if not causal:
+            extra = (f"; row with every key masked: P in [{float(w_k[1].min())}, "
+                     f"{float(w_k[1].max())}], uniform 1/{S} = {1 / S}")
+            if max_err(w_k[1], torch.full_like(w_k[1], 1.0 / S)) > 1e-6:
+                fail("K5", "the fully masked row is not uniform")
+        print(f"K5 {name} [B=128,Q={Q},S={S},4 heads,dk={dk},dv={dv}] fwd max abs err {errs} "
+              f"(tol ctx {K5_CTX_TOL}, P {K5_P_TOL}); bwd max abs err {gabs}, relative "
+              f"{grel} (tol {K5_GRAD_REL_TOL}){extra}")
+        if not (errs["ctx"] <= K5_CTX_TOL and errs["P"] <= K5_P_TOL):
+            fail("K5", f"{name} forward kernel disagrees with the plain twin: {errs}")
+        if not max(grel.values()) <= K5_GRAD_REL_TOL:
+            fail("K5", f"{name} backward kernel disagrees with the plain twin: {grel}")
+        fwd_err = max(fwd_err, *errs.values())
+        bwd_err = max(bwd_err, *gabs.values())
+        mask = (torch.triu(torch.full((Q, S), -1e9, device=dev), diagonal=1) if causal
+                else bias[:, None, None, :]).to(torch.bfloat16)
+        t[name] = {
+            "fwd": (time_ms(lambda: tdec.decoder_attention_fwd(q, k, v, bias, save=True)),
+                    time_ms(lambda: tdec.decoder_attention_fwd_plain(q, k, v, bias))),
+            "bwd": (time_ms(lambda: tdec.decoder_attention_bwd(q, k, v, w_p, dctx)),
+                    time_ms(lambda: tdec.decoder_attention_bwd_plain(q, k, v, w_p, dctx))),
+        }
+        lib[name] = time_ms(lambda: sdpa(q, k, v, mask))
+        dms[name] = (device_ms(lambda: tdec.decoder_attention_fwd(q, k, v, bias, save=True)),
+                     device_ms(lambda: tdec.decoder_attention_bwd(q, k, v, w_p, dctx)))
+        for d in ("fwd", "bwd"):
+            print(f"K5 {name} {d} kernel {t[name][d][0]:.4f} ms  plain {t[name][d][1]:.4f} ms")
+        print(f"K5 {name} library (scaled_dot_product_attention, same mask) {lib[name]:.4f} ms")
+        nb_fwd += nbytes(q, k, v, bias, ctx_k, w_k)
+        nb_bwd += nbytes(q, k, v, w_p, dctx, *g_k)
+        fl += 2 * 128 * 4 * Q * S * (dk + dv)
+    # one decoder layer runs both instances: the entries time the pair
+    pair = {d: tuple(t["self"][d][i] + t["cross"][d][i] for i in range(2)) for d in ("fwd", "bwd")}
+    report["decoder_attention_fwd"] = dict(
+        max_abs_err=fwd_err, ms=pair["fwd"][0], plain_ms=pair["fwd"][1],
+        library_ms=lib["self"] + lib["cross"], device_ms=sum_or_none(dms[n][0] for n in dms),
+        bound=bound(nb_fwd, fl))
+    report["decoder_attention_bwd"] = dict(
+        max_abs_err=bwd_err, ms=pair["bwd"][0], plain_ms=pair["bwd"][1], library_ms=None,
+        device_ms=sum_or_none(dms[n][1] for n in dms), bound=bound(nb_bwd, 2 * fl))
+
+
+def k6_inputs(N, L, dk, dv, dev, cross, seed):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((N, 4, dk), generator=g).to(torch.bfloat16)
+    k = torch.randn((N, L, 4, dk), generator=g).to(torch.bfloat16)
+    v = torch.randn((N, L, 4, dv), generator=g).to(torch.bfloat16)
+    bias = None
+    if cross:
+        lens = torch.randint(1, L + 1, (N,), generator=g)
+        lens[0], lens[1] = L, 0  # row 1: a memory of length 0
+        bias = (1.0 - (torch.arange(L)[None, :] < lens[:, None]).float()) * -1e30
+    return [None if x is None else x.to(dev) for x in (q, k, v, bias)]
+
+
+def phase_k6(dev, report):
+    import torch
+
+    from avsr_tpu_torch.models import transformer_decoder as tdec
+
+    worst = 0.0
+    for N in (80, 128):
+        for pos in (0, 37, 149):
+            q, k, v, _ = k6_inputs(N, 150, 64, 64, dev, False, seed=N + pos)
+            err = max_err(tdec.decode_attention(q, k, v, None, pos + 1),
+                          tdec.decode_attention_plain(q, k, v, None, pos + 1))
+            print(f"K6 self [N={N},L=150,pos={pos},4x64] max abs err {err} (tol {K6_TOL})")
+            if not err <= K6_TOL:
+                fail("K6", f"self attention at N={N}, pos={pos} disagrees: {err}")
+            worst = max(worst, err)
+        q, k, v, bias = k6_inputs(N, 50, 128, 256, dev, True, seed=N)
+        out_k = tdec.decode_attention(q, k, v, bias, 50)
+        err = max_err(out_k, tdec.decode_attention_plain(q, k, v, bias, 50))
+        uni = max_err(out_k[1], v[1].float().mean(dim=0).to(torch.bfloat16))
+        print(f"K6 cross [N={N},S=50,dk=128,dv=256] max abs err {err} (tol {K6_TOL}); "
+              f"length-0 row against the plain mean of its values: {uni}")
+        if not (err <= K6_TOL and uni <= K6_TOL):
+            fail("K6", f"cross attention at N={N} disagrees: {err}, length-0 row {uni}")
+        worst = max(worst, err)
+    # times at the serve shape: N = 80 beams, one decode step's two launches
+    qs, ks, vs, _ = k6_inputs(80, 150, 64, 64, dev, False, seed=1)
+    qc, kc, vc, bc = k6_inputs(80, 50, 128, 256, dev, True, seed=2)
+    pos = 149
+    self_mask = torch.zeros((80, 1, 1, 150), device=dev)
+    self_mask[..., pos + 1:] = -1e9
+    self_mask = self_mask.to(torch.bfloat16)
+    cross_mask = bc[:, None, None, :].to(torch.bfloat16)
+    t = {
+        "self": (time_ms(lambda: tdec.decode_attention(qs, ks, vs, None, pos + 1)),
+                 time_ms(lambda: tdec.decode_attention_plain(qs, ks, vs, None, pos + 1)),
+                 time_ms(lambda: sdpa(qs[:, None], ks, vs, self_mask))),
+        "cross": (time_ms(lambda: tdec.decode_attention(qc, kc, vc, bc, 50)),
+                  time_ms(lambda: tdec.decode_attention_plain(qc, kc, vc, bc, 50)),
+                  time_ms(lambda: sdpa(qc[:, None], kc, vc, cross_mask))),
+    }
+    for name, (tk, tp, tl) in t.items():
+        print(f"K6 {name} at N=80 (self at pos {pos}) kernel {tk:.4f} ms  plain {tp:.4f} ms  "
+              f"library {tl:.4f} ms")
+    # the bytes each launch must read: keys and values 0..pos (self), all of
+    # the memory's (cross), the queries, the bias and the context written
+    ctx_s = torch.empty((80, 4, 64), dtype=torch.bfloat16)
+    ctx_c = torch.empty((80, 4, 256), dtype=torch.bfloat16)
+    nb = (nbytes(qs, ctx_s) + (pos + 1) * 80 * 4 * 64 * 2 * 2 + nbytes(qc, kc, vc, bc, ctx_c))
+    fl = 2 * 80 * 4 * ((pos + 1) * 128 + 50 * 384)
+    report["decode_attention"] = dict(
+        max_abs_err=worst, ms=t["self"][0] + t["cross"][0], plain_ms=t["self"][1] + t["cross"][1],
+        library_ms=t["self"][2] + t["cross"][2],
+        device_ms=sum_or_none([device_ms(lambda: tdec.decode_attention(qs, ks, vs, None, pos + 1)),
+                               device_ms(lambda: tdec.decode_attention(qc, kc, vc, bc, 50))]),
+        bound=bound(nb, fl))
+
+
+def k7_inputs(B, W, V, dev, seed, ties=False, p_finished=0.3):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    if ties:  # every beam the same uniform row and score: 420 exact ties
+        logits = torch.zeros((B * W, V))
+        logp = torch.zeros((B, W))
+        finished = torch.zeros((B, W), dtype=torch.bool)
+    else:
+        logits = 3.0 * torch.randn((B * W, V), generator=g)
+        logp = -20.0 * torch.rand((B, W), generator=g)
+        logp[0, 3:] = -1e30  # dead beams, as after the first step
+        finished = torch.rand((B, W), generator=g) < p_finished
+    lens = torch.randint(0, 60, (B, W), generator=g, dtype=torch.int32)
+    if ties:
+        lens.zero_()  # one length penalty for every candidate
+    return [x.to(dev) for x in (logits, logp, lens, finished)]
+
+
+def run_beam_step(fn, args, lp_table, dev):
+    import torch
+
+    B, W = args[1].shape
+    tok = torch.full((B, W), -1, dtype=torch.int64, device=dev)
+    par = torch.full((B, W), -1, dtype=torch.int64, device=dev)
+    out = fn(*args, lp_table, tok, par)
+    return (tok, par) + tuple(out)
+
+
+def phase_k7(dev, report):
+    import torch
+
+    from avsr_tpu_torch.decode import beam
+
+    B, W, V = 8, 10, 44
+    names = ("token", "parent", "flat_parent", "feed", "logp", "lens", "finished")
+    worst = 0.0
+    for case, kw in (("random", {}), ("no finished", dict(p_finished=0.0)),
+                     ("ties", dict(ties=True))):
+        for alpha in (0.0, 0.6):
+            args = k7_inputs(B, W, V, dev, seed=7, **kw)
+            lp_table = beam.length_penalty_table(150, alpha, dev)
+            out_k = run_beam_step(beam.beam_step, args, lp_table, dev)
+            out_p = run_beam_step(beam.beam_step_plain, args, lp_table, dev)
+            torch.cuda.synchronize()
+            for n, a, b in zip(names, out_k, out_p):
+                if n == "logp":
+                    dev_ = (a - b).abs() / (K7_LOGP_ATOL + K7_LOGP_RTOL * b.abs())
+                    worst = max(worst, max_err(a, b))
+                    if float(dev_.max()) > 1.0:
+                        fail("K7", f"{case}, alpha {alpha}: logp differs by {max_err(a, b)}")
+                elif not torch.equal(a, b.to(a.dtype)):
+                    fail("K7", f"{case}, alpha {alpha}: {n} differs from the plain twin")
+            if case == "ties":  # every candidate ties: lower flat index first
+                want = torch.arange(2, 2 + W, device=dev)  # EOS, then the units
+                if not (bool((out_k[1] == 0).all()) and bool((out_k[0] == want).all())):
+                    fail("K7", "exact ties not resolved to the lower flat index")
+            print(f"K7 {case}, alpha {alpha}: parents, tokens, feeds, lens, finished identical; "
+                  f"logp max abs err {max_err(out_k[4], out_p[4])}")
+    args = k7_inputs(B, W, V, dev, seed=8)
+    lp_table = beam.length_penalty_table(150, 0.0, dev)
+    tok = torch.empty((B, W), dtype=torch.int64, device=dev)
+    par = torch.empty((B, W), dtype=torch.int64, device=dev)
+    tk = time_ms(lambda: beam.beam_step(*args, lp_table, tok, par))
+    tp = time_ms(lambda: beam.beam_step_plain(*args, lp_table, tok, par))
+    print(f"K7 [B=8,W=10,V=44] kernel {tk:.4f} ms  plain {tp:.4f} ms")
+    out_bytes = B * W * (8 * 4 + 4 + 4 + 1)  # token, parent, flat parent, feed; logp, lens, fin
+    report["beam_step"] = dict(
+        max_abs_err=worst, ms=tk, plain_ms=tp, library_ms=None,
+        device_ms=device_ms(lambda: beam.beam_step(*args, lp_table, tok, par)),
+        bound=bound(nbytes(*args, lp_table) + out_bytes, 6 * B * W * V, "fp32"))
+
+
+def phase_greedy(dev, card, cfg):
+    import torch
+
+    from avsr_tpu_torch import kernels
+    from avsr_tpu_torch.data.units import builtin_unit_dict
+    from avsr_tpu_torch.decode.greedy import greedy_decode
+    from avsr_tpu_torch.models import seq2seq
+
+    V = builtin_unit_dict(cfg.data.unit).vocab_size
+    params = seq2seq.model_init(cfg, V, torch.Generator().manual_seed(0), dev)
+    batch, _ = train_batch(cfg, V, dev, seed=12)
+    horizon = cfg.decode.max_decode_length
+    with torch.no_grad():
+        mems = seq2seq.encode(params, cfg, batch).memories
+        greedy_decode(params["decoder"], cfg.decoder, mems, 4)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = greedy_decode(params["decoder"], cfg.decoder, mems, horizon)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(kernels.LAUNCHES)
+        with plain_cores():
+            t0 = time.perf_counter()
+            res_p = greedy_decode(params["decoder"], cfg.decoder, mems, horizon)
+            torch.cuda.synchronize()
+            ms_p = (time.perf_counter() - t0) * 1e3
+        if kernels.LAUNCHES != launches:
+            fail("greedy", "the plain reference run launched a kernel")
+    for name in GREEDY_KERNELS:
+        if launches[name] == 0:
+            fail("greedy", f"kernel {name} was not launched by greedy decode")
+    ids = res.ids
+    if tuple(ids.shape) != (128, horizon) or int(ids.min()) < 0 or int(ids.max()) >= V:
+        fail("greedy", f"ids of shape {tuple(ids.shape)} in [{int(ids.min())}, {int(ids.max())}]")
+    with torch.no_grad():
+        profile_report("greedy (B=128)", lambda: greedy_decode(
+            params["decoder"], cfg.decoder, mems, horizon), per=res.steps,
+            per_name="decode step")
+    same = int((res.ids == res_p.ids).all(dim=1).sum())
+    print(f"greedy [{card}] B=128, 6 s, horizon {horizon}: decode {ms:.3f} ms, {res.steps} steps "
+          f"({ms / max(res.steps, 1):.3f} ms per step), "
+          f"K6 launches {launches['decode_attention']}; "
+          f"plain path {ms_p:.3f} ms; {same} of 128 rows with ids identical to the plain path's")
     return launches
 
 
@@ -549,7 +1024,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from avsr_tpu.configs import lrs2_av_fast
+        from avsr_tpu_torch.configs import lrs2_av_fast
         from avsr_tpu_torch import kernels
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
@@ -581,18 +1056,23 @@ def main() -> int:
           f"(nvcc {kernels.BUILD_SECONDS if kernels.BUILD_SECONDS is not None else 'cached'} s)")
 
     cfg = lrs2_av_fast()
-    report = {}
+    report, paths = {}, {}
     for n, run in ((3, lambda: phase_k1(dev, report)),
                    (4, lambda: phase_k3(dev, report, cfg)),
-                   (5, lambda: phase_serve(dev, card, cfg)),
+                   (5, lambda: paths.update(serve=phase_serve(dev, card, cfg))),
                    (6, lambda: phase_k1_bwd(dev, report)),
                    (7, lambda: phase_k4(dev, report)),
-                   (8, lambda: report.update(launches=phase_train(dev, card, cfg)))):
+                   (8, lambda: paths.update(train=phase_train(dev, card, cfg))),
+                   (9, lambda: phase_k5(dev, report)),
+                   (10, lambda: phase_k6(dev, report)),
+                   (11, lambda: phase_k7(dev, report)),
+                   (12, lambda: paths.update(greedy=phase_greedy(dev, card, cfg)))):
         t0 = time.perf_counter()
         run()
         print(f"phase {n}: {time.perf_counter() - t0:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
+    td = "avsr_tpu/models/transformer_decoder.py"
     sources = {
         "lstm_scan_fwd": ("avsr_tpu_torch/csrc/lstm_scan.cu", "avsr_tpu/ops/rnn.py:341"),
         "lstm_scan_bwd": ("avsr_tpu_torch/csrc/lstm_scan.cu", "avsr_tpu/ops/rnn.py:382"),
@@ -602,13 +1082,24 @@ def main() -> int:
                                  "avsr_tpu/models/fusion.py:226"),
         "fusion_attention_bwd": ("avsr_tpu_torch/csrc/cross_attention.cu",
                                  "avsr_tpu/models/fusion.py:226"),
+        "decoder_attention_fwd": ("avsr_tpu_torch/csrc/decoder_attention.cu", f"{td}:305"),
+        "decoder_attention_bwd": ("avsr_tpu_torch/csrc/decoder_attention.cu", f"{td}:305"),
+        "decode_attention": ("avsr_tpu_torch/csrc/decode_attention.cu", f"{td}:217"),
+        "beam_step": ("avsr_tpu_torch/csrc/beam_step.cu", "avsr_tpu/decode/beam.py:142"),
     }
-    launches = report["launches"]
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": report[name][0],
-         "ms": report[name][1], "plain_ms": report[name][2]}
-        for name, (src, rep) in sources.items()]}))
+    entries = []
+    for name, (src, rep) in sources.items():
+        by_path = {p: counts[name] for p, counts in paths.items()}
+        r = report[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+            "device_ms": r["device_ms"]})
+        if entries[-1]["launches"] == 0:
+            fail("kernels", f"kernel {name} was launched by no path")
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

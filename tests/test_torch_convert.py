@@ -44,7 +44,7 @@ def test_round_trip_is_bit_exact_for_the_full_tree():
     rng = np.random.default_rng(0)
     tree = jax.tree_util.tree_map(
         lambda s: rng.standard_normal(s.shape).astype(s.dtype), shapes)
-    back = convert.to_jax_numpy(convert.from_jax(tree))
+    back = convert.to_jax_numpy(convert.from_jax(tree, device="cpu"))
     assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(tree)
     for a, b in zip(jax.tree_util.tree_leaves(tree), jax.tree_util.tree_leaves(back)):
         assert a.dtype == b.dtype and a.shape == b.shape
@@ -56,7 +56,7 @@ def test_conv_kernels_become_oihw():
     tree = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes)
     tree["video_frontend"]["convs"][1]["w"] = np.arange(
         3 * 3 * 8 * 16, dtype=np.float32).reshape(3, 3, 8, 16)
-    port = convert.from_jax(tree)
+    port = convert.from_jax(tree, device="cpu")
     w = port["video_frontend"]["convs"][1]["w"]
     assert tuple(w.shape) == (16, 8, 3, 3)
     # OIHW[o, i, h, w] == HWIO[h, w, i, o]
@@ -65,7 +65,7 @@ def test_conv_kernels_become_oihw():
 
 def test_port_model_init_matches_tree_shapes_and_dtypes():
     cfg, vocab, shapes = _fast_tree_shapes()
-    params = tseq.model_init(cfg, vocab, torch.Generator().manual_seed(0))
+    params = tseq.model_init(cfg, vocab, torch.Generator().manual_seed(0), "cpu")
     port_as_jax = convert.to_jax_numpy(params)
     assert _paths(port_as_jax) == _paths(shapes)
 
@@ -73,7 +73,7 @@ def test_port_model_init_matches_tree_shapes_and_dtypes():
 @pytest.mark.parametrize("seed", [0, 1])
 def test_port_model_init_distributions(seed):
     cfg, vocab, _ = _fast_tree_shapes()
-    p = tseq.model_init(cfg, vocab, torch.Generator().manual_seed(seed))
+    p = tseq.model_init(cfg, vocab, torch.Generator().manual_seed(seed), "cpu")
     layer = p["audio_encoder"]["layers"][0]["fwd"]
     H = layer["wh"].shape[0]
     # forget-gate bias 1, other gates 0 (gate order i, f, g, o)

@@ -59,7 +59,7 @@ def _setup(seed, jdt, tdt, N=3, S=7):
     m_len = np.array([7, 4, 1][:N], np.int32)
     mem_j = jattn.prepare_memory("value_only", params["atts"][0], jnp.asarray(memory),
                                  jnp.asarray(m_len), compute_dtype=jdt)
-    tparams = convert.from_jax(params)
+    tparams = convert.from_jax(params, device="cpu")
     mem_t = tattn.prepare_memory("value_only", tparams["atts"][0], torch.from_numpy(memory),
                                  torch.from_numpy(m_len), tdt)
     return params, tparams, mem_j, mem_t, rng

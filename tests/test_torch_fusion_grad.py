@@ -87,7 +87,8 @@ def test_fusion_grads_match_jax_vjp(dtype):
     (l_j, o_j), g_j = jax.value_and_grad(loss_j, argnums=(0, 1, 2), has_aux=True)(
         d["params"], jnp.asarray(d["audio"]), jnp.asarray(d["video"]))
 
-    params = {k: v.requires_grad_(True) for k, v in convert.from_jax(d["params"]).items()}
+    params = {k: v.requires_grad_(True)
+              for k, v in convert.from_jax(d["params"], device="cpu").items()}
     audio = torch.from_numpy(d["audio"]).requires_grad_(True)
     video = torch.from_numpy(d["video"]).requires_grad_(True)
     o_t = tfus.cross_attention_fusion_apply(
@@ -137,7 +138,8 @@ def test_core_twins_match_jax_core_vjp(dtype):
 
 def test_alignment_weights_take_no_gradient():
     d = _inputs(2)
-    params = {k: v.requires_grad_(True) for k, v in convert.from_jax(d["params"]).items()}
+    params = {k: v.requires_grad_(True)
+              for k, v in convert.from_jax(d["params"], device="cpu").items()}
     o = tfus.cross_attention_fusion_apply(
         params, CFG, torch.from_numpy(d["audio"]), torch.from_numpy(d["a_len"]),
         torch.from_numpy(d["video"]), torch.from_numpy(d["v_len"]), torch.float32)

@@ -1,0 +1,106 @@
+"""The port stands alone and runs on the card unless asked otherwise.
+
+* ``chip_smoke.py`` imports nothing of ``avsr_tpu`` (read with ``ast``:
+  the script is not imported here).
+* The port's own copies of ``avsr_tpu/configs.py`` and
+  ``avsr_tpu/data/units.py`` agree with the originals: every preset of
+  ``PRESETS`` as ``dataclasses.asdict``, the (de)serialization helpers, and
+  every builtin unit inventory with its id conventions.
+* ``convert.from_jax`` and ``seq2seq.model_init`` default to the card (a
+  CPU-only torch refuses them without ``device="cpu"``); the internal
+  ``*_init`` helpers take the device from their caller.
+"""
+
+import ast
+import dataclasses
+import inspect
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from avsr_tpu import configs as jconfigs
+from avsr_tpu.data import units as junits
+from avsr_tpu_torch import configs as tconfigs
+from avsr_tpu_torch import convert
+from avsr_tpu_torch.data import units as tunits
+from avsr_tpu_torch.models import decoder, encoder, fusion, seq2seq, transformer_decoder, video_cnn
+from avsr_tpu_torch.ops import attention, rnn
+from avsr_tpu_torch.utils import params as uparams
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_chip_smoke_imports_nothing_of_avsr_tpu():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert "avsr_tpu_torch.configs" in names  # the walk sees the script's imports
+    bad = [n for n in names if n == "avsr_tpu" or n.startswith("avsr_tpu.")]
+    assert not bad, bad
+    assert not [n for n in names if n == "jax" or n.startswith("jax.")]
+
+
+@pytest.mark.parametrize("name", sorted(jconfigs.PRESETS))
+def test_presets_equal_in_both_packages(name):
+    want = dataclasses.asdict(jconfigs.PRESETS[name]())
+    got = tconfigs.PRESETS[name]()
+    assert dataclasses.asdict(got) == want
+    assert got.to_json() == jconfigs.PRESETS[name]().to_json()
+    # a JAX config's dict builds the same port config, and back
+    assert tconfigs.ExperimentConfig.from_dict(want) == got
+    assert jconfigs.ExperimentConfig.from_dict(got.to_dict()).to_dict() == want
+
+
+def test_config_helpers_agree():
+    base = tconfigs.lrs2_av_fast()
+    over = {"train.learning_rate": 3e-4, "decoder.num_heads": 2, "data.audio_bucket_boundaries":
+            [100, 200]}
+    assert (base.override(over).to_dict()
+            == jconfigs.lrs2_av_fast().override(over).to_dict())
+    with pytest.raises(KeyError, match="unknown config key"):
+        tconfigs.ExperimentConfig.from_dict({"decoder": {"learing_rate": 1.0}})
+    assert [f.name for f in dataclasses.fields(tconfigs.ExperimentConfig)] == \
+        [f.name for f in dataclasses.fields(jconfigs.ExperimentConfig)]
+
+
+@pytest.mark.parametrize("unit_type", ["character", "character_lrs2", "phoneme", "viseme"])
+def test_builtin_units_equal_in_both_packages(unit_type):
+    j, t = junits.builtin_unit_dict(unit_type), tunits.builtin_unit_dict(unit_type)
+    assert t.idx_to_unit == j.idx_to_unit and t.unit_to_idx == j.unit_to_idx
+    assert t.vocab_size == j.vocab_size and t.unit_type == j.unit_type
+    assert (tunits.PAD_ID, tunits.GO_ID, tunits.EOS_ID) == (junits.PAD_ID, junits.GO_ID,
+                                                            junits.EOS_ID) == (0, 1, 2)
+    text = "hello 2 you" if unit_type.startswith("character") else " ".join(j.idx_to_unit[3:6])
+    assert t.encode(text) == j.encode(text)
+    assert t.decode(j.encode(text)) == j.decode(j.encode(text))
+
+
+def test_entry_points_default_to_the_card():
+    for fn in (convert.from_jax, seq2seq.model_init):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA build of torch would place the tensors on the card")
+    cfg = tconfigs.lrs2_av_fast()
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        convert.from_jax({"w": np.zeros(2, np.float32)})
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        seq2seq.model_init(cfg, 44, torch.Generator().manual_seed(0))
+    p = convert.from_jax({"w": np.zeros(2, np.float32)}, device="cpu")
+    assert p["w"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("fn", [
+    rnn.lstm_init, attention.value_only_init, encoder.encoder_init, video_cnn.video_cnn_init,
+    fusion.cross_attention_fusion_init, decoder.decoder_init,
+    transformer_decoder.transformer_decoder_init, uparams.glorot_uniform, uparams.orthogonal,
+    uparams.normal_init, uparams.zeros,
+], ids=lambda f: f.__name__)
+def test_init_helpers_take_the_callers_device(fn):
+    param = inspect.signature(fn).parameters["device"]
+    assert param.default is inspect.Parameter.empty

@@ -85,7 +85,8 @@ def test_fused_bilstm_scan_matches_jax(dtype):
     out_j, ((hf_j, cf_j), (hb_j, cb_j)) = jrnn.fused_bilstm_scan(
         fwd, bwd, jnp.asarray(x), jnp.asarray(mask), compute_dtype=jdt)
     out_t, ((hf_t, cf_t), (hb_t, cb_t)) = trnn.fused_bilstm_scan(
-        convert.from_jax(fwd), convert.from_jax(bwd), _t(x), _t(mask), tdt)
+        convert.from_jax(fwd, device="cpu"), convert.from_jax(bwd, device="cpu"), _t(x),
+        _t(mask), tdt)
     assert tuple(out_t.shape) == (T, B, 2 * H)
     np.testing.assert_allclose(out_t.float().numpy(), _np(out_j), **tol)
     for a, b in ((hf_t, hf_j), (cf_t, cf_j), (hb_t, hb_j), (cb_t, cb_j)):
@@ -96,7 +97,7 @@ def test_padded_steps_carry_state_and_emit_zeros():
     """Right padding must not change the valid outputs or the final states."""
     T, B, D, H = 10, 2, 6, 8
     fwd, bwd = _layer(2, D, H)
-    pf, pb = convert.from_jax(fwd), convert.from_jax(bwd)
+    pf, pb = convert.from_jax(fwd, device="cpu"), convert.from_jax(bwd, device="cpu")
     rng = np.random.default_rng(2)
     x = rng.standard_normal((T, B, D)).astype(np.float32)
     lengths = [10, 6]

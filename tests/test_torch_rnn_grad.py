@@ -155,8 +155,8 @@ def test_fused_bilstm_scan_param_grads_match_jax(dtype):
                 + jnp.sum(hb * 1.3) + jnp.sum(cb * 0.5))
 
     g_j = jax.grad(loss_j, argnums=(0, 1))((pf, pb), jnp.asarray(x))
-    tf = {k: v.requires_grad_(True) for k, v in convert.from_jax(pf).items()}
-    tb = {k: v.requires_grad_(True) for k, v in convert.from_jax(pb).items()}
+    tf = {k: v.requires_grad_(True) for k, v in convert.from_jax(pf, device="cpu").items()}
+    tb = {k: v.requires_grad_(True) for k, v in convert.from_jax(pb, device="cpu").items()}
     xt = _t(x).requires_grad_(True)
     ys, ((hf, cf), (hb, cb)) = trnn.fused_bilstm_scan(tf, tb, xt, _t(mask), tdt)
     loss = (torch.sum(ys.float() * _t(w)) + torch.sum(hf * 0.7) + torch.sum(cf)

@@ -63,7 +63,7 @@ def slice_run():
     cfg = small_fast_cfg()
     units = builtin_unit_dict(cfg.data.unit)
     jparams = jseq.model_init(jax.random.PRNGKey(3), cfg, units.vocab_size)
-    tparams = convert.from_jax(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = convert.from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
     pred = Predictor(tparams, cfg, units, device="cpu", batch_size=2,
                      audio_seconds=1.0, transfer="compact")
     audio, video = _request(np.random.default_rng(3), 2)
@@ -116,8 +116,8 @@ def test_bf16_policy_memories_match():
     cfg = base.replace(train=dataclasses.replace(base.train, compute_dtype="bfloat16"))
     units = builtin_unit_dict(cfg.data.unit)
     jparams = jseq.model_init(jax.random.PRNGKey(5), cfg, units.vocab_size)
-    pred = Predictor(convert.from_jax(jax.tree_util.tree_map(np.asarray, jparams)), cfg,
-                     units, device="cpu", batch_size=2, audio_seconds=1.0)
+    pred = Predictor(convert.from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu"),
+                     cfg, units, device="cpu", batch_size=2, audio_seconds=1.0)
     arrays, _ = pred.assemble(*_request(np.random.default_rng(5), 2))
     mj = jseq.encode(jparams, cfg, jseq.Batch(**{k: jnp.asarray(v) for k, v in arrays.items()}))
     mt = pred.encode(arrays)
@@ -139,7 +139,9 @@ def test_predictor_rejects_bad_requests(slice_run):
 
 
 def test_port_never_imports_jax():
-    """Importing every module of the port leaves jax out of sys.modules."""
+    """Importing every module of the port leaves jax, and every module of
+    the JAX package (``avsr_tpu`` and ``avsr_tpu.*``, JAX-free or not), out
+    of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import avsr_tpu_torch\n"
@@ -147,9 +149,11 @@ def test_port_never_imports_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'jaxlib')))\n"
         "assert not bad, bad\n"
+        "bad = sorted(k for k in sys.modules if k == 'avsr_tpu' or k.startswith('avsr_tpu.'))\n"
+        "assert not bad, bad\n"
         "print(len([k for k in sys.modules if k.startswith('avsr_tpu_torch')]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 23  # the train/ package, ops/noise, utils/rng
+    assert int(out.stdout.strip()) >= 28  # configs, data/units, decode/greedy

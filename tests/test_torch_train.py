@@ -107,7 +107,8 @@ def setup():
     V = builtin_unit_dict(cfg.data.unit).vocab_size
     jparams = jseq.model_init(jax.random.PRNGKey(3), cfg, V)
     arrays = batch_arrays(0, V)
-    return cfg, V, jparams, convert.from_jax(jax.tree_util.tree_map(np.asarray, jparams)), arrays
+    tparams = convert.from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
+    return cfg, V, jparams, tparams, arrays
 
 
 def test_loss_and_every_gradient_leaf_match_jax(setup):

@@ -60,8 +60,8 @@ def test_video_cnn_matches_jax(dtype):
     lengths = np.array([5, 3], np.int32)
     ej, _ = jvc.video_cnn_apply(params, cfg, jnp.asarray(frames), jnp.asarray(lengths),
                                 compute_dtype=jdt)
-    et, _ = tvc.video_cnn_apply(convert.from_jax(params), cfg, torch.from_numpy(frames),
-                                torch.from_numpy(lengths), tdt)
+    et, _ = tvc.video_cnn_apply(convert.from_jax(params, device="cpu"), cfg,
+                                torch.from_numpy(frames), torch.from_numpy(lengths), tdt)
     assert tuple(et.shape) == (2, 5, 128) and et.dtype == torch.float32
     np.testing.assert_allclose(et.numpy(), _np(ej), **tol)
     assert torch.all(et[1, 3:] == 0)
@@ -82,8 +82,8 @@ def test_cross_attention_fusion_matches_jax(dtype):
         params, cfg, jnp.asarray(audio), jnp.asarray(a_len), jnp.asarray(video),
         jnp.asarray(v_len), compute_dtype=jdt)
     ot = tfus.cross_attention_fusion_apply(
-        convert.from_jax(params), cfg, torch.from_numpy(audio), torch.from_numpy(a_len),
-        torch.from_numpy(video), torch.from_numpy(v_len), tdt)
+        convert.from_jax(params, device="cpu"), cfg, torch.from_numpy(audio),
+        torch.from_numpy(a_len), torch.from_numpy(video), torch.from_numpy(v_len), tdt)
     for a, b in zip(ot, oj):
         assert tuple(a.shape) == b.shape
         np.testing.assert_allclose(a.numpy(), _np(b), **tol)
@@ -98,7 +98,7 @@ def test_decode_step_matches_jax_over_several_positions(dtype):
         attention_units=8, embedding_dim=16)
     N, S, M, V, L = 3, 7, 24, 20, 6
     params = _params(jtd.transformer_decoder_init(jax.random.PRNGKey(2), cfg, [M], V))
-    tparams = convert.from_jax(params)
+    tparams = convert.from_jax(params, device="cpu")
     rng = np.random.default_rng(2)
     memory = rng.standard_normal((N, S, M)).astype(np.float32)
     m_len = np.array([7, 4, 2], np.int32)
