@@ -14,13 +14,17 @@ dequantization, on-device noise mixing, the log-mel frontend, the BiLSTM
 encoders with pyramidal time reduction and dropout, the lip-ROI CNN,
 cross-attention fusion with the AU head, the transformer decoder
 (teacher-forced, and its KV-cache step for width-W beam search and greedy
-decode), the losses, the optimizer and the train step (``train/``).  The
-compute cores run as hand-written CUDA kernels on a GPU (``kernels/``,
-``csrc/``) and as plain PyTorch on the CPU: the direction-batched LSTM
-recurrence forward and backward (K1), the post-DFT log-mel chain (K3), the
-fusion attention forward and backward (K4), the teacher-forced decoder
-attention forward and backward (K5), the single-query decode attention
-(K6) and the fused beam step (K7).
+decode), the losses, the optimizer and the train step (``train/``) — and
+the serving path and greedy decode of the reference-dims ``lrs2_av_align``
+preset: the AV-Align fusion (a fusion LSTM with input feeding and a
+Bahdanau read of the video memory per audio step) and the attention-LSTM
+decoder.  The compute cores run as hand-written CUDA kernels on a GPU
+(``kernels/``, ``csrc/``) and as plain PyTorch on the CPU: the
+direction-batched LSTM recurrence forward and backward (K1), the post-DFT
+log-mel chain (K3), the fusion attention forward and backward (K4), the
+teacher-forced decoder attention forward and backward (K5), the
+single-query decode attention (K6), the fused beam step (K7), the AV-Align
+fusion scan (K8) and the Bahdanau read (K10).
 
 Layouts follow the reference: time-major [T, B, D] inside the recurrent
 core and the fusion, batch-major at the API and for decoder memories.

@@ -1,7 +1,9 @@
 // Multi-head attention over a short key axis, forward and backward, shared
 // by K4 (cross_attention.cu: the fusion's audio queries over video keys)
 // and K5 (decoder_attention.cu: the teacher-forced decoder's causal self
-// attention and its cross attention over the fused memory).  The two
+// attention and its cross attention over the fused memory), the kernels
+// standing for avsr_tpu/models/fusion.py:226-235 and
+// avsr_tpu/models/transformer_decoder.py:305.  The two
 // differ only in the additive mask of the scores, a functor here:
 //
 //   s[i, j]  = float(bf16(q_i . k_j)) / sqrt(A) + mask(b, i, j)

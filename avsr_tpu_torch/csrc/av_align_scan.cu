@@ -1,0 +1,310 @@
+// K8: the AV-Align fusion scan, forward.  Replaces the scan body of
+// avsr_tpu/models/fusion.py:av_align_apply (:118-141): a unidirectional
+// LSTM over the audio encoder's output with input feeding, and at every
+// audio step one Bahdanau read of the video memory with the new h as the
+// query.  Per step t, under the bf16 policy:
+//
+//   gates  = ((xw[t] + bf16(ctx) @ bf16(ctx_proj)) + bf16(h) @ bf16(Wh)) + b
+//            (xw is the hoisted fp32 input product; fp32 accumulation)
+//   i, f, o = sigmoid; g = tanh;  c' = f*c + i*g;  h' = o * tanh(c')
+//   ctx', w = read(query h', the video memory)          (bahdanau_core.cuh)
+//   m = mask[t, b]:  (h, c, ctx) <- m*(h', c', ctx') + (1-m)*(h, c, ctx)
+//   hs[t] = h' * m;  ctxs[t] = ctx' * m;  aligns[t] = w * m
+//
+// The read's query is h' itself, not the masked carry.  A row whose step is
+// masked (m == 0) keeps its carries and emits zeros, so its read is
+// skipped: that is exactly what the masked update makes of it.
+//
+// What bounds it on an H100: the recurrence is sequential in t and a step
+// is small (at B = 8: 8 x 768 x 1024 MACs of gates and 8 reads of 150
+// keys): a step costs two launches' latency, the staging of each gate
+// block's weight slices (Wh 32 KB + ctx_proj 64 KB bf16, all of it L2
+// resident after step 0) and the read's dependent reductions.  Design, as
+// K1's forward: one host loop in C over the T steps, two launches per step
+// on the caller's stream.  (a) Gate launch: a block owns BT = 16 batch rows
+// x UT = 16 hidden units and computes all four gates of its units from the
+// bf16 ctx and h rows (staged in shared memory) against the pre-tiled
+// [K][UT][4] weight slices (K1's layout, kernels.tile_lstm_weights), with
+// fp32 FMAs on bf16-rounded operands; it applies the cell update and the
+// mask and writes h' for the read.  (b) Read launch: a block per batch row
+// runs bahdanau::read and the masked epilogue.  h and ctx are
+// double-buffered in device memory, c is updated in place (only its owner
+// reads it).  A persistent kernel holding the weights in shared memory
+// across steps is later work.
+
+#include "bahdanau_core.cuh"
+
+namespace {
+
+constexpr int BT = 16;  // batch rows per gate block
+constexpr int UT = 16;  // hidden units per gate block
+constexpr int GTHREADS = BT * UT;
+constexpr int VEC = 8;  // 16-byte loads in flight per thread while staging
+
+__device__ __forceinline__ float sigmoidf_(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// A contiguous run of n 16-byte chunks into shared memory.
+__device__ __forceinline__ void stage_copy(uint4* dst, const uint4* src, int n, int tid) {
+  for (int c0 = tid; c0 < n; c0 += VEC * GTHREADS) {
+    uint4 v[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const int ci = c0 + j * GTHREADS;
+      if (ci < n) v[j] = src[ci];
+    }
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const int ci = c0 + j * GTHREADS;
+      if (ci < n) dst[ci] = v[j];
+    }
+  }
+}
+
+// Rows row0 .. row0 + BT of an fp32 [B, K] matrix, rounded to bf16, into
+// dst [BT][K]; rows past B are zero.
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const float* src, int row0, int B,
+                                           int K, int tid) {
+  const int per_row = K / 4;
+  const int n = BT * per_row;
+  __nv_bfloat162* d2 = reinterpret_cast<__nv_bfloat162*>(dst);
+  for (int c0 = tid; c0 < n; c0 += VEC * GTHREADS) {
+    float4 v[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const int ci = c0 + j * GTHREADS;
+      const int rr = ci / per_row;
+      v[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (ci < n && row0 + rr < B)
+        v[j] = reinterpret_cast<const float4*>(src + (size_t)(row0 + rr) * K)[ci - rr * per_row];
+    }
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const int ci = c0 + j * GTHREADS;
+      if (ci < n) {
+        d2[2 * ci] = __floats2bfloat162_rn(v[j].x, v[j].y);
+        d2[2 * ci + 1] = __floats2bfloat162_rn(v[j].z, v[j].w);
+      }
+    }
+  }
+}
+
+// a[q] += sum_k x[k] * W[k, q*H + unit] for the four gates q, from a bf16
+// row x_s [K] and the block's tiled slice w_s [K][UT][4].
+__device__ __forceinline__ void gate_product(const __nv_bfloat16* x_s, const __nv_bfloat16* w_s,
+                                             int u, int K, float (&a)[4]) {
+  const uint32_t* xr = reinterpret_cast<const uint32_t*>(x_s);  // bf16 pairs
+  const uint2* wu = reinterpret_cast<const uint2*>(w_s) + u;      // 4 gates / k
+#pragma unroll 4
+  for (int k2 = 0; k2 < K / 2; ++k2) {
+    const uint32_t xx = xr[k2];
+    const uint2 w0 = wu[(2 * k2) * UT];
+    const uint2 w1 = wu[(2 * k2 + 1) * UT];
+    const float x0 = bahdanau::bf_lo(xx), x1 = bahdanau::bf_hi(xx);
+    a[0] = fmaf(x0, bahdanau::bf_lo(w0.x), a[0]);
+    a[1] = fmaf(x0, bahdanau::bf_hi(w0.x), a[1]);
+    a[2] = fmaf(x0, bahdanau::bf_lo(w0.y), a[2]);
+    a[3] = fmaf(x0, bahdanau::bf_hi(w0.y), a[3]);
+    a[0] = fmaf(x1, bahdanau::bf_lo(w1.x), a[0]);
+    a[1] = fmaf(x1, bahdanau::bf_hi(w1.x), a[1]);
+    a[2] = fmaf(x1, bahdanau::bf_lo(w1.y), a[2]);
+    a[3] = fmaf(x1, bahdanau::bf_hi(w1.y), a[3]);
+  }
+}
+
+__global__ void __launch_bounds__(GTHREADS)
+align_gate_kernel(const __nv_bfloat16* __restrict__ wh_tiled,  // [H/UT, H, UT, 4]
+                  const __nv_bfloat16* __restrict__ cp_tiled,  // [H/UT, Dc, UT, 4] or null
+                  const float* __restrict__ bias,              // [4H]
+                  const float* __restrict__ xw_t,              // [B, 4H]
+                  const float* __restrict__ mask_t,            // [B]
+                  const float* __restrict__ h_in,              // [B, H]
+                  float* __restrict__ h_out,                   // [B, H]
+                  float* __restrict__ c,                       // [B, H] in place
+                  const float* __restrict__ ctx_in,            // [B, Dc]
+                  float* __restrict__ hnew,                    // [B, H] h' (the read's query)
+                  float* __restrict__ hs_t,                    // [B, H]
+                  int B, int H, int Dc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* wh_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [H][UT][4]
+  __nv_bfloat16* cp_s = wh_s + (size_t)H * UT * 4;                // [Dc][UT][4]
+  __nv_bfloat16* h_s = cp_s + (size_t)Dc * UT * 4;                // [BT][H]
+  __nv_bfloat16* x_s = h_s + (size_t)BT * H;                      // [BT][Dc]
+
+  const int tile = blockIdx.x;
+  const int row0 = blockIdx.y * BT;
+  const int tid = threadIdx.x;
+  const int r = tid / UT;
+  const int u = tid - r * UT;
+  const int row = row0 + r;
+  const int unit = tile * UT + u;
+  const bool live = row < B;
+
+  // Epilogue operands first, so their latency overlaps the staging.
+  const size_t s = (size_t)(live ? row : 0) * H + unit;
+  float xg[4] = {0.f, 0.f, 0.f, 0.f}, c_prev = 0.f, h_prev = 0.f, m = 0.f;
+  if (live) {
+    const float* x = xw_t + (size_t)row * 4 * H;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) xg[q] = x[q * H + unit];
+    c_prev = c[s];
+    h_prev = h_in[s];
+    m = mask_t[row];
+  }
+  float bq[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) bq[q] = bias[q * H + unit];
+
+  stage_copy(reinterpret_cast<uint4*>(wh_s),
+             reinterpret_cast<const uint4*>(wh_tiled + (size_t)tile * H * UT * 4),
+             H * UT * 4 / 8, tid);
+  stage_rows(h_s, h_in, row0, B, H, tid);
+  if (Dc > 0) {
+    stage_copy(reinterpret_cast<uint4*>(cp_s),
+               reinterpret_cast<const uint4*>(cp_tiled + (size_t)tile * Dc * UT * 4),
+               Dc * UT * 4 / 8, tid);
+    stage_rows(x_s, ctx_in, row0, B, Dc, tid);
+  }
+  __syncthreads();
+
+  float ac[4] = {0.f, 0.f, 0.f, 0.f}, ah[4] = {0.f, 0.f, 0.f, 0.f};
+  if (Dc > 0) gate_product(x_s + (size_t)r * Dc, cp_s, u, Dc, ac);
+  gate_product(h_s + (size_t)r * H, wh_s, u, H, ah);
+  if (!live) return;
+
+  float gt[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) gt[q] = ((xg[q] + ac[q]) + ah[q]) + bq[q];
+  const float i = sigmoidf_(gt[0]);
+  const float f = sigmoidf_(gt[1]);
+  const float g = tanhf(gt[2]);
+  const float o = sigmoidf_(gt[3]);
+  const float c_new = f * c_prev + i * g;
+  const float h_new = o * tanhf(c_new);
+  h_out[s] = m * h_new + (1.0f - m) * h_prev;
+  c[s] = m * c_new + (1.0f - m) * c_prev;
+  hnew[s] = h_new;
+  hs_t[s] = h_new * m;
+}
+
+struct AlignWeights {
+  float* aligns;  // this row's [S] slice of aligns[t]
+  float m;
+  __device__ void operator()(int s, float w) const { aligns[s] = w * m; }
+};
+
+struct AlignContext {
+  const float* ctx_in;  // this row's carry [Dv]
+  float* ctx_out;
+  float* ctxs;          // this row's [Dv] slice of ctxs[t]
+  float m;
+  __device__ void operator()(int d, float x) const {
+    ctxs[d] = x * m;
+    ctx_out[d] = m * x + (1.0f - m) * ctx_in[d];
+  }
+};
+
+__global__ void __launch_bounds__(bahdanau::THREADS)
+align_read_kernel(const float* __restrict__ hnew,            // [B, H]
+                  const float* __restrict__ mask_t,          // [B]
+                  const __nv_bfloat16* __restrict__ wq,      // [H, A]
+                  const __nv_bfloat16* __restrict__ vatt,    // [A]
+                  const float* __restrict__ keys,            // [B, S, A]
+                  const __nv_bfloat16* __restrict__ values,  // [B, S, Dv]
+                  const float* __restrict__ mbias,           // [B, S]
+                  const float* __restrict__ mmask,           // [B, S]
+                  const float* __restrict__ ctx_in,          // [B, Dv]
+                  float* __restrict__ ctx_out,               // [B, Dv]
+                  float* __restrict__ ctxs_t,                // [B, Dv]
+                  float* __restrict__ aligns_t,              // [B, S]
+                  int H, int A, int S, int Dv) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const size_t b = blockIdx.x;
+  const float m = mask_t[b];
+  if (m == 0.f) {  // a masked step: carry the context, emit zeros
+    for (int d = threadIdx.x; d < Dv; d += bahdanau::THREADS) {
+      ctx_out[b * Dv + d] = ctx_in[b * Dv + d];
+      ctxs_t[b * Dv + d] = 0.f;
+    }
+    for (int s = threadIdx.x; s < S; s += bahdanau::THREADS) aligns_t[b * S + s] = 0.f;
+    return;
+  }
+  bahdanau::read(hnew + b * H, wq, vatt, keys + b * S * A, values + b * S * Dv, mbias + b * S,
+                 mmask + b * S, H, A, S, Dv, reinterpret_cast<float*>(smem),
+                 AlignWeights{aligns_t + b * S, m},
+                 AlignContext{ctx_in + b * Dv, ctx_out + b * Dv, ctxs_t + b * Dv, m});
+}
+
+size_t gate_smem_bytes(int H, int Dc) {
+  return ((size_t)H * UT * 4 + (size_t)Dc * UT * 4 + (size_t)BT * H + (size_t)BT * Dc) *
+         sizeof(__nv_bfloat16);
+}
+
+}  // namespace
+
+// Shared memory per block of the larger of the two launches, in bytes.
+extern "C" long long avsr_av_align_smem(int H, int Dc, int A, int S) {
+  const size_t g = gate_smem_bytes(H, Dc), r = bahdanau::read_smem_bytes(H, A, S);
+  return (long long)(g > r ? g : r);
+}
+
+// wh_tiled [H/UT, H, UT, 4] and cp_tiled [H/UT, Dc, UT, 4] bf16 (cp_tiled
+// null and Dc = 0 without input feeding, else Dc = Dv); bias [4H]; xw
+// [T, B, 4H] and mask [T, B] fp32; wq [H, A], vatt [A] bf16; keys [B, S, A]
+// fp32, values [B, S, Dv] bf16, mbias / mmask [B, S] fp32.  hbuf [2][B, H]
+// and ctxbuf [2][B, Dv] fp32 hold the zero initial carries in slot 0; after
+// T steps the final ones are in slot T % 2; c [B, H] fp32 in place; hnew
+// [B, H] fp32 scratch.  Outputs hs [T, B, H], ctxs [T, B, Dv], aligns
+// [T, B, S] fp32.
+extern "C" int avsr_av_align_scan(const void* wh_tiled, const void* cp_tiled, const void* bias,
+                                  const void* xw, const void* mask, const void* wq,
+                                  const void* vatt, const void* keys, const void* values,
+                                  const void* mbias, const void* mmask, void* hbuf, void* c,
+                                  void* ctxbuf, void* hnew, void* hs, void* ctxs, void* aligns,
+                                  int T, int B, int H, int Dc, int A, int S, int Dv,
+                                  void* stream) {
+  if (B < 1 || S < 1 || H % UT || H % 4 || Dc % 4 || (Dc > 0 && cp_tiled == nullptr) ||
+      A % 8 || A > 512 || Dv % 8 || Dv > 2048)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem_g = gate_smem_bytes(H, Dc);
+  const size_t smem_r = bahdanau::read_smem_bytes(H, A, S);
+  cudaError_t e;
+  if (smem_g > 48 * 1024) {
+    e = cudaFuncSetAttribute(align_gate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_g);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (smem_r > 48 * 1024) {
+    e = cudaFuncSetAttribute(align_read_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_r);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const dim3 ggrid(H / UT, (B + BT - 1) / BT);
+  const size_t bh = (size_t)B * H, bd = (size_t)B * Dv;
+  const float* xw_p = static_cast<const float*>(xw);
+  const float* mask_p = static_cast<const float*>(mask);
+  float* h_p = static_cast<float*>(hbuf);
+  float* ctx_p = static_cast<float*>(ctxbuf);
+  float* hs_p = static_cast<float*>(hs);
+  float* ctxs_p = static_cast<float*>(ctxs);
+  float* al_p = static_cast<float*>(aligns);
+  for (int t = 0; t < T; ++t) {
+    const size_t cur = (size_t)(t & 1), nxt = (size_t)((t + 1) & 1);
+    align_gate_kernel<<<ggrid, GTHREADS, smem_g, st>>>(
+        static_cast<const __nv_bfloat16*>(wh_tiled), static_cast<const __nv_bfloat16*>(cp_tiled),
+        static_cast<const float*>(bias), xw_p + (size_t)t * B * 4 * H, mask_p + (size_t)t * B,
+        h_p + cur * bh, h_p + nxt * bh, static_cast<float*>(c), ctx_p + cur * bd,
+        static_cast<float*>(hnew), hs_p + (size_t)t * bh, B, H, Dc);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    align_read_kernel<<<B, bahdanau::THREADS, smem_r, st>>>(
+        static_cast<const float*>(hnew), mask_p + (size_t)t * B,
+        static_cast<const __nv_bfloat16*>(wq), static_cast<const __nv_bfloat16*>(vatt),
+        static_cast<const float*>(keys), static_cast<const __nv_bfloat16*>(values),
+        static_cast<const float*>(mbias), static_cast<const float*>(mmask), ctx_p + cur * bd,
+        ctx_p + nxt * bd, ctxs_p + (size_t)t * bd, al_p + (size_t)t * B * S, H, A, S, Dv);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaGetLastError();
+}

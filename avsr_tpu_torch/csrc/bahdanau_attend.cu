@@ -1,0 +1,74 @@
+// K10: one Bahdanau attention read per row, the RNN decoder's read at every
+// decode step.  Replaces avsr_tpu/ops/attention.py:attend (Bahdanau branch
+// :140-151, masking :165-171) as avsr_tpu/models/decoder.py:decoder_step
+// (:160-164) calls it over the beam-tiled memory: query [N, Hq] fp32 (the
+// top LSTM layer's h), keys [N, S, A] fp32, values [N, S, Dv] bf16, bias and
+// mask [N, S] fp32 -> context [N, Dv] fp32 and weights [N, S] fp32.  The
+// arithmetic, its rounding points and the design are those of
+// bahdanau_core.cuh: one block per row, the q product inside the kernel.
+//
+// What bounds it on an H100: the bytes of the tiled keys and values, read
+// once: at N = 80 beams, S = 197, A = 128, Dv = 768 that is 8.1 MB of
+// keys and 24.2 MB of values per step (~9.6 us at 3.35 TB/s), against
+// 2 * S * (A + Dv) FMAs per row.  The beams of one utterance read the same
+// memory; reading the untiled memory by n / W would cut the bytes tenfold
+// (later work, with K6's identical item).
+
+#include "bahdanau_core.cuh"
+
+namespace {
+
+struct RowWeights {
+  float* w;
+  __device__ void operator()(int s, float x) const { w[s] = x; }
+};
+
+struct RowContext {
+  float* ctx;
+  __device__ void operator()(int d, float x) const { ctx[d] = x; }
+};
+
+__global__ void __launch_bounds__(bahdanau::THREADS)
+bahdanau_attend_kernel(const float* __restrict__ query,          // [N, Hq]
+                       const __nv_bfloat16* __restrict__ wq,     // [Hq, A]
+                       const __nv_bfloat16* __restrict__ vatt,   // [A]
+                       const float* __restrict__ keys,           // [N, S, A]
+                       const __nv_bfloat16* __restrict__ values, // [N, S, Dv]
+                       const float* __restrict__ bias,           // [N, S]
+                       const float* __restrict__ mask,           // [N, S]
+                       float* __restrict__ ctx,                  // [N, Dv]
+                       float* __restrict__ weights,              // [N, S]
+                       int Hq, int A, int S, int Dv) {
+  extern __shared__ __align__(16) float smem[];
+  const size_t n = blockIdx.x;
+  bahdanau::read(query + n * Hq, wq, vatt, keys + n * S * A, values + n * S * Dv, bias + n * S,
+                 mask + n * S, Hq, A, S, Dv, smem, RowWeights{weights + n * S},
+                 RowContext{ctx + n * Dv});
+}
+
+}  // namespace
+
+extern "C" long long avsr_bahdanau_smem(int Hq, int A, int S) {
+  return (long long)bahdanau::read_smem_bytes(Hq, A, S);
+}
+
+extern "C" int avsr_bahdanau_attend(const void* query, const void* wq, const void* vatt,
+                                    const void* keys, const void* values, const void* bias,
+                                    const void* mask, void* ctx, void* weights, int N, int Hq,
+                                    int A, int S, int Dv, void* stream) {
+  if (N < 1 || S < 1 || Hq < 1 || A % 8 || A > 512 || Dv % 8 || Dv > 2048)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = bahdanau::read_smem_bytes(Hq, A, S);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(bahdanau_attend_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  bahdanau_attend_kernel<<<N, bahdanau::THREADS, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(query), static_cast<const __nv_bfloat16*>(wq),
+      static_cast<const __nv_bfloat16*>(vatt), static_cast<const float*>(keys),
+      static_cast<const __nv_bfloat16*>(values), static_cast<const float*>(bias),
+      static_cast<const float*>(mask), static_cast<float*>(ctx), static_cast<float*>(weights),
+      Hq, A, S, Dv);
+  return (int)cudaGetLastError();
+}

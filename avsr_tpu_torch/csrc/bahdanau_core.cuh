@@ -1,0 +1,241 @@
+// The Bahdanau attention read, one query row per block, shared by K10
+// (bahdanau_attend.cu: the RNN decoder's read at every decode step) and
+// K8 (av_align_scan.cu: the AV-Align fusion's read at every audio step).
+// It replaces avsr_tpu/ops/attention.py:attend, Bahdanau branch
+// (:140-151) with its masking (:165-171), under the bf16 policy:
+//
+//   q[a]   = sum_k bf16(query[k]) * wq[k, a]                 (fp32)
+//   e[s,a] = tanh(keys[s, a] + q[a])                          (fp32)
+//   sc[s]  = sum_a bf16(e[s, a]) * bf16(v[a]) + bias[s]       (fp32)
+//   p      = softmax(sc);  p *= mask;  p /= max(sum(p), 1e-9)
+//   w      = p * min(sum(mask), 1)
+//   ctx[d] = sum_s bf16(w[s]) * values[s, d]                  (fp32)
+//
+// so a memory of length 0 (every bias -1e30, every mask 0) gives zero
+// weights and a zero context, as the reference does (not K6's uniform
+// mean).  The bias is added to every key, never used to skip one; a key
+// whose bf16 weight is 0 is left out of the context sum, which adds
+// exactly 0 for it.
+//
+// Design: one block of 256 threads per row.  q: thread pairs of outputs
+// (one 4-byte load of wq per k, LOADS rows in flight) with k split over
+// THREADS / (A/2) slices, summed in a fixed order.  Scores: a warp per
+// key, KPW keys in flight per warp, each lane one float4 of the key row;
+// the energies run on the CUDA cores (tanhf), the dot with v is a shuffle
+// reduction.  Softmax and the renormalisation are fp32 block reductions.
+// Context: a thread per 16-byte chunk (8 channels) of a value row, LOADS
+// rows in flight, the keys split over THREADS / (Dv/8) slices, summed in a
+// fixed order: the same bits every run.  (With one load in flight per key
+// the context loop would be a chain of ~S / slices dependent L2 round
+// trips.)  What bounds it on an H100: the bytes of the keys (fp32)
+// and values (bf16) of the row, read once; the sequential dependence of
+// the reductions at one block per row.  Requirements (checked by the
+// wrappers): A % 8 == 0, A <= 512, Dv % 8 == 0, Dv <= 2048.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace bahdanau {
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int KPW = 4;    // keys in flight per warp in the score loop
+constexpr int LOADS = 8;  // loads in flight per thread in the q and context loops
+
+__device__ __forceinline__ float bf_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+__device__ __forceinline__ float bf_round(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// block-wide max (MAX) or sum of one value per thread, in a fixed order
+template <bool MAX>
+__device__ __forceinline__ float block_reduce(float x, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float y = __shfl_xor_sync(0xffffffffu, x, o);
+    x = MAX ? fmaxf(x, y) : x + y;
+  }
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = x;
+  __syncthreads();
+  float r = red[0];
+#pragma unroll
+  for (int w = 1; w < WARPS; ++w) r = MAX ? fmaxf(r, red[w]) : r + red[w];
+  __syncthreads();  // red is reused by the next reduction
+  return r;
+}
+
+// Shared memory of one read, in bytes: q and v [A], the query [Hq], the
+// scores [S], the reduction slots and the partial sums [8 * THREADS].
+__host__ __device__ inline size_t read_smem_bytes(int Hq, int A, int S) {
+  return (size_t)(2 * A + Hq + S + WARPS + 8 * THREADS) * sizeof(float);
+}
+
+// One read.  query [Hq] fp32, wq [Hq, A] bf16, vatt [A] bf16, keys [S, A]
+// fp32, values [S, Dv] bf16, bias / mask [S] fp32 (this row's slices).
+// w_out(s, w) receives each weight, ctx_out(d, x) each context channel.
+template <class WeightOut, class CtxOut>
+__device__ void read(const float* __restrict__ query, const __nv_bfloat16* __restrict__ wq,
+                     const __nv_bfloat16* __restrict__ vatt, const float* __restrict__ keys,
+                     const __nv_bfloat16* __restrict__ values, const float* __restrict__ bias,
+                     const float* __restrict__ mask, int Hq, int A, int S, int Dv, float* smem,
+                     WeightOut w_out, CtxOut ctx_out) {
+  float* q_s = smem;           // [A]
+  float* v_s = q_s + A;        // [A]
+  float* qin = v_s + A;        // [Hq] bf16-rounded query
+  float* p_s = qin + Hq;       // [S] scores, weights, then bf16(weights)
+  float* red = p_s + S;        // [WARPS]
+  float* part = red + WARPS;   // [8 * THREADS]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  for (int i = tid; i < Hq; i += THREADS) qin[i] = bf_round(query[i]);
+  for (int i = tid; i < A; i += THREADS) v_s[i] = __bfloat162float(vatt[i]);
+  __syncthreads();
+
+  // q = bf16(query) @ wq: a thread per output pair, k split over slices
+  {
+    const int npair = A / 2, slices = THREADS / npair;
+    const int cp = tid % npair, sl = tid / npair;
+    if (sl < slices) {
+      const uint32_t* w2 = reinterpret_cast<const uint32_t*>(wq) + cp;
+      float a0 = 0.f, a1 = 0.f;
+      for (int k0 = sl; k0 < Hq; k0 += LOADS * slices) {
+        uint32_t ww[LOADS];  // LOADS rows of wq in flight
+#pragma unroll
+        for (int j = 0; j < LOADS; ++j) {
+          const int k = k0 + j * slices;
+          ww[j] = k < Hq ? w2[(size_t)k * npair] : 0u;
+        }
+#pragma unroll
+        for (int j = 0; j < LOADS; ++j) {
+          const int k = k0 + j * slices;
+          const float x = k < Hq ? qin[k] : 0.f;
+          a0 = fmaf(x, bf_lo(ww[j]), a0);
+          a1 = fmaf(x, bf_hi(ww[j]), a1);
+        }
+      }
+      part[sl * A + 2 * cp] = a0;
+      part[sl * A + 2 * cp + 1] = a1;
+    }
+    __syncthreads();
+    for (int a = tid; a < A; a += THREADS) {
+      float s = 0.f;
+      for (int j = 0; j < slices; ++j) s += part[j * A + a];
+      q_s[a] = s;
+    }
+    __syncthreads();
+  }
+
+  // scores: a warp per key, KPW keys at a time, a float4 of the key per lane
+  {
+    const int A4 = A / 4;
+    const float4* k4 = reinterpret_cast<const float4*>(keys);
+    const float4* q4 = reinterpret_cast<const float4*>(q_s);
+    const float4* v4 = reinterpret_cast<const float4*>(v_s);
+    for (int s0 = warp * KPW; s0 < S; s0 += WARPS * KPW) {
+      float acc[KPW];
+#pragma unroll
+      for (int j = 0; j < KPW; ++j) acc[j] = 0.f;
+      for (int c = lane; c < A4; c += 32) {
+        float4 kv[KPW];
+#pragma unroll
+        for (int j = 0; j < KPW; ++j)
+          kv[j] = s0 + j < S ? k4[(size_t)(s0 + j) * A4 + c] : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 qq = q4[c], vv = v4[c];
+#pragma unroll
+        for (int j = 0; j < KPW; ++j) {
+          acc[j] = fmaf(bf_round(tanhf(kv[j].x + qq.x)), vv.x, acc[j]);
+          acc[j] = fmaf(bf_round(tanhf(kv[j].y + qq.y)), vv.y, acc[j]);
+          acc[j] = fmaf(bf_round(tanhf(kv[j].z + qq.z)), vv.z, acc[j]);
+          acc[j] = fmaf(bf_round(tanhf(kv[j].w + qq.w)), vv.w, acc[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < KPW; ++j) {
+        float a = acc[j];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+        if (lane == 0 && s0 + j < S) p_s[s0 + j] = a + bias[s0 + j];
+      }
+    }
+    __syncthreads();
+  }
+
+  // softmax (fp32), the mask, the renormalisation and the empty-memory zero
+  {
+    float mx = __int_as_float(0xff800000u);  // -inf
+    for (int s = tid; s < S; s += THREADS) mx = fmaxf(mx, p_s[s]);
+    mx = block_reduce<true>(mx, red);
+    float sum = 0.f;
+    for (int s = tid; s < S; s += THREADS) {
+      const float e = expf(p_s[s] - mx);
+      p_s[s] = e;
+      sum += e;
+    }
+    sum = block_reduce<false>(sum, red);
+    float psum = 0.f, msum = 0.f;
+    for (int s = tid; s < S; s += THREADS) {
+      const float m = mask[s];
+      const float p = p_s[s] / sum * m;
+      p_s[s] = p;
+      psum += p;
+      msum += m;
+    }
+    psum = block_reduce<false>(psum, red);
+    msum = block_reduce<false>(msum, red);
+    const float denom = fmaxf(psum, 1e-9f), scale = fminf(msum, 1.0f);
+    for (int s = tid; s < S; s += THREADS) {
+      const float w = p_s[s] / denom * scale;
+      w_out(s, w);
+      p_s[s] = bf_round(w);
+    }
+    __syncthreads();
+  }
+
+  // context: a thread per 8-channel chunk, keys split over slices
+  {
+    const int C = Dv / 8, slices = THREADS / C;
+    const int c = tid % C, sl = tid / C;
+    if (sl < slices) {
+      const uint4* vr = reinterpret_cast<const uint4*>(values) + c;
+      float acc[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+      for (int s0 = sl; s0 < S; s0 += LOADS * slices) {
+        float p[LOADS];
+        uint4 u[LOADS];  // LOADS value rows in flight
+#pragma unroll
+        for (int j = 0; j < LOADS; ++j) {
+          const int s = s0 + j * slices;
+          p[j] = s < S ? p_s[s] : 0.f;
+          u[j] = p[j] != 0.f ? vr[(size_t)s * C] : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int j = 0; j < LOADS; ++j) {
+          if (p[j] == 0.f) continue;
+          acc[0] = fmaf(p[j], bf_lo(u[j].x), acc[0]);
+          acc[1] = fmaf(p[j], bf_hi(u[j].x), acc[1]);
+          acc[2] = fmaf(p[j], bf_lo(u[j].y), acc[2]);
+          acc[3] = fmaf(p[j], bf_hi(u[j].y), acc[3]);
+          acc[4] = fmaf(p[j], bf_lo(u[j].z), acc[4]);
+          acc[5] = fmaf(p[j], bf_hi(u[j].z), acc[5]);
+          acc[6] = fmaf(p[j], bf_lo(u[j].w), acc[6]);
+          acc[7] = fmaf(p[j], bf_hi(u[j].w), acc[7]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) part[sl * Dv + 8 * c + j] = acc[j];
+    }
+    __syncthreads();
+    for (int d = tid; d < Dv; d += THREADS) {
+      float x = 0.f;
+      for (int j = 0; j < slices; ++j) x += part[j * Dv + d];
+      ctx_out(d, x);
+    }
+  }
+}
+
+}  // namespace bahdanau

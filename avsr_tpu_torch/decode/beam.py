@@ -10,7 +10,9 @@ Same semantics as the reference, top-1 only:
   the top W of each row's W*V candidates are taken with a STABLE
   descending sort, so ties resolve to the lower flat index exactly like
   ``lax.top_k``;
-* the decoder state is gathered by parent every step;
+* the decoder state (the transformer's KV caches, or the RNN decoder's
+  (h, c) and contexts) is gathered by parent every step, every tensor of
+  it, as the reference's ``tree_map`` does;
 * the step after the decoder (log-softmax, masks, length penalty, top-W,
   gathers, trellis row) is kernel K7: ``beam_step`` launches
   ``csrc/beam_step.cu`` for GPU tensors and runs ``beam_step_plain`` for
@@ -107,9 +109,24 @@ def beam_step(logits, logp, lens, finished, lp_table, tokens_row, parents_row) -
 
 def _tile_memory(mem: attn.AttentionMemory, width: int, cdt: torch.dtype) -> attn.AttentionMemory:
     """[B, ...] -> [B*W, ...] with beams contiguous per batch row; the values
-    in the compute dtype, cast once here instead of at every step."""
-    values, mask, bias = (x.repeat_interleave(width, dim=0) for x in mem)
-    return attn.AttentionMemory(values=values.to(cdt), mask=mask, bias=bias)
+    in the compute dtype, cast once here instead of at every step; the
+    Bahdanau keys (if any) stay fp32."""
+    def tile(x):
+        return None if x is None else x.repeat_interleave(width, dim=0)
+
+    return attn.AttentionMemory(values=tile(mem.values).to(cdt), keys=tile(mem.keys),
+                                mask=tile(mem.mask), bias=tile(mem.bias))
+
+
+def _gather_rows(state, index: torch.Tensor):
+    """Every tensor of a decoder state (nested tuples / NamedTuples) gathered
+    along its leading row axis; other leaves (the shared position) kept."""
+    if isinstance(state, torch.Tensor):
+        return state.index_select(0, index)
+    if isinstance(state, tuple):
+        items = [_gather_rows(x, index) for x in state]
+        return type(state)(*items) if hasattr(state, "_fields") else tuple(items)
+    return state
 
 
 def beam_search(params, cfg: DecoderConfig, memories: Sequence[attn.AttentionMemory],
@@ -119,7 +136,8 @@ def beam_search(params, cfg: DecoderConfig, memories: Sequence[attn.AttentionMem
     W = beam_width
     dev = memories[0].values.device
     tiled = [_tile_memory(m, W, cdt) for m in memories]
-    state = dec.initial_state(cfg, B * W, max_length, cdt, dev)
+    state = dec.initial_state(cfg, B * W, max_length, cdt, dev,
+                              memory_dims=[m.values.shape[-1] for m in memories])
     cross_kv = dec.prepare_cross(params, cfg, tiled, cdt)
     lp_table = length_penalty_table(max_length, length_penalty, dev)
 
@@ -142,9 +160,7 @@ def beam_search(params, cfg: DecoderConfig, memories: Sequence[attn.AttentionMem
         state, logits = dec.decoder_step(params, cfg, tok, state, tiled, cross_kv, cdt)
         out = beam_step(logits, logp, lens, finished, lp_table, tokens_buf[t], parents_buf[t])
         logp, lens, finished = out.logp, out.lens, out.finished
-        state = state._replace(caches=tuple(
-            (k.index_select(0, out.flat_parent), v.index_select(0, out.flat_parent))
-            for k, v in state.caches))
+        state = _gather_rows(state, out.flat_parent)
         tok = out.feed.reshape(B * W)
         t += 1
 

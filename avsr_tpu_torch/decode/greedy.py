@@ -4,9 +4,10 @@ The eval-time decode of the JAX package (``AVSR.evaluate(greedy=True)``):
 every row feeds back its argmax, with PAD and GO masked to -1e30 first; a
 row that has emitted EOS writes PAD from then on and is fed EOS; the loop
 exits early, on the host, once every row is done.  Lengths count up to the
-first EOS inclusive, or the horizon.  Each step is ``decode_step``, so on a
-GPU it runs the single-query attention kernel K6.  Results are returned as
-CPU tensors.
+first EOS inclusive, or the horizon.  Each step is the decoder's
+``decoder_step``, so on a GPU it runs the single-query attention kernel K6
+(transformer decoder) or the Bahdanau read K10 (RNN decoder).  Results are
+returned as CPU tensors.
 """
 
 from __future__ import annotations
@@ -32,9 +33,12 @@ def greedy_decode(params, cfg: DecoderConfig, memories: Sequence[attn.AttentionM
     B = memories[0].values.shape[0]
     dev = memories[0].values.device
     # the values in the compute dtype and contiguous once, not at every step
-    memories = [attn.AttentionMemory(values=m.values.to(cdt).contiguous(), mask=m.mask,
-                                     bias=m.bias.contiguous()) for m in memories]
-    state = dec.initial_state(cfg, B, max_length, cdt, dev)
+    memories = [attn.AttentionMemory(
+        values=m.values.to(cdt).contiguous(),
+        keys=None if m.keys is None else m.keys.contiguous(),
+        mask=m.mask.contiguous(), bias=m.bias.contiguous()) for m in memories]
+    state = dec.initial_state(cfg, B, max_length, cdt, dev,
+                              memory_dims=[m.values.shape[-1] for m in memories])
     cross_kv = dec.prepare_cross(params, cfg, memories, cdt)
     tok = torch.full((B,), GO_ID, dtype=torch.long, device=dev)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)

@@ -12,8 +12,8 @@ flags, and is reused while they are unchanged.
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no ``nvcc`` and no GPU.  The functions below are the CUDA side
 of the wrappers in ``ops/rnn.py``, ``ops/audio_features.py``,
-``models/fusion.py``, ``models/transformer_decoder.py`` and
-``decode/beam.py``; each one checks its tensors, allocates the outputs
+``ops/attention.py``, ``models/fusion.py``, ``models/transformer_decoder.py``
+and ``decode/beam.py``; each one checks its tensors, allocates the outputs
 and scratch with ``torch.empty`` / ``torch.zeros``, launches on the current
 stream, raises on a nonzero CUDA status, and adds one to its entry of
 ``LAUNCHES``.
@@ -45,12 +45,13 @@ LAUNCHES: Dict[str, int] = {
     "lstm_scan_fwd": 0, "lstm_scan_bwd": 0, "logmel_post_dft": 0,
     "fusion_attention_fwd": 0, "fusion_attention_bwd": 0,
     "decoder_attention_fwd": 0, "decoder_attention_bwd": 0,
-    "decode_attention": 0, "beam_step": 0,
+    "decode_attention": 0, "beam_step": 0, "av_align_scan": 0, "bahdanau_attend": 0,
 }
 
 LSTM_UNIT_TILE = 16  # hidden units per block of the LSTM kernels (UT in the source)
 LSTM_ROW_TILE = 16   # batch rows per block of the LSTM kernels (BT in the source)
-FUSION_MAX_TV = 400  # video frames the fusion kernel takes: 16 s at 25 fps
+FUSION_MAX_TV = 400  # video frames the fusion kernels (K4, K8) take: 16 s at 25 fps
+ATTEND_MAX_S = 531   # memory steps K10 takes: the audio steps of 16 s, (1598 - 8) // 3 + 1
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on an H100
 
 _lib: Optional[ctypes.CDLL] = None
@@ -147,6 +148,14 @@ def _load() -> ctypes.CDLL:
         lib.avsr_decode_attn.restype = i
         lib.avsr_beam_step.argtypes = [p] * 12 + [i] * 4 + [p]
         lib.avsr_beam_step.restype = i
+        lib.avsr_av_align_smem.argtypes = [i, i, i, i]
+        lib.avsr_av_align_smem.restype = ctypes.c_longlong
+        lib.avsr_av_align_scan.argtypes = [p] * 18 + [i] * 7 + [p]
+        lib.avsr_av_align_scan.restype = i
+        lib.avsr_bahdanau_smem.argtypes = [i, i, i]
+        lib.avsr_bahdanau_smem.restype = ctypes.c_longlong
+        lib.avsr_bahdanau_attend.argtypes = [p] * 9 + [i] * 5 + [p]
+        lib.avsr_bahdanau_attend.restype = i
         _lib = lib
     return _lib
 
@@ -171,12 +180,13 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def tile_lstm_weights(wh: torch.Tensor) -> torch.Tensor:
-    """[G, H, 4H] -> [G, H/UT, H, UT, 4], the layout the LSTM kernel reads:
-    each block's Wh slice is contiguous and the four gate weights of one
-    hidden unit are adjacent (``csrc/lstm_scan.cu``)."""
-    G, H, _ = wh.shape
-    nt = H // LSTM_UNIT_TILE
-    return wh.view(G, H, 4, nt, LSTM_UNIT_TILE).permute(0, 3, 1, 4, 2).contiguous()
+    """[G, K, 4H] -> [G, H/UT, K, UT, 4], the layout the LSTM kernels read
+    (K = H for Wh, K = the context width for K8's ``ctx_proj``): each
+    block's weight slice is contiguous and the four gate weights of one
+    hidden unit are adjacent (``csrc/lstm_scan.cu``, ``csrc/av_align_scan.cu``)."""
+    G, K, H4 = wh.shape
+    nt = H4 // 4 // LSTM_UNIT_TILE
+    return wh.view(G, K, 4, nt, LSTM_UNIT_TILE).permute(0, 3, 1, 4, 2).contiguous()
 
 
 def tile_lstm_weights_t(wh: torch.Tensor) -> torch.Tensor:
@@ -497,3 +507,103 @@ def beam_step(logits, logp, lens, finished, lp_table, tokens_row, parents_row):
     _raise_on(err, "beam_step launch")
     LAUNCHES["beam_step"] += 1
     return flat_parent, feed, logp_out, lens_out, finished_out
+
+
+def av_align_scan(wh, b, ctx_proj, wq, v, xw, mask, keys, values, mbias, mmask):
+    """K8: the AV-Align fusion scan, forward (CUDA).
+
+    wh [H,4H] bf16, b [4H] f32, ctx_proj [Dv,4H] bf16 or None (no input
+    feeding), wq [H,A] bf16, v [A] bf16, xw [T,B,4H] f32, mask [T,B] f32;
+    the video memory: keys [B,S,A] f32, values [B,S,Dv] bf16, mbias / mmask
+    [B,S] f32 -> (hs [T,B,H], ctxs [T,B,Dv], aligns [T,B,S], hT, cT [B,H],
+    ctxT [B,Dv]), all fp32, from zero initial carries.
+    """
+    T, B, H4 = xw.shape
+    H = H4 // 4
+    S, A = keys.shape[1], keys.shape[2]
+    Dv = values.shape[-1]
+    dev = xw.device
+    _check("wh", wh, torch.bfloat16, (H, 4 * H), dev)
+    _check("b", b, torch.float32, (4 * H,), dev)
+    if ctx_proj is not None:
+        _check("ctx_proj", ctx_proj, torch.bfloat16, (Dv, 4 * H), dev)
+    _check("wq", wq, torch.bfloat16, (H, A), dev)
+    _check("v", v, torch.bfloat16, (A,), dev)
+    _check("xw", xw, torch.float32, (T, B, 4 * H), dev)
+    _check("mask", mask, torch.float32, (T, B), dev)
+    _check("keys", keys, torch.float32, (B, S, A), dev)
+    _check("values", values, torch.bfloat16, (B, S, Dv), dev)
+    _check("mbias", mbias, torch.float32, (B, S), dev)
+    _check("mmask", mmask, torch.float32, (B, S), dev)
+    if H % LSTM_UNIT_TILE or A % 8 or A > 512 or Dv % 8 or Dv > 2048:
+        raise ValueError(f"av_align scan: H={H} must be a multiple of {LSTM_UNIT_TILE}, A={A} "
+                         f"a multiple of 8 up to 512, Dv={Dv} a multiple of 8 up to 2048")
+    if not (1 <= S <= FUSION_MAX_TV and B >= 1):
+        raise ValueError(f"av_align scan: T_v={S}, B={B}; the kernel takes "
+                         f"1 <= T_v <= {FUSION_MAX_TV}")
+    lib = _load()
+    Dc = Dv if ctx_proj is not None else 0
+    smem = lib.avsr_av_align_smem(H, Dc, A, S)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"av_align scan: H={H}, Dc={Dc}, A={A}, T_v={S} need {smem} bytes "
+                         f"of shared memory per block (limit {SMEM_LIMIT})")
+    wh_tiled = tile_lstm_weights(wh[None])[0]
+    cp_tiled = None if ctx_proj is None else tile_lstm_weights(ctx_proj[None])[0]
+    hbuf = torch.zeros((2, B, H), dtype=torch.float32, device=dev)
+    c = torch.zeros((B, H), dtype=torch.float32, device=dev)
+    ctxbuf = torch.zeros((2, B, Dv), dtype=torch.float32, device=dev)
+    hnew = torch.empty((B, H), dtype=torch.float32, device=dev)
+    hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    ctxs = torch.empty((T, B, Dv), dtype=torch.float32, device=dev)
+    aligns = torch.empty((T, B, S), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.avsr_av_align_scan(
+        wh_tiled.data_ptr(), None if cp_tiled is None else cp_tiled.data_ptr(), b.data_ptr(),
+        xw.data_ptr(), mask.data_ptr(), wq.data_ptr(), v.data_ptr(), keys.data_ptr(),
+        values.data_ptr(), mbias.data_ptr(), mmask.data_ptr(), hbuf.data_ptr(), c.data_ptr(),
+        ctxbuf.data_ptr(), hnew.data_ptr(), hs.data_ptr(), ctxs.data_ptr(), aligns.data_ptr(),
+        T, B, H, Dc, A, S, Dv, stream)
+    _raise_on(err, "av_align_scan launch")
+    LAUNCHES["av_align_scan"] += 1
+    return hs, ctxs, aligns, hbuf[T % 2], c, ctxbuf[T % 2]
+
+
+def bahdanau_attend(query, wq, v, keys, values, bias, mask):
+    """K10: one Bahdanau attention read per row (CUDA).
+
+    query [N,Hq] f32, wq [Hq,A] bf16, v [A] bf16, keys [N,S,A] f32, values
+    [N,S,Dv] bf16, bias / mask [N,S] f32 -> (ctx [N,Dv] f32, weights [N,S]
+    f32; a row whose every position is masked gets zeros in both).
+    """
+    N, Hq = query.shape
+    S, A = keys.shape[1], keys.shape[2]
+    Dv = values.shape[-1]
+    dev = query.device
+    _check("query", query, torch.float32, (N, Hq), dev)
+    _check("wq", wq, torch.bfloat16, (Hq, A), dev)
+    _check("v", v, torch.bfloat16, (A,), dev)
+    _check("keys", keys, torch.float32, (N, S, A), dev)
+    _check("values", values, torch.bfloat16, (N, S, Dv), dev)
+    _check("bias", bias, torch.float32, (N, S), dev)
+    _check("mask", mask, torch.float32, (N, S), dev)
+    if A % 8 or A > 512 or Dv % 8 or Dv > 2048:
+        raise ValueError(f"bahdanau attend: A={A} must be a multiple of 8 up to 512, "
+                         f"Dv={Dv} a multiple of 8 up to 2048")
+    if not (1 <= S <= ATTEND_MAX_S and N >= 1):
+        raise ValueError(f"bahdanau attend: S={S}, N={N}; the kernel takes "
+                         f"1 <= S <= {ATTEND_MAX_S}")
+    lib = _load()
+    smem = lib.avsr_bahdanau_smem(Hq, A, S)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"bahdanau attend: Hq={Hq}, A={A}, S={S} need {smem} bytes of "
+                         f"shared memory per block (limit {SMEM_LIMIT})")
+    ctx = torch.empty((N, Dv), dtype=torch.float32, device=dev)
+    weights = torch.empty((N, S), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.avsr_bahdanau_attend(
+        query.data_ptr(), wq.data_ptr(), v.data_ptr(), keys.data_ptr(), values.data_ptr(),
+        bias.data_ptr(), mask.data_ptr(), ctx.data_ptr(), weights.data_ptr(),
+        N, Hq, A, S, Dv, stream)
+    _raise_on(err, "bahdanau_attend launch")
+    LAUNCHES["bahdanau_attend"] += 1
+    return ctx, weights

@@ -1,50 +1,118 @@
-"""Decoder dispatch and the sequence loss (counterpart of
-``avsr_tpu/models/decoder.py``).
+"""Decoder dispatch, the attention-LSTM decoder step and the sequence loss
+(counterpart of ``avsr_tpu/models/decoder.py``).
 
-The port carries the transformer decoder only; the attention-LSTM decoder
-of the reference-dims model (and with it scheduled sampling) is later
-work, and asking for it raises.
+Two families, picked by ``DecoderConfig.decoder_type``:
+
+* ``"transformer"``: ``models/transformer_decoder.py`` (KV-cache decode
+  step, parallel teacher forcing);
+* ``"rnn"``: the reference's attention LSTM.  One decode step embeds the
+  previous token, runs the LSTM stack on ``[embedding ; previous
+  contexts]`` (input feeding), reads each memory with Bahdanau attention
+  (kernel K10 on a GPU, ``ops/attention.py``) queried by the top layer's
+  h, and projects ``[h ; contexts]`` to the vocabulary.  The gate and
+  output products stay matrix products, as the reference leaves them to
+  XLA.  Teacher forcing of this family (and with it scheduled sampling)
+  is not ported yet and raises; Luong attention raises.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from avsr_tpu_torch.configs import DecoderConfig
 from avsr_tpu_torch.models import transformer_decoder as tdec
 from avsr_tpu_torch.ops import attention as attn
-from avsr_tpu_torch.utils.params import Params
+from avsr_tpu_torch.ops import rnn
+from avsr_tpu_torch.utils.numerics import dot_f32
+from avsr_tpu_torch.utils.params import Params, glorot_uniform, normal_init, zeros
 
 
-def _check(cfg: DecoderConfig) -> None:
-    if cfg.decoder_type != "transformer":
-        raise ValueError(f"the port's decoder is the transformer decoder, got {cfg.decoder_type!r}")
+class DecoderState(NamedTuple):
+    """Per-step state of the RNN decoder (carried through beam search)."""
+
+    lstm: Tuple      # per layer (h, c), each [N, H] fp32
+    contexts: Tuple  # per memory, [N, Dv] fp32
+
+
+def _is_transformer(cfg: DecoderConfig) -> bool:
+    if cfg.decoder_type == "transformer":
+        return True
+    if cfg.decoder_type != "rnn":
+        raise ValueError(f"unknown decoder_type {cfg.decoder_type!r}")
+    if cfg.attention_type != "bahdanau":
+        raise ValueError(f"{cfg.attention_type!r} attention is not ported (the port runs "
+                         "Bahdanau)")
+    return False
 
 
 def decoder_init(gen: torch.Generator, cfg: DecoderConfig, memory_dims: Sequence[int],
                  vocab_size: int, device) -> Params:
-    _check(cfg)
-    return tdec.transformer_decoder_init(gen, cfg, memory_dims, vocab_size, device)
+    if _is_transformer(cfg):
+        return tdec.transformer_decoder_init(gen, cfg, memory_dims, vocab_size, device)
+    ctx_dims = [cfg.memory_value_dim or m for m in memory_dims]
+    total_ctx = sum(ctx_dims)
+    params: Params = {
+        "embedding": normal_init(gen, (vocab_size, cfg.embedding_dim), device),
+        "cells": [],
+        "atts": [],
+    }
+    d = cfg.embedding_dim + total_ctx  # input feeding: [embedding ; contexts]
+    for h in cfg.hidden_units:
+        params["cells"].append(rnn.lstm_init(gen, d, h, device))
+        d = h
+    top = cfg.hidden_units[-1]
+    for m in memory_dims:
+        params["atts"].append(attn.attention_init(cfg.attention_type, gen, top, m,
+                                                  cfg.attention_units, device,
+                                                  value_dim=cfg.memory_value_dim))
+    params["out_w"] = glorot_uniform(gen, (top + total_ctx, vocab_size), device)
+    params["out_b"] = zeros((vocab_size,), device)
+    return params
 
 
-def initial_state(cfg: DecoderConfig, batch: int, max_length: int, cdt: torch.dtype,
-                  device) -> tdec.TransformerDecoderState:
-    _check(cfg)
-    return tdec.initial_cache(cfg, batch, max_length, cdt, device)
+def initial_state(cfg: DecoderConfig, batch: int, max_length: int, cdt: torch.dtype, device,
+                  memory_dims: Optional[Sequence[int]] = None):
+    """The transformer's zeroed KV caches (horizon ``max_length``), or the
+    RNN decoder's zero (h, c) per layer and zero context per memory, whose
+    widths ``memory_dims`` gives (the prepared memories' value widths)."""
+    if _is_transformer(cfg):
+        return tdec.initial_cache(cfg, batch, max_length, cdt, device)
+    if memory_dims is None:
+        raise ValueError("the RNN decoder state needs memory_dims (its context widths)")
+
+    def z(n):
+        return torch.zeros((batch, n), dtype=torch.float32, device=device)
+
+    return DecoderState(lstm=tuple((z(h), z(h)) for h in cfg.hidden_units),
+                        contexts=tuple(z(m) for m in memory_dims))
 
 
 def prepare_cross(params: Params, cfg: DecoderConfig,
                   memories: Sequence[attn.AttentionMemory], cdt: torch.dtype):
-    _check(cfg)
-    return tdec.prepare_cross(params, cfg, memories, cdt)
+    """The transformer's loop-invariant cross-attention keys; None for the
+    RNN family."""
+    if _is_transformer(cfg):
+        return tdec.prepare_cross(params, cfg, memories, cdt)
+    return None
 
 
 def decoder_step(params: Params, cfg: DecoderConfig, tokens: torch.Tensor, state,
                  memories: Sequence[attn.AttentionMemory], cross_kv, cdt: torch.dtype):
-    _check(cfg)
-    return tdec.decode_step(params, cfg, tokens, state, memories, cross_kv, cdt)
+    """One decode step for every row: (new state, fp32 logits [N, V])."""
+    if _is_transformer(cfg):
+        return tdec.decode_step(params, cfg, tokens, state, memories, cross_kv, cdt)
+    x = torch.cat([params["embedding"][tokens], *state.contexts], dim=-1)
+    new_lstm = []
+    h = x
+    for cell, st in zip(params["cells"], state.lstm):
+        (h, c), _ = rnn.lstm_step(cell, h, st, cdt)
+        new_lstm.append((h, c))
+    contexts = tuple(attn.attend(cfg.attention_type, att, h, mem, cdt)[0]
+                     for att, mem in zip(params["atts"], memories))
+    logits = dot_f32(torch.cat([h, *contexts], dim=-1), params["out_w"], cdt) + params["out_b"]
+    return DecoderState(lstm=tuple(new_lstm), contexts=contexts), logits
 
 
 def teacher_forced_logits(params: Params, cfg: DecoderConfig, targets: torch.Tensor,
@@ -54,7 +122,9 @@ def teacher_forced_logits(params: Params, cfg: DecoderConfig, targets: torch.Ten
                           dropout: bool = False) -> torch.Tensor:
     """Training-time decode over gold targets [B, K] (incl. EOS): fp32
     logits [B, K, V]; the transformer's parallel pass is teacher forcing."""
-    _check(cfg)
+    if not _is_transformer(cfg):
+        raise ValueError("teacher-forced decoding of the RNN decoder is not ported "
+                         "(training of the RNN decoder comes with scheduled sampling)")
     return tdec.teacher_forced_logits(params, cfg, targets, target_lengths, memories, cdt,
                                       generator=generator, dropout=dropout)
 

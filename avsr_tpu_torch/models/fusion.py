@@ -1,13 +1,24 @@
-"""Cross-attention fusion (counterpart of ``avsr_tpu/models/fusion.py``,
-``cross_attention_fusion_init`` / ``cross_attention_fusion_apply`` /
-``au_regression_loss``).
+"""Fusion encoders (counterpart of ``avsr_tpu/models/fusion.py``): the
+AV-Align recurrent fusion (``av_align_init`` / ``av_align_apply``) and the
+cross-attention fusion (``cross_attention_fusion_init`` /
+``cross_attention_fusion_apply``), with the AU head and
+``au_regression_loss``.  Both return the fused decoder memory
+[audio ; attended visual context], time-major, with padded steps exactly
+zero.
 
-Multi-head cross-attention with audio queries over video keys/values; the
-fused memory is [audio encoder output ; attended visual context],
-time-major, with padded steps exactly zero.  Key padding adds -1e9 to the
-scores and the softmax runs in fp32.
+AV-Align (the reference-dims model): a unidirectional LSTM over the audio
+encoder's output with input feeding; at every audio step one Bahdanau read
+of the video memory with the new h as the query; the memory is [h ; ctx].
+The scan body (``fusion.py:118-141``) is kernel K8: ``av_align_scan``
+launches ``csrc/av_align_scan.cu`` for tensors on a GPU and runs
+``av_align_scan_plain`` (a loop of ``lstm_step`` and ``attend_plain``) for
+tensors on the CPU.  The hoisted fp32 input product, the memory
+preparation, the AU head and the concat stay torch code.  K8 has no
+backward yet: asking it for a gradient raises.
 
-The attention core (scores, mask, softmax, P.V; ``fusion.py:226-235``) is
+Cross-attention: multi-head attention with audio queries over video
+keys/values.  Key padding adds -1e9 to the scores and the softmax runs in
+fp32.  Its core (scores, mask, softmax, P.V; ``fusion.py:226-235``) is
 kernel K4: ``FusionAttention`` is its ``torch.autograd.Function``, and
 ``fusion_attention_fwd`` / ``fusion_attention_bwd`` launch the CUDA kernels
 (``csrc/cross_attention.cu``) for tensors on a GPU and run the plain
@@ -26,14 +37,116 @@ import torch
 
 from avsr_tpu_torch.configs import FusionConfig
 from avsr_tpu_torch import kernels
+from avsr_tpu_torch.ops import attention as attn
+from avsr_tpu_torch.ops import rnn
 from avsr_tpu_torch.utils.numerics import dot_f32
 from avsr_tpu_torch.utils.params import Params, glorot_uniform, zeros
 
 
 class FusionOutput(NamedTuple):
     fused: torch.Tensor           # [T_a, B, H_a + H_v] fused decoder memory
-    alignments: torch.Tensor      # [T_a, B, T_v] head-averaged attention weights
+    alignments: torch.Tensor      # [T_a, B, T_v] (head-averaged) attention weights
     au_predictions: Optional[torch.Tensor]  # [T_a, B, au_dim] or None
+
+
+def av_align_init(gen: torch.Generator, cfg: FusionConfig, audio_input_dim: int,
+                  audio_hidden: int, video_dim: int, device) -> Params:
+    """The fusion LSTM cell (its ``wx`` covers the acoustic input only), the
+    Bahdanau attention over the video memory, the context-input projection
+    (input feeding) and the AU head, with the reference's keys and shapes."""
+    params: Params = {
+        "cell": rnn.lstm_init(gen, audio_input_dim, audio_hidden, device),
+        "att": attn.attention_init(cfg.attention_type, gen, audio_hidden, video_dim,
+                                   cfg.attention_units, device, value_dim=cfg.memory_value_dim),
+    }
+    ctx_dim = cfg.memory_value_dim or video_dim
+    if cfg.input_feeding:
+        params["ctx_proj"] = glorot_uniform(gen, (ctx_dim, 4 * audio_hidden), device)
+    if cfg.au_loss_weight > 0.0:
+        params["au_w"] = glorot_uniform(gen, (ctx_dim, cfg.au_dim), device)
+        params["au_b"] = zeros((cfg.au_dim,), device)
+    return params
+
+
+def av_align_scan_plain(cell: Params, att: Params, ctx_proj: Optional[torch.Tensor],
+                        xw: torch.Tensor, mask: torch.Tensor, mem: attn.AttentionMemory,
+                        cdt: torch.dtype):
+    """Plain-PyTorch K8: the reference's scan body, step by step.
+
+    xw [T,B,4H] fp32 (the hoisted input product), mask [T,B] fp32, the
+    prepared video memory -> (hs [T,B,H], ctxs [T,B,Dv], aligns [T,B,T_v],
+    (hT, cT, ctxT)), all fp32, from zero initial carries.
+    """
+    T, B, _ = xw.shape
+    H = cell["wh"].shape[0]
+    dev = xw.device
+    h = torch.zeros((B, H), dtype=torch.float32, device=dev)
+    c = torch.zeros((B, H), dtype=torch.float32, device=dev)
+    ctx = torch.zeros((B, mem.values.shape[-1]), dtype=torch.float32, device=dev)
+    hs, ctxs, aligns = [], [], []
+    for t in range(T):
+        gate_in = xw[t]
+        if ctx_proj is not None:
+            gate_in = gate_in + dot_f32(ctx, ctx_proj, cdt)
+        (h_new, c_new), _ = rnn.lstm_step(cell, gate_in, (h, c), cdt, preprojected=True)
+        ctx_new, align = attn.attend_plain("bahdanau", att, h_new, mem, cdt)
+        m = mask[t][:, None]
+        h = m * h_new + (1.0 - m) * h
+        c = m * c_new + (1.0 - m) * c
+        ctx = m * ctx_new + (1.0 - m) * ctx
+        hs.append(h_new * m)
+        ctxs.append(ctx_new * m)
+        aligns.append(align * m)
+    return torch.stack(hs), torch.stack(ctxs), torch.stack(aligns), (h, c, ctx)
+
+
+def av_align_scan(cell: Params, att: Params, ctx_proj: Optional[torch.Tensor],
+                  xw: torch.Tensor, mask: torch.Tensor, mem: attn.AttentionMemory,
+                  cdt: torch.dtype):
+    """K8 wrapper: the CUDA kernel for GPU tensors, the plain version on the
+    CPU; same contract as ``av_align_scan_plain``.  The kernel runs the bf16
+    policy only and has no backward yet: a gradient asked of either raises
+    rather than being lost or half computed."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (cell["wh"], cell["b"], ctx_proj, att["wq"], att["v"], xw, mem.keys,
+                      mem.values)):
+        raise ValueError("the AV-Align fusion scan (K8) has no backward yet: training of "
+                         "the AV-Align model is not ported")
+    if xw.device.type == "cpu":
+        return av_align_scan_plain(cell, att, ctx_proj, xw, mask, mem, cdt)
+    if cdt != torch.bfloat16:
+        raise ValueError(f"the AV-Align fusion kernel runs the bf16 policy only, got {cdt}")
+    bf = torch.bfloat16
+    hs, ctxs, aligns, hT, cT, ctxT = kernels.av_align_scan(
+        cell["wh"].to(bf).contiguous(), cell["b"].float().contiguous(),
+        None if ctx_proj is None else ctx_proj.to(bf).contiguous(),
+        att["wq"].to(bf).contiguous(), att["v"].to(bf).contiguous(),
+        xw.float().contiguous(), mask.float().contiguous(), mem.keys.float().contiguous(),
+        mem.values.to(bf).contiguous(), mem.bias.float().contiguous(),
+        mem.mask.float().contiguous())
+    return hs, ctxs, aligns, (hT, cT, ctxT)
+
+
+def av_align_apply(params: Params, cfg: FusionConfig, audio_tbd: torch.Tensor,
+                   audio_lengths: torch.Tensor, video_memory: torch.Tensor,
+                   video_lengths: torch.Tensor, cdt: torch.dtype) -> FusionOutput:
+    """audio_tbd [T_a, B, D] time-major (the lower audio layers' output),
+    video_memory [B, T_v, H_v] -> fused [T_a, B, H + Dv], alignments
+    [T_a, B, T_v] and the AU predictions."""
+    T_a = audio_tbd.shape[0]
+    mem = attn.prepare_memory(cfg.attention_type, params["att"], video_memory, video_lengths,
+                              cdt)
+    xw = dot_f32(audio_tbd, params["cell"]["wx"], cdt)  # hoisted, fp32 [T_a, B, 4H]
+    mask = (torch.arange(T_a, device=audio_tbd.device)[:, None]
+            < audio_lengths[None, :]).float()
+    hs, ctxs, aligns, _ = av_align_scan(params["cell"], params["att"], params.get("ctx_proj"),
+                                        xw, mask, mem, cdt)
+    fused = torch.cat([hs, ctxs], dim=-1)
+    au_pred = None
+    if "au_w" in params:
+        au_pred = (dot_f32(ctxs, params["au_w"], cdt) + params["au_b"]) * mask[:, :, None]
+    return FusionOutput(fused=fused, alignments=aligns, au_predictions=au_pred)
 
 
 def cross_attention_fusion_init(gen: torch.Generator, cfg: FusionConfig, audio_dim: int,

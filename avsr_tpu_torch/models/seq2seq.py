@@ -1,13 +1,21 @@
 """Model assembly and the loss (counterpart of ``avsr_tpu/models/seq2seq.py``).
 
-The port covers the ``av_align`` architecture with cross-attention fusion
-and the transformer decoder — the ``lrs2_av_fast`` preset's structure:
-compact int16/uint8 inputs are dequantized on the device, in training the
+The port covers the ``av_align`` architecture in two structures:
+
+* the ``lrs2_av_fast`` preset's: cross-attention fusion and the
+  transformer decoder (serving, eval decode and training);
+* the ``lrs2_av_align`` preset's (the reference-dims model): the
+  recurrent AV-Align fusion (the fusion LSTM with Bahdanau reads of the
+  video memory, fused memory [h ; ctx]) and the attention-LSTM decoder
+  (serving and eval decode; its training raises until it is ported).
+
+Compact int16/uint8 inputs are dequantized on the device, in training the
 waveform is mixed with noise, audio goes through the log-mel frontend and
-the pyramidal BiLSTM stack, video through the lip-ROI CNN and its BiLSTM,
-the two meet in cross-attention fusion, and the fused memory is prepared
-(value-only) for the decoder.  ``loss_fn`` adds the teacher-forced
-decoder, the cross-entropy and the AU regression loss.
+the (pyramidal) BiLSTM stack, video through the lip-ROI CNN and its
+BiLSTM, the two meet in the fusion, and the fused memory is prepared for
+the decoder (value-only for the transformer, Bahdanau keys for the RNN
+decoder).  ``loss_fn`` adds the teacher-forced decoder, the cross-entropy
+and the AU regression loss.
 
 Randomness (noise draws, dropout masks) comes from ONE generator per
 call, drawn in a fixed order: noise, the audio encoder's layers, the video
@@ -53,18 +61,35 @@ class EncodeOutput(NamedTuple):
     aux: Dict[str, Any]
 
 
+# (fusion_type, decoder_type) structures of architecture="av_align" the port runs
+SUPPORTED = (("cross_attention", "transformer"), ("av_align", "rnn"))
+
+
 def _check_supported(cfg: ExperimentConfig) -> None:
-    if cfg.architecture != "av_align" or cfg.fusion.fusion_type != "cross_attention":
+    pair = (cfg.fusion.fusion_type, cfg.decoder.decoder_type)
+    if cfg.architecture != "av_align" or pair not in SUPPORTED:
         raise ValueError(
-            "the port covers architecture='av_align' with cross-attention fusion "
-            f"(got {cfg.architecture!r} / {cfg.fusion.fusion_type!r})")
+            "the port covers architecture='av_align' with cross-attention fusion and the "
+            "transformer decoder, or AV-Align fusion and the RNN decoder (got "
+            f"{cfg.architecture!r} / {pair})")
+
+
+def _check_trainable(cfg: ExperimentConfig) -> None:
+    if cfg.fusion.fusion_type == "av_align" or cfg.decoder.decoder_type == "rnn":
+        raise ValueError(
+            "training of the AV-Align fusion and the RNN decoder is not ported (it comes with "
+            "K8's backward and scheduled sampling); this structure serves and decodes only")
 
 
 def memory_dims_of(cfg: ExperimentConfig) -> List[int]:
     _check_supported(cfg)
     audio_out = enc.encoder_output_dim(cfg.audio_encoder)
     video_out = enc.encoder_output_dim(cfg.video_encoder)
-    return [audio_out + (cfg.fusion.memory_value_dim or video_out)]
+    # the fused memory's audio half: the encoder output (cross attention) or
+    # the fusion LSTM's state (AV-Align)
+    audio_half = (audio_out if cfg.fusion.fusion_type == "cross_attention"
+                  else cfg.audio_encoder.hidden_units[-1])
+    return [audio_half + (cfg.fusion.memory_value_dim or video_out)]
 
 
 def model_init(cfg: ExperimentConfig, vocab_size: int, generator: torch.Generator,
@@ -78,17 +103,25 @@ def model_init(cfg: ExperimentConfig, vocab_size: int, generator: torch.Generato
         "video_frontend": video_cnn.video_cnn_init(g, cfg.video, device),
         "video_encoder": enc.encoder_init(g, cfg.video_encoder, cfg.video.embedding_dim, device),
     }
-    params["fusion"] = fus.cross_attention_fusion_init(
-        g, cfg.fusion, enc.encoder_output_dim(cfg.audio_encoder),
-        enc.encoder_output_dim(cfg.video_encoder), device)
+    audio_out = enc.encoder_output_dim(cfg.audio_encoder)
+    video_out = enc.encoder_output_dim(cfg.video_encoder)
+    if cfg.fusion.fusion_type == "cross_attention":
+        params["fusion"] = fus.cross_attention_fusion_init(g, cfg.fusion, audio_out, video_out,
+                                                           device)
+    else:
+        params["fusion"] = fus.av_align_init(g, cfg.fusion, audio_out,
+                                             cfg.audio_encoder.hidden_units[-1], video_out,
+                                             device)
     params["decoder"] = dec.decoder_init(g, cfg.decoder, memory_dims_of(cfg), vocab_size, device)
     return params
 
 
 def prep(dec_cfg, params: Params, idx: int, memory, lengths, cdt) -> attn.AttentionMemory:
-    """The transformer decoder's memories are value-only."""
-    return attn.prepare_memory("value_only", params["decoder"]["atts"][idx],
-                               memory, lengths, cdt)
+    """The transformer decoder's memories are value-only; the RNN decoder's
+    carry the keys of its attention type."""
+    att_type = ("value_only" if dec_cfg.decoder_type == "transformer"
+                else dec_cfg.attention_type)
+    return attn.prepare_memory(att_type, params["decoder"]["atts"][idx], memory, lengths, cdt)
 
 
 def encode(params: Params, cfg: ExperimentConfig, batch: Batch, *, train: bool = False,
@@ -133,9 +166,10 @@ def encode(params: Params, cfg: ExperimentConfig, batch: Batch, *, train: bool =
     video_mem_len = enc.encoder_output_lengths(cfg.video_encoder, v_len)
     aux["audio_feature_lengths"] = audio_mem_len
 
-    out = fus.cross_attention_fusion_apply(
-        params["fusion"], cfg.fusion, audio_out_tb, audio_mem_len,
-        v_out_tb.transpose(0, 1), video_mem_len, cdt)
+    fusion_apply = (fus.cross_attention_fusion_apply
+                    if cfg.fusion.fusion_type == "cross_attention" else fus.av_align_apply)
+    out = fusion_apply(params["fusion"], cfg.fusion, audio_out_tb, audio_mem_len,
+                       v_out_tb.transpose(0, 1), video_mem_len, cdt)
     aux["av_alignments"] = out.alignments
     aux["au_predictions"] = out.au_predictions
     mem = prep(cfg.decoder, params, 0, out.fused.transpose(0, 1), audio_mem_len, cdt)
@@ -146,6 +180,7 @@ def forward(params: Params, cfg: ExperimentConfig, batch: Batch, *, train: bool 
             generator: Optional[torch.Generator] = None,
             noise_bank=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Teacher-forced logits for the batch: [B, K, V] fp32, and encode's aux."""
+    _check_trainable(cfg)
     out = encode(params, cfg, batch, train=train, generator=generator, noise_bank=noise_bank)
     logits = dec.teacher_forced_logits(
         params["decoder"], cfg.decoder, batch.targets, batch.target_lengths, out.memories,

@@ -1,4 +1,7 @@
-"""Fused-gate LSTM scans (counterpart of ``avsr_tpu/ops/rnn.py``).
+"""Fused-gate LSTM cells and scans (counterpart of ``avsr_tpu/ops/rnn.py``).
+
+``lstm_step`` is one plain LSTM step (the RNN decoder's cells, the plain
+twin of the AV-Align fusion scan).
 
 The reference hoists the input projection ``x @ Wx`` for all timesteps out
 of the scan (one large matmul, stored in the compute dtype) and runs both
@@ -25,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from avsr_tpu_torch import kernels
+from avsr_tpu_torch.utils.numerics import dot_f32
 from avsr_tpu_torch.utils.params import Params, glorot_uniform, orthogonal
 
 
@@ -38,6 +42,27 @@ def lstm_init(gen: torch.Generator, input_dim: int, hidden: int, device) -> Para
         "wh": orthogonal(gen, (hidden, 4 * hidden), device),
         "b": b.to(device),
     }
+
+
+def lstm_step(params: Params, x_or_xw: torch.Tensor,
+              state: Tuple[torch.Tensor, torch.Tensor], cdt: torch.dtype, *,
+              preprojected: bool = False):
+    """One fused LSTM step (the reference's ``lstm_step``, plain cells).
+
+    ``x_or_xw`` is the input [B, D_in], or the fp32 input product [B, 4H]
+    when ``preprojected``; state (h, c) fp32 [B, H].  Gates are
+    ``(xw + bf16(h) @ bf16(Wh)) + b`` with fp32 products -> ((h', c'), h').
+    """
+    if "ln_gamma" in params:
+        raise ValueError("the port runs plain LSTM cells only (no LN-LSTM)")
+    h, c = state
+    xw = x_or_xw if preprojected else dot_f32(x_or_xw, params["wx"], cdt)
+    gates = xw + dot_f32(h, params["wh"], cdt)
+    gates = gates + params["b"]
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    h_new = torch.sigmoid(o) * torch.tanh(c_new)
+    return (h_new, c_new), h_new
 
 
 def project_inputs(params: Params, x_tbd: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:

@@ -1,14 +1,16 @@
 """Serving: pad, quantize, encode + beam decode, ids -> text.
 
 Counterpart of ``avsr_tpu/serve.py``'s ``Predictor`` around the exported
-``decode`` program: the same static (B, S) request shape, the same host
-quantization for compact transfer (int16 PCM audio, uint8 ROI pixels,
-dequantized on the device inside ``seq2seq.encode``), and the same
-``decode_ids`` rules.  The port runs the model code directly from port
+``decode`` program, for either structure the port runs (``lrs2_av_fast``:
+cross-attention fusion + transformer decoder; ``lrs2_av_align``: AV-Align
+fusion + attention-LSTM decoder): the same static (B, S) request shape,
+the same host quantization for compact transfer (int16 PCM audio, uint8
+ROI pixels, dequantized on the device inside ``seq2seq.encode``), and the
+same ``decode_ids`` rules.  The port runs the model code directly from port
 parameters plus the config and the unit dictionary; a torch-native
 serving artifact is later work.
 
->>> p = Predictor(params, cfg, unit_dict, device="cuda")
+>>> p = Predictor(params, cfg, unit_dict)  # on the card; device="cpu" for the plain path
 >>> p.transcribe(audio=[wav1, wav2], video=[roi1, roi2])
 """
 
@@ -72,7 +74,7 @@ class Predictor:
     """Encode + width-W beam decode of fixed-shape request batches."""
 
     def __init__(self, params: Params, cfg: ExperimentConfig, unit_dict: UnitDict, *,
-                 device, batch_size: int = 8, audio_seconds: float = 6.0,
+                 device="cuda", batch_size: int = 8, audio_seconds: float = 6.0,
                  video_seconds: Optional[float] = None, transfer: str = "compact"):
         self.params = params
         self.cfg = cfg

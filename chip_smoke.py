@@ -59,15 +59,32 @@ Phases, in order; any failure exits nonzero before the final line:
 12. greedy — greedy decode of one B=128 batch of 6 s utterances, horizon
              150, on the kernel path (K6 launches counted) and on the plain
              path: decode ms, steps, rows with identical ids.
+13. K8     — the AV-Align fusion scan against its plain twin at [T_a=197,
+             B=8 and 128, D_in=512, H=256, T_v=150, A=128, Dv=512], bf16,
+             ragged audio and video lengths with a 0-length row of each:
+             errors on hs, ctxs, aligns and the final carries; times.
+14. K10    — the Bahdanau read against its plain twin at N=80 and 128,
+             S=197, A=128, Dv=768, with a length-0 row (zero context and
+             weights required): errors on ctx and weights; times.
+15. serve-align — the full-width ``lrs2_av_align`` model (AV-Align fusion,
+             attention-LSTM decoder; random weights from a seeded
+             generator) behind a CUDA ``Predictor`` as in phase 5: 3 requests
+             of 8 ragged 2-6 s utterances, width-10 beam, horizon 150;
+             requires K1 fwd, K3, K8, K10 and K7 launches, holds the fused
+             memory and the beam on the same memories against the plain
+             path.
+16. greedy-align — a B=128, 6 s, horizon 150 greedy decode of the same
+             model, kernel path against plain path (K10 launches counted).
 
-Serve (5) also beams the same memories through the plain path and holds
-the best scores to a tolerance.  Serve, train and greedy each end with a
-``torch.profiler`` reading of one run: the device's busy share of the host
-span, device events per beam, train or decode step, and the top kernels.
-The line before the last is a JSON object with one entry per kernel
-(launches over the serve, train and greedy runs, errors, kernel / plain /
-library ms from CUDA events, the kernel's device ms from the profiler, the
-bound from this run's shapes); the last line is
+Serve (5, 15) also beams the same memories through the plain path and
+holds the best scores to a tolerance.  Each serve and greedy path and the
+train path end with a ``torch.profiler`` reading of one run: the device's
+busy share of the host span, device events per beam, train or decode step,
+and the top kernels.  The line before the last is a JSON object with one
+entry per kernel (launches by path, errors, kernel / plain / library ms
+from CUDA events, the kernel's device ms from CUDA events with the calls
+queued behind a spin kernel, the bound from this run's shapes); the last
+line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -113,6 +130,19 @@ K6_TOL = 2e-2
 # add a log-softmax whose max/sum are reduced in another order (fp32 ulps of
 # values up to ~30): |kernel - plain| <= 1e-4 + 1e-6 * |plain|.
 K7_LOGP_ATOL, K7_LOGP_RTOL = 1e-4, 1e-6
+# K8, kernel against plain twin over 197 recurrent steps: the fp32 states
+# and contexts start from K1_TOL (bf16 rounding of h and ctx before each
+# product; a flip moves a gate by 2^-9 of a weight and is carried on by the
+# recurrence) widened to MEMORY_TOL's 5e-2 for the length of the chain;
+# the alignments are weights in [0, 1] whose energies are rounded to bf16:
+# a flipped energy moves a score by 2^-9 |v_a|, a weight by ~1e-3 of itself.
+K8_TOL = 5e-2
+K8_ALIGN_TOL = 1e-2
+# K10: a weight moves only by the score sums' order (fp32 ulps) unless an
+# energy's bf16 rounding flips (~1e-3 of the weight); the context is fp32
+# from bf16 weights x bf16 values of order one: K6's 2e-2.
+K10_W_TOL = 1e-3
+K10_CTX_TOL = 2e-2
 # serve: best beam scores of the kernel and the plain path, 150 steps of
 # log probs (~-600) whose logits differ by bf16 ulps at each K6 read; near
 # ties may send the two beams down different, equally scored paths.
@@ -127,6 +157,9 @@ SERVE_KERNELS = ("lstm_scan_fwd", "logmel_post_dft", "fusion_attention_fwd",
 TRAIN_KERNELS = ("lstm_scan_fwd", "lstm_scan_bwd", "logmel_post_dft", "fusion_attention_fwd",
                  "fusion_attention_bwd", "decoder_attention_fwd", "decoder_attention_bwd")
 GREEDY_KERNELS = ("decode_attention",)
+SERVE_ALIGN_KERNELS = ("lstm_scan_fwd", "logmel_post_dft", "av_align_scan", "bahdanau_attend",
+                       "beam_step")
+GREEDY_ALIGN_KERNELS = ("bahdanau_attend",)
 
 
 def fail(phase: str, msg: str) -> None:
@@ -172,15 +205,31 @@ def device_events(fn):
     return dev, span
 
 
-def device_ms(fn, reps: int = 20, warmup: int = 3):
-    """Device time of one call of ``fn`` from the profiler's kernel events
-    (no host dispatch in it), or None where the profiler saw no device."""
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device time of one call of ``fn``, host dispatch hidden: the timed
+    calls are queued behind a spin kernel that outlasts their enqueueing
+    (twice the host time of ``reps`` calls, at 2 GHz), so the device runs
+    them back to back between two CUDA events.  ``fn`` must not wait on
+    the device."""
+    import torch
+
     for _ in range(warmup):
         fn()
-    dev, _ = device_events(lambda: [fn() for _ in range(reps)])
-    if not dev:
-        return None
-    return sum(end - start for start, end, _ in dev) / reps / 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    enqueue_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * enqueue_s * 2e9) + 1_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def busy_share(dev, span):
@@ -218,17 +267,14 @@ def profile_report(label, fn, per=1, per_name="call"):
         print(f"  {us / 1e3:8.3f} ms {n:6d}x  {name[:100]}")
 
 
-def bound(nbytes: float, flops: float, dtype: str = "bf16"):
+def bound(nbytes: float, flops, dtype: str = "bf16"):
     """The least time the card could take: (ms, what bounds it), the larger
-    of the bytes over HBM bandwidth and the operations over the peak rate."""
+    of the bytes over HBM bandwidth and the operations over the peak rate
+    (``flops`` a count in ``dtype``, or a {dtype: count} dict)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    ops = flops.items() if isinstance(flops, dict) else [(dtype, flops)]
+    t_ops = sum(f / PEAK_FLOPS[d] for d, f in ops) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def sum_or_none(xs):
-    xs = list(xs)
-    return None if any(x is None for x in xs) else sum(xs)
 
 
 def nbytes(*tensors) -> int:
@@ -395,6 +441,7 @@ def plain_cores():
     from avsr_tpu_torch.decode import beam
     from avsr_tpu_torch.models import fusion as fus
     from avsr_tpu_torch.models import transformer_decoder as tdec
+    from avsr_tpu_torch.ops import attention as attn
     from avsr_tpu_torch.ops import audio_features as af
     from avsr_tpu_torch.ops import rnn
 
@@ -409,7 +456,9 @@ def plain_cores():
             mock.patch.object(tdec, "decoder_attention_fwd", k5_fwd_plain), \
             mock.patch.object(tdec, "decoder_attention_bwd", tdec.decoder_attention_bwd_plain), \
             mock.patch.object(tdec, "decode_attention", tdec.decode_attention_plain), \
-            mock.patch.object(beam, "beam_step", beam.beam_step_plain):
+            mock.patch.object(beam, "beam_step", beam.beam_step_plain), \
+            mock.patch.object(fus, "av_align_scan", fus.av_align_scan_plain), \
+            mock.patch.object(attn, "attend", attn.attend_plain):
         yield
 
 
@@ -472,7 +521,10 @@ def phase_k3(dev, report, cfg):
                     2 * B * T * F * cfg.audio.num_mel_bins, "fp32"))
 
 
-def phase_serve(dev, card, cfg):
+def phase_serve(dev, card, cfg, label="serve", needed=SERVE_KERNELS, mem_shape=(8, 50, 1024)):
+    """Serve 3 full-width requests of ``cfg``'s model through a CUDA
+    ``Predictor``; ``needed`` kernels must launch, the fused memory (of
+    ``mem_shape``) and the beam must agree with the plain path."""
     import torch
 
     from avsr_tpu_torch.data.units import builtin_unit_dict
@@ -486,7 +538,7 @@ def phase_serve(dev, card, cfg):
     params = seq2seq.model_init(cfg, units.vocab_size, torch.Generator().manual_seed(0), dev)
     pred = Predictor(params, cfg, units, device=dev, batch_size=8, audio_seconds=6.0,
                      transfer="compact")
-    print(f"serve: model_init {time.perf_counter() - t0:.3f} s, "
+    print(f"{label}: {cfg.name} model_init {time.perf_counter() - t0:.3f} s, "
           f"{param_count(params)} params")
     rng = np.random.default_rng(0)
     requests = [request(rng, 8) for _ in range(4)]
@@ -501,12 +553,12 @@ def phase_serve(dev, card, cfg):
         torch.cuda.synchronize()
         latencies.append((time.perf_counter() - t0) * 1e3)
     launches = dict(kernels.LAUNCHES)
-    print(f"serve launches {launches}")
-    for name in SERVE_KERNELS:
+    print(f"{label} launches {launches}")
+    for name in needed:
         if launches[name] == 0:
-            fail("serve", f"kernel {name} was not launched by the serving path")
+            fail(label, f"kernel {name} was not launched by the serving path")
     if any(len(t) != 8 for t in texts):
-        fail("serve", "wrong number of transcripts")
+        fail(label, "wrong number of transcripts")
 
     arrays, _ = pred.assemble(*requests[1])
     torch.cuda.synchronize()
@@ -520,39 +572,39 @@ def phase_serve(dev, card, cfg):
     V = units.vocab_size
     if tuple(ids.shape) != (8, cfg.decode.max_decode_length) or int(ids.min()) < 0 \
             or int(ids.max()) >= V:
-        fail("serve", f"ids of shape {tuple(ids.shape)} in [{int(ids.min())}, {int(ids.max())}]")
+        fail(label, f"ids of shape {tuple(ids.shape)} in [{int(ids.min())}, {int(ids.max())}]")
     before = dict(kernels.LAUNCHES)
     with plain_cores():
         enc_p = pred.encode(arrays)
         t0 = time.perf_counter()
-        res_p = pred.beam(enc_k)  # the same memories through the plain K6/K7
+        res_p = pred.beam(enc_k)  # the same memories through the plain decode kernels
         torch.cuda.synchronize()
         t_beam_p = (time.perf_counter() - t0) * 1e3
     if kernels.LAUNCHES != before:
-        fail("serve", "the plain reference run launched a kernel")
+        fail(label, "the plain reference run launched a kernel")
     same = [bool(torch.equal(a, b)) for a, b in zip(res.ids, res_p.ids)]
     score_rel = float(((res.scores - res_p.scores).abs() / res_p.scores.abs()).max())
-    print(f"serve beam kernel path vs plain path on the same memories: {sum(same)} of 8 rows "
+    print(f"{label} beam kernel path vs plain path on the same memories: {sum(same)} of 8 rows "
           f"with identical ids; best scores {[round(float(x), 3) for x in res.scores]} vs "
           f"{[round(float(x), 3) for x in res_p.scores]}, max rel diff {score_rel:.3e} "
           f"(tol {BEAM_SCORE_REL_TOL}); steps {res.steps} / {res_p.steps}; plain beam "
           f"{t_beam_p:.3f} ms")
     if not score_rel <= BEAM_SCORE_REL_TOL:
-        fail("serve", f"kernel path beam scores disagree with the plain path: {score_rel}")
+        fail(label, f"kernel path beam scores disagree with the plain path: {score_rel}")
     mk, mp = enc_k.memories[0].values, enc_p.memories[0].values
-    if tuple(mk.shape) != (8, 50, 1024) or not torch.isfinite(mk).all():
-        fail("serve", f"fused memory of shape {tuple(mk.shape)} or not finite")
+    if tuple(mk.shape) != mem_shape or not torch.isfinite(mk).all():
+        fail(label, f"fused memory of shape {tuple(mk.shape)} or not finite")
     mem_err = max_err(mk, mp)
     mem_mean = float((mk - mp).abs().mean())
-    print(f"serve fused memory {tuple(mk.shape)}: max abs err {mem_err} mean {mem_mean} "
+    print(f"{label} fused memory {tuple(mk.shape)}: max abs err {mem_err} mean {mem_mean} "
           f"(tol {MEMORY_TOL}) vs the plain path")
     if not mem_err <= MEMORY_TOL:
-        fail("serve", f"kernel path memory disagrees with the plain path: {mem_err}")
-    print(f"serve [{card}] per-request latency ms (B=8, 6 s, beam 10, horizon 150): "
+        fail(label, f"kernel path memory disagrees with the plain path: {mem_err}")
+    print(f"{label} [{card}] per-request latency ms (B=8, 6 s, beam 10, horizon 150): "
           f"{[round(x, 3) for x in latencies]} median {statistics.median(latencies):.3f}; "
           f"encode {t_enc:.3f} ms, beam {t_beam:.3f} ms ({res.steps} steps)")
-    print(f"serve sample transcript: {texts[0][0][:60]!r}")
-    profile_report("serve request (B=8, width 10)",
+    print(f"{label} sample transcript: {texts[0][0][:60]!r}")
+    profile_report(f"{label} request (B=8, width 10)",
                    lambda: pred.transcribe(audio=requests[1][0], video=requests[1][1]),
                    per=res.steps, per_name="beam step")
     return launches
@@ -818,11 +870,11 @@ def phase_k5(dev, report):
     pair = {d: tuple(t["self"][d][i] + t["cross"][d][i] for i in range(2)) for d in ("fwd", "bwd")}
     report["decoder_attention_fwd"] = dict(
         max_abs_err=fwd_err, ms=pair["fwd"][0], plain_ms=pair["fwd"][1],
-        library_ms=lib["self"] + lib["cross"], device_ms=sum_or_none(dms[n][0] for n in dms),
+        library_ms=lib["self"] + lib["cross"], device_ms=sum(dms[n][0] for n in dms),
         bound=bound(nb_fwd, fl))
     report["decoder_attention_bwd"] = dict(
         max_abs_err=bwd_err, ms=pair["bwd"][0], plain_ms=pair["bwd"][1], library_ms=None,
-        device_ms=sum_or_none(dms[n][1] for n in dms), bound=bound(nb_bwd, 2 * fl))
+        device_ms=sum(dms[n][1] for n in dms), bound=bound(nb_bwd, 2 * fl))
 
 
 def k6_inputs(N, L, dk, dv, dev, cross, seed):
@@ -892,8 +944,8 @@ def phase_k6(dev, report):
     report["decode_attention"] = dict(
         max_abs_err=worst, ms=t["self"][0] + t["cross"][0], plain_ms=t["self"][1] + t["cross"][1],
         library_ms=t["self"][2] + t["cross"][2],
-        device_ms=sum_or_none([device_ms(lambda: tdec.decode_attention(qs, ks, vs, None, pos + 1)),
-                               device_ms(lambda: tdec.decode_attention(qc, kc, vc, bc, 50))]),
+        device_ms=(device_ms(lambda: tdec.decode_attention(qs, ks, vs, None, pos + 1))
+                   + device_ms(lambda: tdec.decode_attention(qc, kc, vc, bc, 50))),
         bound=bound(nb, fl))
 
 
@@ -970,7 +1022,7 @@ def phase_k7(dev, report):
         bound=bound(nbytes(*args, lp_table) + out_bytes, 6 * B * W * V, "fp32"))
 
 
-def phase_greedy(dev, card, cfg):
+def phase_greedy(dev, card, cfg, label="greedy", needed=GREEDY_KERNELS):
     import torch
 
     from avsr_tpu_torch import kernels
@@ -998,23 +1050,163 @@ def phase_greedy(dev, card, cfg):
             torch.cuda.synchronize()
             ms_p = (time.perf_counter() - t0) * 1e3
         if kernels.LAUNCHES != launches:
-            fail("greedy", "the plain reference run launched a kernel")
-    for name in GREEDY_KERNELS:
+            fail(label, "the plain reference run launched a kernel")
+    for name in needed:
         if launches[name] == 0:
-            fail("greedy", f"kernel {name} was not launched by greedy decode")
+            fail(label, f"kernel {name} was not launched by greedy decode")
     ids = res.ids
     if tuple(ids.shape) != (128, horizon) or int(ids.min()) < 0 or int(ids.max()) >= V:
-        fail("greedy", f"ids of shape {tuple(ids.shape)} in [{int(ids.min())}, {int(ids.max())}]")
+        fail(label, f"ids of shape {tuple(ids.shape)} in [{int(ids.min())}, {int(ids.max())}]")
     with torch.no_grad():
-        profile_report("greedy (B=128)", lambda: greedy_decode(
+        profile_report(f"{label} (B=128)", lambda: greedy_decode(
             params["decoder"], cfg.decoder, mems, horizon), per=res.steps,
             per_name="decode step")
     same = int((res.ids == res_p.ids).all(dim=1).sum())
-    print(f"greedy [{card}] B=128, 6 s, horizon {horizon}: decode {ms:.3f} ms, {res.steps} steps "
-          f"({ms / max(res.steps, 1):.3f} ms per step), "
-          f"K6 launches {launches['decode_attention']}; "
+    print(f"{label} [{card}] {cfg.name} B=128, 6 s, horizon {horizon}: decode {ms:.3f} ms, "
+          f"{res.steps} steps ({ms / max(res.steps, 1):.3f} ms per step), "
+          f"launches {({n: launches[n] for n in needed})}; "
           f"plain path {ms_p:.3f} ms; {same} of 128 rows with ids identical to the plain path's")
     return launches
+
+
+def k8_inputs(B, dev, seed, T=197, H=256, Tv=150, A=128, Dv=512):
+    """K8 operands at the lrs2_av_align fusion's widths: the cell, the
+    context projection, the attention, the fp32 input product, a ragged
+    audio mask with a 0-length row (1) and a prepared bf16 video memory
+    with a 0-length row (2)."""
+    import torch
+
+    from avsr_tpu_torch.ops import attention as attn
+
+    g = torch.Generator().manual_seed(seed)
+    cell = {"wh": torch.randn((H, 4 * H), generator=g) / H ** 0.5,
+            "b": 0.1 * torch.randn((4 * H,), generator=g)}
+    ctx_proj = torch.randn((Dv, 4 * H), generator=g) / Dv ** 0.5
+    att = {"wq": torch.randn((H, A), generator=g) / H ** 0.5,
+           "v": torch.randn((A,), generator=g) / A ** 0.5,
+           "wm": torch.randn((Dv, A), generator=g) / Dv ** 0.5}
+    xw = torch.randn((T, B, 4 * H), generator=g)
+    alen = torch.randint(1, T + 1, (B,), generator=g)
+    alen[0], alen[1] = T, 0
+    mask = (torch.arange(T)[:, None] < alen[None, :]).float()
+    video = torch.randn((B, Tv, Dv), generator=g).to(torch.bfloat16)
+    vlen = torch.randint(1, Tv + 1, (B,), generator=g)
+    vlen[0], vlen[2] = Tv, 0
+    cell, att = ({k: x.to(dev) for k, x in d.items()} for d in (cell, att))
+    mem = attn.prepare_memory("bahdanau", att, video.to(dev), vlen.to(dev), torch.bfloat16)
+    return [cell, att, ctx_proj.to(dev), xw.to(dev), mask.to(dev), mem, torch.bfloat16]
+
+
+def phase_k8(dev, report):
+    import torch
+
+    from avsr_tpu_torch.models import fusion as fus
+
+    errs, times, bounds = {}, {}, {}
+    for B in (8, 128):
+        args = k8_inputs(B, dev, seed=13 + B)
+        hs, ctxs, al, carries = fus.av_align_scan(*args)
+        hs_p, ctxs_p, al_p, carries_p = fus.av_align_scan_plain(*args)
+        torch.cuda.synchronize()
+        e = {"hs": max_err(hs, hs_p), "ctxs": max_err(ctxs, ctxs_p), "aligns": max_err(al, al_p)}
+        e.update({n: max_err(a, b) for n, a, b in zip(("hT", "cT", "ctxT"), carries, carries_p)})
+        # row 1 has no audio step, row 2 no video frame: exact zeros
+        zeros = (float(hs[:, 1].abs().max()), float(ctxs[:, 1].abs().max()),
+                 float(al[:, 1].abs().max()), float(ctxs[:, 2].abs().max()),
+                 float(al[:, 2].abs().max()))
+        rows2 = float(al[: int(args[4][:, 0].sum()), 0].sum(-1).sub(1).abs().max())
+        print(f"K8 [T_a=197,B={B},H=256,T_v=150,A=128,Dv=512] max abs err {e} (tol {K8_TOL}, "
+              f"aligns {K8_ALIGN_TOL}); 0-length audio row hs/ctxs/aligns and 0-length video "
+              f"row ctxs/aligns max |x| {zeros}; full row's alignments sum to 1 within {rows2}")
+        if not all(torch.isfinite(x).all() for x in (hs, ctxs, al)):
+            fail("K8", "non-finite kernel output")
+        if max(zeros) != 0.0:
+            fail("K8", f"a 0-length row is not exactly zero: {zeros}")
+        if not (max(v for n, v in e.items() if n != "aligns") <= K8_TOL
+                and e["aligns"] <= K8_ALIGN_TOL and rows2 <= 1e-5):
+            fail("K8", f"kernel disagrees with the plain twin at B={B}: {e}")
+        errs[B] = max(e.values())
+        times[B] = (time_ms(lambda: fus.av_align_scan(*args), reps=10),
+                    time_ms(lambda: fus.av_align_scan_plain(*args), reps=3, warmup=1),
+                    device_ms(lambda: fus.av_align_scan(*args), reps=5))
+        cell, att, ctx_proj, xw, mask, mem, _ = args
+        T, _, H4 = xw.shape
+        S, A, Dv = mem.keys.shape[1], mem.keys.shape[2], mem.values.shape[-1]
+        H = H4 // 4
+        nb = (nbytes(xw, mask, mem.keys, mem.bias, mem.mask, hs, ctxs, al, *carries)
+              + 2 * (H * H4 + Dv * H4 + H * A + A + B * S * Dv) + 4 * H4)
+        # per step: the gate products (bf16 operands), q, the energies' add
+        # and tanh (fp32), the v dot and the context (bf16 operands)
+        flops = {"bf16": T * 2 * B * ((H + Dv) * H4 + H * A + S * A + S * Dv),
+                 "fp32": T * 2 * B * S * A}
+        bounds[B] = bound(nb, flops)
+        print(f"K8 B={B} kernel {times[B][0]:.4f} ms (device {times[B][2]} ms)  plain "
+              f"{times[B][1]:.4f} ms  bound {bounds[B][0]:.5f} ms ({bounds[B][1]}, "
+              f"{nb / 1e6:.2f} MB)")
+    # the entry: the serving shape, B = 8
+    report["av_align_scan"] = dict(
+        max_abs_err=max(errs.values()), ms=times[8][0], plain_ms=times[8][1], library_ms=None,
+        device_ms=times[8][2], bound=bounds[8])
+
+
+def k10_inputs(N, dev, seed, S=197, Hq=256, A=128, Dv=768):
+    """K10 operands at the lrs2_av_align decoder's widths: the top layer's
+    h, the attention, and a prepared fused memory ([h ; ctx], fp32) with
+    bf16 values as the beam tiles them and a length-0 row (1)."""
+    import torch
+
+    from avsr_tpu_torch.ops import attention as attn
+
+    g = torch.Generator().manual_seed(seed)
+    query = 0.5 * torch.randn((N, Hq), generator=g)
+    att = {"wq": torch.randn((Hq, A), generator=g) / Hq ** 0.5,
+           "v": torch.randn((A,), generator=g) / A ** 0.5,
+           "wm": torch.randn((Dv, A), generator=g) / Dv ** 0.5}
+    memory = torch.randn((N, S, Dv), generator=g)
+    lens = torch.randint(1, S + 1, (N,), generator=g)
+    lens[0], lens[1] = S, 0
+    att = {k: x.to(dev) for k, x in att.items()}
+    mem = attn.prepare_memory("bahdanau", att, memory.to(dev), lens.to(dev), torch.bfloat16)
+    mem = mem._replace(values=mem.values.to(torch.bfloat16))
+    return ["bahdanau", att, query.to(dev), mem, torch.bfloat16]
+
+
+def phase_k10(dev, report):
+    import torch
+
+    from avsr_tpu_torch.ops import attention as attn
+
+    worst, t = 0.0, {}
+    for N in (80, 128):
+        args = k10_inputs(N, dev, seed=N)
+        ctx, w = attn.attend(*args)
+        ctx_p, w_p = attn.attend_plain(*args)
+        torch.cuda.synchronize()
+        e = {"ctx": max_err(ctx, ctx_p), "weights": max_err(w, w_p)}
+        empty = (float(ctx[1].abs().max()), float(w[1].abs().max()))
+        print(f"K10 [N={N},S=197,A=128,Dv=768] max abs err {e} (tol ctx {K10_CTX_TOL}, weights "
+              f"{K10_W_TOL}); length-0 row max |ctx|, |w| {empty}; weight sums of the other "
+              f"rows within {float((w.sum(-1) - 1)[2:].abs().max())} of 1")
+        if not (torch.isfinite(ctx).all() and e["ctx"] <= K10_CTX_TOL
+                and e["weights"] <= K10_W_TOL):
+            fail("K10", f"kernel disagrees with the plain twin at N={N}: {e}")
+        if empty != (0.0, 0.0):
+            fail("K10", f"a length-0 memory does not give a zero context and weights: {empty}")
+        worst = max(worst, *e.values())
+        t[N] = (time_ms(lambda: attn.attend(*args)), time_ms(lambda: attn.attend_plain(*args)),
+                device_ms(lambda: attn.attend(*args)))
+        print(f"K10 N={N} kernel {t[N][0]:.4f} ms (device {t[N][2]} ms)  plain {t[N][1]:.4f} ms")
+    # the entry: one beam step's read, N = 80
+    _, att, query, mem, _ = args = k10_inputs(80, dev, seed=80)
+    ctx, w = attn.attend(*args)
+    N, S, A = mem.keys.shape
+    Hq, Dv = query.shape[1], mem.values.shape[-1]
+    nb = nbytes(query, att["wq"].to(torch.bfloat16), att["v"].to(torch.bfloat16), mem.keys,
+                mem.values, mem.bias, mem.mask, ctx, w)
+    b = bound(nb, {"bf16": 2 * N * (Hq * A + S * A + S * Dv), "fp32": 2 * N * S * A})
+    print(f"K10 N=80 bound {b[0]:.5f} ms ({b[1]}, {nb / 1e6:.2f} MB)")
+    report["bahdanau_attend"] = dict(max_abs_err=worst, ms=t[80][0], plain_ms=t[80][1],
+                                     library_ms=None, device_ms=t[80][2], bound=b)
 
 
 def main() -> int:
@@ -1024,7 +1216,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from avsr_tpu_torch.configs import lrs2_av_fast
+        from avsr_tpu_torch.configs import lrs2_av_fast, lrs2_full
         from avsr_tpu_torch import kernels
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
@@ -1056,6 +1248,7 @@ def main() -> int:
           f"(nvcc {kernels.BUILD_SECONDS if kernels.BUILD_SECONDS is not None else 'cached'} s)")
 
     cfg = lrs2_av_fast()
+    align_cfg = lrs2_full()  # the lrs2_av_align preset
     report, paths = {}, {}
     for n, run in ((3, lambda: phase_k1(dev, report)),
                    (4, lambda: phase_k3(dev, report, cfg)),
@@ -1066,7 +1259,13 @@ def main() -> int:
                    (9, lambda: phase_k5(dev, report)),
                    (10, lambda: phase_k6(dev, report)),
                    (11, lambda: phase_k7(dev, report)),
-                   (12, lambda: paths.update(greedy=phase_greedy(dev, card, cfg)))):
+                   (12, lambda: paths.update(greedy=phase_greedy(dev, card, cfg))),
+                   (13, lambda: phase_k8(dev, report)),
+                   (14, lambda: phase_k10(dev, report)),
+                   (15, lambda: paths.update(serve_align=phase_serve(
+                       dev, card, align_cfg, "serve_align", SERVE_ALIGN_KERNELS, (8, 197, 768)))),
+                   (16, lambda: paths.update(greedy_align=phase_greedy(
+                       dev, card, align_cfg, "greedy_align", GREEDY_ALIGN_KERNELS)))):
         t0 = time.perf_counter()
         run()
         print(f"phase {n}: {time.perf_counter() - t0:.1f} s")
@@ -1086,6 +1285,10 @@ def main() -> int:
         "decoder_attention_bwd": ("avsr_tpu_torch/csrc/decoder_attention.cu", f"{td}:305"),
         "decode_attention": ("avsr_tpu_torch/csrc/decode_attention.cu", f"{td}:217"),
         "beam_step": ("avsr_tpu_torch/csrc/beam_step.cu", "avsr_tpu/decode/beam.py:142"),
+        "av_align_scan": ("avsr_tpu_torch/csrc/av_align_scan.cu",
+                          "avsr_tpu/models/fusion.py:118"),
+        "bahdanau_attend": ("avsr_tpu_torch/csrc/bahdanau_attend.cu",
+                            "avsr_tpu/ops/attention.py:125"),
     }
     entries = []
     for name, (src, rep) in sources.items():

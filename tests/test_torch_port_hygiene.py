@@ -6,9 +6,13 @@
   ``avsr_tpu/data/units.py`` agree with the originals: every preset of
   ``PRESETS`` as ``dataclasses.asdict``, the (de)serialization helpers, and
   every builtin unit inventory with its id conventions.
-* ``convert.from_jax`` and ``seq2seq.model_init`` default to the card (a
-  CPU-only torch refuses them without ``device="cpu"``); the internal
-  ``*_init`` helpers take the device from their caller.
+* ``convert.from_jax``, ``seq2seq.model_init`` and ``serve.Predictor``
+  default to the card (a CPU-only torch refuses the first two without
+  ``device="cpu"``); the internal ``*_init`` helpers take the device from
+  their caller.
+* Every CUDA source has a plain C interface (no PyTorch headers) and names
+  the JAX function it replaces; every kernel counted in ``LAUNCHES`` has
+  its entry, with its source, in ``chip_smoke.py``'s kernels line.
 """
 
 import ast
@@ -23,10 +27,11 @@ import torch
 from avsr_tpu import configs as jconfigs
 from avsr_tpu.data import units as junits
 from avsr_tpu_torch import configs as tconfigs
-from avsr_tpu_torch import convert
+from avsr_tpu_torch import convert, kernels
 from avsr_tpu_torch.data import units as tunits
 from avsr_tpu_torch.models import decoder, encoder, fusion, seq2seq, transformer_decoder, video_cnn
 from avsr_tpu_torch.ops import attention, rnn
+from avsr_tpu_torch.serve import Predictor
 from avsr_tpu_torch.utils import params as uparams
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -96,11 +101,38 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("fn", [
-    rnn.lstm_init, attention.value_only_init, encoder.encoder_init, video_cnn.video_cnn_init,
-    fusion.cross_attention_fusion_init, decoder.decoder_init,
+    rnn.lstm_init, attention.value_only_init, attention.bahdanau_init, attention.attention_init,
+    encoder.encoder_init, video_cnn.video_cnn_init, fusion.cross_attention_fusion_init,
+    fusion.av_align_init, decoder.decoder_init,
     transformer_decoder.transformer_decoder_init, uparams.glorot_uniform, uparams.orthogonal,
     uparams.normal_init, uparams.zeros,
 ], ids=lambda f: f.__name__)
 def test_init_helpers_take_the_callers_device(fn):
     param = inspect.signature(fn).parameters["device"]
     assert param.default is inspect.Parameter.empty
+
+
+def test_predictor_defaults_to_the_card():
+    assert inspect.signature(Predictor).parameters["device"].default == "cuda"
+
+
+CSRC = sorted((ROOT / "avsr_tpu_torch" / "csrc").glob("*.cu*"))
+
+
+@pytest.mark.parametrize("src", CSRC, ids=lambda p: p.name)
+def test_cuda_sources_are_plain_c_and_name_their_reference(src):
+    text = src.read_text()
+    assert "#include <torch" not in text and "ATen" not in text and "pybind11" not in text
+    head = text.split("#include")[0]
+    assert "avsr_tpu/" in head, f"{src.name}: the leading comment names no JAX function"
+    if src.suffix == ".cu":
+        assert 'extern "C"' in text
+
+
+def test_every_kernel_has_its_chip_smoke_entry():
+    smoke = (ROOT / "chip_smoke.py").read_text()
+    for name in kernels.LAUNCHES:
+        assert f'"{name}": ("avsr_tpu_torch/csrc/' in smoke, name
+    for src in CSRC:
+        if src.suffix == ".cu":
+            assert f"avsr_tpu_torch/csrc/{src.name}" in smoke, src.name
