@@ -13,6 +13,17 @@
 // 2 * S * (A + Dv) FMAs per row.  The beams of one utterance read the same
 // memory; reading the untiled memory by n / W would cut the bytes tenfold
 // (later work, with K6's identical item).
+//
+// Backward (bahdanau_attend_bwd_kernel): the teacher-forced decoder's read
+// at every training step, one launch per decoder step, a block per row,
+// the body bahdanau::read_bwd.  It adds this row's dkeys [S, A] and
+// dvalues [S, Dv] (fp32) into zeroed buffers, writes dquery [Hq], and the
+// row's factors dq [A] and dv [A] of the weight gradients (formed by the
+// caller as one product per step, as the reference's autodiff forms them).
+// Bound on an H100: the keys (fp32) and values (bf16) read once, the fp32
+// dkeys / dvalues read and written once: at N = 128, S = 197, A = 128,
+// Dv = 768, 12.9 + 38.7 MB read, 2 x 90.4 MB of fp32 gradients moved, per
+// decoder step.
 
 #include "bahdanau_core.cuh"
 
@@ -46,6 +57,33 @@ bahdanau_attend_kernel(const float* __restrict__ query,          // [N, Hq]
                  RowContext{ctx + n * Dv});
 }
 
+struct DctxRow {
+  const float* dctx;
+  __device__ float operator()(int d) const { return dctx[d]; }
+};
+
+__global__ void __launch_bounds__(bahdanau::THREADS)
+bahdanau_attend_bwd_kernel(const float* __restrict__ query,           // [N, Hq]
+                           const __nv_bfloat16* __restrict__ wq,      // [Hq, A]
+                           const __nv_bfloat16* __restrict__ vatt,    // [A]
+                           const float* __restrict__ keys,            // [N, S, A]
+                           const __nv_bfloat16* __restrict__ values,  // [N, S, Dv]
+                           const float* __restrict__ weights,         // [N, S]
+                           const float* __restrict__ dctx,            // [N, Dv]
+                           float* __restrict__ dquery,                // [N, Hq]
+                           float* __restrict__ dq,                    // [N, A]
+                           float* __restrict__ dv_rows,               // [N, A] +=
+                           float* __restrict__ dkeys,                 // [N, S, A] +=
+                           float* __restrict__ dvalues,               // [N, S, Dv] +=
+                           int Hq, int A, int S, int Dv) {
+  extern __shared__ __align__(16) float smem[];
+  const size_t n = blockIdx.x;
+  bahdanau::read_bwd(query + n * Hq, wq, vatt, keys + n * S * A, values + n * S * Dv,
+                     weights + n * S, DctxRow{dctx + n * Dv}, Hq, A, S, Dv, smem,
+                     dkeys + n * S * A, dvalues + n * S * Dv, dq + n * A, dv_rows + n * A,
+                     dquery + n * Hq);
+}
+
 }  // namespace
 
 extern "C" long long avsr_bahdanau_smem(int Hq, int A, int S) {
@@ -70,5 +108,34 @@ extern "C" int avsr_bahdanau_attend(const void* query, const void* wq, const voi
       static_cast<const __nv_bfloat16*>(values), static_cast<const float*>(bias),
       static_cast<const float*>(mask), static_cast<float*>(ctx), static_cast<float*>(weights),
       Hq, A, S, Dv);
+  return (int)cudaGetLastError();
+}
+
+extern "C" long long avsr_bahdanau_bwd_smem(int Hq, int A, int S, int Dv) {
+  return (long long)(bahdanau::read_bwd_smem_floats(Hq, A, S, Dv) * sizeof(float));
+}
+
+// dv_rows, dkeys and dvalues are accumulated: the caller passes them zeroed.
+extern "C" int avsr_bahdanau_attend_bwd(const void* query, const void* wq, const void* vatt,
+                                        const void* keys, const void* values, const void* weights,
+                                        const void* dctx, void* dquery, void* dq, void* dv_rows,
+                                        void* dkeys, void* dvalues, int N, int Hq, int A, int S,
+                                        int Dv, void* stream) {
+  if (N < 1 || S < 1 || Hq < 1 || A % 8 || A > 512 || Dv % 8 || Dv > 2048)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = bahdanau::read_bwd_smem_floats(Hq, A, S, Dv) * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(bahdanau_attend_bwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  bahdanau_attend_bwd_kernel<<<N, bahdanau::THREADS, smem,
+                               reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(query), static_cast<const __nv_bfloat16*>(wq),
+      static_cast<const __nv_bfloat16*>(vatt), static_cast<const float*>(keys),
+      static_cast<const __nv_bfloat16*>(values), static_cast<const float*>(weights),
+      static_cast<const float*>(dctx), static_cast<float*>(dquery), static_cast<float*>(dq),
+      static_cast<float*>(dv_rows), static_cast<float*>(dkeys), static_cast<float*>(dvalues), Hq,
+      A, S, Dv);
   return (int)cudaGetLastError();
 }

@@ -45,7 +45,8 @@ LAUNCHES: Dict[str, int] = {
     "lstm_scan_fwd": 0, "lstm_scan_bwd": 0, "logmel_post_dft": 0,
     "fusion_attention_fwd": 0, "fusion_attention_bwd": 0,
     "decoder_attention_fwd": 0, "decoder_attention_bwd": 0,
-    "decode_attention": 0, "beam_step": 0, "av_align_scan": 0, "bahdanau_attend": 0,
+    "decode_attention": 0, "beam_step": 0, "av_align_scan": 0, "av_align_scan_bwd": 0,
+    "bahdanau_attend": 0, "bahdanau_attend_bwd": 0,
 }
 
 LSTM_UNIT_TILE = 16  # hidden units per block of the LSTM kernels (UT in the source)
@@ -148,14 +149,20 @@ def _load() -> ctypes.CDLL:
         lib.avsr_decode_attn.restype = i
         lib.avsr_beam_step.argtypes = [p] * 12 + [i] * 4 + [p]
         lib.avsr_beam_step.restype = i
-        lib.avsr_av_align_smem.argtypes = [i, i, i, i]
+        lib.avsr_av_align_smem.argtypes = [i, i, i, i, i]
         lib.avsr_av_align_smem.restype = ctypes.c_longlong
-        lib.avsr_av_align_scan.argtypes = [p] * 18 + [i] * 7 + [p]
+        lib.avsr_av_align_scan.argtypes = [p] * 21 + [i] * 7 + [p]
         lib.avsr_av_align_scan.restype = i
+        lib.avsr_av_align_scan_bwd.argtypes = [p] * 27 + [i] * 7 + [p]
+        lib.avsr_av_align_scan_bwd.restype = i
         lib.avsr_bahdanau_smem.argtypes = [i, i, i]
         lib.avsr_bahdanau_smem.restype = ctypes.c_longlong
         lib.avsr_bahdanau_attend.argtypes = [p] * 9 + [i] * 5 + [p]
         lib.avsr_bahdanau_attend.restype = i
+        lib.avsr_bahdanau_bwd_smem.argtypes = [i, i, i, i]
+        lib.avsr_bahdanau_bwd_smem.restype = ctypes.c_longlong
+        lib.avsr_bahdanau_attend_bwd.argtypes = [p] * 12 + [i] * 5 + [p]
+        lib.avsr_bahdanau_attend_bwd.restype = i
         _lib = lib
     return _lib
 
@@ -509,15 +516,7 @@ def beam_step(logits, logp, lens, finished, lp_table, tokens_row, parents_row):
     return flat_parent, feed, logp_out, lens_out, finished_out
 
 
-def av_align_scan(wh, b, ctx_proj, wq, v, xw, mask, keys, values, mbias, mmask):
-    """K8: the AV-Align fusion scan, forward (CUDA).
-
-    wh [H,4H] bf16, b [4H] f32, ctx_proj [Dv,4H] bf16 or None (no input
-    feeding), wq [H,A] bf16, v [A] bf16, xw [T,B,4H] f32, mask [T,B] f32;
-    the video memory: keys [B,S,A] f32, values [B,S,Dv] bf16, mbias / mmask
-    [B,S] f32 -> (hs [T,B,H], ctxs [T,B,Dv], aligns [T,B,S], hT, cT [B,H],
-    ctxT [B,Dv]), all fp32, from zero initial carries.
-    """
+def _check_av_align(wh, b, ctx_proj, wq, v, xw, mask, keys, values):
     T, B, H4 = xw.shape
     H = H4 // 4
     S, A = keys.shape[1], keys.shape[2]
@@ -533,20 +532,36 @@ def av_align_scan(wh, b, ctx_proj, wq, v, xw, mask, keys, values, mbias, mmask):
     _check("mask", mask, torch.float32, (T, B), dev)
     _check("keys", keys, torch.float32, (B, S, A), dev)
     _check("values", values, torch.bfloat16, (B, S, Dv), dev)
-    _check("mbias", mbias, torch.float32, (B, S), dev)
-    _check("mmask", mmask, torch.float32, (B, S), dev)
-    if H % LSTM_UNIT_TILE or A % 8 or A > 512 or Dv % 8 or Dv > 2048:
-        raise ValueError(f"av_align scan: H={H} must be a multiple of {LSTM_UNIT_TILE}, A={A} "
-                         f"a multiple of 8 up to 512, Dv={Dv} a multiple of 8 up to 2048")
+    if H % LSTM_UNIT_TILE or A % 8 or A > 512 or Dv % LSTM_UNIT_TILE or Dv > 2048:
+        raise ValueError(f"av_align scan: H={H} and Dv={Dv} must be multiples of "
+                         f"{LSTM_UNIT_TILE}, Dv at most 2048, A={A} a multiple of 8 up to 512")
     if not (1 <= S <= FUSION_MAX_TV and B >= 1):
         raise ValueError(f"av_align scan: T_v={S}, B={B}; the kernel takes "
                          f"1 <= T_v <= {FUSION_MAX_TV}")
-    lib = _load()
     Dc = Dv if ctx_proj is not None else 0
-    smem = lib.avsr_av_align_smem(H, Dc, A, S)
+    smem = _load().avsr_av_align_smem(H, Dc, A, S, Dv)
     if smem > SMEM_LIMIT:
         raise ValueError(f"av_align scan: H={H}, Dc={Dc}, A={A}, T_v={S} need {smem} bytes "
                          f"of shared memory per block (limit {SMEM_LIMIT})")
+    return T, B, H, Dc, A, S, Dv, dev
+
+
+def av_align_scan(wh, b, ctx_proj, wq, v, xw, mask, keys, values, mbias, mmask, *,
+                  save: bool = False):
+    """K8: the AV-Align fusion scan, forward (CUDA).
+
+    wh [H,4H] bf16, b [4H] f32, ctx_proj [Dv,4H] bf16 or None (no input
+    feeding), wq [H,A] bf16, v [A] bf16, xw [T,B,4H] f32, mask [T,B] f32;
+    the video memory: keys [B,S,A] f32, values [B,S,Dv] bf16, mbias / mmask
+    [B,S] f32 -> (hs [T,B,H], ctxs [T,B,Dv], aligns [T,B,S], hT, cT [B,H],
+    ctxT [B,Dv], res), all fp32, from zero initial carries; res is (h_res,
+    c_res [T,B,H], ctx_res [T,B,Dv]), the fp32 carries entering each step,
+    when ``save`` (the backward's residuals), else None.
+    """
+    T, B, H, Dc, A, S, Dv, dev = _check_av_align(wh, b, ctx_proj, wq, v, xw, mask, keys, values)
+    _check("mbias", mbias, torch.float32, (B, S), dev)
+    _check("mmask", mmask, torch.float32, (B, S), dev)
+    lib = _load()
     wh_tiled = tile_lstm_weights(wh[None])[0]
     cp_tiled = None if ctx_proj is None else tile_lstm_weights(ctx_proj[None])[0]
     hbuf = torch.zeros((2, B, H), dtype=torch.float32, device=dev)
@@ -556,25 +571,79 @@ def av_align_scan(wh, b, ctx_proj, wq, v, xw, mask, keys, values, mbias, mmask):
     hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
     ctxs = torch.empty((T, B, Dv), dtype=torch.float32, device=dev)
     aligns = torch.empty((T, B, S), dtype=torch.float32, device=dev)
+    res = None
+    if save:
+        res = (torch.empty((T, B, H), dtype=torch.float32, device=dev),
+               torch.empty((T, B, H), dtype=torch.float32, device=dev),
+               torch.empty((T, B, Dv), dtype=torch.float32, device=dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.avsr_av_align_scan(
         wh_tiled.data_ptr(), None if cp_tiled is None else cp_tiled.data_ptr(), b.data_ptr(),
         xw.data_ptr(), mask.data_ptr(), wq.data_ptr(), v.data_ptr(), keys.data_ptr(),
         values.data_ptr(), mbias.data_ptr(), mmask.data_ptr(), hbuf.data_ptr(), c.data_ptr(),
         ctxbuf.data_ptr(), hnew.data_ptr(), hs.data_ptr(), ctxs.data_ptr(), aligns.data_ptr(),
+        *((r.data_ptr() for r in res) if save else (None, None, None)),
         T, B, H, Dc, A, S, Dv, stream)
     _raise_on(err, "av_align_scan launch")
     LAUNCHES["av_align_scan"] += 1
-    return hs, ctxs, aligns, hbuf[T % 2], c, ctxbuf[T % 2]
+    return hs, ctxs, aligns, hbuf[T % 2], c, ctxbuf[T % 2], res
 
 
-def bahdanau_attend(query, wq, v, keys, values, bias, mask):
-    """K10: one Bahdanau attention read per row (CUDA).
+def av_align_scan_bwd(wh, b, ctx_proj, wq, v, xw, mask, keys, values, aligns, h_res, c_res,
+                      ctx_res, dhs, dctxs, dhT, dcT, dctxT):
+    """K8: the reverse scan of the fusion's gradient (CUDA).
 
-    query [N,Hq] f32, wq [Hq,A] bf16, v [A] bf16, keys [N,S,A] f32, values
-    [N,S,Dv] bf16, bias / mask [N,S] f32 -> (ctx [N,Dv] f32, weights [N,S]
-    f32; a row whose every position is masked gets zeros in both).
+    The forward's operands (no memory bias or mask: they enter through
+    ``aligns`` [T,B,S], the forward's read weights), its saved fp32 carries
+    h_res / c_res [T,B,H], ctx_res [T,B,Dv], the cotangents dhs [T,B,H],
+    dctxs [T,B,Dv] and dhT, dcT [B,H], dctxT [B,Dv] (fp32) -> (dxw
+    [T,B,4H], db [4H], dq [T,B,A], dv_rows [B,A], dkeys [B,S,A], dvalues
+    [B,S,Dv], hnew [T,B,H]), all fp32: dxw is dgates; dq, dv_rows and hnew
+    (the recomputed queries) are the factors of dwq and dv, and dWh /
+    dctx_proj are products over h_res / ctx_res and dxw, left to the caller.
     """
+    T, B, H, Dc, A, S, Dv, dev = _check_av_align(wh, b, ctx_proj, wq, v, xw, mask, keys, values)
+    f32 = torch.float32
+    _check("aligns", aligns, f32, (T, B, S), dev)
+    for name, x, shape in (("h_res", h_res, (T, B, H)), ("c_res", c_res, (T, B, H)),
+                           ("ctx_res", ctx_res, (T, B, Dv)), ("dhs", dhs, (T, B, H)),
+                           ("dctxs", dctxs, (T, B, Dv)), ("dhT", dhT, (B, H)),
+                           ("dcT", dcT, (B, H)), ("dctxT", dctxT, (B, Dv))):
+        _check(name, x, f32, shape, dev)
+    lib = _load()
+    wh_tiled = tile_lstm_weights(wh[None])[0]
+    cp_tiled = None if ctx_proj is None else tile_lstm_weights(ctx_proj[None])[0]
+    w_all = wh if ctx_proj is None else torch.cat([wh, ctx_proj], dim=0)
+    # [H+Dc, 4H] -> [(H+Dc)/UT, H, UT, 4]: the layout of K1's dh product
+    w_all_t = w_all.view(-1, LSTM_UNIT_TILE, H, 4).permute(0, 2, 1, 3).contiguous()
+    dh, dc, dctx = dhT.clone(), dcT.clone(), dctxT.clone()
+    act = torch.empty((T, B, 4 * H), dtype=f32, device=dev)
+    hnew = torch.empty((T, B, H), dtype=f32, device=dev)
+    dxw = torch.empty((T, B, 4 * H), dtype=f32, device=dev)
+    dq = torch.empty((T, B, A), dtype=f32, device=dev)
+    dv_acc = torch.zeros((B, A), dtype=f32, device=dev)
+    db_acc = torch.zeros((B, 4 * H), dtype=f32, device=dev)
+    dkeys = torch.zeros((B, S, A), dtype=f32, device=dev)
+    dvalues = torch.zeros((B, S, Dv), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.avsr_av_align_scan_bwd(
+        wh_tiled.data_ptr(), None if cp_tiled is None else cp_tiled.data_ptr(),
+        w_all_t.data_ptr(), b.data_ptr(), xw.data_ptr(), mask.data_ptr(), wq.data_ptr(),
+        v.data_ptr(), keys.data_ptr(), values.data_ptr(), aligns.data_ptr(), h_res.data_ptr(),
+        c_res.data_ptr(), ctx_res.data_ptr(), dhs.data_ptr(), dctxs.data_ptr(), dh.data_ptr(),
+        dc.data_ptr(), dctx.data_ptr(), act.data_ptr(), hnew.data_ptr(), dxw.data_ptr(),
+        dq.data_ptr(), dv_acc.data_ptr(), db_acc.data_ptr(), dkeys.data_ptr(),
+        dvalues.data_ptr(), T, B, H, Dc, A, S, Dv, stream)
+    _raise_on(err, "av_align_scan_bwd launch")
+    LAUNCHES["av_align_scan_bwd"] += 1
+    return dxw, db_acc.sum(dim=0), dq, dv_acc, dkeys, dvalues, hnew
+
+
+def _check_bahdanau(what, query, wq, v, keys, values, smem_fn, *smem_args):
+    """The operands both K10 launches share, their limits and the shared
+    memory that the library's ``smem_fn(Hq, A, S, *smem_args)`` asks
+    (the library is loaded only once the operands pass): (N, Hq, S, A, Dv,
+    dev)."""
     N, Hq = query.shape
     S, A = keys.shape[1], keys.shape[2]
     Dv = values.shape[-1]
@@ -584,20 +653,31 @@ def bahdanau_attend(query, wq, v, keys, values, bias, mask):
     _check("v", v, torch.bfloat16, (A,), dev)
     _check("keys", keys, torch.float32, (N, S, A), dev)
     _check("values", values, torch.bfloat16, (N, S, Dv), dev)
-    _check("bias", bias, torch.float32, (N, S), dev)
-    _check("mask", mask, torch.float32, (N, S), dev)
     if A % 8 or A > 512 or Dv % 8 or Dv > 2048:
-        raise ValueError(f"bahdanau attend: A={A} must be a multiple of 8 up to 512, "
+        raise ValueError(f"{what}: A={A} must be a multiple of 8 up to 512, "
                          f"Dv={Dv} a multiple of 8 up to 2048")
     if not (1 <= S <= ATTEND_MAX_S and N >= 1):
-        raise ValueError(f"bahdanau attend: S={S}, N={N}; the kernel takes "
-                         f"1 <= S <= {ATTEND_MAX_S}")
-    lib = _load()
-    smem = lib.avsr_bahdanau_smem(Hq, A, S)
+        raise ValueError(f"{what}: S={S}, N={N}; the kernel takes 1 <= S <= {ATTEND_MAX_S}")
+    smem = getattr(_load(), smem_fn)(Hq, A, S, *smem_args)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"bahdanau attend: Hq={Hq}, A={A}, S={S} need {smem} bytes of "
+        raise ValueError(f"{what}: Hq={Hq}, A={A}, S={S}, Dv={Dv} need {smem} bytes of "
                          f"shared memory per block (limit {SMEM_LIMIT})")
-    ctx = torch.empty((N, Dv), dtype=torch.float32, device=dev)
+    return N, Hq, S, A, Dv, dev
+
+
+def bahdanau_attend(query, wq, v, keys, values, bias, mask):
+    """K10: one Bahdanau attention read per row (CUDA).
+
+    query [N,Hq] f32, wq [Hq,A] bf16, v [A] bf16, keys [N,S,A] f32, values
+    [N,S,Dv] bf16, bias / mask [N,S] f32 -> (ctx [N,Dv] f32, weights [N,S]
+    f32; a row whose every position is masked gets zeros in both).
+    """
+    N, Hq, S, A, Dv, dev = _check_bahdanau("bahdanau attend", query, wq, v, keys, values,
+                                           "avsr_bahdanau_smem")
+    _check("bias", bias, torch.float32, (N, S), dev)
+    _check("mask", mask, torch.float32, (N, S), dev)
+    lib = _load()
+    ctx =torch.empty((N, Dv), dtype=torch.float32, device=dev)
     weights = torch.empty((N, S), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.avsr_bahdanau_attend(
@@ -607,3 +687,33 @@ def bahdanau_attend(query, wq, v, keys, values, bias, mask):
     _raise_on(err, "bahdanau_attend launch")
     LAUNCHES["bahdanau_attend"] += 1
     return ctx, weights
+
+
+def bahdanau_attend_bwd(query, wq, v, keys, values, weights, dctx):
+    """K10: the backward of one Bahdanau read per row (CUDA).
+
+    The forward's query [N,Hq] f32, wq [Hq,A] bf16, v [A] bf16, keys [N,S,A]
+    f32, values [N,S,Dv] bf16, its weights [N,S] f32 and the context
+    cotangent dctx [N,Dv] f32 -> (dquery [N,Hq], dq [N,A], dv_rows [N,A],
+    dkeys [N,S,A], dvalues [N,S,Dv]), all fp32; dq and dv_rows are the
+    per-row factors of dwq and dv (``ops/attention.py``).
+    """
+    N, Hq, S, A, Dv, dev = _check_bahdanau("bahdanau attend bwd", query, wq, v, keys, values,
+                                           "avsr_bahdanau_bwd_smem", values.shape[-1])
+    f32 = torch.float32
+    _check("weights", weights, f32, (N, S), dev)
+    _check("dctx", dctx, f32, (N, Dv), dev)
+    lib = _load()
+    dquery = torch.empty((N, Hq), dtype=f32, device=dev)
+    dq = torch.empty((N, A), dtype=f32, device=dev)
+    dv_rows = torch.zeros((N, A), dtype=f32, device=dev)
+    dkeys = torch.zeros((N, S, A), dtype=f32, device=dev)
+    dvalues = torch.zeros((N, S, Dv), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.avsr_bahdanau_attend_bwd(
+        query.data_ptr(), wq.data_ptr(), v.data_ptr(), keys.data_ptr(), values.data_ptr(),
+        weights.data_ptr(), dctx.data_ptr(), dquery.data_ptr(), dq.data_ptr(),
+        dv_rows.data_ptr(), dkeys.data_ptr(), dvalues.data_ptr(), N, Hq, A, S, Dv, stream)
+    _raise_on(err, "bahdanau_attend_bwd launch")
+    LAUNCHES["bahdanau_attend_bwd"] += 1
+    return dquery, dq, dv_rows, dkeys, dvalues

@@ -11,8 +11,14 @@ Two families, picked by ``DecoderConfig.decoder_type``:
   (kernel K10 on a GPU, ``ops/attention.py``) queried by the top layer's
   h, and projects ``[h ; contexts]`` to the vocabulary.  The gate and
   output products stay matrix products, as the reference leaves them to
-  XLA.  Teacher forcing of this family (and with it scheduled sampling)
-  is not ported yet and raises; Luong attention raises.
+  XLA.  Teacher forcing is a host loop over the label positions through
+  the same ``decoder_step``, with the reference's scheduled sampling (a
+  Bernoulli(p) coin per row per step after step 0 feeds the model's own
+  Gumbel-max sample of the previous step's logits) and variational dropout
+  (one mask per layer per sequence on each layer's output; the state keeps
+  the undropped h).  Every draw comes from the caller's generator on the
+  batch's device, so the loop never waits on the device.  Luong attention
+  raises.
 """
 
 from __future__ import annotations
@@ -22,9 +28,11 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from avsr_tpu_torch.configs import DecoderConfig
+from avsr_tpu_torch.data.units import GO_ID
 from avsr_tpu_torch.models import transformer_decoder as tdec
 from avsr_tpu_torch.ops import attention as attn
 from avsr_tpu_torch.ops import rnn
+from avsr_tpu_torch.utils import rng
 from avsr_tpu_torch.utils.numerics import dot_f32
 from avsr_tpu_torch.utils.params import Params, glorot_uniform, normal_init, zeros
 
@@ -99,34 +107,77 @@ def prepare_cross(params: Params, cfg: DecoderConfig,
 
 
 def decoder_step(params: Params, cfg: DecoderConfig, tokens: torch.Tensor, state,
-                 memories: Sequence[attn.AttentionMemory], cross_kv, cdt: torch.dtype):
-    """One decode step for every row: (new state, fp32 logits [N, V])."""
+                 memories: Sequence[attn.AttentionMemory], cross_kv, cdt: torch.dtype, *,
+                 dropout_masks: Optional[Sequence[torch.Tensor]] = None):
+    """One decode step for every row: (new state, fp32 logits [N, V]).
+    ``dropout_masks`` (RNN decoder, training): one [N, H] mask per layer,
+    multiplied into that layer's output; the state keeps the undropped h."""
     if _is_transformer(cfg):
         return tdec.decode_step(params, cfg, tokens, state, memories, cross_kv, cdt)
     x = torch.cat([params["embedding"][tokens], *state.contexts], dim=-1)
     new_lstm = []
     h = x
-    for cell, st in zip(params["cells"], state.lstm):
+    for li, (cell, st) in enumerate(zip(params["cells"], state.lstm)):
         (h, c), _ = rnn.lstm_step(cell, h, st, cdt)
         new_lstm.append((h, c))
+        if dropout_masks is not None:
+            h = h * dropout_masks[li]
     contexts = tuple(attn.attend(cfg.attention_type, att, h, mem, cdt)[0]
                      for att, mem in zip(params["atts"], memories))
     logits = dot_f32(torch.cat([h, *contexts], dim=-1), params["out_w"], cdt) + params["out_b"]
     return DecoderState(lstm=tuple(new_lstm), contexts=contexts), logits
 
 
+def gumbel_max(generator: torch.Generator, logits: torch.Tensor) -> torch.Tensor:
+    """One categorical draw per row of ``logits`` [N, V] (int64 [N]), as
+    ``jax.random.categorical`` draws it: the argmax of the logits plus
+    Gumbel noise, the uniforms kept off 0 as ``jax.random.gumbel`` keeps
+    them.  No gradient flows through the draw."""
+    u = torch.rand(logits.shape, generator=generator, device=generator.device)
+    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
+    return torch.argmax(logits.detach().float() - torch.log(-torch.log(u)), dim=-1)
+
+
 def teacher_forced_logits(params: Params, cfg: DecoderConfig, targets: torch.Tensor,
                           target_lengths: torch.Tensor,
                           memories: Sequence[attn.AttentionMemory], cdt: torch.dtype, *,
                           generator: Optional[torch.Generator] = None,
-                          dropout: bool = False) -> torch.Tensor:
+                          dropout: bool = False,
+                          sampling_probability: float = 0.0) -> torch.Tensor:
     """Training-time decode over gold targets [B, K] (incl. EOS): fp32
-    logits [B, K, V]; the transformer's parallel pass is teacher forcing."""
-    if not _is_transformer(cfg):
-        raise ValueError("teacher-forced decoding of the RNN decoder is not ported "
-                         "(training of the RNN decoder comes with scheduled sampling)")
-    return tdec.teacher_forced_logits(params, cfg, targets, target_lengths, memories, cdt,
-                                      generator=generator, dropout=dropout)
+    logits [B, K, V].  The transformer's parallel pass is teacher forcing
+    (it takes no scheduled sampling).  The RNN decoder runs K steps, step
+    k consuming token k-1 (GO at k = 0); with a generator and a sampling
+    probability p > 0 (a host float: the train step's ramp), each row's
+    input after step 0 is, with probability p, the model's own sample of
+    the previous step's logits; with ``dropout`` and a generator, one
+    variational-dropout mask [B, H] per layer for the whole sequence."""
+    if _is_transformer(cfg):
+        return tdec.teacher_forced_logits(params, cfg, targets, target_lengths, memories, cdt,
+                                          generator=generator, dropout=dropout)
+    B, K = targets.shape
+    dev = targets.device
+    state = initial_state(cfg, B, K, cdt, dev,
+                          memory_dims=[m.values.shape[-1] for m in memories])
+    masks = None
+    if cfg.dropout_rate > 0.0 and generator is not None and dropout:
+        keep = 1.0 - cfg.dropout_rate
+        masks = tuple(rng.dropout_mask(generator, keep, (B, h)) for h in cfg.hidden_units)
+    sampling = generator is not None and sampling_probability > 0.0
+    tok = torch.full((B,), GO_ID, dtype=torch.long, device=dev)
+    logits = []
+    for k in range(K):
+        if k > 0:
+            tok = targets[:, k - 1].long()
+            if sampling:  # never at step 0: there is no previous prediction
+                coin = torch.rand((B,), generator=generator, device=dev) < sampling_probability
+                tok = torch.where(coin, sampled, tok)
+        state, step_logits = decoder_step(params, cfg, tok, state, memories, None, cdt,
+                                          dropout_masks=masks)
+        logits.append(step_logits)
+        if sampling:
+            sampled = gumbel_max(generator, step_logits)
+    return torch.stack(logits, dim=1)
 
 
 def sequence_loss(logits: torch.Tensor, targets: torch.Tensor, target_lengths: torch.Tensor,

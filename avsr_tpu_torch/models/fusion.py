@@ -9,12 +9,18 @@ zero.
 AV-Align (the reference-dims model): a unidirectional LSTM over the audio
 encoder's output with input feeding; at every audio step one Bahdanau read
 of the video memory with the new h as the query; the memory is [h ; ctx].
-The scan body (``fusion.py:118-141``) is kernel K8: ``av_align_scan``
+The scan body (``fusion.py:118-141``) is kernel K8: ``av_align_scan_fwd``
 launches ``csrc/av_align_scan.cu`` for tensors on a GPU and runs
-``av_align_scan_plain`` (a loop of ``lstm_step`` and ``attend_plain``) for
-tensors on the CPU.  The hoisted fp32 input product, the memory
-preparation, the AU head and the concat stay torch code.  K8 has no
-backward yet: asking it for a gradient raises.
+``av_align_scan_fwd_plain`` (a loop of ``lstm_step`` and ``attend_plain``)
+for tensors on the CPU.  When a gradient is wanted, ``av_align_scan`` goes
+through ``AVAlignScan``: its forward saves the fp32 carries entering each
+step (h, c, ctx: what the reference's ``jax.checkpoint`` keeps), its
+backward is the reverse scan with the gates and the read recomputed from
+them (``av_align_scan_bwd``: the CUDA kernel on a GPU,
+``av_align_scan_bwd_plain`` on the CPU).  The weight gradients of Wh,
+ctx_proj, wq and v are single products over all steps after the scan.
+The hoisted fp32 input product, the memory preparation, the AU head and
+the concat stay torch code.
 
 Cross-attention: multi-head attention with audio queries over video
 keys/values.  Key padding adds -1e9 to the scores and the softmax runs in
@@ -39,7 +45,7 @@ from avsr_tpu_torch.configs import FusionConfig
 from avsr_tpu_torch import kernels
 from avsr_tpu_torch.ops import attention as attn
 from avsr_tpu_torch.ops import rnn
-from avsr_tpu_torch.utils.numerics import dot_f32
+from avsr_tpu_torch.utils.numerics import dot_f32, rounded
 from avsr_tpu_torch.utils.params import Params, glorot_uniform, zeros
 
 
@@ -68,14 +74,16 @@ def av_align_init(gen: torch.Generator, cfg: FusionConfig, audio_input_dim: int,
     return params
 
 
-def av_align_scan_plain(cell: Params, att: Params, ctx_proj: Optional[torch.Tensor],
-                        xw: torch.Tensor, mask: torch.Tensor, mem: attn.AttentionMemory,
-                        cdt: torch.dtype):
-    """Plain-PyTorch K8: the reference's scan body, step by step.
+def av_align_scan_fwd_plain(cell: Params, att: Params, ctx_proj: Optional[torch.Tensor],
+                            xw: torch.Tensor, mask: torch.Tensor, mem: attn.AttentionMemory,
+                            cdt: torch.dtype, save: bool = False):
+    """Plain-PyTorch K8 forward: the reference's scan body, step by step.
 
     xw [T,B,4H] fp32 (the hoisted input product), mask [T,B] fp32, the
-    prepared video memory -> (hs [T,B,H], ctxs [T,B,Dv], aligns [T,B,T_v],
-    (hT, cT, ctxT)), all fp32, from zero initial carries.
+    prepared video memory -> ((hs [T,B,H], ctxs [T,B,Dv], aligns [T,B,T_v],
+    hT, cT, ctxT), res), all fp32, from zero initial carries; res is
+    (h_res, c_res, ctx_res), the carries entering each step, when ``save``,
+    else None.
     """
     T, B, _ = xw.shape
     H = cell["wh"].shape[0]
@@ -83,8 +91,11 @@ def av_align_scan_plain(cell: Params, att: Params, ctx_proj: Optional[torch.Tens
     h = torch.zeros((B, H), dtype=torch.float32, device=dev)
     c = torch.zeros((B, H), dtype=torch.float32, device=dev)
     ctx = torch.zeros((B, mem.values.shape[-1]), dtype=torch.float32, device=dev)
-    hs, ctxs, aligns = [], [], []
+    hs, ctxs, aligns, res = [], [], [], ([], [], [])
     for t in range(T):
+        if save:
+            for r, x in zip(res, (h, c, ctx)):
+                r.append(x)
         gate_in = xw[t]
         if ctx_proj is not None:
             gate_in = gate_in + dot_f32(ctx, ctx_proj, cdt)
@@ -97,34 +108,211 @@ def av_align_scan_plain(cell: Params, att: Params, ctx_proj: Optional[torch.Tens
         hs.append(h_new * m)
         ctxs.append(ctx_new * m)
         aligns.append(align * m)
-    return torch.stack(hs), torch.stack(ctxs), torch.stack(aligns), (h, c, ctx)
+    out = (torch.stack(hs), torch.stack(ctxs), torch.stack(aligns), h, c, ctx)
+    return out, (tuple(torch.stack(r) for r in res) if save else None)
 
 
-def av_align_scan(cell: Params, att: Params, ctx_proj: Optional[torch.Tensor],
-                  xw: torch.Tensor, mask: torch.Tensor, mem: attn.AttentionMemory,
-                  cdt: torch.dtype):
-    """K8 wrapper: the CUDA kernel for GPU tensors, the plain version on the
-    CPU; same contract as ``av_align_scan_plain``.  The kernel runs the bf16
-    policy only and has no backward yet: a gradient asked of either raises
-    rather than being lost or half computed."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (cell["wh"], cell["b"], ctx_proj, att["wq"], att["v"], xw, mem.keys,
-                      mem.values)):
-        raise ValueError("the AV-Align fusion scan (K8) has no backward yet: training of "
-                         "the AV-Align model is not ported")
-    if xw.device.type == "cpu":
-        return av_align_scan_plain(cell, att, ctx_proj, xw, mask, mem, cdt)
+def av_align_scan_plain(cell: Params, att: Params, ctx_proj: Optional[torch.Tensor],
+                        xw: torch.Tensor, mask: torch.Tensor, mem: attn.AttentionMemory,
+                        cdt: torch.dtype):
+    """Plain-PyTorch K8 forward, outputs only: (hs, ctxs, aligns, (hT, cT,
+    ctxT))."""
+    (hs, ctxs, aligns, hT, cT, ctxT), _ = av_align_scan_fwd_plain(cell, att, ctx_proj, xw, mask,
+                                                                  mem, cdt)
+    return hs, ctxs, aligns, (hT, cT, ctxT)
+
+
+def _check_align_policy(cdt):
     if cdt != torch.bfloat16:
-        raise ValueError(f"the AV-Align fusion kernel runs the bf16 policy only, got {cdt}")
+        raise ValueError(f"the AV-Align fusion kernels run the bf16 policy only, got {cdt}")
+
+
+def av_align_scan_fwd(cell: Params, att: Params, ctx_proj: Optional[torch.Tensor],
+                      xw: torch.Tensor, mask: torch.Tensor, mem: attn.AttentionMemory,
+                      cdt: torch.dtype, save: bool = False):
+    """K8 forward wrapper: the CUDA kernel for GPU tensors, the plain
+    version on the CPU; same contract as ``av_align_scan_fwd_plain``.  The
+    kernel runs the bf16 policy only; any other compute dtype on a GPU
+    raises."""
+    if xw.device.type == "cpu":
+        return av_align_scan_fwd_plain(cell, att, ctx_proj, xw, mask, mem, cdt, save)
+    _check_align_policy(cdt)
     bf = torch.bfloat16
-    hs, ctxs, aligns, hT, cT, ctxT = kernels.av_align_scan(
+    hs, ctxs, aligns, hT, cT, ctxT, res = kernels.av_align_scan(
         cell["wh"].to(bf).contiguous(), cell["b"].float().contiguous(),
         None if ctx_proj is None else ctx_proj.to(bf).contiguous(),
         att["wq"].to(bf).contiguous(), att["v"].to(bf).contiguous(),
         xw.float().contiguous(), mask.float().contiguous(), mem.keys.float().contiguous(),
         mem.values.to(bf).contiguous(), mem.bias.float().contiguous(),
-        mem.mask.float().contiguous())
+        mem.mask.float().contiguous(), save=save)
+    return (hs, ctxs, aligns, hT, cT, ctxT), res
+
+
+def av_align_scan_bwd_plain(cell: Params, att: Params, ctx_proj: Optional[torch.Tensor],
+                            xw: torch.Tensor, mask: torch.Tensor, mem: attn.AttentionMemory,
+                            aligns: torch.Tensor, res, dhs: torch.Tensor, dctxs: torch.Tensor,
+                            dhT: torch.Tensor, dcT: torch.Tensor, dctxT: torch.Tensor,
+                            cdt: torch.dtype):
+    """Plain-PyTorch K8 backward: the reverse scan of the gradient JAX's
+    autodiff takes through the rematerialized body (``fusion.py:118-141``).
+
+    Per step t, from T-1 down to 0: the gates, h' and the read recomputed
+    from the saved carries ``res`` = (h_res, c_res, ctx_res) [T,B,*] fp32;
+    the transpose of the masked carry update; the read's backward
+    (``attend_bwd_plain``) with the forward's weights ``aligns[t]`` (a
+    masked row's read gets a zero cotangent); the LSTM cell backward; and
+    the carries' cotangents through ``Wh`` and ``ctx_proj`` (rounded to the
+    compute dtype, as the transposes of the reference's casts are).
+
+    Returns (dxw [T,B,4H], db [4H], dq [T,B,A], dv_rows [B,A], dkeys
+    [B,S,A], dvalues [B,S,Dv], hnew [T,B,H]), all fp32: dxw is dgates, and
+    dq, dv_rows and hnew (the read's queries) are the factors of the weight
+    gradients (``av_align_weight_grads``).
+    """
+    h_res, c_res, ctx_res = res
+    T, B, H4 = xw.shape
+    wh_c = cell["wh"].to(cdt).float()
+    cp_c = None if ctx_proj is None else ctx_proj.to(cdt).float()
+    dh, dc, dctx = dhT.float(), dcT.float(), dctxT.float()
+    db = torch.zeros((H4,), dtype=torch.float32, device=xw.device)
+    dkeys = torch.zeros(mem.keys.shape, dtype=torch.float32, device=xw.device)
+    dvalues = torch.zeros(mem.values.shape, dtype=torch.float32, device=xw.device)
+    dv_rows = torch.zeros((B, mem.keys.shape[-1]), dtype=torch.float32, device=xw.device)
+    dxw, dq, hnew = [None] * T, [None] * T, [None] * T
+    for t in reversed(range(T)):
+        m = mask[t][:, None]
+        h_prev, c_prev, ctx_prev = h_res[t], c_res[t], ctx_res[t]
+        gates = xw[t].float()
+        if cp_c is not None:
+            gates = gates + ctx_prev.to(cdt).float() @ cp_c
+        gates = gates + h_prev.to(cdt).float() @ wh_c
+        gates = gates + cell["b"]
+        gi, gf, gg, go = gates.chunk(4, dim=-1)
+        i, f, o = torch.sigmoid(gi), torch.sigmoid(gf), torch.sigmoid(go)
+        g = torch.tanh(gg)
+        tc = torch.tanh(f * c_prev + i * g)
+        h_new = o * tc
+        dctx_new = m * (dctx + dctxs[t])
+        dquery, dq[t], dv_t, dk_t, dval_t = attn.attend_bwd_plain(
+            "bahdanau", att, h_new, mem, aligns[t], dctx_new, cdt)
+        dkeys += dk_t
+        dvalues += dval_t
+        dv_rows += dv_t
+        hnew[t] = h_new
+        dh_new = m * (dh + dhs[t]) + dquery
+        dc_new = m * dc + dh_new * o * (1.0 - tc * tc)
+        dgates = torch.cat([dc_new * g * i * (1.0 - i), dc_new * c_prev * f * (1.0 - f),
+                            dc_new * i * (1.0 - g * g), dh_new * tc * o * (1.0 - o)], dim=-1)
+        dc = dc_new * f + (1.0 - m) * dc
+        dh = rounded(dgates @ wh_c.t(), cdt) + (1.0 - m) * dh
+        dctx = (1.0 - m) * dctx
+        if cp_c is not None:
+            dctx = rounded(dgates @ cp_c.t(), cdt) + dctx
+        db += dgates.sum(dim=0)
+        dxw[t] = dgates
+    return (torch.stack(dxw), db, torch.stack(dq), dv_rows, dkeys, dvalues, torch.stack(hnew))
+
+
+def av_align_scan_bwd(cell: Params, att: Params, ctx_proj: Optional[torch.Tensor],
+                      xw: torch.Tensor, mask: torch.Tensor, mem: attn.AttentionMemory,
+                      aligns: torch.Tensor, res, dhs: torch.Tensor, dctxs: torch.Tensor,
+                      dhT: torch.Tensor, dcT: torch.Tensor, dctxT: torch.Tensor,
+                      cdt: torch.dtype):
+    """K8 backward wrapper: the CUDA kernel for GPU tensors, the plain
+    version on the CPU; same contract as ``av_align_scan_bwd_plain``."""
+    if xw.device.type == "cpu":
+        return av_align_scan_bwd_plain(cell, att, ctx_proj, xw, mask, mem, aligns, res, dhs,
+                                       dctxs, dhT, dcT, dctxT, cdt)
+    _check_align_policy(cdt)
+    bf = torch.bfloat16
+    return kernels.av_align_scan_bwd(
+        cell["wh"].to(bf).contiguous(), cell["b"].float().contiguous(),
+        None if ctx_proj is None else ctx_proj.to(bf).contiguous(),
+        att["wq"].to(bf).contiguous(), att["v"].to(bf).contiguous(),
+        xw.float().contiguous(), mask.float().contiguous(), mem.keys.float().contiguous(),
+        mem.values.to(bf).contiguous(), aligns.float().contiguous(),
+        *(r.float().contiguous() for r in res), dhs.float().contiguous(),
+        dctxs.float().contiguous(), dhT.float().contiguous(), dcT.float().contiguous(),
+        dctxT.float().contiguous())
+
+
+def av_align_weight_grads(res, ctx_proj: Optional[torch.Tensor], dxw: torch.Tensor,
+                          dq: torch.Tensor, dv_rows: torch.Tensor, hnew: torch.Tensor,
+                          cdt: torch.dtype):
+    """dWh, dctx_proj (None without input feeding), dwq and dv, each one
+    fp32 product over all steps (the reference sums the same per-step
+    products inside its scan)."""
+    h_res, _, ctx_res = res
+    H4 = dxw.shape[-1]
+    flat = dxw.reshape(-1, H4)
+    dwh = h_res.to(cdt).float().reshape(-1, h_res.shape[-1]).t() @ flat
+    dcp = None
+    if ctx_proj is not None:
+        dcp = ctx_res.to(cdt).float().reshape(-1, ctx_res.shape[-1]).t() @ flat
+    dwq, dv = attn.attention_weight_grads(hnew, dq, dv_rows, cdt)
+    return dwh, dcp, dwq, dv
+
+
+class AVAlignScan(torch.autograd.Function):
+    """K8 with its gradient: (hs, ctxs, aligns, hT, cT, ctxT) from the cell
+    (wh, b), ctx_proj (or None), the attention (wq, v), the input product
+    xw and the video memory's keys and values.  The alignments feed no
+    loss: they are marked non-differentiable, and a gradient arriving for
+    them raises.  The masks and the memory bias take no gradient."""
+
+    @staticmethod
+    def forward(ctx, wh, b, ctx_proj, wq, v, xw, mask, keys, values, mbias, mmask, cdt):
+        cell, att = {"wh": wh, "b": b}, {"wq": wq, "v": v}
+        mem = attn.AttentionMemory(values=values, keys=keys, mask=mmask, bias=mbias)
+        out, res = av_align_scan_fwd(cell, att, ctx_proj, xw, mask, mem, cdt, save=True)
+        ctx.save_for_backward(wh, b, ctx_proj, wq, v, xw, mask, keys, values, mbias, mmask,
+                              out[2], *res)
+        ctx.mark_non_differentiable(out[2])
+        ctx.set_materialize_grads(False)
+        ctx.cdt = cdt
+        return out
+
+    @staticmethod
+    def backward(ctx, dhs, dctxs, daligns, dhT, dcT, dctxT):
+        if daligns is not None:
+            raise RuntimeError("the AV-Align alignments take no gradient")
+        wh, b, ctx_proj, wq, v, xw, mask, keys, values, mbias, mmask, aligns, *res = \
+            ctx.saved_tensors
+        cdt = ctx.cdt
+        cell, att = {"wh": wh, "b": b}, {"wq": wq, "v": v}
+        mem = attn.AttentionMemory(values=values, keys=keys, mask=mmask, bias=mbias)
+        T, B, H4 = xw.shape
+        H, Dv = H4 // 4, values.shape[-1]
+
+        def z(x, *shape):
+            return torch.zeros(shape, dtype=torch.float32, device=xw.device) if x is None else x
+
+        dxw, db, dq, dv_rows, dkeys, dvalues, hnew = av_align_scan_bwd(
+            cell, att, ctx_proj, xw, mask, mem, aligns, res, z(dhs, T, B, H),
+            z(dctxs, T, B, Dv), z(dhT, B, H), z(dcT, B, H), z(dctxT, B, Dv), cdt)
+        dwh, dcp, dwq, dv = av_align_weight_grads(res, ctx_proj, dxw, dq, dv_rows, hnew, cdt)
+        return (dwh.to(wh.dtype), db.to(b.dtype), None if dcp is None else dcp.to(ctx_proj.dtype),
+                dwq.to(wq.dtype), dv.to(v.dtype), dxw.to(xw.dtype), None, dkeys.to(keys.dtype),
+                dvalues.to(values.dtype), None, None, None)
+
+
+def av_align_scan(cell: Params, att: Params, ctx_proj: Optional[torch.Tensor],
+                  xw: torch.Tensor, mask: torch.Tensor, mem: attn.AttentionMemory,
+                  cdt: torch.dtype):
+    """K8 as the fusion calls it: (hs, ctxs, aligns, (hT, cT, ctxT)).  With
+    autograd recording and an input that needs a gradient it goes through
+    ``AVAlignScan``; otherwise (serving) straight to the forward wrapper,
+    saving nothing."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (cell["wh"], cell["b"], ctx_proj, att["wq"], att["v"], xw, mem.keys,
+                      mem.values)):
+        hs, ctxs, aligns, hT, cT, ctxT = AVAlignScan.apply(
+            cell["wh"], cell["b"], ctx_proj, att["wq"], att["v"], xw, mask, mem.keys,
+            mem.values, mem.bias, mem.mask, cdt)
+    else:
+        (hs, ctxs, aligns, hT, cT, ctxT), _ = av_align_scan_fwd(cell, att, ctx_proj, xw, mask,
+                                                                mem, cdt)
     return hs, ctxs, aligns, (hT, cT, ctxT)
 
 

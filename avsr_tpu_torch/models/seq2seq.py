@@ -7,7 +7,7 @@ The port covers the ``av_align`` architecture in two structures:
 * the ``lrs2_av_align`` preset's (the reference-dims model): the
   recurrent AV-Align fusion (the fusion LSTM with Bahdanau reads of the
   video memory, fused memory [h ; ctx]) and the attention-LSTM decoder
-  (serving and eval decode; its training raises until it is ported).
+  with scheduled sampling (serving, eval decode and training).
 
 Compact int16/uint8 inputs are dequantized on the device, in training the
 waveform is mixed with noise, audio goes through the log-mel frontend and
@@ -72,13 +72,6 @@ def _check_supported(cfg: ExperimentConfig) -> None:
             "the port covers architecture='av_align' with cross-attention fusion and the "
             "transformer decoder, or AV-Align fusion and the RNN decoder (got "
             f"{cfg.architecture!r} / {pair})")
-
-
-def _check_trainable(cfg: ExperimentConfig) -> None:
-    if cfg.fusion.fusion_type == "av_align" or cfg.decoder.decoder_type == "rnn":
-        raise ValueError(
-            "training of the AV-Align fusion and the RNN decoder is not ported (it comes with "
-            "K8's backward and scheduled sampling); this structure serves and decodes only")
 
 
 def memory_dims_of(cfg: ExperimentConfig) -> List[int]:
@@ -177,24 +170,31 @@ def encode(params: Params, cfg: ExperimentConfig, batch: Batch, *, train: bool =
 
 
 def forward(params: Params, cfg: ExperimentConfig, batch: Batch, *, train: bool = False,
-            generator: Optional[torch.Generator] = None,
-            noise_bank=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Teacher-forced logits for the batch: [B, K, V] fp32, and encode's aux."""
-    _check_trainable(cfg)
+            generator: Optional[torch.Generator] = None, noise_bank=None,
+            sampling_p: Optional[float] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Teacher-forced logits for the batch: [B, K, V] fp32, and encode's aux.
+    ``sampling_p`` overrides the config's scheduled-sampling probability in
+    train mode (the train step's ramp); eval mode samples nothing."""
     out = encode(params, cfg, batch, train=train, generator=generator, noise_bank=noise_bank)
+    if not train:
+        p = 0.0
+    elif sampling_p is not None:
+        p = float(sampling_p)
+    else:
+        p = cfg.decoder.sampling_probability
     logits = dec.teacher_forced_logits(
         params["decoder"], cfg.decoder, batch.targets, batch.target_lengths, out.memories,
-        compute_dtype_of(cfg), generator=generator, dropout=train)
+        compute_dtype_of(cfg), generator=generator, dropout=train, sampling_probability=p)
     return logits, out.aux
 
 
 def loss_fn(params: Params, cfg: ExperimentConfig, batch: Batch, *, train: bool = True,
-            generator: Optional[torch.Generator] = None,
-            noise_bank=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+            generator: Optional[torch.Generator] = None, noise_bank=None,
+            sampling_p: Optional[float] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """(total loss, {"ce_loss", "au_loss" (when the AU head and targets
     are present), "loss"})."""
     logits, aux = forward(params, cfg, batch, train=train, generator=generator,
-                          noise_bank=noise_bank)
+                          noise_bank=noise_bank, sampling_p=sampling_p)
     return _losses(cfg, batch, logits, aux, train=train)
 
 

@@ -9,7 +9,7 @@ a memory's VALUES (the reference's ``value_only`` path): its memories
 carry ``keys=None``.
 
 ``attend`` is one Bahdanau read per query row, kernel K10: for tensors on
-a GPU it launches ``csrc/bahdanau_attend.cu`` (the read body is
+a GPU ``attend_fwd`` launches ``csrc/bahdanau_attend.cu`` (the read body is
 ``csrc/bahdanau_core.cuh``, shared with the AV-Align fusion scan K8), for
 tensors on the CPU it runs ``attend_plain``.  Per row, under the bf16
 policy:
@@ -19,8 +19,14 @@ policy:
     weights = softmax(scores) * mask, renormalized, times min(sum(mask), 1)
     context = bf16(weights) @ bf16(values)                 (fp32)
 
-so a memory of length 0 gives zero weights and a zero context.  Luong
-attention and ``attend_batched_queries`` are not ported and raise.
+so a memory of length 0 gives zero weights and a zero context.  When
+autograd records a gradient, ``attend`` goes through ``BahdanauAttend``,
+whose backward is K10's backward kernel on a GPU and ``attend_bwd_plain``
+(the hand-derived gradient JAX's autodiff takes through the read, with its
+rounding points) on the CPU.  The backward recomputes q and the energies
+from the query, as the reference's ``jax.checkpoint`` does: the tanh
+tensor is never saved.  Luong attention and ``attend_batched_queries`` are
+not ported and raise.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from avsr_tpu_torch import kernels
-from avsr_tpu_torch.utils.numerics import dot_f32
+from avsr_tpu_torch.utils.numerics import dot_f32, rounded
 from avsr_tpu_torch.utils.params import Params, glorot_uniform
 
 NEG_INF = -1e30
@@ -112,19 +118,124 @@ def attend_plain(attention_type: str, params: Params, query: torch.Tensor,
     return context, weights
 
 
-def attend(attention_type: str, params: Params, query: torch.Tensor, mem: AttentionMemory,
-           cdt: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K10 wrapper: the CUDA kernel for GPU tensors, the plain version on
-    the CPU; same contract as ``attend_plain``.  The kernel runs the bf16
-    policy only; any other compute dtype on a GPU raises."""
+def attend_fwd(attention_type: str, params: Params, query: torch.Tensor, mem: AttentionMemory,
+               cdt: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10 forward wrapper: the CUDA kernel for GPU tensors, the plain
+    version on the CPU; same contract as ``attend_plain``.  The kernel runs
+    the bf16 policy only; any other compute dtype on a GPU raises."""
     if query.device.type == "cpu":
         return attend_plain(attention_type, params, query, mem, cdt)
     _check_type(attention_type)
-    if cdt != torch.bfloat16:
-        raise ValueError(f"the Bahdanau attention kernel runs the bf16 policy only, got {cdt}")
+    _check_policy(cdt)
     bf = torch.bfloat16
     return kernels.bahdanau_attend(
         query.float().contiguous(), params["wq"].to(bf).contiguous(),
         params["v"].to(bf).contiguous(), mem.keys.float().contiguous(),
         mem.values.to(bf).contiguous(), mem.bias.float().contiguous(),
         mem.mask.float().contiguous())
+
+
+def attend_bwd_plain(attention_type: str, params: Params, query: torch.Tensor,
+                     mem: AttentionMemory, weights: torch.Tensor, dctx: torch.Tensor,
+                     cdt: torch.dtype):
+    """Plain-PyTorch K10 backward: the gradient JAX's autodiff takes
+    through ``attend`` (``avsr_tpu/ops/attention.py:140-151,167-177``) for
+    the context cotangent ``dctx`` [N, Dv], given the forward's ``weights``
+    [N, S].  q and the energies are recomputed from the query.  The
+    renormalised mask folds into the softmax backward: a valid row's
+    weights are its softmax (padded positions exactly 0), an empty row's
+    are all 0, so ``dscores = w * (dw - sum(w * dw))`` in both cases.
+
+    Returns (dquery [N, Hq], dq [N, A], dv_rows [N, A], dkeys [N, S, A],
+    dvalues [N, S, Dv]), all fp32: dq and dv_rows are the per-row factors
+    of the weight gradients (``attention_weight_grads``)."""
+    _check_type(attention_type)
+    wq_c = params["wq"].to(cdt).float()
+    q = dot_f32(query, params["wq"], cdt)
+    e = torch.tanh(mem.keys.float() + q[:, None, :])           # [N, S, A]
+    dctx = dctx.float()
+    dw = rounded(torch.einsum("nd,nsd->ns", dctx, mem.values.to(cdt).float()), cdt)
+    dvalues = rounded(weights.to(cdt).float()[:, :, None] * dctx[:, None, :], cdt)
+    dsc = weights * (dw - (weights * dw).sum(dim=-1, keepdim=True))
+    deb = rounded(dsc[:, :, None] * params["v"].to(cdt).float(), cdt)
+    dkeys = (deb + deb * e) * (1.0 - e)                        # tanh' as JAX takes it
+    dq = dkeys.sum(dim=1)
+    dv_rows = torch.einsum("nsa,ns->na", e.to(cdt).float(), dsc)
+    dquery = rounded(dq @ wq_c.t(), cdt)
+    return dquery, dq, dv_rows, dkeys, dvalues
+
+
+def attention_weight_grads(query: torch.Tensor, dq: torch.Tensor, dv_rows: torch.Tensor,
+                           cdt: torch.dtype):
+    """(dwq, dv) from the per-row factors: ``bf16(query)^T @ dq`` and the
+    row sum of ``dv_rows``, fp32; ``query`` / ``dq`` may carry leading
+    step axes (the fusion scan sums its steps in the same product)."""
+    Hq, A = query.shape[-1], dq.shape[-1]
+    dwq = query.to(cdt).float().reshape(-1, Hq).t() @ dq.reshape(-1, A)
+    return dwq, dv_rows.reshape(-1, A).sum(dim=0)
+
+
+def attend_bwd(attention_type: str, params: Params, query: torch.Tensor, mem: AttentionMemory,
+               weights: torch.Tensor, dctx: torch.Tensor, cdt: torch.dtype):
+    """K10 backward wrapper: the CUDA kernel for GPU tensors, the plain
+    version on the CPU; same contract as ``attend_bwd_plain``."""
+    if query.device.type == "cpu":
+        return attend_bwd_plain(attention_type, params, query, mem, weights, dctx, cdt)
+    _check_type(attention_type)
+    _check_policy(cdt)
+    bf = torch.bfloat16
+    return kernels.bahdanau_attend_bwd(
+        query.float().contiguous(), params["wq"].to(bf).contiguous(),
+        params["v"].to(bf).contiguous(), mem.keys.float().contiguous(),
+        mem.values.to(bf).contiguous(), weights.float().contiguous(),
+        dctx.float().contiguous())
+
+
+def _check_policy(cdt: torch.dtype) -> None:
+    if cdt != torch.bfloat16:
+        raise ValueError(f"the Bahdanau attention kernels run the bf16 policy only, got {cdt}")
+
+
+class BahdanauAttend(torch.autograd.Function):
+    """K10 with its gradient: (context, weights) from the query, wq, v and
+    the memory's keys and values.  The weights feed no loss: they are marked
+    non-differentiable, and a gradient arriving for them raises."""
+
+    @staticmethod
+    def forward(ctx, query, wq, v, keys, values, bias, mask, cdt):
+        mem = AttentionMemory(values=values, keys=keys, mask=mask, bias=bias)
+        out, w = attend_fwd("bahdanau", {"wq": wq, "v": v}, query, mem, cdt)
+        ctx.save_for_backward(query, wq, v, keys, values, bias, mask, w)
+        ctx.mark_non_differentiable(w)
+        ctx.set_materialize_grads(False)
+        ctx.cdt = cdt
+        return out, w
+
+    @staticmethod
+    def backward(ctx, dctx, dw):
+        if dw is not None:
+            raise RuntimeError("the Bahdanau attention weights take no gradient")
+        if dctx is None:
+            return (None,) * 8
+        query, wq, v, keys, values, bias, mask, w = ctx.saved_tensors
+        mem = AttentionMemory(values=values, keys=keys, mask=mask, bias=bias)
+        dquery, dq, dv_rows, dkeys, dvalues = attend_bwd(
+            "bahdanau", {"wq": wq, "v": v}, query, mem, w, dctx, ctx.cdt)
+        dwq, dv = attention_weight_grads(query, dq, dv_rows, ctx.cdt)
+        # the cotangents of the reference's casts to the compute dtype
+        dwq, dv = rounded(dwq, ctx.cdt), rounded(dv, ctx.cdt)
+        return (dquery.to(query.dtype), dwq.to(wq.dtype), dv.to(v.dtype),
+                dkeys.to(keys.dtype), dvalues.to(values.dtype), None, None, None)
+
+
+def attend(attention_type: str, params: Params, query: torch.Tensor, mem: AttentionMemory,
+           cdt: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10 as the decoder calls it: through ``BahdanauAttend`` when autograd
+    records a gradient for the query, the parameters or the memory, else
+    straight to the forward wrapper; same contract as ``attend_plain``."""
+    _check_type(attention_type)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (query, params["wq"], params["v"], mem.keys, mem.values)):
+        return BahdanauAttend.apply(query, params["wq"], params["v"], mem.keys, mem.values,
+                                    mem.bias, mem.mask, cdt)
+    return attend_fwd(attention_type, params, query, mem, cdt)

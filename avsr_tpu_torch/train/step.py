@@ -15,6 +15,11 @@ generator on the batch's device seeded with
 ``rng.fold_in(generator.initial_seed(), s)``, and micro-batch ``a`` of it
 from one seeded with ``rng.fold_in(that seed, a)``: a step's noise and
 dropout depend only on (seed, step, micro-batch), never on what ran before.
+
+Scheduled sampling (the RNN decoder): the probability ramps linearly from
+0 to the config's over ``sampling_ramp_steps`` optimizer steps, computed
+from the host step counter (``host_sampling_p``), as the reference
+computes it on the device from ``state.step`` (``step.py:86-92``).
 """
 
 from __future__ import annotations
@@ -56,15 +61,29 @@ def param_leaves(params: Params) -> List[torch.Tensor]:
     return [p for _, p in tree_leaves(params)]
 
 
+def host_sampling_p(cfg: ExperimentConfig, step: int) -> float:
+    """The scheduled-sampling probability at optimizer step ``step``:
+    ``p * min(1, step / ramp_steps)``, the configured p without a ramp, 0
+    when sampling is off (the reference's ``host_sampling_p``)."""
+    d = cfg.decoder
+    p = d.sampling_probability
+    if p <= 0.0:
+        return 0.0
+    if d.sampling_ramp_steps <= 0:
+        return float(p)
+    return float(p * min(1.0, max(int(step), 0) / d.sampling_ramp_steps))
+
+
 def loss_and_grads(params: Params, batch: Batch, *, cfg: ExperimentConfig,
-                   generator: Optional[torch.Generator], noise_bank=None
+                   generator: Optional[torch.Generator], noise_bank=None,
+                   sampling_p: Optional[float] = None
                    ) -> Tuple[Dict[str, torch.Tensor], List[Optional[torch.Tensor]]]:
     """Train-mode metrics and the gradient of the loss for every leaf of
     ``params`` (``tree_leaves`` order); a leaf the loss does not reach
-    gets None."""
+    gets None.  ``sampling_p`` as ``seq2seq.forward`` takes it."""
     leaves = param_leaves(params)
     loss, metrics = seq2seq.loss_fn(params, cfg, batch, train=True, generator=generator,
-                                    noise_bank=noise_bank)
+                                    noise_bank=noise_bank, sampling_p=sampling_p)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     return {k: v.detach() for k, v in metrics.items()}, list(grads)
 
@@ -82,11 +101,12 @@ def train_step(state: TrainState, batch: Batch, *, cfg: ExperimentConfig,
     updated in place; the returned state holds the same tensors."""
     dev = batch.audio.device
     step_seed = rng.fold_in(generator.initial_seed(), state.step)
+    sampling_p = host_sampling_p(cfg, state.step)
     leaves = param_leaves(state.params)
     if accum <= 1:
         metrics, grads = loss_and_grads(state.params, batch, cfg=cfg,
                                         generator=rng.generator_for(step_seed, dev),
-                                        noise_bank=noise_bank)
+                                        noise_bank=noise_bank, sampling_p=sampling_p)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     else:
         B, K = batch.targets.shape
@@ -100,7 +120,7 @@ def train_step(state: TrainState, batch: Batch, *, cfg: ExperimentConfig,
             mb = _micro(batch, a, b)
             m, g = loss_and_grads(state.params, mb, cfg=cfg,
                                   generator=rng.generator_for(rng.fold_in(step_seed, a), dev),
-                                  noise_bank=noise_bank)
+                                  noise_bank=noise_bank, sampling_p=sampling_p)
             # the micro-batch's valid label tokens (sequence_loss's mask);
             # an all-padding micro-batch weighs 0
             w = torch.clamp(mb.target_lengths, max=K).sum().float()

@@ -21,3 +21,10 @@ def compute_dtype_of(cfg) -> torch.dtype:
 def dot_f32(a: torch.Tensor, b: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
     """``a @ b`` on compute-dtype operands with an fp32 result."""
     return a.to(cdt).float() @ b.to(cdt).float()
+
+
+def rounded(x: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    """``x`` rounded to the compute dtype, back in fp32: what the transpose
+    of the reference's cast to ``cdt`` makes of a cotangent (the port's
+    hand-written backward twins apply it where JAX's autodiff does)."""
+    return x.to(cdt).float()

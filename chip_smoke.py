@@ -75,6 +75,25 @@ Phases, in order; any failure exits nonzero before the final line:
              path.
 16. greedy-align — a B=128, 6 s, horizon 150 greedy decode of the same
              model, kernel path against plain path (K10 launches counted).
+17. K8 bwd — the AV-Align fusion scan's backward against its plain twin at
+             [T_a=197, B=128, H=256, T_v=150, A=128, Dv=512] on the kernel
+             forward's saved carries and random cotangents, ragged with a
+             0-length audio row and a 0-length video row: errors on dxw,
+             db, dq, dkeys, dvalues and the weight gradients dWh,
+             dctx_proj, dwq, dv; the empty rows' gradients exactly zero;
+             times and the bound.
+18. K10 bwd — the Bahdanau read's backward against its plain twin at N=128,
+             S=197, A=128, Dv=768 with a length-0 row (exactly zero
+             gradients): errors on dquery, dkeys, dvalues, dwq, dv; times.
+19. train-align — the full-width ``lrs2_av_align`` train step at B=128,
+             6 s, label cap 80, AU targets, dropout 0.1, noise mixing on,
+             as phase 8: (a) with scheduled sampling off, the loss and every
+             gradient leaf of the kernel path against the plain path with
+             the same generator, every leaf present, finite and nonzero;
+             (b) with the preset's sampling probability 0.1, every kernel
+             of the path launched (K8 and K10 forward and backward among
+             them); (c) 10 steps at a constant lr 1e-4, the loss falling;
+             (d) ms per step, frames/s, peak memory and a profile.
 
 Serve (5, 15) also beams the same memories through the plain path and
 holds the best scores to a tolerance.  Each serve and greedy path and the
@@ -143,6 +162,12 @@ K8_ALIGN_TOL = 1e-2
 # from bf16 weights x bf16 values of order one: K6's 2e-2.
 K10_W_TOL = 1e-3
 K10_CTX_TOL = 2e-2
+# K8 and K10 backward, max abs error over max |plain|: the twins round the
+# same cotangents to bf16 (dw, deb, dvalues, dquery, the carries' products);
+# a sum in another order can flip one rounding (2^-8 of that element), and
+# K8's reverse recurrence carries such a flip over 197 steps, as K1's does.
+K8B_REL_TOL = 2e-2
+K10B_REL_TOL = 1e-2
 # serve: best beam scores of the kernel and the plain path, 150 steps of
 # log probs (~-600) whose logits differ by bf16 ulps at each K6 read; near
 # ties may send the two beams down different, equally scored paths.
@@ -160,6 +185,8 @@ GREEDY_KERNELS = ("decode_attention",)
 SERVE_ALIGN_KERNELS = ("lstm_scan_fwd", "logmel_post_dft", "av_align_scan", "bahdanau_attend",
                        "beam_step")
 GREEDY_ALIGN_KERNELS = ("bahdanau_attend",)
+TRAIN_ALIGN_KERNELS = ("lstm_scan_fwd", "lstm_scan_bwd", "logmel_post_dft", "av_align_scan",
+                       "av_align_scan_bwd", "bahdanau_attend", "bahdanau_attend_bwd")
 
 
 def fail(phase: str, msg: str) -> None:
@@ -457,8 +484,10 @@ def plain_cores():
             mock.patch.object(tdec, "decoder_attention_bwd", tdec.decoder_attention_bwd_plain), \
             mock.patch.object(tdec, "decode_attention", tdec.decode_attention_plain), \
             mock.patch.object(beam, "beam_step", beam.beam_step_plain), \
-            mock.patch.object(fus, "av_align_scan", fus.av_align_scan_plain), \
-            mock.patch.object(attn, "attend", attn.attend_plain):
+            mock.patch.object(fus, "av_align_scan_fwd", fus.av_align_scan_fwd_plain), \
+            mock.patch.object(fus, "av_align_scan_bwd", fus.av_align_scan_bwd_plain), \
+            mock.patch.object(attn, "attend_fwd", attn.attend_plain), \
+            mock.patch.object(attn, "attend_bwd", attn.attend_bwd_plain):
         yield
 
 
@@ -707,7 +736,9 @@ def phase_k4(dev, report):
         bound=bound(nbytes(q, k, v, w_p, dctx, *g_k), 2 * pairs * 512))
 
 
-def phase_train(dev, card, cfg):
+def phase_train(dev, card, cfg, label="train", needed=TRAIN_KERNELS):
+    """The full-width train step of ``cfg``'s model; ``needed`` kernels
+    must launch during its steps."""
     import dataclasses
 
     import torch
@@ -726,30 +757,33 @@ def phase_train(dev, card, cfg):
     state, _ = tstep.create_train_state(cfg, V, torch.Generator().manual_seed(0), dev)
     names = ["/".join(map(str, p)) for p, _ in tree_leaves(state.params)]
 
-    # (a) agreement with the plain path, same draws
-    m_k, g_k = tstep.loss_and_grads(state.params, batch, cfg=cfg,
+    # (a) agreement with the plain path, same draws.  Scheduled sampling is
+    # off here: the paths' logits differ in bf16 ulps, and a near-tied
+    # sample would feed them different tokens.
+    cfg_a = cfg.replace(decoder=dataclasses.replace(cfg.decoder, sampling_probability=0.0))
+    m_k, g_k = tstep.loss_and_grads(state.params, batch, cfg=cfg_a,
                                     generator=trng.generator_for(7, dev), noise_bank=bank)
     before = dict(kernels.LAUNCHES)
     with plain_cores():
-        m_p, g_p = tstep.loss_and_grads(state.params, batch, cfg=cfg,
+        m_p, g_p = tstep.loss_and_grads(state.params, batch, cfg=cfg_a,
                                         generator=trng.generator_for(7, dev), noise_bank=bank)
     torch.cuda.synchronize()
     if kernels.LAUNCHES != before:
-        fail("train", "the plain reference run launched a kernel")
+        fail(label, "the plain reference run launched a kernel")
     for n, g in zip(names, g_k):
         if g is None:
-            fail("train", f"no gradient reaches {n} on the kernel path")
+            fail(label, f"no gradient reaches {n} on the kernel path")
         if not torch.isfinite(g).all() or not bool((g != 0).any()):
-            fail("train", f"gradient of {n} is non-finite or all zero on the kernel path")
+            fail(label, f"gradient of {n} is non-finite or all zero on the kernel path")
     loss_rel = abs(float(m_k["loss"]) - float(m_p["loss"])) / abs(float(m_p["loss"]))
     rels = {n: float((a - b).norm() / b.norm()) for n, a, b in zip(names, g_k, g_p)}
     worst = max(rels, key=rels.get)
-    print(f"train (a) loss kernel {float(m_k['loss']):.6f} plain {float(m_p['loss']):.6f} "
+    print(f"{label} (a) loss kernel {float(m_k['loss']):.6f} plain {float(m_p['loss']):.6f} "
           f"(rel diff {loss_rel:.3e}, tol {LOSS_REL_TOL}); {len(names)} gradient leaves, "
           f"all present, finite, nonzero; worst leaf rel err {rels[worst]:.3e} ({worst}), "
           f"median {statistics.median(rels.values()):.3e} (tol {GRAD_LEAF_REL_TOL})")
     if not (loss_rel <= LOSS_REL_TOL and rels[worst] <= GRAD_LEAF_REL_TOL):
-        fail("train", "kernel path disagrees with the plain path")
+        fail(label, "kernel path disagrees with the plain path")
 
     # (b)-(d): 10 steps on the batch at a constant lr, launches counted.  The
     # preset warms up to 1e-3 over 400 steps; a constant 1e-3 from random
@@ -773,15 +807,16 @@ def phase_train(dev, card, cfg):
         parts.append((float(metrics["ce_loss"]), float(metrics["au_loss"])))
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    print(f"train (b) launches over 10 steps {launches}")
-    for name in TRAIN_KERNELS:
+    print(f"{label} (b) launches over 10 steps at scheduled-sampling p "
+          f"{tstep.host_sampling_p(cfg_c, 0)} {launches}")
+    for name in needed:
         if launches[name] == 0:
-            fail("train", f"kernel {name} was not launched by the training steps")
-    print(f"train (c) losses {[round(x, 4) for x in losses]} (ce, au) "
+            fail(label, f"kernel {name} was not launched by the training steps")
+    print(f"{label} (c) losses {[round(x, 4) for x in losses]} (ce, au) "
           f"{[(round(c, 4), round(a, 4)) for c, a in parts]}; grad_norm last "
           f"{float(metrics['grad_norm']):.4f}")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
-        fail("train", "the loss did not fall over 10 steps")
+        fail(label, "the loss did not fall over 10 steps")
     step_ms = statistics.median(times[2:])
 
     def three_steps():
@@ -790,8 +825,8 @@ def phase_train(dev, card, cfg):
             st, _ = tstep.train_step(st, batch, cfg=cfg_c, optimizer=opt, generator=gen,
                                      noise_bank=bank)
 
-    profile_report("train (B=128, 3 steps)", three_steps, per=3, per_name="step")
-    print(f"train (d) [{card}] lrs2_av_fast B=128 6 s: ms/step {[round(x, 3) for x in times]} "
+    profile_report(f"{label} (B=128, 3 steps)", three_steps, per=3, per_name="step")
+    print(f"{label} (d) [{card}] {cfg.name} B=128 6 s: ms/step {[round(x, 3) for x in times]} "
           f"median after 2 warm-up {step_ms:.3f}; {frames_per_step / step_ms * 1e3:.0f} "
           f"10 ms audio frames/s; peak memory {peak / 2**30:.3f} GiB")
     return launches
@@ -1209,6 +1244,125 @@ def phase_k10(dev, report):
                                      library_ms=None, device_ms=t[80][2], bound=b)
 
 
+def k8_bwd_inputs(B, dev, seed, **widths):
+    """K8 backward operands: ``k8_inputs``, the kernel forward's alignments
+    and saved carries, random cotangents of the outputs and final carries."""
+    import torch
+
+    from avsr_tpu_torch.models import fusion as fus
+
+    cell, att, ctx_proj, xw, mask, mem, cdt = k8_inputs(B, dev, seed, **widths)
+    (_, _, aligns, *_), res = fus.av_align_scan_fwd(cell, att, ctx_proj, xw, mask, mem, cdt,
+                                                    save=True)
+    T, B, H4 = xw.shape
+    H, Dv = H4 // 4, mem.values.shape[-1]
+    g = torch.Generator().manual_seed(seed + 1)
+    cot = [torch.randn(s, generator=g).to(dev)
+           for s in ((T, B, H), (T, B, Dv), (B, H), (B, H), (B, Dv))]
+    return [cell, att, ctx_proj, xw, mask, mem, aligns, res, *cot, cdt]
+
+
+def phase_k8_bwd(dev, report):
+    import torch
+
+    from avsr_tpu_torch.models import fusion as fus
+
+    args = k8_bwd_inputs(128, dev, seed=29)
+    cell, att, ctx_proj, xw, mask, mem, aligns, res, *_, cdt = args
+    out_k = fus.av_align_scan_bwd(*args)
+    out_p = fus.av_align_scan_bwd_plain(*args)
+    w_k = fus.av_align_weight_grads(res, ctx_proj, out_k[0], out_k[2], out_k[3], out_k[6], cdt)
+    w_p = fus.av_align_weight_grads(res, ctx_proj, out_p[0], out_p[2], out_p[3], out_p[6], cdt)
+    torch.cuda.synchronize()
+    names = ("dxw", "db", "dq", "dv_rows", "dkeys", "dvalues", "hnew", "dWh", "dctx_proj", "dwq",
+             "dv")
+    pairs = list(zip(names, (*out_k, *w_k), (*out_p, *w_p)))
+    errs = {n: rel_err(a, b) for n, a, b in pairs}
+    abs_errs = {n: max_err(a, b) for n, a, b in pairs}
+    # row 1 has no audio step, row 2 no video frame: exactly zero gradients
+    zeros = (float(out_k[0][:, 1].abs().max()), float(out_k[2][:, 1].abs().max()),
+             float(out_k[4][2].abs().max()), float(out_k[5][2].abs().max()))
+    print(f"K8 bwd [T_a=197,B=128,H=256,T_v=150,A=128,Dv=512] max abs err {abs_errs}; relative "
+          f"to max |plain| {errs} (tol {K8B_REL_TOL}); 0-length audio row dxw/dq and 0-length "
+          f"video row dkeys/dvalues max |x| {zeros}")
+    if not all(torch.isfinite(x).all() for x in (*out_k, *w_k)):
+        fail("K8 bwd", "non-finite kernel output")
+    if max(zeros) != 0.0:
+        fail("K8 bwd", f"an empty row's gradient is not exactly zero: {zeros}")
+    if not max(errs.values()) <= K8B_REL_TOL:
+        fail("K8 bwd", f"kernel disagrees with the plain twin: {errs}")
+    t_k = time_ms(lambda: fus.av_align_scan_bwd(*args), reps=5, warmup=1)
+    t_p = time_ms(lambda: fus.av_align_scan_bwd_plain(*args), reps=2, warmup=1)
+    dms = device_ms(lambda: fus.av_align_scan_bwd(*args), reps=5, warmup=1)
+    T, B, H4 = xw.shape
+    S, A, Dv = mem.keys.shape[1], mem.keys.shape[2], mem.values.shape[-1]
+    H = H4 // 4
+    # the read's work covers the live steps' valid keys (a masked step and a
+    # zero-weight key are skipped); the regate and the carries' products
+    # every step and row
+    live = float(mask.sum())
+    keys_read = float((mask * mem.mask.sum(-1)[None, :]).sum())
+    flops = {"bf16": 2 * T * B * 2 * (H + Dv) * H4 + 2 * live * 2 * H * A
+             + 2 * keys_read * 2 * Dv,
+             "fp32": keys_read * A * 8}
+    nb = (nbytes(xw, mask, mem.keys, mem.values, aligns, *res, *args[8:13], *out_k)
+          + 2 * (H * H4 + Dv * H4 + H * A + A) + 4 * H4)
+    b = bound(nb, flops)
+    print(f"K8 bwd B=128 kernel {t_k:.4f} ms (device {dms} ms)  plain {t_p:.4f} ms  bound "
+          f"{b[0]:.5f} ms ({b[1]}, {nb / 1e6:.2f} MB)")
+    report["av_align_scan_bwd"] = dict(max_abs_err=max(abs_errs.values()), ms=t_k, plain_ms=t_p,
+                                       library_ms=None, device_ms=dms, bound=b)
+
+
+def phase_k10_bwd(dev, report):
+    import torch
+
+    from avsr_tpu_torch.ops import attention as attn
+
+    typ, att, query, mem, cdt = k10_inputs(128, dev, seed=131)
+    _, w = attn.attend_fwd(typ, att, query, mem, cdt)
+    dctx = torch.randn(tuple(mem.values.shape[::2]), generator=torch.Generator().manual_seed(7))
+    args = [typ, att, query, mem, w, dctx.to(dev), cdt]
+    out_k = attn.attend_bwd(*args)
+    out_p = attn.attend_bwd_plain(*args)
+    w_k = attn.attention_weight_grads(query, out_k[1], out_k[2], cdt)
+    w_p = attn.attention_weight_grads(query, out_p[1], out_p[2], cdt)
+    torch.cuda.synchronize()
+    names = ("dquery", "dq", "dv_rows", "dkeys", "dvalues", "dwq", "dv")
+    pairs = list(zip(names, (*out_k, *w_k), (*out_p, *w_p)))
+    errs = {n: rel_err(a, b) for n, a, b in pairs}
+    abs_errs = {n: max_err(a, b) for n, a, b in pairs}
+    empty = max(float(x[1].abs().max()) for x in out_k)
+    print(f"K10 bwd [N=128,S=197,A=128,Dv=768] max abs err {abs_errs}; relative to max |plain| "
+          f"{errs} (tol {K10B_REL_TOL}); length-0 row's gradients max |x| {empty}")
+    if not all(torch.isfinite(x).all() for x in out_k):
+        fail("K10 bwd", "non-finite kernel output")
+    if empty != 0.0:
+        fail("K10 bwd", f"a length-0 memory's gradients are not zero: {empty}")
+    if not max(errs.values()) <= K10B_REL_TOL:
+        fail("K10 bwd", f"kernel disagrees with the plain twin: {errs}")
+    t_k = time_ms(lambda: attn.attend_bwd(*args))
+    t_p = time_ms(lambda: attn.attend_bwd_plain(*args))
+    dms = device_ms(lambda: attn.attend_bwd(*args))
+    N, S, A = mem.keys.shape
+    Hq, Dv = query.shape[1], mem.values.shape[-1]
+    keys_read = float(mem.mask.sum())  # zero-weight (padded) keys are skipped
+    nb = nbytes(query, att["wq"].to(torch.bfloat16), att["v"].to(torch.bfloat16), mem.keys,
+                mem.values, w, dctx, *out_k)
+    b = bound(nb, {"bf16": 2 * N * 2 * Hq * A + 2 * keys_read * 2 * Dv, "fp32": keys_read * A * 8})
+    print(f"K10 bwd N=128 kernel {t_k:.4f} ms (device {dms} ms)  plain {t_p:.4f} ms  bound "
+          f"{b[0]:.5f} ms ({b[1]}, {nb / 1e6:.2f} MB)")
+    # the memory gradients' traffic outside the kernel, per decoder step:
+    # the wrapper zeroes dkeys / dvalues, autograd adds them to the sum of
+    # the other steps' (one buffer accumulated in place would save both)
+    dk, dval = out_k[3], out_k[4]
+    acc_ms = time_ms(lambda: (torch.zeros_like(dk), torch.zeros_like(dval), dk + dk, dval + dval))
+    print(f"K10 bwd per decoder step, zeroing and summing dkeys {tuple(dk.shape)} and dvalues "
+          f"{tuple(dval.shape)} outside the kernel: {acc_ms:.4f} ms")
+    report["bahdanau_attend_bwd"] = dict(max_abs_err=max(abs_errs.values()), ms=t_k,
+                                         plain_ms=t_p, library_ms=None, device_ms=dms, bound=b)
+
+
 def main() -> int:
     import torch
 
@@ -1265,7 +1419,11 @@ def main() -> int:
                    (15, lambda: paths.update(serve_align=phase_serve(
                        dev, card, align_cfg, "serve_align", SERVE_ALIGN_KERNELS, (8, 197, 768)))),
                    (16, lambda: paths.update(greedy_align=phase_greedy(
-                       dev, card, align_cfg, "greedy_align", GREEDY_ALIGN_KERNELS)))):
+                       dev, card, align_cfg, "greedy_align", GREEDY_ALIGN_KERNELS))),
+                   (17, lambda: phase_k8_bwd(dev, report)),
+                   (18, lambda: phase_k10_bwd(dev, report)),
+                   (19, lambda: paths.update(train_align=phase_train(
+                       dev, card, align_cfg, "train_align", TRAIN_ALIGN_KERNELS)))):
         t0 = time.perf_counter()
         run()
         print(f"phase {n}: {time.perf_counter() - t0:.1f} s")
@@ -1287,8 +1445,12 @@ def main() -> int:
         "beam_step": ("avsr_tpu_torch/csrc/beam_step.cu", "avsr_tpu/decode/beam.py:142"),
         "av_align_scan": ("avsr_tpu_torch/csrc/av_align_scan.cu",
                           "avsr_tpu/models/fusion.py:118"),
+        "av_align_scan_bwd": ("avsr_tpu_torch/csrc/av_align_scan.cu",
+                              "avsr_tpu/models/fusion.py:118"),
         "bahdanau_attend": ("avsr_tpu_torch/csrc/bahdanau_attend.cu",
                             "avsr_tpu/ops/attention.py:125"),
+        "bahdanau_attend_bwd": ("avsr_tpu_torch/csrc/bahdanau_attend.cu",
+                                "avsr_tpu/ops/attention.py:125"),
     }
     entries = []
     for name, (src, rep) in sources.items():

@@ -192,16 +192,21 @@ def test_full_width_round_trip_is_bit_exact():
 
 def test_training_this_structure_raises(align_run):
     """Teacher forcing, the loss and the train step of the RNN decoder and
-    the AV-Align fusion are not ported: each refuses clearly."""
+    the AV-Align fusion are ported now (they used to raise "not ported"):
+    ``forward`` and ``loss_fn`` run on this structure; a structure outside
+    the port still refuses clearly."""
     cfg, pred = align_run["cfg"], align_run["pred"]
     tcfg = tconfigs.ExperimentConfig.from_dict(cfg.to_dict())
     arrays, _ = pred.assemble(*_request(np.random.default_rng(2), 2))
     arrays["targets"] = np.full((2, 4), 3, np.int32)
     arrays["target_lengths"] = np.array([4, 2], np.int32)
     batch = tseq.batch_to_device(arrays, "cpu")
-    for fn in (tseq.forward, tseq.loss_fn):
-        with pytest.raises(ValueError, match="not ported"):
-            fn(pred.params, tcfg, batch)
+    with torch.no_grad():
+        logits, _ = tseq.forward(pred.params, tcfg, batch)
+        loss, metrics = tseq.loss_fn(pred.params, tcfg, batch, train=False)
+    assert tuple(logits.shape) == (2, 4, pred.params["decoder"]["out_b"].shape[0])
+    assert bool(torch.isfinite(logits).all()) and np.isfinite(float(loss))
+    assert set(metrics) == {"ce_loss", "loss"}
     other = tcfg.replace(decoder=dataclasses.replace(tcfg.decoder, decoder_type="transformer"))
     with pytest.raises(ValueError, match="the port covers"):
         tseq.model_init(other, 44, torch.Generator(), "cpu")

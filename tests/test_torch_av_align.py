@@ -102,16 +102,22 @@ def test_scan_wrapper_on_cpu_is_the_plain_twin():
 
 
 def test_scan_refuses_a_gradient():
-    """K8 has no backward yet: asking for one raises instead of being lost."""
+    """K8 has a backward now: a gradient asked of the scan goes through
+    ``AVAlignScan`` and reaches Wh (it used to raise); the alignments still
+    refuse one (``test_torch_align_grad.py`` holds the gradients to JAX)."""
     cfg = TFusionConfig(attention_units=8)
     gen = torch.Generator().manual_seed(2)
     p = tfus.av_align_init(gen, cfg, D, H, H_V, "cpu")
     p["cell"]["wh"].requires_grad_(True)
     mem = tattn.prepare_memory("bahdanau", p["att"], torch.randn(B, T_V, H_V, generator=gen),
                                torch.tensor(V_LEN), torch.float32)
-    with pytest.raises(ValueError, match="no backward"):
-        tfus.av_align_scan(p["cell"], p["att"], p["ctx_proj"], torch.randn(3, B, 4 * H),
-                           torch.ones(3, B), mem, torch.float32)
+    hs, ctxs, aligns, _ = tfus.av_align_scan(p["cell"], p["att"], p["ctx_proj"],
+                                             torch.randn(3, B, 4 * H), torch.ones(3, B), mem,
+                                             torch.float32)
+    (dwh,) = torch.autograd.grad(hs.sum() + ctxs.sum(), [p["cell"]["wh"]])
+    assert tuple(dwh.shape) == (H, 4 * H) and bool(torch.isfinite(dwh).all())
+    assert float(dwh.abs().max()) > 0.0
+    assert "AVAlignScan" in type(hs.grad_fn).__name__ and not aligns.requires_grad
 
 
 def test_av_align_init_matches_jax_tree():

@@ -129,9 +129,13 @@ def test_rnn_state_and_training_dispatch():
     with pytest.raises(ValueError, match="memory_dims"):
         tdec.initial_state(cfg, 3, 9, torch.float32, "cpu")
     assert tdec.prepare_cross({}, cfg, [], torch.float32) is None
-    with pytest.raises(ValueError, match="not ported"):
-        tdec.teacher_forced_logits({}, cfg, torch.zeros(2, 3, dtype=torch.long),
-                                   torch.tensor([3, 2]), [], torch.float32)
+    # teacher forcing of the RNN decoder is ported (it used to raise)
+    params = tdec.decoder_init(torch.Generator().manual_seed(0), cfg, [7], 5, "cpu")
+    mem = tattn.prepare_memory("bahdanau", params["atts"][0], torch.randn(2, 4, 7),
+                               torch.tensor([4, 0]), torch.float32)
+    logits = tdec.teacher_forced_logits(params, cfg, torch.zeros(2, 3, dtype=torch.long),
+                                        torch.tensor([3, 2]), [mem], torch.float32)
+    assert tuple(logits.shape) == (2, 3, 5) and bool(torch.isfinite(logits).all())
     with pytest.raises(ValueError, match="not ported"):
         tdec.decoder_init(torch.Generator(), DecoderConfig(attention_type="luong"), [7], 5, "cpu")
 
