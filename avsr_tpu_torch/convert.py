@@ -9,7 +9,11 @@ that PyTorch's operators want differently are converted:
 * everything else keeps its JAX layout: LSTM ``wx [D, 4H]``,
   ``wh [H, 4H]`` and one ``b [4H]`` in gate order i, f, g, o
   (``avsr_tpu/ops/rnn.py:36-54``), dense weights ``[in, out]`` used as
-  ``x @ w``, embeddings ``[V, E]``.
+  ``x @ w``, embeddings ``[V, E]``, and the transformer encoders'
+  depthwise conv kernels ``conv_dw [k, 1, d]`` (WIO,
+  ``avsr_tpu/models/transformer.py:134``): their path ends in ``conv_dw``,
+  not ``convs/i/w``, so they pass through as they are, and the port's
+  conformer conv reads that layout.
 
 Both directions copy values bit-exactly; the round trip is pinned by
 ``tests/test_torch_convert.py``.  The input of ``from_jax`` is a tree of

@@ -20,7 +20,11 @@
 //   dQ  = bf16(dsc @ K);  dK = bf16(dsc^T @ Q);  dV = bf16(bf16(P)^T @ dctx)
 //
 // Layouts: q [B, Ta, nh, A], k [B, Tv, nh, A], v [B, Tv, nh, dv], ctx
-// [B, Ta, nh, dv] (bf16); P [B, nh, Ta, Tv] (fp32).
+// [B, Ta, nh, dv] (bf16); P [B, nh, Ta, Tv] (fp32).  The forward also takes
+// q, k and v as strided views (`launch_attn_fwd_rows`: the row of time step
+// t of utterance b starts ld elements after the row of t - 1), which is how
+// K11 (encoder_attention.cu) reads them straight out of one [B, T, 3, nh, dh]
+// product.
 //
 // Design, forward: one block per (b, h, tile of QT = 16 queries); K of that
 // (b, h) is staged in shared memory transposed to bf16 pairs [A/2][Tv], so
@@ -144,6 +148,17 @@ __device__ __forceinline__ void weights_by_rows(const float* w_s, int wstride, i
   }
 }
 
+// (1 - valid_j) * -1e9 from per-utterance lengths: the key-padding mask of
+// the fusion (K4, the video lengths) and of the encoder's self attention
+// (K11, the stack's own lengths)
+struct LengthMask {
+  const int* len;
+  __device__ float operator()(int b, int, int j) const {
+    const float invalid = j < len[b] ? 0.f : 1.f;
+    return invalid * -1e9f;
+  }
+};
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -160,13 +175,13 @@ __device__ __forceinline__ float warp_sum(float v) {
 // shared memory).
 template <typename Mask>
 __global__ void __launch_bounds__(THREADS)
-attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Ta, nh, A]
-                const __nv_bfloat16* __restrict__ k,   // [B, Tv, nh, A]
-                const __nv_bfloat16* __restrict__ v,   // [B, Tv, nh, dv]
+attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Ta, nh, A], rows ldq apart
+                const __nv_bfloat16* __restrict__ k,   // [B, Tv, nh, A], rows ldk apart
+                const __nv_bfloat16* __restrict__ v,   // [B, Tv, nh, dv], rows ldv apart
                 Mask mask,
                 float* __restrict__ P,                 // [B, nh, Ta, Tv] or null
                 __nv_bfloat16* __restrict__ ctx,       // [B, Ta, nh, dv]
-                int Ta, int Tv, int nh, int A, int dv) {
+                int Ta, int Tv, int nh, int A, int dv, int ldq, int ldk, int ldv) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * QT;
   const int nq = min(QT, Ta - i0);
@@ -175,9 +190,9 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Ta, nh, A]
   __nv_bfloat16* q_s = kv_s + (size_t)Tv * width;                // [QT][A]
   float* s_s = reinterpret_cast<float*>(q_s + (size_t)QT * A);    // [QT][Tv]
 
-  stage_rows(q_s, q + (((size_t)b * Ta + i0) * nh + h) * A, QT, nq, A, (size_t)nh * A);
-  stage_cols(reinterpret_cast<uint32_t*>(kv_s), k + ((size_t)b * Tv * nh + h) * A, Tv, A,
-             (size_t)nh * A);
+  stage_rows(q_s, q + ((size_t)b * Ta + i0) * ldq + (size_t)h * A, QT, nq, A, (size_t)ldq);
+  stage_cols(reinterpret_cast<uint32_t*>(kv_s), k + (size_t)b * Tv * ldk + (size_t)h * A, Tv, A,
+             (size_t)ldk);
   __syncthreads();
 
   const float sq = sqrtf((float)A);
@@ -215,7 +230,7 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Ta, nh, A]
   }
   __syncthreads();
 
-  stage_rows(kv_s, v + ((size_t)b * Tv * nh + h) * dv, Tv, Tv, dv, (size_t)nh * dv);
+  stage_rows(kv_s, v + (size_t)b * Tv * ldv + (size_t)h * dv, Tv, Tv, dv, (size_t)ldv);
   __syncthreads();
   weights_by_rows(s_s, Tv, nq, kv_s, Tv, dv, [&](int i, int cp, float a0, float a1) {
     reinterpret_cast<__nv_bfloat162*>(ctx + (((size_t)b * Ta + i0 + i) * nh + h) * dv)[cp] =
@@ -342,11 +357,14 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// The forward over strided q, k, v rows (ld* elements apart; multiples of
+// 8, as the 16-byte staging loads need).
 template <typename Mask>
-cudaError_t launch_attn_fwd(const void* q, const void* k, const void* v, Mask mask, void* P,
-                            void* ctx, int B, int Ta, int Tv, int nh, int A, int dv,
-                            cudaStream_t stream) {
-  if (A % 8 || dv % 8 || Ta < 1 || Tv < 1) return cudaErrorInvalidValue;
+cudaError_t launch_attn_fwd_rows(const void* q, const void* k, const void* v, Mask mask,
+                                 void* P, void* ctx, int B, int Ta, int Tv, int nh, int A, int dv,
+                                 int ldq, int ldk, int ldv, cudaStream_t stream) {
+  if (A % 8 || dv % 8 || Ta < 1 || Tv < 1 || ldq % 8 || ldk % 8 || ldv % 8)
+    return cudaErrorInvalidValue;
   const size_t smem = fwd_smem(Tv, A, dv);
   cudaError_t e = allow_smem(attn_fwd_kernel<Mask>, smem);
   if (e != cudaSuccess) return e;
@@ -354,8 +372,17 @@ cudaError_t launch_attn_fwd(const void* q, const void* k, const void* v, Mask ma
   attn_fwd_kernel<Mask><<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), mask, static_cast<float*>(P),
-      static_cast<__nv_bfloat16*>(ctx), Ta, Tv, nh, A, dv);
+      static_cast<__nv_bfloat16*>(ctx), Ta, Tv, nh, A, dv, ldq, ldk, ldv);
   return cudaGetLastError();
+}
+
+// The forward over contiguous [B, T, nh, *] q, k, v.
+template <typename Mask>
+cudaError_t launch_attn_fwd(const void* q, const void* k, const void* v, Mask mask, void* P,
+                            void* ctx, int B, int Ta, int Tv, int nh, int A, int dv,
+                            cudaStream_t stream) {
+  return launch_attn_fwd_rows(q, k, v, mask, P, ctx, B, Ta, Tv, nh, A, dv, nh * A, nh * A,
+                              nh * dv, stream);
 }
 
 cudaError_t launch_attn_bwd(const void* q, const void* k, const void* v, const void* P,

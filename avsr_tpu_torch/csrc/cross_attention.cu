@@ -36,19 +36,6 @@
 
 #include "attention_core.cuh"
 
-namespace {
-
-// (1 - valid_j) * -1e9 from the video lengths, the reference's key mask
-struct LengthMask {
-  const int* vlen;
-  __device__ float operator()(int b, int, int j) const {
-    const float invalid = j < vlen[b] ? 0.f : 1.f;
-    return invalid * -1e9f;
-  }
-};
-
-}  // namespace
-
 // Shared-memory bytes each launch asks for (the wrapper checks the limit).
 extern "C" long long avsr_fusion_attn_smem(int Ta, int Tv, int A, int dv) {
   return (long long)attn_smem(Ta, Tv, A, dv);

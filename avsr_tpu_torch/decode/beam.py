@@ -24,7 +24,9 @@ Same semantics as the reference, top-1 only:
 * the (token, parent) trellis is backtracked from the best leaf, on the
   host, and everything after the first EOS becomes PAD.
 
-Results are returned as CPU tensors.
+The search runs under ``torch.inference_mode()``: parameters that require
+a gradient (a train state's) record no graph and take no kernel's save
+path.  Results are returned as CPU tensors.
 """
 
 from __future__ import annotations
@@ -129,6 +131,7 @@ def _gather_rows(state, index: torch.Tensor):
     return state
 
 
+@torch.inference_mode()
 def beam_search(params, cfg: DecoderConfig, memories: Sequence[attn.AttentionMemory],
                 max_length: int, *, beam_width: int = 10, length_penalty: float = 0.0,
                 cdt: torch.dtype = torch.bfloat16) -> BeamResult:

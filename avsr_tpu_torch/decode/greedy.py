@@ -6,8 +6,10 @@ row that has emitted EOS writes PAD from then on and is fed EOS; the loop
 exits early, on the host, once every row is done.  Lengths count up to the
 first EOS inclusive, or the horizon.  Each step is the decoder's
 ``decoder_step``, so on a GPU it runs the single-query attention kernel K6
-(transformer decoder) or the Bahdanau read K10 (RNN decoder).  Results are
-returned as CPU tensors.
+(transformer decoder) or the Bahdanau read K10 (RNN decoder).  The decode
+runs under ``torch.inference_mode()``: parameters that require a gradient
+(a train state's) record no graph and take no kernel's save path.  Results
+are returned as CPU tensors.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ class GreedyResult(NamedTuple):
     steps: int             # decode steps actually executed (early exit)
 
 
+@torch.inference_mode()
 def greedy_decode(params, cfg: DecoderConfig, memories: Sequence[attn.AttentionMemory],
                   max_length: int, *, cdt: torch.dtype = torch.bfloat16) -> GreedyResult:
     B = memories[0].values.shape[0]

@@ -12,8 +12,8 @@ flags, and is reused while they are unchanged.
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no ``nvcc`` and no GPU.  The functions below are the CUDA side
 of the wrappers in ``ops/rnn.py``, ``ops/audio_features.py``,
-``ops/attention.py``, ``models/fusion.py``, ``models/transformer_decoder.py``
-and ``decode/beam.py``; each one checks its tensors, allocates the outputs
+``ops/attention.py``, ``models/fusion.py``, ``models/transformer_decoder.py``,
+``models/transformer.py`` and ``decode/beam.py``; each one checks its tensors, allocates the outputs
 and scratch with ``torch.empty`` / ``torch.zeros``, launches on the current
 stream, raises on a nonzero CUDA status, and adds one to its entry of
 ``LAUNCHES``.
@@ -47,12 +47,14 @@ LAUNCHES: Dict[str, int] = {
     "decoder_attention_fwd": 0, "decoder_attention_bwd": 0,
     "decode_attention": 0, "beam_step": 0, "av_align_scan": 0, "av_align_scan_bwd": 0,
     "bahdanau_attend": 0, "bahdanau_attend_bwd": 0,
+    "encoder_attention_fwd": 0, "conformer_conv_fwd": 0,
 }
 
 LSTM_UNIT_TILE = 16  # hidden units per block of the LSTM kernels (UT in the source)
 LSTM_ROW_TILE = 16   # batch rows per block of the LSTM kernels (BT in the source)
 FUSION_MAX_TV = 400  # video frames the fusion kernels (K4, K8) take: 16 s at 25 fps
-ATTEND_MAX_S = 531   # memory steps K10 takes: the audio steps of 16 s, (1598 - 8) // 3 + 1
+ATTEND_MAX_S = 531   # memory steps K10 and K11 take: the audio steps of 16 s, (1598 - 8) // 3 + 1
+CONV_MAX_D = 1024    # channels K9 takes: one channel pair per thread, 512 threads at most
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on an H100
 
 _lib: Optional[ctypes.CDLL] = None
@@ -163,6 +165,14 @@ def _load() -> ctypes.CDLL:
         lib.avsr_bahdanau_bwd_smem.restype = ctypes.c_longlong
         lib.avsr_bahdanau_attend_bwd.argtypes = [p] * 12 + [i] * 5 + [p]
         lib.avsr_bahdanau_attend_bwd.restype = i
+        lib.avsr_encoder_attn_smem.argtypes = [i, i]
+        lib.avsr_encoder_attn_smem.restype = ctypes.c_longlong
+        lib.avsr_encoder_attn_fwd.argtypes = [p, p, p, i, i, i, i, p]
+        lib.avsr_encoder_attn_fwd.restype = i
+        lib.avsr_conformer_conv_smem.argtypes = [i, i]
+        lib.avsr_conformer_conv_smem.restype = ctypes.c_longlong
+        lib.avsr_conformer_conv.argtypes = [p] * 7 + [i] * 4 + [p]
+        lib.avsr_conformer_conv.restype = i
         _lib = lib
     return _lib
 
@@ -717,3 +727,68 @@ def bahdanau_attend_bwd(query, wq, v, keys, values, weights, dctx):
     _raise_on(err, "bahdanau_attend_bwd launch")
     LAUNCHES["bahdanau_attend_bwd"] += 1
     return dquery, dq, dv_rows, dkeys, dvalues
+
+
+def encoder_attention_fwd(qkv, lengths):
+    """K11: the transformer encoder's self-attention core, forward (CUDA).
+
+    qkv [B,T,3,nh,dh] bf16 (the one [d, 3d] product, read in place as the
+    q, k and v views), lengths [B] int32 (the keys' valid counts) -> ctx
+    [B,T,nh,dh] bf16.
+    """
+    B, T, _, nh, dh = qkv.shape
+    dev = qkv.device
+    _check("qkv", qkv, torch.bfloat16, (B, T, 3, nh, dh), dev)
+    _check("lengths", lengths, torch.int32, (B,), dev, align=4)
+    if dh % 8:
+        raise ValueError(f"encoder attention: head dim {dh} must be a multiple of 8")
+    if not 1 <= T <= ATTEND_MAX_S:
+        raise ValueError(f"encoder attention: T={T}; the kernel takes 1 <= T <= {ATTEND_MAX_S}")
+    lib = _load()
+    smem = lib.avsr_encoder_attn_smem(T, dh)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"encoder attention: T={T}, dh={dh} need {smem} bytes of shared memory "
+                         f"per block (limit {SMEM_LIMIT})")
+    ctx = torch.empty((B, T, nh, dh), dtype=torch.bfloat16, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.avsr_encoder_attn_fwd(qkv.data_ptr(), lengths.data_ptr(), ctx.data_ptr(),
+                                    B, T, nh, dh, stream)
+    _raise_on(err, "encoder_attention_fwd launch")
+    LAUNCHES["encoder_attention_fwd"] += 1
+    return ctx
+
+
+def conformer_conv_fwd(u, b_in, dw, ln_scale, ln_bias, lengths):
+    """K9: the conformer conv module between its two pointwise products,
+    forward (CUDA).
+
+    u [T,B,2d] bf16 (the first pointwise product), b_in [2d] bf16, dw [k,d]
+    f32 (the depthwise kernel), ln_scale / ln_bias [d] f32, lengths [B]
+    int32 -> [T,B,d] bf16: GLU, mask, depthwise conv, LayerNorm, swish.
+    """
+    T, B, d2 = u.shape
+    d = d2 // 2
+    k = dw.shape[0]
+    dev = u.device
+    _check("u", u, torch.bfloat16, (T, B, 2 * d), dev)
+    _check("b_in", b_in, torch.bfloat16, (2 * d,), dev, align=4)
+    _check("dw", dw, torch.float32, (k, d), dev, align=8)
+    _check("ln_scale", ln_scale, torch.float32, (d,), dev, align=8)
+    _check("ln_bias", ln_bias, torch.float32, (d,), dev, align=8)
+    _check("lengths", lengths, torch.int32, (B,), dev, align=4)
+    if d2 % 4 or not 2 <= d <= CONV_MAX_D or k % 2 == 0 or T < 1 or B < 1:
+        raise ValueError(f"conformer conv: u {tuple(u.shape)}, k={k}; the kernel takes an even "
+                         f"d up to {CONV_MAX_D}, an odd k and T, B >= 1")
+    lib = _load()
+    smem = lib.avsr_conformer_conv_smem(d, k)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"conformer conv: d={d}, k={k} need {smem} bytes of shared memory per "
+                         f"block (limit {SMEM_LIMIT})")
+    out = torch.empty((T, B, d), dtype=torch.bfloat16, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.avsr_conformer_conv(u.data_ptr(), b_in.data_ptr(), dw.data_ptr(),
+                                  ln_scale.data_ptr(), ln_bias.data_ptr(), lengths.data_ptr(),
+                                  out.data_ptr(), T, B, d, k, stream)
+    _raise_on(err, "conformer_conv_fwd launch")
+    LAUNCHES["conformer_conv_fwd"] += 1
+    return out

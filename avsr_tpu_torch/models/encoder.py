@@ -1,11 +1,14 @@
-"""Stacked BiLSTM encoder (counterpart of ``avsr_tpu/models/encoder.py``).
+"""Encoder stacks (counterpart of ``avsr_tpu/models/encoder.py``): the
+stacked BiLSTM, and ``encoder_type="transformer"`` dispatched to
+``models/transformer.py`` (the ``lrs2_av_v2`` preset's encoders).
 
 Time-major [T, B, D] throughout.  Pyramidal time reduction folds r
 consecutive frames into the feature dim before a layer (padded steps are
 zeroed first, so a partly valid last group carries zeros).  In train mode
-each layer's output gets inverted dropout (the reference's
+each BiLSTM layer's output gets inverted dropout (the reference's
 ``_post_layer``), drawn from the step's generator; recurrent dropout and
-the residual / highway / LN variants are not ported and raise.
+the residual / highway / LN variants are not ported and raise, and so does
+the transformer stack's train-mode dropout.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from avsr_tpu_torch.configs import EncoderConfig
+from avsr_tpu_torch.models import transformer as tfm
 from avsr_tpu_torch.ops import rnn
 from avsr_tpu_torch.utils.params import Params
 from avsr_tpu_torch.utils.rng import dropout_mask
@@ -46,16 +50,26 @@ def encoder_output_lengths(cfg: EncoderConfig, lengths):
 
 
 def _check_supported(cfg: EncoderConfig) -> None:
-    if (cfg.encoder_type != "rnn" or cfg.cell_type != "lstm" or not cfg.bidirectional
-            or cfg.layer_norm or cfg.residual or cfg.highway):
+    if cfg.encoder_type not in ("rnn", "transformer"):
+        raise ValueError(f"unknown encoder_type {cfg.encoder_type!r}")
+    if cfg.encoder_type == "transformer":
+        return  # tfm.validate_transformer_config checks the stack's own knobs
+    if cfg.conv_kernel is not None:
         raise ValueError(
-            "the port's encoder is the plain bidirectional LSTM stack "
-            "(no transformer, GRU, LN, residual or highway layers)")
+            "EncoderConfig.conv_kernel is transformer-only (the conformer conv module); the "
+            "RNN stack is already local")
+    if (cfg.cell_type != "lstm" or not cfg.bidirectional or cfg.layer_norm or cfg.residual
+            or cfg.highway):
+        raise ValueError(
+            "the port's RNN encoder is the plain bidirectional LSTM stack "
+            "(no GRU, LN, residual or highway layers)")
 
 
 def encoder_init(gen: torch.Generator, cfg: EncoderConfig, input_dim: int,
                  device) -> Params:
     _check_supported(cfg)
+    if cfg.encoder_type == "transformer":
+        return tfm.transformer_encoder_init(gen, cfg, input_dim, device)
     layers = []
     d = input_dim
     for h, r in zip(cfg.hidden_units, time_reductions(cfg)):
@@ -67,6 +81,8 @@ def encoder_init(gen: torch.Generator, cfg: EncoderConfig, input_dim: int,
 
 
 def encoder_output_dim(cfg: EncoderConfig) -> int:
+    if cfg.encoder_type == "transformer":
+        return cfg.hidden_units[-1]  # d_model; self attention is bidirectional
     return 2 * cfg.hidden_units[-1]
 
 
@@ -86,10 +102,13 @@ def _step_mask(T: int, lengths: torch.Tensor) -> torch.Tensor:
 def encoder_apply(params: Params, cfg: EncoderConfig, x_tbd: torch.Tensor,
                   lengths: torch.Tensor, cdt: torch.dtype, *, train: bool = False,
                   generator: Optional[torch.Generator] = None):
-    """[T, B, D] features -> ([T_out, B, 2H] fp32, zeros at padded steps;
-    final state of the last layer).  ``train`` with a generator applies
-    the per-layer output dropout."""
+    """[T, B, D] features -> ([T_out, B, 2H] fp32 (d for the transformer),
+    zeros at padded steps; final state of the last layer, or the
+    transformer's summary).  ``train`` with a generator applies the BiLSTM
+    layers' output dropout."""
     _check_supported(cfg)
+    if cfg.encoder_type == "transformer":
+        return tfm.transformer_encoder_apply(params, cfg, x_tbd, lengths, cdt, train=train)
     if train and cfg.recurrent_dropout_rate > 0.0:
         raise ValueError("recurrent dropout is not ported")
     mask = _step_mask(x_tbd.shape[0], lengths)

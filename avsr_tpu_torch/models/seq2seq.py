@@ -2,8 +2,10 @@
 
 The port covers the ``av_align`` architecture in two structures:
 
-* the ``lrs2_av_fast`` preset's: cross-attention fusion and the
-  transformer decoder (serving, eval decode and training);
+* cross-attention fusion and the transformer decoder: the
+  ``lrs2_av_fast`` preset's, with BiLSTM encoders (serving, eval decode
+  and training), and the scan-free ``lrs2_av_v2`` preset's, with
+  transformer encoders (serving and eval decode; its train mode raises);
 * the ``lrs2_av_align`` preset's (the reference-dims model): the
   recurrent AV-Align fusion (the fusion LSTM with Bahdanau reads of the
   video memory, fused memory [h ; ctx]) and the attention-LSTM decoder
@@ -11,8 +13,8 @@ The port covers the ``av_align`` architecture in two structures:
 
 Compact int16/uint8 inputs are dequantized on the device, in training the
 waveform is mixed with noise, audio goes through the log-mel frontend and
-the (pyramidal) BiLSTM stack, video through the lip-ROI CNN and its
-BiLSTM, the two meet in the fusion, and the fused memory is prepared for
+its encoder stack (pyramidal BiLSTM, or transformer), video through the
+lip-ROI CNN and its encoder, the two meet in the fusion, and the fused memory is prepared for
 the decoder (value-only for the transformer, Bahdanau keys for the RNN
 decoder).  ``loss_fn`` adds the teacher-forced decoder, the cross-entropy
 and the AU regression loss.

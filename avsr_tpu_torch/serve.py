@@ -1,14 +1,18 @@
 """Serving: pad, quantize, encode + beam decode, ids -> text.
 
 Counterpart of ``avsr_tpu/serve.py``'s ``Predictor`` around the exported
-``decode`` program, for either structure the port runs (``lrs2_av_fast``:
-cross-attention fusion + transformer decoder; ``lrs2_av_align``: AV-Align
-fusion + attention-LSTM decoder): the same static (B, S) request shape,
+``decode`` program, for each structure the port runs (``lrs2_av_fast``:
+BiLSTM encoders, cross-attention fusion + transformer decoder;
+``lrs2_av_align``: AV-Align fusion + attention-LSTM decoder;
+``lrs2_av_v2``: transformer encoders, cross-attention fusion + transformer
+decoder): the same static (B, S) request shape,
 the same host quantization for compact transfer (int16 PCM audio, uint8
 ROI pixels, dequantized on the device inside ``seq2seq.encode``), and the
 same ``decode_ids`` rules.  The port runs the model code directly from port
 parameters plus the config and the unit dictionary; a torch-native
-serving artifact is later work.
+serving artifact is later work.  ``encode``, ``beam`` and ``__call__`` run
+under ``torch.inference_mode()``, so parameters that require a gradient
+(a train state's) record no graph.
 
 >>> p = Predictor(params, cfg, unit_dict)  # on the card; device="cpu" for the plain path
 >>> p.transcribe(audio=[wav1, wav2], video=[roi1, roi2])
@@ -20,6 +24,7 @@ import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from avsr_tpu_torch.configs import ExperimentConfig
 from avsr_tpu_torch.data.units import EOS_ID, GO_ID, PAD_ID, UnitDict
@@ -118,16 +123,19 @@ class Predictor:
             arrays[name], arrays[f"{name}_lengths"] = self._pad_batch(name, seqs)
         return arrays, len(audio)
 
+    @torch.inference_mode()
     def encode(self, arrays: Dict[str, np.ndarray]) -> seq2seq.EncodeOutput:
         return seq2seq.encode(self.params, self.cfg,
                               seq2seq.batch_to_device(arrays, self.device))
 
+    @torch.inference_mode()
     def beam(self, enc_out: seq2seq.EncodeOutput) -> BeamResult:
         d = self.cfg.decode
         return beam_search(self.params["decoder"], self.cfg.decoder, enc_out.memories,
                            d.max_decode_length, beam_width=d.beam_width,
                            length_penalty=d.length_penalty, cdt=self._cdt)
 
+    @torch.inference_mode()
     def __call__(self, **arrays) -> np.ndarray:
         """Padded full-shape arrays in, best hypothesis ids [B, L] out."""
         return self.beam(self.encode(arrays)).ids.numpy()

@@ -94,8 +94,33 @@ Phases, in order; any failure exits nonzero before the final line:
              of the path launched (K8 and K10 forward and backward among
              them); (c) 10 steps at a constant lr 1e-4, the loss falling;
              (d) ms per step, frames/s, peak memory and a profile.
+20. K11    — the transformer encoder's self-attention core against its plain
+             version at [B=128, 8 heads, T=197, dh=64] on one [B, T, 3, 8, 64]
+             product, ragged lengths with a 0-length row (the mean of all
+             values required there), and again at the 16 s limit (T=531,
+             B=4): errors on ctx; times, device time, the bound and the
+             library yardstick (scaled_dot_product_attention, same mask).
+21. K9     — the conformer conv module between its pointwise products
+             against its plain version at [T=197, B=128, d=512, k=15],
+             ragged with a 0-length row, and again at T=531, B=4: errors;
+             times, device time, the bound and a yardstick covering part of
+             the function (the depthwise conv1d alone).
+22. serve-v2 — the full-width scan-free ``lrs2_av_v2`` model (transformer
+             encoders with the conformer conv, cross-attention fusion,
+             transformer decoder; random weights from a seeded generator)
+             behind a CUDA ``Predictor`` as in phase 5: 3 requests of 8
+             ragged 2-6 s utterances, width-10 beam, horizon 150; requires
+             K3, K11, K9, K4, K6 and K7 launches, holds the fused memory
+             [8, 197, 1024] and the beam on the same memories against the
+             plain path.
+23. greedy-v2 — a B=128, 6 s, horizon 150 greedy decode of the same model,
+             kernel path against plain path; then the same batch once more
+             through ``Predictor.encode`` and ``greedy_decode`` with every
+             parameter ``requires_grad`` (a train state's): no output may
+             carry a graph, no autograd Function of the port may be entered
+             and every decoder step must run with autograd off.
 
-Serve (5, 15) also beams the same memories through the plain path and
+Serve (5, 15, 22) also beams the same memories through the plain path and
 holds the best scores to a tolerance.  Each serve and greedy path and the
 train path end with a ``torch.profiler`` reading of one run: the device's
 busy share of the host span, device events per beam, train or decode step,
@@ -168,6 +193,17 @@ K10_CTX_TOL = 2e-2
 # K8's reverse recurrence carries such a flip over 197 steps, as K1's does.
 K8B_REL_TOL = 2e-2
 K10B_REL_TOL = 1e-2
+# K11: K4's, for the same reasons (bf16 context of order one; a score whose
+# bf16 rounding flips after another summation order moves its weight by
+# ~0.4% of itself).
+K11_CTX_TOL = 2e-2
+# K9: bf16 output of order one (swish of a LayerNorm'd row); the 15-tap
+# conv and the row statistics are fp32 sums in another order, and a sum
+# that lands on the other side of the final bf16 rounding moves the output
+# by one bf16 ulp: 2e-2 abs plus one ulp of the value (2^-7 of it at most;
+# the swish reaches 4-5, where one ulp is 3.1e-2).
+K9_TOL = 2e-2
+K9_ULP = 2.0 ** -7
 # serve: best beam scores of the kernel and the plain path, 150 steps of
 # log probs (~-600) whose logits differ by bf16 ulps at each K6 read; near
 # ties may send the two beams down different, equally scored paths.
@@ -187,6 +223,8 @@ SERVE_ALIGN_KERNELS = ("lstm_scan_fwd", "logmel_post_dft", "av_align_scan", "bah
 GREEDY_ALIGN_KERNELS = ("bahdanau_attend",)
 TRAIN_ALIGN_KERNELS = ("lstm_scan_fwd", "lstm_scan_bwd", "logmel_post_dft", "av_align_scan",
                        "av_align_scan_bwd", "bahdanau_attend", "bahdanau_attend_bwd")
+SERVE_V2_KERNELS = ("logmel_post_dft", "encoder_attention_fwd", "conformer_conv_fwd",
+                    "fusion_attention_fwd", "decode_attention", "beam_step")
 
 
 def fail(phase: str, msg: str) -> None:
@@ -467,6 +505,7 @@ def plain_cores():
     """Route every kernel wrapper to its plain version (reference runs)."""
     from avsr_tpu_torch.decode import beam
     from avsr_tpu_torch.models import fusion as fus
+    from avsr_tpu_torch.models import transformer as tfm
     from avsr_tpu_torch.models import transformer_decoder as tdec
     from avsr_tpu_torch.ops import attention as attn
     from avsr_tpu_torch.ops import audio_features as af
@@ -487,7 +526,9 @@ def plain_cores():
             mock.patch.object(fus, "av_align_scan_fwd", fus.av_align_scan_fwd_plain), \
             mock.patch.object(fus, "av_align_scan_bwd", fus.av_align_scan_bwd_plain), \
             mock.patch.object(attn, "attend_fwd", attn.attend_plain), \
-            mock.patch.object(attn, "attend_bwd", attn.attend_bwd_plain):
+            mock.patch.object(attn, "attend_bwd", attn.attend_bwd_plain), \
+            mock.patch.object(tfm, "encoder_self_attention", tfm.encoder_self_attention_plain), \
+            mock.patch.object(tfm, "conformer_conv", tfm.conformer_conv_plain):
         yield
 
 
@@ -1057,7 +1098,11 @@ def phase_k7(dev, report):
         bound=bound(nbytes(*args, lp_table) + out_bytes, 6 * B * W * V, "fp32"))
 
 
-def phase_greedy(dev, card, cfg, label="greedy", needed=GREEDY_KERNELS):
+def phase_greedy(dev, card, cfg, label="greedy", needed=GREEDY_KERNELS,
+                 check_no_autograd=False):
+    """Greedy-decode one B=128 batch of ``cfg``'s model on the kernel path
+    and on the plain path; with ``check_no_autograd``, decode it once more
+    from parameters that require a gradient (``decode_records_no_autograd``)."""
     import torch
 
     from avsr_tpu_torch import kernels
@@ -1101,7 +1146,67 @@ def phase_greedy(dev, card, cfg, label="greedy", needed=GREEDY_KERNELS):
           f"{res.steps} steps ({ms / max(res.steps, 1):.3f} ms per step), "
           f"launches {({n: launches[n] for n in needed})}; "
           f"plain path {ms_p:.3f} ms; {same} of 128 rows with ids identical to the plain path's")
+    if check_no_autograd:
+        decode_records_no_autograd(dev, cfg, params, batch, res, label)
     return launches
+
+
+def decode_records_no_autograd(dev, cfg, params, batch, res, label):
+    """``Predictor.encode`` and ``greedy_decode`` of ``batch`` with every
+    parameter ``requires_grad``: the memories carry no graph, no autograd
+    Function of the port is entered (each is patched to raise), and every
+    decoder step runs with autograd off."""
+    import torch
+
+    from avsr_tpu_torch.data.units import builtin_unit_dict
+    from avsr_tpu_torch.decode.greedy import greedy_decode
+    from avsr_tpu_torch.models import decoder as dec
+    from avsr_tpu_torch.models import fusion as fus
+    from avsr_tpu_torch.models import transformer_decoder as tdec
+    from avsr_tpu_torch.ops import attention as attn
+    from avsr_tpu_torch.ops import rnn
+    from avsr_tpu_torch.serve import Predictor
+    from avsr_tpu_torch.utils.params import tree_map
+
+    params_rg = tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
+    B = batch.audio.shape[0]
+    arrays = {k: getattr(batch, k).cpu().numpy()
+              for k in ("audio", "audio_lengths", "video", "video_lengths")}
+    grad_in_steps = []
+    step = dec.decoder_step
+
+    def recording_step(*args, **kwargs):
+        grad_in_steps.append(torch.is_grad_enabled())
+        return step(*args, **kwargs)
+
+    with contextlib.ExitStack() as stack:
+        for fn in (rnn.BiLSTMScanCore, fus.AVAlignScan, fus.FusionAttention,
+                   tdec.DecoderAttention, attn.BahdanauAttend):
+            stack.enter_context(mock.patch.object(
+                fn, "apply", side_effect=RuntimeError(f"{fn.__name__} was entered")))
+        stack.enter_context(mock.patch.object(dec, "decoder_step", recording_step))
+        pred = Predictor(params_rg, cfg, builtin_unit_dict(cfg.data.unit), device=dev,
+                         batch_size=B, audio_seconds=6.0)
+        t0 = time.perf_counter()
+        try:
+            mem = pred.encode(arrays).memories[0]
+            res_rg = greedy_decode(params_rg["decoder"], cfg.decoder, [mem],
+                                   cfg.decode.max_decode_length)
+        except RuntimeError as e:
+            fail(label, f"decoding with requires_grad parameters: {e}")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    graph = [n for n in ("values", "mask", "bias")
+             if getattr(mem, n).grad_fn is not None or getattr(mem, n).requires_grad]
+    if graph or not grad_in_steps or any(grad_in_steps):
+        fail(label, f"decoding with requires_grad parameters recorded autograd: memory fields "
+                    f"{graph} with a graph, autograd on in {sum(grad_in_steps)} of "
+                    f"{len(grad_in_steps)} decoder steps")
+    same = int((res_rg.ids == res.ids).all(dim=1).sum())
+    print(f"{label} with requires_grad parameters: Predictor.encode + greedy_decode {ms:.3f} ms, "
+          f"no graph on the memory, no autograd Function entered, autograd off in all "
+          f"{len(grad_in_steps)} decoder steps; {same} of {B} rows with ids identical to the "
+          f"kernel path's")
 
 
 def k8_inputs(B, dev, seed, T=197, H=256, Tv=150, A=128, Dv=512):
@@ -1363,6 +1468,115 @@ def phase_k10_bwd(dev, report):
                                          plain_ms=t_p, library_ms=None, device_ms=dms, bound=b)
 
 
+def k11_inputs(B, T, dev, seed, nh=8, dh=64):
+    """One [B, T, 3, nh, dh] bf16 product (q, k, v views) and ragged
+    lengths: row 0 full, row 1 of length 0."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn((B, T, 3, nh, dh), generator=g).to(torch.bfloat16)
+    lens = torch.randint(1, T + 1, (B,), generator=g, dtype=torch.int32)
+    lens[0], lens[1] = T, 0
+    return qkv.to(dev), lens.to(dev)
+
+
+def phase_k11(dev, report):
+    import torch
+
+    from avsr_tpu_torch.models import transformer as tfm
+
+    errs = {}
+    for B, T in ((128, 197), (4, 531)):
+        qkv, lens = k11_inputs(B, T, dev, seed=T)
+        ctx_k = tfm.encoder_self_attention(qkv, lens)
+        ctx_p = tfm.encoder_self_attention_plain(qkv, lens)
+        torch.cuda.synchronize()
+        err = max_err(ctx_k, ctx_p)
+        # a row of length 0: the uniform softmax over all T keys
+        uni = max_err(ctx_k[1], qkv[1, :, 2].float().mean(dim=0).expand_as(ctx_k[1]))
+        print(f"K11 [B={B},8 heads,T={T},dh=64] max abs err {err} (tol {K11_CTX_TOL}); length-0 "
+              f"row against the mean of its values: {uni}")
+        if not (torch.isfinite(ctx_k.float()).all() and err <= K11_CTX_TOL
+                and uni <= K11_CTX_TOL):
+            fail("K11", f"kernel disagrees with the plain version at T={T}: {err}, "
+                        f"length-0 row {uni}")
+        errs[T] = err
+    qkv, lens = k11_inputs(128, 197, dev, seed=197)
+    B, T, _, nh, dh = qkv.shape
+    q, k, v = qkv.unbind(2)
+    lib_mask = ((torch.arange(T, device=dev)[None, :] >= lens[:, None]).float()
+                * -1e9).to(torch.bfloat16)[:, None, None, :]
+    ctx = tfm.encoder_self_attention(qkv, lens)
+    tk = time_ms(lambda: tfm.encoder_self_attention(qkv, lens))
+    tp = time_ms(lambda: tfm.encoder_self_attention_plain(qkv, lens))
+    tl = time_ms(lambda: sdpa(q, k, v, lib_mask))
+    dms = device_ms(lambda: tfm.encoder_self_attention(qkv, lens))
+    b = bound(nbytes(qkv, lens, ctx), 2 * B * nh * T * T * 2 * dh)
+    print(f"K11 [B=128,8 heads,T=197,dh=64] kernel {tk:.4f} ms (device {dms:.4f} ms)  plain "
+          f"{tp:.4f} ms  library (scaled_dot_product_attention, same mask) {tl:.4f} ms  bound "
+          f"{b[0]:.5f} ms ({b[1]})")
+    report["encoder_attention_fwd"] = dict(max_abs_err=max(errs.values()), ms=tk, plain_ms=tp,
+                                           library_ms=tl, device_ms=dms, bound=b)
+
+
+def k9_inputs(B, T, dev, seed, d=512, k=15):
+    """The first pointwise product u [T, B, 2d] bf16, the conv module's
+    bias, depthwise kernel [k, 1, d] and LayerNorm, ragged lengths: row 0
+    full, row 1 of length 0."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    u = torch.randn((T, B, 2 * d), generator=g).to(torch.bfloat16)
+    b_in = 0.1 * torch.randn((2 * d,), generator=g)
+    dw = torch.randn((k, 1, d), generator=g) / k ** 0.5
+    ln_scale = 1.0 + 0.1 * torch.randn((d,), generator=g)
+    ln_bias = 0.1 * torch.randn((d,), generator=g)
+    lens = torch.randint(1, T + 1, (B,), generator=g, dtype=torch.int32)
+    lens[0], lens[1] = T, 0
+    return [x.to(dev) for x in (u, b_in, dw, ln_scale, ln_bias, lens)]
+
+
+def phase_k9(dev, report):
+    import torch
+    import torch.nn.functional as F
+
+    from avsr_tpu_torch.models import transformer as tfm
+
+    errs = {}
+    for B, T in ((128, 197), (4, 531)):
+        args = k9_inputs(B, T, dev, seed=T + 1)
+        out_k = tfm.conformer_conv(*args)
+        out_p = tfm.conformer_conv_plain(*args)
+        torch.cuda.synchronize()
+        diff = (out_k.float() - out_p.float()).abs()
+        errs[T] = float(diff.max())
+        over = float((diff - K9_TOL - K9_ULP * out_p.float().abs()).max())
+        print(f"K9 [T={T},B={B},d=512,k=15] max abs err {errs[T]} mean {float(diff.mean())} "
+              f"(tol {K9_TOL} + {K9_ULP} |plain|: margin {-over})")
+        if not (torch.isfinite(out_k.float()).all() and over <= 0.0):
+            fail("K9", f"kernel disagrees with the plain version at T={T}: {errs[T]}")
+    args = k9_inputs(128, 197, dev, seed=198)
+    u, _, dw, *_ = args
+    T, B, d2 = u.shape
+    d, k = d2 // 2, dw.shape[0]
+    out = tfm.conformer_conv(*args)
+    x = torch.randn((B, d, T), device=dev)
+    w = dw.float()[:, 0, :].t()[:, None, :].contiguous()
+    tk = time_ms(lambda: tfm.conformer_conv(*args))
+    tp = time_ms(lambda: tfm.conformer_conv_plain(*args))
+    tl = time_ms(lambda: F.conv1d(x, w, padding=k // 2, groups=d))
+    dms = device_ms(lambda: tfm.conformer_conv(*args))
+    # per output element: the k-tap conv (2k), the bias and GLU (~6), the
+    # LayerNorm (~7) and the swish (~5), fp32
+    b = bound(nbytes(*args, out), T * B * d * (2 * k + 18), "fp32")
+    print(f"K9 [T=197,B=128,d=512,k=15] kernel {tk:.4f} ms (device {dms:.4f} ms)  plain "
+          f"{tp:.4f} ms  library (the depthwise conv1d alone) {tl:.4f} ms  bound {b[0]:.5f} ms "
+          f"({b[1]})")
+    report["conformer_conv_fwd"] = dict(max_abs_err=max(errs.values()), ms=tk, plain_ms=tp,
+                                        library_ms=tl, device_ms=dms, bound=b,
+                                        library_covers="the depthwise conv1d alone")
+
+
 def main() -> int:
     import torch
 
@@ -1370,7 +1584,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from avsr_tpu_torch.configs import lrs2_av_fast, lrs2_full
+        from avsr_tpu_torch.configs import lrs2_av_fast, lrs2_av_v2, lrs2_full
         from avsr_tpu_torch import kernels
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
@@ -1403,6 +1617,7 @@ def main() -> int:
 
     cfg = lrs2_av_fast()
     align_cfg = lrs2_full()  # the lrs2_av_align preset
+    v2_cfg = lrs2_av_v2()
     report, paths = {}, {}
     for n, run in ((3, lambda: phase_k1(dev, report)),
                    (4, lambda: phase_k3(dev, report, cfg)),
@@ -1423,7 +1638,14 @@ def main() -> int:
                    (17, lambda: phase_k8_bwd(dev, report)),
                    (18, lambda: phase_k10_bwd(dev, report)),
                    (19, lambda: paths.update(train_align=phase_train(
-                       dev, card, align_cfg, "train_align", TRAIN_ALIGN_KERNELS)))):
+                       dev, card, align_cfg, "train_align", TRAIN_ALIGN_KERNELS))),
+                   (20, lambda: phase_k11(dev, report)),
+                   (21, lambda: phase_k9(dev, report)),
+                   (22, lambda: paths.update(serve_v2=phase_serve(
+                       dev, card, v2_cfg, "serve_v2", SERVE_V2_KERNELS, (8, 197, 1024)))),
+                   (23, lambda: paths.update(greedy_v2=phase_greedy(
+                       dev, card, v2_cfg, "greedy_v2", GREEDY_KERNELS,
+                       check_no_autograd=True)))):
         t0 = time.perf_counter()
         run()
         print(f"phase {n}: {time.perf_counter() - t0:.1f} s")
@@ -1451,6 +1673,10 @@ def main() -> int:
                             "avsr_tpu/ops/attention.py:125"),
         "bahdanau_attend_bwd": ("avsr_tpu_torch/csrc/bahdanau_attend.cu",
                                 "avsr_tpu/ops/attention.py:125"),
+        "encoder_attention_fwd": ("avsr_tpu_torch/csrc/encoder_attention.cu",
+                                  "avsr_tpu/models/transformer.py:204"),
+        "conformer_conv_fwd": ("avsr_tpu_torch/csrc/conformer_conv.cu",
+                               "avsr_tpu/models/transformer.py:231"),
     }
     entries = []
     for name, (src, rep) in sources.items():
@@ -1461,7 +1687,8 @@ def main() -> int:
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["library_ms"],
-            "device_ms": r["device_ms"]})
+            "device_ms": r["device_ms"], **({"library_covers": r["library_covers"]}
+                                            if "library_covers" in r else {})})
         if entries[-1]["launches"] == 0:
             fail("kernels", f"kernel {name} was launched by no path")
     print(json.dumps({"kernels": entries}))

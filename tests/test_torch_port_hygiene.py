@@ -29,7 +29,8 @@ from avsr_tpu.data import units as junits
 from avsr_tpu_torch import configs as tconfigs
 from avsr_tpu_torch import convert, kernels
 from avsr_tpu_torch.data import units as tunits
-from avsr_tpu_torch.models import decoder, encoder, fusion, seq2seq, transformer_decoder, video_cnn
+from avsr_tpu_torch.models import (decoder, encoder, fusion, seq2seq, transformer,
+                                   transformer_decoder, video_cnn)
 from avsr_tpu_torch.ops import attention, rnn
 from avsr_tpu_torch.serve import Predictor
 from avsr_tpu_torch.utils import params as uparams
@@ -104,7 +105,8 @@ def test_entry_points_default_to_the_card():
     rnn.lstm_init, attention.value_only_init, attention.bahdanau_init, attention.attention_init,
     encoder.encoder_init, video_cnn.video_cnn_init, fusion.cross_attention_fusion_init,
     fusion.av_align_init, decoder.decoder_init,
-    transformer_decoder.transformer_decoder_init, uparams.glorot_uniform, uparams.orthogonal,
+    transformer_decoder.transformer_decoder_init, transformer.transformer_encoder_init,
+    uparams.glorot_uniform, uparams.orthogonal,
     uparams.normal_init, uparams.zeros,
 ], ids=lambda f: f.__name__)
 def test_init_helpers_take_the_callers_device(fn):
