@@ -21,8 +21,8 @@
 //
 // Layouts: q [B, Ta, nh, A], k [B, Tv, nh, A], v [B, Tv, nh, dv], ctx
 // [B, Ta, nh, dv] (bf16); P [B, nh, Ta, Tv] (fp32).  The forward also takes
-// q, k and v as strided views (`launch_attn_fwd_rows`: the row of time step
-// t of utterance b starts ld elements after the row of t - 1), which is how
+// q, k and v as strided views (`launch_attn_fwd`: the row of time step t
+// of utterance b starts ld elements after the row of t - 1), which is how
 // K11 (encoder_attention.cu) reads them straight out of one [B, T, 3, nh, dh]
 // product.
 //
@@ -357,12 +357,13 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// The forward over strided q, k, v rows (ld* elements apart; multiples of
-// 8, as the 16-byte staging loads need).
+// The forward over q, k, v rows ld* elements apart (nh * A, nh * A and
+// nh * dv for contiguous operands; multiples of 8, as the 16-byte staging
+// loads need).
 template <typename Mask>
-cudaError_t launch_attn_fwd_rows(const void* q, const void* k, const void* v, Mask mask,
-                                 void* P, void* ctx, int B, int Ta, int Tv, int nh, int A, int dv,
-                                 int ldq, int ldk, int ldv, cudaStream_t stream) {
+cudaError_t launch_attn_fwd(const void* q, const void* k, const void* v, Mask mask, void* P,
+                            void* ctx, int B, int Ta, int Tv, int nh, int A, int dv, int ldq,
+                            int ldk, int ldv, cudaStream_t stream) {
   if (A % 8 || dv % 8 || Ta < 1 || Tv < 1 || ldq % 8 || ldk % 8 || ldv % 8)
     return cudaErrorInvalidValue;
   const size_t smem = fwd_smem(Tv, A, dv);
@@ -374,15 +375,6 @@ cudaError_t launch_attn_fwd_rows(const void* q, const void* k, const void* v, Ma
       static_cast<const __nv_bfloat16*>(v), mask, static_cast<float*>(P),
       static_cast<__nv_bfloat16*>(ctx), Ta, Tv, nh, A, dv, ldq, ldk, ldv);
   return cudaGetLastError();
-}
-
-// The forward over contiguous [B, T, nh, *] q, k, v.
-template <typename Mask>
-cudaError_t launch_attn_fwd(const void* q, const void* k, const void* v, Mask mask, void* P,
-                            void* ctx, int B, int Ta, int Tv, int nh, int A, int dv,
-                            cudaStream_t stream) {
-  return launch_attn_fwd_rows(q, k, v, mask, P, ctx, B, Ta, Tv, nh, A, dv, nh * A, nh * A,
-                              nh * dv, stream);
 }
 
 cudaError_t launch_attn_bwd(const void* q, const void* k, const void* v, const void* P,

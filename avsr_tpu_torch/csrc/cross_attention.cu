@@ -45,7 +45,8 @@ extern "C" int avsr_fusion_attn_fwd(const void* q, const void* k, const void* v,
                                     const void* vlen, void* P, void* ctx, int B, int Ta,
                                     int Tv, int nh, int A, int dv, void* stream) {
   return (int)launch_attn_fwd(q, k, v, LengthMask{static_cast<const int*>(vlen)}, P, ctx, B,
-                              Ta, Tv, nh, A, dv, reinterpret_cast<cudaStream_t>(stream));
+                              Ta, Tv, nh, A, dv, nh * A, nh * A, nh * dv,
+                              reinterpret_cast<cudaStream_t>(stream));
 }
 
 extern "C" int avsr_fusion_attn_bwd(const void* q, const void* k, const void* v,

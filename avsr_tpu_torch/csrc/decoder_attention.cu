@@ -74,10 +74,11 @@ extern "C" int avsr_decoder_attn_fwd(const void* q, const void* k, const void* v
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (bias == nullptr) {
     if (Q != S) return (int)cudaErrorInvalidValue;
-    return (int)launch_attn_fwd(q, k, v, CausalMask{}, P, ctx, B, Q, S, nh, dk, dv, st);
+    return (int)launch_attn_fwd(q, k, v, CausalMask{}, P, ctx, B, Q, S, nh, dk, dv, nh * dk,
+                                nh * dk, nh * dv, st);
   }
   return (int)launch_attn_fwd(q, k, v, BiasMask{static_cast<const float*>(bias), S}, P, ctx, B,
-                              Q, S, nh, dk, dv, st);
+                              Q, S, nh, dk, dv, nh * dk, nh * dk, nh * dv, st);
 }
 
 extern "C" int avsr_decoder_attn_bwd(const void* q, const void* k, const void* v,

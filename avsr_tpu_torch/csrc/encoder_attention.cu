@@ -18,7 +18,7 @@
 //
 // Operands: the product qkv [B, T, 3, nh, dh] bf16 as it comes out of the
 // matmul.  q, k and v are strided views of it, read in place: the forward of
-// attention_core.cuh takes a row stride (`launch_attn_fwd_rows`, 3 * nh * dh
+// attention_core.cuh takes a row stride (`launch_attn_fwd`, 3 * nh * dh
 // elements here), so no copy of the three views is made.  ctx comes out
 // [B, T, nh, dh] bf16, ready for the head merge.  No weights are written
 // (P = null): nothing reads them, and K11's backward (later work) will
@@ -48,8 +48,7 @@ extern "C" int avsr_encoder_attn_fwd(const void* qkv, const void* lengths, void*
                                      int T, int nh, int dh, void* stream) {
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(qkv);
   const int d = nh * dh;
-  return (int)launch_attn_fwd_rows(q, q + d, q + 2 * d,
-                                   LengthMask{static_cast<const int*>(lengths)}, nullptr, ctx,
-                                   B, T, T, nh, dh, dh, 3 * d, 3 * d, 3 * d,
-                                   reinterpret_cast<cudaStream_t>(stream));
+  return (int)launch_attn_fwd(q, q + d, q + 2 * d, LengthMask{static_cast<const int*>(lengths)},
+                              nullptr, ctx, B, T, T, nh, dh, dh, 3 * d, 3 * d, 3 * d,
+                              reinterpret_cast<cudaStream_t>(stream));
 }

@@ -49,8 +49,10 @@ Phases, in order; any failure exits nonzero before the final line:
              library yardstick (scaled_dot_product_attention, same mask).
 10. K6     — single-query decode attention against its plain twin at N=80
              and N=128, pos 0/37/149 over the self KV cache [L=150, 4x64]
-             and over the memory [S=50, dk=128, dv=256] with a length-0
-             row; times and the yardstick at N=80.
+             and over the fast and the v2 model's memories [S=50 and 197,
+             dk=128, dv=256] with a length-0 row; times, device times, the
+             bounds and the yardstick of one step's pair at N=80 over
+             either memory.
 11. K7     — the fused beam step against its plain twin at [B=8, W=10,
              V=44]: random logits and states, finished beams, alpha 0 and
              0.6 (identical parents, tokens, lens, finished, feeds; logp
@@ -58,7 +60,7 @@ Phases, in order; any failure exits nonzero before the final line:
              first); times.
 12. greedy — greedy decode of one B=128 batch of 6 s utterances, horizon
              150, on the kernel path (K6 launches counted) and on the plain
-             path: decode ms, steps, rows with identical ids.
+             path: decode ms, steps; at most 16 rows whose ids differ.
 13. K8     — the AV-Align fusion scan against its plain twin at [T_a=197,
              B=8 and 128, D_in=512, H=256, T_v=150, A=128, Dv=512], bf16,
              ragged audio and video lengths with a 0-length row of each:
@@ -114,11 +116,12 @@ Phases, in order; any failure exits nonzero before the final line:
              [8, 197, 1024] and the beam on the same memories against the
              plain path.
 23. greedy-v2 — a B=128, 6 s, horizon 150 greedy decode of the same model,
-             kernel path against plain path; then the same batch once more
-             through ``Predictor.encode`` and ``greedy_decode`` with every
-             parameter ``requires_grad`` (a train state's): no output may
-             carry a graph, no autograd Function of the port may be entered
-             and every decoder step must run with autograd off.
+             kernel path against plain path.
+24. no-autograd — phase 23's batch once more through ``Predictor.encode``
+             and ``greedy_decode`` with every parameter ``requires_grad`` (a
+             train state's): no output may carry a graph, no autograd
+             Function of the port may be entered and every decoder step
+             must run with autograd off.
 
 Serve (5, 15, 22) also beams the same memories through the plain path and
 holds the best scores to a tolerance.  Each serve and greedy path and the
@@ -208,6 +211,12 @@ K9_ULP = 2.0 ** -7
 # log probs (~-600) whose logits differ by bf16 ulps at each K6 read; near
 # ties may send the two beams down different, equally scored paths.
 BEAM_SCORE_REL_TOL = 1e-2
+# greedy, kernel path against plain path over 150 steps: a near tie of two
+# logits that a bf16 ulp of a context flips changes a row from there on.
+# Random weights leave many near ties: lrs2_av_align's rows differed in 10
+# of 128, the transformer decoders' in none.  More than 16 (1 in 8) is a
+# fault, not ties.
+GREEDY_MAX_DIFF_ROWS = 16
 
 # H100 SXM peaks (NVIDIA data sheet): the bounds of the kernels line
 HBM_BYTES_PER_S = 3.35e12
@@ -223,6 +232,9 @@ SERVE_ALIGN_KERNELS = ("lstm_scan_fwd", "logmel_post_dft", "av_align_scan", "bah
 GREEDY_ALIGN_KERNELS = ("bahdanau_attend",)
 TRAIN_ALIGN_KERNELS = ("lstm_scan_fwd", "lstm_scan_bwd", "logmel_post_dft", "av_align_scan",
                        "av_align_scan_bwd", "bahdanau_attend", "bahdanau_attend_bwd")
+# the keys every phase's report entry has; any other (what a library call
+# covers, a second shape's times) is carried into the kernels line as is
+REPORT_KEYS = ("max_abs_err", "ms", "plain_ms", "bound", "library_ms", "device_ms")
 SERVE_V2_KERNELS = ("logmel_post_dft", "encoder_attention_fwd", "conformer_conv_fwd",
                     "fusion_attention_fwd", "decode_attention", "beam_step")
 
@@ -969,6 +981,10 @@ def k6_inputs(N, L, dk, dv, dev, cross, seed):
 
 
 def phase_k6(dev, report):
+    """K6 against its plain version in self mode over the 150-step cache and
+    in cross mode over the fast model's memory (S = 50) and the v2 model's
+    (S = 197), each with a length-0 row; times one decode step's pair at
+    both memories."""
     import torch
 
     from avsr_tpu_torch.models import transformer_decoder as tdec
@@ -983,46 +999,58 @@ def phase_k6(dev, report):
             if not err <= K6_TOL:
                 fail("K6", f"self attention at N={N}, pos={pos} disagrees: {err}")
             worst = max(worst, err)
-        q, k, v, bias = k6_inputs(N, 50, 128, 256, dev, True, seed=N)
-        out_k = tdec.decode_attention(q, k, v, bias, 50)
-        err = max_err(out_k, tdec.decode_attention_plain(q, k, v, bias, 50))
-        uni = max_err(out_k[1], v[1].float().mean(dim=0).to(torch.bfloat16))
-        print(f"K6 cross [N={N},S=50,dk=128,dv=256] max abs err {err} (tol {K6_TOL}); "
-              f"length-0 row against the plain mean of its values: {uni}")
-        if not (err <= K6_TOL and uni <= K6_TOL):
-            fail("K6", f"cross attention at N={N} disagrees: {err}, length-0 row {uni}")
-        worst = max(worst, err)
+        for S in (50, 197):
+            q, k, v, bias = k6_inputs(N, S, 128, 256, dev, True, seed=N + S)
+            out_k = tdec.decode_attention(q, k, v, bias, S)
+            err = max_err(out_k, tdec.decode_attention_plain(q, k, v, bias, S))
+            uni = max_err(out_k[1], v[1].float().mean(dim=0).to(torch.bfloat16))
+            print(f"K6 cross [N={N},S={S},dk=128,dv=256] max abs err {err} (tol {K6_TOL}); "
+                  f"length-0 row against the plain mean of its values: {uni}")
+            if not (err <= K6_TOL and uni <= K6_TOL):
+                fail("K6", f"cross attention at N={N}, S={S} disagrees: {err}, "
+                           f"length-0 row {uni}")
+            worst = max(worst, err)
     # times at the serve shape: N = 80 beams, one decode step's two launches
-    qs, ks, vs, _ = k6_inputs(80, 150, 64, 64, dev, False, seed=1)
-    qc, kc, vc, bc = k6_inputs(80, 50, 128, 256, dev, True, seed=2)
+    # (self at the last position, cross over the fast and the v2 memory)
     pos = 149
+    qs, ks, vs, _ = k6_inputs(80, 150, 64, 64, dev, False, seed=1)
     self_mask = torch.zeros((80, 1, 1, 150), device=dev)
     self_mask[..., pos + 1:] = -1e9
     self_mask = self_mask.to(torch.bfloat16)
-    cross_mask = bc[:, None, None, :].to(torch.bfloat16)
-    t = {
-        "self": (time_ms(lambda: tdec.decode_attention(qs, ks, vs, None, pos + 1)),
-                 time_ms(lambda: tdec.decode_attention_plain(qs, ks, vs, None, pos + 1)),
-                 time_ms(lambda: sdpa(qs[:, None], ks, vs, self_mask))),
-        "cross": (time_ms(lambda: tdec.decode_attention(qc, kc, vc, bc, 50)),
-                  time_ms(lambda: tdec.decode_attention_plain(qc, kc, vc, bc, 50)),
-                  time_ms(lambda: sdpa(qc[:, None], kc, vc, cross_mask))),
-    }
-    for name, (tk, tp, tl) in t.items():
-        print(f"K6 {name} at N=80 (self at pos {pos}) kernel {tk:.4f} ms  plain {tp:.4f} ms  "
-              f"library {tl:.4f} ms")
+    ctx_s = torch.empty((80, 4, 64), dtype=torch.bfloat16)
+    self_t = (time_ms(lambda: tdec.decode_attention(qs, ks, vs, None, pos + 1)),
+              time_ms(lambda: tdec.decode_attention_plain(qs, ks, vs, None, pos + 1)),
+              time_ms(lambda: sdpa(qs[:, None], ks, vs, self_mask)),
+              device_ms(lambda: tdec.decode_attention(qs, ks, vs, None, pos + 1)))
     # the bytes each launch must read: keys and values 0..pos (self), all of
     # the memory's (cross), the queries, the bias and the context written
-    ctx_s = torch.empty((80, 4, 64), dtype=torch.bfloat16)
-    ctx_c = torch.empty((80, 4, 256), dtype=torch.bfloat16)
-    nb = (nbytes(qs, ctx_s) + (pos + 1) * 80 * 4 * 64 * 2 * 2 + nbytes(qc, kc, vc, bc, ctx_c))
-    fl = 2 * 80 * 4 * ((pos + 1) * 128 + 50 * 384)
+    self_nb = nbytes(qs, ctx_s) + (pos + 1) * 80 * 4 * 64 * 2 * 2
+    pair = {}
+    for S in (50, 197):
+        qc, kc, vc, bc = k6_inputs(80, S, 128, 256, dev, True, seed=2)
+        cross_mask = bc[:, None, None, :].to(torch.bfloat16)
+        cross_t = (time_ms(lambda: tdec.decode_attention(qc, kc, vc, bc, S)),
+                   time_ms(lambda: tdec.decode_attention_plain(qc, kc, vc, bc, S)),
+                   time_ms(lambda: sdpa(qc[:, None], kc, vc, cross_mask)),
+                   device_ms(lambda: tdec.decode_attention(qc, kc, vc, bc, S)))
+        tk, tp, tl, td = cross_t
+        b = bound(nbytes(qc, kc, vc, bc, torch.empty((80, 4, 256), dtype=torch.bfloat16)),
+                  2 * 80 * 4 * S * 384)
+        print(f"K6 cross at N=80, S={S} kernel {tk:.4f} ms (device {td:.4f} ms)  "
+              f"plain {tp:.4f} ms  library {tl:.4f} ms  bound {b[0]:.5f} ms ({b[1]})")
+        nb = self_nb + nbytes(qc, kc, vc, bc) + 80 * 4 * 256 * 2
+        fl = 2 * 80 * 4 * ((pos + 1) * 128 + S * 384)
+        pair[S] = dict(ms=self_t[0] + tk, plain_ms=self_t[1] + tp, library_ms=self_t[2] + tl,
+                       device_ms=self_t[3] + td, bound=bound(nb, fl))
+    print(f"K6 self at N=80, pos {pos} kernel {self_t[0]:.4f} ms (device {self_t[3]:.4f} ms)  "
+          f"plain {self_t[1]:.4f} ms  library {self_t[2]:.4f} ms")
+    v2 = pair[197]
     report["decode_attention"] = dict(
-        max_abs_err=worst, ms=t["self"][0] + t["cross"][0], plain_ms=t["self"][1] + t["cross"][1],
-        library_ms=t["self"][2] + t["cross"][2],
-        device_ms=(device_ms(lambda: tdec.decode_attention(qs, ks, vs, None, pos + 1))
-                   + device_ms(lambda: tdec.decode_attention(qc, kc, vc, bc, 50))),
-        bound=bound(nb, fl))
+        max_abs_err=worst, **pair[50],
+        at_v2_memory={"shape": "one step's pair at N=80, cross over S=197",
+                      "ms": v2["ms"], "plain_ms": v2["plain_ms"], "library_ms": v2["library_ms"],
+                      "device_ms": v2["device_ms"], "bound_ms": v2["bound"][0],
+                      "bound_by": v2["bound"][1]})
 
 
 def k7_inputs(B, W, V, dev, seed, ties=False, p_finished=0.3):
@@ -1098,11 +1126,10 @@ def phase_k7(dev, report):
         bound=bound(nbytes(*args, lp_table) + out_bytes, 6 * B * W * V, "fp32"))
 
 
-def phase_greedy(dev, card, cfg, label="greedy", needed=GREEDY_KERNELS,
-                 check_no_autograd=False):
+def phase_greedy(dev, card, cfg, label="greedy", needed=GREEDY_KERNELS):
     """Greedy-decode one B=128 batch of ``cfg``'s model on the kernel path
-    and on the plain path; with ``check_no_autograd``, decode it once more
-    from parameters that require a gradient (``decode_records_no_autograd``)."""
+    and on the plain path -> (the kernel path's launches, (params, batch,
+    result))."""
     import torch
 
     from avsr_tpu_torch import kernels
@@ -1145,10 +1172,12 @@ def phase_greedy(dev, card, cfg, label="greedy", needed=GREEDY_KERNELS,
     print(f"{label} [{card}] {cfg.name} B=128, 6 s, horizon {horizon}: decode {ms:.3f} ms, "
           f"{res.steps} steps ({ms / max(res.steps, 1):.3f} ms per step), "
           f"launches {({n: launches[n] for n in needed})}; "
-          f"plain path {ms_p:.3f} ms; {same} of 128 rows with ids identical to the plain path's")
-    if check_no_autograd:
-        decode_records_no_autograd(dev, cfg, params, batch, res, label)
-    return launches
+          f"plain path {ms_p:.3f} ms; {same} of 128 rows with ids identical to the plain path's "
+          f"(at least {128 - GREEDY_MAX_DIFF_ROWS})")
+    if 128 - same > GREEDY_MAX_DIFF_ROWS:
+        fail(label, f"{128 - same} of 128 rows differ from the plain path's "
+                    f"(at most {GREEDY_MAX_DIFF_ROWS})")
+    return launches, (params, batch, res)
 
 
 def decode_records_no_autograd(dev, cfg, params, batch, res, label):
@@ -1618,7 +1647,11 @@ def main() -> int:
     cfg = lrs2_av_fast()
     align_cfg = lrs2_full()  # the lrs2_av_align preset
     v2_cfg = lrs2_av_v2()
-    report, paths = {}, {}
+    report, paths, greedy_runs = {}, {}, {}
+
+    def greedy(c, label, needed):
+        paths[label], greedy_runs[label] = phase_greedy(dev, card, c, label, needed)
+
     for n, run in ((3, lambda: phase_k1(dev, report)),
                    (4, lambda: phase_k3(dev, report, cfg)),
                    (5, lambda: paths.update(serve=phase_serve(dev, card, cfg))),
@@ -1628,13 +1661,12 @@ def main() -> int:
                    (9, lambda: phase_k5(dev, report)),
                    (10, lambda: phase_k6(dev, report)),
                    (11, lambda: phase_k7(dev, report)),
-                   (12, lambda: paths.update(greedy=phase_greedy(dev, card, cfg))),
+                   (12, lambda: greedy(cfg, "greedy", GREEDY_KERNELS)),
                    (13, lambda: phase_k8(dev, report)),
                    (14, lambda: phase_k10(dev, report)),
                    (15, lambda: paths.update(serve_align=phase_serve(
                        dev, card, align_cfg, "serve_align", SERVE_ALIGN_KERNELS, (8, 197, 768)))),
-                   (16, lambda: paths.update(greedy_align=phase_greedy(
-                       dev, card, align_cfg, "greedy_align", GREEDY_ALIGN_KERNELS))),
+                   (16, lambda: greedy(align_cfg, "greedy_align", GREEDY_ALIGN_KERNELS)),
                    (17, lambda: phase_k8_bwd(dev, report)),
                    (18, lambda: phase_k10_bwd(dev, report)),
                    (19, lambda: paths.update(train_align=phase_train(
@@ -1643,9 +1675,9 @@ def main() -> int:
                    (21, lambda: phase_k9(dev, report)),
                    (22, lambda: paths.update(serve_v2=phase_serve(
                        dev, card, v2_cfg, "serve_v2", SERVE_V2_KERNELS, (8, 197, 1024)))),
-                   (23, lambda: paths.update(greedy_v2=phase_greedy(
-                       dev, card, v2_cfg, "greedy_v2", GREEDY_KERNELS,
-                       check_no_autograd=True)))):
+                   (23, lambda: greedy(v2_cfg, "greedy_v2", GREEDY_KERNELS)),
+                   (24, lambda: decode_records_no_autograd(
+                       dev, v2_cfg, *greedy_runs.pop("greedy_v2"), "greedy_v2"))):
         t0 = time.perf_counter()
         run()
         print(f"phase {n}: {time.perf_counter() - t0:.1f} s")
@@ -1687,8 +1719,8 @@ def main() -> int:
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["library_ms"],
-            "device_ms": r["device_ms"], **({"library_covers": r["library_covers"]}
-                                            if "library_covers" in r else {})})
+            "device_ms": r["device_ms"],
+            **{k: x for k, x in r.items() if k not in REPORT_KEYS}})
         if entries[-1]["launches"] == 0:
             fail("kernels", f"kernel {name} was launched by no path")
     print(json.dumps({"kernels": entries}))
