@@ -20,11 +20,12 @@
 //   dQ  = bf16(dsc @ K);  dK = bf16(dsc^T @ Q);  dV = bf16(bf16(P)^T @ dctx)
 //
 // Layouts: q [B, Ta, nh, A], k [B, Tv, nh, A], v [B, Tv, nh, dv], ctx
-// [B, Ta, nh, dv] (bf16); P [B, nh, Ta, Tv] (fp32).  The forward also takes
-// q, k and v as strided views (`launch_attn_fwd`: the row of time step t
-// of utterance b starts ld elements after the row of t - 1), which is how
-// K11 (encoder_attention.cu) reads them straight out of one [B, T, 3, nh, dh]
-// product.
+// [B, Ta, nh, dv] (bf16); P [B, nh, Ta, Tv] (fp32).  Both launches take q,
+// k and v as strided views (the row of time step t of utterance b starts
+// ld elements after the row of t - 1), and the backward writes dq, dk and
+// dv the same way, which is how K11 (encoder_attention.cu) reads them
+// straight out of one [B, T, 3, nh, dh] product and writes its gradient
+// into one [B, T, 3, nh, dh] tensor, the cotangent of that product.
 //
 // Design, forward: one block per (b, h, tile of QT = 16 queries); K of that
 // (b, h) is staged in shared memory transposed to bf16 pairs [A/2][Tv], so
@@ -240,13 +241,13 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Ta, nh, A], rows l
 
 // Backward pass 1: dsc rows and dQ for one (b, h, query tile).
 __global__ void __launch_bounds__(THREADS)
-attn_bwd_q_kernel(const __nv_bfloat16* __restrict__ k,     // [B, Tv, nh, A]
-                  const __nv_bfloat16* __restrict__ v,     // [B, Tv, nh, dv]
+attn_bwd_q_kernel(const __nv_bfloat16* __restrict__ k,     // [B, Tv, nh, A], rows ldk apart
+                  const __nv_bfloat16* __restrict__ v,     // [B, Tv, nh, dv], rows ldv apart
                   const float* __restrict__ P,             // [B, nh, Ta, Tv]
                   const __nv_bfloat16* __restrict__ dctx,  // [B, Ta, nh, dv]
                   __nv_bfloat16* __restrict__ dsc,         // [B, nh, Ta, Tv] scratch
-                  __nv_bfloat16* __restrict__ dq,          // [B, Ta, nh, A]
-                  int Ta, int Tv, int nh, int A, int dv) {
+                  __nv_bfloat16* __restrict__ dq,          // [B, Ta, nh, A], rows lddq apart
+                  int Ta, int Tv, int nh, int A, int dv, int ldk, int ldv, int lddq) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * QT;
   const int nq = min(QT, Ta - i0);
@@ -257,8 +258,8 @@ attn_bwd_q_kernel(const __nv_bfloat16* __restrict__ k,     // [B, Tv, nh, A]
 
   stage_rows(do_s, dctx + (((size_t)b * Ta + i0) * nh + h) * dv, QT, nq, dv,
              (size_t)nh * dv);
-  stage_cols(reinterpret_cast<uint32_t*>(kv_s), v + ((size_t)b * Tv * nh + h) * dv, Tv, dv,
-             (size_t)nh * dv);
+  stage_cols(reinterpret_cast<uint32_t*>(kv_s), v + (size_t)b * Tv * ldv + (size_t)h * dv, Tv,
+             dv, (size_t)ldv);
   __syncthreads();
   rows_by_cols(do_s, reinterpret_cast<const uint32_t*>(kv_s), Tv, dv,
                [&](int i, int j, float acc) { s_s[i * Tv + j] = bf_round(acc); });
@@ -282,24 +283,24 @@ attn_bwd_q_kernel(const __nv_bfloat16* __restrict__ k,     // [B, Tv, nh, A]
   }
   __syncthreads();
 
-  stage_rows(kv_s, k + ((size_t)b * Tv * nh + h) * A, Tv, Tv, A, (size_t)nh * A);
+  stage_rows(kv_s, k + (size_t)b * Tv * ldk + (size_t)h * A, Tv, Tv, A, (size_t)ldk);
   __syncthreads();
   weights_by_rows(s_s, Tv, nq, kv_s, Tv, A, [&](int i, int cp, float a0, float a1) {
-    reinterpret_cast<__nv_bfloat162*>(dq + (((size_t)b * Ta + i0 + i) * nh + h) * A)[cp] =
-        __floats2bfloat162_rn(a0, a1);
+    reinterpret_cast<__nv_bfloat162*>(dq + ((size_t)b * Ta + i0 + i) * lddq +
+                                      (size_t)h * A)[cp] = __floats2bfloat162_rn(a0, a1);
   });
 }
 
 // Backward pass 2: dK and dV rows for one (b, h, key tile), summed over
 // every query of the utterance.
 __global__ void __launch_bounds__(THREADS)
-attn_bwd_kv_kernel(const __nv_bfloat16* __restrict__ q,     // [B, Ta, nh, A]
+attn_bwd_kv_kernel(const __nv_bfloat16* __restrict__ q,     // [B, Ta, nh, A], rows ldq apart
                    const float* __restrict__ P,             // [B, nh, Ta, Tv]
                    const __nv_bfloat16* __restrict__ dctx,  // [B, Ta, nh, dv]
                    const __nv_bfloat16* __restrict__ dsc,   // [B, nh, Ta, Tv]
-                   __nv_bfloat16* __restrict__ dk,          // [B, Tv, nh, A]
-                   __nv_bfloat16* __restrict__ dv_out,      // [B, Tv, nh, dv]
-                   int Ta, int Tv, int nh, int A, int dv) {
+                   __nv_bfloat16* __restrict__ dk,          // [B, Tv, nh, A], rows lddk apart
+                   __nv_bfloat16* __restrict__ dv_out,      // [B, Tv, nh, dv], rows lddv apart
+                   int Ta, int Tv, int nh, int A, int dv, int ldq, int lddk, int lddv) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.z, h = blockIdx.y, j0 = blockIdx.x * KT;
   const int nk = min(KT, Tv - j0);
@@ -308,7 +309,7 @@ attn_bwd_kv_kernel(const __nv_bfloat16* __restrict__ q,     // [B, Ta, nh, A]
   float* dsT_s = reinterpret_cast<float*>(do_s + (size_t)Ta * dv);  // [KT][Ta]
   float* pT_s = dsT_s + (size_t)KT * Ta;                              // [KT][Ta]
 
-  stage_rows(q_s, q + ((size_t)b * Ta * nh + h) * A, Ta, Ta, A, (size_t)nh * A);
+  stage_rows(q_s, q + (size_t)b * Ta * ldq + (size_t)h * A, Ta, Ta, A, (size_t)ldq);
   stage_rows(do_s, dctx + ((size_t)b * Ta * nh + h) * dv, Ta, Ta, dv, (size_t)nh * dv);
   const size_t col0 = (((size_t)b * nh + h) * Ta) * Tv + j0;
   for (int c = threadIdx.x; c < KT * Ta; c += THREADS) {
@@ -324,12 +325,12 @@ attn_bwd_kv_kernel(const __nv_bfloat16* __restrict__ q,     // [B, Ta, nh, A]
   __syncthreads();
 
   weights_by_rows(dsT_s, Ta, nk, q_s, Ta, A, [&](int jj, int cp, float a0, float a1) {
-    reinterpret_cast<__nv_bfloat162*>(dk + (((size_t)b * Tv + j0 + jj) * nh + h) * A)[cp] =
-        __floats2bfloat162_rn(a0, a1);
+    reinterpret_cast<__nv_bfloat162*>(dk + ((size_t)b * Tv + j0 + jj) * lddk +
+                                      (size_t)h * A)[cp] = __floats2bfloat162_rn(a0, a1);
   });
   weights_by_rows(pT_s, Ta, nk, do_s, Ta, dv, [&](int jj, int cp, float a0, float a1) {
-    reinterpret_cast<__nv_bfloat162*>(dv_out + (((size_t)b * Tv + j0 + jj) * nh + h) * dv)[cp] =
-        __floats2bfloat162_rn(a0, a1);
+    reinterpret_cast<__nv_bfloat162*>(dv_out + ((size_t)b * Tv + j0 + jj) * lddv +
+                                      (size_t)h * dv)[cp] = __floats2bfloat162_rn(a0, a1);
   });
 }
 
@@ -377,11 +378,16 @@ cudaError_t launch_attn_fwd(const void* q, const void* k, const void* v, Mask ma
   return cudaGetLastError();
 }
 
+// The backward, reading q, k, v rows ld* elements apart as the forward does
+// and writing dq, dk, dv rows ldd* elements apart (nh * A, nh * A and nh *
+// dv for contiguous gradients; even, as the paired bf16 stores need).
 cudaError_t launch_attn_bwd(const void* q, const void* k, const void* v, const void* P,
                             const void* dctx, void* dsc, void* dq, void* dk, void* dv_out,
-                            int B, int Ta, int Tv, int nh, int A, int dv,
-                            cudaStream_t stream) {
-  if (A % 8 || dv % 8 || Ta < 1 || Tv < 1) return cudaErrorInvalidValue;
+                            int B, int Ta, int Tv, int nh, int A, int dv, int ldq, int ldk,
+                            int ldv, int lddq, int lddk, int lddv, cudaStream_t stream) {
+  if (A % 8 || dv % 8 || Ta < 1 || Tv < 1 || ldq % 8 || ldk % 8 || ldv % 8 || lddq % 2 ||
+      lddk % 2 || lddv % 2)
+    return cudaErrorInvalidValue;
   const size_t smem_q = bwd_q_smem(Tv, A, dv);
   const size_t smem_kv = bwd_kv_smem(Ta, A, dv);
   cudaError_t e = allow_smem(attn_bwd_q_kernel, smem_q);
@@ -391,13 +397,15 @@ cudaError_t launch_attn_bwd(const void* q, const void* k, const void* v, const v
   attn_bwd_q_kernel<<<dim3((Ta + QT - 1) / QT, nh, B), THREADS, smem_q, stream>>>(
       static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
       static_cast<const float*>(P), static_cast<const __nv_bfloat16*>(dctx),
-      static_cast<__nv_bfloat16*>(dsc), static_cast<__nv_bfloat16*>(dq), Ta, Tv, nh, A, dv);
+      static_cast<__nv_bfloat16*>(dsc), static_cast<__nv_bfloat16*>(dq), Ta, Tv, nh, A, dv, ldk,
+      ldv, lddq);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   attn_bwd_kv_kernel<<<dim3((Tv + KT - 1) / KT, nh, B), THREADS, smem_kv, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const float*>(P),
       static_cast<const __nv_bfloat16*>(dctx), static_cast<const __nv_bfloat16*>(dsc),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv_out), Ta, Tv, nh, A, dv);
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv_out), Ta, Tv, nh, A, dv,
+      ldq, lddk, lddv);
   return cudaGetLastError();
 }
 

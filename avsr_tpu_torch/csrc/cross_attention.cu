@@ -54,5 +54,6 @@ extern "C" int avsr_fusion_attn_bwd(const void* q, const void* k, const void* v,
                                     void* dk, void* dv_out, int B, int Ta, int Tv, int nh,
                                     int A, int dv, void* stream) {
   return (int)launch_attn_bwd(q, k, v, P, dctx, dsc, dq, dk, dv_out, B, Ta, Tv, nh, A, dv,
+                              nh * A, nh * A, nh * dv, nh * A, nh * A, nh * dv,
                               reinterpret_cast<cudaStream_t>(stream));
 }

@@ -86,5 +86,6 @@ extern "C" int avsr_decoder_attn_bwd(const void* q, const void* k, const void* v
                                      void* dk_out, void* dv_out, int B, int Q, int S, int nh,
                                      int dk, int dv, void* stream) {
   return (int)launch_attn_bwd(q, k, v, P, dctx, dsc, dq, dk_out, dv_out, B, Q, S, nh, dk, dv,
+                              nh * dk, nh * dk, nh * dv, nh * dk, nh * dk, nh * dv,
                               reinterpret_cast<cudaStream_t>(stream));
 }

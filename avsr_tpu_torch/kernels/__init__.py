@@ -47,7 +47,8 @@ LAUNCHES: Dict[str, int] = {
     "decoder_attention_fwd": 0, "decoder_attention_bwd": 0,
     "decode_attention": 0, "beam_step": 0, "av_align_scan": 0, "av_align_scan_bwd": 0,
     "bahdanau_attend": 0, "bahdanau_attend_bwd": 0,
-    "encoder_attention_fwd": 0, "conformer_conv_fwd": 0,
+    "encoder_attention_fwd": 0, "encoder_attention_bwd": 0, "conformer_conv_fwd": 0,
+    "conformer_conv_bwd": 0,
 }
 
 LSTM_UNIT_TILE = 16  # hidden units per block of the LSTM kernels (UT in the source)
@@ -167,12 +168,18 @@ def _load() -> ctypes.CDLL:
         lib.avsr_bahdanau_attend_bwd.restype = i
         lib.avsr_encoder_attn_smem.argtypes = [i, i]
         lib.avsr_encoder_attn_smem.restype = ctypes.c_longlong
-        lib.avsr_encoder_attn_fwd.argtypes = [p, p, p, i, i, i, i, p]
+        lib.avsr_encoder_attn_fwd.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.avsr_encoder_attn_fwd.restype = i
+        lib.avsr_encoder_attn_bwd.argtypes = [p] * 5 + [i] * 4 + [p]
+        lib.avsr_encoder_attn_bwd.restype = i
         lib.avsr_conformer_conv_smem.argtypes = [i, i]
         lib.avsr_conformer_conv_smem.restype = ctypes.c_longlong
         lib.avsr_conformer_conv.argtypes = [p] * 7 + [i] * 4 + [p]
         lib.avsr_conformer_conv.restype = i
+        lib.avsr_conformer_conv_bwd_parts.argtypes = [i, i]
+        lib.avsr_conformer_conv_bwd_parts.restype = i
+        lib.avsr_conformer_conv_bwd.argtypes = [p] * 11 + [i] * 4 + [p]
+        lib.avsr_conformer_conv_bwd.restype = i
         _lib = lib
     return _lib
 
@@ -729,43 +736,67 @@ def bahdanau_attend_bwd(query, wq, v, keys, values, weights, dctx):
     return dquery, dq, dv_rows, dkeys, dvalues
 
 
-def encoder_attention_fwd(qkv, lengths):
-    """K11: the transformer encoder's self-attention core, forward (CUDA).
-
-    qkv [B,T,3,nh,dh] bf16 (the one [d, 3d] product, read in place as the
-    q, k and v views), lengths [B] int32 (the keys' valid counts) -> ctx
-    [B,T,nh,dh] bf16.
-    """
+def _check_encoder_attention(qkv, dev):
     B, T, _, nh, dh = qkv.shape
-    dev = qkv.device
     _check("qkv", qkv, torch.bfloat16, (B, T, 3, nh, dh), dev)
-    _check("lengths", lengths, torch.int32, (B,), dev, align=4)
     if dh % 8:
         raise ValueError(f"encoder attention: head dim {dh} must be a multiple of 8")
     if not 1 <= T <= ATTEND_MAX_S:
         raise ValueError(f"encoder attention: T={T}; the kernel takes 1 <= T <= {ATTEND_MAX_S}")
-    lib = _load()
-    smem = lib.avsr_encoder_attn_smem(T, dh)
+    smem = _load().avsr_encoder_attn_smem(T, dh)
     if smem > SMEM_LIMIT:
         raise ValueError(f"encoder attention: T={T}, dh={dh} need {smem} bytes of shared memory "
                          f"per block (limit {SMEM_LIMIT})")
+    return B, T, nh, dh
+
+
+def encoder_attention_fwd(qkv, lengths, *, save: bool = False):
+    """K11: the transformer encoder's self-attention core, forward (CUDA).
+
+    qkv [B,T,3,nh,dh] bf16 (the one [d, 3d] product, read in place as the
+    q, k and v views), lengths [B] int32 (the keys' valid counts) -> (ctx
+    [B,T,nh,dh] bf16, weights [B,nh,T,T] f32 when ``save`` (the backward's
+    residual), else None).
+    """
+    dev = qkv.device
+    B, T, nh, dh = _check_encoder_attention(qkv, dev)
+    _check("lengths", lengths, torch.int32, (B,), dev, align=4)
+    lib = _load()
+    P = torch.empty((B, nh, T, T), dtype=torch.float32, device=dev) if save else None
     ctx = torch.empty((B, T, nh, dh), dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.avsr_encoder_attn_fwd(qkv.data_ptr(), lengths.data_ptr(), ctx.data_ptr(),
+    err = lib.avsr_encoder_attn_fwd(qkv.data_ptr(), lengths.data_ptr(),
+                                    None if P is None else P.data_ptr(), ctx.data_ptr(),
                                     B, T, nh, dh, stream)
     _raise_on(err, "encoder_attention_fwd launch")
     LAUNCHES["encoder_attention_fwd"] += 1
-    return ctx
+    return ctx, P
 
 
-def conformer_conv_fwd(u, b_in, dw, ln_scale, ln_bias, lengths):
-    """K9: the conformer conv module between its two pointwise products,
-    forward (CUDA).
+def encoder_attention_bwd(qkv, weights, dctx):
+    """K11: the transformer encoder's self-attention core, backward (CUDA).
 
-    u [T,B,2d] bf16 (the first pointwise product), b_in [2d] bf16, dw [k,d]
-    f32 (the depthwise kernel), ln_scale / ln_bias [d] f32, lengths [B]
-    int32 -> [T,B,d] bf16: GLU, mask, depthwise conv, LayerNorm, swish.
+    The forward's qkv [B,T,3,nh,dh] bf16, its saved fp32 weights
+    [B,nh,T,T] and the context cotangent dctx [B,T,nh,dh] bf16 -> dqkv
+    [B,T,3,nh,dh] bf16, the cotangent of the [d, 3d] product (dq, dk and
+    dv written in place into its three views).
     """
+    dev = qkv.device
+    B, T, nh, dh = _check_encoder_attention(qkv, dev)
+    _check("weights", weights, torch.float32, (B, nh, T, T), dev)
+    _check("dctx", dctx, torch.bfloat16, (B, T, nh, dh), dev)
+    lib = _load()
+    dsc = torch.empty((B, nh, T, T), dtype=torch.bfloat16, device=dev)
+    dqkv = torch.empty_like(qkv)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.avsr_encoder_attn_bwd(qkv.data_ptr(), weights.data_ptr(), dctx.data_ptr(),
+                                    dsc.data_ptr(), dqkv.data_ptr(), B, T, nh, dh, stream)
+    _raise_on(err, "encoder_attention_bwd launch")
+    LAUNCHES["encoder_attention_bwd"] += 1
+    return dqkv
+
+
+def _check_conformer_conv(u, b_in, dw, ln_scale, ln_bias, lengths):
     T, B, d2 = u.shape
     d = d2 // 2
     k = dw.shape[0]
@@ -779,11 +810,23 @@ def conformer_conv_fwd(u, b_in, dw, ln_scale, ln_bias, lengths):
     if d2 % 4 or not 2 <= d <= CONV_MAX_D or k % 2 == 0 or T < 1 or B < 1:
         raise ValueError(f"conformer conv: u {tuple(u.shape)}, k={k}; the kernel takes an even "
                          f"d up to {CONV_MAX_D}, an odd k and T, B >= 1")
-    lib = _load()
-    smem = lib.avsr_conformer_conv_smem(d, k)
+    smem = _load().avsr_conformer_conv_smem(d, k)
     if smem > SMEM_LIMIT:
         raise ValueError(f"conformer conv: d={d}, k={k} need {smem} bytes of shared memory per "
                          f"block (limit {SMEM_LIMIT})")
+    return T, B, d, k, dev
+
+
+def conformer_conv_fwd(u, b_in, dw, ln_scale, ln_bias, lengths):
+    """K9: the conformer conv module between its two pointwise products,
+    forward (CUDA).
+
+    u [T,B,2d] bf16 (the first pointwise product), b_in [2d] bf16, dw [k,d]
+    f32 (the depthwise kernel), ln_scale / ln_bias [d] f32, lengths [B]
+    int32 -> [T,B,d] bf16: GLU, mask, depthwise conv, LayerNorm, swish.
+    """
+    T, B, d, k, dev = _check_conformer_conv(u, b_in, dw, ln_scale, ln_bias, lengths)
+    lib = _load()
     out = torch.empty((T, B, d), dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.avsr_conformer_conv(u.data_ptr(), b_in.data_ptr(), dw.data_ptr(),
@@ -792,3 +835,32 @@ def conformer_conv_fwd(u, b_in, dw, ln_scale, ln_bias, lengths):
     _raise_on(err, "conformer_conv_fwd launch")
     LAUNCHES["conformer_conv_fwd"] += 1
     return out
+
+
+def conformer_conv_bwd(u, b_in, dw, ln_scale, ln_bias, lengths, dout):
+    """K9: the conformer conv module's backward (CUDA), recomputing the
+    forward from its inputs.
+
+    The forward's operands and the output's cotangent dout [T,B,d] bf16 ->
+    (du [T,B,2d] bf16, db_in [2d], ddw [k,d], dln_scale [d], dln_bias [d],
+    all f32; db_in holds bf16 values, the transpose of the bias's cast).
+    """
+    T, B, d, k, dev = _check_conformer_conv(u, b_in, dw, ln_scale, ln_bias, lengths)
+    _check("dout", dout, torch.bfloat16, (T, B, d), dev)
+    lib = _load()
+    f32 = torch.float32
+    dx = torch.empty((T, B, d), dtype=f32, device=dev)
+    part = torch.empty((lib.avsr_conformer_conv_bwd_parts(T, B), (k + 4) * d), dtype=f32,
+                       device=dev)
+    du = torch.empty((T, B, 2 * d), dtype=torch.bfloat16, device=dev)
+    grads = torch.empty(((k + 4) * d,), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.avsr_conformer_conv_bwd(u.data_ptr(), b_in.data_ptr(), dw.data_ptr(),
+                                      ln_scale.data_ptr(), ln_bias.data_ptr(),
+                                      lengths.data_ptr(), dout.data_ptr(), dx.data_ptr(),
+                                      part.data_ptr(), du.data_ptr(), grads.data_ptr(),
+                                      T, B, d, k, stream)
+    _raise_on(err, "conformer_conv_bwd launch")
+    LAUNCHES["conformer_conv_bwd"] += 1
+    ddw, dln_scale, dln_bias, db_in = grads.split([k * d, d, d, 2 * d])
+    return du, db_in, ddw.view(k, d), dln_scale, dln_bias

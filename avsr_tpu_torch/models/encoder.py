@@ -6,9 +6,9 @@ Time-major [T, B, D] throughout.  Pyramidal time reduction folds r
 consecutive frames into the feature dim before a layer (padded steps are
 zeroed first, so a partly valid last group carries zeros).  In train mode
 each BiLSTM layer's output gets inverted dropout (the reference's
-``_post_layer``), drawn from the step's generator; recurrent dropout and
-the residual / highway / LN variants are not ported and raise, and so does
-the transformer stack's train-mode dropout.
+``_post_layer``), and each transformer layer its residual-branch dropout,
+drawn from the step's generator; recurrent dropout and the residual /
+highway / LN variants of the BiLSTM stack are not ported and raise.
 """
 
 from __future__ import annotations
@@ -105,10 +105,11 @@ def encoder_apply(params: Params, cfg: EncoderConfig, x_tbd: torch.Tensor,
     """[T, B, D] features -> ([T_out, B, 2H] fp32 (d for the transformer),
     zeros at padded steps; final state of the last layer, or the
     transformer's summary).  ``train`` with a generator applies the BiLSTM
-    layers' output dropout."""
+    layers' output dropout or the transformer layers' branch dropout."""
     _check_supported(cfg)
     if cfg.encoder_type == "transformer":
-        return tfm.transformer_encoder_apply(params, cfg, x_tbd, lengths, cdt, train=train)
+        return tfm.transformer_encoder_apply(params, cfg, x_tbd, lengths, cdt, train=train,
+                                             generator=generator)
     if train and cfg.recurrent_dropout_rate > 0.0:
         raise ValueError("recurrent dropout is not ported")
     mask = _step_mask(x_tbd.shape[0], lengths)

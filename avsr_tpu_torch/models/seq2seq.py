@@ -3,9 +3,9 @@
 The port covers the ``av_align`` architecture in two structures:
 
 * cross-attention fusion and the transformer decoder: the
-  ``lrs2_av_fast`` preset's, with BiLSTM encoders (serving, eval decode
-  and training), and the scan-free ``lrs2_av_v2`` preset's, with
-  transformer encoders (serving and eval decode; its train mode raises);
+  ``lrs2_av_fast`` preset's, with BiLSTM encoders, and the scan-free
+  ``lrs2_av_v2`` preset's, with transformer encoders (serving, eval decode
+  and training, both);
 * the ``lrs2_av_align`` preset's (the reference-dims model): the
   recurrent AV-Align fusion (the fusion LSTM with Bahdanau reads of the
   video memory, fused memory [h ; ctx]) and the attention-LSTM decoder

@@ -18,35 +18,44 @@ residual stream carry garbage between layers (attention never reads them:
 padded keys are masked), so the conv module masks its input and again
 after the GLU; LayerNorm eps 1e-6 (``transformer_common.layer_norm``).
 
-Two cores are kernels; the products, LayerNorms, FFN and residuals stay
-torch code, as the reference leaves them to XLA:
+Two cores are kernels, forward and backward; the products, LayerNorms,
+FFN and residuals stay torch code, as the reference leaves them to XLA:
 
 * K11, the self-attention core (``transformer.py:204-224``):
   ``encoder_self_attention`` launches ``csrc/encoder_attention.cu`` on the
   one [d, 3d] product, read in place, for GPU tensors and runs
-  ``encoder_self_attention_plain`` for CPU tensors;
+  ``encoder_self_attention_plain`` for CPU tensors.  When a gradient is
+  asked it goes through ``EncoderSelfAttention``: the forward saves its
+  fp32 weights and the backward kernel writes the cotangent of the [d, 3d]
+  product (``encoder_self_attention_bwd_plain`` on the CPU);
 * K9, the conformer conv module between its two pointwise products
   (``transformer.py:231-266``: bias, GLU, mask, depthwise conv, LayerNorm,
   swish): ``conformer_conv`` launches ``csrc/conformer_conv.cu`` for GPU
-  tensors and runs ``conformer_conv_plain`` for CPU tensors.
+  tensors and runs ``conformer_conv_plain`` for CPU tensors; with a
+  gradient, through ``ConformerConv``, whose backward kernel recomputes the
+  forward from its inputs (``conformer_conv_bwd_plain`` on the CPU).
 
-Only the forward is ported: both kernels have no backward yet, so a
-wrapper asked for a gradient on the card raises, and so does train mode
-with encoder dropout (``dropout_rate > 0``) anywhere.
+Both backward twins are hand-written with the rounding points of JAX's
+autodiff of the reference under the bf16 policy.  In train mode each
+layer's three residual branches (attention after ``wo``, the conv module
+after ``conv_w_out``, the FFN after ``ff_w2``) get the reference's inverted
+dropout, drawn in that order from the step's generator.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from avsr_tpu_torch import kernels
 from avsr_tpu_torch.configs import EncoderConfig
-from avsr_tpu_torch.models.fusion import fusion_attention_fwd_plain
+from avsr_tpu_torch.models.fusion import fusion_attention_bwd_plain, fusion_attention_fwd_plain
 from avsr_tpu_torch.models.transformer_common import layer_norm, sinusoidal_pe
 from avsr_tpu_torch.utils.params import Params, glorot_uniform, zeros
+from avsr_tpu_torch.utils.rng import dropout_mask
 
 
 def validate_transformer_config(cfg: EncoderConfig) -> int:
@@ -128,31 +137,86 @@ def transformer_encoder_init(gen: torch.Generator, cfg: EncoderConfig, input_dim
     return params
 
 
-def _no_gradient_on_the_card(what: str, *tensors) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{what}: the kernel's backward is not ported; run the encoder under "
-            "torch.inference_mode() or torch.no_grad() on the card")
+def _check_policy(x: torch.Tensor, what: str) -> None:
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"the {what} kernels run the bf16 policy only, got {x.dtype}")
+
+
+def encoder_self_attention_fwd_plain(qkv: torch.Tensor, lengths: torch.Tensor, *,
+                                     save: bool = False):
+    """Plain-PyTorch K11 forward: qkv [B,T,3,nh,dh] in the compute dtype (the
+    [d, 3d] product), lengths [B] -> (ctx [B,T,nh,dh] in the compute dtype,
+    the fp32 weights [B,nh,T,T] when ``save``, else None).  K4's plain core
+    with T_q = T_k and the stack's own lengths as the key mask."""
+    q, k, v = qkv.unbind(2)
+    ctx, w = fusion_attention_fwd_plain(q, k, v, lengths)
+    return ctx, (w if save else None)
 
 
 def encoder_self_attention_plain(qkv: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """Plain-PyTorch K11: qkv [B,T,3,nh,dh] in the compute dtype (the [d, 3d]
-    product), lengths [B] -> ctx [B,T,nh,dh] in the compute dtype.  K4's
-    plain core with T_q = T_k and the stack's own lengths as the key mask."""
+    """Plain-PyTorch K11, the context alone."""
+    return encoder_self_attention_fwd_plain(qkv, lengths)[0]
+
+
+def encoder_self_attention_bwd_plain(qkv: torch.Tensor, weights: torch.Tensor,
+                                     dctx: torch.Tensor) -> torch.Tensor:
+    """Plain-PyTorch K11 backward: the forward's qkv, its fp32 weights
+    [B,nh,T,T] and the context cotangent -> dqkv [B,T,3,nh,dh], the
+    cotangent of the [d, 3d] product.  K4's plain backward (the rounding
+    points of JAX's autodiff) on the three views."""
     q, k, v = qkv.unbind(2)
-    return fusion_attention_fwd_plain(q, k, v, lengths)[0]
+    return torch.stack(fusion_attention_bwd_plain(q, k, v, weights, dctx), dim=2)
+
+
+def encoder_self_attention_fwd(qkv: torch.Tensor, lengths: torch.Tensor, *, save: bool):
+    """K11 forward: (ctx, the fp32 weights when ``save``, else None); the
+    CUDA kernel for GPU tensors (bf16 policy), the plain version on the
+    CPU."""
+    if qkv.device.type == "cpu":
+        return encoder_self_attention_fwd_plain(qkv, lengths, save=save)
+    _check_policy(qkv, "encoder attention")
+    return kernels.encoder_attention_fwd(qkv.contiguous(), lengths.to(torch.int32).contiguous(),
+                                         save=save)
+
+
+def encoder_self_attention_bwd(qkv: torch.Tensor, weights: torch.Tensor,
+                               dctx: torch.Tensor) -> torch.Tensor:
+    """K11 backward: the CUDA kernel for GPU tensors, the plain twin on the
+    CPU; same contract as ``encoder_self_attention_bwd_plain``."""
+    if qkv.device.type == "cpu":
+        return encoder_self_attention_bwd_plain(qkv, weights, dctx)
+    _check_policy(qkv, "encoder attention")
+    return kernels.encoder_attention_bwd(qkv.contiguous(), weights.contiguous(),
+                                         dctx.to(torch.bfloat16).contiguous())
+
+
+class EncoderSelfAttention(torch.autograd.Function):
+    """K11 with its gradient: ctx from the [d, 3d] product and the lengths.
+    The forward saves the fp32 weights for the backward."""
+
+    @staticmethod
+    def forward(ctx, qkv, lengths):
+        out, w = encoder_self_attention_fwd(qkv, lengths, save=True)
+        ctx.save_for_backward(qkv, w)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, w = ctx.saved_tensors
+        return encoder_self_attention_bwd(qkv, w, dout), None
 
 
 def encoder_self_attention(qkv: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """K11 wrapper: the CUDA kernel for GPU tensors (bf16 policy, no
-    gradient), the plain version on the CPU; same contract as
-    ``encoder_self_attention_plain``."""
-    if qkv.device.type == "cpu":
-        return encoder_self_attention_plain(qkv, lengths)
-    if qkv.dtype != torch.bfloat16:
-        raise ValueError(f"the encoder attention kernel runs the bf16 policy only, got {qkv.dtype}")
-    _no_gradient_on_the_card("encoder self attention", qkv)
-    return kernels.encoder_attention_fwd(qkv.contiguous(), lengths.to(torch.int32).contiguous())
+    """K11 as the stack calls it: through ``EncoderSelfAttention`` when
+    autograd records a gradient for qkv, else straight to the forward,
+    saving nothing; same contract as ``encoder_self_attention_plain``."""
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return EncoderSelfAttention.apply(qkv, lengths)
+    return encoder_self_attention_fwd(qkv, lengths, save=False)[0]
+
+
+def _conv_mask(u: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    return (torch.arange(u.shape[0], device=u.device)[:, None] < lengths[None, :]).to(u.dtype)
 
 
 def conformer_conv_plain(u: torch.Tensor, b_in: torch.Tensor, dw: torch.Tensor,
@@ -163,10 +227,9 @@ def conformer_conv_plain(u: torch.Tensor, b_in: torch.Tensor, dw: torch.Tensor,
     depthwise LayerNorm's scale / bias [d], lengths [B] -> [T,B,d] in the
     compute dtype, the operand of the second pointwise product."""
     cdt = u.dtype
-    T, _, d2 = u.shape
-    d, k = d2 // 2, dw.shape[0]
-    mask = (torch.arange(T, device=u.device)[:, None] < lengths[None, :]).to(cdt)
-    a, gate = (u + b_in.to(cdt)).split(d2 // 2, dim=-1)
+    d, k = u.shape[-1] // 2, dw.shape[0]
+    mask = _conv_mask(u, lengths)
+    a, gate = (u + b_in.to(cdt)).split(d, dim=-1)
     y = a * torch.sigmoid(gate) * mask[:, :, None]               # GLU, padded steps zeroed
     x = F.conv1d(y.float().permute(1, 2, 0), dw.float()[:, 0, :].t()[:, None, :],
                  padding=k // 2, groups=d)                       # [B, d, T], SAME
@@ -174,34 +237,130 @@ def conformer_conv_plain(u: torch.Tensor, b_in: torch.Tensor, dw: torch.Tensor,
     return (z * torch.sigmoid(z)).to(cdt)                        # swish
 
 
-def conformer_conv(u: torch.Tensor, b_in: torch.Tensor, dw: torch.Tensor,
-                   ln_scale: torch.Tensor, ln_bias: torch.Tensor,
-                   lengths: torch.Tensor) -> torch.Tensor:
-    """K9 wrapper: the CUDA kernel for GPU tensors (bf16 policy, no
-    gradient), the plain version on the CPU; same contract as
-    ``conformer_conv_plain``."""
+def conformer_conv_bwd_plain(u: torch.Tensor, b_in: torch.Tensor, dw: torch.Tensor,
+                             ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                             lengths: torch.Tensor, dout: torch.Tensor):
+    """Plain-PyTorch K9 backward, recomputing the forward: the forward's
+    operands and the output's cotangent dout [T,B,d] -> (du [T,B,2d] in the
+    compute dtype, db_in, ddw [k,1,d], dln_scale, dln_bias in their
+    parameters' dtypes).  The rounding points of JAX's autodiff of the
+    reference: the swish, LayerNorm and conv backward in fp32; the conv
+    input's cotangent rounded to the compute dtype (the transpose of its
+    cast to fp32), the mask, then the GLU backward in the compute dtype with
+    the logistic JVP ``t * (s * sigmoid(-gate))``; db_in the fp32 sum of du
+    rounded once to the compute dtype (the transpose of the bias's cast)."""
+    cdt = u.dtype
+    T = u.shape[0]
+    d, k = u.shape[-1] // 2, dw.shape[0]
+    half = k // 2
+    mask = _conv_mask(u, lengths)[:, :, None]
+    a, gate = (u + b_in.to(cdt)).split(d, dim=-1)
+    s = torch.sigmoid(gate)
+    y = (a * s * mask).float()
+    w = dw.float()[:, 0, :]                                      # [k, d]
+    yp = F.pad(y, (0, 0, 0, 0, half, half))                      # [T + k - 1, B, d]
+    x = sum(yp[j:j + T] * w[j] for j in range(k))
+    mu = x.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt((x - mu).square().mean(dim=-1, keepdim=True) + 1e-6)
+    xh = (x - mu) * rstd
+    z = xh * ln_scale.float() + ln_bias.float()
+    sz = torch.sigmoid(z)
+    g = dout.float()
+    dz = g * sz + (z * g) * (sz * torch.sigmoid(-z))             # swish
+    dln_scale = (dz * xh).sum(dim=(0, 1))
+    dln_bias = dz.sum(dim=(0, 1))
+    dxh = dz * ln_scale.float()
+    dx = rstd * (dxh - dxh.mean(dim=-1, keepdim=True)
+                 - xh * (dxh * xh).mean(dim=-1, keepdim=True))   # LayerNorm
+    ddw = torch.stack([(yp[j:j + T] * dx).sum(dim=(0, 1)) for j in range(k)])
+    dxp = F.pad(dx, (0, 0, 0, 0, half, half))
+    dy = sum(dxp[k - 1 - j:k - 1 - j + T] * w[j] for j in range(k))  # taps reversed
+    dy = dy.to(cdt) * mask
+    da = dy * s
+    dgate = (dy * a) * (s * torch.sigmoid(-gate))                # GLU
+    du = torch.cat([da, dgate], dim=-1)
+    db_in = du.float().sum(dim=(0, 1)).to(cdt)
+    return (du, db_in.to(b_in.dtype), ddw[:, None, :].to(dw.dtype), dln_scale.to(ln_scale.dtype),
+            dln_bias.to(ln_bias.dtype))
+
+
+def conformer_conv_fwd(u: torch.Tensor, b_in: torch.Tensor, dw: torch.Tensor,
+                       ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                       lengths: torch.Tensor) -> torch.Tensor:
+    """K9 forward: the CUDA kernel for GPU tensors (bf16 policy), the plain
+    version on the CPU; same contract as ``conformer_conv_plain``."""
     if u.device.type == "cpu":
         return conformer_conv_plain(u, b_in, dw, ln_scale, ln_bias, lengths)
-    if u.dtype != torch.bfloat16:
-        raise ValueError(f"the conformer conv kernel runs the bf16 policy only, got {u.dtype}")
-    _no_gradient_on_the_card("conformer conv", u, b_in, dw, ln_scale, ln_bias)
+    _check_policy(u, "conformer conv")
     return kernels.conformer_conv_fwd(
         u.contiguous(), b_in.to(torch.bfloat16).contiguous(),
         dw.float().reshape(dw.shape[0], -1).contiguous(), ln_scale.float().contiguous(),
         ln_bias.float().contiguous(), lengths.to(torch.int32).contiguous())
 
 
+def conformer_conv_bwd(u: torch.Tensor, b_in: torch.Tensor, dw: torch.Tensor,
+                       ln_scale: torch.Tensor, ln_bias: torch.Tensor, lengths: torch.Tensor,
+                       dout: torch.Tensor):
+    """K9 backward: the CUDA kernel for GPU tensors, the plain twin on the
+    CPU; same contract as ``conformer_conv_bwd_plain``."""
+    if u.device.type == "cpu":
+        return conformer_conv_bwd_plain(u, b_in, dw, ln_scale, ln_bias, lengths, dout)
+    _check_policy(u, "conformer conv")
+    du, db_in, ddw, dln_scale, dln_bias = kernels.conformer_conv_bwd(
+        u.contiguous(), b_in.to(torch.bfloat16).contiguous(),
+        dw.float().reshape(dw.shape[0], -1).contiguous(), ln_scale.float().contiguous(),
+        ln_bias.float().contiguous(), lengths.to(torch.int32).contiguous(),
+        dout.to(torch.bfloat16).contiguous())
+    return (du, db_in.to(b_in.dtype), ddw.reshape(dw.shape).to(dw.dtype),
+            dln_scale.to(ln_scale.dtype), dln_bias.to(ln_bias.dtype))
+
+
+class ConformerConv(torch.autograd.Function):
+    """K9 with its gradient; the backward recomputes the forward from the
+    saved inputs."""
+
+    @staticmethod
+    def forward(ctx, u, b_in, dw, ln_scale, ln_bias, lengths):
+        ctx.save_for_backward(u, b_in, dw, ln_scale, ln_bias, lengths)
+        return conformer_conv_fwd(u, b_in, dw, ln_scale, ln_bias, lengths)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return (*conformer_conv_bwd(*ctx.saved_tensors, dout), None)
+
+
+def conformer_conv(u: torch.Tensor, b_in: torch.Tensor, dw: torch.Tensor,
+                   ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                   lengths: torch.Tensor) -> torch.Tensor:
+    """K9 as the stack calls it: through ``ConformerConv`` when autograd
+    records a gradient for any operand, else straight to the forward; same
+    contract as ``conformer_conv_plain``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (u, b_in, dw, ln_scale, ln_bias)):
+        return ConformerConv.apply(u, b_in, dw, ln_scale, ln_bias, lengths)
+    return conformer_conv_fwd(u, b_in, dw, ln_scale, ln_bias, lengths)
+
+
+def _dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """The reference's ``inverted_dropout``: ``where(keep, x / keep_prob, 0)``,
+    the keep mask drawn through ``rng.dropout_mask``."""
+    keep = 1.0 - rate
+    return torch.where(dropout_mask(generator, keep, x.shape) > 0, x / keep, 0.0)
+
+
 def transformer_encoder_apply(params: Params, cfg: EncoderConfig, x_tbd: torch.Tensor,
-                              lengths: torch.Tensor, cdt: torch.dtype, *, train: bool = False):
+                              lengths: torch.Tensor, cdt: torch.dtype, *, train: bool = False,
+                              generator: Optional[torch.Generator] = None):
     """[T, B, D] features -> ([T_out, B, d] fp32, zeros at padded steps;
     (summary,)), the summary being the masked mean over valid output steps
-    (no caller reads it).  Train mode with ``dropout_rate > 0`` raises."""
+    (no caller reads it).  Train mode with ``dropout_rate > 0`` drops out
+    each layer's attention, conv and FFN branches, drawing from
+    ``generator``."""
     from avsr_tpu_torch.models.encoder import _step_mask, _time_reduce, time_reductions
 
     d = validate_transformer_config(cfg)
-    if train and cfg.dropout_rate > 0.0:
-        raise NotImplementedError(
-            "train mode with dropout in the transformer encoder is not ported")
+    drop = cfg.dropout_rate if train else 0.0
+    if drop > 0.0 and generator is None:
+        raise ValueError("train mode with encoder dropout needs a generator")
     reductions = time_reductions(cfg)
     nh = cfg.num_heads
     dev = x_tbd.device
@@ -229,7 +388,8 @@ def transformer_encoder_apply(params: Params, cfg: EncoderConfig, x_tbd: torch.T
         wqkv = torch.cat([layer["wq"].to(cdt), layer["wk"].to(cdt), layer["wv"].to(cdt)], dim=1)
         qkv = (y @ wqkv).reshape(B, Tl, 3, nh, d // nh)
         ctx = encoder_self_attention(qkv, lengths).reshape(B, Tl, d)
-        h = h + (ctx @ layer["wo"].to(cdt)).transpose(0, 1).float()
+        att = (ctx @ layer["wo"].to(cdt)).transpose(0, 1).float()
+        h = h + (_dropout(att, drop, generator) if drop > 0.0 else att)
 
         # conformer conv module (pre-LN): pointwise, K9, pointwise
         if cfg.conv_kernel is not None:
@@ -237,12 +397,14 @@ def transformer_encoder_apply(params: Params, cfg: EncoderConfig, x_tbd: torch.T
             u = (y * mask[:, :, None]).to(cdt) @ layer["conv_w_in"].to(cdt)
             y = conformer_conv(u, layer["conv_b_in"], layer["conv_dw"],
                                layer["conv_dw_ln_scale"], layer["conv_dw_ln_bias"], lengths)
-            h = h + (y @ layer["conv_w_out"].to(cdt) + layer["conv_b_out"].to(cdt)).float()
+            y = (y @ layer["conv_w_out"].to(cdt) + layer["conv_b_out"].to(cdt)).float()
+            h = h + (_dropout(y, drop, generator) if drop > 0.0 else y)
 
         # feed-forward (pre-LN), tanh-form GELU
         y = layer_norm(h, layer["ln2_scale"], layer["ln2_bias"]).to(cdt)
         y = F.gelu(y @ layer["ff_w1"].to(cdt) + layer["ff_b1"].to(cdt), approximate="tanh")
-        h = h + (y @ layer["ff_w2"].to(cdt) + layer["ff_b2"].to(cdt)).float()
+        y = (y @ layer["ff_w2"].to(cdt) + layer["ff_b2"].to(cdt)).float()
+        h = h + (_dropout(y, drop, generator) if drop > 0.0 else y)
 
     out = layer_norm(h, params["ln_f_scale"], params["ln_f_bias"]) * mask[:, :, None]
     summary = out.sum(dim=0) / torch.clamp(mask.sum(dim=0), min=1.0)[:, None]

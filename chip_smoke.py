@@ -122,6 +122,27 @@ Phases, in order; any failure exits nonzero before the final line:
              train state's): no output may carry a graph, no autograd
              Function of the port may be entered and every decoder step
              must run with autograd off.
+25. K11 bwd — the encoder self-attention backward (and the save-mode
+             forward that writes its weights) against the plain twins at
+             [B=128, 8 heads, T=197, dh=64] and at T=531, B=4, ragged with a
+             0-length row (its dv must be the mean of dctx): errors on
+             ctx, P and dq, dk, dv; times, device time, the bound and the
+             library yardstick (scaled_dot_product_attention's backward,
+             same mask).
+26. K9 bwd — the conformer conv module's backward against its plain twin at
+             [T=197, B=128, d=512, k=15] and at T=531, B=4, ragged with a
+             0-length row: errors on du, db_in, ddw, dln_scale, dln_bias,
+             each to its own tolerance; the padded steps' du exactly zero;
+             two runs bit-equal; times and the yardstick (the depthwise
+             conv1d backward alone).
+27. train-v2 — the full-width ``lrs2_av_v2`` train step at B=128, 6 s,
+             label cap 80, AU targets, encoder dropout 0.1, noise mixing on,
+             as phase 8: (a) the loss and every gradient leaf of the kernel
+             path against the plain path with the same generator, every
+             leaf present, finite and nonzero; (b) every kernel of the path
+             launched (K11 and K9 forward and backward among them); (c) 10
+             steps at a constant lr 3e-5, the loss falling; (d) ms per step,
+             frames/s, peak memory and a profile.
 
 Serve (5, 15, 22) also beams the same memories through the plain path and
 holds the best scores to a tolerance.  Each serve and greedy path and the
@@ -207,6 +228,19 @@ K11_CTX_TOL = 2e-2
 # the swish reaches 4-5, where one ulp is 3.1e-2).
 K9_TOL = 2e-2
 K9_ULP = 2.0 ** -7
+# K11 backward: K4's, for the same reasons (bf16 gradients, relative to the
+# largest plain value); the saved weights as K4's P.
+K11_GRAD_REL_TOL = K4_GRAD_REL_TOL
+# K9 backward, max abs error over max |plain|: du is bf16, and an fp32 sum
+# of the conv's transpose that lands on the other side of dy's bf16
+# rounding moves da and dgate by one ulp of dy (2^-8 to 2^-7 of it): 2e-2.
+# ddw and the LayerNorm's gradients are fp32 sums over B*T = 25,216 rows of
+# fp32 terms taken in another order, with cancellation: 1e-3 of the largest.
+# db_in is the fp32 sum of du rounded to bf16: du's one-ulp flips and one
+# bf16 rounding (2^-8): 1e-2.
+K9_DU_REL_TOL = 2e-2
+K9_PARAM_REL_TOL = 1e-3
+K9_DB_REL_TOL = 1e-2
 # serve: best beam scores of the kernel and the plain path, 150 steps of
 # log probs (~-600) whose logits differ by bf16 ulps at each K6 read; near
 # ties may send the two beams down different, equally scored paths.
@@ -237,6 +271,9 @@ TRAIN_ALIGN_KERNELS = ("lstm_scan_fwd", "lstm_scan_bwd", "logmel_post_dft", "av_
 REPORT_KEYS = ("max_abs_err", "ms", "plain_ms", "bound", "library_ms", "device_ms")
 SERVE_V2_KERNELS = ("logmel_post_dft", "encoder_attention_fwd", "conformer_conv_fwd",
                     "fusion_attention_fwd", "decode_attention", "beam_step")
+TRAIN_V2_KERNELS = ("logmel_post_dft", "encoder_attention_fwd", "encoder_attention_bwd",
+                    "conformer_conv_fwd", "conformer_conv_bwd", "fusion_attention_fwd",
+                    "fusion_attention_bwd", "decoder_attention_fwd", "decoder_attention_bwd")
 
 
 def fail(phase: str, msg: str) -> None:
@@ -539,8 +576,12 @@ def plain_cores():
             mock.patch.object(fus, "av_align_scan_bwd", fus.av_align_scan_bwd_plain), \
             mock.patch.object(attn, "attend_fwd", attn.attend_plain), \
             mock.patch.object(attn, "attend_bwd", attn.attend_bwd_plain), \
-            mock.patch.object(tfm, "encoder_self_attention", tfm.encoder_self_attention_plain), \
-            mock.patch.object(tfm, "conformer_conv", tfm.conformer_conv_plain):
+            mock.patch.object(tfm, "encoder_self_attention_fwd",
+                              tfm.encoder_self_attention_fwd_plain), \
+            mock.patch.object(tfm, "encoder_self_attention_bwd",
+                              tfm.encoder_self_attention_bwd_plain), \
+            mock.patch.object(tfm, "conformer_conv_fwd", tfm.conformer_conv_plain), \
+            mock.patch.object(tfm, "conformer_conv_bwd", tfm.conformer_conv_bwd_plain):
         yield
 
 
@@ -789,9 +830,9 @@ def phase_k4(dev, report):
         bound=bound(nbytes(q, k, v, w_p, dctx, *g_k), 2 * pairs * 512))
 
 
-def phase_train(dev, card, cfg, label="train", needed=TRAIN_KERNELS):
+def phase_train(dev, card, cfg, label="train", needed=TRAIN_KERNELS, lr=1e-4):
     """The full-width train step of ``cfg``'s model; ``needed`` kernels
-    must launch during its steps."""
+    must launch during its steps, which run at the constant ``lr``."""
     import dataclasses
 
     import torch
@@ -839,11 +880,12 @@ def phase_train(dev, card, cfg, label="train", needed=TRAIN_KERNELS):
         fail(label, "kernel path disagrees with the plain path")
 
     # (b)-(d): 10 steps on the batch at a constant lr, launches counted.  The
-    # preset warms up to 1e-3 over 400 steps; a constant 1e-3 from random
+    # presets warm up to 1e-3 over 400 steps; a constant 1e-3 from random
     # weights overshoots (Adam's first steps move every weight by ~lr), so
-    # the check runs at a tenth of the peak.
+    # the check runs at a tenth of the peak, or lower where the model needs
+    # it.
     cfg_c = cfg.replace(train=dataclasses.replace(cfg.train, lr_schedule="constant",
-                                                  learning_rate=1e-4))
+                                                  learning_rate=lr))
     state, opt = tstep.create_train_state(cfg_c, V, torch.Generator().manual_seed(0), dev)
     gen = torch.Generator().manual_seed(11)
     torch.cuda.synchronize()
@@ -1191,6 +1233,7 @@ def decode_records_no_autograd(dev, cfg, params, batch, res, label):
     from avsr_tpu_torch.decode.greedy import greedy_decode
     from avsr_tpu_torch.models import decoder as dec
     from avsr_tpu_torch.models import fusion as fus
+    from avsr_tpu_torch.models import transformer as tfm
     from avsr_tpu_torch.models import transformer_decoder as tdec
     from avsr_tpu_torch.ops import attention as attn
     from avsr_tpu_torch.ops import rnn
@@ -1210,7 +1253,8 @@ def decode_records_no_autograd(dev, cfg, params, batch, res, label):
 
     with contextlib.ExitStack() as stack:
         for fn in (rnn.BiLSTMScanCore, fus.AVAlignScan, fus.FusionAttention,
-                   tdec.DecoderAttention, attn.BahdanauAttend):
+                   tdec.DecoderAttention, attn.BahdanauAttend, tfm.EncoderSelfAttention,
+                   tfm.ConformerConv):
             stack.enter_context(mock.patch.object(
                 fn, "apply", side_effect=RuntimeError(f"{fn.__name__} was entered")))
         stack.enter_context(mock.patch.object(dec, "decoder_step", recording_step))
@@ -1606,6 +1650,138 @@ def phase_k9(dev, report):
                                         library_covers="the depthwise conv1d alone")
 
 
+def phase_k11_bwd(dev, report):
+    import torch
+    import torch.nn.functional as F
+
+    from avsr_tpu_torch.models import transformer as tfm
+
+    errs, abs_errs = {}, {}
+    for B, T in ((128, 197), (4, 531)):
+        qkv, lens = k11_inputs(B, T, dev, seed=T + 2)
+        g = torch.Generator().manual_seed(T + 3)
+        dctx = torch.randn((B, T, 8, 64), generator=g).to(torch.bfloat16).to(dev)
+        ctx_k, w_k = tfm.encoder_self_attention_fwd(qkv, lens, save=True)
+        ctx_p, w_p = tfm.encoder_self_attention_fwd_plain(qkv, lens, save=True)
+        g_k = tfm.encoder_self_attention_bwd(qkv, w_p, dctx)
+        g_p = tfm.encoder_self_attention_bwd_plain(qkv, w_p, dctx)
+        torch.cuda.synchronize()
+        fwd = {"ctx": max_err(ctx_k, ctx_p), "P": max_err(w_k, w_p)}
+        rel = {n: rel_err(g_k[:, :, i], g_p[:, :, i]) for i, n in enumerate(("dq", "dk", "dv"))}
+        # a row of length 0 attends uniformly: each of its values takes the
+        # mean of dctx over the queries
+        uni = max_err(g_k[1, :, 2], dctx[1].float().mean(dim=0).expand_as(g_k[1, :, 2]))
+        print(f"K11 bwd [B={B},8 heads,T={T},dh=64] save-mode forward max abs err {fwd} (tol ctx "
+              f"{K11_CTX_TOL}, P {K4_P_TOL}); dqkv relative to max |plain| {rel} (tol "
+              f"{K11_GRAD_REL_TOL}); length-0 row's dv against the mean of dctx: {uni}")
+        if not (torch.isfinite(g_k.float()).all() and fwd["ctx"] <= K11_CTX_TOL
+                and fwd["P"] <= K4_P_TOL and max(rel.values()) <= K11_GRAD_REL_TOL
+                and uni <= K11_CTX_TOL):
+            fail("K11 bwd", f"kernels disagree with the plain twins at T={T}: {fwd} {rel} {uni}")
+        errs[T] = max(rel.values())
+        abs_errs[T] = max_err(g_k, g_p)
+    qkv, lens = k11_inputs(128, 197, dev, seed=199)
+    B, T, _, nh, dh = qkv.shape
+    dctx = torch.randn((B, T, nh, dh), generator=torch.Generator().manual_seed(200))
+    dctx = dctx.to(torch.bfloat16).to(dev)
+    _, w = tfm.encoder_self_attention_fwd_plain(qkv, lens, save=True)
+    dqkv = tfm.encoder_self_attention_bwd(qkv, w, dctx)
+    tk = time_ms(lambda: tfm.encoder_self_attention_bwd(qkv, w, dctx))
+    tp = time_ms(lambda: tfm.encoder_self_attention_bwd_plain(qkv, w, dctx))
+    dms = device_ms(lambda: tfm.encoder_self_attention_bwd(qkv, w, dctx))
+    t_save = time_ms(lambda: tfm.encoder_self_attention_fwd(qkv, lens, save=True))
+    # the library yardstick: the device time of autograd's forward and
+    # backward through scaled_dot_product_attention with the same additive
+    # mask, less its forward's (a difference of host-clocked calls swings
+    # with the host's dispatch)
+    lib_mask = ((torch.arange(T, device=dev)[None, :] >= lens[:, None]).float()
+                * -1e9).to(torch.bfloat16)[:, None, None, :]
+    qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in qkv.unbind(2))
+    dct = dctx.transpose(1, 2).contiguous()
+
+    def lib_fwd_bwd():
+        out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=lib_mask)
+        torch.autograd.grad(out, (qs, ks, vs), dct)
+
+    with torch.no_grad():
+        t_lib_fwd = device_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                                     attn_mask=lib_mask))
+    tl = device_ms(lib_fwd_bwd) - t_lib_fwd
+    b = bound(nbytes(qkv, lens, dctx, dqkv), 4 * 2 * B * nh * T * T * dh)
+    print(f"K11 bwd [B=128,8 heads,T=197,dh=64] kernel {tk:.4f} ms (device {dms:.4f} ms)  plain "
+          f"{tp:.4f} ms  library (scaled_dot_product_attention backward, same mask, device) "
+          f"{tl:.4f} ms  bound {b[0]:.5f} ms ({b[1]}); the save-mode forward {t_save:.4f} ms")
+    report["encoder_attention_bwd"] = dict(max_abs_err=max(abs_errs.values()), ms=tk, plain_ms=tp,
+                                           library_ms=tl, device_ms=dms, bound=b,
+                                           max_rel_err=max(errs.values()),
+                                           save_forward_ms=t_save)
+
+
+def phase_k9_bwd(dev, report):
+    import torch
+    import torch.nn.functional as F
+
+    from avsr_tpu_torch.models import transformer as tfm
+
+    names = ("du", "db_in", "ddw", "dln_scale", "dln_bias")
+    tols = (K9_DU_REL_TOL, K9_DB_REL_TOL, K9_PARAM_REL_TOL, K9_PARAM_REL_TOL, K9_PARAM_REL_TOL)
+    abs_errs = {}
+    for B, T in ((128, 197), (4, 531)):
+        args = k9_inputs(B, T, dev, seed=T + 5)
+        lens = args[-1]
+        dout = torch.randn((T, B, 512), generator=torch.Generator().manual_seed(T + 6))
+        dout = dout.to(torch.bfloat16).to(dev)
+        g_k = tfm.conformer_conv_bwd(*args, dout)
+        g_p = tfm.conformer_conv_bwd_plain(*args, dout)
+        g_k2 = tfm.conformer_conv_bwd(*args, dout)
+        torch.cuda.synchronize()
+        rel = {n: rel_err(a, b) for n, a, b in zip(names, g_k, g_p)}
+        same = all(torch.equal(a, b) for a, b in zip(g_k, g_k2))
+        padded = (torch.arange(T, device=dev)[:, None] >= lens[None, :])
+        pad_zero = bool((g_k[0][padded] == 0).all())
+        print(f"K9 bwd [T={T},B={B},d=512,k=15] relative to max |plain| "
+              f"{ {n: f'{e:.3e}' for n, e in rel.items()} } (tol du {K9_DU_REL_TOL}, db_in "
+              f"{K9_DB_REL_TOL}, ddw / dln {K9_PARAM_REL_TOL}); padded steps' du zero: "
+              f"{pad_zero}; two runs bit-equal: {same}")
+        if not (all(torch.isfinite(x.float()).all() for x in g_k) and pad_zero and same
+                and all(rel[n] <= t for n, t in zip(names, tols))):
+            fail("K9 bwd", f"kernels disagree with the plain twin at T={T}: {rel}, padded "
+                           f"rows zero {pad_zero}, deterministic {same}")
+        abs_errs[T] = max(max_err(a, b) for a, b in zip(g_k, g_p))
+    args = k9_inputs(128, 197, dev, seed=203)
+    u, _, dw, *_ = args
+    T, B, d2 = u.shape
+    d, k = d2 // 2, dw.shape[0]
+    dout = torch.randn((T, B, d), generator=torch.Generator().manual_seed(204))
+    dout = dout.to(torch.bfloat16).to(dev)
+    grads = tfm.conformer_conv_bwd(*args, dout)
+    tk = time_ms(lambda: tfm.conformer_conv_bwd(*args, dout))
+    tp = time_ms(lambda: tfm.conformer_conv_bwd_plain(*args, dout))
+    dms = device_ms(lambda: tfm.conformer_conv_bwd(*args, dout))
+    # the library yardstick covers part of the function: cuDNN's depthwise
+    # conv1d backward alone (the device time of autograd's forward and
+    # backward less the forward's)
+    x = torch.randn((B, d, T), device=dev, requires_grad=True)
+    w = dw.float()[:, 0, :].t()[:, None, :].contiguous().requires_grad_(True)
+    gz = torch.randn((B, d, T), device=dev)
+
+    def lib_fwd_bwd():
+        torch.autograd.grad(F.conv1d(x, w, padding=k // 2, groups=d), (x, w), gz)
+
+    with torch.no_grad():
+        t_lib_fwd = device_ms(lambda: F.conv1d(x, w, padding=k // 2, groups=d))
+    tl = device_ms(lib_fwd_bwd) - t_lib_fwd
+    # per element: the forward recomputed (2k + 18), the swish and LayerNorm
+    # backward (~18), the transposed conv and ddw (4k), the GLU backward (~10)
+    b = bound(nbytes(*args, dout, *grads), T * B * d * (6 * k + 46), "fp32")
+    print(f"K9 bwd [T=197,B=128,d=512,k=15] kernel {tk:.4f} ms (device {dms:.4f} ms)  plain "
+          f"{tp:.4f} ms  library (the depthwise conv1d backward alone, device) {tl:.4f} ms  bound "
+          f"{b[0]:.5f} ms ({b[1]})")
+    report["conformer_conv_bwd"] = dict(max_abs_err=max(abs_errs.values()), ms=tk, plain_ms=tp,
+                                        library_ms=tl, device_ms=dms, bound=b,
+                                        library_covers="the depthwise conv1d backward alone")
+
+
 def main() -> int:
     import torch
 
@@ -1677,7 +1853,14 @@ def main() -> int:
                        dev, card, v2_cfg, "serve_v2", SERVE_V2_KERNELS, (8, 197, 1024)))),
                    (23, lambda: greedy(v2_cfg, "greedy_v2", GREEDY_KERNELS)),
                    (24, lambda: decode_records_no_autograd(
-                       dev, v2_cfg, *greedy_runs.pop("greedy_v2"), "greedy_v2"))):
+                       dev, v2_cfg, *greedy_runs.pop("greedy_v2"), "greedy_v2")),
+                   (25, lambda: phase_k11_bwd(dev, report)),
+                   (26, lambda: phase_k9_bwd(dev, report)),
+                   # at 1e-4 from random weights the v2 model's AU loss rose
+                   # 5x on the second step (the loss barely fell over 10);
+                   # 3e-5 is about its preset's warmup lr at step 12
+                   (27, lambda: paths.update(train_v2=phase_train(
+                       dev, card, v2_cfg, "train_v2", TRAIN_V2_KERNELS, lr=3e-5)))):
         t0 = time.perf_counter()
         run()
         print(f"phase {n}: {time.perf_counter() - t0:.1f} s")
@@ -1707,7 +1890,11 @@ def main() -> int:
                                 "avsr_tpu/ops/attention.py:125"),
         "encoder_attention_fwd": ("avsr_tpu_torch/csrc/encoder_attention.cu",
                                   "avsr_tpu/models/transformer.py:204"),
+        "encoder_attention_bwd": ("avsr_tpu_torch/csrc/encoder_attention.cu",
+                                  "avsr_tpu/models/transformer.py:204"),
         "conformer_conv_fwd": ("avsr_tpu_torch/csrc/conformer_conv.cu",
+                               "avsr_tpu/models/transformer.py:231"),
+        "conformer_conv_bwd": ("avsr_tpu_torch/csrc/conformer_conv.cu",
                                "avsr_tpu/models/transformer.py:231"),
     }
     entries = []

@@ -286,17 +286,29 @@ def test_init_tree_matches_jax(time_reduction):
     assert ("fold" in tparams["layers"][1]) == (time_reduction is not None)
 
 
-def test_train_mode_with_dropout_is_not_ported():
+def test_train_mode_dropout_draws_from_the_generator():
+    """Train mode at the preset's rate 0.1: the branch dropout comes from
+    the generator (the same seed repeats bit for bit, another seed gives
+    other outputs), eval mode ignores the rate, as the reference does, and
+    train mode at rate 0 equals eval mode."""
     cfg = dataclasses.replace(_cfg(), dropout_rate=0.1)
     _, tparams = _params(_cfg(), seed=41)
     x, lengths = _inputs(seed=42)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _run_torch_train(tparams, cfg, x, lengths)
-    # eval mode ignores the rate, as the reference does
-    out, _ = _run_torch(tparams, cfg, x, lengths, torch.float32)
-    assert bool(torch.isfinite(out).all())
+    a = _run_torch_train(tparams, cfg, x, lengths, seed=1)[0]
+    b = _run_torch_train(tparams, cfg, x, lengths, seed=1)[0]
+    c = _run_torch_train(tparams, cfg, x, lengths, seed=2)[0]
+    ev = _run_torch(tparams, cfg, x, lengths, torch.float32)[0]
+    assert torch.equal(a, b) and not torch.equal(a, c) and not torch.equal(a, ev)
+    assert bool(torch.isfinite(a).all())
+    for out in (a, c):  # padded steps stay exactly zero
+        for i, n in enumerate(LENGTHS):
+            assert bool((out[n:, i] == 0).all())
+    assert torch.equal(_run_torch(tparams, cfg, x, lengths, torch.float32)[0], ev)
+    nodrop = _run_torch_train(tparams, _cfg(), x, lengths, seed=1)[0]
+    assert torch.equal(nodrop, ev)
 
 
-def _run_torch_train(tparams, cfg, x, lengths):
+def _run_torch_train(tparams, cfg, x, lengths, seed=0):
     return tenc.encoder_apply(tparams, _tcfg(cfg), torch.from_numpy(x), torch.from_numpy(lengths),
-                              torch.float32, train=True, generator=torch.Generator())
+                              torch.float32, train=True,
+                              generator=torch.Generator().manual_seed(seed))

@@ -28,7 +28,8 @@ Decoding with a train state's parameters (every leaf ``requires_grad``):
 ``greedy_decode`` record no autograd graph (no output has a ``grad_fn``),
 enter none of the port's autograd Functions (``BiLSTMScanCore``,
 ``AVAlignScan``, ``FusionAttention``, ``DecoderAttention``,
-``BahdanauAttend``: monkeypatched to raise) and run every decoder step
+``BahdanauAttend``, ``EncoderSelfAttention``, ``ConformerConv``:
+monkeypatched to raise) and run every decoder step
 with autograd off, for the ``lrs2_av_fast``, ``lrs2_av_align`` and
 ``lrs2_av_v2`` structures.
 """
@@ -56,6 +57,7 @@ from avsr_tpu_torch.decode.greedy import greedy_decode as tgreedy
 from avsr_tpu_torch.models import decoder as tdec
 from avsr_tpu_torch.models import fusion as tfus
 from avsr_tpu_torch.models import seq2seq as tseq
+from avsr_tpu_torch.models import transformer as ttfm
 from avsr_tpu_torch.models import transformer_decoder as ttdec
 from avsr_tpu_torch.ops import attention as tattn
 from avsr_tpu_torch.ops import rnn as trnn
@@ -203,20 +205,34 @@ def test_full_width_round_trip_is_bit_exact():
         np.testing.assert_array_equal(a, b)
 
 
-def test_train_mode_is_not_ported(v2_run):
-    """The preset's encoder dropout (0.1) in train mode raises: the
-    transformer encoder's training is later work."""
+def test_train_mode_encode_returns_a_graph(v2_run):
+    """``encode(train=True)`` with the preset's encoder dropout (0.1) and
+    parameters that require a gradient: memories with a graph back to the
+    encoders' parameters, through the two autograd Functions of the stack
+    (the gradients themselves: tests/test_torch_transformer_grad.py and
+    tests/test_torch_v2_train.py)."""
     cfg, pred = v2_run["cfg"], v2_run["pred"]
     tcfg = tconfigs.ExperimentConfig.from_dict(cfg.to_dict())
+    assert tcfg.audio_encoder.dropout_rate == tcfg.video_encoder.dropout_rate == 0.1
+    params = tree_map(lambda t: t.detach().clone().requires_grad_(True), pred.params)
     batch = tseq.batch_to_device(v2_run["arrays"], "cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tseq.encode(pred.params, tcfg, batch, train=True, generator=torch.Generator())
+    with mock.patch.object(ttfm.EncoderSelfAttention, "apply",
+                           wraps=ttfm.EncoderSelfAttention.apply) as att, \
+            mock.patch.object(ttfm.ConformerConv, "apply", wraps=ttfm.ConformerConv.apply) as conv:
+        enc = tseq.encode(params, tcfg, batch, train=True,
+                          generator=torch.Generator().manual_seed(0))
+    values = enc.memories[0].values
+    assert values.grad_fn is not None and bool(torch.isfinite(values).all())
+    assert att.call_count == conv.call_count == 4  # 3 audio + 1 video layers
+    (g,) = torch.autograd.grad(values.sum(), [params["audio_encoder"]["layers"][0]["conv_dw"]])
+    assert bool(torch.isfinite(g).all()) and bool((g != 0).any())
 
 
 # ---- decoding with parameters that require a gradient -------------------
 
 FUNCTIONS = (trnn.BiLSTMScanCore, tfus.AVAlignScan, tfus.FusionAttention,
-             ttdec.DecoderAttention, tattn.BahdanauAttend)
+             ttdec.DecoderAttention, tattn.BahdanauAttend, ttfm.EncoderSelfAttention,
+             ttfm.ConformerConv)
 STRUCTURES = {"fast": small_fast_cfg, "align": small_align_cfg, "v2": small_v2_cfg}
 
 
