@@ -18,13 +18,15 @@ decode), the losses, the optimizer and the train step (``train/``) — and
 the serving path and greedy decode of the reference-dims ``lrs2_av_align``
 preset: the AV-Align fusion (a fusion LSTM with input feeding and a
 Bahdanau read of the video memory per audio step) and the attention-LSTM
-decoder.  The compute cores run as hand-written CUDA kernels on a GPU
-(``kernels/``, ``csrc/``) and as plain PyTorch on the CPU: the
-direction-batched LSTM recurrence forward and backward (K1), the post-DFT
+decoder, also with one-direction encoders and Luong reads
+(``lrs2_av_align_uni_luong``).  The compute cores run as hand-written CUDA
+kernels on a GPU (``kernels/``, ``csrc/``) and as plain PyTorch on the
+CPU: the direction-batched LSTM recurrence forward and backward (K1; at
+one direction K2), the post-DFT
 log-mel chain (K3), the fusion attention forward and backward (K4), the
 teacher-forced decoder attention forward and backward (K5), the
 single-query decode attention (K6), the fused beam step (K7), the AV-Align
-fusion scan (K8) and the Bahdanau read (K10).
+fusion scan (K8) and the Bahdanau or Luong read (K10).
 
 Layouts follow the reference: time-major [T, B, D] inside the recurrent
 core and the fusion, batch-major at the API and for decoder memories.

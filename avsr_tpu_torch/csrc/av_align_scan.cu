@@ -1,8 +1,10 @@
 // K8: the AV-Align fusion scan, forward and backward.  Replaces the scan
 // body of avsr_tpu/models/fusion.py:av_align_apply (:118-141): a unidirectional
 // LSTM over the audio encoder's output with input feeding, and at every
-// audio step one Bahdanau read of the video memory with the new h as the
-// query.  Per step t, under the bf16 policy:
+// audio step one attention read of the video memory with the new h as the
+// query, Bahdanau (fp32 projected keys [B, S, A], v) or Luong (the bf16
+// memory as keys [B, S, Hk], no v): the read's template argument DOT, and
+// the entry points' dot flag.  Per step t, under the bf16 policy:
 //
 //   gates  = ((xw[t] + bf16(ctx) @ bf16(ctx_proj)) + bf16(h) @ bf16(Wh)) + b
 //            (xw is the hoisted fp32 input product; fp32 accumulation)
@@ -196,6 +198,8 @@ align_gate_kernel(const __nv_bfloat16* __restrict__ wh_tiled,  // [H/UT, H, UT, 
   hs_t[s] = h_new * m;
 }
 
+using bahdanau::Key;
+
 struct AlignWeights {
   float* aligns;  // this row's [S] slice of aligns[t]
   float m;
@@ -213,22 +217,24 @@ struct AlignContext {
   }
 };
 
+template <bool DOT>
 __global__ void __launch_bounds__(bahdanau::THREADS)
-align_read_kernel(const float* __restrict__ hnew,            // [B, H]
-                  const float* __restrict__ mask_t,          // [B]
-                  const __nv_bfloat16* __restrict__ wq,      // [H, A]
-                  const __nv_bfloat16* __restrict__ vatt,    // [A]
-                  const float* __restrict__ keys,            // [B, S, A]
-                  const __nv_bfloat16* __restrict__ values,  // [B, S, Dv]
-                  const float* __restrict__ mbias,           // [B, S]
-                  const float* __restrict__ mmask,           // [B, S]
-                  const float* __restrict__ ctx_in,          // [B, Dv]
-                  float* __restrict__ ctx_out,               // [B, Dv]
-                  float* __restrict__ ctxs_t,                // [B, Dv]
-                  float* __restrict__ aligns_t,              // [B, S]
-                  float* __restrict__ ctx_res_t,             // [B, Dv] or null (save)
-                  int H, int A, int S, int Dv) {
+align_read_kernel_t(const float* __restrict__ hnew,            // [B, H]
+                    const float* __restrict__ mask_t,          // [B]
+                    const __nv_bfloat16* __restrict__ wq,      // [H, A]
+                    const __nv_bfloat16* __restrict__ vatt,    // [A] or null (dot)
+                    const void* __restrict__ keys_in,          // [B, S, A] Key<DOT>
+                    const __nv_bfloat16* __restrict__ values,  // [B, S, Dv]
+                    const float* __restrict__ mbias,           // [B, S]
+                    const float* __restrict__ mmask,           // [B, S]
+                    const float* __restrict__ ctx_in,          // [B, Dv]
+                    float* __restrict__ ctx_out,               // [B, Dv]
+                    float* __restrict__ ctxs_t,                // [B, Dv]
+                    float* __restrict__ aligns_t,              // [B, S]
+                    float* __restrict__ ctx_res_t,             // [B, Dv] or null (save)
+                    int H, int A, int S, int Dv) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const auto* keys = static_cast<const typename Key<DOT>::type*>(keys_in);
   const size_t b = blockIdx.x;
   const float m = mask_t[b];
   if (ctx_res_t != nullptr)  // the context carry entering step t
@@ -242,10 +248,10 @@ align_read_kernel(const float* __restrict__ hnew,            // [B, H]
     for (int s = threadIdx.x; s < S; s += bahdanau::THREADS) aligns_t[b * S + s] = 0.f;
     return;
   }
-  bahdanau::read(hnew + b * H, wq, vatt, keys + b * S * A, values + b * S * Dv, mbias + b * S,
-                 mmask + b * S, H, A, S, Dv, reinterpret_cast<float*>(smem),
-                 AlignWeights{aligns_t + b * S, m},
-                 AlignContext{ctx_in + b * Dv, ctx_out + b * Dv, ctxs_t + b * Dv, m});
+  bahdanau::read<DOT>(hnew + b * H, wq, vatt, keys + b * S * A, values + b * S * Dv,
+                      mbias + b * S, mmask + b * S, H, A, S, Dv, reinterpret_cast<float*>(smem),
+                      AlignWeights{aligns_t + b * S, m},
+                      AlignContext{ctx_in + b * Dv, ctx_out + b * Dv, ctxs_t + b * Dv, m});
 }
 
 size_t gate_smem_bytes(int H, int Dc) {
@@ -447,38 +453,40 @@ struct AlignDctx {
 };
 
 // One step's row launch: the read backward and the cell backward of row b.
+template <bool DOT>
 __global__ void __launch_bounds__(bahdanau::THREADS)
-align_bwd_row_kernel(const __nv_bfloat16* __restrict__ wq,      // [H, A]
-                     const __nv_bfloat16* __restrict__ vatt,    // [A]
-                     const float* __restrict__ keys,            // [B, S, A]
-                     const __nv_bfloat16* __restrict__ values,  // [B, S, Dv]
-                     const float* __restrict__ aligns_t,        // [B, S]
-                     const float* __restrict__ hnew_t,          // [B, H]
-                     const float* __restrict__ mask_t,          // [B]
-                     const float* __restrict__ act_t,           // [B, 4H]
-                     const float* __restrict__ c_res_t,         // [B, H]
-                     const float* __restrict__ dhs_t,           // [B, H]
-                     const float* __restrict__ dctxs_t,         // [B, Dv]
-                     const float* __restrict__ dh,              // [B, H] dh_out
-                     const float* __restrict__ dctx,            // [B, Dv] dctx_out
-                     float* __restrict__ dc,                    // [B, H] in/out
-                     float* __restrict__ dxw_t,                 // [B, 4H]
-                     float* __restrict__ dq_t,                  // [B, A]
-                     float* __restrict__ dv_acc,                // [B, A] +=
-                     float* __restrict__ db_acc,                // [B, 4H] +=
-                     float* __restrict__ dkeys,                 // [B, S, A] +=
-                     float* __restrict__ dvalues,               // [B, S, Dv] +=
-                     int H, int A, int S, int Dv) {
+align_bwd_row_kernel_t(const __nv_bfloat16* __restrict__ wq,      // [H, A]
+                       const __nv_bfloat16* __restrict__ vatt,    // [A] or null (dot)
+                       const void* __restrict__ keys_in,          // [B, S, A] Key<DOT>
+                       const __nv_bfloat16* __restrict__ values,  // [B, S, Dv]
+                       const float* __restrict__ aligns_t,        // [B, S]
+                       const float* __restrict__ hnew_t,          // [B, H]
+                       const float* __restrict__ mask_t,          // [B]
+                       const float* __restrict__ act_t,           // [B, 4H]
+                       const float* __restrict__ c_res_t,         // [B, H]
+                       const float* __restrict__ dhs_t,           // [B, H]
+                       const float* __restrict__ dctxs_t,         // [B, Dv]
+                       const float* __restrict__ dh,              // [B, H] dh_out
+                       const float* __restrict__ dctx,            // [B, Dv] dctx_out
+                       float* __restrict__ dc,                    // [B, H] in/out
+                       float* __restrict__ dxw_t,                 // [B, 4H]
+                       float* __restrict__ dq_t,                  // [B, A]
+                       float* __restrict__ dv_acc,                // [B, A] += or null (dot)
+                       float* __restrict__ db_acc,                // [B, 4H] +=
+                       float* __restrict__ dkeys,                 // [B, S, A] +=
+                       float* __restrict__ dvalues,               // [B, S, Dv] +=
+                       int H, int A, int S, int Dv) {
   extern __shared__ __align__(16) float fsmem[];
+  const auto* keys = static_cast<const typename Key<DOT>::type*>(keys_in);
   float* dquery = fsmem + bahdanau::read_bwd_smem_floats(H, A, S, Dv);  // [H]
   const size_t b = blockIdx.x;
   const int tid = threadIdx.x;
   const float m = mask_t[b];
   if (m != 0.f) {
-    bahdanau::read_bwd(hnew_t + b * H, wq, vatt, keys + b * S * A, values + b * S * Dv,
-                       aligns_t + b * S, AlignDctx{dctx + b * Dv, dctxs_t + b * Dv, m}, H, A, S,
-                       Dv, fsmem, dkeys + b * S * A, dvalues + b * S * Dv, dq_t + b * A,
-                       dv_acc + b * A, dquery);
+    bahdanau::read_bwd<DOT>(hnew_t + b * H, wq, vatt, keys + b * S * A, values + b * S * Dv,
+                            aligns_t + b * S, AlignDctx{dctx + b * Dv, dctxs_t + b * Dv, m}, H,
+                            A, S, Dv, fsmem, dkeys + b * S * A, dvalues + b * S * Dv,
+                            dq_t + b * A, DOT ? nullptr : dv_acc + b * A, dquery);
   } else {  // a masked step: the read takes a zero cotangent
     for (int a = tid; a < A; a += bahdanau::THREADS) dq_t[b * A + a] = 0.f;
     for (int k = tid; k < H; k += bahdanau::THREADS) dquery[k] = 0.f;
@@ -533,8 +541,9 @@ extern "C" long long avsr_av_align_smem(int H, int Dc, int A, int S, int Dv) {
 
 // wh_tiled [H/UT, H, UT, 4] and cp_tiled [H/UT, Dc, UT, 4] bf16 (cp_tiled
 // null and Dc = 0 without input feeding, else Dc = Dv); bias [4H]; xw
-// [T, B, 4H] and mask [T, B] fp32; wq [H, A], vatt [A] bf16; keys [B, S, A]
-// fp32, values [B, S, Dv] bf16, mbias / mmask [B, S] fp32.  hbuf [2][B, H]
+// [T, B, 4H] and mask [T, B] fp32; wq [H, A], vatt [A] bf16 (null when dot);
+// keys [B, S, A] fp32 (bf16 when dot: the Luong read), values [B, S, Dv]
+// bf16, mbias / mmask [B, S] fp32.  hbuf [2][B, H]
 // and ctxbuf [2][B, Dv] fp32 hold the zero initial carries in slot 0; after
 // T steps the final ones are in slot T % 2; c [B, H] fp32 in place; hnew
 // [B, H] fp32 scratch.  Outputs hs [T, B, H], ctxs [T, B, Dv], aligns
@@ -546,13 +555,14 @@ extern "C" int avsr_av_align_scan(const void* wh_tiled, const void* cp_tiled, co
                                   const void* mbias, const void* mmask, void* hbuf, void* c,
                                   void* ctxbuf, void* hnew, void* hs, void* ctxs, void* aligns,
                                   void* h_res, void* c_res, void* ctx_res,
-                                  int T, int B, int H, int Dc, int A, int S, int Dv,
+                                  int T, int B, int H, int Dc, int A, int S, int Dv, int dot,
                                   void* stream) {
   if (B < 1 || S < 1 || H % UT || H % 4 || Dc % 4 || (Dc > 0 && cp_tiled == nullptr) ||
-      A % 8 || A > 512 || Dv % 8 || Dv > 2048)
+      A % 8 || A > 512 || Dv % 8 || Dv > 2048 || (!dot && vatt == nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t smem_g = gate_smem_bytes(H, Dc);
   const size_t smem_r = bahdanau::read_smem_bytes(H, A, S);
+  auto* const align_read_kernel = dot ? &align_read_kernel_t<true> : &align_read_kernel_t<false>;
   cudaError_t e;
   if (smem_g > 48 * 1024) {
     e = cudaFuncSetAttribute(align_gate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -590,8 +600,8 @@ extern "C" int avsr_av_align_scan(const void* wh_tiled, const void* cp_tiled, co
     if (e != cudaSuccess) return (int)e;
     align_read_kernel<<<B, bahdanau::THREADS, smem_r, st>>>(
         static_cast<const float*>(hnew), mask_p + (size_t)t * B,
-        static_cast<const __nv_bfloat16*>(wq), static_cast<const __nv_bfloat16*>(vatt),
-        static_cast<const float*>(keys), static_cast<const __nv_bfloat16*>(values),
+        static_cast<const __nv_bfloat16*>(wq), static_cast<const __nv_bfloat16*>(vatt), keys,
+        static_cast<const __nv_bfloat16*>(values),
         static_cast<const float*>(mbias), static_cast<const float*>(mmask), ctx_p + cur * bd,
         ctx_p + nxt * bd, ctxs_p + (size_t)t * bd, al_p + (size_t)t * B * S,
         save ? xr_p + (size_t)t * bd : nullptr, H, A, S, Dv);
@@ -603,28 +613,32 @@ extern "C" int avsr_av_align_scan(const void* wh_tiled, const void* cp_tiled, co
 
 // Backward.  wh_tiled / cp_tiled as the forward's; w_all_t [(H+Dc)/UT, H,
 // UT, 4] bf16, [Wh ; ctx_proj] tiled for the carries' products; bias [4H];
-// xw [T, B, 4H], mask [T, B]; wq [H, A], vatt [A] bf16; keys [B, S, A] fp32,
-// values [B, S, Dv] bf16; aligns [T, B, S] (the forward's); the saved
+// xw [T, B, 4H], mask [T, B]; wq [H, A], vatt [A] bf16 (null when dot);
+// keys [B, S, A] fp32 (bf16 when dot), values [B, S, Dv] bf16; aligns
+// [T, B, S] (the forward's); the saved
 // carries h_res / c_res [T, B, H], ctx_res [T, B, Dv] (used only with input
 // feeding, Dc = Dv); the cotangents dhs [T, B, H], dctxs [T, B, Dv]; dh /
 // dc [B, H] and dctx [B, Dv] hold dhT, dcT, dctxT on entry (all fp32).
 // Scratch: act [T, B, 4H], hnew [T, B, H] (written: the recomputed queries,
-// a factor of dwq).  Outputs: dxw [T, B, 4H], dq [T, B, A]; dv_acc [B, A],
-// db_acc [B, 4H], dkeys [B, S, A] and dvalues [B, S, Dv] accumulated into
-// zeroed buffers.
+// a factor of dwq).  Outputs: dxw [T, B, 4H], dq [T, B, A]; dv_acc [B, A]
+// (null when dot), db_acc [B, 4H], dkeys [B, S, A] and dvalues [B, S, Dv]
+// accumulated into zeroed buffers.
 extern "C" int avsr_av_align_scan_bwd(
     const void* wh_tiled, const void* cp_tiled, const void* w_all_t, const void* bias,
     const void* xw, const void* mask, const void* wq, const void* vatt, const void* keys,
     const void* values, const void* aligns, const void* h_res, const void* c_res,
     const void* ctx_res, const void* dhs, const void* dctxs, void* dh, void* dc, void* dctx,
     void* act, void* hnew, void* dxw, void* dq, void* dv_acc, void* db_acc, void* dkeys,
-    void* dvalues, int T, int B, int H, int Dc, int A, int S, int Dv, void* stream) {
+    void* dvalues, int T, int B, int H, int Dc, int A, int S, int Dv, int dot, void* stream) {
   if (T < 1 || B < 1 || S < 1 || H % UT || H % 4 || Dc % UT || Dv % UT ||
-      (Dc > 0 && (cp_tiled == nullptr || Dc != Dv)) || A % 8 || A > 512 || Dv % 8 || Dv > 2048)
+      (Dc > 0 && (cp_tiled == nullptr || Dc != Dv)) || A % 8 || A > 512 || Dv % 8 ||
+      Dv > 2048 || (!dot && (vatt == nullptr || dv_acc == nullptr)))
     return (int)cudaErrorInvalidValue;
   const size_t smem_g = gate_smem_bytes(H, Dc);
   const size_t smem_p = product_smem_bytes(H);
   const size_t smem_r = row_smem_bytes(H, A, S, Dv);
+  auto* const align_bwd_row_kernel =
+      dot ? &align_bwd_row_kernel_t<true> : &align_bwd_row_kernel_t<false>;
   cudaError_t e;
   const void* fns[3] = {reinterpret_cast<const void*>(align_regate_kernel),
                         reinterpret_cast<const void*>(align_bwd_product_kernel),
@@ -664,8 +678,8 @@ extern "C" int avsr_av_align_scan_bwd(
       if (e != cudaSuccess) return (int)e;
     }
     align_bwd_row_kernel<<<B, bahdanau::THREADS, smem_r, st>>>(
-        static_cast<const __nv_bfloat16*>(wq), static_cast<const __nv_bfloat16*>(vatt),
-        static_cast<const float*>(keys), static_cast<const __nv_bfloat16*>(values),
+        static_cast<const __nv_bfloat16*>(wq), static_cast<const __nv_bfloat16*>(vatt), keys,
+        static_cast<const __nv_bfloat16*>(values),
         static_cast<const float*>(aligns) + (size_t)t * bs,
         static_cast<const float*>(hnew) + (size_t)t * bh, mask_p + (size_t)t * B,
         static_cast<const float*>(act) + (size_t)t * b4h,

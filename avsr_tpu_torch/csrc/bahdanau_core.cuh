@@ -1,12 +1,18 @@
-// The Bahdanau attention read, one query row per block, shared by K10
+// The attention read, one query row per block, shared by K10
 // (bahdanau_attend.cu: the RNN decoder's read at every decode step) and
-// K8 (av_align_scan.cu: the AV-Align fusion's read at every audio step).
+// K8 (av_align_scan.cu: the AV-Align fusion's read at every audio step),
+// with either score: the additive one (Bahdanau) or the dot one (Luong
+// "general"), chosen by the template argument DOT of read and read_bwd.
 // It replaces avsr_tpu/ops/attention.py:attend, Bahdanau branch
-// (:140-151) with its masking (:165-171), under the bf16 policy:
+// (:140-151) and Luong branch (:152-163), with its masking (:165-171),
+// under the bf16 policy:
 //
 //   q[a]   = sum_k bf16(query[k]) * wq[k, a]                 (fp32)
-//   e[s,a] = tanh(keys[s, a] + q[a])                          (fp32)
-//   sc[s]  = sum_a bf16(e[s, a]) * bf16(v[a]) + bias[s]       (fp32)
+//   additive: keys [S, A] fp32 (the projected memory), v [A]
+//     e[s,a] = tanh(keys[s, a] + q[a])                        (fp32)
+//     sc[s]  = sum_a bf16(e[s, a]) * bf16(v[a]) + bias[s]     (fp32)
+//   dot: keys [S, A] bf16 (the raw memory, A its width), no v
+//     sc[s]  = sum_a keys[s, a] * bf16(q[a]) + bias[s]        (fp32)
 //   p      = softmax(sc);  p *= mask;  p /= max(sum(p), 1e-9)
 //   w      = p * min(sum(mask), 1)
 //   ctx[d] = sum_s bf16(w[s]) * values[s, d]                  (fp32)
@@ -22,18 +28,22 @@
 //
 // Design: one block of 256 threads per row.  q: thread pairs of outputs
 // (one 4-byte load of wq per k, LOADS rows in flight) with k split over
-// THREADS / (A/2) slices, summed in a fixed order.  Scores: a warp per
-// key, KPW keys in flight per warp, each lane one float4 of the key row;
-// the energies run on the CUDA cores (tanhf), the dot with v is a shuffle
-// reduction.  Softmax and the renormalisation are fp32 block reductions.
+// THREADS / (A/2) slices, summed in a fixed order (the dot score rounds it
+// to bf16 once, in shared memory).  Scores: a warp per key, KPW keys in
+// flight per warp, each lane one float4 (additive) or one 16-byte chunk of
+// 8 bf16 values (dot) of the key row; the additive energies run on the
+// CUDA cores (tanhf); either dot over the key row is a shuffle reduction.
+// Softmax and the renormalisation are fp32 block reductions.
 // Context: a thread per 16-byte chunk (8 channels) of a value row, LOADS
 // rows in flight, the keys split over THREADS / (Dv/8) slices, summed in a
 // fixed order: the same bits every run.  (With one load in flight per key
 // the context loop would be a chain of ~S / slices dependent L2 round
-// trips.)  What bounds it on an H100: the bytes of the keys (fp32)
-// and values (bf16) of the row, read once; the sequential dependence of
-// the reductions at one block per row.  Requirements (checked by the
-// wrappers): A % 8 == 0, A <= 512, Dv % 8 == 0, Dv <= 2048.
+// trips.)  What bounds it on an H100: the bytes of the keys (fp32, or
+// bf16 for the dot score) and values (bf16) of the row, read once; the
+// sequential dependence of the reductions at one block per row.
+// Requirements (checked by the wrappers): A % 8 == 0, A <= 512, Dv % 8 ==
+// 0, Dv <= 2048; for the dot score A is the key width, so the RNN
+// decoder's 512-wide fused memory meets the limit exactly.
 
 #pragma once
 
@@ -54,6 +64,11 @@ __device__ __forceinline__ float bf_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
+// The keys' element type: fp32 projected keys (additive score) or the bf16
+// raw memory (dot score).
+template <bool DOT> struct Key { using type = float; };
+template <> struct Key<true> { using type = __nv_bfloat16; };
+
 // block-wide max (MAX) or sum of one value per thread, in a fixed order
 template <bool MAX>
 __device__ __forceinline__ float block_reduce(float x, float* red) {
@@ -72,9 +87,11 @@ __device__ __forceinline__ float block_reduce(float x, float* red) {
 }
 
 // q = qin @ wq for one row: qin [Hq] (bf16-rounded, in shared memory), wq
-// [Hq, A] bf16 -> q_s [A] fp32.  A thread per output pair, k split over
-// THREADS / (A/2) slices (LOADS rows of wq in flight), the slices summed in
-// a fixed order.  Ends with a barrier.
+// [Hq, A] bf16 -> q_s [A] fp32, rounded to bf16 when ROUND (the dot score's
+// cast of q).  A thread per output pair, k split over THREADS / (A/2)
+// slices (LOADS rows of wq in flight), the slices summed in a fixed order.
+// Ends with a barrier.
+template <bool ROUND>
 __device__ __forceinline__ void q_product(const float* qin, const __nv_bfloat16* __restrict__ wq,
                                           int Hq, int A, float* part, float* q_s) {
   const int tid = threadIdx.x;
@@ -105,23 +122,26 @@ __device__ __forceinline__ void q_product(const float* qin, const __nv_bfloat16*
   for (int a = tid; a < A; a += THREADS) {
     float s = 0.f;
     for (int j = 0; j < slices; ++j) s += part[j * A + a];
-    q_s[a] = s;
+    q_s[a] = ROUND ? bf_round(s) : s;
   }
   __syncthreads();
 }
 
-// Shared memory of one read, in bytes: q and v [A], the query [Hq], the
-// scores [S], the reduction slots and the partial sums [8 * THREADS].
+// Shared memory of one read, in bytes: q and v [A] (v unused by the dot
+// score), the query [Hq], the scores [S], the reduction slots and the
+// partial sums [8 * THREADS].
 __host__ __device__ inline size_t read_smem_bytes(int Hq, int A, int S) {
   return (size_t)(2 * A + Hq + S + WARPS + 8 * THREADS) * sizeof(float);
 }
 
-// One read.  query [Hq] fp32, wq [Hq, A] bf16, vatt [A] bf16, keys [S, A]
-// fp32, values [S, Dv] bf16, bias / mask [S] fp32 (this row's slices).
-// w_out(s, w) receives each weight, ctx_out(d, x) each context channel.
-template <class WeightOut, class CtxOut>
+// One read.  query [Hq] fp32, wq [Hq, A] bf16, vatt [A] bf16 (null for
+// the dot score), keys [S, A] (fp32 additive, bf16 dot), values [S, Dv]
+// bf16, bias / mask [S] fp32 (this row's slices).  w_out(s, w) receives
+// each weight, ctx_out(d, x) each context channel.
+template <bool DOT, class WeightOut, class CtxOut>
 __device__ void read(const float* __restrict__ query, const __nv_bfloat16* __restrict__ wq,
-                     const __nv_bfloat16* __restrict__ vatt, const float* __restrict__ keys,
+                     const __nv_bfloat16* __restrict__ vatt,
+                     const typename Key<DOT>::type* __restrict__ keys,
                      const __nv_bfloat16* __restrict__ values, const float* __restrict__ bias,
                      const float* __restrict__ mask, int Hq, int A, int S, int Dv, float* smem,
                      WeightOut w_out, CtxOut ctx_out) {
@@ -134,13 +154,50 @@ __device__ void read(const float* __restrict__ query, const __nv_bfloat16* __res
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   for (int i = tid; i < Hq; i += THREADS) qin[i] = bf_round(query[i]);
-  for (int i = tid; i < A; i += THREADS) v_s[i] = __bfloat162float(vatt[i]);
+  if (!DOT)
+    for (int i = tid; i < A; i += THREADS) v_s[i] = __bfloat162float(vatt[i]);
   __syncthreads();
 
-  q_product(qin, wq, Hq, A, part, q_s);
+  q_product<DOT>(qin, wq, Hq, A, part, q_s);
 
-  // scores: a warp per key, KPW keys at a time, a float4 of the key per lane
-  {
+  if constexpr (DOT) {
+    // scores: a warp per key, KPW keys at a time, 8 bf16 keys per lane load
+    const int A8 = A / 8;
+    const uint4* k8 = reinterpret_cast<const uint4*>(keys);
+    const float4* q4 = reinterpret_cast<const float4*>(q_s);
+    for (int s0 = warp * KPW; s0 < S; s0 += WARPS * KPW) {
+      float acc[KPW];
+#pragma unroll
+      for (int j = 0; j < KPW; ++j) acc[j] = 0.f;
+      for (int c = lane; c < A8; c += 32) {
+        uint4 kv[KPW];
+#pragma unroll
+        for (int j = 0; j < KPW; ++j)
+          kv[j] = s0 + j < S ? k8[(size_t)(s0 + j) * A8 + c] : make_uint4(0u, 0u, 0u, 0u);
+        const float4 qa = q4[2 * c], qb = q4[2 * c + 1];
+#pragma unroll
+        for (int j = 0; j < KPW; ++j) {
+          acc[j] = fmaf(bf_lo(kv[j].x), qa.x, acc[j]);
+          acc[j] = fmaf(bf_hi(kv[j].x), qa.y, acc[j]);
+          acc[j] = fmaf(bf_lo(kv[j].y), qa.z, acc[j]);
+          acc[j] = fmaf(bf_hi(kv[j].y), qa.w, acc[j]);
+          acc[j] = fmaf(bf_lo(kv[j].z), qb.x, acc[j]);
+          acc[j] = fmaf(bf_hi(kv[j].z), qb.y, acc[j]);
+          acc[j] = fmaf(bf_lo(kv[j].w), qb.z, acc[j]);
+          acc[j] = fmaf(bf_hi(kv[j].w), qb.w, acc[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < KPW; ++j) {
+        float a = acc[j];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+        if (lane == 0 && s0 + j < S) p_s[s0 + j] = a + bias[s0 + j];
+      }
+    }
+    __syncthreads();
+  } else {
+    // scores: a warp per key, KPW keys at a time, a float4 of the key per lane
     const int A4 = A / 4;
     const float4* k4 = reinterpret_cast<const float4*>(keys);
     const float4* q4 = reinterpret_cast<const float4*>(q_s);
@@ -250,7 +307,7 @@ __device__ void read(const float* __restrict__ query, const __nv_bfloat16* __res
 
 // ---------------------------------------------------------------------------
 // The backward of one read: the gradient JAX's autodiff takes through
-// attention.py:140-151,167-177 for the context's cotangent dctx, given the
+// attention.py:140-163,167-177 for the context's cotangent dctx, given the
 // forward's weights w.  q and the energies are recomputed (the remat of the
 // reference's jax.checkpoint: the tanh tensor is never saved).  Per row:
 //
@@ -260,35 +317,40 @@ __device__ void read(const float* __restrict__ query, const __nv_bfloat16* __res
 //            (the softmax backward through the mask and the renormalisation:
 //            a valid row's w is its softmax with padded positions exactly 0,
 //            an empty row's w is 0, so its gradients are 0, not NaN)
-//   e      = tanh(keys[s, a] + q[a]);  deb = bf16(dsc[s] * bf16(v[a]))
-//   dpre   = (deb + deb * e) * (1 - e)        (tanh' as JAX takes it)
-//   dkeys[s, a] += dpre;  dq[a] = sum_s dpre;  dv[a] += sum_s dsc[s] bf16(e)
+//   additive score:
+//     e      = tanh(keys[s, a] + q[a]);  deb = bf16(dsc[s] * bf16(v[a]))
+//     dpre   = (deb + deb * e) * (1 - e)      (tanh' as JAX takes it)
+//     dkeys[s, a] += dpre;  dq[a] = sum_s dpre;  dv[a] += sum_s dsc[s] bf16(e)
+//   dot score (q here is bf16(q), keys bf16):
+//     dkeys[s, a] += bf16(dsc[s] * q[a]);  dq[a] = bf16(sum_s dsc[s] keys[s, a])
 //   dquery[k] = bf16(sum_a dq[a] * wq[k, a])
 //
 // (the bf16 roundings are the transposes of the reference's casts).  dq and
 // dv are this row's factors of the weight gradients dwq = bf16(query)^T dq
-// and dv, which the callers form outside the kernels.  A key whose weight is
-// exactly 0 adds exactly 0 everywhere and is skipped.  Design: dw and the
-// dvalues update take a warp per key (a lane per 8-channel chunk of the
-// value row, KPW keys per warp); dsc is a block reduction; the energies'
-// pass takes a thread per 4 attention units and splits the keys over
-// THREADS / (A/4) slices (4 keys in flight), dq and dv summed over the
-// slices in a fixed order; dquery a thread per query unit.  The row's
-// dkeys / dvalues are owned by its block: no atomics.
+// and dv (none for the dot score), which the callers form outside the
+// kernels.  A key whose weight is exactly 0 adds exactly 0 everywhere and is
+// skipped.  Design: dw and the dvalues update take a warp per key (a lane
+// per 8-channel chunk of the value row, KPW keys per warp); dsc is a block
+// reduction; the keys' pass takes a thread per 4 key units and splits the
+// keys over THREADS / (A/4) slices (4 keys in flight), dq (and dv) summed
+// over the slices in a fixed order; dquery a thread per query unit.  The
+// row's dkeys / dvalues are owned by its block: no atomics.
 // ---------------------------------------------------------------------------
 
 __host__ __device__ inline size_t read_bwd_smem_floats(int Hq, int A, int S, int Dv) {
   return (size_t)2 * A + Dv + Hq + S + WARPS + 8 * THREADS;
 }
 
-// query [Hq] fp32, wq [Hq, A] bf16, vatt [A] bf16, keys [S, A] fp32, values
-// [S, Dv] bf16, w [S] fp32 (the forward's weights); dctx_in(d) gives the
-// context cotangent.  dkeys [S, A] and dvalues [S, Dv] fp32 are accumulated
-// (+=), dv_acc [A] too; dq_out [A] and dquery [Hq] are written (dquery may
-// point to shared memory).
-template <class DctxIn>
+// query [Hq] fp32, wq [Hq, A] bf16, vatt [A] bf16 (null for the dot score),
+// keys [S, A] (fp32 additive, bf16 dot), values [S, Dv] bf16, w [S] fp32
+// (the forward's weights); dctx_in(d) gives the context cotangent.  dkeys
+// [S, A] and dvalues [S, Dv] fp32 are accumulated (+=), dv_acc [A] too
+// (additive only: null for the dot score); dq_out [A] and dquery [Hq] are
+// written (dquery may point to shared memory).
+template <bool DOT, class DctxIn>
 __device__ void read_bwd(const float* __restrict__ query, const __nv_bfloat16* __restrict__ wq,
-                         const __nv_bfloat16* __restrict__ vatt, const float* __restrict__ keys,
+                         const __nv_bfloat16* __restrict__ vatt,
+                         const typename Key<DOT>::type* __restrict__ keys,
                          const __nv_bfloat16* __restrict__ values, const float* __restrict__ w,
                          DctxIn dctx_in, int Hq, int A, int S, int Dv, float* smem,
                          float* __restrict__ dkeys, float* __restrict__ dvalues,
@@ -303,10 +365,11 @@ __device__ void read_bwd(const float* __restrict__ query, const __nv_bfloat16* _
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   for (int i = tid; i < Hq; i += THREADS) qin[i] = bf_round(query[i]);
-  for (int i = tid; i < A; i += THREADS) v_s[i] = __bfloat162float(vatt[i]);
+  if (!DOT)
+    for (int i = tid; i < A; i += THREADS) v_s[i] = __bfloat162float(vatt[i]);
   for (int d = tid; d < Dv; d += THREADS) dctx_s[d] = dctx_in(d);
   __syncthreads();
-  q_product(qin, wq, Hq, A, part, q_s);
+  q_product<DOT>(qin, wq, Hq, A, part, q_s);
 
   // dw and the dvalues update: a warp per key, a lane per 8-channel chunk
   {
@@ -368,8 +431,56 @@ __device__ void read_bwd(const float* __restrict__ query, const __nv_bfloat16* _
     __syncthreads();
   }
 
-  // energies: dkeys, dq, dv; a thread per 4 attention units, keys over slices
-  {
+  if constexpr (DOT) {
+    // dkeys and dq: a thread per 4 key units, keys over slices
+    const int A4 = A / 4, slices = THREADS / A4;
+    const int c = tid % A4, sl = tid / A4;
+    if (sl < slices) {
+      const float4 qq = reinterpret_cast<const float4*>(q_s)[c];  // bf16(q)
+      const uint2* k2 = reinterpret_cast<const uint2*>(keys) + c;
+      float4* dk4 = reinterpret_cast<float4*>(dkeys) + c;
+      float dq[4] = {0.f, 0.f, 0.f, 0.f};
+      constexpr int KB = 4;  // keys in flight per thread
+      for (int s0 = sl; s0 < S; s0 += KB * slices) {
+        float d[KB];
+        uint2 kk[KB];
+        float4 acc[KB];
+#pragma unroll
+        for (int j = 0; j < KB; ++j) {
+          const int s = s0 + j * slices;
+          d[j] = s < S ? dsc_s[s] : 0.f;
+          if (d[j] != 0.f) {
+            kk[j] = k2[(size_t)s * A4];
+            acc[j] = dk4[(size_t)s * A4];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < KB; ++j) {
+          if (d[j] == 0.f) continue;
+          dq[0] = fmaf(d[j], bf_lo(kk[j].x), dq[0]);
+          dq[1] = fmaf(d[j], bf_hi(kk[j].x), dq[1]);
+          dq[2] = fmaf(d[j], bf_lo(kk[j].y), dq[2]);
+          dq[3] = fmaf(d[j], bf_hi(kk[j].y), dq[3]);
+          acc[j].x += bf_round(d[j] * qq.x);
+          acc[j].y += bf_round(d[j] * qq.y);
+          acc[j].z += bf_round(d[j] * qq.z);
+          acc[j].w += bf_round(d[j] * qq.w);
+          dk4[(size_t)(s0 + j * slices) * A4] = acc[j];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) part[sl * A + 4 * c + i] = dq[i];
+    }
+    __syncthreads();
+    for (int a = tid; a < A; a += THREADS) {
+      float x = 0.f;
+      for (int j = 0; j < slices; ++j) x += part[j * A + a];
+      q_s[a] = bf_round(x);  // q is no longer needed: dq, the cast's cotangent
+      dq_out[a] = q_s[a];
+    }
+    __syncthreads();
+  } else {
+    // energies: dkeys, dq, dv; a thread per 4 attention units, keys over slices
     const int A4 = A / 4, slices = THREADS / A4;
     const int c = tid % A4, sl = tid / A4;
     if (sl < slices) {

@@ -112,12 +112,16 @@ def beam_step(logits, logp, lens, finished, lp_table, tokens_row, parents_row) -
 def _tile_memory(mem: attn.AttentionMemory, width: int, cdt: torch.dtype) -> attn.AttentionMemory:
     """[B, ...] -> [B*W, ...] with beams contiguous per batch row; the values
     in the compute dtype, cast once here instead of at every step; the
-    Bahdanau keys (if any) stay fp32."""
+    Bahdanau keys (if any) stay fp32; keys that are the values (a Luong
+    memory without a value projection, read only in the compute dtype)
+    stay one tensor."""
     def tile(x):
         return None if x is None else x.repeat_interleave(width, dim=0)
 
-    return attn.AttentionMemory(values=tile(mem.values).to(cdt), keys=tile(mem.keys),
-                                mask=tile(mem.mask), bias=tile(mem.bias))
+    values = tile(mem.values).to(cdt)
+    keys = values if mem.keys is mem.values else tile(mem.keys)
+    return attn.AttentionMemory(values=values, keys=keys, mask=tile(mem.mask),
+                                bias=tile(mem.bias))
 
 
 def _gather_rows(state, index: torch.Tensor):

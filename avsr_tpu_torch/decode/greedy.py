@@ -6,7 +6,7 @@ row that has emitted EOS writes PAD from then on and is fed EOS; the loop
 exits early, on the host, once every row is done.  Lengths count up to the
 first EOS inclusive, or the horizon.  Each step is the decoder's
 ``decoder_step``, so on a GPU it runs the single-query attention kernel K6
-(transformer decoder) or the Bahdanau read K10 (RNN decoder).  The decode
+(transformer decoder) or the attention read K10 (RNN decoder).  The decode
 runs under ``torch.inference_mode()``: parameters that require a gradient
 (a train state's) record no graph and take no kernel's save path.  Results
 are returned as CPU tensors.
@@ -36,10 +36,15 @@ def greedy_decode(params, cfg: DecoderConfig, memories: Sequence[attn.AttentionM
     B = memories[0].values.shape[0]
     dev = memories[0].values.device
     # the values in the compute dtype and contiguous once, not at every step
-    memories = [attn.AttentionMemory(
-        values=m.values.to(cdt).contiguous(),
-        keys=None if m.keys is None else m.keys.contiguous(),
-        mask=m.mask.contiguous(), bias=m.bias.contiguous()) for m in memories]
+    # (keys that are the values, a Luong memory's, stay one tensor)
+    def prepared(m):
+        values = m.values.to(cdt).contiguous()
+        keys = values if m.keys is m.values else (
+            None if m.keys is None else m.keys.contiguous())
+        return attn.AttentionMemory(values=values, keys=keys, mask=m.mask.contiguous(),
+                                    bias=m.bias.contiguous())
+
+    memories = [prepared(m) for m in memories]
     state = dec.initial_state(cfg, B, max_length, cdt, dev,
                               memory_dims=[m.values.shape[-1] for m in memories])
     cross_kv = dec.prepare_cross(params, cfg, memories, cdt)

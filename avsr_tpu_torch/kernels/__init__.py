@@ -41,12 +41,17 @@ NVCC_FLAGS = (
 
 # Launch counts of each kernel wrapper: +1 per wrapper call that launched
 # its kernel (one call may issue several grid launches, e.g. one per step).
+# The LSTM kernels count a one-direction scan (G = 1, K2) apart from the
+# direction-fused one (K1); the Bahdanau read kernels count a Luong (dot
+# score) read apart from an additive one.
 LAUNCHES: Dict[str, int] = {
-    "lstm_scan_fwd": 0, "lstm_scan_bwd": 0, "logmel_post_dft": 0,
+    "lstm_scan_fwd": 0, "lstm_scan_bwd": 0, "lstm_scan_uni_fwd": 0, "lstm_scan_uni_bwd": 0,
+    "logmel_post_dft": 0,
     "fusion_attention_fwd": 0, "fusion_attention_bwd": 0,
     "decoder_attention_fwd": 0, "decoder_attention_bwd": 0,
     "decode_attention": 0, "beam_step": 0, "av_align_scan": 0, "av_align_scan_bwd": 0,
-    "bahdanau_attend": 0, "bahdanau_attend_bwd": 0,
+    "bahdanau_attend": 0, "bahdanau_attend_bwd": 0, "av_align_scan_luong": 0,
+    "av_align_scan_luong_bwd": 0, "luong_attend": 0, "luong_attend_bwd": 0,
     "encoder_attention_fwd": 0, "encoder_attention_bwd": 0, "conformer_conv_fwd": 0,
     "conformer_conv_bwd": 0,
 }
@@ -154,17 +159,17 @@ def _load() -> ctypes.CDLL:
         lib.avsr_beam_step.restype = i
         lib.avsr_av_align_smem.argtypes = [i, i, i, i, i]
         lib.avsr_av_align_smem.restype = ctypes.c_longlong
-        lib.avsr_av_align_scan.argtypes = [p] * 21 + [i] * 7 + [p]
+        lib.avsr_av_align_scan.argtypes = [p] * 21 + [i] * 8 + [p]
         lib.avsr_av_align_scan.restype = i
-        lib.avsr_av_align_scan_bwd.argtypes = [p] * 27 + [i] * 7 + [p]
+        lib.avsr_av_align_scan_bwd.argtypes = [p] * 27 + [i] * 8 + [p]
         lib.avsr_av_align_scan_bwd.restype = i
         lib.avsr_bahdanau_smem.argtypes = [i, i, i]
         lib.avsr_bahdanau_smem.restype = ctypes.c_longlong
-        lib.avsr_bahdanau_attend.argtypes = [p] * 9 + [i] * 5 + [p]
+        lib.avsr_bahdanau_attend.argtypes = [p] * 9 + [i] * 6 + [p]
         lib.avsr_bahdanau_attend.restype = i
         lib.avsr_bahdanau_bwd_smem.argtypes = [i, i, i, i]
         lib.avsr_bahdanau_bwd_smem.restype = ctypes.c_longlong
-        lib.avsr_bahdanau_attend_bwd.argtypes = [p] * 12 + [i] * 5 + [p]
+        lib.avsr_bahdanau_attend_bwd.argtypes = [p] * 12 + [i] * 6 + [p]
         lib.avsr_bahdanau_attend_bwd.restype = i
         lib.avsr_encoder_attn_smem.argtypes = [i, i]
         lib.avsr_encoder_attn_smem.restype = ctypes.c_longlong
@@ -196,6 +201,10 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: Tuple,
         raise ValueError(f"{name}: expected a contiguous tensor")
     if x.data_ptr() % align:
         raise ValueError(f"{name}: expected a {align}-byte aligned tensor")
+
+
+def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
+    return None if x is None else x.data_ptr()
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -232,8 +241,13 @@ def _check_lstm(xw, wh, b, mask, T, G, B, H, dev):
         raise ValueError(f"lstm scan: H={H} must be a multiple of {LSTM_UNIT_TILE}")
 
 
+def _lstm_counter(name: str, G: int) -> str:
+    return name.replace("lstm_scan", "lstm_scan_uni") if G == 1 else name
+
+
 def lstm_scan_fwd(wh, b, xw, mask, h0, c0, *, save: bool = False):
-    """K1: direction-batched masked LSTM recurrence, forward (CUDA).
+    """K1: direction-batched masked LSTM recurrence, forward (CUDA); at
+    G = 1, K2 (one direction), counted as ``lstm_scan_uni_fwd``.
 
     wh [G,H,4H] bf16, b [G,4H] f32, xw [T,G,B,4H] bf16, mask [T,G,B] f32,
     h0/c0 [G,B,H] f32 -> (ys [T,G,B,H] bf16, hT [G,B,H] f32, cT f32,
@@ -264,12 +278,13 @@ def lstm_scan_fwd(wh, b, xw, mask, h0, c0, *, save: bool = False):
         T, G, B, H, stream,
     )
     _raise_on(err, "lstm_scan_fwd launch")
-    LAUNCHES["lstm_scan_fwd"] += 1
+    LAUNCHES[_lstm_counter("lstm_scan_fwd", G)] += 1
     return ys, hbuf[T % 2], c, h_res, c_res
 
 
 def lstm_scan_bwd(wh, b, xw, mask, h_res, c_res, dys, dhT, dcT):
-    """K1: the reverse scan of the hand-written VJP (CUDA).
+    """K1: the reverse scan of the hand-written VJP (CUDA); at G = 1, K2's,
+    counted as ``lstm_scan_uni_bwd``.
 
     Same operands as the forward plus the bf16 residuals h_res/c_res
     [T,G,B,H] and the cotangents dys [T,G,B,H] bf16, dhT/dcT [G,B,H] f32
@@ -304,7 +319,7 @@ def lstm_scan_bwd(wh, b, xw, mask, h_res, c_res, dys, dhT, dcT):
         dh0.data_ptr(), db.data_ptr(), T, G, B, H, stream,
     )
     _raise_on(err, "lstm_scan_bwd launch")
-    LAUNCHES["lstm_scan_bwd"] += 1
+    LAUNCHES[_lstm_counter("lstm_scan_bwd", G)] += 1
     return dxw, db, dh0, dc
 
 
@@ -533,6 +548,14 @@ def beam_step(logits, logp, lens, finished, lp_table, tokens_row, parents_row):
     return flat_parent, feed, logp_out, lens_out, finished_out
 
 
+def _check_score(v, keys, N, S, A, dev):
+    """The score's operands: Bahdanau's v [A] bf16 and fp32 keys [N, S, A],
+    or Luong's (v None) bf16 keys [N, S, A], A the memory width."""
+    if v is not None:
+        _check("v", v, torch.bfloat16, (A,), dev)
+    _check("keys", keys, torch.float32 if v is not None else torch.bfloat16, (N, S, A), dev)
+
+
 def _check_av_align(wh, b, ctx_proj, wq, v, xw, mask, keys, values):
     T, B, H4 = xw.shape
     H = H4 // 4
@@ -544,10 +567,9 @@ def _check_av_align(wh, b, ctx_proj, wq, v, xw, mask, keys, values):
     if ctx_proj is not None:
         _check("ctx_proj", ctx_proj, torch.bfloat16, (Dv, 4 * H), dev)
     _check("wq", wq, torch.bfloat16, (H, A), dev)
-    _check("v", v, torch.bfloat16, (A,), dev)
+    _check_score(v, keys, B, S, A, dev)
     _check("xw", xw, torch.float32, (T, B, 4 * H), dev)
     _check("mask", mask, torch.float32, (T, B), dev)
-    _check("keys", keys, torch.float32, (B, S, A), dev)
     _check("values", values, torch.bfloat16, (B, S, Dv), dev)
     if H % LSTM_UNIT_TILE or A % 8 or A > 512 or Dv % LSTM_UNIT_TILE or Dv > 2048:
         raise ValueError(f"av_align scan: H={H} and Dv={Dv} must be multiples of "
@@ -565,11 +587,13 @@ def _check_av_align(wh, b, ctx_proj, wq, v, xw, mask, keys, values):
 
 def av_align_scan(wh, b, ctx_proj, wq, v, xw, mask, keys, values, mbias, mmask, *,
                   save: bool = False):
-    """K8: the AV-Align fusion scan, forward (CUDA).
+    """K8: the AV-Align fusion scan, forward (CUDA); with ``v`` None its
+    Luong instance, counted as ``av_align_scan_luong``.
 
     wh [H,4H] bf16, b [4H] f32, ctx_proj [Dv,4H] bf16 or None (no input
-    feeding), wq [H,A] bf16, v [A] bf16, xw [T,B,4H] f32, mask [T,B] f32;
-    the video memory: keys [B,S,A] f32, values [B,S,Dv] bf16, mbias / mmask
+    feeding), wq [H,A] bf16, v [A] bf16 (None: Luong), xw [T,B,4H] f32, mask
+    [T,B] f32; the video memory: keys [B,S,A] f32 (Luong: the bf16 memory,
+    A its width), values [B,S,Dv] bf16, mbias / mmask
     [B,S] f32 -> (hs [T,B,H], ctxs [T,B,Dv], aligns [T,B,S], hT, cT [B,H],
     ctxT [B,Dv], res), all fp32, from zero initial carries; res is (h_res,
     c_res [T,B,H], ctx_res [T,B,Dv]), the fp32 carries entering each step,
@@ -596,26 +620,28 @@ def av_align_scan(wh, b, ctx_proj, wq, v, xw, mask, keys, values, mbias, mmask, 
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.avsr_av_align_scan(
         wh_tiled.data_ptr(), None if cp_tiled is None else cp_tiled.data_ptr(), b.data_ptr(),
-        xw.data_ptr(), mask.data_ptr(), wq.data_ptr(), v.data_ptr(), keys.data_ptr(),
+        xw.data_ptr(), mask.data_ptr(), wq.data_ptr(), _ptr(v), keys.data_ptr(),
         values.data_ptr(), mbias.data_ptr(), mmask.data_ptr(), hbuf.data_ptr(), c.data_ptr(),
         ctxbuf.data_ptr(), hnew.data_ptr(), hs.data_ptr(), ctxs.data_ptr(), aligns.data_ptr(),
         *((r.data_ptr() for r in res) if save else (None, None, None)),
-        T, B, H, Dc, A, S, Dv, stream)
+        T, B, H, Dc, A, S, Dv, int(v is None), stream)
     _raise_on(err, "av_align_scan launch")
-    LAUNCHES["av_align_scan"] += 1
+    LAUNCHES["av_align_scan" if v is not None else "av_align_scan_luong"] += 1
     return hs, ctxs, aligns, hbuf[T % 2], c, ctxbuf[T % 2], res
 
 
 def av_align_scan_bwd(wh, b, ctx_proj, wq, v, xw, mask, keys, values, aligns, h_res, c_res,
                       ctx_res, dhs, dctxs, dhT, dcT, dctxT):
-    """K8: the reverse scan of the fusion's gradient (CUDA).
+    """K8: the reverse scan of the fusion's gradient (CUDA); with ``v``
+    None its Luong instance, counted as ``av_align_scan_luong_bwd``.
 
     The forward's operands (no memory bias or mask: they enter through
     ``aligns`` [T,B,S], the forward's read weights), its saved fp32 carries
     h_res / c_res [T,B,H], ctx_res [T,B,Dv], the cotangents dhs [T,B,H],
     dctxs [T,B,Dv] and dhT, dcT [B,H], dctxT [B,Dv] (fp32) -> (dxw
-    [T,B,4H], db [4H], dq [T,B,A], dv_rows [B,A], dkeys [B,S,A], dvalues
-    [B,S,Dv], hnew [T,B,H]), all fp32: dxw is dgates; dq, dv_rows and hnew
+    [T,B,4H], db [4H], dq [T,B,A], dv_rows [B,A] (None for Luong), dkeys
+    [B,S,A], dvalues [B,S,Dv], hnew [T,B,H]), all fp32: dxw is dgates; dq,
+    dv_rows and hnew
     (the recomputed queries) are the factors of dwq and dv, and dWh /
     dctx_proj are products over h_res / ctx_res and dxw, left to the caller.
     """
@@ -638,7 +664,7 @@ def av_align_scan_bwd(wh, b, ctx_proj, wq, v, xw, mask, keys, values, aligns, h_
     hnew = torch.empty((T, B, H), dtype=f32, device=dev)
     dxw = torch.empty((T, B, 4 * H), dtype=f32, device=dev)
     dq = torch.empty((T, B, A), dtype=f32, device=dev)
-    dv_acc = torch.zeros((B, A), dtype=f32, device=dev)
+    dv_acc = None if v is None else torch.zeros((B, A), dtype=f32, device=dev)
     db_acc = torch.zeros((B, 4 * H), dtype=f32, device=dev)
     dkeys = torch.zeros((B, S, A), dtype=f32, device=dev)
     dvalues = torch.zeros((B, S, Dv), dtype=f32, device=dev)
@@ -646,29 +672,28 @@ def av_align_scan_bwd(wh, b, ctx_proj, wq, v, xw, mask, keys, values, aligns, h_
     err = lib.avsr_av_align_scan_bwd(
         wh_tiled.data_ptr(), None if cp_tiled is None else cp_tiled.data_ptr(),
         w_all_t.data_ptr(), b.data_ptr(), xw.data_ptr(), mask.data_ptr(), wq.data_ptr(),
-        v.data_ptr(), keys.data_ptr(), values.data_ptr(), aligns.data_ptr(), h_res.data_ptr(),
+        _ptr(v), keys.data_ptr(), values.data_ptr(), aligns.data_ptr(), h_res.data_ptr(),
         c_res.data_ptr(), ctx_res.data_ptr(), dhs.data_ptr(), dctxs.data_ptr(), dh.data_ptr(),
         dc.data_ptr(), dctx.data_ptr(), act.data_ptr(), hnew.data_ptr(), dxw.data_ptr(),
-        dq.data_ptr(), dv_acc.data_ptr(), db_acc.data_ptr(), dkeys.data_ptr(),
-        dvalues.data_ptr(), T, B, H, Dc, A, S, Dv, stream)
+        dq.data_ptr(), _ptr(dv_acc), db_acc.data_ptr(), dkeys.data_ptr(),
+        dvalues.data_ptr(), T, B, H, Dc, A, S, Dv, int(v is None), stream)
     _raise_on(err, "av_align_scan_bwd launch")
-    LAUNCHES["av_align_scan_bwd"] += 1
+    LAUNCHES["av_align_scan_bwd" if v is not None else "av_align_scan_luong_bwd"] += 1
     return dxw, db_acc.sum(dim=0), dq, dv_acc, dkeys, dvalues, hnew
 
 
 def _check_bahdanau(what, query, wq, v, keys, values, smem_fn, *smem_args):
-    """The operands both K10 launches share, their limits and the shared
-    memory that the library's ``smem_fn(Hq, A, S, *smem_args)`` asks
-    (the library is loaded only once the operands pass): (N, Hq, S, A, Dv,
-    dev)."""
+    """The operands both K10 launches share (either score), their limits and
+    the shared memory that the library's ``smem_fn(Hq, A, S, *smem_args)``
+    asks (the library is loaded only once the operands pass): (N, Hq, S, A,
+    Dv, dev)."""
     N, Hq = query.shape
     S, A = keys.shape[1], keys.shape[2]
     Dv = values.shape[-1]
     dev = query.device
     _check("query", query, torch.float32, (N, Hq), dev)
     _check("wq", wq, torch.bfloat16, (Hq, A), dev)
-    _check("v", v, torch.bfloat16, (A,), dev)
-    _check("keys", keys, torch.float32, (N, S, A), dev)
+    _check_score(v, keys, N, S, A, dev)
     _check("values", values, torch.bfloat16, (N, S, Dv), dev)
     if A % 8 or A > 512 or Dv % 8 or Dv > 2048:
         raise ValueError(f"{what}: A={A} must be a multiple of 8 up to 512, "
@@ -683,37 +708,41 @@ def _check_bahdanau(what, query, wq, v, keys, values, smem_fn, *smem_args):
 
 
 def bahdanau_attend(query, wq, v, keys, values, bias, mask):
-    """K10: one Bahdanau attention read per row (CUDA).
+    """K10: one attention read per row (CUDA): Bahdanau, or with ``v`` None
+    Luong, counted as ``luong_attend``.
 
-    query [N,Hq] f32, wq [Hq,A] bf16, v [A] bf16, keys [N,S,A] f32, values
-    [N,S,Dv] bf16, bias / mask [N,S] f32 -> (ctx [N,Dv] f32, weights [N,S]
-    f32; a row whose every position is masked gets zeros in both).
+    query [N,Hq] f32, wq [Hq,A] bf16, v [A] bf16 (None: Luong), keys
+    [N,S,A] f32 (Luong: the bf16 memory, A its width), values [N,S,Dv]
+    bf16, bias / mask [N,S] f32 -> (ctx [N,Dv] f32, weights [N,S] f32; a
+    row whose every position is masked gets zeros in both).
     """
     N, Hq, S, A, Dv, dev = _check_bahdanau("bahdanau attend", query, wq, v, keys, values,
                                            "avsr_bahdanau_smem")
     _check("bias", bias, torch.float32, (N, S), dev)
     _check("mask", mask, torch.float32, (N, S), dev)
     lib = _load()
-    ctx =torch.empty((N, Dv), dtype=torch.float32, device=dev)
+    ctx = torch.empty((N, Dv), dtype=torch.float32, device=dev)
     weights = torch.empty((N, S), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.avsr_bahdanau_attend(
-        query.data_ptr(), wq.data_ptr(), v.data_ptr(), keys.data_ptr(), values.data_ptr(),
+        query.data_ptr(), wq.data_ptr(), _ptr(v), keys.data_ptr(), values.data_ptr(),
         bias.data_ptr(), mask.data_ptr(), ctx.data_ptr(), weights.data_ptr(),
-        N, Hq, A, S, Dv, stream)
+        N, Hq, A, S, Dv, int(v is None), stream)
     _raise_on(err, "bahdanau_attend launch")
-    LAUNCHES["bahdanau_attend"] += 1
+    LAUNCHES["bahdanau_attend" if v is not None else "luong_attend"] += 1
     return ctx, weights
 
 
 def bahdanau_attend_bwd(query, wq, v, keys, values, weights, dctx):
-    """K10: the backward of one Bahdanau read per row (CUDA).
+    """K10: the backward of one read per row (CUDA): Bahdanau, or with ``v``
+    None Luong, counted as ``luong_attend_bwd``.
 
-    The forward's query [N,Hq] f32, wq [Hq,A] bf16, v [A] bf16, keys [N,S,A]
-    f32, values [N,S,Dv] bf16, its weights [N,S] f32 and the context
-    cotangent dctx [N,Dv] f32 -> (dquery [N,Hq], dq [N,A], dv_rows [N,A],
-    dkeys [N,S,A], dvalues [N,S,Dv]), all fp32; dq and dv_rows are the
-    per-row factors of dwq and dv (``ops/attention.py``).
+    The forward's query [N,Hq] f32, wq [Hq,A] bf16, v [A] bf16 (None:
+    Luong), keys [N,S,A] (f32; Luong bf16), values [N,S,Dv] bf16, its
+    weights [N,S] f32 and the context cotangent dctx [N,Dv] f32 -> (dquery
+    [N,Hq], dq [N,A], dv_rows [N,A] (None for Luong), dkeys [N,S,A],
+    dvalues [N,S,Dv]), all fp32; dq and dv_rows are the per-row factors of
+    dwq and dv (``ops/attention.py``).
     """
     N, Hq, S, A, Dv, dev = _check_bahdanau("bahdanau attend bwd", query, wq, v, keys, values,
                                            "avsr_bahdanau_bwd_smem", values.shape[-1])
@@ -723,16 +752,17 @@ def bahdanau_attend_bwd(query, wq, v, keys, values, weights, dctx):
     lib = _load()
     dquery = torch.empty((N, Hq), dtype=f32, device=dev)
     dq = torch.empty((N, A), dtype=f32, device=dev)
-    dv_rows = torch.zeros((N, A), dtype=f32, device=dev)
+    dv_rows = None if v is None else torch.zeros((N, A), dtype=f32, device=dev)
     dkeys = torch.zeros((N, S, A), dtype=f32, device=dev)
     dvalues = torch.zeros((N, S, Dv), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.avsr_bahdanau_attend_bwd(
-        query.data_ptr(), wq.data_ptr(), v.data_ptr(), keys.data_ptr(), values.data_ptr(),
+        query.data_ptr(), wq.data_ptr(), _ptr(v), keys.data_ptr(), values.data_ptr(),
         weights.data_ptr(), dctx.data_ptr(), dquery.data_ptr(), dq.data_ptr(),
-        dv_rows.data_ptr(), dkeys.data_ptr(), dvalues.data_ptr(), N, Hq, A, S, Dv, stream)
+        _ptr(dv_rows), dkeys.data_ptr(), dvalues.data_ptr(), N, Hq, A, S, Dv, int(v is None),
+        stream)
     _raise_on(err, "bahdanau_attend_bwd launch")
-    LAUNCHES["bahdanau_attend_bwd"] += 1
+    LAUNCHES["bahdanau_attend_bwd" if v is not None else "luong_attend_bwd"] += 1
     return dquery, dq, dv_rows, dkeys, dvalues
 
 

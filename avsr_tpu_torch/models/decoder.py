@@ -7,9 +7,9 @@ Two families, picked by ``DecoderConfig.decoder_type``:
   step, parallel teacher forcing);
 * ``"rnn"``: the reference's attention LSTM.  One decode step embeds the
   previous token, runs the LSTM stack on ``[embedding ; previous
-  contexts]`` (input feeding), reads each memory with Bahdanau attention
-  (kernel K10 on a GPU, ``ops/attention.py``) queried by the top layer's
-  h, and projects ``[h ; contexts]`` to the vocabulary.  The gate and
+  contexts]`` (input feeding), reads each memory with Bahdanau or Luong
+  attention (kernel K10 on a GPU, ``ops/attention.py``) queried by the top
+  layer's h, and projects ``[h ; contexts]`` to the vocabulary.  The gate and
   output products stay matrix products, as the reference leaves them to
   XLA.  Teacher forcing is a host loop over the label positions through
   the same ``decoder_step``, with the reference's scheduled sampling (a
@@ -17,8 +17,7 @@ Two families, picked by ``DecoderConfig.decoder_type``:
   Gumbel-max sample of the previous step's logits) and variational dropout
   (one mask per layer per sequence on each layer's output; the state keeps
   the undropped h).  Every draw comes from the caller's generator on the
-  batch's device, so the loop never waits on the device.  Luong attention
-  raises.
+  batch's device, so the loop never waits on the device.
 """
 
 from __future__ import annotations
@@ -49,9 +48,6 @@ def _is_transformer(cfg: DecoderConfig) -> bool:
         return True
     if cfg.decoder_type != "rnn":
         raise ValueError(f"unknown decoder_type {cfg.decoder_type!r}")
-    if cfg.attention_type != "bahdanau":
-        raise ValueError(f"{cfg.attention_type!r} attention is not ported (the port runs "
-                         "Bahdanau)")
     return False
 
 

@@ -1,14 +1,17 @@
 """Encoder stacks (counterpart of ``avsr_tpu/models/encoder.py``): the
-stacked BiLSTM, and ``encoder_type="transformer"`` dispatched to
+stacked BiLSTM (one direction-fused K1 scan per layer) or, with
+``bidirectional=False``, the stacked one-direction LSTM (one K2 scan per
+layer), and ``encoder_type="transformer"`` dispatched to
 ``models/transformer.py`` (the ``lrs2_av_v2`` preset's encoders).
 
 Time-major [T, B, D] throughout.  Pyramidal time reduction folds r
 consecutive frames into the feature dim before a layer (padded steps are
 zeroed first, so a partly valid last group carries zeros).  In train mode
-each BiLSTM layer's output gets inverted dropout (the reference's
+each LSTM layer's output gets inverted dropout (the reference's
 ``_post_layer``), and each transformer layer its residual-branch dropout,
-drawn from the step's generator; recurrent dropout and the residual /
-highway / LN variants of the BiLSTM stack are not ported and raise.
+drawn from the step's generator; recurrent dropout, GRU cells and the
+residual / highway / LN variants of the LSTM stack are not ported and
+raise.
 """
 
 from __future__ import annotations
@@ -58,10 +61,9 @@ def _check_supported(cfg: EncoderConfig) -> None:
         raise ValueError(
             "EncoderConfig.conv_kernel is transformer-only (the conformer conv module); the "
             "RNN stack is already local")
-    if (cfg.cell_type != "lstm" or not cfg.bidirectional or cfg.layer_norm or cfg.residual
-            or cfg.highway):
+    if cfg.cell_type != "lstm" or cfg.layer_norm or cfg.residual or cfg.highway:
         raise ValueError(
-            "the port's RNN encoder is the plain bidirectional LSTM stack "
+            "the port's RNN encoder is the plain (bi- or unidirectional) LSTM stack "
             "(no GRU, LN, residual or highway layers)")
 
 
@@ -74,16 +76,19 @@ def encoder_init(gen: torch.Generator, cfg: EncoderConfig, input_dim: int,
     d = input_dim
     for h, r in zip(cfg.hidden_units, time_reductions(cfg)):
         d *= r
-        layers.append({"fwd": rnn.lstm_init(gen, d, h, device),
-                       "bwd": rnn.lstm_init(gen, d, h, device)})
-        d = 2 * h
+        layer = {"fwd": rnn.lstm_init(gen, d, h, device)}
+        if cfg.bidirectional:
+            layer["bwd"] = rnn.lstm_init(gen, d, h, device)
+        layers.append(layer)
+        d = 2 * h if cfg.bidirectional else h
     return {"layers": layers}
 
 
 def encoder_output_dim(cfg: EncoderConfig) -> int:
+    h = cfg.hidden_units[-1]
     if cfg.encoder_type == "transformer":
-        return cfg.hidden_units[-1]  # d_model; self attention is bidirectional
-    return 2 * cfg.hidden_units[-1]
+        return h  # d_model; self attention is bidirectional
+    return 2 * h if cfg.bidirectional else h
 
 
 def _time_reduce(h: torch.Tensor, r: int) -> torch.Tensor:
@@ -102,9 +107,10 @@ def _step_mask(T: int, lengths: torch.Tensor) -> torch.Tensor:
 def encoder_apply(params: Params, cfg: EncoderConfig, x_tbd: torch.Tensor,
                   lengths: torch.Tensor, cdt: torch.dtype, *, train: bool = False,
                   generator: Optional[torch.Generator] = None):
-    """[T, B, D] features -> ([T_out, B, 2H] fp32 (d for the transformer),
-    zeros at padded steps; final state of the last layer, or the
-    transformer's summary).  ``train`` with a generator applies the BiLSTM
+    """[T, B, D] features -> ([T_out, B, 2H] fp32 (H unidirectional, d for
+    the transformer), zeros at padded steps; final state of the last layer:
+    ((hT_f, cT_f), (hT_b, cT_b)) bidirectional, (hT, cT) unidirectional, or
+    the transformer's summary).  ``train`` with a generator applies the LSTM
     layers' output dropout or the transformer layers' branch dropout."""
     _check_supported(cfg)
     if cfg.encoder_type == "transformer":
@@ -120,8 +126,11 @@ def encoder_apply(params: Params, cfg: EncoderConfig, x_tbd: torch.Tensor,
             h = _time_reduce(h * mask[:, :, None], r)
             lengths = -(-lengths // r)
             mask = _step_mask(h.shape[0], lengths)
-        h, final_state = rnn.bidirectional_scan(
-            cfg.cell_type, layer["fwd"], layer["bwd"], h, mask, cdt)
+        if cfg.bidirectional:
+            h, final_state = rnn.bidirectional_scan(
+                cfg.cell_type, layer["fwd"], layer["bwd"], h, mask, cdt)
+        else:
+            h, final_state = rnn.rnn_scan(cfg.cell_type, layer["fwd"], h, mask, cdt=cdt)
         if train and cfg.dropout_rate > 0.0 and generator is not None:
             keep = 1.0 - cfg.dropout_rate
             h = h * dropout_mask(generator, keep, h.shape, h.dtype)

@@ -7,8 +7,9 @@ cross-attention fusion (``cross_attention_fusion_init`` /
 zero.
 
 AV-Align (the reference-dims model): a unidirectional LSTM over the audio
-encoder's output with input feeding; at every audio step one Bahdanau read
-of the video memory with the new h as the query; the memory is [h ; ctx].
+encoder's output with input feeding; at every audio step one attention read
+(Bahdanau or Luong, ``FusionConfig.attention_type``) of the video memory
+with the new h as the query; the memory is [h ; ctx].
 The scan body (``fusion.py:118-141``) is kernel K8: ``av_align_scan_fwd``
 launches ``csrc/av_align_scan.cu`` for tensors on a GPU and runs
 ``av_align_scan_fwd_plain`` (a loop of ``lstm_step`` and ``attend_plain``)
@@ -19,8 +20,10 @@ backward is the reverse scan with the gates and the read recomputed from
 them (``av_align_scan_bwd``: the CUDA kernel on a GPU,
 ``av_align_scan_bwd_plain`` on the CPU).  The weight gradients of Wh,
 ctx_proj, wq and v are single products over all steps after the scan.
-The hoisted fp32 input product, the memory preparation, the AU head and
-the concat stay torch code.
+The attention type is a non-tensor argument of every function of the scan
+(``attention_type``), and the kernels take either score.  The hoisted fp32
+input product, the memory preparation, the AU head and the concat stay
+torch code.
 
 Cross-attention: multi-head attention with audio queries over video
 keys/values.  Key padding adds -1e9 to the scores and the softmax runs in
@@ -58,7 +61,7 @@ class FusionOutput(NamedTuple):
 def av_align_init(gen: torch.Generator, cfg: FusionConfig, audio_input_dim: int,
                   audio_hidden: int, video_dim: int, device) -> Params:
     """The fusion LSTM cell (its ``wx`` covers the acoustic input only), the
-    Bahdanau attention over the video memory, the context-input projection
+    attention over the video memory, the context-input projection
     (input feeding) and the AU head, with the reference's keys and shapes."""
     params: Params = {
         "cell": rnn.lstm_init(gen, audio_input_dim, audio_hidden, device),
@@ -76,7 +79,8 @@ def av_align_init(gen: torch.Generator, cfg: FusionConfig, audio_input_dim: int,
 
 def av_align_scan_fwd_plain(cell: Params, att: Params, ctx_proj: Optional[torch.Tensor],
                             xw: torch.Tensor, mask: torch.Tensor, mem: attn.AttentionMemory,
-                            cdt: torch.dtype, save: bool = False):
+                            cdt: torch.dtype, save: bool = False, *,
+                            attention_type: str = "bahdanau"):
     """Plain-PyTorch K8 forward: the reference's scan body, step by step.
 
     xw [T,B,4H] fp32 (the hoisted input product), mask [T,B] fp32, the
@@ -100,7 +104,7 @@ def av_align_scan_fwd_plain(cell: Params, att: Params, ctx_proj: Optional[torch.
         if ctx_proj is not None:
             gate_in = gate_in + dot_f32(ctx, ctx_proj, cdt)
         (h_new, c_new), _ = rnn.lstm_step(cell, gate_in, (h, c), cdt, preprojected=True)
-        ctx_new, align = attn.attend_plain("bahdanau", att, h_new, mem, cdt)
+        ctx_new, align = attn.attend_plain(attention_type, att, h_new, mem, cdt)
         m = mask[t][:, None]
         h = m * h_new + (1.0 - m) * h
         c = m * c_new + (1.0 - m) * c
@@ -114,11 +118,11 @@ def av_align_scan_fwd_plain(cell: Params, att: Params, ctx_proj: Optional[torch.
 
 def av_align_scan_plain(cell: Params, att: Params, ctx_proj: Optional[torch.Tensor],
                         xw: torch.Tensor, mask: torch.Tensor, mem: attn.AttentionMemory,
-                        cdt: torch.dtype):
+                        cdt: torch.dtype, *, attention_type: str = "bahdanau"):
     """Plain-PyTorch K8 forward, outputs only: (hs, ctxs, aligns, (hT, cT,
     ctxT))."""
-    (hs, ctxs, aligns, hT, cT, ctxT), _ = av_align_scan_fwd_plain(cell, att, ctx_proj, xw, mask,
-                                                                  mem, cdt)
+    (hs, ctxs, aligns, hT, cT, ctxT), _ = av_align_scan_fwd_plain(
+        cell, att, ctx_proj, xw, mask, mem, cdt, attention_type=attention_type)
     return hs, ctxs, aligns, (hT, cT, ctxT)
 
 
@@ -127,23 +131,28 @@ def _check_align_policy(cdt):
         raise ValueError(f"the AV-Align fusion kernels run the bf16 policy only, got {cdt}")
 
 
+def _cell_operands(cell: Params, ctx_proj: Optional[torch.Tensor]):
+    bf = torch.bfloat16
+    return (cell["wh"].to(bf).contiguous(), cell["b"].float().contiguous(),
+            None if ctx_proj is None else ctx_proj.to(bf).contiguous())
+
+
 def av_align_scan_fwd(cell: Params, att: Params, ctx_proj: Optional[torch.Tensor],
                       xw: torch.Tensor, mask: torch.Tensor, mem: attn.AttentionMemory,
-                      cdt: torch.dtype, save: bool = False):
+                      cdt: torch.dtype, save: bool = False, *,
+                      attention_type: str = "bahdanau"):
     """K8 forward wrapper: the CUDA kernel for GPU tensors, the plain
     version on the CPU; same contract as ``av_align_scan_fwd_plain``.  The
     kernel runs the bf16 policy only; any other compute dtype on a GPU
     raises."""
     if xw.device.type == "cpu":
-        return av_align_scan_fwd_plain(cell, att, ctx_proj, xw, mask, mem, cdt, save)
+        return av_align_scan_fwd_plain(cell, att, ctx_proj, xw, mask, mem, cdt, save,
+                                       attention_type=attention_type)
     _check_align_policy(cdt)
-    bf = torch.bfloat16
+    wq, v, keys, values = attn.kernel_operands(attention_type, att, mem)
     hs, ctxs, aligns, hT, cT, ctxT, res = kernels.av_align_scan(
-        cell["wh"].to(bf).contiguous(), cell["b"].float().contiguous(),
-        None if ctx_proj is None else ctx_proj.to(bf).contiguous(),
-        att["wq"].to(bf).contiguous(), att["v"].to(bf).contiguous(),
-        xw.float().contiguous(), mask.float().contiguous(), mem.keys.float().contiguous(),
-        mem.values.to(bf).contiguous(), mem.bias.float().contiguous(),
+        *_cell_operands(cell, ctx_proj), wq, v, xw.float().contiguous(),
+        mask.float().contiguous(), keys, values, mem.bias.float().contiguous(),
         mem.mask.float().contiguous(), save=save)
     return (hs, ctxs, aligns, hT, cT, ctxT), res
 
@@ -152,7 +161,7 @@ def av_align_scan_bwd_plain(cell: Params, att: Params, ctx_proj: Optional[torch.
                             xw: torch.Tensor, mask: torch.Tensor, mem: attn.AttentionMemory,
                             aligns: torch.Tensor, res, dhs: torch.Tensor, dctxs: torch.Tensor,
                             dhT: torch.Tensor, dcT: torch.Tensor, dctxT: torch.Tensor,
-                            cdt: torch.dtype):
+                            cdt: torch.dtype, *, attention_type: str = "bahdanau"):
     """Plain-PyTorch K8 backward: the reverse scan of the gradient JAX's
     autodiff takes through the rematerialized body (``fusion.py:118-141``).
 
@@ -164,10 +173,11 @@ def av_align_scan_bwd_plain(cell: Params, att: Params, ctx_proj: Optional[torch.
     the carries' cotangents through ``Wh`` and ``ctx_proj`` (rounded to the
     compute dtype, as the transposes of the reference's casts are).
 
-    Returns (dxw [T,B,4H], db [4H], dq [T,B,A], dv_rows [B,A], dkeys
-    [B,S,A], dvalues [B,S,Dv], hnew [T,B,H]), all fp32: dxw is dgates, and
-    dq, dv_rows and hnew (the read's queries) are the factors of the weight
-    gradients (``av_align_weight_grads``).
+    Returns (dxw [T,B,4H], db [4H], dq [T,B,A], dv_rows [B,A] (None for
+    Luong), dkeys [B,S,A], dvalues [B,S,Dv], hnew [T,B,H]), all fp32: dxw
+    is dgates, and dq, dv_rows and hnew (the read's queries) are the factors
+    of the weight gradients (``av_align_weight_grads``); A is the key width
+    (Luong: the memory's).
     """
     h_res, c_res, ctx_res = res
     T, B, H4 = xw.shape
@@ -177,7 +187,9 @@ def av_align_scan_bwd_plain(cell: Params, att: Params, ctx_proj: Optional[torch.
     db = torch.zeros((H4,), dtype=torch.float32, device=xw.device)
     dkeys = torch.zeros(mem.keys.shape, dtype=torch.float32, device=xw.device)
     dvalues = torch.zeros(mem.values.shape, dtype=torch.float32, device=xw.device)
-    dv_rows = torch.zeros((B, mem.keys.shape[-1]), dtype=torch.float32, device=xw.device)
+    dv_rows = None
+    if attention_type != "luong":
+        dv_rows = torch.zeros((B, mem.keys.shape[-1]), dtype=torch.float32, device=xw.device)
     dxw, dq, hnew = [None] * T, [None] * T, [None] * T
     for t in reversed(range(T)):
         m = mask[t][:, None]
@@ -194,10 +206,11 @@ def av_align_scan_bwd_plain(cell: Params, att: Params, ctx_proj: Optional[torch.
         h_new = o * tc
         dctx_new = m * (dctx + dctxs[t])
         dquery, dq[t], dv_t, dk_t, dval_t = attn.attend_bwd_plain(
-            "bahdanau", att, h_new, mem, aligns[t], dctx_new, cdt)
+            attention_type, att, h_new, mem, aligns[t], dctx_new, cdt)
         dkeys += dk_t
         dvalues += dval_t
-        dv_rows += dv_t
+        if dv_rows is not None:
+            dv_rows += dv_t
         hnew[t] = h_new
         dh_new = m * (dh + dhs[t]) + dquery
         dc_new = m * dc + dh_new * o * (1.0 - tc * tc)
@@ -217,20 +230,18 @@ def av_align_scan_bwd(cell: Params, att: Params, ctx_proj: Optional[torch.Tensor
                       xw: torch.Tensor, mask: torch.Tensor, mem: attn.AttentionMemory,
                       aligns: torch.Tensor, res, dhs: torch.Tensor, dctxs: torch.Tensor,
                       dhT: torch.Tensor, dcT: torch.Tensor, dctxT: torch.Tensor,
-                      cdt: torch.dtype):
+                      cdt: torch.dtype, *, attention_type: str = "bahdanau"):
     """K8 backward wrapper: the CUDA kernel for GPU tensors, the plain
     version on the CPU; same contract as ``av_align_scan_bwd_plain``."""
     if xw.device.type == "cpu":
         return av_align_scan_bwd_plain(cell, att, ctx_proj, xw, mask, mem, aligns, res, dhs,
-                                       dctxs, dhT, dcT, dctxT, cdt)
+                                       dctxs, dhT, dcT, dctxT, cdt,
+                                       attention_type=attention_type)
     _check_align_policy(cdt)
-    bf = torch.bfloat16
+    wq, v, keys, values = attn.kernel_operands(attention_type, att, mem)
     return kernels.av_align_scan_bwd(
-        cell["wh"].to(bf).contiguous(), cell["b"].float().contiguous(),
-        None if ctx_proj is None else ctx_proj.to(bf).contiguous(),
-        att["wq"].to(bf).contiguous(), att["v"].to(bf).contiguous(),
-        xw.float().contiguous(), mask.float().contiguous(), mem.keys.float().contiguous(),
-        mem.values.to(bf).contiguous(), aligns.float().contiguous(),
+        *_cell_operands(cell, ctx_proj), wq, v, xw.float().contiguous(),
+        mask.float().contiguous(), keys, values, aligns.float().contiguous(),
         *(r.float().contiguous() for r in res), dhs.float().contiguous(),
         dctxs.float().contiguous(), dhT.float().contiguous(), dcT.float().contiguous(),
         dctxT.float().contiguous())
@@ -239,8 +250,8 @@ def av_align_scan_bwd(cell: Params, att: Params, ctx_proj: Optional[torch.Tensor
 def av_align_weight_grads(res, ctx_proj: Optional[torch.Tensor], dxw: torch.Tensor,
                           dq: torch.Tensor, dv_rows: torch.Tensor, hnew: torch.Tensor,
                           cdt: torch.dtype):
-    """dWh, dctx_proj (None without input feeding), dwq and dv, each one
-    fp32 product over all steps (the reference sums the same per-step
+    """dWh, dctx_proj (None without input feeding), dwq and dv (None for
+    Luong), each one fp32 product over all steps (the reference sums the same per-step
     products inside its scan)."""
     h_res, _, ctx_res = res
     H4 = dxw.shape[-1]
@@ -255,21 +266,25 @@ def av_align_weight_grads(res, ctx_proj: Optional[torch.Tensor], dxw: torch.Tens
 
 class AVAlignScan(torch.autograd.Function):
     """K8 with its gradient: (hs, ctxs, aligns, hT, cT, ctxT) from the cell
-    (wh, b), ctx_proj (or None), the attention (wq, v), the input product
-    xw and the video memory's keys and values.  The alignments feed no
+    (wh, b), ctx_proj (or None), the attention (wq, v; v None for Luong,
+    ``attention_type`` a non-tensor argument), the input product xw and the
+    video memory's keys and values (one tensor for a Luong memory without
+    ``wv``: autograd adds its dkeys and dvalues).  The alignments feed no
     loss: they are marked non-differentiable, and a gradient arriving for
     them raises.  The masks and the memory bias take no gradient."""
 
     @staticmethod
-    def forward(ctx, wh, b, ctx_proj, wq, v, xw, mask, keys, values, mbias, mmask, cdt):
+    def forward(ctx, attention_type, wh, b, ctx_proj, wq, v, xw, mask, keys, values, mbias,
+                mmask, cdt):
         cell, att = {"wh": wh, "b": b}, {"wq": wq, "v": v}
         mem = attn.AttentionMemory(values=values, keys=keys, mask=mmask, bias=mbias)
-        out, res = av_align_scan_fwd(cell, att, ctx_proj, xw, mask, mem, cdt, save=True)
+        out, res = av_align_scan_fwd(cell, att, ctx_proj, xw, mask, mem, cdt, save=True,
+                                     attention_type=attention_type)
         ctx.save_for_backward(wh, b, ctx_proj, wq, v, xw, mask, keys, values, mbias, mmask,
                               out[2], *res)
         ctx.mark_non_differentiable(out[2])
         ctx.set_materialize_grads(False)
-        ctx.cdt = cdt
+        ctx.cdt, ctx.attention_type = cdt, attention_type
         return out
 
     @staticmethod
@@ -289,30 +304,33 @@ class AVAlignScan(torch.autograd.Function):
 
         dxw, db, dq, dv_rows, dkeys, dvalues, hnew = av_align_scan_bwd(
             cell, att, ctx_proj, xw, mask, mem, aligns, res, z(dhs, T, B, H),
-            z(dctxs, T, B, Dv), z(dhT, B, H), z(dcT, B, H), z(dctxT, B, Dv), cdt)
+            z(dctxs, T, B, Dv), z(dhT, B, H), z(dcT, B, H), z(dctxT, B, Dv), cdt,
+            attention_type=ctx.attention_type)
         dwh, dcp, dwq, dv = av_align_weight_grads(res, ctx_proj, dxw, dq, dv_rows, hnew, cdt)
-        return (dwh.to(wh.dtype), db.to(b.dtype), None if dcp is None else dcp.to(ctx_proj.dtype),
-                dwq.to(wq.dtype), dv.to(v.dtype), dxw.to(xw.dtype), None, dkeys.to(keys.dtype),
-                dvalues.to(values.dtype), None, None, None)
+        return (None, dwh.to(wh.dtype), db.to(b.dtype),
+                None if dcp is None else dcp.to(ctx_proj.dtype), dwq.to(wq.dtype),
+                None if dv is None else dv.to(v.dtype), dxw.to(xw.dtype), None,
+                dkeys.to(keys.dtype), dvalues.to(values.dtype), None, None, None)
 
 
 def av_align_scan(cell: Params, att: Params, ctx_proj: Optional[torch.Tensor],
                   xw: torch.Tensor, mask: torch.Tensor, mem: attn.AttentionMemory,
-                  cdt: torch.dtype):
+                  cdt: torch.dtype, *, attention_type: str = "bahdanau"):
     """K8 as the fusion calls it: (hs, ctxs, aligns, (hT, cT, ctxT)).  With
     autograd recording and an input that needs a gradient it goes through
     ``AVAlignScan``; otherwise (serving) straight to the forward wrapper,
     saving nothing."""
+    v = att.get("v")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
-            for t in (cell["wh"], cell["b"], ctx_proj, att["wq"], att["v"], xw, mem.keys,
+            for t in (cell["wh"], cell["b"], ctx_proj, att["wq"], v, xw, mem.keys,
                       mem.values)):
         hs, ctxs, aligns, hT, cT, ctxT = AVAlignScan.apply(
-            cell["wh"], cell["b"], ctx_proj, att["wq"], att["v"], xw, mask, mem.keys,
+            attention_type, cell["wh"], cell["b"], ctx_proj, att["wq"], v, xw, mask, mem.keys,
             mem.values, mem.bias, mem.mask, cdt)
     else:
-        (hs, ctxs, aligns, hT, cT, ctxT), _ = av_align_scan_fwd(cell, att, ctx_proj, xw, mask,
-                                                                mem, cdt)
+        (hs, ctxs, aligns, hT, cT, ctxT), _ = av_align_scan_fwd(
+            cell, att, ctx_proj, xw, mask, mem, cdt, attention_type=attention_type)
     return hs, ctxs, aligns, (hT, cT, ctxT)
 
 
@@ -329,7 +347,7 @@ def av_align_apply(params: Params, cfg: FusionConfig, audio_tbd: torch.Tensor,
     mask = (torch.arange(T_a, device=audio_tbd.device)[:, None]
             < audio_lengths[None, :]).float()
     hs, ctxs, aligns, _ = av_align_scan(params["cell"], params["att"], params.get("ctx_proj"),
-                                        xw, mask, mem, cdt)
+                                        xw, mask, mem, cdt, attention_type=cfg.attention_type)
     fused = torch.cat([hs, ctxs], dim=-1)
     au_pred = None
     if "au_w" in params:

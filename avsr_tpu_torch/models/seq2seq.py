@@ -9,14 +9,16 @@ The port covers the ``av_align`` architecture in two structures:
 * the ``lrs2_av_align`` preset's (the reference-dims model): the
   recurrent AV-Align fusion (the fusion LSTM with Bahdanau reads of the
   video memory, fused memory [h ; ctx]) and the attention-LSTM decoder
-  with scheduled sampling (serving, eval decode and training).
+  with scheduled sampling (serving, eval decode and training), also with
+  one-direction encoders and Luong reads in the fusion and the decoder
+  (``lrs2_av_align_uni_luong``).
 
 Compact int16/uint8 inputs are dequantized on the device, in training the
 waveform is mixed with noise, audio goes through the log-mel frontend and
-its encoder stack (pyramidal BiLSTM, or transformer), video through the
+its encoder stack (pyramidal (Bi)LSTM, or transformer), video through the
 lip-ROI CNN and its encoder, the two meet in the fusion, and the fused memory is prepared for
-the decoder (value-only for the transformer, Bahdanau keys for the RNN
-decoder).  ``loss_fn`` adds the teacher-forced decoder, the cross-entropy
+the decoder (value-only for the transformer, the keys of its attention
+type for the RNN decoder).  ``loss_fn`` adds the teacher-forced decoder, the cross-entropy
 and the AU regression loss.
 
 Randomness (noise draws, dropout masks) comes from ONE generator per

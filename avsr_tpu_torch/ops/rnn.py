@@ -19,6 +19,10 @@ recompute.  ``scan_core_fwd`` / ``scan_core_bwd`` launch the CUDA kernels
 (``bilstm_scan_core_fwd_impl`` / ``bilstm_scan_core_bwd_plain``) for
 tensors on the CPU, so the CPU tests run the hand-written backward's twin
 rather than torch's autodiff of the forward.
+
+A unidirectional layer (``lstm_scan`` / ``rnn_scan``) is the reference's
+``_lstm_scan_core``, kernel K2: the same core at G = 1, with a given
+initial state, whose launches the kernel wrappers count apart from K1's.
 """
 
 from __future__ import annotations
@@ -263,10 +267,57 @@ def fused_bilstm_scan(
     return out, ((hT[0], cT[0]), (hT[1], cT[1]))
 
 
+def _check_plain_lstm(cell_type: str, params: Params) -> None:
+    if cell_type != "lstm" or "ln_gamma" in params:
+        raise ValueError("the port runs plain LSTM cells only (no GRU, no LN-LSTM)")
+
+
 def bidirectional_scan(cell_type: str, params_fwd: Params, params_bwd: Params,
                        x_tbd, mask_tb, cdt):
     """The reference's ``bidirectional_scan`` for plain LSTM cells, which
     always takes the fused single-scan path."""
-    if cell_type != "lstm" or "ln_gamma" in params_fwd:
-        raise ValueError("the port runs plain LSTM cells only (no GRU, no LN-LSTM)")
+    _check_plain_lstm(cell_type, params_fwd)
     return fused_bilstm_scan(params_fwd, params_bwd, x_tbd, mask_tb, cdt)
+
+
+def lstm_scan(params: Params, x_tbd: torch.Tensor, mask_tb: Optional[torch.Tensor] = None,
+              initial_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, *,
+              reverse: bool = False, cdt: torch.dtype = torch.bfloat16):
+    """One LSTM direction over time (the reference's ``lstm_scan`` on its
+    custom-VJP branch: plain cells, unroll 1).  The recurrence is kernel K2:
+    K1's kernels at G = 1, counted apart (``kernels.LAUNCHES``
+    ``lstm_scan_uni_fwd`` / ``lstm_scan_uni_bwd``), behind ``BiLSTMScanCore``.
+
+    x_tbd [T, B, D], mask_tb [T, B] (1 = valid), initial_state (h0, c0) fp32
+    [B, H] or zeros; ``reverse`` scans from T-1 down to 0 (the input product
+    and the mask flipped in time, the outputs flipped back).  Returns
+    (outputs [T, B, H] in ``cdt``, zeros at padded steps; (hT, cT) fp32).
+    """
+    T, B, _ = x_tbd.shape
+    H = params["wh"].shape[0]
+    dev = x_tbd.device
+    xw = project_inputs(params, x_tbd, cdt)
+    if initial_state is None:
+        h0 = torch.zeros((B, H), dtype=torch.float32, device=dev)
+        c0 = torch.zeros((B, H), dtype=torch.float32, device=dev)
+    else:
+        h0, c0 = initial_state
+    if mask_tb is None:
+        mask_tb = torch.ones((T, B), dtype=torch.float32, device=dev)
+    mask_tb = mask_tb.float()
+    if reverse:
+        xw, mask_tb = torch.flip(xw, (0,)), torch.flip(mask_tb, (0,))
+    ys, hT, cT = bilstm_scan_core(params["wh"][None], params["b"][None], xw[:, None],
+                                  mask_tb[:, None], h0[None], c0[None], cdt)
+    ys = ys[:, 0]
+    if reverse:
+        ys = torch.flip(ys, (0,))
+    return ys, (hT[0], cT[0])
+
+
+def rnn_scan(cell_type: str, params: Params, x_tbd, mask_tb=None, initial_state=None, *,
+             reverse: bool = False, cdt: torch.dtype = torch.bfloat16):
+    """The reference's ``rnn_scan`` for plain LSTM cells (GRU and LN-LSTM
+    raise)."""
+    _check_plain_lstm(cell_type, params)
+    return lstm_scan(params, x_tbd, mask_tb, initial_state, reverse=reverse, cdt=cdt)

@@ -3,7 +3,8 @@
 Counterpart of ``avsr_tpu/serve.py``'s ``Predictor`` around the exported
 ``decode`` program, for each structure the port runs (``lrs2_av_fast``:
 BiLSTM encoders, cross-attention fusion + transformer decoder;
-``lrs2_av_align``: AV-Align fusion + attention-LSTM decoder;
+``lrs2_av_align``: AV-Align fusion + attention-LSTM decoder, with BiLSTM
+encoders and Bahdanau reads or one-direction encoders and Luong reads;
 ``lrs2_av_v2``: transformer encoders, cross-attention fusion + transformer
 decoder): the same static (B, S) request shape,
 the same host quantization for compact transfer (int16 PCM audio, uint8

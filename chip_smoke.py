@@ -143,8 +143,37 @@ Phases, in order; any failure exits nonzero before the final line:
              launched (K11 and K9 forward and backward among them); (c) 10
              steps at a constant lr 3e-5, the loss falling; (d) ms per step,
              frames/s, peak memory and a profile.
+28. K2     — the one-direction LSTM scan (K1's kernels at G=1, counted
+             apart) against the plain twins at [T=197, G=1, B=128 and 8,
+             H=256], bf16, ragged with a 0-length row and a nonzero h0/c0
+             (which that row must return as hT/cT, passing dhT/dcT through
+             to dh0/dc0): errors on ys, hT, cT and dWh, db, dxw, dh0, dc0;
+             times, device times and the bounds.
+29. K10 Luong — the Luong read (the dot score of ``bahdanau_core.cuh``),
+             forward and backward, against the plain twins at N=80 and 128,
+             S=197, Hk=Dv=512 (one bf16 memory as keys and values), with a
+             length-0 row (zero context, weights and gradients required);
+             times and the bounds.
+30. K8 Luong — the AV-Align fusion scan's Luong instance at [T_a=197, B=8
+             and 128, H=256, T_v=150, Hk=Dv=256], ragged with a 0-length
+             audio and video row, and its backward at B=128: errors, exact
+             zeros of the empty rows, times and the bounds.
+31. serve-uni-luong — the full-width ``lrs2_av_align_uni_luong`` model
+             (``lrs2_av_align`` with one-direction encoders and Luong reads)
+             behind a CUDA ``Predictor`` as in phase 15; requires K2, K3, the
+             Luong K8 and K10 and K7 launches; fused memory [8, 197, 512].
+32. greedy-uni-luong — a B=128, 6 s, horizon 150 greedy decode of the same
+             model, kernel path against plain path (Luong K10 launches).
+33. no-autograd-uni-luong — phase 32's batch through ``Predictor.encode``
+             and ``greedy_decode`` with ``requires_grad`` parameters, as 24.
+34. train-uni-luong — ten full-width ``lrs2_av_align_uni_luong`` train
+             steps at B=128, as phase 19: the loss and every gradient leaf
+             against the plain path, every leaf present, finite and nonzero,
+             every kernel of the path launched (K2 and the Luong K8 and K10
+             forward and backward), the loss falling; ms per step, frames/s,
+             peak memory and a profile.
 
-Serve (5, 15, 22) also beams the same memories through the plain path and
+Serve (5, 15, 22, 31) also beams the same memories through the plain path and
 holds the best scores to a tolerance.  Each serve and greedy path and the
 train path end with a ``torch.profiler`` reading of one run: the device's
 busy share of the host span, device events per beam, train or decode step,
@@ -217,6 +246,13 @@ K10_CTX_TOL = 2e-2
 # K8's reverse recurrence carries such a flip over 197 steps, as K1's does.
 K8B_REL_TOL = 2e-2
 K10B_REL_TOL = 1e-2
+# Luong reads (K8's and K10's dot-score instances): unscaled dot products of
+# 256 to 512 bf16 products summed in fp32; scores of order 10 move by the
+# summation order's fp32 ulps (~1e-5), a weight by that much of itself.
+# K8's alignments also follow its recurrent states, held at K8_TOL; a
+# state that moves by 5e-2 moves a score by up to |keys| |wq| 5e-2.
+K10L_W_TOL = 1e-3
+K8L_ALIGN_TOL = 1e-2
 # K11: K4's, for the same reasons (bf16 context of order one; a score whose
 # bf16 rounding flips after another summation order moves its weight by
 # ~0.4% of itself).
@@ -274,6 +310,12 @@ SERVE_V2_KERNELS = ("logmel_post_dft", "encoder_attention_fwd", "conformer_conv_
 TRAIN_V2_KERNELS = ("logmel_post_dft", "encoder_attention_fwd", "encoder_attention_bwd",
                     "conformer_conv_fwd", "conformer_conv_bwd", "fusion_attention_fwd",
                     "fusion_attention_bwd", "decoder_attention_fwd", "decoder_attention_bwd")
+SERVE_UL_KERNELS = ("lstm_scan_uni_fwd", "logmel_post_dft", "av_align_scan_luong", "luong_attend",
+                    "beam_step")
+GREEDY_UL_KERNELS = ("luong_attend",)
+TRAIN_UL_KERNELS = ("lstm_scan_uni_fwd", "lstm_scan_uni_bwd", "logmel_post_dft",
+                    "av_align_scan_luong", "av_align_scan_luong_bwd", "luong_attend",
+                    "luong_attend_bwd")
 
 
 def fail(phase: str, msg: str) -> None:
@@ -1422,16 +1464,18 @@ def phase_k10(dev, report):
                                      library_ms=None, device_ms=t[80][2], bound=b)
 
 
-def k8_bwd_inputs(B, dev, seed, **widths):
-    """K8 backward operands: ``k8_inputs``, the kernel forward's alignments
-    and saved carries, random cotangents of the outputs and final carries."""
+def k8_bwd_inputs(B, dev, seed, attention_type="bahdanau", **widths):
+    """K8 backward operands: ``k8_inputs`` (``k8_luong_inputs`` for Luong),
+    the kernel forward's alignments and saved carries, random cotangents of
+    the outputs and final carries."""
     import torch
 
     from avsr_tpu_torch.models import fusion as fus
 
-    cell, att, ctx_proj, xw, mask, mem, cdt = k8_inputs(B, dev, seed, **widths)
+    make = k8_luong_inputs if attention_type == "luong" else k8_inputs
+    cell, att, ctx_proj, xw, mask, mem, cdt = make(B, dev, seed, **widths)
     (_, _, aligns, *_), res = fus.av_align_scan_fwd(cell, att, ctx_proj, xw, mask, mem, cdt,
-                                                    save=True)
+                                                    save=True, attention_type=attention_type)
     T, B, H4 = xw.shape
     H, Dv = H4 // 4, mem.values.shape[-1]
     g = torch.Generator().manual_seed(seed + 1)
@@ -1782,6 +1826,313 @@ def phase_k9_bwd(dev, report):
                                         library_covers="the depthwise conv1d backward alone")
 
 
+def uni_luong_cfg():
+    """``lrs2_av_align_uni_luong``: the lrs2_av_align preset with
+    one-direction encoders (K2) and Luong reads in the fusion (K8) and the
+    decoder (K10)."""
+    from avsr_tpu_torch.configs import lrs2_full
+
+    return lrs2_full().override({
+        "audio_encoder.bidirectional": False, "video_encoder.bidirectional": False,
+        "fusion.attention_type": "luong", "decoder.attention_type": "luong",
+        "name": "lrs2_av_align_uni_luong"})
+
+
+def k2_inputs(T, B, H, dev, seed):
+    """K1's operands at G = 1 (one direction; a ragged mask with a 0-length
+    row 1) and a nonzero initial state."""
+    import torch
+
+    wh, b, xw, mask, _, _ = k1_inputs(T, 1, B, H, dev, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    h0 = 0.5 * torch.randn((1, B, H), generator=g)
+    c0 = torch.randn((1, B, H), generator=g)
+    return [wh, b, xw, mask, h0.to(dev), c0.to(dev)]
+
+
+def phase_k2(dev, report):
+    import torch
+
+    from avsr_tpu_torch.ops import rnn
+
+    bf = torch.bfloat16
+    runs = {}
+    for B in (128, 8):
+        args = k2_inputs(197, B, 256, dev, seed=40 + B)
+        wh, b, xw, mask, h0, c0 = args
+        T, _, _, H4 = xw.shape
+        H = H4 // 4
+        out_k = rnn.bilstm_scan_core(*args, bf)
+        out_p = rnn.bilstm_scan_core_plain(*args, bf)
+        _, (h_res, c_res) = rnn.scan_core_fwd(*args, bf, save=True)
+        g = torch.Generator().manual_seed(B + 2)
+        cot = [torch.randn((T, 1, B, H), generator=g).to(bf).to(dev),
+               torch.randn((1, B, H), generator=g).to(dev),
+               torch.randn((1, B, H), generator=g).to(dev)]
+        bargs = [wh, b, xw, mask, h_res, c_res, *cot, bf]
+        g_k = rnn.scan_core_bwd(*bargs)
+        g_p = rnn.bilstm_scan_core_bwd_plain(*bargs)
+        torch.cuda.synchronize()
+        e = {n: max_err(a, b_) for n, a, b_ in zip(("ys", "hT", "cT"), out_k, out_p)}
+        names = ("dWh", "db", "dxw", "dh0", "dc0")
+        ge = {n: rel_err(a, b_) for n, a, b_ in zip(names, g_k, g_p)}
+        # row 1 has no valid step: h0 and c0 come back as hT and cT, its
+        # outputs and dxw are zero, and dhT / dcT reach h0 / c0 unchanged
+        ys_k, hT_k, cT_k = out_k
+        kept = (torch.equal(hT_k[0, 1], h0[0, 1]) and torch.equal(cT_k[0, 1], c0[0, 1])
+                and float(ys_k[:, 0, 1].abs().max()) == 0.0
+                and float(g_k[2][:, 0, 1].abs().max()) == 0.0
+                and torch.equal(g_k[3][0, 1], cot[1][0, 1])
+                and torch.equal(g_k[4][0, 1], cot[2][0, 1]))
+        print(f"K2 [T=197,G=1,B={B},H=256] max abs err {e} (tol {K1_TOL}); bwd relative to max "
+              f"|plain| { {n: f'{x:.3e}' for n, x in ge.items()} } (tol {K1B_REL_TOL}); the "
+              f"0-length row keeps h0/c0 and passes dhT/dcT through exactly: {kept}")
+        if not (all(torch.isfinite(x.float()).all() for x in (*out_k, *g_k))
+                and max(e.values()) <= K1_TOL and max(ge.values()) <= K1B_REL_TOL and kept):
+            fail("K2", f"kernels disagree with the plain twins at B={B}: {e}, {ge}; the 0-length "
+                       f"row kept its state: {kept}")
+        t = (time_ms(lambda: rnn.bilstm_scan_core(*args, bf)),
+             time_ms(lambda: rnn.bilstm_scan_core_plain(*args, bf), reps=3, warmup=1),
+             time_ms(lambda: rnn.scan_core_bwd(*bargs)),
+             time_ms(lambda: rnn.bilstm_scan_core_bwd_plain(*bargs), reps=3, warmup=1))
+        print(f"K2 B={B} fwd kernel {t[0]:.4f} ms  plain {t[1]:.4f} ms; bwd kernel {t[2]:.4f} ms  "
+              f"plain {t[3]:.4f} ms")
+        runs[B] = dict(args=args, bargs=bargs, out=out_k, grads=g_k, t=t,
+                       fwd_err=max(e.values()),
+                       bwd_err=max(max_err(a, b_) for a, b_ in zip(g_k, g_p)))
+    r = runs[128]
+    flops = 2 * T * 128 * H * H4  # h @ Wh at every step
+    report["lstm_scan_uni_fwd"] = dict(
+        max_abs_err=max(x["fwd_err"] for x in runs.values()), ms=r["t"][0], plain_ms=r["t"][1],
+        library_ms=None, device_ms=device_ms(lambda: rnn.bilstm_scan_core(*r["args"], bf)),
+        bound=bound(nbytes(*r["args"], *r["out"]), flops))
+    report["lstm_scan_uni_bwd"] = dict(
+        max_abs_err=max(x["bwd_err"] for x in runs.values()), ms=r["t"][2], plain_ms=r["t"][3],
+        library_ms=None, device_ms=device_ms(lambda: rnn.scan_core_bwd(*r["bargs"])),
+        bound=bound(nbytes(*r["bargs"][:9], *r["grads"]), 3 * flops))
+    for name in ("lstm_scan_uni_fwd", "lstm_scan_uni_bwd"):
+        print(f"{name} [T=197,G=1,B=128,H=256] device {report[name]['device_ms']:.4f} ms  bound "
+              f"{report[name]['bound'][0]:.5f} ms ({report[name]['bound'][1]})")
+
+
+def k10_luong_inputs(N, dev, seed, S=197, Hq=256, Hk=512):
+    """The Luong read at the lrs2_av_align_uni_luong decoder's widths: the
+    top layer's h, ``wq`` [256, 512] and the fused memory [h ; ctx] as one
+    bf16 tensor serving as keys and values (as the beam tiles it), with a
+    length-0 row (1)."""
+    import torch
+
+    from avsr_tpu_torch.ops import attention as attn
+
+    g = torch.Generator().manual_seed(seed)
+    query = 0.5 * torch.randn((N, Hq), generator=g)
+    att = {"wq": (torch.randn((Hq, Hk), generator=g) / Hq ** 0.5).to(dev)}
+    memory = 0.5 * torch.randn((N, S, Hk), generator=g)
+    lens = torch.randint(1, S + 1, (N,), generator=g)
+    lens[0], lens[1] = S, 0
+    mem = attn.prepare_memory("luong", att, memory.to(torch.bfloat16).to(dev), lens.to(dev),
+                              torch.bfloat16)
+    return ["luong", att, query.to(dev), mem, torch.bfloat16]
+
+
+def phase_k10_luong(dev, report):
+    import torch
+
+    from avsr_tpu_torch.ops import attention as attn
+
+    worst, t = 0.0, {}
+    for N in (80, 128):
+        args = k10_luong_inputs(N, dev, seed=N + 3)
+        ctx, w = attn.attend(*args)
+        ctx_p, w_p = attn.attend_plain(*args)
+        torch.cuda.synchronize()
+        e = {"ctx": max_err(ctx, ctx_p), "weights": max_err(w, w_p)}
+        empty = (float(ctx[1].abs().max()), float(w[1].abs().max()))
+        print(f"K10 Luong [N={N},S=197,Hk=Dv=512] max abs err {e} (tol ctx {K10_CTX_TOL}, weights "
+              f"{K10L_W_TOL}); length-0 row max |ctx|, |w| {empty}; weight sums of the other rows "
+              f"within {float((w.sum(-1) - 1)[2:].abs().max())} of 1; largest weight "
+              f"{float(w.max()):.4f}")
+        if not (torch.isfinite(ctx).all() and e["ctx"] <= K10_CTX_TOL
+                and e["weights"] <= K10L_W_TOL):
+            fail("K10 Luong", f"kernel disagrees with the plain twin at N={N}: {e}")
+        if empty != (0.0, 0.0):
+            fail("K10 Luong", f"a length-0 memory does not give a zero context and weights: "
+                              f"{empty}")
+        worst = max(worst, *e.values())
+        t[N] = (time_ms(lambda: attn.attend(*args)), time_ms(lambda: attn.attend_plain(*args)),
+                device_ms(lambda: attn.attend(*args)))
+        print(f"K10 Luong N={N} kernel {t[N][0]:.4f} ms (device {t[N][2]} ms)  plain "
+              f"{t[N][1]:.4f} ms")
+    # the entry: one beam step's read, N = 80; the memory is one tensor,
+    # read once by the bound (the kernel reads it twice: scores, context)
+    _, att, query, mem, _ = args = k10_luong_inputs(80, dev, seed=83)
+    ctx, w = attn.attend(*args)
+    N, S, Hk = mem.keys.shape
+    Hq, Dv = query.shape[1], mem.values.shape[-1]
+    nb = nbytes(query, att["wq"].to(torch.bfloat16), mem.values, mem.bias, mem.mask, ctx, w)
+    b = bound(nb, 2 * N * (Hq * Hk + S * Hk + S * Dv))
+    print(f"K10 Luong N=80 bound {b[0]:.5f} ms ({b[1]}, {nb / 1e6:.2f} MB); keys and values "
+          f"read apart {bound(nb + nbytes(mem.keys), 0)[0]:.5f} ms")
+    report["luong_attend"] = dict(max_abs_err=worst, ms=t[80][0], plain_ms=t[80][1],
+                                  library_ms=None, device_ms=t[80][2], bound=b)
+
+    # backward at N = 80 and 128 (the teacher-forced decoder's read at
+    # B = 128 is the entry)
+    worst_abs, names = 0.0, ("dquery", "dq", "dkeys", "dvalues", "dwq")
+    for N in (80, 128):
+        typ, att, query, mem, cdt = k10_luong_inputs(N, dev, seed=N + 5)
+        _, w = attn.attend_fwd(typ, att, query, mem, cdt)
+        dctx = torch.randn(tuple(mem.values.shape[::2]),
+                           generator=torch.Generator().manual_seed(N + 8)).to(dev)
+        bargs = [typ, att, query, mem, w, dctx, cdt]
+        out_k = attn.attend_bwd(*bargs)
+        out_p = attn.attend_bwd_plain(*bargs)
+        w_k = attn.attention_weight_grads(query, out_k[1], out_k[2], cdt)[0]
+        w_p = attn.attention_weight_grads(query, out_p[1], out_p[2], cdt)[0]
+        torch.cuda.synchronize()
+        pairs = [(n, a, b_) for n, a, b_ in zip(names, (*out_k[:2], *out_k[3:], w_k),
+                                                (*out_p[:2], *out_p[3:], w_p))]
+        errs = {n: rel_err(a, b_) for n, a, b_ in pairs}
+        abs_errs = {n: max_err(a, b_) for n, a, b_ in pairs}
+        empty = max(float(x[1].abs().max()) for x in out_k if x is not None)
+        print(f"K10 Luong bwd [N={N},S=197,Hk=Dv=512] max abs err {abs_errs}; relative to max "
+              f"|plain| {errs} (tol {K10B_REL_TOL}); no dv factor: {out_k[2] is None}; "
+              f"length-0 row's gradients max |x| {empty}")
+        if not (out_k[2] is None and all(torch.isfinite(a).all() for _, a, _ in pairs)):
+            fail("K10 Luong bwd", "non-finite kernel output, or a v factor from a Luong read")
+        if empty != 0.0:
+            fail("K10 Luong bwd", f"a length-0 memory's gradients are not zero: {empty}")
+        if not max(errs.values()) <= K10B_REL_TOL:
+            fail("K10 Luong bwd", f"kernel disagrees with the plain twin at N={N}: {errs}")
+        worst_abs = max(worst_abs, *abs_errs.values())
+    t_k = time_ms(lambda: attn.attend_bwd(*bargs))
+    t_p = time_ms(lambda: attn.attend_bwd_plain(*bargs))
+    dms = device_ms(lambda: attn.attend_bwd(*bargs))
+    N, S, Hk = mem.keys.shape
+    Hq, Dv = query.shape[1], mem.values.shape[-1]
+    keys_read = float(mem.mask.sum())  # zero-weight (padded) keys are skipped
+    nb = nbytes(query, att["wq"].to(torch.bfloat16), mem.values, w, dctx, *out_k)
+    # q and dquery (bf16 products), dw and dq over the read keys, fp32
+    # dkeys / dvalues products
+    b = bound(nb, {"bf16": 2 * N * 2 * Hq * Hk + 2 * keys_read * 2 * (Hk + Dv),
+                   "fp32": keys_read * (Hk + Dv)})
+    print(f"K10 Luong bwd N=128 kernel {t_k:.4f} ms (device {dms} ms)  plain {t_p:.4f} ms  bound "
+          f"{b[0]:.5f} ms ({b[1]}, {nb / 1e6:.2f} MB)")
+    report["luong_attend_bwd"] = dict(max_abs_err=worst_abs, ms=t_k, plain_ms=t_p,
+                                      library_ms=None, device_ms=dms, bound=b)
+
+
+def k8_luong_inputs(B, dev, seed, T=197, H=256, Tv=150, Dv=256):
+    """K8's Luong operands at the lrs2_av_align_uni_luong fusion's widths:
+    ``k8_inputs``' cell, context projection, input product and ragged masks
+    (a 0-length audio row 1 and video row 2), ``wq`` [256, 256], and the
+    bf16 video memory as one tensor for keys and values."""
+    import torch
+
+    from avsr_tpu_torch.ops import attention as attn
+
+    cell, _, ctx_proj, xw, mask, mem, cdt = k8_inputs(B, dev, seed, T=T, H=H, Tv=Tv, Dv=Dv)
+    g = torch.Generator().manual_seed(seed + 2)
+    att = {"wq": (torch.randn((H, Dv), generator=g) / H ** 0.5).to(dev)}
+    mem = attn.prepare_memory("luong", att, 0.5 * mem.values, mem.mask.sum(-1).long(), cdt)
+    return [cell, att, ctx_proj, xw, mask, mem, cdt]
+
+
+def phase_k8_luong(dev, report):
+    import torch
+
+    from avsr_tpu_torch.models import fusion as fus
+
+    luong = {"attention_type": "luong"}
+    errs, times, bounds = {}, {}, {}
+    for B in (8, 128):
+        args = k8_luong_inputs(B, dev, seed=53 + B)
+        hs, ctxs, al, carries = fus.av_align_scan(*args, **luong)
+        hs_p, ctxs_p, al_p, carries_p = fus.av_align_scan_plain(*args, **luong)
+        torch.cuda.synchronize()
+        e = {"hs": max_err(hs, hs_p), "ctxs": max_err(ctxs, ctxs_p), "aligns": max_err(al, al_p)}
+        e.update({n: max_err(a, b) for n, a, b in zip(("hT", "cT", "ctxT"), carries, carries_p)})
+        zeros = (float(hs[:, 1].abs().max()), float(ctxs[:, 1].abs().max()),
+                 float(al[:, 1].abs().max()), float(ctxs[:, 2].abs().max()),
+                 float(al[:, 2].abs().max()))
+        rows2 = float(al[: int(args[4][:, 0].sum()), 0].sum(-1).sub(1).abs().max())
+        print(f"K8 Luong [T_a=197,B={B},H=256,T_v=150,Hk=Dv=256] max abs err {e} (tol "
+              f"{K8_TOL}, aligns {K8L_ALIGN_TOL}); 0-length audio row hs/ctxs/aligns and "
+              f"0-length video row ctxs/aligns max |x| {zeros}; full row's alignments sum to 1 "
+              f"within {rows2}")
+        if not all(torch.isfinite(x).all() for x in (hs, ctxs, al)):
+            fail("K8 Luong", "non-finite kernel output")
+        if max(zeros) != 0.0:
+            fail("K8 Luong", f"a 0-length row is not exactly zero: {zeros}")
+        if not (max(v for n, v in e.items() if n != "aligns") <= K8_TOL
+                and e["aligns"] <= K8L_ALIGN_TOL and rows2 <= 1e-5):
+            fail("K8 Luong", f"kernel disagrees with the plain twin at B={B}: {e}")
+        errs[B] = max(e.values())
+        times[B] = (time_ms(lambda: fus.av_align_scan(*args, **luong), reps=10),
+                    time_ms(lambda: fus.av_align_scan_plain(*args, **luong), reps=3, warmup=1),
+                    device_ms(lambda: fus.av_align_scan(*args, **luong), reps=5))
+        cell, att, ctx_proj, xw, mask, mem, _ = args
+        T, _, H4 = xw.shape
+        S, Hk, Dv = mem.keys.shape[1], mem.keys.shape[2], mem.values.shape[-1]
+        H = H4 // 4
+        # the memory is one tensor (keys and values), read once by the bound
+        nb = (nbytes(xw, mask, mem.values, mem.bias, mem.mask, hs, ctxs, al, *carries)
+              + 2 * (H * H4 + Dv * H4 + H * Hk) + 4 * H4)
+        # per step: the gate products, q, the score and the context (bf16 operands)
+        bounds[B] = bound(nb, T * 2 * B * ((H + Dv) * H4 + H * Hk + S * Hk + S * Dv))
+        print(f"K8 Luong B={B} kernel {times[B][0]:.4f} ms (device {times[B][2]} ms)  plain "
+              f"{times[B][1]:.4f} ms  bound {bounds[B][0]:.5f} ms ({bounds[B][1]}, "
+              f"{nb / 1e6:.2f} MB)")
+    report["av_align_scan_luong"] = dict(
+        max_abs_err=max(errs.values()), ms=times[8][0], plain_ms=times[8][1], library_ms=None,
+        device_ms=times[8][2], bound=bounds[8])
+
+    # backward at B = 128, on the kernel forward's saved carries
+    args = k8_bwd_inputs(128, dev, seed=61, attention_type="luong")
+    cell, att, ctx_proj, xw, mask, mem, aligns, res, *_, cdt = args
+    out_k = fus.av_align_scan_bwd(*args, **luong)
+    out_p = fus.av_align_scan_bwd_plain(*args, **luong)
+    w_k = fus.av_align_weight_grads(res, ctx_proj, out_k[0], out_k[2], out_k[3], out_k[6], cdt)
+    w_p = fus.av_align_weight_grads(res, ctx_proj, out_p[0], out_p[2], out_p[3], out_p[6], cdt)
+    torch.cuda.synchronize()
+    names = ("dxw", "db", "dq", "dkeys", "dvalues", "hnew", "dWh", "dctx_proj", "dwq")
+    got = (*out_k[:3], *out_k[4:], *w_k[:3])
+    want = (*out_p[:3], *out_p[4:], *w_p[:3])
+    errs = {n: rel_err(a, b) for n, a, b in zip(names, got, want)}
+    abs_errs = {n: max_err(a, b) for n, a, b in zip(names, got, want)}
+    zeros = (float(out_k[0][:, 1].abs().max()), float(out_k[2][:, 1].abs().max()),
+             float(out_k[4][2].abs().max()), float(out_k[5][2].abs().max()))
+    print(f"K8 Luong bwd [T_a=197,B=128,H=256,T_v=150,Hk=Dv=256] max abs err {abs_errs}; relative "
+          f"to max |plain| {errs} (tol {K8B_REL_TOL}); no dv factor: {out_k[3] is None}; "
+          f"0-length audio row dxw/dq and 0-length video row dkeys/dvalues max |x| {zeros}")
+    if not (out_k[3] is None and w_k[3] is None and all(torch.isfinite(x).all() for x in got)):
+        fail("K8 Luong bwd", "non-finite kernel output, or a v factor from a Luong read")
+    if max(zeros) != 0.0:
+        fail("K8 Luong bwd", f"an empty row's gradient is not exactly zero: {zeros}")
+    if not max(errs.values()) <= K8B_REL_TOL:
+        fail("K8 Luong bwd", f"kernel disagrees with the plain twin: {errs}")
+    t_k = time_ms(lambda: fus.av_align_scan_bwd(*args, **luong), reps=5, warmup=1)
+    t_p = time_ms(lambda: fus.av_align_scan_bwd_plain(*args, **luong), reps=2, warmup=1)
+    dms = device_ms(lambda: fus.av_align_scan_bwd(*args, **luong), reps=5, warmup=1)
+    T, B, H4 = xw.shape
+    S, Hk, Dv = mem.keys.shape[1], mem.keys.shape[2], mem.values.shape[-1]
+    H = H4 // 4
+    live = float(mask.sum())
+    keys_read = float((mask * mem.mask.sum(-1)[None, :]).sum())
+    # the regate and the carries' products every step and row; the read's q
+    # and dquery products on live steps; dw, dq over the read keys (bf16
+    # operands); the fp32 dkeys / dvalues products
+    flops = {"bf16": 2 * T * B * 2 * (H + Dv) * H4 + 2 * live * 2 * H * Hk
+             + 2 * keys_read * (Hk + Dv), "fp32": keys_read * (Hk + Dv)}
+    nb = (nbytes(xw, mask, mem.values, aligns, *res, *args[8:13], *got[:6])
+          + 2 * (H * H4 + Dv * H4 + H * Hk) + 4 * H4)
+    b = bound(nb, flops)
+    print(f"K8 Luong bwd B=128 kernel {t_k:.4f} ms (device {dms} ms)  plain {t_p:.4f} ms  bound "
+          f"{b[0]:.5f} ms ({b[1]}, {nb / 1e6:.2f} MB)")
+    report["av_align_scan_luong_bwd"] = dict(max_abs_err=max(abs_errs.values()), ms=t_k,
+                                             plain_ms=t_p, library_ms=None, device_ms=dms, bound=b)
+
+
 def main() -> int:
     import torch
 
@@ -1823,6 +2174,7 @@ def main() -> int:
     cfg = lrs2_av_fast()
     align_cfg = lrs2_full()  # the lrs2_av_align preset
     v2_cfg = lrs2_av_v2()
+    ul_cfg = uni_luong_cfg()
     report, paths, greedy_runs = {}, {}, {}
 
     def greedy(c, label, needed):
@@ -1860,7 +2212,17 @@ def main() -> int:
                    # 5x on the second step (the loss barely fell over 10);
                    # 3e-5 is about its preset's warmup lr at step 12
                    (27, lambda: paths.update(train_v2=phase_train(
-                       dev, card, v2_cfg, "train_v2", TRAIN_V2_KERNELS, lr=3e-5)))):
+                       dev, card, v2_cfg, "train_v2", TRAIN_V2_KERNELS, lr=3e-5))),
+                   (28, lambda: phase_k2(dev, report)),
+                   (29, lambda: phase_k10_luong(dev, report)),
+                   (30, lambda: phase_k8_luong(dev, report)),
+                   (31, lambda: paths.update(serve_uni_luong=phase_serve(
+                       dev, card, ul_cfg, "serve_uni_luong", SERVE_UL_KERNELS, (8, 197, 512)))),
+                   (32, lambda: greedy(ul_cfg, "greedy_uni_luong", GREEDY_UL_KERNELS)),
+                   (33, lambda: decode_records_no_autograd(
+                       dev, ul_cfg, *greedy_runs.pop("greedy_uni_luong"), "greedy_uni_luong")),
+                   (34, lambda: paths.update(train_uni_luong=phase_train(
+                       dev, card, ul_cfg, "train_uni_luong", TRAIN_UL_KERNELS)))):
         t0 = time.perf_counter()
         run()
         print(f"phase {n}: {time.perf_counter() - t0:.1f} s")
@@ -1896,6 +2258,16 @@ def main() -> int:
                                "avsr_tpu/models/transformer.py:231"),
         "conformer_conv_bwd": ("avsr_tpu_torch/csrc/conformer_conv.cu",
                                "avsr_tpu/models/transformer.py:231"),
+        "lstm_scan_uni_fwd": ("avsr_tpu_torch/csrc/lstm_scan.cu", "avsr_tpu/ops/rnn.py:184"),
+        "lstm_scan_uni_bwd": ("avsr_tpu_torch/csrc/lstm_scan.cu", "avsr_tpu/ops/rnn.py:236"),
+        "luong_attend": ("avsr_tpu_torch/csrc/bahdanau_attend.cu",
+                         "avsr_tpu/ops/attention.py:152"),
+        "luong_attend_bwd": ("avsr_tpu_torch/csrc/bahdanau_attend.cu",
+                             "avsr_tpu/ops/attention.py:152"),
+        "av_align_scan_luong": ("avsr_tpu_torch/csrc/av_align_scan.cu",
+                                "avsr_tpu/models/fusion.py:118"),
+        "av_align_scan_luong_bwd": ("avsr_tpu_torch/csrc/av_align_scan.cu",
+                                    "avsr_tpu/models/fusion.py:118"),
     }
     entries = []
     for name, (src, rep) in sources.items():

@@ -1,5 +1,6 @@
-"""The backward of the Bahdanau read (K10, ``BahdanauAttend``) and of the
-AV-Align fusion scan (K8, ``AVAlignScan``) against ``jax.vjp`` of
+"""The backward of the attention read (K10, ``BahdanauAttend``, with the
+Bahdanau and the Luong score) and of the AV-Align fusion scan (K8,
+``AVAlignScan``, either score) against ``jax.vjp`` of
 ``avsr_tpu.ops.attention.attend`` and ``avsr_tpu.models.fusion.av_align_apply``.
 
 On CPU tensors both autograd Functions run their plain twins
@@ -18,6 +19,13 @@ cotangent on a rounding boundary can flip by one ulp, 2^-8 relative, and
 the recurrence carries it on; the reference also rounds each step's weight
 gradient to bf16 before summing, the port sums the steps first; seen:
 3.2e-3 on dv).  The empty rows' gradients are exactly zero on both sides.
+Luong's tolerances are the same: its bf16 roundings (q before the dot, the
+cotangents dq and dkeys of the two casts) are the reference's, and the
+transposed products return bf16 on both sides (JAX's CPU backend and the
+port both sum them in fp32 here and round once: the bf16 cases agree to
+the last bit at these sizes, the fp32 ones to 2e-7).  A Luong memory
+without ``wv`` is one tensor as keys and values: its gradient is the sum
+of both paths, which the memory-level test below holds.
 """
 
 import dataclasses
@@ -122,37 +130,85 @@ def test_attend_returns_outputs_with_a_grad_fn():
     assert ctx.grad_fn is None
 
 
-def _plain_setup(seed=1, N=3, S=5, H=6, Q=4, A=8):
+def _plain_setup(seed=1, N=3, S=5, H=6, Q=4, A=8, attention_type="bahdanau"):
     gen = torch.Generator().manual_seed(seed)
-    tp = tattn.attention_init("bahdanau", gen, Q, H, A, "cpu")
+    tp = tattn.attention_init(attention_type, gen, Q, H, A, "cpu")
     memory = torch.randn((N, S, H), generator=gen)
     query = torch.randn((N, Q), generator=gen)
-    mem = tattn.prepare_memory("bahdanau", tp, memory, torch.tensor([S, 2, 0]), torch.float32)
+    mem = tattn.prepare_memory(attention_type, tp, memory, torch.tensor([S, 2, 0]),
+                               torch.float32)
     return gen, tp, memory, query, S, mem
 
 
+@pytest.mark.parametrize("attention_type", ["bahdanau", "luong"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_attend_bwd_twin_matches_autograd_of_the_forward_twin(dtype):
+def test_attend_bwd_twin_matches_autograd_of_the_forward_twin(dtype, attention_type):
     """The hand-derived twin against torch's autodiff of ``attend_plain``
     (whose casts round the cotangents as JAX's do): dquery and the memory
     gradients per call, and the weight gradients from the per-row factors."""
     _, tdt = DT[dtype]
-    gen, tp, memory, query, S, _ = _plain_setup()
+    gen, tp, memory, query, S, _ = _plain_setup(attention_type=attention_type)
     tp = {k: _leaf(v) for k, v in tp.items()}
     q = _leaf(query)
-    mem = tattn.prepare_memory("bahdanau", tp, memory, torch.tensor([S, 2, 0]), tdt)
+    mem = tattn.prepare_memory(attention_type, tp, memory, torch.tensor([S, 2, 0]), tdt)
     keys, values = _leaf(mem.keys), _leaf(mem.values)
     mem = mem._replace(keys=keys, values=values)
-    ctx, w = tattn.attend_plain("bahdanau", tp, q, mem, tdt)
+    ctx, w = tattn.attend_plain(attention_type, tp, q, mem, tdt)
     dctx = torch.randn(ctx.shape, generator=gen)
-    auto = torch.autograd.grad(ctx, [q, tp["wq"], tp["v"], keys, values], dctx)
+    names = ["dquery", "dwq", "dv", "dkeys", "dvalues"]
+    leaves = [q, tp["wq"], tp.get("v"), keys, values]
+    if attention_type == "luong":  # no v
+        del names[2], leaves[2]
+    auto = torch.autograd.grad(ctx, leaves, dctx)
     dquery, dq, dv_rows, dkeys, dvalues = tattn.attend_bwd_plain(
-        "bahdanau", tp, q.detach(), mem, w.detach(), dctx, tdt)
+        attention_type, tp, q.detach(), mem, w.detach(), dctx, tdt)
     dwq, dv = tattn.attention_weight_grads(q.detach(), dq, dv_rows, tdt)
+    assert (dv is None) == (attention_type == "luong")
     tol = 1e-5 if dtype == "float32" else 2e-2
-    for name, a, b in zip(("dquery", "dwq", "dv", "dkeys", "dvalues"),
-                          (dquery, dwq, dv, dkeys, dvalues), auto):
+    for name, a, b in zip(names, [x for x in (dquery, dwq, dv, dkeys, dvalues) if x is not None],
+                          auto):
         assert _rel(a.detach().numpy(), b.numpy()) < tol, name
+
+
+@pytest.mark.parametrize("value_dim", [None, 4], ids=["keys-are-values", "value-projection"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_luong_attend_gradients_match_jax(dtype, value_dim):
+    """The Luong read from the raw memory up: dquery, dwq (and dwv) and the
+    memory's gradient against ``jax.vjp`` through ``prepare_memory`` and
+    ``attend``; without ``wv`` the memory is the keys and the values, so its
+    gradient is the sum of both paths.  Row 2's memory is empty."""
+    jdt, tdt = DT[dtype]
+    rng = np.random.default_rng(3)
+    lens = np.asarray([7, 3, 0, 5], np.int32)
+    N, S, H, Q = 4, 7, 6, 5
+    params = jattn.attention_init("luong", jax.random.PRNGKey(3), Q, H, 0, value_dim=value_dim)
+    memory = (2.0 * rng.standard_normal((N, S, H))).astype(np.float32)
+    query = rng.standard_normal((N, Q)).astype(np.float32)
+    dctx = rng.standard_normal((N, value_dim or H)).astype(np.float32)
+
+    def f(params, query, memory):
+        mem = jattn.prepare_memory("luong", params, memory, jnp.asarray(lens), compute_dtype=jdt)
+        return jattn.attend("luong", params, query, mem, compute_dtype=jdt)
+
+    (ctx_j, w_j), vjp = jax.vjp(f, params, jnp.asarray(query), jnp.asarray(memory))
+    g_params, g_query, g_memory = vjp((jnp.asarray(dctx), jnp.zeros_like(w_j)))
+    tp = {k: _leaf(v) for k, v in convert.from_jax(jax.tree_util.tree_map(np.asarray, params),
+                                                   device="cpu").items()}
+    q, m = _leaf(torch.from_numpy(query)), _leaf(torch.from_numpy(memory))
+    mem = tattn.prepare_memory("luong", tp, m, torch.from_numpy(lens), tdt)
+    ctx_t, w_t = tattn.attend("luong", tp, q, mem, tdt)
+    assert "BahdanauAttend" in type(ctx_t.grad_fn).__name__
+    np.testing.assert_allclose(ctx_t.detach().numpy(), np.asarray(ctx_j),
+                               atol=1e-5 if dtype == "float32" else 1e-2)
+    keys = sorted(tp)
+    got = torch.autograd.grad(ctx_t, [q, m] + [tp[k] for k in keys], torch.from_numpy(dctx))
+    want = [g_query, g_memory] + [g_params[k] for k in keys]
+    for name, g, w in zip(["dquery", "dmemory"] + keys, got, want):
+        assert tuple(g.shape) == w.shape, name
+        assert _rel(g.numpy(), w) < TOL[dtype], (name, _rel(g.numpy(), w))
+    for g in got[:2]:  # the empty row's query and memory get exactly nothing
+        assert float(g[2].abs().max()) == 0.0
+    assert float(got[1][1, 3:].abs().max()) == 0.0
 
 
 def test_attend_weights_take_no_gradient():
@@ -171,6 +227,13 @@ def test_attend_bwd_kernel_rejects_cpu_tensors():
                                     torch.zeros(A, dtype=bf), torch.zeros(N, S, A),
                                     torch.zeros(N, S, Dv, dtype=bf), torch.zeros(N, S, dtype=f32),
                                     torch.zeros(N, Dv))
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="expected a tensor on"):  # the Luong read: no v
+        kernels.bahdanau_attend_bwd(torch.zeros(N, Hq), torch.zeros(Hq, A, dtype=bf), None,
+                                    torch.zeros(N, S, A, dtype=bf),
+                                    torch.zeros(N, S, Dv, dtype=bf), torch.zeros(N, S, dtype=f32),
+                                    torch.zeros(N, Dv))
+    assert kernels.LAUNCHES == before
 
 
 # ---- K8: the AV-Align fusion scan ------------------------------------------
@@ -220,7 +283,11 @@ def _fusion_case(dtype, seed=0, **kw):
     ("bfloat16", {}),
     ("float32", {"input_feeding": False}),
     ("float32", {"memory_value_dim": 12}),
-], ids=["fp32", "bf16", "fp32-no-input-feeding", "fp32-value-projection"])
+    ("float32", {"attention_type": "luong"}),
+    ("bfloat16", {"attention_type": "luong"}),
+    ("float32", {"attention_type": "luong", "memory_value_dim": 12}),
+], ids=["fp32", "bf16", "fp32-no-input-feeding", "fp32-value-projection", "fp32-luong",
+        "bf16-luong", "fp32-luong-value-projection"])
 def test_av_align_gradients_match_jax(dtype, kw):
     """Every parameter's gradient and those of the audio input and the
     video memory, through the fused memory and the AU head."""
@@ -238,14 +305,15 @@ def test_av_align_gradients_match_jax(dtype, kw):
     assert float(video_g[3, V_LEN[3]:].abs().max()) == 0.0
 
 
-def test_av_align_final_carry_cotangents():
+@pytest.mark.parametrize("attention_type", ["bahdanau", "luong"])
+def test_av_align_final_carry_cotangents(attention_type):
     """The scan's final carries take a gradient too (the reference's scan
     carries h, c, ctx): dhT, dcT, dctxT through the Function against
     torch's autodiff of the plain forward twin."""
-    cfg = TFusionConfig(attention_units=8)
+    cfg = TFusionConfig(attention_units=8, attention_type=attention_type)
     gen = torch.Generator().manual_seed(3)
     p = tfus.av_align_init(gen, cfg, D, H, H_V, "cpu")
-    mem = tattn.prepare_memory("bahdanau", p["att"], torch.randn(B, T_V, H_V, generator=gen),
+    mem = tattn.prepare_memory(attention_type, p["att"], torch.randn(B, T_V, H_V, generator=gen),
                                torch.tensor(V_LEN), torch.float32)
     xw = torch.randn(8, B, 4 * H, generator=gen)
     mask = (torch.arange(8)[:, None] < torch.tensor([8, 5, 0, 3])[None, :]).float()
@@ -259,7 +327,7 @@ def test_av_align_final_carry_cotangents():
         att = dict(p["att"], wq=leaves[2])
         m = mem._replace(keys=leaves[4], values=leaves[5])
         hs, ctxs, _, (hT, cT, ctxT) = fn(cell, att, leaves[1], leaves[3], mask, m,
-                                         torch.float32)
+                                         torch.float32, attention_type=attention_type)
         return torch.autograd.grad([hs, ctxs, hT, cT, ctxT], leaves, cot)
 
     for a, b in zip(grads(tfus.av_align_scan), grads(tfus.av_align_scan_plain)):

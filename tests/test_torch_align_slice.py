@@ -15,6 +15,13 @@ of sums in another order); beam ids, steps and transcripts identical;
 scores within 1e-4; greedy ids and lengths identical.  The bf16 policy's
 memories at atol 1e-2.  The full-width tree: keys, shapes and dtypes equal
 to the JAX package's, and the round trip through ``convert`` bit-exact.
+
+Every check runs on both AV-Align configurations the port serves: the
+``lrs2_av_align`` preset (BiLSTM encoders, Bahdanau reads) and
+``lrs2_av_align_uni_luong`` (``UNI_LUONG``: the same preset with
+one-direction encoders, kernel K2, and Luong reads in the fusion and the
+decoder), whose memory is the fusion LSTM's 32 plus the one-direction
+video encoder's 32 channels.
 """
 
 import dataclasses
@@ -36,6 +43,7 @@ from avsr_tpu_torch import convert
 from avsr_tpu_torch.decode.greedy import greedy_decode as tgreedy
 from avsr_tpu_torch.models import seq2seq as tseq
 from avsr_tpu_torch.serve import Predictor
+from avsr_tpu_torch.utils.params import param_count
 from tests.test_torch_convert import _paths
 from tests.test_torch_slice import _request
 
@@ -48,8 +56,19 @@ def _one_thread():
     torch.set_num_threads(old)
 
 
-def small_align_cfg(beam_width=3, horizon=12, compute_dtype="float32"):
+# lrs2_av_align_uni_luong: the lrs2_av_align preset (configs.lrs2_full())
+# with one-direction encoders and Luong attention in the fusion and the
+# decoder, as the reference's AV-Align example script builds it
+UNI_LUONG = {"audio_encoder.bidirectional": False, "video_encoder.bidirectional": False,
+             "fusion.attention_type": "luong", "decoder.attention_type": "luong",
+             "name": "lrs2_av_align_uni_luong"}
+VARIANTS = ("bahdanau", "uni_luong")
+
+
+def small_align_cfg(beam_width=3, horizon=12, compute_dtype="float32", variant="bahdanau"):
     base = configs.lrs2_full()
+    if variant == "uni_luong":
+        base = base.override(UNI_LUONG)
     return base.replace(
         audio_encoder=dataclasses.replace(base.audio_encoder, hidden_units=(32, 32, 32)),
         video_encoder=dataclasses.replace(base.video_encoder, hidden_units=(32,)),
@@ -65,9 +84,9 @@ def _jbatch(arrays):
     return jseq.Batch(**{k: jnp.asarray(v) for k, v in arrays.items()})
 
 
-@pytest.fixture(scope="module")
-def align_run():
-    cfg = small_align_cfg()
+@pytest.fixture(scope="module", params=VARIANTS)
+def align_run(request):
+    cfg = small_align_cfg(variant=request.param)
     units = builtin_unit_dict(cfg.data.unit)
     jparams = jseq.model_init(jax.random.PRNGKey(11), cfg, units.vocab_size)
     tparams = convert.from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
@@ -80,7 +99,8 @@ def align_run():
     greedy_j = jgreedy(jparams["decoder"], cfg.decoder, enc_j.memories, 12,
                        compute_dtype=jnp.float32)
     enc_t = pred.encode(arrays)
-    return dict(cfg=cfg, pred=pred, enc_j=enc_j, res_j=res_j, greedy_j=greedy_j, enc_t=enc_t,
+    return dict(cfg=cfg, variant=request.param, pred=pred, enc_j=enc_j, res_j=res_j,
+                greedy_j=greedy_j, enc_t=enc_t,
                 res_t=pred.beam(enc_t), texts=pred.transcribe(audio=audio, video=video),
                 greedy_t=tgreedy(tparams["decoder"], cfg.decoder, enc_t.memories, 12,
                                  cdt=torch.float32), n=n)
@@ -88,7 +108,8 @@ def align_run():
 
 def test_memories_match(align_run):
     mj, mt = align_run["enc_j"].memories[0], align_run["enc_t"].memories[0]
-    assert tuple(mt.values.shape) == mj.values.shape == (2, 31, 96)
+    width = {"bahdanau": 96, "uni_luong": 64}[align_run["variant"]]
+    assert tuple(mt.values.shape) == mj.values.shape == (2, 31, width)
     for name in ("values", "keys"):
         np.testing.assert_allclose(getattr(mt, name).numpy(), np.asarray(getattr(mj, name)),
                                    atol=1e-4, rtol=1e-4)
@@ -126,12 +147,13 @@ def test_greedy_ids_and_lengths_match(align_run):
     np.testing.assert_array_equal(res.lengths.numpy(), np.asarray(len_j))
 
 
-def test_bf16_policy_memories_match():
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_bf16_policy_memories_match(variant):
     """The main path's bf16 policy through the whole encode, the fusion
     scan's 31 steps included: one-ulp flips (2^-8 relative) at rounding
     boundaries carried by the recurrences; held at atol 1e-2 and a mean
     deviation of 5e-4."""
-    cfg = small_align_cfg(compute_dtype="bfloat16")
+    cfg = small_align_cfg(compute_dtype="bfloat16", variant=variant)
     units = builtin_unit_dict(cfg.data.unit)
     jparams = jseq.model_init(jax.random.PRNGKey(5), cfg, units.vocab_size)
     pred = Predictor(convert.from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu"),
@@ -157,11 +179,13 @@ def test_av_align_emits_alignments_and_au(align_run):
         np.testing.assert_allclose(sums, 1.0, rtol=1e-4)
 
 
-def _align_tree_shapes():
-    cfg = configs.lrs2_full()
+def _align_tree_shapes(variant="bahdanau"):
+    cfg, tcfg = configs.lrs2_full(), tconfigs.lrs2_full()
+    if variant == "uni_luong":
+        cfg, tcfg = cfg.override(UNI_LUONG), tcfg.override(UNI_LUONG)
     vocab = builtin_unit_dict(cfg.data.unit).vocab_size
     shapes = jax.eval_shape(lambda k: jseq.model_init(k, cfg, vocab), jax.random.PRNGKey(0))
-    return tconfigs.lrs2_full(), vocab, shapes
+    return tcfg, vocab, shapes
 
 
 def test_full_width_model_init_matches_jax_tree():
@@ -179,8 +203,26 @@ def test_full_width_model_init_matches_jax_tree():
     assert tseq.memory_dims_of(cfg) == [768]
 
 
-def test_full_width_round_trip_is_bit_exact():
-    _, _, shapes = _align_tree_shapes()
+def test_full_width_uni_luong_tree_matches_jax():
+    """The full-width ``lrs2_av_align_uni_luong`` tree: one ``fwd`` cell per
+    encoder layer, Luong's lone ``wq`` in the fusion [256, 256] and the
+    decoder [256, 512] (no ``wm``, no ``v``), 4,496,302 parameters."""
+    cfg, vocab, shapes = _align_tree_shapes("uni_luong")
+    params = tseq.model_init(cfg, vocab, torch.Generator().manual_seed(0), "cpu")
+    assert _paths(convert.to_jax_numpy(params)) == _paths(shapes)
+    assert param_count(params) == 4_496_302
+    for enc in ("audio_encoder", "video_encoder"):
+        assert all(list(layer) == ["fwd"] for layer in params[enc]["layers"])
+    f, d = params["fusion"], params["decoder"]
+    assert list(f["att"]) == ["wq"] and tuple(f["att"]["wq"].shape) == (256, 256)
+    assert list(d["atts"][0]) == ["wq"] and tuple(d["atts"][0]["wq"].shape) == (256, 512)
+    assert tuple(f["cell"]["wx"].shape) == (256, 1024) and tuple(f["ctx_proj"].shape) == (256, 1024)
+    assert tseq.memory_dims_of(cfg) == [512]
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_full_width_round_trip_is_bit_exact(variant):
+    _, _, shapes = _align_tree_shapes(variant)
     rng = np.random.default_rng(1)
     tree = jax.tree_util.tree_map(lambda s: rng.standard_normal(s.shape).astype(s.dtype), shapes)
     back = convert.to_jax_numpy(convert.from_jax(tree, device="cpu"))

@@ -18,6 +18,11 @@ decoder loop; only summation order differs); parameters after the steps
 at atol 2e-5 / rtol 1e-4 (Adam divides by sqrt(nu): a near-zero gradient
 element's summation noise moves its update by a few 1e-6).  The coin rate
 of scheduled sampling is held to 4.5 standard deviations of a binomial.
+
+The loss and gradient checks and the three steps also run on
+``lrs2_av_align_uni_luong`` (``test_torch_align_slice.UNI_LUONG``: one-
+direction encoders, Luong reads in the fusion and the decoder), at the
+same tolerances: the same fp32 arithmetic, only summation order differs.
 """
 
 import dataclasses
@@ -40,7 +45,7 @@ from avsr_tpu_torch.ops import attention as tattn
 from avsr_tpu_torch.train import optim as toptim
 from avsr_tpu_torch.train import step as tstep
 from avsr_tpu_torch.utils.params import tree_leaves, tree_map
-from test_torch_align_slice import small_align_cfg
+from test_torch_align_slice import VARIANTS, small_align_cfg
 from test_torch_train import _assert_trees_close, _by_path, _jbatch, batch_arrays
 
 MAX_NORM = 0.5
@@ -55,8 +60,8 @@ def _one_thread():
     torch.set_num_threads(old)
 
 
-def align_train_cfg(p=0.0, ramp=0, decoder_dropout=0.0, **train):
-    base = small_align_cfg()
+def align_train_cfg(p=0.0, ramp=0, decoder_dropout=0.0, variant="bahdanau", **train):
+    base = small_align_cfg(variant=variant)
     nodrop = lambda c: dataclasses.replace(c, dropout_rate=0.0)  # noqa: E731
     return base.replace(
         audio_encoder=nodrop(base.audio_encoder), video_encoder=nodrop(base.video_encoder),
@@ -67,14 +72,24 @@ def align_train_cfg(p=0.0, ramp=0, decoder_dropout=0.0, **train):
                                   num_epochs=2, **train))
 
 
-@pytest.fixture(scope="module")
-def setup():
-    cfg = align_train_cfg()
+def _setup(variant):
+    cfg = align_train_cfg(variant=variant)
     V = builtin_unit_dict(cfg.data.unit).vocab_size
     jparams = jseq.model_init(jax.random.PRNGKey(3), cfg, V)
     arrays = batch_arrays(0, V)
     tparams = convert.from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
     return cfg, V, jparams, tparams, arrays
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _setup("bahdanau")
+
+
+@pytest.fixture(scope="module", params=VARIANTS)
+def each_setup(request):
+    """``setup`` for each AV-Align configuration the port serves."""
+    return _setup(request.param)
 
 
 def _grads_by_path(state, grads):
@@ -101,25 +116,29 @@ def _loss_and_grads_match(cfg, jparams, tparams, arrays):
     return m_t, grads
 
 
-def test_loss_and_every_gradient_leaf_match_jax(setup):
+def test_loss_and_every_gradient_leaf_match_jax(each_setup):
     """p = 0: pure teacher forcing through the fusion scan's and the
     decoder reads' hand-derived backward."""
-    cfg, V, jparams, tparams, arrays = setup
+    cfg, V, jparams, tparams, arrays = each_setup
     _, grads = _loss_and_grads_match(cfg, jparams, tparams, arrays)
     # the fusion cell, context projection and attention, the decoder's
     # attention and cell: every leaf of both recurrences takes a gradient
-    for k in (("fusion", "cell", "wh"), ("fusion", "ctx_proj"), ("fusion", "att", "wq"),
-              ("fusion", "att", "v"), ("fusion", "att", "wm"), ("decoder", "atts", 0, "wq"),
-              ("decoder", "atts", 0, "v"), ("decoder", "cells", 0, "wh"),
-              ("decoder", "embedding")):
+    # (Luong's attention is its lone wq)
+    keys = [("fusion", "cell", "wh"), ("fusion", "ctx_proj"), ("fusion", "att", "wq"),
+            ("decoder", "atts", 0, "wq"), ("decoder", "cells", 0, "wh"), ("decoder", "embedding"),
+            ("audio_encoder", "layers", 2, "fwd", "wh"),
+            ("video_encoder", "layers", 0, "fwd", "wx")]
+    if cfg.fusion.attention_type == "bahdanau":
+        keys += [("fusion", "att", "v"), ("fusion", "att", "wm"), ("decoder", "atts", 0, "v")]
+    for k in keys:
         assert np.abs(grads[k]).max() > 0, k
 
 
-def test_sampling_with_a_dominating_unit_matches_jax(setup):
+def test_sampling_with_a_dominating_unit_matches_jax(each_setup):
     """p = 1 with ``out_b[UNIT] += 100``: both packages feed UNIT at every
     step after the first, so loss and gradients agree leaf for leaf."""
-    _, V, jparams, _, arrays = setup
-    cfg = align_train_cfg(p=1.0)
+    cfg, V, jparams, _, arrays = each_setup
+    cfg = cfg.replace(decoder=dataclasses.replace(cfg.decoder, sampling_probability=1.0))
     jparams = jax.tree_util.tree_map(lambda x: x, jparams)
     jparams["decoder"]["out_b"] = jparams["decoder"]["out_b"].at[UNIT].add(100.0)
     tparams = convert.from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
@@ -151,10 +170,10 @@ def _run_port(cfg, tparams, arrays, steps, step0=0, seed=7):
     return state.params, metrics
 
 
-def test_three_train_steps_match_jax(setup):
+def test_three_train_steps_match_jax(each_setup):
     """Warmup-cosine (lr 0, then 5e-4, then 1e-3) with clipping on every
     step: metrics per step and the parameters after three updates."""
-    cfg, V, jparams, tparams, arrays = setup
+    cfg, V, jparams, tparams, arrays = each_setup
     pj, mj = _run_jax(cfg, jparams, arrays, 3)
     pt, mt = _run_port(cfg, tparams, arrays, 3)
     for a, b in zip(mt, mj):

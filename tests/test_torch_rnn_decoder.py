@@ -87,23 +87,24 @@ def _decoder_and_memory(seed, cfg, lengths=(7, 4, 0), S=7, M=10, Vv=11):
     rng = np.random.default_rng(seed)
     memory = rng.standard_normal((len(lengths), S, M)).astype(np.float32)
     lens = np.asarray(lengths, np.int32)
-    mem_j = [jattn.prepare_memory("bahdanau", params["atts"][0], jnp.asarray(memory),
+    mem_j = [jattn.prepare_memory(cfg.attention_type, params["atts"][0], jnp.asarray(memory),
                                   jnp.asarray(lens), compute_dtype=jdt)
              for jdt in (jnp.float32, jnp.bfloat16)]
     tparams = _to_torch(params)
-    mem_t = [tattn.prepare_memory("bahdanau", tparams["atts"][0], torch.from_numpy(memory),
+    mem_t = [tattn.prepare_memory(cfg.attention_type, tparams["atts"][0], torch.from_numpy(memory),
                                   torch.from_numpy(lens), tdt)
              for tdt in (torch.float32, torch.bfloat16)]
     return params, tparams, mem_j, mem_t
 
 
+@pytest.mark.parametrize("attention_type", ["bahdanau", "luong"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("value_dim", [None, 6])
-def test_decoder_step_matches_jax(dtype, value_dim):
+def test_decoder_step_matches_jax(dtype, value_dim, attention_type):
     """Three steps of a 2-layer decoder: every state tensor and the logits."""
     jdt, tdt = DT[dtype]
     cfg = DecoderConfig(embedding_dim=8, hidden_units=(12, 12), attention_units=8,
-                        memory_value_dim=value_dim)
+                        memory_value_dim=value_dim, attention_type=attention_type)
     params, tparams, mem_j, mem_t = _decoder_and_memory(1, cfg)
     k = 0 if dtype == "float32" else 1
     N = 3
@@ -136,8 +137,9 @@ def test_rnn_state_and_training_dispatch():
     logits = tdec.teacher_forced_logits(params, cfg, torch.zeros(2, 3, dtype=torch.long),
                                         torch.tensor([3, 2]), [mem], torch.float32)
     assert tuple(logits.shape) == (2, 3, 5) and bool(torch.isfinite(logits).all())
-    with pytest.raises(ValueError, match="not ported"):
-        tdec.decoder_init(torch.Generator(), DecoderConfig(attention_type="luong"), [7], 5, "cpu")
+    # Luong attention is ported now (it used to raise); an unknown type raises
+    with pytest.raises(ValueError, match="unknown attention type"):
+        tdec.decoder_init(torch.Generator(), DecoderConfig(attention_type="dot"), [7], 5, "cpu")
 
 
 def test_decoder_init_matches_jax_tree():
@@ -149,10 +151,12 @@ def test_decoder_init_matches_jax_tree():
         jax.tree_util.tree_map(lambda x: tuple(x.shape), jp)
 
 
+@pytest.mark.parametrize("attention_type", ["bahdanau", "luong"])
 @pytest.mark.parametrize("alpha", [0.0, 0.6])
-def test_beam_search_matches_jax(alpha):
+def test_beam_search_matches_jax(alpha, attention_type):
     """Width-4 beam over a memory batch with a length-0 row."""
-    cfg = DecoderConfig(embedding_dim=8, hidden_units=(12,), attention_units=8)
+    cfg = DecoderConfig(embedding_dim=8, hidden_units=(12,), attention_units=8,
+                        attention_type=attention_type)
     params, tparams, mem_j, mem_t = _decoder_and_memory(2, cfg)
     rj = jbeam.beam_search(params, cfg, [mem_j[0]], 8, beam_width=4, length_penalty=alpha,
                            compute_dtype=jnp.float32)

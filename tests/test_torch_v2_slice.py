@@ -30,8 +30,8 @@ enter none of the port's autograd Functions (``BiLSTMScanCore``,
 ``AVAlignScan``, ``FusionAttention``, ``DecoderAttention``,
 ``BahdanauAttend``, ``EncoderSelfAttention``, ``ConformerConv``:
 monkeypatched to raise) and run every decoder step
-with autograd off, for the ``lrs2_av_fast``, ``lrs2_av_align`` and
-``lrs2_av_v2`` structures.
+with autograd off, for the ``lrs2_av_fast``, ``lrs2_av_align``,
+``lrs2_av_v2`` and ``lrs2_av_align_uni_luong`` structures.
 """
 
 import contextlib
@@ -233,7 +233,8 @@ def test_train_mode_encode_returns_a_graph(v2_run):
 FUNCTIONS = (trnn.BiLSTMScanCore, tfus.AVAlignScan, tfus.FusionAttention,
              ttdec.DecoderAttention, tattn.BahdanauAttend, ttfm.EncoderSelfAttention,
              ttfm.ConformerConv)
-STRUCTURES = {"fast": small_fast_cfg, "align": small_align_cfg, "v2": small_v2_cfg}
+STRUCTURES = {"fast": small_fast_cfg, "align": small_align_cfg, "v2": small_v2_cfg,
+              "uni_luong": lambda: small_align_cfg(variant="uni_luong")}
 
 
 @contextlib.contextmanager
