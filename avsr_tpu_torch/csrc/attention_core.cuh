@@ -23,9 +23,7 @@
 // [B, Ta, nh, dv] (bf16); P [B, nh, Ta, Tv] (fp32).  Both launches take q,
 // k and v as strided views (the row of time step t of utterance b starts
 // ld elements after the row of t - 1), and the backward writes dq, dk and
-// dv the same way, which is how K11 (encoder_attention.cu) reads them
-// straight out of one [B, T, 3, nh, dh] product and writes its gradient
-// into one [B, T, 3, nh, dh] tensor, the cotangent of that product.
+// dv the same way.
 //
 // Design, forward: one block per (b, h, tile of QT = 16 queries); K of that
 // (b, h) is staged in shared memory transposed to bf16 pairs [A/2][Tv], so
@@ -43,7 +41,8 @@
 // one owner block, so there are no atomics, no zero-fill pass, and the
 // sums are taken in a fixed order: the same bits every run.  The products
 // are CUDA-core fp32 FMAs on bf16-rounded operands (the reference's
-// numerics); wgmma tiles are later work.
+// numerics): the FMA issue rate bounds them.  attention_mma.cuh is the
+// tensor-core core that replaces this one, kernel by kernel.
 
 #pragma once
 
@@ -150,8 +149,7 @@ __device__ __forceinline__ void weights_by_rows(const float* w_s, int wstride, i
 }
 
 // (1 - valid_j) * -1e9 from per-utterance lengths: the key-padding mask of
-// the fusion (K4, the video lengths) and of the encoder's self attention
-// (K11, the stack's own lengths)
+// the fusion (K4, the video lengths)
 struct LengthMask {
   const int* len;
   __device__ float operator()(int b, int, int j) const {

@@ -1,0 +1,707 @@
+// Multi-head attention over one utterance's keys on the H100's tensor cores
+// (mma.sync m16n8k16, bf16 operands, fp32 accumulators), forward and
+// backward.  K11 (encoder_attention.cu: the transformer encoder's self
+// attention, avsr_tpu/models/transformer.py:204-224) runs on it; the mask is
+// a functor, so the other attention cores (K4, K5, still on
+// attention_core.cuh) can move onto it by their mask alone.  It computes,
+// per (utterance b, head h), with DH the head width:
+//
+//   s[i, j]  = float(bf16(q_i . k_j)) / sqrt(DH) + mask(b, i, j)        (fp32)
+//   P[i, :]  = softmax(s[i, :])     (fp32: max, expf(s - max), sum, divide)
+//   ctx[i]   = bf16(sum_j bf16(P[i, j]) * v_j)              (fp32 accumulate)
+//
+// and, with the rounding points of JAX's autodiff of those lines,
+//
+//   dP  = bf16(dctx @ V^T);  D_i = sum_j dP[i, j] * P[i, j]
+//   dsc = bf16(P * (dP - D) / sqrt(DH))
+//   dQ  = bf16(dsc @ K);  dK = bf16(dsc^T @ Q);  dV = bf16(bf16(P)^T @ dctx)
+//
+// The mask is ADDED, never used to skip a key, so a row whose every key is
+// masked gets the uniform softmax over its Tk keys.  Key columns the tiles
+// pad past Tk take s = -inf, P = 0: they are not keys.
+//
+// What bounds it on an H100: K11 at B = 128, 8 heads, T = 197, DH = 64
+// reads 77.5 MB and writes 25.8 MB forward (~31 us at 3.35 TB/s) for 10.2
+// GFLOP (~10 us at 989 TFLOP/s); the backward reads q, k, v, dctx and the
+// row statistics and writes dq, dk, dv, ~183 MB (~55 us), for 20.3 GFLOP of
+// the function's own products plus the recomputed scores.  Both are
+// byte-bound at the tensor cores' rate, where the CUDA-core FMAs of
+// attention_core.cuh, which this replaces for K11, bound that core by
+// their issue rate.
+//
+// Design.  Every product is an mma.sync on fragments loaded by ldmatrix
+// (.trans where the k axis of the B operand runs along the rows of the
+// staged tile) from tiles staged by 16-byte cp.async into shared memory
+// whose 16-byte chunks are XOR-swizzled by row (conflict-free ldmatrix);
+// rows at or beyond the valid count are zero-filled.  q, k, v and dctx are
+// read through row strides, so K11 reads them in place from its one
+// [B, T, 3, nh, DH] product; dq, dk and dv are written the same way.
+//
+// * Forward, one block of 4 warps per (b, h, 64 queries); K and V of the
+//   (b, h) staged once per block (V's copy in flight while the scores are
+//   formed).  A warp owns 16 query rows across all keys: its scores stay in
+//   registers as mma C fragments (KC = 13 steps of 16 keys, 104 floats a
+//   thread: T <= 208 in one pass, an instance of its own in which the q
+//   fragments die after the scores); the exact two-pass softmax reduces
+//   over the quad's lanes (shfl_xor 1, 2), so a row never leaves its warp;
+//   bf16(P) is repacked from the C fragments into the A fragments of the
+//   P.V product in registers.  Past 208 keys the scores are taken in
+//   chunks of 208: a max pass, a sum pass and a P.V pass, each recomputing
+//   q.k^T (the T = 531 limit: three chunks).  The save mode writes the row
+//   max and the row sum, fp32 [B, nh, Tq] each: the backward's residual,
+//   in place of the weights.  P's division by the row sum is div_row, an
+//   exact division without div.rn's slow-path branch.
+// * Backward, two launches and no [B, nh, Tq, Tk] tensor.  Launch 1, per
+//   (b, h, 64 queries), takes P from q, k, the mask and the saved row
+//   statistics with exactly the forward's expression and fragment order
+//   (so it is the forward's P bit for bit), forms dP and sums D over the
+//   row, writes D (fp32 [B, nh, Tq]), then passes over the keys again to
+//   form dsc in registers and sum dQ = dsc.K.  Launch 2, per (b, h, 64
+//   keys), loops over all queries: it forms s, P and dP for its keys with
+//   the forward's operand roles (queries as the A operand), dsc from D,
+//   transposes bf16(P) and dsc in registers (movmatrix) into the A
+//   fragments of dV += bf16(P)^T.dctx and dK += dsc^T.Q.  Every output row
+//   has one owner block and every sum a fixed order, with no atomics: a
+//   run gives the same bits every time.
+//
+// Shared memory, DH = 64, Tp = T rounded up to 16: forward (64 + 2 Tp) *
+// 128 B (61 KB at T = 197, 147 KB at T = 531); launch 1 (128 + 2 Tp) * 128
+// B; launch 2 (128 + 2 Tp) * 128 + 16 Tp B (164 KB at T = 531).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+namespace mma_attn {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int ROWS = 16 * WARPS;  // queries (forward, launch 1) or keys (launch 2) per block
+constexpr int KC = 13;            // 16-key steps of forward scores held in registers
+
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000u); }
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+// e / l for the weights of a softmax row (0 <= e <= 1 <= l), with y the
+// correctly rounded 1 / l: one Markstein correction of e * y, which is the
+// correctly rounded quotient while the remainder e - l q stays a normal
+// number (quotients above ~2^-100; a tinier weight may differ in its last
+// place), without div.rn's per-element range check and slow-path branch.
+// tools/torch_k11_division_ab.py times K11 with it against IEEE e / l and
+// counts the quotients where the two differ.
+__device__ __forceinline__ float div_row(float e, float l, float y) {
+  const float q = __fmul_rn(e, y);
+  return __fmaf_rn(__fmaf_rn(-l, q, e), y, q);
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---- PTX wrappers --------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared; zero-filled (nothing read) when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+// the transpose of an 8x8 bf16 fragment held one b32 (a row's column pair)
+// per lane
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+// d += a (16x16, row) . b (16x8, col)
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---- staged tiles ----------------------------------------------------------
+// A tile is rows of DH bf16; chunk c (8 elements, 16 bytes) of row r sits at
+// chunk c ^ (r & 7), so the 8 rows one ldmatrix reads hit 8 bank groups.
+
+template <int DH>
+__device__ __forceinline__ int swz(int row, int chunk) {
+  return row * DH + ((chunk ^ (row & 7)) << 3);
+}
+
+// rows [0, n_rows) at `ld` elements apart in device memory into a swizzled
+// tile; rows >= n_valid are zero.
+template <int DH>
+__device__ __forceinline__ void stage(bf16* dst, const bf16* src, size_t ld, int n_rows,
+                                      int n_valid) {
+  constexpr int CPR = DH / 8;
+  for (int c = threadIdx.x; c < n_rows * CPR; c += THREADS) {
+    const int r = c / CPR, ch = c % CPR;
+    const bool ok = r < n_valid;
+    cp_async16(dst + swz<DH>(r, ch), ok ? src + (size_t)r * ld + ch * 8 : src, ok);
+  }
+}
+
+// A fragment: tile rows r0..r0+15 (m) by columns 16 kd..16 kd+15 (k)
+template <int DH>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int r0, int kd,
+                                       int lane) {
+  ldsm_x4(a, tile + swz<DH>(r0 + (lane & 15), 2 * kd + (lane >> 4)));
+}
+// B fragments of two n-tiles whose n runs along tile rows n0..n0+15 and k
+// along columns 16 kd..16 kd+15: {b0, b1} of rows n0..n0+7, then n0+8..n0+15
+template <int DH>
+__device__ __forceinline__ void load_b(uint32_t (&b)[4], const bf16* tile, int n0, int kd,
+                                       int lane) {
+  ldsm_x4(b, tile + swz<DH>(n0 + (lane & 7) + ((lane >> 4) << 3), 2 * kd + ((lane >> 3) & 1)));
+}
+// B fragments of two n-tiles whose k runs along tile rows k0..k0+15 and n
+// along columns 16 np..16 np+15: {b0, b1} of columns 16 np..+7, then +8..+15
+template <int DH>
+__device__ __forceinline__ void load_bt(uint32_t (&b)[4], const bf16* tile, int k0, int np,
+                                        int lane) {
+  ldsm_x4_trans(b, tile + swz<DH>(k0 + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                  2 * np + (lane >> 4)));
+}
+
+// (1 - valid_j) * -1e9 from per-utterance key counts: the key-padding mask
+// of the encoder's self attention (K11, the stack's own lengths).  A mask
+// functor's at(b) gives the additive mask (i, j) -> float of utterance b.
+struct LengthMask {
+  const int* len;
+  struct Row {
+    int n;
+    __device__ float operator()(int, int j) const { return (j < n ? 0.f : 1.f) * -1e9f; }
+  };
+  __device__ Row at(int b) const { return Row{len[b]}; }
+};
+
+// ---- the shared arithmetic -------------------------------------------------
+// C fragment element e of a 16x8 tile: row g + 8 (e >> 1), column 2 t + (e & 1)
+// with g = lane / 4, t = lane % 4.
+
+// acc[nt] = a . b over the DH/16 k steps, in that order: the one sequence
+// the forward and both backward launches use for q.k^T (and dctx.V^T)
+template <int KD>
+__device__ __forceinline__ void product2(float (&acc)[2][4], const uint32_t (&a)[KD][4],
+                                         const uint32_t (&b)[KD][4]) {
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < KD; ++kd) {
+    mma(acc[0], a[kd], b[kd][0], b[kd][1]);
+    mma(acc[1], a[kd], b[kd][2], b[kd][3]);
+  }
+}
+
+// s of query i, key j from the q.k accumulator; keys >= Tk are padding
+template <typename Row>
+__device__ __forceinline__ float score(float acc, int i, int j, int Tk, float sq, const Row& m) {
+  return j < Tk ? round_bf16(acc) / sq + m(i, j) : neg_inf();
+}
+
+// the A fragment of a 16x16 product from the C fragments of its two 16x8
+// halves along k (rounded to bf16)
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c)[2][4]) {
+  a[0] = pack_bf16(c[0][0], c[0][1]);
+  a[1] = pack_bf16(c[0][2], c[0][3]);
+  a[2] = pack_bf16(c[1][0], c[1][1]);
+  a[3] = pack_bf16(c[1][2], c[1][3]);
+}
+// the A fragment of the transposed 16x16 tile (rows = the C fragments'
+// columns), rounded to bf16
+__device__ __forceinline__ void c_to_a_trans(uint32_t (&a)[4], const float (&c)[2][4]) {
+  a[0] = movmatrix_trans(pack_bf16(c[0][0], c[0][1]));
+  a[1] = movmatrix_trans(pack_bf16(c[1][0], c[1][1]));
+  a[2] = movmatrix_trans(pack_bf16(c[0][2], c[0][3]));
+  a[3] = movmatrix_trans(pack_bf16(c[1][2], c[1][3]));
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// the scores of key steps [c KC, c KC + KC) of a warp's 16 queries (steps
+// past nks left as they were)
+template <int DH, typename Row>
+__device__ __forceinline__ void score_chunk(float (&s)[KC][2][4],
+                                            const uint32_t (&qa)[DH / 16][4],
+                                            const bf16* k_s, int c, int nks, int i_g, int Tk,
+                                            float sq, const Row& m, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KC; ++kk) {
+    const int ks = c * KC + kk;
+    if (ks < nks) {
+      uint32_t kb[DH / 16][4];
+#pragma unroll
+      for (int kd = 0; kd < DH / 16; ++kd) load_b<DH>(kb[kd], k_s, ks * 16, kd, lane);
+      float acc[2][4];
+      product2(acc, qa, kb);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[kk][nt][e] = score(acc[nt][e], i_g + 8 * (e >> 1),
+                               ks * 16 + nt * 8 + 2 * (lane & 3) + (e & 1), Tk, sq, m);
+    }
+  }
+}
+
+// ---- forward -----------------------------------------------------------------
+
+// One block per (b, h, 64 queries).  row_max / row_sum null: nothing saved.
+// ONE: every key in one chunk (Tk <= 16 KC), so the q fragments die after
+// the scores and the chunk loops fold away.
+template <int DH, typename Mask, bool ONE>
+__global__ void __launch_bounds__(THREADS)
+attn_mma_fwd(const bf16* __restrict__ q,  // [B, Tq, nh, DH], rows ldq apart
+             const bf16* __restrict__ k,  // [B, Tk, nh, DH], rows ldk apart
+             const bf16* __restrict__ v,  // [B, Tk, nh, DH], rows ldv apart
+             Mask mask, float* __restrict__ row_max, float* __restrict__ row_sum,  // [B, nh, Tq]
+             bf16* __restrict__ ctx,  // [B, Tq, nh, DH], rows ldc apart
+             int Tq, int Tk, int nh, int ldq, int ldk, int ldv, int ldc) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * ROWS;
+  const int nks = (Tk + 15) >> 4, Tkp = nks << 4;
+  bf16* q_s = reinterpret_cast<bf16*>(smem);  // [ROWS][DH]
+  bf16* k_s = q_s + ROWS * DH;                // [Tkp][DH]
+  bf16* v_s = k_s + (size_t)Tkp * DH;         // [Tkp][DH]
+  stage<DH>(q_s, q + ((size_t)b * Tq + i0) * ldq + (size_t)h * DH, ldq, ROWS, min(ROWS, Tq - i0));
+  stage<DH>(k_s, k + (size_t)b * Tk * ldk + (size_t)h * DH, ldk, Tkp, Tk);
+  cp_async_commit();
+  stage<DH>(v_s, v + (size_t)b * Tk * ldv + (size_t)h * DH, ldv, Tkp, Tk);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int i_g = i0 + warp * 16 + (lane >> 2);  // this thread's rows: i_g, i_g + 8
+  const bool active = i0 + warp * 16 < Tq;
+  const float sq = sqrtf((float)DH);
+  const auto m = mask.at(b);
+  const int nch = ONE ? 1 : (nks + KC - 1) / KC;
+  uint32_t qa[DH / 16][4];
+  float s[KC][2][4];
+  float mx[2] = {neg_inf(), neg_inf()}, sm[2] = {0.f, 0.f};
+  if (active) {
+#pragma unroll
+    for (int kd = 0; kd < DH / 16; ++kd) load_a<DH>(qa[kd], q_s, warp * 16, kd, lane);
+    for (int c = 0; c < nch; ++c) {
+      score_chunk<DH>(s, qa, k_s, c, nks, i_g, Tk, sq, m, lane);
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk)
+        if (c * KC + kk < nks)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[kk][nt][e]);
+    }
+    mx[0] = quad_max(mx[0]);
+    mx[1] = quad_max(mx[1]);
+    for (int c = 0; c < nch; ++c) {
+      if (nch > 1) score_chunk<DH>(s, qa, k_s, c, nks, i_g, Tk, sq, m, lane);
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk)
+        if (c * KC + kk < nks)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float ex = expf(s[kk][nt][e] - mx[e >> 1]);
+              sm[e >> 1] += ex;
+              if (nch == 1) s[kk][nt][e] = ex;
+            }
+    }
+    sm[0] = quad_sum(sm[0]);
+    sm[1] = quad_sum(sm[1]);
+  }
+  const float rl[2] = {__frcp_rn(sm[0]), __frcp_rn(sm[1])};
+  cp_async_wait<0>();
+  __syncthreads();
+  if (!active) return;
+
+  float o[DH / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < DH / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+  for (int c = 0; c < nch; ++c) {
+    if (nch > 1) score_chunk<DH>(s, qa, k_s, c, nks, i_g, Tk, sq, m, lane);
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) {
+      const int ks = c * KC + kk;
+      if (ks < nks) {
+        float p[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            p[nt][e] = div_row(nch == 1 ? s[kk][nt][e] : expf(s[kk][nt][e] - mx[e >> 1]),
+                               sm[e >> 1], rl[e >> 1]);
+        uint32_t pa[4];
+        c_to_a(pa, p);
+#pragma unroll
+        for (int np = 0; np < DH / 16; ++np) {
+          uint32_t vb[4];
+          load_bt<DH>(vb, v_s, ks * 16, np, lane);
+          mma(o[2 * np], pa, vb[0], vb[1]);
+          mma(o[2 * np + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+  }
+
+  const int t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = i_g + 8 * r;
+    if (i >= Tq) continue;
+    bf16* out = ctx + ((size_t)b * Tq + i) * ldc + (size_t)h * DH + t2;
+#pragma unroll
+    for (int nd = 0; nd < DH / 8; ++nd)
+      *reinterpret_cast<uint32_t*>(out + nd * 8) = pack_bf16(o[nd][2 * r], o[nd][2 * r + 1]);
+    if (row_max != nullptr && (lane & 3) == 0) {
+      row_max[((size_t)b * nh + h) * Tq + i] = mx[r];
+      row_sum[((size_t)b * nh + h) * Tq + i] = sm[r];
+    }
+  }
+}
+
+// ---- backward ------------------------------------------------------------------
+
+// Launch 1: D and dQ for one (b, h, 64 queries).
+template <int DH, typename Mask>
+__global__ void __launch_bounds__(THREADS)
+attn_mma_bwd_q(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, Mask mask,
+               const float* __restrict__ row_max, const float* __restrict__ row_sum,
+               const bf16* __restrict__ dctx,  // [B, Tq, nh, DH], rows ldo apart
+               float* __restrict__ D,          // [B, nh, Tq]
+               bf16* __restrict__ dq,          // [B, Tq, nh, DH], rows lddq apart
+               int Tq, int Tk, int nh, int ldq, int ldk, int ldv, int ldo, int lddq) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * ROWS;
+  const int nks = (Tk + 15) >> 4, Tkp = nks << 4;
+  const int nq = min(ROWS, Tq - i0);
+  bf16* q_s = reinterpret_cast<bf16*>(smem);  // [ROWS][DH]
+  bf16* do_s = q_s + ROWS * DH;               // [ROWS][DH]
+  bf16* k_s = do_s + ROWS * DH;               // [Tkp][DH]
+  bf16* v_s = k_s + (size_t)Tkp * DH;         // [Tkp][DH]
+  stage<DH>(q_s, q + ((size_t)b * Tq + i0) * ldq + (size_t)h * DH, ldq, ROWS, nq);
+  stage<DH>(do_s, dctx + ((size_t)b * Tq + i0) * ldo + (size_t)h * DH, ldo, ROWS, nq);
+  stage<DH>(k_s, k + (size_t)b * Tk * ldk + (size_t)h * DH, ldk, Tkp, Tk);
+  stage<DH>(v_s, v + (size_t)b * Tk * ldv + (size_t)h * DH, ldv, Tkp, Tk);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (i0 + warp * 16 >= Tq) return;
+  const int i_g = i0 + warp * 16 + (lane >> 2);
+  const float sq = sqrtf((float)DH);
+  const auto m = mask.at(b);
+  const size_t st = ((size_t)b * nh + h) * Tq;
+  float mx[2], sm[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = i_g + 8 * r;
+    mx[r] = i < Tq ? row_max[st + i] : 0.f;
+    sm[r] = i < Tq ? row_sum[st + i] : 1.f;
+  }
+  const float rl[2] = {__frcp_rn(sm[0]), __frcp_rn(sm[1])};
+  uint32_t qa[DH / 16][4], da[DH / 16][4];
+#pragma unroll
+  for (int kd = 0; kd < DH / 16; ++kd) {
+    load_a<DH>(qa[kd], q_s, warp * 16, kd, lane);
+    load_a<DH>(da[kd], do_s, warp * 16, kd, lane);
+  }
+
+  // P and bf16(dP) of key step ks
+  auto p_dp = [&](int ks, float (&p)[2][4], float (&dp)[2][4]) {
+    uint32_t kb[DH / 16][4];
+#pragma unroll
+    for (int kd = 0; kd < DH / 16; ++kd) load_b<DH>(kb[kd], k_s, ks * 16, kd, lane);
+    product2(p, qa, kb);
+#pragma unroll
+    for (int kd = 0; kd < DH / 16; ++kd) load_b<DH>(kb[kd], v_s, ks * 16, kd, lane);
+    product2(dp, da, kb);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float s = score(p[nt][e], i_g + 8 * (e >> 1),
+                              ks * 16 + nt * 8 + 2 * (lane & 3) + (e & 1), Tk, sq, m);
+        p[nt][e] = div_row(expf(s - mx[e >> 1]), sm[e >> 1], rl[e >> 1]);
+        dp[nt][e] = round_bf16(dp[nt][e]);
+      }
+  };
+
+  float dsum[2] = {0.f, 0.f};
+  for (int ks = 0; ks < nks; ++ks) {
+    float p[2][4], dp[2][4];
+    p_dp(ks, p, dp);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dsum[e >> 1] += dp[nt][e] * p[nt][e];
+  }
+  dsum[0] = quad_sum(dsum[0]);
+  dsum[1] = quad_sum(dsum[1]);
+
+  float acc[DH / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < DH / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+  for (int ks = 0; ks < nks; ++ks) {
+    float p[2][4], dp[2][4];
+    p_dp(ks, p, dp);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[nt][e] = p[nt][e] * (dp[nt][e] - dsum[e >> 1]) / sq;
+    uint32_t dsa[4];
+    c_to_a(dsa, p);
+#pragma unroll
+    for (int np = 0; np < DH / 16; ++np) {
+      uint32_t kb[4];
+      load_bt<DH>(kb, k_s, ks * 16, np, lane);
+      mma(acc[2 * np], dsa, kb[0], kb[1]);
+      mma(acc[2 * np + 1], dsa, kb[2], kb[3]);
+    }
+  }
+
+  const int t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = i_g + 8 * r;
+    if (i >= Tq) continue;
+    bf16* out = dq + ((size_t)b * Tq + i) * lddq + (size_t)h * DH + t2;
+#pragma unroll
+    for (int nd = 0; nd < DH / 8; ++nd)
+      *reinterpret_cast<uint32_t*>(out + nd * 8) = pack_bf16(acc[nd][2 * r], acc[nd][2 * r + 1]);
+    if ((lane & 3) == 0) D[st + i] = dsum[r];
+  }
+}
+
+// Launch 2: dK and dV for one (b, h, 64 keys), summed over every query.
+template <int DH, typename Mask>
+__global__ void __launch_bounds__(THREADS)
+attn_mma_bwd_kv(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, Mask mask,
+                const float* __restrict__ row_max, const float* __restrict__ row_sum,
+                const float* __restrict__ D, const bf16* __restrict__ dctx,
+                bf16* __restrict__ dk,  // [B, Tk, nh, DH], rows lddk apart
+                bf16* __restrict__ dv,  // [B, Tk, nh, DH], rows lddv apart
+                int Tq, int Tk, int nh, int ldq, int ldk, int ldv, int ldo, int lddk,
+                int lddv) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int b = blockIdx.z, h = blockIdx.y, j0 = blockIdx.x * ROWS;
+  const int nqs = (Tq + 15) >> 4, Tqp = nqs << 4;
+  const int nk = min(ROWS, Tk - j0);
+  bf16* k_s = reinterpret_cast<bf16*>(smem);  // [ROWS][DH]
+  bf16* v_s = k_s + ROWS * DH;                // [ROWS][DH]
+  bf16* q_s = v_s + ROWS * DH;                // [Tqp][DH]
+  bf16* do_s = q_s + (size_t)Tqp * DH;        // [Tqp][DH]
+  float* mx_s = reinterpret_cast<float*>(do_s + (size_t)Tqp * DH);  // [Tqp] x 4
+  float* sm_s = mx_s + Tqp;
+  float* rl_s = sm_s + Tqp;
+  float* d_s = rl_s + Tqp;
+  stage<DH>(k_s, k + ((size_t)b * Tk + j0) * ldk + (size_t)h * DH, ldk, ROWS, nk);
+  stage<DH>(v_s, v + ((size_t)b * Tk + j0) * ldv + (size_t)h * DH, ldv, ROWS, nk);
+  stage<DH>(q_s, q + (size_t)b * Tq * ldq + (size_t)h * DH, ldq, Tqp, Tq);
+  stage<DH>(do_s, dctx + (size_t)b * Tq * ldo + (size_t)h * DH, ldo, Tqp, Tq);
+  cp_async_commit();
+  // padded queries: finite statistics and D = 0 (their q and dctx rows are
+  // zero, so they add nothing)
+  const size_t st = ((size_t)b * nh + h) * Tq;
+  for (int i = threadIdx.x; i < Tqp; i += THREADS) {
+    mx_s[i] = i < Tq ? row_max[st + i] : 0.f;
+    sm_s[i] = i < Tq ? row_sum[st + i] : 1.f;
+    rl_s[i] = __frcp_rn(sm_s[i]);
+    d_s[i] = i < Tq ? D[st + i] : 0.f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (j0 + warp * 16 >= Tk) return;
+  const float sq = sqrtf((float)DH);
+  const auto m = mask.at(b);
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  // the warp's 16 keys as the B operand of q.k^T and dctx.V^T
+  uint32_t kb[DH / 16][4], vb[DH / 16][4];
+#pragma unroll
+  for (int kd = 0; kd < DH / 16; ++kd) {
+    load_b<DH>(kb[kd], k_s, warp * 16, kd, lane);
+    load_b<DH>(vb[kd], v_s, warp * 16, kd, lane);
+  }
+  float dk_acc[DH / 8][4], dv_acc[DH / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < DH / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[nd][e] = dv_acc[nd][e] = 0.f;
+
+  for (int qs = 0; qs < nqs; ++qs) {
+    uint32_t a[DH / 16][4];
+    float p[2][4], dp[2][4];
+#pragma unroll
+    for (int kd = 0; kd < DH / 16; ++kd) load_a<DH>(a[kd], q_s, qs * 16, kd, lane);
+    product2(p, a, kb);
+#pragma unroll
+    for (int kd = 0; kd < DH / 16; ++kd) load_a<DH>(a[kd], do_s, qs * 16, kd, lane);
+    product2(dp, a, vb);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = qs * 16 + g + 8 * (e >> 1);
+        const float s = score(p[nt][e], i, j0 + warp * 16 + nt * 8 + t2 + (e & 1), Tk, sq, m);
+        p[nt][e] = div_row(expf(s - mx_s[i]), sm_s[i], rl_s[i]);
+        dp[nt][e] = p[nt][e] * (round_bf16(dp[nt][e]) - d_s[i]) / sq;  // dsc before rounding
+      }
+    uint32_t pa[4], dsa[4];
+    c_to_a_trans(pa, p);
+    c_to_a_trans(dsa, dp);
+#pragma unroll
+    for (int np = 0; np < DH / 16; ++np) {
+      uint32_t bt[4];
+      load_bt<DH>(bt, do_s, qs * 16, np, lane);
+      mma(dv_acc[2 * np], pa, bt[0], bt[1]);
+      mma(dv_acc[2 * np + 1], pa, bt[2], bt[3]);
+      load_bt<DH>(bt, q_s, qs * 16, np, lane);
+      mma(dk_acc[2 * np], dsa, bt[0], bt[1]);
+      mma(dk_acc[2 * np + 1], dsa, bt[2], bt[3]);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = j0 + warp * 16 + g + 8 * r;
+    if (j >= Tk) continue;
+    bf16* odk = dk + ((size_t)b * Tk + j) * lddk + (size_t)h * DH + t2;
+    bf16* odv = dv + ((size_t)b * Tk + j) * lddv + (size_t)h * DH + t2;
+#pragma unroll
+    for (int nd = 0; nd < DH / 8; ++nd) {
+      *reinterpret_cast<uint32_t*>(odk + nd * 8) =
+          pack_bf16(dk_acc[nd][2 * r], dk_acc[nd][2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(odv + nd * 8) =
+          pack_bf16(dv_acc[nd][2 * r], dv_acc[nd][2 * r + 1]);
+    }
+  }
+}
+
+// ---- launchers -------------------------------------------------------------------
+
+inline int pad16_host(int n) { return (n + 15) & ~15; }
+template <int DH>
+size_t fwd_smem(int Tk) {
+  return (size_t)(ROWS + 2 * pad16_host(Tk)) * DH * 2;
+}
+template <int DH>
+size_t bwd_q_smem(int Tk) {
+  return (size_t)(2 * ROWS + 2 * pad16_host(Tk)) * DH * 2;
+}
+template <int DH>
+size_t bwd_kv_smem(int Tq) {
+  return (size_t)(2 * ROWS + 2 * pad16_host(Tq)) * DH * 2 + (size_t)4 * pad16_host(Tq) * 4;
+}
+// the largest request of the three launches
+template <int DH>
+size_t attn_smem(int Tq, int Tk) {
+  size_t m = fwd_smem<DH>(Tk);
+  if (bwd_q_smem<DH>(Tk) > m) m = bwd_q_smem<DH>(Tk);
+  if (bwd_kv_smem<DH>(Tq) > m) m = bwd_kv_smem<DH>(Tq);
+  return m;
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// The forward over q, k, v rows ld* elements apart and ctx rows ldc apart
+// (multiples of 8: the 16-byte copies); the operands 16-byte aligned.
+template <int DH, typename Mask>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, Mask mask, float* row_max,
+                       float* row_sum, void* ctx, int B, int Tq, int Tk, int nh, int ldq, int ldk,
+                       int ldv, int ldc, cudaStream_t stream) {
+  if (Tq < 1 || Tk < 1 || ldq % 8 || ldk % 8 || ldv % 8 || ldc % 2 ||
+      (row_max == nullptr) != (row_sum == nullptr))
+    return cudaErrorInvalidValue;
+  const size_t smem = fwd_smem<DH>(Tk);
+  const auto kernel =
+      (Tk + 15) / 16 <= KC ? attn_mma_fwd<DH, Mask, true> : attn_mma_fwd<DH, Mask, false>;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3((Tq + ROWS - 1) / ROWS, nh, B), THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), mask,
+      row_max, row_sum, static_cast<bf16*>(ctx), Tq, Tk, nh, ldq, ldk, ldv, ldc);
+  return cudaGetLastError();
+}
+
+// The backward from the forward's operands and row statistics: D is an fp32
+// [B, nh, Tq] scratch; dq, dk, dv rows are written ldd* elements apart.
+template <int DH, typename Mask>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, Mask mask,
+                       const float* row_max, const float* row_sum, const void* dctx, float* D,
+                       void* dq, void* dk, void* dv, int B, int Tq, int Tk, int nh, int ldq,
+                       int ldk, int ldv, int ldo, int lddq, int lddk, int lddv,
+                       cudaStream_t stream) {
+  if (Tq < 1 || Tk < 1 || ldq % 8 || ldk % 8 || ldv % 8 || ldo % 8 || lddq % 2 || lddk % 2 ||
+      lddv % 2)
+    return cudaErrorInvalidValue;
+  const size_t smem_q = bwd_q_smem<DH>(Tk), smem_kv = bwd_kv_smem<DH>(Tq);
+  cudaError_t e = allow_smem(attn_mma_bwd_q<DH, Mask>, smem_q);
+  if (e != cudaSuccess) return e;
+  e = allow_smem(attn_mma_bwd_kv<DH, Mask>, smem_kv);
+  if (e != cudaSuccess) return e;
+  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
+             *vb = static_cast<const bf16*>(v), *dob = static_cast<const bf16*>(dctx);
+  attn_mma_bwd_q<DH, Mask><<<dim3((Tq + ROWS - 1) / ROWS, nh, B), THREADS, smem_q, stream>>>(
+      qb, kb, vb, mask, row_max, row_sum, dob, D, static_cast<bf16*>(dq), Tq, Tk, nh, ldq, ldk,
+      ldv, ldo, lddq);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  attn_mma_bwd_kv<DH, Mask><<<dim3((Tk + ROWS - 1) / ROWS, nh, B), THREADS, smem_kv, stream>>>(
+      qb, kb, vb, mask, row_max, row_sum, D, dob, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      Tq, Tk, nh, ldq, ldk, ldv, ldo, lddk, lddv);
+  return cudaGetLastError();
+}
+
+}  // namespace mma_attn
+}  // namespace

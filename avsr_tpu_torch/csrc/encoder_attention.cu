@@ -1,4 +1,5 @@
-// K11: the transformer encoder's self-attention core, forward and backward.
+// K11: the transformer encoder's self-attention core, forward and backward,
+// on the tensor cores (attention_mma.cuh).
 //
 // Replaces the core of avsr_tpu/models/transformer.py:transformer_encoder_apply
 // (transformer.py:204-224), which the JAX package leaves to XLA: every step
@@ -9,77 +10,80 @@
 //   P[i, :]  = softmax(s[i, :])                       (fp32)
 //   ctx[i]   = bf16(sum_j bf16(P[i, j]) * v_j)        (fp32 accumulate)
 //
-// This is K4's contract (cross_attention.cu) with T_q = T_k = T and the key
-// mask from the stack's own lengths.  The mask is ADDED, as in the
-// reference, so a row of length 0 gets the uniform softmax over all T keys
-// (its outputs are masked later by the stack).  The reference's one [d, 3d]
-// product over [wq | wk | wv] (transformer.py:212-216), the head merge, the
-// wo product and the residual stay torch code.
+// The mask is ADDED, as in the reference, so a row of length 0 gets the
+// uniform softmax over all T keys (its outputs are masked later by the
+// stack).  The reference's one [d, 3d] product over [wq | wk | wv]
+// (transformer.py:212-216), the head merge, the wo product and the residual
+// stay torch code.
 //
 // Operands: the product qkv [B, T, 3, nh, dh] bf16 as it comes out of the
-// matmul.  q, k and v are strided views of it, read in place: both launches
-// of attention_core.cuh take row strides (3 * nh * dh elements here), so no
-// copy of the three views is made.  ctx comes out [B, T, nh, dh] bf16, ready
-// for the head merge.
+// matmul.  q, k and v are strided views of it, read in place (row stride
+// 3 * nh * dh elements), so no copy of the three views is made.  ctx comes
+// out [B, T, nh, dh] bf16, ready for the head merge.
 //
 // Backward (the autodiff of the same lines, with the rounding points of the
-// header of attention_core.cuh): the context cotangent dctx [B, T, nh, dh]
+// header of attention_mma.cuh): the context cotangent dctx [B, T, nh, dh]
 // bf16 -> dqkv [B, T, 3, nh, dh] bf16.  dq, dk and dv are written straight
 // into the three strided views of one tensor, which is the cotangent of the
 // [d, 3d] product: one matmul backward follows and nothing is copied.  The
-// backward needs the weights P.  They are SAVED, not recomputed: the
-// forward's save mode writes P as fp32 [B, nh, T, T] (159 MB per layer at
-// B = 128, T = 197; 636 MB over the 3 + 1 layers of an lrs2_av_v2 step,
-// held until the backward), as K4's forward always does.  Recomputing them
-// would cost a third launch and the q.k product again; the card has the
-// memory.  Serving passes P = null and writes none.
+// backward's residual is the forward's row max and row sum, fp32 [B, nh, T]
+// each (1.6 MB at B = 128, T = 197, where the fp32 weights P would take 159
+// MB per layer); the backward recomputes P from them, the operands and the
+// lengths, bit for bit the forward's.  Its scratch is
+// D = rowsum(dP * P), fp32 [B, nh, T]; no [B, nh, T, T] tensor is written.
+// Serving passes null statistics and writes none.
 //
-// What bounds it on an H100: at the serving path's 6 s batch of the phase
-// check (B = 128, 8 heads, T = 197, dh = 64) the forward reads 77.5 MB of qkv
-// and writes 25.8 MB of ctx for 10.2 GFLOP: ~31 us of HBM time against
-// ~10 us at the bf16 tensor-core peak, so byte-bound.  The backward's own
-// function reads qkv and dctx and writes dqkv, ~181 MB (~54 us), for 20.3
-// GFLOP (~21 us); the kernel moves more: P twice (rows in pass 1, columns
-// in pass 2) and a bf16 dsc scratch [B, nh, T, T] (79 MB) written by pass 1
-// and read by pass 2.  Like K4's, these kernels spend their time on the
-// shared-memory issue rate of CUDA-core fp32 FMAs on bf16-rounded operands
-// (the reference's numerics) rather than on either limit; wgmma tiles are
-// later work.  Design: the shared forward and backward of
-// attention_core.cuh (one block per (b, h, 16 queries), K staged transposed
-// then V in one shared buffer, fp32 softmax in shared memory, one warp per
-// row; a two-launch backward with one owner block per output row, no
-// atomics).  Shared memory of the forward is T*dh*2 + 16*dh*2 + 16*T*4
-// bytes: 39.9 KB at T = 197, 104 KB at the preset's 16 s limit of T = 531
-// audio steps; the backward's key pass stages all T queries and dctx rows,
-// T*dh*4 + 2*16*T*4 bytes: 75.6 KB at T = 197, 203.9 KB at T = 531 (the
-// wrapper checks every request against the card's limit and raises above
-// T = 531).
+// What bounds it on an H100 (B = 128, 8 heads, T = 197, dh = 64): the
+// forward reads 77.5 MB of qkv and writes 25.8 MB of ctx, ~31 us of HBM
+// time against ~10 us for its 10.2 GFLOP at the bf16 tensor-core peak; the
+// backward reads qkv, dctx and the statistics and writes dqkv, ~183 MB (~55
+// us), against ~26 us for the 25.4 GFLOP of its five products (the scores
+// recomputed, dP, dQ, dK, dV): both byte-bound.  Design: attention_mma.cuh
+// (mma.sync tiles from swizzled shared memory, 64 queries or keys per
+// block, the scores in registers, one owner block per output row, no
+// atomics), in place of attention_core.cuh's CUDA-core products, which K4
+// and K5 still run.  Head width 64 only (the lrs2_av_v2 preset's 512 / 8
+// heads; the wrapper raises on another); T from 1 to 531, the preset's
+// 16 s limit (shared memory at T = 531: 147 KB forward, 164 KB for the
+// backward's key launch).
 
-#include "attention_core.cuh"
+#include "attention_mma.cuh"
 
-// Shared-memory bytes the largest of the three launches asks for.
-extern "C" long long avsr_encoder_attn_smem(int T, int dh) {
-  return (long long)attn_smem(T, T, dh, dh);
+namespace {
+constexpr int DH = 64;
 }
 
-// P null: no weights written (serving); else fp32 [B, nh, T, T] for the
-// backward.
-extern "C" int avsr_encoder_attn_fwd(const void* qkv, const void* lengths, void* P, void* ctx,
-                                     int B, int T, int nh, int dh, void* stream) {
+// Shared-memory bytes the largest of the three launches asks for; -1 for a
+// head width the kernels are not built for.
+extern "C" long long avsr_encoder_attn_smem(int T, int dh) {
+  return dh == DH ? (long long)mma_attn::attn_smem<DH>(T, T) : -1;
+}
+
+// row_max / row_sum null: nothing saved (serving); else fp32 [B, nh, T]
+// each, the backward's residual.
+extern "C" int avsr_encoder_attn_fwd(const void* qkv, const void* lengths, void* row_max,
+                                     void* row_sum, void* ctx, int B, int T, int nh, int dh,
+                                     void* stream) {
+  if (dh != DH) return (int)cudaErrorInvalidValue;
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(qkv);
   const int d = nh * dh;
-  return (int)launch_attn_fwd(q, q + d, q + 2 * d, LengthMask{static_cast<const int*>(lengths)},
-                              P, ctx, B, T, T, nh, dh, dh, 3 * d, 3 * d, 3 * d,
-                              reinterpret_cast<cudaStream_t>(stream));
+  return (int)mma_attn::launch_fwd<DH>(
+      q, q + d, q + 2 * d, mma_attn::LengthMask{static_cast<const int*>(lengths)},
+      static_cast<float*>(row_max), static_cast<float*>(row_sum), ctx, B, T, T, nh, 3 * d, 3 * d,
+      3 * d, d, reinterpret_cast<cudaStream_t>(stream));
 }
 
-// dsc: a bf16 [B, nh, T, T] scratch; dqkv [B, T, 3, nh, dh] bf16 out.
-extern "C" int avsr_encoder_attn_bwd(const void* qkv, const void* P, const void* dctx, void* dsc,
-                                     void* dqkv, int B, int T, int nh, int dh, void* stream) {
+// D: an fp32 [B, nh, T] scratch; dqkv [B, T, 3, nh, dh] bf16 out.
+extern "C" int avsr_encoder_attn_bwd(const void* qkv, const void* lengths, const void* row_max,
+                                     const void* row_sum, const void* dctx, void* D, void* dqkv,
+                                     int B, int T, int nh, int dh, void* stream) {
+  if (dh != DH) return (int)cudaErrorInvalidValue;
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(qkv);
   __nv_bfloat16* dq = static_cast<__nv_bfloat16*>(dqkv);
   const int d = nh * dh;
-  return (int)launch_attn_bwd(q, q + d, q + 2 * d, P, dctx, dsc, dq, dq + d, dq + 2 * d, B, T, T,
-                              nh, dh, dh, 3 * d, 3 * d, 3 * d, 3 * d, 3 * d, 3 * d,
-                              reinterpret_cast<cudaStream_t>(stream));
+  return (int)mma_attn::launch_bwd<DH>(
+      q, q + d, q + 2 * d, mma_attn::LengthMask{static_cast<const int*>(lengths)},
+      static_cast<const float*>(row_max), static_cast<const float*>(row_sum), dctx,
+      static_cast<float*>(D), dq, dq + d, dq + 2 * d, B, T, T, nh, 3 * d, 3 * d, 3 * d, d, 3 * d,
+      3 * d, 3 * d, reinterpret_cast<cudaStream_t>(stream));
 }

@@ -101,7 +101,7 @@ def build() -> Path:
     tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
     t0 = time.perf_counter()
     nvcc = _nvcc()
-    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"] + ["-Xptxas", "-v"]
     objects = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     try:
@@ -113,6 +113,8 @@ def build() -> Path:
             _, err = proc.communicate()
             if proc.returncode != 0:
                 errors.append(f"nvcc failed on {src.name} ({proc.returncode}):\n{err}")
+            else:
+                _ptxas_log(out, src.stem).write_text(err)
         if errors:
             raise RuntimeError("\n".join(errors))
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objects)]
@@ -126,6 +128,30 @@ def build() -> Path:
     os.replace(tmp, out)
     BUILD_SECONDS = time.perf_counter() - t0
     return out
+
+
+def _ptxas_log(lib: Path, stem: str) -> Path:
+    return lib.with_name(f"{lib.stem}.{stem}.ptxas.txt")
+
+
+def ptxas_report(stem: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel of ``csrc/<stem>.cu`` (mangled name -> registers, spill
+    stores and spill loads in bytes), from ``ptxas -v`` at the build of the
+    current library."""
+    report: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in _ptxas_log(build(), stem).read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            report[name] = {"registers": 0, "spill_stores": 0, "spill_loads": 0}
+        elif name and "spill stores" in line:
+            parts = line.replace(",", " ").split()
+            report[name]["spill_stores"] = int(parts[parts.index("spill") - 2])
+            report[name]["spill_loads"] = int(parts[-4])
+        elif name and "Used" in line and "registers" in line:
+            parts = line.replace(",", " ").split()
+            report[name]["registers"] = int(parts[parts.index("registers") - 1])
+    return report
 
 
 def _load() -> ctypes.CDLL:
@@ -173,9 +199,9 @@ def _load() -> ctypes.CDLL:
         lib.avsr_bahdanau_attend_bwd.restype = i
         lib.avsr_encoder_attn_smem.argtypes = [i, i]
         lib.avsr_encoder_attn_smem.restype = ctypes.c_longlong
-        lib.avsr_encoder_attn_fwd.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.avsr_encoder_attn_fwd.argtypes = [p] * 5 + [i] * 4 + [p]
         lib.avsr_encoder_attn_fwd.restype = i
-        lib.avsr_encoder_attn_bwd.argtypes = [p] * 5 + [i] * 4 + [p]
+        lib.avsr_encoder_attn_bwd.argtypes = [p] * 7 + [i] * 4 + [p]
         lib.avsr_encoder_attn_bwd.restype = i
         lib.avsr_conformer_conv_smem.argtypes = [i, i]
         lib.avsr_conformer_conv_smem.restype = ctypes.c_longlong
@@ -766,11 +792,16 @@ def bahdanau_attend_bwd(query, wq, v, keys, values, weights, dctx):
     return dquery, dq, dv_rows, dkeys, dvalues
 
 
-def _check_encoder_attention(qkv, dev):
+ENCODER_ATTENTION_DH = 64  # the head width K11 is built for (DH in the source)
+
+
+def _check_encoder_attention(qkv, lengths, dev):
     B, T, _, nh, dh = qkv.shape
     _check("qkv", qkv, torch.bfloat16, (B, T, 3, nh, dh), dev)
-    if dh % 8:
-        raise ValueError(f"encoder attention: head dim {dh} must be a multiple of 8")
+    _check("lengths", lengths, torch.int32, (B,), dev, align=4)
+    if dh != ENCODER_ATTENTION_DH:
+        raise ValueError(f"encoder attention: head dim {dh}; the kernel is built for "
+                         f"{ENCODER_ATTENTION_DH}")
     if not 1 <= T <= ATTEND_MAX_S:
         raise ValueError(f"encoder attention: T={T}; the kernel takes 1 <= T <= {ATTEND_MAX_S}")
     smem = _load().avsr_encoder_attn_smem(T, dh)
@@ -781,46 +812,52 @@ def _check_encoder_attention(qkv, dev):
 
 
 def encoder_attention_fwd(qkv, lengths, *, save: bool = False):
-    """K11: the transformer encoder's self-attention core, forward (CUDA).
+    """K11: the transformer encoder's self-attention core, forward (CUDA,
+    tensor cores).
 
-    qkv [B,T,3,nh,dh] bf16 (the one [d, 3d] product, read in place as the
+    qkv [B,T,3,nh,64] bf16 (the one [d, 3d] product, read in place as the
     q, k and v views), lengths [B] int32 (the keys' valid counts) -> (ctx
-    [B,T,nh,dh] bf16, weights [B,nh,T,T] f32 when ``save`` (the backward's
-    residual), else None).
+    [B,T,nh,64] bf16, the softmax's row statistics (row_max, row_sum), fp32
+    [B,nh,T] each, when ``save`` (the backward's residual), else None).
     """
     dev = qkv.device
-    B, T, nh, dh = _check_encoder_attention(qkv, dev)
-    _check("lengths", lengths, torch.int32, (B,), dev, align=4)
+    B, T, nh, dh = _check_encoder_attention(qkv, lengths, dev)
     lib = _load()
-    P = torch.empty((B, nh, T, T), dtype=torch.float32, device=dev) if save else None
+    stats = tuple(torch.empty((B, nh, T), dtype=torch.float32, device=dev)
+                  for _ in range(2)) if save else None
     ctx = torch.empty((B, T, nh, dh), dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.avsr_encoder_attn_fwd(qkv.data_ptr(), lengths.data_ptr(),
-                                    None if P is None else P.data_ptr(), ctx.data_ptr(),
-                                    B, T, nh, dh, stream)
+                                    *((None, None) if stats is None else map(_ptr, stats)),
+                                    ctx.data_ptr(), B, T, nh, dh, stream)
     _raise_on(err, "encoder_attention_fwd launch")
     LAUNCHES["encoder_attention_fwd"] += 1
-    return ctx, P
+    return ctx, stats
 
 
-def encoder_attention_bwd(qkv, weights, dctx):
-    """K11: the transformer encoder's self-attention core, backward (CUDA).
+def encoder_attention_bwd(qkv, lengths, row_max, row_sum, dctx):
+    """K11: the transformer encoder's self-attention core, backward (CUDA,
+    tensor cores).
 
-    The forward's qkv [B,T,3,nh,dh] bf16, its saved fp32 weights
-    [B,nh,T,T] and the context cotangent dctx [B,T,nh,dh] bf16 -> dqkv
-    [B,T,3,nh,dh] bf16, the cotangent of the [d, 3d] product (dq, dk and
-    dv written in place into its three views).
+    The forward's qkv [B,T,3,nh,64] bf16, lengths [B] int32 and saved row
+    statistics (fp32 [B,nh,T] each), and the context cotangent dctx
+    [B,T,nh,64] bf16 -> dqkv [B,T,3,nh,64] bf16, the cotangent of the
+    [d, 3d] product (dq, dk and dv written in place into its three views).
+    The weights are recomputed from the statistics; the only scratch is
+    D = rowsum(dP * P), fp32 [B,nh,T].
     """
     dev = qkv.device
-    B, T, nh, dh = _check_encoder_attention(qkv, dev)
-    _check("weights", weights, torch.float32, (B, nh, T, T), dev)
+    B, T, nh, dh = _check_encoder_attention(qkv, lengths, dev)
+    _check("row_max", row_max, torch.float32, (B, nh, T), dev, align=4)
+    _check("row_sum", row_sum, torch.float32, (B, nh, T), dev, align=4)
     _check("dctx", dctx, torch.bfloat16, (B, T, nh, dh), dev)
     lib = _load()
-    dsc = torch.empty((B, nh, T, T), dtype=torch.bfloat16, device=dev)
+    D = torch.empty((B, nh, T), dtype=torch.float32, device=dev)
     dqkv = torch.empty_like(qkv)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.avsr_encoder_attn_bwd(qkv.data_ptr(), weights.data_ptr(), dctx.data_ptr(),
-                                    dsc.data_ptr(), dqkv.data_ptr(), B, T, nh, dh, stream)
+    err = lib.avsr_encoder_attn_bwd(qkv.data_ptr(), lengths.data_ptr(), row_max.data_ptr(),
+                                    row_sum.data_ptr(), dctx.data_ptr(), D.data_ptr(),
+                                    dqkv.data_ptr(), B, T, nh, dh, stream)
     _raise_on(err, "encoder_attention_bwd launch")
     LAUNCHES["encoder_attention_bwd"] += 1
     return dqkv

@@ -25,9 +25,10 @@ FFN and residuals stay torch code, as the reference leaves them to XLA:
   ``encoder_self_attention`` launches ``csrc/encoder_attention.cu`` on the
   one [d, 3d] product, read in place, for GPU tensors and runs
   ``encoder_self_attention_plain`` for CPU tensors.  When a gradient is
-  asked it goes through ``EncoderSelfAttention``: the forward saves its
-  fp32 weights and the backward kernel writes the cotangent of the [d, 3d]
-  product (``encoder_self_attention_bwd_plain`` on the CPU);
+  asked it goes through ``EncoderSelfAttention``: the forward saves the
+  softmax's row statistics, and the backward kernel recomputes the weights
+  from them and writes the cotangent of the [d, 3d] product
+  (``encoder_self_attention_bwd_plain`` on the CPU);
 * K9, the conformer conv module between its two pointwise products
   (``transformer.py:231-266``: bias, GLU, mask, depthwise conv, LayerNorm,
   swish): ``conformer_conv`` launches ``csrc/conformer_conv.cu`` for GPU
@@ -52,7 +53,6 @@ import torch.nn.functional as F
 
 from avsr_tpu_torch import kernels
 from avsr_tpu_torch.configs import EncoderConfig
-from avsr_tpu_torch.models.fusion import fusion_attention_bwd_plain, fusion_attention_fwd_plain
 from avsr_tpu_torch.models.transformer_common import layer_norm, sinusoidal_pe
 from avsr_tpu_torch.utils.params import Params, glorot_uniform, zeros
 from avsr_tpu_torch.utils.rng import dropout_mask
@@ -142,15 +142,39 @@ def _check_policy(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"the {what} kernels run the bf16 policy only, got {x.dtype}")
 
 
+def _attention_scores(qkv: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """fp32 [B,nh,T,T] scores of the [B,T,3,nh,dh] product: float(q.k in the
+    compute dtype) / sqrt(dh) + (1 - valid_key) * -1e9."""
+    q, k = qkv[:, :, 0], qkv[:, :, 1]
+    T, dh = qkv.shape[1], qkv.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(dh)
+    key_valid = (torch.arange(T, device=qkv.device)[None, :] < lengths[:, None]).float()
+    return scores + (1.0 - key_valid)[:, None, None, :] * -1e9
+
+
+def encoder_self_attention_weights(qkv: torch.Tensor, lengths: torch.Tensor,
+                                   row_max: torch.Tensor, row_sum: torch.Tensor) -> torch.Tensor:
+    """The fp32 weights [B,nh,T,T] from the operands and the softmax's saved
+    row statistics [B,nh,T]: exp(s - row_max) / row_sum, the forward's own
+    expression, so the same bits as the forward's weights."""
+    s = _attention_scores(qkv, lengths)
+    return torch.exp(s - row_max[..., None]) / row_sum[..., None]
+
+
 def encoder_self_attention_fwd_plain(qkv: torch.Tensor, lengths: torch.Tensor, *,
                                      save: bool = False):
     """Plain-PyTorch K11 forward: qkv [B,T,3,nh,dh] in the compute dtype (the
     [d, 3d] product), lengths [B] -> (ctx [B,T,nh,dh] in the compute dtype,
-    the fp32 weights [B,nh,T,T] when ``save``, else None).  K4's plain core
-    with T_q = T_k and the stack's own lengths as the key mask."""
-    q, k, v = qkv.unbind(2)
-    ctx, w = fusion_attention_fwd_plain(q, k, v, lengths)
-    return ctx, (w if save else None)
+    the softmax's row statistics (row_max, row_sum), fp32 [B,nh,T] each,
+    when ``save``, else None).  The softmax written out as the kernel takes
+    it: the row max, exp(s - max), the row sum, a division."""
+    s = _attention_scores(qkv, lengths)
+    row_max = s.amax(dim=-1)
+    e = torch.exp(s - row_max[..., None])
+    row_sum = e.sum(dim=-1)
+    w = e / row_sum[..., None]
+    ctx = torch.einsum("bhqk,bkhd->bqhd", w.to(qkv.dtype), qkv[:, :, 2])
+    return ctx, ((row_max, row_sum) if save else None)
 
 
 def encoder_self_attention_plain(qkv: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -158,20 +182,32 @@ def encoder_self_attention_plain(qkv: torch.Tensor, lengths: torch.Tensor) -> to
     return encoder_self_attention_fwd_plain(qkv, lengths)[0]
 
 
-def encoder_self_attention_bwd_plain(qkv: torch.Tensor, weights: torch.Tensor,
+def encoder_self_attention_bwd_plain(qkv: torch.Tensor, lengths: torch.Tensor,
+                                     row_max: torch.Tensor, row_sum: torch.Tensor,
                                      dctx: torch.Tensor) -> torch.Tensor:
-    """Plain-PyTorch K11 backward: the forward's qkv, its fp32 weights
-    [B,nh,T,T] and the context cotangent -> dqkv [B,T,3,nh,dh], the
-    cotangent of the [d, 3d] product.  K4's plain backward (the rounding
-    points of JAX's autodiff) on the three views."""
+    """Plain-PyTorch K11 backward: the forward's qkv and lengths, its row
+    statistics and the context cotangent -> dqkv [B,T,3,nh,dh], the
+    cotangent of the [d, 3d] product.  The weights are recomputed from the
+    statistics; then the rounding points of JAX's autodiff: the P.V and
+    dctx.V^T products return the compute dtype, the scores' cotangent is
+    rounded to it before the q/k products."""
+    cdt = qkv.dtype
     q, k, v = qkv.unbind(2)
-    return torch.stack(fusion_attention_bwd_plain(q, k, v, weights, dctx), dim=2)
+    w = encoder_self_attention_weights(qkv, lengths, row_max, row_sum)
+    dctx = dctx.to(cdt)
+    dv = torch.einsum("bhqk,bqhd->bkhd", w.to(cdt), dctx)
+    dw = torch.einsum("bqhd,bkhd->bhqk", dctx, v).float()
+    ds = w * (dw - (dw * w).sum(dim=-1, keepdim=True))
+    dsc = (ds / math.sqrt(qkv.shape[-1])).to(cdt)
+    dq = torch.einsum("bhqk,bkha->bqha", dsc, k)
+    dk = torch.einsum("bhqk,bqha->bkha", dsc, q)
+    return torch.stack((dq, dk, dv), dim=2)
 
 
 def encoder_self_attention_fwd(qkv: torch.Tensor, lengths: torch.Tensor, *, save: bool):
-    """K11 forward: (ctx, the fp32 weights when ``save``, else None); the
-    CUDA kernel for GPU tensors (bf16 policy), the plain version on the
-    CPU."""
+    """K11 forward: (ctx, the row statistics (row_max, row_sum) when
+    ``save``, else None); the CUDA kernel for GPU tensors (bf16 policy), the
+    plain version on the CPU."""
     if qkv.device.type == "cpu":
         return encoder_self_attention_fwd_plain(qkv, lengths, save=save)
     _check_policy(qkv, "encoder attention")
@@ -179,31 +215,32 @@ def encoder_self_attention_fwd(qkv: torch.Tensor, lengths: torch.Tensor, *, save
                                          save=save)
 
 
-def encoder_self_attention_bwd(qkv: torch.Tensor, weights: torch.Tensor,
-                               dctx: torch.Tensor) -> torch.Tensor:
+def encoder_self_attention_bwd(qkv: torch.Tensor, lengths: torch.Tensor, row_max: torch.Tensor,
+                               row_sum: torch.Tensor, dctx: torch.Tensor) -> torch.Tensor:
     """K11 backward: the CUDA kernel for GPU tensors, the plain twin on the
     CPU; same contract as ``encoder_self_attention_bwd_plain``."""
     if qkv.device.type == "cpu":
-        return encoder_self_attention_bwd_plain(qkv, weights, dctx)
+        return encoder_self_attention_bwd_plain(qkv, lengths, row_max, row_sum, dctx)
     _check_policy(qkv, "encoder attention")
-    return kernels.encoder_attention_bwd(qkv.contiguous(), weights.contiguous(),
+    return kernels.encoder_attention_bwd(qkv.contiguous(), lengths.to(torch.int32).contiguous(),
+                                         row_max.contiguous(), row_sum.contiguous(),
                                          dctx.to(torch.bfloat16).contiguous())
 
 
 class EncoderSelfAttention(torch.autograd.Function):
     """K11 with its gradient: ctx from the [d, 3d] product and the lengths.
-    The forward saves the fp32 weights for the backward."""
+    The forward saves the operands, the lengths and the softmax's row
+    statistics ([B, nh, T] each); the backward recomputes the weights."""
 
     @staticmethod
     def forward(ctx, qkv, lengths):
-        out, w = encoder_self_attention_fwd(qkv, lengths, save=True)
-        ctx.save_for_backward(qkv, w)
+        out, (row_max, row_sum) = encoder_self_attention_fwd(qkv, lengths, save=True)
+        ctx.save_for_backward(qkv, lengths, row_max, row_sum)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        qkv, w = ctx.saved_tensors
-        return encoder_self_attention_bwd(qkv, w, dout), None
+        return encoder_self_attention_bwd(*ctx.saved_tensors, dout), None
 
 
 def encoder_self_attention(qkv: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:

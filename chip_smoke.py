@@ -29,8 +29,10 @@ Phases, in order; any failure exits nonzero before the final line:
 7. K4      — the fusion attention kernels, forward and backward, against
              their plain twins at [B=128, 4 heads, T_a=50, T_v=150,
              A=dv=128] with ragged video lengths including 0: errors on
-             ctx, P, dq, dk, dv; times; and the errors again at the
-             preset's 16 s limit (T_a=133, T_v=400, B=4).
+             ctx, P, dq, dk, dv; times (the backward's library yardstick:
+             scaled_dot_product_attention's backward, as in phase 25); and
+             the errors again at the preset's 16 s limit (T_a=133, T_v=400,
+             B=4).
 8. train   — the full-width ``lrs2_av_fast`` train step at B=128, 6 s,
              label cap 80, AU targets, dropout 0.1, noise mixing on (a
              seeded synthetic two-type bank): (a) the loss and every
@@ -46,7 +48,8 @@ Phases, in order; any failure exits nonzero before the final line:
              dk=dv=64] and cross attention [B=128, Q=80, S=50, dk=128,
              dv=256] under the memory bias, with a row whose every key is
              masked: errors on ctx, P, dq, dk, dv; times; a one-call
-             library yardstick (scaled_dot_product_attention, same mask).
+             library yardstick (scaled_dot_product_attention, same mask)
+             and its backward's, as in phase 25.
 10. K6     — single-query decode attention against its plain twin at N=80
              and N=128, pos 0/37/149 over the self KV cache [L=150, 4x64]
              and over the fast and the v2 model's memories [S=50 and 197,
@@ -96,12 +99,15 @@ Phases, in order; any failure exits nonzero before the final line:
              of the path launched (K8 and K10 forward and backward among
              them); (c) 10 steps at a constant lr 1e-4, the loss falling;
              (d) ms per step, frames/s, peak memory and a profile.
-20. K11    — the transformer encoder's self-attention core against its plain
-             version at [B=128, 8 heads, T=197, dh=64] on one [B, T, 3, 8, 64]
-             product, ragged lengths with a 0-length row (the mean of all
-             values required there), and again at the 16 s limit (T=531,
-             B=4): errors on ctx; times, device time, the bound and the
-             library yardstick (scaled_dot_product_attention, same mask).
+20. K11    — the transformer encoder's self-attention core (tensor cores)
+             against its plain version at [B=128, 8 heads, T=197, dh=64] on
+             one [B, T, 3, 8, 64] product, at the video layer's T=150 and at
+             the 16 s limit (T=531, B=4), ragged lengths with a 0-length row
+             (the mean of all T values required there): errors on ctx, two
+             launches bit-equal; the kernels' registers and spills (ptxas
+             -v: none may spill) and HMMA count (cuobjdump: none may have
+             zero); times, device time, the bound and the library yardstick
+             (scaled_dot_product_attention, same mask).
 21. K9     — the conformer conv module between its pointwise products
              against its plain version at [T=197, B=128, d=512, k=15],
              ragged with a 0-length row, and again at T=531, B=4: errors;
@@ -123,12 +129,13 @@ Phases, in order; any failure exits nonzero before the final line:
              Function of the port may be entered and every decoder step
              must run with autograd off.
 25. K11 bwd — the encoder self-attention backward (and the save-mode
-             forward that writes its weights) against the plain twins at
-             [B=128, 8 heads, T=197, dh=64] and at T=531, B=4, ragged with a
-             0-length row (its dv must be the mean of dctx): errors on
-             ctx, P and dq, dk, dv; times, device time, the bound and the
-             library yardstick (scaled_dot_product_attention's backward,
-             same mask).
+             forward that writes the softmax's row statistics) against the
+             plain twins at phase 20's three shapes, both backwards fed the
+             plain forward's statistics, ragged with a 0-length row (its dv
+             must be the mean of dctx): errors on ctx, the weights the
+             kernel's statistics give, dq, dk, dv; two launches bit-equal;
+             times, device time, the bound and the library yardstick
+             (scaled_dot_product_attention's backward, same mask).
 26. K9 bwd — the conformer conv module's backward against its plain twin at
              [T=197, B=128, d=512, k=15] and at T=531, B=4, ragged with a
              0-length row: errors on du, db_in, ddw, dln_scale, dln_bias,
@@ -142,7 +149,8 @@ Phases, in order; any failure exits nonzero before the final line:
              leaf present, finite and nonzero; (b) every kernel of the path
              launched (K11 and K9 forward and backward among them); (c) 10
              steps at a constant lr 3e-5, the loss falling; (d) ms per step,
-             frames/s, peak memory and a profile.
+             frames/s, peak memory and a profile with K11's share of the
+             device time.
 28. K2     — the one-direction LSTM scan (K1's kernels at G=1, counted
              apart) against the plain twins at [T=197, G=1, B=128 and 8,
              H=256], bf16, ragged with a 0-length row and a nonzero h0/c0
@@ -265,7 +273,8 @@ K11_CTX_TOL = 2e-2
 K9_TOL = 2e-2
 K9_ULP = 2.0 ** -7
 # K11 backward: K4's, for the same reasons (bf16 gradients, relative to the
-# largest plain value); the saved weights as K4's P.
+# largest plain value); the weights that the kernel's saved row statistics
+# give, against the plain ones, as K4's P.
 K11_GRAD_REL_TOL = K4_GRAD_REL_TOL
 # K9 backward, max abs error over max |plain|: du is bf16, and an fp32 sum
 # of the conv's transpose that lands on the other side of dy's bf16
@@ -404,9 +413,11 @@ def busy_share(dev, span):
     return busy, (busy / span if span else 0.0)
 
 
-def profile_report(label, fn, per=1, per_name="call"):
+def profile_report(label, fn, per=1, per_name="call", shares=()):
     """Profile one run of ``fn``: device busy share, device events per
-    ``per_name`` and the device time of the top kernels."""
+    ``per_name``, the device time of the top kernels and, for each (label,
+    name part) of ``shares``, the share of the device's busy time taken by
+    the kernels whose name holds that part."""
     import collections
 
     dev, span = device_events(fn)
@@ -421,6 +432,12 @@ def profile_report(label, fn, per=1, per_name="call"):
           f"{per_name})")
     for name, (n, us) in top:
         print(f"  {us / 1e3:8.3f} ms {n:6d}x  {name[:100]}")
+    for what, part in shares:
+        n = sum(c for name, (c, _) in by_name.items() if part in name)
+        us = sum(t for name, (_, t) in by_name.items() if part in name)
+        print(f"profile {label}: {what} {us / 1e3:.3f} ms of device time over {n} launches "
+              f"({us / 1e3 / per:.3f} ms per {per_name}), share of device busy "
+              f"{us / busy if busy else 0.0:.3f}")
 
 
 def bound(nbytes: float, flops, dtype: str = "bf16"):
@@ -854,11 +871,13 @@ def phase_k4(dev, report):
                 time_ms(lambda: fus.fusion_attention_fwd_plain(q, k, v, vlen)),
                 time_ms(lambda: sdpa(q, k, v, lib_mask))),
         "bwd": (time_ms(lambda: fus.fusion_attention_bwd(q, k, v, w_p, dctx)),
-                time_ms(lambda: fus.fusion_attention_bwd_plain(q, k, v, w_p, dctx)), None),
+                time_ms(lambda: fus.fusion_attention_bwd_plain(q, k, v, w_p, dctx)),
+                sdpa_bwd_device_ms(q, k, v, lib_mask, dctx)),
     }
     for name, (tk, tp, tl) in t.items():
         print(f"K4 {name} [B=128,nh=4,T_a=50,T_v=150,A=128] kernel {tk:.4f} ms  "
-              f"plain {tp:.4f} ms  library {tl if tl is None else round(tl, 4)} ms")
+              f"plain {tp:.4f} ms  library {tl:.4f} ms (bwd: scaled_dot_product_attention's "
+              f"backward, device)")
     pairs = 128 * 4 * 50 * 150
     report["fusion_attention_fwd"] = dict(
         max_abs_err=max(fwd_errs.values()), ms=t["fwd"][0], plain_ms=t["fwd"][1],
@@ -867,14 +886,15 @@ def phase_k4(dev, report):
         bound=bound(nbytes(q, k, v, vlen, ctx_k, w_k), 2 * pairs * 256))
     report["fusion_attention_bwd"] = dict(
         max_abs_err=max(grad_abs.values()), ms=t["bwd"][0], plain_ms=t["bwd"][1],
-        library_ms=None,
+        library_ms=t["bwd"][2],
         device_ms=device_ms(lambda: fus.fusion_attention_bwd(q, k, v, w_p, dctx)),
         bound=bound(nbytes(q, k, v, w_p, dctx, *g_k), 2 * pairs * 512))
 
 
-def phase_train(dev, card, cfg, label="train", needed=TRAIN_KERNELS, lr=1e-4):
+def phase_train(dev, card, cfg, label="train", needed=TRAIN_KERNELS, lr=1e-4, shares=()):
     """The full-width train step of ``cfg``'s model; ``needed`` kernels
-    must launch during its steps, which run at the constant ``lr``."""
+    must launch during its steps, which run at the constant ``lr``;
+    ``shares`` as ``profile_report``'s."""
     import dataclasses
 
     import torch
@@ -962,7 +982,8 @@ def phase_train(dev, card, cfg, label="train", needed=TRAIN_KERNELS, lr=1e-4):
             st, _ = tstep.train_step(st, batch, cfg=cfg_c, optimizer=opt, generator=gen,
                                      noise_bank=bank)
 
-    profile_report(f"{label} (B=128, 3 steps)", three_steps, per=3, per_name="step")
+    profile_report(f"{label} (B=128, 3 steps)", three_steps, per=3, per_name="step",
+                   shares=shares)
     print(f"{label} (d) [{card}] {cfg.name} B=128 6 s: ms/step {[round(x, 3) for x in times]} "
           f"median after 2 warm-up {step_ms:.3f}; {frames_per_step / step_ms * 1e3:.0f} "
           f"10 ms audio frames/s; peak memory {peak / 2**30:.3f} GiB")
@@ -994,7 +1015,7 @@ def phase_k5(dev, report):
 
     shapes = {"self": (80, 80, 64, 64, True), "cross": (80, 50, 128, 256, False)}
     t = {}
-    fwd_err, bwd_err, lib, dms = 0.0, 0.0, {}, {}
+    fwd_err, bwd_err, lib, lib_bwd, dms = 0.0, 0.0, {}, {}, {}
     nb_fwd = nb_bwd = fl = 0
     for name, (Q, S, dk, dv, causal) in shapes.items():
         q, k, v, bias, dctx = k5_inputs(128, Q, S, dk, dv, dev, causal, seed=5)
@@ -1030,11 +1051,13 @@ def phase_k5(dev, report):
                     time_ms(lambda: tdec.decoder_attention_bwd_plain(q, k, v, w_p, dctx))),
         }
         lib[name] = time_ms(lambda: sdpa(q, k, v, mask))
+        lib_bwd[name] = sdpa_bwd_device_ms(q, k, v, mask, dctx)
         dms[name] = (device_ms(lambda: tdec.decoder_attention_fwd(q, k, v, bias, save=True)),
                      device_ms(lambda: tdec.decoder_attention_bwd(q, k, v, w_p, dctx)))
         for d in ("fwd", "bwd"):
             print(f"K5 {name} {d} kernel {t[name][d][0]:.4f} ms  plain {t[name][d][1]:.4f} ms")
-        print(f"K5 {name} library (scaled_dot_product_attention, same mask) {lib[name]:.4f} ms")
+        print(f"K5 {name} library (scaled_dot_product_attention, same mask) {lib[name]:.4f} ms, "
+              f"its backward (device) {lib_bwd[name]:.4f} ms")
         nb_fwd += nbytes(q, k, v, bias, ctx_k, w_k)
         nb_bwd += nbytes(q, k, v, w_p, dctx, *g_k)
         fl += 2 * 128 * 4 * Q * S * (dk + dv)
@@ -1045,7 +1068,8 @@ def phase_k5(dev, report):
         library_ms=lib["self"] + lib["cross"], device_ms=sum(dms[n][0] for n in dms),
         bound=bound(nb_fwd, fl))
     report["decoder_attention_bwd"] = dict(
-        max_abs_err=bwd_err, ms=pair["bwd"][0], plain_ms=pair["bwd"][1], library_ms=None,
+        max_abs_err=bwd_err, ms=pair["bwd"][0], plain_ms=pair["bwd"][1],
+        library_ms=lib_bwd["self"] + lib_bwd["cross"],
         device_ms=sum(dms[n][1] for n in dms), bound=bound(nb_bwd, 2 * fl))
 
 
@@ -1585,6 +1609,11 @@ def phase_k10_bwd(dev, report):
                                          plain_ms=t_p, library_ms=None, device_ms=dms, bound=b)
 
 
+# K11's check shapes: the audio layers at 6 s, the video layer at 6 s, the
+# preset's 16 s limit
+K11_SHAPES = ((128, 197), (128, 150), (4, 531))
+
+
 def k11_inputs(B, T, dev, seed, nh=8, dh=64):
     """One [B, T, 3, nh, dh] bf16 product (q, k, v views) and ragged
     lengths: row 0 full, row 1 of length 0."""
@@ -1597,27 +1626,79 @@ def k11_inputs(B, T, dev, seed, nh=8, dh=64):
     return qkv.to(dev), lens.to(dev)
 
 
+def k11_build_report():
+    """The K11 kernels as built: registers and spills from ``ptxas -v`` and,
+    where ``cuobjdump`` is present, the count of tensor-core (HMMA)
+    instructions in each.  Fails when a kernel spills or has no HMMA."""
+    import os
+    import shutil
+
+    from avsr_tpu_torch import kernels
+
+    kinds = ("attn_mma_fwd", "attn_mma_bwd_q", "attn_mma_bwd_kv")
+    found = {}
+    for name, r in kernels.ptxas_report("encoder_attention").items():
+        kind = next((k for k in kinds if k in name), None)
+        if kind:  # the most registers and the spills of the kind's instances
+            f = found.setdefault(kind, {"registers": 0, "spill_stores": 0, "spill_loads": 0,
+                                        "instances": 0})
+            f["registers"] = max(f["registers"], r["registers"])
+            f["spill_stores"] += r["spill_stores"]
+            f["spill_loads"] += r["spill_loads"]
+            f["instances"] += 1
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(os.path.dirname(kernels._nvcc()),
+                                                          "cuobjdump")
+    if os.path.exists(cuobjdump):
+        sass = subprocess.run([cuobjdump, "-sass", str(kernels.build())], capture_output=True,
+                              text=True, timeout=300).stdout
+        kind = None
+        for kind_ in kinds:
+            found.setdefault(kind_, {})["hmma"] = 0
+        for line in sass.splitlines():
+            if "Function :" in line:
+                kind = next((k for k in kinds if k in line), None)
+            elif kind and "HMMA" in line:
+                found[kind]["hmma"] += 1
+    else:
+        print("K11 build: cuobjdump not found; HMMA count not read")
+    print(f"K11 build (ptxas -v, cuobjdump -sass): {found}")
+    for kind in kinds:
+        r = found.get(kind, {})
+        if "registers" not in r:
+            fail("K11", f"no ptxas report for {kind}")
+        if r["spill_stores"] or r["spill_loads"]:
+            fail("K11", f"{kind} spills registers: {r}")
+        if r.get("hmma", 1) == 0:
+            fail("K11", f"{kind} has no tensor-core (HMMA) instruction")
+    return found
+
+
 def phase_k11(dev, report):
     import torch
 
     from avsr_tpu_torch.models import transformer as tfm
 
-    errs = {}
-    for B, T in ((128, 197), (4, 531)):
+    build = k11_build_report()
+    errs, dms_at = {}, {}
+    for B, T in K11_SHAPES:
         qkv, lens = k11_inputs(B, T, dev, seed=T)
         ctx_k = tfm.encoder_self_attention(qkv, lens)
+        again = tfm.encoder_self_attention(qkv, lens)
         ctx_p = tfm.encoder_self_attention_plain(qkv, lens)
         torch.cuda.synchronize()
         err = max_err(ctx_k, ctx_p)
-        # a row of length 0: the uniform softmax over all T keys
+        same = torch.equal(ctx_k, again)
+        # a row of length 0: the uniform softmax over exactly T keys
         uni = max_err(ctx_k[1], qkv[1, :, 2].float().mean(dim=0).expand_as(ctx_k[1]))
         print(f"K11 [B={B},8 heads,T={T},dh=64] max abs err {err} (tol {K11_CTX_TOL}); length-0 "
-              f"row against the mean of its values: {uni}")
+              f"row against the mean of its T values: {uni}; two launches bit-equal: {same}")
         if not (torch.isfinite(ctx_k.float()).all() and err <= K11_CTX_TOL
-                and uni <= K11_CTX_TOL):
-            fail("K11", f"kernel disagrees with the plain version at T={T}: {err}, "
-                        f"length-0 row {uni}")
-        errs[T] = err
+                and uni <= K11_CTX_TOL and same):
+            fail("K11", f"kernel disagrees with the plain version at B={B}, T={T}: {err}, "
+                        f"length-0 row {uni}, bit-equal reruns {same}")
+        errs[(B, T)] = err
+        if B == 128:
+            dms_at[T] = device_ms(lambda: tfm.encoder_self_attention(qkv, lens))
     qkv, lens = k11_inputs(128, 197, dev, seed=197)
     B, T, _, nh, dh = qkv.shape
     q, k, v = qkv.unbind(2)
@@ -1628,12 +1709,16 @@ def phase_k11(dev, report):
     tp = time_ms(lambda: tfm.encoder_self_attention_plain(qkv, lens))
     tl = time_ms(lambda: sdpa(q, k, v, lib_mask))
     dms = device_ms(lambda: tfm.encoder_self_attention(qkv, lens))
+    tl_dev = device_ms(lambda: sdpa(q, k, v, lib_mask))
     b = bound(nbytes(qkv, lens, ctx), 2 * B * nh * T * T * 2 * dh)
     print(f"K11 [B=128,8 heads,T=197,dh=64] kernel {tk:.4f} ms (device {dms:.4f} ms)  plain "
-          f"{tp:.4f} ms  library (scaled_dot_product_attention, same mask) {tl:.4f} ms  bound "
-          f"{b[0]:.5f} ms ({b[1]})")
-    report["encoder_attention_fwd"] = dict(max_abs_err=max(errs.values()), ms=tk, plain_ms=tp,
-                                           library_ms=tl, device_ms=dms, bound=b)
+          f"{tp:.4f} ms  library (scaled_dot_product_attention, same mask) {tl:.4f} ms (device "
+          f"{tl_dev:.4f} ms)  bound {b[0]:.5f} ms ({b[1]}); device ms at B=128 by T {dms_at}")
+    report["encoder_attention_fwd"] = dict(
+        max_abs_err=max(errs.values()), ms=tk, plain_ms=tp, library_ms=tl, device_ms=dms, bound=b,
+        library_device_ms=tl_dev, device_ms_t150=dms_at[K11_SHAPES[1][1]],
+        registers={kind: r["registers"] for kind, r in build.items()},
+        hmma={kind: r.get("hmma") for kind, r in build.items()})
 
 
 def k9_inputs(B, T, dev, seed, d=512, k=15):
@@ -1694,71 +1779,96 @@ def phase_k9(dev, report):
                                         library_covers="the depthwise conv1d alone")
 
 
-def phase_k11_bwd(dev, report):
+def sdpa_bwd_device_ms(q, k, v, mask, dctx):
+    """The library yardstick of an attention backward: the device time of
+    autograd's forward and backward through scaled_dot_product_attention on
+    the same [B, T, heads, d] operands and additive mask, less its forward's
+    (a difference of host-clocked calls swings with the host's dispatch)."""
     import torch
     import torch.nn.functional as F
 
+    qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+    dct = dctx.transpose(1, 2).contiguous()
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+        torch.autograd.grad(out, (qs, ks, vs), dct)
+
+    with torch.no_grad():
+        t_fwd = device_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask))
+    return device_ms(fwd_bwd) - t_fwd
+
+
+def phase_k11_bwd(dev, report):
+    import torch
+
     from avsr_tpu_torch.models import transformer as tfm
 
-    errs, abs_errs = {}, {}
-    for B, T in ((128, 197), (4, 531)):
+    errs, abs_errs, dms_at = {}, {}, {}
+    for B, T in K11_SHAPES:
         qkv, lens = k11_inputs(B, T, dev, seed=T + 2)
         g = torch.Generator().manual_seed(T + 3)
         dctx = torch.randn((B, T, 8, 64), generator=g).to(torch.bfloat16).to(dev)
-        ctx_k, w_k = tfm.encoder_self_attention_fwd(qkv, lens, save=True)
-        ctx_p, w_p = tfm.encoder_self_attention_fwd_plain(qkv, lens, save=True)
-        g_k = tfm.encoder_self_attention_bwd(qkv, w_p, dctx)
-        g_p = tfm.encoder_self_attention_bwd_plain(qkv, w_p, dctx)
+        ctx_k, st_k = tfm.encoder_self_attention_fwd(qkv, lens, save=True)
+        ctx_k2, st_k2 = tfm.encoder_self_attention_fwd(qkv, lens, save=True)
+        ctx_serve, _ = tfm.encoder_self_attention_fwd(qkv, lens, save=False)
+        ctx_p, st_p = tfm.encoder_self_attention_fwd_plain(qkv, lens, save=True)
+        g_k = tfm.encoder_self_attention_bwd(qkv, lens, *st_p, dctx)
+        g_k2 = tfm.encoder_self_attention_bwd(qkv, lens, *st_p, dctx)
+        g_p = tfm.encoder_self_attention_bwd_plain(qkv, lens, *st_p, dctx)
+        # the weights as the kernel's statistics give them, against the plain ones
+        w_err = max_err(tfm.encoder_self_attention_weights(qkv, lens, *st_k),
+                        tfm.encoder_self_attention_weights(qkv, lens, *st_p))
         torch.cuda.synchronize()
-        fwd = {"ctx": max_err(ctx_k, ctx_p), "P": max_err(w_k, w_p)}
+        same = (torch.equal(ctx_k, ctx_k2) and torch.equal(ctx_k, ctx_serve)
+                and all(torch.equal(a, b) for a, b in zip(st_k, st_k2))
+                and torch.equal(g_k, g_k2))
+        fwd = {"ctx": max_err(ctx_k, ctx_p), "P": w_err,
+               "row_max": max_err(st_k[0], st_p[0]), "row_sum_rel": rel_err(st_k[1], st_p[1])}
         rel = {n: rel_err(g_k[:, :, i], g_p[:, :, i]) for i, n in enumerate(("dq", "dk", "dv"))}
-        # a row of length 0 attends uniformly: each of its values takes the
-        # mean of dctx over the queries
+        # a row of length 0 attends uniformly over its T keys: each of its
+        # values takes the mean of dctx over the queries
         uni = max_err(g_k[1, :, 2], dctx[1].float().mean(dim=0).expand_as(g_k[1, :, 2]))
         print(f"K11 bwd [B={B},8 heads,T={T},dh=64] save-mode forward max abs err {fwd} (tol ctx "
               f"{K11_CTX_TOL}, P {K4_P_TOL}); dqkv relative to max |plain| {rel} (tol "
-              f"{K11_GRAD_REL_TOL}); length-0 row's dv against the mean of dctx: {uni}")
+              f"{K11_GRAD_REL_TOL}); length-0 row's dv against the mean of dctx: {uni}; two "
+              f"launches bit-equal (and the save-mode ctx the serving one's): {same}")
         if not (torch.isfinite(g_k.float()).all() and fwd["ctx"] <= K11_CTX_TOL
                 and fwd["P"] <= K4_P_TOL and max(rel.values()) <= K11_GRAD_REL_TOL
-                and uni <= K11_CTX_TOL):
-            fail("K11 bwd", f"kernels disagree with the plain twins at T={T}: {fwd} {rel} {uni}")
-        errs[T] = max(rel.values())
-        abs_errs[T] = max_err(g_k, g_p)
+                and uni <= K11_CTX_TOL and same):
+            fail("K11 bwd", f"kernels disagree with the plain twins at B={B}, T={T}: {fwd} {rel} "
+                            f"{uni}, bit-equal reruns {same}")
+        errs[(B, T)] = max(rel.values())
+        abs_errs[(B, T)] = max_err(g_k, g_p)
+        if B == 128:
+            dms_at[T] = device_ms(lambda: tfm.encoder_self_attention_bwd(qkv, lens, *st_p, dctx))
     qkv, lens = k11_inputs(128, 197, dev, seed=199)
     B, T, _, nh, dh = qkv.shape
     dctx = torch.randn((B, T, nh, dh), generator=torch.Generator().manual_seed(200))
     dctx = dctx.to(torch.bfloat16).to(dev)
-    _, w = tfm.encoder_self_attention_fwd_plain(qkv, lens, save=True)
-    dqkv = tfm.encoder_self_attention_bwd(qkv, w, dctx)
-    tk = time_ms(lambda: tfm.encoder_self_attention_bwd(qkv, w, dctx))
-    tp = time_ms(lambda: tfm.encoder_self_attention_bwd_plain(qkv, w, dctx))
-    dms = device_ms(lambda: tfm.encoder_self_attention_bwd(qkv, w, dctx))
+    _, st = tfm.encoder_self_attention_fwd_plain(qkv, lens, save=True)
+    dqkv = tfm.encoder_self_attention_bwd(qkv, lens, *st, dctx)
+    tk = time_ms(lambda: tfm.encoder_self_attention_bwd(qkv, lens, *st, dctx))
+    tp = time_ms(lambda: tfm.encoder_self_attention_bwd_plain(qkv, lens, *st, dctx))
+    dms = device_ms(lambda: tfm.encoder_self_attention_bwd(qkv, lens, *st, dctx))
     t_save = time_ms(lambda: tfm.encoder_self_attention_fwd(qkv, lens, save=True))
-    # the library yardstick: the device time of autograd's forward and
-    # backward through scaled_dot_product_attention with the same additive
-    # mask, less its forward's (a difference of host-clocked calls swings
-    # with the host's dispatch)
+    dms_save = device_ms(lambda: tfm.encoder_self_attention_fwd(qkv, lens, save=True))
     lib_mask = ((torch.arange(T, device=dev)[None, :] >= lens[:, None]).float()
                 * -1e9).to(torch.bfloat16)[:, None, None, :]
-    qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in qkv.unbind(2))
-    dct = dctx.transpose(1, 2).contiguous()
-
-    def lib_fwd_bwd():
-        out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=lib_mask)
-        torch.autograd.grad(out, (qs, ks, vs), dct)
-
-    with torch.no_grad():
-        t_lib_fwd = device_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs,
-                                                                     attn_mask=lib_mask))
-    tl = device_ms(lib_fwd_bwd) - t_lib_fwd
-    b = bound(nbytes(qkv, lens, dctx, dqkv), 4 * 2 * B * nh * T * T * dh)
+    tl = sdpa_bwd_device_ms(*qkv.unbind(2), lib_mask, dctx)
+    # the function's five products: the scores (recomputed: its input is the
+    # statistics), dP, dQ, dK and dV
+    b = bound(nbytes(qkv, lens, *st, dctx, dqkv), 5 * 2 * B * nh * T * T * dh)
     print(f"K11 bwd [B=128,8 heads,T=197,dh=64] kernel {tk:.4f} ms (device {dms:.4f} ms)  plain "
           f"{tp:.4f} ms  library (scaled_dot_product_attention backward, same mask, device) "
-          f"{tl:.4f} ms  bound {b[0]:.5f} ms ({b[1]}); the save-mode forward {t_save:.4f} ms")
+          f"{tl:.4f} ms  bound {b[0]:.5f} ms ({b[1]}); the save-mode forward {t_save:.4f} ms "
+          f"(device {dms_save:.4f} ms); device ms at B=128 by T {dms_at}")
     report["encoder_attention_bwd"] = dict(max_abs_err=max(abs_errs.values()), ms=tk, plain_ms=tp,
                                            library_ms=tl, device_ms=dms, bound=b,
                                            max_rel_err=max(errs.values()),
-                                           save_forward_ms=t_save)
+                                           save_forward_ms=t_save,
+                                           save_forward_device_ms=dms_save,
+                                           device_ms_t150=dms_at[K11_SHAPES[1][1]])
 
 
 def phase_k9_bwd(dev, report):
@@ -2212,7 +2322,8 @@ def main() -> int:
                    # 5x on the second step (the loss barely fell over 10);
                    # 3e-5 is about its preset's warmup lr at step 12
                    (27, lambda: paths.update(train_v2=phase_train(
-                       dev, card, v2_cfg, "train_v2", TRAIN_V2_KERNELS, lr=3e-5))),
+                       dev, card, v2_cfg, "train_v2", TRAIN_V2_KERNELS, lr=3e-5,
+                       shares=(("K11 fwd + bwd", "attn_mma"),)))),
                    (28, lambda: phase_k2(dev, report)),
                    (29, lambda: phase_k10_luong(dev, report)),
                    (30, lambda: phase_k8_luong(dev, report)),

@@ -138,3 +138,24 @@ def test_every_kernel_has_its_chip_smoke_entry():
     for src in CSRC:
         if src.suffix == ".cu":
             assert f"avsr_tpu_torch/csrc/{src.name}" in smoke, src.name
+
+
+def test_ptxas_report_reads_registers_and_spills(tmp_path, monkeypatch):
+    """``kernels.ptxas_report`` parses the ``ptxas -v`` log the build keeps
+    beside the library (chip_smoke phase 20 fails a K11 kernel on it)."""
+    lib = tmp_path / "libavsr_kernels_0123.so"
+    (tmp_path / "libavsr_kernels_0123.encoder_attention.ptxas.txt").write_text(
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Z12attn_mma_fwdv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z12attn_mma_fwdv\n"
+        "    112 bytes stack frame, 412 bytes spill stores, 332 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers, 112 bytes cumulative stack size\n"
+        "ptxas info    : Compiling entry function '_Z14attn_mma_bwd_qv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z14attn_mma_bwd_qv\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 125 registers, used 1 barriers, 472 bytes cmem[0]\n")
+    monkeypatch.setattr(kernels, "build", lambda: lib)
+    assert kernels.ptxas_report("encoder_attention") == {
+        "_Z12attn_mma_fwdv": {"registers": 168, "spill_stores": 412, "spill_loads": 332},
+        "_Z14attn_mma_bwd_qv": {"registers": 125, "spill_stores": 0, "spill_loads": 0},
+    }

@@ -159,6 +159,36 @@ def test_attention_plain_matches_jnp(policy):
                                atol=1e-5 if policy == "fp32" else 2e-2)
 
 
+@pytest.mark.parametrize("policy", ["fp32", "bf16"])
+def test_attention_weights_from_saved_statistics(policy):
+    """The forward's save mode keeps the softmax's row statistics, and the
+    weights recomputed from them are the forward's bit for bit: they give
+    the forward's context to the bit, twice over; they are the softmax of
+    the scores (to fp32 rounding; JAX's ``jax.nn.softmax`` in fp32), rows
+    summing to 1, the 0-length row exactly 1/T over its T keys."""
+    jdt, tdt = DTYPES[policy]
+    rng = np.random.default_rng(6)
+    qkv_np = rng.standard_normal((4, 11, 3, 4, 8)).astype(np.float32)
+    qkv = torch.from_numpy(qkv_np).to(tdt)
+    lengths = torch.from_numpy(np.asarray(LENGTHS, np.int32))
+    ctx, (row_max, row_sum) = tfm.encoder_self_attention_fwd_plain(qkv, lengths, save=True)
+    assert torch.equal(ctx, tfm.encoder_self_attention_plain(qkv, lengths))
+    w = tfm.encoder_self_attention_weights(qkv, lengths, row_max, row_sum)
+    assert w.dtype == torch.float32 and tuple(w.shape) == (4, 4, 11, 11)
+    assert torch.equal(torch.einsum("bhqk,bkhd->bqhd", w.to(tdt), qkv[:, :, 2]), ctx)
+    assert torch.equal(w, tfm.encoder_self_attention_weights(qkv, lengths, row_max, row_sum))
+    torch.testing.assert_close(w, torch.softmax(tfm._attention_scores(qkv, lengths), dim=-1),
+                               atol=1e-6, rtol=0)
+    torch.testing.assert_close(w.sum(dim=-1), torch.ones((4, 4, 11)), atol=1e-6, rtol=0)
+    assert torch.equal(w[2], torch.full((4, 11, 11), 1.0 / 11))
+    if policy == "fp32":
+        q, k = jnp.asarray(qkv_np[:, :, 0]), jnp.asarray(qkv_np[:, :, 1])
+        scores = jnp.einsum("bqhd,bkhd->bhqk", q, k) / np.sqrt(8)
+        key_valid = (jnp.arange(11)[None, :] < jnp.asarray(LENGTHS)[:, None]).astype(jnp.float32)
+        want = jax.nn.softmax(scores + (1.0 - key_valid)[:, None, None, :] * -1e9, axis=-1)
+        np.testing.assert_allclose(w.numpy(), np.asarray(want), atol=1e-6, rtol=0)
+
+
 def _jnp_conv_module(u, b_in, dw, ln_scale, ln_bias, lengths):
     """transformer.py:241-264 from the first pointwise product to the
     operand of the second, time-major u [T, B, 2d]."""

@@ -90,9 +90,12 @@ def test_attention_bwd_plain_matches_jax_vjp(policy):
     lengths = np.asarray(LENGTHS, np.int32)
     _, vjp = jax.vjp(lambda x: _jnp_attention(x, jnp.asarray(lengths)), jnp.asarray(qkv, jdt))
     (want,) = vjp(jnp.asarray(dctx, jdt))
-    tq = torch.from_numpy(qkv).to(tdt)
-    _, w = tfm.encoder_self_attention_fwd(tq, torch.from_numpy(lengths), save=True)
-    got = tfm.encoder_self_attention_bwd_plain(tq, w, torch.from_numpy(dctx).to(tdt))
+    tq, tl = torch.from_numpy(qkv).to(tdt), torch.from_numpy(lengths)
+    _, (row_max, row_sum) = tfm.encoder_self_attention_fwd(tq, tl, save=True)
+    assert row_max.dtype == row_sum.dtype == torch.float32
+    assert tuple(row_max.shape) == tuple(row_sum.shape) == (4, 4, 11)
+    got = tfm.encoder_self_attention_bwd_plain(tq, tl, row_max, row_sum,
+                                               torch.from_numpy(dctx).to(tdt))
     assert got.dtype == tdt and tuple(got.shape) == qkv.shape
     want = _f32(want)
     if policy == "fp32":
@@ -104,6 +107,32 @@ def test_attention_bwd_plain_matches_jax_vjp(policy):
     np.testing.assert_allclose(_f32(got)[2, :, 2],
                                np.broadcast_to(dctx[2].mean(0), (11, 4, 8)),
                                atol=1e-5 if policy == "fp32" else 2e-2)
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 2, 8), (3, 11, 4, 8), (2, 17, 1, 16)],
+                         ids=["T5", "T11", "T17_one_head"])
+def test_attention_saves_no_weights(shape):
+    """``EncoderSelfAttention`` keeps for its backward the operands, the
+    lengths and the softmax's row statistics [B, nh, T]: no tensor of the
+    weights' [B, nh, T, T] shape, and nothing of T x T elements."""
+    B, T, nh, dh = shape
+    rng = np.random.default_rng(T)
+    qkv = torch.from_numpy(rng.standard_normal((B, T, 3, nh, dh)).astype(np.float32))
+    qkv.requires_grad_(True)
+    lengths = torch.from_numpy(rng.integers(0, T + 1, size=B))
+    saved = []
+
+    def pack(x):
+        saved.append(x)
+        return x
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda x: x):
+        out = tfm.EncoderSelfAttention.apply(qkv, lengths)
+    assert [tuple(x.shape) for x in saved] == [(B, T, 3, nh, dh), (B,), (B, nh, T), (B, nh, T)]
+    assert saved[0] is qkv and saved[1] is lengths
+    assert all(x.numel() < B * nh * T * T or x is qkv for x in saved)
+    out.backward(torch.ones_like(out))
+    assert qkv.grad is not None and tuple(qkv.grad.shape) == (B, T, 3, nh, dh)
 
 
 def _conv_inputs(k, T=11, d=32, seed=0):
@@ -270,8 +299,8 @@ def test_cpu_autograd_runs_the_plain_twins():
         assert torch.equal(y.detach(), tfm.conformer_conv_plain(*conv_args, lengths))
         y.backward(dout)
     assert att_fn.call_count == att_bwd.call_count == conv_fn.call_count == conv_bwd.call_count == 1
-    _, w = tfm.encoder_self_attention_fwd(qkv, lengths, save=True)
-    assert torch.equal(q.grad, tfm.encoder_self_attention_bwd_plain(qkv, w, dctx))
+    _, stats = tfm.encoder_self_attention_fwd(qkv, lengths, save=True)
+    assert torch.equal(q.grad, tfm.encoder_self_attention_bwd_plain(qkv, lengths, *stats, dctx))
     twin = tfm.conformer_conv_bwd_plain(*conv_args, lengths, dout)
     for leaf, g in zip(leaves, twin):
         assert torch.equal(leaf.grad, g)

@@ -1,0 +1,111 @@
+#!/usr/bin/env python3
+"""Alternate the PyTorch port's full-width train step between checkouts on one card.
+
+    python3 tools/torch_train_ab.py --trees build/parent . --order ABBA --steps 12
+
+Each run is a process of its own started in one checkout (``--trees``, A
+first): it builds that checkout's kernels, makes the ``lrs2_av_v2`` train
+cell of its ``chip_smoke.py`` (B=128, 6 s, label cap 80, noise mixing on,
+constant lr 3e-5), times ``--steps`` train steps on the host clock to a
+synchronise, reads the peak device memory, and profiles three more steps:
+the device's busy time per step and the device time per step of the
+attention kernels by name (``attn_mma``: the tensor-core core;
+``attn_``: any other attention-core kernel).  The runs go in ``--order``
+(A B B A by default), so both checkouts share the card's state; the last
+line is one JSON object with every run's numbers.  Needs a CUDA card; the
+other checkout is typically the parent commit unpacked with ``git archive``
+into a git-ignored directory.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+RUN = r"""
+import collections, json, statistics, sys, time
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from avsr_tpu_torch import kernels
+from avsr_tpu_torch.configs import NoiseConfig, lrs2_av_v2
+from avsr_tpu_torch.data.units import builtin_unit_dict
+from avsr_tpu_torch.train import step as tstep
+import dataclasses
+
+kernels.build()
+dev = torch.device("cuda", 0)
+cfg = lrs2_av_v2().replace(noise=NoiseConfig(enabled=True))
+cfg = cfg.replace(train=dataclasses.replace(cfg.train, lr_schedule="constant", learning_rate=3e-5))
+V = builtin_unit_dict(cfg.data.unit).vocab_size
+batch, frames = cs.train_batch(cfg, V, dev)
+bank = cs.noise_bank(cfg, dev)
+state, opt = tstep.create_train_state(cfg, V, torch.Generator().manual_seed(0), dev)
+gen = torch.Generator().manual_seed(11)
+torch.cuda.synchronize()
+torch.cuda.reset_peak_memory_stats()
+times = []
+for _ in range(STEPS):
+    t0 = time.perf_counter()
+    state, _ = tstep.train_step(state, batch, cfg=cfg, optimizer=opt, generator=gen,
+                                noise_bank=bank)
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t0) * 1e3)
+peak = torch.cuda.max_memory_allocated()
+
+def three():
+    st = state
+    for _ in range(3):
+        st, _ = tstep.train_step(st, batch, cfg=cfg, optimizer=opt, generator=gen,
+                                 noise_bank=bank)
+
+ev, span = cs.device_events(three)
+busy, share = cs.busy_share(ev, span)
+by = collections.defaultdict(float)
+for s, e, name in ev:
+    by["attn_mma" if "attn_mma" in name else "attn_" if "attn_" in name else "other"] += e - s
+print(json.dumps({"step_ms": times, "peak_gib": peak / 2**30, "busy_ms_per_step": busy / 3e3,
+                  "busy_share": share, "events_per_step": len(ev) / 3,
+                  "attn_mma_ms_per_step": by["attn_mma"] / 3e3,
+                  "attn_other_ms_per_step": by["attn_"] / 3e3}))
+"""
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--trees", nargs=2, required=True, help="checkout A, checkout B")
+    ap.add_argument("--order", default="ABBA")
+    ap.add_argument("--steps", type=int, default=12)
+    args = ap.parse_args()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    print(card)
+    runs = []
+    for which in args.order:
+        tree = args.trees["AB".index(which)]
+        res = subprocess.run([sys.executable, "-c", RUN.replace("STEPS", str(args.steps))],
+                             cwd=tree, capture_output=True, text=True, env=dict(os.environ))
+        if res.returncode != 0:
+            print(res.stderr[-4000:], file=sys.stderr)
+            return 1
+        r = json.loads(res.stdout.strip().splitlines()[-1])
+        after = r["step_ms"][2:]  # two warm-up steps
+        r.update(tree=tree, which=which, median_ms=statistics.median(after),
+                 quartiles_ms=statistics.quantiles(after, n=4))
+        print(f"{which} ({tree}): median {r['median_ms']:.3f} ms per step (quartiles "
+              f"{r['quartiles_ms'][0]:.3f}-{r['quartiles_ms'][2]:.3f}), peak "
+              f"{r['peak_gib']:.3f} GiB, device busy {r['busy_ms_per_step']:.3f} ms per step "
+              f"(share {r['busy_share']:.3f}, {r['events_per_step']:.1f} events), attention "
+              f"kernels: attn_mma {r['attn_mma_ms_per_step']:.3f} ms, other "
+              f"{r['attn_other_ms_per_step']:.3f} ms per step", flush=True)
+        runs.append(r)
+    print(json.dumps({"card": card, "runs": runs}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
