@@ -1,10 +1,9 @@
-// Multi-head attention over a short key axis, forward and backward, shared
-// by K4 (cross_attention.cu: the fusion's audio queries over video keys)
-// and K5 (decoder_attention.cu: the teacher-forced decoder's causal self
-// attention and its cross attention over the fused memory), the kernels
-// standing for avsr_tpu/models/fusion.py:226-235 and
-// avsr_tpu/models/transformer_decoder.py:305.  The two
-// differ only in the additive mask of the scores, a functor here:
+// Multi-head attention over a short key axis, forward and backward, on
+// CUDA-core FMAs: K5's (decoder_attention.cu: the teacher-forced decoder's
+// causal self attention and its cross attention over the fused memory),
+// the kernels standing for avsr_tpu/models/transformer_decoder.py:305.  The
+// two instances differ only in the additive mask of the scores, a functor
+// here:
 //
 //   s[i, j]  = float(bf16(q_i . k_j)) / sqrt(A) + mask(b, i, j)
 //   P[i, :]  = softmax(s[i, :])                       (fp32)
@@ -42,7 +41,8 @@
 // sums are taken in a fixed order: the same bits every run.  The products
 // are CUDA-core fp32 FMAs on bf16-rounded operands (the reference's
 // numerics): the FMA issue rate bounds them.  attention_mma.cuh is the
-// tensor-core core that replaces this one, kernel by kernel.
+// tensor-core core that replaced this one for K11 and K4; K5 moves onto its
+// streamed tiles by its mask.
 
 #pragma once
 
@@ -147,16 +147,6 @@ __device__ __forceinline__ void weights_by_rows(const float* w_s, int wstride, i
       if (grp * 4 + ii < n_rows) store(grp * 4 + ii, cp, a0[ii], a1[ii]);
   }
 }
-
-// (1 - valid_j) * -1e9 from per-utterance lengths: the key-padding mask of
-// the fusion (K4, the video lengths)
-struct LengthMask {
-  const int* len;
-  __device__ float operator()(int b, int, int j) const {
-    const float invalid = j < len[b] ? 0.f : 1.f;
-    return invalid * -1e9f;
-  }
-};
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll

@@ -1,72 +1,96 @@
 // Multi-head attention over one utterance's keys on the H100's tensor cores
 // (mma.sync m16n8k16, bf16 operands, fp32 accumulators), forward and
-// backward.  K11 (encoder_attention.cu: the transformer encoder's self
-// attention, avsr_tpu/models/transformer.py:204-224) runs on it; the mask is
-// a functor, so the other attention cores (K4, K5, still on
-// attention_core.cuh) can move onto it by their mask alone.  It computes,
-// per (utterance b, head h), with DH the head width:
+// backward, with the mask a functor.  K11 (encoder_attention.cu: the
+// transformer encoder's self attention, avsr_tpu/models/transformer.py:204-224)
+// and K4 (cross_attention.cu: the fusion's audio queries over video keys,
+// avsr_tpu/models/fusion.py:226-235) run on it; K5, still on
+// attention_core.cuh, can move onto it by its mask alone.  It computes, per
+// (utterance b, head h), with DK the width of q and k and DV the width of v
+// and ctx:
 //
-//   s[i, j]  = float(bf16(q_i . k_j)) / sqrt(DH) + mask(b, i, j)        (fp32)
+//   s[i, j]  = float(bf16(q_i . k_j)) / sqrt(DK) + mask(b, i, j)        (fp32)
 //   P[i, :]  = softmax(s[i, :])     (fp32: max, expf(s - max), sum, divide)
 //   ctx[i]   = bf16(sum_j bf16(P[i, j]) * v_j)              (fp32 accumulate)
 //
 // and, with the rounding points of JAX's autodiff of those lines,
 //
 //   dP  = bf16(dctx @ V^T);  D_i = sum_j dP[i, j] * P[i, j]
-//   dsc = bf16(P * (dP - D) / sqrt(DH))
+//   dsc = bf16(P * (dP - D) / sqrt(DK))
 //   dQ  = bf16(dsc @ K);  dK = bf16(dsc^T @ Q);  dV = bf16(bf16(P)^T @ dctx)
 //
 // The mask is ADDED, never used to skip a key, so a row whose every key is
 // masked gets the uniform softmax over its Tk keys.  Key columns the tiles
 // pad past Tk take s = -inf, P = 0: they are not keys.
 //
-// What bounds it on an H100: K11 at B = 128, 8 heads, T = 197, DH = 64
-// reads 77.5 MB and writes 25.8 MB forward (~31 us at 3.35 TB/s) for 10.2
-// GFLOP (~10 us at 989 TFLOP/s); the backward reads q, k, v, dctx and the
-// row statistics and writes dq, dk, dv, ~183 MB (~55 us), for 20.3 GFLOP of
-// the function's own products plus the recomputed scores.  Both are
-// byte-bound at the tensor cores' rate, where the CUDA-core FMAs of
-// attention_core.cuh, which this replaces for K11, bound that core by
-// their issue rate.
+// What bounds it on an H100: bytes.  K11 at B = 128, 8 heads, T = 197,
+// DK = DV = 64 reads 77.5 MB and writes 25.8 MB forward (~31 us at 3.35
+// TB/s) for 10.2 GFLOP (~10 us at 989 TFLOP/s); K4 at B = 128, 4 heads,
+// T_a = 50, T_v = 150, DK = DV = 128 moves 67.8 MB forward, 15.4 MB of it
+// the fp32 weights the module's alignments read (~20 us), for 1.2 GFLOP.
+// The backwards read q, k, v, dctx and the row statistics and write dq,
+// dk, dv.  What the kernels spend is latency: few warps per SM (registers),
+// dependent mma chains, the softmax's arithmetic.
 //
-// Design.  Every product is an mma.sync on fragments loaded by ldmatrix
-// (.trans where the k axis of the B operand runs along the rows of the
-// staged tile) from tiles staged by 16-byte cp.async into shared memory
+// Common design.  Every product is an mma.sync on fragments loaded by
+// ldmatrix (.trans where the k axis of the B operand runs along the rows of
+// the staged tile) from tiles staged by 16-byte cp.async into shared memory
 // whose 16-byte chunks are XOR-swizzled by row (conflict-free ldmatrix);
-// rows at or beyond the valid count are zero-filled.  q, k, v and dctx are
-// read through row strides, so K11 reads them in place from its one
-// [B, T, 3, nh, DH] product; dq, dk and dv are written the same way.
+// rows at or beyond the valid count are zero-filled.  A block owns 64 rows
+// (4 warps of 16): queries forward and in the backward's launch 1, keys in
+// launch 2.  A warp's scores stay in registers as mma C fragments; the
+// exact two-pass softmax reduces over the quad's lanes (shfl_xor 1, 2), so
+// a row never leaves its warp; bf16(P) is repacked from the C fragments
+// into the A fragments of the P.V product in registers.  The save mode
+// writes the row max and the row sum, fp32 [B, nh, Tq] each: the
+// backward's residual, in place of the weights.  The backward is two
+// launches and no [B, nh, Tq, Tk] tensor: launch 1 takes P from q, k, the
+// mask and the saved statistics with exactly the forward's expression and
+// fragment order (the forward's P bit for bit), forms dP, writes D (fp32
+// [B, nh, Tq]) and sums dQ = dsc.K; launch 2 forms s, P and dP for its keys
+// with the forward's operand roles (queries as the A operand), dsc from D,
+// and transposes bf16(P) and dsc in registers (movmatrix) into the A
+// fragments of dV += bf16(P)^T.dctx and dK += dsc^T.Q.  Every output row
+// has one owner block and every sum a fixed order, with no atomics: a run
+// gives the same bits every time.  Divisions are div_row, a corrected
+// product with the reciprocal, not div.rn's per-element range check and
+// slow-path branch (exact products where sqrt(DK) is a power of two).
 //
-// * Forward, one block of 4 warps per (b, h, 64 queries); K and V of the
-//   (b, h) staged once per block (V's copy in flight while the scores are
-//   formed).  A warp owns 16 query rows across all keys: its scores stay in
-//   registers as mma C fragments (KC = 13 steps of 16 keys, 104 floats a
-//   thread: T <= 208 in one pass, an instance of its own in which the q
-//   fragments die after the scores); the exact two-pass softmax reduces
-//   over the quad's lanes (shfl_xor 1, 2), so a row never leaves its warp;
-//   bf16(P) is repacked from the C fragments into the A fragments of the
-//   P.V product in registers.  Past 208 keys the scores are taken in
-//   chunks of 208: a max pass, a sum pass and a P.V pass, each recomputing
-//   q.k^T (the T = 531 limit: three chunks).  The save mode writes the row
-//   max and the row sum, fp32 [B, nh, Tq] each: the backward's residual,
-//   in place of the weights.  P's division by the row sum is div_row, an
-//   exact division without div.rn's slow-path branch.
-// * Backward, two launches and no [B, nh, Tq, Tk] tensor.  Launch 1, per
-//   (b, h, 64 queries), takes P from q, k, the mask and the saved row
-//   statistics with exactly the forward's expression and fragment order
-//   (so it is the forward's P bit for bit), forms dP and sums D over the
-//   row, writes D (fp32 [B, nh, Tq]), then passes over the keys again to
-//   form dsc in registers and sum dQ = dsc.K.  Launch 2, per (b, h, 64
-//   keys), loops over all queries: it forms s, P and dP for its keys with
-//   the forward's operand roles (queries as the A operand), dsc from D,
-//   transposes bf16(P) and dsc in registers (movmatrix) into the A
-//   fragments of dV += bf16(P)^T.dctx and dK += dsc^T.Q.  Every output row
-//   has one owner block and every sum a fixed order, with no atomics: a
-//   run gives the same bits every time.
+// Two families share that arithmetic, by what they stage:
 //
-// Shared memory, DH = 64, Tp = T rounded up to 16: forward (64 + 2 Tp) *
-// 128 B (61 KB at T = 197, 147 KB at T = 531); launch 1 (128 + 2 Tp) * 128
-// B; launch 2 (128 + 2 Tp) * 128 + 16 Tp B (164 KB at T = 531).
+// * Whole rows (attn_mma_*; K11, DK = DV = DH = 64).  K and V of the
+//   (b, h), or the backward key launch's Q and dctx, are staged whole, once
+//   per block (forward: V's copy in flight while the scores are formed).
+//   The forward holds KC = 13 steps of 16 keys (T <= 208 in one pass, an
+//   instance of its own in which the q fragments die after the scores);
+//   longer rows take a max, a sum and a P.V pass per 208-key chunk, each
+//   recomputing q.k^T (the T = 531 limit: three chunks).  Launch 2 holds
+//   its keys' B fragments.  Shared memory grows with T: DH = 64, Tp = T
+//   rounded up to 16: forward (64 + 2 Tp) * 128 B (61 KB at T = 197, 147 KB
+//   at T = 531); launch 1 (128 + 2 Tp) * 128 B; launch 2 (128 + 2 Tp) * 128
+//   + 16 Tp B (164 KB at T = 531).
+// * Streamed tiles (attn_mma_stream_*; K4, (DK, DV) = (128, 128) and (128,
+//   64)).  Whole rows of 128-wide K and V do not fit at the presets' 16 s
+//   limits (the forward would need 221 KB at T_v = 400, launch 2 320 KB at
+//   T_a = 531), so the operand a block runs over (keys and values forward
+//   and in launch 1, queries, dctx and their rows' statistics in launch 2)
+//   passes through a ring of two slots of 64-row tiles, each fetched one
+//   tile ahead of its use: shared memory is the same at any T (48 KB
+//   forward, 96 and 98 KB for the backward's launches at 128 / 128), and
+//   any T is taken.  The forward holds HELD steps of 16 keys in registers
+//   (fitted to the row: K4's 10 for T_v = 150), each of K and V streaming
+//   once; bf16(P) is packed into the P.V fragments before the values arrive,
+//   so q's fragments and the fp32 scores are dead by then (at 128 the
+//   scores' 80 floats and ctx's 64 are never live together).  Past that the
+//   keys stream three times, q.k^T recomputed a tile at a time: the max,
+//   the sum, then P and P.V with each key tile followed by its value tile.
+//   The weights P (fp32 [B, nh, Tq, Tk], K4's alignments) are written from
+//   the registers when asked for.  Launch 1 streams each key tile with its
+//   value tile twice (D, then dQ); launch 2 streams each query tile once and
+//   reads its own keys' fragments from shared memory at each step, so only
+//   the dK and dV accumulators (128 floats at 128 / 128) stay in registers.
+//   With 128-wide heads the whole-row design's shared memory would also
+//   halve the blocks per SM; with K11's 64-wide ones the streamed design
+//   read slower on the card (PERF.md §6, PR 10), so each keeps its own.
 
 #pragma once
 
@@ -88,16 +112,19 @@ __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000u);
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
-// e / l for the weights of a softmax row (0 <= e <= 1 <= l), with y the
-// correctly rounded 1 / l: one Markstein correction of e * y, which is the
-// correctly rounded quotient while the remainder e - l q stays a normal
-// number (quotients above ~2^-100; a tinier weight may differ in its last
-// place), without div.rn's per-element range check and slow-path branch.
-// tools/torch_k11_division_ab.py times K11 with it against IEEE e / l and
-// counts the quotients where the two differ.
-__device__ __forceinline__ float div_row(float e, float l, float y) {
-  const float q = __fmul_rn(e, y);
-  return __fmaf_rn(__fmaf_rn(-l, q, e), y, q);
+// x / y with r the correctly rounded 1 / y: one Markstein correction of
+// x * r, without div.rn's per-element range check and slow-path branch.
+// It divides each weight by its row sum (0 <= x <= 1 <= y) and, at a head
+// width whose square root is not a power of two, the scores and their
+// cotangents by sqrt(DK).  It is the correctly rounded quotient while the
+// remainder x - y q stays a normal number: for the weights, quotients above
+// ~2^-100; by sqrt(128), IEEE's bits for every bf16 x and for random fp32
+// x wherever the quotient is above 1e-30 (tools/check_div_row.py).
+// tools/torch_k11_division_ab.py times K11 with it against IEEE division
+// and counts the weights where the two differ.
+__device__ __forceinline__ float div_row(float x, float y, float r) {
+  const float q = __fmul_rn(x, r);
+  return __fmaf_rn(__fmaf_rn(-y, q, x), r, q);
 }
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -113,6 +140,11 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(valid ? 16 : 0));
+}
+// 4 bytes global -> shared; zero-filled (nothing read) when !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
@@ -147,51 +179,52 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint3
 }
 
 // ---- staged tiles ----------------------------------------------------------
-// A tile is rows of DH bf16; chunk c (8 elements, 16 bytes) of row r sits at
+// A tile is rows of D bf16; chunk c (8 elements, 16 bytes) of row r sits at
 // chunk c ^ (r & 7), so the 8 rows one ldmatrix reads hit 8 bank groups.
 
-template <int DH>
+template <int D>
 __device__ __forceinline__ int swz(int row, int chunk) {
-  return row * DH + ((chunk ^ (row & 7)) << 3);
+  return row * D + ((chunk ^ (row & 7)) << 3);
 }
 
 // rows [0, n_rows) at `ld` elements apart in device memory into a swizzled
 // tile; rows >= n_valid are zero.
-template <int DH>
+template <int D>
 __device__ __forceinline__ void stage(bf16* dst, const bf16* src, size_t ld, int n_rows,
                                       int n_valid) {
-  constexpr int CPR = DH / 8;
+  constexpr int CPR = D / 8;
   for (int c = threadIdx.x; c < n_rows * CPR; c += THREADS) {
     const int r = c / CPR, ch = c % CPR;
     const bool ok = r < n_valid;
-    cp_async16(dst + swz<DH>(r, ch), ok ? src + (size_t)r * ld + ch * 8 : src, ok);
+    cp_async16(dst + swz<D>(r, ch), ok ? src + (size_t)r * ld + ch * 8 : src, ok);
   }
 }
 
 // A fragment: tile rows r0..r0+15 (m) by columns 16 kd..16 kd+15 (k)
-template <int DH>
+template <int D>
 __device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int r0, int kd,
                                        int lane) {
-  ldsm_x4(a, tile + swz<DH>(r0 + (lane & 15), 2 * kd + (lane >> 4)));
+  ldsm_x4(a, tile + swz<D>(r0 + (lane & 15), 2 * kd + (lane >> 4)));
 }
 // B fragments of two n-tiles whose n runs along tile rows n0..n0+15 and k
 // along columns 16 kd..16 kd+15: {b0, b1} of rows n0..n0+7, then n0+8..n0+15
-template <int DH>
+template <int D>
 __device__ __forceinline__ void load_b(uint32_t (&b)[4], const bf16* tile, int n0, int kd,
                                        int lane) {
-  ldsm_x4(b, tile + swz<DH>(n0 + (lane & 7) + ((lane >> 4) << 3), 2 * kd + ((lane >> 3) & 1)));
+  ldsm_x4(b, tile + swz<D>(n0 + (lane & 7) + ((lane >> 4) << 3), 2 * kd + ((lane >> 3) & 1)));
 }
 // B fragments of two n-tiles whose k runs along tile rows k0..k0+15 and n
 // along columns 16 np..16 np+15: {b0, b1} of columns 16 np..+7, then +8..+15
-template <int DH>
+template <int D>
 __device__ __forceinline__ void load_bt(uint32_t (&b)[4], const bf16* tile, int k0, int np,
                                         int lane) {
-  ldsm_x4_trans(b, tile + swz<DH>(k0 + (lane & 7) + (((lane >> 3) & 1) << 3),
+  ldsm_x4_trans(b, tile + swz<D>(k0 + (lane & 7) + (((lane >> 3) & 1) << 3),
                                   2 * np + (lane >> 4)));
 }
 
 // (1 - valid_j) * -1e9 from per-utterance key counts: the key-padding mask
-// of the encoder's self attention (K11, the stack's own lengths).  A mask
+// of the encoder's self attention (K11, the stack's own lengths) and of the
+// fusion (K4, the video lengths).  A mask
 // functor's at(b) gives the additive mask (i, j) -> float of utterance b.
 struct LengthMask {
   const int* len;
@@ -222,10 +255,27 @@ __device__ __forceinline__ void product2(float (&acc)[2][4], const uint32_t (&a)
   }
 }
 
+// the scale of the scores: sqrt(DK) and its correctly rounded reciprocal
+struct Scale {
+  float sq, r;
+};
+template <int DK>
+__device__ __forceinline__ Scale scale() {
+  const float sq = sqrtf((float)DK);
+  return Scale{sq, __frcp_rn(sq)};
+}
+// x / sqrt(DK): x * r, exact, where sqrt(DK) is a power of two (K11's 8),
+// else div_row
+template <int DK>
+__device__ __forceinline__ float unscale(float x, Scale sc) {
+  constexpr bool pow2 = DK == 4 || DK == 16 || DK == 64 || DK == 256;
+  return pow2 ? x * sc.r : div_row(x, sc.sq, sc.r);
+}
+
 // s of query i, key j from the q.k accumulator; keys >= Tk are padding
-template <typename Row>
-__device__ __forceinline__ float score(float acc, int i, int j, int Tk, float sq, const Row& m) {
-  return j < Tk ? round_bf16(acc) / sq + m(i, j) : neg_inf();
+template <int DK, typename Row>
+__device__ __forceinline__ float score(float acc, int i, int j, int Tk, Scale sc, const Row& m) {
+  return j < Tk ? unscale<DK>(round_bf16(acc), sc) + m(i, j) : neg_inf();
 }
 
 // the A fragment of a 16x16 product from the C fragments of its two 16x8
@@ -260,7 +310,7 @@ template <int DH, typename Row>
 __device__ __forceinline__ void score_chunk(float (&s)[KC][2][4],
                                             const uint32_t (&qa)[DH / 16][4],
                                             const bf16* k_s, int c, int nks, int i_g, int Tk,
-                                            float sq, const Row& m, int lane) {
+                                            Scale sc, const Row& m, int lane) {
 #pragma unroll
   for (int kk = 0; kk < KC; ++kk) {
     const int ks = c * KC + kk;
@@ -274,8 +324,8 @@ __device__ __forceinline__ void score_chunk(float (&s)[KC][2][4],
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          s[kk][nt][e] = score(acc[nt][e], i_g + 8 * (e >> 1),
-                               ks * 16 + nt * 8 + 2 * (lane & 3) + (e & 1), Tk, sq, m);
+          s[kk][nt][e] = score<DH>(acc[nt][e], i_g + 8 * (e >> 1),
+                               ks * 16 + nt * 8 + 2 * (lane & 3) + (e & 1), Tk, sc, m);
     }
   }
 }
@@ -310,7 +360,7 @@ attn_mma_fwd(const bf16* __restrict__ q,  // [B, Tq, nh, DH], rows ldq apart
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int i_g = i0 + warp * 16 + (lane >> 2);  // this thread's rows: i_g, i_g + 8
   const bool active = i0 + warp * 16 < Tq;
-  const float sq = sqrtf((float)DH);
+  const Scale sc = scale<DH>();
   const auto m = mask.at(b);
   const int nch = ONE ? 1 : (nks + KC - 1) / KC;
   uint32_t qa[DH / 16][4];
@@ -320,7 +370,7 @@ attn_mma_fwd(const bf16* __restrict__ q,  // [B, Tq, nh, DH], rows ldq apart
 #pragma unroll
     for (int kd = 0; kd < DH / 16; ++kd) load_a<DH>(qa[kd], q_s, warp * 16, kd, lane);
     for (int c = 0; c < nch; ++c) {
-      score_chunk<DH>(s, qa, k_s, c, nks, i_g, Tk, sq, m, lane);
+      score_chunk<DH>(s, qa, k_s, c, nks, i_g, Tk, sc, m, lane);
 #pragma unroll
       for (int kk = 0; kk < KC; ++kk)
         if (c * KC + kk < nks)
@@ -332,7 +382,7 @@ attn_mma_fwd(const bf16* __restrict__ q,  // [B, Tq, nh, DH], rows ldq apart
     mx[0] = quad_max(mx[0]);
     mx[1] = quad_max(mx[1]);
     for (int c = 0; c < nch; ++c) {
-      if (nch > 1) score_chunk<DH>(s, qa, k_s, c, nks, i_g, Tk, sq, m, lane);
+      if (nch > 1) score_chunk<DH>(s, qa, k_s, c, nks, i_g, Tk, sc, m, lane);
 #pragma unroll
       for (int kk = 0; kk < KC; ++kk)
         if (c * KC + kk < nks)
@@ -359,7 +409,7 @@ attn_mma_fwd(const bf16* __restrict__ q,  // [B, Tq, nh, DH], rows ldq apart
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
   for (int c = 0; c < nch; ++c) {
-    if (nch > 1) score_chunk<DH>(s, qa, k_s, c, nks, i_g, Tk, sq, m, lane);
+    if (nch > 1) score_chunk<DH>(s, qa, k_s, c, nks, i_g, Tk, sc, m, lane);
 #pragma unroll
     for (int kk = 0; kk < KC; ++kk) {
       const int ks = c * KC + kk;
@@ -431,7 +481,7 @@ attn_mma_bwd_q(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (i0 + warp * 16 >= Tq) return;
   const int i_g = i0 + warp * 16 + (lane >> 2);
-  const float sq = sqrtf((float)DH);
+  const Scale sc = scale<DH>();
   const auto m = mask.at(b);
   const size_t st = ((size_t)b * nh + h) * Tq;
   float mx[2], sm[2];
@@ -462,8 +512,8 @@ attn_mma_bwd_q(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float s = score(p[nt][e], i_g + 8 * (e >> 1),
-                              ks * 16 + nt * 8 + 2 * (lane & 3) + (e & 1), Tk, sq, m);
+        const float s = score<DH>(p[nt][e], i_g + 8 * (e >> 1),
+                              ks * 16 + nt * 8 + 2 * (lane & 3) + (e & 1), Tk, sc, m);
         p[nt][e] = div_row(expf(s - mx[e >> 1]), sm[e >> 1], rl[e >> 1]);
         dp[nt][e] = round_bf16(dp[nt][e]);
       }
@@ -492,7 +542,7 @@ attn_mma_bwd_q(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) p[nt][e] = p[nt][e] * (dp[nt][e] - dsum[e >> 1]) / sq;
+      for (int e = 0; e < 4; ++e) p[nt][e] = unscale<DH>(p[nt][e] * (dp[nt][e] - dsum[e >> 1]), sc);
     uint32_t dsa[4];
     c_to_a(dsa, p);
 #pragma unroll
@@ -559,7 +609,7 @@ attn_mma_bwd_kv(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (j0 + warp * 16 >= Tk) return;
-  const float sq = sqrtf((float)DH);
+  const Scale sc = scale<DH>();
   const auto m = mask.at(b);
   const int g = lane >> 2, t2 = 2 * (lane & 3);
   // the warp's 16 keys as the B operand of q.k^T and dctx.V^T
@@ -589,9 +639,9 @@ attn_mma_bwd_kv(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = qs * 16 + g + 8 * (e >> 1);
-        const float s = score(p[nt][e], i, j0 + warp * 16 + nt * 8 + t2 + (e & 1), Tk, sq, m);
+        const float s = score<DH>(p[nt][e], i, j0 + warp * 16 + nt * 8 + t2 + (e & 1), Tk, sc, m);
         p[nt][e] = div_row(expf(s - mx_s[i]), sm_s[i], rl_s[i]);
-        dp[nt][e] = p[nt][e] * (round_bf16(dp[nt][e]) - d_s[i]) / sq;  // dsc before rounding
+        dp[nt][e] = unscale<DH>(p[nt][e] * (round_bf16(dp[nt][e]) - d_s[i]), sc);  // dsc before rounding
       }
     uint32_t pa[4], dsa[4];
     c_to_a_trans(pa, p);
@@ -698,6 +748,646 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, Mask mask,
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   attn_mma_bwd_kv<DH, Mask><<<dim3((Tk + ROWS - 1) / ROWS, nh, B), THREADS, smem_kv, stream>>>(
+      qb, kb, vb, mask, row_max, row_sum, D, dob, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      Tq, Tk, nh, ldq, ldk, ldv, ldo, lddk, lddv);
+  return cudaGetLastError();
+}
+
+// ---- streamed tiles ----------------------------------------------------------
+
+// acc[nt] = A . B^T over the D/16 k steps, in that order: the one sequence
+// the forward and both backward launches use for q.k^T and dctx.V^T.  A's
+// 16 rows are held fragments; B's 16 rows (n) are tile rows n0..n0+15.
+template <int D>
+__device__ __forceinline__ void product(float (&acc)[2][4], const uint32_t (&a)[D / 16][4],
+                                        const bf16* tile, int n0, int lane) {
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) {
+    uint32_t b[4];
+    load_b<D>(b, tile, n0, kd, lane);
+    mma(acc[0], a[kd], b[0], b[1]);
+    mma(acc[1], a[kd], b[2], b[3]);
+  }
+}
+// the same with A's rows read from a staged tile too (rows r0..r0+15)
+template <int D>
+__device__ __forceinline__ void product(float (&acc)[2][4], const bf16* a_tile, int r0,
+                                        const bf16* tile, int n0, int lane) {
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) {
+    uint32_t a[4], b[4];
+    load_a<D>(a, a_tile, r0, kd, lane);
+    load_b<D>(b, tile, n0, kd, lane);
+    mma(acc[0], a, b[0], b[1]);
+    mma(acc[1], a, b[2], b[3]);
+  }
+}
+// acc (16 x D) += a (16 x 16) . the tile's rows k0..k0+15 (16 x D)
+template <int D>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4], const uint32_t (&a)[4],
+                                           const bf16* tile, int k0, int lane) {
+#pragma unroll
+  for (int np = 0; np < D / 16; ++np) {
+    uint32_t b[4];
+    load_bt<D>(b, tile, k0, np, lane);
+    mma(acc[2 * np], a, b[0], b[1]);
+    mma(acc[2 * np + 1], a, b[2], b[3]);
+  }
+}
+
+// a 16-key step of scores in place, for rows i_g, i_g + 8 and keys j0..j0+15
+template <int DK, typename Row>
+__device__ __forceinline__ void scores(float (&s)[2][4], int i_g, int j0, int Tk, Scale sc,
+                                       const Row& m, int lane) {
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[nt][e] = score<DK>(s[nt][e], i_g + 8 * (e >> 1), j0 + nt * 8 + 2 * (lane & 3) + (e & 1), Tk,
+                       sc, m);
+}
+
+// a 16-key step of weights into P's rows i_g, i_g + 8 (fp32 rows of Tk,
+// row i of this (b, h) at P + i Tk; rows >= Tq and columns >= Tk skipped)
+__device__ __forceinline__ void store_p(float* P, const float (&p)[2][4], int i_g, int j0, int Tq,
+                                        int Tk, int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = i_g + 8 * r;
+    if (i >= Tq) continue;
+    float* row = P + (size_t)i * Tk;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int j = j0 + nt * 8 + 2 * (lane & 3);
+      if (!(Tk & 1) && j < Tk) {
+        *reinterpret_cast<float2*>(row + j) = make_float2(p[nt][2 * r], p[nt][2 * r + 1]);
+      } else {
+        if (j < Tk) row[j] = p[nt][2 * r];
+        if (j + 1 < Tk) row[j + 1] = p[nt][2 * r + 1];
+      }
+    }
+  }
+}
+
+// A ring of two slots of `slot` bytes each in shared memory, through which
+// a stream of n elements (tiles) passes: fetch(e, dst) issues the cp.async
+// copies of element e into dst.  Each element is fetched one step ahead of
+// its use, one cp.async group each, and the block passes a barrier before
+// each.  Every thread of the block calls next() for every element, in
+// order.
+template <typename Fetch>
+struct Ring {
+  unsigned char* base;
+  int slot;
+  int n;
+  Fetch fetch;
+  int e;
+
+  __device__ __forceinline__ void issue(int i) {
+    if (i < n) fetch(i, base + (size_t)(i & 1) * slot);
+    cp_async_commit();
+  }
+  // the first element's group (with whatever the caller staged before)
+  __device__ __forceinline__ void start() { issue(0); }
+  // the next element, landed; the slot of the one before it, which every
+  // thread is done with, takes the element after it
+  __device__ __forceinline__ const bf16* next() {
+    cp_async_wait<0>();
+    __syncthreads();
+    issue(e + 1);
+    return reinterpret_cast<const bf16*>(base + (size_t)(e++ & 1) * slot);
+  }
+};
+template <typename Fetch>
+__device__ __forceinline__ Ring<Fetch> ring(unsigned char* base, int slot, int n, Fetch fetch) {
+  return Ring<Fetch>{base, slot, n, fetch, 0};
+}
+
+// forward
+
+// One block per (b, h, 64 queries).  P, row_max / row_sum null: not
+// written.  ONE: every key in one pass (Tk <= 16 HELD), the scores held.
+template <int DK, int DV, int HELD, typename Mask, bool ONE>
+__global__ void __launch_bounds__(THREADS)
+attn_mma_stream_fwd(const bf16* __restrict__ q,  // [B, Tq, nh, DK], rows ldq apart
+                    const bf16* __restrict__ k,  // [B, Tk, nh, DK], rows ldk apart
+                    const bf16* __restrict__ v,  // [B, Tk, nh, DV], rows ldv apart
+                    Mask mask, float* __restrict__ P,  // [B, nh, Tq, Tk]
+                    float* __restrict__ row_max, float* __restrict__ row_sum,  // [B, nh, Tq]
+                    bf16* __restrict__ ctx,  // [B, Tq, nh, DV], rows ldc apart
+                    int Tq, int Tk, int nh, int ldq, int ldk, int ldv, int ldc) {
+  constexpr int DM = DK > DV ? DK : DV;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * ROWS;
+  const int nks = (Tk + 15) >> 4, nkt = (Tk + ROWS - 1) / ROWS;
+  bf16* q_s = reinterpret_cast<bf16*>(smem);  // [ROWS][DK]
+  const bf16* kb = k + (size_t)b * Tk * ldk + (size_t)h * DK;
+  const bf16* vb = v + (size_t)b * Tk * ldv + (size_t)h * DV;
+  // the stream: ONE, the key tiles, then the value tiles; else the key
+  // tiles twice (the max, the sum), then each key tile and its value tile
+  auto fetch = [=](int e, unsigned char* dst) {
+    int t = e;
+    bool is_v = false;
+    if constexpr (ONE) {
+      is_v = e >= nkt;
+      if (is_v) t = e - nkt;
+    } else if (e < 2 * nkt) {
+      if (e >= nkt) t = e - nkt;
+    } else {
+      t = (e - 2 * nkt) >> 1;
+      is_v = (e - 2 * nkt) & 1;
+    }
+    const int n = min(ROWS, Tk - t * ROWS);
+    if (is_v)
+      stage<DV>(reinterpret_cast<bf16*>(dst), vb + (size_t)t * ROWS * ldv, ldv, ROWS, n);
+    else
+      stage<DK>(reinterpret_cast<bf16*>(dst), kb + (size_t)t * ROWS * ldk, ldk, ROWS, n);
+  };
+  auto kv = ring(smem + ROWS * DK * 2, ROWS * DM * 2, (ONE ? 2 : 4) * nkt, fetch);
+  stage<DK>(q_s, q + ((size_t)b * Tq + i0) * ldq + (size_t)h * DK, ldq, ROWS, min(ROWS, Tq - i0));
+  kv.start();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int i_g = i0 + warp * 16 + (lane >> 2);  // this thread's rows: i_g, i_g + 8
+  const bool active = i0 + warp * 16 < Tq;
+  const Scale sc = scale<DK>();
+  const auto m = mask.at(b);
+  const size_t st = ((size_t)b * nh + h) * Tq;
+  float* Pbh = P != nullptr ? P + st * Tk : nullptr;
+  uint32_t qa[DK / 16][4];
+  float mx[2] = {neg_inf(), neg_inf()}, sm[2] = {0.f, 0.f};
+  float o[DV / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < DV / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+
+  if constexpr (ONE) {
+    float s[HELD][2][4];
+#pragma unroll
+    for (int t = 0; t < (HELD + 3) / 4; ++t) {
+      if (t < nkt) {
+        const bf16* k_t = kv.next();
+        if (active) {
+          if (t == 0) {
+#pragma unroll
+            for (int kd = 0; kd < DK / 16; ++kd) load_a<DK>(qa[kd], q_s, warp * 16, kd, lane);
+          }
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const int ks = 4 * t + kk;
+            if (ks < HELD && ks < nks) {
+              product<DK>(s[ks], qa, k_t, kk * 16, lane);
+              scores<DK>(s[ks], i_g, ks * 16, Tk, sc, m, lane);
+#pragma unroll
+              for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[ks][nt][e]);
+            }
+          }
+        }
+      }
+    }
+    uint32_t pa[HELD][4];
+    if (active) {
+      mx[0] = quad_max(mx[0]);
+      mx[1] = quad_max(mx[1]);
+#pragma unroll
+      for (int ks = 0; ks < HELD; ++ks)
+        if (ks < nks)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              s[ks][nt][e] = expf(s[ks][nt][e] - mx[e >> 1]);
+              sm[e >> 1] += s[ks][nt][e];
+            }
+      sm[0] = quad_sum(sm[0]);
+      sm[1] = quad_sum(sm[1]);
+      const float rl[2] = {__frcp_rn(sm[0]), __frcp_rn(sm[1])};
+#pragma unroll
+      for (int ks = 0; ks < HELD; ++ks)
+        if (ks < nks) {
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s[ks][nt][e] = div_row(s[ks][nt][e], sm[e >> 1], rl[e >> 1]);
+          if (Pbh != nullptr) store_p(Pbh, s[ks], i_g, ks * 16, Tq, Tk, lane);
+          c_to_a(pa[ks], s[ks]);
+        }
+    }
+#pragma unroll
+    for (int t = 0; t < (HELD + 3) / 4; ++t) {
+      if (t < nkt) {
+        const bf16* v_t = kv.next();
+        if (active) {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            if (4 * t + kk < HELD && 4 * t + kk < nks)
+              accumulate<DV>(o, pa[4 * t + kk], v_t, kk * 16, lane);
+        }
+      }
+    }
+  } else {
+    // the max
+    for (int t = 0; t < nkt; ++t) {
+      const bf16* k_t = kv.next();
+      if (!active) continue;
+      if (t == 0) {
+#pragma unroll
+        for (int kd = 0; kd < DK / 16; ++kd) load_a<DK>(qa[kd], q_s, warp * 16, kd, lane);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int ks = 4 * t + kk;
+        if (ks < nks) {
+          float s[2][4];
+          product<DK>(s, qa, k_t, kk * 16, lane);
+          scores<DK>(s, i_g, ks * 16, Tk, sc, m, lane);
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+        }
+      }
+    }
+    mx[0] = quad_max(mx[0]);
+    mx[1] = quad_max(mx[1]);
+    // the sum
+    for (int t = 0; t < nkt; ++t) {
+      const bf16* k_t = kv.next();
+      if (!active) continue;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int ks = 4 * t + kk;
+        if (ks < nks) {
+          float s[2][4];
+          product<DK>(s, qa, k_t, kk * 16, lane);
+          scores<DK>(s, i_g, ks * 16, Tk, sc, m, lane);
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sm[e >> 1] += expf(s[nt][e] - mx[e >> 1]);
+        }
+      }
+    }
+    sm[0] = quad_sum(sm[0]);
+    sm[1] = quad_sum(sm[1]);
+    const float rl[2] = {__frcp_rn(sm[0]), __frcp_rn(sm[1])};
+    // P, and P.V
+    for (int t = 0; t < nkt; ++t) {
+      const bf16* k_t = kv.next();
+      uint32_t pa[4][4];
+      if (active) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int ks = 4 * t + kk;
+          if (ks < nks) {
+            float s[2][4];
+            product<DK>(s, qa, k_t, kk * 16, lane);
+            scores<DK>(s, i_g, ks * 16, Tk, sc, m, lane);
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                s[nt][e] = div_row(expf(s[nt][e] - mx[e >> 1]), sm[e >> 1], rl[e >> 1]);
+            if (Pbh != nullptr) store_p(Pbh, s, i_g, ks * 16, Tq, Tk, lane);
+            c_to_a(pa[kk], s);
+          }
+        }
+      }
+      const bf16* v_t = kv.next();
+      if (active) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          if (4 * t + kk < nks) accumulate<DV>(o, pa[kk], v_t, kk * 16, lane);
+      }
+    }
+  }
+  if (!active) return;
+
+  const int t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = i_g + 8 * r;
+    if (i >= Tq) continue;
+    bf16* out = ctx + ((size_t)b * Tq + i) * ldc + (size_t)h * DV + t2;
+#pragma unroll
+    for (int nd = 0; nd < DV / 8; ++nd)
+      *reinterpret_cast<uint32_t*>(out + nd * 8) = pack_bf16(o[nd][2 * r], o[nd][2 * r + 1]);
+    if (row_max != nullptr && (lane & 3) == 0) {
+      row_max[st + i] = mx[r];
+      row_sum[st + i] = sm[r];
+    }
+  }
+}
+
+// backward
+
+// Launch 1: D and dQ for one (b, h, 64 queries).
+template <int DK, int DV, typename Mask>
+__global__ void __launch_bounds__(THREADS)
+attn_mma_stream_bwd_q(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, Mask mask,
+                      const float* __restrict__ row_max, const float* __restrict__ row_sum,
+                      const bf16* __restrict__ dctx,  // [B, Tq, nh, DV], rows ldo apart
+                      float* __restrict__ D,          // [B, nh, Tq]
+                      bf16* __restrict__ dq,          // [B, Tq, nh, DK], rows lddq apart
+                      int Tq, int Tk, int nh, int ldq, int ldk, int ldv, int ldo, int lddq) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * ROWS;
+  const int nks = (Tk + 15) >> 4, nkt = (Tk + ROWS - 1) / ROWS;
+  const int nq = min(ROWS, Tq - i0);
+  bf16* q_s = reinterpret_cast<bf16*>(smem);  // [ROWS][DK]
+  bf16* do_s = q_s + ROWS * DK;               // [ROWS][DV]
+  const bf16* kb = k + (size_t)b * Tk * ldk + (size_t)h * DK;
+  const bf16* vb = v + (size_t)b * Tk * ldv + (size_t)h * DV;
+  // the stream: each key tile with its value tile ([ROWS][DK], then
+  // [ROWS][DV]), twice
+  auto fetch = [=](int e, unsigned char* dst) {
+    const int t = e < nkt ? e : e - nkt, n = min(ROWS, Tk - t * ROWS);
+    bf16* d = reinterpret_cast<bf16*>(dst);
+    stage<DK>(d, kb + (size_t)t * ROWS * ldk, ldk, ROWS, n);
+    stage<DV>(d + ROWS * DK, vb + (size_t)t * ROWS * ldv, ldv, ROWS, n);
+  };
+  auto kv = ring(smem + ROWS * (DK + DV) * 2, ROWS * (DK + DV) * 2, 2 * nkt, fetch);
+  stage<DK>(q_s, q + ((size_t)b * Tq + i0) * ldq + (size_t)h * DK, ldq, ROWS, nq);
+  stage<DV>(do_s, dctx + ((size_t)b * Tq + i0) * ldo + (size_t)h * DV, ldo, ROWS, nq);
+  kv.start();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool active = i0 + warp * 16 < Tq;
+  const int i_g = i0 + warp * 16 + (lane >> 2);
+  const Scale sc = scale<DK>();
+  const auto m = mask.at(b);
+  const size_t st = ((size_t)b * nh + h) * Tq;
+  float mx[2], sm[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = i_g + 8 * r;
+    mx[r] = active && i < Tq ? row_max[st + i] : 0.f;
+    sm[r] = active && i < Tq ? row_sum[st + i] : 1.f;
+  }
+  const float rl[2] = {__frcp_rn(sm[0]), __frcp_rn(sm[1])};
+  uint32_t qa[DK / 16][4], da[DV / 16][4];
+
+  // P and bf16(dP) of the key step at rows kk*16.. of a streamed tile
+  auto p_dp = [&](const bf16* kv_t, int kk, int ks, float (&p)[2][4], float (&dp)[2][4]) {
+    product<DK>(p, qa, kv_t, kk * 16, lane);
+    product<DV>(dp, da, kv_t + ROWS * DK, kk * 16, lane);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float s = score<DK>(p[nt][e], i_g + 8 * (e >> 1),
+                              ks * 16 + nt * 8 + 2 * (lane & 3) + (e & 1), Tk, sc, m);
+        p[nt][e] = div_row(expf(s - mx[e >> 1]), sm[e >> 1], rl[e >> 1]);
+        dp[nt][e] = round_bf16(dp[nt][e]);
+      }
+  };
+
+  float dsum[2] = {0.f, 0.f};
+  for (int t = 0; t < nkt; ++t) {
+    const bf16* kv_t = kv.next();
+    if (!active) continue;
+    if (t == 0) {
+#pragma unroll
+      for (int kd = 0; kd < DK / 16; ++kd) load_a<DK>(qa[kd], q_s, warp * 16, kd, lane);
+#pragma unroll
+      for (int kd = 0; kd < DV / 16; ++kd) load_a<DV>(da[kd], do_s, warp * 16, kd, lane);
+    }
+    for (int kk = 0; kk < min(4, nks - 4 * t); ++kk) {
+      float p[2][4], dp[2][4];
+      p_dp(kv_t, kk, 4 * t + kk, p, dp);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dsum[e >> 1] += dp[nt][e] * p[nt][e];
+    }
+  }
+  dsum[0] = quad_sum(dsum[0]);
+  dsum[1] = quad_sum(dsum[1]);
+
+  float acc[DK / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < DK / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+  for (int t = 0; t < nkt; ++t) {
+    const bf16* kv_t = kv.next();
+    if (!active) continue;
+    for (int kk = 0; kk < min(4, nks - 4 * t); ++kk) {
+      float p[2][4], dp[2][4];
+      p_dp(kv_t, kk, 4 * t + kk, p, dp);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[nt][e] = unscale<DK>(p[nt][e] * (dp[nt][e] - dsum[e >> 1]), sc);
+      uint32_t dsa[4];
+      c_to_a(dsa, p);
+      accumulate<DK>(acc, dsa, kv_t, kk * 16, lane);
+    }
+  }
+  if (!active) return;
+
+  const int t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = i_g + 8 * r;
+    if (i >= Tq) continue;
+    bf16* out = dq + ((size_t)b * Tq + i) * lddq + (size_t)h * DK + t2;
+#pragma unroll
+    for (int nd = 0; nd < DK / 8; ++nd)
+      *reinterpret_cast<uint32_t*>(out + nd * 8) = pack_bf16(acc[nd][2 * r], acc[nd][2 * r + 1]);
+    if ((lane & 3) == 0) D[st + i] = dsum[r];
+  }
+}
+
+// Launch 2: dK and dV for one (b, h, 64 keys), summed over every query.
+template <int DK, int DV, typename Mask>
+__global__ void __launch_bounds__(THREADS)
+attn_mma_stream_bwd_kv(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, Mask mask,
+                       const float* __restrict__ row_max, const float* __restrict__ row_sum,
+                       const float* __restrict__ D, const bf16* __restrict__ dctx,
+                       bf16* __restrict__ dk,  // [B, Tk, nh, DK], rows lddk apart
+                       bf16* __restrict__ dv,  // [B, Tk, nh, DV], rows lddv apart
+                       int Tq, int Tk, int nh, int ldq, int ldk, int ldv, int ldo,
+                       int lddk, int lddv) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int b = blockIdx.z, h = blockIdx.y, j0 = blockIdx.x * ROWS;
+  const int nqs = (Tq + 15) >> 4, nqt = (Tq + ROWS - 1) / ROWS;
+  const int nk = min(ROWS, Tk - j0);
+  bf16* k_s = reinterpret_cast<bf16*>(smem);  // [ROWS][DK]
+  bf16* v_s = k_s + ROWS * DK;                // [ROWS][DV]
+  const bf16* qb = q + (size_t)b * Tq * ldq + (size_t)h * DK;
+  const bf16* ob = dctx + (size_t)b * Tq * ldo + (size_t)h * DV;
+  const size_t st = ((size_t)b * nh + h) * Tq;
+  // the stream: each query tile [ROWS][DK] with its dctx tile [ROWS][DV]
+  // and its rows' max, sum and D (fp32 [3][ROWS]; zero past Tq)
+  auto fetch = [=](int t, unsigned char* dst) {
+    const int n = min(ROWS, Tq - t * ROWS);
+    bf16* d = reinterpret_cast<bf16*>(dst);
+    stage<DK>(d, qb + (size_t)t * ROWS * ldq, ldq, ROWS, n);
+    stage<DV>(d + ROWS * DK, ob + (size_t)t * ROWS * ldo, ldo, ROWS, n);
+    float* stats = reinterpret_cast<float*>(d + ROWS * (DK + DV));
+    for (int c = threadIdx.x; c < 3 * ROWS; c += THREADS) {
+      const int a = c / ROWS, r = c % ROWS;
+      const float* src = (a == 0 ? row_max : a == 1 ? row_sum : D) + st + t * ROWS;
+      cp_async4(stats + c, r < n ? src + r : src, r < n);
+    }
+  };
+  auto qo = ring(smem + ROWS * (DK + DV) * 2, ROWS * (DK + DV) * 2 + 3 * ROWS * 4, nqt, fetch);
+  stage<DK>(k_s, k + ((size_t)b * Tk + j0) * ldk + (size_t)h * DK, ldk, ROWS, nk);
+  stage<DV>(v_s, v + ((size_t)b * Tk + j0) * ldv + (size_t)h * DV, ldv, ROWS, nk);
+  qo.start();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool active = j0 + warp * 16 < Tk;
+  const Scale sc = scale<DK>();
+  const auto m = mask.at(b);
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  float dk_acc[DK / 8][4], dv_acc[DV / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < DK / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[nd][e] = 0.f;
+#pragma unroll
+  for (int nd = 0; nd < DV / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv_acc[nd][e] = 0.f;
+
+  for (int t = 0; t < nqt; ++t) {
+    const bf16* q_t = qo.next();
+    if (!active) continue;
+    const bf16* do_t = q_t + ROWS * DK;
+    const float* stats = reinterpret_cast<const float*>(do_t + ROWS * DV);
+    for (int qq = 0; qq < min(4, nqs - 4 * t); ++qq) {
+      float p[2][4], dp[2][4];
+      product<DK>(p, q_t, qq * 16, k_s, warp * 16, lane);
+      product<DV>(dp, do_t, qq * 16, v_s, warp * 16, lane);
+      float mx[2], sm[2], rl[2], d[2];
+      bool valid[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int lr = qq * 16 + g + 8 * r;
+        valid[r] = t * ROWS + lr < Tq;
+        mx[r] = stats[lr];
+        sm[r] = stats[ROWS + lr];
+        d[r] = stats[2 * ROWS + lr];
+        rl[r] = __frcp_rn(sm[r]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float s = score<DK>(p[nt][e], t * ROWS + qq * 16 + g + 8 * r,
+                                j0 + warp * 16 + nt * 8 + t2 + (e & 1), Tk, sc, m);
+          // padded queries (zero q and dctx rows, zero statistics) add nothing
+          p[nt][e] = valid[r] ? div_row(expf(s - mx[r]), sm[r], rl[r]) : 0.f;
+          // dsc before rounding
+          dp[nt][e] = unscale<DK>(p[nt][e] * (round_bf16(dp[nt][e]) - d[r]), sc);
+        }
+      uint32_t pa[4], dsa[4];
+      c_to_a_trans(pa, p);
+      c_to_a_trans(dsa, dp);
+      accumulate<DV>(dv_acc, pa, do_t, qq * 16, lane);
+      accumulate<DK>(dk_acc, dsa, q_t, qq * 16, lane);
+    }
+  }
+  if (!active) return;
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = j0 + warp * 16 + g + 8 * r;
+    if (j >= Tk) continue;
+    bf16* odk = dk + ((size_t)b * Tk + j) * lddk + (size_t)h * DK + t2;
+    bf16* odv = dv + ((size_t)b * Tk + j) * lddv + (size_t)h * DV + t2;
+#pragma unroll
+    for (int nd = 0; nd < DK / 8; ++nd)
+      *reinterpret_cast<uint32_t*>(odk + nd * 8) =
+          pack_bf16(dk_acc[nd][2 * r], dk_acc[nd][2 * r + 1]);
+#pragma unroll
+    for (int nd = 0; nd < DV / 8; ++nd)
+      *reinterpret_cast<uint32_t*>(odv + nd * 8) =
+          pack_bf16(dv_acc[nd][2 * r], dv_acc[nd][2 * r + 1]);
+  }
+}
+
+// launchers
+
+template <int DK, int DV>
+constexpr size_t stream_fwd_smem() {
+  return (size_t)ROWS * (DK + 2 * (DK > DV ? DK : DV)) * 2;
+}
+template <int DK, int DV>
+constexpr size_t stream_bwd_q_smem() {
+  return (size_t)ROWS * (DK + DV) * 2 * 3;
+}
+template <int DK, int DV>
+constexpr size_t stream_bwd_kv_smem() {
+  return (size_t)ROWS * (DK + DV) * 2 + 2 * ((size_t)ROWS * (DK + DV) * 2 + 3 * ROWS * 4);
+}
+
+// The forward over q, k, v rows ld* elements apart and ctx rows ldc apart
+// (multiples of 8: the 16-byte copies); the operands 16-byte aligned.  P
+// (fp32 [B, nh, Tq, Tk]) and the statistics are written where not null.
+// HELD: the 16-key steps whose scores the one-pass forward holds.
+template <int DK, int DV, int HELD, typename Mask>
+cudaError_t launch_stream_fwd(const void* q, const void* k, const void* v, Mask mask, float* P,
+                       float* row_max, float* row_sum, void* ctx, int B, int Tq, int Tk, int nh,
+                       int ldq, int ldk, int ldv, int ldc, cudaStream_t stream) {
+  if (Tq < 1 || Tk < 1 || ldq % 8 || ldk % 8 || ldv % 8 || ldc % 2 ||
+      (row_max == nullptr) != (row_sum == nullptr))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = stream_fwd_smem<DK, DV>();
+  const auto kernel = (Tk + 15) / 16 <= HELD ? attn_mma_stream_fwd<DK, DV, HELD, Mask, true>
+                                             : attn_mma_stream_fwd<DK, DV, HELD, Mask, false>;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3((Tq + ROWS - 1) / ROWS, nh, B), THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), mask,
+      P, row_max, row_sum, static_cast<bf16*>(ctx), Tq, Tk, nh, ldq, ldk, ldv, ldc);
+  return cudaGetLastError();
+}
+
+// The backward from the forward's operands and row statistics: D is an fp32
+// [B, nh, Tq] scratch; dq, dk, dv rows are written ldd* elements apart.
+template <int DK, int DV, typename Mask>
+cudaError_t launch_stream_bwd(const void* q, const void* k, const void* v, Mask mask,
+                       const float* row_max, const float* row_sum, const void* dctx, float* D,
+                       void* dq, void* dk, void* dv, int B, int Tq, int Tk, int nh, int ldq,
+                       int ldk, int ldv, int ldo, int lddq, int lddk, int lddv,
+                       cudaStream_t stream) {
+  if (Tq < 1 || Tk < 1 || ldq % 8 || ldk % 8 || ldv % 8 || ldo % 8 || lddq % 2 || lddk % 2 ||
+      lddv % 2)
+    return cudaErrorInvalidValue;
+  constexpr size_t smem_q = stream_bwd_q_smem<DK, DV>(), smem_kv = stream_bwd_kv_smem<DK, DV>();
+  const auto kernel_q = attn_mma_stream_bwd_q<DK, DV, Mask>;
+  const auto kernel_kv = attn_mma_stream_bwd_kv<DK, DV, Mask>;
+  cudaError_t e = allow_smem(kernel_q, smem_q);
+  if (e != cudaSuccess) return e;
+  e = allow_smem(kernel_kv, smem_kv);
+  if (e != cudaSuccess) return e;
+  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
+             *vb = static_cast<const bf16*>(v), *dob = static_cast<const bf16*>(dctx);
+  kernel_q<<<dim3((Tq + ROWS - 1) / ROWS, nh, B), THREADS, smem_q, stream>>>(
+      qb, kb, vb, mask, row_max, row_sum, dob, D, static_cast<bf16*>(dq), Tq, Tk, nh, ldq, ldk,
+      ldv, ldo, lddq);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  kernel_kv<<<dim3((Tk + ROWS - 1) / ROWS, nh, B), THREADS, smem_kv, stream>>>(
       qb, kb, vb, mask, row_max, row_sum, D, dob, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
       Tq, Tk, nh, ldq, ldk, ldv, ldo, lddk, lddv);
   return cudaGetLastError();

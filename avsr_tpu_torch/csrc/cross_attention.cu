@@ -1,4 +1,5 @@
-// K4: the cross-attention fusion core, forward and backward.
+// K4: the cross-attention fusion core, forward and backward, on the tensor
+// cores (attention_mma.cuh).
 //
 // Replaces the core of avsr_tpu/models/fusion.py:cross_attention_fusion_apply
 // (fusion.py:226-235), which the JAX package leaves to XLA: audio queries
@@ -12,48 +13,73 @@
 // The key-padding mask is ADDED, as in the reference, so a row whose video
 // length is 0 gets the reference's uniform softmax over all T_v keys.  P is
 // written out (fp32 [B, nh, T_a, T_v]): the module's head-averaged
-// alignments read it, and so does the backward.  The projections, the
-// audio mask and the AU head stay matrix products outside.
+// alignments read it.  The projections, the audio mask and the AU head stay
+// matrix products outside.
 //
-// Backward, with the rounding points of JAX's autodiff of the reference:
+// Backward (the autodiff of the same lines, with the rounding points of the
+// header of attention_mma.cuh): the context cotangent dctx [B, T_a, nh, dv]
+// -> dq, dk, dv.  Its residual is the forward's row max and row sum, fp32
+// [B, nh, T_a] each, from which it recomputes P bit for bit; it never reads
+// P, and its only scratch is D = rowsum(dP * P), fp32 [B, nh, T_a].
+// Serving passes null statistics and writes none.
 //
-//   dP  = bf16(dctx @ V^T);  dS = P * (dP - rowsum(dP * P))
-//   dsc = bf16(dS / sqrt(A))
-//   dQ  = bf16(dsc @ K);  dK = bf16(dsc^T @ Q);  dV = bf16(bf16(P)^T @ dctx)
-//
-// What bounds it on an H100: at the main path's shapes (B = 128, 4 heads,
-// T_a = 50, T_v = 150, A = dv = 128) the whole core is ~1.2 GFLOP forward
-// and ~2.5 GFLOP backward over ~40 MB of q/k/v/P traffic: neither the
-// tensor cores nor HBM are near their limits, and the time goes to the
-// shared-memory issue rate of the products (CUDA-core fp32 FMAs on
-// bf16-rounded operands, the reference's numerics) and to launch latency.
-// Design: the shared forward and backward of attention_core.cuh (one block
-// per (b, h, 16 queries), K then V staged in one shared buffer, fp32
-// softmax, P written; a two-launch backward with one owner block per output
-// row), with the key-padding mask from the video lengths.  Shared memory is
-// T_v*max(A, dv)*2 + QT*A*2 + QT*T_v*4 bytes: 52 KB at T_v = 150, 132 KB at
-// the preset's 16 s limit of T_v = 400 (the wrapper raises above that).
+// What bounds it on an H100: bytes.  At the fast model's shapes (B = 128,
+// 4 heads, T_a = 50, T_v = 150, A = dv = 128) the forward reads q, k, v
+// (45.9 MB) and writes ctx and P (22.0 MB, P 15.4 MB of it): ~20 us at 3.35
+// TB/s, for 1.2 GFLOP; the backward reads q, k, v, dctx and the lengths
+// and writes dq, dk, dv (~98 MB, ~29 us).  At lrs2_av_v2's T_a = 197 P
+// alone is 60.5 MB.  Design: attention_mma.cuh's streamed tiles at head
+// widths (A, dv) = (128, 128), both presets' 4 heads x 128, and (128, 64),
+// the fusion's memory_value_dim = 256 override over 4 heads.  The video
+// keys and values (forward, launch 1) and the audio queries (launch 2)
+// stream through two slots of 64-row tiles, so shared memory is the same at
+// any length (48 KB forward, 96 / 98 KB for the backward's two launches at
+// 128 / 128) and the presets' 16 s limits (T_v = 400, T_a = 531) are taken;
+// the forward holds the scores of up to 10 steps of 16 keys (T_v = 150 in
+// one pass, its keys and values each read once) and takes longer rows in
+// three passes.  The divisions by sqrt(128) are corrected products with the
+// reciprocal (div_row): IEEE division's per-element check and slow-path
+// branch had doubled the kernels' time.
 
-#include "attention_core.cuh"
+#include "attention_mma.cuh"
 
-// Shared-memory bytes each launch asks for (the wrapper checks the limit).
-extern "C" long long avsr_fusion_attn_smem(int Ta, int Tv, int A, int dv) {
-  return (long long)attn_smem(Ta, Tv, A, dv);
-}
+namespace {
+using mma_attn::LengthMask;
 
+// the head-width pairs the kernels are built for (the wrapper raises on another)
+bool built_for(int A, int dv) { return A == 128 && (dv == 128 || dv == 64); }
+}  // namespace
+
+// P: fp32 [B, nh, Ta, Tv] out; row_max / row_sum null (serving) or fp32
+// [B, nh, Ta] each out, the backward's residual.
 extern "C" int avsr_fusion_attn_fwd(const void* q, const void* k, const void* v,
-                                    const void* vlen, void* P, void* ctx, int B, int Ta,
-                                    int Tv, int nh, int A, int dv, void* stream) {
-  return (int)launch_attn_fwd(q, k, v, LengthMask{static_cast<const int*>(vlen)}, P, ctx, B,
-                              Ta, Tv, nh, A, dv, nh * A, nh * A, nh * dv,
-                              reinterpret_cast<cudaStream_t>(stream));
+                                    const void* vlen, void* P, void* row_max, void* row_sum,
+                                    void* ctx, int B, int Ta, int Tv, int nh, int A, int dv,
+                                    void* stream) {
+  if (!built_for(A, dv)) return (int)cudaErrorInvalidValue;
+  const LengthMask mask{static_cast<const int*>(vlen)};
+  float *p = static_cast<float*>(P), *mx = static_cast<float*>(row_max),
+        *sm = static_cast<float*>(row_sum);
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int lq = nh * A, lv = nh * dv;
+  // the scores of up to 10 steps of 16 keys held: T_v = 150 in one pass
+  const auto launch = dv == 128 ? mma_attn::launch_stream_fwd<128, 128, 10, LengthMask>
+                                : mma_attn::launch_stream_fwd<128, 64, 10, LengthMask>;
+  return (int)launch(q, k, v, mask, p, mx, sm, ctx, B, Ta, Tv, nh, lq, lq, lv, lv, st);
 }
 
+// D: an fp32 [B, nh, Ta] scratch; dq, dk, dv_out bf16, shaped as q, k, v.
 extern "C" int avsr_fusion_attn_bwd(const void* q, const void* k, const void* v,
-                                    const void* P, const void* dctx, void* dsc, void* dq,
-                                    void* dk, void* dv_out, int B, int Ta, int Tv, int nh,
-                                    int A, int dv, void* stream) {
-  return (int)launch_attn_bwd(q, k, v, P, dctx, dsc, dq, dk, dv_out, B, Ta, Tv, nh, A, dv,
-                              nh * A, nh * A, nh * dv, nh * A, nh * A, nh * dv,
-                              reinterpret_cast<cudaStream_t>(stream));
+                                    const void* vlen, const void* row_max, const void* row_sum,
+                                    const void* dctx, void* D, void* dq, void* dk, void* dv_out,
+                                    int B, int Ta, int Tv, int nh, int A, int dv, void* stream) {
+  if (!built_for(A, dv)) return (int)cudaErrorInvalidValue;
+  const LengthMask mask{static_cast<const int*>(vlen)};
+  const float *mx = static_cast<const float*>(row_max), *sm = static_cast<const float*>(row_sum);
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int lq = nh * A, lv = nh * dv;
+  const auto launch = dv == 128 ? mma_attn::launch_stream_bwd<128, 128, LengthMask>
+                                : mma_attn::launch_stream_bwd<128, 64, LengthMask>;
+  return (int)launch(q, k, v, mask, mx, sm, dctx, static_cast<float*>(D), dq, dk, dv_out, B, Ta,
+                     Tv, nh, lq, lq, lv, lv, lq, lq, lv, st);
 }

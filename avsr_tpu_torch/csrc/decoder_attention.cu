@@ -28,7 +28,7 @@
 // 13.1 MB of fp32 P (written for the backward) for 0.84 GFLOP; the cross
 // forward 51 MB and 8.2 MB of P for 1.6 GFLOP.  At 3.35 TB/s and 989
 // TFLOP/s both are byte-bound, at ~10 and ~18 us;
-// the kernel, like K4's, spends its time on the shared-memory issue rate of
+// the kernel spends its time on the shared-memory issue rate of
 // CUDA-core FMAs on bf16-rounded operands (the reference's numerics) and on
 // launch latency.
 //

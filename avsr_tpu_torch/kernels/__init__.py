@@ -59,7 +59,7 @@ LAUNCHES: Dict[str, int] = {
 LSTM_UNIT_TILE = 16  # hidden units per block of the LSTM kernels (UT in the source)
 LSTM_ROW_TILE = 16   # batch rows per block of the LSTM kernels (BT in the source)
 FUSION_MAX_TV = 400  # video frames the fusion kernels (K4, K8) take: 16 s at 25 fps
-ATTEND_MAX_S = 531   # memory steps K10 and K11 take: the audio steps of 16 s, (1598 - 8) // 3 + 1
+ATTEND_MAX_S = 531   # steps K10, K11 and K4 (T_a) take: the audio steps of 16 s, (1598 - 8) // 3 + 1
 CONV_MAX_D = 1024    # channels K9 takes: one channel pair per thread, 512 threads at most
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on an H100
 
@@ -163,11 +163,9 @@ def _load() -> ctypes.CDLL:
         lib.avsr_lstm_scan_fwd.restype = i
         lib.avsr_lstm_scan_bwd.argtypes = [p] * 14 + [i, i, i, i, p]
         lib.avsr_lstm_scan_bwd.restype = i
-        lib.avsr_fusion_attn_smem.argtypes = [i, i, i, i]
-        lib.avsr_fusion_attn_smem.restype = ctypes.c_longlong
-        lib.avsr_fusion_attn_fwd.argtypes = [p] * 6 + [i] * 6 + [p]
+        lib.avsr_fusion_attn_fwd.argtypes = [p] * 8 + [i] * 6 + [p]
         lib.avsr_fusion_attn_fwd.restype = i
-        lib.avsr_fusion_attn_bwd.argtypes = [p] * 9 + [i] * 6 + [p]
+        lib.avsr_fusion_attn_bwd.argtypes = [p] * 11 + [i] * 6 + [p]
         lib.avsr_fusion_attn_bwd.restype = i
         lib.avsr_logmel_post_dft.argtypes = [
             p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p,
@@ -379,76 +377,76 @@ def logmel_post_dft(re, im, feat_len, mel_w, *, log_floor: float,
     return out, new_len
 
 
-def _check_fusion(q, k, v, dev):
+FUSION_WIDTHS = ((128, 128), (128, 64))  # the (A, dv) head-width pairs K4 is built for
+
+
+def _check_fusion(q, k, v, video_lengths, dev):
     B, Ta, nh, A = q.shape
     Tv, dv = k.shape[1], v.shape[-1]
     _check("q", q, torch.bfloat16, (B, Ta, nh, A), dev)
     _check("k", k, torch.bfloat16, (B, Tv, nh, A), dev)
     _check("v", v, torch.bfloat16, (B, Tv, nh, dv), dev)
-    if A % 8 or dv % 8:
-        raise ValueError(f"fusion attention: head dims {A}/{dv} must be multiples of 8")
-    if not (1 <= Ta and 1 <= Tv <= FUSION_MAX_TV):
-        raise ValueError(f"fusion attention: T_a={Ta}, T_v={Tv}; the kernel takes "
-                         f"1 <= T_v <= {FUSION_MAX_TV}")
-    smem = _load().avsr_fusion_attn_smem(Ta, Tv, A, dv)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"fusion attention: T_a={Ta}, T_v={Tv}, A={A}, dv={dv} need "
-                         f"{smem} bytes of shared memory per block (limit {SMEM_LIMIT})")
+    _check("video_lengths", video_lengths, torch.int32, (B,), dev, align=4)
+    if (A, dv) not in FUSION_WIDTHS:
+        raise ValueError(f"fusion attention: head widths A={A}, dv={dv}; the kernels are built "
+                         f"for (A, dv) in {FUSION_WIDTHS}")
+    if not (1 <= Ta <= ATTEND_MAX_S and 1 <= Tv <= FUSION_MAX_TV):
+        raise ValueError(f"fusion attention: T_a={Ta}, T_v={Tv}; the kernels take "
+                         f"1 <= T_a <= {ATTEND_MAX_S} and 1 <= T_v <= {FUSION_MAX_TV}")
     return B, Ta, Tv, nh, A, dv
 
 
-def fusion_attention_fwd(q, k, v, video_lengths):
-    """K4: the cross-attention fusion core, forward (CUDA).
+def fusion_attention_fwd(q, k, v, video_lengths, *, save: bool = False):
+    """K4: the cross-attention fusion core, forward (CUDA, tensor cores).
 
     q [B,T_a,nh,A], k [B,T_v,nh,A], v [B,T_v,nh,dv] bf16, video_lengths [B]
-    int32 -> (ctx [B,T_a,nh,dv] bf16, weights [B,nh,T_a,T_v] f32).
+    int32 -> (ctx [B,T_a,nh,dv] bf16, weights [B,nh,T_a,T_v] f32, the
+    softmax's row statistics (row_max, row_sum), fp32 [B,nh,T_a] each, when
+    ``save`` (the backward's residual), else None).
     """
     dev = q.device
-    B, Ta, Tv, nh, A, dv = _check_fusion(q, k, v, dev)
-    _check("video_lengths", video_lengths, torch.int32, (B,), dev)
+    B, Ta, Tv, nh, A, dv = _check_fusion(q, k, v, video_lengths, dev)
     lib = _load()
     P = torch.empty((B, nh, Ta, Tv), dtype=torch.float32, device=dev)
+    stats = tuple(torch.empty((B, nh, Ta), dtype=torch.float32, device=dev)
+                  for _ in range(2)) if save else None
     ctx = torch.empty((B, Ta, nh, dv), dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.avsr_fusion_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), video_lengths.data_ptr(),
-        P.data_ptr(), ctx.data_ptr(), B, Ta, Tv, nh, A, dv, stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), video_lengths.data_ptr(), P.data_ptr(),
+        *((None, None) if stats is None else map(_ptr, stats)), ctx.data_ptr(),
+        B, Ta, Tv, nh, A, dv, stream)
     _raise_on(err, "fusion_attention_fwd launch")
     LAUNCHES["fusion_attention_fwd"] += 1
-    return ctx, P
+    return ctx, P, stats
 
 
-def _attention_bwd(name, entry, q, k, v, weights, dctx, dims):
-    """The softmax-attention backward that K4 and K5 share
-    (``csrc/attention_core.cuh``, two launches): the forward's q, k, v, its
-    fp32 weights [B,nh,T_q,T_k] and the context cotangent dctx
-    [B,T_q,nh,dv] bf16 -> (dq, dk, dv) in bf16."""
-    B, Ta, Tv, nh, A, dv = dims
+def fusion_attention_bwd(q, k, v, video_lengths, row_max, row_sum, dctx):
+    """K4: the cross-attention fusion core, backward (CUDA, tensor cores).
+
+    The forward's q, k, v, video lengths and saved row statistics (fp32
+    [B,nh,T_a] each), and the context cotangent dctx [B,T_a,nh,dv] bf16 ->
+    (dq, dk, dv) in bf16.  The weights are recomputed from the statistics;
+    the only scratch is D = rowsum(dP * P), fp32 [B,nh,T_a].
+    """
     dev = q.device
-    _check("weights", weights, torch.float32, (B, nh, Ta, Tv), dev)
+    B, Ta, Tv, nh, A, dv = _check_fusion(q, k, v, video_lengths, dev)
+    _check("row_max", row_max, torch.float32, (B, nh, Ta), dev, align=4)
+    _check("row_sum", row_sum, torch.float32, (B, nh, Ta), dev, align=4)
     _check("dctx", dctx, torch.bfloat16, (B, Ta, nh, dv), dev)
-    dsc = torch.empty((B, nh, Ta, Tv), dtype=torch.bfloat16, device=dev)
+    lib = _load()
+    D = torch.empty((B, nh, Ta), dtype=torch.float32, device=dev)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dvv = torch.empty_like(v)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), weights.data_ptr(), dctx.data_ptr(),
-                dsc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
-                B, Ta, Tv, nh, A, dv, stream)
-    _raise_on(err, f"{name} launch")
-    LAUNCHES[name] += 1
+    err = lib.avsr_fusion_attn_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), video_lengths.data_ptr(), row_max.data_ptr(),
+        row_sum.data_ptr(), dctx.data_ptr(), D.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dvv.data_ptr(), B, Ta, Tv, nh, A, dv, stream)
+    _raise_on(err, "fusion_attention_bwd launch")
+    LAUNCHES["fusion_attention_bwd"] += 1
     return dq, dk, dvv
-
-
-def fusion_attention_bwd(q, k, v, weights, dctx):
-    """K4: the cross-attention fusion core, backward (CUDA).
-
-    The forward's q, k, v, its fp32 weights [B,nh,T_a,T_v] and the context
-    cotangent dctx [B,T_a,nh,dv] bf16 -> (dq, dk, dv) in bf16.
-    """
-    dims = _check_fusion(q, k, v, q.device)
-    return _attention_bwd("fusion_attention_bwd", _load().avsr_fusion_attn_bwd, q, k, v,
-                          weights, dctx, dims)
 
 
 def _check_decoder_attention(q, k, v, dev):
@@ -500,9 +498,21 @@ def decoder_attention_bwd(q, k, v, weights, dctx):
     cotangent dctx [B,Q,nh,dv] bf16 -> (dq, dk, dv) in bf16.  The mask
     enters only through the weights.
     """
-    dims = _check_decoder_attention(q, k, v, q.device)
-    return _attention_bwd("decoder_attention_bwd", _load().avsr_decoder_attn_bwd, q, k, v,
-                          weights, dctx, dims)
+    dev = q.device
+    B, Q, S, nh, dk, dv = _check_decoder_attention(q, k, v, dev)
+    _check("weights", weights, torch.float32, (B, nh, Q, S), dev)
+    _check("dctx", dctx, torch.bfloat16, (B, Q, nh, dv), dev)
+    dsc = torch.empty((B, nh, Q, S), dtype=torch.bfloat16, device=dev)
+    dq = torch.empty_like(q)
+    dkk = torch.empty_like(k)
+    dvv = torch.empty_like(v)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _load().avsr_decoder_attn_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), weights.data_ptr(), dctx.data_ptr(),
+        dsc.data_ptr(), dq.data_ptr(), dkk.data_ptr(), dvv.data_ptr(), B, Q, S, nh, dk, dv, stream)
+    _raise_on(err, "decoder_attention_bwd launch")
+    LAUNCHES["decoder_attention_bwd"] += 1
+    return dq, dkk, dvv
 
 
 def decode_attention(q, k, v, bias, n_keys: int):

@@ -30,8 +30,9 @@ keys/values.  Key padding adds -1e9 to the scores and the softmax runs in
 fp32.  Its core (scores, mask, softmax, P.V; ``fusion.py:226-235``) is
 kernel K4: ``FusionAttention`` is its ``torch.autograd.Function``, and
 ``fusion_attention_fwd`` / ``fusion_attention_bwd`` launch the CUDA kernels
-(``csrc/cross_attention.cu``) for tensors on a GPU and run the plain
-versions for tensors on the CPU.  The projections, the audio mask, the
+(``csrc/cross_attention.cu`` on the tensor cores) for tensors on a GPU and
+run the plain versions for tensors on the CPU.  The backward's residual is
+the softmax's row statistics, from which it recomputes the weights.  The projections, the audio mask, the
 head mean for the alignments and the AU head stay torch code, as the
 reference leaves them to XLA as plain matmuls.  The alignments feed no
 loss, so the weights output of the core carries no gradient.
@@ -374,24 +375,45 @@ def cross_attention_fusion_init(gen: torch.Generator, cfg: FusionConfig, audio_d
     return params
 
 
-def fusion_attention_fwd_plain(q, k, v, video_lengths):
-    """Plain-PyTorch K4 forward.  q [B,T_a,nh,A], k [B,T_v,nh,A],
-    v [B,T_v,nh,dv] in the compute dtype, video_lengths [B] ->
-    (ctx [B,T_a,nh,dv] in the compute dtype, weights [B,nh,T_a,T_v] fp32)."""
+def _fusion_scores(q, k, video_lengths):
+    """fp32 [B,nh,T_a,T_v] scores: float(q.k in the compute dtype) /
+    sqrt(A) + (1 - valid_key) * -1e9."""
     T_v, A = k.shape[1], k.shape[-1]
     scores = torch.einsum("bqha,bkha->bhqk", q, k).float() / math.sqrt(A)
     key_valid = (torch.arange(T_v, device=q.device)[None, :] < video_lengths[:, None]).float()
-    scores = scores + (1.0 - key_valid)[:, None, None, :] * -1e9
-    w = torch.softmax(scores, dim=-1)
+    return scores + (1.0 - key_valid)[:, None, None, :] * -1e9
+
+
+def fusion_attention_weights(q, k, video_lengths, row_max, row_sum):
+    """The fp32 weights [B,nh,T_a,T_v] from the operands and the softmax's
+    saved row statistics [B,nh,T_a]: exp(s - row_max) / row_sum, the
+    forward's own expression, so the same bits as the forward's weights."""
+    s = _fusion_scores(q, k, video_lengths)
+    return torch.exp(s - row_max[..., None]) / row_sum[..., None]
+
+
+def fusion_attention_fwd_plain(q, k, v, video_lengths, *, save: bool = False):
+    """Plain-PyTorch K4 forward.  q [B,T_a,nh,A], k [B,T_v,nh,A],
+    v [B,T_v,nh,dv] in the compute dtype, video_lengths [B] -> (ctx
+    [B,T_a,nh,dv] in the compute dtype, weights [B,nh,T_a,T_v] fp32, the
+    softmax's row statistics (row_max, row_sum), fp32 [B,nh,T_a] each, when
+    ``save``, else None).  The softmax written out as the kernel takes it:
+    the row max, exp(s - max), the row sum, a division."""
+    s = _fusion_scores(q, k, video_lengths)
+    row_max = s.amax(dim=-1)
+    e = torch.exp(s - row_max[..., None])
+    row_sum = e.sum(dim=-1)
+    w = e / row_sum[..., None]
     ctx = torch.einsum("bhqk,bkhd->bqhd", w.to(q.dtype), v)
-    return ctx, w
+    return ctx, w, ((row_max, row_sum) if save else None)
 
 
-def fusion_attention_bwd_plain(q, k, v, weights, dctx):
-    """Plain-PyTorch K4 backward: the gradient JAX's autodiff takes through
-    the reference core, with its rounding points (the P.V and dctx.V^T
-    products return the compute dtype; the scores' cotangent is rounded to
-    it before the q/k products).  -> (dq, dk, dv) in q/k/v's dtypes."""
+def attention_bwd_from_weights(q, k, v, weights, dctx):
+    """The softmax-attention backward from the fp32 weights: the gradient
+    JAX's autodiff takes through the reference cores, with their rounding
+    points (the P.V and dctx.V^T products return the compute dtype; the
+    scores' cotangent is rounded to it before the q/k products).  -> (dq,
+    dk, dv) in q/k/v's dtypes."""
     cdt = q.dtype
     A = q.shape[-1]
     dv = torch.einsum("bhqk,bqhd->bkhd", weights.to(cdt), dctx.to(cdt))
@@ -403,42 +425,53 @@ def fusion_attention_bwd_plain(q, k, v, weights, dctx):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def fusion_attention_bwd_plain(q, k, v, video_lengths, row_max, row_sum, dctx):
+    """Plain-PyTorch K4 backward: the forward's q, k, v, video lengths and
+    row statistics, and the context cotangent -> (dq, dk, dv).  The weights
+    are recomputed from the statistics, then ``attention_bwd_from_weights``."""
+    w = fusion_attention_weights(q, k, video_lengths, row_max, row_sum)
+    return attention_bwd_from_weights(q, k, v, w, dctx)
+
+
 def _check_policy(q):
     if q.dtype != torch.bfloat16:
         raise ValueError(f"the fusion attention kernels run the bf16 policy only, got {q.dtype}")
 
 
-def fusion_attention_fwd(q, k, v, video_lengths):
+def fusion_attention_fwd(q, k, v, video_lengths, *, save: bool = False):
     """K4 forward wrapper: the CUDA kernel for GPU tensors, the plain
     version on the CPU; same contract as ``fusion_attention_fwd_plain``."""
     if q.device.type == "cpu":
-        return fusion_attention_fwd_plain(q, k, v, video_lengths)
+        return fusion_attention_fwd_plain(q, k, v, video_lengths, save=save)
     _check_policy(q)
     return kernels.fusion_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
-                                        video_lengths.to(torch.int32).contiguous())
+                                        video_lengths.to(torch.int32).contiguous(), save=save)
 
 
-def fusion_attention_bwd(q, k, v, weights, dctx):
+def fusion_attention_bwd(q, k, v, video_lengths, row_max, row_sum, dctx):
     """K4 backward wrapper: the CUDA kernel for GPU tensors, the plain
     version on the CPU; same contract as ``fusion_attention_bwd_plain``."""
     if q.device.type == "cpu":
-        return fusion_attention_bwd_plain(q, k, v, weights, dctx)
+        return fusion_attention_bwd_plain(q, k, v, video_lengths, row_max, row_sum, dctx)
     _check_policy(q)
     return kernels.fusion_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(),
-                                        weights.contiguous(),
+                                        video_lengths.to(torch.int32).contiguous(),
+                                        row_max.contiguous(), row_sum.contiguous(),
                                         dctx.to(torch.bfloat16).contiguous())
 
 
 class FusionAttention(torch.autograd.Function):
     """K4 with its gradient: (ctx, weights) from q, k, v and the video
-    lengths.  The weights only feed the alignments, which no loss reads:
-    they are marked non-differentiable, and a gradient arriving for them
-    raises."""
+    lengths.  The forward saves the operands, the lengths and the softmax's
+    row statistics ([B, nh, T_a] each), not the weights; the backward
+    recomputes them.  The weights only feed the alignments, which no loss
+    reads: they are marked non-differentiable, and a gradient arriving for
+    them raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, video_lengths):
-        out, w = fusion_attention_fwd(q, k, v, video_lengths)
-        ctx.save_for_backward(q, k, v, w)
+        out, w, (row_max, row_sum) = fusion_attention_fwd(q, k, v, video_lengths, save=True)
+        ctx.save_for_backward(q, k, v, video_lengths, row_max, row_sum)
         ctx.mark_non_differentiable(w)
         ctx.set_materialize_grads(False)
         return out, w
@@ -447,19 +480,19 @@ class FusionAttention(torch.autograd.Function):
     def backward(ctx, dctx, dw):
         if dw is not None:
             raise RuntimeError("the fusion attention weights take no gradient")
-        q, k, v, w = ctx.saved_tensors
         if dctx is None:
             return None, None, None, None
-        dq, dk, dv = fusion_attention_bwd(q, k, v, w, dctx)
+        dq, dk, dv = fusion_attention_bwd(*ctx.saved_tensors, dctx)
         return dq, dk, dv, None
 
 
 def fusion_attention(q, k, v, video_lengths):
-    """K4 as the fusion calls it: through ``FusionAttention`` when autograd
-    records a gradient for q, k or v, else straight to the forward wrapper."""
+    """K4 as the fusion calls it -> (ctx, weights): through
+    ``FusionAttention`` when autograd records a gradient for q, k or v, else
+    straight to the forward wrapper, saving nothing."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FusionAttention.apply(q, k, v, video_lengths)
-    return fusion_attention_fwd(q, k, v, video_lengths)
+    return fusion_attention_fwd(q, k, v, video_lengths)[:2]
 
 
 def cross_attention_fusion_apply(params: Params, cfg: FusionConfig, audio_tbd: torch.Tensor,

@@ -42,7 +42,7 @@ import torch.nn.functional as F
 from avsr_tpu_torch import kernels
 from avsr_tpu_torch.configs import DecoderConfig
 from avsr_tpu_torch.data.units import GO_ID
-from avsr_tpu_torch.models.fusion import fusion_attention_bwd_plain
+from avsr_tpu_torch.models.fusion import attention_bwd_from_weights
 from avsr_tpu_torch.models.transformer_common import layer_norm, sinusoidal_pe
 from avsr_tpu_torch.ops import attention as attn
 from avsr_tpu_torch.utils.params import Params, glorot_uniform, normal_init, zeros
@@ -91,8 +91,8 @@ def decoder_attention_bwd_plain(q, k, v, weights, dctx):
     """Plain-PyTorch K5 backward: the gradient JAX's autodiff takes through
     the reference core, with its rounding points.  The mask enters only
     through the weights (masked entries are exactly 0), so this is the
-    softmax-attention backward K4 uses -> (dq, dk, dv)."""
-    return fusion_attention_bwd_plain(q, k, v, weights, dctx)
+    softmax-attention backward from the weights -> (dq, dk, dv)."""
+    return attention_bwd_from_weights(q, k, v, weights, dctx)
 
 
 def decoder_attention_fwd(q, k, v, bias, *, save: bool = False):

@@ -26,13 +26,19 @@ Phases, in order; any failure exits nonzero before the final line:
 6. K1 bwd  — the LSTM backward kernel against its plain twin on the same
              residuals and random cotangents at [T=99, G=2, B=128, H=256]:
              errors on dxw, db, dh0, dc0 and dWh; times at B=128 and B=8.
-7. K4      — the fusion attention kernels, forward and backward, against
-             their plain twins at [B=128, 4 heads, T_a=50, T_v=150,
-             A=dv=128] with ragged video lengths including 0: errors on
-             ctx, P, dq, dk, dv; times (the backward's library yardstick:
-             scaled_dot_product_attention's backward, as in phase 25); and
-             the errors again at the preset's 16 s limit (T_a=133, T_v=400,
-             B=4).
+7. K4      — the fusion attention kernels (tensor cores), forward and
+             backward, against their plain twins at [B=128, 4 heads,
+             T_a=50, T_v=150, A=dv=128] (the fast model), T_a=197 (v2),
+             the 16 s limits [B=4, T_a=133 and 531, T_v=400] and the
+             (A, dv) = (128, 64) instance, ragged video lengths including 0
+             (uniform weights required there), both backwards fed the plain
+             forward's row statistics: errors on ctx, P, the weights the
+             kernel's statistics give, dq, dk, dv; two launches bit-equal;
+             the backward's allocations (no [B, nh, T_a, T_v] tensor); the
+             kernels' registers, spills and HMMA count (as phase 20); at the
+             fast and v2 shapes times, device times of the kernels and of
+             the library yardstick (scaled_dot_product_attention and its
+             backward, as in phase 25) and the bounds.
 8. train   — the full-width ``lrs2_av_fast`` train step at B=128, 6 s,
              label cap 80, AU targets, dropout 0.1, noise mixing on (a
              seeded synthetic two-type bank): (a) the loss and every
@@ -297,6 +303,11 @@ BEAM_SCORE_REL_TOL = 1e-2
 # fault, not ties.
 GREEDY_MAX_DIFF_ROWS = 16
 
+# the profiler's names of the tensor-core attention kernels: K11's whole-row
+# instances (head width 64), K4's streamed ones
+K11_SHARE = ("K11 fwd + bwd", ("attn_mma_", "<64,"))
+K4_SHARE = ("K4 fwd + bwd", "attn_mma_stream_")
+
 # H100 SXM peaks (NVIDIA data sheet): the bounds of the kernels line
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
@@ -416,8 +427,8 @@ def busy_share(dev, span):
 def profile_report(label, fn, per=1, per_name="call", shares=()):
     """Profile one run of ``fn``: device busy share, device events per
     ``per_name``, the device time of the top kernels and, for each (label,
-    name part) of ``shares``, the share of the device's busy time taken by
-    the kernels whose name holds that part."""
+    name part, or a tuple of parts) of ``shares``, the share of the device's
+    busy time taken by the kernels whose name holds every part."""
     import collections
 
     dev, span = device_events(fn)
@@ -432,9 +443,11 @@ def profile_report(label, fn, per=1, per_name="call", shares=()):
           f"{per_name})")
     for name, (n, us) in top:
         print(f"  {us / 1e3:8.3f} ms {n:6d}x  {name[:100]}")
-    for what, part in shares:
-        n = sum(c for name, (c, _) in by_name.items() if part in name)
-        us = sum(t for name, (_, t) in by_name.items() if part in name)
+    for what, parts in shares:
+        hit = [(c, t) for name, (c, t) in by_name.items()
+               if all(p in name for p in ((parts,) if isinstance(parts, str) else parts))]
+        n = sum(c for c, _ in hit)
+        us = sum(t for _, t in hit)
         print(f"profile {label}: {what} {us / 1e3:.3f} ms of device time over {n} launches "
               f"({us / 1e3 / per:.3f} ms per {per_name}), share of device busy "
               f"{us / busy if busy else 0.0:.3f}")
@@ -516,17 +529,18 @@ def k3_inputs(cfg, B, S, dev, seed=1):
     return re.contiguous(), im.contiguous(), feat_len
 
 
-def k4_inputs(B, nh, Ta, Tv, A, dev, seed=2):
+def k4_inputs(B, nh, Ta, Tv, A, dev, seed=2, dv=None):
     import torch
 
+    dv = dv or A
     g = torch.Generator().manual_seed(seed)
     q = torch.randn((B, Ta, nh, A), generator=g).to(torch.bfloat16)
     k = torch.randn((B, Tv, nh, A), generator=g).to(torch.bfloat16)
-    v = torch.randn((B, Tv, nh, A), generator=g).to(torch.bfloat16)
+    v = torch.randn((B, Tv, nh, dv), generator=g).to(torch.bfloat16)
     vlen = torch.randint(1, Tv + 1, (B,), generator=g, dtype=torch.int32)
     vlen[0] = Tv
     vlen[1] = 0  # no video: the reference's uniform softmax over all keys
-    dctx = torch.randn((B, Ta, nh, A), generator=g).to(torch.bfloat16)
+    dctx = torch.randn((B, Ta, nh, dv), generator=g).to(torch.bfloat16)
     return [x.to(dev) for x in (q, k, v, vlen, dctx)]
 
 
@@ -830,65 +844,125 @@ def phase_k1_bwd(dev, report):
         bound=bound(nbytes(*args[:9], *out_k), flops))
 
 
+# K4's shapes (B, T_a, T_v, dv) at 4 heads, A = 128: the fast model's, the
+# v2 model's (T_a = 197, no time reduction), the 16 s limits of the fast
+# (T_a = 133) and the v2 model (T_a = 531) at T_v = 400, and the (128, 64)
+# instance (memory_value_dim = 256 over 4 heads) at the fast shape
+K4_SHAPES = ((128, 50, 150, 128), (128, 197, 150, 128), (4, 133, 400, 128), (4, 531, 400, 128),
+             (128, 50, 150, 64))
+
+
+def k4_bounds(q, k, v, vlen, ctx, P, dctx, grads):
+    """(forward, backward) bounds from the function's own bytes: the forward
+    reads q, k, v and the lengths and writes ctx and P; the backward reads
+    q, k, v, the lengths and dctx and writes dq, dk, dv, and forms the
+    scores again (its input holds no weights): five products."""
+    B, Ta, nh, A = q.shape
+    Tv, dv = k.shape[1], v.shape[-1]
+    pairs = B * nh * Ta * Tv
+    return (bound(nbytes(q, k, v, vlen, ctx, P), 2 * pairs * (A + dv)),
+            bound(nbytes(q, k, v, vlen, dctx, *grads), 2 * pairs * (3 * A + 2 * dv)))
+
+
 def phase_k4(dev, report):
     import torch
 
     from avsr_tpu_torch.models import fusion as fus
 
-    q, k, v, vlen, dctx = k4_inputs(128, 4, 50, 150, 128, dev)
-    ctx_k, w_k = fus.fusion_attention_fwd(q, k, v, vlen)
-    ctx_p, w_p = fus.fusion_attention_fwd_plain(q, k, v, vlen)
-    g_k = fus.fusion_attention_bwd(q, k, v, w_p, dctx)
-    g_p = fus.fusion_attention_bwd_plain(q, k, v, w_p, dctx)
-    torch.cuda.synchronize()
-    fwd_errs = {"ctx": max_err(ctx_k, ctx_p), "P": max_err(w_k, w_p)}
-    grad_errs = {n: rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), g_k, g_p)}
-    grad_abs = {n: max_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), g_k, g_p)}
-    print(f"K4 fwd max abs err {fwd_errs} (tol ctx {K4_CTX_TOL}, P {K4_P_TOL}); "
-          f"row of length 0 uniform: {float(w_k[1].min())}..{float(w_k[1].max())}")
-    print(f"K4 bwd max abs err {grad_abs}; relative to max |plain| {grad_errs} "
-          f"(tol {K4_GRAD_REL_TOL})")
-    if not (fwd_errs["ctx"] <= K4_CTX_TOL and fwd_errs["P"] <= K4_P_TOL):
-        fail("K4", f"forward kernel disagrees with the plain twin: {fwd_errs}")
-    if not max(grad_errs.values()) <= K4_GRAD_REL_TOL:
-        fail("K4", f"backward kernel disagrees with the plain twin: {grad_errs}")
-    # the preset's 16 s limit: T_v = 400 frames, T_a = 133 fused steps
-    lq, lk, lv, lvlen, ldctx = k4_inputs(4, 4, 133, 400, 128, dev, seed=3)
-    lctx_k, lw_k = fus.fusion_attention_fwd(lq, lk, lv, lvlen)
-    lctx_p, lw_p = fus.fusion_attention_fwd_plain(lq, lk, lv, lvlen)
-    long_errs = {"ctx": max_err(lctx_k, lctx_p), "P": max_err(lw_k, lw_p)}
-    long_errs.update({n: rel_err(a, b) for n, a, b in zip(
-        ("dq", "dk", "dv"), fus.fusion_attention_bwd(lq, lk, lv, lw_p, ldctx),
-        fus.fusion_attention_bwd_plain(lq, lk, lv, lw_p, ldctx))})
-    print(f"K4 at [B=4,T_a=133,T_v=400]: ctx/P max abs err, dq/dk/dv relative {long_errs}")
-    if not (long_errs["ctx"] <= K4_CTX_TOL and long_errs["P"] <= K4_P_TOL
-            and max(long_errs[n] for n in ("dq", "dk", "dv")) <= K4_GRAD_REL_TOL):
-        fail("K4", f"kernels disagree with the plain twins at T_v=400: {long_errs}")
-    key_bias = ((torch.arange(150, device=dev)[None, :] >= vlen[:, None]).float() * -1e9)
-    lib_mask = key_bias.to(torch.bfloat16)[:, None, None, :]
-    t = {
-        "fwd": (time_ms(lambda: fus.fusion_attention_fwd(q, k, v, vlen)),
-                time_ms(lambda: fus.fusion_attention_fwd_plain(q, k, v, vlen)),
-                time_ms(lambda: sdpa(q, k, v, lib_mask))),
-        "bwd": (time_ms(lambda: fus.fusion_attention_bwd(q, k, v, w_p, dctx)),
-                time_ms(lambda: fus.fusion_attention_bwd_plain(q, k, v, w_p, dctx)),
-                sdpa_bwd_device_ms(q, k, v, lib_mask, dctx)),
-    }
-    for name, (tk, tp, tl) in t.items():
-        print(f"K4 {name} [B=128,nh=4,T_a=50,T_v=150,A=128] kernel {tk:.4f} ms  "
-              f"plain {tp:.4f} ms  library {tl:.4f} ms (bwd: scaled_dot_product_attention's "
-              f"backward, device)")
-    pairs = 128 * 4 * 50 * 150
+    build = build_report("K4", "cross_attention", {
+        f"attn_mma_stream_{kind}<{dk},{dv}>": f"attn_mma_stream_{kind}ILi{dk}ELi{dv}E"
+        for dk, dv in ((128, 128), (128, 64)) for kind in ("fwd", "bwd_q", "bwd_kv")})
+    errs, abs_errs, timed = {}, {}, {}
+    for B, Ta, Tv, dv in K4_SHAPES:
+        q, k, v, vlen, dctx = k4_inputs(B, 4, Ta, Tv, 128, dev, seed=Ta + Tv + dv, dv=dv)
+        ctx_k, w_k, st_k = fus.fusion_attention_fwd(q, k, v, vlen, save=True)
+        ctx_k2, w_k2, st_k2 = fus.fusion_attention_fwd(q, k, v, vlen, save=True)
+        ctx_serve, w_serve, none = fus.fusion_attention_fwd(q, k, v, vlen)
+        ctx_p, w_p, st_p = fus.fusion_attention_fwd_plain(q, k, v, vlen, save=True)
+        # the backward from the plain statistics: no [B, nh, T_a, T_v] tensor
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        g_k = fus.fusion_attention_bwd(q, k, v, vlen, *st_p, dctx)
+        torch.cuda.synchronize()
+        grew = torch.cuda.max_memory_allocated() - before
+        g_k2 = fus.fusion_attention_bwd(q, k, v, vlen, *st_p, dctx)
+        g_p = fus.fusion_attention_bwd_plain(q, k, v, vlen, *st_p, dctx)
+        w_stats = fus.fusion_attention_weights(q, k, vlen, *st_k)
+        torch.cuda.synchronize()
+        same = (torch.equal(ctx_k, ctx_k2) and torch.equal(w_k, w_k2)
+                and all(torch.equal(a, b) for a, b in zip(st_k, st_k2))
+                and torch.equal(ctx_k, ctx_serve) and torch.equal(w_k, w_serve) and none is None
+                and all(torch.equal(a, b) for a, b in zip(g_k, g_k2)))
+        fwd = {"ctx": max_err(ctx_k, ctx_p), "P": max_err(w_k, w_p),
+               "P_from_stats": max_err(w_stats, w_p), "row_max": max_err(st_k[0], st_p[0]),
+               "row_sum_rel": rel_err(st_k[1], st_p[1])}
+        rel = {n: rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), g_k, g_p)}
+        # the length-0 row: the uniform softmax over exactly T_v keys
+        uni = max_err(w_k[1], torch.full_like(w_k[1], 1.0 / Tv))
+        scratch = nbytes(*g_k) + B * 4 * Ta * 4 + (1 << 20)
+        print(f"K4 [B={B},4 heads,T_a={Ta},T_v={Tv},A=128,dv={dv}] forward max abs err {fwd} "
+              f"(tol ctx {K4_CTX_TOL}, P {K4_P_TOL}); dq/dk/dv relative to max |plain| {rel} "
+              f"(tol {K4_GRAD_REL_TOL}); length-0 row's weights against 1/T_v: {uni}; two "
+              f"launches bit-equal (and the save-mode outputs the serving ones): {same}; the "
+              f"backward allocated {grew} bytes (outputs and D: {scratch - (1 << 20)})")
+        if not (torch.isfinite(ctx_k.float()).all() and all(torch.isfinite(g.float()).all()
+                                                            for g in g_k)
+                and fwd["ctx"] <= K4_CTX_TOL and fwd["P"] <= K4_P_TOL
+                and fwd["P_from_stats"] <= K4_P_TOL and max(rel.values()) <= K4_GRAD_REL_TOL
+                and uni <= K4_P_TOL and same):
+            fail("K4", f"kernels disagree with the plain twins at B={B}, T_a={Ta}, T_v={Tv}, "
+                       f"dv={dv}: {fwd} {rel}, length-0 row {uni}, bit-equal reruns {same}")
+        if grew > scratch:
+            fail("K4", f"the backward allocated {grew} bytes at B={B}, T_a={Ta}, T_v={Tv}: more "
+                       f"than its outputs and D")
+        errs[(B, Ta, Tv, dv)] = max(fwd["ctx"], fwd["P"])
+        abs_errs[(B, Ta, Tv, dv)] = max(max_err(a, b) for a, b in zip(g_k, g_p))
+        if (B, Tv, dv) == (128, 150, 128):  # the fast and the v2 model's shapes: times
+            lib_mask = ((torch.arange(Tv, device=dev)[None, :] >= vlen[:, None]).float()
+                        * -1e9).to(torch.bfloat16)[:, None, None, :]
+            st = st_p
+            t = timed[Ta] = {
+                "fwd": time_ms(lambda: fus.fusion_attention_fwd(q, k, v, vlen)),
+                "fwd_device": device_ms(lambda: fus.fusion_attention_fwd(q, k, v, vlen)),
+                "fwd_save_device": device_ms(
+                    lambda: fus.fusion_attention_fwd(q, k, v, vlen, save=True)),
+                "fwd_plain": time_ms(lambda: fus.fusion_attention_fwd_plain(q, k, v, vlen)),
+                "fwd_library": time_ms(lambda: sdpa(q, k, v, lib_mask)),
+                "fwd_library_device": device_ms(lambda: sdpa(q, k, v, lib_mask)),
+                "bwd": time_ms(lambda: fus.fusion_attention_bwd(q, k, v, vlen, *st, dctx)),
+                "bwd_device": device_ms(lambda: fus.fusion_attention_bwd(q, k, v, vlen, *st,
+                                                                         dctx)),
+                "bwd_plain": time_ms(lambda: fus.fusion_attention_bwd_plain(q, k, v, vlen, *st,
+                                                                            dctx)),
+                "bwd_library_device": sdpa_bwd_device_ms(q, k, v, lib_mask, dctx),
+            }
+            t["bound_fwd"], t["bound_bwd"] = k4_bounds(q, k, v, vlen, ctx_k, w_k, dctx, g_k)
+            print(f"K4 [B=128,4 heads,T_a={Ta},T_v=150,A=dv=128] fwd kernel {t['fwd']:.4f} ms "
+                  f"(device {t['fwd_device']:.4f} ms; save mode {t['fwd_save_device']:.4f})  "
+                  f"plain {t['fwd_plain']:.4f} ms  library (scaled_dot_product_attention, same "
+                  f"mask) {t['fwd_library']:.4f} ms (device {t['fwd_library_device']:.4f} ms)  "
+                  f"bound {t['bound_fwd'][0]:.5f} ms ({t['bound_fwd'][1]}); bwd kernel "
+                  f"{t['bwd']:.4f} ms (device {t['bwd_device']:.4f} ms)  plain "
+                  f"{t['bwd_plain']:.4f} ms  library (its backward, device) "
+                  f"{t['bwd_library_device']:.4f} ms  bound {t['bound_bwd'][0]:.5f} ms "
+                  f"({t['bound_bwd'][1]})")
+    fast, v2 = timed[50], timed[197]
     report["fusion_attention_fwd"] = dict(
-        max_abs_err=max(fwd_errs.values()), ms=t["fwd"][0], plain_ms=t["fwd"][1],
-        library_ms=t["fwd"][2],
-        device_ms=device_ms(lambda: fus.fusion_attention_fwd(q, k, v, vlen)),
-        bound=bound(nbytes(q, k, v, vlen, ctx_k, w_k), 2 * pairs * 256))
+        max_abs_err=max(errs.values()), ms=fast["fwd"], plain_ms=fast["fwd_plain"],
+        library_ms=fast["fwd_library"], device_ms=fast["fwd_device"], bound=fast["bound_fwd"],
+        library_device_ms=fast["fwd_library_device"], save_device_ms=fast["fwd_save_device"],
+        v2_device_ms=v2["fwd_device"], v2_library_device_ms=v2["fwd_library_device"],
+        v2_bound_ms=v2["bound_fwd"][0],
+        registers={kind: r["registers"] for kind, r in build.items() if "fwd" in kind},
+        hmma={kind: r.get("hmma") for kind, r in build.items() if "fwd" in kind})
     report["fusion_attention_bwd"] = dict(
-        max_abs_err=max(grad_abs.values()), ms=t["bwd"][0], plain_ms=t["bwd"][1],
-        library_ms=t["bwd"][2],
-        device_ms=device_ms(lambda: fus.fusion_attention_bwd(q, k, v, w_p, dctx)),
-        bound=bound(nbytes(q, k, v, w_p, dctx, *g_k), 2 * pairs * 512))
+        max_abs_err=max(abs_errs.values()), ms=fast["bwd"], plain_ms=fast["bwd_plain"],
+        library_ms=fast["bwd_library_device"], device_ms=fast["bwd_device"],
+        bound=fast["bound_bwd"], v2_device_ms=v2["bwd_device"],
+        v2_library_device_ms=v2["bwd_library_device"], v2_bound_ms=v2["bound_bwd"][0],
+        registers={kind: r["registers"] for kind, r in build.items() if "bwd" in kind},
+        hmma={kind: r.get("hmma") for kind, r in build.items() if "bwd" in kind})
 
 
 def phase_train(dev, card, cfg, label="train", needed=TRAIN_KERNELS, lr=1e-4, shares=()):
@@ -1626,19 +1700,20 @@ def k11_inputs(B, T, dev, seed, nh=8, dh=64):
     return qkv.to(dev), lens.to(dev)
 
 
-def k11_build_report():
-    """The K11 kernels as built: registers and spills from ``ptxas -v`` and,
-    where ``cuobjdump`` is present, the count of tensor-core (HMMA)
-    instructions in each.  Fails when a kernel spills or has no HMMA."""
+def build_report(phase, stem, kinds):
+    """The tensor-core attention kernels of ``csrc/<stem>.cu`` as built, one
+    entry per kind of ``kinds`` (label -> a part of the mangled name, which
+    carries the template widths): registers and spills from ``ptxas -v``
+    and, where ``cuobjdump`` is present, the count of tensor-core (HMMA)
+    instructions.  Fails when a kernel spills, has no HMMA or is missing."""
     import os
     import shutil
 
     from avsr_tpu_torch import kernels
 
-    kinds = ("attn_mma_fwd", "attn_mma_bwd_q", "attn_mma_bwd_kv")
     found = {}
-    for name, r in kernels.ptxas_report("encoder_attention").items():
-        kind = next((k for k in kinds if k in name), None)
+    for name, r in kernels.ptxas_report(stem).items():
+        kind = next((k for k, part in kinds.items() if part in name), None)
         if kind:  # the most registers and the spills of the kind's instances
             f = found.setdefault(kind, {"registers": 0, "spill_stores": 0, "spill_loads": 0,
                                         "instances": 0})
@@ -1656,20 +1731,20 @@ def k11_build_report():
             found.setdefault(kind_, {})["hmma"] = 0
         for line in sass.splitlines():
             if "Function :" in line:
-                kind = next((k for k in kinds if k in line), None)
+                kind = next((k for k, part in kinds.items() if part in line), None)
             elif kind and "HMMA" in line:
                 found[kind]["hmma"] += 1
     else:
-        print("K11 build: cuobjdump not found; HMMA count not read")
-    print(f"K11 build (ptxas -v, cuobjdump -sass): {found}")
+        print(f"{phase} build: cuobjdump not found; HMMA count not read")
+    print(f"{phase} build ({stem}.cu; ptxas -v, cuobjdump -sass): {found}")
     for kind in kinds:
         r = found.get(kind, {})
         if "registers" not in r:
-            fail("K11", f"no ptxas report for {kind}")
+            fail(phase, f"no ptxas report for {kind}")
         if r["spill_stores"] or r["spill_loads"]:
-            fail("K11", f"{kind} spills registers: {r}")
+            fail(phase, f"{kind} spills registers: {r}")
         if r.get("hmma", 1) == 0:
-            fail("K11", f"{kind} has no tensor-core (HMMA) instruction")
+            fail(phase, f"{kind} has no tensor-core (HMMA) instruction")
     return found
 
 
@@ -1678,7 +1753,8 @@ def phase_k11(dev, report):
 
     from avsr_tpu_torch.models import transformer as tfm
 
-    build = k11_build_report()
+    build = build_report("K11", "encoder_attention", {
+        f"attn_mma_{kind}": f"attn_mma_{kind}ILi64E" for kind in ("fwd", "bwd_q", "bwd_kv")})
     errs, dms_at = {}, {}
     for B, T in K11_SHAPES:
         qkv, lens = k11_inputs(B, T, dev, seed=T)
@@ -2295,7 +2371,8 @@ def main() -> int:
                    (5, lambda: paths.update(serve=phase_serve(dev, card, cfg))),
                    (6, lambda: phase_k1_bwd(dev, report)),
                    (7, lambda: phase_k4(dev, report)),
-                   (8, lambda: paths.update(train=phase_train(dev, card, cfg))),
+                   (8, lambda: paths.update(train=phase_train(dev, card, cfg,
+                                                              shares=(K4_SHARE,)))),
                    (9, lambda: phase_k5(dev, report)),
                    (10, lambda: phase_k6(dev, report)),
                    (11, lambda: phase_k7(dev, report)),
@@ -2323,7 +2400,7 @@ def main() -> int:
                    # 3e-5 is about its preset's warmup lr at step 12
                    (27, lambda: paths.update(train_v2=phase_train(
                        dev, card, v2_cfg, "train_v2", TRAIN_V2_KERNELS, lr=3e-5,
-                       shares=(("K11 fwd + bwd", "attn_mma"),)))),
+                       shares=(K11_SHARE, K4_SHARE)))),
                    (28, lambda: phase_k2(dev, report)),
                    (29, lambda: phase_k10_luong(dev, report)),
                    (30, lambda: phase_k8_luong(dev, report)),

@@ -6,6 +6,9 @@ twins (``fusion_attention_fwd_plain`` / ``fusion_attention_bwd_plain``);
 these tests hold them, inside the whole fusion block, against ``jax.vjp``
 of ``cross_attention_fusion_apply`` on the same seeded numpy inputs and
 weights, with a video row of length 0 (the reference's uniform softmax).
+The backward's residual is the softmax's row statistics, not the weights:
+the weights rebuilt from them are the forward's, and ``FusionAttention``
+saves no [B, nh, T_a, T_v] tensor.
 
 Tolerances: fp32 at atol 1e-5 / rtol 1e-4 (JAX matmuls at "highest"
 precision, only summation order differs).  Under the bf16 policy both
@@ -126,11 +129,12 @@ def test_core_twins_match_jax_core_vjp(dtype):
     (ctx_j, w_j), vjp = jax.vjp(core, *prim)
     g_j = vjp((jnp.asarray(dctx).astype(jdt), jnp.zeros_like(w_j)))
     qt, kt, vt, dt = (torch.from_numpy(x).to(tdt) for x in (q, k, v, dctx))
-    ctx_t, w_t = tfus.fusion_attention_fwd_plain(qt, kt, vt, torch.from_numpy(v_len))
+    vl = torch.from_numpy(v_len)
+    ctx_t, w_t, stats = tfus.fusion_attention_fwd_plain(qt, kt, vt, vl, save=True)
     _close(ctx_t.float().numpy(), _np(ctx_j), dtype, out=True)
     _close(w_t.numpy(), _np(w_j), dtype, out=True)
     np.testing.assert_allclose(w_t[1].numpy(), 1.0 / Tv, rtol=1e-6)  # no video: uniform
-    g_t = tfus.fusion_attention_bwd_plain(qt, kt, vt, w_t, dt)
+    g_t = tfus.fusion_attention_bwd_plain(qt, kt, vt, vl, *stats, dt)
     for a, b in zip(g_t, g_j):
         assert a.dtype == tdt
         _close(a.float().numpy(), _np(b), dtype)
@@ -173,5 +177,58 @@ def test_fusion_launchers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="expected a tensor on"):
         kernels.fusion_attention_fwd(q, kv, kv, torch.ones(1, dtype=torch.int32))
     with pytest.raises(ValueError, match="expected a tensor on"):
-        kernels.fusion_attention_bwd(q, kv, kv, torch.zeros(1, 2, 3, 4), q)
+        kernels.fusion_attention_bwd(q, kv, kv, torch.ones(1, dtype=torch.int32),
+                                     torch.zeros(1, 2, 3), torch.ones(1, 2, 3), q)
     assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_fusion_weights_from_saved_statistics(dtype):
+    """The weights rebuilt from the forward's saved row statistics are the
+    forward's own, bit for bit, with T_a != T_v and a video row of length
+    0; the serving forward (nothing saved) gives the same context and
+    weights."""
+    _, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(4)
+    B, Ta, Tv, nh, A, dv = 3, 6, 11, 2, 8, 16
+    q, k = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(tdt)
+            for s in ((B, Ta, nh, A), (B, Tv, nh, A)))
+    v = torch.from_numpy(rng.standard_normal((B, Tv, nh, dv)).astype(np.float32)).to(tdt)
+    vl = torch.tensor([11, 0, 4], dtype=torch.int32)
+    ctx, w, (row_max, row_sum) = tfus.fusion_attention_fwd(q, k, v, vl, save=True)
+    assert tuple(row_max.shape) == tuple(row_sum.shape) == (B, nh, Ta)
+    assert row_max.dtype == row_sum.dtype == torch.float32
+    assert torch.equal(tfus.fusion_attention_weights(q, k, vl, row_max, row_sum), w)
+    ctx_serve, w_serve, none = tfus.fusion_attention_fwd(q, k, v, vl)
+    assert none is None and torch.equal(ctx_serve, ctx) and torch.equal(w_serve, w)
+    np.testing.assert_allclose(w[1].numpy(), 1.0 / Tv, rtol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 7, 2, 8, 8), (3, 9, 4, 4, 16, 8)])
+def test_fusion_attention_saves_no_weights(shape):
+    """``FusionAttention`` keeps for its backward the operands, the video
+    lengths and the softmax's row statistics [B, nh, T_a]: no tensor of the
+    weights' [B, nh, T_a, T_v] shape, and nothing of T_a x T_v elements per
+    head; the weights it returns still carry no gradient."""
+    B, Ta, Tv, nh, A, dv = shape
+    rng = np.random.default_rng(Ta)
+    q, k = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).requires_grad_(True)
+            for s in ((B, Ta, nh, A), (B, Tv, nh, A)))
+    v = torch.from_numpy(rng.standard_normal((B, Tv, nh, dv)).astype(np.float32))
+    v.requires_grad_(True)
+    vl = torch.from_numpy(rng.integers(0, Tv + 1, size=B).astype(np.int32))
+    saved = []
+
+    def pack(x):
+        saved.append(x)
+        return x
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda x: x):
+        out, w = tfus.FusionAttention.apply(q, k, v, vl)
+    assert [tuple(x.shape) for x in saved] == [(B, Ta, nh, A), (B, Tv, nh, A), (B, Tv, nh, dv),
+                                               (B,), (B, nh, Ta), (B, nh, Ta)]
+    assert saved[0] is q and saved[1] is k and saved[2] is v and saved[3] is vl
+    assert all(x.numel() < B * nh * Ta * Tv or x is q or x is k or x is v for x in saved)
+    assert not w.requires_grad
+    out.backward(torch.ones_like(out))
+    assert all(x.grad is not None and x.grad.shape == x.shape for x in (q, k, v))

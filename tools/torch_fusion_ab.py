@@ -1,0 +1,78 @@
+#!/usr/bin/env python3
+"""Time K4, the cross-attention fusion core, in two checkouts on one card.
+
+    python3 tools/torch_fusion_ab.py --trees build/parent . --order ABBA
+
+Each run is a process of its own started in one checkout (``--trees``, A
+first): it builds that checkout's kernels and times the device work of its
+``models.fusion`` K4 wrappers (chip_smoke's ``device_ms``: CUDA events
+around 20 calls queued behind a spin kernel) at the fast model's shape
+[B=128, 4 heads, T_a=50, T_v=150, 128] and at ``lrs2_av_v2``'s T_a=197,
+on chip_smoke's ``k4_inputs`` (ragged video lengths with a 0-length row):
+the forward as serving calls it, and the backward from the forward's
+residual, whichever the checkout's backward takes (the fp32 weights, or the
+softmax's row statistics).  The runs go in ``--order`` (A B B A by
+default), so both checkouts share the card's state; the last line is one
+JSON object with every run's numbers.  Needs a CUDA card; the other
+checkout is typically the parent commit unpacked with ``git archive`` into
+a git-ignored directory.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+RUN = r"""
+import inspect, json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from avsr_tpu_torch import kernels
+from avsr_tpu_torch.models import fusion as fus
+
+kernels.build()
+dev = torch.device("cuda", 0)
+out = {}
+for Ta in (50, 197):
+    q, k, v, vlen, dctx = cs.k4_inputs(128, 4, Ta, 150, 128, dev)
+    if "row_max" in inspect.signature(fus.fusion_attention_bwd).parameters:
+        _, _, stats = fus.fusion_attention_fwd(q, k, v, vlen, save=True)
+        residual = (vlen, *stats)
+    else:
+        residual = (fus.fusion_attention_fwd(q, k, v, vlen)[1],)
+    out[f"fwd_T_a{Ta}"] = cs.device_ms(lambda: fus.fusion_attention_fwd(q, k, v, vlen))
+    out[f"bwd_T_a{Ta}"] = cs.device_ms(lambda: fus.fusion_attention_bwd(q, k, v, *residual, dctx))
+print(json.dumps(out))
+"""
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--trees", nargs=2, required=True, help="checkout A, checkout B")
+    ap.add_argument("--order", default="ABBA")
+    args = ap.parse_args()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    print(card)
+    runs = []
+    for which in args.order:
+        tree = args.trees["AB".index(which)]
+        res = subprocess.run([sys.executable, "-c", RUN], cwd=tree, capture_output=True, text=True,
+                             env=dict(os.environ))
+        if res.returncode != 0:
+            print(res.stderr[-4000:], file=sys.stderr)
+            return 1
+        r = json.loads(res.stdout.strip().splitlines()[-1])
+        print(f"{which} ({tree}): K4 device ms " + ", ".join(f"{k} {x:.4f}" for k, x in r.items()),
+              flush=True)
+        runs.append(dict(r, tree=tree, which=which))
+    print(json.dumps({"card": card, "runs": runs}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
 """Alternate the PyTorch port's full-width train step between checkouts on one card.
 
-    python3 tools/torch_train_ab.py --trees build/parent . --order ABBA --steps 12
+    python3 tools/torch_train_ab.py --trees build/parent . --preset v2 --order ABBA --steps 12
 
 Each run is a process of its own started in one checkout (``--trees``, A
-first): it builds that checkout's kernels, makes the ``lrs2_av_v2`` train
-cell of its ``chip_smoke.py`` (B=128, 6 s, label cap 80, noise mixing on,
-constant lr 3e-5), times ``--steps`` train steps on the host clock to a
-synchronise, reads the peak device memory, and profiles three more steps:
-the device's busy time per step and the device time per step of the
-attention kernels by name (``attn_mma``: the tensor-core core;
-``attn_``: any other attention-core kernel).  The runs go in ``--order``
+first): it builds that checkout's kernels, makes the train cell of its
+``chip_smoke.py`` for ``--preset`` (``fast``: ``lrs2_av_fast`` at constant
+lr 1e-4; ``v2``: ``lrs2_av_v2`` at constant lr 3e-5; both B=128, 6 s, label
+cap 80, noise mixing on), times ``--steps`` train steps on the host clock
+to a synchronise, reads the peak device memory, and profiles three more
+steps: the device's busy time per step and the device time per step of the
+attention kernels by name, told apart by their template widths and family
+(``k11``: ``attn_mma_`` at head width 64, the encoder self attention;
+``k4``: ``attn_mma_stream_``, the fusion core on the streamed tiles;
+``attn_other``: any other attention-core kernel, the decoder's K5 and, in
+a checkout before the fusion core moved to the tensor cores, K4's).  The
+runs go in ``--order``
 (A B B A by default), so both checkouts share the card's state; the last
 line is one JSON object with every run's numbers.  Needs a CUDA card; the
 other checkout is typically the parent commit unpacked with ``git archive``
@@ -32,15 +37,15 @@ sys.path.insert(0, ".")
 import torch
 import chip_smoke as cs
 from avsr_tpu_torch import kernels
-from avsr_tpu_torch.configs import NoiseConfig, lrs2_av_v2
+from avsr_tpu_torch.configs import NoiseConfig, lrs2_av_fast, lrs2_av_v2
 from avsr_tpu_torch.data.units import builtin_unit_dict
 from avsr_tpu_torch.train import step as tstep
 import dataclasses
 
 kernels.build()
 dev = torch.device("cuda", 0)
-cfg = lrs2_av_v2().replace(noise=NoiseConfig(enabled=True))
-cfg = cfg.replace(train=dataclasses.replace(cfg.train, lr_schedule="constant", learning_rate=3e-5))
+cfg = PRESET().replace(noise=NoiseConfig(enabled=True))
+cfg = cfg.replace(train=dataclasses.replace(cfg.train, lr_schedule="constant", learning_rate=LR))
 V = builtin_unit_dict(cfg.data.unit).vocab_size
 batch, frames = cs.train_batch(cfg, V, dev)
 bank = cs.noise_bank(cfg, dev)
@@ -65,14 +70,24 @@ def three():
 
 ev, span = cs.device_events(three)
 busy, share = cs.busy_share(ev, span)
+def kind(name):
+    if "attn_mma_stream_" in name:
+        return "k4"
+    if "attn_mma_" in name and "<64," in name:
+        return "k11"
+    return "attn_other" if "attn_" in name else "other"
+
 by = collections.defaultdict(float)
 for s, e, name in ev:
-    by["attn_mma" if "attn_mma" in name else "attn_" if "attn_" in name else "other"] += e - s
+    by[kind(name)] += e - s
 print(json.dumps({"step_ms": times, "peak_gib": peak / 2**30, "busy_ms_per_step": busy / 3e3,
                   "busy_share": share, "events_per_step": len(ev) / 3,
-                  "attn_mma_ms_per_step": by["attn_mma"] / 3e3,
-                  "attn_other_ms_per_step": by["attn_"] / 3e3}))
+                  **{f"{k}_ms_per_step": by[k] / 3e3 for k in ("k11", "k4", "attn_other")}}))
 """
+
+
+# --preset: the config function and the constant learning rate of its train cell
+PRESETS = {"fast": ("lrs2_av_fast", "1e-4"), "v2": ("lrs2_av_v2", "3e-5")}
 
 
 def main() -> int:
@@ -80,14 +95,17 @@ def main() -> int:
     ap.add_argument("--trees", nargs=2, required=True, help="checkout A, checkout B")
     ap.add_argument("--order", default="ABBA")
     ap.add_argument("--steps", type=int, default=12)
+    ap.add_argument("--preset", choices=sorted(PRESETS), default="v2")
     args = ap.parse_args()
+    preset, lr = PRESETS[args.preset]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(card)
     runs = []
     for which in args.order:
         tree = args.trees["AB".index(which)]
-        res = subprocess.run([sys.executable, "-c", RUN.replace("STEPS", str(args.steps))],
+        run = RUN.replace("STEPS", str(args.steps)).replace("PRESET", preset).replace("LR", lr)
+        res = subprocess.run([sys.executable, "-c", run],
                              cwd=tree, capture_output=True, text=True, env=dict(os.environ))
         if res.returncode != 0:
             print(res.stderr[-4000:], file=sys.stderr)
@@ -100,10 +118,11 @@ def main() -> int:
               f"{r['quartiles_ms'][0]:.3f}-{r['quartiles_ms'][2]:.3f}), peak "
               f"{r['peak_gib']:.3f} GiB, device busy {r['busy_ms_per_step']:.3f} ms per step "
               f"(share {r['busy_share']:.3f}, {r['events_per_step']:.1f} events), attention "
-              f"kernels: attn_mma {r['attn_mma_ms_per_step']:.3f} ms, other "
-              f"{r['attn_other_ms_per_step']:.3f} ms per step", flush=True)
+              f"kernels per step: K11 {r['k11_ms_per_step']:.3f} ms, K4 (streamed) "
+              f"{r['k4_ms_per_step']:.3f} ms, other attention cores "
+              f"{r['attn_other_ms_per_step']:.3f} ms", flush=True)
         runs.append(r)
-    print(json.dumps({"card": card, "runs": runs}))
+    print(json.dumps({"card": card, "preset": args.preset, "runs": runs}))
     return 0
 
 
