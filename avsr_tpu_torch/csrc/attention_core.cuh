@@ -1,9 +1,13 @@
-// Multi-head attention over a short key axis, forward and backward, on
-// CUDA-core FMAs: K5's (decoder_attention.cu: the teacher-forced decoder's
-// causal self attention and its cross attention over the fused memory),
-// the kernels standing for avsr_tpu/models/transformer_decoder.py:305.  The
-// two instances differ only in the additive mask of the scores, a functor
-// here:
+// Multi-head attention on CUDA-core FMAs, forward and backward, at any head
+// widths that are multiples of 8: the family that runs K4 (the fusion core,
+// avsr_tpu/models/fusion.py:226-235), K5 (the teacher-forced decoder
+// attention, avsr_tpu/models/transformer_decoder.py:335-373) and K11 (the
+// encoder self attention, avsr_tpu/models/transformer.py:204-224) at the
+// widths attention_mma.cuh's tensor-core kernels are not built for
+// (kernels.attention_family routes by width; the presets' widths all have
+// tensor-core instances).  The mask is attention_mma.cuh's functor
+// (LengthMask, CausalMask, BiasMask; at(b) gives utterance b's additive
+// mask (i, j) -> float):
 //
 //   s[i, j]  = float(bf16(q_i . k_j)) / sqrt(A) + mask(b, i, j)
 //   P[i, :]  = softmax(s[i, :])                       (fp32)
@@ -18,11 +22,15 @@
 //   dsc = bf16(dS / sqrt(A))
 //   dQ  = bf16(dsc @ K);  dK = bf16(dsc^T @ Q);  dV = bf16(bf16(P)^T @ dctx)
 //
+// Its residual is the fp32 weights P, which the forward writes when asked
+// (K4's alignments always), not attention_mma.cuh's row statistics.
+//
 // Layouts: q [B, Ta, nh, A], k [B, Tv, nh, A], v [B, Tv, nh, dv], ctx
 // [B, Ta, nh, dv] (bf16); P [B, nh, Ta, Tv] (fp32).  Both launches take q,
 // k and v as strided views (the row of time step t of utterance b starts
-// ld elements after the row of t - 1), and the backward writes dq, dk and
-// dv the same way.
+// ld elements after the row of t - 1; K11 reads them in place from its
+// [B, T, 3, nh, dh] product), and the backward writes dq, dk and dv the
+// same way.
 //
 // Design, forward: one block per (b, h, tile of QT = 16 queries); K of that
 // (b, h) is staged in shared memory transposed to bf16 pairs [A/2][Tv], so
@@ -40,9 +48,8 @@
 // one owner block, so there are no atomics, no zero-fill pass, and the
 // sums are taken in a fixed order: the same bits every run.  The products
 // are CUDA-core fp32 FMAs on bf16-rounded operands (the reference's
-// numerics): the FMA issue rate bounds them.  attention_mma.cuh is the
-// tensor-core core that replaced this one for K11 and K4; K5 moves onto its
-// streamed tiles by its mask.
+// numerics): the FMA issue rate bounds them.  Whole rows staged in shared
+// memory cap the lengths (attn_smem; the wrappers raise with the numbers).
 
 #pragma once
 
@@ -51,6 +58,7 @@
 #include <stdint.h>
 
 namespace {
+namespace core_attn {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
@@ -159,8 +167,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Forward.  `mask(b, i, j)` is the additive mask of query i and key j of
-// utterance b; P may be null (no backward wanted: the weights stay in
+// Forward.  `mask.at(b)(i, j)` is the additive mask of query i and key j
+// of utterance b; P may be null (no backward wanted: the weights stay in
 // shared memory).
 template <typename Mask>
 __global__ void __launch_bounds__(THREADS)
@@ -185,9 +193,10 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Ta, nh, A], rows l
   __syncthreads();
 
   const float sq = sqrtf((float)A);
+  const auto m = mask.at(b);
   rows_by_cols(q_s, reinterpret_cast<const uint32_t*>(kv_s), Tv, A,
                [&](int i, int j, float acc) {
-                 s_s[i * Tv + j] = bf_round(acc) / sq + mask(b, i0 + i, j);
+                 s_s[i * Tv + j] = bf_round(acc) / sq + m(i0 + i, j);
                });
   __syncthreads();
 
@@ -356,7 +365,7 @@ cudaError_t launch_attn_fwd(const void* q, const void* k, const void* v, Mask ma
   if (A % 8 || dv % 8 || Ta < 1 || Tv < 1 || ldq % 8 || ldk % 8 || ldv % 8)
     return cudaErrorInvalidValue;
   const size_t smem = fwd_smem(Tv, A, dv);
-  cudaError_t e = allow_smem(attn_fwd_kernel<Mask>, smem);
+  cudaError_t e = core_attn::allow_smem(attn_fwd_kernel<Mask>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((Ta + QT - 1) / QT, nh, B);
   attn_fwd_kernel<Mask><<<grid, THREADS, smem, stream>>>(
@@ -397,4 +406,5 @@ cudaError_t launch_attn_bwd(const void* q, const void* k, const void* v, const v
   return cudaGetLastError();
 }
 
+}  // namespace core_attn
 }  // namespace

@@ -1,12 +1,14 @@
 // Multi-head attention over one utterance's keys on the H100's tensor cores
 // (mma.sync m16n8k16, bf16 operands, fp32 accumulators), forward and
 // backward, with the mask a functor.  K11 (encoder_attention.cu: the
-// transformer encoder's self attention, avsr_tpu/models/transformer.py:204-224)
-// and K4 (cross_attention.cu: the fusion's audio queries over video keys,
-// avsr_tpu/models/fusion.py:226-235) run on it; K5, still on
-// attention_core.cuh, can move onto it by its mask alone.  It computes, per
-// (utterance b, head h), with DK the width of q and k and DV the width of v
-// and ctx:
+// transformer encoder's self attention, avsr_tpu/models/transformer.py:204-224),
+// K4 (cross_attention.cu: the fusion's audio queries over video keys,
+// avsr_tpu/models/fusion.py:226-235) and K5 (decoder_attention.cu: the
+// teacher-forced decoder's causal self attention and its cross attention
+// over the memory, avsr_tpu/models/transformer_decoder.py:335-373) run on it
+// at the head widths it is built for; other widths (multiples of 8) take
+// attention_core.cuh's CUDA-core kernels.  It computes, per (utterance b,
+// head h), with DK the width of q and k and DV the width of v and ctx:
 //
 //   s[i, j]  = float(bf16(q_i . k_j)) / sqrt(DK) + mask(b, i, j)        (fp32)
 //   P[i, :]  = softmax(s[i, :])     (fp32: max, expf(s - max), sum, divide)
@@ -18,9 +20,11 @@
 //   dsc = bf16(P * (dP - D) / sqrt(DK))
 //   dQ  = bf16(dsc @ K);  dK = bf16(dsc^T @ Q);  dV = bf16(bf16(P)^T @ dctx)
 //
-// The mask is ADDED, never used to skip a key, so a row whose every key is
-// masked gets the uniform softmax over its Tk keys.  Key columns the tiles
-// pad past Tk take s = -inf, P = 0: they are not keys.
+// The mask is ADDED, never used to skip a key whose weight may be nonzero,
+// so a row whose every key is masked gets the uniform softmax over its Tk
+// keys (the causal mask's keys past a query, whose weights are exactly 0,
+// are skipped a 16-key step at a time).  Key columns the tiles pad past Tk
+// take s = -inf, P = 0: they are not keys.
 //
 // What bounds it on an H100: bytes.  K11 at B = 128, 8 heads, T = 197,
 // DK = DV = 64 reads 77.5 MB and writes 25.8 MB forward (~31 us at 3.35
@@ -57,9 +61,10 @@
 //
 // Two families share that arithmetic, by what they stage:
 //
-// * Whole rows (attn_mma_*; K11, DK = DV = DH = 64).  K and V of the
-//   (b, h), or the backward key launch's Q and dctx, are staged whole, once
-//   per block (forward: V's copy in flight while the scores are formed).
+// * Whole rows (attn_mma_*; K11 and K5's causal self attention, DK = DV =
+//   DH = 64).  K and V of the (b, h), or the backward key launch's Q and
+//   dctx, are staged whole, once per block (forward: V's copy in flight
+//   while the scores are formed).
 //   The forward holds KC = 13 steps of 16 keys (T <= 208 in one pass, an
 //   instance of its own in which the q fragments die after the scores);
 //   longer rows take a max, a sum and a P.V pass per 208-key chunk, each
@@ -69,11 +74,11 @@
 //   at T = 531); launch 1 (128 + 2 Tp) * 128 B; launch 2 (128 + 2 Tp) * 128
 //   + 16 Tp B (164 KB at T = 531).
 // * Streamed tiles (attn_mma_stream_*; K4, (DK, DV) = (128, 128) and (128,
-//   64)).  Whole rows of 128-wide K and V do not fit at the presets' 16 s
-//   limits (the forward would need 221 KB at T_v = 400, launch 2 320 KB at
-//   T_a = 531), so the operand a block runs over (keys and values forward
-//   and in launch 1, queries, dctx and their rows' statistics in launch 2)
-//   passes through a ring of two slots of 64-row tiles, each fetched one
+//   64), and K5's cross attention at (128, 256)).  Whole rows of 128-wide K
+//   and V do not fit at the presets' 16 s limits (the forward would need
+//   221 KB at T_v = 400, launch 2 320 KB at T_a = 531), so the operand a
+//   block runs over (keys and values forward and in launch 1, queries, dctx
+//   and their rows' statistics in launch 2) passes through a ring of two slots of 64-row tiles, each fetched one
 //   tile ahead of its use: shared memory is the same at any T (48 KB
 //   forward, 96 and 98 KB for the backward's launches at 128 / 128), and
 //   any T is taken.  The forward holds HELD steps of 16 keys in registers
@@ -91,6 +96,12 @@
 //   With 128-wide heads the whole-row design's shared memory would also
 //   halve the blocks per SM; with K11's 64-wide ones the streamed design
 //   read slower on the card (PERF.md §6, PR 10), so each keeps its own.
+//   At DV = 256 the accumulators would spill (ctx 128 floats a thread, dK
+//   and dV 192): NSPLIT = 2 splits the value columns over two blocks (the
+//   forward and launch 2 each form the same scores, P and dsc over the full
+//   widths, one half of ctx, or of dV and dK, accumulated per block), and
+//   launch 1 reads its q and dctx fragments from the staged rows at each
+//   step instead of holding them.
 
 #pragma once
 
@@ -222,17 +233,53 @@ __device__ __forceinline__ void load_bt(uint32_t (&b)[4], const bf16* tile, int 
                                   2 * np + (lane >> 4)));
 }
 
+// The masks.  A mask functor's at(b) gives the additive mask of utterance
+// b, (i, j) -> float, added to every score (never used to skip a key whose
+// weight may be nonzero).  For the whole-row kernels it also gives
+// keys(i_last, Tk), how many leading keys can carry a nonzero weight for
+// queries 0..i_last, and first_query(j0), the first query that can weigh
+// key j0 or a later one: those kernels skip the 16-key or 16-query steps
+// outside them, whose weights are exactly 0 in fp32 and never a row's max,
+// so the skip changes no bit.
+
 // (1 - valid_j) * -1e9 from per-utterance key counts: the key-padding mask
 // of the encoder's self attention (K11, the stack's own lengths) and of the
-// fusion (K4, the video lengths).  A mask
-// functor's at(b) gives the additive mask (i, j) -> float of utterance b.
+// fusion (K4, the video lengths).  Nothing is skipped: a row of length 0
+// gets the uniform softmax over all its keys.
 struct LengthMask {
   const int* len;
   struct Row {
     int n;
     __device__ float operator()(int, int j) const { return (j < n ? 0.f : 1.f) * -1e9f; }
+    __device__ int keys(int, int Tk) const { return Tk; }
+    __device__ int first_query(int) const { return 0; }
   };
   __device__ Row at(int b) const { return Row{len[b]}; }
+};
+
+// (1 - [j <= i]) * -1e9: the causal mask of the decoder's self attention
+// (K5, avsr_tpu/models/transformer_decoder.py:335-348).  Keys past a
+// query's position weigh exactly 0 (key 0 <= i always wins the max).
+struct CausalMask {
+  struct Row {
+    __device__ float operator()(int i, int j) const { return (j <= i ? 0.f : 1.f) * -1e9f; }
+    __device__ int keys(int i_last, int Tk) const { return min(Tk, i_last + 1); }
+    __device__ int first_query(int j0) const { return j0; }
+  };
+  __device__ Row at(int) const { return Row{}; }
+};
+
+// the prepared memory's additive key bias, fp32 [B, S] (0 or -1e30): the
+// decoder's cross attention (K5, transformer_decoder.py:359-373).  A memory
+// of length 0 has -1e30 on every key: the uniform softmax over all S.
+struct BiasMask {
+  const float* bias;
+  int S;
+  struct Row {
+    const float* b;
+    __device__ float operator()(int, int j) const { return __ldg(b + j); }
+  };
+  __device__ Row at(int b) const { return Row{bias + (size_t)b * S}; }
 };
 
 // ---- the shared arithmetic -------------------------------------------------
@@ -362,7 +409,9 @@ attn_mma_fwd(const bf16* __restrict__ q,  // [B, Tq, nh, DH], rows ldq apart
   const bool active = i0 + warp * 16 < Tq;
   const Scale sc = scale<DH>();
   const auto m = mask.at(b);
-  const int nch = ONE ? 1 : (nks + KC - 1) / KC;
+  // the key steps that can weigh this warp's queries
+  const int nkw = (m.keys(min(Tq, i0 + warp * 16 + 16) - 1, Tk) + 15) >> 4;
+  const int nch = ONE ? 1 : (nkw + KC - 1) / KC;
   uint32_t qa[DH / 16][4];
   float s[KC][2][4];
   float mx[2] = {neg_inf(), neg_inf()}, sm[2] = {0.f, 0.f};
@@ -370,10 +419,10 @@ attn_mma_fwd(const bf16* __restrict__ q,  // [B, Tq, nh, DH], rows ldq apart
 #pragma unroll
     for (int kd = 0; kd < DH / 16; ++kd) load_a<DH>(qa[kd], q_s, warp * 16, kd, lane);
     for (int c = 0; c < nch; ++c) {
-      score_chunk<DH>(s, qa, k_s, c, nks, i_g, Tk, sc, m, lane);
+      score_chunk<DH>(s, qa, k_s, c, nkw, i_g, Tk, sc, m, lane);
 #pragma unroll
       for (int kk = 0; kk < KC; ++kk)
-        if (c * KC + kk < nks)
+        if (c * KC + kk < nkw)
 #pragma unroll
           for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
@@ -382,10 +431,10 @@ attn_mma_fwd(const bf16* __restrict__ q,  // [B, Tq, nh, DH], rows ldq apart
     mx[0] = quad_max(mx[0]);
     mx[1] = quad_max(mx[1]);
     for (int c = 0; c < nch; ++c) {
-      if (nch > 1) score_chunk<DH>(s, qa, k_s, c, nks, i_g, Tk, sc, m, lane);
+      if (nch > 1) score_chunk<DH>(s, qa, k_s, c, nkw, i_g, Tk, sc, m, lane);
 #pragma unroll
       for (int kk = 0; kk < KC; ++kk)
-        if (c * KC + kk < nks)
+        if (c * KC + kk < nkw)
 #pragma unroll
           for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
@@ -409,11 +458,11 @@ attn_mma_fwd(const bf16* __restrict__ q,  // [B, Tq, nh, DH], rows ldq apart
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
   for (int c = 0; c < nch; ++c) {
-    if (nch > 1) score_chunk<DH>(s, qa, k_s, c, nks, i_g, Tk, sc, m, lane);
+    if (nch > 1) score_chunk<DH>(s, qa, k_s, c, nkw, i_g, Tk, sc, m, lane);
 #pragma unroll
     for (int kk = 0; kk < KC; ++kk) {
       const int ks = c * KC + kk;
-      if (ks < nks) {
+      if (ks < nkw) {
         float p[2][4];
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt)
@@ -483,6 +532,7 @@ attn_mma_bwd_q(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int i_g = i0 + warp * 16 + (lane >> 2);
   const Scale sc = scale<DH>();
   const auto m = mask.at(b);
+  const int nkw = (m.keys(min(Tq, i0 + warp * 16 + 16) - 1, Tk) + 15) >> 4;
   const size_t st = ((size_t)b * nh + h) * Tq;
   float mx[2], sm[2];
 #pragma unroll
@@ -520,7 +570,7 @@ attn_mma_bwd_q(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
 
   float dsum[2] = {0.f, 0.f};
-  for (int ks = 0; ks < nks; ++ks) {
+  for (int ks = 0; ks < nkw; ++ks) {
     float p[2][4], dp[2][4];
     p_dp(ks, p, dp);
 #pragma unroll
@@ -536,7 +586,7 @@ attn_mma_bwd_q(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int nd = 0; nd < DH / 8; ++nd)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
-  for (int ks = 0; ks < nks; ++ks) {
+  for (int ks = 0; ks < nkw; ++ks) {
     float p[2][4], dp[2][4];
     p_dp(ks, p, dp);
 #pragma unroll
@@ -625,7 +675,8 @@ attn_mma_bwd_kv(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[nd][e] = dv_acc[nd][e] = 0.f;
 
-  for (int qs = 0; qs < nqs; ++qs) {
+  // the query steps that can weigh this warp's keys
+  for (int qs = m.first_query(j0 + warp * 16) >> 4; qs < nqs; ++qs) {
     uint32_t a[DH / 16][4];
     float p[2][4], dp[2][4];
 #pragma unroll
@@ -790,14 +841,15 @@ __device__ __forceinline__ void product(float (&acc)[2][4], const bf16* a_tile, 
     mma(acc[1], a, b[2], b[3]);
   }
 }
-// acc (16 x D) += a (16 x 16) . the tile's rows k0..k0+15 (16 x D)
-template <int D>
-__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4], const uint32_t (&a)[4],
-                                           const bf16* tile, int k0, int lane) {
+// acc (16 x W) += a (16 x 16) . the tile's rows k0..k0+15, columns
+// c0..c0+W-1 (a tile of D-wide rows; c0 a multiple of 16)
+template <int D, int W = D>
+__device__ __forceinline__ void accumulate(float (&acc)[W / 8][4], const uint32_t (&a)[4],
+                                           const bf16* tile, int k0, int lane, int c0 = 0) {
 #pragma unroll
-  for (int np = 0; np < D / 16; ++np) {
+  for (int np = 0; np < W / 16; ++np) {
     uint32_t b[4];
-    load_bt<D>(b, tile, k0, np, lane);
+    load_bt<D>(b, tile, k0, (c0 >> 4) + np, lane);
     mma(acc[2 * np], a, b[0], b[1]);
     mma(acc[2 * np + 1], a, b[2], b[3]);
   }
@@ -873,9 +925,12 @@ __device__ __forceinline__ Ring<Fetch> ring(unsigned char* base, int slot, int n
 
 // forward
 
-// One block per (b, h, 64 queries).  P, row_max / row_sum null: not
-// written.  ONE: every key in one pass (Tk <= 16 HELD), the scores held.
-template <int DK, int DV, int HELD, typename Mask, bool ONE>
+// One block per (b, h, 64 queries, one of NSPLIT column slices of ctx:
+// DVP = DV / NSPLIT values each; every slice forms the same scores and
+// weights, slice 0 writes P and the statistics).  P, row_max / row_sum
+// null: not written.  ONE: every key in one pass (Tk <= 16 HELD), the
+// scores held.
+template <int DK, int DV, int HELD, typename Mask, bool ONE, int NSPLIT>
 __global__ void __launch_bounds__(THREADS)
 attn_mma_stream_fwd(const bf16* __restrict__ q,  // [B, Tq, nh, DK], rows ldq apart
                     const bf16* __restrict__ k,  // [B, Tk, nh, DK], rows ldk apart
@@ -884,13 +939,16 @@ attn_mma_stream_fwd(const bf16* __restrict__ q,  // [B, Tq, nh, DK], rows ldq ap
                     float* __restrict__ row_max, float* __restrict__ row_sum,  // [B, nh, Tq]
                     bf16* __restrict__ ctx,  // [B, Tq, nh, DV], rows ldc apart
                     int Tq, int Tk, int nh, int ldq, int ldk, int ldv, int ldc) {
-  constexpr int DM = DK > DV ? DK : DV;
+  constexpr int DVP = DV / NSPLIT;
+  constexpr int DM = DK > DVP ? DK : DVP;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * ROWS;
+  const int b = blockIdx.z, h = blockIdx.y / NSPLIT, i0 = blockIdx.x * ROWS;
+  const bool lead = blockIdx.y % NSPLIT == 0;  // the slice that writes P and the statistics
   const int nks = (Tk + 15) >> 4, nkt = (Tk + ROWS - 1) / ROWS;
   bf16* q_s = reinterpret_cast<bf16*>(smem);  // [ROWS][DK]
   const bf16* kb = k + (size_t)b * Tk * ldk + (size_t)h * DK;
-  const bf16* vb = v + (size_t)b * Tk * ldv + (size_t)h * DV;
+  // this slice's columns of the head's values (and of ctx): blockIdx.y DVP on
+  const bf16* vb = v + (size_t)b * Tk * ldv + (size_t)blockIdx.y * DVP;
   // the stream: ONE, the key tiles, then the value tiles; else the key
   // tiles twice (the max, the sum), then each key tile and its value tile
   auto fetch = [=](int e, unsigned char* dst) {
@@ -907,7 +965,7 @@ attn_mma_stream_fwd(const bf16* __restrict__ q,  // [B, Tq, nh, DK], rows ldq ap
     }
     const int n = min(ROWS, Tk - t * ROWS);
     if (is_v)
-      stage<DV>(reinterpret_cast<bf16*>(dst), vb + (size_t)t * ROWS * ldv, ldv, ROWS, n);
+      stage<DVP>(reinterpret_cast<bf16*>(dst), vb + (size_t)t * ROWS * ldv, ldv, ROWS, n);
     else
       stage<DK>(reinterpret_cast<bf16*>(dst), kb + (size_t)t * ROWS * ldk, ldk, ROWS, n);
   };
@@ -921,12 +979,12 @@ attn_mma_stream_fwd(const bf16* __restrict__ q,  // [B, Tq, nh, DK], rows ldq ap
   const Scale sc = scale<DK>();
   const auto m = mask.at(b);
   const size_t st = ((size_t)b * nh + h) * Tq;
-  float* Pbh = P != nullptr ? P + st * Tk : nullptr;
+  float* Pbh = P != nullptr && lead ? P + st * Tk : nullptr;
   uint32_t qa[DK / 16][4];
   float mx[2] = {neg_inf(), neg_inf()}, sm[2] = {0.f, 0.f};
-  float o[DV / 8][4];
+  float o[DVP / 8][4];
 #pragma unroll
-  for (int nd = 0; nd < DV / 8; ++nd)
+  for (int nd = 0; nd < DVP / 8; ++nd)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
 
@@ -993,7 +1051,7 @@ attn_mma_stream_fwd(const bf16* __restrict__ q,  // [B, Tq, nh, DK], rows ldq ap
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
             if (4 * t + kk < HELD && 4 * t + kk < nks)
-              accumulate<DV>(o, pa[4 * t + kk], v_t, kk * 16, lane);
+              accumulate<DVP>(o, pa[4 * t + kk], v_t, kk * 16, lane);
         }
       }
     }
@@ -1069,7 +1127,7 @@ attn_mma_stream_fwd(const bf16* __restrict__ q,  // [B, Tq, nh, DK], rows ldq ap
       if (active) {
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          if (4 * t + kk < nks) accumulate<DV>(o, pa[kk], v_t, kk * 16, lane);
+          if (4 * t + kk < nks) accumulate<DVP>(o, pa[kk], v_t, kk * 16, lane);
       }
     }
   }
@@ -1080,11 +1138,11 @@ attn_mma_stream_fwd(const bf16* __restrict__ q,  // [B, Tq, nh, DK], rows ldq ap
   for (int r = 0; r < 2; ++r) {
     const int i = i_g + 8 * r;
     if (i >= Tq) continue;
-    bf16* out = ctx + ((size_t)b * Tq + i) * ldc + (size_t)h * DV + t2;
+    bf16* out = ctx + ((size_t)b * Tq + i) * ldc + (size_t)blockIdx.y * DVP + t2;
 #pragma unroll
-    for (int nd = 0; nd < DV / 8; ++nd)
+    for (int nd = 0; nd < DVP / 8; ++nd)
       *reinterpret_cast<uint32_t*>(out + nd * 8) = pack_bf16(o[nd][2 * r], o[nd][2 * r + 1]);
-    if (row_max != nullptr && (lane & 3) == 0) {
+    if (row_max != nullptr && lead && (lane & 3) == 0) {
       row_max[st + i] = mx[r];
       row_sum[st + i] = sm[r];
     }
@@ -1093,8 +1151,9 @@ attn_mma_stream_fwd(const bf16* __restrict__ q,  // [B, Tq, nh, DK], rows ldq ap
 
 // backward
 
-// Launch 1: D and dQ for one (b, h, 64 queries).
-template <int DK, int DV, typename Mask>
+// Launch 1: D and dQ for one (b, h, 64 queries); the keys and values
+// stream in tiles of TR rows.
+template <int DK, int DV, typename Mask, int TR>
 __global__ void __launch_bounds__(THREADS)
 attn_mma_stream_bwd_q(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, Mask mask,
@@ -1105,21 +1164,21 @@ attn_mma_stream_bwd_q(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       int Tq, int Tk, int nh, int ldq, int ldk, int ldv, int ldo, int lddq) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * ROWS;
-  const int nks = (Tk + 15) >> 4, nkt = (Tk + ROWS - 1) / ROWS;
+  const int nks = (Tk + 15) >> 4, nkt = (Tk + TR - 1) / TR;
   const int nq = min(ROWS, Tq - i0);
   bf16* q_s = reinterpret_cast<bf16*>(smem);  // [ROWS][DK]
   bf16* do_s = q_s + ROWS * DK;               // [ROWS][DV]
   const bf16* kb = k + (size_t)b * Tk * ldk + (size_t)h * DK;
   const bf16* vb = v + (size_t)b * Tk * ldv + (size_t)h * DV;
-  // the stream: each key tile with its value tile ([ROWS][DK], then
-  // [ROWS][DV]), twice
+  // the stream: each key tile with its value tile ([TR][DK], then
+  // [TR][DV]), twice
   auto fetch = [=](int e, unsigned char* dst) {
-    const int t = e < nkt ? e : e - nkt, n = min(ROWS, Tk - t * ROWS);
+    const int t = e < nkt ? e : e - nkt, n = min(TR, Tk - t * TR);
     bf16* d = reinterpret_cast<bf16*>(dst);
-    stage<DK>(d, kb + (size_t)t * ROWS * ldk, ldk, ROWS, n);
-    stage<DV>(d + ROWS * DK, vb + (size_t)t * ROWS * ldv, ldv, ROWS, n);
+    stage<DK>(d, kb + (size_t)t * TR * ldk, ldk, TR, n);
+    stage<DV>(d + TR * DK, vb + (size_t)t * TR * ldv, ldv, TR, n);
   };
-  auto kv = ring(smem + ROWS * (DK + DV) * 2, ROWS * (DK + DV) * 2, 2 * nkt, fetch);
+  auto kv = ring(smem + ROWS * (DK + DV) * 2, TR * (DK + DV) * 2, 2 * nkt, fetch);
   stage<DK>(q_s, q + ((size_t)b * Tq + i0) * ldq + (size_t)h * DK, ldq, ROWS, nq);
   stage<DV>(do_s, dctx + ((size_t)b * Tq + i0) * ldo + (size_t)h * DV, ldo, ROWS, nq);
   kv.start();
@@ -1138,12 +1197,21 @@ attn_mma_stream_bwd_q(const bf16* __restrict__ q, const bf16* __restrict__ k,
     sm[r] = active && i < Tq ? row_sum[st + i] : 1.f;
   }
   const float rl[2] = {__frcp_rn(sm[0]), __frcp_rn(sm[1])};
-  uint32_t qa[DK / 16][4], da[DV / 16][4];
+  // the warp's q and dctx A fragments held in registers, or (HOLD false:
+  // wide heads, where they and dQ's accumulators would spill) read from the
+  // staged rows at each step, in the same k order
+  constexpr bool HOLD = DK + DV <= 256;
+  uint32_t qa[HOLD ? DK / 16 : 1][4], da[HOLD ? DV / 16 : 1][4];
 
   // P and bf16(dP) of the key step at rows kk*16.. of a streamed tile
   auto p_dp = [&](const bf16* kv_t, int kk, int ks, float (&p)[2][4], float (&dp)[2][4]) {
-    product<DK>(p, qa, kv_t, kk * 16, lane);
-    product<DV>(dp, da, kv_t + ROWS * DK, kk * 16, lane);
+    if constexpr (HOLD) {
+      product<DK>(p, qa, kv_t, kk * 16, lane);
+      product<DV>(dp, da, kv_t + TR * DK, kk * 16, lane);
+    } else {
+      product<DK>(p, q_s, warp * 16, kv_t, kk * 16, lane);
+      product<DV>(dp, do_s, warp * 16, kv_t + TR * DK, kk * 16, lane);
+    }
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
@@ -1159,15 +1227,17 @@ attn_mma_stream_bwd_q(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int t = 0; t < nkt; ++t) {
     const bf16* kv_t = kv.next();
     if (!active) continue;
-    if (t == 0) {
+    if constexpr (HOLD) {
+      if (t == 0) {
 #pragma unroll
-      for (int kd = 0; kd < DK / 16; ++kd) load_a<DK>(qa[kd], q_s, warp * 16, kd, lane);
+        for (int kd = 0; kd < DK / 16; ++kd) load_a<DK>(qa[kd], q_s, warp * 16, kd, lane);
 #pragma unroll
-      for (int kd = 0; kd < DV / 16; ++kd) load_a<DV>(da[kd], do_s, warp * 16, kd, lane);
+        for (int kd = 0; kd < DV / 16; ++kd) load_a<DV>(da[kd], do_s, warp * 16, kd, lane);
+      }
     }
-    for (int kk = 0; kk < min(4, nks - 4 * t); ++kk) {
+    for (int kk = 0; kk < min(TR / 16, nks - TR / 16 * t); ++kk) {
       float p[2][4], dp[2][4];
-      p_dp(kv_t, kk, 4 * t + kk, p, dp);
+      p_dp(kv_t, kk, TR / 16 * t + kk, p, dp);
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
@@ -1185,9 +1255,9 @@ attn_mma_stream_bwd_q(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int t = 0; t < nkt; ++t) {
     const bf16* kv_t = kv.next();
     if (!active) continue;
-    for (int kk = 0; kk < min(4, nks - 4 * t); ++kk) {
+    for (int kk = 0; kk < min(TR / 16, nks - TR / 16 * t); ++kk) {
       float p[2][4], dp[2][4];
-      p_dp(kv_t, kk, 4 * t + kk, p, dp);
+      p_dp(kv_t, kk, TR / 16 * t + kk, p, dp);
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
@@ -1213,8 +1283,11 @@ attn_mma_stream_bwd_q(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// Launch 2: dK and dV for one (b, h, 64 keys), summed over every query.
-template <int DK, int DV, typename Mask>
+// Launch 2: dK and dV for one (b, h, 64 keys), summed over every query;
+// with NSPLIT > 1, one column slice of each (DK / NSPLIT of dK, DV / NSPLIT
+// of dV) per block: every slice forms the same P and dsc over the full
+// widths (staged, not held), only the accumulators are split.
+template <int DK, int DV, typename Mask, int NSPLIT, int TR>
 __global__ void __launch_bounds__(THREADS)
 attn_mma_stream_bwd_kv(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, Mask mask,
@@ -1224,30 +1297,32 @@ attn_mma_stream_bwd_kv(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        bf16* __restrict__ dv,  // [B, Tk, nh, DV], rows lddv apart
                        int Tq, int Tk, int nh, int ldq, int ldk, int ldv, int ldo,
                        int lddk, int lddv) {
+  constexpr int DKP = DK / NSPLIT, DVP = DV / NSPLIT;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int b = blockIdx.z, h = blockIdx.y, j0 = blockIdx.x * ROWS;
-  const int nqs = (Tq + 15) >> 4, nqt = (Tq + ROWS - 1) / ROWS;
+  const int b = blockIdx.z, h = blockIdx.y / NSPLIT, part = blockIdx.y % NSPLIT;
+  const int j0 = blockIdx.x * ROWS;
+  const int nqs = (Tq + 15) >> 4, nqt = (Tq + TR - 1) / TR;
   const int nk = min(ROWS, Tk - j0);
   bf16* k_s = reinterpret_cast<bf16*>(smem);  // [ROWS][DK]
   bf16* v_s = k_s + ROWS * DK;                // [ROWS][DV]
   const bf16* qb = q + (size_t)b * Tq * ldq + (size_t)h * DK;
   const bf16* ob = dctx + (size_t)b * Tq * ldo + (size_t)h * DV;
   const size_t st = ((size_t)b * nh + h) * Tq;
-  // the stream: each query tile [ROWS][DK] with its dctx tile [ROWS][DV]
-  // and its rows' max, sum and D (fp32 [3][ROWS]; zero past Tq)
+  // the stream: each query tile [TR][DK] with its dctx tile [TR][DV] and
+  // its rows' max, sum and D (fp32 [3][TR]; zero past Tq)
   auto fetch = [=](int t, unsigned char* dst) {
-    const int n = min(ROWS, Tq - t * ROWS);
+    const int n = min(TR, Tq - t * TR);
     bf16* d = reinterpret_cast<bf16*>(dst);
-    stage<DK>(d, qb + (size_t)t * ROWS * ldq, ldq, ROWS, n);
-    stage<DV>(d + ROWS * DK, ob + (size_t)t * ROWS * ldo, ldo, ROWS, n);
-    float* stats = reinterpret_cast<float*>(d + ROWS * (DK + DV));
-    for (int c = threadIdx.x; c < 3 * ROWS; c += THREADS) {
-      const int a = c / ROWS, r = c % ROWS;
-      const float* src = (a == 0 ? row_max : a == 1 ? row_sum : D) + st + t * ROWS;
+    stage<DK>(d, qb + (size_t)t * TR * ldq, ldq, TR, n);
+    stage<DV>(d + TR * DK, ob + (size_t)t * TR * ldo, ldo, TR, n);
+    float* stats = reinterpret_cast<float*>(d + TR * (DK + DV));
+    for (int c = threadIdx.x; c < 3 * TR; c += THREADS) {
+      const int a = c / TR, r = c % TR;
+      const float* src = (a == 0 ? row_max : a == 1 ? row_sum : D) + st + t * TR;
       cp_async4(stats + c, r < n ? src + r : src, r < n);
     }
   };
-  auto qo = ring(smem + ROWS * (DK + DV) * 2, ROWS * (DK + DV) * 2 + 3 * ROWS * 4, nqt, fetch);
+  auto qo = ring(smem + ROWS * (DK + DV) * 2, TR * (DK + DV) * 2 + 3 * TR * 4, nqt, fetch);
   stage<DK>(k_s, k + ((size_t)b * Tk + j0) * ldk + (size_t)h * DK, ldk, ROWS, nk);
   stage<DV>(v_s, v + ((size_t)b * Tk + j0) * ldv + (size_t)h * DV, ldv, ROWS, nk);
   qo.start();
@@ -1257,22 +1332,22 @@ attn_mma_stream_bwd_kv(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const Scale sc = scale<DK>();
   const auto m = mask.at(b);
   const int g = lane >> 2, t2 = 2 * (lane & 3);
-  float dk_acc[DK / 8][4], dv_acc[DV / 8][4];
+  float dk_acc[DKP / 8][4], dv_acc[DVP / 8][4];
 #pragma unroll
-  for (int nd = 0; nd < DK / 8; ++nd)
+  for (int nd = 0; nd < DKP / 8; ++nd)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[nd][e] = 0.f;
 #pragma unroll
-  for (int nd = 0; nd < DV / 8; ++nd)
+  for (int nd = 0; nd < DVP / 8; ++nd)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dv_acc[nd][e] = 0.f;
 
   for (int t = 0; t < nqt; ++t) {
     const bf16* q_t = qo.next();
     if (!active) continue;
-    const bf16* do_t = q_t + ROWS * DK;
-    const float* stats = reinterpret_cast<const float*>(do_t + ROWS * DV);
-    for (int qq = 0; qq < min(4, nqs - 4 * t); ++qq) {
+    const bf16* do_t = q_t + TR * DK;
+    const float* stats = reinterpret_cast<const float*>(do_t + TR * DV);
+    for (int qq = 0; qq < min(TR / 16, nqs - TR / 16 * t); ++qq) {
       float p[2][4], dp[2][4];
       product<DK>(p, q_t, qq * 16, k_s, warp * 16, lane);
       product<DV>(dp, do_t, qq * 16, v_s, warp * 16, lane);
@@ -1281,10 +1356,10 @@ attn_mma_stream_bwd_kv(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int lr = qq * 16 + g + 8 * r;
-        valid[r] = t * ROWS + lr < Tq;
+        valid[r] = t * TR + lr < Tq;
         mx[r] = stats[lr];
-        sm[r] = stats[ROWS + lr];
-        d[r] = stats[2 * ROWS + lr];
+        sm[r] = stats[TR + lr];
+        d[r] = stats[2 * TR + lr];
         rl[r] = __frcp_rn(sm[r]);
       }
 #pragma unroll
@@ -1292,7 +1367,7 @@ attn_mma_stream_bwd_kv(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = e >> 1;
-          const float s = score<DK>(p[nt][e], t * ROWS + qq * 16 + g + 8 * r,
+          const float s = score<DK>(p[nt][e], t * TR + qq * 16 + g + 8 * r,
                                 j0 + warp * 16 + nt * 8 + t2 + (e & 1), Tk, sc, m);
           // padded queries (zero q and dctx rows, zero statistics) add nothing
           p[nt][e] = valid[r] ? div_row(expf(s - mx[r]), sm[r], rl[r]) : 0.f;
@@ -1302,8 +1377,8 @@ attn_mma_stream_bwd_kv(const bf16* __restrict__ q, const bf16* __restrict__ k,
       uint32_t pa[4], dsa[4];
       c_to_a_trans(pa, p);
       c_to_a_trans(dsa, dp);
-      accumulate<DV>(dv_acc, pa, do_t, qq * 16, lane);
-      accumulate<DK>(dk_acc, dsa, q_t, qq * 16, lane);
+      accumulate<DV, DVP>(dv_acc, pa, do_t, qq * 16, lane, part * DVP);
+      accumulate<DK, DKP>(dk_acc, dsa, q_t, qq * 16, lane, part * DKP);
     }
   }
   if (!active) return;
@@ -1312,14 +1387,14 @@ attn_mma_stream_bwd_kv(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int j = j0 + warp * 16 + g + 8 * r;
     if (j >= Tk) continue;
-    bf16* odk = dk + ((size_t)b * Tk + j) * lddk + (size_t)h * DK + t2;
-    bf16* odv = dv + ((size_t)b * Tk + j) * lddv + (size_t)h * DV + t2;
+    bf16* odk = dk + ((size_t)b * Tk + j) * lddk + (size_t)h * DK + part * DKP + t2;
+    bf16* odv = dv + ((size_t)b * Tk + j) * lddv + (size_t)h * DV + part * DVP + t2;
 #pragma unroll
-    for (int nd = 0; nd < DK / 8; ++nd)
+    for (int nd = 0; nd < DKP / 8; ++nd)
       *reinterpret_cast<uint32_t*>(odk + nd * 8) =
           pack_bf16(dk_acc[nd][2 * r], dk_acc[nd][2 * r + 1]);
 #pragma unroll
-    for (int nd = 0; nd < DV / 8; ++nd)
+    for (int nd = 0; nd < DVP / 8; ++nd)
       *reinterpret_cast<uint32_t*>(odv + nd * 8) =
           pack_bf16(dv_acc[nd][2 * r], dv_acc[nd][2 * r + 1]);
   }
@@ -1327,36 +1402,40 @@ attn_mma_stream_bwd_kv(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // launchers
 
-template <int DK, int DV>
+template <int DK, int DVP>
 constexpr size_t stream_fwd_smem() {
-  return (size_t)ROWS * (DK + 2 * (DK > DV ? DK : DV)) * 2;
+  return (size_t)ROWS * (DK + 2 * (DK > DVP ? DK : DVP)) * 2;
 }
-template <int DK, int DV>
+template <int DK, int DV, int TR>
 constexpr size_t stream_bwd_q_smem() {
-  return (size_t)ROWS * (DK + DV) * 2 * 3;
+  return (size_t)(ROWS + 2 * TR) * (DK + DV) * 2;
 }
-template <int DK, int DV>
+template <int DK, int DV, int TR>
 constexpr size_t stream_bwd_kv_smem() {
-  return (size_t)ROWS * (DK + DV) * 2 + 2 * ((size_t)ROWS * (DK + DV) * 2 + 3 * ROWS * 4);
+  return (size_t)ROWS * (DK + DV) * 2 + 2 * ((size_t)TR * (DK + DV) * 2 + 3 * TR * 4);
 }
 
 // The forward over q, k, v rows ld* elements apart and ctx rows ldc apart
 // (multiples of 8: the 16-byte copies); the operands 16-byte aligned.  P
 // (fp32 [B, nh, Tq, Tk]) and the statistics are written where not null.
-// HELD: the 16-key steps whose scores the one-pass forward holds.
-template <int DK, int DV, int HELD, typename Mask>
+// HELD: the 16-key steps whose scores the one-pass forward holds; NSPLIT:
+// the column slices of ctx, one block each (a slice's DV / NSPLIT values
+// are what a thread accumulates).
+template <int DK, int DV, int HELD, typename Mask, int NSPLIT = 1>
 cudaError_t launch_stream_fwd(const void* q, const void* k, const void* v, Mask mask, float* P,
                        float* row_max, float* row_sum, void* ctx, int B, int Tq, int Tk, int nh,
                        int ldq, int ldk, int ldv, int ldc, cudaStream_t stream) {
+  static_assert(DV % (16 * NSPLIT) == 0, "a column slice is whole 16-column steps");
   if (Tq < 1 || Tk < 1 || ldq % 8 || ldk % 8 || ldv % 8 || ldc % 2 ||
       (row_max == nullptr) != (row_sum == nullptr))
     return cudaErrorInvalidValue;
-  constexpr size_t smem = stream_fwd_smem<DK, DV>();
-  const auto kernel = (Tk + 15) / 16 <= HELD ? attn_mma_stream_fwd<DK, DV, HELD, Mask, true>
-                                             : attn_mma_stream_fwd<DK, DV, HELD, Mask, false>;
+  constexpr size_t smem = stream_fwd_smem<DK, DV / NSPLIT>();
+  const auto kernel = (Tk + 15) / 16 <= HELD
+                          ? attn_mma_stream_fwd<DK, DV, HELD, Mask, true, NSPLIT>
+                          : attn_mma_stream_fwd<DK, DV, HELD, Mask, false, NSPLIT>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3((Tq + ROWS - 1) / ROWS, nh, B), THREADS, smem, stream>>>(
+  kernel<<<dim3((Tq + ROWS - 1) / ROWS, nh * NSPLIT, B), THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), mask,
       P, row_max, row_sum, static_cast<bf16*>(ctx), Tq, Tk, nh, ldq, ldk, ldv, ldc);
   return cudaGetLastError();
@@ -1364,7 +1443,10 @@ cudaError_t launch_stream_fwd(const void* q, const void* k, const void* v, Mask 
 
 // The backward from the forward's operands and row statistics: D is an fp32
 // [B, nh, Tq] scratch; dq, dk, dv rows are written ldd* elements apart.
-template <int DK, int DV, typename Mask>
+// NSPLIT: the column slices of dK and dV, one launch-2 block each; TR: the
+// rows of the tiles the streamed operands pass in (64, or 32 where two
+// blocks of wide heads would not fit an SM's shared memory otherwise).
+template <int DK, int DV, typename Mask, int NSPLIT = 1, int TR = ROWS>
 cudaError_t launch_stream_bwd(const void* q, const void* k, const void* v, Mask mask,
                        const float* row_max, const float* row_sum, const void* dctx, float* D,
                        void* dq, void* dk, void* dv, int B, int Tq, int Tk, int nh, int ldq,
@@ -1373,9 +1455,11 @@ cudaError_t launch_stream_bwd(const void* q, const void* k, const void* v, Mask 
   if (Tq < 1 || Tk < 1 || ldq % 8 || ldk % 8 || ldv % 8 || ldo % 8 || lddq % 2 || lddk % 2 ||
       lddv % 2)
     return cudaErrorInvalidValue;
-  constexpr size_t smem_q = stream_bwd_q_smem<DK, DV>(), smem_kv = stream_bwd_kv_smem<DK, DV>();
-  const auto kernel_q = attn_mma_stream_bwd_q<DK, DV, Mask>;
-  const auto kernel_kv = attn_mma_stream_bwd_kv<DK, DV, Mask>;
+  static_assert(TR % 16 == 0 && ROWS % TR == 0, "a stream tile is whole 16-row steps");
+  constexpr size_t smem_q = stream_bwd_q_smem<DK, DV, TR>();
+  constexpr size_t smem_kv = stream_bwd_kv_smem<DK, DV, TR>();
+  const auto kernel_q = attn_mma_stream_bwd_q<DK, DV, Mask, TR>;
+  const auto kernel_kv = attn_mma_stream_bwd_kv<DK, DV, Mask, NSPLIT, TR>;
   cudaError_t e = allow_smem(kernel_q, smem_q);
   if (e != cudaSuccess) return e;
   e = allow_smem(kernel_kv, smem_kv);
@@ -1387,7 +1471,7 @@ cudaError_t launch_stream_bwd(const void* q, const void* k, const void* v, Mask 
       ldv, ldo, lddq);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  kernel_kv<<<dim3((Tk + ROWS - 1) / ROWS, nh, B), THREADS, smem_kv, stream>>>(
+  kernel_kv<<<dim3((Tk + ROWS - 1) / ROWS, nh * NSPLIT, B), THREADS, smem_kv, stream>>>(
       qb, kb, vb, mask, row_max, row_sum, D, dob, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
       Tq, Tk, nh, ldq, ldk, ldv, ldo, lddk, lddv);
   return cudaGetLastError();

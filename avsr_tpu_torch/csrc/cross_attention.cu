@@ -39,14 +39,18 @@
 // one pass, its keys and values each read once) and takes longer rows in
 // three passes.  The divisions by sqrt(128) are corrected products with the
 // reciprocal (div_row): IEEE division's per-element check and slow-path
-// branch had doubled the kernels' time.
+// branch had doubled the kernels' time.  Other head widths (multiples of
+// 8) run on attention_core.cuh's CUDA-core kernels, whose residual is P
+// itself (avsr_fusion_attn_core_fwd, and the backward shared with K5,
+// avsr_attn_core_bwd; kernels.attention_family routes).
 
 #include "attention_mma.cuh"
+#include "attention_core.cuh"
 
 namespace {
 using mma_attn::LengthMask;
 
-// the head-width pairs the kernels are built for (the wrapper raises on another)
+// the head-width pairs the tensor-core kernels are built for
 bool built_for(int A, int dv) { return A == 128 && (dv == 128 || dv == 64); }
 }  // namespace
 
@@ -82,4 +86,14 @@ extern "C" int avsr_fusion_attn_bwd(const void* q, const void* k, const void* v,
                                 : mma_attn::launch_stream_bwd<128, 64, LengthMask>;
   return (int)launch(q, k, v, mask, mx, sm, dctx, static_cast<float*>(D), dq, dk, dv_out, B, Ta,
                      Tv, nh, lq, lq, lv, lv, lq, lq, lv, st);
+}
+
+// The CUDA-core route at any A, dv that are multiples of 8: P fp32 [B, nh,
+// Ta, Tv] out (the alignments, and the backward's residual on this route).
+extern "C" int avsr_fusion_attn_core_fwd(const void* q, const void* k, const void* v,
+                                         const void* vlen, void* P, void* ctx, int B, int Ta,
+                                         int Tv, int nh, int A, int dv, void* stream) {
+  return (int)core_attn::launch_attn_fwd(q, k, v, LengthMask{static_cast<const int*>(vlen)}, P,
+                                         ctx, B, Ta, Tv, nh, A, dv, nh * A, nh * A, nh * dv,
+                                         reinterpret_cast<cudaStream_t>(stream));
 }

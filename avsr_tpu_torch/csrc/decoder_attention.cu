@@ -1,9 +1,10 @@
-// K5: the teacher-forced decoder attention, forward and backward.
+// K5: the teacher-forced decoder attention, forward and backward, on the
+// tensor cores (attention_mma.cuh).
 //
 // Replaces the two attention cores of
 // avsr_tpu/models/transformer_decoder.py:teacher_forced_logits, which the
 // JAX package leaves to XLA: the causal self attention over the K label
-// positions (transformer_decoder.py:342-350) and the cross attention of
+// positions (transformer_decoder.py:335-350) and the cross attention of
 // those positions over the prepared memory (:359-373).  Per (row b, head h),
 // under the bf16 policy:
 //
@@ -11,81 +12,148 @@
 //   P[i, :]  = softmax(s[i, :])                       (fp32)
 //   ctx[i]   = bf16(sum_j bf16(P[i, j]) * v_j)        (fp32 accumulate)
 //
-// with one of two masks, each the reference's constant:
-//   causal:  (1 - [j <= i]) * -1e9          (self attention, S = Q)
-//   bias:    bias[b, j], the memory's -1e30 on padded positions (cross)
-// The mask is added, never used to skip a key: a memory of length 0 gets
-// the reference's uniform softmax over all S keys.  The backward (dq, dk,
-// dv; no gradient flows to the mask) is the softmax-attention backward of
-// attention_core.cuh with JAX's rounding points: dP = bf16(dctx V^T), the
-// scores' cotangent rounded to bf16 before the dq/dk products.
+// with one of two masks (attention_mma.cuh), each the reference's constant:
+//   CausalMask:  (1 - [j <= i]) * -1e9     (self attention, S = Q)
+//   BiasMask:    bias[b, j], the memory's -1e30 on padded positions (cross)
+// The mask is added, never used to skip a key whose weight may be nonzero:
+// a memory of length 0 gets the reference's uniform softmax over all S
+// keys.  The backward (dq, dk, dv; no gradient flows to the mask) has the
+// rounding points of attention_mma.cuh's header.  The decoder reads no
+// weights, so the forward writes only ctx and, in train mode, the softmax's
+// row max and row sum (fp32 [B, nh, Q] each); the backward recomputes P
+// from them bit for bit, with D = rowsum(dP * P) (fp32 [B, nh, Q]) its only
+// scratch: no [B, nh, Q, S] tensor is written in either direction.
 //
-// Shapes on the main path (lrs2_av_fast, B = 128, label cap K = 80, 4
-// heads): self q/k/v [128, 80, 4, 64]; cross q [128, 80, 4, 128] against
-// keys [128, 50, 4, 128] and values [128, 50, 4, 256].
+// Shapes on the main path (B = 128, label cap K = 80, 4 heads): self q/k/v
+// [128, 80, 4, 64]; cross q [128, 80, 4, 128] against keys [128, S, 4, 128]
+// and values [128, S, 4, 256], S = 50 (lrs2_av_fast's memory) or 197
+// (lrs2_av_v2's, every audio step; 531 at its 16 s limit).
 //
-// What bounds it on an H100: the self forward moves 21 MB of q/k/v/ctx and
-// 13.1 MB of fp32 P (written for the backward) for 0.84 GFLOP; the cross
-// forward 51 MB and 8.2 MB of P for 1.6 GFLOP.  At 3.35 TB/s and 989
-// TFLOP/s both are byte-bound, at ~10 and ~18 us;
-// the kernel spends its time on the shared-memory issue rate of
-// CUDA-core FMAs on bf16-rounded operands (the reference's numerics) and on
-// launch latency.
+// What bounds it on an H100: bytes.  The self forward moves 21 MB of
+// q/k/v/ctx and the statistics for 0.84 GFLOP, the cross forward at S = 50
+// 51 MB for 1.6 GFLOP: ~6 and ~15 us at 3.35 TB/s against ~1 and ~2 us at
+// 989 TFLOP/s.
 //
-// Design: the shared kernels of attention_core.cuh (one block per (b, h,
-// 16 queries), K then V staged in one shared buffer, fp32 softmax, P
-// written only when a backward will read it; a two-launch backward with one
-// owner block per output row, no atomics).  Shared memory of the forward
-// is S*max(dk, dv)*2 + 16*dk*2 + 16*S*4 bytes: 17 KB for the self instance,
-// 33 KB for the cross one, 81 KB at the preset's 16 s memory of S = 133;
-// the backward's key pass stages all Q queries, 134 KB at the 150-label
-// horizon (the wrapper checks every request against the card's limit).
+// Design, by instance:
+// * Self, (dk, dv) = (64, 64), CausalMask: the whole-row kernels (K11's):
+//   K and V of the (b, h) staged once per block, the scores held, one
+//   owner block per output row.  A warp skips the key steps past its last
+//   query (forward, launch 1) and the query steps before its first key
+//   (launch 2): their weights are exactly 0, so the skip changes no bit.
+//   Shared memory grows with S (fwd (64 + 2 Sp) * 128 B, launch 2 (128 +
+//   2 Sp) * 128 + 16 Sp B, Sp = S rounded up to 16): S <= 784.
+// * Cross, (dk, dv) = (128, 256), BiasMask: the streamed tiles (K4's):
+//   keys and values (forward, launch 1) and queries with dctx (launch 2)
+//   pass through a ring of two tile slots, so shared memory does not grow
+//   with S and any S is taken.  At dv = 256 the accumulators of ctx (128
+//   floats a thread) or of dK and dV (192) would spill, so the forward and
+//   launch 2 split the value columns over two blocks (NSPLIT = 2): each
+//   forms the same scores and P (same expression, same k order) over the
+//   full widths and accumulates one 128-column half of ctx, or one half of
+//   dV and a 64-column half of dK; launch 1 reads its q and dctx fragments
+//   from the staged rows instead of holding them.  The forward streams
+//   64-row tiles (48 KB) and holds 13 steps of 16 keys (S <= 208, v2's
+//   197, in one pass; longer memories take three passes).  The backward
+//   streams 32-row tiles: its launches take 96 and 97 KB of shared memory,
+//   so two blocks share an SM (with 64-row tiles each took 144 KB, alone on
+//   its SM, and read 1.4x slower: PERF.md §6).  The division by
+//   sqrt(128) is div_row.
 
+#include "attention_mma.cuh"
 #include "attention_core.cuh"
 
 namespace {
+using mma_attn::BiasMask;
+using mma_attn::CausalMask;
 
-// (1 - [j <= i]) * -1e9: the causal mask of transformer_decoder.py:335-348
-struct CausalMask {
-  __device__ float operator()(int, int i, int j) const {
-    const float masked = j <= i ? 0.f : 1.f;
-    return masked * -1e9f;
-  }
-};
+constexpr int SELF_DH = 64;                    // the self instance's head width
+constexpr int CROSS_DK = 128, CROSS_DV = 256;  // the cross instance's head widths
+constexpr int CROSS_HELD = 13;                 // 16-key steps of scores the cross forward holds
+constexpr int CROSS_SPLIT = 2;                 // value-column slices of the cross kernels
+constexpr int CROSS_TR = 32;                   // rows of the cross backward's stream tiles
 
-// the prepared memory's additive key bias [B, S] (0 or -1e30)
-struct BiasMask {
-  const float* bias;
-  int S;
-  __device__ float operator()(int b, int, int j) const { return bias[(size_t)b * S + j]; }
-};
-
+bool self_instance(int Q, int S, int dk, int dv) {
+  return Q == S && dk == SELF_DH && dv == SELF_DH;
+}
+bool cross_instance(int dk, int dv) { return dk == CROSS_DK && dv == CROSS_DV; }
 }  // namespace
 
-// Shared-memory bytes the largest of the three launches asks for.
-extern "C" long long avsr_decoder_attn_smem(int Q, int S, int dk, int dv) {
-  return (long long)attn_smem(Q, S, dk, dv);
+// The tensor-core instances.  bias null: the causal self attention (Q == S,
+// dk = dv = 64); else the cross attention under the bias at (128, 256).
+// row_max / row_sum null: nothing saved (serving); else fp32 [B, nh, Q]
+// each out, the backward's residual.
+extern "C" int avsr_decoder_attn_fwd(const void* q, const void* k, const void* v,
+                                     const void* bias, void* row_max, void* row_sum, void* ctx,
+                                     int B, int Q, int S, int nh, int dk, int dv, void* stream) {
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  float *mx = static_cast<float*>(row_max), *sm = static_cast<float*>(row_sum);
+  if (bias == nullptr) {
+    if (!self_instance(Q, S, dk, dv)) return (int)cudaErrorInvalidValue;
+    const int ld = nh * SELF_DH;
+    return (int)mma_attn::launch_fwd<SELF_DH>(q, k, v, CausalMask{}, mx, sm, ctx, B, Q, S, nh,
+                                              ld, ld, ld, ld, st);
+  }
+  if (!cross_instance(dk, dv)) return (int)cudaErrorInvalidValue;
+  const int lk = nh * CROSS_DK, lv = nh * CROSS_DV;
+  return (int)mma_attn::launch_stream_fwd<CROSS_DK, CROSS_DV, CROSS_HELD, BiasMask, CROSS_SPLIT>(
+      q, k, v, BiasMask{static_cast<const float*>(bias), S}, nullptr, mx, sm, ctx, B, Q, S, nh,
+      lk, lk, lv, lv, st);
 }
 
-// bias null: the causal mask (Q must equal S).  P null: no weights written.
-extern "C" int avsr_decoder_attn_fwd(const void* q, const void* k, const void* v,
-                                     const void* bias, void* P, void* ctx, int B, int Q, int S,
-                                     int nh, int dk, int dv, void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+// D: an fp32 [B, nh, Q] scratch; dq, dk_out, dv_out bf16, shaped as q, k, v.
+extern "C" int avsr_decoder_attn_bwd(const void* q, const void* k, const void* v,
+                                     const void* bias, const void* row_max, const void* row_sum,
+                                     const void* dctx, void* D, void* dq, void* dk_out,
+                                     void* dv_out, int B, int Q, int S, int nh, int dk, int dv,
+                                     void* stream) {
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const float *mx = static_cast<const float*>(row_max), *sm = static_cast<const float*>(row_sum);
+  float* Dp = static_cast<float*>(D);
+  if (bias == nullptr) {
+    if (!self_instance(Q, S, dk, dv)) return (int)cudaErrorInvalidValue;
+    const int ld = nh * SELF_DH;
+    return (int)mma_attn::launch_bwd<SELF_DH>(q, k, v, CausalMask{}, mx, sm, dctx, Dp, dq, dk_out,
+                                              dv_out, B, Q, S, nh, ld, ld, ld, ld, ld, ld, ld, st);
+  }
+  if (!cross_instance(dk, dv)) return (int)cudaErrorInvalidValue;
+  const int lk = nh * CROSS_DK, lv = nh * CROSS_DV;
+  return (int)mma_attn::launch_stream_bwd<CROSS_DK, CROSS_DV, BiasMask, CROSS_SPLIT, CROSS_TR>(
+      q, k, v, BiasMask{static_cast<const float*>(bias), S}, mx, sm, dctx, Dp, dq, dk_out, dv_out,
+      B, Q, S, nh, lk, lk, lv, lv, lk, lk, lv, st);
+}
+
+// The CUDA-core route (attention_core.cuh): any dk, dv that are multiples of
+// 8.  P: the fp32 weights [B, nh, Q, S], written where not null (the
+// backward's residual on this route).
+extern "C" int avsr_decoder_attn_core_fwd(const void* q, const void* k, const void* v,
+                                          const void* bias, void* P, void* ctx, int B, int Q,
+                                          int S, int nh, int dk, int dv, void* stream) {
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (bias == nullptr) {
     if (Q != S) return (int)cudaErrorInvalidValue;
-    return (int)launch_attn_fwd(q, k, v, CausalMask{}, P, ctx, B, Q, S, nh, dk, dv, nh * dk,
-                                nh * dk, nh * dv, st);
+    return (int)core_attn::launch_attn_fwd(q, k, v, CausalMask{}, P, ctx, B, Q, S, nh, dk, dv,
+                                           nh * dk, nh * dk, nh * dv, st);
   }
-  return (int)launch_attn_fwd(q, k, v, BiasMask{static_cast<const float*>(bias), S}, P, ctx, B,
-                              Q, S, nh, dk, dv, nh * dk, nh * dk, nh * dv, st);
+  return (int)core_attn::launch_attn_fwd(q, k, v, BiasMask{static_cast<const float*>(bias), S},
+                                         P, ctx, B, Q, S, nh, dk, dv, nh * dk, nh * dk, nh * dv,
+                                         st);
 }
 
-extern "C" int avsr_decoder_attn_bwd(const void* q, const void* k, const void* v,
-                                     const void* P, const void* dctx, void* dsc, void* dq,
-                                     void* dk_out, void* dv_out, int B, int Q, int S, int nh,
-                                     int dk, int dv, void* stream) {
-  return (int)launch_attn_bwd(q, k, v, P, dctx, dsc, dq, dk_out, dv_out, B, Q, S, nh, dk, dv,
-                              nh * dk, nh * dk, nh * dv, nh * dk, nh * dk, nh * dv,
-                              reinterpret_cast<cudaStream_t>(stream));
+// The CUDA-core route's backward from the fp32 weights P [B, nh, Tq, Tk]
+// over contiguous q [B, Tq, nh, dk], k [B, Tk, nh, dk], v [B, Tk, nh, dv]:
+// K5's and K4's (the mask enters only through P).  dsc: a bf16 [B, nh, Tq,
+// Tk] scratch; dq, dk_out, dv_out shaped as q, k, v.
+extern "C" int avsr_attn_core_bwd(const void* q, const void* k, const void* v, const void* P,
+                                  const void* dctx, void* dsc, void* dq, void* dk_out,
+                                  void* dv_out, int B, int Tq, int Tk, int nh, int dk, int dv,
+                                  void* stream) {
+  return (int)core_attn::launch_attn_bwd(q, k, v, P, dctx, dsc, dq, dk_out, dv_out, B, Tq, Tk, nh,
+                                         dk, dv, nh * dk, nh * dk, nh * dv, nh * dk, nh * dk,
+                                         nh * dv, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// Shared-memory bytes of the largest launch of the CUDA-core route at these
+// lengths and widths (for K4, K5 and K11 alike: the wrappers check it).
+extern "C" long long avsr_attn_core_smem(int Tq, int Tk, int dk, int dv) {
+  return (long long)core_attn::attn_smem(Tq, Tk, dk, dv);
 }

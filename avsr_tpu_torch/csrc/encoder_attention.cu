@@ -41,13 +41,15 @@
 // recomputed, dP, dQ, dK, dV): both byte-bound.  Design: attention_mma.cuh
 // (mma.sync tiles from swizzled shared memory, 64 queries or keys per
 // block, the scores in registers, one owner block per output row, no
-// atomics), in place of attention_core.cuh's CUDA-core products, which K4
-// and K5 still run.  Head width 64 only (the lrs2_av_v2 preset's 512 / 8
-// heads; the wrapper raises on another); T from 1 to 531, the preset's
-// 16 s limit (shared memory at T = 531: 147 KB forward, 164 KB for the
-// backward's key launch).
+// atomics).  Tensor-core instance at head width 64 (the lrs2_av_v2
+// preset's 512 / 8 heads); T from 1 to 531, the preset's 16 s limit
+// (shared memory at T = 531: 147 KB forward, 164 KB for the backward's key
+// launch).  Other head widths (multiples of 8) run on attention_core.cuh's
+// CUDA-core kernels, whose residual is the fp32 weights
+// (avsr_encoder_attn_core_*; kernels.attention_family routes by width).
 
 #include "attention_mma.cuh"
+#include "attention_core.cuh"
 
 namespace {
 constexpr int DH = 64;
@@ -86,4 +88,28 @@ extern "C" int avsr_encoder_attn_bwd(const void* qkv, const void* lengths, const
       static_cast<const float*>(row_max), static_cast<const float*>(row_sum), dctx,
       static_cast<float*>(D), dq, dq + d, dq + 2 * d, B, T, T, nh, 3 * d, 3 * d, 3 * d, d, 3 * d,
       3 * d, 3 * d, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The CUDA-core route at any dh that is a multiple of 8, q, k and v read in
+// place from qkv as above: P fp32 [B, nh, T, T] out where not null (the
+// backward's residual on this route).
+extern "C" int avsr_encoder_attn_core_fwd(const void* qkv, const void* lengths, void* P,
+                                          void* ctx, int B, int T, int nh, int dh, void* stream) {
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(qkv);
+  const int d = nh * dh;
+  return (int)core_attn::launch_attn_fwd(
+      q, q + d, q + 2 * d, mma_attn::LengthMask{static_cast<const int*>(lengths)}, P, ctx, B, T,
+      T, nh, dh, dh, 3 * d, 3 * d, 3 * d, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// dsc: a bf16 [B, nh, T, T] scratch; dqkv [B, T, 3, nh, dh] bf16 out.
+extern "C" int avsr_encoder_attn_core_bwd(const void* qkv, const void* P, const void* dctx,
+                                          void* dsc, void* dqkv, int B, int T, int nh, int dh,
+                                          void* stream) {
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(qkv);
+  __nv_bfloat16* dq = static_cast<__nv_bfloat16*>(dqkv);
+  const int d = nh * dh;
+  return (int)core_attn::launch_attn_bwd(q, q + d, q + 2 * d, P, dctx, dsc, dq, dq + d, dq + 2 * d,
+                                         B, T, T, nh, dh, dh, 3 * d, 3 * d, 3 * d, 3 * d, 3 * d,
+                                         3 * d, reinterpret_cast<cudaStream_t>(stream));
 }

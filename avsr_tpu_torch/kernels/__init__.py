@@ -171,12 +171,18 @@ def _load() -> ctypes.CDLL:
             p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p,
         ]
         lib.avsr_logmel_post_dft.restype = i
-        lib.avsr_decoder_attn_smem.argtypes = [i, i, i, i]
-        lib.avsr_decoder_attn_smem.restype = ctypes.c_longlong
-        lib.avsr_decoder_attn_fwd.argtypes = [p] * 6 + [i] * 6 + [p]
+        lib.avsr_fusion_attn_core_fwd.argtypes = [p] * 6 + [i] * 6 + [p]
+        lib.avsr_fusion_attn_core_fwd.restype = i
+        lib.avsr_attn_core_smem.argtypes = [i, i, i, i]
+        lib.avsr_attn_core_smem.restype = ctypes.c_longlong
+        lib.avsr_decoder_attn_fwd.argtypes = [p] * 7 + [i] * 6 + [p]
         lib.avsr_decoder_attn_fwd.restype = i
-        lib.avsr_decoder_attn_bwd.argtypes = [p] * 9 + [i] * 6 + [p]
+        lib.avsr_decoder_attn_bwd.argtypes = [p] * 11 + [i] * 6 + [p]
         lib.avsr_decoder_attn_bwd.restype = i
+        lib.avsr_decoder_attn_core_fwd.argtypes = [p] * 6 + [i] * 6 + [p]
+        lib.avsr_decoder_attn_core_fwd.restype = i
+        lib.avsr_attn_core_bwd.argtypes = [p] * 9 + [i] * 6 + [p]
+        lib.avsr_attn_core_bwd.restype = i
         lib.avsr_decode_attn.argtypes = [p] * 5 + [i] * 6 + [p]
         lib.avsr_decode_attn.restype = i
         lib.avsr_beam_step.argtypes = [p] * 12 + [i] * 4 + [p]
@@ -201,6 +207,10 @@ def _load() -> ctypes.CDLL:
         lib.avsr_encoder_attn_fwd.restype = i
         lib.avsr_encoder_attn_bwd.argtypes = [p] * 7 + [i] * 4 + [p]
         lib.avsr_encoder_attn_bwd.restype = i
+        lib.avsr_encoder_attn_core_fwd.argtypes = [p] * 4 + [i] * 4 + [p]
+        lib.avsr_encoder_attn_core_fwd.restype = i
+        lib.avsr_encoder_attn_core_bwd.argtypes = [p] * 5 + [i] * 4 + [p]
+        lib.avsr_encoder_attn_core_bwd.restype = i
         lib.avsr_conformer_conv_smem.argtypes = [i, i]
         lib.avsr_conformer_conv_smem.restype = ctypes.c_longlong
         lib.avsr_conformer_conv.argtypes = [p] * 7 + [i] * 4 + [p]
@@ -377,7 +387,42 @@ def logmel_post_dft(re, im, feat_len, mel_w, *, log_floor: float,
     return out, new_len
 
 
-FUSION_WIDTHS = ((128, 128), (128, 64))  # the (A, dv) head-width pairs K4 is built for
+# The head widths (dk, dv) at which each attention kernel has tensor-core
+# instances (``csrc/attention_mma.cuh``); every other pair of multiples of 8
+# runs on the CUDA-core family (``csrc/attention_core.cuh``).
+MMA_WIDTHS = {
+    "encoder_attention": ((64, 64),),
+    "fusion_attention": ((128, 128), (128, 64)),
+    "decoder_self_attention": ((64, 64),),
+    "decoder_cross_attention": ((128, 256),),
+}
+DECODER_SELF_MAX_S = 784  # K5's causal instance stages whole rows: 16384 + 272 S bytes at most
+
+
+def attention_family(kernel: str, dk: int, dv: int) -> str:
+    """The kernel family that runs ``kernel`` (a key of ``MMA_WIDTHS``) at
+    head widths (dk, dv): "mma", the tensor-core instances, or "core", the
+    CUDA-core kernels that take any widths that are multiples of 8 (their
+    16-byte row loads) and save the fp32 weights for the backward.  Chosen
+    by shape alone, never after a failure; other widths raise."""
+    _check_widths(kernel, dk, dv)
+    return "mma" if (dk, dv) in MMA_WIDTHS[kernel] else "core"
+
+
+def _check_widths(what: str, dk: int, dv: int) -> None:
+    if dk < 8 or dv < 8 or dk % 8 or dv % 8:
+        raise ValueError(f"{what}: head widths dk={dk}, dv={dv}; the kernels take positive "
+                         f"multiples of 8")
+
+
+def _check_core(what: str, Tq: int, Tk: int, dk: int, dv: int) -> None:
+    """The CUDA-core route stages whole rows in shared memory: its lengths
+    are capped by the card's limit at the given widths."""
+    smem = _load().avsr_attn_core_smem(Tq, Tk, dk, dv)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{what}: the CUDA-core kernels at head widths dk={dk}, dv={dv} (no "
+                         f"tensor-core instance) stage whole rows; T_q={Tq}, T_k={Tk} need {smem} "
+                         f"bytes of shared memory per block (limit {SMEM_LIMIT})")
 
 
 def _check_fusion(q, k, v, video_lengths, dev):
@@ -387,38 +432,45 @@ def _check_fusion(q, k, v, video_lengths, dev):
     _check("k", k, torch.bfloat16, (B, Tv, nh, A), dev)
     _check("v", v, torch.bfloat16, (B, Tv, nh, dv), dev)
     _check("video_lengths", video_lengths, torch.int32, (B,), dev, align=4)
-    if (A, dv) not in FUSION_WIDTHS:
-        raise ValueError(f"fusion attention: head widths A={A}, dv={dv}; the kernels are built "
-                         f"for (A, dv) in {FUSION_WIDTHS}")
     if not (1 <= Ta <= ATTEND_MAX_S and 1 <= Tv <= FUSION_MAX_TV):
         raise ValueError(f"fusion attention: T_a={Ta}, T_v={Tv}; the kernels take "
                          f"1 <= T_a <= {ATTEND_MAX_S} and 1 <= T_v <= {FUSION_MAX_TV}")
+    if attention_family("fusion_attention", A, dv) == "core":
+        _check_core("fusion attention", Ta, Tv, A, dv)
     return B, Ta, Tv, nh, A, dv
 
 
 def fusion_attention_fwd(q, k, v, video_lengths, *, save: bool = False):
-    """K4: the cross-attention fusion core, forward (CUDA, tensor cores).
+    """K4: the cross-attention fusion core, forward (CUDA).
 
     q [B,T_a,nh,A], k [B,T_v,nh,A], v [B,T_v,nh,dv] bf16, video_lengths [B]
     int32 -> (ctx [B,T_a,nh,dv] bf16, weights [B,nh,T_a,T_v] f32, the
-    softmax's row statistics (row_max, row_sum), fp32 [B,nh,T_a] each, when
-    ``save`` (the backward's residual), else None).
+    backward's residual when ``save``, else None): on the tensor cores
+    (``attention_family`` "mma") the softmax's row statistics (row_max,
+    row_sum), fp32 [B,nh,T_a] each; on the CUDA-core route the weights
+    themselves, a one-tuple.
     """
     dev = q.device
     B, Ta, Tv, nh, A, dv = _check_fusion(q, k, v, video_lengths, dev)
     lib = _load()
     P = torch.empty((B, nh, Ta, Tv), dtype=torch.float32, device=dev)
-    stats = tuple(torch.empty((B, nh, Ta), dtype=torch.float32, device=dev)
-                  for _ in range(2)) if save else None
     ctx = torch.empty((B, Ta, nh, dv), dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.avsr_fusion_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), video_lengths.data_ptr(), P.data_ptr(),
-        *((None, None) if stats is None else map(_ptr, stats)), ctx.data_ptr(),
-        B, Ta, Tv, nh, A, dv, stream)
+    if attention_family("fusion_attention", A, dv) == "core":
+        err = lib.avsr_fusion_attn_core_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                            video_lengths.data_ptr(), P.data_ptr(), ctx.data_ptr(),
+                                            B, Ta, Tv, nh, A, dv, stream)
+        res = (P,) if save else None
+    else:
+        res = tuple(torch.empty((B, nh, Ta), dtype=torch.float32, device=dev)
+                    for _ in range(2)) if save else None
+        err = lib.avsr_fusion_attn_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), video_lengths.data_ptr(), P.data_ptr(),
+            *((None, None) if res is None else map(_ptr, res)), ctx.data_ptr(),
+            B, Ta, Tv, nh, A, dv, stream)
     _raise_on(err, "fusion_attention_fwd launch")
     LAUNCHES["fusion_attention_fwd"] += 1
-    return ctx, P, stats
+    return ctx, P, res
 
 
 def fusion_attention_bwd(q, k, v, video_lengths, row_max, row_sum, dctx):
@@ -427,10 +479,14 @@ def fusion_attention_bwd(q, k, v, video_lengths, row_max, row_sum, dctx):
     The forward's q, k, v, video lengths and saved row statistics (fp32
     [B,nh,T_a] each), and the context cotangent dctx [B,T_a,nh,dv] bf16 ->
     (dq, dk, dv) in bf16.  The weights are recomputed from the statistics;
-    the only scratch is D = rowsum(dP * P), fp32 [B,nh,T_a].
+    the only scratch is D = rowsum(dP * P), fp32 [B,nh,T_a].  Widths with no
+    tensor-core instance take ``attention_bwd_core``.
     """
     dev = q.device
     B, Ta, Tv, nh, A, dv = _check_fusion(q, k, v, video_lengths, dev)
+    if attention_family("fusion_attention", A, dv) != "mma":
+        raise ValueError(f"fusion attention: no tensor-core instance at A={A}, dv={dv}; its "
+                         f"backward reads the weights (attention_bwd_core)")
     _check("row_max", row_max, torch.float32, (B, nh, Ta), dev, align=4)
     _check("row_sum", row_sum, torch.float32, (B, nh, Ta), dev, align=4)
     _check("dctx", dctx, torch.bfloat16, (B, Ta, nh, dv), dev)
@@ -449,20 +505,30 @@ def fusion_attention_bwd(q, k, v, video_lengths, row_max, row_sum, dctx):
     return dq, dk, dvv
 
 
-def _check_decoder_attention(q, k, v, dev):
+def _check_decoder_attention(q, k, v, bias, dev):
+    """K5's operands and the family that runs them (``attention_family``):
+    the tensor-core instances take any Q and S (the causal one Q = S <=
+    ``DECODER_SELF_MAX_S``); the CUDA-core route is capped by shared memory."""
     B, Q, nh, dk = q.shape
     S, dv = k.shape[1], v.shape[-1]
     _check("q", q, torch.bfloat16, (B, Q, nh, dk), dev)
     _check("k", k, torch.bfloat16, (B, S, nh, dk), dev)
     _check("v", v, torch.bfloat16, (B, S, nh, dv), dev)
-    if dk % 8 or dv % 8 or Q < 1 or S < 1:
-        raise ValueError(f"decoder attention: head dims {dk}/{dv} must be multiples of 8, "
-                         f"Q={Q} and S={S} at least 1")
-    smem = _load().avsr_decoder_attn_smem(Q, S, dk, dv)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"decoder attention: Q={Q}, S={S}, dk={dk}, dv={dv} need {smem} "
-                         f"bytes of shared memory per block (limit {SMEM_LIMIT})")
-    return B, Q, S, nh, dk, dv
+    if bias is None:
+        if Q != S:
+            raise ValueError(f"decoder attention: the causal mask needs Q == S, got {Q} and {S}")
+    else:
+        _check("bias", bias, torch.float32, (B, S), dev)
+    if Q < 1 or S < 1:
+        raise ValueError(f"decoder attention: Q={Q} and S={S} must be at least 1")
+    kind = "decoder_self_attention" if bias is None else "decoder_cross_attention"
+    family = attention_family(kind, dk, dv)
+    if family == "core":
+        _check_core("decoder attention", Q, S, dk, dv)
+    elif bias is None and S > DECODER_SELF_MAX_S:
+        raise ValueError(f"decoder attention: the causal instance stages whole rows and takes "
+                         f"Q = S <= {DECODER_SELF_MAX_S}, got {S}")
+    return B, Q, S, nh, dk, dv, family
 
 
 def decoder_attention_fwd(q, k, v, bias, *, save: bool):
@@ -470,48 +536,96 @@ def decoder_attention_fwd(q, k, v, bias, *, save: bool):
 
     q [B,Q,nh,dk], k [B,S,nh,dk], v [B,S,nh,dv] bf16; ``bias`` [B,S] f32
     (the memory's additive key bias) or None for the causal mask (Q == S)
-    -> (ctx [B,Q,nh,dv] bf16, weights [B,nh,Q,S] f32 when ``save``, else
-    None: the backward's residual).
+    -> (ctx [B,Q,nh,dv] bf16, the backward's residual when ``save``, else
+    None): on the tensor cores (``attention_family`` "mma") the softmax's
+    row statistics (row_max, row_sum), fp32 [B,nh,Q] each, and no weights
+    are written; on the CUDA-core route the fp32 weights [B,nh,Q,S], a
+    one-tuple.
     """
     dev = q.device
-    B, Q, S, nh, dk, dv = _check_decoder_attention(q, k, v, dev)
-    if bias is None and Q != S:
-        raise ValueError(f"decoder attention: the causal mask needs Q == S, got {Q} and {S}")
-    if bias is not None:
-        _check("bias", bias, torch.float32, (B, S), dev)
+    B, Q, S, nh, dk, dv, family = _check_decoder_attention(q, k, v, bias, dev)
     lib = _load()
-    P = torch.empty((B, nh, Q, S), dtype=torch.float32, device=dev) if save else None
     ctx = torch.empty((B, Q, nh, dv), dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.avsr_decoder_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
-        None if P is None else P.data_ptr(), ctx.data_ptr(), B, Q, S, nh, dk, dv, stream)
+    if family == "core":
+        P = torch.empty((B, nh, Q, S), dtype=torch.float32, device=dev) if save else None
+        err = lib.avsr_decoder_attn_core_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                             _ptr(bias), _ptr(P), ctx.data_ptr(),
+                                             B, Q, S, nh, dk, dv, stream)
+        res = (P,) if save else None
+    else:
+        res = tuple(torch.empty((B, nh, Q), dtype=torch.float32, device=dev)
+                    for _ in range(2)) if save else None
+        err = lib.avsr_decoder_attn_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+            *((None, None) if res is None else map(_ptr, res)), ctx.data_ptr(),
+            B, Q, S, nh, dk, dv, stream)
     _raise_on(err, "decoder_attention_fwd launch")
     LAUNCHES["decoder_attention_fwd"] += 1
-    return ctx, P
+    return ctx, res
 
 
-def decoder_attention_bwd(q, k, v, weights, dctx):
-    """K5: the teacher-forced decoder attention, backward (CUDA).
+def decoder_attention_bwd(q, k, v, bias, row_max, row_sum, dctx):
+    """K5: the teacher-forced decoder attention, backward (CUDA, tensor
+    cores).
 
-    The forward's q, k, v, its fp32 weights [B,nh,Q,S] and the context
-    cotangent dctx [B,Q,nh,dv] bf16 -> (dq, dk, dv) in bf16.  The mask
-    enters only through the weights.
+    The forward's q, k, v, bias (None: causal) and saved row statistics
+    (fp32 [B,nh,Q] each), and the context cotangent dctx [B,Q,nh,dv] bf16
+    -> (dq, dk, dv) in bf16.  The weights are recomputed from the
+    statistics; the only scratch is D = rowsum(dP * P), fp32 [B,nh,Q].
+    Widths with no tensor-core instance take ``attention_bwd_core``.
     """
     dev = q.device
-    B, Q, S, nh, dk, dv = _check_decoder_attention(q, k, v, dev)
-    _check("weights", weights, torch.float32, (B, nh, Q, S), dev)
+    B, Q, S, nh, dk, dv, family = _check_decoder_attention(q, k, v, bias, dev)
+    if family != "mma":
+        raise ValueError(f"decoder attention: no tensor-core instance at dk={dk}, dv={dv}; its "
+                         f"backward reads the weights (attention_bwd_core)")
+    _check("row_max", row_max, torch.float32, (B, nh, Q), dev, align=4)
+    _check("row_sum", row_sum, torch.float32, (B, nh, Q), dev, align=4)
     _check("dctx", dctx, torch.bfloat16, (B, Q, nh, dv), dev)
-    dsc = torch.empty((B, nh, Q, S), dtype=torch.bfloat16, device=dev)
+    lib = _load()
+    D = torch.empty((B, nh, Q), dtype=torch.float32, device=dev)
     dq = torch.empty_like(q)
     dkk = torch.empty_like(k)
     dvv = torch.empty_like(v)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _load().avsr_decoder_attn_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), weights.data_ptr(), dctx.data_ptr(),
-        dsc.data_ptr(), dq.data_ptr(), dkk.data_ptr(), dvv.data_ptr(), B, Q, S, nh, dk, dv, stream)
+    err = lib.avsr_decoder_attn_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), row_max.data_ptr(),
+        row_sum.data_ptr(), dctx.data_ptr(), D.data_ptr(), dq.data_ptr(), dkk.data_ptr(),
+        dvv.data_ptr(), B, Q, S, nh, dk, dv, stream)
     _raise_on(err, "decoder_attention_bwd launch")
     LAUNCHES["decoder_attention_bwd"] += 1
+    return dq, dkk, dvv
+
+
+def attention_bwd_core(kernel: str, q, k, v, weights, dctx):
+    """The backward of K4 (``kernel`` "fusion_attention") or K5
+    ("decoder_attention") on the CUDA-core route, from the forward's fp32
+    weights [B,nh,T_q,T_k]: q [B,T_q,nh,dk], k [B,T_k,nh,dk], v
+    [B,T_k,nh,dv] and dctx [B,T_q,nh,dv] bf16 -> (dq, dk, dv) in bf16.  The
+    mask enters only through the weights; the scratch is the scores'
+    cotangent, bf16 [B,nh,T_q,T_k].  Counted as the kernel's backward."""
+    B, Tq, nh, dk = q.shape
+    Tk, dv = k.shape[1], v.shape[-1]
+    dev = q.device
+    _check("q", q, torch.bfloat16, (B, Tq, nh, dk), dev)
+    _check("k", k, torch.bfloat16, (B, Tk, nh, dk), dev)
+    _check("v", v, torch.bfloat16, (B, Tk, nh, dv), dev)
+    _check("weights", weights, torch.float32, (B, nh, Tq, Tk), dev)
+    _check("dctx", dctx, torch.bfloat16, (B, Tq, nh, dv), dev)
+    _check_widths(kernel, dk, dv)
+    _check_core(kernel, Tq, Tk, dk, dv)
+    lib = _load()
+    dsc = torch.empty((B, nh, Tq, Tk), dtype=torch.bfloat16, device=dev)
+    dq = torch.empty_like(q)
+    dkk = torch.empty_like(k)
+    dvv = torch.empty_like(v)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.avsr_attn_core_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), weights.data_ptr(),
+                                 dctx.data_ptr(), dsc.data_ptr(), dq.data_ptr(), dkk.data_ptr(),
+                                 dvv.data_ptr(), B, Tq, Tk, nh, dk, dv, stream)
+    _raise_on(err, f"{kernel}_bwd launch")
+    LAUNCHES[f"{kernel}_bwd"] += 1
     return dq, dkk, dvv
 
 
@@ -802,47 +916,52 @@ def bahdanau_attend_bwd(query, wq, v, keys, values, weights, dctx):
     return dquery, dq, dv_rows, dkeys, dvalues
 
 
-ENCODER_ATTENTION_DH = 64  # the head width K11 is built for (DH in the source)
-
-
 def _check_encoder_attention(qkv, lengths, dev):
     B, T, _, nh, dh = qkv.shape
     _check("qkv", qkv, torch.bfloat16, (B, T, 3, nh, dh), dev)
     _check("lengths", lengths, torch.int32, (B,), dev, align=4)
-    if dh != ENCODER_ATTENTION_DH:
-        raise ValueError(f"encoder attention: head dim {dh}; the kernel is built for "
-                         f"{ENCODER_ATTENTION_DH}")
     if not 1 <= T <= ATTEND_MAX_S:
         raise ValueError(f"encoder attention: T={T}; the kernel takes 1 <= T <= {ATTEND_MAX_S}")
-    smem = _load().avsr_encoder_attn_smem(T, dh)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"encoder attention: T={T}, dh={dh} need {smem} bytes of shared memory "
-                         f"per block (limit {SMEM_LIMIT})")
-    return B, T, nh, dh
+    family = attention_family("encoder_attention", dh, dh)
+    if family == "core":
+        _check_core("encoder attention", T, T, dh, dh)
+    else:
+        smem = _load().avsr_encoder_attn_smem(T, dh)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"encoder attention: T={T}, dh={dh} need {smem} bytes of shared "
+                             f"memory per block (limit {SMEM_LIMIT})")
+    return B, T, nh, dh, family
 
 
 def encoder_attention_fwd(qkv, lengths, *, save: bool = False):
-    """K11: the transformer encoder's self-attention core, forward (CUDA,
-    tensor cores).
+    """K11: the transformer encoder's self-attention core, forward (CUDA).
 
-    qkv [B,T,3,nh,64] bf16 (the one [d, 3d] product, read in place as the
+    qkv [B,T,3,nh,dh] bf16 (the one [d, 3d] product, read in place as the
     q, k and v views), lengths [B] int32 (the keys' valid counts) -> (ctx
-    [B,T,nh,64] bf16, the softmax's row statistics (row_max, row_sum), fp32
-    [B,nh,T] each, when ``save`` (the backward's residual), else None).
+    [B,T,nh,dh] bf16, the backward's residual when ``save``, else None): at
+    dh = 64, on the tensor cores, the softmax's row statistics (row_max,
+    row_sum), fp32 [B,nh,T] each; at another multiple of 8, on the CUDA-core
+    route (``attention_family``), the fp32 weights [B,nh,T,T], a one-tuple.
     """
     dev = qkv.device
-    B, T, nh, dh = _check_encoder_attention(qkv, lengths, dev)
+    B, T, nh, dh, family = _check_encoder_attention(qkv, lengths, dev)
     lib = _load()
-    stats = tuple(torch.empty((B, nh, T), dtype=torch.float32, device=dev)
-                  for _ in range(2)) if save else None
     ctx = torch.empty((B, T, nh, dh), dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.avsr_encoder_attn_fwd(qkv.data_ptr(), lengths.data_ptr(),
-                                    *((None, None) if stats is None else map(_ptr, stats)),
-                                    ctx.data_ptr(), B, T, nh, dh, stream)
+    if family == "core":
+        P = torch.empty((B, nh, T, T), dtype=torch.float32, device=dev) if save else None
+        err = lib.avsr_encoder_attn_core_fwd(qkv.data_ptr(), lengths.data_ptr(), _ptr(P),
+                                             ctx.data_ptr(), B, T, nh, dh, stream)
+        res = (P,) if save else None
+    else:
+        res = tuple(torch.empty((B, nh, T), dtype=torch.float32, device=dev)
+                    for _ in range(2)) if save else None
+        err = lib.avsr_encoder_attn_fwd(qkv.data_ptr(), lengths.data_ptr(),
+                                        *((None, None) if res is None else map(_ptr, res)),
+                                        ctx.data_ptr(), B, T, nh, dh, stream)
     _raise_on(err, "encoder_attention_fwd launch")
     LAUNCHES["encoder_attention_fwd"] += 1
-    return ctx, stats
+    return ctx, res
 
 
 def encoder_attention_bwd(qkv, lengths, row_max, row_sum, dctx):
@@ -854,10 +973,14 @@ def encoder_attention_bwd(qkv, lengths, row_max, row_sum, dctx):
     [B,T,nh,64] bf16 -> dqkv [B,T,3,nh,64] bf16, the cotangent of the
     [d, 3d] product (dq, dk and dv written in place into its three views).
     The weights are recomputed from the statistics; the only scratch is
-    D = rowsum(dP * P), fp32 [B,nh,T].
+    D = rowsum(dP * P), fp32 [B,nh,T].  Other head widths take
+    ``encoder_attention_bwd_core``.
     """
     dev = qkv.device
-    B, T, nh, dh = _check_encoder_attention(qkv, lengths, dev)
+    B, T, nh, dh, family = _check_encoder_attention(qkv, lengths, dev)
+    if family != "mma":
+        raise ValueError(f"encoder attention: no tensor-core instance at dh={dh}; its backward "
+                         f"reads the weights (encoder_attention_bwd_core)")
     _check("row_max", row_max, torch.float32, (B, nh, T), dev, align=4)
     _check("row_sum", row_sum, torch.float32, (B, nh, T), dev, align=4)
     _check("dctx", dctx, torch.bfloat16, (B, T, nh, dh), dev)
@@ -868,6 +991,26 @@ def encoder_attention_bwd(qkv, lengths, row_max, row_sum, dctx):
     err = lib.avsr_encoder_attn_bwd(qkv.data_ptr(), lengths.data_ptr(), row_max.data_ptr(),
                                     row_sum.data_ptr(), dctx.data_ptr(), D.data_ptr(),
                                     dqkv.data_ptr(), B, T, nh, dh, stream)
+    _raise_on(err, "encoder_attention_bwd launch")
+    LAUNCHES["encoder_attention_bwd"] += 1
+    return dqkv
+
+
+def encoder_attention_bwd_core(qkv, lengths, weights, dctx):
+    """K11's backward on the CUDA-core route (head widths with no
+    tensor-core instance): the forward's qkv, lengths and fp32 weights
+    [B,nh,T,T], and dctx [B,T,nh,dh] bf16 -> dqkv [B,T,3,nh,dh] bf16; the
+    scratch is the scores' cotangent, bf16 [B,nh,T,T]."""
+    dev = qkv.device
+    B, T, nh, dh, _ = _check_encoder_attention(qkv, lengths, dev)
+    _check("weights", weights, torch.float32, (B, nh, T, T), dev)
+    _check("dctx", dctx, torch.bfloat16, (B, T, nh, dh), dev)
+    lib = _load()
+    dsc = torch.empty((B, nh, T, T), dtype=torch.bfloat16, device=dev)
+    dqkv = torch.empty_like(qkv)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.avsr_encoder_attn_core_bwd(qkv.data_ptr(), weights.data_ptr(), dctx.data_ptr(),
+                                         dsc.data_ptr(), dqkv.data_ptr(), B, T, nh, dh, stream)
     _raise_on(err, "encoder_attention_bwd launch")
     LAUNCHES["encoder_attention_bwd"] += 1
     return dqkv

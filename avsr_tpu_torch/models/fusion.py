@@ -439,8 +439,11 @@ def _check_policy(q):
 
 
 def fusion_attention_fwd(q, k, v, video_lengths, *, save: bool = False):
-    """K4 forward wrapper: the CUDA kernel for GPU tensors, the plain
-    version on the CPU; same contract as ``fusion_attention_fwd_plain``."""
+    """K4 forward wrapper: the CUDA kernels for GPU tensors, the plain
+    version on the CPU; same contract as ``fusion_attention_fwd_plain``,
+    but for the residual of the CUDA-core route (head widths with no
+    tensor-core instance, ``kernels.attention_family``): the weights, a
+    one-tuple, in place of the row statistics."""
     if q.device.type == "cpu":
         return fusion_attention_fwd_plain(q, k, v, video_lengths, save=save)
     _check_policy(q)
@@ -449,8 +452,8 @@ def fusion_attention_fwd(q, k, v, video_lengths, *, save: bool = False):
 
 
 def fusion_attention_bwd(q, k, v, video_lengths, row_max, row_sum, dctx):
-    """K4 backward wrapper: the CUDA kernel for GPU tensors, the plain
-    version on the CPU; same contract as ``fusion_attention_bwd_plain``."""
+    """K4 backward wrapper: the tensor-core kernels for GPU tensors, the
+    plain version on the CPU; same contract as ``fusion_attention_bwd_plain``."""
     if q.device.type == "cpu":
         return fusion_attention_bwd_plain(q, k, v, video_lengths, row_max, row_sum, dctx)
     _check_policy(q)
@@ -460,18 +463,31 @@ def fusion_attention_bwd(q, k, v, video_lengths, row_max, row_sum, dctx):
                                         dctx.to(torch.bfloat16).contiguous())
 
 
+def core_route_bwd(kernel, q, k, v, weights, dctx):
+    """The backward of K4 (``kernel`` "fusion_attention") or K5
+    ("decoder_attention") from the fp32 weights, the residual of the
+    CUDA-core route (head widths with no tensor-core instance): its kernels
+    for GPU tensors, ``attention_bwd_from_weights`` on the CPU."""
+    if q.device.type == "cpu":
+        return attention_bwd_from_weights(q, k, v, weights, dctx)
+    _check_policy(q)
+    return kernels.attention_bwd_core(kernel, q.contiguous(), k.contiguous(), v.contiguous(),
+                                      weights.contiguous(), dctx.to(torch.bfloat16).contiguous())
+
+
 class FusionAttention(torch.autograd.Function):
     """K4 with its gradient: (ctx, weights) from q, k, v and the video
     lengths.  The forward saves the operands, the lengths and the softmax's
     row statistics ([B, nh, T_a] each), not the weights; the backward
-    recomputes them.  The weights only feed the alignments, which no loss
-    reads: they are marked non-differentiable, and a gradient arriving for
-    them raises."""
+    recomputes them (the CUDA-core route, at widths with no tensor-core
+    instance, saves the weights).  The weights only feed the alignments,
+    which no loss reads: they are marked non-differentiable, and a gradient
+    arriving for them raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, video_lengths):
-        out, w, (row_max, row_sum) = fusion_attention_fwd(q, k, v, video_lengths, save=True)
-        ctx.save_for_backward(q, k, v, video_lengths, row_max, row_sum)
+        out, w, res = fusion_attention_fwd(q, k, v, video_lengths, save=True)
+        ctx.save_for_backward(q, k, v, video_lengths, *res)
         ctx.mark_non_differentiable(w)
         ctx.set_materialize_grads(False)
         return out, w
@@ -482,7 +498,11 @@ class FusionAttention(torch.autograd.Function):
             raise RuntimeError("the fusion attention weights take no gradient")
         if dctx is None:
             return None, None, None, None
-        dq, dk, dv = fusion_attention_bwd(*ctx.saved_tensors, dctx)
+        q, k, v, video_lengths, *res = ctx.saved_tensors
+        if len(res) == 1:
+            dq, dk, dv = core_route_bwd("fusion_attention", q, k, v, *res, dctx)
+        else:
+            dq, dk, dv = fusion_attention_bwd(q, k, v, video_lengths, *res, dctx)
         return dq, dk, dv, None
 
 

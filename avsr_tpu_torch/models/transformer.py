@@ -53,6 +53,7 @@ import torch.nn.functional as F
 
 from avsr_tpu_torch import kernels
 from avsr_tpu_torch.configs import EncoderConfig
+from avsr_tpu_torch.models.fusion import attention_bwd_from_weights
 from avsr_tpu_torch.models.transformer_common import layer_norm, sinusoidal_pe
 from avsr_tpu_torch.utils.params import Params, glorot_uniform, zeros
 from avsr_tpu_torch.utils.rng import dropout_mask
@@ -205,9 +206,11 @@ def encoder_self_attention_bwd_plain(qkv: torch.Tensor, lengths: torch.Tensor,
 
 
 def encoder_self_attention_fwd(qkv: torch.Tensor, lengths: torch.Tensor, *, save: bool):
-    """K11 forward: (ctx, the row statistics (row_max, row_sum) when
-    ``save``, else None); the CUDA kernel for GPU tensors (bf16 policy), the
-    plain version on the CPU."""
+    """K11 forward: (ctx, the backward's residual when ``save``, else None);
+    the CUDA kernels for GPU tensors (bf16 policy), the plain version on the
+    CPU.  The residual is the row statistics (row_max, row_sum) from the
+    plain version and the tensor-core kernels, the fp32 weights (a
+    one-tuple) from the CUDA-core ones (``kernels.attention_family``)."""
     if qkv.device.type == "cpu":
         return encoder_self_attention_fwd_plain(qkv, lengths, save=save)
     _check_policy(qkv, "encoder attention")
@@ -217,8 +220,8 @@ def encoder_self_attention_fwd(qkv: torch.Tensor, lengths: torch.Tensor, *, save
 
 def encoder_self_attention_bwd(qkv: torch.Tensor, lengths: torch.Tensor, row_max: torch.Tensor,
                                row_sum: torch.Tensor, dctx: torch.Tensor) -> torch.Tensor:
-    """K11 backward: the CUDA kernel for GPU tensors, the plain twin on the
-    CPU; same contract as ``encoder_self_attention_bwd_plain``."""
+    """K11 backward: the tensor-core kernels for GPU tensors, the plain twin
+    on the CPU; same contract as ``encoder_self_attention_bwd_plain``."""
     if qkv.device.type == "cpu":
         return encoder_self_attention_bwd_plain(qkv, lengths, row_max, row_sum, dctx)
     _check_policy(qkv, "encoder attention")
@@ -227,20 +230,40 @@ def encoder_self_attention_bwd(qkv: torch.Tensor, lengths: torch.Tensor, row_max
                                          dctx.to(torch.bfloat16).contiguous())
 
 
+def encoder_self_attention_bwd_from_weights(qkv: torch.Tensor, lengths: torch.Tensor,
+                                            weights: torch.Tensor,
+                                            dctx: torch.Tensor) -> torch.Tensor:
+    """K11 backward from the fp32 weights [B,nh,T,T], the residual of the
+    CUDA-core route (head widths with no tensor-core instance): its kernels
+    for GPU tensors, the weights-based backward on the CPU -> dqkv."""
+    if qkv.device.type == "cpu":
+        return torch.stack(attention_bwd_from_weights(*qkv.unbind(2), weights, dctx), dim=2)
+    _check_policy(qkv, "encoder attention")
+    return kernels.encoder_attention_bwd_core(qkv.contiguous(),
+                                              lengths.to(torch.int32).contiguous(),
+                                              weights.contiguous(),
+                                              dctx.to(torch.bfloat16).contiguous())
+
+
 class EncoderSelfAttention(torch.autograd.Function):
     """K11 with its gradient: ctx from the [d, 3d] product and the lengths.
     The forward saves the operands, the lengths and the softmax's row
-    statistics ([B, nh, T] each); the backward recomputes the weights."""
+    statistics ([B, nh, T] each); the backward recomputes the weights (the
+    CUDA-core route, at head widths with no tensor-core instance, saves the
+    weights)."""
 
     @staticmethod
     def forward(ctx, qkv, lengths):
-        out, (row_max, row_sum) = encoder_self_attention_fwd(qkv, lengths, save=True)
-        ctx.save_for_backward(qkv, lengths, row_max, row_sum)
+        out, res = encoder_self_attention_fwd(qkv, lengths, save=True)
+        ctx.save_for_backward(qkv, lengths, *res)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        return encoder_self_attention_bwd(*ctx.saved_tensors, dout), None
+        qkv, lengths, *res = ctx.saved_tensors
+        if len(res) == 1:
+            return encoder_self_attention_bwd_from_weights(qkv, lengths, *res, dout), None
+        return encoder_self_attention_bwd(qkv, lengths, *res, dout), None
 
 
 def encoder_self_attention(qkv: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:

@@ -22,9 +22,11 @@ logits stay matrix products, as the reference leaves them to XLA:
 
 * K5, the teacher-forced attention (causal self attention, and cross
   attention under the memory's key bias): ``DecoderAttention`` is its
-  ``torch.autograd.Function``; ``decoder_attention_fwd`` / ``_bwd`` launch
-  the CUDA kernels (``csrc/decoder_attention.cu``) for GPU tensors and run
-  ``decoder_attention_fwd_plain`` / ``_bwd_plain`` for CPU tensors.
+  ``torch.autograd.Function``, which saves the softmax's row statistics,
+  not the weights; ``decoder_attention_fwd`` / ``_bwd`` launch the CUDA
+  kernels (``csrc/decoder_attention.cu``, on the tensor cores) for GPU
+  tensors and run ``decoder_attention_fwd_plain`` / ``_bwd_plain`` for CPU
+  tensors.
 * K6, the single-query attention of ``decode_step`` (self attention over
   the KV cache, cross attention over the prepared memory):
   ``decode_attention`` launches ``csrc/decode_attention.cu`` for GPU
@@ -42,7 +44,7 @@ import torch.nn.functional as F
 from avsr_tpu_torch import kernels
 from avsr_tpu_torch.configs import DecoderConfig
 from avsr_tpu_torch.data.units import GO_ID
-from avsr_tpu_torch.models.fusion import attention_bwd_from_weights
+from avsr_tpu_torch.models.fusion import attention_bwd_from_weights, core_route_bwd
 from avsr_tpu_torch.models.transformer_common import layer_norm, sinusoidal_pe
 from avsr_tpu_torch.ops import attention as attn
 from avsr_tpu_torch.utils.params import Params, glorot_uniform, normal_init, zeros
@@ -70,74 +72,108 @@ def _check_policy(q: torch.Tensor) -> None:
         raise ValueError(f"the decoder attention kernels run the bf16 policy only, got {q.dtype}")
 
 
-def decoder_attention_fwd_plain(q, k, v, bias):
-    """Plain-PyTorch K5 forward.  q [B,Q,nh,dk], k [B,S,nh,dk], v [B,S,nh,dv]
-    in the compute dtype; ``bias`` [B,S] fp32 adds the memory's key bias,
-    None applies the causal mask (-1e9 where key > query, Q == S) ->
-    (ctx [B,Q,nh,dv] in the compute dtype, weights [B,nh,Q,S] fp32)."""
+def _decoder_scores(q, k, bias):
+    """fp32 [B,nh,Q,S] scores: float(q.k in the compute dtype) / sqrt(dk)
+    plus the causal mask (bias None: -1e9 where key > query, Q == S) or the
+    memory's key bias [B,S]."""
     Q, S, dk = q.shape[1], k.shape[1], q.shape[-1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(dk)
     if bias is None:
         causal = (torch.arange(S, device=q.device)[None, :]
                   <= torch.arange(Q, device=q.device)[:, None]).float()
-        scores = scores + (1.0 - causal)[None, None] * -1e9
-    else:
-        scores = scores + bias[:, None, None, :]
-    w = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", w.to(q.dtype), v), w
+        return scores + (1.0 - causal)[None, None] * -1e9
+    return scores + bias[:, None, None, :]
 
 
-def decoder_attention_bwd_plain(q, k, v, weights, dctx):
-    """Plain-PyTorch K5 backward: the gradient JAX's autodiff takes through
-    the reference core, with its rounding points.  The mask enters only
-    through the weights (masked entries are exactly 0), so this is the
-    softmax-attention backward from the weights -> (dq, dk, dv)."""
-    return attention_bwd_from_weights(q, k, v, weights, dctx)
+def decoder_attention_weights(q, k, bias, row_max, row_sum):
+    """The fp32 weights [B,nh,Q,S] from the operands and the softmax's saved
+    row statistics [B,nh,Q]: exp(s - row_max) / row_sum, the forward's own
+    expression, so the same bits as the forward's weights."""
+    s = _decoder_scores(q, k, bias)
+    return torch.exp(s - row_max[..., None]) / row_sum[..., None]
+
+
+def decoder_attention_fwd_plain(q, k, v, bias, *, save: bool = False):
+    """Plain-PyTorch K5 forward.  q [B,Q,nh,dk], k [B,S,nh,dk], v [B,S,nh,dv]
+    in the compute dtype; ``bias`` [B,S] fp32 adds the memory's key bias,
+    None applies the causal mask (Q == S) -> (ctx [B,Q,nh,dv] in the compute
+    dtype, the softmax's row statistics (row_max, row_sum), fp32 [B,nh,Q]
+    each, when ``save``, else None).  The softmax written out as the kernel
+    takes it: the row max, exp(s - max), the row sum, a division."""
+    s = _decoder_scores(q, k, bias)
+    row_max = s.amax(dim=-1)
+    e = torch.exp(s - row_max[..., None])
+    row_sum = e.sum(dim=-1)
+    w = e / row_sum[..., None]
+    ctx = torch.einsum("bhqk,bkhd->bqhd", w.to(q.dtype), v)
+    return ctx, ((row_max, row_sum) if save else None)
+
+
+def decoder_attention_bwd_plain(q, k, v, bias, row_max, row_sum, dctx):
+    """Plain-PyTorch K5 backward: the forward's q, k, v, bias and row
+    statistics, and the context cotangent -> (dq, dk, dv).  The weights are
+    recomputed from the statistics (the mask enters only through them),
+    then ``attention_bwd_from_weights``: the gradient JAX's autodiff takes
+    through the reference core, with its rounding points."""
+    w = decoder_attention_weights(q, k, bias, row_max, row_sum)
+    return attention_bwd_from_weights(q, k, v, w, dctx)
 
 
 def decoder_attention_fwd(q, k, v, bias, *, save: bool = False):
-    """K5 forward wrapper: the CUDA kernel for GPU tensors, the plain
-    version on the CPU -> (ctx, weights if ``save`` else None)."""
+    """K5 forward wrapper -> (ctx, the backward's residual when ``save``,
+    else None): the plain version on the CPU and the tensor-core kernels
+    give the row statistics (row_max, row_sum); at head widths with no
+    tensor-core instance the CUDA-core kernels give the fp32 weights, a
+    one-tuple (``kernels.attention_family``)."""
     if q.device.type == "cpu":
-        ctx, w = decoder_attention_fwd_plain(q, k, v, bias)
-        return ctx, (w if save else None)
+        return decoder_attention_fwd_plain(q, k, v, bias, save=save)
     _check_policy(q)
     return kernels.decoder_attention_fwd(
         q.contiguous(), k.contiguous(), v.contiguous(),
         None if bias is None else bias.contiguous(), save=save)
 
 
-def decoder_attention_bwd(q, k, v, weights, dctx):
-    """K5 backward wrapper: the CUDA kernel for GPU tensors, the plain
-    version on the CPU; same contract as ``decoder_attention_bwd_plain``."""
+def decoder_attention_bwd(q, k, v, bias, row_max, row_sum, dctx):
+    """K5 backward wrapper: the tensor-core kernels for GPU tensors, the
+    plain version on the CPU; same contract as
+    ``decoder_attention_bwd_plain``."""
     if q.device.type == "cpu":
-        return decoder_attention_bwd_plain(q, k, v, weights, dctx)
+        return decoder_attention_bwd_plain(q, k, v, bias, row_max, row_sum, dctx)
     _check_policy(q)
     return kernels.decoder_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(),
-                                         weights.contiguous(),
+                                         None if bias is None else bias.contiguous(),
+                                         row_max.contiguous(), row_sum.contiguous(),
                                          dctx.to(torch.bfloat16).contiguous())
 
 
 class DecoderAttention(torch.autograd.Function):
     """K5 with its gradient: ctx from q, k, v under the causal mask (bias
-    None) or the memory's key bias, which takes no gradient."""
+    None) or the memory's key bias, which takes no gradient.  The forward
+    saves the operands, the bias and its residual: the softmax's row
+    statistics ([B, nh, Q] each), not the weights, which the backward
+    recomputes (the CUDA-core route, at widths with no tensor-core
+    instance, saves the weights)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias):
-        out, w = decoder_attention_fwd(q, k, v, bias, save=True)
-        ctx.save_for_backward(q, k, v, w)
+        out, res = decoder_attention_fwd(q, k, v, bias, save=True)
+        ctx.save_for_backward(q, k, v, bias, *res)
         return out
 
     @staticmethod
     def backward(ctx, dctx):
-        q, k, v, w = ctx.saved_tensors
-        dq, dk, dv = decoder_attention_bwd(q, k, v, w, dctx)
+        q, k, v, bias, *res = ctx.saved_tensors
+        if len(res) == 1:
+            dq, dk, dv = core_route_bwd("decoder_attention", q, k, v, *res, dctx)
+        else:
+            dq, dk, dv = decoder_attention_bwd(q, k, v, bias, *res, dctx)
         return dq, dk, dv, None
 
 
 def decoder_attention(q, k, v, bias):
     """K5 as the decoder calls it: through ``DecoderAttention`` when autograd
-    records a gradient for q, k or v, else straight to the forward wrapper."""
+    records a gradient for q, k or v, else straight to the forward wrapper,
+    saving nothing."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return DecoderAttention.apply(q, k, v, bias)
     return decoder_attention_fwd(q, k, v, bias)[0]

@@ -48,14 +48,22 @@ Phases, in order; any failure exits nonzero before the final line:
              training steps; (c) 10 steps on one batch at a constant lr,
              the last loss below the first; (d) median ms per step after 2
              warm-up steps, 10 ms audio frames/s, peak device memory.
-9. K5      — the teacher-forced decoder attention kernels, forward and
-             backward, against their plain twins at both main-path
-             instances: causal self attention [B=128, Q=S=80, 4 heads,
-             dk=dv=64] and cross attention [B=128, Q=80, S=50, dk=128,
-             dv=256] under the memory bias, with a row whose every key is
-             masked: errors on ctx, P, dq, dk, dv; times; a one-call
-             library yardstick (scaled_dot_product_attention, same mask)
-             and its backward's, as in phase 25.
+9. K5      — the teacher-forced decoder attention kernels (tensor cores),
+             forward and backward, against their plain twins: causal self
+             attention [B=128, Q=S=80, 4 heads, dk=dv=64] and at the
+             150-label horizon (Q=S=150), cross attention under the memory
+             bias [B=128, Q=80, dk=128, dv=256] over the fast model's memory
+             (S=50), v2's (S=197) and v2's 16 s limit [B=4, Q=80 and 150,
+             S=531], each memory with a row of length 0 (uniform weights
+             required there), both backwards fed the plain forward's row
+             statistics: errors on ctx, the weights the kernel's statistics
+             give, dq, dk, dv; two launches bit-equal; the backward's
+             allocations (no [B, nh, Q, S] tensor); registers, spills and
+             HMMA count (as phase 20); at the fast and v2 shapes times,
+             device times of the kernels and of the library yardstick
+             (scaled_dot_product_attention and its backward, same mask) and
+             the bounds; then one lrs2_av_v2 train step at B=4 with a 16 s
+             utterance (loss finite, every gradient leaf present).
 10. K6     — single-query decode attention against its plain twin at N=80
              and N=128, pos 0/37/149 over the self KV cache [L=150, 4x64]
              and over the fast and the v2 model's memories [S=50 and 197,
@@ -186,6 +194,11 @@ Phases, in order; any failure exits nonzero before the final line:
              every kernel of the path launched (K2 and the Luong K8 and K10
              forward and backward), the loss falling; ms per step, frames/s,
              peak memory and a profile.
+35. core route — one head width per attention kernel with no tensor-core
+             instance, on the CUDA-core kernels through the module's
+             autograd Function, forward and backward, against the plain
+             twins: K11 at dh=32 (d=512, 16 heads), K4 at A=dv=64, K5's self
+             attention at dh=32 and its cross attention at (64, 128).
 
 Serve (5, 15, 22, 31) also beams the same memories through the plain path and
 holds the best scores to a tolerance.  Each serve and greedy path and the
@@ -303,10 +316,18 @@ BEAM_SCORE_REL_TOL = 1e-2
 # fault, not ties.
 GREEDY_MAX_DIFF_ROWS = 16
 
-# the profiler's names of the tensor-core attention kernels: K11's whole-row
-# instances (head width 64), K4's streamed ones
-K11_SHARE = ("K11 fwd + bwd", ("attn_mma_", "<64,"))
-K4_SHARE = ("K4 fwd + bwd", "attn_mma_stream_")
+# the profiler's names of the tensor-core attention kernels, told apart by
+# their masks: K11's whole-row instances (head width 64) and K4's streamed
+# ones under the length mask, K5's causal and bias instances
+K11_SHARE = ("K11 fwd + bwd", ("attn_mma_", "<64,", "LengthMask"))
+K4_SHARE = ("K4 fwd + bwd", ("attn_mma_stream_", "LengthMask"))
+K5_SHARES = (("K5 self fwd + bwd", ("attn_mma_", "CausalMask")),
+             ("K5 cross fwd + bwd", ("attn_mma_", "BiasMask")))
+
+# the bytes an attention backward may ask for beyond its outputs and D
+# (requested bytes, exact: no [B, nh, T_q, T_k] tensor, 1.36 MB in bf16 at
+# the smallest shape held, fits under it)
+SLACK_BYTES = 1 << 16
 
 # H100 SXM peaks (NVIDIA data sheet): the bounds of the kernels line
 HBM_BYTES_PER_S = 3.35e12
@@ -461,6 +482,21 @@ def bound(nbytes: float, flops, dtype: str = "bf16"):
     ops = flops.items() if isinstance(flops, dict) else [(dtype, flops)]
     t_ops = sum(f / PEAK_FLOPS[d] for d, f in ops) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def requested_by(fn):
+    """(fn's result, the most device memory its allocations asked for beyond
+    what was live before it), from the caching allocator's requested-bytes
+    counters: the sizes asked for, which its block rounding does not
+    inflate (a block's unsplit remainder, up to 1 MB, counts as allocated)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.memory_stats()["requested_bytes.all.peak"] - before
 
 
 def nbytes(*tensors) -> int:
@@ -633,15 +669,12 @@ def plain_cores():
     from avsr_tpu_torch.ops import audio_features as af
     from avsr_tpu_torch.ops import rnn
 
-    def k5_fwd_plain(q, k, v, bias, *, save=False):
-        return tdec.decoder_attention_fwd_plain(q, k, v, bias)
-
     with mock.patch.object(rnn, "scan_core_fwd", rnn.bilstm_scan_core_fwd_impl), \
             mock.patch.object(rnn, "scan_core_bwd", rnn.bilstm_scan_core_bwd_plain), \
             mock.patch.object(af, "logmel_post_dft", af.logmel_post_dft_plain), \
             mock.patch.object(fus, "fusion_attention_fwd", fus.fusion_attention_fwd_plain), \
             mock.patch.object(fus, "fusion_attention_bwd", fus.fusion_attention_bwd_plain), \
-            mock.patch.object(tdec, "decoder_attention_fwd", k5_fwd_plain), \
+            mock.patch.object(tdec, "decoder_attention_fwd", tdec.decoder_attention_fwd_plain), \
             mock.patch.object(tdec, "decoder_attention_bwd", tdec.decoder_attention_bwd_plain), \
             mock.patch.object(tdec, "decode_attention", tdec.decode_attention_plain), \
             mock.patch.object(beam, "beam_step", beam.beam_step_plain), \
@@ -870,7 +903,8 @@ def phase_k4(dev, report):
     from avsr_tpu_torch.models import fusion as fus
 
     build = build_report("K4", "cross_attention", {
-        f"attn_mma_stream_{kind}<{dk},{dv}>": f"attn_mma_stream_{kind}ILi{dk}ELi{dv}E"
+        f"attn_mma_stream_{kind}<{dk},{dv}>": (f"attn_mma_stream_{kind}ILi{dk}ELi{dv}E",
+                                               "LengthMask")
         for dk, dv in ((128, 128), (128, 64)) for kind in ("fwd", "bwd_q", "bwd_kv")})
     errs, abs_errs, timed = {}, {}, {}
     for B, Ta, Tv, dv in K4_SHAPES:
@@ -880,12 +914,7 @@ def phase_k4(dev, report):
         ctx_serve, w_serve, none = fus.fusion_attention_fwd(q, k, v, vlen)
         ctx_p, w_p, st_p = fus.fusion_attention_fwd_plain(q, k, v, vlen, save=True)
         # the backward from the plain statistics: no [B, nh, T_a, T_v] tensor
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        before = torch.cuda.memory_allocated()
-        g_k = fus.fusion_attention_bwd(q, k, v, vlen, *st_p, dctx)
-        torch.cuda.synchronize()
-        grew = torch.cuda.max_memory_allocated() - before
+        g_k, grew = requested_by(lambda: fus.fusion_attention_bwd(q, k, v, vlen, *st_p, dctx))
         g_k2 = fus.fusion_attention_bwd(q, k, v, vlen, *st_p, dctx)
         g_p = fus.fusion_attention_bwd_plain(q, k, v, vlen, *st_p, dctx)
         w_stats = fus.fusion_attention_weights(q, k, vlen, *st_k)
@@ -900,12 +929,12 @@ def phase_k4(dev, report):
         rel = {n: rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), g_k, g_p)}
         # the length-0 row: the uniform softmax over exactly T_v keys
         uni = max_err(w_k[1], torch.full_like(w_k[1], 1.0 / Tv))
-        scratch = nbytes(*g_k) + B * 4 * Ta * 4 + (1 << 20)
+        scratch = nbytes(*g_k) + B * 4 * Ta * 4 + SLACK_BYTES
         print(f"K4 [B={B},4 heads,T_a={Ta},T_v={Tv},A=128,dv={dv}] forward max abs err {fwd} "
               f"(tol ctx {K4_CTX_TOL}, P {K4_P_TOL}); dq/dk/dv relative to max |plain| {rel} "
               f"(tol {K4_GRAD_REL_TOL}); length-0 row's weights against 1/T_v: {uni}; two "
               f"launches bit-equal (and the save-mode outputs the serving ones): {same}; the "
-              f"backward allocated {grew} bytes (outputs and D: {scratch - (1 << 20)})")
+              f"backward allocated {grew} bytes (outputs and D: {scratch - SLACK_BYTES})")
         if not (torch.isfinite(ctx_k.float()).all() and all(torch.isfinite(g.float()).all()
                                                             for g in g_k)
                 and fwd["ctx"] <= K4_CTX_TOL and fwd["P"] <= K4_P_TOL
@@ -1064,16 +1093,16 @@ def phase_train(dev, card, cfg, label="train", needed=TRAIN_KERNELS, lr=1e-4, sh
     return launches
 
 
-def k5_inputs(B, Q, S, dk, dv, dev, causal, seed):
+def k5_inputs(B, Q, S, dk, dv, dev, causal, seed, nh=4):
     """q, k, v, the key bias (None: causal) and a context cotangent; the
     bias masks a ragged tail of each row and every key of row 1."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
-    q = torch.randn((B, Q, 4, dk), generator=g).to(torch.bfloat16)
-    k = torch.randn((B, S, 4, dk), generator=g).to(torch.bfloat16)
-    v = torch.randn((B, S, 4, dv), generator=g).to(torch.bfloat16)
-    dctx = torch.randn((B, Q, 4, dv), generator=g).to(torch.bfloat16)
+    q = torch.randn((B, Q, nh, dk), generator=g).to(torch.bfloat16)
+    k = torch.randn((B, S, nh, dk), generator=g).to(torch.bfloat16)
+    v = torch.randn((B, S, nh, dv), generator=g).to(torch.bfloat16)
+    dctx = torch.randn((B, Q, nh, dv), generator=g).to(torch.bfloat16)
     bias = None
     if not causal:
         lens = torch.randint(1, S + 1, (B,), generator=g)
@@ -1082,69 +1111,169 @@ def k5_inputs(B, Q, S, dk, dv, dev, causal, seed):
     return [None if x is None else x.to(dev) for x in (q, k, v, bias, dctx)]
 
 
+# K5's shapes, (label, B, Q, S, dk, dv, causal): lrs2_av_fast's self and
+# cross pair (memory S = 50), lrs2_av_v2's cross (S = 197, every audio
+# step), the self attention at the 150-label horizon and the cross
+# attention at v2's 16 s limit (S = 531) with 80 and 150 labels
+K5_SHAPES = (("fast self", 128, 80, 80, 64, 64, True), ("fast cross", 128, 80, 50, 128, 256, False),
+             ("v2 cross", 128, 80, 197, 128, 256, False), ("self Q=150", 128, 150, 150, 64, 64, True),
+             ("16 s cross", 4, 80, 531, 128, 256, False),
+             ("16 s cross Q=150", 4, 150, 531, 128, 256, False))
+
+
+def k5_bounds(q, k, v, bias, ctx, stats, dctx, grads):
+    """(forward, backward) bounds from the function's own bytes: the forward
+    reads q, k, v and the bias and writes ctx and the row statistics; the
+    backward reads q, k, v, the bias, the statistics and dctx and writes dq,
+    dk, dv, and forms the scores again (its input holds no weights): five
+    products."""
+    B, Q, nh, dk = q.shape
+    S, dv = k.shape[1], v.shape[-1]
+    pairs = B * nh * Q * S
+    return (bound(nbytes(q, k, v, bias, ctx, *stats), 2 * pairs * (dk + dv)),
+            bound(nbytes(q, k, v, bias, *stats, dctx, *grads), 2 * pairs * (3 * dk + 2 * dv)))
+
+
 def phase_k5(dev, report):
     import torch
 
     from avsr_tpu_torch.models import transformer_decoder as tdec
 
-    shapes = {"self": (80, 80, 64, 64, True), "cross": (80, 50, 128, 256, False)}
-    t = {}
-    fwd_err, bwd_err, lib, lib_bwd, dms = 0.0, 0.0, {}, {}, {}
-    nb_fwd = nb_bwd = fl = 0
-    for name, (Q, S, dk, dv, causal) in shapes.items():
-        q, k, v, bias, dctx = k5_inputs(128, Q, S, dk, dv, dev, causal, seed=5)
-        ctx_k, w_k = tdec.decoder_attention_fwd(q, k, v, bias, save=True)
-        ctx_p, w_p = tdec.decoder_attention_fwd_plain(q, k, v, bias)
-        g_k = tdec.decoder_attention_bwd(q, k, v, w_p, dctx)
-        g_p = tdec.decoder_attention_bwd_plain(q, k, v, w_p, dctx)
+    build = build_report("K5", "decoder_attention", {
+        **{f"self {kind}<64>": (f"attn_mma_{kind}ILi64E", "CausalMask")
+           for kind in ("fwd", "bwd_q", "bwd_kv")},
+        **{f"cross {kind}<128,256>": (f"attn_mma_stream_{kind}ILi128ELi256E", "BiasMask")
+           for kind in ("fwd", "bwd_q", "bwd_kv")}})
+    fwd_err, bwd_err, timed = {}, {}, {}
+    for name, B, Q, S, dk, dv, causal in K5_SHAPES:
+        q, k, v, bias, dctx = k5_inputs(B, Q, S, dk, dv, dev, causal, seed=Q + S + dv)
+        ctx_k, st_k = tdec.decoder_attention_fwd(q, k, v, bias, save=True)
+        ctx_k2, st_k2 = tdec.decoder_attention_fwd(q, k, v, bias, save=True)
+        ctx_serve, none = tdec.decoder_attention_fwd(q, k, v, bias)
+        ctx_p, st_p = tdec.decoder_attention_fwd_plain(q, k, v, bias, save=True)
+        # the backward from the plain statistics: no [B, nh, Q, S] tensor
+        g_k, grew = requested_by(lambda: tdec.decoder_attention_bwd(q, k, v, bias, *st_p, dctx))
+        g_k2 = tdec.decoder_attention_bwd(q, k, v, bias, *st_p, dctx)
+        g_p = tdec.decoder_attention_bwd_plain(q, k, v, bias, *st_p, dctx)
+        w_p = tdec.decoder_attention_weights(q, k, bias, *st_p)
+        w_k = tdec.decoder_attention_weights(q, k, bias, *st_k)
         torch.cuda.synchronize()
-        errs = {"ctx": max_err(ctx_k, ctx_p), "P": max_err(w_k, w_p)}
-        grel = {n: rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), g_k, g_p)}
-        gabs = {n: max_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), g_k, g_p)}
+        same = (torch.equal(ctx_k, ctx_k2) and torch.equal(ctx_k, ctx_serve) and none is None
+                and all(torch.equal(a, b) for a, b in zip(st_k, st_k2))
+                and all(torch.equal(a, b) for a, b in zip(g_k, g_k2)))
+        fwd = {"ctx": max_err(ctx_k, ctx_p), "P_from_stats": max_err(w_k, w_p),
+               "row_max": max_err(st_k[0], st_p[0]), "row_sum_rel": rel_err(st_k[1], st_p[1])}
+        rel = {n: rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), g_k, g_p)}
+        scratch = nbytes(*g_k) + B * 4 * Q * 4 + SLACK_BYTES
         extra = ""
-        if not causal:
-            extra = (f"; row with every key masked: P in [{float(w_k[1].min())}, "
-                     f"{float(w_k[1].max())}], uniform 1/{S} = {1 / S}")
-            if max_err(w_k[1], torch.full_like(w_k[1], 1.0 / S)) > 1e-6:
-                fail("K5", "the fully masked row is not uniform")
-        print(f"K5 {name} [B=128,Q={Q},S={S},4 heads,dk={dk},dv={dv}] fwd max abs err {errs} "
-              f"(tol ctx {K5_CTX_TOL}, P {K5_P_TOL}); bwd max abs err {gabs}, relative "
-              f"{grel} (tol {K5_GRAD_REL_TOL}){extra}")
-        if not (errs["ctx"] <= K5_CTX_TOL and errs["P"] <= K5_P_TOL):
-            fail("K5", f"{name} forward kernel disagrees with the plain twin: {errs}")
-        if not max(grel.values()) <= K5_GRAD_REL_TOL:
-            fail("K5", f"{name} backward kernel disagrees with the plain twin: {grel}")
-        fwd_err = max(fwd_err, *errs.values())
-        bwd_err = max(bwd_err, *gabs.values())
-        mask = (torch.triu(torch.full((Q, S), -1e9, device=dev), diagonal=1) if causal
-                else bias[:, None, None, :]).to(torch.bfloat16)
-        t[name] = {
-            "fwd": (time_ms(lambda: tdec.decoder_attention_fwd(q, k, v, bias, save=True)),
-                    time_ms(lambda: tdec.decoder_attention_fwd_plain(q, k, v, bias))),
-            "bwd": (time_ms(lambda: tdec.decoder_attention_bwd(q, k, v, w_p, dctx)),
-                    time_ms(lambda: tdec.decoder_attention_bwd_plain(q, k, v, w_p, dctx))),
-        }
-        lib[name] = time_ms(lambda: sdpa(q, k, v, mask))
-        lib_bwd[name] = sdpa_bwd_device_ms(q, k, v, mask, dctx)
-        dms[name] = (device_ms(lambda: tdec.decoder_attention_fwd(q, k, v, bias, save=True)),
-                     device_ms(lambda: tdec.decoder_attention_bwd(q, k, v, w_p, dctx)))
-        for d in ("fwd", "bwd"):
-            print(f"K5 {name} {d} kernel {t[name][d][0]:.4f} ms  plain {t[name][d][1]:.4f} ms")
-        print(f"K5 {name} library (scaled_dot_product_attention, same mask) {lib[name]:.4f} ms, "
-              f"its backward (device) {lib_bwd[name]:.4f} ms")
-        nb_fwd += nbytes(q, k, v, bias, ctx_k, w_k)
-        nb_bwd += nbytes(q, k, v, w_p, dctx, *g_k)
-        fl += 2 * 128 * 4 * Q * S * (dk + dv)
-    # one decoder layer runs both instances: the entries time the pair
-    pair = {d: tuple(t["self"][d][i] + t["cross"][d][i] for i in range(2)) for d in ("fwd", "bwd")}
-    report["decoder_attention_fwd"] = dict(
-        max_abs_err=fwd_err, ms=pair["fwd"][0], plain_ms=pair["fwd"][1],
-        library_ms=lib["self"] + lib["cross"], device_ms=sum(dms[n][0] for n in dms),
-        bound=bound(nb_fwd, fl))
-    report["decoder_attention_bwd"] = dict(
-        max_abs_err=bwd_err, ms=pair["bwd"][0], plain_ms=pair["bwd"][1],
-        library_ms=lib_bwd["self"] + lib_bwd["cross"],
-        device_ms=sum(dms[n][1] for n in dms), bound=bound(nb_bwd, 2 * fl))
+        if not causal:  # the length-0 memory: the uniform softmax over exactly S keys
+            uni = max_err(w_k[1], torch.full_like(w_k[1], 1.0 / S))
+            extra = f"; length-0 memory row's weights against 1/S: {uni}"
+            if uni > 1e-6:
+                fail("K5", f"{name}: the fully masked row is not uniform ({uni})")
+        print(f"K5 {name} [B={B},Q={Q},S={S},4 heads,dk={dk},dv={dv}] forward max abs err {fwd} "
+              f"(tol ctx {K5_CTX_TOL}, P {K5_P_TOL}); dq/dk/dv relative to max |plain| {rel} "
+              f"(tol {K5_GRAD_REL_TOL}){extra}; two launches bit-equal (and the save-mode ctx "
+              f"the serving one): {same}; the backward allocated {grew} bytes (outputs and D: "
+              f"{scratch - SLACK_BYTES})")
+        if not (torch.isfinite(ctx_k.float()).all()
+                and all(torch.isfinite(g.float()).all() for g in g_k)
+                and fwd["ctx"] <= K5_CTX_TOL and fwd["P_from_stats"] <= K5_P_TOL
+                and max(rel.values()) <= K5_GRAD_REL_TOL and same):
+            fail("K5", f"kernels disagree with the plain twins at {name}: {fwd} {rel}, "
+                       f"bit-equal reruns {same}")
+        if grew > scratch:
+            fail("K5", f"the backward allocated {grew} bytes at {name}: more than its outputs "
+                       f"and D")
+        fwd_err[name] = max(fwd["ctx"], fwd["P_from_stats"])
+        bwd_err[name] = max(max_err(a, b) for a, b in zip(g_k, g_p))
+        if name in ("fast self", "fast cross", "v2 cross"):
+            mask = (torch.triu(torch.full((Q, S), -1e9, device=dev), diagonal=1) if causal
+                    else bias[:, None, None, :]).to(torch.bfloat16)
+            st = st_p
+            t = timed[name] = {
+                "fwd": time_ms(lambda: tdec.decoder_attention_fwd(q, k, v, bias, save=True)),
+                "fwd_device": device_ms(
+                    lambda: tdec.decoder_attention_fwd(q, k, v, bias, save=True)),
+                "fwd_plain": time_ms(lambda: tdec.decoder_attention_fwd_plain(q, k, v, bias)),
+                "fwd_library": time_ms(lambda: sdpa(q, k, v, mask)),
+                "fwd_library_device": device_ms(lambda: sdpa(q, k, v, mask)),
+                "bwd": time_ms(lambda: tdec.decoder_attention_bwd(q, k, v, bias, *st, dctx)),
+                "bwd_device": device_ms(
+                    lambda: tdec.decoder_attention_bwd(q, k, v, bias, *st, dctx)),
+                "bwd_plain": time_ms(
+                    lambda: tdec.decoder_attention_bwd_plain(q, k, v, bias, *st, dctx)),
+                "bwd_library_device": sdpa_bwd_device_ms(q, k, v, mask, dctx),
+            }
+            t["bound_fwd"], t["bound_bwd"] = k5_bounds(q, k, v, bias, ctx_k, st_k, dctx, g_k)
+            print(f"K5 {name} fwd kernel {t['fwd']:.4f} ms (device {t['fwd_device']:.4f})  plain "
+                  f"{t['fwd_plain']:.4f}  library (scaled_dot_product_attention, same mask) "
+                  f"{t['fwd_library']:.4f} (device {t['fwd_library_device']:.4f})  bound "
+                  f"{t['bound_fwd'][0]:.5f} ({t['bound_fwd'][1]}); bwd kernel {t['bwd']:.4f} ms "
+                  f"(device {t['bwd_device']:.4f})  plain {t['bwd_plain']:.4f}  library (its "
+                  f"backward, device) {t['bwd_library_device']:.4f}  bound "
+                  f"{t['bound_bwd'][0]:.5f} ({t['bound_bwd'][1]})")
+    phase_k5_v2_16s(dev)
+
+    # one decoder layer runs the self and the cross instance: the entries
+    # time the fast model's pair, and carry v2's cross instance apart
+    def pair(key):
+        return timed["fast self"][key] + timed["fast cross"][key]
+
+    def pair_bound(key):
+        b = [timed[n][key] for n in ("fast self", "fast cross")]
+        return (b[0][0] + b[1][0], b[0][1] if b[0][1] == b[1][1] else "bytes+operations")
+
+    v2 = timed["v2 cross"]
+    for d in ("fwd", "bwd"):
+        report[f"decoder_attention_{d}"] = dict(
+            max_abs_err=max((fwd_err if d == "fwd" else bwd_err).values()), ms=pair(d),
+            plain_ms=pair(f"{d}_plain"),
+            library_ms=pair(f"{d}_library_device" if d == "bwd" else f"{d}_library"),
+            device_ms=pair(f"{d}_device"), bound=pair_bound(f"bound_{d}"),
+            library_device_ms=pair(f"{d}_library_device"),
+            self_device_ms=timed["fast self"][f"{d}_device"],
+            cross_device_ms=timed["fast cross"][f"{d}_device"],
+            v2_cross_device_ms=v2[f"{d}_device"], v2_cross_library_device_ms=v2[f"{d}_library_device"],
+            v2_cross_bound_ms=v2[f"bound_{d}"][0],
+            registers={kind: r["registers"] for kind, r in build.items() if d in kind},
+            hmma={kind: r.get("hmma") for kind, r in build.items() if d in kind})
+
+
+def phase_k5_v2_16s(dev):
+    """A short lrs2_av_v2 train step on the card at B=4 with one 16 s
+    utterance (its memory S = 531 steps, where K5's cross attention once
+    raised): the loss finite, every gradient leaf present and finite, K5's
+    forward and backward launched."""
+    import torch
+
+    from avsr_tpu_torch import kernels
+    from avsr_tpu_torch.configs import lrs2_av_v2
+    from avsr_tpu_torch.data.units import builtin_unit_dict
+    from avsr_tpu_torch.train import step as tstep
+    from avsr_tpu_torch.utils import rng as trng
+    from avsr_tpu_torch.utils.params import tree_leaves
+
+    cfg = lrs2_av_v2()
+    V = builtin_unit_dict(cfg.data.unit).vocab_size
+    batch, _ = train_batch(cfg, V, dev, B=4, seconds=16.0, label_cap=80, seed=16)
+    audio_len = batch.audio_lengths.clone()
+    audio_len[0] = batch.audio.shape[1]  # one utterance of the full 16 s
+    batch = batch._replace(audio_lengths=audio_len)
+    state, _ = tstep.create_train_state(cfg, V, torch.Generator().manual_seed(0), dev)
+    names = ["/".join(map(str, p)) for p, _ in tree_leaves(state.params)]
+    before = dict(kernels.LAUNCHES)
+    metrics, grads = tstep.loss_and_grads(state.params, batch, cfg=cfg,
+                                          generator=trng.generator_for(16, dev))
+    torch.cuda.synchronize()
+    ran = {n: kernels.LAUNCHES[n] - before[n] for n in ("decoder_attention_fwd",
+                                                         "decoder_attention_bwd")}
+    missing = [n for n, g in zip(names, grads) if g is None or not torch.isfinite(g).all()]
+    print(f"K5 v2 train step [B=4, one 16 s utterance, audio lengths "
+          f"{audio_len.tolist()}]: loss {float(metrics['loss']):.6f}; {len(names)} gradient "
+          f"leaves, missing or non-finite: {missing}; K5 launches {ran}")
+    if not (np.isfinite(float(metrics["loss"])) and not missing and all(ran.values())):
+        fail("K5", "the v2 train step with a 16 s utterance failed")
 
 
 def k6_inputs(N, L, dk, dv, dev, cross, seed):
@@ -1700,20 +1829,27 @@ def k11_inputs(B, T, dev, seed, nh=8, dh=64):
     return qkv.to(dev), lens.to(dev)
 
 
+_SASS = {}  # library path -> cuobjdump -sass text
+
+
 def build_report(phase, stem, kinds):
     """The tensor-core attention kernels of ``csrc/<stem>.cu`` as built, one
-    entry per kind of ``kinds`` (label -> a part of the mangled name, which
-    carries the template widths): registers and spills from ``ptxas -v``
-    and, where ``cuobjdump`` is present, the count of tensor-core (HMMA)
-    instructions.  Fails when a kernel spills, has no HMMA or is missing."""
+    entry per kind of ``kinds`` (label -> the parts of the mangled name,
+    which carries the template widths and the mask, that a kernel of the
+    kind holds): registers and spills from ``ptxas -v`` and, where
+    ``cuobjdump`` is present, the count of tensor-core (HMMA) instructions.
+    Fails when a kernel spills, has no HMMA or is missing."""
     import os
     import shutil
 
     from avsr_tpu_torch import kernels
 
+    def kind_of(name):
+        return next((k for k, parts in kinds.items() if all(p in name for p in parts)), None)
+
     found = {}
     for name, r in kernels.ptxas_report(stem).items():
-        kind = next((k for k, part in kinds.items() if part in name), None)
+        kind = kind_of(name)
         if kind:  # the most registers and the spills of the kind's instances
             f = found.setdefault(kind, {"registers": 0, "spill_stores": 0, "spill_loads": 0,
                                         "instances": 0})
@@ -1724,14 +1860,17 @@ def build_report(phase, stem, kinds):
     cuobjdump = shutil.which("cuobjdump") or os.path.join(os.path.dirname(kernels._nvcc()),
                                                           "cuobjdump")
     if os.path.exists(cuobjdump):
-        sass = subprocess.run([cuobjdump, "-sass", str(kernels.build())], capture_output=True,
-                              text=True, timeout=300).stdout
+        lib = str(kernels.build())
+        if lib not in _SASS:  # one disassembly per library, shared by the phases
+            _SASS[lib] = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                                        text=True, timeout=300).stdout
+        sass = _SASS[lib]
         kind = None
         for kind_ in kinds:
             found.setdefault(kind_, {})["hmma"] = 0
         for line in sass.splitlines():
             if "Function :" in line:
-                kind = next((k for k, part in kinds.items() if part in line), None)
+                kind = kind_of(line)
             elif kind and "HMMA" in line:
                 found[kind]["hmma"] += 1
     else:
@@ -1754,7 +1893,8 @@ def phase_k11(dev, report):
     from avsr_tpu_torch.models import transformer as tfm
 
     build = build_report("K11", "encoder_attention", {
-        f"attn_mma_{kind}": f"attn_mma_{kind}ILi64E" for kind in ("fwd", "bwd_q", "bwd_kv")})
+        f"attn_mma_{kind}": (f"attn_mma_{kind}ILi64E", "LengthMask")
+        for kind in ("fwd", "bwd_q", "bwd_kv")})
     errs, dms_at = {}, {}
     for B, T in K11_SHAPES:
         qkv, lens = k11_inputs(B, T, dev, seed=T)
@@ -2319,6 +2459,64 @@ def phase_k8_luong(dev, report):
                                              plain_ms=t_p, library_ms=None, device_ms=dms, bound=b)
 
 
+def phase_core_route(dev):
+    """One head width per attention kernel that has no tensor-core instance,
+    run on the CUDA-core kernels (``kernels.attention_family`` "core")
+    through the module's autograd Function, forward and backward, against
+    the plain twins on the same operands: K11 at dh=32 (d=512, 16 heads),
+    K4 at A=dv=64, K5's self attention at dh=32 and its cross attention at
+    (dk, dv) = (64, 128), ragged with a length-0 row."""
+    import torch
+
+    from avsr_tpu_torch import kernels
+    from avsr_tpu_torch.models import fusion as fus
+    from avsr_tpu_torch.models import transformer as tfm
+    from avsr_tpu_torch.models import transformer_decoder as tdec
+
+    def grads(fn, *xs, dout):
+        xs = [x.detach().clone().requires_grad_(True) for x in xs]
+        out = fn(*xs)
+        out = out[0] if isinstance(out, tuple) else out
+        out.backward(dout)
+        return out.detach(), [x.grad for x in xs]
+
+    cases = []
+    qkv, lens = k11_inputs(32, 197, dev, seed=32, nh=16, dh=32)
+    dctx = torch.randn((32, 197, 16, 32), generator=torch.Generator().manual_seed(33))
+    dctx = dctx.to(torch.bfloat16).to(dev)
+    ctx_p, st_p = tfm.encoder_self_attention_fwd_plain(qkv, lens, save=True)
+    cases.append(("K11 [B=32,16 heads,T=197,dh=32]", ("encoder_attention", 32, 32),
+                  grads(lambda x: tfm.EncoderSelfAttention.apply(x, lens), qkv, dout=dctx),
+                  (ctx_p, [tfm.encoder_self_attention_bwd_plain(qkv, lens, *st_p, dctx)]),
+                  K11_CTX_TOL, K11_GRAD_REL_TOL))
+    q, k, v, vlen, dctx = k4_inputs(32, 4, 50, 150, 64, dev, seed=64)
+    ctx_p, _, st_p = fus.fusion_attention_fwd_plain(q, k, v, vlen, save=True)
+    cases.append(("K4 [B=32,4 heads,T_a=50,T_v=150,A=dv=64]", ("fusion_attention", 64, 64),
+                  grads(lambda a, b, c: fus.FusionAttention.apply(a, b, c, vlen), q, k, v,
+                        dout=dctx),
+                  (ctx_p, fus.fusion_attention_bwd_plain(q, k, v, vlen, *st_p, dctx)),
+                  K4_CTX_TOL, K4_GRAD_REL_TOL))
+    for label, (Q, S, dk, dv, causal) in (("K5 self", (80, 80, 32, 32, True)),
+                                          ("K5 cross", (80, 50, 64, 128, False))):
+        q, k, v, bias, dctx = k5_inputs(32, Q, S, dk, dv, dev, causal, seed=dk + dv)
+        ctx_p, st_p = tdec.decoder_attention_fwd_plain(q, k, v, bias, save=True)
+        kind = "decoder_self_attention" if causal else "decoder_cross_attention"
+        cases.append((f"{label} [B=32,Q={Q},S={S},4 heads,dk={dk},dv={dv}]", (kind, dk, dv),
+                      grads(lambda a, b, c: tdec.DecoderAttention.apply(a, b, c, bias), q, k, v,
+                            dout=dctx),
+                      (ctx_p, tdec.decoder_attention_bwd_plain(q, k, v, bias, *st_p, dctx)),
+                      K5_CTX_TOL, K5_GRAD_REL_TOL))
+    for label, route, (ctx_k, g_k), (ctx_p, g_p), ctx_tol, grad_tol in cases:
+        family = kernels.attention_family(*route)
+        err = max_err(ctx_k, ctx_p)
+        rel = max(rel_err(a, b) for a, b in zip(g_k, g_p))
+        print(f"core route {label}: family {family}; ctx max abs err {err} (tol {ctx_tol}); "
+              f"gradients relative to max |plain| {rel} (tol {grad_tol})")
+        if family != "core" or not (torch.isfinite(ctx_k.float()).all() and err <= ctx_tol
+                                    and rel <= grad_tol):
+            fail("core route", f"{label}: family {family}, ctx err {err}, gradients {rel}")
+
+
 def main() -> int:
     import torch
 
@@ -2372,7 +2570,7 @@ def main() -> int:
                    (6, lambda: phase_k1_bwd(dev, report)),
                    (7, lambda: phase_k4(dev, report)),
                    (8, lambda: paths.update(train=phase_train(dev, card, cfg,
-                                                              shares=(K4_SHARE,)))),
+                                                              shares=(K4_SHARE, *K5_SHARES)))),
                    (9, lambda: phase_k5(dev, report)),
                    (10, lambda: phase_k6(dev, report)),
                    (11, lambda: phase_k7(dev, report)),
@@ -2400,7 +2598,7 @@ def main() -> int:
                    # 3e-5 is about its preset's warmup lr at step 12
                    (27, lambda: paths.update(train_v2=phase_train(
                        dev, card, v2_cfg, "train_v2", TRAIN_V2_KERNELS, lr=3e-5,
-                       shares=(K11_SHARE, K4_SHARE)))),
+                       shares=(K11_SHARE, K4_SHARE, *K5_SHARES)))),
                    (28, lambda: phase_k2(dev, report)),
                    (29, lambda: phase_k10_luong(dev, report)),
                    (30, lambda: phase_k8_luong(dev, report)),
@@ -2410,7 +2608,8 @@ def main() -> int:
                    (33, lambda: decode_records_no_autograd(
                        dev, ul_cfg, *greedy_runs.pop("greedy_uni_luong"), "greedy_uni_luong")),
                    (34, lambda: paths.update(train_uni_luong=phase_train(
-                       dev, card, ul_cfg, "train_uni_luong", TRAIN_UL_KERNELS)))):
+                       dev, card, ul_cfg, "train_uni_luong", TRAIN_UL_KERNELS))),
+                   (35, lambda: phase_core_route(dev))):
         t0 = time.perf_counter()
         run()
         print(f"phase {n}: {time.perf_counter() - t0:.1f} s")

@@ -79,6 +79,49 @@ def test_teacher_forced_logits_match_jax(dtype):
     np.testing.assert_allclose(lt.numpy(), _np(lj), **tol)
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_teacher_forced_logits_match_jax_long_memory(dtype):
+    """A memory of 40 steps with a full, a ragged and an empty row (K5's
+    cross attention over every step, the empty row's weights uniform) and
+    12 labels of ragged lengths: the logits against JAX's."""
+    jdt, tdt, tol = DTYPES[dtype]
+    params = jax.tree_util.tree_map(
+        np.asarray, jdec.decoder_init(jax.random.PRNGKey(4), CFG, [M], V))
+    rng = np.random.default_rng(4)
+    memory = rng.standard_normal((3, 40, M)).astype(np.float32)
+    m_len = np.array([40, 17, 0], np.int32)
+    mem_j = jattn.prepare_memory("value_only", params["atts"][0], jnp.asarray(memory),
+                                 jnp.asarray(m_len), compute_dtype=jdt)
+    tparams = convert.from_jax(params, device="cpu")
+    mem_t = tattn.prepare_memory("value_only", tparams["atts"][0], torch.from_numpy(memory),
+                                 torch.from_numpy(m_len), tdt)
+    targets = rng.integers(3, V, (3, 12)).astype(np.int32)
+    t_len = np.array([12, 5, 9], np.int32)
+    lj = jdec.teacher_forced_logits(params, CFG, jnp.asarray(targets), jnp.asarray(t_len),
+                                    [mem_j], compute_dtype=jdt)
+    lt = tdec.teacher_forced_logits(tparams, CFG, torch.from_numpy(targets),
+                                    torch.from_numpy(t_len), [mem_t], tdt)
+    np.testing.assert_allclose(lt.numpy(), _np(lj), **tol)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_teacher_forced_logits_same_with_and_without_gradient(dtype):
+    """The save-mode forward inside ``DecoderAttention`` (parameters that
+    require a gradient) gives the logits of the forward alone bit for bit:
+    saving the row statistics changes no value."""
+    jdt, tdt, _ = DTYPES[dtype]
+    _, tparams, _, mem, rng = _setup(5, jdt, tdt)
+    targets = torch.from_numpy(rng.integers(3, V, (3, 6)).astype(np.int64))
+    t_len = torch.tensor([6, 3, 1])
+    with torch.no_grad():
+        plain = tdec.teacher_forced_logits(tparams, CFG, targets, t_len, [mem], tdt)
+    for leaf in jax.tree_util.tree_leaves(tparams):
+        leaf.requires_grad_(True)
+    graded = tdec.teacher_forced_logits(tparams, CFG, targets, t_len, [mem], tdt)
+    assert graded.grad_fn is not None
+    assert torch.equal(graded.detach(), plain)
+
+
 def test_parallel_teacher_forcing_equals_sequential_decode():
     """The port's parallel causal pass and its KV-cache decode step give the
     same logits position for position on the same tokens (the mirror of

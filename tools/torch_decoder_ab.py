@@ -1,0 +1,87 @@
+#!/usr/bin/env python3
+"""Time K5, the teacher-forced decoder attention, in several checkouts on one card.
+
+    python3 tools/torch_decoder_ab.py --trees build/parent . --order ABBA
+
+Each run is a process of its own started in one checkout (``--trees``, A
+first, then B, C, ...): it builds that checkout's kernels and times the
+device work of its ``models.transformer_decoder`` K5 wrappers (chip_smoke's
+``device_ms``: CUDA events around 20 calls queued behind a spin kernel) on
+chip_smoke's ``k5_inputs`` at three shapes: lrs2_av_fast's causal self
+attention [B=128, Q=S=80, 4 heads, 64] and cross attention [B=128, Q=80,
+S=50, dk=128, dv=256], and lrs2_av_v2's cross attention (S=197), the bias
+masking a ragged tail of each memory and every key of one.  The forward is
+timed in save mode, as a train step runs it, and the backward from that
+forward's residual, whichever the checkout's backward takes (the fp32
+weights, or the softmax's row statistics).  Each run also times the library
+yardstick, ``scaled_dot_product_attention`` with the same additive mask,
+forward and backward (chip_smoke's ``sdpa_bwd_device_ms``: autograd's
+device time less the forward's).  The runs go in ``--order`` (A B B A by
+default), so the checkouts share the card's state; the last line is one
+JSON object with every run's numbers.  Needs a CUDA card; another checkout
+is typically the parent commit unpacked with ``git archive`` into a
+git-ignored directory.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+RUN = r"""
+import inspect, json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from avsr_tpu_torch import kernels
+from avsr_tpu_torch.models import transformer_decoder as tdec
+
+kernels.build()
+dev = torch.device("cuda", 0)
+stats = "row_max" in inspect.signature(tdec.decoder_attention_bwd).parameters
+out = {}
+for name, Q, S, dk, dv, causal in (("fast_self", 80, 80, 64, 64, True),
+                                   ("fast_cross", 80, 50, 128, 256, False),
+                                   ("v2_cross", 80, 197, 128, 256, False)):
+    q, k, v, bias, dctx = cs.k5_inputs(128, Q, S, dk, dv, dev, causal, seed=Q + S + dv)
+    res = tdec.decoder_attention_fwd(q, k, v, bias, save=True)[1]
+    args = (q, k, v, bias, *res) if stats else (q, k, v, res)
+    mask = (torch.triu(torch.full((Q, S), -1e9, device=dev), diagonal=1) if causal
+            else bias[:, None, None, :]).to(torch.bfloat16)
+    out[f"fwd_{name}"] = cs.device_ms(lambda: tdec.decoder_attention_fwd(q, k, v, bias, save=True))
+    out[f"bwd_{name}"] = cs.device_ms(lambda: tdec.decoder_attention_bwd(*args, dctx))
+    out[f"sdpa_fwd_{name}"] = cs.device_ms(lambda: cs.sdpa(q, k, v, mask))
+    out[f"sdpa_bwd_{name}"] = cs.sdpa_bwd_device_ms(q, k, v, mask, dctx)
+print(json.dumps(out))
+"""
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--trees", nargs="+", required=True, help="checkouts A, B, ...")
+    ap.add_argument("--order", default="ABBA")
+    args = ap.parse_args()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    print(card)
+    runs = []
+    for which in args.order:
+        tree = args.trees[ord(which) - ord("A")]
+        res = subprocess.run([sys.executable, "-c", RUN], cwd=tree, capture_output=True, text=True,
+                             env=dict(os.environ))
+        if res.returncode != 0:
+            print(res.stderr[-4000:], file=sys.stderr)
+            return 1
+        r = json.loads(res.stdout.strip().splitlines()[-1])
+        print(f"{which} ({tree}): K5 device ms " + ", ".join(f"{k} {x:.4f}" for k, x in r.items()),
+              flush=True)
+        runs.append(dict(r, tree=tree, which=which))
+    print(json.dumps({"card": card, "runs": runs}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,12 +10,11 @@ lr 1e-4; ``v2``: ``lrs2_av_v2`` at constant lr 3e-5; both B=128, 6 s, label
 cap 80, noise mixing on), times ``--steps`` train steps on the host clock
 to a synchronise, reads the peak device memory, and profiles three more
 steps: the device's busy time per step and the device time per step of the
-attention kernels by name, told apart by their template widths and family
-(``k11``: ``attn_mma_`` at head width 64, the encoder self attention;
-``k4``: ``attn_mma_stream_``, the fusion core on the streamed tiles;
-``attn_other``: any other attention-core kernel, the decoder's K5 and, in
-a checkout before the fusion core moved to the tensor cores, K4's).  The
-runs go in ``--order``
+attention kernels by name, told apart by their mask and family (``k11``:
+the whole-row kernels under the length mask, the encoder self attention;
+``k4``: the streamed ones under the length mask, the fusion core; ``k5``:
+every other attention kernel, the decoder's teacher-forced attention under
+its causal and bias masks, on either family).  The runs go in ``--order``
 (A B B A by default), so both checkouts share the card's state; the last
 line is one JSON object with every run's numbers.  Needs a CUDA card; the
 other checkout is typically the parent commit unpacked with ``git archive``
@@ -71,18 +70,18 @@ def three():
 ev, span = cs.device_events(three)
 busy, share = cs.busy_share(ev, span)
 def kind(name):
-    if "attn_mma_stream_" in name:
-        return "k4"
-    if "attn_mma_" in name and "<64," in name:
-        return "k11"
-    return "attn_other" if "attn_" in name else "other"
+    if "attn_" not in name:
+        return "other"
+    if "LengthMask" in name:
+        return "k4" if "attn_mma_stream_" in name else "k11"
+    return "k5"
 
 by = collections.defaultdict(float)
 for s, e, name in ev:
     by[kind(name)] += e - s
 print(json.dumps({"step_ms": times, "peak_gib": peak / 2**30, "busy_ms_per_step": busy / 3e3,
                   "busy_share": share, "events_per_step": len(ev) / 3,
-                  **{f"{k}_ms_per_step": by[k] / 3e3 for k in ("k11", "k4", "attn_other")}}))
+                  **{f"{k}_ms_per_step": by[k] / 3e3 for k in ("k11", "k4", "k5")}}))
 """
 
 
@@ -118,9 +117,8 @@ def main() -> int:
               f"{r['quartiles_ms'][0]:.3f}-{r['quartiles_ms'][2]:.3f}), peak "
               f"{r['peak_gib']:.3f} GiB, device busy {r['busy_ms_per_step']:.3f} ms per step "
               f"(share {r['busy_share']:.3f}, {r['events_per_step']:.1f} events), attention "
-              f"kernels per step: K11 {r['k11_ms_per_step']:.3f} ms, K4 (streamed) "
-              f"{r['k4_ms_per_step']:.3f} ms, other attention cores "
-              f"{r['attn_other_ms_per_step']:.3f} ms", flush=True)
+              f"kernels per step: K11 {r['k11_ms_per_step']:.3f} ms, K4 "
+              f"{r['k4_ms_per_step']:.3f} ms, K5 {r['k5_ms_per_step']:.3f} ms", flush=True)
         runs.append(r)
     print(json.dumps({"card": card, "preset": args.preset, "runs": runs}))
     return 0
