@@ -14,32 +14,40 @@
 // The backward direction's stream arrives pre-flipped in time, so one
 // forward scan serves both directions (G = 2 for a BiLSTM layer).
 //
-// What bounds it on an H100: the recurrence is sequential in t, and at the
-// main path's shapes (B = 128, H = 256, G = 2) one step is only
-// 2 x 128 x 256 x 1024 MACs (134 MFLOP) — too little work to fill 132 SMs
-// with tensor-core tiles, so a step costs launch latency, the time to
-// bring each block's Wh slice (32 KB bf16; all of Wh, 1 MB, stays in L2)
-// into shared memory, and the shared-memory issue rate of the product.
-// Design: one grid launch per step from a host loop inside this file (one
-// ctypes call per layer, not per step).  Each block owns one direction, a
-// tile of BT batch rows and a tile of UT hidden units, and computes ALL
-// FOUR gates of those units, so the cell update needs nothing from other
-// blocks; h is double-buffered in device memory between steps (every block
-// reads all H units of its rows' previous h), c is updated in place (only
-// its owner reads it).  The wrapper passes Wh pre-tiled as
+// Two routes, chosen by shape (kernels.lstm_family, the `cluster` argument
+// of the entry points below).  Where H is a multiple of 64 from 128 to 384
+// (every preset: H = 256), each entry point issues ONE persistent launch of
+// thread-block clusters that keep their Wh slices resident in shared memory,
+// run the recurrent products on the tensor cores and exchange h (or the
+// backward's dh partials) through distributed shared memory
+// (lstm_cluster.cuh, which describes it).  Every other H that is a multiple
+// of UT = 16 takes the per-step kernels of this file, described next.
+//
+// What bounds the per-step route on an H100: the recurrence is sequential in
+// t, and at B = 128, H = 256, G = 2 one step is only 2 x 128 x 256 x 1024
+// MACs (134 MFLOP): too little work to fill 132 SMs, so a step costs launch
+// latency, the time to bring each block's Wh slice (32 KB bf16; all of Wh,
+// 1 MB, stays in L2) into shared memory, and the shared-memory issue rate of
+// the product.  Design: one grid launch per step from a host loop inside
+// this file (one ctypes call per layer, not per step).  Each block owns one
+// direction, a tile of BT batch rows and a tile of UT hidden units, and
+// computes ALL FOUR gates of those units, so the cell update needs nothing
+// from other blocks; h is double-buffered in device memory between steps
+// (every block reads all H units of its rows' previous h), c is updated in
+// place (only its owner reads it).  The wrapper passes Wh pre-tiled as
 // [G, H/UT, H, UT, 4] (unit tile, k, unit, gate), so a block's slice is one
 // contiguous 16-byte-vectorized copy and each thread reads the four gate
 // weights of its unit for one k as a single 8-byte shared-memory load.
 // The epilogue's operands (xw, b, c, h, mask) are loaded before the
 // product so their latency overlaps it.  The product runs on CUDA cores
 // with fp32 FMAs on bf16-rounded operands — exact products, fp32
-// accumulation, the reference's numerics.  A persistent cluster kernel
-// keeping Wh resident in distributed shared memory and using wgmma is
-// later work.
+// accumulation, the reference's numerics.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "lstm_cluster.cuh"
 
 namespace {
 
@@ -200,7 +208,8 @@ lstm_step_kernel(const __nv_bfloat16* __restrict__ wh_tiled,  // [G, H/UT, H, UT
 // dWh = h_res^T @ dxw over all steps is one large product outside the
 // scan (as the reference hoists it), left to the caller.
 //
-// What bounds it on an H100: the same as the forward, twice over.  A step
+// What bounds the per-step route on an H100: the same as the forward, twice
+// over.  A step
 // does two [16 x K] x [K x 16]-per-block products (K = 4H for the dh
 // product, H per gate for the recompute), each out of a 32 KB operand
 // slice staged from L2, plus one read of the 16 dgates rows the previous
@@ -450,14 +459,62 @@ lstm_bwd_final_kernel(const __nv_bfloat16* __restrict__ whT_tiled,  // [G, H/UT,
 
 }  // namespace
 
-// wh_tiled: [G, H/UT, H, UT, 4] bf16 (see above; H must be a multiple of UT).
+// The H of the cluster kernels' instances (kernels.lstm_family's rule: a
+// multiple of 64 from 128, the backward's shared memory within the card's).
+#define AVSR_LSTM_CLUSTER_WIDTHS(X) X(128) X(192) X(256) X(320) X(384)
+
+// Shared memory of one CTA of the cluster kernels at width H, or -1 for a
+// width with no instance.
+extern "C" long long avsr_lstm_cluster_smem(int H, int backward) {
+  switch (H) {
+#define AVSR_CASE(W)                                                         \
+  case W:                                                                    \
+    return (long long)(backward ? lstm_cl::Shape<W>::BWD_SMEM : lstm_cl::Shape<W>::FWD_SMEM);
+    AVSR_LSTM_CLUSTER_WIDTHS(AVSR_CASE)
+#undef AVSR_CASE
+    default:
+      return -1;
+  }
+}
+
+// cudaOccupancyMaxActiveClusters of the cluster forward or backward at
+// width H (0 on an error or a width with no instance).
+extern "C" int avsr_lstm_cluster_max_active(int H, int backward) {
+  switch (H) {
+#define AVSR_CASE(W) \
+  case W:            \
+    return lstm_cl::max_active<W>(backward != 0);
+    AVSR_LSTM_CLUSTER_WIDTHS(AVSR_CASE)
+#undef AVSR_CASE
+    default:
+      return 0;
+  }
+}
+
+// cluster = 0, the per-step route: wh_tiled [G, H/UT, H, UT, 4] bf16 (see
+// above; H a multiple of UT).  cluster = 1: wh_tiled is the cluster layout
+// [G, 8, H/64, 4, 8, H] (lstm_cluster.cuh) and H one of its instances.
 // hbuf: [2][G, B, H] fp32 with h0 in slot 0; after T steps h_T is in slot
 // T % 2.  c: [G, B, H] fp32 holding c0 on entry and c_T on return.
 // h_res, c_res: [T, G, B, H] bf16 residuals, or both null (no save).
 extern "C" int avsr_lstm_scan_fwd(const void* wh_tiled, const void* bias,
                                   const void* xw, const void* mask, void* hbuf,
                                   void* c, void* ys, void* h_res, void* c_res, int T,
-                                  int G, int B, int H, void* stream) {
+                                  int G, int B, int H, int cluster, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (cluster) {
+    if (B < 1 || G < 1 || (h_res == nullptr) != (c_res == nullptr))
+      return (int)cudaErrorInvalidValue;
+    switch (H) {
+#define AVSR_CASE(W) \
+  case W:            \
+    return (int)lstm_cl::fwd<W>(wh_tiled, bias, xw, mask, hbuf, c, ys, h_res, c_res, T, G, B, st);
+      AVSR_LSTM_CLUSTER_WIDTHS(AVSR_CASE)
+#undef AVSR_CASE
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   if (H % UT != 0) return (int)cudaErrorInvalidValue;
   const dim3 grid(H / UT, (B + BT - 1) / BT, G);
   const dim3 block(THREADS);
@@ -467,7 +524,6 @@ extern "C" int avsr_lstm_scan_fwd(const void* wh_tiled, const void* bias,
         lstm_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const size_t gbh = (size_t)G * B * H;
   const __nv_bfloat16* xw_p = static_cast<const __nv_bfloat16*>(xw);
   const float* mask_p = static_cast<const float*>(mask);
@@ -490,16 +546,32 @@ extern "C" int avsr_lstm_scan_fwd(const void* wh_tiled, const void* bias,
   return (int)cudaGetLastError();
 }
 
-// Backward.  whT_tiled: [G, H/UT, H, UT, 4] with [g, t, kq, u, j] =
-// Wh[g, t*UT + u, 4*kq + j].  dh_dir / dc: [G, B, H] fp32 holding dhT / dcT
-// on entry; dc holds dc0 on return.  db_part: [G, ceil(B/BT), 4H] fp32,
-// zeroed.  Outputs: dxw [T, G, B, 4H] bf16, dh0 [G, B, H], db [G, 4H] fp32.
+// Backward.  cluster = 0: whT_tiled [G, H/UT, H, UT, 4] with [g, t, kq, u,
+// j] = Wh[g, t*UT + u, 4*kq + j]; dh_dir / dc: [G, B, H] fp32 holding dhT /
+// dcT on entry; db_part: [G, ceil(B/BT), 4H] fp32, zeroed.  cluster = 1:
+// wh_tiled in the cluster layout, whT_tiled unused, dh_dir read only (dhT),
+// db_part [G, ceil(B/16), 4H] scratch.  dc holds dc0 on return.  Outputs:
+// dxw [T, G, B, 4H] bf16, dh0 [G, B, H], db [G, 4H] fp32.
 extern "C" int avsr_lstm_scan_bwd(const void* wh_tiled, const void* whT_tiled,
                                   const void* bias, const void* xw, const void* mask,
                                   const void* h_res, const void* c_res, const void* dys,
                                   void* dh_dir, void* dc, void* db_part, void* dxw,
                                   void* dh0, void* db, int T, int G, int B, int H,
-                                  void* stream) {
+                                  int cluster, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (cluster) {
+    if (T < 1 || B < 1 || G < 1) return (int)cudaErrorInvalidValue;
+    switch (H) {
+#define AVSR_CASE(W)                                                                   \
+  case W:                                                                              \
+    return (int)lstm_cl::bwd<W>(wh_tiled, bias, xw, mask, h_res, c_res, dys, dh_dir, dc, \
+                                db_part, dxw, dh0, db, T, G, B, st);
+      AVSR_LSTM_CLUSTER_WIDTHS(AVSR_CASE)
+#undef AVSR_CASE
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   if (H % UT != 0 || T < 1) return (int)cudaErrorInvalidValue;
   const dim3 grid(H / UT, (B + BT - 1) / BT, G);
   const dim3 block(THREADS);
@@ -515,7 +587,6 @@ extern "C" int avsr_lstm_scan_bwd(const void* wh_tiled, const void* whT_tiled,
   e = cudaFuncSetAttribute(lstm_bwd_final_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_final);
   if (e != cudaSuccess) return (int)e;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const size_t gbh = (size_t)G * B * H;
   const size_t gb4h = 4 * gbh;
   const __nv_bfloat16* xw_p = static_cast<const __nv_bfloat16*>(xw);

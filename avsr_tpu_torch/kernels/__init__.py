@@ -56,8 +56,10 @@ LAUNCHES: Dict[str, int] = {
     "conformer_conv_bwd": 0,
 }
 
-LSTM_UNIT_TILE = 16  # hidden units per block of the LSTM kernels (UT in the source)
-LSTM_ROW_TILE = 16   # batch rows per block of the LSTM kernels (BT in the source)
+LSTM_UNIT_TILE = 16  # hidden units per block of the per-step LSTM kernels (UT in the source)
+LSTM_ROW_TILE = 16   # batch rows per block of the per-step LSTM kernels (BT in the source)
+LSTM_CLUSTER = 8     # CTAs per cluster of the cluster LSTM kernels (C in lstm_cluster.cuh)
+LSTM_CLUSTER_ROWS = 16  # batch rows per cluster (BR in lstm_cluster.cuh)
 FUSION_MAX_TV = 400  # video frames the fusion kernels (K4, K8) take: 16 s at 25 fps
 ATTEND_MAX_S = 531   # steps K10, K11 and K4 (T_a) take: the audio steps of 16 s, (1598 - 8) // 3 + 1
 CONV_MAX_D = 1024    # channels K9 takes: one channel pair per thread, 512 threads at most
@@ -159,10 +161,14 @@ def _load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.avsr_lstm_scan_fwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+        lib.avsr_lstm_scan_fwd.argtypes = [p] * 9 + [i] * 5 + [p]
         lib.avsr_lstm_scan_fwd.restype = i
-        lib.avsr_lstm_scan_bwd.argtypes = [p] * 14 + [i, i, i, i, p]
+        lib.avsr_lstm_scan_bwd.argtypes = [p] * 14 + [i] * 5 + [p]
         lib.avsr_lstm_scan_bwd.restype = i
+        lib.avsr_lstm_cluster_smem.argtypes = [i, i]
+        lib.avsr_lstm_cluster_smem.restype = ctypes.c_longlong
+        lib.avsr_lstm_cluster_max_active.argtypes = [i, i]
+        lib.avsr_lstm_cluster_max_active.restype = i
         lib.avsr_fusion_attn_fwd.argtypes = [p] * 8 + [i] * 6 + [p]
         lib.avsr_fusion_attn_fwd.restype = i
         lib.avsr_fusion_attn_bwd.argtypes = [p] * 11 + [i] * 6 + [p]
@@ -247,8 +253,9 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def tile_lstm_weights(wh: torch.Tensor) -> torch.Tensor:
-    """[G, K, 4H] -> [G, H/UT, K, UT, 4], the layout the LSTM kernels read
-    (K = H for Wh, K = the context width for K8's ``ctx_proj``): each
+    """[G, K, 4H] -> [G, H/UT, K, UT, 4], the layout the per-step LSTM
+    kernels and K8 read (K = H for Wh, K = the context width for K8's
+    ``ctx_proj``): each
     block's weight slice is contiguous and the four gate weights of one
     hidden unit are adjacent (``csrc/lstm_scan.cu``, ``csrc/av_align_scan.cu``)."""
     G, K, H4 = wh.shape
@@ -266,13 +273,47 @@ def tile_lstm_weights_t(wh: torch.Tensor) -> torch.Tensor:
     return wh.view(G, nt, LSTM_UNIT_TILE, H, 4).permute(0, 1, 3, 2, 4).contiguous()
 
 
+def lstm_cluster_smem(H: int, backward: bool) -> int:
+    """Shared memory of one CTA of the cluster LSTM kernels at width H
+    (``csrc/lstm_cluster.cuh`` ``Shape``): the resident Wh slice (H*H
+    bytes); the forward's two bf16 h tiles (64 H); the backward's one
+    h_res tile (32 H), bf16 dgates rows (16 H) and two slots of fp32 dh
+    partials (128 H); two 8-byte mbarriers."""
+    return H * H + (176 * H if backward else 64 * H) + 16
+
+
+def lstm_family(G: int, B: int, H: int) -> str:
+    """The kernels that run an LSTM scan of G directions, B rows and width
+    H: "cluster", one persistent launch of thread-block clusters per layer
+    call (``csrc/lstm_cluster.cuh``), where H is a multiple of 64 from 128
+    (8 units a warp, 8 swizzle chunks a dgates row) whose backward fits a
+    CTA's shared memory (H <= 384; every preset has H = 256); else "step",
+    the per-step kernels (``csrc/lstm_scan.cu``), which take any multiple of
+    16.  Chosen by shape alone, never after a failure; other shapes raise."""
+    if G < 1 or B < 1 or H < LSTM_UNIT_TILE or H % LSTM_UNIT_TILE:
+        raise ValueError(f"lstm scan: G={G}, B={B}, H={H}; the kernels take G, B >= 1 and H a "
+                         f"positive multiple of {LSTM_UNIT_TILE}")
+    if H % 64 == 0 and H >= 128 and lstm_cluster_smem(H, backward=True) <= SMEM_LIMIT:
+        return "cluster"
+    return "step"
+
+
+def cluster_lstm_weights(wh: torch.Tensor) -> torch.Tensor:
+    """[G, H, 4H] -> [G, 8, H/64, 4, 8, H], the layout the cluster LSTM
+    kernels read: [g, r, w, q, j, k] = Wh[g, k, q*H + r*H/8 + 8*w + j], so
+    CTA r's slice (its H/8 units' four gates over all H inputs) is one
+    contiguous [H/2, H] run, column-major, whose rows are warp w's 8 units
+    gate by gate (``csrc/lstm_cluster.cuh``)."""
+    G, H, _ = wh.shape
+    return wh.view(G, H, 4, LSTM_CLUSTER, H // 64, 8).permute(0, 3, 4, 2, 5, 1).contiguous()
+
+
 def _check_lstm(xw, wh, b, mask, T, G, B, H, dev):
     _check("xw", xw, torch.bfloat16, (T, G, B, 4 * H), dev)
     _check("wh", wh, torch.bfloat16, (G, H, 4 * H), dev)
     _check("b", b, torch.float32, (G, 4 * H), dev)
     _check("mask", mask, torch.float32, (T, G, B), dev)
-    if H % LSTM_UNIT_TILE:
-        raise ValueError(f"lstm scan: H={H} must be a multiple of {LSTM_UNIT_TILE}")
+    return lstm_family(G, B, H)
 
 
 def _lstm_counter(name: str, G: int) -> str:
@@ -286,16 +327,19 @@ def lstm_scan_fwd(wh, b, xw, mask, h0, c0, *, save: bool = False):
     wh [G,H,4H] bf16, b [G,4H] f32, xw [T,G,B,4H] bf16, mask [T,G,B] f32,
     h0/c0 [G,B,H] f32 -> (ys [T,G,B,H] bf16, hT [G,B,H] f32, cT f32,
     h_res, c_res), the last two the bf16 [T,G,B,H] carries entering each
-    step when ``save`` (the backward's residuals), else None.
+    step when ``save`` (the backward's residuals), else None.  Runs on the
+    family ``lstm_family`` names: one cluster launch, or one launch per
+    step.
     """
     T, G, B, H4 = xw.shape
     H = H4 // 4
     dev = xw.device
-    _check_lstm(xw, wh, b, mask, T, G, B, H, dev)
+    family = _check_lstm(xw, wh, b, mask, T, G, B, H, dev)
     _check("h0", h0, torch.float32, (G, B, H), dev)
     _check("c0", c0, torch.float32, (G, B, H), dev)
     lib = _load()
-    wh_tiled = tile_lstm_weights(wh)
+    cluster = family == "cluster"
+    w = cluster_lstm_weights(wh) if cluster else tile_lstm_weights(wh)
     hbuf = torch.empty((2, G, B, H), dtype=torch.float32, device=dev)
     hbuf[0].copy_(h0)
     c = c0.clone()
@@ -306,10 +350,9 @@ def lstm_scan_fwd(wh, b, xw, mask, h0, c0, *, save: bool = False):
         c_res = torch.empty((T, G, B, H), dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.avsr_lstm_scan_fwd(
-        wh_tiled.data_ptr(), b.data_ptr(), xw.data_ptr(), mask.data_ptr(),
-        hbuf.data_ptr(), c.data_ptr(), ys.data_ptr(),
-        h_res.data_ptr() if save else None, c_res.data_ptr() if save else None,
-        T, G, B, H, stream,
+        w.data_ptr(), b.data_ptr(), xw.data_ptr(), mask.data_ptr(),
+        hbuf.data_ptr(), c.data_ptr(), ys.data_ptr(), _ptr(h_res), _ptr(c_res),
+        T, G, B, H, int(cluster), stream,
     )
     _raise_on(err, "lstm_scan_fwd launch")
     LAUNCHES[_lstm_counter("lstm_scan_fwd", G)] += 1
@@ -323,12 +366,14 @@ def lstm_scan_bwd(wh, b, xw, mask, h_res, c_res, dys, dhT, dcT):
     Same operands as the forward plus the bf16 residuals h_res/c_res
     [T,G,B,H] and the cotangents dys [T,G,B,H] bf16, dhT/dcT [G,B,H] f32
     -> (dxw [T,G,B,4H] bf16 (= dgates), db [G,4H] f32, dh0, dc0 [G,B,H]
-    f32).  dWh is one product over all steps, left to the caller.
+    f32).  dWh is one product over all steps, left to the caller.  The
+    cluster family is one cluster launch and a row-tile sum of db; the
+    per-step family one launch per step and a final one.
     """
     T, G, B, H4 = xw.shape
     H = H4 // 4
     dev = xw.device
-    _check_lstm(xw, wh, b, mask, T, G, B, H, dev)
+    family = _check_lstm(xw, wh, b, mask, T, G, B, H, dev)
     for name, x in (("h_res", h_res), ("c_res", c_res), ("dys", dys)):
         _check(name, x, torch.bfloat16, (T, G, B, H), dev)
     _check("dhT", dhT, torch.float32, (G, B, H), dev)
@@ -336,21 +381,24 @@ def lstm_scan_bwd(wh, b, xw, mask, h_res, c_res, dys, dhT, dcT):
     if T < 1:
         raise ValueError("lstm_scan_bwd: needs at least one step")
     lib = _load()
-    wh_tiled = tile_lstm_weights(wh)
-    whT_tiled = tile_lstm_weights_t(wh)
-    dh_dir = dhT.clone()
     dc = dcT.clone()
-    n_row_tiles = -(-B // LSTM_ROW_TILE)
-    db_part = torch.zeros((G, n_row_tiles, 4 * H), dtype=torch.float32, device=dev)
+    if family == "cluster":
+        w, wT, dh_dir = cluster_lstm_weights(wh), None, dhT
+        db_part = torch.empty((G, -(-B // LSTM_CLUSTER_ROWS), 4 * H), dtype=torch.float32,
+                              device=dev)
+    else:
+        w, wT, dh_dir = tile_lstm_weights(wh), tile_lstm_weights_t(wh), dhT.clone()
+        db_part = torch.zeros((G, -(-B // LSTM_ROW_TILE), 4 * H), dtype=torch.float32,
+                              device=dev)
     dxw = torch.empty((T, G, B, 4 * H), dtype=torch.bfloat16, device=dev)
     dh0 = torch.empty((G, B, H), dtype=torch.float32, device=dev)
     db = torch.empty((G, 4 * H), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.avsr_lstm_scan_bwd(
-        wh_tiled.data_ptr(), whT_tiled.data_ptr(), b.data_ptr(), xw.data_ptr(),
+        w.data_ptr(), _ptr(wT), b.data_ptr(), xw.data_ptr(),
         mask.data_ptr(), h_res.data_ptr(), c_res.data_ptr(), dys.data_ptr(),
         dh_dir.data_ptr(), dc.data_ptr(), db_part.data_ptr(), dxw.data_ptr(),
-        dh0.data_ptr(), db.data_ptr(), T, G, B, H, stream,
+        dh0.data_ptr(), db.data_ptr(), T, G, B, H, int(family == "cluster"), stream,
     )
     _raise_on(err, "lstm_scan_bwd launch")
     LAUNCHES[_lstm_counter("lstm_scan_bwd", G)] += 1

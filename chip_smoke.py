@@ -9,10 +9,18 @@ Phases, in order; any failure exits nonzero before the final line:
 2. build   — compile the CUDA kernels from ``avsr_tpu_torch/csrc`` into
              ``build/`` (one nvcc per source, all started together,
              sm_90a) and print the build time.
-3. K1      — the BiLSTM recurrence kernel against its plain PyTorch
-             version on the card at [T=99, G=2, B=128, H=256], bf16, ragged
-             lengths with a 0-length row; max errors and median CUDA-event
-             times (B=128, B=8).
+3. K1      — the BiLSTM recurrence kernel (one cluster launch per call,
+             ``kernels.lstm_family`` "cluster") against its plain PyTorch
+             version on the card at [G=2, H=256], bf16, ragged lengths with a
+             0-length row, at every (T, B) the paths launch (``K1_SHAPES``:
+             T = 50, 99, 150, 197 at B=128; B=8 and B=1; 16 s, T=531, at
+             B=4): max errors, two launches bit-equal, the 0-length row's
+             state kept; device ms and per-step us; the cluster kernels'
+             registers, spills and HMMA count (ptxas -v, cuobjdump), their
+             shared memory against ``kernels.lstm_cluster_smem`` and their
+             max active clusters; median CUDA-event times (B=128, B=8); and,
+             as a reference point that computes more (the input product
+             too), cuDNN's bidirectional ``nn.LSTM`` at the same T, B, H.
 4. K3      — the post-DFT log-mel kernel against its plain version at
              [B=128, S=96000] (6 s at 16 kHz), ragged lengths; same report.
 5. serve   — the full-width ``lrs2_av_fast`` model (random weights from a
@@ -24,8 +32,10 @@ Phases, in order; any failure exits nonzero before the final line:
              hold the fused decoder memory of the kernel path against the
              plain path on the card.
 6. K1 bwd  — the LSTM backward kernel against its plain twin on the same
-             residuals and random cotangents at [T=99, G=2, B=128, H=256]:
-             errors on dxw, db, dh0, dc0 and dWh; times at B=128 and B=8.
+             residuals and random cotangents at phase 3's shapes: errors on
+             dxw, db, dh0, dc0 and dWh, two launches bit-equal, the 0-length
+             row passing dhT/dcT through; device ms and per-step us; times
+             at B=128 and B=8.
 7. K4      — the fusion attention kernels (tensor cores), forward and
              backward, against their plain twins at [B=128, 4 heads,
              T_a=50, T_v=150, A=dv=128] (the fast model), T_a=197 (v2),
@@ -166,11 +176,12 @@ Phases, in order; any failure exits nonzero before the final line:
              frames/s, peak memory and a profile with K11's share of the
              device time.
 28. K2     — the one-direction LSTM scan (K1's kernels at G=1, counted
-             apart) against the plain twins at [T=197, G=1, B=128 and 8,
-             H=256], bf16, ragged with a 0-length row and a nonzero h0/c0
-             (which that row must return as hT/cT, passing dhT/dcT through
-             to dh0/dc0): errors on ys, hT, cT and dWh, db, dxw, dh0, dc0;
-             times, device times and the bounds.
+             apart) against the plain twins at [G=1, H=256] and (T, B) =
+             (197, 128), (150, 128), (197, 8), (197, 1) and (531, 4), bf16,
+             ragged with a 0-length row and a nonzero h0/c0 (which that row
+             must return as hT/cT, passing dhT/dcT through to dh0/dc0):
+             errors on ys, hT, cT and dWh, db, dxw, dh0, dc0; two launches
+             bit-equal; times, device times, per-step us and the bounds.
 29. K10 Luong — the Luong read (the dot score of ``bahdanau_core.cuh``),
              forward and backward, against the plain twins at N=80 and 128,
              S=197, Hk=Dv=512 (one bf16 memory as keys and values), with a
@@ -199,6 +210,12 @@ Phases, in order; any failure exits nonzero before the final line:
              autograd Function, forward and backward, against the plain
              twins: K11 at dh=32 (d=512, 16 heads), K4 at A=dv=64, K5's self
              attention at dh=32 and its cross attention at (64, 128).
+36. LSTM step route — the per-step LSTM kernels at a width the cluster
+             kernels do not take (H=512: the [512 x 256] Wh slice, 256 KB,
+             does not fit one CTA of an 8-CTA cluster; ``lstm_family``
+             "step"), forward and backward against the plain twins at
+             [T=50, G=2, B=20, H=512] ragged with a 0-length row, and at G=1
+             with a nonzero h0/c0.
 
 Serve (5, 15, 22, 31) also beams the same memories through the plain path and
 holds the best scores to a tolerance.  Each serve and greedy path and the
@@ -521,7 +538,8 @@ def k1_inputs(T, G, B, H, dev, seed=0):
     xw = torch.randn((T, G, B, 4 * H), generator=g).to(torch.bfloat16)
     lengths = torch.randint(1, T + 1, (B,), generator=g)
     lengths[0] = T
-    lengths[1] = 0  # a row with no valid step
+    if B > 1:
+        lengths[1] = 0  # a row with no valid step
     m = (torch.arange(T)[:, None] < lengths[None, :]).float()
     mask = torch.stack([m, torch.flip(m, (0,))], dim=1)[:, :G]
     h0 = torch.zeros((G, B, H))
@@ -691,33 +709,151 @@ def plain_cores():
         yield
 
 
+# K1's (T, B) at G = 2, H = 256: the fast audio encoder's layers (T = 99,
+# then 50), the video encoder (150) and lrs2_av_align's audio layers (197) at
+# B = 128; a ragged B = 8 (a serve request) with a 0-length row, B = 1, and
+# 16 s of audio (T = 531, the longest the presets take) at B = 4
+K1_SHAPES = ((99, 128), (50, 128), (150, 128), (197, 128), (99, 8), (99, 1), (531, 4))
+K2_SHAPES = ((197, 128), (150, 128), (197, 8), (197, 1), (531, 4))
+_LSTM_INFO = {}  # the cluster kernels' build report and occupancy, read once
+
+
+def lstm_cluster_info():
+    """The cluster LSTM kernels as built: registers, spills and HMMA count
+    of every instance (fails on a spill or an instance without HMMA), each
+    width's shared memory from the library against
+    ``kernels.lstm_cluster_smem`` and ``lstm_family``, and the max active
+    clusters of the H = 256 launches."""
+    from avsr_tpu_torch import kernels
+
+    if _LSTM_INFO:
+        return _LSTM_INFO
+    widths = [H for H in range(16, 1025, 16) if kernels.lstm_family(2, 1, H) == "cluster"]
+    build = build_report("K1", "lstm_scan", {
+        f"{kind}<{H}>": (f"lstm_cluster_{kind}ILi{H}E",) for kind in ("fwd", "bwd")
+        for H in widths})
+    lib = kernels._load()
+    for H in range(16, 1025, 16):
+        cluster = kernels.lstm_family(2, 1, H) == "cluster"
+        for bwd in (0, 1):
+            smem = lib.avsr_lstm_cluster_smem(H, bwd)
+            want = kernels.lstm_cluster_smem(H, bool(bwd)) if cluster else -1
+            if smem != want:
+                fail("K1", f"H={H}: the library's cluster instance takes {smem} bytes, "
+                           f"lstm_family / lstm_cluster_smem expect {want}")
+    occ = {kind: lib.avsr_lstm_cluster_max_active(256, bwd)
+           for kind, bwd in (("fwd", 0), ("bwd", 1))}
+    print(f"K1 cluster kernels: instances at H {widths}; shared memory per CTA at H=256 "
+          f"{kernels.lstm_cluster_smem(256, False)} / {kernels.lstm_cluster_smem(256, True)} B "
+          f"(fwd / bwd); max active clusters of 8 CTAs at H=256 {occ} (cudaOccupancy"
+          f"MaxActiveClusters)")
+    if min(occ.values()) < 1:
+        fail("K1", f"a cluster kernel cannot be resident: {occ}")
+    _LSTM_INFO.update(build=build, max_active_clusters=occ)
+    return _LSTM_INFO
+
+
+def lstm_kept(ys, hT, cT, h0, c0):
+    """Row 1 has no valid step: h0 and c0 come back as hT and cT, its
+    outputs are zero (True where there is no row 1)."""
+    import torch
+
+    return ys.shape[2] < 2 or (torch.equal(hT[:, 1], h0[:, 1]) and torch.equal(cT[:, 1], c0[:, 1])
+                               and float(ys[:, :, 1].float().abs().max()) == 0.0)
+
+
+def lstm_passed(dxw, dh0, dc0, dhT, dcT):
+    """Row 1 has no valid step: its dxw is zero and dhT / dcT reach dh0 /
+    dc0 unchanged (True where there is no row 1)."""
+    import torch
+
+    return dxw.shape[2] < 2 or (float(dxw[:, :, 1].float().abs().max()) == 0.0
+                                and torch.equal(dh0[:, 1], dhT[:, 1])
+                                and torch.equal(dc0[:, 1], dcT[:, 1]))
+
+
+def lstm_bwd_kernel(args):
+    """The kernel wrapper's call for ``rnn.scan_core_bwd``'s arguments: the
+    cluster backward alone, without the caller's dWh product."""
+    import torch
+
+    from avsr_tpu_torch import kernels
+
+    wh, b, xw, mask, h_res, c_res, dys, dhT, dcT, _ = args
+    bf = torch.bfloat16
+    ka = (wh.to(bf).contiguous(), b.float().contiguous(), xw.to(bf).contiguous(),
+          mask.float().contiguous(), h_res, c_res, dys, dhT, dcT)
+    return lambda: kernels.lstm_scan_bwd(*ka)
+
+
+def cudnn_lstm_ms(T, B, H, dev, D=512):
+    """(forward, backward) device ms of cuDNN's bidirectional ``nn.LSTM``
+    (fp16, input width D) at [T, B, H]: a reference point, not a library
+    call for K1's function: it also multiplies the input (K1 takes the
+    hoisted product) and has no mask."""
+    import torch
+
+    lstm = torch.nn.LSTM(D, H, bidirectional=True).to(dev, torch.float16)
+    g = torch.Generator().manual_seed(T + B)
+    x = torch.randn((T, B, D), generator=g).to(dev, torch.float16).requires_grad_(True)
+    dy = torch.randn((T, B, 2 * H), generator=g).to(dev, torch.float16)
+    with torch.no_grad():
+        fwd = device_ms(lambda: lstm(x))
+    both = device_ms(lambda: lstm(x)[0].backward(dy))
+    return fwd, both - fwd
+
+
 def phase_k1(dev, report):
     import torch
 
+    from avsr_tpu_torch import kernels
     from avsr_tpu_torch.ops import rnn
 
-    # the audio encoder's first-layer shape (T = 99 after the (2,...) pyramid)
-    wh, b, xw, mask, h0, c0 = k1_inputs(99, 2, 128, 256, dev)
-    ys_k, hT_k, cT_k = rnn.bilstm_scan_core(wh, b, xw, mask, h0, c0, torch.bfloat16)
-    ys_p, hT_p, cT_p = rnn.bilstm_scan_core_plain(wh, b, xw, mask, h0, c0, torch.bfloat16)
-    torch.cuda.synchronize()
-    errs = {"ys": max_err(ys_k, ys_p), "hT": max_err(hT_k, hT_p), "cT": max_err(cT_k, cT_p)}
-    k1_err = max(errs.values())
-    print(f"K1 max abs err {errs} (tol {K1_TOL})")
-    if not (k1_err <= K1_TOL) or not torch.isfinite(ys_k.float()).all():
-        fail("K1", f"kernel disagrees with the plain version: {errs}")
+    info = lstm_cluster_info()
+    bf = torch.bfloat16
+    errs, dms = {}, {}
+    for T, B in K1_SHAPES:
+        args = k1_inputs(T, 2, B, 256, dev, seed=T + B)
+        out_k = rnn.bilstm_scan_core(*args, bf)
+        again = rnn.bilstm_scan_core(*args, bf)
+        out_p = rnn.bilstm_scan_core_plain(*args, bf)
+        torch.cuda.synchronize()
+        e = {n: max_err(a, b_) for n, a, b_ in zip(("ys", "hT", "cT"), out_k, out_p)}
+        same = all(torch.equal(a, b_) for a, b_ in zip(out_k, again))
+        kept = lstm_kept(*out_k, args[4], args[5])
+        family = kernels.lstm_family(2, B, 256)
+        dms[(T, B)] = device_ms(lambda: rnn.bilstm_scan_core(*args, bf))
+        print(f"K1 [T={T},G=2,B={B},H=256] family {family}: max abs err {e} (tol {K1_TOL}); two "
+              f"launches bit-equal: {same}; the 0-length row kept its state: {kept}; device "
+              f"{dms[(T, B)]:.4f} ms, {dms[(T, B)] / T * 1e3:.3f} us per step")
+        if not (family == "cluster" and all(torch.isfinite(x.float()).all() for x in out_k)
+                and max(e.values()) <= K1_TOL and same and kept):
+            fail("K1", f"kernel disagrees with the plain version at T={T}, B={B}: {e}, bit-equal "
+                       f"{same}, 0-length row kept {kept}, family {family}")
+        errs[(T, B)] = max(e.values())
+    wh, b, xw, mask, h0, c0 = k1_inputs(99, 2, 128, 256, dev, seed=99 + 128)
+    ys_k, hT_k, cT_k = rnn.bilstm_scan_core(wh, b, xw, mask, h0, c0, bf)
     k1 = {}
     for B in (128, 8):
-        args = k1_inputs(99, 2, B, 256, dev, seed=B)
-        k1[B] = (time_ms(lambda: rnn.bilstm_scan_core(*args, torch.bfloat16)),
-                 time_ms(lambda: rnn.bilstm_scan_core_plain(*args, torch.bfloat16), reps=5))
+        args = k1_inputs(99, 2, B, 256, dev, seed=99 + B)
+        k1[B] = (time_ms(lambda: rnn.bilstm_scan_core(*args, bf)),
+                 time_ms(lambda: rnn.bilstm_scan_core_plain(*args, bf), reps=5))
         print(f"K1 [T=99,G=2,B={B},H=256] kernel {k1[B][0]:.4f} ms  plain {k1[B][1]:.4f} ms")
+    cud = cudnn_lstm_ms(99, 128, 256, dev)
+    print(f"reference point, not K1's function: cuDNN bidirectional nn.LSTM (fp16, input width "
+          f"512, no mask; it also computes the input product) at [T=99,B=128,H=256] device "
+          f"{cud[0]:.4f} ms forward, {cud[1]:.4f} ms backward")
     flops = 2 * 99 * 2 * 128 * 256 * 1024  # h @ Wh at every step, both directions
     report["lstm_scan_fwd"] = dict(
-        max_abs_err=k1_err, ms=k1[128][0], plain_ms=k1[128][1], library_ms=None,
-        device_ms=device_ms(lambda: rnn.bilstm_scan_core(wh, b, xw, mask, h0, c0,
-                                                         torch.bfloat16)),
-        bound=bound(nbytes(wh, b, xw, mask, h0, c0, ys_k, hT_k, cT_k), flops))
+        max_abs_err=max(errs.values()), ms=k1[128][0], plain_ms=k1[128][1], library_ms=None,
+        device_ms=dms[(99, 128)],
+        bound=bound(nbytes(wh, b, xw, mask, h0, c0, ys_k, hT_k, cT_k), flops),
+        per_step_us=dms[(99, 128)] / 99 * 1e3,
+        device_ms_by_shape={f"T={T},B={B}": x for (T, B), x in dms.items()},
+        registers={k: r["registers"] for k, r in info["build"].items() if k.startswith("fwd")},
+        hmma={k: r.get("hmma") for k, r in info["build"].items() if k.startswith("fwd")},
+        max_active_clusters=info["max_active_clusters"]["fwd"],
+        cudnn_reference_device_ms=cud[0])
 
 
 def phase_k3(dev, report, cfg):
@@ -844,37 +980,53 @@ def phase_k1_bwd(dev, report):
 
     from avsr_tpu_torch.ops import rnn
 
-    args = k1_bwd_inputs(99, 2, 128, 256, dev)
-    out_k = rnn.scan_core_bwd(*args)
-    out_p = rnn.bilstm_scan_core_bwd_plain(*args)
-    torch.cuda.synchronize()
+    info = lstm_cluster_info()
     names = ("dWh", "db", "dxw", "dh0", "dc0")
-    errs = {n: rel_err(a, b) for n, a, b in zip(names, out_k, out_p)}
-    abs_errs = {n: max_err(a, b) for n, a, b in zip(names, out_k, out_p)}
-    print(f"K1 bwd max abs err {abs_errs}; relative to max |plain| {errs} "
-          f"(tol {K1B_REL_TOL})")
-    if not all(torch.isfinite(x.float()).all() for x in out_k):
-        fail("K1 bwd", "non-finite kernel output")
-    if not max(errs.values()) <= K1B_REL_TOL:
-        fail("K1 bwd", f"kernel disagrees with the plain twin: {errs}")
+    errs, abs_errs, dms = {}, {}, {}
+    for T, B in K1_SHAPES:
+        args = k1_bwd_inputs(T, 2, B, 256, dev, seed=T + B)
+        out_k = rnn.scan_core_bwd(*args)
+        again = rnn.scan_core_bwd(*args)
+        out_p = rnn.bilstm_scan_core_bwd_plain(*args)
+        torch.cuda.synchronize()
+        e = {n: rel_err(a, b_) for n, a, b_ in zip(names, out_k, out_p)}
+        same = all(torch.equal(a, b_) for a, b_ in zip(out_k, again))
+        passed = lstm_passed(out_k[2], out_k[3], out_k[4], args[7], args[8])
+        dms[(T, B)] = device_ms(lstm_bwd_kernel(args))
+        with_dwh = device_ms(lambda: rnn.scan_core_bwd(*args))
+        print(f"K1 bwd [T={T},G=2,B={B},H=256] max error relative to max |plain| "
+              f"{ {n: f'{x:.3e}' for n, x in e.items()} } (tol {K1B_REL_TOL}); two launches "
+              f"bit-equal: {same}; the 0-length row passes dhT/dcT through: {passed}; device "
+              f"{dms[(T, B)]:.4f} ms, {dms[(T, B)] / T * 1e3:.3f} us per step ({with_dwh:.4f} ms "
+              f"with the caller's dWh product)")
+        if (T, B) == (99, 128):
+            dms_dwh = with_dwh
+        if not (all(torch.isfinite(x.float()).all() for x in out_k)
+                and max(e.values()) <= K1B_REL_TOL and same and passed):
+            fail("K1 bwd", f"kernel disagrees with the plain twin at T={T}, B={B}: {e}, "
+                           f"bit-equal {same}, 0-length row {passed}")
+        errs[(T, B)] = max(e.values())
+        abs_errs[(T, B)] = max(max_err(a, b_) for a, b_ in zip(out_k, out_p))
+    args = k1_bwd_inputs(99, 2, 128, 256, dev, seed=99 + 128)
+    out_k = rnn.scan_core_bwd(*args)
     times = {}
     for B in (128, 8):
-        a = k1_bwd_inputs(99, 2, B, 256, dev, seed=B)
-        if B == 8:  # half a row tile: the kernels' zero-filled rows
-            small = max(rel_err(x, y) for x, y in zip(rnn.scan_core_bwd(*a),
-                                                       rnn.bilstm_scan_core_bwd_plain(*a)))
-            print(f"K1 bwd at B=8: max relative err {small} (tol {K1B_REL_TOL})")
-            if not small <= K1B_REL_TOL:
-                fail("K1 bwd", f"kernel disagrees with the plain twin at B=8: {small}")
+        a = k1_bwd_inputs(99, 2, B, 256, dev, seed=99 + B)
         times[B] = (time_ms(lambda: rnn.scan_core_bwd(*a)),
                     time_ms(lambda: rnn.bilstm_scan_core_bwd_plain(*a), reps=5))
         print(f"K1 bwd [T=99,G=2,B={B},H=256] kernel {times[B][0]:.4f} ms  "
               f"plain {times[B][1]:.4f} ms")
-    flops = 3 * 2 * 99 * 2 * 128 * 256 * 1024  # gate recompute, dh product, dWh
+    flops = 2 * 2 * 99 * 2 * 128 * 256 * 1024  # gate recompute, dh product (dWh is the caller's)
     report["lstm_scan_bwd"] = dict(
         max_abs_err=max(abs_errs.values()), ms=times[128][0], plain_ms=times[128][1],
-        library_ms=None, device_ms=device_ms(lambda: rnn.scan_core_bwd(*args)),
-        bound=bound(nbytes(*args[:9], *out_k), flops))
+        library_ms=None, device_ms=dms[(99, 128)],
+        bound=bound(nbytes(*args[:9], *out_k[1:]), flops), max_rel_err=max(errs.values()),
+        device_ms_with_dwh=dms_dwh,
+        per_step_us=dms[(99, 128)] / 99 * 1e3,
+        device_ms_by_shape={f"T={T},B={B}": x for (T, B), x in dms.items()},
+        registers={k: r["registers"] for k, r in info["build"].items() if k.startswith("bwd")},
+        hmma={k: r.get("hmma") for k, r in info["build"].items() if k.startswith("bwd")},
+        max_active_clusters=info["max_active_clusters"]["bwd"])
 
 
 # K4's shapes (B, T_a, T_v, dv) at 4 heads, A = 128: the fast model's, the
@@ -2179,63 +2331,79 @@ def k2_inputs(T, B, H, dev, seed):
 def phase_k2(dev, report):
     import torch
 
+    from avsr_tpu_torch import kernels
     from avsr_tpu_torch.ops import rnn
 
     bf = torch.bfloat16
     runs = {}
-    for B in (128, 8):
-        args = k2_inputs(197, B, 256, dev, seed=40 + B)
+    for T, B in K2_SHAPES:
+        args = k2_inputs(T, B, 256, dev, seed=40 + B + T)
         wh, b, xw, mask, h0, c0 = args
-        T, _, _, H4 = xw.shape
-        H = H4 // 4
+        H = xw.shape[-1] // 4
         out_k = rnn.bilstm_scan_core(*args, bf)
+        again = rnn.bilstm_scan_core(*args, bf)
         out_p = rnn.bilstm_scan_core_plain(*args, bf)
         _, (h_res, c_res) = rnn.scan_core_fwd(*args, bf, save=True)
-        g = torch.Generator().manual_seed(B + 2)
+        g = torch.Generator().manual_seed(B + T + 2)
         cot = [torch.randn((T, 1, B, H), generator=g).to(bf).to(dev),
                torch.randn((1, B, H), generator=g).to(dev),
                torch.randn((1, B, H), generator=g).to(dev)]
         bargs = [wh, b, xw, mask, h_res, c_res, *cot, bf]
         g_k = rnn.scan_core_bwd(*bargs)
+        g_again = rnn.scan_core_bwd(*bargs)
         g_p = rnn.bilstm_scan_core_bwd_plain(*bargs)
         torch.cuda.synchronize()
         e = {n: max_err(a, b_) for n, a, b_ in zip(("ys", "hT", "cT"), out_k, out_p)}
         names = ("dWh", "db", "dxw", "dh0", "dc0")
         ge = {n: rel_err(a, b_) for n, a, b_ in zip(names, g_k, g_p)}
+        same = (all(torch.equal(a, b_) for a, b_ in zip(out_k, again))
+                and all(torch.equal(a, b_) for a, b_ in zip(g_k, g_again)))
         # row 1 has no valid step: h0 and c0 come back as hT and cT, its
         # outputs and dxw are zero, and dhT / dcT reach h0 / c0 unchanged
-        ys_k, hT_k, cT_k = out_k
-        kept = (torch.equal(hT_k[0, 1], h0[0, 1]) and torch.equal(cT_k[0, 1], c0[0, 1])
-                and float(ys_k[:, 0, 1].abs().max()) == 0.0
-                and float(g_k[2][:, 0, 1].abs().max()) == 0.0
-                and torch.equal(g_k[3][0, 1], cot[1][0, 1])
-                and torch.equal(g_k[4][0, 1], cot[2][0, 1]))
-        print(f"K2 [T=197,G=1,B={B},H=256] max abs err {e} (tol {K1_TOL}); bwd relative to max "
-              f"|plain| { {n: f'{x:.3e}' for n, x in ge.items()} } (tol {K1B_REL_TOL}); the "
-              f"0-length row keeps h0/c0 and passes dhT/dcT through exactly: {kept}")
-        if not (all(torch.isfinite(x.float()).all() for x in (*out_k, *g_k))
-                and max(e.values()) <= K1_TOL and max(ge.values()) <= K1B_REL_TOL and kept):
-            fail("K2", f"kernels disagree with the plain twins at B={B}: {e}, {ge}; the 0-length "
-                       f"row kept its state: {kept}")
-        t = (time_ms(lambda: rnn.bilstm_scan_core(*args, bf)),
-             time_ms(lambda: rnn.bilstm_scan_core_plain(*args, bf), reps=3, warmup=1),
-             time_ms(lambda: rnn.scan_core_bwd(*bargs)),
-             time_ms(lambda: rnn.bilstm_scan_core_bwd_plain(*bargs), reps=3, warmup=1))
-        print(f"K2 B={B} fwd kernel {t[0]:.4f} ms  plain {t[1]:.4f} ms; bwd kernel {t[2]:.4f} ms  "
-              f"plain {t[3]:.4f} ms")
-        runs[B] = dict(args=args, bargs=bargs, out=out_k, grads=g_k, t=t,
-                       fwd_err=max(e.values()),
-                       bwd_err=max(max_err(a, b_) for a, b_ in zip(g_k, g_p)))
-    r = runs[128]
+        kept = lstm_kept(*out_k, h0, c0) and lstm_passed(g_k[2], g_k[3], g_k[4], cot[1], cot[2])
+        family = kernels.lstm_family(1, B, H)
+        print(f"K2 [T={T},G=1,B={B},H=256] family {family}: max abs err {e} (tol {K1_TOL}); bwd "
+              f"relative to max |plain| { {n: f'{x:.3e}' for n, x in ge.items()} } (tol "
+              f"{K1B_REL_TOL}); two launches bit-equal: {same}; the 0-length row keeps h0/c0 "
+              f"and passes dhT/dcT through exactly: {kept}")
+        if not (family == "cluster"
+                and all(torch.isfinite(x.float()).all() for x in (*out_k, *g_k))
+                and max(e.values()) <= K1_TOL and max(ge.values()) <= K1B_REL_TOL and same
+                and kept):
+            fail("K2", f"kernels disagree with the plain twins at T={T}, B={B}: {e}, {ge}; "
+                       f"bit-equal {same}; the 0-length row kept its state: {kept}")
+        dms = (device_ms(lambda: rnn.bilstm_scan_core(*args, bf)),
+               device_ms(lstm_bwd_kernel(bargs)), device_ms(lambda: rnn.scan_core_bwd(*bargs)))
+        print(f"K2 [T={T},B={B}] device fwd {dms[0]:.4f} ms ({dms[0] / T * 1e3:.3f} us per step), "
+              f"bwd {dms[1]:.4f} ms ({dms[1] / T * 1e3:.3f} us per step; {dms[2]:.4f} ms with the "
+              f"caller's dWh product)")
+        runs[(T, B)] = dict(args=args, bargs=bargs, out=out_k, grads=g_k, dms=dms,
+                            fwd_err=max(e.values()),
+                            bwd_err=max(max_err(a, b_) for a, b_ in zip(g_k, g_p)))
+    r = runs[(197, 128)]
+    T, H4 = 197, 1024
+    H = H4 // 4
+    t = {}
+    for B in (128, 8):
+        a, ba = runs[(197, B)]["args"], runs[(197, B)]["bargs"]
+        t[B] = (time_ms(lambda: rnn.bilstm_scan_core(*a, bf)),
+                time_ms(lambda: rnn.bilstm_scan_core_plain(*a, bf), reps=3, warmup=1),
+                time_ms(lambda: rnn.scan_core_bwd(*ba)),
+                time_ms(lambda: rnn.bilstm_scan_core_bwd_plain(*ba), reps=3, warmup=1))
+        print(f"K2 B={B} fwd kernel {t[B][0]:.4f} ms  plain {t[B][1]:.4f} ms; bwd kernel "
+              f"{t[B][2]:.4f} ms  plain {t[B][3]:.4f} ms")
     flops = 2 * T * 128 * H * H4  # h @ Wh at every step
+    by_shape = [{f"T={T_},B={B_}": x["dms"][i] for (T_, B_), x in runs.items()} for i in (0, 1)]
     report["lstm_scan_uni_fwd"] = dict(
-        max_abs_err=max(x["fwd_err"] for x in runs.values()), ms=r["t"][0], plain_ms=r["t"][1],
-        library_ms=None, device_ms=device_ms(lambda: rnn.bilstm_scan_core(*r["args"], bf)),
-        bound=bound(nbytes(*r["args"], *r["out"]), flops))
+        max_abs_err=max(x["fwd_err"] for x in runs.values()), ms=t[128][0], plain_ms=t[128][1],
+        library_ms=None, device_ms=r["dms"][0], bound=bound(nbytes(*r["args"], *r["out"]), flops),
+        per_step_us=r["dms"][0] / T * 1e3, device_ms_by_shape=by_shape[0])
     report["lstm_scan_uni_bwd"] = dict(
-        max_abs_err=max(x["bwd_err"] for x in runs.values()), ms=r["t"][2], plain_ms=r["t"][3],
-        library_ms=None, device_ms=device_ms(lambda: rnn.scan_core_bwd(*r["bargs"])),
-        bound=bound(nbytes(*r["bargs"][:9], *r["grads"]), 3 * flops))
+        max_abs_err=max(x["bwd_err"] for x in runs.values()), ms=t[128][2], plain_ms=t[128][3],
+        library_ms=None, device_ms=r["dms"][1],
+        bound=bound(nbytes(*r["bargs"][:9], *r["grads"][1:]), 2 * flops),
+        per_step_us=r["dms"][1] / T * 1e3, device_ms_by_shape=by_shape[1],
+        device_ms_with_dwh=r["dms"][2])
     for name in ("lstm_scan_uni_fwd", "lstm_scan_uni_bwd"):
         print(f"{name} [T=197,G=1,B=128,H=256] device {report[name]['device_ms']:.4f} ms  bound "
               f"{report[name]['bound'][0]:.5f} ms ({report[name]['bound'][1]})")
@@ -2517,6 +2685,43 @@ def phase_core_route(dev):
             fail("core route", f"{label}: family {family}, ctx err {err}, gradients {rel}")
 
 
+def phase_lstm_step_route(dev):
+    """The per-step LSTM kernels (``kernels.lstm_family`` "step") at H = 512,
+    forward and backward, against the plain twins: G = 2 and G = 1 (a
+    nonzero h0/c0), T = 50, B = 20, ragged with a 0-length row."""
+    import torch
+
+    from avsr_tpu_torch import kernels
+    from avsr_tpu_torch.ops import rnn
+
+    bf = torch.bfloat16
+    T, B, H = 50, 20, 512
+    for G in (2, 1):
+        args = k1_inputs(T, 2, B, H, dev, seed=H) if G == 2 else k2_inputs(T, B, H, dev, seed=H)
+        family = kernels.lstm_family(G, B, H)
+        out_k = rnn.bilstm_scan_core(*args, bf)
+        out_p = rnn.bilstm_scan_core_plain(*args, bf)
+        _, (h_res, c_res) = rnn.scan_core_fwd(*args, bf, save=True)
+        g = torch.Generator().manual_seed(G)
+        cot = [torch.randn((T, G, B, H), generator=g).to(bf).to(dev),
+               torch.randn((G, B, H), generator=g).to(dev),
+               torch.randn((G, B, H), generator=g).to(dev)]
+        bargs = [*args[:4], h_res, c_res, *cot, bf]
+        g_k = rnn.scan_core_bwd(*bargs)
+        g_p = rnn.bilstm_scan_core_bwd_plain(*bargs)
+        torch.cuda.synchronize()
+        e = max(max_err(a, b_) for a, b_ in zip(out_k, out_p))
+        ge = max(rel_err(a, b_) for a, b_ in zip(g_k, g_p))
+        kept = (lstm_kept(*out_k, args[4], args[5])
+                and lstm_passed(g_k[2], g_k[3], g_k[4], cot[1], cot[2]))
+        print(f"LSTM step route [T={T},G={G},B={B},H={H}]: family {family}; fwd max abs err {e} "
+              f"(tol {K1_TOL}); bwd relative to max |plain| {ge} (tol {K1B_REL_TOL}); the "
+              f"0-length row kept its state: {kept}")
+        if not (family == "step" and all(torch.isfinite(x.float()).all() for x in (*out_k, *g_k))
+                and e <= K1_TOL and ge <= K1B_REL_TOL and kept):
+            fail("LSTM step route", f"G={G}: family {family}, fwd {e}, bwd {ge}, kept {kept}")
+
+
 def main() -> int:
     import torch
 
@@ -2609,7 +2814,8 @@ def main() -> int:
                        dev, ul_cfg, *greedy_runs.pop("greedy_uni_luong"), "greedy_uni_luong")),
                    (34, lambda: paths.update(train_uni_luong=phase_train(
                        dev, card, ul_cfg, "train_uni_luong", TRAIN_UL_KERNELS))),
-                   (35, lambda: phase_core_route(dev))):
+                   (35, lambda: phase_core_route(dev)),
+                   (36, lambda: phase_lstm_step_route(dev))):
         t0 = time.perf_counter()
         run()
         print(f"phase {n}: {time.perf_counter() - t0:.1f} s")

@@ -6,12 +6,16 @@
 Each run is a process of its own started in one checkout (``--trees``, A
 first): it builds that checkout's kernels, makes the train cell of its
 ``chip_smoke.py`` for ``--preset`` (``fast``: ``lrs2_av_fast`` at constant
-lr 1e-4; ``v2``: ``lrs2_av_v2`` at constant lr 3e-5; both B=128, 6 s, label
-cap 80, noise mixing on), times ``--steps`` train steps on the host clock
-to a synchronise, reads the peak device memory, and profiles three more
-steps: the device's busy time per step and the device time per step of the
-attention kernels by name, told apart by their mask and family (``k11``:
-the whole-row kernels under the length mask, the encoder self attention;
+lr 1e-4; ``v2``: ``lrs2_av_v2`` at constant lr 3e-5; ``align``:
+``lrs2_av_align`` (``configs.lrs2_full``) at 1e-4; ``uni_luong``: chip_smoke's
+``uni_luong_cfg`` (``lrs2_av_align_uni_luong``) at 1e-4; all B=128, 6 s,
+label cap 80, noise mixing on), times ``--steps`` train steps on the host
+clock to a synchronise, reads the peak device memory, and profiles three
+more steps: the device's busy time and event count per step and the device
+time per step of the kernels by name: the LSTM scan (``lstm``: K1 and K2,
+every kernel whose name holds ``lstm``, with its event count) and the
+attention kernels, told apart by their mask and family (``k11``: the
+whole-row kernels under the length mask, the encoder self attention;
 ``k4``: the streamed ones under the length mask, the fusion core; ``k5``:
 every other attention kernel, the decoder's teacher-forced attention under
 its causal and bias masks, on either family).  The runs go in ``--order``
@@ -35,8 +39,8 @@ import collections, json, statistics, sys, time
 sys.path.insert(0, ".")
 import torch
 import chip_smoke as cs
-from avsr_tpu_torch import kernels
-from avsr_tpu_torch.configs import NoiseConfig, lrs2_av_fast, lrs2_av_v2
+from avsr_tpu_torch import configs, kernels
+from avsr_tpu_torch.configs import NoiseConfig
 from avsr_tpu_torch.data.units import builtin_unit_dict
 from avsr_tpu_torch.train import step as tstep
 import dataclasses
@@ -70,6 +74,8 @@ def three():
 ev, span = cs.device_events(three)
 busy, share = cs.busy_share(ev, span)
 def kind(name):
+    if "lstm" in name:
+        return "lstm"
     if "attn_" not in name:
         return "other"
     if "LengthMask" in name:
@@ -77,16 +83,20 @@ def kind(name):
     return "k5"
 
 by = collections.defaultdict(float)
+count = collections.Counter()
 for s, e, name in ev:
     by[kind(name)] += e - s
+    count[kind(name)] += 1
 print(json.dumps({"step_ms": times, "peak_gib": peak / 2**30, "busy_ms_per_step": busy / 3e3,
                   "busy_share": share, "events_per_step": len(ev) / 3,
-                  **{f"{k}_ms_per_step": by[k] / 3e3 for k in ("k11", "k4", "k5")}}))
+                  "lstm_events_per_step": count["lstm"] / 3,
+                  **{f"{k}_ms_per_step": by[k] / 3e3 for k in ("lstm", "k11", "k4", "k5")}}))
 """
 
 
 # --preset: the config function and the constant learning rate of its train cell
-PRESETS = {"fast": ("lrs2_av_fast", "1e-4"), "v2": ("lrs2_av_v2", "3e-5")}
+PRESETS = {"fast": ("configs.lrs2_av_fast", "1e-4"), "v2": ("configs.lrs2_av_v2", "3e-5"),
+           "align": ("configs.lrs2_full", "1e-4"), "uni_luong": ("cs.uni_luong_cfg", "1e-4")}
 
 
 def main() -> int:
@@ -116,9 +126,10 @@ def main() -> int:
         print(f"{which} ({tree}): median {r['median_ms']:.3f} ms per step (quartiles "
               f"{r['quartiles_ms'][0]:.3f}-{r['quartiles_ms'][2]:.3f}), peak "
               f"{r['peak_gib']:.3f} GiB, device busy {r['busy_ms_per_step']:.3f} ms per step "
-              f"(share {r['busy_share']:.3f}, {r['events_per_step']:.1f} events), attention "
-              f"kernels per step: K11 {r['k11_ms_per_step']:.3f} ms, K4 "
-              f"{r['k4_ms_per_step']:.3f} ms, K5 {r['k5_ms_per_step']:.3f} ms", flush=True)
+              f"(share {r['busy_share']:.3f}, {r['events_per_step']:.1f} events), per step: "
+              f"LSTM scan {r['lstm_ms_per_step']:.3f} ms ({r['lstm_events_per_step']:.1f} "
+              f"events), K11 {r['k11_ms_per_step']:.3f} ms, K4 {r['k4_ms_per_step']:.3f} ms, K5 "
+              f"{r['k5_ms_per_step']:.3f} ms", flush=True)
         runs.append(r)
     print(json.dumps({"card": card, "preset": args.preset, "runs": runs}))
     return 0
