@@ -38,6 +38,7 @@
 // backward's residuals (~103 MB at T = 197, B = 128).  The backward is
 // described further down, above its kernels.
 
+#include "av_align_bwd.cuh"
 #include "bahdanau_core.cuh"
 
 namespace {
@@ -268,275 +269,35 @@ size_t gate_smem_bytes(int H, int Dc) {
 // T-1 down to 0, with m = mask[t, b]:
 //
 //   dctx' = m * (dctx_out + dctxs[t])                 (the read's cotangent)
-//   read backward (bahdanau::read_bwd, skipped when m == 0: its cotangent
-//   is 0) -> dquery, dkeys / dvalues += , dq[t], dv_acc +=
+//   read backward (skipped when m == 0: its cotangent is 0) -> dquery, dq[t],
+//   dsc[t] (the scores' cotangent)
 //   dh' = m * (dh_out + dhs[t]) + dquery
 //   the LSTM cell backward on the recomputed gates -> dgates = dxw[t] (fp32,
-//   as xw is), db_acc +=, dc <- dc' * f + (1 - m) * dc_out
+//   as xw is), db +=, dc <- dc' * f + (1 - m) * dc_out
 //   dh_out(t-1)   = bf16(dgates @ Wh^T)       + (1 - m) * dh_out
 //   dctx_out(t-1) = bf16(dgates @ ctx_proj^T) + (1 - m) * dctx_out
 //
-// (the bf16 roundings are the transposes of the reference's casts).  dWh,
-// dctx_proj, dwq and dv are single fp32 products after the scan, over the
-// saved carries, dxw, dq, the recomputed queries and dv_acc (left to the
-// caller, as K1 leaves dWh).
+// (the bf16 roundings are the transposes of the reference's casts).  The
+// memory's gradients dkeys and dvalues are sums over t of terms formed from
+// dsc[t], dctx'[t] and q[t] (av_align_bwd.cuh), taken after the scan.
+// dWh, dctx_proj, dwq and dv are single fp32 products after the scan, over
+// the saved carries, dxw, dq, the recomputed queries and dv's rows (left to
+// the caller, as K1 leaves dWh).
 //
-// What bounds it on an H100: as the forward, the sequential steps'
-// latency.  Design: (0) one regate launch recomputes every step's gates and
-// h' from the saved carries in parallel over time (the gate launch's
-// arithmetic and tiled weights, so h' has the forward's bits), into fp32
-// act [T, B, 4H] and hnew [T, B, H]; then per step (1) a row launch, a block
-// per batch row: the read backward and the pointwise cell backward of the
-// row's H units; (2) a product launch (before the row launch of the step
-// below) forming dh_out and dctx_out from the step's fp32 dgates against
-// rows of [Wh ; ctx_proj], pre-tiled as K1's backward tiles Wh (a block:
-// 16 rows x 16 of the H + Dv output columns, the rows' dgates staged in
-// shared memory).  The launch boundary is the only synchronisation; each
-// buffer element has one writer per launch: no atomics, the same bits every
-// run.
+// Launches (av_align_bwd.cuh has the design): (1) the regate recomputes
+// every step's gates and h' from the saved carries in parallel over time,
+// into fp32 act [T, B, 4H] and hnew [T, B, H]; (2) the query launch, q from
+// hnew; (3) the recurrence, one launch of thread-block clusters walking all
+// T steps; (4) the sums after the scan (two launches).
 // ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(GTHREADS)
-align_regate_kernel(const __nv_bfloat16* __restrict__ wh_tiled,  // [H/UT, H, UT, 4]
-                    const __nv_bfloat16* __restrict__ cp_tiled,  // [H/UT, Dc, UT, 4] or null
-                    const float* __restrict__ bias,              // [4H]
-                    const float* __restrict__ xw,                // [T, B, 4H]
-                    const float* __restrict__ h_res,             // [T, B, H]
-                    const float* __restrict__ c_res,             // [T, B, H]
-                    const float* __restrict__ ctx_res,           // [T, B, Dc]
-                    float* __restrict__ act,                     // [T, B, 4H] i, f, g, o
-                    float* __restrict__ hnew,                    // [T, B, H]
-                    int T, int B, int H, int Dc, int t_per_block) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* wh_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* cp_s = wh_s + (size_t)H * UT * 4;
-  __nv_bfloat16* h_s = cp_s + (size_t)Dc * UT * 4;
-  __nv_bfloat16* x_s = h_s + (size_t)BT * H;
-
-  const int tile = blockIdx.x;
-  const int row0 = blockIdx.y * BT;
-  const int tid = threadIdx.x;
-  const int r = tid / UT;
-  const int u = tid - r * UT;
-  const int row = row0 + r;
-  const int unit = tile * UT + u;
-  const bool live = row < B;
-  const size_t bh = (size_t)B * H;
-
-  stage_copy(reinterpret_cast<uint4*>(wh_s),
-             reinterpret_cast<const uint4*>(wh_tiled + (size_t)tile * H * UT * 4),
-             H * UT * 4 / 8, tid);
-  if (Dc > 0)
-    stage_copy(reinterpret_cast<uint4*>(cp_s),
-               reinterpret_cast<const uint4*>(cp_tiled + (size_t)tile * Dc * UT * 4),
-               Dc * UT * 4 / 8, tid);
-  float bq[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) bq[q] = bias[q * H + unit];
-
-  const int t0 = blockIdx.z * t_per_block;
-  const int t1 = min(T, t0 + t_per_block);
-  for (int t = t0; t < t1; ++t) {
-    __syncthreads();  // the previous step's rows are consumed
-    const size_t s = (size_t)t * bh + (size_t)(live ? row : 0) * H + unit;
-    float xg[4] = {0.f, 0.f, 0.f, 0.f}, c_prev = 0.f;
-    if (live) {
-      const float* x = xw + ((size_t)t * B + row) * 4 * H;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) xg[q] = x[q * H + unit];
-      c_prev = c_res[s];
-    }
-    stage_rows(h_s, h_res + (size_t)t * bh, row0, B, H, tid);
-    if (Dc > 0) stage_rows(x_s, ctx_res + (size_t)t * B * Dc, row0, B, Dc, tid);
-    __syncthreads();
-    float ac[4] = {0.f, 0.f, 0.f, 0.f}, ah[4] = {0.f, 0.f, 0.f, 0.f};
-    if (Dc > 0) gate_product(x_s + (size_t)r * Dc, cp_s, u, Dc, ac);
-    gate_product(h_s + (size_t)r * H, wh_s, u, H, ah);
-    if (!live) continue;
-    float gt[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) gt[q] = ((xg[q] + ac[q]) + ah[q]) + bq[q];
-    const float i = sigmoidf_(gt[0]);
-    const float f = sigmoidf_(gt[1]);
-    const float g = tanhf(gt[2]);
-    const float o = sigmoidf_(gt[3]);
-    float* a = act + ((size_t)t * B + row) * 4 * H;
-    a[unit] = i;
-    a[H + unit] = f;
-    a[2 * H + unit] = g;
-    a[3 * H + unit] = o;
-    hnew[s] = o * tanhf(f * c_prev + i * g);
-  }
-}
-
-// dh_out / dctx_out of the step below from this step's dgates: a block owns
-// BT rows x UT of the H + Dv output columns; columns < H + Dc take the
-// product against rows of [Wh ; ctx_proj] (w_all_t [(H+Dc)/UT, H, UT, 4]:
-// [t, kq, u, j] = W[t*UT + u, 4*kq + j]), the rest (no input feeding) only
-// the masked carry term.
-__global__ void __launch_bounds__(GTHREADS)
-align_bwd_product_kernel(const __nv_bfloat16* __restrict__ w_all_t,
-                         const float* __restrict__ dg,      // [B, 4H] this step's dgates
-                         const float* __restrict__ mask_t,  // [B] this step's mask
-                         float* __restrict__ dh,            // [B, H] in/out
-                         float* __restrict__ dctx,          // [B, Dv] in/out
-                         int B, int H, int Dc, int Dv) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [H][UT][4]
-  float* dg_s = reinterpret_cast<float*>(w_s + (size_t)H * UT * 4);  // [BT][4H]
-
-  const int tile = blockIdx.x;
-  const int row0 = blockIdx.y * BT;
-  const int tid = threadIdx.x;
-  const int r = tid / UT;
-  const int u = tid - r * UT;
-  const int row = row0 + r;
-  const int col = tile * UT + u;
-  const bool product = tile * UT < H + Dc;  // uniform over the block
-
-  float old = 0.f, m = 0.f;
-  if (row < B) {
-    m = mask_t[row];
-    old = col < H ? dh[(size_t)row * H + col] : dctx[(size_t)row * Dv + col - H];
-  }
-  float acc = 0.f;
-  if (product) {
-    stage_copy(reinterpret_cast<uint4*>(w_s),
-               reinterpret_cast<const uint4*>(w_all_t + (size_t)tile * H * UT * 4),
-               H * UT * 4 / 8, tid);
-    const int nrows = min(BT, B - row0);
-    const int chunks = BT * H;  // float4s of the rows' dgates
-    float4* d4 = reinterpret_cast<float4*>(dg_s);
-    const float4* s4 = reinterpret_cast<const float4*>(dg + (size_t)row0 * 4 * H);
-    for (int c0 = tid; c0 < chunks; c0 += VEC * GTHREADS) {
-      float4 v[VEC];
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        const int ci = c0 + j * GTHREADS;
-        v[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (ci < nrows * H) v[j] = s4[ci];
-      }
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        const int ci = c0 + j * GTHREADS;
-        if (ci < chunks) d4[ci] = v[j];
-      }
-    }
-    __syncthreads();
-    const float4* dr = reinterpret_cast<const float4*>(dg_s) + (size_t)r * H;
-    const uint2* wu = reinterpret_cast<const uint2*>(w_s) + u;
-    float a0 = 0.f, a1 = 0.f;
-#pragma unroll 4
-    for (int kq = 0; kq < H; ++kq) {
-      const float4 d = dr[kq];
-      const uint2 w = wu[kq * UT];
-      a0 = fmaf(d.x, bahdanau::bf_lo(w.x), a0);
-      a1 = fmaf(d.y, bahdanau::bf_hi(w.x), a1);
-      a0 = fmaf(d.z, bahdanau::bf_lo(w.y), a0);
-      a1 = fmaf(d.w, bahdanau::bf_hi(w.y), a1);
-    }
-    acc = bahdanau::bf_round(a0 + a1);
-  }
-  if (row >= B) return;
-  const float x = acc + (1.0f - m) * old;
-  if (col < H)
-    dh[(size_t)row * H + col] = x;
-  else
-    dctx[(size_t)row * Dv + col - H] = x;
-}
-
-struct AlignDctx {
-  const float* dctx;   // this row's dctx_out [Dv]
-  const float* dctxs;  // this row's [Dv] slice of dctxs[t]
-  float m;
-  __device__ float operator()(int d) const { return m * (dctx[d] + dctxs[d]); }
-};
-
-// One step's row launch: the read backward and the cell backward of row b.
-template <bool DOT>
-__global__ void __launch_bounds__(bahdanau::THREADS)
-align_bwd_row_kernel_t(const __nv_bfloat16* __restrict__ wq,      // [H, A]
-                       const __nv_bfloat16* __restrict__ vatt,    // [A] or null (dot)
-                       const void* __restrict__ keys_in,          // [B, S, A] Key<DOT>
-                       const __nv_bfloat16* __restrict__ values,  // [B, S, Dv]
-                       const float* __restrict__ aligns_t,        // [B, S]
-                       const float* __restrict__ hnew_t,          // [B, H]
-                       const float* __restrict__ mask_t,          // [B]
-                       const float* __restrict__ act_t,           // [B, 4H]
-                       const float* __restrict__ c_res_t,         // [B, H]
-                       const float* __restrict__ dhs_t,           // [B, H]
-                       const float* __restrict__ dctxs_t,         // [B, Dv]
-                       const float* __restrict__ dh,              // [B, H] dh_out
-                       const float* __restrict__ dctx,            // [B, Dv] dctx_out
-                       float* __restrict__ dc,                    // [B, H] in/out
-                       float* __restrict__ dxw_t,                 // [B, 4H]
-                       float* __restrict__ dq_t,                  // [B, A]
-                       float* __restrict__ dv_acc,                // [B, A] += or null (dot)
-                       float* __restrict__ db_acc,                // [B, 4H] +=
-                       float* __restrict__ dkeys,                 // [B, S, A] +=
-                       float* __restrict__ dvalues,               // [B, S, Dv] +=
-                       int H, int A, int S, int Dv) {
-  extern __shared__ __align__(16) float fsmem[];
-  const auto* keys = static_cast<const typename Key<DOT>::type*>(keys_in);
-  float* dquery = fsmem + bahdanau::read_bwd_smem_floats(H, A, S, Dv);  // [H]
-  const size_t b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const float m = mask_t[b];
-  if (m != 0.f) {
-    bahdanau::read_bwd<DOT>(hnew_t + b * H, wq, vatt, keys + b * S * A, values + b * S * Dv,
-                            aligns_t + b * S, AlignDctx{dctx + b * Dv, dctxs_t + b * Dv, m}, H,
-                            A, S, Dv, fsmem, dkeys + b * S * A, dvalues + b * S * Dv,
-                            dq_t + b * A, DOT ? nullptr : dv_acc + b * A, dquery);
-  } else {  // a masked step: the read takes a zero cotangent
-    for (int a = tid; a < A; a += bahdanau::THREADS) dq_t[b * A + a] = 0.f;
-    for (int k = tid; k < H; k += bahdanau::THREADS) dquery[k] = 0.f;
-  }
-  __syncthreads();
-  const float* a4 = act_t + b * 4 * H;
-  float* dx = dxw_t + b * 4 * H;
-  float* dbr = db_acc + b * 4 * H;
-  for (int u = tid; u < H; u += bahdanau::THREADS) {
-    const size_t s = b * H + u;
-    const float i = a4[u], f = a4[H + u], g = a4[2 * H + u], o = a4[3 * H + u];
-    const float c_prev = c_res_t[s];
-    const float tc = tanhf(f * c_prev + i * g);
-    const float dh_new = m * (dh[s] + dhs_t[s]) + dquery[u];
-    const float dco = dc[s];
-    const float dc_new = m * dco + dh_new * o * (1.0f - tc * tc);
-    const float dgi = dc_new * g * i * (1.0f - i);
-    const float dgf = dc_new * c_prev * f * (1.0f - f);
-    const float dgg = dc_new * i * (1.0f - g * g);
-    const float dgo = dh_new * tc * o * (1.0f - o);
-    dc[s] = dc_new * f + (1.0f - m) * dco;
-    dx[u] = dgi;
-    dx[H + u] = dgf;
-    dx[2 * H + u] = dgg;
-    dx[3 * H + u] = dgo;
-    dbr[u] += dgi;
-    dbr[H + u] += dgf;
-    dbr[2 * H + u] += dgg;
-    dbr[3 * H + u] += dgo;
-  }
-}
-
-size_t product_smem_bytes(int H) {
-  return (size_t)H * UT * 4 * sizeof(__nv_bfloat16) + (size_t)BT * 4 * H * sizeof(float);
-}
-
-size_t row_smem_bytes(int H, int A, int S, int Dv) {
-  return (bahdanau::read_bwd_smem_floats(H, A, S, Dv) + H) * sizeof(float);
-}
 
 }  // namespace
 
-// Shared memory per block of the largest launch of the forward and the
-// backward, in bytes.
+// Shared memory per block of the forward's largest launch, in bytes.
 extern "C" long long avsr_av_align_smem(int H, int Dc, int A, int S, int Dv) {
-  size_t m = gate_smem_bytes(H, Dc);
-  const size_t more[3] = {bahdanau::read_smem_bytes(H, A, S), product_smem_bytes(H),
-                          row_smem_bytes(H, A, S, Dv)};
-  for (size_t x : more) m = x > m ? x : m;
-  return (long long)m;
+  (void)Dv;
+  const size_t g = gate_smem_bytes(H, Dc), r = bahdanau::read_smem_bytes(H, A, S);
+  return (long long)(g > r ? g : r);
 }
 
 // wh_tiled [H/UT, H, UT, 4] and cp_tiled [H/UT, Dc, UT, 4] bf16 (cp_tiled
@@ -611,87 +372,156 @@ extern "C" int avsr_av_align_scan(const void* wh_tiled, const void* cp_tiled, co
   return (int)cudaGetLastError();
 }
 
-// Backward.  wh_tiled / cp_tiled as the forward's; w_all_t [(H+Dc)/UT, H,
-// UT, 4] bf16, [Wh ; ctx_proj] tiled for the carries' products; bias [4H];
-// xw [T, B, 4H], mask [T, B]; wq [H, A], vatt [A] bf16 (null when dot);
-// keys [B, S, A] fp32 (bf16 when dot), values [B, S, Dv] bf16; aligns
-// [T, B, S] (the forward's); the saved
-// carries h_res / c_res [T, B, H], ctx_res [T, B, Dv] (used only with input
-// feeding, Dc = Dv); the cotangents dhs [T, B, H], dctxs [T, B, Dv]; dh /
-// dc [B, H] and dctx [B, Dv] hold dhT, dcT, dctxT on entry (all fp32).
-// Scratch: act [T, B, 4H], hnew [T, B, H] (written: the recomputed queries,
-// a factor of dwq).  Outputs: dxw [T, B, 4H], dq [T, B, A]; dv_acc [B, A]
-// (null when dot), db_acc [B, 4H], dkeys [B, S, A] and dvalues [B, S, Dv]
-// accumulated into zeroed buffers.
-extern "C" int avsr_av_align_scan_bwd(
-    const void* wh_tiled, const void* cp_tiled, const void* w_all_t, const void* bias,
-    const void* xw, const void* mask, const void* wq, const void* vatt, const void* keys,
-    const void* values, const void* aligns, const void* h_res, const void* c_res,
-    const void* ctx_res, const void* dhs, const void* dctxs, void* dh, void* dc, void* dctx,
-    void* act, void* hnew, void* dxw, void* dq, void* dv_acc, void* db_acc, void* dkeys,
-    void* dvalues, int T, int B, int H, int Dc, int A, int S, int Dv, int dot, void* stream) {
-  if (T < 1 || B < 1 || S < 1 || H % UT || H % 4 || Dc % UT || Dv % UT ||
-      (Dc > 0 && (cp_tiled == nullptr || Dc != Dv)) || A % 8 || A > 512 || Dv % 8 ||
-      Dv > 2048 || (!dot && (vatt == nullptr || dv_acc == nullptr)))
+// Backward, five launches on the caller's stream from three entry points,
+// called in order by the wrapper: avsr_av_align_bwd_prep (the regate and the
+// query launch),
+// avsr_av_align_bwd_scan (the recurrence), avsr_av_align_bwd_sums (the
+// memory's gradients).  Shapes the recurrence takes: H a multiple of 64 (of
+// 128 for the Luong read) up to 512, Dc = 0 or Dv, H + Dc a multiple of 128
+// up to 1024, Dv a multiple of 64 up to 2048, A a multiple of 64 up to 512,
+// S >= 1 (the wrapper caps it), and its shared memory within the card's.
+namespace {
+
+constexpr size_t BWD_SMEM_LIMIT = 232448;  // bytes a block may use on an H100
+
+bool bwd_shape_ok(int H, int Dc, int A, int S, int Dv, int rpc, int dot) {
+  return (rpc == 1 || rpc == 2) && H % (dot ? 128 : 64) == 0 && H <= 512 &&
+         (Dc == 0 || Dc == Dv) &&
+         (H + Dc) % (8 * align_bwd::C) == 0 && H + Dc <= 64 * align_bwd::C &&
+         Dv % 64 == 0 && Dv <= 2048 && A % 64 == 0 && A <= 512 && S >= 1 &&
+         align_bwd::Layout(H, Dc, A, S, Dv, rpc, false, dot != 0).total <= BWD_SMEM_LIMIT;
+}
+
+}  // namespace
+
+// The recurrence's shared memory per CTA in bytes at rpc rows per CTA (1 or
+// 2; Bahdanau's wq staged where it fits), or -1 for a shape it does not take.
+extern "C" long long avsr_av_align_bwd_smem(int H, int Dc, int A, int S, int Dv, int dot,
+                                            int rpc) {
+  if (!bwd_shape_ok(H, Dc, A, S, Dv, rpc, dot)) return -1;
+  const bool wq = align_bwd::stage_wq(H, Dc, A, S, Dv, rpc, dot != 0, BWD_SMEM_LIMIT);
+  return (long long)align_bwd::Layout(H, Dc, A, S, Dv, rpc, wq, dot != 0).total;
+}
+
+// The recurrence's clusters that can be resident at once (0 on an error).
+extern "C" int avsr_av_align_bwd_max_active(int H, int Dc, int A, int S, int Dv, int dot,
+                                            int rpc) {
+  if (!bwd_shape_ok(H, Dc, A, S, Dv, rpc, dot)) return 0;
+  return dot ? align_bwd::max_active<true>(H, Dc, A, S, Dv, rpc, BWD_SMEM_LIMIT)
+             : align_bwd::max_active<false>(H, Dc, A, S, Dv, rpc, BWD_SMEM_LIMIT);
+}
+
+// (1) and (2).  w_all [H + Dc, 4H] bf16, the rows of [Wh ; ctx_proj]; bias
+// [4H]; xw [T, B, 4H]; the saved carries h_res / c_res [T, B, H], ctx_res
+// [T, B, Dc] (unused when Dc = 0); wq [H, A] bf16 -> act [T, B, 4H] (i, f,
+// g, o), hnew [T, B, H] (the recomputed queries) and q [T, B, A] =
+// bf16(hnew) @ wq (rounded to bf16 when dot), fp32.
+extern "C" int avsr_av_align_bwd_prep(const void* w_all, const void* bias, const void* xw,
+                                      const void* h_res, const void* c_res, const void* ctx_res,
+                                      const void* wq, void* act, void* hnew, void* q, int T,
+                                      int B, int H, int Dc, int A, int dot, void* stream) {
+  if (T < 1 || B < 1 || H % 64 || H > 512 || Dc % 64 || A % 64 || A > 512)
     return (int)cudaErrorInvalidValue;
-  const size_t smem_g = gate_smem_bytes(H, Dc);
-  const size_t smem_p = product_smem_bytes(H);
-  const size_t smem_r = row_smem_bytes(H, A, S, Dv);
-  auto* const align_bwd_row_kernel =
-      dot ? &align_bwd_row_kernel_t<true> : &align_bwd_row_kernel_t<false>;
-  cudaError_t e;
-  const void* fns[3] = {reinterpret_cast<const void*>(align_regate_kernel),
-                        reinterpret_cast<const void*>(align_bwd_product_kernel),
-                        reinterpret_cast<const void*>(align_bwd_row_kernel)};
-  const size_t sizes[3] = {smem_g, smem_p, smem_r};
-  for (int k = 0; k < 3; ++k) {
-    if (sizes[k] <= 48 * 1024) continue;
-    e = cudaFuncSetAttribute(fns[k], cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sizes[k]);
-    if (e != cudaSuccess) return (int)e;
-  }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int row_tiles = (B + BT - 1) / BT;
-  // regate: enough blocks to fill the card, each staging its weights once
-  const int t_per_block = 8;
-  const dim3 rgrid(H / UT, row_tiles, (T + t_per_block - 1) / t_per_block);
-  align_regate_kernel<<<rgrid, GTHREADS, smem_g, st>>>(
-      static_cast<const __nv_bfloat16*>(wh_tiled), static_cast<const __nv_bfloat16*>(cp_tiled),
-      static_cast<const float*>(bias), static_cast<const float*>(xw),
-      static_cast<const float*>(h_res), static_cast<const float*>(c_res),
-      static_cast<const float*>(ctx_res), static_cast<float*>(act), static_cast<float*>(hnew), T,
-      B, H, Dc, t_per_block);
-  e = cudaGetLastError();
+  const int R = T * B;
+  align_bwd::align_regate_mma<<<dim3(H / 16, (R + 63) / 64), 128, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(w_all), static_cast<const float*>(bias),
+      static_cast<const float*>(xw), static_cast<const float*>(h_res),
+      static_cast<const float*>(c_res), static_cast<const float*>(ctx_res),
+      static_cast<float*>(act), static_cast<float*>(hnew), R, H, Dc);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const dim3 pgrid((H + Dv) / UT, row_tiles);
-  const size_t bh = (size_t)B * H, b4h = 4 * bh, bd = (size_t)B * Dv, bs = (size_t)B * S;
-  const size_t ba = (size_t)B * A;
-  const float* mask_p = static_cast<const float*>(mask);
-  float* dxw_p = static_cast<float*>(dxw);
-  for (int t = T - 1; t >= 0; --t) {
-    if (t + 1 < T) {
-      align_bwd_product_kernel<<<pgrid, GTHREADS, smem_p, st>>>(
-          static_cast<const __nv_bfloat16*>(w_all_t), dxw_p + (size_t)(t + 1) * b4h,
-          mask_p + (size_t)(t + 1) * B, static_cast<float*>(dh), static_cast<float*>(dctx), B, H,
-          Dc, Dv);
-      e = cudaGetLastError();
-      if (e != cudaSuccess) return (int)e;
-    }
-    align_bwd_row_kernel<<<B, bahdanau::THREADS, smem_r, st>>>(
-        static_cast<const __nv_bfloat16*>(wq), static_cast<const __nv_bfloat16*>(vatt), keys,
-        static_cast<const __nv_bfloat16*>(values),
-        static_cast<const float*>(aligns) + (size_t)t * bs,
-        static_cast<const float*>(hnew) + (size_t)t * bh, mask_p + (size_t)t * B,
-        static_cast<const float*>(act) + (size_t)t * b4h,
-        static_cast<const float*>(c_res) + (size_t)t * bh,
-        static_cast<const float*>(dhs) + (size_t)t * bh,
-        static_cast<const float*>(dctxs) + (size_t)t * bd, static_cast<const float*>(dh),
-        static_cast<const float*>(dctx), static_cast<float*>(dc), dxw_p + (size_t)t * b4h,
-        static_cast<float*>(dq) + (size_t)t * ba, static_cast<float*>(dv_acc),
-        static_cast<float*>(db_acc), static_cast<float*>(dkeys), static_cast<float*>(dvalues), H,
-        A, S, Dv);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
+  const size_t smem_q = ((size_t)H * A + 64 * (size_t)H) * sizeof(__nv_bfloat16);
+  e = cudaFuncSetAttribute(align_bwd::align_query_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = (R + 63) / 64;
+  align_bwd::align_query_kernel<<<tiles < 264 ? tiles : 264, 128, smem_q, st>>>(
+      static_cast<const float*>(hnew), static_cast<const __nv_bfloat16*>(wq),
+      static_cast<float*>(q), R, H, A, dot);
+  return (int)cudaGetLastError();
+}
+
+// (3).  w_all [H + Dc, 4H] bf16, the rows of [Wh ; ctx_proj]; wq [H, A],
+// vatt [A] bf16 (null when dot); keys [B, S, A] fp32 (bf16 when dot),
+// values [B, S, Dv] bf16; aligns [T, B, S] (the forward's); q, act from
+// prep; c_res [T, B, H], mask [T, B], the cotangents dhs [T, B, H], dctxs
+// [T, B, Dv], dhT / dcT [B, H], dctxT [B, Dv] (all fp32) -> dxw [T, B, 4H],
+// dq [T, B, A], dsc [T, B, S], dctxp [T, B, Dv] (dctx'), db_rows [B, 4H],
+// fp32, every element written; rpc rows per CTA (1 or 2).
+extern "C" int avsr_av_align_bwd_scan(const void* w_all, const void* wq, const void* vatt,
+                                      const void* keys, const void* values, const void* aligns,
+                                      const void* q, const void* act, const void* c_res,
+                                      const void* mask, const void* dhs, const void* dctxs,
+                                      const void* dhT, const void* dcT, const void* dctxT,
+                                      void* dxw, void* dq, void* dsc, void* dctxp, void* db_rows,
+                                      int T, int B, int H, int Dc, int A, int S, int Dv, int dot,
+                                      int rpc, void* stream) {
+  if (T < 1 || B < 1 || !bwd_shape_ok(H, Dc, A, S, Dv, rpc, dot) || (!dot && vatt == nullptr))
+    return (int)cudaErrorInvalidValue;
+  using bf = __nv_bfloat16;
+  align_bwd::ScanArgs a;
+  a.w_all = static_cast<const bf*>(w_all);
+  a.wq = static_cast<const bf*>(wq);
+  a.vatt = static_cast<const bf*>(vatt);
+  a.keys = keys;
+  a.values = static_cast<const bf*>(values);
+  a.aligns = static_cast<const float*>(aligns);
+  a.q = static_cast<const float*>(q);
+  a.act = static_cast<const float*>(act);
+  a.c_res = static_cast<const float*>(c_res);
+  a.mask = static_cast<const float*>(mask);
+  a.dhs = static_cast<const float*>(dhs);
+  a.dctxs = static_cast<const float*>(dctxs);
+  a.dhT = static_cast<const float*>(dhT);
+  a.dcT = static_cast<const float*>(dcT);
+  a.dctxT = static_cast<const float*>(dctxT);
+  a.dxw = static_cast<float*>(dxw);
+  a.dq = static_cast<float*>(dq);
+  a.dsc = static_cast<float*>(dsc);
+  a.dctxp = static_cast<float*>(dctxp);
+  a.db_rows = static_cast<float*>(db_rows);
+  a.T = T;
+  a.B = B;
+  a.H = H;
+  a.Dc = Dc;
+  a.A = A;
+  a.S = S;
+  a.Dv = Dv;
+  a.wq_smem = align_bwd::stage_wq(H, Dc, A, S, Dv, rpc, dot != 0, BWD_SMEM_LIMIT) ? 1 : 0;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  return (int)(dot ? align_bwd::scan<true>(a, rpc, st, BWD_SMEM_LIMIT)
+                   : align_bwd::scan<false>(a, rpc, st, BWD_SMEM_LIMIT));
+}
+
+// (4).  keys [B, S, A] fp32 and vatt [A] bf16 (Bahdanau; unused when dot);
+// aligns [T, B, S], q [T, B, A], dsc [T, B, S], dctxp [T, B, Dv] fp32 ->
+// dvalues [B, S, Dv], dkeys [B, S, A] and, for Bahdanau, dv_part [B,
+// ceil(S / 32), A] (null when dot), fp32, written.
+extern "C" int avsr_av_align_bwd_sums(const void* keys, const void* vatt, const void* aligns,
+                                      const void* q, const void* dsc, const void* dctxp,
+                                      void* dkeys, void* dvalues, void* dv_part, int T, int B,
+                                      int A, int S, int Dv, int dot, void* stream) {
+  if (T < 1 || B < 1 || S < 1 || Dv % 64 || A % 64 || (!dot && (vatt == nullptr ||
+                                                               dv_part == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int mt = (S + 63) / 64;
+  align_bwd::align_outer_sum<false><<<dim3(Dv / 64, mt, B), 128, 0, st>>>(
+      static_cast<const float*>(aligns), static_cast<const float*>(dctxp),
+      static_cast<float*>(dvalues), T, B, S, Dv);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  if (dot)
+    align_bwd::align_outer_sum<true><<<dim3(A / 64, mt, B), 128, 0, st>>>(
+        static_cast<const float*>(dsc), static_cast<const float*>(q), static_cast<float*>(dkeys),
+        T, B, S, A);
+  else
+    align_bwd::align_dkeys_energy<<<dim3((S + align_bwd::ES - 1) / align_bwd::ES, B,
+                                         (A + 127) / 128),
+                                    256, 0, st>>>(
+        static_cast<const float*>(keys), static_cast<const float*>(q),
+        static_cast<const float*>(dsc), static_cast<const __nv_bfloat16*>(vatt),
+        static_cast<float*>(dkeys), static_cast<float*>(dv_part), T, B, S, A);
   return (int)cudaGetLastError();
 }

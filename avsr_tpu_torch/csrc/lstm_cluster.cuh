@@ -84,6 +84,7 @@
 #pragma once
 
 #include "attention_mma.cuh"
+#include "cluster_ptx.cuh"
 
 namespace {
 namespace lstm_cl {
@@ -129,65 +130,16 @@ __device__ __forceinline__ float bf_lo(uint32_t v) { return __uint_as_float(v <<
 __device__ __forceinline__ float bf_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
 __device__ __forceinline__ float bf_at(uint32_t v, int j) { return j ? bf_hi(v) : bf_lo(v); }
 
-// ---- cluster PTX ----------------------------------------------------------
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-// the address in CTA `rank`'s shared memory of this CTA's shared address
-__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
-// st.async: a store into CTA `rank`'s shared memory (a mapa address) whose
-// bytes complete the transaction count of that CTA's mbarrier `bar` (a mapa
-// address too); the receiver's wait on the barrier sees the data.
-__device__ __forceinline__ void st_async_b32(uint32_t addr, uint32_t v, uint32_t bar) {
-  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
-               ::"r"(addr), "r"(v), "r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ void st_async_v2f32(uint32_t addr, float a, float b, uint32_t bar) {
-  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 "
-               "[%0], {%1, %2}, [%3];\n" ::"r"(addr), "f"(a), "f"(b), "r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t arrivals) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(arrivals)
-               : "memory");
-}
-// makes the barriers' initialisation visible to the cluster's st.async
-__device__ __forceinline__ void fence_mbar_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-// the local arrival of a phase, announcing the bytes the peers will send
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// until the phase of parity `parity` has completed (acquire at cluster scope:
-// the peers' st.async bytes are visible after it)
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-}
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
+using cluster_ptx::cluster_arrive;
+using cluster_ptx::cluster_rank;
+using cluster_ptx::cluster_wait;
+using cluster_ptx::fence_mbar_init;
+using cluster_ptx::map_rank;
+using cluster_ptx::mbar_expect;
+using cluster_ptx::mbar_init;
+using cluster_ptx::mbar_wait;
+using cluster_ptx::st_async_b32;
+using cluster_ptx::st_async_v2f32;
 
 // ---- shared pieces ----------------------------------------------------------
 

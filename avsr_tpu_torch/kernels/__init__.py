@@ -22,6 +22,7 @@ stream, raises on a nonzero CUDA status, and adds one to its entry of
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -197,8 +198,16 @@ def _load() -> ctypes.CDLL:
         lib.avsr_av_align_smem.restype = ctypes.c_longlong
         lib.avsr_av_align_scan.argtypes = [p] * 21 + [i] * 8 + [p]
         lib.avsr_av_align_scan.restype = i
-        lib.avsr_av_align_scan_bwd.argtypes = [p] * 27 + [i] * 8 + [p]
-        lib.avsr_av_align_scan_bwd.restype = i
+        lib.avsr_av_align_bwd_smem.argtypes = [i] * 7
+        lib.avsr_av_align_bwd_smem.restype = ctypes.c_longlong
+        lib.avsr_av_align_bwd_max_active.argtypes = [i] * 7
+        lib.avsr_av_align_bwd_max_active.restype = i
+        lib.avsr_av_align_bwd_prep.argtypes = [p] * 10 + [i] * 6 + [p]
+        lib.avsr_av_align_bwd_prep.restype = i
+        lib.avsr_av_align_bwd_scan.argtypes = [p] * 20 + [i] * 9 + [p]
+        lib.avsr_av_align_bwd_scan.restype = i
+        lib.avsr_av_align_bwd_sums.argtypes = [p] * 9 + [i] * 6 + [p]
+        lib.avsr_av_align_bwd_sums.restype = i
         lib.avsr_bahdanau_smem.argtypes = [i, i, i]
         lib.avsr_bahdanau_smem.restype = ctypes.c_longlong
         lib.avsr_bahdanau_attend.argtypes = [p] * 9 + [i] * 6 + [p]
@@ -828,6 +837,101 @@ def av_align_scan(wh, b, ctx_proj, wq, v, xw, mask, keys, values, mbias, mmask, 
     return hs, ctxs, aligns, hbuf[T % 2], c, ctxbuf[T % 2], res
 
 
+def av_align_bwd_info(H: int, Dc: int, A: int, S: int, Dv: int, dot: bool,
+                      rows_per_cta: int = 1) -> Dict[str, int]:
+    """K8 backward's recurrence at these widths (``csrc/av_align_bwd.cuh``)
+    with 1 or 2 batch rows per CTA: its shared memory per CTA in bytes (-1
+    for a shape it does not take) and the 16-CTA clusters that can be
+    resident at once."""
+    lib = _load()
+    return {"smem": int(lib.avsr_av_align_bwd_smem(H, Dc, A, S, Dv, int(dot), rows_per_cta)),
+            "max_active_clusters": _bwd_max_active(H, Dc, A, S, Dv, bool(dot), rows_per_cta)}
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_max_active(H: int, Dc: int, A: int, S: int, Dv: int, dot: bool, rpc: int) -> int:
+    return int(_load().avsr_av_align_bwd_max_active(H, Dc, A, S, Dv, int(dot), rpc))
+
+
+def av_align_bwd_rows_per_cta(B: int, H: int, Dc: int, A: int, S: int, Dv: int,
+                              dot: bool) -> int:
+    """Batch rows per CTA of K8 backward's recurrence: 1 while its 16-row
+    clusters of 16 CTAs all fit the card at once, else 2 (32-row clusters:
+    one wave of half as many, each CTA running its two rows' reads side by
+    side; at B = 128 the card holds 7 of the 8 clusters one row a CTA
+    needs).  Chosen by shape and occupancy alone."""
+    return 1 if -(-B // 16) <= _bwd_max_active(H, Dc, A, S, Dv, dot, 1) else 2
+
+
+def av_align_scan_bwd_stages(wh, b, ctx_proj, wq, v, xw, mask, keys, values, aligns, h_res,
+                             c_res, ctx_res, dhs, dctxs, dhT, dcT, dctxT, *,
+                             rows_per_cta: Optional[int] = None):
+    """K8 backward as its three stages over buffers allocated here (every
+    output and scratch with ``torch.empty``: each element is written):
+    ({"prep": the regate and the query launch, "scan": the recurrence,
+    "sums": dkeys and dvalues}, finish), where each stage launches on the
+    current stream and raises on a CUDA error, and ``finish()`` gives
+    ``av_align_scan_bwd``'s outputs once the three have run in order.  No
+    stage counts a launch (``av_align_scan_bwd`` does); run alone, a stage
+    times its part of the call.  Same operands and checks as
+    ``av_align_scan_bwd``; ``rows_per_cta`` (1 or 2) is the recurrence's
+    layout, by default ``av_align_bwd_rows_per_cta``'s."""
+    T, B, H, Dc, A, S, Dv, dev = _check_av_align(wh, b, ctx_proj, wq, v, xw, mask, keys, values)
+    f32 = torch.float32
+    _check("aligns", aligns, f32, (T, B, S), dev)
+    for name, x, shape in (("h_res", h_res, (T, B, H)), ("c_res", c_res, (T, B, H)),
+                           ("ctx_res", ctx_res, (T, B, Dv)), ("dhs", dhs, (T, B, H)),
+                           ("dctxs", dctxs, (T, B, Dv)), ("dhT", dhT, (B, H)),
+                           ("dcT", dcT, (B, H)), ("dctxT", dctxT, (B, Dv))):
+        _check(name, x, f32, shape, dev)
+    lib = _load()
+    dot = int(v is None)
+    if rows_per_cta is None:
+        rows_per_cta = av_align_bwd_rows_per_cta(B, H, Dc, A, S, Dv, bool(dot))
+    if lib.avsr_av_align_bwd_smem(H, Dc, A, S, Dv, dot, rows_per_cta) < 0:
+        raise ValueError(f"av_align scan backward: H={H}, Dc={Dc}, A={A}, Dv={Dv}, T_v={S}; the "
+                         f"recurrence takes H a multiple of 64 (Luong: of 128) up to 512, H + Dc "
+                         f"a multiple of 128 up to 1024, Dv and A multiples of 64 (up to 2048 "
+                         f"and 512)")
+    w_all = wh if ctx_proj is None else torch.cat([wh, ctx_proj], dim=0)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=f32, device=dev)
+
+    act, hnew, q = empty(T, B, 4 * H), empty(T, B, H), empty(T, B, A)
+    dxw, dq, dsc, dctxp, db_rows = (empty(T, B, 4 * H), empty(T, B, A), empty(T, B, S),
+                                    empty(T, B, Dv), empty(B, 4 * H))
+    dkeys, dvalues = empty(B, S, A), empty(B, S, Dv)
+    dv_part = None if dot else empty(B, -(-S // 32), A)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def prep():
+        _raise_on(lib.avsr_av_align_bwd_prep(
+            w_all.data_ptr(), b.data_ptr(), xw.data_ptr(), h_res.data_ptr(),
+            c_res.data_ptr(), ctx_res.data_ptr(), wq.data_ptr(), act.data_ptr(), hnew.data_ptr(),
+            q.data_ptr(), T, B, H, Dc, A, dot, stream), "av_align_scan_bwd prep launch")
+
+    def scan():
+        _raise_on(lib.avsr_av_align_bwd_scan(
+            w_all.data_ptr(), wq.data_ptr(), _ptr(v), keys.data_ptr(), values.data_ptr(),
+            aligns.data_ptr(), q.data_ptr(), act.data_ptr(), c_res.data_ptr(), mask.data_ptr(),
+            dhs.data_ptr(), dctxs.data_ptr(), dhT.data_ptr(), dcT.data_ptr(), dctxT.data_ptr(),
+            dxw.data_ptr(), dq.data_ptr(), dsc.data_ptr(), dctxp.data_ptr(), db_rows.data_ptr(),
+            T, B, H, Dc, A, S, Dv, dot, rows_per_cta, stream), "av_align_scan_bwd scan launch")
+
+    def sums():
+        _raise_on(lib.avsr_av_align_bwd_sums(
+            keys.data_ptr(), _ptr(v), aligns.data_ptr(), q.data_ptr(), dsc.data_ptr(),
+            dctxp.data_ptr(), dkeys.data_ptr(), dvalues.data_ptr(), _ptr(dv_part), T, B, A, S, Dv,
+            dot, stream), "av_align_scan_bwd sums launch")
+
+    def finish():
+        return (dxw, db_rows.sum(dim=0), dq, None if dv_part is None else dv_part.sum(dim=1),
+                dkeys, dvalues, hnew)
+
+    return {"prep": prep, "scan": scan, "sums": sums}, finish
+
+
 def av_align_scan_bwd(wh, b, ctx_proj, wq, v, xw, mask, keys, values, aligns, h_res, c_res,
                       ctx_res, dhs, dctxs, dhT, dcT, dctxT):
     """K8: the reverse scan of the fusion's gradient (CUDA); with ``v``
@@ -839,45 +943,19 @@ def av_align_scan_bwd(wh, b, ctx_proj, wq, v, xw, mask, keys, values, aligns, h_
     dctxs [T,B,Dv] and dhT, dcT [B,H], dctxT [B,Dv] (fp32) -> (dxw
     [T,B,4H], db [4H], dq [T,B,A], dv_rows [B,A] (None for Luong), dkeys
     [B,S,A], dvalues [B,S,Dv], hnew [T,B,H]), all fp32: dxw is dgates; dq,
-    dv_rows and hnew
-    (the recomputed queries) are the factors of dwq and dv, and dWh /
-    dctx_proj are products over h_res / ctx_res and dxw, left to the caller.
+    dv_rows and hnew (the recomputed queries) are the factors of dwq and dv,
+    and dWh / dctx_proj are products over h_res / ctx_res and dxw, left to
+    the caller.  Five launches (``csrc/av_align_bwd.cuh``): the regate, the
+    queries, the recurrence (one launch of thread-block clusters) and the
+    memory's two gradients, summed over the steps after the scan.
     """
-    T, B, H, Dc, A, S, Dv, dev = _check_av_align(wh, b, ctx_proj, wq, v, xw, mask, keys, values)
-    f32 = torch.float32
-    _check("aligns", aligns, f32, (T, B, S), dev)
-    for name, x, shape in (("h_res", h_res, (T, B, H)), ("c_res", c_res, (T, B, H)),
-                           ("ctx_res", ctx_res, (T, B, Dv)), ("dhs", dhs, (T, B, H)),
-                           ("dctxs", dctxs, (T, B, Dv)), ("dhT", dhT, (B, H)),
-                           ("dcT", dcT, (B, H)), ("dctxT", dctxT, (B, Dv))):
-        _check(name, x, f32, shape, dev)
-    lib = _load()
-    wh_tiled = tile_lstm_weights(wh[None])[0]
-    cp_tiled = None if ctx_proj is None else tile_lstm_weights(ctx_proj[None])[0]
-    w_all = wh if ctx_proj is None else torch.cat([wh, ctx_proj], dim=0)
-    # [H+Dc, 4H] -> [(H+Dc)/UT, H, UT, 4]: the layout of K1's dh product
-    w_all_t = w_all.view(-1, LSTM_UNIT_TILE, H, 4).permute(0, 2, 1, 3).contiguous()
-    dh, dc, dctx = dhT.clone(), dcT.clone(), dctxT.clone()
-    act = torch.empty((T, B, 4 * H), dtype=f32, device=dev)
-    hnew = torch.empty((T, B, H), dtype=f32, device=dev)
-    dxw = torch.empty((T, B, 4 * H), dtype=f32, device=dev)
-    dq = torch.empty((T, B, A), dtype=f32, device=dev)
-    dv_acc = None if v is None else torch.zeros((B, A), dtype=f32, device=dev)
-    db_acc = torch.zeros((B, 4 * H), dtype=f32, device=dev)
-    dkeys = torch.zeros((B, S, A), dtype=f32, device=dev)
-    dvalues = torch.zeros((B, S, Dv), dtype=f32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.avsr_av_align_scan_bwd(
-        wh_tiled.data_ptr(), None if cp_tiled is None else cp_tiled.data_ptr(),
-        w_all_t.data_ptr(), b.data_ptr(), xw.data_ptr(), mask.data_ptr(), wq.data_ptr(),
-        _ptr(v), keys.data_ptr(), values.data_ptr(), aligns.data_ptr(), h_res.data_ptr(),
-        c_res.data_ptr(), ctx_res.data_ptr(), dhs.data_ptr(), dctxs.data_ptr(), dh.data_ptr(),
-        dc.data_ptr(), dctx.data_ptr(), act.data_ptr(), hnew.data_ptr(), dxw.data_ptr(),
-        dq.data_ptr(), _ptr(dv_acc), db_acc.data_ptr(), dkeys.data_ptr(),
-        dvalues.data_ptr(), T, B, H, Dc, A, S, Dv, int(v is None), stream)
-    _raise_on(err, "av_align_scan_bwd launch")
+    stages, finish = av_align_scan_bwd_stages(wh, b, ctx_proj, wq, v, xw, mask, keys, values,
+                                              aligns, h_res, c_res, ctx_res, dhs, dctxs, dhT,
+                                              dcT, dctxT)
+    for name in ("prep", "scan", "sums"):
+        stages[name]()
     LAUNCHES["av_align_scan_bwd" if v is not None else "av_align_scan_luong_bwd"] += 1
-    return dxw, db_acc.sum(dim=0), dq, dv_acc, dkeys, dvalues, hnew
+    return finish()
 
 
 def _check_bahdanau(what, query, wq, v, keys, values, smem_fn, *smem_args):

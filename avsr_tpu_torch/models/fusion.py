@@ -17,8 +17,11 @@ for tensors on the CPU.  When a gradient is wanted, ``av_align_scan`` goes
 through ``AVAlignScan``: its forward saves the fp32 carries entering each
 step (h, c, ctx: what the reference's ``jax.checkpoint`` keeps), its
 backward is the reverse scan with the gates and the read recomputed from
-them (``av_align_scan_bwd``: the CUDA kernel on a GPU,
-``av_align_scan_bwd_plain`` on the CPU).  The weight gradients of Wh,
+them (``av_align_scan_bwd``: the CUDA kernels on a GPU,
+``av_align_scan_bwd_plain`` on the CPU).  The kernels' decomposition, a
+reverse scan that saves the scores' and the context's cotangents, then the
+memory's gradients summed over the steps after it, is mirrored in plain
+PyTorch by ``av_align_scan_bwd_split_plain``.  The weight gradients of Wh,
 ctx_proj, wq and v are single products over all steps after the scan.
 The attention type is a non-tensor argument of every function of the scan
 (``attention_type``), and the kernels take either score.  The hoisted fp32
@@ -224,6 +227,97 @@ def av_align_scan_bwd_plain(cell: Params, att: Params, ctx_proj: Optional[torch.
             dctx = rounded(dgates @ cp_c.t(), cdt) + dctx
         db += dgates.sum(dim=0)
         dxw[t] = dgates
+    return (torch.stack(dxw), db, torch.stack(dq), dv_rows, dkeys, dvalues, torch.stack(hnew))
+
+
+def av_align_scan_bwd_split_plain(cell: Params, att: Params, ctx_proj: Optional[torch.Tensor],
+                                  xw: torch.Tensor, mask: torch.Tensor, mem: attn.AttentionMemory,
+                                  aligns: torch.Tensor, res, dhs: torch.Tensor,
+                                  dctxs: torch.Tensor, dhT: torch.Tensor, dcT: torch.Tensor,
+                                  dctxT: torch.Tensor, cdt: torch.dtype, *,
+                                  attention_type: str = "bahdanau"):
+    """Plain-PyTorch mirror of the K8 backward kernel's decomposition
+    (``csrc/av_align_bwd.cuh``), same contract as ``av_align_scan_bwd_plain``.
+
+    The reverse scan saves, per step, the scores' cotangent dsc [T,B,S],
+    the read's cotangent dctx' [T,B,Dv] and q [T,B,A] (Luong: bf16(q)), and
+    never touches the memory's gradients; the carries' products take
+    bf16(dgates), as the kernel's tensor-core product does.  After the
+    scan the memory's gradients are sums over t of the per-step terms, each
+    formed exactly and summed in fp32 (the twin rounds each step's term to
+    the compute dtype, as the reference's transposed casts do):
+
+        dvalues = sum_t bf16(w[t])^T (x) dctx'[t]
+        Luong dkeys = sum_t dsc[t]^T (x) bf16(q[t])
+        Bahdanau dkeys = sum_t (deb + deb * e) * (1 - e),  e = tanh(keys + q[t]),
+            deb = bf16(dsc[t] * bf16(v));  dv_rows = sum_t sum_s dsc * bf16(e)
+    """
+    h_res, c_res, ctx_res = res
+    T, B, H4 = xw.shape
+    luong = attention_type == "luong"
+    wh_c = cell["wh"].to(cdt).float()
+    cp_c = None if ctx_proj is None else ctx_proj.to(cdt).float()
+    wq_c = att["wq"].to(cdt).float()
+    values_c = mem.values.to(cdt).float()
+    keys_c = mem.keys.to(cdt).float() if luong else mem.keys.float()
+    v_c = None if luong else att["v"].to(cdt).float()
+    dh, dc, dctx = dhT.float(), dcT.float(), dctxT.float()
+    db = torch.zeros((H4,), dtype=torch.float32, device=xw.device)
+    dxw, dq, hnew, dsc_all, dctxp, q_all = ([None] * T for _ in range(6))
+    for t in reversed(range(T)):
+        m = mask[t][:, None]
+        h_prev, c_prev, ctx_prev = h_res[t], c_res[t], ctx_res[t]
+        gates = xw[t].float()
+        if cp_c is not None:
+            gates = gates + ctx_prev.to(cdt).float() @ cp_c
+        gates = gates + h_prev.to(cdt).float() @ wh_c + cell["b"]
+        gi, gf, gg, go = gates.chunk(4, dim=-1)
+        i, f, o = torch.sigmoid(gi), torch.sigmoid(gf), torch.sigmoid(go)
+        g = torch.tanh(gg)
+        tc = torch.tanh(f * c_prev + i * g)
+        h_new = o * tc
+        # the read backward without the memory's gradients: dsc, dq, dquery
+        q = dot_f32(h_new, att["wq"], cdt)
+        w = aligns[t]
+        dctx_new = m * (dctx + dctxs[t])
+        dw = rounded(torch.einsum("bd,bsd->bs", dctx_new, values_c), cdt)
+        dsc = w * (dw - (w * dw).sum(dim=-1, keepdim=True))
+        if luong:
+            q = rounded(q, cdt)
+            dq[t] = rounded(torch.einsum("bs,bsa->ba", dsc, keys_c), cdt)
+        else:
+            e = torch.tanh(keys_c + q[:, None, :])
+            deb = rounded(dsc[:, :, None] * v_c, cdt)
+            dq[t] = ((deb + deb * e) * (1.0 - e)).sum(dim=1)
+        dquery = rounded(dq[t] @ wq_c.t(), cdt)
+        dsc_all[t], dctxp[t], q_all[t], hnew[t] = dsc, dctx_new, q, h_new
+        # the cell backward and the carries' products
+        dh_new = m * (dh + dhs[t]) + dquery
+        dc_new = m * dc + dh_new * o * (1.0 - tc * tc)
+        dgates = torch.cat([dc_new * g * i * (1.0 - i), dc_new * c_prev * f * (1.0 - f),
+                            dc_new * i * (1.0 - g * g), dh_new * tc * o * (1.0 - o)], dim=-1)
+        dc = dc_new * f + (1.0 - m) * dc
+        dg_c = rounded(dgates, cdt)
+        dh = rounded(dg_c @ wh_c.t(), cdt) + (1.0 - m) * dh
+        dctx = (1.0 - m) * dctx
+        if cp_c is not None:
+            dctx = rounded(dg_c @ cp_c.t(), cdt) + dctx
+        db += dgates.sum(dim=0)
+        dxw[t] = dgates
+    # the memory's gradients, summed over the steps after the scan
+    dsc_all, dctxp, q_all = torch.stack(dsc_all), torch.stack(dctxp), torch.stack(q_all)
+    dvalues = torch.einsum("tbs,tbd->bsd", aligns.to(cdt).float(), dctxp)
+    dv_rows = None
+    if luong:
+        dkeys = torch.einsum("tbs,tba->bsa", dsc_all, q_all)
+    else:
+        dkeys = torch.zeros_like(keys_c)
+        dv_rows = torch.zeros((B, keys_c.shape[-1]), dtype=torch.float32, device=xw.device)
+        for t in range(T):
+            e = torch.tanh(keys_c + q_all[t][:, None, :])
+            deb = rounded(dsc_all[t][:, :, None] * v_c, cdt)
+            dkeys += (deb + deb * e) * (1.0 - e)
+            dv_rows += torch.einsum("bsa,bs->ba", e.to(cdt).float(), dsc_all[t])
     return (torch.stack(dxw), db, torch.stack(dq), dv_rows, dkeys, dvalues, torch.stack(hnew))
 
 

@@ -107,10 +107,14 @@ Phases, in order; any failure exits nonzero before the final line:
 17. K8 bwd — the AV-Align fusion scan's backward against its plain twin at
              [T_a=197, B=128, H=256, T_v=150, A=128, Dv=512] on the kernel
              forward's saved carries and random cotangents, ragged with a
-             0-length audio row and a 0-length video row: errors on dxw,
-             db, dq, dkeys, dvalues and the weight gradients dWh,
-             dctx_proj, dwq, dv; the empty rows' gradients exactly zero;
-             times and the bound.
+             0-length audio row and a 0-length video row, and at the 16 s
+             limits [T_a=531, B=16, T_v=400]: errors on dxw, db, dq,
+             dkeys, dvalues and the weight gradients dWh, dctx_proj, dwq,
+             dv; the empty rows' gradients exactly zero; two launches
+             bit-equal; its kernels' registers, spills and HMMA count and
+             the recurrence's max active clusters; times, the device ms of
+             its three stages apart (the regate and the queries, the
+             recurrence, the memory's gradients) and the bound.
 18. K10 bwd — the Bahdanau read's backward against its plain twin at N=128,
              S=197, A=128, Dv=768 with a length-0 row (exactly zero
              gradients): errors on dquery, dkeys, dvalues, dwq, dv; times.
@@ -189,8 +193,9 @@ Phases, in order; any failure exits nonzero before the final line:
              times and the bounds.
 30. K8 Luong — the AV-Align fusion scan's Luong instance at [T_a=197, B=8
              and 128, H=256, T_v=150, Hk=Dv=256], ragged with a 0-length
-             audio and video row, and its backward at B=128: errors, exact
-             zeros of the empty rows, times and the bounds.
+             audio and video row, and its backward at B=128 and at the 16 s
+             limits, as phase 17: errors, exact zeros of the empty rows,
+             bit-equal reruns, times, the stages apart and the bounds.
 31. serve-uni-luong — the full-width ``lrs2_av_align_uni_luong`` model
              (``lrs2_av_align`` with one-direction encoders and Luong reads)
              behind a CUDA ``Predictor`` as in phase 15; requires K2, K3, the
@@ -1863,38 +1868,138 @@ def k8_bwd_inputs(B, dev, seed, attention_type="bahdanau", **widths):
     return [cell, att, ctx_proj, xw, mask, mem, aligns, res, *cot, cdt]
 
 
-def phase_k8_bwd(dev, report):
+_K8B_INFO = {}  # K8 backward's build report and occupancy, read once
+
+
+def k8_bwd_build_info():
+    """K8 backward's kernels as built (``csrc/av_align_bwd.cuh``):
+    registers, spills and HMMA count of the tensor-core ones (the
+    recurrence at either read, the regate, the query launch, the
+    outer-product sums; fails on a spill or one without HMMA), registers
+    and spills of the energy pass (CUDA cores), and the recurrence's shared
+    memory and max active 16-CTA clusters at both instances' widths."""
+    from avsr_tpu_torch import kernels
+
+    if _K8B_INFO:
+        return _K8B_INFO
+    build = build_report("K8 bwd", "av_align_scan", {
+        "scan<bahdanau>": ("align_bwd_scanILb0E",), "scan<luong>": ("align_bwd_scanILb1E",),
+        "regate": ("align_regate_mma",), "query": ("align_query_kernel",),
+        "outer_sum<dvalues>": ("align_outer_sumILb0E",),
+        "outer_sum<luong dkeys>": ("align_outer_sumILb1E",)})
+    cores = {k: r for k, r in kernels.ptxas_report("av_align_scan").items()
+             if "align_dkeys_energy" in k}
+    if any(r["spill_stores"] or r["spill_loads"] for r in cores.values()) or len(cores) != 1:
+        fail("K8 bwd", f"the energy pass spills or is missing: {cores}")
+    occ = {f"{kind} rows_per_cta={r}": kernels.av_align_bwd_info(*widths, rows_per_cta=r)
+           for kind, widths in (("bahdanau", (256, 512, 128, 150, 512, False)),
+                                ("luong", (256, 256, 256, 150, 256, True)))
+           for r in (1, 2)}
+    print(f"K8 bwd CUDA-core kernel (ptxas -v): "
+          f"{ {k.split('align_')[-1][:24]: r for k, r in cores.items()} }; the recurrence's "
+          f"shared memory per CTA and max active clusters of 16 CTAs (cudaOccupancyMax"
+          f"ActiveClusters): {occ}")
+    if min(o["max_active_clusters"] for o in occ.values()) < 1:
+        fail("K8 bwd", f"the recurrence cannot be resident: {occ}")
+    _K8B_INFO.update(build=build, occupancy=occ)
+    return _K8B_INFO
+
+
+def k8_bwd_split(args, attention_type, rows_per_cta=None):
+    """Device ms of K8 backward's stages run apart on the kernel's operands
+    (``kernels.av_align_scan_bwd_stages``, at ``rows_per_cta`` or the
+    wrapper's default; each timed as ``device_ms``): prep (the regate and
+    the query launch), scan (the recurrence), sums (the memory's gradients
+    after the scan)."""
+    from avsr_tpu_torch import kernels
+    from avsr_tpu_torch.models import fusion as fus
+    from avsr_tpu_torch.ops import attention as attn
+
+    cell, att, ctx_proj, xw, mask, mem, aligns, res, dhs, dctxs, dhT, dcT, dctxT, _ = args
+    wq, v, keys, values = attn.kernel_operands(attention_type, att, mem)
+    rpc = {} if rows_per_cta is None else {"rows_per_cta": rows_per_cta}
+    stages, _ = kernels.av_align_scan_bwd_stages(
+        *fus._cell_operands(cell, ctx_proj), wq, v, xw, mask, keys, values, aligns, *res, dhs,
+        dctxs, dhT, dcT, dctxT, **rpc)
+    for name in ("prep", "scan", "sums"):
+        stages[name]()
+    return {name: device_ms(stages[name], reps=5, warmup=1) for name in ("prep", "scan", "sums")}
+
+
+def k8_bwd_against_plain(label, args, attention_type):
+    """K8 backward (either read) against its plain twin on the same
+    operands: the max abs error and the error relative to max |plain| of
+    every output and weight gradient; fails past ``K8B_REL_TOL``, on a
+    non-finite value, a v factor from a Luong read (or none from a
+    Bahdanau one), an empty row's gradient that is not exactly 0 (row 1 has
+    no audio step, row 2 no video frame) or a rerun that is not bit-equal.
+    Returns (the largest max abs error, the relative errors)."""
     import torch
 
     from avsr_tpu_torch.models import fusion as fus
 
-    args = k8_bwd_inputs(128, dev, seed=29)
-    cell, att, ctx_proj, xw, mask, mem, aligns, res, *_, cdt = args
-    out_k = fus.av_align_scan_bwd(*args)
-    out_p = fus.av_align_scan_bwd_plain(*args)
+    kw = {"attention_type": attention_type}
+    ctx_proj, res, cdt = args[2], args[7], args[-1]
+    out_k = fus.av_align_scan_bwd(*args, **kw)
+    out_k2 = fus.av_align_scan_bwd(*args, **kw)
+    out_p = fus.av_align_scan_bwd_plain(*args, **kw)
     w_k = fus.av_align_weight_grads(res, ctx_proj, out_k[0], out_k[2], out_k[3], out_k[6], cdt)
     w_p = fus.av_align_weight_grads(res, ctx_proj, out_p[0], out_p[2], out_p[3], out_p[6], cdt)
     torch.cuda.synchronize()
     names = ("dxw", "db", "dq", "dv_rows", "dkeys", "dvalues", "hnew", "dWh", "dctx_proj", "dwq",
              "dv")
-    pairs = list(zip(names, (*out_k, *w_k), (*out_p, *w_p)))
+    pairs = [(n, a, b) for n, a, b in zip(names, (*out_k, *w_k), (*out_p, *w_p))
+             if b is not None]
     errs = {n: rel_err(a, b) for n, a, b in pairs}
     abs_errs = {n: max_err(a, b) for n, a, b in pairs}
-    # row 1 has no audio step, row 2 no video frame: exactly zero gradients
+    same = all(torch.equal(a, b) for a, b in zip(out_k, out_k2) if a is not None)
     zeros = (float(out_k[0][:, 1].abs().max()), float(out_k[2][:, 1].abs().max()),
              float(out_k[4][2].abs().max()), float(out_k[5][2].abs().max()))
-    print(f"K8 bwd [T_a=197,B=128,H=256,T_v=150,A=128,Dv=512] max abs err {abs_errs}; relative "
-          f"to max |plain| {errs} (tol {K8B_REL_TOL}); 0-length audio row dxw/dq and 0-length "
-          f"video row dkeys/dvalues max |x| {zeros}")
-    if not all(torch.isfinite(x).all() for x in (*out_k, *w_k)):
-        fail("K8 bwd", "non-finite kernel output")
+    print(f"{label} max abs err {abs_errs}; relative to max |plain| {errs} (tol {K8B_REL_TOL}); "
+          f"rerun bit-equal {same}; 0-length audio row dxw/dq and 0-length video row "
+          f"dkeys/dvalues max |x| {zeros}")
+    luong = attention_type == "luong"
+    if (out_k[3] is None) != luong or (w_k[3] is None) != luong:
+        fail(label, "a v factor from a Luong read, or none from a Bahdanau read")
+    if not all(torch.isfinite(a).all() for _, a, _ in pairs):
+        fail(label, "non-finite kernel output")
     if max(zeros) != 0.0:
-        fail("K8 bwd", f"an empty row's gradient is not exactly zero: {zeros}")
+        fail(label, f"an empty row's gradient is not exactly zero: {zeros}")
+    if not same:
+        fail(label, "two launches on the same operands differ")
     if not max(errs.values()) <= K8B_REL_TOL:
-        fail("K8 bwd", f"kernel disagrees with the plain twin: {errs}")
+        fail(label, f"kernel disagrees with the plain twin: {errs}")
+    return max(abs_errs.values()), errs
+
+
+def k8_bwd_16s(attention_type, dev, seed):
+    """K8 backward at the 16 s limits, T_a = 531 and T_v = 400, B=16 (one
+    cluster), against the plain twin; (max abs error, device ms)."""
+    from avsr_tpu_torch.models import fusion as fus
+
+    args = k8_bwd_inputs(16, dev, seed, attention_type=attention_type, T=531, Tv=400)
+    err, _ = k8_bwd_against_plain(f"K8 {attention_type} bwd [T_a=531,B=16,T_v=400]", args,
+                                  attention_type)
+    dms = device_ms(lambda: fus.av_align_scan_bwd(*args, attention_type=attention_type), reps=3,
+                    warmup=1)
+    print(f"K8 {attention_type} bwd [T_a=531,B=16,T_v=400] device {dms} ms")
+    return err, dms
+
+
+def phase_k8_bwd(dev, report):
+    from avsr_tpu_torch.models import fusion as fus
+
+    info = k8_bwd_build_info()
+    args = k8_bwd_inputs(128, dev, seed=29)
+    cell, att, ctx_proj, xw, mask, mem, aligns, res, *_, cdt = args
+    err, _ = k8_bwd_against_plain("K8 bwd [T_a=197,B=128,H=256,T_v=150,A=128,Dv=512]", args,
+                                  "bahdanau")
+    err16, dms16 = k8_bwd_16s("bahdanau", dev, seed=31)
     t_k = time_ms(lambda: fus.av_align_scan_bwd(*args), reps=5, warmup=1)
     t_p = time_ms(lambda: fus.av_align_scan_bwd_plain(*args), reps=2, warmup=1)
     dms = device_ms(lambda: fus.av_align_scan_bwd(*args), reps=5, warmup=1)
+    split = k8_bwd_split(args, "bahdanau")
+    out_k = fus.av_align_scan_bwd(*args)
     T, B, H4 = xw.shape
     S, A, Dv = mem.keys.shape[1], mem.keys.shape[2], mem.values.shape[-1]
     H = H4 // 4
@@ -1909,10 +2014,12 @@ def phase_k8_bwd(dev, report):
     nb = (nbytes(xw, mask, mem.keys, mem.values, aligns, *res, *args[8:13], *out_k)
           + 2 * (H * H4 + Dv * H4 + H * A + A) + 4 * H4)
     b = bound(nb, flops)
-    print(f"K8 bwd B=128 kernel {t_k:.4f} ms (device {dms} ms)  plain {t_p:.4f} ms  bound "
-          f"{b[0]:.5f} ms ({b[1]}, {nb / 1e6:.2f} MB)")
-    report["av_align_scan_bwd"] = dict(max_abs_err=max(abs_errs.values()), ms=t_k, plain_ms=t_p,
-                                       library_ms=None, device_ms=dms, bound=b)
+    print(f"K8 bwd B=128 kernel {t_k:.4f} ms (device {dms} ms; stages apart: {split})  plain "
+          f"{t_p:.4f} ms  bound {b[0]:.5f} ms ({b[1]}, {nb / 1e6:.2f} MB)")
+    report["av_align_scan_bwd"] = dict(
+        max_abs_err=max(err, err16), ms=t_k, plain_ms=t_p, library_ms=None, device_ms=dms,
+        bound=b, device_ms_stages=split, device_ms_T531_B16=dms16,
+        recurrence={k: o for k, o in info["occupancy"].items() if k.startswith("bahdanau")})
 
 
 def phase_k10_bwd(dev, report):
@@ -2582,32 +2689,18 @@ def phase_k8_luong(dev, report):
         device_ms=times[8][2], bound=bounds[8])
 
     # backward at B = 128, on the kernel forward's saved carries
+    info = k8_bwd_build_info()
     args = k8_bwd_inputs(128, dev, seed=61, attention_type="luong")
     cell, att, ctx_proj, xw, mask, mem, aligns, res, *_, cdt = args
-    out_k = fus.av_align_scan_bwd(*args, **luong)
-    out_p = fus.av_align_scan_bwd_plain(*args, **luong)
-    w_k = fus.av_align_weight_grads(res, ctx_proj, out_k[0], out_k[2], out_k[3], out_k[6], cdt)
-    w_p = fus.av_align_weight_grads(res, ctx_proj, out_p[0], out_p[2], out_p[3], out_p[6], cdt)
-    torch.cuda.synchronize()
-    names = ("dxw", "db", "dq", "dkeys", "dvalues", "hnew", "dWh", "dctx_proj", "dwq")
-    got = (*out_k[:3], *out_k[4:], *w_k[:3])
-    want = (*out_p[:3], *out_p[4:], *w_p[:3])
-    errs = {n: rel_err(a, b) for n, a, b in zip(names, got, want)}
-    abs_errs = {n: max_err(a, b) for n, a, b in zip(names, got, want)}
-    zeros = (float(out_k[0][:, 1].abs().max()), float(out_k[2][:, 1].abs().max()),
-             float(out_k[4][2].abs().max()), float(out_k[5][2].abs().max()))
-    print(f"K8 Luong bwd [T_a=197,B=128,H=256,T_v=150,Hk=Dv=256] max abs err {abs_errs}; relative "
-          f"to max |plain| {errs} (tol {K8B_REL_TOL}); no dv factor: {out_k[3] is None}; "
-          f"0-length audio row dxw/dq and 0-length video row dkeys/dvalues max |x| {zeros}")
-    if not (out_k[3] is None and w_k[3] is None and all(torch.isfinite(x).all() for x in got)):
-        fail("K8 Luong bwd", "non-finite kernel output, or a v factor from a Luong read")
-    if max(zeros) != 0.0:
-        fail("K8 Luong bwd", f"an empty row's gradient is not exactly zero: {zeros}")
-    if not max(errs.values()) <= K8B_REL_TOL:
-        fail("K8 Luong bwd", f"kernel disagrees with the plain twin: {errs}")
+    err, _ = k8_bwd_against_plain("K8 Luong bwd [T_a=197,B=128,H=256,T_v=150,Hk=Dv=256]", args,
+                                  "luong")
+    err16, dms16 = k8_bwd_16s("luong", dev, seed=63)
     t_k = time_ms(lambda: fus.av_align_scan_bwd(*args, **luong), reps=5, warmup=1)
     t_p = time_ms(lambda: fus.av_align_scan_bwd_plain(*args, **luong), reps=2, warmup=1)
     dms = device_ms(lambda: fus.av_align_scan_bwd(*args, **luong), reps=5, warmup=1)
+    split = k8_bwd_split(args, "luong")
+    out_k = fus.av_align_scan_bwd(*args, **luong)
+    got = (*out_k[:3], *out_k[4:])
     T, B, H4 = xw.shape
     S, Hk, Dv = mem.keys.shape[1], mem.keys.shape[2], mem.values.shape[-1]
     H = H4 // 4
@@ -2621,10 +2714,12 @@ def phase_k8_luong(dev, report):
     nb = (nbytes(xw, mask, mem.values, aligns, *res, *args[8:13], *got[:6])
           + 2 * (H * H4 + Dv * H4 + H * Hk) + 4 * H4)
     b = bound(nb, flops)
-    print(f"K8 Luong bwd B=128 kernel {t_k:.4f} ms (device {dms} ms)  plain {t_p:.4f} ms  bound "
-          f"{b[0]:.5f} ms ({b[1]}, {nb / 1e6:.2f} MB)")
-    report["av_align_scan_luong_bwd"] = dict(max_abs_err=max(abs_errs.values()), ms=t_k,
-                                             plain_ms=t_p, library_ms=None, device_ms=dms, bound=b)
+    print(f"K8 Luong bwd B=128 kernel {t_k:.4f} ms (device {dms} ms; stages apart: {split})  "
+          f"plain {t_p:.4f} ms  bound {b[0]:.5f} ms ({b[1]}, {nb / 1e6:.2f} MB)")
+    report["av_align_scan_luong_bwd"] = dict(
+        max_abs_err=max(err, err16), ms=t_k, plain_ms=t_p, library_ms=None, device_ms=dms,
+        bound=b, device_ms_stages=split, device_ms_T531_B16=dms16,
+        recurrence={k: o for k, o in info["occupancy"].items() if k.startswith("luong")})
 
 
 def phase_core_route(dev):

@@ -13,8 +13,10 @@ label cap 80, noise mixing on), times ``--steps`` train steps on the host
 clock to a synchronise, reads the peak device memory, and profiles three
 more steps: the device's busy time and event count per step and the device
 time per step of the kernels by name: the LSTM scan (``lstm``: K1 and K2,
-every kernel whose name holds ``lstm``, with its event count) and the
-attention kernels, told apart by their mask and family (``k11``: the
+every kernel whose name holds ``lstm``, with its event count), the AV-Align
+fusion scan (``k8``: K8 forward and backward, every kernel whose name holds
+``align_``, with its event count) and the attention kernels, told apart by
+their mask and family (``k11``: the
 whole-row kernels under the length mask, the encoder self attention;
 ``k4``: the streamed ones under the length mask, the fusion core; ``k5``:
 every other attention kernel, the decoder's teacher-forced attention under
@@ -76,6 +78,8 @@ busy, share = cs.busy_share(ev, span)
 def kind(name):
     if "lstm" in name:
         return "lstm"
+    if "align_" in name:
+        return "k8"
     if "attn_" not in name:
         return "other"
     if "LengthMask" in name:
@@ -90,7 +94,8 @@ for s, e, name in ev:
 print(json.dumps({"step_ms": times, "peak_gib": peak / 2**30, "busy_ms_per_step": busy / 3e3,
                   "busy_share": share, "events_per_step": len(ev) / 3,
                   "lstm_events_per_step": count["lstm"] / 3,
-                  **{f"{k}_ms_per_step": by[k] / 3e3 for k in ("lstm", "k11", "k4", "k5")}}))
+                  "k8_events_per_step": count["k8"] / 3,
+                  **{f"{k}_ms_per_step": by[k] / 3e3 for k in ("lstm", "k8", "k11", "k4", "k5")}}))
 """
 
 
@@ -128,7 +133,8 @@ def main() -> int:
               f"{r['peak_gib']:.3f} GiB, device busy {r['busy_ms_per_step']:.3f} ms per step "
               f"(share {r['busy_share']:.3f}, {r['events_per_step']:.1f} events), per step: "
               f"LSTM scan {r['lstm_ms_per_step']:.3f} ms ({r['lstm_events_per_step']:.1f} "
-              f"events), K11 {r['k11_ms_per_step']:.3f} ms, K4 {r['k4_ms_per_step']:.3f} ms, K5 "
+              f"events), K8 {r['k8_ms_per_step']:.3f} ms ({r['k8_events_per_step']:.1f} events), "
+              f"K11 {r['k11_ms_per_step']:.3f} ms, K4 {r['k4_ms_per_step']:.3f} ms, K5 "
               f"{r['k5_ms_per_step']:.3f} ms", flush=True)
         runs.append(r)
     print(json.dumps({"card": card, "preset": args.preset, "runs": runs}))
