@@ -200,7 +200,7 @@ struct ScanArgs {
 // dsc (to dsc_s and dsc_out), dq (dq_s, dq_out) and, for Bahdanau, dquery
 // (dquery_s), from
 // the weights w_s, q_s (bf16(q) for dot), v_s and dctx' (dctx_s), all in
-// shared memory.  bahdanau::read_bwd's arithmetic (K10 keeps that one).
+// shared memory.  The arithmetic of K10's per-step backward (bahdanau_attend.cu).
 // The row's HT threads run it (tid their index among them, half the row's
 // barrier); LOADS 16-byte loads in flight per thread in its passes.
 template <bool DOT, int CPL, int LOADS>

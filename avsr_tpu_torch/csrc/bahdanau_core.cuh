@@ -2,7 +2,7 @@
 // (bahdanau_attend.cu: the RNN decoder's read at every decode step) and
 // K8 (av_align_scan.cu: the AV-Align fusion's read at every audio step),
 // with either score: the additive one (Bahdanau) or the dot one (Luong
-// "general"), chosen by the template argument DOT of read and read_bwd.
+// "general"), chosen by the template argument DOT of read.
 // It replaces avsr_tpu/ops/attention.py:attend, Bahdanau branch
 // (:140-151) and Luong branch (:152-163), with its masking (:165-171),
 // under the bf16 policy:
@@ -23,8 +23,10 @@
 // whose bf16 weight is 0 is left out of the context sum, which adds
 // exactly 0 for it.
 //
-// read_bwd, further down, is the backward of the same read, shared by K10's
-// and K8's backward kernels.
+// The read's backward lives with its callers, each split for its loop:
+// K10's per-step kernel (bahdanau_attend.cu) and K8's recurrence
+// (av_align_bwd.cuh) save the rows from which the memory's gradients are
+// summed after the loop.
 //
 // Design: one block of 256 threads per row.  q: thread pairs of outputs
 // (one 4-byte load of wq per k, LOADS rows in flight) with k split over
@@ -86,40 +88,52 @@ __device__ __forceinline__ float block_reduce(float x, float* red) {
   return r;
 }
 
-// q = qin @ wq for one row: qin [Hq] (bf16-rounded, in shared memory), wq
-// [Hq, A] bf16 -> q_s [A] fp32, rounded to bf16 when ROUND (the dot score's
-// cast of q).  A thread per output pair, k split over THREADS / (A/2)
-// slices (LOADS rows of wq in flight), the slices summed in a fixed order.
-// Ends with a barrier.
-template <bool ROUND>
-__device__ __forceinline__ void q_product(const float* qin, const __nv_bfloat16* __restrict__ wq,
-                                          int Hq, int A, float* part, float* q_s) {
+// The q product's partial sums over the column pairs [p_lo, p_hi) of wq
+// [Hq, A] bf16, qin [Hq] (bf16-rounded, in shared memory): a thread per
+// pair, k split over THREADS / (p_hi - p_lo) slices (LD rows of wq in
+// flight); slice sl's sum of column 2 p_lo + j lands at part[sl * 2 (p_hi
+// - p_lo) + j].  Returns the slices, which the caller sums in order after
+// a barrier.  The read takes every column; the per-step backward a
+// cluster CTA's slice.
+template <int LD>
+__device__ __forceinline__ int q_partials(const float* qin, const __nv_bfloat16* __restrict__ wq,
+                                          int Hq, int A, int p_lo, int p_hi, float* part) {
   const int tid = threadIdx.x;
-  const int npair = A / 2, slices = THREADS / npair;
+  const int npair = p_hi - p_lo, slices = THREADS / npair;
   const int cp = tid % npair, sl = tid / npair;
   if (sl < slices) {
-    const uint32_t* w2 = reinterpret_cast<const uint32_t*>(wq) + cp;
+    const uint32_t* w2 = reinterpret_cast<const uint32_t*>(wq) + p_lo + cp;
     float a0 = 0.f, a1 = 0.f;
-    for (int k0 = sl; k0 < Hq; k0 += LOADS * slices) {
-      uint32_t ww[LOADS];
+    for (int k0 = sl; k0 < Hq; k0 += LD * slices) {
+      uint32_t ww[LD];
 #pragma unroll
-      for (int j = 0; j < LOADS; ++j) {
+      for (int j = 0; j < LD; ++j) {
         const int k = k0 + j * slices;
-        ww[j] = k < Hq ? w2[(size_t)k * npair] : 0u;
+        ww[j] = k < Hq ? w2[(size_t)k * (A / 2)] : 0u;
       }
 #pragma unroll
-      for (int j = 0; j < LOADS; ++j) {
+      for (int j = 0; j < LD; ++j) {
         const int k = k0 + j * slices;
         const float x = k < Hq ? qin[k] : 0.f;
         a0 = fmaf(x, bf_lo(ww[j]), a0);
         a1 = fmaf(x, bf_hi(ww[j]), a1);
       }
     }
-    part[sl * A + 2 * cp] = a0;
-    part[sl * A + 2 * cp + 1] = a1;
+    part[sl * 2 * npair + 2 * cp] = a0;
+    part[sl * 2 * npair + 2 * cp + 1] = a1;
   }
+  return slices;
+}
+
+// q = qin @ wq for one row -> q_s [A] fp32, rounded to bf16 when ROUND (the
+// dot score's cast of q): q_partials over every column (LOADS rows of wq
+// in flight), the slices summed in a fixed order.  Ends with a barrier.
+template <bool ROUND>
+__device__ __forceinline__ void q_product(const float* qin, const __nv_bfloat16* __restrict__ wq,
+                                          int Hq, int A, float* part, float* q_s) {
+  const int slices = q_partials<LOADS>(qin, wq, Hq, A, 0, A / 2, part);
   __syncthreads();
-  for (int a = tid; a < A; a += THREADS) {
+  for (int a = threadIdx.x; a < A; a += THREADS) {
     float s = 0.f;
     for (int j = 0; j < slices; ++j) s += part[j * A + a];
     q_s[a] = ROUND ? bf_round(s) : s;
@@ -302,265 +316,6 @@ __device__ void read(const float* __restrict__ query, const __nv_bfloat16* __res
       for (int j = 0; j < slices; ++j) x += part[j * Dv + d];
       ctx_out(d, x);
     }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The backward of one read: the gradient JAX's autodiff takes through
-// attention.py:140-163,167-177 for the context's cotangent dctx, given the
-// forward's weights w.  q and the energies are recomputed (the remat of the
-// reference's jax.checkpoint: the tanh tensor is never saved).  Per row:
-//
-//   dw[s]  = bf16(sum_d dctx[d] * bf16(values[s, d]))
-//   dvalues[s, d] += bf16(bf16(w[s]) * dctx[d])
-//   dsc[s] = w[s] * (dw[s] - sum_j w[j] dw[j])
-//            (the softmax backward through the mask and the renormalisation:
-//            a valid row's w is its softmax with padded positions exactly 0,
-//            an empty row's w is 0, so its gradients are 0, not NaN)
-//   additive score:
-//     e      = tanh(keys[s, a] + q[a]);  deb = bf16(dsc[s] * bf16(v[a]))
-//     dpre   = (deb + deb * e) * (1 - e)      (tanh' as JAX takes it)
-//     dkeys[s, a] += dpre;  dq[a] = sum_s dpre;  dv[a] += sum_s dsc[s] bf16(e)
-//   dot score (q here is bf16(q), keys bf16):
-//     dkeys[s, a] += bf16(dsc[s] * q[a]);  dq[a] = bf16(sum_s dsc[s] keys[s, a])
-//   dquery[k] = bf16(sum_a dq[a] * wq[k, a])
-//
-// (the bf16 roundings are the transposes of the reference's casts).  dq and
-// dv are this row's factors of the weight gradients dwq = bf16(query)^T dq
-// and dv (none for the dot score), which the callers form outside the
-// kernels.  A key whose weight is exactly 0 adds exactly 0 everywhere and is
-// skipped.  Design: dw and the dvalues update take a warp per key (a lane
-// per 8-channel chunk of the value row, KPW keys per warp); dsc is a block
-// reduction; the keys' pass takes a thread per 4 key units and splits the
-// keys over THREADS / (A/4) slices (4 keys in flight), dq (and dv) summed
-// over the slices in a fixed order; dquery a thread per query unit.  The
-// row's dkeys / dvalues are owned by its block: no atomics.
-// ---------------------------------------------------------------------------
-
-__host__ __device__ inline size_t read_bwd_smem_floats(int Hq, int A, int S, int Dv) {
-  return (size_t)2 * A + Dv + Hq + S + WARPS + 8 * THREADS;
-}
-
-// query [Hq] fp32, wq [Hq, A] bf16, vatt [A] bf16 (null for the dot score),
-// keys [S, A] (fp32 additive, bf16 dot), values [S, Dv] bf16, w [S] fp32
-// (the forward's weights); dctx_in(d) gives the context cotangent.  dkeys
-// [S, A] and dvalues [S, Dv] fp32 are accumulated (+=), dv_acc [A] too
-// (additive only: null for the dot score); dq_out [A] and dquery [Hq] are
-// written (dquery may point to shared memory).
-template <bool DOT, class DctxIn>
-__device__ void read_bwd(const float* __restrict__ query, const __nv_bfloat16* __restrict__ wq,
-                         const __nv_bfloat16* __restrict__ vatt,
-                         const typename Key<DOT>::type* __restrict__ keys,
-                         const __nv_bfloat16* __restrict__ values, const float* __restrict__ w,
-                         DctxIn dctx_in, int Hq, int A, int S, int Dv, float* smem,
-                         float* __restrict__ dkeys, float* __restrict__ dvalues,
-                         float* __restrict__ dq_out, float* __restrict__ dv_acc, float* dquery) {
-  float* q_s = smem;          // [A] q, then dq
-  float* v_s = q_s + A;       // [A]
-  float* dctx_s = v_s + A;    // [Dv]
-  float* qin = dctx_s + Dv;   // [Hq] bf16-rounded query
-  float* dsc_s = qin + Hq;    // [S] dw, then dsc
-  float* red = dsc_s + S;     // [WARPS]
-  float* part = red + WARPS;  // [8 * THREADS]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  for (int i = tid; i < Hq; i += THREADS) qin[i] = bf_round(query[i]);
-  if (!DOT)
-    for (int i = tid; i < A; i += THREADS) v_s[i] = __bfloat162float(vatt[i]);
-  for (int d = tid; d < Dv; d += THREADS) dctx_s[d] = dctx_in(d);
-  __syncthreads();
-  q_product<DOT>(qin, wq, Hq, A, part, q_s);
-
-  // dw and the dvalues update: a warp per key, a lane per 8-channel chunk
-  {
-    const int C = Dv / 8;
-    const float4* dc4 = reinterpret_cast<const float4*>(dctx_s);
-    for (int s0 = warp * KPW; s0 < S; s0 += WARPS * KPW) {
-      float acc[KPW], wb[KPW];
-#pragma unroll
-      for (int j = 0; j < KPW; ++j) {
-        acc[j] = 0.f;
-        wb[j] = s0 + j < S ? w[s0 + j] : 0.f;
-      }
-      for (int c = lane; c < C; c += 32) {
-        const float4 g0 = dc4[2 * c], g1 = dc4[2 * c + 1];
-        uint4 u[KPW];
-#pragma unroll
-        for (int j = 0; j < KPW; ++j)
-          u[j] = wb[j] != 0.f ? reinterpret_cast<const uint4*>(values + (size_t)(s0 + j) * Dv)[c]
-                              : make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll
-        for (int j = 0; j < KPW; ++j) {
-          if (wb[j] == 0.f) continue;  // uniform over the warp: one key
-          acc[j] = fmaf(g0.x, bf_lo(u[j].x), acc[j]);
-          acc[j] = fmaf(g0.y, bf_hi(u[j].x), acc[j]);
-          acc[j] = fmaf(g0.z, bf_lo(u[j].y), acc[j]);
-          acc[j] = fmaf(g0.w, bf_hi(u[j].y), acc[j]);
-          acc[j] = fmaf(g1.x, bf_lo(u[j].z), acc[j]);
-          acc[j] = fmaf(g1.y, bf_hi(u[j].z), acc[j]);
-          acc[j] = fmaf(g1.z, bf_lo(u[j].w), acc[j]);
-          acc[j] = fmaf(g1.w, bf_hi(u[j].w), acc[j]);
-          const float ws = bf_round(wb[j]);
-          float4* dv4 = reinterpret_cast<float4*>(dvalues + (size_t)(s0 + j) * Dv) + 2 * c;
-          float4 a0 = dv4[0], a1 = dv4[1];
-          a0.x += bf_round(ws * g0.x); a0.y += bf_round(ws * g0.y);
-          a0.z += bf_round(ws * g0.z); a0.w += bf_round(ws * g0.w);
-          a1.x += bf_round(ws * g1.x); a1.y += bf_round(ws * g1.y);
-          a1.z += bf_round(ws * g1.z); a1.w += bf_round(ws * g1.w);
-          dv4[0] = a0;
-          dv4[1] = a1;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < KPW; ++j) {
-        float a = acc[j];
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
-        if (lane == 0 && s0 + j < S) dsc_s[s0 + j] = bf_round(a);
-      }
-    }
-    __syncthreads();
-  }
-
-  // dsc = w * (dw - sum(w * dw))
-  {
-    float g = 0.f;
-    for (int s = tid; s < S; s += THREADS) g += w[s] * dsc_s[s];
-    g = block_reduce<false>(g, red);
-    for (int s = tid; s < S; s += THREADS) dsc_s[s] = w[s] * (dsc_s[s] - g);
-    __syncthreads();
-  }
-
-  if constexpr (DOT) {
-    // dkeys and dq: a thread per 4 key units, keys over slices
-    const int A4 = A / 4, slices = THREADS / A4;
-    const int c = tid % A4, sl = tid / A4;
-    if (sl < slices) {
-      const float4 qq = reinterpret_cast<const float4*>(q_s)[c];  // bf16(q)
-      const uint2* k2 = reinterpret_cast<const uint2*>(keys) + c;
-      float4* dk4 = reinterpret_cast<float4*>(dkeys) + c;
-      float dq[4] = {0.f, 0.f, 0.f, 0.f};
-      constexpr int KB = 4;  // keys in flight per thread
-      for (int s0 = sl; s0 < S; s0 += KB * slices) {
-        float d[KB];
-        uint2 kk[KB];
-        float4 acc[KB];
-#pragma unroll
-        for (int j = 0; j < KB; ++j) {
-          const int s = s0 + j * slices;
-          d[j] = s < S ? dsc_s[s] : 0.f;
-          if (d[j] != 0.f) {
-            kk[j] = k2[(size_t)s * A4];
-            acc[j] = dk4[(size_t)s * A4];
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < KB; ++j) {
-          if (d[j] == 0.f) continue;
-          dq[0] = fmaf(d[j], bf_lo(kk[j].x), dq[0]);
-          dq[1] = fmaf(d[j], bf_hi(kk[j].x), dq[1]);
-          dq[2] = fmaf(d[j], bf_lo(kk[j].y), dq[2]);
-          dq[3] = fmaf(d[j], bf_hi(kk[j].y), dq[3]);
-          acc[j].x += bf_round(d[j] * qq.x);
-          acc[j].y += bf_round(d[j] * qq.y);
-          acc[j].z += bf_round(d[j] * qq.z);
-          acc[j].w += bf_round(d[j] * qq.w);
-          dk4[(size_t)(s0 + j * slices) * A4] = acc[j];
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) part[sl * A + 4 * c + i] = dq[i];
-    }
-    __syncthreads();
-    for (int a = tid; a < A; a += THREADS) {
-      float x = 0.f;
-      for (int j = 0; j < slices; ++j) x += part[j * A + a];
-      q_s[a] = bf_round(x);  // q is no longer needed: dq, the cast's cotangent
-      dq_out[a] = q_s[a];
-    }
-    __syncthreads();
-  } else {
-    // energies: dkeys, dq, dv; a thread per 4 attention units, keys over slices
-    const int A4 = A / 4, slices = THREADS / A4;
-    const int c = tid % A4, sl = tid / A4;
-    if (sl < slices) {
-      const float4 qq = reinterpret_cast<const float4*>(q_s)[c];
-      const float4 vv = reinterpret_cast<const float4*>(v_s)[c];
-      const float4* k4 = reinterpret_cast<const float4*>(keys) + c;
-      float4* dk4 = reinterpret_cast<float4*>(dkeys) + c;
-      float dq[4] = {0.f, 0.f, 0.f, 0.f}, dv[4] = {0.f, 0.f, 0.f, 0.f};
-      constexpr int KB = 4;  // keys in flight per thread
-      for (int s0 = sl; s0 < S; s0 += KB * slices) {
-        float d[KB];
-        float4 kk[KB], acc[KB];
-#pragma unroll
-        for (int j = 0; j < KB; ++j) {
-          const int s = s0 + j * slices;
-          d[j] = s < S ? dsc_s[s] : 0.f;
-          if (d[j] != 0.f) {
-            kk[j] = k4[(size_t)s * A4];
-            acc[j] = dk4[(size_t)s * A4];
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < KB; ++j) {
-          if (d[j] == 0.f) continue;
-          const float kx[4] = {kk[j].x, kk[j].y, kk[j].z, kk[j].w};
-          const float qx[4] = {qq.x, qq.y, qq.z, qq.w};
-          const float vx[4] = {vv.x, vv.y, vv.z, vv.w};
-          float dp[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float e = tanhf(kx[i] + qx[i]);
-            const float deb = bf_round(d[j] * vx[i]);
-            dp[i] = (deb + deb * e) * (1.0f - e);
-            dq[i] += dp[i];
-            dv[i] = fmaf(d[j], bf_round(e), dv[i]);
-          }
-          acc[j].x += dp[0];
-          acc[j].y += dp[1];
-          acc[j].z += dp[2];
-          acc[j].w += dp[3];
-          dk4[(size_t)(s0 + j * slices) * A4] = acc[j];
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        part[sl * A + 4 * c + i] = dq[i];
-        part[(slices + sl) * A + 4 * c + i] = dv[i];
-      }
-    }
-    __syncthreads();
-    for (int a = tid; a < A; a += THREADS) {
-      float x = 0.f, y = 0.f;
-      for (int j = 0; j < slices; ++j) {
-        x += part[j * A + a];
-        y += part[(slices + j) * A + a];
-      }
-      q_s[a] = x;  // q is no longer needed: dq
-      dq_out[a] = x;
-      dv_acc[a] += y;
-    }
-    __syncthreads();
-  }
-
-  // dquery = bf16(dq @ wq^T): a thread per query unit, its row of wq
-  for (int k = tid; k < Hq; k += THREADS) {
-    const uint4* wr = reinterpret_cast<const uint4*>(wq + (size_t)k * A);
-    float acc = 0.f;
-    for (int c8 = 0; c8 < A / 8; ++c8) {
-      const uint4 u = wr[c8];
-      const float* g = q_s + 8 * c8;
-      acc = fmaf(g[0], bf_lo(u.x), acc);
-      acc = fmaf(g[1], bf_hi(u.x), acc);
-      acc = fmaf(g[2], bf_lo(u.y), acc);
-      acc = fmaf(g[3], bf_hi(u.y), acc);
-      acc = fmaf(g[4], bf_lo(u.z), acc);
-      acc = fmaf(g[5], bf_hi(u.z), acc);
-      acc = fmaf(g[6], bf_lo(u.w), acc);
-      acc = fmaf(g[7], bf_hi(u.w), acc);
-    }
-    dquery[k] = bf_round(acc);
   }
 }
 

@@ -44,15 +44,18 @@ NVCC_FLAGS = (
 # its kernel (one call may issue several grid launches, e.g. one per step).
 # The LSTM kernels count a one-direction scan (G = 1, K2) apart from the
 # direction-fused one (K1); the Bahdanau read kernels count a Luong (dot
-# score) read apart from an additive one.
+# score) read apart from an additive one.  K10's backward counts its
+# per-step kernel per step (``*_attend_bwd``) and the memory's sums per
+# loop (``*_attend_sums``).
 LAUNCHES: Dict[str, int] = {
     "lstm_scan_fwd": 0, "lstm_scan_bwd": 0, "lstm_scan_uni_fwd": 0, "lstm_scan_uni_bwd": 0,
     "logmel_post_dft": 0,
     "fusion_attention_fwd": 0, "fusion_attention_bwd": 0,
     "decoder_attention_fwd": 0, "decoder_attention_bwd": 0,
     "decode_attention": 0, "beam_step": 0, "av_align_scan": 0, "av_align_scan_bwd": 0,
-    "bahdanau_attend": 0, "bahdanau_attend_bwd": 0, "av_align_scan_luong": 0,
-    "av_align_scan_luong_bwd": 0, "luong_attend": 0, "luong_attend_bwd": 0,
+    "bahdanau_attend": 0, "bahdanau_attend_bwd": 0, "bahdanau_attend_sums": 0,
+    "av_align_scan_luong": 0, "av_align_scan_luong_bwd": 0, "luong_attend": 0,
+    "luong_attend_bwd": 0, "luong_attend_sums": 0,
     "encoder_attention_fwd": 0, "encoder_attention_bwd": 0, "conformer_conv_fwd": 0,
     "conformer_conv_bwd": 0,
 }
@@ -212,10 +215,14 @@ def _load() -> ctypes.CDLL:
         lib.avsr_bahdanau_smem.restype = ctypes.c_longlong
         lib.avsr_bahdanau_attend.argtypes = [p] * 9 + [i] * 6 + [p]
         lib.avsr_bahdanau_attend.restype = i
-        lib.avsr_bahdanau_bwd_smem.argtypes = [i, i, i, i]
-        lib.avsr_bahdanau_bwd_smem.restype = ctypes.c_longlong
-        lib.avsr_bahdanau_attend_bwd.argtypes = [p] * 12 + [i] * 6 + [p]
-        lib.avsr_bahdanau_attend_bwd.restype = i
+        lib.avsr_attend_step_bwd_smem.argtypes = [i] * 4
+        lib.avsr_attend_step_bwd_smem.restype = ctypes.c_longlong
+        lib.avsr_attend_step_bwd_max_active.argtypes = [i] * 5
+        lib.avsr_attend_step_bwd_max_active.restype = i
+        lib.avsr_attend_step_bwd.argtypes = [p] * 13 + [i] * 6 + [p]
+        lib.avsr_attend_step_bwd.restype = i
+        lib.avsr_attend_loop_sums.argtypes = [p] * 8 + [i] * 6 + [p]
+        lib.avsr_attend_loop_sums.restype = i
         lib.avsr_encoder_attn_smem.argtypes = [i, i]
         lib.avsr_encoder_attn_smem.restype = ctypes.c_longlong
         lib.avsr_encoder_attn_fwd.argtypes = [p] * 5 + [i] * 4 + [p]
@@ -1009,37 +1016,105 @@ def bahdanau_attend(query, wq, v, keys, values, bias, mask):
     return ctx, weights
 
 
-def bahdanau_attend_bwd(query, wq, v, keys, values, weights, dctx):
-    """K10: the backward of one read per row (CUDA): Bahdanau, or with ``v``
-    None Luong, counted as ``luong_attend_bwd``.
+def attend_bwd_info(Hq: int, A: int, S: int, Dv: int, dot: bool) -> Dict[str, int]:
+    """K10's per-step backward at these widths: its shared memory per CTA in
+    bytes (-1 for a shape it does not take) and the clusters (rows, two CTAs
+    each) that can be resident at once."""
+    lib = _load()
+    return {"smem": int(lib.avsr_attend_step_bwd_smem(Hq, A, S, Dv)),
+            "max_active_clusters": int(lib.avsr_attend_step_bwd_max_active(
+                Hq, A, S, Dv, int(dot)))}
+
+
+def attend_step_bwd(query, wq, v, keys, values, weights, dctx, dsc, dctx_out, q, dq, dv):
+    """K10: one step of the read loop's backward (CUDA), Bahdanau, or with
+    ``v`` None Luong, counted as ``luong_attend_bwd``.
 
     The forward's query [N,Hq] f32, wq [Hq,A] bf16, v [A] bf16 (None:
     Luong), keys [N,S,A] (f32; Luong bf16), values [N,S,Dv] bf16, its
-    weights [N,S] f32 and the context cotangent dctx [N,Dv] f32 -> (dquery
-    [N,Hq], dq [N,A], dv_rows [N,A] (None for Luong), dkeys [N,S,A],
-    dvalues [N,S,Dv]), all fp32; dq and dv_rows are the per-row factors of
-    dwq and dv (``ops/attention.py``).
+    weights [N,S] f32 and the context cotangent dctx [N,Dv] f32 -> dquery
+    [N,Hq] f32; writes the step's rows (slot k of the loop's buffers, each
+    contiguous fp32): dsc [N,S], dctx_out [N,Dv], q [N,A] (Luong: bf16(q)),
+    dq [N,A] and dv [N,A] (None for Luong).  No memory-sized gradient.  A
+    cluster of two CTAs a row.
     """
-    N, Hq, S, A, Dv, dev = _check_bahdanau("bahdanau attend bwd", query, wq, v, keys, values,
-                                           "avsr_bahdanau_bwd_smem", values.shape[-1])
+    N, Hq, S, A, Dv, dev = _check_bahdanau("attend step bwd", query, wq, v, keys, values,
+                                           "avsr_bahdanau_smem")
     f32 = torch.float32
     _check("weights", weights, f32, (N, S), dev)
     _check("dctx", dctx, f32, (N, Dv), dev)
+    for name, x, shape in (("dsc", dsc, (N, S)), ("dctx_out", dctx_out, (N, Dv)),
+                           ("q", q, (N, A)), ("dq", dq, (N, A))):
+        _check(name, x, f32, shape, dev, align=4)
+    if (v is None) != (dv is None):
+        raise ValueError("attend step bwd: dv rows go with v (Bahdanau) and only with it")
+    if dv is not None:
+        _check("dv", dv, f32, (N, A), dev, align=4)
     lib = _load()
+    if lib.avsr_attend_step_bwd_smem(Hq, A, S, Dv) < 0:
+        raise ValueError(f"attend step bwd: Hq={Hq}, A={A}, S={S}, Dv={Dv} is not a shape the "
+                         f"kernel takes")
     dquery = torch.empty((N, Hq), dtype=f32, device=dev)
-    dq = torch.empty((N, A), dtype=f32, device=dev)
-    dv_rows = None if v is None else torch.zeros((N, A), dtype=f32, device=dev)
-    dkeys = torch.zeros((N, S, A), dtype=f32, device=dev)
-    dvalues = torch.zeros((N, S, Dv), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.avsr_bahdanau_attend_bwd(
+    err = lib.avsr_attend_step_bwd(
         query.data_ptr(), wq.data_ptr(), _ptr(v), keys.data_ptr(), values.data_ptr(),
-        weights.data_ptr(), dctx.data_ptr(), dquery.data_ptr(), dq.data_ptr(),
-        _ptr(dv_rows), dkeys.data_ptr(), dvalues.data_ptr(), N, Hq, A, S, Dv, int(v is None),
-        stream)
-    _raise_on(err, "bahdanau_attend_bwd launch")
+        weights.data_ptr(), dctx.data_ptr(), dquery.data_ptr(), dsc.data_ptr(),
+        dctx_out.data_ptr(), q.data_ptr(), dq.data_ptr(), _ptr(dv), N, Hq, A, S, Dv,
+        int(v is None), stream)
+    _raise_on(err, "attend_step_bwd launch")
     LAUNCHES["bahdanau_attend_bwd" if v is not None else "luong_attend_bwd"] += 1
-    return dquery, dq, dv_rows, dkeys, dvalues
+    return dquery
+
+
+def attend_sums_family(A: int, Dv: int) -> str:
+    """The route of a read loop's memory sums, by width alone: the tensor-core
+    sums of ``av_align_bwd.cuh`` (``"tensor_core"``) where A and Dv are
+    multiples of 64, else the CUDA-core kernel of ``bahdanau_attend.cu``
+    (``"cuda_core"``)."""
+    return "tensor_core" if A % 64 == 0 and Dv % 64 == 0 else "cuda_core"
+
+
+def attend_loop_sums(keys, v, weights, q, dsc, dctx):
+    """K10: the memory's gradients of a read loop of K steps (CUDA), once
+    after its last step; Bahdanau, or with ``v`` None Luong, counted as
+    ``luong_attend_sums``.
+
+    keys [N,S,A] (f32; Luong bf16, unused), v [A] bf16 (None: Luong), and
+    the loop's rows: the forward's weights [K,N,S], q [K,N,A] (Luong:
+    bf16(q)), dsc [K,N,S], dctx [K,N,Dv], all f32 -> (dkeys [N,S,A], dvalues
+    [N,S,Dv]) f32, each element written once: the steps' terms summed in a
+    fixed order.  Routed by ``attend_sums_family``.
+    """
+    K, N, S = weights.shape
+    A, Dv = q.shape[-1], dctx.shape[-1]
+    dev = weights.device
+    f32 = torch.float32
+    _check("keys", keys, f32 if v is not None else torch.bfloat16, (N, S, A), dev)
+    if v is not None:
+        _check("v", v, torch.bfloat16, (A,), dev)
+    for name, x, shape in (("weights", weights, (K, N, S)), ("q", q, (K, N, A)),
+                           ("dsc", dsc, (K, N, S)), ("dctx", dctx, (K, N, Dv))):
+        _check(name, x, f32, shape, dev)
+    if A % 8 or Dv % 8:
+        raise ValueError(f"attend loop sums: A={A} and Dv={Dv} must be multiples of 8")
+    lib = _load()
+    dkeys = torch.empty((N, S, A), dtype=f32, device=dev)
+    dvalues = torch.empty((N, S, Dv), dtype=f32, device=dev)
+    dot = int(v is None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if attend_sums_family(A, Dv) == "tensor_core":
+        dv_part = None if dot else torch.empty((N, -(-S // 32), A), dtype=f32, device=dev)
+        err = lib.avsr_av_align_bwd_sums(
+            keys.data_ptr(), _ptr(v), weights.data_ptr(), q.data_ptr(), dsc.data_ptr(),
+            dctx.data_ptr(), dkeys.data_ptr(), dvalues.data_ptr(), _ptr(dv_part), K, N, A, S, Dv,
+            dot, stream)
+    else:
+        err = lib.avsr_attend_loop_sums(
+            keys.data_ptr(), _ptr(v), weights.data_ptr(), q.data_ptr(), dsc.data_ptr(),
+            dctx.data_ptr(), dkeys.data_ptr(), dvalues.data_ptr(), K, N, A, S, Dv, dot, stream)
+    _raise_on(err, "attend_loop_sums launch")
+    LAUNCHES["bahdanau_attend_sums" if v is not None else "luong_attend_sums"] += 1
+    return dkeys, dvalues
 
 
 def _check_encoder_attention(qkv, lengths, dev):

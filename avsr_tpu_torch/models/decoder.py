@@ -104,10 +104,13 @@ def prepare_cross(params: Params, cfg: DecoderConfig,
 
 def decoder_step(params: Params, cfg: DecoderConfig, tokens: torch.Tensor, state,
                  memories: Sequence[attn.AttentionMemory], cross_kv, cdt: torch.dtype, *,
-                 dropout_masks: Optional[Sequence[torch.Tensor]] = None):
+                 dropout_masks: Optional[Sequence[torch.Tensor]] = None,
+                 read_loops: Optional[Sequence[Optional[attn.ReadLoop]]] = None):
     """One decode step for every row: (new state, fp32 logits [N, V]).
     ``dropout_masks`` (RNN decoder, training): one [N, H] mask per layer,
-    multiplied into that layer's output; the state keeps the undropped h."""
+    multiplied into that layer's output; the state keeps the undropped h.
+    ``read_loops`` (RNN decoder, training): per memory the read loop this
+    step's read belongs to (``attn.open_read_loop``), or None."""
     if _is_transformer(cfg):
         return tdec.decode_step(params, cfg, tokens, state, memories, cross_kv, cdt)
     x = torch.cat([params["embedding"][tokens], *state.contexts], dim=-1)
@@ -118,8 +121,9 @@ def decoder_step(params: Params, cfg: DecoderConfig, tokens: torch.Tensor, state
         new_lstm.append((h, c))
         if dropout_masks is not None:
             h = h * dropout_masks[li]
-    contexts = tuple(attn.attend(cfg.attention_type, att, h, mem, cdt)[0]
-                     for att, mem in zip(params["atts"], memories))
+    loops = read_loops or (None,) * len(memories)
+    contexts = tuple(attn.attend(cfg.attention_type, att, h, mem, cdt, loop=loop)[0]
+                     for att, mem, loop in zip(params["atts"], memories, loops))
     logits = dot_f32(torch.cat([h, *contexts], dim=-1), params["out_w"], cdt) + params["out_b"]
     return DecoderState(lstm=tuple(new_lstm), contexts=contexts), logits
 
@@ -147,7 +151,8 @@ def teacher_forced_logits(params: Params, cfg: DecoderConfig, targets: torch.Ten
     probability p > 0 (a host float: the train step's ramp), each row's
     input after step 0 is, with probability p, the model's own sample of
     the previous step's logits; with ``dropout`` and a generator, one
-    variational-dropout mask [B, H] per layer for the whole sequence."""
+    variational-dropout mask [B, H] per layer for the whole sequence.  Under
+    autograd each memory's K reads form one read loop."""
     if _is_transformer(cfg):
         return tdec.teacher_forced_logits(params, cfg, targets, target_lengths, memories, cdt,
                                           generator=generator, dropout=dropout)
@@ -160,6 +165,8 @@ def teacher_forced_logits(params: Params, cfg: DecoderConfig, targets: torch.Ten
         keep = 1.0 - cfg.dropout_rate
         masks = tuple(rng.dropout_mask(generator, keep, (B, h)) for h in cfg.hidden_units)
     sampling = generator is not None and sampling_probability > 0.0
+    loops = tuple(attn.open_read_loop(cfg.attention_type, att, mem, cdt, K)
+                  for att, mem in zip(params["atts"], memories))
     tok = torch.full((B,), GO_ID, dtype=torch.long, device=dev)
     logits = []
     for k in range(K):
@@ -169,7 +176,7 @@ def teacher_forced_logits(params: Params, cfg: DecoderConfig, targets: torch.Ten
                 coin = torch.rand((B,), generator=generator, device=dev) < sampling_probability
                 tok = torch.where(coin, sampled, tok)
         state, step_logits = decoder_step(params, cfg, tok, state, memories, None, cdt,
-                                          dropout_masks=masks)
+                                          dropout_masks=masks, read_loops=loops)
         logits.append(step_logits)
         if sampling:
             sampled = gumbel_max(generator, step_logits)

@@ -20,13 +20,25 @@ Per row, under the bf16 policy:
     weights = softmax(scores) * mask, renormalized, times min(sum(mask), 1)
     context = bf16(weights) @ bf16(values)                 (fp32)
 
-so a memory of length 0 gives zero weights and a zero context.  When
-autograd records a gradient, ``attend`` goes through ``BahdanauAttend``,
-whose backward is K10's backward kernel on a GPU and ``attend_bwd_plain``
-(the hand-derived gradient JAX's autodiff takes through the read, with its
-rounding points) on the CPU.  The backward recomputes q (and the Bahdanau
-energies) from the query, as the reference's ``jax.checkpoint`` does: the
-tanh tensor is never saved.  ``attend_batched_queries`` is not ported.
+so a memory of length 0 gives zero weights and a zero context.
+
+When autograd records a gradient, the reads of one memory form a read loop
+(``open_read_loop``; the teacher-forced decoder opens one per memory over
+its K label positions, and a read outside a loop is a loop of one step),
+as the reference differentiates ``attend`` inside its scan with the memory
+closed over.  The loop casts the kernels' operands once.  Each read is a
+``BahdanauAttend`` step; its backward (``read_step_bwd``: K10's per-step
+kernel on a GPU, the plain mirror on the CPU) recomputes q (and the
+Bahdanau energies) from the query, as the reference's ``jax.checkpoint``
+does, returns dquery and saves the step's rows (the scores' cotangent, the
+context's cotangent, q and the weight factors).  Once the last step's
+backward has run, the loop's entry node forms the memory's gradients from
+the rows (``read_loop_sums``: the sums kernels, or the mirror) and the
+weight gradients as one product over the steps, so no step forms a
+memory-sized gradient.  ``attend_bwd_plain`` is the per-step twin (the
+hand-derived gradient JAX's autodiff takes through one read, with its
+rounding points) against which the tests hold the loop.
+``attend_batched_queries`` is not ported.
 """
 
 from __future__ import annotations
@@ -215,40 +227,226 @@ def attention_weight_grads(query: torch.Tensor, dq: torch.Tensor,
     return dwq, None if dv_rows is None else dv_rows.reshape(-1, A).sum(dim=0)
 
 
-def attend_bwd(attention_type: str, params: Params, query: torch.Tensor, mem: AttentionMemory,
-               weights: torch.Tensor, dctx: torch.Tensor, cdt: torch.dtype):
-    """K10 backward wrapper: the CUDA kernel for GPU tensors, the plain
-    version on the CPU; same contract as ``attend_bwd_plain``."""
-    if query.device.type == "cpu":
-        return attend_bwd_plain(attention_type, params, query, mem, weights, dctx, cdt)
-    _check_type(attention_type)
-    _check_policy(cdt)
-    return kernels.bahdanau_attend_bwd(
-        query.float().contiguous(), *kernel_operands(attention_type, params, mem),
-        weights.float().contiguous(), dctx.float().contiguous())
-
-
 def _check_policy(cdt: torch.dtype) -> None:
     if cdt != torch.bfloat16:
         raise ValueError(f"the attention read kernels run the bf16 policy only, got {cdt}")
 
 
-class BahdanauAttend(torch.autograd.Function):
-    """K10 with its gradient: (context, weights) from the query, wq, v
-    (None for Luong) and the memory's keys and values, for either score
-    (``attention_type``, a non-tensor argument).  The weights feed no loss:
-    they are marked non-differentiable, and a gradient arriving for them
-    raises.  A Luong memory without ``wv`` passes one tensor as keys and
-    values: its gradient is dkeys + dvalues, which autograd adds."""
+class LoopState:
+    """What the steps of one memory's read loop share (``open_read_loop``):
+    the kernels' operands, cast once (``kernel_operands``), the steps'
+    queries and weights, and the saved buffers, each [steps, N, *] fp32, of
+    which a step's backward writes slot k: the scores' cotangent ``dsc``,
+    the context's cotangent ``dctx``, ``q`` (Luong: bf16(q)), the weight
+    factors ``dq`` and, for Bahdanau, ``dv_rows``.  It holds no tensor that
+    carries a grad_fn (so no reference cycle through the graph)."""
+
+    def __init__(self, attention_type: str, mem: AttentionMemory, cdt: torch.dtype, steps: int):
+        _check_type(attention_type)
+        self.attention_type, self.cdt, self.steps = attention_type, cdt, steps
+        self.mask, self.bias = mem.mask.detach(), mem.bias.detach()
+        # one memory tensor as keys and values (a Luong memory without wv)
+        self.shared = mem.keys is mem.values
+        self.n = 0  # steps read so far
+        self.queries = [None] * steps
+        self.weights = [None] * steps
+        self.done = [False] * steps
+        N, S = mem.mask.shape
+        A, Dv = mem.keys.shape[-1], mem.values.shape[-1]
+        dev = mem.values.device
+
+        def empty(*shape):
+            return torch.empty((steps, *shape), dtype=torch.float32, device=dev)
+
+        self.dsc, self.dctx, self.q, self.dq = empty(N, S), empty(N, Dv), empty(N, A), empty(N, A)
+        self.dv_rows = None if attention_type == "luong" else empty(N, A)
+        self.params = self.mem = self.operands = None  # set by bind
+
+    def bind(self, keys: torch.Tensor, values: torch.Tensor, wq: torch.Tensor,
+             v: Optional[torch.Tensor]) -> None:
+        """The reads' operands (detached), and the kernels' cast once."""
+        values_d = values.detach()
+        keys_d = values_d if keys is values else keys.detach()  # one cast serves both
+        self.mem = AttentionMemory(values=values_d, keys=keys_d, mask=self.mask, bias=self.bias)
+        self.params = {"wq": wq.detach(), "v": None if v is None else v.detach()}
+        if values.device.type != "cpu":
+            _check_policy(self.cdt)
+            self.operands = kernel_operands(self.attention_type, self.params, self.mem)
+
+    def next_step(self) -> int:
+        if self.n == self.steps:
+            raise RuntimeError(f"the read loop was opened for {self.steps} steps")
+        self.n += 1
+        return self.n - 1
+
+
+class ReadLoop(NamedTuple):
+    """One memory's reads over a loop of up to ``steps`` steps under autograd
+    (the teacher-forced decoder's K label positions; a read outside a loop
+    is a loop of one step).  Opening it enters the memory and the read's
+    weights into the graph through one ``_ReadLoopEnter`` node, whose
+    output ``token`` every step's ``BahdanauAttend`` takes.  A step's
+    backward writes its rows of the state's buffers and returns only
+    dquery; autograd calls the entry node's backward once, after the last
+    step's, and it forms the memory's and the weights' gradients from the
+    rows (``loop_gradients``)."""
+
+    state: LoopState
+    token: torch.Tensor
+
+
+class _ReadLoopEnter(torch.autograd.Function):
+    """The memory (keys, values) and the read's weights (wq, v) entering a
+    ``ReadLoop``: forward casts the operands once and returns an empty
+    token; backward, called once after every step's, returns the loop's
+    summed gradients (the steps return none for these inputs)."""
 
     @staticmethod
-    def forward(ctx, attention_type, query, wq, v, keys, values, bias, mask, cdt):
-        mem = AttentionMemory(values=values, keys=keys, mask=mask, bias=bias)
-        out, w = attend_fwd(attention_type, {"wq": wq, "v": v}, query, mem, cdt)
-        ctx.save_for_backward(query, wq, v, keys, values, bias, mask, w)
+    def forward(ctx, loop, keys, values, wq, v):
+        keys = values if keys is None else keys
+        loop.bind(keys, values, wq, v)
+        ctx.loop = loop
+        ctx.dtypes = (keys.dtype, values.dtype, wq.dtype, None if v is None else v.dtype)
+        ctx.set_materialize_grads(False)
+        return values.new_empty((0,))
+
+    @staticmethod
+    def backward(ctx, _):
+        dkeys, dvalues, dwq, dv = loop_gradients(ctx.loop)
+        kd, vd, wd, dvd = ctx.dtypes
+        if ctx.loop.shared:
+            return None, None, (dkeys + dvalues).to(vd), dwq.to(wd), None
+        return (None, dkeys.to(kd), dvalues.to(vd), dwq.to(wd),
+                None if dv is None else dv.to(dvd))
+
+
+def loop_gradients(loop: LoopState):
+    """(dkeys, dvalues, dwq, dv) of a loop's steps so far, fp32: a step
+    whose backward did not run (its context reached no loss) adds nothing.
+    The memory's are the sums after the loop (``read_loop_sums``); the
+    weights' are one product over the steps, each step's rounded to the
+    compute dtype before the steps are summed, as the reference's
+    transposed casts round them inside its scan."""
+    n, cdt = loop.n, loop.cdt
+    for k in range(n):
+        if not loop.done[k]:
+            for buf in (loop.dsc, loop.dctx, loop.q, loop.dq, loop.dv_rows):
+                if buf is not None:
+                    buf[k].zero_()
+    loop.done = [False] * loop.steps  # a second backward through the graph rewrites every row
+    dkeys, dvalues = read_loop_sums(loop)
+    queries = torch.stack(loop.queries[:n]).to(cdt).float()          # [n, N, Hq]
+    dwq = rounded(torch.bmm(queries.transpose(1, 2), loop.dq[:n]), cdt).sum(dim=0)
+    dv = None
+    if loop.dv_rows is not None:
+        dv = rounded(loop.dv_rows[:n].sum(dim=1), cdt).sum(dim=0)
+    return dkeys, dvalues, dwq, dv
+
+
+def read_fwd_plain(loop: LoopState, query: torch.Tensor):
+    """A loop step's read, plain: ``attend_plain`` on the loop's memory."""
+    return attend_plain(loop.attention_type, loop.params, query, loop.mem, loop.cdt)
+
+
+def read_fwd(loop: LoopState, query: torch.Tensor):
+    """A loop step's read: K10's forward kernel on the loop's operands (cast
+    once) for GPU tensors, ``read_fwd_plain`` on the CPU."""
+    if query.device.type == "cpu":
+        return read_fwd_plain(loop, query)
+    return kernels.bahdanau_attend(query.float().contiguous(), *loop.operands,
+                                   loop.bias.float().contiguous(),
+                                   loop.mask.float().contiguous())
+
+
+def read_step_bwd_plain(loop: LoopState, k: int, query: torch.Tensor, weights: torch.Tensor,
+                        dctx: torch.Tensor) -> torch.Tensor:
+    """Plain mirror of K10's per-step backward kernel: ``attend_bwd_plain``
+    without the memory's gradients.  Writes step k's rows of the loop's
+    buffers (dsc, dctx, q (Luong: bf16(q)), dq, dv_rows) and returns
+    dquery [N, Hq] fp32."""
+    typ, cdt, params, mem = loop.attention_type, loop.cdt, loop.params, loop.mem
+    dctx = dctx.float()
+    q = dot_f32(query, params["wq"], cdt)
+    dw = rounded(torch.einsum("nd,nsd->ns", dctx, mem.values.to(cdt).float()), cdt)
+    dsc = weights * (dw - (weights * dw).sum(dim=-1, keepdim=True))
+    if typ == "luong":
+        q = rounded(q, cdt)
+        dq = rounded(torch.einsum("ns,nsh->nh", dsc, mem.keys.to(cdt).float()), cdt)
+    else:
+        e = torch.tanh(mem.keys.float() + q[:, None, :])
+        deb = rounded(dsc[:, :, None] * params["v"].to(cdt).float(), cdt)
+        dq = ((deb + deb * e) * (1.0 - e)).sum(dim=1)
+        loop.dv_rows[k] = torch.einsum("nsa,ns->na", e.to(cdt).float(), dsc)
+    loop.dsc[k], loop.dctx[k], loop.q[k], loop.dq[k] = dsc, dctx, q, dq
+    return rounded(dq @ params["wq"].to(cdt).float().t(), cdt)
+
+
+def read_step_bwd(loop: LoopState, k: int, query: torch.Tensor, weights: torch.Tensor,
+                  dctx: torch.Tensor) -> torch.Tensor:
+    """K10's per-step backward: the CUDA kernel for GPU tensors, the plain
+    mirror on the CPU; same contract as ``read_step_bwd_plain``."""
+    if query.device.type == "cpu":
+        return read_step_bwd_plain(loop, k, query, weights, dctx)
+    return kernels.attend_step_bwd(
+        query.float().contiguous(), *loop.operands, weights.float().contiguous(),
+        dctx.float().contiguous(), loop.dsc[k], loop.dctx[k], loop.q[k], loop.dq[k],
+        None if loop.dv_rows is None else loop.dv_rows[k])
+
+
+def read_loop_sums_plain(loop: LoopState):
+    """Plain mirror of the sums after the loop: (dkeys [N,S,A], dvalues
+    [N,S,Dv]) fp32 over the loop's n steps so far, each term formed exactly
+    and summed in fp32 (the reference rounds each step's dvalues, and
+    Luong's dkeys, term to the compute dtype):
+
+        dvalues = sum_k bf16(w[k])^T (x) dctx[k]
+        Luong dkeys = sum_k dsc[k]^T (x) bf16(q[k])
+        Bahdanau dkeys = sum_k (deb + deb * e) * (1 - e),  e = tanh(keys + q[k]),
+            deb = bf16(dsc[k] * bf16(v))
+    """
+    n, cdt = loop.n, loop.cdt
+    w = torch.stack(loop.weights[:n]).to(cdt).float()
+    dvalues = torch.einsum("kns,knd->nsd", w, loop.dctx[:n])
+    if loop.attention_type == "luong":
+        return torch.einsum("kns,kna->nsa", loop.dsc[:n], loop.q[:n]), dvalues
+    keys = loop.mem.keys.float()
+    v_c = loop.params["v"].to(cdt).float()
+    dkeys = torch.zeros_like(keys)
+    for k in range(n):
+        e = torch.tanh(keys + loop.q[k][:, None, :])
+        deb = rounded(loop.dsc[k][:, :, None] * v_c, cdt)
+        dkeys += (deb + deb * e) * (1.0 - e)
+    return dkeys, dvalues
+
+
+def read_loop_sums(loop: LoopState):
+    """The memory's gradients of a loop, once after its last step: the sums
+    kernels (``kernels.attend_loop_sums``) for GPU tensors, the plain
+    mirror on the CPU; same contract as ``read_loop_sums_plain``."""
+    if loop.dsc.device.type == "cpu":
+        return read_loop_sums_plain(loop)
+    n = loop.n
+    wq, v, keys, values = loop.operands
+    return kernels.attend_loop_sums(
+        keys, v, torch.stack(loop.weights[:n]), loop.q[:n], loop.dsc[:n], loop.dctx[:n])
+
+
+class BahdanauAttend(torch.autograd.Function):
+    """One step of a ``ReadLoop`` (either score): (context, weights) from the
+    loop's state, the query and the loop's token.  Its backward runs the per-step backward
+    (``read_step_bwd``), which writes the step's rows of the loop's buffers,
+    and returns dquery only: the memory's and the weights' gradients come
+    from the loop's entry node, once.  The weights feed no loss: they are
+    marked non-differentiable, and a gradient arriving for them raises."""
+
+    @staticmethod
+    def forward(ctx, loop, query, token):
+        k = loop.next_step()
+        out, w = read_fwd(loop, query)
+        loop.queries[k], loop.weights[k] = query.detach(), w
+        ctx.loop, ctx.k = loop, k
         ctx.mark_non_differentiable(w)
         ctx.set_materialize_grads(False)
-        ctx.cdt, ctx.attention_type = cdt, attention_type
         return out, w
 
     @staticmethod
@@ -256,29 +454,41 @@ class BahdanauAttend(torch.autograd.Function):
         if dw is not None:
             raise RuntimeError("the attention weights take no gradient")
         if dctx is None:
-            return (None,) * 9
-        query, wq, v, keys, values, bias, mask, w = ctx.saved_tensors
-        mem = AttentionMemory(values=values, keys=keys, mask=mask, bias=bias)
-        dquery, dq, dv_rows, dkeys, dvalues = attend_bwd(
-            ctx.attention_type, {"wq": wq, "v": v}, query, mem, w, dctx, ctx.cdt)
-        dwq, dv = attention_weight_grads(query, dq, dv_rows, ctx.cdt)
-        # the cotangents of the reference's casts to the compute dtype
-        dwq = rounded(dwq, ctx.cdt).to(wq.dtype)
-        dv = None if dv is None else rounded(dv, ctx.cdt).to(v.dtype)
-        return (None, dquery.to(query.dtype), dwq, dv, dkeys.to(keys.dtype),
-                dvalues.to(values.dtype), None, None, None)
+            return None, None, None
+        loop, k = ctx.loop, ctx.k
+        query = loop.queries[k]
+        dquery = read_step_bwd(loop, k, query, loop.weights[k], dctx)
+        loop.done[k] = True
+        return None, dquery.to(query.dtype), None
+
+
+def open_read_loop(attention_type: str, params: Params, mem: AttentionMemory, cdt: torch.dtype,
+                   steps: int, query: Optional[torch.Tensor] = None) -> Optional[ReadLoop]:
+    """A ``ReadLoop`` of up to ``steps`` reads of ``mem`` when autograd
+    records a gradient for the memory, the read's weights or ``query``, else
+    None (the reads then need none of it).  When only the query takes one,
+    the token carries no graph and the steps return dquery alone."""
+    if not (torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (params["wq"], params.get("v"), mem.keys, mem.values, query))):
+        return None
+    state = LoopState(attention_type, mem, cdt, steps)
+    token = _ReadLoopEnter.apply(state, None if state.shared else mem.keys, mem.values,
+                                 params["wq"], params.get("v"))
+    return ReadLoop(state, token)
 
 
 def attend(attention_type: str, params: Params, query: torch.Tensor, mem: AttentionMemory,
-           cdt: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K10 as the decoder calls it: through ``BahdanauAttend`` when autograd
-    records a gradient for the query, the parameters or the memory, else
-    straight to the forward wrapper; same contract as ``attend_plain``."""
+           cdt: torch.dtype, *, loop: Optional[ReadLoop] = None) -> Tuple[torch.Tensor,
+                                                                           torch.Tensor]:
+    """K10 as the decoder calls it: a step of ``loop`` (opened on the same
+    params and memory) when one is given; through a loop of one step when
+    autograd records a gradient for the query, the parameters or the
+    memory; else straight to the forward wrapper.  Same contract as
+    ``attend_plain``."""
     _check_type(attention_type)
-    v = params.get("v")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (query, params["wq"], v, mem.keys, mem.values)):
-        return BahdanauAttend.apply(attention_type, query, params["wq"], v, mem.keys,
-                                    mem.values, mem.bias, mem.mask, cdt)
+    if loop is None:
+        loop = open_read_loop(attention_type, params, mem, cdt, 1, query)
+    if loop is not None:
+        return BahdanauAttend.apply(loop.state, query, loop.token)
     return attend_fwd(attention_type, params, query, mem, cdt)

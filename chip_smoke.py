@@ -115,9 +115,17 @@ Phases, in order; any failure exits nonzero before the final line:
              the recurrence's max active clusters; times, the device ms of
              its three stages apart (the regate and the queries, the
              recurrence, the memory's gradients) and the bound.
-18. K10 bwd — the Bahdanau read's backward against its plain twin at N=128,
-             S=197, A=128, Dv=768 with a length-0 row (exactly zero
-             gradients): errors on dquery, dkeys, dvalues, dwq, dv; times.
+18. K10 bwd — the Bahdanau read's backward as the teacher-forced loop runs
+             it: a K=80 read loop at N=128, S=197, A=128, Dv=768 with a
+             length-0 row, each step's kernel (dquery and the saved rows
+             dsc, dctx, q, dq, dv) in reverse order, then the memory's sums
+             once (``av_align_bwd.cuh``'s, routed by width), against the
+             plain mirror on the same weights: errors on dquery, the rows,
+             dkeys, dvalues, dwq, dv; the length-0 row's exactly zero; a
+             second run bit-equal; one loop at S=531 (N=16, K=8); registers
+             and spills of every instance, the shared memory and max active
+             clusters (two CTAs a row); a step's device ms and the sums' per
+             loop, beside their bounds.
 19. train-align — the full-width ``lrs2_av_align`` train step at B=128,
              6 s, label cap 80, AU targets, dropout 0.1, noise mixing on,
              as phase 8: (a) with scheduled sampling off, the loss and every
@@ -186,11 +194,11 @@ Phases, in order; any failure exits nonzero before the final line:
              must return as hT/cT, passing dhT/dcT through to dh0/dc0):
              errors on ys, hT, cT and dWh, db, dxw, dh0, dc0; two launches
              bit-equal; times, device times, per-step us and the bounds.
-29. K10 Luong — the Luong read (the dot score of ``bahdanau_core.cuh``),
-             forward and backward, against the plain twins at N=80 and 128,
-             S=197, Hk=Dv=512 (one bf16 memory as keys and values), with a
-             length-0 row (zero context, weights and gradients required);
-             times and the bounds.
+29. K10 Luong — the Luong read (the dot score of ``bahdanau_core.cuh``)
+             against the plain twin at N=80 and 128, S=197, Hk=Dv=512 (one
+             bf16 memory as keys and values), with a length-0 row (zero
+             context and weights required); its backward as phase 18's
+             read loop (K=80 at N=128, and S=531); times and the bounds.
 30. K8 Luong — the AV-Align fusion scan's Luong instance at [T_a=197, B=8
              and 128, H=256, T_v=150, Hk=Dv=256], ragged with a 0-length
              audio and video row, and its backward at B=128 and at the 16 s
@@ -214,7 +222,9 @@ Phases, in order; any failure exits nonzero before the final line:
              instance, on the CUDA-core kernels through the module's
              autograd Function, forward and backward, against the plain
              twins: K11 at dh=32 (d=512, 16 heads), K4 at A=dv=64, K5's self
-             attention at dh=32 and its cross attention at (64, 128).
+             attention at dh=32 and its cross attention at (64, 128); K10's
+             read loop (both reads) at widths whose memory sums take the
+             CUDA-core kernel (A=40, Dv=72; Luong Hk=Dv=72).
 36. LSTM step route — the per-step LSTM kernels at a width the cluster
              kernels do not take (H=512: the [512 x 256] Wh slice, 256 KB,
              does not fit one CTA of an 8-CTA cluster; ``lstm_family``
@@ -364,7 +374,8 @@ SERVE_ALIGN_KERNELS = ("lstm_scan_fwd", "logmel_post_dft", "av_align_scan", "bah
                        "beam_step")
 GREEDY_ALIGN_KERNELS = ("bahdanau_attend",)
 TRAIN_ALIGN_KERNELS = ("lstm_scan_fwd", "lstm_scan_bwd", "logmel_post_dft", "av_align_scan",
-                       "av_align_scan_bwd", "bahdanau_attend", "bahdanau_attend_bwd")
+                       "av_align_scan_bwd", "bahdanau_attend", "bahdanau_attend_bwd",
+                       "bahdanau_attend_sums")
 # the keys every phase's report entry has; any other (what a library call
 # covers, a second shape's times) is carried into the kernels line as is
 REPORT_KEYS = ("max_abs_err", "ms", "plain_ms", "bound", "library_ms", "device_ms")
@@ -378,7 +389,7 @@ SERVE_UL_KERNELS = ("lstm_scan_uni_fwd", "logmel_post_dft", "av_align_scan_luong
 GREEDY_UL_KERNELS = ("luong_attend",)
 TRAIN_UL_KERNELS = ("lstm_scan_uni_fwd", "lstm_scan_uni_bwd", "logmel_post_dft",
                     "av_align_scan_luong", "av_align_scan_luong_bwd", "luong_attend",
-                    "luong_attend_bwd")
+                    "luong_attend_bwd", "luong_attend_sums")
 
 
 def fail(phase: str, msg: str) -> None:
@@ -704,7 +715,9 @@ def plain_cores():
             mock.patch.object(fus, "av_align_scan_fwd", fus.av_align_scan_fwd_plain), \
             mock.patch.object(fus, "av_align_scan_bwd", fus.av_align_scan_bwd_plain), \
             mock.patch.object(attn, "attend_fwd", attn.attend_plain), \
-            mock.patch.object(attn, "attend_bwd", attn.attend_bwd_plain), \
+            mock.patch.object(attn, "read_fwd", attn.read_fwd_plain), \
+            mock.patch.object(attn, "read_step_bwd", attn.read_step_bwd_plain), \
+            mock.patch.object(attn, "read_loop_sums", attn.read_loop_sums_plain), \
             mock.patch.object(tfm, "encoder_self_attention_fwd",
                               tfm.encoder_self_attention_fwd_plain), \
             mock.patch.object(tfm, "encoder_self_attention_bwd",
@@ -2022,53 +2035,186 @@ def phase_k8_bwd(dev, report):
         recurrence={k: o for k, o in info["occupancy"].items() if k.startswith("bahdanau")})
 
 
-def phase_k10_bwd(dev, report):
+K10_LOOP = 80  # the train cell's label positions: the reads of one K10 loop
+_K10B_INFO = {}  # K10 backward's build report and occupancy, read once
+
+
+def k10_bwd_build_info():
+    """K10 backward's kernels as built (``csrc/bahdanau_attend.cu``):
+    registers and spills of the per-step kernel and of the CUDA-core sums at
+    each read (fails on a spill or a missing one), and the per-step kernel's
+    shared memory and max active clusters (two CTAs a row) at both reads'
+    train widths."""
+    from avsr_tpu_torch import kernels
+
+    if _K10B_INFO:
+        return _K10B_INFO
+    rep = {k: r for k, r in kernels.ptxas_report("bahdanau_attend").items()
+           if "attend_step_bwd" in k or "attend_loop_sums" in k}
+    if len(rep) != 4 or any(r["spill_stores"] or r["spill_loads"] for r in rep.values()):
+        fail("K10 bwd", f"a backward kernel spills or is missing: {rep}")
+    occ = {kind: kernels.attend_bwd_info(*widths)
+           for kind, widths in (("bahdanau", (256, 128, 197, 768, False)),
+                                ("luong", (256, 512, 197, 512, True)))}
+
+    def short(name):  # the instance of a mangled name: its kernel and template argument
+        base = "step_bwd" if "attend_step_bwd" in name else "loop_sums"
+        return f"{base}<{name.split('kernel')[-1][:4]}>"
+
+    print(f"K10 bwd kernels (ptxas -v): { {short(k): r for k, r in rep.items()} }; the per-step "
+          f"kernel's shared memory per CTA and max active clusters of a row "
+          f"(cudaOccupancyMaxActiveClusters): {occ}")
+    if min(o["max_active_clusters"] for o in occ.values()) < 1:
+        fail("K10 bwd", f"a cluster cannot be resident: {occ}")
+    _K10B_INFO.update(build=rep, occupancy=occ)
+    return _K10B_INFO
+
+
+def k10_loop_inputs(args, K, seed):
+    """K queries [K, N, Hq] and context cotangents [K, N, Dv] for a read
+    loop over ``args``' memory (``k10_inputs`` / ``k10_luong_inputs``)."""
+    import torch
+
+    _, _, query, mem, _ = args
+    g = torch.Generator().manual_seed(seed)
+    N, Hq = query.shape
+    queries = 0.5 * torch.randn((K, N, Hq), generator=g)
+    dctxs = torch.randn((K, N, mem.values.shape[-1]), generator=g)
+    return queries.to(query.device), dctxs.to(query.device)
+
+
+def k10_loop(args, queries, dctxs, plain=False, weights=None):
+    """K10's read loop without autograd, as ``ops/attention.py``'s route
+    runs it: K forward reads (the kernel's weights, or ``weights``), each
+    step's backward in reverse order, then the loop's gradients; on the
+    kernels, or on the plain mirror (``plain``).  -> (the loop's state, its
+    outputs by name: dquery [K, N, Hq], the saved rows, dkeys, dvalues, dwq
+    and dv)."""
     import torch
 
     from avsr_tpu_torch.ops import attention as attn
 
-    typ, att, query, mem, cdt = k10_inputs(128, dev, seed=131)
-    _, w = attn.attend_fwd(typ, att, query, mem, cdt)
-    dctx = torch.randn(tuple(mem.values.shape[::2]), generator=torch.Generator().manual_seed(7))
-    args = [typ, att, query, mem, w, dctx.to(dev), cdt]
-    out_k = attn.attend_bwd(*args)
-    out_p = attn.attend_bwd_plain(*args)
-    w_k = attn.attention_weight_grads(query, out_k[1], out_k[2], cdt)
-    w_p = attn.attention_weight_grads(query, out_p[1], out_p[2], cdt)
+    typ, att, _, mem, cdt = args
+    K = queries.shape[0]
+    st = attn.LoopState(typ, mem, cdt, K)
+    st.bind(mem.keys, mem.values, att["wq"], att.get("v"))
+    for k in range(K):
+        st.next_step()
+        st.queries[k] = queries[k]
+        st.weights[k] = attn.read_fwd(st, queries[k])[1] if weights is None else weights[k]
+    step = attn.read_step_bwd_plain if plain else attn.read_step_bwd
+    dquery = [None] * K
+    for k in reversed(range(K)):
+        dquery[k] = step(st, k, queries[k], st.weights[k], dctxs[k])
+        st.done[k] = True
+    sums = attn.read_loop_sums_plain if plain else attn.read_loop_sums
+    with mock.patch.object(attn, "read_loop_sums", sums):
+        dkeys, dvalues, dwq, dv = attn.loop_gradients(st)
+    out = {"dquery": torch.stack(dquery), "dsc": st.dsc.clone(), "q": st.q.clone(),
+           "dq": st.dq.clone(), "dv_rows": None if st.dv_rows is None else st.dv_rows.clone(),
+           "dkeys": dkeys, "dvalues": dvalues, "dwq": dwq, "dv": dv}
+    return st, {n: x for n, x in out.items() if x is not None}
+
+
+def k10_bwd_check(label, args, K, seed):
+    """K10's backward loop on the kernels against the plain mirror (the
+    same queries, cotangents and forward weights), twice on the kernels
+    (bit-equal), the length-0 row (1) exactly 0.  -> (state, the kernels'
+    outputs, queries, cotangents, worst abs error)."""
+    import torch
+
+    queries, dctxs = k10_loop_inputs(args, K, seed)
+    st, out_k = k10_loop(args, queries, dctxs)
+    _, out_k2 = k10_loop(args, queries, dctxs)
+    _, out_p = k10_loop(args, queries, dctxs, plain=True, weights=st.weights)
     torch.cuda.synchronize()
-    names = ("dquery", "dq", "dv_rows", "dkeys", "dvalues", "dwq", "dv")
-    pairs = list(zip(names, (*out_k, *w_k), (*out_p, *w_p)))
-    errs = {n: rel_err(a, b) for n, a, b in pairs}
-    abs_errs = {n: max_err(a, b) for n, a, b in pairs}
-    empty = max(float(x[1].abs().max()) for x in out_k)
-    print(f"K10 bwd [N=128,S=197,A=128,Dv=768] max abs err {abs_errs}; relative to max |plain| "
-          f"{errs} (tol {K10B_REL_TOL}); length-0 row's gradients max |x| {empty}")
-    if not all(torch.isfinite(x).all() for x in out_k):
-        fail("K10 bwd", "non-finite kernel output")
+    errs = {n: rel_err(out_k[n], out_p[n]) for n in out_k}
+    abs_errs = {n: max_err(out_k[n], out_p[n]) for n in out_k}
+    same = all(torch.equal(out_k[n], out_k2[n]) for n in out_k)
+    empty = max(float((out_k[n][1] if n in ("dkeys", "dvalues") else out_k[n][:, 1]).abs().max())
+                for n in out_k if n not in ("q", "dwq", "dv"))
+    print(f"{label} loop of K={K}: max abs err {abs_errs}; relative to max |plain| {errs} (tol "
+          f"{K10B_REL_TOL}); reruns bit-equal {same}; length-0 row's gradients max |x| {empty}")
+    if not all(torch.isfinite(x).all() for x in out_k.values()):
+        fail(label, "non-finite kernel output")
+    if not same:
+        fail(label, "two runs of the kernels differ")
     if empty != 0.0:
-        fail("K10 bwd", f"a length-0 memory's gradients are not zero: {empty}")
+        fail(label, f"a length-0 memory's gradients are not zero: {empty}")
     if not max(errs.values()) <= K10B_REL_TOL:
-        fail("K10 bwd", f"kernel disagrees with the plain twin: {errs}")
-    t_k = time_ms(lambda: attn.attend_bwd(*args))
-    t_p = time_ms(lambda: attn.attend_bwd_plain(*args))
-    dms = device_ms(lambda: attn.attend_bwd(*args))
-    N, S, A = mem.keys.shape
-    Hq, Dv = query.shape[1], mem.values.shape[-1]
+        fail(label, f"kernels disagree with the plain mirror: {errs}")
+    return st, out_k, queries, dctxs, max(abs_errs.values())
+
+
+def k10_bwd_times(label, args, st, queries, dctxs, out_k):
+    """Device ms of one step's kernel and of the loop's sums, beside their
+    bounds: (step entry, sums entry) for the kernels line."""
+    import torch
+
+    from avsr_tpu_torch import kernels
+    from avsr_tpu_torch.ops import attention as attn
+
+    typ, att, _, mem, cdt = args
+    K, N, _ = queries.shape
+    S, A, Dv = mem.keys.shape[1], mem.keys.shape[2], mem.values.shape[-1]
+    Hq = queries.shape[-1]
+    k = K - 1
+    step = lambda: attn.read_step_bwd(st, k, queries[k], st.weights[k], dctxs[k])
+    plain = lambda: attn.read_step_bwd_plain(st, k, queries[k], st.weights[k], dctxs[k])
+    _, v, keys, values = st.operands
+    dms = device_ms(step)
+    t_k, t_p = time_ms(step), time_ms(plain)
+    sums = lambda: attn.read_loop_sums(st)
+    sums_plain = lambda: attn.read_loop_sums_plain(st)
+    s_dms, s_k, s_p = device_ms(sums, reps=5), time_ms(sums, reps=5), time_ms(sums_plain, reps=3)
     keys_read = float(mem.mask.sum())  # zero-weight (padded) keys are skipped
-    nb = nbytes(query, att["wq"].to(torch.bfloat16), att["v"].to(torch.bfloat16), mem.keys,
-                mem.values, w, dctx, *out_k)
-    b = bound(nb, {"bf16": 2 * N * 2 * Hq * A + 2 * keys_read * 2 * Dv, "fp32": keys_read * A * 8})
-    print(f"K10 bwd N=128 kernel {t_k:.4f} ms (device {dms} ms)  plain {t_p:.4f} ms  bound "
-          f"{b[0]:.5f} ms ({b[1]}, {nb / 1e6:.2f} MB)")
-    # the memory gradients' traffic outside the kernel, per decoder step:
-    # the wrapper zeroes dkeys / dvalues, autograd adds them to the sum of
-    # the other steps' (one buffer accumulated in place would save both)
-    dk, dval = out_k[3], out_k[4]
-    acc_ms = time_ms(lambda: (torch.zeros_like(dk), torch.zeros_like(dval), dk + dk, dval + dval))
-    print(f"K10 bwd per decoder step, zeroing and summing dkeys {tuple(dk.shape)} and dvalues "
-          f"{tuple(dval.shape)} outside the kernel: {acc_ms:.4f} ms")
-    report["bahdanau_attend_bwd"] = dict(max_abs_err=max(abs_errs.values()), ms=t_k,
-                                         plain_ms=t_p, library_ms=None, device_ms=dms, bound=b)
+    # the bytes of a key, its value row counted once where the keys are the
+    # values (a Luong memory without wv: one bf16 buffer)
+    kb = 0 if st.shared else A * keys.element_size()
+    wq_b = nbytes(st.operands[0], v)
+    # a step: its keys and values read once, the query, weights and
+    # cotangent, dquery and the saved rows written
+    nb_step = (keys_read * (kb + Dv * 2) + wq_b
+               + nbytes(queries[k], st.weights[k], dctxs[k], out_k["dquery"][k])
+               + N * (S + Dv + 3 * A) * 4)
+    ops_step = {"bf16": 2 * N * 2 * Hq * A + 2 * keys_read * Dv,
+                "fp32": keys_read * A * (8 if v is not None else 2)}
+    b_step = bound(nb_step, ops_step)
+    # the sums: the loop's rows read once, (Bahdanau's keys,) the outputs
+    # written once (one gradient where the keys are the values); the terms
+    # of the nonzero weights
+    nb_sums = (K * N * (2 * S + A + Dv) * 4 + (nbytes(keys, v) if v is not None else 0)
+               + N * S * (Dv if st.shared else A + Dv) * 4)
+    ops_sums = {"bf16": 2 * K * keys_read * (Dv + (A if v is None else 0)),
+                "fp32": K * keys_read * A * 8 if v is not None else 0}
+    b_sums = bound(nb_sums, ops_sums)
+    info = k10_bwd_build_info()
+    print(f"{label} per step [N={N},S={S},A={A},Dv={Dv}]: kernel {t_k:.4f} ms (device {dms} "
+          f"ms)  plain {t_p:.4f} ms  bound {b_step[0]:.5f} ms ({b_step[1]}, "
+          f"{nb_step / 1e6:.2f} MB)")
+    print(f"{label} sums per loop of K={K} ({kernels.attend_sums_family(A, Dv)} route): "
+          f"{s_k:.4f} ms (device {s_dms} ms)  plain {s_p:.4f} ms  bound {b_sums[0]:.5f} ms "
+          f"({b_sums[1]}, {nb_sums / 1e6:.2f} MB); the loop's backward kernels "
+          f"{K * dms + s_dms:.4f} ms device")
+    step_entry = dict(ms=t_k, plain_ms=t_p, library_ms=None, device_ms=dms, bound=b_step,
+                      occupancy=info["occupancy"])
+    sums_entry = dict(ms=s_k, plain_ms=s_p, library_ms=None, device_ms=s_dms, bound=b_sums,
+                      route=kernels.attend_sums_family(A, Dv))
+    return step_entry, sums_entry
+
+
+def phase_k10_bwd(dev, report):
+    """K10's backward, the Bahdanau read: a K=80 loop at N=128 (the train
+    batch) on the kernels against the plain mirror, reruns bit-equal, the
+    length-0 row exactly 0; one loop at S=531 (16 s, N=16); device ms."""
+    args = k10_inputs(128, dev, seed=131)
+    st, out_k, queries, dctxs, worst = k10_bwd_check(
+        "K10 bwd [N=128,S=197,A=128,Dv=768]", args, K10_LOOP, seed=7)
+    worst = max(worst, k10_bwd_check("K10 bwd [N=16,S=531,A=128,Dv=768]",
+                                     k10_inputs(16, dev, seed=531, S=531), 8, seed=8)[-1])
+    step, sums = k10_bwd_times("K10 bwd", args, st, queries, dctxs, out_k)
+    report["bahdanau_attend_bwd"] = dict(max_abs_err=worst, **step)
+    report["bahdanau_attend_sums"] = dict(max_abs_err=worst, **sums)
 
 
 # K11's check shapes: the audio layers at 6 s, the video layer at 6 s, the
@@ -2577,50 +2723,17 @@ def phase_k10_luong(dev, report):
     report["luong_attend"] = dict(max_abs_err=worst, ms=t[80][0], plain_ms=t[80][1],
                                   library_ms=None, device_ms=t[80][2], bound=b)
 
-    # backward at N = 80 and 128 (the teacher-forced decoder's read at
-    # B = 128 is the entry)
-    worst_abs, names = 0.0, ("dquery", "dq", "dkeys", "dvalues", "dwq")
-    for N in (80, 128):
-        typ, att, query, mem, cdt = k10_luong_inputs(N, dev, seed=N + 5)
-        _, w = attn.attend_fwd(typ, att, query, mem, cdt)
-        dctx = torch.randn(tuple(mem.values.shape[::2]),
-                           generator=torch.Generator().manual_seed(N + 8)).to(dev)
-        bargs = [typ, att, query, mem, w, dctx, cdt]
-        out_k = attn.attend_bwd(*bargs)
-        out_p = attn.attend_bwd_plain(*bargs)
-        w_k = attn.attention_weight_grads(query, out_k[1], out_k[2], cdt)[0]
-        w_p = attn.attention_weight_grads(query, out_p[1], out_p[2], cdt)[0]
-        torch.cuda.synchronize()
-        pairs = [(n, a, b_) for n, a, b_ in zip(names, (*out_k[:2], *out_k[3:], w_k),
-                                                (*out_p[:2], *out_p[3:], w_p))]
-        errs = {n: rel_err(a, b_) for n, a, b_ in pairs}
-        abs_errs = {n: max_err(a, b_) for n, a, b_ in pairs}
-        empty = max(float(x[1].abs().max()) for x in out_k if x is not None)
-        print(f"K10 Luong bwd [N={N},S=197,Hk=Dv=512] max abs err {abs_errs}; relative to max "
-              f"|plain| {errs} (tol {K10B_REL_TOL}); no dv factor: {out_k[2] is None}; "
-              f"length-0 row's gradients max |x| {empty}")
-        if not (out_k[2] is None and all(torch.isfinite(a).all() for _, a, _ in pairs)):
-            fail("K10 Luong bwd", "non-finite kernel output, or a v factor from a Luong read")
-        if empty != 0.0:
-            fail("K10 Luong bwd", f"a length-0 memory's gradients are not zero: {empty}")
-        if not max(errs.values()) <= K10B_REL_TOL:
-            fail("K10 Luong bwd", f"kernel disagrees with the plain twin at N={N}: {errs}")
-        worst_abs = max(worst_abs, *abs_errs.values())
-    t_k = time_ms(lambda: attn.attend_bwd(*bargs))
-    t_p = time_ms(lambda: attn.attend_bwd_plain(*bargs))
-    dms = device_ms(lambda: attn.attend_bwd(*bargs))
-    N, S, Hk = mem.keys.shape
-    Hq, Dv = query.shape[1], mem.values.shape[-1]
-    keys_read = float(mem.mask.sum())  # zero-weight (padded) keys are skipped
-    nb = nbytes(query, att["wq"].to(torch.bfloat16), mem.values, w, dctx, *out_k)
-    # q and dquery (bf16 products), dw and dq over the read keys, fp32
-    # dkeys / dvalues products
-    b = bound(nb, {"bf16": 2 * N * 2 * Hq * Hk + 2 * keys_read * 2 * (Hk + Dv),
-                   "fp32": keys_read * (Hk + Dv)})
-    print(f"K10 Luong bwd N=128 kernel {t_k:.4f} ms (device {dms} ms)  plain {t_p:.4f} ms  bound "
-          f"{b[0]:.5f} ms ({b[1]}, {nb / 1e6:.2f} MB)")
-    report["luong_attend_bwd"] = dict(max_abs_err=worst_abs, ms=t_k, plain_ms=t_p,
-                                      library_ms=None, device_ms=dms, bound=b)
+    # backward: a K=80 loop at N = 128 (the teacher-forced decoder's reads)
+    # and one at S = 531
+    args = k10_luong_inputs(128, dev, seed=133)
+    st, out_k, queries, dctxs, worst_abs = k10_bwd_check(
+        "K10 Luong bwd [N=128,S=197,Hk=Dv=512]", args, K10_LOOP, seed=9)
+    worst_abs = max(worst_abs, k10_bwd_check("K10 Luong bwd [N=16,S=531,Hk=Dv=512]",
+                                             k10_luong_inputs(16, dev, seed=535, S=531), 8,
+                                             seed=10)[-1])
+    step, sums = k10_bwd_times("K10 Luong bwd", args, st, queries, dctxs, out_k)
+    report["luong_attend_bwd"] = dict(max_abs_err=worst_abs, **step)
+    report["luong_attend_sums"] = dict(max_abs_err=worst_abs, **sums)
 
 
 def k8_luong_inputs(B, dev, seed, T=197, H=256, Tv=150, Dv=256):
@@ -2728,7 +2841,9 @@ def phase_core_route(dev):
     through the module's autograd Function, forward and backward, against
     the plain twins on the same operands: K11 at dh=32 (d=512, 16 heads),
     K4 at A=dv=64, K5's self attention at dh=32 and its cross attention at
-    (dk, dv) = (64, 128), ragged with a length-0 row."""
+    (dk, dv) = (64, 128), ragged with a length-0 row; and K10's read loop
+    (both reads, K=8) at widths whose memory sums run on the CUDA cores
+    (``kernels.attend_sums_family`` "cuda_core")."""
     import torch
 
     from avsr_tpu_torch import kernels
@@ -2778,6 +2893,18 @@ def phase_core_route(dev):
         if family != "core" or not (torch.isfinite(ctx_k.float()).all() and err <= ctx_tol
                                     and rel <= grad_tol):
             fail("core route", f"{label}: family {family}, ctx err {err}, gradients {rel}")
+    # K10's read loop at widths the tensor-core sums do not take: the
+    # per-step kernel and the CUDA-core sums against the plain mirror
+    for label, args in (("K10 bwd [N=32,S=197,A=40,Dv=72]",
+                         k10_inputs(32, dev, seed=40, A=40, Dv=72)),
+                        ("K10 Luong bwd [N=32,S=197,Hk=Dv=72]",
+                         k10_luong_inputs(32, dev, seed=72, Hk=72))):
+        A, Dv = args[3].keys.shape[-1], args[3].values.shape[-1]
+        family = kernels.attend_sums_family(A, Dv)
+        print(f"core route {label}: sums family {family}")
+        if family != "cuda_core":
+            fail("core route", f"{label}: sums family {family}")
+        k10_bwd_check(f"core route {label}", args, 8, seed=A + Dv)
 
 
 def phase_lstm_step_route(dev):
@@ -2938,6 +3065,8 @@ def main() -> int:
                             "avsr_tpu/ops/attention.py:125"),
         "bahdanau_attend_bwd": ("avsr_tpu_torch/csrc/bahdanau_attend.cu",
                                 "avsr_tpu/ops/attention.py:125"),
+        "bahdanau_attend_sums": ("avsr_tpu_torch/csrc/av_align_bwd.cuh",
+                                 "avsr_tpu/models/decoder.py:267"),
         "encoder_attention_fwd": ("avsr_tpu_torch/csrc/encoder_attention.cu",
                                   "avsr_tpu/models/transformer.py:204"),
         "encoder_attention_bwd": ("avsr_tpu_torch/csrc/encoder_attention.cu",
@@ -2952,6 +3081,8 @@ def main() -> int:
                          "avsr_tpu/ops/attention.py:152"),
         "luong_attend_bwd": ("avsr_tpu_torch/csrc/bahdanau_attend.cu",
                              "avsr_tpu/ops/attention.py:152"),
+        "luong_attend_sums": ("avsr_tpu_torch/csrc/av_align_bwd.cuh",
+                              "avsr_tpu/models/decoder.py:267"),
         "av_align_scan_luong": ("avsr_tpu_torch/csrc/av_align_scan.cu",
                                 "avsr_tpu/models/fusion.py:118"),
         "av_align_scan_luong_bwd": ("avsr_tpu_torch/csrc/av_align_scan.cu",

@@ -3,9 +3,10 @@ Bahdanau and the Luong score) and of the AV-Align fusion scan (K8,
 ``AVAlignScan``, either score) against ``jax.vjp`` of
 ``avsr_tpu.ops.attention.attend`` and ``avsr_tpu.models.fusion.av_align_apply``.
 
-On CPU tensors both autograd Functions run their plain twins
-(``attend_bwd_plain``, ``av_align_scan_bwd_plain``), so these tests hold
-the hand-derived backward to JAX's autodiff.  Inputs and cotangents come
+On CPU tensors both run their plain versions (K10's read loop its mirror
+``read_step_bwd_plain`` / ``read_loop_sums_plain``, a read outside a loop
+being a loop of one step; K8 ``av_align_scan_bwd_plain``), so these tests
+hold the hand-derived backward to JAX's autodiff.  Inputs and cotangents come
 from seeded numpy, weights from the JAX package's init, converted with
 ``convert.from_jax``; ragged lengths include a length-0 memory row (K10),
 and a length-0 audio row and a length-0 video row (K8).
@@ -220,19 +221,20 @@ def test_attend_weights_take_no_gradient():
 
 
 def test_attend_bwd_kernel_rejects_cpu_tensors():
+    """K10's per-step backward kernel (a read loop's step) refuses CPU
+    tensors for either read and counts no launch."""
     N, S, A, Dv, Hq = 2, 5, 8, 16, 4
     f32, bf = torch.float32, torch.bfloat16
-    with pytest.raises(ValueError, match="expected a tensor on"):
-        kernels.bahdanau_attend_bwd(torch.zeros(N, Hq), torch.zeros(Hq, A, dtype=bf),
-                                    torch.zeros(A, dtype=bf), torch.zeros(N, S, A),
-                                    torch.zeros(N, S, Dv, dtype=bf), torch.zeros(N, S, dtype=f32),
-                                    torch.zeros(N, Dv))
+    z = torch.zeros
     before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        kernels.attend_step_bwd(z(N, Hq), z(Hq, A, dtype=bf), z(A, dtype=bf), z(N, S, A),
+                                z(N, S, Dv, dtype=bf), z(N, S, dtype=f32), z(N, Dv), z(N, S),
+                                z(N, Dv), z(N, A), z(N, A), z(N, A))
     with pytest.raises(ValueError, match="expected a tensor on"):  # the Luong read: no v
-        kernels.bahdanau_attend_bwd(torch.zeros(N, Hq), torch.zeros(Hq, A, dtype=bf), None,
-                                    torch.zeros(N, S, A, dtype=bf),
-                                    torch.zeros(N, S, Dv, dtype=bf), torch.zeros(N, S, dtype=f32),
-                                    torch.zeros(N, Dv))
+        kernels.attend_step_bwd(z(N, Hq), z(Hq, A, dtype=bf), None, z(N, S, A, dtype=bf),
+                                z(N, S, Dv, dtype=bf), z(N, S, dtype=f32), z(N, Dv), z(N, S),
+                                z(N, Dv), z(N, A), z(N, A), None)
     assert kernels.LAUNCHES == before
 
 

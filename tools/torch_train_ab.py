@@ -13,9 +13,15 @@ label cap 80, noise mixing on), times ``--steps`` train steps on the host
 clock to a synchronise, reads the peak device memory, and profiles three
 more steps: the device's busy time and event count per step and the device
 time per step of the kernels by name: the LSTM scan (``lstm``: K1 and K2,
-every kernel whose name holds ``lstm``, with its event count), the AV-Align
-fusion scan (``k8``: K8 forward and backward, every kernel whose name holds
-``align_``, with its event count) and the attention kernels, told apart by
+every kernel whose name holds ``lstm``, with its event count), the RNN
+decoder's read (``k10``: every kernel whose name holds ``attend``, with its
+event count), the memory gradients' sums after a scan or a teacher-forced
+loop (``sums``: ``align_outer_sum`` and ``align_dkeys_energy``, K8's and
+K10's), the AV-Align fusion scan (``k8``: the rest of K8 forward and
+backward, every other kernel whose name holds ``align_``, with its event
+count), torch's fills, copies and casts, and adds (``fill``, ``copy``,
+``add``: every kernel whose name holds the word; autograd's sums of a
+gradient are adds) and the attention kernels, told apart by
 their mask and family (``k11``: the
 whole-row kernels under the length mask, the encoder self attention;
 ``k4``: the streamed ones under the length mask, the fusion core; ``k5``:
@@ -78,8 +84,19 @@ busy, share = cs.busy_share(ev, span)
 def kind(name):
     if "lstm" in name:
         return "lstm"
+    if "attend" in name:
+        return "k10"
+    if "align_outer_sum" in name or "align_dkeys_energy" in name:
+        return "sums"
     if "align_" in name:
         return "k8"
+    low = name.lower()
+    if "fill" in low:
+        return "fill"
+    if "copy" in low:
+        return "copy"
+    if "add" in low:
+        return "add"
     if "attn_" not in name:
         return "other"
     if "LengthMask" in name:
@@ -94,8 +111,10 @@ for s, e, name in ev:
 print(json.dumps({"step_ms": times, "peak_gib": peak / 2**30, "busy_ms_per_step": busy / 3e3,
                   "busy_share": share, "events_per_step": len(ev) / 3,
                   "lstm_events_per_step": count["lstm"] / 3,
-                  "k8_events_per_step": count["k8"] / 3,
-                  **{f"{k}_ms_per_step": by[k] / 3e3 for k in ("lstm", "k8", "k11", "k4", "k5")}}))
+                  "k8_events_per_step": count["k8"] / 3, "k10_events_per_step": count["k10"] / 3,
+                  **{f"{k}_ms_per_step": by[k] / 3e3
+                     for k in ("lstm", "k8", "k10", "sums", "k11", "k4", "k5", "fill", "copy",
+                               "add")}}))
 """
 
 
@@ -134,8 +153,11 @@ def main() -> int:
               f"(share {r['busy_share']:.3f}, {r['events_per_step']:.1f} events), per step: "
               f"LSTM scan {r['lstm_ms_per_step']:.3f} ms ({r['lstm_events_per_step']:.1f} "
               f"events), K8 {r['k8_ms_per_step']:.3f} ms ({r['k8_events_per_step']:.1f} events), "
-              f"K11 {r['k11_ms_per_step']:.3f} ms, K4 {r['k4_ms_per_step']:.3f} ms, K5 "
-              f"{r['k5_ms_per_step']:.3f} ms", flush=True)
+              f"K10 {r['k10_ms_per_step']:.3f} ms ({r['k10_events_per_step']:.1f} events), "
+              f"the memory sums {r['sums_ms_per_step']:.3f} ms, K11 {r['k11_ms_per_step']:.3f} "
+              f"ms, K4 {r['k4_ms_per_step']:.3f} ms, K5 {r['k5_ms_per_step']:.3f} ms; fills "
+              f"{r['fill_ms_per_step']:.3f}, copies and casts {r['copy_ms_per_step']:.3f}, adds "
+              f"{r['add_ms_per_step']:.3f} ms", flush=True)
         runs.append(r)
     print(json.dumps({"card": card, "preset": args.preset, "runs": runs}))
     return 0
