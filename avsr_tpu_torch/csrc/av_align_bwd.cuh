@@ -90,6 +90,7 @@ using bahdanau::bf_hi;
 using bahdanau::bf_lo;
 using bahdanau::bf_round;
 using bahdanau::Key;
+using bahdanau::tanh_fast;  // the energies' tanh, 19,200 a row and step at the align widths
 using mma_attn::bf16;
 using mma_attn::cp_async16;
 using mma_attn::cp_async4;
@@ -106,12 +107,6 @@ constexpr int C = 16;         // CTAs per cluster: an mma row tile of 16 batch r
 constexpr int HT = 256;       // threads per row a CTA owns (its "half" when it owns two)
 constexpr int HWARPS = HT / 32;
 constexpr int UPT = 2;        // hidden units per thread: H <= 512
-
-// tanh from one ex2.approx and one rcp.approx (absolute error ~1e-7): the
-// energies' tanh, 19,200 a row and step at the align widths
-__device__ __forceinline__ float tanh_fast(float x) {
-  return 1.0f - __fdividef(2.0f, 1.0f + __expf(2.0f * x));
-}
 
 // the barrier of one row's threads (named barriers 1 and 2; 0 is __syncthreads)
 __device__ __forceinline__ void row_sync(int half) {

@@ -17,28 +17,31 @@
 // masked (m == 0) keeps its carries and emits zeros, so its read is
 // skipped: that is exactly what the masked update makes of it.
 //
-// What bounds it on an H100: the recurrence is sequential in t and a step
-// is small (at B = 8: 8 x 768 x 1024 MACs of gates and 8 reads of 150
-// keys): a step costs two launches' latency, the staging of each gate
-// block's weight slices (Wh 32 KB + ctx_proj 64 KB bf16, all of it L2
-// resident after step 0) and the read's dependent reductions.  Design, as
-// K1's forward: one host loop in C over the T steps, two launches per step
-// on the caller's stream.  (a) Gate launch: a block owns BT = 16 batch rows
-// x UT = 16 hidden units and computes all four gates of its units from the
-// bf16 ctx and h rows (staged in shared memory) against the pre-tiled
+// The forward has two routes, chosen by shape (kernels.av_align_family):
+// every preset's widths take avsr_av_align_fwd, one persistent launch of
+// 16-CTA thread-block clusters per call (av_align_fwd.cuh has its design:
+// [Wh ; ctx_proj] resident in shared memory, the gate products on the
+// tensor cores, h, ctx and q exchanged between the CTAs); other widths take
+// avsr_av_align_scan, the per-step kernels below.
+//
+// The per-step route: one host loop in C over the T steps, two launches per
+// step on the caller's stream.  (a) Gate launch: a block owns BT = 16 batch
+// rows x UT = 16 hidden units and computes all four gates of its units from
+// the bf16 ctx and h rows (staged in shared memory) against the pre-tiled
 // [K][UT][4] weight slices (K1's layout, kernels.tile_lstm_weights), with
 // fp32 FMAs on bf16-rounded operands; it applies the cell update and the
 // mask and writes h' for the read.  (b) Read launch: a block per batch row
 // runs bahdanau::read and the masked epilogue.  h and ctx are
 // double-buffered in device memory, c is updated in place (only its owner
-// reads it).  A persistent kernel holding the weights in shared memory
-// across steps is later work.  With save (training), the gate launch also
-// writes the fp32 h and c entering the step and the read launch the fp32
-// ctx entering it: the carries the reference's jax.checkpoint keeps, the
-// backward's residuals (~103 MB at T = 197, B = 128).  The backward is
+// reads it).  A step costs two launches' latency, the staging of each gate
+// block's weight slices and the read's dependent reductions.  With save
+// (training), the gate launch also writes the fp32 h and c entering the
+// step and the read launch the fp32 ctx entering it: the carries the
+// reference's jax.checkpoint keeps, the backward's residuals (~103 MB at
+// T = 197, B = 128; the cluster route writes the same).  The backward is
 // described further down, above its kernels.
 
-#include "av_align_bwd.cuh"
+#include "av_align_fwd.cuh"
 #include "bahdanau_core.cuh"
 
 namespace {
@@ -199,13 +202,8 @@ align_gate_kernel(const __nv_bfloat16* __restrict__ wh_tiled,  // [H/UT, H, UT, 
   hs_t[s] = h_new * m;
 }
 
+using align_fwd::AlignWeights;
 using bahdanau::Key;
-
-struct AlignWeights {
-  float* aligns;  // this row's [S] slice of aligns[t]
-  float m;
-  __device__ void operator()(int s, float w) const { aligns[s] = w * m; }
-};
 
 struct AlignContext {
   const float* ctx_in;  // this row's carry [Dv]
@@ -372,6 +370,92 @@ extern "C" int avsr_av_align_scan(const void* wh_tiled, const void* cp_tiled, co
   return (int)cudaGetLastError();
 }
 
+// The cluster route of the forward (av_align_fwd.cuh).  Shapes it takes: H
+// = 128 or 256 (one or two unit groups of 8 a CTA), Dc = Dv a multiple of
+// 64 up to 2048 (input feeding), A a multiple of 128 up to 512 (A / 16
+// columns of q a CTA: whole n-tiles), S >= 1, and its shared memory within
+// the card's; rpc = 1 or 2 rows per CTA.
+namespace {
+
+constexpr size_t SMEM_LIMIT = 232448;  // bytes a block may use on an H100
+
+bool fwd_shape_ok(int H, int Dc, int A, int S, int Dv, int rpc) {
+  return (rpc == 1 || rpc == 2) && (H == 128 || H == 256) && Dc == Dv && Dv % 64 == 0 &&
+         Dv <= 2048 && A % 128 == 0 && A <= 512 && S >= 1 &&
+         align_fwd::Layout(H, Dc, A, S, Dv, rpc).total <= SMEM_LIMIT;
+}
+
+}  // namespace
+
+// The cluster forward's shared memory per CTA in bytes at rpc rows per CTA,
+// or -1 for a shape it does not take.
+extern "C" long long avsr_av_align_fwd_smem(int H, int Dc, int A, int S, int Dv, int rpc) {
+  if (!fwd_shape_ok(H, Dc, A, S, Dv, rpc)) return -1;
+  return (long long)align_fwd::Layout(H, Dc, A, S, Dv, rpc).total;
+}
+
+// The cluster forward's clusters that can be resident at once (0 on an error).
+extern "C" int avsr_av_align_fwd_max_active(int H, int Dc, int A, int S, int Dv, int dot,
+                                            int rpc) {
+  if (!fwd_shape_ok(H, Dc, A, S, Dv, rpc)) return 0;
+  const align_fwd::Layout L(H, Dc, A, S, Dv, rpc);
+  if (rpc == 2)
+    return dot ? align_fwd::max_active_t<true, 2>(L) : align_fwd::max_active_t<false, 2>(L);
+  return dot ? align_fwd::max_active_t<true, 1>(L) : align_fwd::max_active_t<false, 1>(L);
+}
+
+// w [16, H/128, H + Dc, 32] bf16 (kernels.cluster_align_weights of [Wh ;
+// ctx_proj]); wq [H, A], vatt [A] bf16 (null when dot); bias [4H]; xw [T, B,
+// 4H] and mask [T, B] (0 or 1) fp32; keys [B, S, A] fp32 (bf16 when dot),
+// values [B, S, Dv] bf16, mbias / mmask [B, S] fp32 -> hs [T, B, H], ctxs
+// [T, B, Dv], aligns [T, B, S], the final carries hT, cT [B, H], ctxT [B,
+// Dv] and, with save, h_res / c_res [T, B, H], ctx_res [T, B, Dv] (all
+// three null without), fp32, from zero initial carries; every element of
+// the live rows written.  One launch; none when T = 0.
+extern "C" int avsr_av_align_fwd(const void* w, const void* wq, const void* vatt,
+                                 const void* bias, const void* xw, const void* mask,
+                                 const void* keys, const void* values, const void* mbias,
+                                 const void* mmask, void* hs, void* ctxs, void* aligns, void* hT,
+                                 void* cT, void* ctxT, void* h_res, void* c_res, void* ctx_res,
+                                 int T, int B, int H, int Dc, int A, int S, int Dv, int dot,
+                                 int rpc, void* stream) {
+  const bool save = h_res != nullptr;
+  if (T < 0 || B < 1 || !fwd_shape_ok(H, Dc, A, S, Dv, rpc) || (!dot && vatt == nullptr) ||
+      save != (c_res != nullptr) || save != (ctx_res != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (T == 0) return (int)cudaSuccess;
+  using bf = __nv_bfloat16;
+  align_fwd::FwdArgs a;
+  a.w = static_cast<const bf*>(w);
+  a.wq = static_cast<const bf*>(wq);
+  a.vatt = static_cast<const bf*>(vatt);
+  a.bias = static_cast<const float*>(bias);
+  a.xw = static_cast<const float*>(xw);
+  a.mask = static_cast<const float*>(mask);
+  a.keys = keys;
+  a.values = static_cast<const bf*>(values);
+  a.mbias = static_cast<const float*>(mbias);
+  a.mmask = static_cast<const float*>(mmask);
+  a.hs = static_cast<float*>(hs);
+  a.ctxs = static_cast<float*>(ctxs);
+  a.aligns = static_cast<float*>(aligns);
+  a.hT = static_cast<float*>(hT);
+  a.cT = static_cast<float*>(cT);
+  a.ctxT = static_cast<float*>(ctxT);
+  a.h_res = static_cast<float*>(h_res);
+  a.c_res = static_cast<float*>(c_res);
+  a.ctx_res = static_cast<float*>(ctx_res);
+  a.T = T;
+  a.B = B;
+  a.H = H;
+  a.Dc = Dc;
+  a.A = A;
+  a.S = S;
+  a.Dv = Dv;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  return (int)(dot ? align_fwd::fwd<true>(a, rpc, st) : align_fwd::fwd<false>(a, rpc, st));
+}
+
 // Backward, five launches on the caller's stream from three entry points,
 // called in order by the wrapper: avsr_av_align_bwd_prep (the regate and the
 // query launch),
@@ -382,14 +466,12 @@ extern "C" int avsr_av_align_scan(const void* wh_tiled, const void* cp_tiled, co
 // S >= 1 (the wrapper caps it), and its shared memory within the card's.
 namespace {
 
-constexpr size_t BWD_SMEM_LIMIT = 232448;  // bytes a block may use on an H100
-
 bool bwd_shape_ok(int H, int Dc, int A, int S, int Dv, int rpc, int dot) {
   return (rpc == 1 || rpc == 2) && H % (dot ? 128 : 64) == 0 && H <= 512 &&
          (Dc == 0 || Dc == Dv) &&
          (H + Dc) % (8 * align_bwd::C) == 0 && H + Dc <= 64 * align_bwd::C &&
          Dv % 64 == 0 && Dv <= 2048 && A % 64 == 0 && A <= 512 && S >= 1 &&
-         align_bwd::Layout(H, Dc, A, S, Dv, rpc, false, dot != 0).total <= BWD_SMEM_LIMIT;
+         align_bwd::Layout(H, Dc, A, S, Dv, rpc, false, dot != 0).total <= SMEM_LIMIT;
 }
 
 }  // namespace
@@ -399,7 +481,7 @@ bool bwd_shape_ok(int H, int Dc, int A, int S, int Dv, int rpc, int dot) {
 extern "C" long long avsr_av_align_bwd_smem(int H, int Dc, int A, int S, int Dv, int dot,
                                             int rpc) {
   if (!bwd_shape_ok(H, Dc, A, S, Dv, rpc, dot)) return -1;
-  const bool wq = align_bwd::stage_wq(H, Dc, A, S, Dv, rpc, dot != 0, BWD_SMEM_LIMIT);
+  const bool wq = align_bwd::stage_wq(H, Dc, A, S, Dv, rpc, dot != 0, SMEM_LIMIT);
   return (long long)align_bwd::Layout(H, Dc, A, S, Dv, rpc, wq, dot != 0).total;
 }
 
@@ -407,8 +489,8 @@ extern "C" long long avsr_av_align_bwd_smem(int H, int Dc, int A, int S, int Dv,
 extern "C" int avsr_av_align_bwd_max_active(int H, int Dc, int A, int S, int Dv, int dot,
                                             int rpc) {
   if (!bwd_shape_ok(H, Dc, A, S, Dv, rpc, dot)) return 0;
-  return dot ? align_bwd::max_active<true>(H, Dc, A, S, Dv, rpc, BWD_SMEM_LIMIT)
-             : align_bwd::max_active<false>(H, Dc, A, S, Dv, rpc, BWD_SMEM_LIMIT);
+  return dot ? align_bwd::max_active<true>(H, Dc, A, S, Dv, rpc, SMEM_LIMIT)
+             : align_bwd::max_active<false>(H, Dc, A, S, Dv, rpc, SMEM_LIMIT);
 }
 
 // (1) and (2).  w_all [H + Dc, 4H] bf16, the rows of [Wh ; ctx_proj]; bias
@@ -488,10 +570,10 @@ extern "C" int avsr_av_align_bwd_scan(const void* w_all, const void* wq, const v
   a.A = A;
   a.S = S;
   a.Dv = Dv;
-  a.wq_smem = align_bwd::stage_wq(H, Dc, A, S, Dv, rpc, dot != 0, BWD_SMEM_LIMIT) ? 1 : 0;
+  a.wq_smem = align_bwd::stage_wq(H, Dc, A, S, Dv, rpc, dot != 0, SMEM_LIMIT) ? 1 : 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return (int)(dot ? align_bwd::scan<true>(a, rpc, st, BWD_SMEM_LIMIT)
-                   : align_bwd::scan<false>(a, rpc, st, BWD_SMEM_LIMIT));
+  return (int)(dot ? align_bwd::scan<true>(a, rpc, st, SMEM_LIMIT)
+                   : align_bwd::scan<false>(a, rpc, st, SMEM_LIMIT));
 }
 
 // (4).  keys [B, S, A] fp32 and vatt [A] bf16 (Bahdanau; unused when dot);

@@ -28,13 +28,16 @@
 // (av_align_bwd.cuh) save the rows from which the memory's gradients are
 // summed after the loop.
 //
-// Design: one block of 256 threads per row.  q: thread pairs of outputs
+// Design: 256 threads per row (a block, or in K8's cluster forward a row's
+// thread set with a named barrier: the read from q, scores_context, is
+// templated on the group).  q: thread pairs of outputs
 // (one 4-byte load of wq per k, LOADS rows in flight) with k split over
 // THREADS / (A/2) slices, summed in a fixed order (the dot score rounds it
 // to bf16 once, in shared memory).  Scores: a warp per key, KPW keys in
 // flight per warp, each lane one float4 (additive) or one 16-byte chunk of
 // 8 bf16 values (dot) of the key row; the additive energies run on the
-// CUDA cores (tanhf); either dot over the key row is a shuffle reduction.
+// CUDA cores (tanhf; tanh_fast in K8's cluster forward); either dot over the
+// key row is a shuffle reduction.
 // Softmax and the renormalisation are fp32 block reductions.
 // Context: a thread per 16-byte chunk (8 channels) of a value row, LOADS
 // rows in flight, the keys split over THREADS / (Dv/8) slices, summed in a
@@ -65,27 +68,50 @@ __device__ __forceinline__ float bf_hi(uint32_t v) { return __uint_as_float(v & 
 __device__ __forceinline__ float bf_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
+// tanh from one ex2.approx and one rcp.approx (absolute error ~1e-7)
+__device__ __forceinline__ float tanh_fast(float x) {
+  return 1.0f - __fdividef(2.0f, 1.0f + __expf(2.0f * x));
+}
 
 // The keys' element type: fp32 projected keys (additive score) or the bf16
 // raw memory (dot score).
 template <bool DOT> struct Key { using type = float; };
 template <> struct Key<true> { using type = __nv_bfloat16; };
 
-// block-wide max (MAX) or sum of one value per thread, in a fixed order
-template <bool MAX>
-__device__ __forceinline__ float block_reduce(float x, float* red) {
+// The THREADS threads that run one read, and their barrier: a whole block
+// (K10, K8's per-step read kernel) or one row's threads inside a larger
+// block (K8's cluster forward, av_align_fwd.cuh: named barrier `id`).
+struct BlockGroup {
+  __device__ int tid() const { return threadIdx.x; }
+  __device__ void sync() const { __syncthreads(); }
+};
+struct RowGroup {
+  int t, id;  // the thread's index among the row's THREADS; the barrier (1..15)
+  __device__ int tid() const { return t; }
+  __device__ void sync() const {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(THREADS) : "memory");
+  }
+};
+
+// group-wide max (MAX) or sum of one value per thread, in a fixed order
+template <bool MAX, class G>
+__device__ __forceinline__ float group_reduce(const G& grp, float x, float* red) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     const float y = __shfl_xor_sync(0xffffffffu, x, o);
     x = MAX ? fmaxf(x, y) : x + y;
   }
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = x;
-  __syncthreads();
+  if (grp.tid() % 32 == 0) red[grp.tid() / 32] = x;
+  grp.sync();
   float r = red[0];
 #pragma unroll
   for (int w = 1; w < WARPS; ++w) r = MAX ? fmaxf(r, red[w]) : r + red[w];
-  __syncthreads();  // red is reused by the next reduction
+  grp.sync();  // red is reused by the next reduction
   return r;
+}
+template <bool MAX>
+__device__ __forceinline__ float block_reduce(float x, float* red) {
+  return group_reduce<MAX>(BlockGroup{}, x, red);
 }
 
 // The q product's partial sums over the column pairs [p_lo, p_hi) of wq
@@ -148,31 +174,25 @@ __host__ __device__ inline size_t read_smem_bytes(int Hq, int A, int S) {
   return (size_t)(2 * A + Hq + S + WARPS + 8 * THREADS) * sizeof(float);
 }
 
-// One read.  query [Hq] fp32, wq [Hq, A] bf16, vatt [A] bf16 (null for
-// the dot score), keys [S, A] (fp32 additive, bf16 dot), values [S, Dv]
-// bf16, bias / mask [S] fp32 (this row's slices).  w_out(s, w) receives
-// each weight, ctx_out(d, x) each context channel.
-template <bool DOT, class WeightOut, class CtxOut>
-__device__ void read(const float* __restrict__ query, const __nv_bfloat16* __restrict__ wq,
-                     const __nv_bfloat16* __restrict__ vatt,
-                     const typename Key<DOT>::type* __restrict__ keys,
-                     const __nv_bfloat16* __restrict__ values, const float* __restrict__ bias,
-                     const float* __restrict__ mask, int Hq, int A, int S, int Dv, float* smem,
-                     WeightOut w_out, CtxOut ctx_out) {
-  float* q_s = smem;           // [A]
-  float* v_s = q_s + A;        // [A]
-  float* qin = v_s + A;        // [Hq] bf16-rounded query
-  float* p_s = qin + Hq;       // [S] scores, weights, then bf16(weights)
-  float* red = p_s + S;        // [WARPS]
-  float* part = red + WARPS;   // [8 * THREADS]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  for (int i = tid; i < Hq; i += THREADS) qin[i] = bf_round(query[i]);
-  if (!DOT)
-    for (int i = tid; i < A; i += THREADS) v_s[i] = __bfloat162float(vatt[i]);
-  __syncthreads();
-
-  q_product<DOT>(qin, wq, Hq, A, part, q_s);
+// The read from its q: the scores, the softmax with the mask and the
+// renormalisation, and the context, run by the group's THREADS threads.
+// q_s [A] fp32 (bf16-rounded for the dot score), v_s [A] (bf16 v as fp32;
+// unused by the dot score), keys [S, A] (fp32 additive, bf16 dot), values
+// [S, Dv] bf16, bias / mask [S] fp32 (this row's slices); scratch p_s [S],
+// red [WARPS], part [8 * THREADS] fp32.  w_out(s, w) receives each weight,
+// ctx_out(d, x) each context channel.  FAST: the additive score's tanh is
+// tanh_fast (fewer registers than tanhf's slow path); LOADS_ value rows in
+// flight per thread in the context.
+template <bool DOT, bool FAST = false, int LOADS_ = LOADS, class G, class WeightOut,
+          class CtxOut>
+__device__ void scores_context(const G& grp, const float* q_s, const float* v_s,
+                               const typename Key<DOT>::type* __restrict__ keys,
+                               const __nv_bfloat16* __restrict__ values,
+                               const float* __restrict__ bias, const float* __restrict__ mask,
+                               int A, int S, int Dv, float* p_s, float* red, float* part,
+                               WeightOut w_out, CtxOut ctx_out) {
+  const int tid = grp.tid(), lane = tid & 31, warp = tid >> 5;
+  const auto tanh_ = [](float x) { return FAST ? tanh_fast(x) : tanhf(x); };
 
   if constexpr (DOT) {
     // scores: a warp per key, KPW keys at a time, 8 bf16 keys per lane load
@@ -209,7 +229,7 @@ __device__ void read(const float* __restrict__ query, const __nv_bfloat16* __res
         if (lane == 0 && s0 + j < S) p_s[s0 + j] = a + bias[s0 + j];
       }
     }
-    __syncthreads();
+    grp.sync();
   } else {
     // scores: a warp per key, KPW keys at a time, a float4 of the key per lane
     const int A4 = A / 4;
@@ -228,10 +248,10 @@ __device__ void read(const float* __restrict__ query, const __nv_bfloat16* __res
         const float4 qq = q4[c], vv = v4[c];
 #pragma unroll
         for (int j = 0; j < KPW; ++j) {
-          acc[j] = fmaf(bf_round(tanhf(kv[j].x + qq.x)), vv.x, acc[j]);
-          acc[j] = fmaf(bf_round(tanhf(kv[j].y + qq.y)), vv.y, acc[j]);
-          acc[j] = fmaf(bf_round(tanhf(kv[j].z + qq.z)), vv.z, acc[j]);
-          acc[j] = fmaf(bf_round(tanhf(kv[j].w + qq.w)), vv.w, acc[j]);
+          acc[j] = fmaf(bf_round(tanh_(kv[j].x + qq.x)), vv.x, acc[j]);
+          acc[j] = fmaf(bf_round(tanh_(kv[j].y + qq.y)), vv.y, acc[j]);
+          acc[j] = fmaf(bf_round(tanh_(kv[j].z + qq.z)), vv.z, acc[j]);
+          acc[j] = fmaf(bf_round(tanh_(kv[j].w + qq.w)), vv.w, acc[j]);
         }
       }
 #pragma unroll
@@ -242,21 +262,21 @@ __device__ void read(const float* __restrict__ query, const __nv_bfloat16* __res
         if (lane == 0 && s0 + j < S) p_s[s0 + j] = a + bias[s0 + j];
       }
     }
-    __syncthreads();
+    grp.sync();
   }
 
   // softmax (fp32), the mask, the renormalisation and the empty-memory zero
   {
     float mx = __int_as_float(0xff800000u);  // -inf
     for (int s = tid; s < S; s += THREADS) mx = fmaxf(mx, p_s[s]);
-    mx = block_reduce<true>(mx, red);
+    mx = group_reduce<true>(grp, mx, red);
     float sum = 0.f;
     for (int s = tid; s < S; s += THREADS) {
       const float e = expf(p_s[s] - mx);
       p_s[s] = e;
       sum += e;
     }
-    sum = block_reduce<false>(sum, red);
+    sum = group_reduce<false>(grp, sum, red);
     float psum = 0.f, msum = 0.f;
     for (int s = tid; s < S; s += THREADS) {
       const float m = mask[s];
@@ -265,15 +285,15 @@ __device__ void read(const float* __restrict__ query, const __nv_bfloat16* __res
       psum += p;
       msum += m;
     }
-    psum = block_reduce<false>(psum, red);
-    msum = block_reduce<false>(msum, red);
+    psum = group_reduce<false>(grp, psum, red);
+    msum = group_reduce<false>(grp, msum, red);
     const float denom = fmaxf(psum, 1e-9f), scale = fminf(msum, 1.0f);
     for (int s = tid; s < S; s += THREADS) {
       const float w = p_s[s] / denom * scale;
       w_out(s, w);
       p_s[s] = bf_round(w);
     }
-    __syncthreads();
+    grp.sync();
   }
 
   // context: a thread per 8-channel chunk, keys split over slices
@@ -285,17 +305,17 @@ __device__ void read(const float* __restrict__ query, const __nv_bfloat16* __res
       float acc[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-      for (int s0 = sl; s0 < S; s0 += LOADS * slices) {
-        float p[LOADS];
-        uint4 u[LOADS];  // LOADS value rows in flight
+      for (int s0 = sl; s0 < S; s0 += LOADS_ * slices) {
+        float p[LOADS_];
+        uint4 u[LOADS_];  // LOADS_ value rows in flight
 #pragma unroll
-        for (int j = 0; j < LOADS; ++j) {
+        for (int j = 0; j < LOADS_; ++j) {
           const int s = s0 + j * slices;
           p[j] = s < S ? p_s[s] : 0.f;
           u[j] = p[j] != 0.f ? vr[(size_t)s * C] : make_uint4(0u, 0u, 0u, 0u);
         }
 #pragma unroll
-        for (int j = 0; j < LOADS; ++j) {
+        for (int j = 0; j < LOADS_; ++j) {
           if (p[j] == 0.f) continue;
           acc[0] = fmaf(p[j], bf_lo(u[j].x), acc[0]);
           acc[1] = fmaf(p[j], bf_hi(u[j].x), acc[1]);
@@ -310,13 +330,42 @@ __device__ void read(const float* __restrict__ query, const __nv_bfloat16* __res
 #pragma unroll
       for (int j = 0; j < 8; ++j) part[sl * Dv + 8 * c + j] = acc[j];
     }
-    __syncthreads();
+    grp.sync();
     for (int d = tid; d < Dv; d += THREADS) {
       float x = 0.f;
       for (int j = 0; j < slices; ++j) x += part[j * Dv + d];
       ctx_out(d, x);
     }
   }
+}
+
+// One read.  query [Hq] fp32, wq [Hq, A] bf16, vatt [A] bf16 (null for
+// the dot score), keys [S, A] (fp32 additive, bf16 dot), values [S, Dv]
+// bf16, bias / mask [S] fp32 (this row's slices).  w_out(s, w) receives
+// each weight, ctx_out(d, x) each context channel.
+template <bool DOT, class WeightOut, class CtxOut>
+__device__ void read(const float* __restrict__ query, const __nv_bfloat16* __restrict__ wq,
+                     const __nv_bfloat16* __restrict__ vatt,
+                     const typename Key<DOT>::type* __restrict__ keys,
+                     const __nv_bfloat16* __restrict__ values, const float* __restrict__ bias,
+                     const float* __restrict__ mask, int Hq, int A, int S, int Dv, float* smem,
+                     WeightOut w_out, CtxOut ctx_out) {
+  float* q_s = smem;           // [A]
+  float* v_s = q_s + A;        // [A]
+  float* qin = v_s + A;        // [Hq] bf16-rounded query
+  float* p_s = qin + Hq;       // [S] scores, weights, then bf16(weights)
+  float* red = p_s + S;        // [WARPS]
+  float* part = red + WARPS;   // [8 * THREADS]
+  const int tid = threadIdx.x;
+
+  for (int i = tid; i < Hq; i += THREADS) qin[i] = bf_round(query[i]);
+  if (!DOT)
+    for (int i = tid; i < A; i += THREADS) v_s[i] = __bfloat162float(vatt[i]);
+  __syncthreads();
+
+  q_product<DOT>(qin, wq, Hq, A, part, q_s);
+  scores_context<DOT>(BlockGroup{}, q_s, v_s, keys, values, bias, mask, A, S, Dv, p_s, red, part,
+                      w_out, ctx_out);
 }
 
 }  // namespace bahdanau

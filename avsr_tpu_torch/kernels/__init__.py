@@ -64,6 +64,7 @@ LSTM_UNIT_TILE = 16  # hidden units per block of the per-step LSTM kernels (UT i
 LSTM_ROW_TILE = 16   # batch rows per block of the per-step LSTM kernels (BT in the source)
 LSTM_CLUSTER = 8     # CTAs per cluster of the cluster LSTM kernels (C in lstm_cluster.cuh)
 LSTM_CLUSTER_ROWS = 16  # batch rows per cluster (BR in lstm_cluster.cuh)
+ALIGN_CLUSTER = 16   # CTAs per cluster of K8's cluster kernels (C in av_align_fwd/bwd.cuh)
 FUSION_MAX_TV = 400  # video frames the fusion kernels (K4, K8) take: 16 s at 25 fps
 ATTEND_MAX_S = 531   # steps K10, K11 and K4 (T_a) take: the audio steps of 16 s, (1598 - 8) // 3 + 1
 CONV_MAX_D = 1024    # channels K9 takes: one channel pair per thread, 512 threads at most
@@ -201,6 +202,12 @@ def _load() -> ctypes.CDLL:
         lib.avsr_av_align_smem.restype = ctypes.c_longlong
         lib.avsr_av_align_scan.argtypes = [p] * 21 + [i] * 8 + [p]
         lib.avsr_av_align_scan.restype = i
+        lib.avsr_av_align_fwd_smem.argtypes = [i] * 6
+        lib.avsr_av_align_fwd_smem.restype = ctypes.c_longlong
+        lib.avsr_av_align_fwd_max_active.argtypes = [i] * 7
+        lib.avsr_av_align_fwd_max_active.restype = i
+        lib.avsr_av_align_fwd.argtypes = [p] * 19 + [i] * 9 + [p]
+        lib.avsr_av_align_fwd.restype = i
         lib.avsr_av_align_bwd_smem.argtypes = [i] * 7
         lib.avsr_av_align_bwd_smem.restype = ctypes.c_longlong
         lib.avsr_av_align_bwd_max_active.argtypes = [i] * 7
@@ -270,8 +277,8 @@ def _raise_on(err: int, what: str) -> None:
 
 def tile_lstm_weights(wh: torch.Tensor) -> torch.Tensor:
     """[G, K, 4H] -> [G, H/UT, K, UT, 4], the layout the per-step LSTM
-    kernels and K8 read (K = H for Wh, K = the context width for K8's
-    ``ctx_proj``): each
+    kernels and K8's per-step route read (K = H for Wh, K = the context
+    width for K8's ``ctx_proj``): each
     block's weight slice is contiguous and the four gate weights of one
     hidden unit are adjacent (``csrc/lstm_scan.cu``, ``csrc/av_align_scan.cu``)."""
     G, K, H4 = wh.shape
@@ -770,6 +777,93 @@ def _check_score(v, keys, N, S, A, dev):
     _check("keys", keys, torch.float32 if v is not None else torch.bfloat16, (N, S, A), dev)
 
 
+def av_align_step_smem(H: int, Dc: int, A: int, S: int) -> int:
+    """Shared memory per block of K8's per-step forward (``csrc/av_align_scan.cu``
+    ``avsr_av_align_smem``), bytes: the larger of the gate launch's (the
+    [H + Dc, 16 units, 4 gates] weight slices and 16 bf16 h and ctx rows)
+    and the read launch's (``bahdanau_core.cuh`` ``read_smem_bytes``)."""
+    gate = (64 * (H + Dc) + 16 * (H + Dc)) * 2
+    read = (2 * A + H + S + 8 + 8 * 256) * 4
+    return max(gate, read)
+
+
+def av_align_fwd_smem(H: int, Dc: int, A: int, S: int, Dv: int, rows_per_cta: int) -> int:
+    """Shared memory per CTA of K8's cluster forward (``csrc/av_align_fwd.cuh``
+    ``Layout``) at 1 or 2 rows per CTA, bytes: the resident [H + Dc, H/4]
+    slice of [Wh ; ctx_proj], wq's A/16 columns, two bf16 h tiles [16 rpc,
+    H], the ctx tile [16 rpc, Dc], at one row a CTA the second k half's
+    fp32 partials (4 KB per unit group of 8), the cell threads' next xw (2 KB
+    per unit group and m-tile); per row read, q, v, the context carry,
+    the scores, 8 reduction slots and 2,048 partial sums (fp32) and its
+    staged bf16 context [Dc]; 3 + rpc mbarriers."""
+    def up16(x):
+        return (x + 15) // 16 * 16
+
+    C, nw, rpc = ALIGN_CLUSTER, H // 128, rows_per_cta
+    row = up16((2 * A + Dv + (S + 3) // 4 * 4 + 8 + 8 * 256) * 4 + 2 * Dc)
+    return (2 * nw * (H + Dc) * 32 + 2 * (A // 128) * H * 8 + 2 * 2 * C * rpc * H
+            + 2 * C * rpc * Dc + (4096 * nw if rpc == 1 else 0) + 2048 * rpc * nw + rpc * row
+            + 8 * (3 + rpc))
+
+
+def av_align_family(H: int, Dc: int, A: int, S: int, Dv: int) -> str:
+    """The kernels that run K8's forward at these widths (Dc = 0 without
+    input feeding, else Dv; A the key width): "cluster", one persistent
+    launch of 16-CTA thread-block clusters per call (``csrc/av_align_fwd.cuh``),
+    where H is 128 or 256 (one or two groups of 8 units a CTA), Dc = Dv is
+    a multiple of 64 (a swizzled ctx tile; input feeding), A a multiple of
+    128 (whole n-tiles of q a CTA) and one row a CTA fits a CTA's shared
+    memory (every preset's and uni-Luong's widths); else "step", the
+    per-step kernels (``csrc/av_align_scan.cu``).  Chosen by shape alone,
+    never after a failure; other shapes raise."""
+    if (H < LSTM_UNIT_TILE or H % LSTM_UNIT_TILE or A < 8 or A % 8 or A > 512
+            or Dv < LSTM_UNIT_TILE or Dv % LSTM_UNIT_TILE or Dv > 2048 or Dc not in (0, Dv)):
+        raise ValueError(f"av_align scan: H={H}, Dc={Dc}, A={A}, Dv={Dv}; the kernels take H and "
+                         f"Dv multiples of {LSTM_UNIT_TILE}, Dv at most 2048, A a multiple of 8 "
+                         f"up to 512 and Dc 0 or Dv")
+    if not 1 <= S <= FUSION_MAX_TV:
+        raise ValueError(f"av_align scan: T_v={S}; the kernels take 1 <= T_v <= {FUSION_MAX_TV}")
+    if (H in (128, 256) and Dc == Dv and Dv % 64 == 0 and A % 128 == 0
+            and av_align_fwd_smem(H, Dc, A, S, Dv, 1) <= SMEM_LIMIT):
+        return "cluster"
+    smem = av_align_step_smem(H, Dc, A, S)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"av_align scan: H={H}, Dc={Dc}, A={A}, T_v={S} need {smem} bytes "
+                         f"of shared memory per block (limit {SMEM_LIMIT})")
+    return "step"
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_max_active(H: int, Dc: int, A: int, S: int, Dv: int, dot: bool, rpc: int) -> int:
+    return int(_load().avsr_av_align_fwd_max_active(H, Dc, A, S, Dv, int(dot), rpc))
+
+
+def av_align_fwd_rows_per_cta(B: int, H: int, Dc: int, A: int, S: int, Dv: int,
+                              dot: bool) -> int:
+    """Batch rows per CTA of K8's cluster forward: 1 while its 16-row
+    clusters of 16 CTAs all fit the card at once, else 2 where the layout
+    fits (32-row clusters, each CTA reading two rows on thread sets of its
+    own; at B = 128 the card holds 7 of the 8 clusters one row a CTA needs).
+    Chosen by shape and occupancy alone."""
+    if (-(-B // ALIGN_CLUSTER) <= _fwd_max_active(H, Dc, A, S, Dv, dot, 1)
+            or av_align_fwd_smem(H, Dc, A, S, Dv, 2) > SMEM_LIMIT):
+        return 1
+    return 2
+
+
+def cluster_align_weights(wh: torch.Tensor, ctx_proj: Optional[torch.Tensor]) -> torch.Tensor:
+    """[H, 4H] Wh and [Dc, 4H] ctx_proj -> [16, H/128, H + Dc, 32], the
+    layout K8's cluster forward reads: [r, g, k, 8q + j] = [Wh ;
+    ctx_proj][k, q*H + r*H/16 + 8g + j], so CTA r's slice (its H/16 units'
+    four gates over all H + Dc inputs) is one contiguous run, a [K, 32] block
+    per group of 8 units whose 16-byte chunks are its gates
+    (``csrc/av_align_fwd.cuh``)."""
+    w = wh if ctx_proj is None else torch.cat([wh, ctx_proj], dim=0)
+    K, H = w.shape[0], w.shape[1] // 4
+    return (w.view(K, 4, ALIGN_CLUSTER, H // 128, 8).permute(2, 3, 0, 1, 4).contiguous()
+            .view(ALIGN_CLUSTER, H // 128, K, 32))
+
+
 def _check_av_align(wh, b, ctx_proj, wq, v, xw, mask, keys, values):
     T, B, H4 = xw.shape
     H = H4 // 4
@@ -785,18 +879,11 @@ def _check_av_align(wh, b, ctx_proj, wq, v, xw, mask, keys, values):
     _check("xw", xw, torch.float32, (T, B, 4 * H), dev)
     _check("mask", mask, torch.float32, (T, B), dev)
     _check("values", values, torch.bfloat16, (B, S, Dv), dev)
-    if H % LSTM_UNIT_TILE or A % 8 or A > 512 or Dv % LSTM_UNIT_TILE or Dv > 2048:
-        raise ValueError(f"av_align scan: H={H} and Dv={Dv} must be multiples of "
-                         f"{LSTM_UNIT_TILE}, Dv at most 2048, A={A} a multiple of 8 up to 512")
-    if not (1 <= S <= FUSION_MAX_TV and B >= 1):
-        raise ValueError(f"av_align scan: T_v={S}, B={B}; the kernel takes "
-                         f"1 <= T_v <= {FUSION_MAX_TV}")
+    if B < 1:
+        raise ValueError(f"av_align scan: B={B}; the kernels take B >= 1")
     Dc = Dv if ctx_proj is not None else 0
-    smem = _load().avsr_av_align_smem(H, Dc, A, S, Dv)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"av_align scan: H={H}, Dc={Dc}, A={A}, T_v={S} need {smem} bytes "
-                         f"of shared memory per block (limit {SMEM_LIMIT})")
-    return T, B, H, Dc, A, S, Dv, dev
+    family = av_align_family(H, Dc, A, S, Dv)
+    return T, B, H, Dc, A, S, Dv, dev, family
 
 
 def av_align_scan(wh, b, ctx_proj, wq, v, xw, mask, keys, values, mbias, mmask, *,
@@ -806,42 +893,58 @@ def av_align_scan(wh, b, ctx_proj, wq, v, xw, mask, keys, values, mbias, mmask, 
 
     wh [H,4H] bf16, b [4H] f32, ctx_proj [Dv,4H] bf16 or None (no input
     feeding), wq [H,A] bf16, v [A] bf16 (None: Luong), xw [T,B,4H] f32, mask
-    [T,B] f32; the video memory: keys [B,S,A] f32 (Luong: the bf16 memory,
-    A its width), values [B,S,Dv] bf16, mbias / mmask
-    [B,S] f32 -> (hs [T,B,H], ctxs [T,B,Dv], aligns [T,B,S], hT, cT [B,H],
-    ctxT [B,Dv], res), all fp32, from zero initial carries; res is (h_res,
-    c_res [T,B,H], ctx_res [T,B,Dv]), the fp32 carries entering each step,
-    when ``save`` (the backward's residuals), else None.
+    [T,B] f32 (a length mask: 0 or 1); the video memory: keys [B,S,A] f32
+    (Luong: the bf16 memory, A its width), values [B,S,Dv] bf16, mbias /
+    mmask [B,S] f32 -> (hs [T,B,H], ctxs [T,B,Dv], aligns [T,B,S], hT, cT
+    [B,H], ctxT [B,Dv], res), all fp32, from zero initial carries; res is
+    (h_res, c_res [T,B,H], ctx_res [T,B,Dv]), the fp32 carries entering each
+    step, when ``save`` (the backward's residuals), else None.  Runs on the
+    family ``av_align_family`` names: one cluster launch after the weights'
+    layout (``cluster_align_weights``), or two launches per step.
     """
-    T, B, H, Dc, A, S, Dv, dev = _check_av_align(wh, b, ctx_proj, wq, v, xw, mask, keys, values)
+    T, B, H, Dc, A, S, Dv, dev, family = _check_av_align(wh, b, ctx_proj, wq, v, xw, mask, keys,
+                                                         values)
     _check("mbias", mbias, torch.float32, (B, S), dev)
     _check("mmask", mmask, torch.float32, (B, S), dev)
     lib = _load()
-    wh_tiled = tile_lstm_weights(wh[None])[0]
-    cp_tiled = None if ctx_proj is None else tile_lstm_weights(ctx_proj[None])[0]
-    hbuf = torch.zeros((2, B, H), dtype=torch.float32, device=dev)
-    c = torch.zeros((B, H), dtype=torch.float32, device=dev)
-    ctxbuf = torch.zeros((2, B, Dv), dtype=torch.float32, device=dev)
-    hnew = torch.empty((B, H), dtype=torch.float32, device=dev)
-    hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
-    ctxs = torch.empty((T, B, Dv), dtype=torch.float32, device=dev)
-    aligns = torch.empty((T, B, S), dtype=torch.float32, device=dev)
-    res = None
-    if save:
-        res = (torch.empty((T, B, H), dtype=torch.float32, device=dev),
-               torch.empty((T, B, H), dtype=torch.float32, device=dev),
-               torch.empty((T, B, Dv), dtype=torch.float32, device=dev))
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    hs, ctxs, aligns = empty(T, B, H), empty(T, B, Dv), empty(T, B, S)
+    res = (empty(T, B, H), empty(T, B, H), empty(T, B, Dv)) if save else None
+    res_ptrs = tuple(r.data_ptr() for r in res) if save else (None, None, None)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.avsr_av_align_scan(
-        wh_tiled.data_ptr(), None if cp_tiled is None else cp_tiled.data_ptr(), b.data_ptr(),
-        xw.data_ptr(), mask.data_ptr(), wq.data_ptr(), _ptr(v), keys.data_ptr(),
-        values.data_ptr(), mbias.data_ptr(), mmask.data_ptr(), hbuf.data_ptr(), c.data_ptr(),
-        ctxbuf.data_ptr(), hnew.data_ptr(), hs.data_ptr(), ctxs.data_ptr(), aligns.data_ptr(),
-        *((r.data_ptr() for r in res) if save else (None, None, None)),
-        T, B, H, Dc, A, S, Dv, int(v is None), stream)
+    dot = v is None
+    if family == "cluster":
+        hT, cT, ctxT = empty(B, H), empty(B, H), empty(B, Dv)
+        if T == 0:  # no step: the zero initial carries
+            for x in (hT, cT, ctxT):
+                x.zero_()
+        w = cluster_align_weights(wh, ctx_proj)
+        rpc = av_align_fwd_rows_per_cta(B, H, Dc, A, S, Dv, dot)
+        err = lib.avsr_av_align_fwd(
+            w.data_ptr(), wq.data_ptr(), _ptr(v), b.data_ptr(), xw.data_ptr(), mask.data_ptr(),
+            keys.data_ptr(), values.data_ptr(), mbias.data_ptr(), mmask.data_ptr(),
+            hs.data_ptr(), ctxs.data_ptr(), aligns.data_ptr(), hT.data_ptr(), cT.data_ptr(),
+            ctxT.data_ptr(), *res_ptrs, T, B, H, Dc, A, S, Dv, int(dot), rpc, stream)
+    else:
+        wh_tiled = tile_lstm_weights(wh[None])[0]
+        cp_tiled = None if ctx_proj is None else tile_lstm_weights(ctx_proj[None])[0]
+        hbuf = torch.zeros((2, B, H), dtype=torch.float32, device=dev)
+        c = torch.zeros((B, H), dtype=torch.float32, device=dev)
+        ctxbuf = torch.zeros((2, B, Dv), dtype=torch.float32, device=dev)
+        hnew = empty(B, H)
+        err = lib.avsr_av_align_scan(
+            wh_tiled.data_ptr(), _ptr(cp_tiled), b.data_ptr(), xw.data_ptr(), mask.data_ptr(),
+            wq.data_ptr(), _ptr(v), keys.data_ptr(), values.data_ptr(), mbias.data_ptr(),
+            mmask.data_ptr(), hbuf.data_ptr(), c.data_ptr(), ctxbuf.data_ptr(), hnew.data_ptr(),
+            hs.data_ptr(), ctxs.data_ptr(), aligns.data_ptr(), *res_ptrs,
+            T, B, H, Dc, A, S, Dv, int(dot), stream)
+        hT, cT, ctxT = hbuf[T % 2], c, ctxbuf[T % 2]
     _raise_on(err, "av_align_scan launch")
-    LAUNCHES["av_align_scan" if v is not None else "av_align_scan_luong"] += 1
-    return hs, ctxs, aligns, hbuf[T % 2], c, ctxbuf[T % 2], res
+    LAUNCHES["av_align_scan_luong" if dot else "av_align_scan"] += 1
+    return hs, ctxs, aligns, hT, cT, ctxT, res
 
 
 def av_align_bwd_info(H: int, Dc: int, A: int, S: int, Dv: int, dot: bool,
@@ -883,7 +986,8 @@ def av_align_scan_bwd_stages(wh, b, ctx_proj, wq, v, xw, mask, keys, values, ali
     times its part of the call.  Same operands and checks as
     ``av_align_scan_bwd``; ``rows_per_cta`` (1 or 2) is the recurrence's
     layout, by default ``av_align_bwd_rows_per_cta``'s."""
-    T, B, H, Dc, A, S, Dv, dev = _check_av_align(wh, b, ctx_proj, wq, v, xw, mask, keys, values)
+    T, B, H, Dc, A, S, Dv, dev, _ = _check_av_align(wh, b, ctx_proj, wq, v, xw, mask, keys,
+                                                    values)
     f32 = torch.float32
     _check("aligns", aligns, f32, (T, B, S), dev)
     for name, x, shape in (("h_res", h_res, (T, B, H)), ("c_res", c_res, (T, B, H)),

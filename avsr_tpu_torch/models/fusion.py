@@ -11,7 +11,9 @@ encoder's output with input feeding; at every audio step one attention read
 (Bahdanau or Luong, ``FusionConfig.attention_type``) of the video memory
 with the new h as the query; the memory is [h ; ctx].
 The scan body (``fusion.py:118-141``) is kernel K8: ``av_align_scan_fwd``
-launches ``csrc/av_align_scan.cu`` for tensors on a GPU and runs
+launches ``csrc/av_align_scan.cu`` for tensors on a GPU (at the presets'
+widths one launch of thread-block clusters a call, ``csrc/av_align_fwd.cuh``;
+``kernels.av_align_family`` routes by shape) and runs
 ``av_align_scan_fwd_plain`` (a loop of ``lstm_step`` and ``attend_plain``)
 for tensors on the CPU.  When a gradient is wanted, ``av_align_scan`` goes
 through ``AVAlignScan``: its forward saves the fp32 carries entering each

@@ -88,10 +88,18 @@ Phases, in order; any failure exits nonzero before the final line:
 12. greedy — greedy decode of one B=128 batch of 6 s utterances, horizon
              150, on the kernel path (K6 launches counted) and on the plain
              path: decode ms, steps; at most 16 rows whose ids differ.
-13. K8     — the AV-Align fusion scan against its plain twin at [T_a=197,
-             B=8 and 128, D_in=512, H=256, T_v=150, A=128, Dv=512], bf16,
-             ragged audio and video lengths with a 0-length row of each:
-             errors on hs, ctxs, aligns and the final carries; times.
+13. K8     — the AV-Align fusion scan's forward (one persistent launch of
+             16-CTA clusters a call, ``kernels.av_align_family`` "cluster")
+             against its plain twin at [H=256, A=128, Dv=512], bf16, ragged
+             audio and video lengths with a 0-length row of each, at the
+             serving, train and 16 s shapes (``K8_FWD_SHAPES``: [T_a=197,
+             B=8 and 128, T_v=150], [531, 32, 400]), in save mode: errors on
+             hs, ctxs, aligns, the final and the saved carries; exact zeros
+             of the empty rows; reruns (and the run without save)
+             bit-equal; the kernel's registers, spills and HMMA count, its
+             shared memory against ``kernels.av_align_fwd_smem`` and max
+             active clusters; device ms at each shape, us a step in one
+             cluster with and without masked steps; times.
 14. K10    — the Bahdanau read against its plain twin at N=80 and 128,
              S=197, A=128, Dv=768, with a length-0 row (zero context and
              weights required): errors on ctx and weights; times.
@@ -199,11 +207,11 @@ Phases, in order; any failure exits nonzero before the final line:
              bf16 memory as keys and values), with a length-0 row (zero
              context and weights required); its backward as phase 18's
              read loop (K=80 at N=128, and S=531); times and the bounds.
-30. K8 Luong — the AV-Align fusion scan's Luong instance at [T_a=197, B=8
-             and 128, H=256, T_v=150, Hk=Dv=256], ragged with a 0-length
-             audio and video row, and its backward at B=128 and at the 16 s
-             limits, as phase 17: errors, exact zeros of the empty rows,
-             bit-equal reruns, times, the stages apart and the bounds.
+30. K8 Luong — the AV-Align fusion scan's Luong instance [H=256,
+             Hk=Dv=256], forward as phase 13, and its backward at B=128 and
+             at the 16 s limits, as phase 17: errors, exact zeros of the
+             empty rows, bit-equal reruns, times, the stages apart and the
+             bounds.
 31. serve-uni-luong — the full-width ``lrs2_av_align_uni_luong`` model
              (``lrs2_av_align`` with one-direction encoders and Luong reads)
              behind a CUDA ``Predictor`` as in phase 15; requires K2, K3, the
@@ -232,6 +240,9 @@ Phases, in order; any failure exits nonzero before the final line:
              [T=50, G=2, B=20, H=512] ragged with a 0-length row, and at G=1
              with a nonzero h0/c0.
 
+37. K8 step route — K8 forward's per-step kernels at widths only they take
+             (Bahdanau at A=64, Luong at Hk=Dv=192; ``av_align_family``
+             "step") against the plain twins, as phase 13's checks.
 Serve (5, 15, 22, 31) also beams the same memories through the plain path and
 holds the best scores to a tolerance.  Each serve and greedy path and the
 train path end with a ``torch.profiler`` reading of one run: the device's
@@ -1749,56 +1760,182 @@ def k8_inputs(B, dev, seed, T=197, H=256, Tv=150, A=128, Dv=512):
     return [cell, att, ctx_proj.to(dev), xw.to(dev), mask.to(dev), mem, torch.bfloat16]
 
 
-def phase_k8(dev, report):
+# K8 forward's shapes (T_a, B, T_v): a serving request, the train batch, the
+# 16 s limits
+K8_FWD_SHAPES = ((197, 8, 150), (197, 128, 150), (531, 32, 400))
+_K8F_INFO = {}  # K8 forward's build report, shared memory and occupancy, read once
+
+
+def k8_fwd_build_info():
+    """K8 forward's cluster kernel as built (``csrc/av_align_fwd.cuh``):
+    registers, spills and HMMA count of both read instances (fails on a
+    spill or one without HMMA); the library's shared memory of both routes
+    over a grid of widths against ``kernels.av_align_fwd_smem`` /
+    ``av_align_step_smem`` and ``av_align_family``; the max active 16-CTA
+    clusters at one and two rows a CTA at both presets' widths."""
+    from avsr_tpu_torch import kernels
+
+    if _K8F_INFO:
+        return _K8F_INFO
+    build = build_report("K8 fwd", "av_align_scan", {
+        "fwd<bahdanau>": ("align_fwd_scanILb0E",), "fwd<luong>": ("align_fwd_scanILb1E",)})
+    lib = kernels._load()
+    for H in (64, 128, 192, 256, 512):
+        for Dv in (64, 256, 512, 768, 1024):
+            for A in (64, 128, 256):
+                for S in (1, 150, 400):
+                    if lib.avsr_av_align_smem(H, Dv, A, S, Dv) != kernels.av_align_step_smem(
+                            H, Dv, A, S):
+                        fail("K8", f"per-step shared memory at H={H}, Dv={Dv}, A={A}, S={S}: "
+                                   f"library {lib.avsr_av_align_smem(H, Dv, A, S, Dv)}")
+                    try:
+                        cluster = kernels.av_align_family(H, Dv, A, S, Dv) == "cluster"
+                    except ValueError:
+                        cluster = False
+                    for rpc in (1, 2):
+                        want = kernels.av_align_fwd_smem(H, Dv, A, S, Dv, rpc)
+                        want = want if cluster and want <= kernels.SMEM_LIMIT else -1
+                        got = lib.avsr_av_align_fwd_smem(H, Dv, A, S, Dv, rpc)
+                        if got != want:
+                            fail("K8", f"H={H}, Dv={Dv}, A={A}, S={S}, rows_per_cta={rpc}: the "
+                                       f"library's cluster forward takes {got} bytes, "
+                                       f"av_align_family / av_align_fwd_smem expect {want}")
+    occ = {f"{kind} rows_per_cta={r}": {
+        "smem": kernels.av_align_fwd_smem(*w, r),
+        "max_active_clusters": int(lib.avsr_av_align_fwd_max_active(*w, int(dot), r))}
+        for kind, w, dot in (("bahdanau", (256, 512, 128, 150, 512), False),
+                             ("luong", (256, 256, 256, 150, 256), True))
+        for r in (1, 2)}
+    print(f"K8 fwd cluster kernel: shared memory per CTA and max active clusters of 16 CTAs "
+          f"(cudaOccupancyMaxActiveClusters): {occ}")
+    if min(o["max_active_clusters"] for o in occ.values()) < 1:
+        fail("K8 fwd", f"the cluster forward cannot be resident: {occ}")
+    _K8F_INFO.update(build=build, occupancy=occ)
+    return _K8F_INFO
+
+
+def k8_fwd_check(label, args, attention_type, align_tol, route="cluster"):
+    """K8 forward (either read) against its plain twin on the same operands,
+    in save mode (the train launch): the max abs error of hs, ctxs, aligns,
+    the final carries and the saved carries h_res, c_res, ctx_res; fails
+    past ``K8_TOL`` (aligns: ``align_tol``), on a non-finite value, a route
+    other than ``route``, a 0-length row (1: no audio step, 2: no video
+    frame) that is not exactly zero, a full row whose alignments do not sum
+    to 1, a rerun or a run without save that is not bit-equal.  Returns the
+    largest error."""
+    import torch
+
+    from avsr_tpu_torch import kernels
+    from avsr_tpu_torch.models import fusion as fus
+
+    kw = {"attention_type": attention_type}
+    cell, att, ctx_proj, xw, mask, mem, cdt = args
+    T, B, H4 = xw.shape
+    S, A, Dv = mem.keys.shape[1], mem.keys.shape[2], mem.values.shape[-1]
+    family = kernels.av_align_family(H4 // 4, 0 if ctx_proj is None else Dv, A, S, Dv)
+    out, res = fus.av_align_scan_fwd(*args, save=True, **kw)
+    out2, res2 = fus.av_align_scan_fwd(*args, save=True, **kw)
+    out3, _ = fus.av_align_scan_fwd(*args, save=False, **kw)
+    out_p, res_p = fus.av_align_scan_fwd_plain(*args, save=True, **kw)
+    torch.cuda.synchronize()
+    names = ("hs", "ctxs", "aligns", "hT", "cT", "ctxT", "h_res", "c_res", "ctx_res")
+    e = {n: max_err(a, b) for n, a, b in zip(names, (*out, *res), (*out_p, *res_p))}
+    hs, ctxs, al = out[:3]
+    zeros = (float(hs[:, 1].abs().max()), float(ctxs[:, 1].abs().max()),
+             float(al[:, 1].abs().max()), float(ctxs[:, 2].abs().max()),
+             float(al[:, 2].abs().max()), float(res[2][:, 1].abs().max()))
+    rows2 = float(al[: int(mask[:, 0].sum()), 0].sum(-1).sub(1).abs().max())
+    same = (all(torch.equal(a, b) for a, b in zip((*out, *res), (*out2, *res2)))
+            and all(torch.equal(a, b) for a, b in zip(out, out3)))
+    print(f"{label}: family {family}; max abs err {e} (tol {K8_TOL}, aligns {align_tol}); "
+          f"0-length audio row hs/ctxs/aligns/ctx_res and 0-length video row ctxs/aligns "
+          f"max |x| {zeros}; full row's alignments sum to 1 within {rows2}; reruns (and save "
+          f"off) bit-equal {same}")
+    if family != route:
+        fail(label, f"family {family}, expected {route}")
+    if not all(torch.isfinite(x).all() for x in (*out, *res)):
+        fail(label, "non-finite kernel output")
+    if max(zeros) != 0.0:
+        fail(label, f"a 0-length row is not exactly zero: {zeros}")
+    if not same:
+        fail(label, "two launches on the same operands differ")
+    if not (max(v for n, v in e.items() if n != "aligns") <= K8_TOL and e["aligns"] <= align_tol
+            and rows2 <= 1e-5):
+        fail(label, f"kernel disagrees with the plain twin: {e}")
+    return max(e.values())
+
+
+def k8_fwd_bound(args, attention_type, out):
+    """(ms, what bounds it) of K8 forward on these operands: the inputs read
+    once (the memory once where keys are values), the outputs written once;
+    per step the gate products, q, the score and the context (bf16
+    operands) and Bahdanau's energies (fp32)."""
+    cell, att, ctx_proj, xw, mask, mem, _ = args
+    T, B, H4 = xw.shape
+    S, A, Dv = mem.keys.shape[1], mem.keys.shape[2], mem.values.shape[-1]
+    H, Dc = H4 // 4, 0 if ctx_proj is None else Dv
+    luong = attention_type == "luong"
+    memory = (mem.values,) if luong else (mem.keys, mem.values)
+    nb = (nbytes(xw, mask, *memory, mem.bias, mem.mask, *out)
+          + 2 * (H * H4 + Dc * H4 + H * A + (0 if luong else A)) + 4 * H4)
+    flops = {"bf16": T * 2 * B * ((H + Dc) * H4 + H * A + S * A + S * Dv)}
+    if not luong:
+        flops["fp32"] = T * 2 * B * S * A
+    return bound(nb, flops)
+
+
+def k8_fwd_phase(dev, report, key, label, attention_type, make, seed, align_tol, widths):
+    """Phases 13 and 30: K8 forward (one read) against the plain twin at
+    ``K8_FWD_SHAPES``, its build report, device ms, us a step in one
+    cluster with and without masked steps, and the kernels
+    line's entry ``key`` (the serving shape's times, B = 128's beside)."""
     import torch
 
     from avsr_tpu_torch.models import fusion as fus
 
-    errs, times, bounds = {}, {}, {}
-    for B in (8, 128):
-        args = k8_inputs(B, dev, seed=13 + B)
-        hs, ctxs, al, carries = fus.av_align_scan(*args)
-        hs_p, ctxs_p, al_p, carries_p = fus.av_align_scan_plain(*args)
-        torch.cuda.synchronize()
-        e = {"hs": max_err(hs, hs_p), "ctxs": max_err(ctxs, ctxs_p), "aligns": max_err(al, al_p)}
-        e.update({n: max_err(a, b) for n, a, b in zip(("hT", "cT", "ctxT"), carries, carries_p)})
-        # row 1 has no audio step, row 2 no video frame: exact zeros
-        zeros = (float(hs[:, 1].abs().max()), float(ctxs[:, 1].abs().max()),
-                 float(al[:, 1].abs().max()), float(ctxs[:, 2].abs().max()),
-                 float(al[:, 2].abs().max()))
-        rows2 = float(al[: int(args[4][:, 0].sum()), 0].sum(-1).sub(1).abs().max())
-        print(f"K8 [T_a=197,B={B},H=256,T_v=150,A=128,Dv=512] max abs err {e} (tol {K8_TOL}, "
-              f"aligns {K8_ALIGN_TOL}); 0-length audio row hs/ctxs/aligns and 0-length video "
-              f"row ctxs/aligns max |x| {zeros}; full row's alignments sum to 1 within {rows2}")
-        if not all(torch.isfinite(x).all() for x in (hs, ctxs, al)):
-            fail("K8", "non-finite kernel output")
-        if max(zeros) != 0.0:
-            fail("K8", f"a 0-length row is not exactly zero: {zeros}")
-        if not (max(v for n, v in e.items() if n != "aligns") <= K8_TOL
-                and e["aligns"] <= K8_ALIGN_TOL and rows2 <= 1e-5):
-            fail("K8", f"kernel disagrees with the plain twin at B={B}: {e}")
-        errs[B] = max(e.values())
-        times[B] = (time_ms(lambda: fus.av_align_scan(*args), reps=10),
-                    time_ms(lambda: fus.av_align_scan_plain(*args), reps=3, warmup=1),
-                    device_ms(lambda: fus.av_align_scan(*args), reps=5))
-        cell, att, ctx_proj, xw, mask, mem, _ = args
-        T, _, H4 = xw.shape
-        S, A, Dv = mem.keys.shape[1], mem.keys.shape[2], mem.values.shape[-1]
-        H = H4 // 4
-        nb = (nbytes(xw, mask, mem.keys, mem.bias, mem.mask, hs, ctxs, al, *carries)
-              + 2 * (H * H4 + Dv * H4 + H * A + A + B * S * Dv) + 4 * H4)
-        # per step: the gate products (bf16 operands), q, the energies' add
-        # and tanh (fp32), the v dot and the context (bf16 operands)
-        flops = {"bf16": T * 2 * B * ((H + Dv) * H4 + H * A + S * A + S * Dv),
-                 "fp32": T * 2 * B * S * A}
-        bounds[B] = bound(nb, flops)
-        print(f"K8 B={B} kernel {times[B][0]:.4f} ms (device {times[B][2]} ms)  plain "
-              f"{times[B][1]:.4f} ms  bound {bounds[B][0]:.5f} ms ({bounds[B][1]}, "
-              f"{nb / 1e6:.2f} MB)")
-    # the entry: the serving shape, B = 8
-    report["av_align_scan"] = dict(
-        max_abs_err=max(errs.values()), ms=times[8][0], plain_ms=times[8][1], library_ms=None,
-        device_ms=times[8][2], bound=bounds[8])
+    info = k8_fwd_build_info()
+    kw = {"attention_type": attention_type}
+    errs, by_shape = [], {}
+    for i, (T, B, Tv) in enumerate(K8_FWD_SHAPES):
+        args = make(B, dev, seed + B + T, T=T, Tv=Tv)
+        errs.append(k8_fwd_check(f"{label} [T_a={T},B={B},T_v={Tv},{widths}]", args,
+                                 attention_type, align_tol))
+        run = lambda: fus.av_align_scan_fwd(*args, **kw)  # noqa: E731
+        train = lambda: fus.av_align_scan_fwd(*args, save=True, **kw)  # noqa: E731
+        r = {"device_ms": device_ms(run, reps=5), "device_ms_save": device_ms(train, reps=5)}
+        if i < 2:  # the serving and the train shape
+            r["ms"] = time_ms(run, reps=10)
+            r["plain_ms"] = time_ms(lambda: fus.av_align_scan_fwd_plain(*args, **kw), reps=3,
+                                    warmup=1)
+            r["bound"] = k8_fwd_bound(args, attention_type, run()[0])
+        r["us_per_step"] = r["device_ms"] * 1e3 / T
+        by_shape[(T, B, Tv)] = r
+        print(f"{label} [T_a={T},B={B},T_v={Tv}]: {r}")
+        del args
+    # the step's latency in one cluster (B = 16), and with every step masked
+    # (no read: the exchanges, the products and the cell update)
+    args = make(16, dev, seed + 16)
+    live_us = device_ms(lambda: fus.av_align_scan_fwd(*args, **kw), reps=5) * 1e3 / 197
+    args[4] = torch.zeros_like(args[4])
+    masked_us = device_ms(lambda: fus.av_align_scan_fwd(*args, **kw), reps=5) * 1e3 / 197
+    print(f"{label} [T_a=197,B=16,T_v=150] one cluster: {live_us:.3f} us a step, "
+          f"{masked_us:.3f} us a step with every step masked")
+    s8, s128, s16 = (by_shape[s] for s in K8_FWD_SHAPES)
+    report[key] = dict(
+        max_abs_err=max(errs), ms=s8["ms"], plain_ms=s8["plain_ms"], library_ms=None,
+        device_ms=s8["device_ms"], bound=s8["bound"], us_per_step=s8["us_per_step"],
+        ms_B128=s128["ms"],
+        device_ms_B128=s128["device_ms"], device_ms_B128_save=s128["device_ms_save"],
+        bound_ms_B128=s128["bound"][0], us_per_step_B128=s128["us_per_step"],
+        device_ms_T531_B32=s16["device_ms"], us_per_step_one_cluster=live_us,
+        us_per_step_one_cluster_masked=masked_us,
+        build={k: v for k, v in info["build"].items() if attention_type in k},
+        occupancy={k: v for k, v in info["occupancy"].items() if k.startswith(attention_type)})
+
+
+def phase_k8(dev, report):
+    k8_fwd_phase(dev, report, "av_align_scan", "K8", "bahdanau", k8_inputs, 13, K8_ALIGN_TOL,
+                 "H=256,A=128,Dv=512")
 
 
 def k10_inputs(N, dev, seed, S=197, Hq=256, A=128, Dv=768):
@@ -2753,53 +2890,11 @@ def k8_luong_inputs(B, dev, seed, T=197, H=256, Tv=150, Dv=256):
 
 
 def phase_k8_luong(dev, report):
-    import torch
-
     from avsr_tpu_torch.models import fusion as fus
 
     luong = {"attention_type": "luong"}
-    errs, times, bounds = {}, {}, {}
-    for B in (8, 128):
-        args = k8_luong_inputs(B, dev, seed=53 + B)
-        hs, ctxs, al, carries = fus.av_align_scan(*args, **luong)
-        hs_p, ctxs_p, al_p, carries_p = fus.av_align_scan_plain(*args, **luong)
-        torch.cuda.synchronize()
-        e = {"hs": max_err(hs, hs_p), "ctxs": max_err(ctxs, ctxs_p), "aligns": max_err(al, al_p)}
-        e.update({n: max_err(a, b) for n, a, b in zip(("hT", "cT", "ctxT"), carries, carries_p)})
-        zeros = (float(hs[:, 1].abs().max()), float(ctxs[:, 1].abs().max()),
-                 float(al[:, 1].abs().max()), float(ctxs[:, 2].abs().max()),
-                 float(al[:, 2].abs().max()))
-        rows2 = float(al[: int(args[4][:, 0].sum()), 0].sum(-1).sub(1).abs().max())
-        print(f"K8 Luong [T_a=197,B={B},H=256,T_v=150,Hk=Dv=256] max abs err {e} (tol "
-              f"{K8_TOL}, aligns {K8L_ALIGN_TOL}); 0-length audio row hs/ctxs/aligns and "
-              f"0-length video row ctxs/aligns max |x| {zeros}; full row's alignments sum to 1 "
-              f"within {rows2}")
-        if not all(torch.isfinite(x).all() for x in (hs, ctxs, al)):
-            fail("K8 Luong", "non-finite kernel output")
-        if max(zeros) != 0.0:
-            fail("K8 Luong", f"a 0-length row is not exactly zero: {zeros}")
-        if not (max(v for n, v in e.items() if n != "aligns") <= K8_TOL
-                and e["aligns"] <= K8L_ALIGN_TOL and rows2 <= 1e-5):
-            fail("K8 Luong", f"kernel disagrees with the plain twin at B={B}: {e}")
-        errs[B] = max(e.values())
-        times[B] = (time_ms(lambda: fus.av_align_scan(*args, **luong), reps=10),
-                    time_ms(lambda: fus.av_align_scan_plain(*args, **luong), reps=3, warmup=1),
-                    device_ms(lambda: fus.av_align_scan(*args, **luong), reps=5))
-        cell, att, ctx_proj, xw, mask, mem, _ = args
-        T, _, H4 = xw.shape
-        S, Hk, Dv = mem.keys.shape[1], mem.keys.shape[2], mem.values.shape[-1]
-        H = H4 // 4
-        # the memory is one tensor (keys and values), read once by the bound
-        nb = (nbytes(xw, mask, mem.values, mem.bias, mem.mask, hs, ctxs, al, *carries)
-              + 2 * (H * H4 + Dv * H4 + H * Hk) + 4 * H4)
-        # per step: the gate products, q, the score and the context (bf16 operands)
-        bounds[B] = bound(nb, T * 2 * B * ((H + Dv) * H4 + H * Hk + S * Hk + S * Dv))
-        print(f"K8 Luong B={B} kernel {times[B][0]:.4f} ms (device {times[B][2]} ms)  plain "
-              f"{times[B][1]:.4f} ms  bound {bounds[B][0]:.5f} ms ({bounds[B][1]}, "
-              f"{nb / 1e6:.2f} MB)")
-    report["av_align_scan_luong"] = dict(
-        max_abs_err=max(errs.values()), ms=times[8][0], plain_ms=times[8][1], library_ms=None,
-        device_ms=times[8][2], bound=bounds[8])
+    k8_fwd_phase(dev, report, "av_align_scan_luong", "K8 Luong", "luong", k8_luong_inputs, 53,
+                 K8L_ALIGN_TOL, "H=256,Hk=Dv=256")
 
     # backward at B = 128, on the kernel forward's saved carries
     info = k8_bwd_build_info()
@@ -2944,6 +3039,21 @@ def phase_lstm_step_route(dev):
             fail("LSTM step route", f"G={G}: family {family}, fwd {e}, bwd {ge}, kept {kept}")
 
 
+def phase_align_step_route(dev):
+    """K8 forward's per-step kernels (``kernels.av_align_family`` "step") at
+    widths the cluster kernel does not take, against the plain twin:
+    Bahdanau at A=64 (q's A/16 columns a CTA would not fill an n-tile) and
+    Luong at Hk=Dv=192 (nor would they there, and a ctx tile row of 24
+    chunks), [T_a=50, B=20, H=256, T_v=60], ragged with a 0-length audio and
+    video row."""
+    for label, kind, make, tol in (
+            ("K8 step route [T_a=50,B=20,H=256,T_v=60,A=64,Dv=512]", "bahdanau",
+             lambda: k8_inputs(20, dev, 70, T=50, Tv=60, A=64), K8_ALIGN_TOL),
+            ("K8 Luong step route [T_a=50,B=20,H=256,T_v=60,Hk=Dv=192]", "luong",
+             lambda: k8_luong_inputs(20, dev, 71, T=50, Tv=60, Dv=192), K8L_ALIGN_TOL)):
+        k8_fwd_check(label, make(), kind, tol, route="step")
+
+
 def main() -> int:
     import torch
 
@@ -3037,7 +3147,8 @@ def main() -> int:
                    (34, lambda: paths.update(train_uni_luong=phase_train(
                        dev, card, ul_cfg, "train_uni_luong", TRAIN_UL_KERNELS))),
                    (35, lambda: phase_core_route(dev)),
-                   (36, lambda: phase_lstm_step_route(dev))):
+                   (36, lambda: phase_lstm_step_route(dev)),
+                   (37, lambda: phase_align_step_route(dev))):
         t0 = time.perf_counter()
         run()
         print(f"phase {n}: {time.perf_counter() - t0:.1f} s")
@@ -3057,7 +3168,7 @@ def main() -> int:
         "decoder_attention_bwd": ("avsr_tpu_torch/csrc/decoder_attention.cu", f"{td}:305"),
         "decode_attention": ("avsr_tpu_torch/csrc/decode_attention.cu", f"{td}:217"),
         "beam_step": ("avsr_tpu_torch/csrc/beam_step.cu", "avsr_tpu/decode/beam.py:142"),
-        "av_align_scan": ("avsr_tpu_torch/csrc/av_align_scan.cu",
+        "av_align_scan": ("avsr_tpu_torch/csrc/av_align_fwd.cuh",
                           "avsr_tpu/models/fusion.py:118"),
         "av_align_scan_bwd": ("avsr_tpu_torch/csrc/av_align_scan.cu",
                               "avsr_tpu/models/fusion.py:118"),
@@ -3083,7 +3194,7 @@ def main() -> int:
                              "avsr_tpu/ops/attention.py:152"),
         "luong_attend_sums": ("avsr_tpu_torch/csrc/av_align_bwd.cuh",
                               "avsr_tpu/models/decoder.py:267"),
-        "av_align_scan_luong": ("avsr_tpu_torch/csrc/av_align_scan.cu",
+        "av_align_scan_luong": ("avsr_tpu_torch/csrc/av_align_fwd.cuh",
                                 "avsr_tpu/models/fusion.py:118"),
         "av_align_scan_luong_bwd": ("avsr_tpu_torch/csrc/av_align_scan.cu",
                                     "avsr_tpu/models/fusion.py:118"),

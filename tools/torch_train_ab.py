@@ -17,10 +17,12 @@ every kernel whose name holds ``lstm``, with its event count), the RNN
 decoder's read (``k10``: every kernel whose name holds ``attend``, with its
 event count), the memory gradients' sums after a scan or a teacher-forced
 loop (``sums``: ``align_outer_sum`` and ``align_dkeys_energy``, K8's and
-K10's), the AV-Align fusion scan (``k8``: the rest of K8 forward and
-backward, every other kernel whose name holds ``align_``, with its event
-count), torch's fills, copies and casts, and adds (``fill``, ``copy``,
-``add``: every kernel whose name holds the word; autograd's sums of a
+K10's), the AV-Align fusion scan's forward (``k8_fwd``: the cluster kernel
+``align_fwd_scan``, or the per-step route's ``align_gate_kernel`` and
+``align_read_kernel``, with its event count) and its backward (``k8``: every
+other kernel whose name holds ``align_``, with its event count), torch's
+fills, copies and casts, and adds (``fill``, ``copy``, ``add``: every
+kernel whose name holds the word; autograd's sums of a
 gradient are adds) and the attention kernels, told apart by
 their mask and family (``k11``: the
 whole-row kernels under the length mask, the encoder self attention;
@@ -88,6 +90,8 @@ def kind(name):
         return "k10"
     if "align_outer_sum" in name or "align_dkeys_energy" in name:
         return "sums"
+    if any(k in name for k in ("align_fwd_scan", "align_gate_kernel", "align_read_kernel")):
+        return "k8_fwd"
     if "align_" in name:
         return "k8"
     low = name.lower()
@@ -111,10 +115,11 @@ for s, e, name in ev:
 print(json.dumps({"step_ms": times, "peak_gib": peak / 2**30, "busy_ms_per_step": busy / 3e3,
                   "busy_share": share, "events_per_step": len(ev) / 3,
                   "lstm_events_per_step": count["lstm"] / 3,
+                  "k8_fwd_events_per_step": count["k8_fwd"] / 3,
                   "k8_events_per_step": count["k8"] / 3, "k10_events_per_step": count["k10"] / 3,
                   **{f"{k}_ms_per_step": by[k] / 3e3
-                     for k in ("lstm", "k8", "k10", "sums", "k11", "k4", "k5", "fill", "copy",
-                               "add")}}))
+                     for k in ("lstm", "k8_fwd", "k8", "k10", "sums", "k11", "k4", "k5", "fill",
+                               "copy", "add")}}))
 """
 
 
@@ -152,7 +157,9 @@ def main() -> int:
               f"{r['peak_gib']:.3f} GiB, device busy {r['busy_ms_per_step']:.3f} ms per step "
               f"(share {r['busy_share']:.3f}, {r['events_per_step']:.1f} events), per step: "
               f"LSTM scan {r['lstm_ms_per_step']:.3f} ms ({r['lstm_events_per_step']:.1f} "
-              f"events), K8 {r['k8_ms_per_step']:.3f} ms ({r['k8_events_per_step']:.1f} events), "
+              f"events), K8 fwd {r['k8_fwd_ms_per_step']:.3f} ms "
+              f"({r['k8_fwd_events_per_step']:.1f} events), K8 bwd {r['k8_ms_per_step']:.3f} ms "
+              f"({r['k8_events_per_step']:.1f} events), "
               f"K10 {r['k10_ms_per_step']:.3f} ms ({r['k10_events_per_step']:.1f} events), "
               f"the memory sums {r['sums_ms_per_step']:.3f} ms, K11 {r['k11_ms_per_step']:.3f} "
               f"ms, K4 {r['k4_ms_per_step']:.3f} ms, K5 {r['k5_ms_per_step']:.3f} ms; fills "
