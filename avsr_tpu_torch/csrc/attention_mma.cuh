@@ -4,8 +4,9 @@
 // transformer encoder's self attention, avsr_tpu/models/transformer.py:204-224),
 // K4 (cross_attention.cu: the fusion's audio queries over video keys,
 // avsr_tpu/models/fusion.py:226-235) and K5 (decoder_attention.cu: the
-// teacher-forced decoder's causal self attention and its cross attention
-// over the memory, avsr_tpu/models/transformer_decoder.py:335-373) run on it
+// teacher-forced decoder's causal self attention, and its cross attention
+// over the memory at the lengths decoder_cross_attention.cuh's kernels do
+// not hold, avsr_tpu/models/transformer_decoder.py:335-373) run on it
 // at the head widths it is built for; other widths (multiples of 8) take
 // attention_core.cuh's CUDA-core kernels.  It computes, per (utterance b,
 // head h), with DK the width of q and k and DV the width of v and ctx:
@@ -74,7 +75,8 @@
 //   at T = 531); launch 1 (128 + 2 Tp) * 128 B; launch 2 (128 + 2 Tp) * 128
 //   + 16 Tp B (164 KB at T = 531).
 // * Streamed tiles (attn_mma_stream_*; K4, (DK, DV) = (128, 128) and (128,
-//   64), and K5's cross attention at (128, 256)).  Whole rows of 128-wide K
+//   64), and K5's cross attention at (128, 256) past its own kernels'
+//   lengths: Q > 160 backward, S > 5376 forward).  Whole rows of 128-wide K
 //   and V do not fit at the presets' 16 s limits (the forward would need
 //   221 KB at T_v = 400, launch 2 320 KB at T_a = 531), so the operand a
 //   block runs over (keys and values forward and in launch 1, queries, dctx

@@ -286,10 +286,14 @@ size_t gate_smem_bytes(int H, int Dc) {
 // every step's gates and h' from the saved carries in parallel over time,
 // into fp32 act [T, B, 4H] and hnew [T, B, H]; (2) the query launch, q from
 // hnew; (3) the recurrence, one launch of thread-block clusters walking all
-// T steps; (4) the sums after the scan (two launches).
+// T steps; (4) the sums after the scan (two launches).  Widths the
+// recurrence does not take run the per-step backward (av_align_step_bwd.cuh),
+// chosen by shape (kernels.av_align_bwd_family).
 // ---------------------------------------------------------------------------
 
 }  // namespace
+
+#include "av_align_step_bwd.cuh"
 
 // Shared memory per block of the forward's largest launch, in bytes.
 extern "C" long long avsr_av_align_smem(int H, int Dc, int A, int S, int Dv) {
@@ -605,5 +609,91 @@ extern "C" int avsr_av_align_bwd_sums(const void* keys, const void* vatt, const 
         static_cast<const float*>(keys), static_cast<const float*>(q),
         static_cast<const float*>(dsc), static_cast<const __nv_bfloat16*>(vatt),
         static_cast<float*>(dkeys), static_cast<float*>(dv_part), T, B, S, A);
+  return (int)cudaGetLastError();
+}
+
+// The per-step backward (av_align_step_bwd.cuh): every shape the forward's
+// per-step kernels take.  Two entry points, called in order by the wrapper.
+
+// The regate.  wh_tiled [H/UT, H, UT, 4], cp_tiled [H/UT, Dc, UT, 4] bf16
+// (null when Dc = 0); bias [4H]; xw [T, B, 4H]; the saved carries h_res /
+// c_res [T, B, H], ctx_res [T, B, Dc] -> act [T, B, 4H] (i, f, g, o), hnew
+// [T, B, H] (the recomputed queries), fp32.
+extern "C" int avsr_av_align_step_bwd_prep(const void* wh_tiled, const void* cp_tiled,
+                                           const void* bias, const void* xw, const void* h_res,
+                                           const void* c_res, const void* ctx_res, void* act,
+                                           void* hnew, int T, int B, int H, int Dc,
+                                           void* stream) {
+  if (T < 1 || B < 1 || H % UT || Dc % UT || (Dc > 0 && cp_tiled == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int t_per_block = 8;  // enough blocks to fill the card
+  align_regate_kernel<<<dim3(H / UT, (B + BT - 1) / BT, (T + t_per_block - 1) / t_per_block),
+                        GTHREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(wh_tiled), static_cast<const __nv_bfloat16*>(cp_tiled),
+      static_cast<const float*>(bias), static_cast<const float*>(xw),
+      static_cast<const float*>(h_res), static_cast<const float*>(c_res),
+      static_cast<const float*>(ctx_res), static_cast<float*>(act), static_cast<float*>(hnew), T,
+      B, H, Dc, t_per_block);
+  return (int)cudaGetLastError();
+}
+
+// The reverse scan, two launches a step.  w_all_t [(H+Dc)/UT, H, UT, 4]
+// bf16, [Wh ; ctx_proj] tiled for the carries' products; mask [T, B]; wq
+// [H, A], vatt [A] bf16 (null when dot); keys [B, S, A] fp32 (bf16 when
+// dot), values [B, S, Dv] bf16; aligns [T, B, S] (the forward's); hnew,
+// act from the regate; c_res [T, B, H]; the cotangents dhs [T, B, H],
+// dctxs [T, B, Dv]; dh / dc [B, H] and dctx [B, Dv] hold dhT, dcT, dctxT on
+// entry (all fp32).  Outputs: dxw [T, B, 4H], dq [T, B, A] written; dv_acc
+// [B, A] (null when dot), db_acc [B, 4H], dkeys [B, S, A] and dvalues [B,
+// S, Dv] accumulated into zeroed buffers.
+extern "C" int avsr_av_align_step_bwd_scan(
+    const void* w_all_t, const void* mask, const void* wq, const void* vatt, const void* keys,
+    const void* values, const void* aligns, const void* hnew, const void* act, const void* c_res,
+    const void* dhs, const void* dctxs, void* dh, void* dc, void* dctx, void* dxw, void* dq,
+    void* dv_acc, void* db_acc, void* dkeys, void* dvalues, int T, int B, int H, int Dc, int A,
+    int S, int Dv, int dot, void* stream) {
+  if (T < 1 || B < 1 || S < 1 || H % UT || Dc % UT || Dv % UT || (Dc > 0 && Dc != Dv) ||
+      A % 8 || A > 512 || Dv > 2048 || (!dot && (vatt == nullptr || dv_acc == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem_r = step_row_smem_bytes(H, A, S, Dv);
+  auto* const align_bwd_row_kernel =
+      dot ? &align_bwd_row_kernel_t<true> : &align_bwd_row_kernel_t<false>;
+  cudaError_t e;
+  if (smem_r > 48 * 1024) {
+    e = cudaFuncSetAttribute(align_bwd_row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_r);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const dim3 pgrid((H + Dv) / UT, (B + BT - 1) / BT);
+  const size_t bh = (size_t)B * H, b4h = 4 * bh, bd = (size_t)B * Dv, bs = (size_t)B * S;
+  const size_t ba = (size_t)B * A;
+  const float* mask_p = static_cast<const float*>(mask);
+  float* dxw_p = static_cast<float*>(dxw);
+  for (int t = T - 1; t >= 0; --t) {
+    if (t + 1 < T) {
+      align_bwd_product_kernel<<<pgrid, GTHREADS, 0, st>>>(
+          static_cast<const __nv_bfloat16*>(w_all_t), dxw_p + (size_t)(t + 1) * b4h,
+          mask_p + (size_t)(t + 1) * B, static_cast<float*>(dh), static_cast<float*>(dctx), B, H,
+          Dc, Dv);
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return (int)e;
+    }
+    align_bwd_row_kernel<<<B, bahdanau::THREADS, smem_r, st>>>(
+        static_cast<const __nv_bfloat16*>(wq), static_cast<const __nv_bfloat16*>(vatt), keys,
+        static_cast<const __nv_bfloat16*>(values),
+        static_cast<const float*>(aligns) + (size_t)t * bs,
+        static_cast<const float*>(hnew) + (size_t)t * bh, mask_p + (size_t)t * B,
+        static_cast<const float*>(act) + (size_t)t * b4h,
+        static_cast<const float*>(c_res) + (size_t)t * bh,
+        static_cast<const float*>(dhs) + (size_t)t * bh,
+        static_cast<const float*>(dctxs) + (size_t)t * bd, static_cast<const float*>(dh),
+        static_cast<const float*>(dctx), static_cast<float*>(dc), dxw_p + (size_t)t * b4h,
+        static_cast<float*>(dq) + (size_t)t * ba, static_cast<float*>(dv_acc),
+        static_cast<float*>(db_acc), static_cast<float*>(dkeys), static_cast<float*>(dvalues), H,
+        A, S, Dv);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
   return (int)cudaGetLastError();
 }

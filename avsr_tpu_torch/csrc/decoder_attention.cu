@@ -22,7 +22,8 @@
 // weights, so the forward writes only ctx and, in train mode, the softmax's
 // row max and row sum (fp32 [B, nh, Q] each); the backward recomputes P
 // from them bit for bit, with D = rowsum(dP * P) (fp32 [B, nh, Q]) its only
-// scratch: no [B, nh, Q, S] tensor is written in either direction.
+// scratch (none in decoder_cross_attention.cuh's backward): no [B, nh, Q, S]
+// tensor is written in either direction.
 //
 // Shapes on the main path (B = 128, label cap K = 80, 4 heads): self q/k/v
 // [128, 80, 4, 64]; cross q [128, 80, 4, 128] against keys [128, S, 4, 128]
@@ -42,35 +43,38 @@
 //   (launch 2): their weights are exactly 0, so the skip changes no bit.
 //   Shared memory grows with S (fwd (64 + 2 Sp) * 128 B, launch 2 (128 +
 //   2 Sp) * 128 + 16 Sp B, Sp = S rounded up to 16): S <= 784.
-// * Cross, (dk, dv) = (128, 256), BiasMask: the streamed tiles (K4's):
-//   keys and values (forward, launch 1) and queries with dctx (launch 2)
-//   pass through a ring of two tile slots, so shared memory does not grow
-//   with S and any S is taken.  At dv = 256 the accumulators of ctx (128
-//   floats a thread) or of dK and dV (192) would spill, so the forward and
-//   launch 2 split the value columns over two blocks (NSPLIT = 2): each
-//   forms the same scores and P (same expression, same k order) over the
-//   full widths and accumulates one 128-column half of ctx, or one half of
-//   dV and a 64-column half of dK; launch 1 reads its q and dctx fragments
-//   from the staged rows instead of holding them.  The forward streams
-//   64-row tiles (48 KB) and holds 13 steps of 16 keys (S <= 208, v2's
-//   197, in one pass; longer memories take three passes).  The backward
-//   streams 32-row tiles: its launches take 96 and 97 KB of shared memory,
-//   so two blocks share an SM (with 64-row tiles each took 144 KB, alone on
-//   its SM, and read 1.4x slower: PERF.md §6).  The division by
-//   sqrt(128) is div_row.
+// * Cross, (dk, dv) = (128, 256), BiasMask: decoder_cross_attention.cuh's
+//   kernels, one block per (b, h) (the forward: per 80 queries): K and V
+//   pass through a ring of bulk-copied tiles once per (b, h) (the
+//   backward: twice, D first), every score and weight is formed once, and
+//   the queries (the backward: with dctx) stay resident.  The forward
+//   takes any Q and S up to its shared memory at one 16-query strip (S <=
+//   5376); the backward Q <= 160 (every preset caps its labels at 150) and
+//   any S.
+// * Cross past those lengths (avsr_decoder_cross_stream_*; the wrapper
+//   routes by shape, kernels.decoder_cross_route): the streamed tiles
+//   (K4's), under which keys and values (forward, launch 1) and queries
+//   with dctx (launch 2) pass through a ring of two tile slots, so shared
+//   memory does not grow with Q or S.  At dv = 256 the accumulators of ctx
+//   (128 floats a thread) or of dK and dV (192) would spill, so the
+//   forward and launch 2 split the value columns over two blocks (NSPLIT =
+//   2), each forming the same scores and P; the backward streams 32-row
+//   tiles so that two ~97 KB blocks share an SM.  D is an fp32 [B, nh, Q]
+//   scratch there.
 
 #include "attention_mma.cuh"
 #include "attention_core.cuh"
+#include "decoder_cross_attention.cuh"
 
 namespace {
 using mma_attn::BiasMask;
 using mma_attn::CausalMask;
 
 constexpr int SELF_DH = 64;                    // the self instance's head width
-constexpr int CROSS_DK = 128, CROSS_DV = 256;  // the cross instance's head widths
-constexpr int CROSS_HELD = 13;                 // 16-key steps of scores the cross forward holds
-constexpr int CROSS_SPLIT = 2;                 // value-column slices of the cross kernels
-constexpr int CROSS_TR = 32;                   // rows of the cross backward's stream tiles
+constexpr int CROSS_DK = xattn::DK, CROSS_DV = xattn::DV;  // the cross instance's head widths
+constexpr int CROSS_HELD = 13;   // 16-key steps of scores the streamed cross forward holds
+constexpr int CROSS_SPLIT = 2;   // value-column slices of the streamed cross kernels
+constexpr int CROSS_TR = 32;     // rows of the streamed cross backward's tiles
 
 bool self_instance(int Q, int S, int dk, int dv) {
   return Q == S && dk == SELF_DH && dv == SELF_DH;
@@ -94,13 +98,12 @@ extern "C" int avsr_decoder_attn_fwd(const void* q, const void* k, const void* v
                                               ld, ld, ld, ld, st);
   }
   if (!cross_instance(dk, dv)) return (int)cudaErrorInvalidValue;
-  const int lk = nh * CROSS_DK, lv = nh * CROSS_DV;
-  return (int)mma_attn::launch_stream_fwd<CROSS_DK, CROSS_DV, CROSS_HELD, BiasMask, CROSS_SPLIT>(
-      q, k, v, BiasMask{static_cast<const float*>(bias), S}, nullptr, mx, sm, ctx, B, Q, S, nh,
-      lk, lk, lv, lv, st);
+  return (int)xattn::launch_fwd(q, k, v, static_cast<const float*>(bias), mx, sm, ctx, B, Q, S,
+                                nh, st);
 }
 
-// D: an fp32 [B, nh, Q] scratch; dq, dk_out, dv_out bf16, shaped as q, k, v.
+// D: an fp32 [B, nh, Q] scratch of the self instance (the cross instance
+// keeps D in shared memory: null); dq, dk_out, dv_out bf16, shaped as q, k, v.
 extern "C" int avsr_decoder_attn_bwd(const void* q, const void* k, const void* v,
                                      const void* bias, const void* row_max, const void* row_sum,
                                      const void* dctx, void* D, void* dq, void* dk_out,
@@ -116,10 +119,54 @@ extern "C" int avsr_decoder_attn_bwd(const void* q, const void* k, const void* v
                                               dv_out, B, Q, S, nh, ld, ld, ld, ld, ld, ld, ld, st);
   }
   if (!cross_instance(dk, dv)) return (int)cudaErrorInvalidValue;
+  return (int)xattn::launch_bwd(q, k, v, static_cast<const float*>(bias), mx, sm, dctx, dq,
+                                dk_out, dv_out, B, Q, S, nh, st);
+}
+
+// The cross instance on the streamed tiles, at (dk, dv) = (128, 256): the
+// lengths the kernels above do not hold.  Same operands as
+// avsr_decoder_attn_fwd / _bwd; D an fp32 [B, nh, Q] scratch.
+extern "C" int avsr_decoder_cross_stream_fwd(const void* q, const void* k, const void* v,
+                                             const void* bias, void* row_max, void* row_sum,
+                                             void* ctx, int B, int Q, int S, int nh,
+                                             void* stream) {
+  if (bias == nullptr) return (int)cudaErrorInvalidValue;
+  const int lk = nh * CROSS_DK, lv = nh * CROSS_DV;
+  return (int)mma_attn::launch_stream_fwd<CROSS_DK, CROSS_DV, CROSS_HELD, BiasMask, CROSS_SPLIT>(
+      q, k, v, BiasMask{static_cast<const float*>(bias), S}, nullptr,
+      static_cast<float*>(row_max), static_cast<float*>(row_sum), ctx, B, Q, S, nh, lk, lk, lv,
+      lv, reinterpret_cast<cudaStream_t>(stream));
+}
+
+extern "C" int avsr_decoder_cross_stream_bwd(const void* q, const void* k, const void* v,
+                                             const void* bias, const void* row_max,
+                                             const void* row_sum, const void* dctx, void* D,
+                                             void* dq, void* dk_out, void* dv_out, int B, int Q,
+                                             int S, int nh, void* stream) {
+  if (bias == nullptr || D == nullptr) return (int)cudaErrorInvalidValue;
   const int lk = nh * CROSS_DK, lv = nh * CROSS_DV;
   return (int)mma_attn::launch_stream_bwd<CROSS_DK, CROSS_DV, BiasMask, CROSS_SPLIT, CROSS_TR>(
-      q, k, v, BiasMask{static_cast<const float*>(bias), S}, mx, sm, dctx, Dp, dq, dk_out, dv_out,
-      B, Q, S, nh, lk, lk, lv, lv, lk, lk, lv, st);
+      q, k, v, BiasMask{static_cast<const float*>(bias), S},
+      static_cast<const float*>(row_max), static_cast<const float*>(row_sum), dctx,
+      static_cast<float*>(D), dq, dk_out, dv_out, B, Q, S, nh, lk, lk, lv, lv, lk, lk, lv,
+      reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The cross kernels' layouts, for the wrapper's mirror of them
+// (kernels.decoder_cross_fwd_strips / _fwd_smem / DECODER_CROSS_MAX_Q): the
+// strips a forward block holds at Q queries and S keys (0: the forward does
+// not take S); a forward block's shared memory at ns strips and a ring of
+// `slots` tiles; the backward's at ns strips with its ring (-1: it does not
+// take 16 ns queries).
+extern "C" int avsr_decoder_cross_fwd_strips(int Q, int S) {
+  return Q < 1 || S < 1 ? 0 : xattn::fwd_config(Q, S).ns;
+}
+extern "C" long long avsr_decoder_cross_fwd_smem(int ns, int S, int slots) {
+  return (long long)xattn::FwdLayout(ns, S, slots).total;
+}
+extern "C" long long avsr_decoder_cross_bwd_smem(int ns) {
+  if (ns < 1 || ns > xattn::BWD_STRIPS || xattn::bwd_slots(ns) == 0) return -1;
+  return (long long)xattn::BwdLayout(ns, xattn::bwd_slots(ns)).total;
 }
 
 // The CUDA-core route (attention_core.cuh): any dk, dv that are multiples of

@@ -190,6 +190,16 @@ def _load() -> ctypes.CDLL:
         lib.avsr_decoder_attn_fwd.restype = i
         lib.avsr_decoder_attn_bwd.argtypes = [p] * 11 + [i] * 6 + [p]
         lib.avsr_decoder_attn_bwd.restype = i
+        lib.avsr_decoder_cross_stream_fwd.argtypes = [p] * 7 + [i] * 4 + [p]
+        lib.avsr_decoder_cross_stream_fwd.restype = i
+        lib.avsr_decoder_cross_stream_bwd.argtypes = [p] * 11 + [i] * 4 + [p]
+        lib.avsr_decoder_cross_stream_bwd.restype = i
+        lib.avsr_decoder_cross_fwd_strips.argtypes = [i, i]
+        lib.avsr_decoder_cross_fwd_strips.restype = i
+        lib.avsr_decoder_cross_fwd_smem.argtypes = [i, i, i]
+        lib.avsr_decoder_cross_fwd_smem.restype = ctypes.c_longlong
+        lib.avsr_decoder_cross_bwd_smem.argtypes = [i]
+        lib.avsr_decoder_cross_bwd_smem.restype = ctypes.c_longlong
         lib.avsr_decoder_attn_core_fwd.argtypes = [p] * 6 + [i] * 6 + [p]
         lib.avsr_decoder_attn_core_fwd.restype = i
         lib.avsr_attn_core_bwd.argtypes = [p] * 9 + [i] * 6 + [p]
@@ -218,6 +228,10 @@ def _load() -> ctypes.CDLL:
         lib.avsr_av_align_bwd_scan.restype = i
         lib.avsr_av_align_bwd_sums.argtypes = [p] * 9 + [i] * 6 + [p]
         lib.avsr_av_align_bwd_sums.restype = i
+        lib.avsr_av_align_step_bwd_prep.argtypes = [p] * 9 + [i] * 4 + [p]
+        lib.avsr_av_align_step_bwd_prep.restype = i
+        lib.avsr_av_align_step_bwd_scan.argtypes = [p] * 21 + [i] * 8 + [p]
+        lib.avsr_av_align_step_bwd_scan.restype = i
         lib.avsr_bahdanau_smem.argtypes = [i, i, i]
         lib.avsr_bahdanau_smem.restype = ctypes.c_longlong
         lib.avsr_bahdanau_attend.argtypes = [p] * 9 + [i] * 6 + [p]
@@ -460,24 +474,75 @@ def logmel_post_dft(re, im, feat_len, mel_w, *, log_floor: float,
 
 # The head widths (dk, dv) at which each attention kernel has tensor-core
 # instances (``csrc/attention_mma.cuh``); every other pair of multiples of 8
-# runs on the CUDA-core family (``csrc/attention_core.cuh``).
+# runs on the CUDA-core family (``csrc/attention_core.cuh``).  K5's cross
+# attention at (128, 256) has kernels of its own (``DECODER_CROSS_WIDTHS``).
 MMA_WIDTHS = {
     "encoder_attention": ((64, 64),),
     "fusion_attention": ((128, 128), (128, 64)),
     "decoder_self_attention": ((64, 64),),
-    "decoder_cross_attention": ((128, 256),),
+    "decoder_cross_attention": (),
 }
+DECODER_CROSS_WIDTHS = (128, 256)
 DECODER_SELF_MAX_S = 784  # K5's causal instance stages whole rows: 16384 + 272 S bytes at most
+# K5's cross kernels (``csrc/decoder_cross_attention.cuh``): the backward
+# holds every query of a (b, h) in one block, 10 strips of 16 at most (the
+# presets cap their labels at 150); the forward 5 strips a block
+DECODER_CROSS_MAX_Q = 160
+DECODER_CROSS_FWD_STRIPS = 5
 
 
 def attention_family(kernel: str, dk: int, dv: int) -> str:
     """The kernel family that runs ``kernel`` (a key of ``MMA_WIDTHS``) at
-    head widths (dk, dv): "mma", the tensor-core instances, or "core", the
-    CUDA-core kernels that take any widths that are multiples of 8 (their
-    16-byte row loads) and save the fp32 weights for the backward.  Chosen
-    by shape alone, never after a failure; other widths raise."""
+    head widths (dk, dv): "cross", K5's cross kernels (one block per
+    (b, h), ``csrc/decoder_cross_attention.cuh``), "mma", the tensor-core
+    instances of ``csrc/attention_mma.cuh``, or "core", the CUDA-core
+    kernels that take any widths that are multiples of 8 (their 16-byte
+    row loads) and save the fp32 weights for the backward.  Chosen by shape
+    alone, never after a failure; other widths raise."""
     _check_widths(kernel, dk, dv)
+    if kernel == "decoder_cross_attention" and (dk, dv) == DECODER_CROSS_WIDTHS:
+        return "cross"
     return "mma" if (dk, dv) in MMA_WIDTHS[kernel] else "core"
+
+
+def decoder_cross_fwd_smem(strips: int, S: int, slots: int = 3) -> int:
+    """Shared memory of a block of K5's cross forward holding ``strips``
+    strips of 16 queries over S keys with a ring of ``slots`` tiles, bytes
+    (``FwdLayout``): the ring of 32-row value tiles (528-byte rows), two q
+    buffers [16 strips, 272 B], the scores then bf16(P) [16 strips, 2 (S
+    rounded up to 16) + 16 B], the halves' max and sum (fp32 [4, 16
+    strips]), 2 slots + 4 mbarriers."""
+    sp = (S + 15) // 16 * 16 + 8
+    return slots * 32 * 528 + 16 * strips * (2 * 272 + 2 * sp + 16) + (2 * slots + 4) * 8
+
+
+def decoder_cross_route(Q: int, S: int, backward: bool) -> str:
+    """The kernels that run K5's cross attention at (128, 256) over Q
+    queries and S keys: "resident", its own (``csrc/decoder_cross_attention.cuh``),
+    where they hold the lengths (the forward any Q and S whose scores one
+    16-query strip holds, S <= 5376; the backward every query of a (b, h)
+    in one block, Q <= ``DECODER_CROSS_MAX_Q``, and any S), else "stream",
+    the streamed tiles (``csrc/attention_mma.cuh``, two column slices a
+    (b, h)), which take any length.  Chosen by shape alone, never after a
+    failure; each direction by its own limits (the residual, the row max
+    and sum, is the same on both routes)."""
+    if Q < 1 or S < 1:
+        raise ValueError(f"decoder attention: Q={Q} and S={S} must be at least 1")
+    fits = Q <= DECODER_CROSS_MAX_Q if backward else decoder_cross_fwd_strips(Q, S) > 0
+    return "resident" if fits else "stream"
+
+
+def decoder_cross_fwd_strips(Q: int, S: int) -> int:
+    """Strips of 16 queries a block of K5's cross forward holds: the fewest
+    blocks per (b, h) (5 strips each at most) whose shared memory fits with
+    the least ring (3 tiles), the fewest strips a block that number allows;
+    0 where none fits (``fwd_config``)."""
+    nst = -(-Q // 16)
+    for nc in range(-(-nst // DECODER_CROSS_FWD_STRIPS), nst + 1):
+        ns = -(-nst // nc)
+        if decoder_cross_fwd_smem(ns, S) <= SMEM_LIMIT:
+            return ns
+    return 0
 
 
 def _check_widths(what: str, dk: int, dv: int) -> None:
@@ -578,8 +643,9 @@ def fusion_attention_bwd(q, k, v, video_lengths, row_max, row_sum, dctx):
 
 def _check_decoder_attention(q, k, v, bias, dev):
     """K5's operands and the family that runs them (``attention_family``):
-    the tensor-core instances take any Q and S (the causal one Q = S <=
-    ``DECODER_SELF_MAX_S``); the CUDA-core route is capped by shared memory."""
+    the causal tensor-core instance takes Q = S <= ``DECODER_SELF_MAX_S``,
+    the cross kernels any lengths (``decoder_cross_route``); the CUDA-core
+    route is capped by shared memory."""
     B, Q, nh, dk = q.shape
     S, dv = k.shape[1], v.shape[-1]
     _check("q", q, torch.bfloat16, (B, Q, nh, dk), dev)
@@ -608,8 +674,8 @@ def decoder_attention_fwd(q, k, v, bias, *, save: bool):
     q [B,Q,nh,dk], k [B,S,nh,dk], v [B,S,nh,dv] bf16; ``bias`` [B,S] f32
     (the memory's additive key bias) or None for the causal mask (Q == S)
     -> (ctx [B,Q,nh,dv] bf16, the backward's residual when ``save``, else
-    None): on the tensor cores (``attention_family`` "mma") the softmax's
-    row statistics (row_max, row_sum), fp32 [B,nh,Q] each, and no weights
+    None): on the tensor cores (``attention_family`` "mma" or "cross") the
+    softmax's row statistics (row_max, row_sum), fp32 [B,nh,Q] each, and no weights
     are written; on the CUDA-core route the fp32 weights [B,nh,Q,S], a
     one-tuple.
     """
@@ -627,10 +693,15 @@ def decoder_attention_fwd(q, k, v, bias, *, save: bool):
     else:
         res = tuple(torch.empty((B, nh, Q), dtype=torch.float32, device=dev)
                     for _ in range(2)) if save else None
-        err = lib.avsr_decoder_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-            *((None, None) if res is None else map(_ptr, res)), ctx.data_ptr(),
-            B, Q, S, nh, dk, dv, stream)
+        stats = (None, None) if res is None else map(_ptr, res)
+        if family == "cross" and decoder_cross_route(Q, S, backward=False) == "stream":
+            err = lib.avsr_decoder_cross_stream_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), *stats,
+                ctx.data_ptr(), B, Q, S, nh, stream)
+        else:
+            err = lib.avsr_decoder_attn_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), *stats, ctx.data_ptr(),
+                B, Q, S, nh, dk, dv, stream)
     _raise_on(err, "decoder_attention_fwd launch")
     LAUNCHES["decoder_attention_fwd"] += 1
     return ctx, res
@@ -643,27 +714,33 @@ def decoder_attention_bwd(q, k, v, bias, row_max, row_sum, dctx):
     The forward's q, k, v, bias (None: causal) and saved row statistics
     (fp32 [B,nh,Q] each), and the context cotangent dctx [B,Q,nh,dv] bf16
     -> (dq, dk, dv) in bf16.  The weights are recomputed from the
-    statistics; the only scratch is D = rowsum(dP * P), fp32 [B,nh,Q].
-    Widths with no tensor-core instance take ``attention_bwd_core``.
+    statistics; the only scratch is D = rowsum(dP * P), fp32 [B,nh,Q] (the
+    cross kernels' resident route keeps it on chip).  Widths with no
+    tensor-core instance take ``attention_bwd_core``.
     """
     dev = q.device
     B, Q, S, nh, dk, dv, family = _check_decoder_attention(q, k, v, bias, dev)
-    if family != "mma":
+    if family == "core":
         raise ValueError(f"decoder attention: no tensor-core instance at dk={dk}, dv={dv}; its "
                          f"backward reads the weights (attention_bwd_core)")
     _check("row_max", row_max, torch.float32, (B, nh, Q), dev, align=4)
     _check("row_sum", row_sum, torch.float32, (B, nh, Q), dev, align=4)
     _check("dctx", dctx, torch.bfloat16, (B, Q, nh, dv), dev)
     lib = _load()
-    D = torch.empty((B, nh, Q), dtype=torch.float32, device=dev)
+    # the cross kernels keep D in shared memory; the streamed tiles do not
+    resident = family == "cross" and decoder_cross_route(Q, S, backward=True) == "resident"
+    D = None if resident else torch.empty((B, nh, Q), dtype=torch.float32, device=dev)
     dq = torch.empty_like(q)
     dkk = torch.empty_like(k)
     dvv = torch.empty_like(v)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.avsr_decoder_attn_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), row_max.data_ptr(),
-        row_sum.data_ptr(), dctx.data_ptr(), D.data_ptr(), dq.data_ptr(), dkk.data_ptr(),
-        dvv.data_ptr(), B, Q, S, nh, dk, dv, stream)
+    operands = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), row_max.data_ptr(),
+                row_sum.data_ptr(), dctx.data_ptr(), _ptr(D), dq.data_ptr(), dkk.data_ptr(),
+                dvv.data_ptr())
+    if family == "cross" and not resident:
+        err = lib.avsr_decoder_cross_stream_bwd(*operands, B, Q, S, nh, stream)
+    else:
+        err = lib.avsr_decoder_attn_bwd(*operands, B, Q, S, nh, dk, dv, stream)
     _raise_on(err, "decoder_attention_bwd launch")
     LAUNCHES["decoder_attention_bwd"] += 1
     return dq, dkk, dvv
@@ -947,6 +1024,55 @@ def av_align_scan(wh, b, ctx_proj, wq, v, xw, mask, keys, values, mbias, mmask, 
     return hs, ctxs, aligns, hT, cT, ctxT, res
 
 
+def av_align_bwd_smem(H: int, Dc: int, A: int, S: int, Dv: int, dot: bool,
+                      rows_per_cta: int = 1) -> int:
+    """Shared memory per CTA of K8 backward's cluster recurrence
+    (``csrc/av_align_bwd.cuh`` ``Layout``, wq not staged), bytes, at 1 or 2
+    batch rows per CTA: the CTA's H + Dc rows of [Wh ; ctx_proj] against
+    the 4H gates, the cluster's and the row's bf16 dgates, the saved-carry
+    rows, the per-row fp32 scratch (q, v, dq [A]; dctx, dco [Dv]; dquery
+    [H]; 8 x 256 partial sums; 8 reduction slots; weights and dsc [S]), for
+    Luong the dquery exchange's tiles, and the mbarriers."""
+    def up16(x):
+        return (x + 15) // 16 * 16
+
+    C, rpc = ALIGN_CLUSTER, rows_per_cta
+    K, S4 = 4 * H, (S + 3) // 4 * 4
+    fl = 3 * A + 2 * Dv + H + 8 * 256 + 8 + 2 * S4
+    total = (H + Dc) // C * K * 2 + C * rpc * K * 2 + rpc * K * 2 + rpc * up16((H + Dc) * 2)
+    total += rpc * fl * 4
+    if dot:
+        total += H // C * A * 2 + C * rpc * A * 2 + rpc * A * 2 + rpc * up16(H * 2)
+    return total + 32
+
+
+def av_align_step_bwd_smem(H: int, A: int, S: int, Dv: int) -> int:
+    """Shared memory of the row launch of K8's per-step backward
+    (``csrc/av_align_step_bwd.cuh`` ``step_row_smem_bytes``), bytes: the
+    read's fp32 scratch (q, v [A]; dctx [Dv]; the query [H]; dw / dsc [S];
+    8 reduction slots; 8 x 256 partial sums) and dquery [H].  Its regate
+    and product launches stage fixed chunks (40 and 48 KB)."""
+    return (2 * A + Dv + 2 * H + S + 8 + 8 * 256) * 4
+
+
+def av_align_bwd_family(H: int, Dc: int, A: int, S: int, Dv: int, dot: bool) -> str:
+    """The kernels that run K8's backward at these widths: "cluster", the
+    regate, one persistent launch of 16-CTA clusters for the recurrence and
+    the memory's sums after it (``csrc/av_align_bwd.cuh``), where H is a
+    multiple of 64 (Luong: 128) up to 512, H + Dc a multiple of 128 up to
+    1024, A and Dv multiples of 64 and one row a CTA fits a CTA's shared
+    memory (every preset's and uni-Luong's widths); else "step", the
+    per-step kernels (``csrc/av_align_step_bwd.cuh``), which take every
+    shape the forward takes.  Chosen by shape alone, never after a
+    failure; it raises exactly where ``av_align_family`` raises."""
+    av_align_family(H, Dc, A, S, Dv)
+    if (H % (128 if dot else 64) == 0 and H <= 512 and (H + Dc) % (8 * ALIGN_CLUSTER) == 0
+            and H + Dc <= 64 * ALIGN_CLUSTER and Dv % 64 == 0 and A % 64 == 0
+            and av_align_bwd_smem(H, Dc, A, S, Dv, dot, 1) <= SMEM_LIMIT):
+        return "cluster"
+    return "step"
+
+
 def av_align_bwd_info(H: int, Dc: int, A: int, S: int, Dv: int, dot: bool,
                       rows_per_cta: int = 1) -> Dict[str, int]:
     """K8 backward's recurrence at these widths (``csrc/av_align_bwd.cuh``)
@@ -969,23 +1095,31 @@ def av_align_bwd_rows_per_cta(B: int, H: int, Dc: int, A: int, S: int, Dv: int,
     clusters of 16 CTAs all fit the card at once, else 2 (32-row clusters:
     one wave of half as many, each CTA running its two rows' reads side by
     side; at B = 128 the card holds 7 of the 8 clusters one row a CTA
-    needs).  Chosen by shape and occupancy alone."""
-    return 1 if -(-B // 16) <= _bwd_max_active(H, Dc, A, S, Dv, dot, 1) else 2
+    needs) where two rows a CTA fit its shared memory.  Chosen by shape and
+    occupancy alone."""
+    if (-(-B // 16) <= _bwd_max_active(H, Dc, A, S, Dv, dot, 1)
+            or av_align_bwd_smem(H, Dc, A, S, Dv, dot, 2) > SMEM_LIMIT):
+        return 1
+    return 2
 
 
 def av_align_scan_bwd_stages(wh, b, ctx_proj, wq, v, xw, mask, keys, values, aligns, h_res,
                              c_res, ctx_res, dhs, dctxs, dhT, dcT, dctxT, *,
                              rows_per_cta: Optional[int] = None):
-    """K8 backward as its three stages over buffers allocated here (every
-    output and scratch with ``torch.empty``: each element is written):
-    ({"prep": the regate and the query launch, "scan": the recurrence,
-    "sums": dkeys and dvalues}, finish), where each stage launches on the
-    current stream and raises on a CUDA error, and ``finish()`` gives
-    ``av_align_scan_bwd``'s outputs once the three have run in order.  No
-    stage counts a launch (``av_align_scan_bwd`` does); run alone, a stage
-    times its part of the call.  Same operands and checks as
-    ``av_align_scan_bwd``; ``rows_per_cta`` (1 or 2) is the recurrence's
-    layout, by default ``av_align_bwd_rows_per_cta``'s."""
+    """K8 backward as its three stages over buffers allocated here, on the
+    route ``av_align_bwd_family`` names: ({"prep", "scan", "sums"},
+    finish), where each stage launches on the current stream and raises on
+    a CUDA error, and ``finish()`` gives ``av_align_scan_bwd``'s outputs
+    once the three have run in order.  The cluster route: "prep" the regate
+    and the query launch, "scan" the recurrence, "sums" dkeys and dvalues
+    (every output and scratch with ``torch.empty``: each element is
+    written).  The step route: "prep" the regate, "scan" the per-step
+    launches, which add each step's memory gradients into zeroed buffers
+    ("sums" launches nothing).  No stage counts a launch
+    (``av_align_scan_bwd`` does); run alone, a stage times its part of the
+    call.  Same operands and checks as ``av_align_scan_bwd``;
+    ``rows_per_cta`` (1 or 2) is the cluster recurrence's layout, by
+    default ``av_align_bwd_rows_per_cta``'s."""
     T, B, H, Dc, A, S, Dv, dev, _ = _check_av_align(wh, b, ctx_proj, wq, v, xw, mask, keys,
                                                     values)
     f32 = torch.float32
@@ -997,24 +1131,59 @@ def av_align_scan_bwd_stages(wh, b, ctx_proj, wq, v, xw, mask, keys, values, ali
         _check(name, x, f32, shape, dev)
     lib = _load()
     dot = int(v is None)
-    if rows_per_cta is None:
-        rows_per_cta = av_align_bwd_rows_per_cta(B, H, Dc, A, S, Dv, bool(dot))
-    if lib.avsr_av_align_bwd_smem(H, Dc, A, S, Dv, dot, rows_per_cta) < 0:
-        raise ValueError(f"av_align scan backward: H={H}, Dc={Dc}, A={A}, Dv={Dv}, T_v={S}; the "
-                         f"recurrence takes H a multiple of 64 (Luong: of 128) up to 512, H + Dc "
-                         f"a multiple of 128 up to 1024, Dv and A multiples of 64 (up to 2048 "
-                         f"and 512)")
+    family = av_align_bwd_family(H, Dc, A, S, Dv, bool(dot))
     w_all = wh if ctx_proj is None else torch.cat([wh, ctx_proj], dim=0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
 
     def empty(*shape):
         return torch.empty(shape, dtype=f32, device=dev)
 
+    if family == "step":
+        if rows_per_cta is not None:
+            raise ValueError("av_align scan backward: the per-step route has no rows per CTA")
+        wh_tiled = tile_lstm_weights(wh[None])[0]
+        cp_tiled = None if ctx_proj is None else tile_lstm_weights(ctx_proj[None])[0]
+        # [H+Dc, 4H] -> [(H+Dc)/UT, H, UT, 4]: the layout of the carries' product
+        w_all_t = w_all.view(-1, LSTM_UNIT_TILE, H, 4).permute(0, 2, 1, 3).contiguous()
+        dh, dc, dctx = dhT.clone(), dcT.clone(), dctxT.clone()
+        act, hnew, dxw, dq = empty(T, B, 4 * H), empty(T, B, H), empty(T, B, 4 * H), empty(T, B, A)
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=f32, device=dev)
+
+        dv_acc = None if dot else zeros(B, A)
+        db_acc, dkeys, dvalues = zeros(B, 4 * H), zeros(B, S, A), zeros(B, S, Dv)
+
+        def step_prep():
+            _raise_on(lib.avsr_av_align_step_bwd_prep(
+                wh_tiled.data_ptr(), _ptr(cp_tiled), b.data_ptr(), xw.data_ptr(),
+                h_res.data_ptr(), c_res.data_ptr(), ctx_res.data_ptr(), act.data_ptr(),
+                hnew.data_ptr(), T, B, H, Dc, stream), "av_align_scan_bwd prep launch")
+
+        def step_scan():
+            _raise_on(lib.avsr_av_align_step_bwd_scan(
+                w_all_t.data_ptr(), mask.data_ptr(), wq.data_ptr(), _ptr(v), keys.data_ptr(),
+                values.data_ptr(), aligns.data_ptr(), hnew.data_ptr(), act.data_ptr(),
+                c_res.data_ptr(), dhs.data_ptr(), dctxs.data_ptr(), dh.data_ptr(), dc.data_ptr(),
+                dctx.data_ptr(), dxw.data_ptr(), dq.data_ptr(), _ptr(dv_acc), db_acc.data_ptr(),
+                dkeys.data_ptr(), dvalues.data_ptr(), T, B, H, Dc, A, S, Dv, dot, stream),
+                "av_align_scan_bwd scan launch")
+
+        def step_finish():
+            return dxw, db_acc.sum(dim=0), dq, dv_acc, dkeys, dvalues, hnew
+
+        return {"prep": step_prep, "scan": step_scan, "sums": lambda: None}, step_finish
+
+    if rows_per_cta is None:
+        rows_per_cta = av_align_bwd_rows_per_cta(B, H, Dc, A, S, Dv, bool(dot))
+    if lib.avsr_av_align_bwd_smem(H, Dc, A, S, Dv, dot, rows_per_cta) < 0:
+        raise ValueError(f"av_align scan backward: H={H}, Dc={Dc}, A={A}, Dv={Dv}, T_v={S}: no "
+                         f"cluster layout at {rows_per_cta} rows a CTA")
     act, hnew, q = empty(T, B, 4 * H), empty(T, B, H), empty(T, B, A)
     dxw, dq, dsc, dctxp, db_rows = (empty(T, B, 4 * H), empty(T, B, A), empty(T, B, S),
                                     empty(T, B, Dv), empty(B, 4 * H))
     dkeys, dvalues = empty(B, S, A), empty(B, S, Dv)
     dv_part = None if dot else empty(B, -(-S // 32), A)
-    stream = torch.cuda.current_stream(dev).cuda_stream
 
     def prep():
         _raise_on(lib.avsr_av_align_bwd_prep(
@@ -1056,9 +1225,11 @@ def av_align_scan_bwd(wh, b, ctx_proj, wq, v, xw, mask, keys, values, aligns, h_
     [B,S,A], dvalues [B,S,Dv], hnew [T,B,H]), all fp32: dxw is dgates; dq,
     dv_rows and hnew (the recomputed queries) are the factors of dwq and dv,
     and dWh / dctx_proj are products over h_res / ctx_res and dxw, left to
-    the caller.  Five launches (``csrc/av_align_bwd.cuh``): the regate, the
-    queries, the recurrence (one launch of thread-block clusters) and the
-    memory's two gradients, summed over the steps after the scan.
+    the caller.  On the route ``av_align_bwd_family`` names: five launches
+    (``csrc/av_align_bwd.cuh``: the regate, the queries, the recurrence in
+    one launch of thread-block clusters and the memory's two gradients,
+    summed over the steps after the scan), or the per-step kernels
+    (``csrc/av_align_step_bwd.cuh``: the regate, then two launches a step).
     """
     stages, finish = av_align_scan_bwd_stages(wh, b, ctx_proj, wq, v, xw, mask, keys, values,
                                               aligns, h_res, c_res, ctx_res, dhs, dctxs, dhT,

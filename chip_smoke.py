@@ -58,8 +58,9 @@ Phases, in order; any failure exits nonzero before the final line:
              training steps; (c) 10 steps on one batch at a constant lr,
              the last loss below the first; (d) median ms per step after 2
              warm-up steps, 10 ms audio frames/s, peak device memory.
-9. K5      — the teacher-forced decoder attention kernels (tensor cores),
-             forward and backward, against their plain twins: causal self
+9. K5      — the teacher-forced decoder attention kernels (tensor cores;
+             the cross attention on decoder_cross_attention.cuh's own
+             kernels), forward and backward, against their plain twins: causal self
              attention [B=128, Q=S=80, 4 heads, dk=dv=64] and at the
              150-label horizon (Q=S=150), cross attention under the memory
              bias [B=128, Q=80, dk=128, dv=256] over the fast model's memory
@@ -242,7 +243,14 @@ Phases, in order; any failure exits nonzero before the final line:
 
 37. K8 step route — K8 forward's per-step kernels at widths only they take
              (Bahdanau at A=64, Luong at Hk=Dv=192; ``av_align_family``
-             "step") against the plain twins, as phase 13's checks.
+             "step") against the plain twins, as phase 13's checks; K8
+             backward's per-step kernels (``av_align_bwd_family`` "step")
+             at widths the cluster recurrence refuses (Bahdanau A=72, Luong
+             Hk=Dv=192) against the plain twin, as phase 17's checks, their
+             build (no spill), and a fusion train step at both widths
+             through ``AVAlignScan``: every gradient leaf present, finite and
+             nonzero, K8 launched, each leaf against the same step on the
+             plain twins.
 Serve (5, 15, 22, 31) also beams the same memories through the plain path and
 holds the best scores to a tolerance.  Each serve and greedy path and the
 train path end with a ``torch.profiler`` reading of one run: the device's
@@ -361,11 +369,12 @@ GREEDY_MAX_DIFF_ROWS = 16
 
 # the profiler's names of the tensor-core attention kernels, told apart by
 # their masks: K11's whole-row instances (head width 64) and K4's streamed
-# ones under the length mask, K5's causal and bias instances
+# ones under the length mask, K5's causal instance, and K5's cross kernels
+# (decoder_cross_attention.cuh)
 K11_SHARE = ("K11 fwd + bwd", ("attn_mma_", "<64,", "LengthMask"))
 K4_SHARE = ("K4 fwd + bwd", ("attn_mma_stream_", "LengthMask"))
 K5_SHARES = (("K5 self fwd + bwd", ("attn_mma_", "CausalMask")),
-             ("K5 cross fwd + bwd", ("attn_mma_", "BiasMask")))
+             ("K5 cross fwd + bwd", ("xattn_",)))
 
 # the bytes an attention backward may ask for beyond its outputs and D
 # (requested bytes, exact: no [B, nh, T_q, T_k] tensor, 1.36 MB in bf16 at
@@ -1295,11 +1304,49 @@ def k5_inputs(B, Q, S, dk, dv, dev, causal, seed, nh=4):
 # K5's shapes, (label, B, Q, S, dk, dv, causal): lrs2_av_fast's self and
 # cross pair (memory S = 50), lrs2_av_v2's cross (S = 197, every audio
 # step), the self attention at the 150-label horizon and the cross
-# attention at v2's 16 s limit (S = 531) with 80 and 150 labels
+# attention at v2's 16 s limit (S = 531) with 80 and 150 labels; then the
+# cross attention past its own kernels' lengths, on the streamed tiles
+# (``kernels.decoder_cross_route``): 200 labels (the backward) and a
+# memory of 6000 steps (the forward)
 K5_SHAPES = (("fast self", 128, 80, 80, 64, 64, True), ("fast cross", 128, 80, 50, 128, 256, False),
              ("v2 cross", 128, 80, 197, 128, 256, False), ("self Q=150", 128, 150, 150, 64, 64, True),
              ("16 s cross", 4, 80, 531, 128, 256, False),
-             ("16 s cross Q=150", 4, 150, 531, 128, 256, False))
+             ("16 s cross Q=150", 4, 150, 531, 128, 256, False),
+             ("cross Q=200", 8, 200, 197, 128, 256, False),
+             ("cross S=6000", 2, 80, 6000, 128, 256, False))
+
+
+def k5_cross_layout_check():
+    """The wrapper's mirror of the cross kernels' layouts
+    (``kernels.decoder_cross_fwd_strips`` / ``decoder_cross_fwd_smem`` /
+    ``DECODER_CROSS_MAX_Q``, which ``decoder_cross_route`` reads) against
+    the library's own (``FwdLayout``, ``fwd_config``, ``BwdLayout``) over a
+    grid of lengths: a drift would send a shape to a kernel that refuses it."""
+    from avsr_tpu_torch import kernels
+
+    lib = kernels._load()
+    bad = []
+    for Q in (1, 16, 37, 80, 150, 160, 161, 200, 400):
+        for S in (1, 50, 197, 531, 900, 4000, 5376, 5377, 6000):
+            got, want = lib.avsr_decoder_cross_fwd_strips(Q, S), kernels.decoder_cross_fwd_strips(Q, S)
+            if got != want:
+                bad.append(f"fwd strips Q={Q} S={S}: library {got}, mirror {want}")
+    for ns in range(1, 6):
+        for S in (1, 50, 197, 531, 4000, 5376):
+            for slots in range(3, 9):
+                got = lib.avsr_decoder_cross_fwd_smem(ns, S, slots)
+                want = kernels.decoder_cross_fwd_smem(ns, S, slots)
+                if got != want:
+                    bad.append(f"fwd smem ns={ns} S={S} slots={slots}: library {got}, mirror {want}")
+    for ns in range(1, 13):
+        got = lib.avsr_decoder_cross_bwd_smem(ns) >= 0
+        if got != (16 * ns <= kernels.DECODER_CROSS_MAX_Q):
+            bad.append(f"bwd at {16 * ns} queries: library takes it {got}, "
+                       f"DECODER_CROSS_MAX_Q {kernels.DECODER_CROSS_MAX_Q}")
+    print(f"K5 cross layouts: the wrapper's mirror against the library's, "
+          f"{'agree' if not bad else bad}")
+    if bad:
+        fail("K5", f"the cross kernels' layouts drift from kernels' mirror: {bad}")
 
 
 def k5_bounds(q, k, v, bias, ctx, stats, dctx, grads):
@@ -1318,15 +1365,20 @@ def k5_bounds(q, k, v, bias, ctx, stats, dctx, grads):
 def phase_k5(dev, report):
     import torch
 
+    from avsr_tpu_torch import kernels
     from avsr_tpu_torch.models import transformer_decoder as tdec
 
     build = build_report("K5", "decoder_attention", {
         **{f"self {kind}<64>": (f"attn_mma_{kind}ILi64E", "CausalMask")
            for kind in ("fwd", "bwd_q", "bwd_kv")},
-        **{f"cross {kind}<128,256>": (f"attn_mma_stream_{kind}ILi128ELi256E", "BiasMask")
+        **{f"cross {kind}<128,256>": (f"xattn_{kind}",) for kind in ("fwd", "bwd")},
+        **{f"cross stream {kind}<128,256>": (f"attn_mma_stream_{kind}ILi128ELi256E", "BiasMask")
            for kind in ("fwd", "bwd_q", "bwd_kv")}})
+    k5_cross_layout_check()
     fwd_err, bwd_err, timed = {}, {}, {}
     for name, B, Q, S, dk, dv, causal in K5_SHAPES:
+        routes = ("causal", "causal") if causal else tuple(
+            kernels.decoder_cross_route(Q, S, backward=d) for d in (False, True))
         q, k, v, bias, dctx = k5_inputs(B, Q, S, dk, dv, dev, causal, seed=Q + S + dv)
         ctx_k, st_k = tdec.decoder_attention_fwd(q, k, v, bias, save=True)
         ctx_k2, st_k2 = tdec.decoder_attention_fwd(q, k, v, bias, save=True)
@@ -1345,18 +1397,22 @@ def phase_k5(dev, report):
         fwd = {"ctx": max_err(ctx_k, ctx_p), "P_from_stats": max_err(w_k, w_p),
                "row_max": max_err(st_k[0], st_p[0]), "row_sum_rel": rel_err(st_k[1], st_p[1])}
         rel = {n: rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), g_k, g_p)}
-        scratch = nbytes(*g_k) + B * 4 * Q * 4 + SLACK_BYTES
+        # the outputs, and D (fp32 [B, nh, Q]) but on the cross kernels'
+        # resident route, which keeps it in shared memory
+        with_d = routes[1] != "resident"
+        scratch = nbytes(*g_k) + (B * 4 * Q * 4 if with_d else 0) + SLACK_BYTES
         extra = ""
         if not causal:  # the length-0 memory: the uniform softmax over exactly S keys
             uni = max_err(w_k[1], torch.full_like(w_k[1], 1.0 / S))
             extra = f"; length-0 memory row's weights against 1/S: {uni}"
             if uni > 1e-6:
                 fail("K5", f"{name}: the fully masked row is not uniform ({uni})")
-        print(f"K5 {name} [B={B},Q={Q},S={S},4 heads,dk={dk},dv={dv}] forward max abs err {fwd} "
+        print(f"K5 {name} [B={B},Q={Q},S={S},4 heads,dk={dk},dv={dv}; routes fwd/bwd "
+              f"{routes[0]}/{routes[1]}] forward max abs err {fwd} "
               f"(tol ctx {K5_CTX_TOL}, P {K5_P_TOL}); dq/dk/dv relative to max |plain| {rel} "
               f"(tol {K5_GRAD_REL_TOL}){extra}; two launches bit-equal (and the save-mode ctx "
-              f"the serving one): {same}; the backward allocated {grew} bytes (outputs and D: "
-              f"{scratch - SLACK_BYTES})")
+              f"the serving one): {same}; the backward allocated {grew} bytes (outputs"
+              f"{' and D' if with_d else ''}: {scratch - SLACK_BYTES})")
         if not (torch.isfinite(ctx_k.float()).all()
                 and all(torch.isfinite(g.float()).all() for g in g_k)
                 and fwd["ctx"] <= K5_CTX_TOL and fwd["P_from_stats"] <= K5_P_TOL
@@ -1365,7 +1421,7 @@ def phase_k5(dev, report):
                        f"bit-equal reruns {same}")
         if grew > scratch:
             fail("K5", f"the backward allocated {grew} bytes at {name}: more than its outputs "
-                       f"and D")
+                       f"{'and D' if with_d else '(no scratch)'}")
         fwd_err[name] = max(fwd["ctx"], fwd["P_from_stats"])
         bwd_err[name] = max(max_err(a, b) for a, b in zip(g_k, g_p))
         if name in ("fast self", "fast cross", "v2 cross"):
@@ -1414,7 +1470,11 @@ def phase_k5(dev, report):
             device_ms=pair(f"{d}_device"), bound=pair_bound(f"bound_{d}"),
             library_device_ms=pair(f"{d}_library_device"),
             self_device_ms=timed["fast self"][f"{d}_device"],
+            self_library_device_ms=timed["fast self"][f"{d}_library_device"],
+            self_bound_ms=timed["fast self"][f"bound_{d}"][0],
             cross_device_ms=timed["fast cross"][f"{d}_device"],
+            cross_library_device_ms=timed["fast cross"][f"{d}_library_device"],
+            cross_bound_ms=timed["fast cross"][f"bound_{d}"][0],
             v2_cross_device_ms=v2[f"{d}_device"], v2_cross_library_device_ms=v2[f"{d}_library_device"],
             v2_cross_bound_ms=v2[f"bound_{d}"][0],
             registers={kind: r["registers"] for kind, r in build.items() if d in kind},
@@ -2021,6 +2081,45 @@ def k8_bwd_inputs(B, dev, seed, attention_type="bahdanau", **widths):
 _K8B_INFO = {}  # K8 backward's build report and occupancy, read once
 
 
+def k8_bwd_layout_check():
+    """The wrapper's mirror of K8 backward's recurrence layout
+    (``kernels.av_align_bwd_smem``, which ``av_align_bwd_family`` and
+    ``av_align_bwd_rows_per_cta`` read) against the library's
+    (``avsr_av_align_bwd_smem``: the layout with Bahdanau's wq, 2 H A
+    bytes, staged where it fits; -1 where the recurrence does not take the
+    shape) over a grid of widths, both reads, at 1 and 2 rows a CTA: a
+    drift would send a shape to the cluster route that its kernels refuse."""
+    from avsr_tpu_torch import kernels
+
+    lib = kernels._load()
+    bad, n = [], 0
+    for H in (64, 128, 192, 256, 320, 512, 576):
+        for Dv in (64, 256, 512):
+            for Dc in (0, Dv):
+                for A in (64, 72, 128, 256):
+                    for S in (1, 150, 400):
+                        for dot in (False, True):
+                            try:
+                                family = kernels.av_align_bwd_family(H, Dc, A, S, Dv, dot)
+                            except ValueError:
+                                continue
+                            for rpc in (1, 2):
+                                want = kernels.av_align_bwd_smem(H, Dc, A, S, Dv, dot, rpc)
+                                if family != "cluster" or want > kernels.SMEM_LIMIT:
+                                    want = -1
+                                elif not dot and want + 2 * H * A <= kernels.SMEM_LIMIT:
+                                    want += 2 * H * A
+                                got = lib.avsr_av_align_bwd_smem(H, Dc, A, S, Dv, int(dot), rpc)
+                                n += 1
+                                if got != want:
+                                    bad.append((H, Dc, A, S, Dv, dot, rpc, got, want))
+    print(f"K8 bwd layout: the wrapper's mirror against the library's at {n} shapes "
+          f"(H, Dc, A, S, Dv, dot, rows a CTA, library, mirror): "
+          f"{'agree' if not bad else bad[:8]}")
+    if bad:
+        fail("K8 bwd", f"the recurrence's layout drifts from kernels.av_align_bwd_smem: {bad[:8]}")
+
+
 def k8_bwd_build_info():
     """K8 backward's kernels as built (``csrc/av_align_bwd.cuh``):
     registers, spills and HMMA count of the tensor-core ones (the
@@ -2041,6 +2140,7 @@ def k8_bwd_build_info():
              if "align_dkeys_energy" in k}
     if any(r["spill_stores"] or r["spill_loads"] for r in cores.values()) or len(cores) != 1:
         fail("K8 bwd", f"the energy pass spills or is missing: {cores}")
+    k8_bwd_layout_check()
     occ = {f"{kind} rows_per_cta={r}": kernels.av_align_bwd_info(*widths, rows_per_cta=r)
            for kind, widths in (("bahdanau", (256, 512, 128, 150, 512, False)),
                                 ("luong", (256, 256, 256, 150, 256, True)))
@@ -3040,18 +3140,130 @@ def phase_lstm_step_route(dev):
 
 
 def phase_align_step_route(dev):
-    """K8 forward's per-step kernels (``kernels.av_align_family`` "step") at
-    widths the cluster kernel does not take, against the plain twin:
+    """K8 at widths the cluster kernels do not take.  The forward's per-step
+    kernels (``kernels.av_align_family`` "step") against the plain twin:
     Bahdanau at A=64 (q's A/16 columns a CTA would not fill an n-tile) and
     Luong at Hk=Dv=192 (nor would they there, and a ctx tile row of 24
     chunks), [T_a=50, B=20, H=256, T_v=60], ragged with a 0-length audio and
-    video row."""
+    video row; the backward's per-step route (``av_align_bwd_family``
+    "step") at A=72 and Luong Hk=Dv=192 against its twin, with its device
+    ms a call, and a train step through it at both widths."""
     for label, kind, make, tol in (
             ("K8 step route [T_a=50,B=20,H=256,T_v=60,A=64,Dv=512]", "bahdanau",
              lambda: k8_inputs(20, dev, 70, T=50, Tv=60, A=64), K8_ALIGN_TOL),
             ("K8 Luong step route [T_a=50,B=20,H=256,T_v=60,Hk=Dv=192]", "luong",
              lambda: k8_luong_inputs(20, dev, 71, T=50, Tv=60, Dv=192), K8L_ALIGN_TOL)):
         k8_fwd_check(label, make(), kind, tol, route="step")
+    from avsr_tpu_torch import kernels
+    from avsr_tpu_torch.models import fusion as fus
+
+    # the backward at widths the cluster recurrence refuses: its
+    # per-step route against the plain twin, then a train step through it
+    for label, kind, widths in (
+            ("K8 step bwd [T_a=50,B=20,H=256,T_v=60,A=72,Dv=512]", "bahdanau", {"A": 72}),
+            ("K8 Luong step bwd [T_a=50,B=20,H=256,T_v=60,Hk=Dv=192]", "luong", {"Dv": 192})):
+        args = k8_bwd_inputs(20, dev, 72, attention_type=kind, T=50, Tv=60, **widths)
+        mem = args[5]
+        route = kernels.av_align_bwd_family(256, mem.values.shape[-1], mem.keys.shape[-1], 60,
+                                            mem.values.shape[-1], kind == "luong")
+        if route != "step":
+            fail("K8 step bwd", f"{label}: routed to {route}")
+        k8_bwd_against_plain(label, args, kind)
+        kw = {"attention_type": kind}
+        dev_ms = device_ms(lambda: fus.av_align_scan_bwd(*args, **kw))
+        plain = time_ms(lambda: fus.av_align_scan_bwd_plain(*args, **kw), reps=3, warmup=1)
+        print(f"{label} device {dev_ms:.4f} ms a call ({dev_ms / 50 * 1e3:.2f} us a step); "
+              f"plain {plain:.3f} ms")
+    steps = {name: r for name, r in kernels.ptxas_report("av_align_scan").items()
+             if any(k in name for k in ("align_regate_kernel", "align_bwd_product_kernel",
+                                        "align_bwd_row_kernel"))}
+    kinds = ("align_regate_kernel", "align_bwd_product_kernel", "align_bwd_row_kernel")
+    short = {next(k for k in kinds if k in n) + ("<luong>" if "ILb1E" in n else ""): r
+             for n, r in steps.items()}
+    print(f"K8 step bwd build (ptxas -v; CUDA cores): {short}")
+    if len(steps) != 4 or any(r["spill_stores"] or r["spill_loads"] for r in steps.values()):
+        fail("K8 step bwd", f"the per-step backward's kernels missing or spilling: {steps}")
+    align_step_train(dev)
+
+
+def align_step_train(dev):
+    """One AV-Align fusion train step (forward, loss, backward through
+    ``AVAlignScan``) at a Bahdanau width (A = 72) and a Luong width (Hk = Dv =
+    192) that the cluster recurrence refuses, [T_a=50, B=20, H=256,
+    T_v=60], ragged with a 0-length audio and video row: every gradient leaf
+    present, finite and nonzero, K8's forward and backward launched, and
+    each leaf against the same step with the plain twins (``fusion.av_align_scan_fwd``
+    / ``_bwd`` swapped for ``_plain``) within ``K8B_REL_TOL`` of its largest value."""
+    import torch
+
+    from avsr_tpu_torch import kernels
+    from avsr_tpu_torch.configs import FusionConfig
+    from avsr_tpu_torch.models import fusion as fus
+    from avsr_tpu_torch.utils.params import tree_leaves
+
+    T, B, D, H, Tv = 50, 20, 512, 256, 60
+    for label, kind, Hv, cfg in (
+            ("K8 step train [A=72, Dv=512]", "bahdanau", 512,
+             FusionConfig(attention_units=72, au_loss_weight=1.0, au_dim=2)),
+            ("K8 Luong step train [Hk=Dv=192]", "luong", 192,
+             FusionConfig(attention_type="luong", au_loss_weight=1.0, au_dim=2))):
+        g = torch.Generator().manual_seed(Hv)
+        params = fus.av_align_init(g, cfg, D, H, Hv, dev)
+        audio = torch.randn((T, B, D), generator=g).to(dev)
+        video = torch.randn((B, Tv, Hv), generator=g).to(dev)
+        a_len = torch.randint(1, T + 1, (B,), generator=g)
+        v_len = torch.randint(1, Tv + 1, (B,), generator=g)
+        a_len[0], a_len[1], v_len[0], v_len[2] = T, 0, Tv, 0
+        a_len, v_len = a_len.to(dev), v_len.to(dev)
+        cot = torch.randn((T, B, H + Hv), generator=g).to(dev)
+
+        def step():
+            leaves = [x.detach().clone().requires_grad_(True)
+                      for _, x in tree_leaves(params) if torch.is_tensor(x)]
+            leaves += [audio.clone().requires_grad_(True), video.clone().requires_grad_(True)]
+            it = iter(leaves)
+            p = tree_map_like(params, it)
+            out = fus.av_align_apply(p, cfg, leaves[-2], a_len, leaves[-1], v_len,
+                                     torch.bfloat16)
+            loss = (out.fused * cot).sum() + out.au_predictions.float().square().sum()
+            return torch.autograd.grad(loss, leaves, allow_unused=True)
+
+        names = ["/".join(map(str, path)) for path, x in tree_leaves(params)
+                 if torch.is_tensor(x)] + ["audio", "video"]
+        before = dict(kernels.LAUNCHES)
+        got = step()
+        torch.cuda.synchronize()
+        suffix = "_luong" if kind == "luong" else ""
+        ran = {n: kernels.LAUNCHES[n] - before[n]
+               for n in (f"av_align_scan{suffix}", f"av_align_scan{suffix}_bwd")}
+        saved = fus.av_align_scan_fwd, fus.av_align_scan_bwd
+        fus.av_align_scan_fwd, fus.av_align_scan_bwd = (fus.av_align_scan_fwd_plain,
+                                                        fus.av_align_scan_bwd_plain)
+        try:
+            want = step()
+        finally:
+            fus.av_align_scan_fwd, fus.av_align_scan_bwd = saved
+        torch.cuda.synchronize()
+        bad = [n for n, x in zip(names, got)
+               if x is None or not torch.isfinite(x).all() or not bool(x.abs().max() > 0)]
+        errs = {n: rel_err(a, b) for n, a, b in zip(names, got, want) if a is not None}
+        print(f"{label} [T_a={T},B={B},H={H},T_v={Tv}]: {len(names)} gradient leaves, missing, "
+              f"non-finite or zero: {bad}; K8 launches {ran}; relative to the plain twins' step "
+              f"(max abs error over max |plain|): {errs} (tol {K8B_REL_TOL})")
+        if bad or not all(ran.values()) or not max(errs.values()) <= K8B_REL_TOL:
+            fail("K8 step train", f"{label}: leaves {bad}, launches {ran}, errors {errs}")
+
+
+def tree_map_like(tree, values):
+    """``tree`` with its tensor leaves replaced, in ``tree_leaves`` order,
+    by the next items of the iterator ``values``."""
+    if isinstance(tree, dict):
+        return {k: tree_map_like(x, values) for k, x in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_like(x, values) for x in tree)
+    import torch
+
+    return next(values) if torch.is_tensor(tree) else tree
 
 
 def main() -> int:

@@ -357,12 +357,13 @@ def test_core_route_functions_save_weights(kernel, monkeypatch):
 
 
 def test_attention_family_routing_table():
-    """The head widths each attention kernel runs on the tensor cores; every
+    """The head widths each attention kernel runs on the tensor cores (K5's
+    cross attention at (128, 256) on kernels of its own, "cross"); every
     other pair of multiples of 8 takes the CUDA-core family, and a width
     that is not a multiple of 8 (or not positive) is refused."""
     fam = kernels.attention_family
     assert fam("decoder_self_attention", 64, 64) == "mma"
-    assert fam("decoder_cross_attention", 128, 256) == "mma"
+    assert fam("decoder_cross_attention", 128, 256) == "cross"
     assert fam("decoder_self_attention", 32, 32) == "core"
     assert fam("decoder_cross_attention", 64, 128) == "core"
     assert fam("decoder_self_attention", 128, 256) == "core"

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time K4, the cross-attention fusion core, in two checkouts on one card.
+"""Time K4, the cross-attention fusion core, and K11 in two checkouts on one card.
 
     python3 tools/torch_fusion_ab.py --trees build/parent . --order ABBA
 
@@ -11,7 +11,10 @@ around 20 calls queued behind a spin kernel) at the fast model's shape
 on chip_smoke's ``k4_inputs`` (ragged video lengths with a 0-length row):
 the forward as serving calls it, and the backward from the forward's
 residual, whichever the checkout's backward takes (the fp32 weights, or the
-softmax's row statistics).  The runs go in ``--order`` (A B B A by
+softmax's row statistics).  It also times K11, the encoder's self
+attention, which shares K4's tensor-core header (``csrc/attention_mma.cuh``):
+forward in save mode and backward at lrs2_av_v2's [B=128, 8 heads,
+T=197, 64] on chip_smoke's ``k11_inputs``.  The runs go in ``--order`` (A B B A by
 default), so both checkouts share the card's state; the last line is one
 JSON object with every run's numbers.  Needs a CUDA card; the other
 checkout is typically the parent commit unpacked with ``git archive`` into
@@ -33,6 +36,7 @@ import torch
 import chip_smoke as cs
 from avsr_tpu_torch import kernels
 from avsr_tpu_torch.models import fusion as fus
+from avsr_tpu_torch.models import transformer as tfm
 
 kernels.build()
 dev = torch.device("cuda", 0)
@@ -46,6 +50,12 @@ for Ta in (50, 197):
         residual = (fus.fusion_attention_fwd(q, k, v, vlen)[1],)
     out[f"fwd_T_a{Ta}"] = cs.device_ms(lambda: fus.fusion_attention_fwd(q, k, v, vlen))
     out[f"bwd_T_a{Ta}"] = cs.device_ms(lambda: fus.fusion_attention_bwd(q, k, v, *residual, dctx))
+qkv, lens = cs.k11_inputs(128, 197, dev, seed=197)
+dctx = torch.randn((128, 197, 8, 64), generator=torch.Generator().manual_seed(198))
+dctx = dctx.to(torch.bfloat16).to(dev)
+_, st = tfm.encoder_self_attention_fwd(qkv, lens, save=True)
+out["k11_fwd"] = cs.device_ms(lambda: tfm.encoder_self_attention_fwd(qkv, lens, save=True))
+out["k11_bwd"] = cs.device_ms(lambda: tfm.encoder_self_attention_bwd(qkv, lens, *st, dctx))
 print(json.dumps(out))
 """
 
@@ -67,7 +77,7 @@ def main() -> int:
             print(res.stderr[-4000:], file=sys.stderr)
             return 1
         r = json.loads(res.stdout.strip().splitlines()[-1])
-        print(f"{which} ({tree}): K4 device ms " + ", ".join(f"{k} {x:.4f}" for k, x in r.items()),
+        print(f"{which} ({tree}): K4 and K11 device ms " + ", ".join(f"{k} {x:.4f}" for k, x in r.items()),
               flush=True)
         runs.append(dict(r, tree=tree, which=which))
     print(json.dumps({"card": card, "runs": runs}))
