@@ -1479,5 +1479,37 @@ cudaError_t launch_stream_bwd(const void* q, const void* k, const void* v, Mask 
   return cudaGetLastError();
 }
 
+// ---- fragments of pitched tiles (rows P elements apart) --------------------
+// K5's cross kernels (decoder_cross_attention.cuh) and K6's grouped read
+// (decode_attention.cu) stage rows padded by 16 bytes instead of swizzled.
+namespace pitched {
+
+// A: rows r0..r0+15 (m) by columns c0..c0+15 (k)
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* t, int P, int r0, int c0,
+                                       int lane) {
+  ldsm_x4(a, t + (size_t)(r0 + (lane & 15)) * P + c0 + ((lane >> 4) << 3));
+}
+// A as the transpose of the tile: m along columns c0..c0+15, k along rows
+// r0..r0+15
+__device__ __forceinline__ void load_at(uint32_t (&a)[4], const bf16* t, int P, int r0, int c0,
+                                        int lane) {
+  ldsm_x4_trans(
+      a, t + (size_t)(r0 + (lane & 7) + ((lane >> 4) << 3)) * P + c0 + (((lane >> 3) & 1) << 3));
+}
+// B of two n-tiles, n along rows n0..n0+15, k along columns c0..c0+15
+__device__ __forceinline__ void load_b(uint32_t (&b)[4], const bf16* t, int P, int n0, int c0,
+                                       int lane) {
+  ldsm_x4(
+      b, t + (size_t)(n0 + (lane & 7) + ((lane >> 4) << 3)) * P + c0 + (((lane >> 3) & 1) << 3));
+}
+// B of two n-tiles, k along rows k0..k0+15, n along columns c0..c0+15
+__device__ __forceinline__ void load_bt(uint32_t (&b)[4], const bf16* t, int P, int k0, int c0,
+                                        int lane) {
+  ldsm_x4_trans(
+      b, t + (size_t)(k0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * P + c0 + ((lane >> 4) << 3));
+}
+
+}  // namespace pitched
+
 }  // namespace mma_attn
 }  // namespace

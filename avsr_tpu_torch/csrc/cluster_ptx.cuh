@@ -1,7 +1,8 @@
-// The PTX of thread-block clusters that the persistent scan kernels share:
-// K1/K2's (lstm_cluster.cuh, for avsr_tpu/ops/rnn.py's LSTM scan cores) and
-// K8's backward (av_align_bwd.cuh, for the scan body of
-// avsr_tpu/models/fusion.py:av_align_apply).  A CTA
+// The PTX of thread-block clusters and bulk copies that the persistent scan
+// kernels share: K1/K2's (lstm_cluster.cuh, for avsr_tpu/ops/rnn.py's LSTM
+// scan cores) and K8's backward (av_align_bwd.cuh, for the scan body of
+// avsr_tpu/models/fusion.py:av_align_apply); K5's cross attention, K6's self
+// read and K9's backward use its mbarriers and bulk copies.  A CTA
 // writes into a peer's shared memory with st.async (mapa addresses), each
 // store counting its bytes on the peer's mbarrier; the receiver announces
 // the bytes it expects (arrive.expect_tx) and waits for the phase.
@@ -84,6 +85,15 @@ __device__ __forceinline__ void bulk_copy_to_peer(uint32_t dst, uint32_t src, ui
                                                   uint32_t bar) {
   asm volatile("cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes "
                "[%0], [%1], %2, [%3];\n" ::"r"(dst), "r"(src), "r"(bytes), "r"(bar)
+               : "memory");
+}
+// one bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from device memory into this CTA's shared memory, counted on the
+// mbarrier `bar`
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, uint32_t bytes,
+                                         uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1], %2, [%3];\n" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
                : "memory");
 }
 // orders this thread's shared-memory writes before the async proxy's reads

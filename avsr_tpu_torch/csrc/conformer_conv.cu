@@ -46,36 +46,74 @@
 // d = 512, k = 15) the forward reads 51.6 MB of u and writes 25.8 MB: ~23
 // us of HBM time, against ~0.39 GFLOP of fp32 work (~6 us at 67 TFLOP/s):
 // byte-bound.  The backward's own function reads u (51.6 MB) and dout (25.8
-// MB) and writes du (51.6 MB): ~129 MB, ~39 us, also byte-bound; the kernel
-// moves more: an fp32 dx scratch [T, B, d] (51.6 MB written, read back with
-// its halo), u read twice, and per-block partial sums (~20 MB).
+// MB) and writes du (51.6 MB): ~129 MB, ~39 us, also byte-bound.
 //
-// Design, the simple one.  Forward: one block per (utterance, tile of TT =
-// 16 time steps); a thread owns one channel pair (256 threads at d = 512).
-// The tile's GLU'd rows plus the k - 1 halo rows are staged in shared
-// memory as fp32 ([TT + k - 1][d], 60 KB at d = 512, k = 15); each thread
-// then runs the k-tap conv of its own two channels for the TT rows in
-// registers, so the stage and the conv need no barrier.  The LayerNorm
-// reduces over the d channels of each row with warp shuffles and one
-// shared partial per warp, summed in a fixed order (the same bits every
-// run), mean first, then the centred squares, as the reference does.  The
-// halo rows are read by two neighbouring blocks (k - 1 = 14 extra rows per
-// 16: up to 1.9x u's bytes, mostly from L2); a wider tile is later work.
-// Backward, three launches, one block per (utterance, chunk of CH = 64
-// steps) for the first two:
+// Forward: one block per (utterance, tile of TT = 16 time steps); a thread
+// owns one channel pair (256 threads at d = 512).  The tile's GLU'd rows
+// plus the k - 1 halo rows are staged in shared memory as fp32 ([TT + k -
+// 1][d], 60 KB at d = 512, k = 15); each thread then runs the k-tap conv of
+// its own two channels for the TT rows in registers, so the stage and the
+// conv need no barrier.  The LayerNorm reduces over the d channels of each
+// row with warp shuffles and one shared partial per warp, summed in a fixed
+// order (the same bits every run), mean first, then the centred squares,
+// as the reference does.  The halo rows are read by two neighbouring
+// blocks (k - 1 = 14 extra rows per 16: up to 1.9x u's bytes, mostly from
+// L2); a wider tile is later work.
+//
+// Backward, "fused" (k = 15, d a multiple of 8 up to 512: every preset's
+// conformer conv; kernels.conformer_bwd_plan): one pass over time per item
+// (utterance b, chunk [c0, c1) of its steps), then one launch that sums the
+// items' partial rows.  A thread owns one channel (512 threads at d = 512:
+// one block of 16 warps an SM).  The pass walks tiles of BR = 8 rows in
+// three stages that lag each other by k / 2 = 7 rows, so each stage finds
+// in shared memory the rows it needs, computed by the same thread (its own
+// channel: no barrier):
+//   A  rows t + 14: the GLU of u (biased, masked; exactly bf16) into a ring
+//      of the last 22 rows of y, and bf16(sigmoid(gate)) into a ring of
+//      its own for stage C;
+//   B  rows t + 7: the conv over y's ring (the forward's taps and sum
+//      order), the LayerNorm statistics, the swish and LayerNorm backward
+//      (four row reductions: per warp by halving exchanges, 9 shuffles for
+//      the tile's 8 rows, then the warps' partials by a 16-lane tree, the
+//      same bits in every thread) -> dx into a ring of its last 22 rows
+//      (fp32, never in device memory); dln_scale, dln_bias and ddw (y's
+//      ring against dx) summed in registers over the rows the item owns;
+//   C  rows t: the conv's transpose over dx's ring, the mask and the GLU
+//      backward with u's row (still in its ring) -> du, written once;
+//      db_in summed in registers.
+// u's rows (2 KB at d = 512) and dout's (1 KB) arrive by bulk copies (one
+// per row: an utterance's rows are B rows apart) issued by one thread two
+// tiles ahead, into a ring of 38 u rows (each used by stages A and C) and
+// three tiles of dout rows, counted on three mbarriers: 48 KB in flight.
+// u and dout are read once, plus 28 rows of u and 14 of dout at each chunk
+// edge inside an utterance.  The chunk is the whole utterance where the
+// batch fills a wave (B > 66); smaller batches cut it into as many chunks
+// as make a wave of 132 items, of at least 16 steps each.  An item's sums
+// go to its partial row (ddw, dln, db_in: (k + 4) d floats, 4.9 MB at B =
+// 128), which the second launch sums over the items in a fixed order.
+// It is bound by instructions, not bytes (~0.40 ms against a 0.039 ms byte
+// bound at the phase check's batch): the four row reductions, two sigmoids
+// and three divisions a row-channel of stage B take most of it.
+//
+// Backward, "general" (every other (T, B, d, k) the forward takes), three
+// launches, one block per (utterance, chunk of CH = 64 steps) for the first
+// two:
 //   1. per tile of the chunk: the forward's recompute (the same code, so the
 //      same z), the swish and LayerNorm backward (two more row reductions),
-//      dx written in fp32; dln_scale / dln_bias summed over the chunk in
-//      registers;
+//      dx written in fp32 to device memory; dln_scale / dln_bias summed over
+//      the chunk in registers;
 //   2. per tile of the chunk: y and dx staged with their k - 1 halo (y as
 //      bf16, which it is exactly; 92 KB at d = 512), the transposed conv,
 //      the ddw sums (added into the block's own partial row), the mask and
 //      the GLU backward into du; db_in summed over the chunk;
 //   3. every partial summed over the blocks in a fixed order (8 lanes, then
 //      the lanes in order): no atomics, the same bits every run.
+// The fused route's second launch is the same reduction.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "cluster_ptx.cuh"
 
 namespace {
 
@@ -223,7 +261,9 @@ __global__ void conformer_conv_kernel(const __nv_bfloat16* __restrict__ u,     /
 
 // Backward launch 1: swish and LayerNorm backward -> dx [T, B, d] fp32; the
 // chunk's dln_scale / dln_bias sums into its partial row (at column k * d).
-__global__ void conv_bwd_ln_kernel(const __nv_bfloat16* __restrict__ u,
+// Bounded for 512 threads (d = 1024): unbounded, it took 155 registers a
+// thread and a block of 512 could not launch.
+__global__ void __launch_bounds__(512) conv_bwd_ln_kernel(const __nv_bfloat16* __restrict__ u,
                                    const __nv_bfloat16* __restrict__ b_in,
                                    const float* __restrict__ dw,
                                    const float* __restrict__ ln_scale,
@@ -419,6 +459,301 @@ __global__ void reduce_parts_kernel(const float* __restrict__ part, float* __res
   }
 }
 
+// ---- the fused backward -------------------------------------------------------
+
+constexpr int BK = 15;                  // taps of the fused backward
+constexpr int BH = BK / 2;              // the stages' lag in rows
+constexpr int BR = 8;                   // rows a tile
+constexpr int DEPTH = 2;                // tiles of rows in flight ahead of the one in use
+constexpr int NBUF = DEPTH + 1;         // dout buffers and mbarriers
+constexpr int RU = 2 * BH + NBUF * BR;  // rows of u's ring
+constexpr int RW = 2 * BH + BR;         // rows of y's and dx's rings
+constexpr int PRO = (4 * BH + BR - 1) / BR;  // tiles before the first of stage C
+constexpr int FUSED_MAX_D = 512;        // a thread a channel
+constexpr int FUSED_WARPS = FUSED_MAX_D / 32;
+
+// Shared memory of the fused backward at d channels, byte offsets: u's ring
+// [RU][2d] bf16, dout's buffers [NBUF][BR][d] bf16, y's and bf16(sigmoid(
+// gate))'s rings [RW][d] bf16, dx's ring [RW][d] fp32, the four row
+// reductions' per-warp partials [16 warps][BR] fp32 (mean, centred squares,
+// dxh, dxh * xh), the mbarriers.
+struct FusedLayout {
+  size_t dout, y, sg, dx, red, bars, total;
+  __host__ __device__ explicit FusedLayout(int d) {
+    dout = (size_t)RU * 2 * d * 2;
+    y = dout + (size_t)NBUF * BR * d * 2;
+    sg = y + (size_t)RW * d * 2;
+    dx = sg + (size_t)RW * d * 2;
+    red = dx + (size_t)RW * d * 4;
+    bars = red + (size_t)4 * FUSED_WARPS * BR * 4;
+    total = bars + (size_t)NBUF * 8;
+  }
+};
+
+bool fused_shape(int d, int k) { return k == BK && d % 8 == 0 && d >= 8 && d <= FUSED_MAX_D; }
+
+__device__ __forceinline__ int ring(int t, int n) { return ((t % n) + n) % n; }
+// s mod n for 0 <= s < 2n
+__device__ __forceinline__ int wrap(int s, int n) { return s >= n ? s - n : s; }
+
+// The warp's sums of a tile's BR = 8 rows, v[r] this lane's value of row r,
+// by halving exchanges: at lane bits 4, 3 and 2 each lane keeps half of its
+// rows and adds its partner's half (4 + 2 + 1 shuffles), then a plain tree
+// over lane bits 1 and 0: 9 shuffles where a tree a row takes 40.  Returns
+// the warp's sum of row (lane >> 2) & 7, the same bits on every run.
+__device__ __forceinline__ float warp_rows_sum(const float (&v)[BR]) {
+  const int lane = threadIdx.x & 31;
+  float a[4], b[2];
+  const bool h4 = lane & 16, h3 = lane & 8, h2 = lane & 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    a[i] = (h4 ? v[i + 4] : v[i]) + __shfl_xor_sync(0xffffffffu, h4 ? v[i] : v[i + 4], 16);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    b[i] = (h3 ? a[i + 2] : a[i]) + __shfl_xor_sync(0xffffffffu, h3 ? a[i] : a[i + 2], 8);
+  float c = (h2 ? b[1] : b[0]) + __shfl_xor_sync(0xffffffffu, h2 ? b[0] : b[1], 4);
+  c += __shfl_xor_sync(0xffffffffu, c, 2);
+  c += __shfl_xor_sync(0xffffffffu, c, 1);
+  return c;
+}
+
+// This warp's row sums into the partials red[warp][BR] (one lane a row).
+__device__ __forceinline__ void put_rows(float* red, const float (&v)[BR]) {
+  const float s = warp_rows_sum(v);
+  const int lane = threadIdx.x & 31;
+  if ((lane & 3) == 0) red[(threadIdx.x / 32) * BR + (lane >> 2)] = s;
+}
+
+// The block's row sums from the warps' partials red[w][BR] (nwarps <= 16),
+// in every thread: lanes 0-15 read warp l's partial of row r, lanes 16-31
+// of row r + 4, a 4-level tree over each 16 lanes, then the two broadcast.
+// One order for every thread: the same bits in all of them.
+__device__ __forceinline__ void rows_total(const float* red, int nwarps, float (&tot)[BR]) {
+  const int lane = threadIdx.x & 31, wl = lane & 15, hi = lane >> 4;
+#pragma unroll
+  for (int r = 0; r < BR / 2; ++r) {
+    float v = wl < nwarps ? red[wl * BR + r + 4 * hi] : 0.f;
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    tot[r] = __shfl_sync(0xffffffffu, v, 0);
+    tot[r + BR / 2] = __shfl_sync(0xffffffffu, v, 16);
+  }
+}
+
+// Item blockIdx.x = b * nc + chunk: the steps [c0, c1), c0 = chunk * CH
+// (the chunks: kernels.conformer_bwd_plan); thread c owns channel c (and
+// channel d + c of u and du).  Partial row of the item: ddw [k][d],
+// dln_scale [d], dln_bias [d], db_in [2d] (fp32 sums over the rows it owns).
+__global__ void __launch_bounds__(FUSED_MAX_D, 1)
+conv_bwd_fused_kernel(const __nv_bfloat16* __restrict__ u,       // [T, B, 2d]
+                      const __nv_bfloat16* __restrict__ b_in,    // [2d]
+                      const float* __restrict__ dw,              // [k, d]
+                      const float* __restrict__ ln_scale,        // [d]
+                      const float* __restrict__ ln_bias,         // [d]
+                      const int* __restrict__ lengths,           // [B]
+                      const __nv_bfloat16* __restrict__ dout,    // [T, B, d]
+                      float* __restrict__ part,                  // [B * nc][(k + 4) d]
+                      __nv_bfloat16* __restrict__ du,            // [T, B, 2d]
+                      int T, int B, int d, int CH, int nc) {
+  extern __shared__ __align__(128) unsigned char fsm[];  // FusedLayout
+  const FusedLayout lay(d);
+  const int b = blockIdx.x / nc, c0 = (blockIdx.x % nc) * CH, c1 = min(c0 + CH, T);
+  const int len = lengths[b];
+  const int c = threadIdx.x, nwarps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool own = c < d;
+  const __nv_bfloat16* u_s = reinterpret_cast<const __nv_bfloat16*>(fsm);     // [RU][2d]
+  const __nv_bfloat16* do_s = reinterpret_cast<const __nv_bfloat16*>(fsm + lay.dout);
+  __nv_bfloat16* y_s = reinterpret_cast<__nv_bfloat16*>(fsm + lay.y);        // [RW][d]
+  __nv_bfloat16* sg_s = reinterpret_cast<__nv_bfloat16*>(fsm + lay.sg);      // [RW][d]
+  float* dx_s = reinterpret_cast<float*>(fsm + lay.dx);                      // [RW][d]
+  float* red1 = reinterpret_cast<float*>(fsm + lay.red);                     // [4][16][BR]
+  float* red2 = red1 + FUSED_WARPS * BR;
+  float* red3 = red2 + FUSED_WARPS * BR;
+  float* red4 = red3 + FUSED_WARPS * BR;
+  uint64_t* full = reinterpret_cast<uint64_t*>(fsm + lay.bars);              // [NBUF]
+  const int ntiles = PRO + (c1 - c0 + BR - 1) / BR;
+  // the rows each stage computes: A (y) [a_lo, a_hi), B (dx) [b_lo, b_hi),
+  // C (du) [c0, c1); the rows of u and dout copied are those inside [0, T)
+  const int a_lo = c0 - 2 * BH, a_hi = c1 + 2 * BH, b_lo = c0 - BH, b_hi = c1 + BH;
+
+  // tile n's rows: C from c0 + (n - PRO) BR, B 7 rows later, A 14; its u
+  // rows (A's) into u's ring and its dout rows (B's) into buffer n % NBUF
+  auto issue = [&](int n) {
+    const int C0 = c0 + (n - PRO) * BR;
+    const uint32_t bar = cluster_ptx::smem_addr(&full[n % NBUF]);
+    uint32_t bytes = 0;
+    for (int r = 0; r < BR; ++r) {
+      const int ta = C0 + 2 * BH + r, tb = C0 + BH + r;
+      if (ta >= max(a_lo, 0) && ta < min(a_hi, T)) bytes += 4 * d;
+      if (tb >= max(b_lo, 0) && tb < min(b_hi, T)) bytes += 2 * d;
+    }
+    cluster_ptx::mbar_expect(&full[n % NBUF], bytes);
+    for (int r = 0; r < BR; ++r) {
+      const int ta = C0 + 2 * BH + r, tb = C0 + BH + r;
+      if (ta >= max(a_lo, 0) && ta < min(a_hi, T))
+        cluster_ptx::bulk_g2s(cluster_ptx::smem_addr(u_s + (size_t)ring(ta, RU) * 2 * d),
+                              u + ((size_t)ta * B + b) * 2 * d, 4 * d, bar);
+      if (tb >= max(b_lo, 0) && tb < min(b_hi, T))
+        cluster_ptx::bulk_g2s(cluster_ptx::smem_addr(do_s + ((size_t)(n % NBUF) * BR + r) * d),
+                              dout + ((size_t)tb * B + b) * d, 2 * d, bar);
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NBUF; ++i) cluster_ptx::mbar_init(&full[i], 1);
+    cluster_ptx::fence_mbar_init();
+    for (int n = 0; n < DEPTH && n < ntiles; ++n) issue(n);
+  }
+
+  // this thread's channel of the operands, and its sums
+  float ba = 0.f, bg = 0.f, sc = 0.f, bi = 0.f, w[BK], ddw[BK];
+#pragma unroll
+  for (int j = 0; j < BK; ++j) w[j] = ddw[j] = 0.f;
+  if (own) {
+    ba = __bfloat162float(b_in[c]);
+    bg = __bfloat162float(b_in[d + c]);
+    sc = ln_scale[c];
+    bi = ln_bias[c];
+#pragma unroll
+    for (int j = 0; j < BK; ++j) w[j] = dw[(size_t)j * d + c];
+  }
+  float dsc = 0.f, dbi = 0.f, dba = 0.f, dbg = 0.f;
+
+  for (int n = 0; n < ntiles; ++n) {
+    const int C0 = c0 + (n - PRO) * BR, B0 = C0 + BH, A0 = C0 + 2 * BH;
+    // ring slots of rows C0 (u's and y's rings) and C0 - BH (dx's)
+    const int su = ring(C0, RU), sy = ring(C0, RW), sx = ring(C0 - BH, RW);
+    // every thread is past tile n - 1: its u rows (stage C) and dout
+    // buffer (stage B) may be overwritten by tile n + DEPTH's copies
+    __syncthreads();
+    if (threadIdx.x == 0 && n + DEPTH < ntiles) issue(n + DEPTH);
+    cluster_ptx::mbar_wait(&full[n % NBUF], (n / NBUF) & 1);
+
+    // A: y of rows A0 .. A0 + BR - 1 (zero outside [0, T))
+    if (own) {
+#pragma unroll
+      for (int r = 0; r < BR; ++r) {
+        const int t = A0 + r;
+        if (t < a_lo || t >= a_hi) continue;
+        float y = 0.f, sg = 0.f;
+        if (t >= 0 && t < T) {
+          const __nv_bfloat16* row = u_s + (size_t)wrap(su + 2 * BH + r, RU) * 2 * d;
+          const float a = bf_round(__bfloat162float(row[c]) + ba);
+          const float g = bf_round(__bfloat162float(row[d + c]) + bg);
+          sg = bf_round(sigmoid(g));
+          y = bf_round(a * sg) * (t < len ? 1.f : 0.f);
+        }
+        const size_t slot = (size_t)wrap(sy + 2 * BH + r, RW) * d + c;
+        y_s[slot] = __float2bfloat16(y);    // exact
+        sg_s[slot] = __float2bfloat16(sg);  // exact, for stage C
+      }
+    }
+
+    // B: dx of rows B0 .. B0 + BR - 1, from y's rows C0 .. C0 + RW - 1
+    if (B0 + BR > b_lo && B0 < b_hi) {
+      float yw[RW];
+#pragma unroll
+      for (int i = 0; i < RW; ++i)
+        yw[i] = own ? __bfloat162float(y_s[(size_t)wrap(sy + i, RW) * d + c]) : 0.f;
+      float x[BR], mu[BR], t1[BR], t2[BR];
+#pragma unroll
+      for (int r = 0; r < BR; ++r) {
+        x[r] = 0.f;
+#pragma unroll
+        for (int j = 0; j < BK; ++j) x[r] = fmaf(yw[r + j], w[j], x[r]);
+      }
+      put_rows(red1, x);
+      __syncthreads();
+      rows_total(red1, nwarps, mu);
+#pragma unroll
+      for (int r = 0; r < BR; ++r) {
+        mu[r] /= d;
+        const float e = x[r] - mu[r];
+        t1[r] = own ? e * e : 0.f;
+      }
+      put_rows(red2, t1);
+      __syncthreads();
+      rows_total(red2, nwarps, t1);
+      const __nv_bfloat16* dob = do_s + (size_t)(n % NBUF) * BR * d;
+      float rstd[BR], dxh[BR];
+#pragma unroll
+      for (int r = 0; r < BR; ++r) {
+        const int t = B0 + r;
+        rstd[r] = rsqrtf(t1[r] / d + 1e-6f);
+        const float xh = (x[r] - mu[r]) * rstd[r];
+        const float g = own && t >= 0 && t < T ? __bfloat162float(dob[(size_t)r * d + c]) : 0.f;
+        const float z = xh * sc + bi;
+        const float sp = sigmoid(z);
+        const float dz = g * sp + (z * g) * (sp * sigmoid(-z));
+        if (t >= c0 && t < c1) {
+          dsc = fmaf(dz, xh, dsc);
+          dbi += dz;
+        }
+        x[r] = xh;
+        dxh[r] = dz * sc;
+        t2[r] = dxh[r] * xh;
+      }
+      put_rows(red3, dxh);
+      put_rows(red4, t2);
+      __syncthreads();
+      rows_total(red3, nwarps, t1);
+      rows_total(red4, nwarps, t2);
+#pragma unroll
+      for (int r = 0; r < BR; ++r) {
+        const int t = B0 + r;
+        const float m1 = t1[r] / d, m2 = t2[r] / d;
+        // rows outside [0, T) hold dx = 0
+        const float g = t >= 0 && t < T ? rstd[r] * (dxh[r] - m1 - x[r] * m2) : 0.f;
+        if (own && t >= b_lo && t < b_hi) dx_s[(size_t)wrap(sx + 2 * BH + r, RW) * d + c] = g;
+        // ddw[j] += y[t + j - k/2] * dx[t] over the rows the item owns
+        if (t >= c0 && t < c1) {
+#pragma unroll
+          for (int j = 0; j < BK; ++j) ddw[j] = fmaf(yw[r + j], g, ddw[j]);
+        }
+      }
+    }
+
+    // C: du of rows C0 .. C0 + BR - 1 in [c0, c1), from dx's rows C0 - 7 ..
+    if (own && C0 + BR > c0 && C0 < c1) {
+      float xw[RW];
+#pragma unroll
+      for (int i = 0; i < RW; ++i) xw[i] = dx_s[(size_t)wrap(sx + i, RW) * d + c];
+#pragma unroll
+      for (int r = 0; r < BR; ++r) {
+        const int t = C0 + r;
+        if (t < c0 || t >= c1) continue;
+        // the transposed conv: dy[t] = sum_j dx[t - j + k/2] * dw[j]
+        float dy = 0.f;
+#pragma unroll
+        for (int j = 0; j < BK; ++j) dy = fmaf(xw[r + 2 * BH - j], w[j], dy);
+        // the mask and the GLU backward, with the reference's bf16 roundings
+        const float e = bf_round(dy) * (t < len ? 1.f : 0.f);
+        const __nv_bfloat16* row = u_s + (size_t)wrap(su + r, RU) * 2 * d;
+        const float a = bf_round(__bfloat162float(row[c]) + ba);
+        const float g = bf_round(__bfloat162float(row[d + c]) + bg);
+        const float sg = __bfloat162float(sg_s[(size_t)wrap(sy + r, RW) * d + c]);
+        const float da = bf_round(e * sg);
+        const float dg = bf_round(bf_round(e * a) * bf_round(sg * bf_round(sigmoid(-g))));
+        __nv_bfloat16* drow = du + ((size_t)t * B + b) * 2 * d;
+        drow[c] = __float2bfloat16(da);
+        drow[d + c] = __float2bfloat16(dg);
+        dba += da;
+        dbg += dg;
+      }
+    }
+  }
+
+  if (own) {
+    float* row = part + (size_t)blockIdx.x * (BK + 4) * d;
+#pragma unroll
+    for (int j = 0; j < BK; ++j) row[(size_t)j * d + c] = ddw[j];
+    row[(size_t)BK * d + c] = dsc;
+    row[(size_t)(BK + 1) * d + c] = dbi;
+    row[(size_t)(BK + 2) * d + c] = dba;
+    row[(size_t)(BK + 3) * d + c] = dbg;
+  }
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -439,8 +774,13 @@ extern "C" long long avsr_conformer_conv_smem(int d, int k) {
   return (long long)m;
 }
 
-// Rows of the backward's partial sums: B * ceil(T / CH), each (k + 4) * d floats.
+// Rows of the general backward's partial sums: B * ceil(T / CH), each (k + 4) * d floats.
 extern "C" int avsr_conformer_conv_bwd_parts(int T, int B) { return B * ((T + CH - 1) / CH); }
+
+// Shared-memory bytes of the fused backward at d channels (FusedLayout).
+extern "C" long long avsr_conformer_conv_bwd_fused_smem(int d) {
+  return (long long)FusedLayout(d).total;
+}
 
 extern "C" int avsr_conformer_conv(const void* u, const void* b_in, const void* dw,
                                    const void* ln_scale, const void* ln_bias,
@@ -493,5 +833,35 @@ extern "C" int avsr_conformer_conv_bwd(const void* u, const void* b_in, const vo
   const int n = (k + 4) * d;
   reduce_parts_kernel<<<(n + 31) / 32, dim3(32, 8), 0, st>>>(
       pf, static_cast<float*>(grads), B * (int)grid.x, n, (k + 2) * d);
+  return (int)cudaGetLastError();
+}
+
+// The fused backward (k = 15, d a multiple of 8 up to 512): the items
+// (utterance, chunk of CH steps), nc chunks an utterance, nc * CH >= T; part
+// [B * nc, (k + 4) * d] fp32 is scratch; the outputs as the general entry's.
+extern "C" int avsr_conformer_conv_bwd_fused(const void* u, const void* b_in, const void* dw,
+                                             const void* ln_scale, const void* ln_bias,
+                                             const void* lengths, const void* dout, void* part,
+                                             void* du, void* grads, int T, int B, int d, int k,
+                                             int CH, int nc, void* stream) {
+  if (bad_shape(T, B, d, k) || !fused_shape(d, k) || CH < 1 || nc < 1 || nc * CH < T ||
+      (nc - 1) * CH >= T)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const size_t smem = FusedLayout(d).total;
+  cudaError_t e = allow_smem(conv_bwd_fused_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  float* pf = static_cast<float*>(part);
+  conv_bwd_fused_kernel<<<B * nc, (d + 31) / 32 * 32, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(u), static_cast<const __nv_bfloat16*>(b_in),
+      static_cast<const float*>(dw), static_cast<const float*>(ln_scale),
+      static_cast<const float*>(ln_bias), static_cast<const int*>(lengths),
+      static_cast<const __nv_bfloat16*>(dout), pf, static_cast<__nv_bfloat16*>(du), T, B, d, CH,
+      nc);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int n = (k + 4) * d;
+  reduce_parts_kernel<<<(n + 31) / 32, dim3(32, 8), 0, st>>>(pf, static_cast<float*>(grads),
+                                                            B * nc, n, (k + 2) * d);
   return (int)cudaGetLastError();
 }

@@ -97,14 +97,7 @@ constexpr size_t SMEM_LIMIT = 232448;  // bytes a block may use on an H100
 
 // ---- PTX ------------------------------------------------------------------
 
-// one bulk copy of `bytes` (a multiple of 16) from device memory into this
-// CTA's shared memory, counted on the mbarrier `bar`
-__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, uint32_t bytes,
-                                         uint32_t bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-               "[%0], [%1], %2, [%3];\n" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-               : "memory");
-}
+using cluster_ptx::bulk_g2s;
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
 }
@@ -113,32 +106,12 @@ __device__ __forceinline__ void consumers_sync(int nthreads) {
   asm volatile("bar.sync 1, %0;\n" ::"r"(nthreads) : "memory");
 }
 
-// ---- fragments of pitched tiles (rows P elements apart) -------------------
+// ---- fragments of pitched tiles (attention_mma.cuh) ---------------------------
 
-// A: rows r0..r0+15 (m) by columns c0..c0+15 (k)
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* t, int P, int r0, int c0,
-                                       int lane) {
-  mma_attn::ldsm_x4(a, t + (size_t)(r0 + (lane & 15)) * P + c0 + ((lane >> 4) << 3));
-}
-// A as the transpose of the tile: m along columns c0..c0+15, k along rows
-// r0..r0+15
-__device__ __forceinline__ void load_at(uint32_t (&a)[4], const bf16* t, int P, int r0, int c0,
-                                        int lane) {
-  mma_attn::ldsm_x4_trans(
-      a, t + (size_t)(r0 + (lane & 7) + ((lane >> 4) << 3)) * P + c0 + (((lane >> 3) & 1) << 3));
-}
-// B of two n-tiles, n along rows n0..n0+15, k along columns c0..c0+15
-__device__ __forceinline__ void load_b(uint32_t (&b)[4], const bf16* t, int P, int n0, int c0,
-                                       int lane) {
-  mma_attn::ldsm_x4(
-      b, t + (size_t)(n0 + (lane & 7) + ((lane >> 4) << 3)) * P + c0 + (((lane >> 3) & 1) << 3));
-}
-// B of two n-tiles, k along rows k0..k0+15, n along columns c0..c0+15
-__device__ __forceinline__ void load_bt(uint32_t (&b)[4], const bf16* t, int P, int k0, int c0,
-                                        int lane) {
-  mma_attn::ldsm_x4_trans(
-      b, t + (size_t)(k0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * P + c0 + ((lane >> 4) << 3));
-}
+using mma_attn::pitched::load_a;
+using mma_attn::pitched::load_at;
+using mma_attn::pitched::load_b;
+using mma_attn::pitched::load_bt;
 
 // acc = A (16 rows at r0 of a, KD 16-column steps) . B^T (16 rows at n0 of
 // b): the kd order of attention_mma.cuh's product, so the scores' bits

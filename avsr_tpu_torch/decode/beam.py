@@ -13,6 +13,9 @@ Same semantics as the reference, top-1 only:
 * the decoder state (the transformer's KV caches, or the RNN decoder's
   (h, c) and contexts) is gathered by parent every step, every tensor of
   it, as the reference's ``tree_map`` does;
+* the memories are tiled over the beams for the RNN decoder only: the
+  transformer's cross read (K6) takes each utterance's memory row for all
+  of its W beams, where the reference tiles it (the same values);
 * the step after the decoder (log-softmax, masks, length penalty, top-W,
   gathers, trellis row) is kernel K7: ``beam_step`` launches
   ``csrc/beam_step.cu`` for GPU tensors and runs ``beam_step_plain`` for
@@ -110,13 +113,15 @@ def beam_step(logits, logp, lens, finished, lp_table, tokens_row, parents_row) -
 
 
 def _tile_memory(mem: attn.AttentionMemory, width: int, cdt: torch.dtype) -> attn.AttentionMemory:
-    """[B, ...] -> [B*W, ...] with beams contiguous per batch row; the values
-    in the compute dtype, cast once here instead of at every step; the
-    Bahdanau keys (if any) stay fp32; keys that are the values (a Luong
-    memory without a value projection, read only in the compute dtype)
-    stay one tensor."""
+    """[B, ...] -> [B*W, ...] with beams contiguous per batch row (``width``
+    1: the rows as they are); the values in the compute dtype, cast once
+    here instead of at every step; the Bahdanau keys (if any) stay fp32;
+    keys that are the values (a Luong memory without a value projection,
+    read only in the compute dtype) stay one tensor."""
     def tile(x):
-        return None if x is None else x.repeat_interleave(width, dim=0)
+        if x is None:
+            return None
+        return x.contiguous() if width == 1 else x.repeat_interleave(width, dim=0)
 
     values = tile(mem.values).to(cdt)
     keys = values if mem.keys is mem.values else tile(mem.keys)
@@ -142,7 +147,10 @@ def beam_search(params, cfg: DecoderConfig, memories: Sequence[attn.AttentionMem
     B = memories[0].values.shape[0]
     W = beam_width
     dev = memories[0].values.device
-    tiled = [_tile_memory(m, W, cdt) for m in memories]
+    # the transformer's cross read (K6) takes the untiled memory, each beam
+    # reading its utterance's row; the RNN decoder's read (K10) the tiled one
+    tiled = [_tile_memory(m, 1 if cfg.decoder_type == "transformer" else W, cdt)
+             for m in memories]
     state = dec.initial_state(cfg, B * W, max_length, cdt, dev,
                               memory_dims=[m.values.shape[-1] for m in memories])
     cross_kv = dec.prepare_cross(params, cfg, tiled, cdt)

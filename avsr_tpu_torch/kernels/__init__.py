@@ -204,8 +204,16 @@ def _load() -> ctypes.CDLL:
         lib.avsr_decoder_attn_core_fwd.restype = i
         lib.avsr_attn_core_bwd.argtypes = [p] * 9 + [i] * 6 + [p]
         lib.avsr_attn_core_bwd.restype = i
-        lib.avsr_decode_attn.argtypes = [p] * 5 + [i] * 6 + [p]
+        lib.avsr_decode_attn.argtypes = [p] * 5 + [i] * 7 + [p]
         lib.avsr_decode_attn.restype = i
+        lib.avsr_decode_attn_rows.argtypes = [p] * 4 + [i] * 5 + [p]
+        lib.avsr_decode_attn_rows.restype = i
+        lib.avsr_decode_rows_smem.argtypes = [i, i]
+        lib.avsr_decode_rows_smem.restype = ctypes.c_longlong
+        lib.avsr_decode_attn_grouped.argtypes = [p] * 5 + [i] * 7 + [p]
+        lib.avsr_decode_attn_grouped.restype = i
+        lib.avsr_decode_grouped_smem.argtypes = [i] * 4
+        lib.avsr_decode_grouped_smem.restype = ctypes.c_longlong
         lib.avsr_beam_step.argtypes = [p] * 12 + [i] * 4 + [p]
         lib.avsr_beam_step.restype = i
         lib.avsr_av_align_smem.argtypes = [i, i, i, i, i]
@@ -262,6 +270,10 @@ def _load() -> ctypes.CDLL:
         lib.avsr_conformer_conv_bwd_parts.restype = i
         lib.avsr_conformer_conv_bwd.argtypes = [p] * 11 + [i] * 4 + [p]
         lib.avsr_conformer_conv_bwd.restype = i
+        lib.avsr_conformer_conv_bwd_fused_smem.argtypes = [i]
+        lib.avsr_conformer_conv_bwd_fused_smem.restype = ctypes.c_longlong
+        lib.avsr_conformer_conv_bwd_fused.argtypes = [p] * 10 + [i] * 6 + [p]
+        lib.avsr_conformer_conv_bwd_fused.restype = i
         _lib = lib
     return _lib
 
@@ -777,32 +789,133 @@ def attention_bwd_core(kernel: str, q, k, v, weights, dctx):
     return dq, dkk, dvv
 
 
+# K6's self instance (``csrc/decode_attention.cu``, "rows"): one block per
+# cache row, every head; the row's nh * dh = 256 channels are one 16-byte
+# chunk a lane of a warp, its keys and values staged whole in shared memory
+DECODE_ROW_WIDTH = 256
+DECODE_ROW_TILE = 32  # keys a bulk copy
+# K6's grouped cross read ("grouped"): a CTA per (memory row, head, slice
+# of value columns), the W queries of the row on the tensor cores
+DECODE_GROUP_BLOCKS = 132    # CTAs of one wave: an SM each
+# value columns a CTA holds at least: each slice reads all of the row's
+# keys, and 16-column slices (the only ones that fit at the 16 s memory)
+# read them so often that the general kernel is faster
+DECODE_GROUP_MIN_COLS = 32
+
+
+def decode_rows_smem(n_keys: int, nh: int) -> int:
+    """Shared memory of K6's self instance over ``n_keys`` keys at ``nh``
+    heads, bytes (``RowLayout``): the keys and values [n_keys, 256] bf16,
+    the scores [nh, n_keys] fp32 (rounded up to 16 bytes), the 16 warps'
+    partial context rows [16, 256] fp32, one mbarrier a 32-key tile of each."""
+    tiles = -(-n_keys // DECODE_ROW_TILE)
+    p = 2 * n_keys * DECODE_ROW_WIDTH * 2
+    part = p + (nh * n_keys * 4 + 15) // 16 * 16
+    return part + 16 * DECODE_ROW_WIDTH * 4 + 2 * tiles * 8
+
+
+def decode_grouped_smem(W: int, S: int, dk: int, dvs: int) -> int:
+    """Shared memory of a CTA of K6's grouped cross read (``GroupLayout``)
+    over W queries (16-row strips), S keys (rounded up to 16) and dvs value
+    columns: the queries and keys [., dk + 8] bf16, the value columns [S,
+    dvs + 8] bf16, the scores [16 strips, S] fp32, bf16(P) [16 strips, S +
+    8], bytes."""
+    rows, sp = -(-W // 16) * 16, -(-S // 16) * 16
+    return (rows * (dk + 8) * 2 + sp * (dk + 8) * 2 + sp * (dvs + 8) * 2 + rows * sp * 4
+            + rows * (sp + 8) * 2)
+
+
+def decode_grouped_slices(B: int, W: int, S: int, nh: int, dk: int, dv: int) -> int:
+    """CV, the CTAs of K6's grouped cross read per (memory row, head), each
+    a slice of dv / CV value columns (a multiple of 16, at least
+    ``DECODE_GROUP_MIN_COLS`` where dv has them): the most that keep B nh
+    CV within a wave of ``DECODE_GROUP_BLOCKS``, among those whose CTA fits
+    in shared memory (else the fewest that fit); 0 where none fits or the
+    widths are not multiples of 16 (the tensor cores' k step)."""
+    if dk % 16 or dv % 16:
+        return 0
+    fits = [c for c in range(1, dv // 16 + 1)
+            if dv % (16 * c) == 0 and dv // c >= min(dv, DECODE_GROUP_MIN_COLS)
+            and decode_grouped_smem(W, S, dk, dv // c) <= SMEM_LIMIT]
+    if not fits:
+        return 0
+    target = max(1, DECODE_GROUP_BLOCKS // (B * nh))
+    within = [c for c in fits if c <= target]
+    return max(within) if within else min(fits)
+
+
+def decode_attention_route(N: int, B: int, L: int, n_keys: int, nh: int, dk: int, dv: int,
+                           cross: bool) -> str:
+    """The kernel that runs K6 for N query rows over B key rows of length L
+    (W = N / B queries a key row), ``n_keys`` of them read: "grouped", the
+    cross read of W >= 2 beams at widths that are multiples of 16 while a
+    CTA holds the memory row's keys (``decode_grouped_slices``): the W
+    queries of a memory row as one tile on the tensor cores, each key and
+    value row through shared memory once for them; "rows", the self read of
+    a cache row per block at nh * dk = nh * dv = 256 and dk / 8 a power of
+    two, while the row's keys and values fit in shared memory;
+    "general", the CUDA-core kernel of one block per (n, h), every other
+    shape (greedy's cross read among them: at W = 1 there is nothing to
+    share).  Chosen by shape alone, never after a failure."""
+    if N < 1 or B < 1 or N % B:
+        raise ValueError(f"decode attention: {N} query rows over {B} key rows; N must be a "
+                         f"positive multiple of B")
+    _check_widths("decode attention", dk, dv)
+    if not 1 <= n_keys <= L:
+        raise ValueError(f"decode attention: n_keys={n_keys} with L={L}")
+    if cross:
+        W = N // B
+        if W >= 2 and decode_grouped_slices(B, W, L, nh, dk, dv) > 0:
+            return "grouped"
+        return "general"
+    g = dk // 8
+    if (N == B and dk == dv and nh * dk == DECODE_ROW_WIDTH and g & (g - 1) == 0
+            and decode_rows_smem(n_keys, nh) <= SMEM_LIMIT):
+        return "rows"
+    return "general"
+
+
 def decode_attention(q, k, v, bias, n_keys: int):
     """K6: single-query decode attention (CUDA).
 
-    q [N,nh,dk] bf16 against k [N,L,nh,dk] and v [N,L,nh,dv] bf16; ``bias``
-    [N,L] f32 adds the memory's key bias to all L keys (cross attention,
-    ``n_keys`` == L), or None: self attention over keys [0, n_keys) of the
-    cache -> ctx [N,nh,dv] bf16.
+    q [N,nh,dk] bf16 against k [B,L,nh,dk] and v [B,L,nh,dv] bf16, query
+    row n reading key row n // (N / B) (a beam of utterance n // W reads
+    its untiled memory); ``bias`` [B,L] f32 adds the memory's key bias to all
+    L keys (cross attention, ``n_keys`` == L), or None: self attention over
+    keys [0, n_keys) of each row's cache (B == N) -> ctx [N,nh,dv] bf16.
+    The kernel by ``decode_attention_route``.
     """
     N, nh, dk = q.shape
-    L, dv = k.shape[1], v.shape[-1]
+    B, L = k.shape[:2]
+    dv = v.shape[-1]
     dev = q.device
+    route = decode_attention_route(N, B, L, n_keys, nh, dk, dv, bias is not None)
     _check("q", q, torch.bfloat16, (N, nh, dk), dev)
-    _check("k", k, torch.bfloat16, (N, L, nh, dk), dev)
-    _check("v", v, torch.bfloat16, (N, L, nh, dv), dev)
+    _check("k", k, torch.bfloat16, (B, L, nh, dk), dev)
+    _check("v", v, torch.bfloat16, (B, L, nh, dv), dev)
     if bias is not None:
-        _check("bias", bias, torch.float32, (N, L), dev)
-    if dk % 8 or dv % 8:
-        raise ValueError(f"decode attention: head dims {dk}/{dv} must be multiples of 8")
-    if not 1 <= n_keys <= L or (bias is not None and n_keys != L):
-        raise ValueError(f"decode attention: n_keys={n_keys} with L={L}")
+        _check("bias", bias, torch.float32, (B, L), dev)
+        if n_keys != L:
+            raise ValueError(f"decode attention: the cross read takes every key, n_keys={n_keys} "
+                             f"with L={L}")
+    elif B != N:
+        raise ValueError(f"decode attention: the self read takes a cache row per query row, "
+                         f"got {N} queries over {B} rows")
     lib = _load()
     ctx = torch.empty((N, nh, dv), dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.avsr_decode_attn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
-        ctx.data_ptr(), N, L, n_keys, nh, dk, dv, stream)
+    if route == "grouped":
+        cv = decode_grouped_slices(B, N // B, L, nh, dk, dv)
+        err = lib.avsr_decode_attn_grouped(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                           bias.data_ptr(), ctx.data_ptr(), B, N // B, L, cv, nh,
+                                           dk, dv, stream)
+    elif route == "rows":
+        err = lib.avsr_decode_attn_rows(q.data_ptr(), k.data_ptr(), v.data_ptr(), ctx.data_ptr(),
+                                        N, L, n_keys, nh, dk, stream)
+    else:
+        err = lib.avsr_decode_attn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), ctx.data_ptr(), N, B, L,
+            n_keys, nh, dk, dv, stream)
     _raise_on(err, "decode_attention launch")
     LAUNCHES["decode_attention"] += 1
     return ctx
@@ -1533,9 +1646,63 @@ def conformer_conv_fwd(u, b_in, dw, ln_scale, ln_bias, lengths):
     return out
 
 
+# K9's fused backward (``csrc/conformer_conv.cu``, ``conv_bwd_fused_kernel``):
+# one pass over time per item (utterance, chunk of steps), a thread per
+# channel, at every preset's taps and widths up to 512 channels
+CONV_BWD_TAPS = 15        # BK: its register windows are sized by the taps
+CONV_BWD_MAX_D = 512      # FUSED_MAX_D: a thread a channel
+CONV_BWD_ROWS = 8         # BR: rows a tile of the pass
+CONV_BWD_BUFS = 3         # NBUF: tiles of rows in flight (two ahead) and in use
+CONV_BWD_BLOCKS = 132     # items of one wave: one block an SM of an H100
+CONV_BWD_MIN_CH = 16      # the fewest steps of a chunk
+CONV_BWD_GENERAL_CH = 64  # CH: steps a block of the general backward's first two launches
+
+
+def conformer_bwd_fused_smem(d: int) -> int:
+    """Shared memory of K9's fused backward at d channels, bytes
+    (``FusedLayout``): u's ring of 2 (k/2) + 3 BR rows [2d] bf16, dout's
+    three tiles [BR, d] bf16, y's, bf16(sigmoid(gate))'s and dx's rings of
+    2 (k/2) + BR rows [d] (bf16, bf16, fp32), the row reductions' per-warp
+    partials (4 x 16 warps x BR fp32), three mbarriers."""
+    h, rows, bufs = CONV_BWD_TAPS // 2, CONV_BWD_ROWS, CONV_BWD_BUFS
+    ring_u, ring_w = 2 * h + bufs * rows, 2 * h + rows
+    return (ring_u * 4 * d + bufs * rows * 2 * d + 2 * ring_w * 2 * d + ring_w * 4 * d
+            + 4 * (CONV_BWD_MAX_D // 32) * rows * 4 + bufs * 8)
+
+
+def conformer_general_smem(d: int, k: int) -> int:
+    """Shared memory of the largest launch of K9's general backward (and of
+    its forward), bytes (``avsr_conformer_conv_smem``): the LayerNorm
+    launch's fp32 [16 + k - 1, d] stage and four per-warp [16] partials, or
+    the transposed conv's [16 + k - 1, d] stages of fp32 dx and bf16 y."""
+    nwarps = -(-(d // 2) // 32)
+    return max((16 + k - 1) * d * 4 + 4 * nwarps * 16 * 4, (16 + k - 1) * d * 6)
+
+
+def conformer_bwd_plan(T: int, B: int, d: int, k: int) -> Dict[str, object]:
+    """How K9's backward runs at (T, B, d, k), by shape alone: the route
+    ("fused", one pass over time per item and a sum of the items' partial
+    rows, at k = 15 and d a multiple of 8 up to 512; "general", the three
+    launches, every other shape), its items' chunks of steps (``chunks`` an
+    utterance of ``chunk`` steps each: one chunk where B items fill a wave
+    of ``CONV_BWD_BLOCKS``, else enough for a wave, each at least
+    ``CONV_BWD_MIN_CH`` steps), the rows of partial sums (one an item, each
+    (k + 4) d floats), the fp32 dx scratch [T, B, d] (general only, elements)
+    and the shared memory of its largest launch (bytes)."""
+    if k == CONV_BWD_TAPS and d % 8 == 0 and 8 <= d <= CONV_BWD_MAX_D:
+        nc = max(1, min(CONV_BWD_BLOCKS // B, T // CONV_BWD_MIN_CH))
+        ch = -(-T // nc)
+        nc = -(-T // ch)
+        return {"route": "fused", "chunks": nc, "chunk": ch, "part_rows": B * nc,
+                "dx_elements": 0, "smem": conformer_bwd_fused_smem(d)}
+    nc = -(-T // CONV_BWD_GENERAL_CH)
+    return {"route": "general", "chunks": nc, "chunk": CONV_BWD_GENERAL_CH, "part_rows": B * nc,
+            "dx_elements": T * B * d, "smem": conformer_general_smem(d, k)}
+
+
 def conformer_conv_bwd(u, b_in, dw, ln_scale, ln_bias, lengths, dout):
     """K9: the conformer conv module's backward (CUDA), recomputing the
-    forward from its inputs.
+    forward from its inputs; the kernels by ``conformer_bwd_plan``.
 
     The forward's operands and the output's cotangent dout [T,B,d] bf16 ->
     (du [T,B,2d] bf16, db_in [2d], ddw [k,d], dln_scale [d], dln_bias [d],
@@ -1543,19 +1710,23 @@ def conformer_conv_bwd(u, b_in, dw, ln_scale, ln_bias, lengths, dout):
     """
     T, B, d, k, dev = _check_conformer_conv(u, b_in, dw, ln_scale, ln_bias, lengths)
     _check("dout", dout, torch.bfloat16, (T, B, d), dev)
+    plan = conformer_bwd_plan(T, B, d, k)
     lib = _load()
     f32 = torch.float32
-    dx = torch.empty((T, B, d), dtype=f32, device=dev)
-    part = torch.empty((lib.avsr_conformer_conv_bwd_parts(T, B), (k + 4) * d), dtype=f32,
-                       device=dev)
+    part = torch.empty((plan["part_rows"], (k + 4) * d), dtype=f32, device=dev)
     du = torch.empty((T, B, 2 * d), dtype=torch.bfloat16, device=dev)
     grads = torch.empty(((k + 4) * d,), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.avsr_conformer_conv_bwd(u.data_ptr(), b_in.data_ptr(), dw.data_ptr(),
-                                      ln_scale.data_ptr(), ln_bias.data_ptr(),
-                                      lengths.data_ptr(), dout.data_ptr(), dx.data_ptr(),
-                                      part.data_ptr(), du.data_ptr(), grads.data_ptr(),
-                                      T, B, d, k, stream)
+    operands = (u.data_ptr(), b_in.data_ptr(), dw.data_ptr(), ln_scale.data_ptr(),
+                ln_bias.data_ptr(), lengths.data_ptr(), dout.data_ptr())
+    if plan["route"] == "fused":
+        err = lib.avsr_conformer_conv_bwd_fused(*operands, part.data_ptr(), du.data_ptr(),
+                                                grads.data_ptr(), T, B, d, k, plan["chunk"],
+                                                plan["chunks"], stream)
+    else:
+        dx = torch.empty((T, B, d), dtype=f32, device=dev)
+        err = lib.avsr_conformer_conv_bwd(*operands, dx.data_ptr(), part.data_ptr(),
+                                          du.data_ptr(), grads.data_ptr(), T, B, d, k, stream)
     _raise_on(err, "conformer_conv_bwd launch")
     LAUNCHES["conformer_conv_bwd"] += 1
     ddw, dln_scale, dln_bias, db_in = grads.split([k * d, d, d, 2 * d])

@@ -28,9 +28,12 @@ logits stay matrix products, as the reference leaves them to XLA:
   tensors and run ``decoder_attention_fwd_plain`` / ``_bwd_plain`` for CPU
   tensors.
 * K6, the single-query attention of ``decode_step`` (self attention over
-  the KV cache, cross attention over the prepared memory):
-  ``decode_attention`` launches ``csrc/decode_attention.cu`` for GPU
-  tensors and runs ``decode_attention_plain`` for CPU tensors.
+  the KV cache, cross attention over the prepared memory, which the beam
+  search does not tile: a beam reads its utterance's memory row):
+  ``decode_attention`` launches ``csrc/decode_attention.cu``'s kernels
+  for GPU tensors (by shape: the W beams' cross read of a memory row as
+  one tile, the self read a block per cache row, or the general kernel)
+  and runs ``decode_attention_plain`` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -180,10 +183,22 @@ def decoder_attention(q, k, v, bias):
 
 
 def decode_attention_plain(q, k, v, bias, n_keys: int):
-    """Plain-PyTorch K6.  q [N,nh,dk] against k [N,L,nh,dk], v [N,L,nh,dv]
-    in the compute dtype.  ``bias`` [N,L] fp32 adds the memory's key bias
-    (cross attention); None is the self attention at position
-    ``n_keys - 1``: keys at or past ``n_keys`` get -1e9 -> ctx [N,nh,dv]."""
+    """Plain-PyTorch K6.  q [N,nh,dk] against k [B,L,nh,dk], v [B,L,nh,dv]
+    in the compute dtype, query row n reading key row n // W (W = N / B:
+    the beams of an utterance read its one memory).  ``bias`` [B,L] fp32
+    adds the memory's key bias (cross attention); None is the self
+    attention at position ``n_keys - 1`` (B == N): keys at or past
+    ``n_keys`` get -1e9 -> ctx [N,nh,dv].  The key rows are gathered per
+    query row, so the result is bit for bit the read of the beam-tiled
+    memory."""
+    N, B = q.shape[0], k.shape[0]
+    if B < 1 or N % B:
+        raise ValueError(f"decode attention: {N} query rows over {B} key rows; N must be a "
+                         f"positive multiple of B")
+    if N != B:
+        rows = torch.arange(N, device=q.device) // (N // B)
+        k, v = k.index_select(0, rows), v.index_select(0, rows)
+        bias = None if bias is None else bias.index_select(0, rows)
     L, dk = k.shape[1], q.shape[-1]
     scores = torch.einsum("nhd,nlhd->nhl", q, k).float() / math.sqrt(dk)
     if bias is None:
@@ -241,8 +256,9 @@ def transformer_decoder_init(gen: torch.Generator, cfg: DecoderConfig,
 
 def prepare_cross(params: Params, cfg: DecoderConfig,
                   memories: Sequence[attn.AttentionMemory], cdt: torch.dtype) -> Tuple:
-    """Per layer, one [N, S, qk] cross-attention key tensor per memory
-    (loop-invariant: computed once before the decode loop)."""
+    """Per layer, one [B, S, qk] cross-attention key tensor per memory of B
+    rows (loop-invariant: computed once before the decode loop; the beam
+    search passes the untiled memories, read by every beam of a row)."""
     return tuple(
         tuple(mem.values.to(cdt) @ ck.to(cdt) for ck, mem in zip(layer["ck"], memories))
         for layer in params["layers"]
@@ -262,16 +278,19 @@ def initial_cache(cfg: DecoderConfig, batch: int, max_length: int,
 
 
 def _cross_attend_rows(layer, cfg: DecoderConfig, h, memories, cross_keys, cdt):
-    """Single-position cross attention: h [N, D] -> context [N, sum_ctx]."""
+    """Single-position cross attention: h [N, D] -> context [N, sum_ctx];
+    the memories hold B rows, N a multiple of B (row n reads memory row
+    n // (N / B): the beams of an utterance share its memory)."""
     nh, A = cfg.num_heads, cfg.attention_units
+    N = h.shape[0]
     y = layer_norm(h, layer["ln_c_scale"], layer["ln_c_bias"]).to(cdt)
-    q = (y @ layer["cq"].to(cdt)).reshape(-1, nh, A)
+    q = (y @ layer["cq"].to(cdt)).reshape(N, nh, A)
     ctxs = []
     for mem, k_proj in zip(memories, cross_keys):
-        N, S, _ = k_proj.shape
-        k = k_proj.reshape(N, S, nh, A)
+        B, S, _ = k_proj.shape
+        k = k_proj.reshape(B, S, nh, A)
         mv = mem.values.shape[-1]
-        v = mem.values.to(cdt).reshape(N, S, nh, mv // nh)
+        v = mem.values.to(cdt).reshape(B, S, nh, mv // nh)
         ctxs.append(decode_attention(q, k, v, mem.bias, S).reshape(N, mv))
     return torch.cat(ctxs, dim=-1)
 

@@ -75,12 +75,18 @@ Phases, in order; any failure exits nonzero before the final line:
              (scaled_dot_product_attention and its backward, same mask) and
              the bounds; then one lrs2_av_v2 train step at B=4 with a 16 s
              utterance (loss finite, every gradient leaf present).
-10. K6     — single-query decode attention against its plain twin at N=80
-             and N=128, pos 0/37/149 over the self KV cache [L=150, 4x64]
-             and over the fast and the v2 model's memories [S=50 and 197,
-             dk=128, dv=256] with a length-0 row; times, device times, the
-             bounds and the yardstick of one step's pair at N=80 over
-             either memory.
+10. K6     — single-query decode attention against its plain twin at a
+             beam step (N=80 rows: B=8 utterances of W=10 beams, the memory
+             untiled) and a greedy step (N=128, W=1): self at pos 0/37/149
+             over the KV cache [L=150, 4x64], cross over the fast, the v2
+             and the 16 s memories [S=50, 197, 531, dk=128, dv=256] with a
+             length-0 row (its beams read the mean of its values), and off
+             the main path (self at 4x32, cross at (64, 96) with W=3); two
+             launches bit-equal; the routes' shared memory against the
+             library's; times, device times (self and cross apart), the
+             bound (the untiled memory read once, beside the beam-tiled
+             read's) and the yardstick of one step's pair at both
+             memories, and of greedy's pair.
 11. K7     — the fused beam step against its plain twin at [B=8, W=10,
              V=44]: random logits and states, finished beams, alpha 0 and
              0.6 (identical parents, tokens, lens, finished, feeds; logp
@@ -182,11 +188,13 @@ Phases, in order; any failure exits nonzero before the final line:
              times, device time, the bound and the library yardstick
              (scaled_dot_product_attention's backward, same mask).
 26. K9 bwd — the conformer conv module's backward against its plain twin at
-             [T=197, B=128, d=512, k=15] and at T=531, B=4, ragged with a
-             0-length row: errors on du, db_in, ddw, dln_scale, dln_bias,
-             each to its own tolerance; the padded steps' du exactly zero;
-             two runs bit-equal; times and the yardstick (the depthwise
-             conv1d backward alone).
+             [T=197, B=128, d=512, k=15] and at T=531, B=4 (the fused
+             route: one pass over time per item) and at [T=70, B=5,
+             d=1024] (the general route), ragged with a 0-length row:
+             errors on du, db_in, ddw, dln_scale, dln_bias, each to its own
+             tolerance; the padded steps' du exactly zero; two runs
+             bit-equal; the plan's shared memory against the library's;
+             times and the yardstick (the depthwise conv1d backward alone).
 27. train-v2 — the full-width ``lrs2_av_v2`` train step at B=128, 6 s,
              label cap 80, AU targets, encoder dropout 0.1, noise mixing on,
              as phase 8: (a) the loss and every gradient leaf of the kernel
@@ -1517,92 +1525,155 @@ def phase_k5_v2_16s(dev):
         fail("K5", "the v2 train step with a 16 s utterance failed")
 
 
-def k6_inputs(N, L, dk, dv, dev, cross, seed):
+def k6_inputs(N, B, L, dk, dv, dev, cross, seed, nh=4):
+    """q [N, nh, dk] against B key rows [L, nh, dk] and values [L, nh, dv]
+    (self: B = N, a cache row per query row; cross: an untiled memory read
+    by W = N / B beams a row), cross mode's bias [B, L] ragged with row 1
+    of length 0."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
-    q = torch.randn((N, 4, dk), generator=g).to(torch.bfloat16)
-    k = torch.randn((N, L, 4, dk), generator=g).to(torch.bfloat16)
-    v = torch.randn((N, L, 4, dv), generator=g).to(torch.bfloat16)
+    q = torch.randn((N, nh, dk), generator=g).to(torch.bfloat16)
+    k = torch.randn((B, L, nh, dk), generator=g).to(torch.bfloat16)
+    v = torch.randn((B, L, nh, dv), generator=g).to(torch.bfloat16)
     bias = None
     if cross:
-        lens = torch.randint(1, L + 1, (N,), generator=g)
-        lens[0], lens[1] = L, 0  # row 1: a memory of length 0
+        lens = torch.randint(1, L + 1, (B,), generator=g)
+        lens[0], lens[min(1, B - 1)] = L, 0  # row 1: a memory of length 0
         bias = (1.0 - (torch.arange(L)[None, :] < lens[:, None]).float()) * -1e30
     return [None if x is None else x.to(dev) for x in (q, k, v, bias)]
 
 
+# K6's shapes: a serve request's beam step (N = 80 rows, B = 8 utterances
+# of W = 10 beams) and a greedy step (N = 128 rows of one beam); the self
+# read over the 150-step cache at positions 0, 37, 149; the cross read over
+# the fast and the v2 model's memories (S = 50, 197) and v2's 16 s limit
+# (S = 531); off the main path, the self read at 4 heads of 32 (the
+# general kernel) and the cross read at (dk, dv) = (64, 96) with 3 beams
+K6_ROWS = ((80, 8), (128, 128))
+K6_POS = (0, 37, 149)
+K6_MEMORIES = (50, 197, 531)
+
+
+def k6_pair_bytes(N, B, pos, S, dk=128, dv=256, dh=64, nh=4):
+    """The bytes one decode step's pair (self at pos, cross over S) must
+    move at N query rows over B memory rows: the cache's keys and values
+    0..pos, the queries, the memory's keys, values and bias read once, the
+    contexts written once."""
+    self_nb = (pos + 1) * N * nh * dh * 2 * 2 + 2 * N * nh * dh * 2
+    cross_nb = B * S * nh * (dk + dv) * 2 + B * S * 4 + N * nh * (dk + dv) * 2
+    return self_nb + cross_nb
+
+
 def phase_k6(dev, report):
     """K6 against its plain version in self mode over the 150-step cache and
-    in cross mode over the fast model's memory (S = 50) and the v2 model's
-    (S = 197), each with a length-0 row; times one decode step's pair at
-    both memories."""
+    in cross mode over the untiled fast, v2 and 16 s memories, each with a
+    length-0 row, at a beam step (N = 80, W = 10) and a greedy step (N =
+    128, W = 1), and off the main path; two launches bit-equal; times one
+    decode step's pair at both memories and greedy's pair."""
     import torch
 
+    from avsr_tpu_torch import kernels
     from avsr_tpu_torch.models import transformer_decoder as tdec
 
+    def check(label, q, k, v, bias, n_keys, W=1):
+        route = kernels.decode_attention_route(q.shape[0], k.shape[0], k.shape[1], n_keys,
+                                               q.shape[1], q.shape[2], v.shape[-1],
+                                               bias is not None)
+        out_k = tdec.decode_attention(q, k, v, bias, n_keys)
+        same = torch.equal(out_k, tdec.decode_attention(q, k, v, bias, n_keys))
+        err = max_err(out_k, tdec.decode_attention_plain(q, k, v, bias, n_keys))
+        uni = 0.0
+        if bias is not None:  # memory row 1 is empty: its beams read the mean of its values
+            mean = v[1].float().mean(dim=0).to(torch.bfloat16)
+            uni = max_err(out_k[W:2 * W], mean[None].expand(W, -1, -1))
+        print(f"K6 {label} ({route}) max abs err {err} (tol {K6_TOL}); length-0 row against "
+              f"the plain mean of its values: {uni}; two launches bit-equal: {same}")
+        if not (err <= K6_TOL and uni <= K6_TOL and same):
+            fail("K6", f"{label} disagrees: {err}, length-0 row {uni}, bit-equal {same}")
+        return err
+
+    # the routes' shared-memory mirrors against the library's layouts
+    lib = kernels._load()
+    bad = [(n, nh) for n in (1, 31, 32, 150, 207) for nh in (1, 4, 8)
+           if lib.avsr_decode_rows_smem(n, nh) != kernels.decode_rows_smem(n, nh)]
+    bad += [(W, S, dk, dvs) for W in (1, 10, 17) for S in (1, 50, 197, 531)
+            for dk, dvs in ((128, 64), (128, 16), (64, 96), (16, 16))
+            if lib.avsr_decode_grouped_smem(W, S, dk, dvs)
+            != kernels.decode_grouped_smem(W, S, dk, dvs)]
+    if bad:
+        fail("K6", f"the routes' shared memory differs from the library's at {bad}")
     worst = 0.0
-    for N in (80, 128):
-        for pos in (0, 37, 149):
-            q, k, v, _ = k6_inputs(N, 150, 64, 64, dev, False, seed=N + pos)
-            err = max_err(tdec.decode_attention(q, k, v, None, pos + 1),
-                          tdec.decode_attention_plain(q, k, v, None, pos + 1))
-            print(f"K6 self [N={N},L=150,pos={pos},4x64] max abs err {err} (tol {K6_TOL})")
-            if not err <= K6_TOL:
-                fail("K6", f"self attention at N={N}, pos={pos} disagrees: {err}")
-            worst = max(worst, err)
-        for S in (50, 197):
-            q, k, v, bias = k6_inputs(N, S, 128, 256, dev, True, seed=N + S)
-            out_k = tdec.decode_attention(q, k, v, bias, S)
-            err = max_err(out_k, tdec.decode_attention_plain(q, k, v, bias, S))
-            uni = max_err(out_k[1], v[1].float().mean(dim=0).to(torch.bfloat16))
-            print(f"K6 cross [N={N},S={S},dk=128,dv=256] max abs err {err} (tol {K6_TOL}); "
-                  f"length-0 row against the plain mean of its values: {uni}")
-            if not (err <= K6_TOL and uni <= K6_TOL):
-                fail("K6", f"cross attention at N={N}, S={S} disagrees: {err}, "
-                           f"length-0 row {uni}")
-            worst = max(worst, err)
-    # times at the serve shape: N = 80 beams, one decode step's two launches
-    # (self at the last position, cross over the fast and the v2 memory)
+    for N, B in K6_ROWS:
+        W = N // B
+        for pos in K6_POS:
+            q, k, v, _ = k6_inputs(N, N, 150, 64, 64, dev, False, seed=N + pos)
+            worst = max(worst, check(f"self [N={N},L=150,pos={pos},4x64]", q, k, v, None,
+                                     pos + 1))
+        for S in K6_MEMORIES:
+            q, k, v, bias = k6_inputs(N, B, S, 128, 256, dev, True, seed=N + S)
+            worst = max(worst, check(f"cross [N={N},B={B},W={W},S={S},dk=128,dv=256]",
+                                     q, k, v, bias, S, W))
+    q, k, v, _ = k6_inputs(16, 16, 40, 32, 32, dev, False, seed=5)
+    check("self off the main path [N=16,L=40,pos=19,4x32]", q, k, v, None, 20)
+    q, k, v, bias = k6_inputs(30, 10, 40, 64, 96, dev, True, seed=6)
+    check("cross off the main path [N=30,B=10,W=3,S=40,dk=64,dv=96]", q, k, v, bias, 40, 3)
+
+    # one decode step's pair at the serve shape (N = 80 beams of B = 8
+    # utterances; self at the last position, cross over the fast and the v2
+    # memory) and at greedy's (N = 128 rows of one beam)
     pos = 149
-    qs, ks, vs, _ = k6_inputs(80, 150, 64, 64, dev, False, seed=1)
-    self_mask = torch.zeros((80, 1, 1, 150), device=dev)
-    self_mask[..., pos + 1:] = -1e9
-    self_mask = self_mask.to(torch.bfloat16)
-    ctx_s = torch.empty((80, 4, 64), dtype=torch.bfloat16)
-    self_t = (time_ms(lambda: tdec.decode_attention(qs, ks, vs, None, pos + 1)),
-              time_ms(lambda: tdec.decode_attention_plain(qs, ks, vs, None, pos + 1)),
-              time_ms(lambda: sdpa(qs[:, None], ks, vs, self_mask)),
-              device_ms(lambda: tdec.decode_attention(qs, ks, vs, None, pos + 1)))
-    # the bytes each launch must read: keys and values 0..pos (self), all of
-    # the memory's (cross), the queries, the bias and the context written
-    self_nb = nbytes(qs, ctx_s) + (pos + 1) * 80 * 4 * 64 * 2 * 2
-    pair = {}
-    for S in (50, 197):
-        qc, kc, vc, bc = k6_inputs(80, S, 128, 256, dev, True, seed=2)
-        cross_mask = bc[:, None, None, :].to(torch.bfloat16)
-        cross_t = (time_ms(lambda: tdec.decode_attention(qc, kc, vc, bc, S)),
-                   time_ms(lambda: tdec.decode_attention_plain(qc, kc, vc, bc, S)),
-                   time_ms(lambda: sdpa(qc[:, None], kc, vc, cross_mask)),
-                   device_ms(lambda: tdec.decode_attention(qc, kc, vc, bc, S)))
-        tk, tp, tl, td = cross_t
-        b = bound(nbytes(qc, kc, vc, bc, torch.empty((80, 4, 256), dtype=torch.bfloat16)),
-                  2 * 80 * 4 * S * 384)
-        print(f"K6 cross at N=80, S={S} kernel {tk:.4f} ms (device {td:.4f} ms)  "
-              f"plain {tp:.4f} ms  library {tl:.4f} ms  bound {b[0]:.5f} ms ({b[1]})")
-        nb = self_nb + nbytes(qc, kc, vc, bc) + 80 * 4 * 256 * 2
-        fl = 2 * 80 * 4 * ((pos + 1) * 128 + S * 384)
-        pair[S] = dict(ms=self_t[0] + tk, plain_ms=self_t[1] + tp, library_ms=self_t[2] + tl,
-                       device_ms=self_t[3] + td, bound=bound(nb, fl))
-    print(f"K6 self at N=80, pos {pos} kernel {self_t[0]:.4f} ms (device {self_t[3]:.4f} ms)  "
-          f"plain {self_t[1]:.4f} ms  library {self_t[2]:.4f} ms")
-    v2 = pair[197]
+    pairs = {}
+    for N, B in K6_ROWS:
+        W = N // B
+        qs, ks, vs, _ = k6_inputs(N, N, 150, 64, 64, dev, False, seed=1)
+        self_mask = torch.zeros((N, 1, 1, 150), device=dev)
+        self_mask[..., pos + 1:] = -1e9
+        self_mask = self_mask.to(torch.bfloat16)
+        self_t = (time_ms(lambda: tdec.decode_attention(qs, ks, vs, None, pos + 1)),
+                  time_ms(lambda: tdec.decode_attention_plain(qs, ks, vs, None, pos + 1)),
+                  time_ms(lambda: sdpa(qs[:, None], ks, vs, self_mask)),
+                  device_ms(lambda: tdec.decode_attention(qs, ks, vs, None, pos + 1)))
+        for S in (50, 197):
+            qc, kc, vc, bc = k6_inputs(N, B, S, 128, 256, dev, True, seed=2)
+            # the library call reads the untiled memory too: W queries a row
+            cross_mask = bc[:, None, None, :].to(torch.bfloat16)
+            qw = qc.view(B, W, 4, 128)
+            cross_t = (time_ms(lambda: tdec.decode_attention(qc, kc, vc, bc, S)),
+                       time_ms(lambda: tdec.decode_attention_plain(qc, kc, vc, bc, S)),
+                       time_ms(lambda: sdpa(qw, kc, vc, cross_mask)),
+                       device_ms(lambda: tdec.decode_attention(qc, kc, vc, bc, S)))
+            tk, tp, tl, td = cross_t
+            fl = 2 * N * 4 * ((pos + 1) * 128 + S * 384)
+            pairs[(N, S)] = dict(
+                ms=self_t[0] + tk, plain_ms=self_t[1] + tp, library_ms=self_t[2] + tl,
+                device_ms=self_t[3] + td, self_device_ms=self_t[3], cross_device_ms=td,
+                bound=bound(k6_pair_bytes(N, B, pos, S), fl),
+                # the beam-tiled read's bytes, the yardstick of earlier PRs
+                bound_tiled=bound(k6_pair_bytes(N, N, pos, S), fl))
+            r = pairs[(N, S)]
+            print(f"K6 pair at N={N} (W={W}), pos {pos}, cross over S={S}: kernel {r['ms']:.4f} ms "
+                  f"(device {r['device_ms']:.4f}: self {self_t[3]:.4f} + cross {td:.4f})  plain "
+                  f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  bound "
+                  f"{r['bound'][0]:.5f} ms ({r['bound'][1]}; beam-tiled memory "
+                  f"{r['bound_tiled'][0]:.5f})")
+
+    def entry(key, shape):
+        r = pairs[key]
+        return {"shape": shape, "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "library_ms": r["library_ms"], "device_ms": r["device_ms"],
+                "self_device_ms": r["self_device_ms"], "cross_device_ms": r["cross_device_ms"],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "bound_tiled_ms": r["bound_tiled"][0]}
+
+    fast = pairs[(80, 50)]
     report["decode_attention"] = dict(
-        max_abs_err=worst, **pair[50],
-        at_v2_memory={"shape": "one step's pair at N=80, cross over S=197",
-                      "ms": v2["ms"], "plain_ms": v2["plain_ms"], "library_ms": v2["library_ms"],
-                      "device_ms": v2["device_ms"], "bound_ms": v2["bound"][0],
-                      "bound_by": v2["bound"][1]})
+        max_abs_err=worst, ms=fast["ms"], plain_ms=fast["plain_ms"],
+        library_ms=fast["library_ms"], device_ms=fast["device_ms"], bound=fast["bound"],
+        bound_tiled_ms=fast["bound_tiled"][0],
+        at_v2_memory=entry((80, 197), "one step's pair at N=80 (B=8, W=10), cross over S=197"),
+        greedy=entry((128, 50), "greedy's pair at N=128 (W=1), cross over S=50"),
+        greedy_v2=entry((128, 197), "greedy's pair at N=128 (W=1), cross over S=197"))
 
 
 def k7_inputs(B, W, V, dev, seed, ties=False, p_finished=0.3):
@@ -2735,13 +2806,27 @@ def phase_k9_bwd(dev, report):
 
     from avsr_tpu_torch.models import transformer as tfm
 
+    from avsr_tpu_torch import kernels
+
     names = ("du", "db_in", "ddw", "dln_scale", "dln_bias")
     tols = (K9_DU_REL_TOL, K9_DB_REL_TOL, K9_PARAM_REL_TOL, K9_PARAM_REL_TOL, K9_PARAM_REL_TOL)
+    # the plan's shared memory against the library's, at every width the
+    # fused route takes and at general ones
+    lib = kernels._load()
+    bad = [d for d in range(8, kernels.CONV_BWD_MAX_D + 1, 8)
+           if lib.avsr_conformer_conv_bwd_fused_smem(d) != kernels.conformer_bwd_fused_smem(d)]
+    bad += [(d, k) for d in (2, 200, 512, 1000, 1024) for k in (3, 15, 31)
+            if lib.avsr_conformer_conv_smem(d, k) != kernels.conformer_general_smem(d, k)]
+    if bad:
+        fail("K9 bwd", f"the plan's shared memory differs from the library's at {bad}")
     abs_errs = {}
-    for B, T in ((128, 197), (4, 531)):
-        args = k9_inputs(B, T, dev, seed=T + 5)
+    # the train batch and the 16 s limit on the fused route; a width past it
+    # (d = 1024: the general route's three launches)
+    for B, T, d in ((128, 197, 512), (4, 531, 512), (5, 70, 1024)):
+        args = k9_inputs(B, T, dev, seed=T + 5, d=d)
         lens = args[-1]
-        dout = torch.randn((T, B, 512), generator=torch.Generator().manual_seed(T + 6))
+        route = kernels.conformer_bwd_plan(T, B, d, 15)["route"]
+        dout = torch.randn((T, B, d), generator=torch.Generator().manual_seed(T + 6))
         dout = dout.to(torch.bfloat16).to(dev)
         g_k = tfm.conformer_conv_bwd(*args, dout)
         g_p = tfm.conformer_conv_bwd_plain(*args, dout)
@@ -2751,15 +2836,15 @@ def phase_k9_bwd(dev, report):
         same = all(torch.equal(a, b) for a, b in zip(g_k, g_k2))
         padded = (torch.arange(T, device=dev)[:, None] >= lens[None, :])
         pad_zero = bool((g_k[0][padded] == 0).all())
-        print(f"K9 bwd [T={T},B={B},d=512,k=15] relative to max |plain| "
+        print(f"K9 bwd [T={T},B={B},d={d},k=15] ({route}) relative to max |plain| "
               f"{ {n: f'{e:.3e}' for n, e in rel.items()} } (tol du {K9_DU_REL_TOL}, db_in "
               f"{K9_DB_REL_TOL}, ddw / dln {K9_PARAM_REL_TOL}); padded steps' du zero: "
               f"{pad_zero}; two runs bit-equal: {same}")
         if not (all(torch.isfinite(x.float()).all() for x in g_k) and pad_zero and same
                 and all(rel[n] <= t for n, t in zip(names, tols))):
-            fail("K9 bwd", f"kernels disagree with the plain twin at T={T}: {rel}, padded "
-                           f"rows zero {pad_zero}, deterministic {same}")
-        abs_errs[T] = max(max_err(a, b) for a, b in zip(g_k, g_p))
+            fail("K9 bwd", f"kernels disagree with the plain twin at T={T}, d={d}: {rel}, "
+                           f"padded rows zero {pad_zero}, deterministic {same}")
+        abs_errs[(T, d)] = max(max_err(a, b) for a, b in zip(g_k, g_p))
     args = k9_inputs(128, 197, dev, seed=203)
     u, _, dw, *_ = args
     T, B, d2 = u.shape

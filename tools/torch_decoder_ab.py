@@ -1,26 +1,39 @@
 #!/usr/bin/env python3
-"""Time K5, the teacher-forced decoder attention, in several checkouts on one card.
+"""Time K5 and K6, the decoder's attention kernels, in several checkouts on one card.
 
-    python3 tools/torch_decoder_ab.py --trees build/parent . --order ABBA
+    python3 tools/torch_decoder_ab.py --trees build/parent . --order ABBA [--parts k5 k6]
 
 Each run is a process of its own started in one checkout (``--trees``, A
 first, then B, C, ...): it builds that checkout's kernels and times the
-device work of its ``models.transformer_decoder`` K5 wrappers (chip_smoke's
-``device_ms``: CUDA events around 20 calls queued behind a spin kernel) on
-chip_smoke's ``k5_inputs`` at three shapes: lrs2_av_fast's causal self
-attention [B=128, Q=S=80, 4 heads, 64] and cross attention [B=128, Q=80,
-S=50, dk=128, dv=256], and lrs2_av_v2's cross attention (S=197), the bias
-masking a ragged tail of each memory and every key of one.  The forward is
-timed in save mode, as a train step runs it, and the backward from that
-forward's residual, whichever the checkout's backward takes (the fp32
-weights, or the softmax's row statistics).  Each run also times the library
-yardstick, ``scaled_dot_product_attention`` with the same additive mask,
-forward and backward (chip_smoke's ``sdpa_bwd_device_ms``: autograd's
-device time less the forward's).  The runs go in ``--order`` (A B B A by
-default), so the checkouts share the card's state; the last line is one
-JSON object with every run's numbers.  Needs a CUDA card; another checkout
-is typically the parent commit unpacked with ``git archive`` into a
-git-ignored directory.
+device work of its ``models.transformer_decoder`` wrappers (chip_smoke's
+``device_ms``: CUDA events around 20 calls queued behind a spin kernel).
+
+K5, the teacher-forced attention (``--parts k5``), on chip_smoke's
+``k5_inputs`` at three shapes: lrs2_av_fast's causal self attention [B=128,
+Q=S=80, 4 heads, 64] and cross attention [B=128, Q=80, S=50, dk=128,
+dv=256], and lrs2_av_v2's cross attention (S=197), the bias masking a
+ragged tail of each memory and every key of one.  The forward is timed in
+save mode, as a train step runs it, and the backward from that forward's
+residual, whichever the checkout's backward takes (the fp32 weights, or
+the softmax's row statistics).  Each run also times the library yardstick,
+``scaled_dot_product_attention`` with the same additive mask, forward and
+backward (chip_smoke's ``sdpa_bwd_device_ms``: autograd's device time less
+the forward's).
+
+K6, the decode step's single-query attention (``--parts k6``), on
+chip_smoke's ``k6_inputs``: a serve request's beam step, N = 80 rows (B =
+8 utterances, W = 10 beams), self attention over the 150-step cache at
+position 149 and cross attention over the fast (S = 50) and the v2 (S =
+197) memory; a greedy step, N = 128 rows of one beam, the same reads.  A
+checkout whose K6 reads the untiled memory (``kernels.decode_attention_route``)
+gets B memory rows; an older one the memory tiled over the beams, as its
+beam search gave it (the tiling is set-up, outside the timed calls).  The
+pairs (self + cross) are summed from the parts.
+
+The runs go in ``--order`` (A B B A by default), so the checkouts share the
+card's state; the last line is one JSON object with every run's numbers.
+Needs a CUDA card; another checkout is typically the parent commit
+unpacked with ``git archive`` into a git-ignored directory.
 """
 
 from __future__ import annotations
@@ -45,7 +58,7 @@ stats = "row_max" in inspect.signature(tdec.decoder_attention_bwd).parameters
 out = {}
 for name, Q, S, dk, dv, causal in (("fast_self", 80, 80, 64, 64, True),
                                    ("fast_cross", 80, 50, 128, 256, False),
-                                   ("v2_cross", 80, 197, 128, 256, False)):
+                                   ("v2_cross", 80, 197, 128, 256, False)) if "k5" in PARTS else ():
     q, k, v, bias, dctx = cs.k5_inputs(128, Q, S, dk, dv, dev, causal, seed=Q + S + dv)
     res = tdec.decoder_attention_fwd(q, k, v, bias, save=True)[1]
     args = (q, k, v, bias, *res) if stats else (q, k, v, res)
@@ -55,6 +68,34 @@ for name, Q, S, dk, dv, causal in (("fast_self", 80, 80, 64, 64, True),
     out[f"bwd_{name}"] = cs.device_ms(lambda: tdec.decoder_attention_bwd(*args, dctx))
     out[f"sdpa_fwd_{name}"] = cs.device_ms(lambda: cs.sdpa(q, k, v, mask))
     out[f"sdpa_bwd_{name}"] = cs.sdpa_bwd_device_ms(q, k, v, mask, dctx)
+
+
+def k6_inputs(N, B, L, dk, dv, cross, seed):
+    # q [N, 4, dk] against B key rows; the memory's lengths ragged, row 1 empty
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((N, 4, dk), generator=g).to(torch.bfloat16)
+    k = torch.randn((B, L, 4, dk), generator=g).to(torch.bfloat16)
+    v = torch.randn((B, L, 4, dv), generator=g).to(torch.bfloat16)
+    bias = None
+    if cross:
+        lens = torch.randint(1, L + 1, (B,), generator=g)
+        lens[0], lens[1] = L, 0
+        bias = (1.0 - (torch.arange(L)[None, :] < lens[:, None]).float()) * -1e30
+    return [None if x is None else x.to(dev) for x in (q, k, v, bias)]
+
+
+untiled = hasattr(kernels, "decode_attention_route")
+for N, B in ((80, 8), (128, 128)) if "k6" in PARTS else ():
+    q, k, v, _ = k6_inputs(N, N, 150, 64, 64, False, seed=N)
+    self_ms = cs.device_ms(lambda: tdec.decode_attention(q, k, v, None, 150))
+    out[f"k6_self_N{N}"] = self_ms
+    for S in (50, 197):
+        qc, kc, vc, bc = k6_inputs(N, B, S, 128, 256, True, seed=N + S)
+        if not untiled:
+            kc, vc, bc = (x.repeat_interleave(N // B, dim=0) for x in (kc, vc, bc))
+        ms = cs.device_ms(lambda: tdec.decode_attention(qc, kc, vc, bc, S))
+        out[f"k6_cross_S{S}_N{N}"] = ms
+        out[f"k6_pair_S{S}_N{N}"] = self_ms + ms
 print(json.dumps(out))
 """
 
@@ -63,6 +104,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trees", nargs="+", required=True, help="checkouts A, B, ...")
     ap.add_argument("--order", default="ABBA")
+    ap.add_argument("--parts", nargs="+", default=["k5", "k6"], choices=["k5", "k6"])
     args = ap.parse_args()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
@@ -70,13 +112,13 @@ def main() -> int:
     runs = []
     for which in args.order:
         tree = args.trees[ord(which) - ord("A")]
-        res = subprocess.run([sys.executable, "-c", RUN], cwd=tree, capture_output=True, text=True,
-                             env=dict(os.environ))
+        res = subprocess.run([sys.executable, "-c", f"PARTS = {args.parts!r}\n" + RUN], cwd=tree,
+                             capture_output=True, text=True, env=dict(os.environ))
         if res.returncode != 0:
             print(res.stderr[-4000:], file=sys.stderr)
             return 1
         r = json.loads(res.stdout.strip().splitlines()[-1])
-        print(f"{which} ({tree}): K5 device ms " + ", ".join(f"{k} {x:.4f}" for k, x in r.items()),
+        print(f"{which} ({tree}): device ms " + ", ".join(f"{k} {x:.4f}" for k, x in r.items()),
               flush=True)
         runs.append(dict(r, tree=tree, which=which))
     print(json.dumps({"card": card, "runs": runs}))

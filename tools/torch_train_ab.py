@@ -20,7 +20,9 @@ loop (``sums``: ``align_outer_sum`` and ``align_dkeys_energy``, K8's and
 K10's), the AV-Align fusion scan's forward (``k8_fwd``: the cluster kernel
 ``align_fwd_scan``, or the per-step route's ``align_gate_kernel`` and
 ``align_read_kernel``, with its event count) and its backward (``k8``: every
-other kernel whose name holds ``align_``, with its event count), torch's
+other kernel whose name holds ``align_``, with its event count), the
+conformer conv module's kernels (``k9``: K9's forward, its backward's pass
+and partial sums), torch's
 fills, copies and casts, and adds (``fill``, ``copy``, ``add``: every
 kernel whose name holds the word; autograd's sums of a
 gradient are adds) and the attention kernels, told apart by
@@ -94,6 +96,8 @@ def kind(name):
         return "k8_fwd"
     if "align_" in name:
         return "k8"
+    if any(k in name for k in ("conformer_conv", "conv_bwd", "reduce_parts")):
+        return "k9"
     low = name.lower()
     if "fill" in low:
         return "fill"
@@ -118,8 +122,8 @@ print(json.dumps({"step_ms": times, "peak_gib": peak / 2**30, "busy_ms_per_step"
                   "k8_fwd_events_per_step": count["k8_fwd"] / 3,
                   "k8_events_per_step": count["k8"] / 3, "k10_events_per_step": count["k10"] / 3,
                   **{f"{k}_ms_per_step": by[k] / 3e3
-                     for k in ("lstm", "k8_fwd", "k8", "k10", "sums", "k11", "k4", "k5", "fill",
-                               "copy", "add")}}))
+                     for k in ("lstm", "k8_fwd", "k8", "k10", "sums", "k11", "k4", "k5", "k9",
+                               "fill", "copy", "add")}}))
 """
 
 
@@ -162,7 +166,8 @@ def main() -> int:
               f"({r['k8_events_per_step']:.1f} events), "
               f"K10 {r['k10_ms_per_step']:.3f} ms ({r['k10_events_per_step']:.1f} events), "
               f"the memory sums {r['sums_ms_per_step']:.3f} ms, K11 {r['k11_ms_per_step']:.3f} "
-              f"ms, K4 {r['k4_ms_per_step']:.3f} ms, K5 {r['k5_ms_per_step']:.3f} ms; fills "
+              f"ms, K4 {r['k4_ms_per_step']:.3f} ms, K5 {r['k5_ms_per_step']:.3f} ms, K9 "
+              f"{r['k9_ms_per_step']:.3f} ms; fills "
               f"{r['fill_ms_per_step']:.3f}, copies and casts {r['copy_ms_per_step']:.3f}, adds "
               f"{r['add_ms_per_step']:.3f} ms", flush=True)
         runs.append(r)
