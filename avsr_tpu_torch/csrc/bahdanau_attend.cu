@@ -1,23 +1,26 @@
-// K10: one attention read per row, the RNN decoder's read at every decode
-// step, with the additive (Bahdanau) or the dot (Luong) score.  Replaces
+// K10: the RNN decoder's attention read at every decode step, with the
+// additive (Bahdanau) or the dot (Luong) score.  Replaces
 // avsr_tpu/ops/attention.py:attend (Bahdanau branch :140-151, Luong branch
 // :152-163, masking :165-171) as avsr_tpu/models/decoder.py:decoder_step
-// (:160-164) calls it over the beam-tiled memory: query [N, Hq] fp32 (the
-// top LSTM layer's h), keys [N, S, A] (fp32 projected keys, or the bf16
-// memory for Luong, A its width), values [N, S, Dv] bf16, bias and mask
-// [N, S] fp32 -> context [N, Dv] fp32 and weights [N, S] fp32.  The
-// arithmetic, its rounding points and the design are those of
-// bahdanau_core.cuh: one block per row, the q product inside the kernel.
+// (:160-164) calls it: query [N, Hq] fp32 (the top LSTM layer's h) over a
+// memory of B rows, N = B W (W beams an utterance, 1 outside the beam
+// search), query row n reading memory row n / W as the reference reads its
+// beam-tiled copy: keys [B, S, A] (fp32 projected keys, or the bf16 memory
+// for Luong, A its width), values [B, S, Dv] bf16, bias and mask [B, S]
+// fp32 -> context [N, Dv] fp32 and weights [N, S] fp32.  The arithmetic
+// and its rounding points are those of bahdanau_core.cuh.  Two kernels,
+// chosen by shape alone (kernels.attend_route):
 //
-// What bounds it on an H100: the bytes of the tiled keys and values, read
-// once: at N = 80 beams, S = 197, A = 128, Dv = 768 that is 8.1 MB of
-// keys and 24.2 MB of values per step (~9.6 us at 3.35 TB/s), against
-// 2 * S * (A + Dv) FMAs per row.  The beams of one utterance read the same
-// memory; reading the untiled memory by n / W would cut the bytes tenfold
-// (later work, with K6's identical item).  Luong at N = 80, S = 197, a
-// 512-wide memory with no value projection: keys and values are the same
-// bf16 memory, 16.1 MB each per step (~9.7 us; ~4.8 us if one buffer were
-// read once).
+// * "grouped" (attend_grouped.cuh), a beam step's read (2 <= W <= 16 at
+//   widths that are multiples of 16): a cluster of CTAs per memory row,
+//   each key and value row read once for the W queries.  At N = 80 beams
+//   (B = 8, W = 10), S = 197, A = 128, Dv = 768 the untiled memory is 0.8 MB
+//   of keys and 2.4 MB of values a step (~1.0 us at 3.35 TB/s; tiled over
+//   the beams it would be 32 MB); Luong's 512-wide memory, one tensor, 1.6 MB.
+// * "row" (bahdanau_attend_kernel), every other shape (W = 1: greedy and
+//   the teacher-forced loop; widths that are not multiples of 16; more than
+//   16 beams): one block of 256 threads per query row, the q product inside
+//   it (bahdanau_core.cuh's read), the keys and values of row n / W.
 //
 // Backward: the teacher-forced decoder's K reads of one memory form a loop
 // (avsr_tpu/models/decoder.py:267-295 differentiates attend inside a
@@ -73,6 +76,7 @@
 
 #include <algorithm>
 
+#include "attend_grouped.cuh"
 #include "bahdanau_core.cuh"
 #include "cluster_ptx.cuh"
 
@@ -95,18 +99,18 @@ __global__ void __launch_bounds__(bahdanau::THREADS)
 bahdanau_attend_kernel(const float* __restrict__ query,          // [N, Hq]
                        const __nv_bfloat16* __restrict__ wq,     // [Hq, A]
                        const __nv_bfloat16* __restrict__ vatt,   // [A] or null (dot)
-                       const void* __restrict__ keys_in,         // [N, S, A] Key<DOT>
-                       const __nv_bfloat16* __restrict__ values, // [N, S, Dv]
-                       const float* __restrict__ bias,           // [N, S]
-                       const float* __restrict__ mask,           // [N, S]
+                       const void* __restrict__ keys_in,         // [B, S, A] Key<DOT>
+                       const __nv_bfloat16* __restrict__ values, // [B, S, Dv]
+                       const float* __restrict__ bias,           // [B, S]
+                       const float* __restrict__ mask,           // [B, S]
                        float* __restrict__ ctx,                  // [N, Dv]
                        float* __restrict__ weights,              // [N, S]
-                       int Hq, int A, int S, int Dv) {
+                       int W, int Hq, int A, int S, int Dv) {
   extern __shared__ __align__(16) float smem[];
   const auto* keys = static_cast<const typename Key<DOT>::type*>(keys_in);
-  const size_t n = blockIdx.x;
-  bahdanau::read<DOT>(query + n * Hq, wq, vatt, keys + n * S * A, values + n * S * Dv,
-                      bias + n * S, mask + n * S, Hq, A, S, Dv, smem,
+  const size_t n = blockIdx.x, m = n / W;  // query row n reads memory row n / W
+  bahdanau::read<DOT>(query + n * Hq, wq, vatt, keys + m * S * A, values + m * S * Dv,
+                      bias + m * S, mask + m * S, Hq, A, S, Dv, smem,
                       RowWeights{weights + n * S}, RowContext{ctx + n * Dv});
 }
 
@@ -494,13 +498,14 @@ extern "C" long long avsr_bahdanau_smem(int Hq, int A, int S) {
   return (long long)bahdanau::read_smem_bytes(Hq, A, S);
 }
 
-// dot != 0: the Luong read (keys bf16, vatt null); else the Bahdanau read
-// (keys fp32).
+// "row": N query rows over N / W memory rows, a block a query row.  dot !=
+// 0: the Luong read (keys bf16, vatt null); else the Bahdanau read (keys
+// fp32).
 extern "C" int avsr_bahdanau_attend(const void* query, const void* wq, const void* vatt,
                                     const void* keys, const void* values, const void* bias,
-                                    const void* mask, void* ctx, void* weights, int N, int Hq,
-                                    int A, int S, int Dv, int dot, void* stream) {
-  if (N < 1 || S < 1 || Hq < 1 || A % 8 || A > 512 || Dv % 8 || Dv > 2048 ||
+                                    const void* mask, void* ctx, void* weights, int N, int W,
+                                    int Hq, int A, int S, int Dv, int dot, void* stream) {
+  if (N < 1 || W < 1 || N % W || S < 1 || Hq < 1 || A % 8 || A > 512 || Dv % 8 || Dv > 2048 ||
       (!dot && vatt == nullptr))
     return (int)cudaErrorInvalidValue;
   auto* const kernel = dot ? &bahdanau_attend_kernel<true> : &bahdanau_attend_kernel<false>;
@@ -514,8 +519,107 @@ extern "C" int avsr_bahdanau_attend(const void* query, const void* wq, const voi
       static_cast<const float*>(query), static_cast<const __nv_bfloat16*>(wq),
       static_cast<const __nv_bfloat16*>(vatt), keys, static_cast<const __nv_bfloat16*>(values),
       static_cast<const float*>(bias), static_cast<const float*>(mask), static_cast<float*>(ctx),
-      static_cast<float*>(weights), Hq, A, S, Dv);
+      static_cast<float*>(weights), W, Hq, A, S, Dv);
   return (int)cudaGetLastError();
+}
+
+namespace {
+
+bool grouped_shape_ok(int B, int W, int Hq, int A, int S, int Dv, int C) {
+  return B >= 1 && W >= 1 && W <= attend_grouped::MAX_W && S >= 1 && S <= attend_grouped::MAX_S &&
+         Hq >= 16 && Hq % 16 == 0 &&
+         A >= 16 && A % 16 == 0 && A <= 512 && Dv >= 16 && Dv % 16 == 0 && Dv <= 2048 &&
+         (C == 1 || C == 2 || C == 4 || C == 8 || C == 16);
+}
+
+// B clusters of C CTAs (one a memory row), the kernel's shared memory set
+template <bool DOT>
+cudaError_t grouped_config(int B, int C, size_t smem, cudaLaunchAttribute* attr,
+                           cudaLaunchConfig_t* cfg) {
+  *cfg = {};
+  cfg->gridDim = dim3(B * C, 1, 1);
+  cfg->blockDim = dim3(attend_grouped::THREADS, 1, 1);
+  cfg->dynamicSmemBytes = smem;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  auto* const kernel = attend_grouped::attend_grouped_kernel<DOT>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess && C > 8)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+template <bool DOT>
+cudaError_t grouped_launch(const void* query, const void* wq, const void* vatt, const void* keys,
+                           const void* values, const void* bias, const void* mask, void* ctx,
+                           void* weights, int B, int W, int Hq, int A, int S, int Dv, int C,
+                           cudaStream_t st) {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  const size_t smem = attend_grouped::Layout(W, S, Hq, A, Dv, C, DOT).total;
+  cudaError_t e = grouped_config<DOT>(B, C, smem, attr, &cfg);
+  if (e != cudaSuccess) return e;
+  cfg.stream = st;
+  using bf = __nv_bfloat16;
+  e = cudaLaunchKernelEx(&cfg, attend_grouped::attend_grouped_kernel<DOT>,
+                         static_cast<const float*>(query), static_cast<const bf*>(wq),
+                         static_cast<const bf*>(vatt), keys, static_cast<const bf*>(values),
+                         static_cast<const float*>(bias), static_cast<const float*>(mask),
+                         static_cast<float*>(ctx), static_cast<float*>(weights), W, Hq, A, S,
+                         Dv);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <bool DOT>
+int grouped_max_active(int W, int Hq, int A, int S, int Dv, int C) {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  const size_t smem = attend_grouped::Layout(W, S, Hq, A, Dv, C, DOT).total;
+  if (grouped_config<DOT>(132, C, smem, attr, &cfg) != cudaSuccess) return 0;
+  int n = 0;
+  return cudaOccupancyMaxActiveClusters(&n, (void*)attend_grouped::attend_grouped_kernel<DOT>,
+                                        &cfg) == cudaSuccess
+             ? n
+             : 0;
+}
+
+}  // namespace
+
+// The grouped read's shared memory per CTA in bytes (attend_grouped.cuh's
+// Layout; kernels.attend_grouped_smem mirrors it).
+extern "C" long long avsr_attend_grouped_smem(int W, int S, int Hq, int A, int Dv, int C,
+                                              int dot) {
+  return (long long)attend_grouped::Layout(W, S, Hq, A, Dv, C, dot != 0).total;
+}
+
+// The clusters of C CTAs (a memory row each) that can be resident at once
+// (0 on an error or a shape the kernel does not take).
+extern "C" int avsr_attend_grouped_max_active(int W, int S, int Hq, int A, int Dv, int C,
+                                              int dot) {
+  if (!grouped_shape_ok(1, W, Hq, A, S, Dv, C)) return 0;
+  return dot ? grouped_max_active<true>(W, Hq, A, S, Dv, C)
+             : grouped_max_active<false>(W, Hq, A, S, Dv, C);
+}
+
+// "grouped": N = B W query rows over the untiled memory [B, S], a cluster of
+// C CTAs per memory row (dot != 0: Luong, keys bf16, vatt null).
+extern "C" int avsr_attend_grouped(const void* query, const void* wq, const void* vatt,
+                                   const void* keys, const void* values, const void* bias,
+                                   const void* mask, void* ctx, void* weights, int B, int W,
+                                   int Hq, int A, int S, int Dv, int C, int dot, void* stream) {
+  if (!grouped_shape_ok(B, W, Hq, A, S, Dv, C) || (!dot && vatt == nullptr) ||
+      attend_grouped::Layout(W, S, Hq, A, Dv, C, dot != 0).total > 232448)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  auto* const launch = dot ? &grouped_launch<true> : &grouped_launch<false>;
+  return (int)launch(query, wq, vatt, keys, values, bias, mask, ctx, weights, B, W, Hq, A, S, Dv,
+                     C, st);
 }
 
 namespace {

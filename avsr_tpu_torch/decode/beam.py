@@ -13,9 +13,10 @@ Same semantics as the reference, top-1 only:
 * the decoder state (the transformer's KV caches, or the RNN decoder's
   (h, c) and contexts) is gathered by parent every step, every tensor of
   it, as the reference's ``tree_map`` does;
-* the memories are tiled over the beams for the RNN decoder only: the
-  transformer's cross read (K6) takes each utterance's memory row for all
-  of its W beams, where the reference tiles it (the same values);
+* the memories are not tiled over the beams: the transformer's cross read
+  (K6) and the RNN decoder's read (K10) take each utterance's memory row
+  for all of its W beams, query row n reading memory row n // W, where the
+  reference tiles the memories (the same values);
 * the step after the decoder (log-softmax, masks, length penalty, top-W,
   gathers, trellis row) is kernel K7: ``beam_step`` launches
   ``csrc/beam_step.cu`` for GPU tensors and runs ``beam_step_plain`` for
@@ -112,21 +113,17 @@ def beam_step(logits, logp, lens, finished, lp_table, tokens_row, parents_row) -
                                       lp_table, tokens_row, parents_row))
 
 
-def _tile_memory(mem: attn.AttentionMemory, width: int, cdt: torch.dtype) -> attn.AttentionMemory:
-    """[B, ...] -> [B*W, ...] with beams contiguous per batch row (``width``
-    1: the rows as they are); the values in the compute dtype, cast once
-    here instead of at every step; the Bahdanau keys (if any) stay fp32;
-    keys that are the values (a Luong memory without a value projection,
-    read only in the compute dtype) stay one tensor."""
-    def tile(x):
-        if x is None:
-            return None
-        return x.contiguous() if width == 1 else x.repeat_interleave(width, dim=0)
-
-    values = tile(mem.values).to(cdt)
-    keys = values if mem.keys is mem.values else tile(mem.keys)
-    return attn.AttentionMemory(values=values, keys=keys, mask=tile(mem.mask),
-                                bias=tile(mem.bias))
+def _cast_memory(mem: attn.AttentionMemory, cdt: torch.dtype) -> attn.AttentionMemory:
+    """The memory as the decode steps read it, its B rows untiled: the values
+    in the compute dtype, cast once here instead of at every step; the
+    Bahdanau keys (if any) stay fp32; keys that are the values (a Luong
+    memory without a value projection, read only in the compute dtype)
+    stay one tensor."""
+    values = mem.values.contiguous().to(cdt)
+    keys = values if mem.keys is mem.values else (
+        None if mem.keys is None else mem.keys.contiguous())
+    return attn.AttentionMemory(values=values, keys=keys, mask=mem.mask.contiguous(),
+                                bias=mem.bias.contiguous())
 
 
 def _gather_rows(state, index: torch.Tensor):
@@ -147,13 +144,12 @@ def beam_search(params, cfg: DecoderConfig, memories: Sequence[attn.AttentionMem
     B = memories[0].values.shape[0]
     W = beam_width
     dev = memories[0].values.device
-    # the transformer's cross read (K6) takes the untiled memory, each beam
-    # reading its utterance's row; the RNN decoder's read (K10) the tiled one
-    tiled = [_tile_memory(m, 1 if cfg.decoder_type == "transformer" else W, cdt)
-             for m in memories]
+    # the reads (K6's cross read, K10) take the untiled memories, each beam
+    # reading its utterance's row
+    mems = [_cast_memory(m, cdt) for m in memories]
     state = dec.initial_state(cfg, B * W, max_length, cdt, dev,
                               memory_dims=[m.values.shape[-1] for m in memories])
-    cross_kv = dec.prepare_cross(params, cfg, tiled, cdt)
+    cross_kv = dec.prepare_cross(params, cfg, mems, cdt)
     lp_table = length_penalty_table(max_length, length_penalty, dev)
 
     tok = torch.full((B * W,), GO_ID, dtype=torch.long, device=dev)
@@ -172,7 +168,7 @@ def beam_search(params, cfg: DecoderConfig, memories: Sequence[attn.AttentionMem
         settled = finished | (logp < NEG_INF / 2)
         if bool(settled.all()):
             break
-        state, logits = dec.decoder_step(params, cfg, tok, state, tiled, cross_kv, cdt)
+        state, logits = dec.decoder_step(params, cfg, tok, state, mems, cross_kv, cdt)
         out = beam_step(logits, logp, lens, finished, lp_table, tokens_buf[t], parents_buf[t])
         logp, lens, finished = out.logp, out.lens, out.finished
         state = _gather_rows(state, out.flat_parent)

@@ -46,16 +46,17 @@ NVCC_FLAGS = (
 # direction-fused one (K1); the Bahdanau read kernels count a Luong (dot
 # score) read apart from an additive one.  K10's backward counts its
 # per-step kernel per step (``*_attend_bwd``) and the memory's sums per
-# loop (``*_attend_sums``).
+# loop (``*_attend_sums``); its forward counts the grouped read
+# (``*_attend_grouped``) apart from the row kernel (``*_attend``).
 LAUNCHES: Dict[str, int] = {
     "lstm_scan_fwd": 0, "lstm_scan_bwd": 0, "lstm_scan_uni_fwd": 0, "lstm_scan_uni_bwd": 0,
     "logmel_post_dft": 0,
     "fusion_attention_fwd": 0, "fusion_attention_bwd": 0,
     "decoder_attention_fwd": 0, "decoder_attention_bwd": 0,
     "decode_attention": 0, "beam_step": 0, "av_align_scan": 0, "av_align_scan_bwd": 0,
-    "bahdanau_attend": 0, "bahdanau_attend_bwd": 0, "bahdanau_attend_sums": 0,
-    "av_align_scan_luong": 0, "av_align_scan_luong_bwd": 0, "luong_attend": 0,
-    "luong_attend_bwd": 0, "luong_attend_sums": 0,
+    "bahdanau_attend": 0, "bahdanau_attend_grouped": 0, "bahdanau_attend_bwd": 0,
+    "bahdanau_attend_sums": 0, "av_align_scan_luong": 0, "av_align_scan_luong_bwd": 0,
+    "luong_attend": 0, "luong_attend_grouped": 0, "luong_attend_bwd": 0, "luong_attend_sums": 0,
     "encoder_attention_fwd": 0, "encoder_attention_bwd": 0, "conformer_conv_fwd": 0,
     "conformer_conv_bwd": 0,
 }
@@ -242,8 +243,14 @@ def _load() -> ctypes.CDLL:
         lib.avsr_av_align_step_bwd_scan.restype = i
         lib.avsr_bahdanau_smem.argtypes = [i, i, i]
         lib.avsr_bahdanau_smem.restype = ctypes.c_longlong
-        lib.avsr_bahdanau_attend.argtypes = [p] * 9 + [i] * 6 + [p]
+        lib.avsr_bahdanau_attend.argtypes = [p] * 9 + [i] * 7 + [p]
         lib.avsr_bahdanau_attend.restype = i
+        lib.avsr_attend_grouped.argtypes = [p] * 9 + [i] * 8 + [p]
+        lib.avsr_attend_grouped.restype = i
+        lib.avsr_attend_grouped_smem.argtypes = [i] * 7
+        lib.avsr_attend_grouped_smem.restype = ctypes.c_longlong
+        lib.avsr_attend_grouped_max_active.argtypes = [i] * 7
+        lib.avsr_attend_grouped_max_active.restype = i
         lib.avsr_attend_step_bwd_smem.argtypes = [i] * 4
         lib.avsr_attend_step_bwd_smem.restype = ctypes.c_longlong
         lib.avsr_attend_step_bwd_max_active.argtypes = [i] * 5
@@ -959,12 +966,12 @@ def beam_step(logits, logp, lens, finished, lp_table, tokens_row, parents_row):
     return flat_parent, feed, logp_out, lens_out, finished_out
 
 
-def _check_score(v, keys, N, S, A, dev):
-    """The score's operands: Bahdanau's v [A] bf16 and fp32 keys [N, S, A],
-    or Luong's (v None) bf16 keys [N, S, A], A the memory width."""
+def _check_score(v, keys, B, S, A, dev):
+    """The score's operands: Bahdanau's v [A] bf16 and fp32 keys [B, S, A],
+    or Luong's (v None) bf16 keys [B, S, A], A the memory width."""
     if v is not None:
         _check("v", v, torch.bfloat16, (A,), dev)
-    _check("keys", keys, torch.float32 if v is not None else torch.bfloat16, (N, S, A), dev)
+    _check("keys", keys, torch.float32 if v is not None else torch.bfloat16, (B, S, A), dev)
 
 
 def av_align_step_smem(H: int, Dc: int, A: int, S: int) -> int:
@@ -1354,23 +1361,20 @@ def av_align_scan_bwd(wh, b, ctx_proj, wq, v, xw, mask, keys, values, aligns, h_
 
 
 def _check_bahdanau(what, query, wq, v, keys, values, smem_fn, *smem_args):
-    """The operands both K10 launches share (either score), their limits and
-    the shared memory that the library's ``smem_fn(Hq, A, S, *smem_args)``
-    asks (the library is loaded only once the operands pass): (N, Hq, S, A,
-    Dv, dev)."""
+    """The operands both K10 launches share (either score): N query rows
+    over a memory of B rows (keys and values [B, S, *], N a multiple of B),
+    their limits and the shared memory that the row kernel's ``smem_fn(Hq,
+    A, S, *smem_args)`` asks (the library is loaded only once the operands
+    pass): (N, Hq, S, A, Dv, dev)."""
     N, Hq = query.shape
-    S, A = keys.shape[1], keys.shape[2]
+    B, S, A = keys.shape
     Dv = values.shape[-1]
     dev = query.device
     _check("query", query, torch.float32, (N, Hq), dev)
     _check("wq", wq, torch.bfloat16, (Hq, A), dev)
-    _check_score(v, keys, N, S, A, dev)
-    _check("values", values, torch.bfloat16, (N, S, Dv), dev)
-    if A % 8 or A > 512 or Dv % 8 or Dv > 2048:
-        raise ValueError(f"{what}: A={A} must be a multiple of 8 up to 512, "
-                         f"Dv={Dv} a multiple of 8 up to 2048")
-    if not (1 <= S <= ATTEND_MAX_S and N >= 1):
-        raise ValueError(f"{what}: S={S}, N={N}; the kernel takes 1 <= S <= {ATTEND_MAX_S}")
+    _check_score(v, keys, B, S, A, dev)
+    _check("values", values, torch.bfloat16, (B, S, Dv), dev)
+    _check_attend_shape(what, N, B, S, A, Dv)
     smem = getattr(_load(), smem_fn)(Hq, A, S, *smem_args)
     if smem > SMEM_LIMIT:
         raise ValueError(f"{what}: Hq={Hq}, A={A}, S={S}, Dv={Dv} need {smem} bytes of "
@@ -1378,29 +1382,145 @@ def _check_bahdanau(what, query, wq, v, keys, values, smem_fn, *smem_args):
     return N, Hq, S, A, Dv, dev
 
 
-def bahdanau_attend(query, wq, v, keys, values, bias, mask):
-    """K10: one attention read per row (CUDA): Bahdanau, or with ``v`` None
-    Luong, counted as ``luong_attend``.
+def _check_attend_shape(what, N, B, S, A, Dv):
+    if N < 1 or B < 1 or N % B:
+        raise ValueError(f"{what}: {N} query rows over {B} memory rows; N must be a positive "
+                         f"multiple of B")
+    if A % 8 or A > 512 or Dv % 8 or Dv > 2048:
+        raise ValueError(f"{what}: A={A} must be a multiple of 8 up to 512, "
+                         f"Dv={Dv} a multiple of 8 up to 2048")
+    if not 1 <= S <= ATTEND_MAX_S:
+        raise ValueError(f"{what}: S={S}, N={N}; the kernel takes 1 <= S <= {ATTEND_MAX_S}")
 
-    query [N,Hq] f32, wq [Hq,A] bf16, v [A] bf16 (None: Luong), keys
-    [N,S,A] f32 (Luong: the bf16 memory, A its width), values [N,S,Dv]
-    bf16, bias / mask [N,S] f32 -> (ctx [N,Dv] f32, weights [N,S] f32; a
-    row whose every position is masked gets zeros in both).
+
+# K10's grouped read (``csrc/attend_grouped.cuh``, "grouped"): a cluster of C
+# CTAs of 512 threads per memory row, the W queries of the row as one 16-row
+# strip on the tensor cores
+ATTEND_GROUP_MAX_W = 16     # beams a memory row: one strip of the tensor cores
+ATTEND_GROUP_CLUSTERS = (1, 2, 4, 8, 16)  # CTAs a cluster (16: the non-portable size)
+# Clusters of C such CTAs (one an SM: 512 threads of ~85 registers) that an
+# H100 SXM holds at once, by C (cudaOccupancyMaxActiveClusters on the card;
+# chip_smoke fails where the library's count differs): a GPC places a
+# cluster, and fewer GPCs than 132 / 16 have 16 free SMs
+ATTEND_GROUP_WAVE = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+
+
+def attend_grouped_units(S: int, A: int, Dv: int, C: int, dot: bool) -> int:
+    """The 16 x 16 fp32 units of partial sums a CTA of K10's grouped read
+    holds (``Layout`` in ``csrc/attend_grouped.cuh``): a strip product over
+    ng 16-column groups splits its k steps over up to 16 // ng of the 16
+    warps, so it writes ng * (16 // ng) <= 16 units for ng < 16 and ng past
+    that; ng is at most qg / vg (q's / the values' column groups of the CTA
+    that owns the most) or, for Luong's scores, the longest key chunk's."""
+    SCP = -(-(-(-S // C)) // 16) * 16
+    return max(16, -(-(A // 16) // C), -(-(Dv // 16) // C), SCP // 16 if dot else 0)
+
+
+def attend_grouped_smem(W: int, S: int, Hq: int, A: int, Dv: int, C: int, dot: bool) -> int:
+    """Shared memory of a CTA of K10's grouped read (``Layout`` in
+    ``csrc/attend_grouped.cuh``) over W queries, S keys and a cluster of C
+    CTAs, bytes: bf16(query) [16, Hq + 8], wq's columns [Hq, 16 qg + 8] bf16,
+    q [W, A] fp32 (Luong: bf16 [16, A + 8]), v [A] fp32 (Bahdanau), the key
+    chunk [SC, A] fp32 and its e^2k, e^2q [W, A] (Luong: bf16 [SCP, A + 8]),
+    bias and mask [S_pad],
+    the scores [S_pad, Wp] fp32 (Wp: W rounded up to 4), bf16(P) [16, S_pad
+    + 8], the value columns [S_pad, 16 vg + 8] bf16, the products' partial
+    sums (``attend_grouped_units`` units of 16 x 16 fp32) and two mbarriers;
+    qg / vg the most 16-column groups of q / the values a CTA owns, SC the
+    longest key chunk (SCP rounded up to 16)."""
+    def up16(x):
+        return (x + 15) // 16 * 16
+
+    S_pad, SC = up16(S), -(-S // C)
+    SCP, qg, vg = up16(SC), -(-(A // 16) // C), -(-(Dv // 16) // C)
+    part = attend_grouped_units(S, A, Dv, C, dot) * 16 * 16 * 4
+    q = 16 * (A + 8) * 2 if dot else W * A * 4 + A * 4
+    keys = SCP * (A + 8) * 2 if dot else 2 * SC * A * 4 + W * A * 4  # + e^2k, e^2q
+    return (16 * (Hq + 8) * 2 + Hq * (16 * qg + 8) * 2 + q + keys + 2 * S_pad * 4
+            + S_pad * -(-W // 4) * 4 * 4 + 16 * (S_pad + 8) * 2 + S_pad * (16 * vg + 8) * 2 + part
+            + 16)  # the two mbarriers
+
+
+def attend_grouped_cluster(B: int, W: int, S: int, Hq: int, A: int, Dv: int, dot: bool) -> int:
+    """C, the CTAs of K10's grouped read per memory row (a cluster): the most
+    whose B clusters fit in one wave (``ATTEND_GROUP_WAVE``), among those
+    whose CTA fits in shared memory (else the fewest that fit); 0 where none
+    fits or the shape is not the kernel's (W from 1 to
+    ``ATTEND_GROUP_MAX_W``, Hq, A and Dv multiples of 16, S up to 768)."""
+    if not (1 <= W <= ATTEND_GROUP_MAX_W and Hq >= 16 and Hq % 16 == 0 and A % 16 == 0
+            and 16 <= A <= 512 and Dv % 16 == 0 and 16 <= Dv <= 2048 and B >= 1
+            and 1 <= S <= 768):
+        return 0
+    fits = [c for c in ATTEND_GROUP_CLUSTERS
+            if attend_grouped_smem(W, S, Hq, A, Dv, c, dot) <= SMEM_LIMIT]
+    if not fits:
+        return 0
+    wave = [c for c in fits if B <= ATTEND_GROUP_WAVE[c]]
+    return max(wave) if wave else min(fits)
+
+
+def attend_route(N: int, B: int, S: int, Hq: int, A: int, Dv: int, dot: bool) -> str:
+    """The kernel that runs K10 for N query rows over a memory of B rows
+    (W = N / B beams a row): "grouped", a beam step's read, W from 2 to
+    ``ATTEND_GROUP_MAX_W`` at widths that are multiples of 16 while a
+    cluster's CTAs hold the row (``attend_grouped_cluster``): each key and
+    value row read once for the W queries; "row", every other shape the
+    wrapper takes (W = 1, greedy and the teacher-forced loop, where the
+    grouped read measured 2.3-3.2x slower on the H100; other widths): a block
+    per query row.  The grouped read also beat the row kernel on the H100
+    where its clusters take two or more waves (8 rows of 16 CTAs over the
+    16 s memory, 32 rows at S = 197), so W >= 2 takes it at every shape it
+    holds.  Chosen by shape alone, never after a failure."""
+    _check_attend_shape("attend", N, B, S, A, Dv)
+    W = N // B
+    if W >= 2 and attend_grouped_cluster(B, W, S, Hq, A, Dv, dot) > 0:
+        return "grouped"
+    return "row"
+
+
+def attend_grouped_info(W: int, S: int, Hq: int, A: int, Dv: int, C: int,
+                        dot: bool) -> Dict[str, int]:
+    """K10's grouped read as built: a CTA's shared memory (the library's
+    ``Layout``) and the clusters of C CTAs that can be resident at once."""
+    lib = _load()
+    return {"smem": int(lib.avsr_attend_grouped_smem(W, S, Hq, A, Dv, C, int(dot))),
+            "max_active_clusters": int(lib.avsr_attend_grouped_max_active(
+                W, S, Hq, A, Dv, C, int(dot)))}
+
+
+def bahdanau_attend(query, wq, v, keys, values, bias, mask):
+    """K10: the attention read (CUDA): Bahdanau, or with ``v`` None Luong;
+    the row kernel counted as ``bahdanau_attend`` / ``luong_attend``, the
+    grouped read as ``bahdanau_attend_grouped`` / ``luong_attend_grouped``.
+
+    query [N,Hq] f32, wq [Hq,A] bf16, v [A] bf16 (None: Luong), and a
+    memory of B rows, N = B W: keys [B,S,A] f32 (Luong: the bf16 memory, A
+    its width), values [B,S,Dv] bf16, bias / mask [B,S] f32; query row n
+    reads memory row n // W -> (ctx [N,Dv] f32, weights [N,S] f32; a row
+    whose every position is masked gets zeros in both).  The kernel by
+    ``attend_route``.
     """
     N, Hq, S, A, Dv, dev = _check_bahdanau("bahdanau attend", query, wq, v, keys, values,
                                            "avsr_bahdanau_smem")
-    _check("bias", bias, torch.float32, (N, S), dev)
-    _check("mask", mask, torch.float32, (N, S), dev)
+    B = keys.shape[0]
+    _check("bias", bias, torch.float32, (B, S), dev)
+    _check("mask", mask, torch.float32, (B, S), dev)
+    dot = v is None
+    route = attend_route(N, B, S, Hq, A, Dv, dot)
     lib = _load()
     ctx = torch.empty((N, Dv), dtype=torch.float32, device=dev)
     weights = torch.empty((N, S), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.avsr_bahdanau_attend(
-        query.data_ptr(), wq.data_ptr(), _ptr(v), keys.data_ptr(), values.data_ptr(),
-        bias.data_ptr(), mask.data_ptr(), ctx.data_ptr(), weights.data_ptr(),
-        N, Hq, A, S, Dv, int(v is None), stream)
-    _raise_on(err, "bahdanau_attend launch")
-    LAUNCHES["bahdanau_attend" if v is not None else "luong_attend"] += 1
+    args = (query.data_ptr(), wq.data_ptr(), _ptr(v), keys.data_ptr(), values.data_ptr(),
+            bias.data_ptr(), mask.data_ptr(), ctx.data_ptr(), weights.data_ptr())
+    if route == "grouped":
+        C = attend_grouped_cluster(B, N // B, S, Hq, A, Dv, dot)
+        err = lib.avsr_attend_grouped(*args, B, N // B, Hq, A, S, Dv, C, int(dot), stream)
+    else:
+        err = lib.avsr_bahdanau_attend(*args, N, N // B, Hq, A, S, Dv, int(dot), stream)
+    _raise_on(err, f"bahdanau_attend ({route}) launch")
+    LAUNCHES[("luong_attend" if dot else "bahdanau_attend")
+             + ("_grouped" if route == "grouped" else "")] += 1
     return ctx, weights
 
 
@@ -1426,6 +1546,9 @@ def attend_step_bwd(query, wq, v, keys, values, weights, dctx, dsc, dctx_out, q,
     dq [N,A] and dv [N,A] (None for Luong).  No memory-sized gradient.  A
     cluster of two CTAs a row.
     """
+    if keys.shape[0] != query.shape[0]:
+        raise ValueError(f"attend step bwd: a memory row per query row, got {query.shape[0]} "
+                         f"queries over {keys.shape[0]} rows")
     N, Hq, S, A, Dv, dev = _check_bahdanau("attend step bwd", query, wq, v, keys, values,
                                            "avsr_bahdanau_smem")
     f32 = torch.float32

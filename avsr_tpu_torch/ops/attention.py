@@ -9,10 +9,14 @@ computes its own multi-head scores and reads only a memory's VALUES (the
 reference's ``value_only`` path): its memories carry ``keys=None``.
 
 ``attend`` is one read per query row, kernel K10: for tensors on a GPU
-``attend_fwd`` launches ``csrc/bahdanau_attend.cu`` (the read body is
+``attend_fwd`` launches ``csrc/bahdanau_attend.cu`` (the row kernel's body is
 ``csrc/bahdanau_core.cuh``, shared with the AV-Align fusion scan K8, and
-templated on the score), for tensors on the CPU it runs ``attend_plain``.
-Per row, under the bf16 policy:
+templated on the score; a beam step's read runs ``csrc/attend_grouped.cuh``,
+``kernels.attend_route``), for tensors on the CPU it runs ``attend_plain``.
+The memory may have fewer rows than the query: N = B W query rows over B
+memory rows, query row n reading memory row n // W (the beam search's W
+beams of an utterance read its one memory row, as the reference reads its
+beam-tiled copy).  Per row, under the bf16 policy:
 
     q       = bf16(query) @ bf16(wq)                       (fp32)
     scores  = bf16(tanh(keys + q)) . bf16(v) + bias        (fp32, Bahdanau)
@@ -127,11 +131,29 @@ def prepare_memory(attention_type: str, params: Params, memory: torch.Tensor,
     return AttentionMemory(values=values, keys=keys, mask=mask, bias=bias)
 
 
+def memory_rows(mem: AttentionMemory, N: int) -> AttentionMemory:
+    """The memory row of each of N query rows: row n reads memory row n // W
+    of a memory of B rows, N = B W (the rows as they are when N == B); the
+    same values as the memory tiled W times, beams contiguous per row."""
+    B = mem.mask.shape[0]
+    if N < 1 or B < 1 or N % B:
+        raise ValueError(f"attend: {N} query rows over {B} memory rows; N must be a positive "
+                         f"multiple of B")
+    if N == B:
+        return mem
+    idx = torch.arange(N, device=mem.mask.device) // (N // B)
+    keys = None if mem.keys is None else mem.keys.index_select(0, idx)
+    return AttentionMemory(values=mem.values.index_select(0, idx), keys=keys,
+                           mask=mem.mask.index_select(0, idx), bias=mem.bias.index_select(0, idx))
+
+
 def attend_plain(attention_type: str, params: Params, query: torch.Tensor,
                  mem: AttentionMemory, cdt: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain-PyTorch K10: query [N, Q] -> (context [N, V] fp32, weights
-    [N, S] fp32, padded positions exactly 0)."""
+    """Plain-PyTorch K10: query [N, Q] over a memory of B rows, N = B W, row
+    n reading memory row n // W -> (context [N, V] fp32, weights [N, S]
+    fp32, padded positions exactly 0)."""
     _check_type(attention_type)
+    mem = memory_rows(mem, query.shape[0])
     q = dot_f32(query, params["wq"], cdt)                      # [N, A] (Luong: [N, H])
     if attention_type == "luong":
         scores = torch.einsum("nsh,nh->ns", mem.keys.to(cdt).float(), q.to(cdt).float())
@@ -149,9 +171,10 @@ def attend_plain(attention_type: str, params: Params, query: torch.Tensor,
 
 def attend_fwd(attention_type: str, params: Params, query: torch.Tensor, mem: AttentionMemory,
                cdt: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K10 forward wrapper: the CUDA kernel for GPU tensors, the plain
-    version on the CPU; same contract as ``attend_plain``.  The kernel runs
-    the bf16 policy only; any other compute dtype on a GPU raises."""
+    """K10 forward wrapper: the CUDA kernel for GPU tensors (the grouped
+    read or the row kernel, ``kernels.attend_route``), the plain version on
+    the CPU; same contract as ``attend_plain``.  The kernels run the bf16
+    policy only; any other compute dtype on a GPU raises."""
     if query.device.type == "cpu":
         return attend_plain(attention_type, params, query, mem, cdt)
     _check_type(attention_type)
@@ -441,6 +464,9 @@ class BahdanauAttend(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, loop, query, token):
+        if query.shape[0] != loop.mask.shape[0]:
+            raise ValueError(f"a read loop takes a query row per memory row, got "
+                             f"{query.shape[0]} over {loop.mask.shape[0]}")
         k = loop.next_step()
         out, w = read_fwd(loop, query)
         loop.queries[k], loop.weights[k] = query.detach(), w

@@ -398,8 +398,8 @@ SERVE_KERNELS = ("lstm_scan_fwd", "logmel_post_dft", "fusion_attention_fwd",
 TRAIN_KERNELS = ("lstm_scan_fwd", "lstm_scan_bwd", "logmel_post_dft", "fusion_attention_fwd",
                  "fusion_attention_bwd", "decoder_attention_fwd", "decoder_attention_bwd")
 GREEDY_KERNELS = ("decode_attention",)
-SERVE_ALIGN_KERNELS = ("lstm_scan_fwd", "logmel_post_dft", "av_align_scan", "bahdanau_attend",
-                       "beam_step")
+SERVE_ALIGN_KERNELS = ("lstm_scan_fwd", "logmel_post_dft", "av_align_scan",
+                       "bahdanau_attend_grouped", "beam_step")
 GREEDY_ALIGN_KERNELS = ("bahdanau_attend",)
 TRAIN_ALIGN_KERNELS = ("lstm_scan_fwd", "lstm_scan_bwd", "logmel_post_dft", "av_align_scan",
                        "av_align_scan_bwd", "bahdanau_attend", "bahdanau_attend_bwd",
@@ -412,8 +412,16 @@ SERVE_V2_KERNELS = ("logmel_post_dft", "encoder_attention_fwd", "conformer_conv_
 TRAIN_V2_KERNELS = ("logmel_post_dft", "encoder_attention_fwd", "encoder_attention_bwd",
                     "conformer_conv_fwd", "conformer_conv_bwd", "fusion_attention_fwd",
                     "fusion_attention_bwd", "decoder_attention_fwd", "decoder_attention_bwd")
-SERVE_UL_KERNELS = ("lstm_scan_uni_fwd", "logmel_post_dft", "av_align_scan_luong", "luong_attend",
-                    "beam_step")
+SERVE_UL_KERNELS = ("lstm_scan_uni_fwd", "logmel_post_dft", "av_align_scan_luong",
+                    "luong_attend_grouped", "beam_step")
+# the K10 forward kernel a path must not launch: a beam step's reads (10
+# beams a memory row) take the grouped read, greedy's and the teacher-forced
+# loop's (a query row per memory row) the row kernel
+K10_OTHER_ROUTE = {"serve_align": "bahdanau_attend", "serve_uni_luong": "luong_attend",
+                   "greedy_align": "bahdanau_attend_grouped",
+                   "greedy_uni_luong": "luong_attend_grouped",
+                   "train_align": "bahdanau_attend_grouped",
+                   "train_uni_luong": "luong_attend_grouped"}
 GREEDY_UL_KERNELS = ("luong_attend",)
 TRAIN_UL_KERNELS = ("lstm_scan_uni_fwd", "lstm_scan_uni_bwd", "logmel_post_dft",
                     "av_align_scan_luong", "av_align_scan_luong_bwd", "luong_attend",
@@ -423,6 +431,15 @@ TRAIN_UL_KERNELS = ("lstm_scan_uni_fwd", "lstm_scan_uni_bwd", "logmel_post_dft",
 def fail(phase: str, msg: str) -> None:
     print(f"FAIL [{phase}]: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def check_other_route(label, launches):
+    """Fails where the path ``label`` launched the K10 forward kernel of the
+    other route (``K10_OTHER_ROUTE``): every read took the route its shape
+    gives."""
+    other = K10_OTHER_ROUTE.get(label)
+    if other is not None and launches[other] != 0:
+        fail(label, f"{launches[other]} reads launched {other}, the other route's kernel")
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -968,6 +985,7 @@ def phase_serve(dev, card, cfg, label="serve", needed=SERVE_KERNELS, mem_shape=(
     for name in needed:
         if launches[name] == 0:
             fail(label, f"kernel {name} was not launched by the serving path")
+    check_other_route(label, launches)
     if any(len(t) != 8 for t in texts):
         fail(label, "wrong number of transcripts")
 
@@ -1270,6 +1288,7 @@ def phase_train(dev, card, cfg, label="train", needed=TRAIN_KERNELS, lr=1e-4, sh
     for name in needed:
         if launches[name] == 0:
             fail(label, f"kernel {name} was not launched by the training steps")
+    check_other_route(label, launches)
     print(f"{label} (c) losses {[round(x, 4) for x in losses]} (ce, au) "
           f"{[(round(c, 4), round(a, 4)) for c, a in parts]}; grad_norm last "
           f"{float(metrics['grad_norm']):.4f}")
@@ -1784,6 +1803,7 @@ def phase_greedy(dev, card, cfg, label="greedy", needed=GREEDY_KERNELS):
     for name in needed:
         if launches[name] == 0:
             fail(label, f"kernel {name} was not launched by greedy decode")
+    check_other_route(label, launches)
     ids = res.ids
     if tuple(ids.shape) != (128, horizon) or int(ids.min()) < 0 or int(ids.max()) >= V:
         fail(label, f"ids of shape {tuple(ids.shape)} in [{int(ids.min())}, {int(ids.max())}]")
@@ -2069,21 +2089,23 @@ def phase_k8(dev, report):
                  "H=256,A=128,Dv=512")
 
 
-def k10_inputs(N, dev, seed, S=197, Hq=256, A=128, Dv=768):
+def k10_inputs(N, dev, seed, S=197, Hq=256, A=128, Dv=768, W=1):
     """K10 operands at the lrs2_av_align decoder's widths: the top layer's
-    h, the attention, and a prepared fused memory ([h ; ctx], fp32) with
-    bf16 values as the beam tiles them and a length-0 row (1)."""
+    h [N, Hq], the attention, and a prepared fused memory ([h ; ctx], fp32)
+    of N / W rows with bf16 values, as the beam search gives it untiled
+    (query row n reads memory row n // W), with a length-0 row (1)."""
     import torch
 
     from avsr_tpu_torch.ops import attention as attn
 
     g = torch.Generator().manual_seed(seed)
+    B = N // W
     query = 0.5 * torch.randn((N, Hq), generator=g)
     att = {"wq": torch.randn((Hq, A), generator=g) / Hq ** 0.5,
            "v": torch.randn((A,), generator=g) / A ** 0.5,
            "wm": torch.randn((Dv, A), generator=g) / Dv ** 0.5}
-    memory = torch.randn((N, S, Dv), generator=g)
-    lens = torch.randint(1, S + 1, (N,), generator=g)
+    memory = torch.randn((B, S, Dv), generator=g)
+    lens = torch.randint(1, S + 1, (B,), generator=g)
     lens[0], lens[1] = S, 0
     att = {k: x.to(dev) for k, x in att.items()}
     mem = attn.prepare_memory("bahdanau", att, memory.to(dev), lens.to(dev), torch.bfloat16)
@@ -2091,42 +2113,218 @@ def k10_inputs(N, dev, seed, S=197, Hq=256, A=128, Dv=768):
     return ["bahdanau", att, query.to(dev), mem, torch.bfloat16]
 
 
-def phase_k10(dev, report):
+# K10's forward shapes: (label, N, W, S, widths, the route attend_route gives):
+# the beam step of a serve request (8 utterances, 10 beams) over 6 s and 16 s
+# memories, 3 beams, greedy's and the teacher-forced loop's one query a row
+# (also over 16 s), key widths off the tensor cores' 16-column steps, and 17
+# column groups of q (A = 272) over a cluster of 8, where the CTAs own 2 or 3
+K10_FWD_CASES = (("beam step", 80, 10, 197, "preset", "grouped"),
+                 ("3 beams", 24, 3, 197, "preset", "grouped"),
+                 ("beam step, 16 s", 80, 10, 531, "preset", "grouped"),
+                 ("one beam", 128, 1, 197, "preset", "row"),
+                 ("one beam, 16 s", 16, 1, 531, "preset", "row"),
+                 ("beam step, odd width", 80, 10, 197, "odd", "row"),
+                 ("beam step, 17 q groups", 80, 10, 197, "groups", "grouped"))
+
+
+# the beam steps (10 beams) timed on both kernels, (memory rows B, S): a
+# serve request's over 6 s and 16 s memories, and 32 utterances
+K10_TIMED = ((8, 197), (8, 531), (32, 197))
+
+
+def k10_launch(route, query, wq, v, keys, values, bias, mask):
+    """One K10 forward launch on ``route`` ("grouped" or "row") straight
+    through the library, whatever ``kernels.attend_route`` would pick, and
+    uncounted: the timings' second kernel.  -> (ctx, weights)."""
+    import torch
+
+    from avsr_tpu_torch import kernels
+
+    N, Hq = query.shape
+    B, S, A = keys.shape
+    Dv, dot = values.shape[-1], v is None
+    ctx = torch.empty((N, Dv), dtype=torch.float32, device=query.device)
+    w = torch.empty((N, S), dtype=torch.float32, device=query.device)
+    args = (query.data_ptr(), wq.data_ptr(), kernels._ptr(v), keys.data_ptr(),
+            values.data_ptr(), bias.data_ptr(), mask.data_ptr(), ctx.data_ptr(), w.data_ptr())
+    stream = torch.cuda.current_stream(query.device).cuda_stream
+    lib = kernels._load()
+    if route == "grouped":
+        C = kernels.attend_grouped_cluster(B, N // B, S, Hq, A, Dv, dot)
+        err = lib.avsr_attend_grouped(*args, B, N // B, Hq, A, S, Dv, C, int(dot), stream)
+    else:
+        err = lib.avsr_bahdanau_attend(*args, N, N // B, Hq, A, S, Dv, int(dot), stream)
+    kernels._raise_on(err, f"K10 {route} launch")
+    return ctx, w
+
+
+def k10_fwd_check(tag, args, w_tol, W):
+    """K10's forward (``attn.attend``, routed by shape) against the plain
+    twin: errors within K10_CTX_TOL and ``w_tol``, the beams of the length-0
+    memory row exactly 0, a rerun bit-equal.  -> the worst error."""
     import torch
 
     from avsr_tpu_torch.ops import attention as attn
 
-    worst, t = 0.0, {}
-    for N in (80, 128):
-        args = k10_inputs(N, dev, seed=N)
-        ctx, w = attn.attend(*args)
-        ctx_p, w_p = attn.attend_plain(*args)
-        torch.cuda.synchronize()
-        e = {"ctx": max_err(ctx, ctx_p), "weights": max_err(w, w_p)}
-        empty = (float(ctx[1].abs().max()), float(w[1].abs().max()))
-        print(f"K10 [N={N},S=197,A=128,Dv=768] max abs err {e} (tol ctx {K10_CTX_TOL}, weights "
-              f"{K10_W_TOL}); length-0 row max |ctx|, |w| {empty}; weight sums of the other "
-              f"rows within {float((w.sum(-1) - 1)[2:].abs().max())} of 1")
-        if not (torch.isfinite(ctx).all() and e["ctx"] <= K10_CTX_TOL
-                and e["weights"] <= K10_W_TOL):
-            fail("K10", f"kernel disagrees with the plain twin at N={N}: {e}")
-        if empty != (0.0, 0.0):
-            fail("K10", f"a length-0 memory does not give a zero context and weights: {empty}")
-        worst = max(worst, *e.values())
-        t[N] = (time_ms(lambda: attn.attend(*args)), time_ms(lambda: attn.attend_plain(*args)),
-                device_ms(lambda: attn.attend(*args)))
-        print(f"K10 N={N} kernel {t[N][0]:.4f} ms (device {t[N][2]} ms)  plain {t[N][1]:.4f} ms")
-    # the entry: one beam step's read, N = 80
-    _, att, query, mem, _ = args = k10_inputs(80, dev, seed=80)
     ctx, w = attn.attend(*args)
-    N, S, A = mem.keys.shape
-    Hq, Dv = query.shape[1], mem.values.shape[-1]
-    nb = nbytes(query, att["wq"].to(torch.bfloat16), att["v"].to(torch.bfloat16), mem.keys,
-                mem.values, mem.bias, mem.mask, ctx, w)
-    b = bound(nb, {"bf16": 2 * N * (Hq * A + S * A + S * Dv), "fp32": 2 * N * S * A})
-    print(f"K10 N=80 bound {b[0]:.5f} ms ({b[1]}, {nb / 1e6:.2f} MB)")
-    report["bahdanau_attend"] = dict(max_abs_err=worst, ms=t[80][0], plain_ms=t[80][1],
-                                     library_ms=None, device_ms=t[80][2], bound=b)
+    ctx2, w2 = attn.attend(*args)
+    ctx_p, w_p = attn.attend_plain(*args)
+    torch.cuda.synchronize()
+    e = {"ctx": max_err(ctx, ctx_p), "weights": max_err(w, w_p)}
+    empty = (float(ctx[W:2 * W].abs().max()), float(w[W:2 * W].abs().max()))
+    same = bool(torch.equal(ctx, ctx2) and torch.equal(w, w2))
+    others = (w.sum(-1) - 1)[2 * W:].abs()
+    print(f"{tag}: max abs err {e} (tol ctx {K10_CTX_TOL}, weights {w_tol}); length-0 row's "
+          f"beams max |ctx|, |w| {empty}; rerun bit-equal {same}; weight sums of the other "
+          f"rows within {float(others.max()) if others.numel() else 0.0} of 1; largest weight "
+          f"{float(w.max()):.4f}")
+    if not (torch.isfinite(ctx).all() and e["ctx"] <= K10_CTX_TOL and e["weights"] <= w_tol):
+        fail(tag, f"kernel disagrees with the plain twin: {e}")
+    if empty != (0.0, 0.0):
+        fail(tag, f"a length-0 memory does not give a zero context and weights: {empty}")
+    if not same:
+        fail(tag, "a rerun is not bit-equal")
+    return max(e.values())
+
+
+def k10_fwd_phase(dev, report, key, label, make, w_tol, odd, groups):
+    """K10's forward for one read (``make``: ``k10_inputs`` or
+    ``k10_luong_inputs``; ``odd`` their widths off the tensor cores' steps,
+    ``groups`` widths of 17 column groups of q): every K10_FWD_CASES shape on
+    the route ``kernels.attend_route`` gives it against the plain twin, each
+    grouped shape's shared memory (``kernels.attend_grouped_smem``) and
+    resident clusters (``kernels.ATTEND_GROUP_WAVE``) against the library's.
+    Then the device ms of both kernels at the beam steps of K10_TIMED, of
+    the row kernel over the memory
+    tiled 10 times (the parent's read), and at one beam a row (N = 128,
+    greedy's and the teacher-forced loop's), the bounds of the untiled and
+    the tiled memory.  Reports the row kernel as ``key`` (at one beam a row)
+    and the grouped read as ``key``_grouped (at the beam step)."""
+    import torch
+
+    from avsr_tpu_torch import kernels
+    from avsr_tpu_torch.ops import attention as attn
+
+    worst = {"row": 0.0, "grouped": 0.0}
+    for i, (what, N, W, S, widths, want) in enumerate(K10_FWD_CASES):
+        kw = {"preset": {}, "odd": odd, "groups": groups}[widths]
+        args = make(N, dev, seed=i + N + S, S=S, W=W, **kw)
+        mem = args[3]
+        B, S_, A = mem.keys.shape
+        N, Hq = args[2].shape
+        Dv = mem.values.shape[-1]
+        dot = args[0] == "luong"
+        route = kernels.attend_route(N, B, S_, Hq, A, Dv, dot)
+        C = kernels.attend_grouped_cluster(B, W, S_, Hq, A, Dv, dot) if route == "grouped" else 0
+        tag = (f"{label} {what} [N={N}={B}x{W},S={S_},Hq={Hq},A={A},Dv={Dv}] route {route}"
+               + (f" (clusters of {C})" if C else ""))
+        if route != want:
+            fail(label, f"{tag}: expected the {want} route")
+        if C:
+            info = kernels.attend_grouped_info(W, S_, Hq, A, Dv, C, dot)
+            mirror = kernels.attend_grouped_smem(W, S_, Hq, A, Dv, C, dot)
+            print(f"{tag}: shared memory a CTA {info['smem']} B (mirror {mirror}), "
+                  f"{info['max_active_clusters']} clusters resident at once "
+                  f"(ATTEND_GROUP_WAVE {kernels.ATTEND_GROUP_WAVE[C]})")
+            if info["smem"] != mirror:
+                fail(label, f"{tag}: kernels.attend_grouped_smem gives {mirror} B, the "
+                            f"library's Layout {info['smem']} B")
+            if info["max_active_clusters"] != kernels.ATTEND_GROUP_WAVE[C]:
+                fail(label, f"{tag}: the library holds {info['max_active_clusters']} clusters "
+                            f"of {C} at once, kernels.ATTEND_GROUP_WAVE plans "
+                            f"{kernels.ATTEND_GROUP_WAVE[C]}")
+        worst[route] = max(worst[route], k10_fwd_check(tag, args, w_tol, W))
+
+    def ops(args, route, tile=1):
+        # one read as attn.attend issues it (the operands' casts included) on
+        # ``route``, over the memory tiled ``tile`` times
+        typ, att, query, mem, cdt = args
+        if tile > 1:
+            rows = lambda x: x.repeat_interleave(tile, dim=0).contiguous()  # noqa: E731
+            values = rows(mem.values)
+            keys = values if mem.keys is mem.values else rows(mem.keys)
+            mem = attn.AttentionMemory(values=values, keys=keys, mask=rows(mem.mask),
+                                       bias=rows(mem.bias))
+        q = query.float().contiguous()
+        return lambda: k10_launch(route, q, *attn.kernel_operands(typ, att, mem), mem.bias,
+                                  mem.mask)
+
+    def bounds(args, tile=1):
+        # the bound of the read's bytes (each memory row read once, or
+        # ``tile`` times) and operations
+        typ, att, query, mem, _ = args
+        ctx, w = attn.attend(*args)
+        N, Hq = query.shape
+        S, A = mem.keys.shape[1:]
+        Dv = mem.values.shape[-1]
+        wq = att["wq"].to(torch.bfloat16)
+        v = None if typ == "luong" else att["v"].to(torch.bfloat16)
+        memory = [mem.values] if mem.keys is mem.values else [mem.keys, mem.values]
+        nb = nbytes(query, wq, v, ctx, w) + tile * nbytes(*memory, mem.bias, mem.mask)
+        flops = {"bf16": 2 * N * (Hq * A + S * A + S * Dv)}
+        if typ != "luong":
+            flops["fp32"] = 2 * N * S * A
+        return bound(nb, flops), nb
+
+    times = {}
+    for B, S in K10_TIMED:
+        args = make(10 * B, dev, seed=B + S, S=S, W=10)
+        dot = args[0] == "luong"
+        A = args[3].keys.shape[-1]
+        Hq, Dv = args[2].shape[1], args[3].values.shape[-1]
+        C = kernels.attend_grouped_cluster(B, 10, S, Hq, A, Dv, dot)
+        route = kernels.attend_route(10 * B, B, S, Hq, A, Dv, dot)
+        t = {"grouped": device_ms(ops(args, "grouped")), "row": device_ms(ops(args, "row")),
+             "route": route, "cluster": C}
+        if (B, S) == (8, 197):
+            t["tiled_row"] = device_ms(ops(args, "row", tile=10))
+            t["ms"] = time_ms(lambda: attn.attend(*args))
+            t["plain_ms"] = time_ms(lambda: attn.attend_plain(*args))
+            (t["bound"], nb), (b_tiled, nb_tiled) = bounds(args), bounds(args, tile=10)
+            t["bound_tiled_ms"] = b_tiled[0]
+        print(f"{label} beam step [N={10 * B}={B}x10,S={S}]: device ms grouped {t['grouped']:.5f} "
+              f"(clusters of {C}, {kernels.ATTEND_GROUP_WAVE[C]} resident at once), row kernel "
+              f"{t['row']:.5f}" + (f", row kernel over the tiled memory {t['tiled_row']:.5f}; "
+                                   f"ms {t['ms']:.4f} (host clock), plain {t['plain_ms']:.4f}; "
+                                   f"bound {t['bound'][0]:.5f} ms ({t['bound'][1]}, untiled "
+                                   f"{nb / 1e6:.2f} MB), tiled {b_tiled[0]:.5f} ms "
+                                   f"({nb_tiled / 1e6:.2f} MB)" if (B, S) == (8, 197) else "")
+              + f"; the route: {route}")
+        times[B, S] = t
+    g1 = make(128, dev, seed=128)
+    C1 = kernels.attend_grouped_cluster(128, 1, 197, Hq, A, Dv, dot)
+    one = {"row": device_ms(ops(g1, "row")), "grouped": device_ms(ops(g1, "grouped")),
+           "ms": time_ms(lambda: attn.attend(*g1)),
+           "plain_ms": time_ms(lambda: attn.attend_plain(*g1)), "bound": bounds(g1)[0]}
+    print(f"{label} one beam a row [N=128=128x1,S=197]: device ms row {one['row']:.5f} (the "
+          f"route), grouped {one['grouped']:.5f} (clusters of {C1}); ms {one['ms']:.4f} (host "
+          f"clock), plain {one['plain_ms']:.4f}; bound {one['bound'][0]:.5f} ms "
+          f"({one['bound'][1]})")
+    t, t16, t32 = times[8, 197], times[8, 531], times[32, 197]
+    report[key] = dict(max_abs_err=worst["row"], ms=one["ms"], plain_ms=one["plain_ms"],
+                       library_ms=None, device_ms=one["row"], bound=one["bound"],
+                       device_ms_one_beam_grouped=one["grouped"])
+    report[f"{key}_grouped"] = dict(
+        max_abs_err=worst["grouped"], ms=t["ms"], plain_ms=t["plain_ms"], library_ms=None,
+        device_ms=t["grouped"], bound=t["bound"], cluster=t["cluster"],
+        device_ms_row=t["row"], device_ms_tiled_row=t["tiled_row"],
+        bound_tiled_ms=t["bound_tiled_ms"], device_ms_16s=t16["grouped"],
+        device_ms_16s_row=t16["row"], attend_route_16s=t16["route"], cluster_16s=t16["cluster"],
+        device_ms_B32=t32["grouped"], device_ms_B32_row=t32["row"],
+        attend_route_B32=t32["route"], cluster_B32=t32["cluster"])
+
+
+def phase_k10(dev, report):
+    k10_fwd_phase(dev, report, "bahdanau_attend", "K10", k10_inputs, K10_W_TOL, {"A": 72},
+                  {"Hq": 512, "A": 272})
+    # keys past |k| = 40, where the grouped read's factored energies could
+    # leave fp32's range and it takes tanhf(k + q) instead
+    args = k10_inputs(80, dev, seed=41, W=10)
+    args[3] = args[3]._replace(keys=args[3].keys * 30.0)
+    worst = k10_fwd_check("K10 beam step, keys x 30 (the tanhf energies) [N=80=8x10,S=197] route "
+                          "grouped", args, K10_W_TOL, 10)
+    r = report["bahdanau_attend_grouped"]
+    r["max_abs_err"] = max(r["max_abs_err"], worst)
 
 
 def k8_bwd_inputs(B, dev, seed, attention_type="bahdanau", **widths):
@@ -2507,7 +2705,7 @@ def k10_bwd_times(label, args, st, queries, dctxs, out_k):
     step_entry = dict(ms=t_k, plain_ms=t_p, library_ms=None, device_ms=dms, bound=b_step,
                       occupancy=info["occupancy"])
     sums_entry = dict(ms=s_k, plain_ms=s_p, library_ms=None, device_ms=s_dms, bound=b_sums,
-                      route=kernels.attend_sums_family(A, Dv))
+                      sums_route=kernels.attend_sums_family(A, Dv))
     return step_entry, sums_entry
 
 
@@ -2984,20 +3182,21 @@ def phase_k2(dev, report):
               f"{report[name]['bound'][0]:.5f} ms ({report[name]['bound'][1]})")
 
 
-def k10_luong_inputs(N, dev, seed, S=197, Hq=256, Hk=512):
+def k10_luong_inputs(N, dev, seed, S=197, Hq=256, Hk=512, W=1):
     """The Luong read at the lrs2_av_align_uni_luong decoder's widths: the
-    top layer's h, ``wq`` [256, 512] and the fused memory [h ; ctx] as one
-    bf16 tensor serving as keys and values (as the beam tiles it), with a
-    length-0 row (1)."""
+    top layer's h [N, Hq], ``wq`` [256, 512] and the fused memory [h ; ctx]
+    of N / W rows as one bf16 tensor serving as keys and values, untiled as
+    the beam search gives it, with a length-0 row (1)."""
     import torch
 
     from avsr_tpu_torch.ops import attention as attn
 
     g = torch.Generator().manual_seed(seed)
+    B = N // W
     query = 0.5 * torch.randn((N, Hq), generator=g)
     att = {"wq": (torch.randn((Hq, Hk), generator=g) / Hq ** 0.5).to(dev)}
-    memory = 0.5 * torch.randn((N, S, Hk), generator=g)
-    lens = torch.randint(1, S + 1, (N,), generator=g)
+    memory = 0.5 * torch.randn((B, S, Hk), generator=g)
+    lens = torch.randint(1, S + 1, (B,), generator=g)
     lens[0], lens[1] = S, 0
     mem = attn.prepare_memory("luong", att, memory.to(torch.bfloat16).to(dev), lens.to(dev),
                               torch.bfloat16)
@@ -3005,45 +3204,8 @@ def k10_luong_inputs(N, dev, seed, S=197, Hq=256, Hk=512):
 
 
 def phase_k10_luong(dev, report):
-    import torch
-
-    from avsr_tpu_torch.ops import attention as attn
-
-    worst, t = 0.0, {}
-    for N in (80, 128):
-        args = k10_luong_inputs(N, dev, seed=N + 3)
-        ctx, w = attn.attend(*args)
-        ctx_p, w_p = attn.attend_plain(*args)
-        torch.cuda.synchronize()
-        e = {"ctx": max_err(ctx, ctx_p), "weights": max_err(w, w_p)}
-        empty = (float(ctx[1].abs().max()), float(w[1].abs().max()))
-        print(f"K10 Luong [N={N},S=197,Hk=Dv=512] max abs err {e} (tol ctx {K10_CTX_TOL}, weights "
-              f"{K10L_W_TOL}); length-0 row max |ctx|, |w| {empty}; weight sums of the other rows "
-              f"within {float((w.sum(-1) - 1)[2:].abs().max())} of 1; largest weight "
-              f"{float(w.max()):.4f}")
-        if not (torch.isfinite(ctx).all() and e["ctx"] <= K10_CTX_TOL
-                and e["weights"] <= K10L_W_TOL):
-            fail("K10 Luong", f"kernel disagrees with the plain twin at N={N}: {e}")
-        if empty != (0.0, 0.0):
-            fail("K10 Luong", f"a length-0 memory does not give a zero context and weights: "
-                              f"{empty}")
-        worst = max(worst, *e.values())
-        t[N] = (time_ms(lambda: attn.attend(*args)), time_ms(lambda: attn.attend_plain(*args)),
-                device_ms(lambda: attn.attend(*args)))
-        print(f"K10 Luong N={N} kernel {t[N][0]:.4f} ms (device {t[N][2]} ms)  plain "
-              f"{t[N][1]:.4f} ms")
-    # the entry: one beam step's read, N = 80; the memory is one tensor,
-    # read once by the bound (the kernel reads it twice: scores, context)
-    _, att, query, mem, _ = args = k10_luong_inputs(80, dev, seed=83)
-    ctx, w = attn.attend(*args)
-    N, S, Hk = mem.keys.shape
-    Hq, Dv = query.shape[1], mem.values.shape[-1]
-    nb = nbytes(query, att["wq"].to(torch.bfloat16), mem.values, mem.bias, mem.mask, ctx, w)
-    b = bound(nb, 2 * N * (Hq * Hk + S * Hk + S * Dv))
-    print(f"K10 Luong N=80 bound {b[0]:.5f} ms ({b[1]}, {nb / 1e6:.2f} MB); keys and values "
-          f"read apart {bound(nb + nbytes(mem.keys), 0)[0]:.5f} ms")
-    report["luong_attend"] = dict(max_abs_err=worst, ms=t[80][0], plain_ms=t[80][1],
-                                  library_ms=None, device_ms=t[80][2], bound=b)
+    k10_fwd_phase(dev, report, "luong_attend", "K10 Luong", k10_luong_inputs, K10L_W_TOL,
+                  {"Hk": 200}, {"Hk": 272})
 
     # backward: a K=80 loop at N = 128 (the teacher-forced decoder's reads)
     # and one at S = 531
@@ -3471,6 +3633,8 @@ def main() -> int:
                               "avsr_tpu/models/fusion.py:118"),
         "bahdanau_attend": ("avsr_tpu_torch/csrc/bahdanau_attend.cu",
                             "avsr_tpu/ops/attention.py:125"),
+        "bahdanau_attend_grouped": ("avsr_tpu_torch/csrc/attend_grouped.cuh",
+                                    "avsr_tpu/ops/attention.py:125"),
         "bahdanau_attend_bwd": ("avsr_tpu_torch/csrc/bahdanau_attend.cu",
                                 "avsr_tpu/ops/attention.py:125"),
         "bahdanau_attend_sums": ("avsr_tpu_torch/csrc/av_align_bwd.cuh",
@@ -3487,6 +3651,8 @@ def main() -> int:
         "lstm_scan_uni_bwd": ("avsr_tpu_torch/csrc/lstm_scan.cu", "avsr_tpu/ops/rnn.py:236"),
         "luong_attend": ("avsr_tpu_torch/csrc/bahdanau_attend.cu",
                          "avsr_tpu/ops/attention.py:152"),
+        "luong_attend_grouped": ("avsr_tpu_torch/csrc/attend_grouped.cuh",
+                                 "avsr_tpu/ops/attention.py:152"),
         "luong_attend_bwd": ("avsr_tpu_torch/csrc/bahdanau_attend.cu",
                              "avsr_tpu/ops/attention.py:152"),
         "luong_attend_sums": ("avsr_tpu_torch/csrc/av_align_bwd.cuh",

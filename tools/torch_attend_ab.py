@@ -1,28 +1,43 @@
 #!/usr/bin/env python3
-"""Time K10's backward, the RNN decoder's attention read, over a teacher-forced loop in several checkouts on one card.
+"""Time K10, the RNN decoder's attention read, forward and over a teacher-forced loop's backward, in several checkouts on one card.
 
-    python3 tools/torch_attend_ab.py --trees build/parent . --order ABBA
+    python3 tools/torch_attend_ab.py --trees build/parent . --order ABBA [--parts fwd bwd]
 
 Each run is a process of its own started in one checkout (``--trees``, A
 first, then B, C, ...): it builds that checkout's kernels and, for both
 reads (Bahdanau: ``lrs2_av_align``'s decoder, Hq=256, A=128, the fused
 memory Dv=768; Luong: ``lrs2_av_align_uni_luong``'s, Hk=Dv=512, the memory
-its own keys), makes a memory as the train step has it (fp32, requiring a
-gradient, B=128, S=197, ragged with a 0-length row), K=80 queries and
-context cotangents from a seed, runs the K reads forward under autograd
-(inside the checkout's read loop where it has one,
-``ops.attention.open_read_loop``) and times the backward of the whole loop
+its own keys), times:
+
+``--parts fwd``, the forward read as the decode steps issue it
+(``ops.attention.attend`` under ``torch.inference_mode``): a serve
+request's beam step, N = 80 query rows (8 utterances, 10 beams) over S =
+197 and over the 16 s memory (S = 531), and a greedy step, N = 128 rows of
+one beam, each memory ragged with a 0-length row; device ms (chip_smoke's
+``device_ms``: CUDA events around 20 calls queued behind a spin kernel).
+Where the checkout's chip_smoke has ``k10_launch``, each shape also on both
+kernels, the grouped read and the row kernel, whatever the route.  A checkout whose K10 reads the
+untiled memory (``kernels.attend_route``) gets the beam step's 8 memory
+rows; an older one the memory tiled over the beams, as its beam search
+gave it (the tiling is set-up, outside the timed calls).
+
+``--parts bwd``, the backward of a teacher-forced loop: a memory as the
+train step has it (fp32, requiring a gradient, B=128, S=197, ragged with a
+0-length row), K=80 queries and context cotangents from a seed, the K reads
+forward under autograd (inside the checkout's read loop where it has one,
+``ops.attention.open_read_loop``) and the backward of the whole loop
 (``torch.autograd.grad`` over the memory, wq, v and the queries): its
-device time (chip_smoke's ``device_ms``: CUDA events around 3 backwards
-queued behind a spin kernel), its device events under the profiler, split
-by kernel kind (K10's kernels, the memory sums of ``av_align_bwd.cuh``,
-fills, adds, copies and casts, matrix products, the rest) and the peak
-device memory of a forward and backward.  It also splits one call apart:
-in a checkout with the per-call backward (``kernels.bahdanau_attend_bwd``)
-the three ``torch.zeros`` of its outputs, the kernel alone, the weight
-gradients with their rounding, and the casts of the operands; in one with
-the loop route, the per-step kernel alone and the sums of a loop.  The
-runs go in ``--order`` (A B B A by default); the last line is one JSON
+device time (CUDA events around 3 backwards queued behind a spin kernel),
+its device events under the profiler, split by kernel kind (K10's
+kernels, the memory sums of ``av_align_bwd.cuh``, fills, adds, copies and
+casts, matrix products, the rest) and the peak device memory of a forward
+and backward.  It also splits one call apart: in a checkout with the
+per-call backward (``kernels.bahdanau_attend_bwd``) the three
+``torch.zeros`` of its outputs, the kernel alone, the weight gradients with
+their rounding, and the casts of the operands; in one with the loop route,
+the per-step kernel alone and the sums of a loop.
+
+The runs go in ``--order`` (A B B A by default); the last line is one JSON
 object with every run's numbers.  Needs a CUDA card; another checkout is
 typically the parent commit unpacked with ``git archive`` into a
 git-ignored directory.
@@ -68,8 +83,46 @@ def kind(name):
     return "other"
 
 
-out = {"loop_route": LOOP}
-for typ, A, Dv in (("bahdanau", 128, 768), ("luong", 512, 512)):
+out = {"loop_route": LOOP, "untiled": hasattr(kernels, "attend_route")}
+
+
+def fwd_memory(typ, A, Dv, B, W, S, seed):
+    # params, queries [B W, Hq] and a prepared memory of B rows (tiled W times
+    # for a checkout without the untiled read), bf16 values, row 1 empty
+    g = torch.Generator().manual_seed(seed)
+    params = {"wq": (torch.randn(Hq, A, generator=g) / Hq ** 0.5).to(dev)}
+    if typ == "bahdanau":
+        params["v"] = (torch.randn(A, generator=g) / A ** 0.5).to(dev)
+        params["wm"] = (torch.randn(Dv, A, generator=g) / Dv ** 0.5).to(dev)
+        memory = torch.randn(B, S, Dv, generator=g)
+    else:
+        memory = (0.5 * torch.randn(B, S, A, generator=g)).to(bf)
+    lens = torch.randint(1, S + 1, (B,), generator=g)
+    lens[0], lens[1] = S, 0
+    query = (0.5 * torch.randn(B * W, Hq, generator=g)).to(dev)
+    mem = attn.prepare_memory(typ, params, memory.to(dev), lens.to(dev), bf)
+    mem = mem._replace(values=mem.values.to(bf), keys=mem.values.to(bf) if typ == "luong" else mem.keys)
+    if W > 1 and not out["untiled"]:
+        tile = lambda x: x.repeat_interleave(W, dim=0).contiguous()
+        values = tile(mem.values)
+        keys = values if typ == "luong" else tile(mem.keys)
+        mem = attn.AttentionMemory(values=values, keys=keys, mask=tile(mem.mask), bias=tile(mem.bias))
+    return params, query, mem
+
+
+for typ, A, Dv in (("bahdanau", 128, 768), ("luong", 512, 512)) if "fwd" in PARTS else ():
+    with torch.inference_mode():
+        for what, B, W, S_ in (("beam", 8, 10, S), ("beam16", 8, 10, 531), ("greedy", 128, 1, S)):
+            params, query, mem = fwd_memory(typ, A, Dv, B, W, S_, seed=B + W + (S_ != S))
+            out[f"{typ}_fwd_{what}_device_ms"] = cs.device_ms(
+                lambda: attn.attend(typ, params, query, mem, bf))
+            if hasattr(cs, "k10_launch"):
+                ops = attn.kernel_operands(typ, params, mem)
+                out[f"{typ}_fwd_{what}_by_route"] = {r: cs.device_ms(
+                    lambda: cs.k10_launch(r, query, *ops, mem.bias, mem.mask))
+                    for r in ("grouped", "row")}
+
+for typ, A, Dv in (("bahdanau", 128, 768), ("luong", 512, 512)) if "bwd" in PARTS else ():
     g = torch.Generator().manual_seed(5)
     params = {"wq": (torch.randn(Hq, A, generator=g) / Hq ** 0.5).to(dev).requires_grad_()}
     if typ == "bahdanau":
@@ -158,6 +211,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trees", nargs="+", required=True, help="checkout A, B, ...")
     ap.add_argument("--order", default="ABBA")
+    ap.add_argument("--parts", nargs="+", default=["fwd", "bwd"], choices=["fwd", "bwd"])
     args = ap.parse_args()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
@@ -165,18 +219,30 @@ def main() -> int:
     runs = []
     for which in args.order:
         tree = args.trees[ord(which) - ord("A")]
-        res = subprocess.run([sys.executable, "-c", RUN], cwd=tree, capture_output=True,
-                             text=True, env=dict(os.environ))
+        res = subprocess.run([sys.executable, "-c", f"PARTS = {args.parts!r}\n" + RUN], cwd=tree,
+                             capture_output=True, text=True, env=dict(os.environ))
         if res.returncode != 0:
             print(res.stderr[-4000:], file=sys.stderr)
             return 1
         r = json.loads(res.stdout.strip().splitlines()[-1])
         r.update(tree=tree, which=which)
-        print(f"{which} ({tree}): " + "; ".join(
-            f"{t} loop bwd {r[f'{t}_loop_bwd_device_ms']:.4f} ms device, "
-            f"{r[f'{t}_loop_bwd_events']} events, by kind {r[f'{t}_loop_bwd_by_kind']}, peak "
-            f"{r[f'{t}_peak_mb']:.1f} MB, one call {r[f'{t}_split_device_ms']}"
-            for t in ("bahdanau", "luong")), flush=True)
+        parts = []
+        for t in ("bahdanau", "luong"):
+            if "fwd" in args.parts:
+                parts.append(f"{t} fwd device ms beam step {r[f'{t}_fwd_beam_device_ms']:.5f}, "
+                             f"over 16 s {r[f'{t}_fwd_beam16_device_ms']:.5f}, "
+                             f"greedy step {r[f'{t}_fwd_greedy_device_ms']:.5f}")
+                if f"{t}_fwd_beam_by_route" in r:
+                    parts.append(f"{t} fwd device ms by kernel: beam step "
+                                 f"{r[f'{t}_fwd_beam_by_route']}, over 16 s "
+                                 f"{r[f'{t}_fwd_beam16_by_route']}, greedy step "
+                                 f"{r[f'{t}_fwd_greedy_by_route']}")
+            if "bwd" in args.parts:
+                parts.append(
+                    f"{t} loop bwd {r[f'{t}_loop_bwd_device_ms']:.4f} ms device, "
+                    f"{r[f'{t}_loop_bwd_events']} events, by kind {r[f'{t}_loop_bwd_by_kind']}, "
+                    f"peak {r[f'{t}_peak_mb']:.1f} MB, one call {r[f'{t}_split_device_ms']}")
+        print(f"{which} ({tree}, untiled {r['untiled']}): " + "; ".join(parts), flush=True)
         runs.append(r)
     print(json.dumps({"card": card, "runs": runs}))
     return 0
