@@ -1,66 +1,122 @@
-// K3: the log-mel frontend after the DFT, in two launches.
+// K3: the log-mel frontend after the DFT, in three launches.
 //
 // Replaces the post-DFT part of avsr_tpu/ops/audio_features.py:
 // logmel_frontend (the plain-jnp successor of the deleted Pallas fused
 // log-mel): power = re^2 + im^2, the [F -> M] mel product, log(+floor),
 // Δ and ΔΔ over edge-clamped frames (clamped at each utterance's last
 // valid frame, then at the array edges), per-utterance mean/variance
-// normalization over valid frames (eps 1e-8), zeroing of padded frames,
-// and stack/skip framing with a masked tail and the new lengths.
-// The framing gather and the two windowed-DFT products stay matmuls in
-// the caller, as the reference leaves them to XLA.
+// normalization over valid frames (two passes, eps 1e-8), zeroing of
+// padded frames, and stack/skip framing with a masked tail and the new
+// lengths.  The framing gather and the two windowed-DFT products stay
+// matmuls in the caller, as the reference leaves them to XLA.
 //
-// What bounds it on an H100: memory.  The inputs re and im
-// ([B, T, F] fp32, F = 257) are read once — 157 MB at B = 128, 6 s — and
-// the mel product is 2 x F x M = 15 kFLOP per frame, small against that.
-// Design: launch 1 (mel_log_kernel) gives each block RB frames; it stages
-// the mel matrix and the frames' power spectra in shared memory and writes
-// only the [B, T, M] log-mel (M = 30, 11% of the input bytes).  Launch 2
-// (post_kernel) gives each block one (mel bin, utterance) column: the
-// deltas of bin m need only column m, so the static, Δ and ΔΔ columns
-// (3 x T floats) stay in shared memory through the delta windows, the two
-// masked reductions, and the stacked writes — nothing but the final
-// features goes back to device memory.
+// What bounds it on an H100: memory.  The inputs re and im ([B, T, F]
+// fp32, F = 257) are read once, 157 MB at B = 128, 6 s, and the stacked
+// output (stack * 3M floats a stacked frame) written once, 72.6 MB; the
+// rest is small.  Design:
+//
+// 1. mel_band_kernel streams re and im: a block takes 16 frames (a
+//    16-byte aligned run of 16 * F floats, read as float4), forms their
+//    power spectra in shared memory and multiplies by the BANDED mel
+//    matrix: per mel bin the first bin, the count and the weights of its
+//    band (``kernels.mel_band_table``: 460 weights of the presets' 7,710).
+//    Each output sums its band with fmaf in ascending f: a zero weight is
+//    a no-op of fmaf on a finite power, so this is bit for bit the dense
+//    sequential product.  It writes only the log-mel, transposed to
+//    [B, M, T] so that each bin's frames are contiguous.
+// 2. stats_kernel, a block of 128 threads per (utterance, mel bin) (a B =
+//    8 request's 240 columns spread over the SMs, a column's frames over
+//    four warps): the bin's frames, clamped at the last valid one, and
+//    their Δ in shared memory, ΔΔ formed on the fly, then the mean and the
+//    inverse standard deviation of each of the three over the valid frames
+//    (two passes): [B, 2, 3M].
+// 3. writer_kernel, a block per (utterance, chunk of stacked frames): it
+//    stages the chunk's log-mel frames with the 2N-frame halo the two delta
+//    windows need, forms Δ and ΔΔ, normalizes, and writes whole stacked
+//    frames (stack * 3M floats, a contiguous run of its normalized frames)
+//    with 8-byte stores, a warp a frame; no output sector is written by two
+//    blocks.
+//
+// The delta window is a template parameter at the presets' 2 (unrolled),
+// a runtime one otherwise.
+//
+// ``stages`` (bit 1, 2, 4) runs the launches apart for timing; the kernel
+// wrapper runs all three.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int RB = 16;        // frames per block in launch 1
-constexpr int THREADS = 256;
+constexpr int MEL_THREADS = 256;
+constexpr int MEL_ROWS = 16;     // frames a block of launch 1, at most (a multiple of 4)
+constexpr int STAT_THREADS = 128;  // a block a column in launch 2
+constexpr int WR_THREADS = 256;
+constexpr size_t SMEM_LIMIT = 232448;
 
-__global__ void __launch_bounds__(THREADS)
-mel_log_kernel(const float* __restrict__ re, const float* __restrict__ im,
-               const float* __restrict__ melw,  // [F, M]
-               float* __restrict__ logmel,      // [rows, M]
-               int rows, int F, int M, float log_floor) {
-  extern __shared__ float sm[];
-  float* w_s = sm;           // [F * M]
-  float* p_s = sm + F * M;   // [RB * F]
-  const int row0 = blockIdx.x * RB;
-  for (int idx = threadIdx.x; idx < F * M; idx += blockDim.x) w_s[idx] = melw[idx];
-  for (int idx = threadIdx.x; idx < RB * F; idx += blockDim.x) {
-    const int r = idx / F;
-    const int f = idx - r * F;
-    const int row = row0 + r;
-    float a = 0.f, b = 0.f;
-    if (row < rows) {
-      a = re[(size_t)row * F + f];
-      b = im[(size_t)row * F + f];
+__device__ __forceinline__ float power(float a, float b) {
+  return __fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b));
+}
+
+__global__ void __launch_bounds__(MEL_THREADS)
+mel_band_kernel(const float* __restrict__ re, const float* __restrict__ im,
+                const int* __restrict__ band,       // [M, 3]: first bin, count, offset
+                const float* __restrict__ weights,  // [nw]
+                float* __restrict__ logmel,         // [B, M, T]
+                int rows, int T, int F, int M, int nw, int rows_per_block, float log_floor) {
+  extern __shared__ __align__(16) float sm[];
+  float* p_s = sm;                                 // [rows_per_block * F]
+  float* w_s = p_s + rows_per_block * F;           // [nw]
+  int* band_s = reinterpret_cast<int*>(w_s + nw);  // [3M]
+  const long long row0 = (long long)blockIdx.x * rows_per_block;
+  const int nrows = (int)min((long long)rows_per_block, rows - row0);
+  for (int i = threadIdx.x; i < nw; i += MEL_THREADS) w_s[i] = weights[i];
+  for (int i = threadIdx.x; i < 3 * M; i += MEL_THREADS) band_s[i] = band[i];
+
+  // row0 is a multiple of 4, so the run starts 16-byte aligned
+  const size_t base = (size_t)row0 * F;
+  const int n = nrows * F;
+  const int n4 = n >> 2;
+  const float4* re4 = reinterpret_cast<const float4*>(re + base);
+  const float4* im4 = reinterpret_cast<const float4*>(im + base);
+  float4* p4 = reinterpret_cast<float4*>(p_s);
+  constexpr int U = 4;
+  for (int i0 = 0; i0 < n4; i0 += U * MEL_THREADS) {
+    float4 x[U], y[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * MEL_THREADS + threadIdx.x;
+      if (i < n4) {
+        x[u] = __ldg(re4 + i);
+        y[u] = __ldg(im4 + i);
+      }
     }
-    p_s[idx] = __fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b));
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * MEL_THREADS + threadIdx.x;
+      if (i < n4)
+        p4[i] = make_float4(power(x[u].x, y[u].x), power(x[u].y, y[u].y),
+                            power(x[u].z, y[u].z), power(x[u].w, y[u].w));
+    }
   }
+  for (int i = 4 * n4 + threadIdx.x; i < n; i += MEL_THREADS)
+    p_s[i] = power(re[base + i], im[base + i]);
   __syncthreads();
-  for (int o = threadIdx.x; o < RB * M; o += blockDim.x) {
-    const int r = o / M;
-    const int m = o - r * M;
-    const int row = row0 + r;
-    if (row >= rows) continue;
-    const float* p = p_s + r * F;
+
+  // consecutive threads take consecutive frames of one bin: the [B, M, T]
+  // stores run along t
+  for (int o = threadIdx.x; o < nrows * M; o += MEL_THREADS) {
+    const int m = o / nrows;
+    const int r = o - m * nrows;
+    const int f0 = band_s[3 * m], cnt = band_s[3 * m + 1];
+    const float* p = p_s + r * F + f0;
+    const float* w = w_s + band_s[3 * m + 2];
     float acc = 0.f;
-    for (int f = 0; f < F; ++f) acc = fmaf(p[f], w_s[f * M + m], acc);
-    logmel[(size_t)row * M + m] = logf(acc + log_floor);
+    for (int k = 0; k < cnt; ++k) acc = fmaf(p[k], w[k], acc);
+    const long long row = row0 + r;
+    const long long bb = row / T;
+    const int t = (int)(row - bb * T);
+    logmel[((size_t)bb * M + m) * T + t] = logf(acc + log_floor);
   }
 }
 
@@ -69,150 +125,323 @@ __device__ __forceinline__ int floordiv(int a, int b) {
   return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
 }
 
-// Block-wide sum of three values; every thread gets the totals.
-__device__ __forceinline__ void block_sum3(float& a, float& b, float& c) {
-  __shared__ float red[3][THREADS / 32];
-  for (int off = 16; off > 0; off >>= 1) {
-    a += __shfl_down_sync(0xffffffffu, a, off);
-    b += __shfl_down_sync(0xffffffffu, b, off);
-    c += __shfl_down_sync(0xffffffffu, c, off);
+__device__ __forceinline__ int stacked_len(int L, int T, int Tp, int stack, int skip) {
+  int nl = max(floordiv(L - stack, skip) + 1, min(L, 1));
+  return min(max(nl, 0), Tp);
+}
+
+__device__ __forceinline__ float delta_denom(int N) {
+  float denom = 0.f;
+  for (int n = 1; n <= N; ++n) denom += 2.0f * n * n;
+  return denom;
+}
+
+// Δ at frame t of the column src (index i = frame - origin), regression
+// window N (NT when NT > 0: the presets' 2, unrolled), frame indices
+// clamped to [0, T)
+template <int NT>
+__device__ __forceinline__ float delta_at(const float* src, int origin, int t, int T, int N_rt,
+                                          float denom) {
+  const int N = NT > 0 ? NT : N_rt;
+  float acc = 0.f;
+#pragma unroll
+  for (int n = 1; n <= N; ++n) {
+    const float hi = src[min(t + n, T - 1) - origin];
+    const float lo = src[max(t - n, 0) - origin];
+    acc = acc + (float)n * (hi - lo);
   }
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (lane == 0) {
-    red[0][warp] = a;
-    red[1][warp] = b;
-    red[2][warp] = c;
+  return acc / denom;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Sums of a, b and c over the block (STAT_THREADS), in every thread.
+__device__ __forceinline__ void block_sum3(float& a, float& b, float& c, float* red) {
+  a = warp_sum(a);
+  b = warp_sum(b);
+  c = warp_sum(c);
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    red[3 * warp] = a;
+    red[3 * warp + 1] = b;
+    red[3 * warp + 2] = c;
   }
   __syncthreads();
   a = b = c = 0.f;
-  for (int w = 0; w < THREADS / 32; ++w) {
-    a += red[0][w];
-    b += red[1][w];
-    c += red[2][w];
+#pragma unroll
+  for (int w = 0; w < STAT_THREADS / 32; ++w) {
+    a += red[3 * w];
+    b += red[3 * w + 1];
+    c += red[3 * w + 2];
   }
   __syncthreads();  // red is reused by the next call
 }
 
-// Δ of column src into dst: regression window N, indices clamped to [0, T).
-__device__ __forceinline__ void delta_column(const float* src, float* dst,
-                                             int T, int N) {
-  float denom = 0.f;
-  for (int n = 1; n <= N; ++n) denom += 2.0f * n * n;
-  for (int t = threadIdx.x; t < T; t += blockDim.x) {
-    float acc = 0.f;
-    for (int n = 1; n <= N; ++n) {
-      const float hi = src[min(t + n, T - 1)];
-      const float lo = src[max(t - n, 0)];
-      acc = acc + (float)n * (hi - lo);
-    }
-    dst[t] = acc / denom;
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-post_kernel(const float* __restrict__ logmel,  // [B, T, M]
-            const int* __restrict__ feat_len,  // [B]
-            float* __restrict__ out,           // [B, Tp, stack * 3M]
-            int* __restrict__ new_len,         // [B]
-            int T, int M, int Tp, int stack, int skip, int N) {
-  extern __shared__ float col[];  // [3][T]: static, Δ, ΔΔ of bin m
-  float* e = col;
-  float* d1 = col + T;
-  float* d2 = col + 2 * T;
-  const int m = blockIdx.x;
-  const int b = blockIdx.y;
+// A block per (utterance, bin): stats [B, 2, 3M] = (means, inverse std) of
+// the static, Δ and ΔΔ columns over the valid frames; new_len [B].
+template <int NT>
+__global__ void __launch_bounds__(STAT_THREADS)
+stats_kernel(const float* __restrict__ logmel,  // [B, M, T]
+             const int* __restrict__ feat_len, float* __restrict__ stats,
+             int* __restrict__ new_len, int T, int M, int Tp, int stack, int skip, int N_rt) {
+  extern __shared__ float sm[];
+  __shared__ float red[3 * STAT_THREADS / 32];
+  const int N = NT > 0 ? NT : N_rt;
+  const int col = blockIdx.x;  // b * M + m
+  const int b = col / M, m = col - b * M;
+  float* e = sm;       // [T]
+  float* d1 = e + T;   // [T]
   const int L = feat_len[b];
-  const int Lc = min(max(L, 0), T);   // valid frames
-  const int last = max(Lc - 1, 0);    // edge frame for the delta windows
+  const int Lc = min(max(L, 0), T);
+  const int last = max(Lc - 1, 0);
+  const float denom = delta_denom(N);
+  const float* src = logmel + (size_t)col * T;
+  // ΔΔ at the valid frames reads Δ up to N frames on, which reads the
+  // log-mel up to 2N frames on (indices clamped to [0, T))
+  const int Te = min(Lc + 2 * N, T), T1 = min(Lc + N, T);
+  for (int t0 = threadIdx.x; t0 < Te; t0 += 4 * STAT_THREADS) {  // four loads in flight
+    float x[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int t = t0 + STAT_THREADS * u;
+      if (t < Te) x[u] = src[min(t, last)];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int t = t0 + STAT_THREADS * u;
+      if (t < Te) e[t] = x[u];
+    }
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < T1; t += STAT_THREADS) d1[t] = delta_at<NT>(e, 0, t, T, N, denom);
+  __syncthreads();
 
-  const float* src = logmel + (size_t)b * T * M + m;
-  for (int t = threadIdx.x; t < T; t += blockDim.x) e[t] = src[(size_t)min(t, last) * M];
-  __syncthreads();
-  delta_column(e, d1, T, N);
-  __syncthreads();
-  delta_column(d1, d2, T, N);
-  __syncthreads();
-
-  const float denom = (float)max(Lc, 1);
+  // first pass: the sums (ΔΔ formed on the fly), second: the squares
+  const float cnt = (float)max(Lc, 1);
   float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-  for (int t = threadIdx.x; t < Lc; t += blockDim.x) {
+  for (int t = threadIdx.x; t < Lc; t += STAT_THREADS) {
     s0 += e[t];
     s1 += d1[t];
-    s2 += d2[t];
+    s2 += delta_at<NT>(d1, 0, t, T, N, denom);
   }
-  block_sum3(s0, s1, s2);
-  const float mu0 = s0 / denom, mu1 = s1 / denom, mu2 = s2 / denom;
+  block_sum3(s0, s1, s2, red);
+  const float mu0 = s0 / cnt, mu1 = s1 / cnt, mu2 = s2 / cnt;
   float v0 = 0.f, v1 = 0.f, v2 = 0.f;
-  for (int t = threadIdx.x; t < Lc; t += blockDim.x) {
-    const float a = e[t] - mu0, bb = d1[t] - mu1, cc = d2[t] - mu2;
+  for (int t = threadIdx.x; t < Lc; t += STAT_THREADS) {
+    const float a = e[t] - mu0, bb = d1[t] - mu1;
+    const float cc = delta_at<NT>(d1, 0, t, T, N, denom) - mu2;
     v0 += a * a;
     v1 += bb * bb;
     v2 += cc * cc;
   }
-  block_sum3(v0, v1, v2);
-  const float inv0 = 1.0f / sqrtf(v0 / denom + 1e-8f);
-  const float inv1 = 1.0f / sqrtf(v1 / denom + 1e-8f);
-  const float inv2 = 1.0f / sqrtf(v2 / denom + 1e-8f);
+  block_sum3(v0, v1, v2, red);
+  if (threadIdx.x == 0) {
+    float* mu = stats + (size_t)b * 6 * M;
+    float* inv = mu + 3 * M;
+    mu[m] = mu0;
+    mu[M + m] = mu1;
+    mu[2 * M + m] = mu2;
+    inv[m] = 1.0f / sqrtf(v0 / cnt + 1e-8f);
+    inv[M + m] = 1.0f / sqrtf(v1 / cnt + 1e-8f);
+    inv[2 * M + m] = 1.0f / sqrtf(v2 / cnt + 1e-8f);
+    if (m == 0) new_len[b] = stacked_len(L, T, Tp, stack, skip);
+  }
+}
 
-  int nl = max(floordiv(L - stack, skip) + 1, min(L, 1));
-  nl = min(max(nl, 0), Tp);
-  if (m == 0 && threadIdx.x == 0) new_len[b] = nl;
+// The frames a chunk of stacked frames [tp0, tp1) reads, and the halo its
+// delta windows add, clamped to [0, T).
+struct ChunkFrames {
+  int ta, tb;  // frames of the output
+  int s0, s1;  // staged log-mel frames: [ta - 2N, tb + 2N]
+  int u0, u1;  // Δ frames: [ta - N, tb + N]
+};
 
+__host__ __device__ __forceinline__ ChunkFrames chunk_frames(int tp0, int tp1, int T, int stack,
+                                                             int skip, int N) {
+  ChunkFrames c;
+  c.ta = tp0 * skip;
+  c.tb = (tp1 - 1) * skip + stack - 1;
+  c.s0 = c.ta - 2 * N > 0 ? c.ta - 2 * N : 0;
+  c.s1 = c.tb + 2 * N < T - 1 ? c.tb + 2 * N : T - 1;
+  c.u0 = c.ta - N > 0 ? c.ta - N : 0;
+  c.u1 = c.tb + N < T - 1 ? c.tb + N : T - 1;
+  return c;
+}
+
+size_t writer_smem(int M, int chunk, int stack, int skip, int N) {
+  const int ns = (chunk - 1) * skip + stack + 4 * N;  // staged frames, at most
+  const int ny = (chunk - 1) * skip + stack;          // output frames, at most
+  return ((size_t)2 * M * ns + (size_t)ny * 3 * M + (size_t)6 * M) * sizeof(float);
+}
+
+// A block per (chunk of stacked frames, utterance): out [B, Tp, stack * 3M].
+template <int NT>
+__global__ void __launch_bounds__(WR_THREADS)
+writer_kernel(const float* __restrict__ logmel,  // [B, M, T]
+              const int* __restrict__ feat_len, const float* __restrict__ stats,
+              float* __restrict__ out, int T, int M, int Tp, int stack, int skip, int N,
+              int chunk) {
+  extern __shared__ __align__(16) float sm[];
+  const int b = blockIdx.y;
+  const int tp0 = blockIdx.x * chunk;
+  const int tp1 = min(tp0 + chunk, Tp);
+  const ChunkFrames c = chunk_frames(tp0, tp1, T, stack, skip, N);
+  const int ns = c.s1 - c.s0 + 1;
+  const int ny = c.tb - c.ta + 1;
   const int D = 3 * M;
-  float* ob = out + (size_t)b * Tp * stack * D;
-  for (int idx = threadIdx.x; idx < Tp * stack; idx += blockDim.x) {
-    const int tp = idx / stack;
-    const int t = tp * skip + (idx - tp * stack);
-    float y0 = 0.f, y1 = 0.f, y2 = 0.f;
-    if (tp < nl && t < Lc) {
-      y0 = (e[t] - mu0) * inv0;
-      y1 = (d1[t] - mu1) * inv1;
-      y2 = (d2[t] - mu2) * inv2;
+  float* e_s = sm;                 // [M][ns]: log-mel frames s0..s1
+  float* d1_s = e_s + M * ns;      // [M][ns]: Δ at frames u0..u1 (index frame - s0)
+  float* y_s = d1_s + M * ns;      // [ny][D]: normalized features of frames ta..tb
+  float* st_s = y_s + ny * D;      // [6M]: means, inverse std
+  const int L = feat_len[b];
+  const int Lc = min(max(L, 0), T);
+  const int last = max(Lc - 1, 0);
+  const int nl = stacked_len(L, T, Tp, stack, skip);
+  const float denom = delta_denom(N);
+
+  for (int i = threadIdx.x; i < 2 * D; i += WR_THREADS) st_s[i] = stats[(size_t)b * 2 * D + i];
+  const float* src = logmel + (size_t)b * M * T;
+  for (int i0 = 0; i0 < M * ns; i0 += 4 * WR_THREADS) {  // four loads in flight a thread
+    float x[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + u * WR_THREADS + threadIdx.x;
+      if (i < M * ns) {
+        const int m = i / ns;
+        x[u] = src[(size_t)m * T + min(c.s0 + (i - m * ns), last)];
+      }
     }
-    float* o = ob + (size_t)idx * D;
-    o[m] = y0;
-    o[M + m] = y1;
-    o[2 * M + m] = y2;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + u * WR_THREADS + threadIdx.x;
+      if (i < M * ns) e_s[i] = x[u];
+    }
+  }
+  __syncthreads();
+  const int nu = c.u1 - c.u0 + 1;
+  for (int i = threadIdx.x; i < M * nu; i += WR_THREADS) {
+    const int m = i / nu;
+    const int t = c.u0 + (i - m * nu);
+    d1_s[m * ns + t - c.s0] = delta_at<NT>(e_s + m * ns, c.s0, t, T, N, denom);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < ny * M; i += WR_THREADS) {  // the static, Δ, ΔΔ of (t, m)
+    const int tl = i / M;
+    const int m = i - tl * M;
+    const int t = c.ta + tl;
+    float* y = y_s + tl * D + m;
+    if (t < Lc) {
+      const int at = m * ns + t - c.s0;
+      y[0] = (e_s[at] - st_s[m]) * st_s[D + m];
+      y[M] = (d1_s[at] - st_s[M + m]) * st_s[D + M + m];
+      y[2 * M] = (delta_at<NT>(d1_s + m * ns, c.s0, t, T, N, denom) - st_s[2 * M + m]) *
+                 st_s[D + 2 * M + m];
+    } else {
+      y[0] = y[M] = y[2 * M] = 0.f;
+    }
+  }
+  __syncthreads();
+
+  // whole stacked frames tp0..tp1-1, a warp a frame: stacked frame tp is the
+  // stack * 3M contiguous features of frames tp * skip onwards in y_s
+  const int RW = stack * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int tl = warp; tl < tp1 - tp0; tl += WR_THREADS / 32) {
+    const bool live = tp0 + tl < nl;
+    const float* y = y_s + tl * skip * D;
+    float* o = out + ((size_t)b * Tp + tp0 + tl) * RW;
+    if (RW % 2 == 0 && (skip * D) % 2 == 0) {  // 8-byte aligned in y_s and the output
+      const float2* y2 = reinterpret_cast<const float2*>(y);
+      float2* o2 = reinterpret_cast<float2*>(o);
+      for (int q = lane; q < RW / 2; q += 32) o2[q] = live ? y2[q] : make_float2(0.f, 0.f);
+    } else {
+      for (int q = lane; q < RW; q += 32) o[q] = live ? y[q] : 0.f;
+    }
   }
 }
 
 cudaError_t allow_smem(const void* fn, size_t bytes) {
+  if (bytes > SMEM_LIMIT) return cudaErrorInvalidValue;
   if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+size_t mel_smem(int rows_per_block, int F, int M, int nw) {
+  return ((size_t)rows_per_block * F + nw + 3 * M) * sizeof(float);
 }
 
 }  // namespace
 
-// logmel: [B, T, M] fp32 scratch; out: [B, Tp, stack * 3M]; new_len: [B].
-extern "C" int avsr_logmel_post_dft(const void* re, const void* im,
-                                    const void* feat_len, const void* melw,
-                                    void* logmel, void* out, void* new_len,
-                                    int B, int T, int F, int M, int Tp,
-                                    int stack, int skip, int delta_window,
-                                    float log_floor, void* stream) {
+// Shared memory of launch 3's blocks (``kernels.logmel_writer_smem``).
+extern "C" long long avsr_logmel_writer_smem(int M, int chunk, int stack, int skip, int N) {
+  return (long long)writer_smem(M, chunk, stack, skip, N);
+}
+
+// logmel: [B, M, T] fp32 scratch; stats: [B, 2, 3M] fp32 scratch;
+// out: [B, Tp, stack * 3M]; new_len: [B]; band [M, 3] int32 and weights
+// [nw] fp32 from kernels.mel_band_table.
+extern "C" int avsr_logmel_post_dft(const void* re, const void* im, const void* feat_len,
+                                    const void* band, const void* weights, void* logmel,
+                                    void* stats, void* out, void* new_len, int B, int T, int F,
+                                    int M, int nw, int Tp, int stack, int skip, int delta_window,
+                                    int chunk, float log_floor, int stages, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (B < 0 || T < 0 || F < 1 || M < 1 || nw < 0 || Tp < 0 || stack < 1 || skip < 1 ||
+      delta_window < 0 || chunk < 1)
+    return (int)cudaErrorInvalidValue;
   const int rows = B * T;
-  if (rows > 0) {
-    const size_t smem = ((size_t)F * M + (size_t)RB * F) * sizeof(float);
-    cudaError_t e = allow_smem((const void*)mel_log_kernel, smem);
+  if ((stages & 1) && rows > 0) {
+    int rpb = MEL_ROWS;
+    while (rpb > 4 && mel_smem(rpb, F, M, nw) > SMEM_LIMIT) rpb /= 2;
+    const size_t smem = mel_smem(rpb, F, M, nw);
+    cudaError_t e = allow_smem((const void*)mel_band_kernel, smem);
     if (e != cudaSuccess) return (int)e;
-    mel_log_kernel<<<(rows + RB - 1) / RB, THREADS, smem, st>>>(
+    mel_band_kernel<<<(rows + rpb - 1) / rpb, MEL_THREADS, smem, st>>>(
         static_cast<const float*>(re), static_cast<const float*>(im),
-        static_cast<const float*>(melw), static_cast<float*>(logmel), rows, F,
-        M, log_floor);
+        static_cast<const int*>(band), static_cast<const float*>(weights),
+        static_cast<float*>(logmel), rows, T, F, M, nw, rpb, log_floor);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  if (B > 0 && M > 0) {
-    const size_t smem = (size_t)3 * T * sizeof(float);
-    cudaError_t e = allow_smem((const void*)post_kernel, smem);
+  const bool n2 = delta_window == 2;  // the presets' window, unrolled
+  if ((stages & 2) && B > 0) {
+    const size_t smem = (size_t)2 * T * sizeof(float);
+    const void* fn = n2 ? (const void*)stats_kernel<2> : (const void*)stats_kernel<0>;
+    cudaError_t e = allow_smem(fn, smem);
     if (e != cudaSuccess) return (int)e;
-    post_kernel<<<dim3(M, B), THREADS, smem, st>>>(
-        static_cast<const float*>(logmel), static_cast<const int*>(feat_len),
-        static_cast<float*>(out), static_cast<int*>(new_len), T, M, Tp, stack,
-        skip, delta_window);
+    if (n2)
+      stats_kernel<2><<<B * M, STAT_THREADS, smem, st>>>(
+          static_cast<const float*>(logmel), static_cast<const int*>(feat_len),
+          static_cast<float*>(stats), static_cast<int*>(new_len), T, M, Tp, stack, skip,
+          delta_window);
+    else
+      stats_kernel<0><<<B * M, STAT_THREADS, smem, st>>>(
+          static_cast<const float*>(logmel), static_cast<const int*>(feat_len),
+          static_cast<float*>(stats), static_cast<int*>(new_len), T, M, Tp, stack, skip,
+          delta_window);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  if ((stages & 4) && B > 0 && Tp > 0) {
+    const size_t smem = writer_smem(M, chunk, stack, skip, delta_window);
+    const void* fn = n2 ? (const void*)writer_kernel<2> : (const void*)writer_kernel<0>;
+    cudaError_t e = allow_smem(fn, smem);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((Tp + chunk - 1) / chunk, B);
+    if (n2)
+      writer_kernel<2><<<grid, WR_THREADS, smem, st>>>(
+          static_cast<const float*>(logmel), static_cast<const int*>(feat_len),
+          static_cast<const float*>(stats), static_cast<float*>(out), T, M, Tp, stack, skip,
+          delta_window, chunk);
+    else
+      writer_kernel<0><<<grid, WR_THREADS, smem, st>>>(
+          static_cast<const float*>(logmel), static_cast<const int*>(feat_len),
+          static_cast<const float*>(stats), static_cast<float*>(out), T, M, Tp, stack, skip,
+          delta_window, chunk);
   }
   return (int)cudaGetLastError();
 }

@@ -18,13 +18,17 @@ Same semantics as the reference, top-1 only:
   for all of its W beams, query row n reading memory row n // W, where the
   reference tiles the memories (the same values);
 * the step after the decoder (log-softmax, masks, length penalty, top-W,
-  gathers, trellis row) is kernel K7: ``beam_step`` launches
-  ``csrc/beam_step.cu`` for GPU tensors and runs ``beam_step_plain`` for
-  CPU tensors; the length penalty of every length is one table, computed
-  once, so both divide by the same values;
-* the loop exits early, on the host, once every beam of every row is
-  finished or dead (score still ~NEG_INF) — the remaining steps would only
-  append zero-score EOS continuations;
+  gathers, trellis row) and the loop's condition on the new carry (every
+  beam of a row finished or dead: score still ~NEG_INF) are kernel K7.
+  ``beam_stepper`` gives the search its step: ``kernels.BeamStep``
+  (``csrc/beam_step.cu``) for GPU tensors, which checks the tensors, looks
+  up the stream and binds the kernel's arguments once per search, or
+  ``beam_step_plain`` for CPU tensors.  The carry lives in two sets of
+  buffers allocated once per search, each step reading one and writing the
+  other, so a step allocates nothing.  The length penalty of every length
+  is one table, computed once, so both paths divide by the same values;
+* the loop exits early, on the host, once every row's settled flag is set:
+  the remaining steps would only append zero-score EOS continuations;
 * the (token, parent) trellis is backtracked from the best leaf, on the
   host, and everything after the first EOS becomes PAD.
 
@@ -56,11 +60,24 @@ class BeamResult(NamedTuple):
 
 
 class StepOut(NamedTuple):
-    flat_parent: torch.Tensor  # [B*W] int64: b * W + parent, the cache gather index
+    """One carry of the search and the step outputs written with it (K7
+    reads logp, lens and finished, and writes every field)."""
+    flat_parent: torch.Tensor  # [B*W] int64: b * W + parent, the state gather index
     feed: torch.Tensor         # [B, W] int64: next input, EOS where the parent had finished
     logp: torch.Tensor         # [B, W] f32
     lens: torch.Tensor         # [B, W] int32
     finished: torch.Tensor     # [B, W] bool
+    settled: torch.Tensor      # [B] bool: every beam of the row finished or dead
+
+
+def step_buffers(B: int, W: int, device) -> StepOut:
+    """Uninitialized buffers of one carry and its step outputs."""
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    return StepOut(flat_parent=empty((B * W,), torch.long), feed=empty((B, W), torch.long),
+                   logp=empty((B, W), torch.float32), lens=empty((B, W), torch.int32),
+                   finished=empty((B, W), torch.bool), settled=empty((B,), torch.bool))
 
 
 def length_penalty_table(max_length: int, alpha: float, device) -> torch.Tensor:
@@ -71,12 +88,14 @@ def length_penalty_table(max_length: int, alpha: float, device) -> torch.Tensor:
     return torch.pow((5.0 + lengths.float()) / 6.0, alpha)
 
 
-def beam_step_plain(logits, logp, lens, finished, lp_table, tokens_row,
-                    parents_row) -> StepOut:
+def beam_step_plain(logits, logp, lens, finished, lp_table, tokens_row, parents_row,
+                    out: StepOut) -> StepOut:
     """Plain-PyTorch K7: one beam step from the decoder's fp32 logits
     [B*W, V] and the beam state (logp [B,W] f32, lens [B,W] int32,
     finished [B,W] bool).  Writes the chosen tokens and parents into the
-    trellis rows ``tokens_row`` / ``parents_row`` [B,W] int64."""
+    trellis rows ``tokens_row`` / ``parents_row`` [B,W] int64 and the new
+    carry, the state gather index, the feed and the settled flags into
+    ``out``; returns ``out``."""
     B, W = logp.shape
     V = logits.shape[-1]
     step_logp = torch.log_softmax(logits, dim=-1)
@@ -94,23 +113,49 @@ def beam_step_plain(logits, logp, lens, finished, lp_table, tokens_row,
     parent = flat_idx // V
     token = flat_idx % V
     was_finished = torch.gather(finished, 1, parent)
+    new_logp = torch.gather(cand_logp.reshape(B, W * V), 1, flat_idx)
+    new_finished = was_finished | (token == EOS_ID)
     tokens_row.copy_(token)
     parents_row.copy_(parent)
-    return StepOut(
-        flat_parent=(torch.arange(B, device=logits.device)[:, None] * W + parent).reshape(B * W),
-        feed=torch.where(was_finished, torch.full_like(token, EOS_ID), token),
-        logp=torch.gather(cand_logp.reshape(B, W * V), 1, flat_idx),
-        lens=torch.gather(cand_lens.reshape(B, W * V), 1, flat_idx),
-        finished=was_finished | (token == EOS_ID))
+    out.flat_parent.copy_(
+        (torch.arange(B, device=logits.device)[:, None] * W + parent).reshape(B * W))
+    out.feed.copy_(torch.where(was_finished, torch.full_like(token, EOS_ID), token))
+    out.logp.copy_(new_logp)
+    out.lens.copy_(torch.gather(cand_lens.reshape(B, W * V), 1, flat_idx))
+    out.finished.copy_(new_finished)
+    out.settled.copy_((new_finished | (new_logp < NEG_INF / 2)).all(dim=1))
+    return out
 
 
-def beam_step(logits, logp, lens, finished, lp_table, tokens_row, parents_row) -> StepOut:
-    """K7 wrapper: the CUDA kernel for GPU tensors, the plain version on the
-    CPU; same contract as ``beam_step_plain``."""
+def beam_step(logits, logp, lens, finished, lp_table, tokens_row, parents_row,
+              out: StepOut) -> StepOut:
+    """K7 wrapper, one call: the CUDA kernel for GPU tensors, the plain
+    version on the CPU; same contract as ``beam_step_plain``."""
     if logits.device.type == "cpu":
-        return beam_step_plain(logits, logp, lens, finished, lp_table, tokens_row, parents_row)
-    return StepOut(*kernels.beam_step(logits.float().contiguous(), logp, lens, finished,
-                                      lp_table, tokens_row, parents_row))
+        return beam_step_plain(logits, logp, lens, finished, lp_table, tokens_row,
+                               parents_row, out)
+    return kernels.beam_step(logits, logp, lens, finished, lp_table, tokens_row,
+                             parents_row, out)
+
+
+def plain_stepper(lp_table, tokens, parents, carries, V: int):
+    """``beam_stepper``'s contract on ``beam_step_plain``."""
+    def step(logits, t: int, src: int) -> None:
+        c = carries[src]
+        beam_step_plain(logits, c.logp, c.lens, c.finished, lp_table, tokens[t], parents[t],
+                        carries[1 - src])
+
+    return step
+
+
+def beam_stepper(lp_table, tokens, parents, carries, V: int):
+    """K7 for one search: ``step(logits, t, src)`` reads carry ``src`` of the
+    two ``carries`` (``StepOut``s), writes carry ``1 - src`` and row t of the
+    [L, B, W] trellises.  ``kernels.BeamStep`` for GPU tensors (checked once
+    here), ``plain_stepper`` for CPU tensors."""
+    if lp_table.device.type == "cpu":
+        return plain_stepper(lp_table, tokens, parents, carries, V)
+    return kernels.BeamStep(lp_table, tokens, parents, carries, V)
 
 
 def _cast_memory(mem: attn.AttentionMemory, cdt: torch.dtype) -> attn.AttentionMemory:
@@ -152,28 +197,34 @@ def beam_search(params, cfg: DecoderConfig, memories: Sequence[attn.AttentionMem
     cross_kv = dec.prepare_cross(params, cfg, mems, cdt)
     lp_table = length_penalty_table(max_length, length_penalty, dev)
 
-    tok = torch.full((B * W,), GO_ID, dtype=torch.long, device=dev)
-    logp = torch.full((B, W), NEG_INF, dtype=torch.float32, device=dev)
-    logp[:, 0] = 0.0  # only beam 0 is live at step 0 (all beams start identical)
-    finished = torch.zeros((B, W), dtype=torch.bool, device=dev)
-    lens = torch.zeros((B, W), dtype=torch.int32, device=dev)
+    V = params["embedding"].shape[0]  # the vocabulary: the logits' width
+    carries = (step_buffers(B, W, dev), step_buffers(B, W, dev))
+    carry = carries[0]
+    carry.logp.fill_(NEG_INF)
+    carry.logp[:, 0] = 0.0  # only beam 0 is live at step 0 (all beams start identical)
+    carry.finished.zero_()
+    carry.lens.zero_()
     # Trellis pre-filled with the no-op continuation (token EOS, parent =
     # self): steps the early exit skips read as "every beam keeps feeding
     # EOS", which is what the full-horizon loop would have recorded.
     tokens_buf = torch.full((max_length, B, W), EOS_ID, dtype=torch.long, device=dev)
     parents_buf = torch.arange(W, device=dev).expand(max_length, B, W).clone()
+    step = beam_stepper(lp_table, tokens_buf, parents_buf, carries, V) if B else None
+    feeds = [c.feed.view(B * W) for c in carries]
 
-    t = 0
-    while t < max_length:
-        settled = finished | (logp < NEG_INF / 2)
-        if bool(settled.all()):
-            break
+    tok = torch.full((B * W,), GO_ID, dtype=torch.long, device=dev)
+    t, src = 0, 0
+    settled = B == 0  # the initial carry: beam 0 of every row live
+    while t < max_length and not settled:
         state, logits = dec.decoder_step(params, cfg, tok, state, mems, cross_kv, cdt)
-        out = beam_step(logits, logp, lens, finished, lp_table, tokens_buf[t], parents_buf[t])
-        logp, lens, finished = out.logp, out.lens, out.finished
-        state = _gather_rows(state, out.flat_parent)
-        tok = out.feed.reshape(B * W)
+        step(logits, t, src)
+        src = 1 - src
+        carry = carries[src]
+        state = _gather_rows(state, carry.flat_parent)
+        tok = feeds[src]
+        settled = bool(carry.settled.all())
         t += 1
+    logp, lens, finished = carry.logp, carry.lens, carry.finished
 
     # Final ranking: normalized score, strongly preferring finished beams
     # when any beam of the row finished.

@@ -29,8 +29,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -179,10 +180,10 @@ def _load() -> ctypes.CDLL:
         lib.avsr_fusion_attn_fwd.restype = i
         lib.avsr_fusion_attn_bwd.argtypes = [p] * 11 + [i] * 6 + [p]
         lib.avsr_fusion_attn_bwd.restype = i
-        lib.avsr_logmel_post_dft.argtypes = [
-            p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p,
-        ]
+        lib.avsr_logmel_post_dft.argtypes = [p] * 9 + [i] * 10 + [f, i, p]
         lib.avsr_logmel_post_dft.restype = i
+        lib.avsr_logmel_writer_smem.argtypes = [i] * 5
+        lib.avsr_logmel_writer_smem.restype = ctypes.c_longlong
         lib.avsr_fusion_attn_core_fwd.argtypes = [p] * 6 + [i] * 6 + [p]
         lib.avsr_fusion_attn_core_fwd.restype = i
         lib.avsr_attn_core_smem.argtypes = [i, i, i, i]
@@ -215,8 +216,12 @@ def _load() -> ctypes.CDLL:
         lib.avsr_decode_attn_grouped.restype = i
         lib.avsr_decode_grouped_smem.argtypes = [i] * 4
         lib.avsr_decode_grouped_smem.restype = ctypes.c_longlong
-        lib.avsr_beam_step.argtypes = [p] * 12 + [i] * 4 + [p]
+        lib.avsr_beam_step.argtypes = [ctypes.POINTER(_BeamStepArgs), p, i, i, p]
         lib.avsr_beam_step.restype = i
+        lib.avsr_beam_step_smem.argtypes = [i, i]
+        lib.avsr_beam_step_smem.restype = ctypes.c_longlong
+        lib.avsr_launch_floor.argtypes = [p]
+        lib.avsr_launch_floor.restype = i
         lib.avsr_av_align_smem.argtypes = [i, i, i, i, i]
         lib.avsr_av_align_smem.restype = ctypes.c_longlong
         lib.avsr_av_align_scan.argtypes = [p] * 21 + [i] * 8 + [p]
@@ -461,34 +466,131 @@ def lstm_scan_bwd(wh, b, xw, mask, h_res, c_res, dys, dhT, dcT):
     return dxw, db, dh0, dc
 
 
-def logmel_post_dft(re, im, feat_len, mel_w, *, log_floor: float,
-                    delta_window: int, stack: int, skip: int):
-    """K3: power -> mel -> log -> Δ/ΔΔ -> masked CMVN -> stack (CUDA).
+def mel_band_table(mel_w) -> Tuple[np.ndarray, np.ndarray]:
+    """K3's banded mel matrix from the dense one ([F, M], numpy): band [M, 3]
+    int32 (first bin, count, offset into the weights) and the weights
+    float32, each bin's run from its first to its last nonzero bin in
+    ascending f (zeros inside a run kept).  Summed with fmaf in that order
+    it gives the bits of the dense sequential sum: a zero weight is a no-op
+    of fmaf on a finite power."""
+    w = np.asarray(mel_w, dtype=np.float32)
+    band = np.zeros((w.shape[1], 3), np.int32)
+    runs = []
+    offset = 0
+    for m in range(w.shape[1]):
+        nz = np.flatnonzero(w[:, m])
+        if nz.size:
+            f0, f1 = int(nz[0]), int(nz[-1]) + 1
+            runs.append(w[f0:f1, m])
+            band[m] = (f0, f1 - f0, offset)
+            offset += f1 - f0
+        else:
+            band[m] = (0, 0, offset)
+    weights = np.concatenate(runs) if runs else np.zeros((0,), np.float32)
+    return band, weights.astype(np.float32)
 
-    re/im [B,T,F] f32, feat_len [B] int32, mel_w [F,M] f32 ->
-    (features [B,T',3*M*stack] f32, lengths [B] int32).
-    """
+
+LOGMEL_STAGES = 7  # K3's three launches: 1 the mel product, 2 the statistics, 4 the writer
+LOGMEL_CHUNKS = (16, 8, 4, 2, 1)  # stacked frames a block of K3's writer, largest first
+WAVE_BLOCKS = 132  # one block an SM of an H100
+
+
+def logmel_writer_smem(M: int, chunk: int, stack: int, skip: int, N: int) -> int:
+    """Shared memory of a block of K3's writer (``writer_smem`` in
+    ``csrc/logmel.cu``): the staged log-mel and Δ of the chunk's frames with
+    their 2N halo, its normalized features and the utterance's statistics."""
+    ns = (chunk - 1) * skip + stack + 4 * N
+    ny = (chunk - 1) * skip + stack
+    return 4 * (2 * M * ns + ny * 3 * M + 6 * M)
+
+
+def logmel_writer_chunk(B: int, Tp: int, M: int = 30, stack: int = 8, skip: int = 3,
+                        N: int = 2) -> int:
+    """Stacked frames a block of K3's writer takes: the largest chunk whose
+    blocks fit shared memory and still number two an SM (a request's B = 8
+    has few utterances, so its blocks come from time); else the smallest."""
+    fits = [c for c in LOGMEL_CHUNKS if logmel_writer_smem(M, c, stack, skip, N) <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"logmel: {M} mel bins, stack {stack}, skip {skip}, window {N}: a "
+                         "stacked frame does not fit one block")
+    for chunk in fits:
+        if B * -(-Tp // chunk) >= 2 * WAVE_BLOCKS:
+            return chunk
+    return fits[-1]
+
+
+def logmel_stats_fits(T: int) -> bool:
+    """Whether a block of K3's statistics launch (one column's log-mel and
+    Δ of T frames in shared memory: 8 T bytes) fits an SM."""
+    return 8 * T <= SMEM_LIMIT
+
+
+def _check_logmel(re, im, feat_len, band, weights):
     B, T, F = re.shape
-    M = mel_w.shape[1]
+    M = band.shape[0]
     dev = re.device
     _check("re", re, torch.float32, (B, T, F), dev)
     _check("im", im, torch.float32, (B, T, F), dev)
     _check("feat_len", feat_len, torch.int32, (B,), dev)
-    _check("mel_w", mel_w, torch.float32, (F, M), dev)
-    Tp = max(0, (T - stack) // skip + 1)
-    lib = _load()
-    logmel = torch.empty((B, T, M), dtype=torch.float32, device=dev)
-    out = torch.empty((B, Tp, 3 * M * stack), dtype=torch.float32, device=dev)
-    new_len = torch.empty((B,), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.avsr_logmel_post_dft(
-        re.data_ptr(), im.data_ptr(), feat_len.data_ptr(), mel_w.data_ptr(),
-        logmel.data_ptr(), out.data_ptr(), new_len.data_ptr(),
-        B, T, F, M, Tp, stack, skip, delta_window, float(log_floor), stream,
-    )
+    _check("band", band, torch.int32, (M, 3), dev)
+    _check("weights", weights, torch.float32, tuple(weights.shape), dev)
+    if weights.dim() != 1 or not logmel_stats_fits(T):
+        raise ValueError(f"logmel: weights of shape {tuple(weights.shape)} or T={T} frames")
+    return B, T, F, M, dev
+
+
+def _logmel_launch(re, im, feat_len, band, weights, scratch, log_floor, delta_window, stack,
+                   skip, stages):
+    B, T, F = re.shape
+    M = band.shape[0]
+    logmel, stats, out, new_len = scratch
+    Tp = out.shape[1]
+    chunk = logmel_writer_chunk(B, Tp, M, stack, skip, delta_window)
+    err = _load().avsr_logmel_post_dft(
+        re.data_ptr(), im.data_ptr(), feat_len.data_ptr(), band.data_ptr(), weights.data_ptr(),
+        logmel.data_ptr(), stats.data_ptr(), out.data_ptr(), new_len.data_ptr(),
+        B, T, F, M, weights.shape[0], Tp, stack, skip, delta_window, chunk, float(log_floor),
+        stages, torch.cuda.current_stream(re.device).cuda_stream)
     _raise_on(err, "logmel_post_dft launch")
+
+
+def logmel_scratch(B: int, T: int, M: int, stack: int, skip: int, dev):
+    """K3's scratch and outputs: (logmel [B, M, T], stats [B, 2, 3M], out
+    [B, T', 3M * stack], new_len [B])."""
+    Tp = max(0, (T - stack) // skip + 1)
+    return (torch.empty((B, M, T), dtype=torch.float32, device=dev),
+            torch.empty((B, 2, 3 * M), dtype=torch.float32, device=dev),
+            torch.empty((B, Tp, 3 * M * stack), dtype=torch.float32, device=dev),
+            torch.empty((B,), dtype=torch.int32, device=dev))
+
+
+def logmel_stages(re, im, feat_len, band, weights, scratch, *, log_floor: float,
+                  delta_window: int, stack: int, skip: int, stages: int) -> None:
+    """K3's launches of ``stages`` (bits of ``LOGMEL_STAGES``) into
+    ``scratch`` (``logmel_scratch``'s tensors): chip_smoke times the three
+    apart.  Counts no launch."""
+    B, T, F, M, dev = _check_logmel(re, im, feat_len, band, weights)
+    for name, x, want in zip(("logmel", "stats", "out", "new_len"), scratch,
+                             logmel_scratch(0, T, M, stack, skip, "meta")):
+        _check(name, x, want.dtype, (B, *want.shape[1:]), dev)
+    _logmel_launch(re, im, feat_len, band, weights, scratch, log_floor, delta_window, stack,
+                   skip, stages)
+
+
+def logmel_post_dft(re, im, feat_len, band, weights, *, log_floor: float,
+                    delta_window: int, stack: int, skip: int):
+    """K3: power -> mel -> log -> Δ/ΔΔ -> masked CMVN -> stack (CUDA).
+
+    re/im [B,T,F] f32, feat_len [B] int32, the banded mel matrix (band [M,
+    3] int32, weights f32, ``mel_band_table``) -> (features [B,T',3*M*stack]
+    f32, lengths [B] int32).
+    """
+    B, T, F, M, dev = _check_logmel(re, im, feat_len, band, weights)
+    scratch = logmel_scratch(B, T, M, stack, skip, dev)
+    _logmel_launch(re, im, feat_len, band, weights, scratch, log_floor, delta_window, stack,
+                   skip, LOGMEL_STAGES)
     LAUNCHES["logmel_post_dft"] += 1
-    return out, new_len
+    return scratch[2], scratch[3]
 
 
 # The head widths (dk, dv) at which each attention kernel has tensor-core
@@ -928,42 +1030,156 @@ def decode_attention(q, k, v, bias, n_keys: int):
     return ctx
 
 
-def beam_step(logits, logp, lens, finished, lp_table, tokens_row, parents_row):
-    """K7: one fused beam step (CUDA).
+class _BeamCarry(ctypes.Structure):
+    """``BeamCarry`` of ``csrc/beam_step.cu``: one carry's pointers."""
+    _fields_ = [(name, ctypes.c_void_p) for name in
+                ("logp", "lens", "finished", "flat_parent", "feed", "settled")]
 
-    logits [B*W,V] f32, logp [B,W] f32, lens [B,W] int32, finished [B,W]
-    bool, lp_table [n] f32 (the length penalty of each length); the token
-    and parent rows [B,W] int64 (row t of the trellis) are written in place
-    -> (flat_parent [B*W] int64, feed [B,W] int64, logp, lens, finished).
+
+class _BeamStepArgs(ctypes.Structure):
+    """``BeamStepArgs`` of ``csrc/beam_step.cu`` (8-byte fields only)."""
+    _fields_ = [("carry", _BeamCarry * 2), ("lp_table", ctypes.c_void_p),
+                ("tokens", ctypes.c_void_p), ("parents", ctypes.c_void_p),
+                ("B", ctypes.c_longlong), ("W", ctypes.c_longlong), ("V", ctypes.c_longlong),
+                ("n_lp", ctypes.c_longlong), ("count_level1", ctypes.c_longlong)]
+
+
+def beam_step_admits(W: int, V: int) -> bool:
+    """The (W, V) K7 takes: W >= 1, V past EOS, and 2 W V 4 + 128 bytes
+    within 48 KB (the first kernel's limit, kept: every (B, W, V) it took)."""
+    return W >= 1 and V > 2 and 2 * W * V * 4 + 32 * 4 <= 48 * 1024
+
+
+def beam_step_smem(W: int, V: int) -> int:
+    """Shared memory of K7's block (``step_smem`` in ``csrc/beam_step.cu``):
+    every candidate's key and log prob, and each beam's best min(W, V), the
+    key rows padded to an even length."""
+    def even(n):
+        return n + (n & 1)
+
+    K = min(W, V)
+    return 8 * (even(W * K) + W * even(V)) + 4 * (W * even(V) + W * K)
+
+
+def beam_step_level1(W: int, V: int) -> str:
+    """How K7 ranks one beam's V candidates to keep its best K = min(W, V):
+    "count" (each key's rank is the number of keys above it: ceil(V / 32) V
+    reads a lane) where that is at most 64 K, else "rounds" (K rounds of a
+    warp max under the previous round's key)."""
+    return "count" if -(-V // 32) * V <= 64 * min(W, V) else "rounds"
+
+
+def _check_beam_carry(c, B, W, dev, outputs: bool) -> _BeamCarry:
+    _check("logp", c.logp, torch.float32, (B, W), dev, align=4)
+    _check("lens", c.lens, torch.int32, (B, W), dev, align=4)
+    _check("finished", c.finished, torch.bool, (B, W), dev, align=1)
+    if not outputs:
+        return _BeamCarry(c.logp.data_ptr(), c.lens.data_ptr(), c.finished.data_ptr())
+    _check("flat_parent", c.flat_parent, torch.int64, (B * W,), dev, align=8)
+    _check("feed", c.feed, torch.int64, (B, W), dev, align=8)
+    _check("settled", c.settled, torch.bool, (B,), dev, align=1)
+    return _BeamCarry(*(getattr(c, name).data_ptr() for name, _ in _BeamCarry._fields_))
+
+
+def _beam_args(lp_table, tokens, parents, carry0, carry1, B, W, V,
+               both_written: bool) -> _BeamStepArgs:
+    """The kernel's arguments, every tensor checked: steps read carry 0 and
+    write carry 1, and the other way round where ``both_written``."""
+    dev = lp_table.device
+    _check("lp_table", lp_table, torch.float32, tuple(lp_table.shape), dev)
+    if lp_table.dim() != 1 or lp_table.shape[0] < 1 or B < 1 or not beam_step_admits(W, V):
+        raise ValueError(f"beam step: B={B}, W={W}, V={V} or a length table of "
+                         f"{tuple(lp_table.shape)}")
+    c0 = _check_beam_carry(carry0, B, W, dev, outputs=both_written)
+    c1 = _check_beam_carry(carry1, B, W, dev, outputs=True)
+    for name in ("logp", "lens", "finished"):
+        if getattr(c0, name) == getattr(c1, name):
+            raise ValueError(f"beam step: the new {name} overwrites the one it reads")
+    return _BeamStepArgs((c0, c1), lp_table.data_ptr(), tokens.data_ptr(), parents.data_ptr(),
+                         B, W, V, lp_table.shape[0], int(beam_step_level1(W, V) == "count"))
+
+
+def _check_logits(logits, N: int, V: int, dev) -> None:
+    if (logits.dtype != torch.float32 or logits.shape != (N, V) or logits.device != dev
+            or not logits.is_contiguous()):
+        raise ValueError(f"beam step: logits {logits.dtype} {tuple(logits.shape)} on "
+                         f"{logits.device}, expected contiguous float32 ({N}, {V}) on {dev}")
+
+
+class _CarryIn(NamedTuple):
+    """The carry a step reads."""
+    logp: torch.Tensor
+    lens: torch.Tensor
+    finished: torch.Tensor
+
+
+def beam_step(logits, logp, lens, finished, lp_table, tokens_row, parents_row, out):
+    """K7: one fused beam step (CUDA), checked and launched in one call.
+
+    logits [B*W,V] f32, the carry (logp [B,W] f32, lens [B,W] int32,
+    finished [B,W] bool), lp_table [n] f32 (the length penalty of each
+    length); writes the token and parent rows [B,W] int64 (row t of the
+    trellis) and ``out`` (a ``decode.beam.StepOut``), the new carry and the
+    step's outputs: flat_parent [B*W] int64, feed [B,W]
+    int64, logp, lens, finished, and settled [B] bool (every new beam of
+    the row finished or dead: the loop's condition).  Returns ``out``.  A
+    search checks once and launches per step through ``BeamStep``.
     """
     B, W = logp.shape
     V = logits.shape[-1]
     dev = logits.device
-    _check("logits", logits, torch.float32, (B * W, V), dev)
-    _check("logp", logp, torch.float32, (B, W), dev)
-    _check("lens", lens, torch.int32, (B, W), dev)
-    _check("finished", finished, torch.bool, (B, W), dev)
-    _check("lp_table", lp_table, torch.float32, tuple(lp_table.shape), dev)
-    # rows of the [L, B, W] trellis: 8-byte aligned whatever B * W is
     _check("tokens_row", tokens_row, torch.int64, (B, W), dev, align=8)
     _check("parents_row", parents_row, torch.int64, (B, W), dev, align=8)
-    if lp_table.dim() != 1 or 2 * W * V * 4 + 32 * 4 > 48 * 1024:
-        raise ValueError(f"beam step: W={W}, V={V} or a length table of {tuple(lp_table.shape)}")
-    lib = _load()
-    flat_parent = torch.empty((B * W,), dtype=torch.int64, device=dev)
-    feed = torch.empty((B, W), dtype=torch.int64, device=dev)
-    logp_out = torch.empty_like(logp)
-    lens_out = torch.empty_like(lens)
-    finished_out = torch.empty_like(finished)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.avsr_beam_step(
-        logits.data_ptr(), logp.data_ptr(), lens.data_ptr(), finished.data_ptr(),
-        lp_table.data_ptr(), tokens_row.data_ptr(), parents_row.data_ptr(),
-        flat_parent.data_ptr(), feed.data_ptr(), logp_out.data_ptr(), lens_out.data_ptr(),
-        finished_out.data_ptr(), B, W, V, lp_table.shape[0], stream)
+    args = _beam_args(lp_table, tokens_row, parents_row, _CarryIn(logp, lens, finished), out,
+                      B, W, V, both_written=False)
+    _check_logits(logits, B * W, V, lp_table.device)
+    err = _load().avsr_beam_step(ctypes.byref(args), logits.data_ptr(), 0, 0,
+                                 torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "beam_step launch")
     LAUNCHES["beam_step"] += 1
-    return flat_parent, feed, logp_out, lens_out, finished_out
+    return out
+
+
+class BeamStep:
+    """K7 for one beam search: ``step(logits, t, src)`` reads carry ``src``
+    of ``carries`` (two ``decode.beam.StepOut``), writes carry ``1 - src``
+    and row t of the [L, B, W] int64 trellises ``tokens`` and ``parents``.
+
+    Every tensor but the logits is checked here, once, and the stream (the
+    current one now), the entry point and the kernel's arguments are fixed
+    here: a step checks the logits and makes one five-argument call.
+    """
+
+    def __init__(self, lp_table, tokens, parents, carries, V: int):
+        L, B, W = tokens.shape
+        dev = lp_table.device
+        _check("tokens", tokens, torch.int64, (L, B, W), dev)
+        _check("parents", parents, torch.int64, (L, B, W), dev)
+        self._args = _beam_args(lp_table, tokens, parents, carries[0], carries[1], B, W, V,
+                                both_written=True)
+        self._ref = ctypes.byref(self._args)
+        self._fn = _load().avsr_beam_step
+        self._stream = torch.cuda.current_stream(dev).cuda_stream
+        self._shape, self._dev, self._L = (B * W, V), dev, L
+
+    def __call__(self, logits, t: int, src: int) -> None:
+        if (logits.dtype != torch.float32 or logits.shape != self._shape
+                or logits.device != self._dev or not logits.is_contiguous()):
+            _check_logits(logits, *self._shape, self._dev)
+        if not 0 <= t < self._L or src not in (0, 1):
+            raise ValueError(f"beam step: row {t} of a {self._L}-row trellis, carry {src}")
+        _raise_on(self._fn(self._ref, logits.data_ptr(), t, src, self._stream),
+                  "beam_step launch")
+        LAUNCHES["beam_step"] += 1
+
+
+def launch_floor(stream: Optional[int] = None) -> None:
+    """One launch of an empty kernel on ``stream`` (a CUDA stream handle, by
+    default the current stream's): chip_smoke times it beside K7 as the
+    floor of a launch.  Counts nothing."""
+    if stream is None:
+        stream = torch.cuda.current_stream().cuda_stream
+    _raise_on(_load().avsr_launch_floor(stream), "launch_floor")
 
 
 def _check_score(v, keys, B, S, A, dev):

@@ -10,7 +10,11 @@ Everything after the DFT is kernel K3: ``logmel_post_dft`` launches the
 CUDA kernel (``csrc/logmel.cu``) for tensors on a GPU and runs
 ``logmel_post_dft_plain`` for tensors on the CPU.  The mel filterbank and
 the DFT matrices are numpy copies of the reference's (its module imports
-jax); ``tests/test_torch_audio_features.py`` holds them equal.
+jax); ``tests/test_torch_audio_features.py`` holds them equal.  Their
+tensors (the DFT matrices rounded to the compute dtype, the dense mel
+matrix for the plain path, the banded one for the kernel) are made once
+per (configuration, device, dtype) and cached, not copied from host
+memory at every call.
 """
 
 from __future__ import annotations
@@ -23,7 +27,6 @@ import torch
 
 from avsr_tpu_torch.configs import AudioFrontendConfig
 from avsr_tpu_torch import kernels
-from avsr_tpu_torch.utils.numerics import dot_f32
 
 
 def hz_to_mel(f):
@@ -84,16 +87,29 @@ def _dft_matrices(frame_length: int, fft_length: int) -> Tuple[np.ndarray, np.nd
     return (cos * win).astype(np.float32), (sin * win).astype(np.float32)
 
 
+def _constant(array: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """A cached constant's tensor on ``device``: an ordinary tensor even when
+    first made under ``torch.inference_mode`` (a train step may read it)."""
+    with torch.inference_mode(False):
+        x = torch.from_numpy(array).to(device)
+        return x if dtype is None else x.to(dtype).float()
+
+
+@functools.lru_cache(maxsize=None)
+def _dft_operands(frame_length: int, fft_length: int, device: torch.device,
+                  cdt: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The DFT matrices on ``device``, rounded to ``cdt`` and held in fp32:
+    the right operands of ``dot_f32``."""
+    return tuple(_constant(m, device, cdt) for m in _dft_matrices(frame_length, fft_length))
+
+
 def stft(wav: torch.Tensor, frame_length: int, frame_step: int, fft_length: int,
          cdt: torch.dtype = torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[B, S] -> (re, im) [B, T, fft_length//2+1] fp32 via the matmul DFT."""
-    cos_m, sin_m = _dft_matrices(frame_length, fft_length)
-    eff = cos_m.shape[0]
-    f = frame_signal(wav, frame_length, frame_step)[..., :eff]
-    dev = wav.device
-    re = dot_f32(f, torch.from_numpy(cos_m).to(dev), cdt)
-    im = dot_f32(f, torch.from_numpy(sin_m).to(dev), cdt)
-    return re, im
+    """[B, S] -> (re, im) [B, T, fft_length//2+1] fp32 via the matmul DFT
+    (``dot_f32``'s rounding: compute-dtype operands, fp32 products)."""
+    cos_m, sin_m = _dft_operands(frame_length, fft_length, wav.device, cdt)
+    f = frame_signal(wav, frame_length, frame_step)[..., :cos_m.shape[0]].to(cdt).float()
+    return f @ cos_m, f @ sin_m
 
 
 def stft_power(wav, frame_length, frame_step, fft_length, cdt=torch.float32):
@@ -156,10 +172,22 @@ def _check_supported(cfg: AudioFrontendConfig) -> None:
             "normalization='per_utterance', use_matmul_dft=True")
 
 
-def _mel_matrix(cfg: AudioFrontendConfig, device) -> torch.Tensor:
-    w = mel_filterbank(cfg.num_mel_bins, cfg.fft_length // 2 + 1, cfg.sample_rate,
-                       cfg.mel_lower_hz, cfg.mel_upper_hz)
-    return torch.from_numpy(w).to(device)
+def _filterbank(cfg: AudioFrontendConfig) -> np.ndarray:
+    return mel_filterbank(cfg.num_mel_bins, cfg.fft_length // 2 + 1, cfg.sample_rate,
+                          cfg.mel_lower_hz, cfg.mel_upper_hz)
+
+
+@functools.lru_cache(maxsize=None)
+def _mel_matrix(cfg: AudioFrontendConfig, device: torch.device) -> torch.Tensor:
+    """The dense mel matrix [F, M] on ``device`` (the plain path's)."""
+    return _constant(_filterbank(cfg), device)
+
+
+@functools.lru_cache(maxsize=None)
+def _mel_band(cfg: AudioFrontendConfig,
+              device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The banded mel matrix on ``device`` (K3's: ``kernels.mel_band_table``)."""
+    return tuple(_constant(x, device) for x in kernels.mel_band_table(_filterbank(cfg)))
 
 
 def logmel_post_dft_plain(re, im, feat_len, cfg: AudioFrontendConfig):
@@ -188,7 +216,7 @@ def logmel_post_dft(re, im, feat_len, cfg: AudioFrontendConfig):
         return logmel_post_dft_plain(re, im, feat_len, cfg)
     return kernels.logmel_post_dft(
         re.float().contiguous(), im.float().contiguous(),
-        feat_len.to(torch.int32).contiguous(), _mel_matrix(cfg, re.device),
+        feat_len.to(torch.int32).contiguous(), *_mel_band(cfg, re.device),
         log_floor=cfg.log_floor, delta_window=cfg.delta_window,
         stack=cfg.frame_stacking, skip=cfg.frame_skipping,
     )

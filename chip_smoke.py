@@ -21,8 +21,12 @@ Phases, in order; any failure exits nonzero before the final line:
              max active clusters; median CUDA-event times (B=128, B=8); and,
              as a reference point that computes more (the input product
              too), cuDNN's bidirectional ``nn.LSTM`` at the same T, B, H.
-4. K3      — the post-DFT log-mel kernel against its plain version at
-             [B=128, S=96000] (6 s at 16 kHz), ragged lengths; same report.
+4. K3      — the post-DFT log-mel kernel (three launches: the banded mel
+             product, the statistics, the writer) against its plain version
+             at B=128 and B=8, 6 s and 16 s (S=96000 and 256000 at 16 kHz),
+             ragged lengths with a row of no full frame and one shorter than
+             a stack: errors, equal lengths, two launches bit-equal; times,
+             device ms of the call and of each launch apart, the bound.
 5. serve   — the full-width ``lrs2_av_fast`` model (random weights from a
              seeded generator) behind a CUDA ``Predictor`` with compact
              transfer, batch 8, 6 s audio / 150 frames, width-10 beam with
@@ -87,11 +91,17 @@ Phases, in order; any failure exits nonzero before the final line:
              bound (the untiled memory read once, beside the beam-tiled
              read's) and the yardstick of one step's pair at both
              memories, and of greedy's pair.
-11. K7     — the fused beam step against its plain twin at [B=8, W=10,
-             V=44]: random logits and states, finished beams, alpha 0 and
-             0.6 (identical parents, tokens, lens, finished, feeds; logp
-             within tolerance), then crafted exact ties (lower flat index
-             first); times.
+11. K7     — the fused beam step against its plain twin at (B, W, V) =
+             (8, 10, 44), (8, 10, 31), (128, 10, 44), (1, 10, 44), (8, 1,
+             44), (8, 32, 44) and the largest W * V the wrapper takes, (8,
+             1, 6128) and (8, 10, 612): random logits and states with dead
+             and finished beams, no finished beam, every beam finished,
+             crafted exact ties (lower flat index first), alpha 0 and 0.6
+             (identical parents, tokens, flat parents, lens, finished, feeds
+             and settled flags; logp within tolerance); at each shape the
+             CUDA-event ms of a search's step (``kernels.BeamStep``) and of
+             the one-shot call, the device ms, and beside them the device
+             ms of an empty kernel, the floor of a launch.
 12. greedy — greedy decode of one B=128 batch of 6 s utterances, horizon
              150, on the kernel path (K6 launches counted) and on the plain
              path: decode ms, steps; at most 16 rows whose ids differ.
@@ -756,7 +766,7 @@ def plain_cores():
             mock.patch.object(tdec, "decoder_attention_fwd", tdec.decoder_attention_fwd_plain), \
             mock.patch.object(tdec, "decoder_attention_bwd", tdec.decoder_attention_bwd_plain), \
             mock.patch.object(tdec, "decode_attention", tdec.decode_attention_plain), \
-            mock.patch.object(beam, "beam_step", beam.beam_step_plain), \
+            mock.patch.object(beam, "beam_stepper", beam.plain_stepper), \
             mock.patch.object(fus, "av_align_scan_fwd", fus.av_align_scan_fwd_plain), \
             mock.patch.object(fus, "av_align_scan_bwd", fus.av_align_scan_bwd_plain), \
             mock.patch.object(attn, "attend_fwd", attn.attend_plain), \
@@ -919,34 +929,91 @@ def phase_k1(dev, report):
         cudnn_reference_device_ms=cud[0])
 
 
+K3_SHAPES = ((128, 96000), (8, 96000), (128, 256000), (8, 256000))  # (B, S): 6 s and 16 s
+
+
+def k3_stage_ms(args, cfg):
+    """Device ms of K3's three launches apart (the mel product, the
+    statistics, the writer) on ``args``, each timed on the scratch the
+    launches before it filled."""
+    from avsr_tpu_torch import kernels
+    from avsr_tpu_torch.ops import audio_features as af
+
+    re, im, feat_len = args
+    B, T, _ = re.shape
+    band = af._mel_band(cfg, re.device)
+    kw = dict(log_floor=cfg.log_floor, delta_window=cfg.delta_window,
+              stack=cfg.frame_stacking, skip=cfg.frame_skipping)
+    scratch = kernels.logmel_scratch(B, T, cfg.num_mel_bins, cfg.frame_stacking,
+                                     cfg.frame_skipping, re.device)
+    kernels.logmel_stages(re, im, feat_len, *band, scratch, stages=kernels.LOGMEL_STAGES, **kw)
+    return {name: device_ms(lambda: kernels.logmel_stages(re, im, feat_len, *band, scratch,
+                                                          stages=bit, **kw))
+            for name, bit in (("mel", 1), ("stats", 2), ("writer", 4))}
+
+
+def k3_bound(args, out, new_len, cfg):
+    """K3's least time: re, im, the lengths and the banded mel table read
+    once, the features and lengths written once; or the power and the
+    banded product at the fp32 rate."""
+    from avsr_tpu_torch.ops import audio_features as af
+
+    re, im, feat_len = args
+    band, weights = af._mel_band(cfg, re.device)
+    B, T, F = re.shape
+    return bound(nbytes(re, im, feat_len, out, new_len, band, weights),
+                 B * T * (3 * F + 2 * weights.numel()), "fp32")
+
+
 def phase_k3(dev, report, cfg):
     import torch
 
     from avsr_tpu_torch.ops import audio_features as af
 
-    re, im, feat_len = k3_inputs(cfg.audio, 128, 96000, dev)
-    f_k, n_k = af.logmel_post_dft(re, im, feat_len, cfg.audio)
-    f_p, n_p = af.logmel_post_dft_plain(re, im, feat_len, cfg.audio)
-    torch.cuda.synchronize()
-    k3_err = max_err(f_k, f_p)
-    print(f"K3 max abs err {k3_err} (tol {K3_TOL}); out {tuple(f_k.shape)}")
-    if not torch.equal(n_k, n_p):
-        fail("K3", "kernel and plain lengths differ")
-    if not (k3_err <= K3_TOL) or not torch.isfinite(f_k).all():
-        fail("K3", f"kernel disagrees with the plain version: {k3_err}")
-    k3 = {}
-    for B in (128, 8):
-        args = k3_inputs(cfg.audio, B, 96000, dev, seed=B)
-        k3[B] = (time_ms(lambda: af.logmel_post_dft(*args, cfg.audio)),
-                 time_ms(lambda: af.logmel_post_dft_plain(*args, cfg.audio), reps=10))
-        print(f"K3 [B={B},S=96000] kernel {k3[B][0]:.4f} ms  plain {k3[B][1]:.4f} ms")
-    B, T, F = re.shape
-    mel_bytes = F * cfg.audio.num_mel_bins * 4
+    from avsr_tpu_torch import kernels
+
+    lib = kernels._load()
+    for chunk in kernels.LOGMEL_CHUNKS:
+        want = kernels.logmel_writer_smem(cfg.audio.num_mel_bins, chunk, cfg.audio.frame_stacking,
+                                          cfg.audio.frame_skipping, cfg.audio.delta_window)
+        got = lib.avsr_logmel_writer_smem(cfg.audio.num_mel_bins, chunk, cfg.audio.frame_stacking,
+                                          cfg.audio.frame_skipping, cfg.audio.delta_window)
+        if got != want:
+            fail("K3", f"chunk {chunk}: the writer's shared memory {got} is not "
+                       f"kernels.logmel_writer_smem's {want}")
+    worst, times = 0.0, {}
+    for B, S in K3_SHAPES:
+        args = k3_inputs(cfg.audio, B, S, dev, seed=B + S)
+        f_k, n_k = af.logmel_post_dft(*args, cfg.audio)
+        f_p, n_p = af.logmel_post_dft_plain(*args, cfg.audio)
+        torch.cuda.synchronize()
+        err = max_err(f_k, f_p)
+        worst = max(worst, err)
+        tag = f"B={B},S={S}"
+        print(f"K3 [{tag}] max abs err {err} (tol {K3_TOL}); out {tuple(f_k.shape)}")
+        if not torch.equal(n_k, n_p):
+            fail("K3", f"{tag}: kernel and plain lengths differ")
+        if not (err <= K3_TOL) or not torch.isfinite(f_k).all():
+            fail("K3", f"{tag}: kernel disagrees with the plain version: {err}")
+        f_again, _ = af.logmel_post_dft(*args, cfg.audio)
+        if not torch.equal(f_again, f_k):
+            fail("K3", f"{tag}: two launches differ")
+        t = dict(ms=time_ms(lambda: af.logmel_post_dft(*args, cfg.audio)),
+                 plain_ms=time_ms(lambda: af.logmel_post_dft_plain(*args, cfg.audio), reps=5),
+                 device_ms=device_ms(lambda: af.logmel_post_dft(*args, cfg.audio)),
+                 stages=k3_stage_ms(args, cfg.audio),
+                 bound=k3_bound(args, f_k, n_k, cfg.audio))
+        times[tag] = t
+        print(f"K3 [{tag}] kernel {t['ms']:.4f} ms, device {t['device_ms']:.4f} ms (launches: "
+              + ", ".join(f"{k} {x:.4f}" for k, x in t["stages"].items())
+              + f"), plain {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "
+              f"({t['bound'][1]})")
+    main = times["B={},S={}".format(*K3_SHAPES[0])]  # the train step's, B=128, 6 s
     report["logmel_post_dft"] = dict(
-        max_abs_err=k3_err, ms=k3[128][0], plain_ms=k3[128][1], library_ms=None,
-        device_ms=device_ms(lambda: af.logmel_post_dft(re, im, feat_len, cfg.audio)),
-        bound=bound(nbytes(re, im, feat_len, f_k, n_k) + mel_bytes,
-                    2 * B * T * F * cfg.audio.num_mel_bins, "fp32"))
+        max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"], library_ms=None,
+        device_ms=main["device_ms"], bound=main["bound"], stage_device_ms=main["stages"],
+        by_shape={tag: dict(ms=t["ms"], device_ms=t["device_ms"], stage_device_ms=t["stages"],
+                            bound_ms=t["bound"][0]) for tag, t in times.items()})
 
 
 def phase_serve(dev, card, cfg, label="serve", needed=SERVE_KERNELS, mem_shape=(8, 50, 1024)):
@@ -1699,7 +1766,7 @@ def k7_inputs(B, W, V, dev, seed, ties=False, p_finished=0.3):
     import torch
 
     g = torch.Generator().manual_seed(seed)
-    if ties:  # every beam the same uniform row and score: 420 exact ties
+    if ties:  # every beam the same uniform row and score: W (V - 2) exact ties
         logits = torch.zeros((B * W, V))
         logp = torch.zeros((B, W))
         finished = torch.zeros((B, W), dtype=torch.bool)
@@ -1715,27 +1782,41 @@ def k7_inputs(B, W, V, dev, seed, ties=False, p_finished=0.3):
 
 
 def run_beam_step(fn, args, lp_table, dev):
-    import torch
-
-    B, W = args[1].shape
-    tok = torch.full((B, W), -1, dtype=torch.int64, device=dev)
-    par = torch.full((B, W), -1, dtype=torch.int64, device=dev)
-    out = fn(*args, lp_table, tok, par)
-    return (tok, par) + tuple(out)
-
-
-def phase_k7(dev, report):
+    """(token row, parent row, the new carry's StepOut) of one call of
+    ``fn`` (``beam.beam_step`` or ``beam.beam_step_plain``)."""
     import torch
 
     from avsr_tpu_torch.decode import beam
 
-    B, W, V = 8, 10, 44
-    names = ("token", "parent", "flat_parent", "feed", "logp", "lens", "finished")
+    B, W = args[1].shape
+    tok = torch.full((B, W), -1, dtype=torch.int64, device=dev)
+    par = torch.full((B, W), -1, dtype=torch.int64, device=dev)
+    out = fn(*args, lp_table, tok, par, beam.step_buffers(B, W, dev))
+    return (tok, par) + tuple(out)
+
+
+# K7's (B, W, V): a serve request's beam step (the presets' vocabulary of
+# 44, and 31), a B = 128 batch, one utterance, one beam, 32 beams, and the
+# largest W * V the wrapper takes at one beam and at ten (6128 = (48 KB -
+# 128) / 8); the level-1 route of each is printed
+K7_SHAPES = ((8, 10, 44), (8, 10, 31), (128, 10, 44), (1, 10, 44), (8, 1, 44), (8, 32, 44),
+             (8, 1, 6128), (8, 10, 612))
+
+
+def k7_check(B, W, V, dev):
+    """K7 at (B, W, V) against the twin: random states with finished and
+    dead beams, no finished beam, every beam finished, exact ties; alpha 0
+    and 0.6.  Returns the worst logp error."""
+    import torch
+
+    from avsr_tpu_torch.decode import beam
+
+    names = ("token", "parent", "flat_parent", "feed", "logp", "lens", "finished", "settled")
     worst = 0.0
     for case, kw in (("random", {}), ("no finished", dict(p_finished=0.0)),
-                     ("ties", dict(ties=True))):
+                     ("all finished", dict(p_finished=1.1)), ("ties", dict(ties=True))):
         for alpha in (0.0, 0.6):
-            args = k7_inputs(B, W, V, dev, seed=7, **kw)
+            args = k7_inputs(B, W, V, dev, seed=7 + W + V, **kw)
             lp_table = beam.length_penalty_table(150, alpha, dev)
             out_k = run_beam_step(beam.beam_step, args, lp_table, dev)
             out_p = run_beam_step(beam.beam_step_plain, args, lp_table, dev)
@@ -1745,27 +1826,70 @@ def phase_k7(dev, report):
                     dev_ = (a - b).abs() / (K7_LOGP_ATOL + K7_LOGP_RTOL * b.abs())
                     worst = max(worst, max_err(a, b))
                     if float(dev_.max()) > 1.0:
-                        fail("K7", f"{case}, alpha {alpha}: logp differs by {max_err(a, b)}")
+                        fail("K7", f"{(B, W, V)} {case}, alpha {alpha}: logp differs by "
+                                   f"{max_err(a, b)}")
                 elif not torch.equal(a, b.to(a.dtype)):
-                    fail("K7", f"{case}, alpha {alpha}: {n} differs from the plain twin")
+                    fail("K7", f"{(B, W, V)} {case}, alpha {alpha}: {n} differs from the twin")
             if case == "ties":  # every candidate ties: lower flat index first
                 want = torch.arange(2, 2 + W, device=dev)  # EOS, then the units
                 if not (bool((out_k[1] == 0).all()) and bool((out_k[0] == want).all())):
-                    fail("K7", "exact ties not resolved to the lower flat index")
-            print(f"K7 {case}, alpha {alpha}: parents, tokens, feeds, lens, finished identical; "
-                  f"logp max abs err {max_err(out_k[4], out_p[4])}")
-    args = k7_inputs(B, W, V, dev, seed=8)
-    lp_table = beam.length_penalty_table(150, 0.0, dev)
-    tok = torch.empty((B, W), dtype=torch.int64, device=dev)
-    par = torch.empty((B, W), dtype=torch.int64, device=dev)
-    tk = time_ms(lambda: beam.beam_step(*args, lp_table, tok, par))
-    tp = time_ms(lambda: beam.beam_step_plain(*args, lp_table, tok, par))
-    print(f"K7 [B=8,W=10,V=44] kernel {tk:.4f} ms  plain {tp:.4f} ms")
-    out_bytes = B * W * (8 * 4 + 4 + 4 + 1)  # token, parent, flat parent, feed; logp, lens, fin
+                    fail("K7", f"{(B, W, V)}: exact ties not resolved to the lower flat index")
+    return worst
+
+
+def phase_k7(dev, report):
+    import torch
+
+    from avsr_tpu_torch import kernels
+    from avsr_tpu_torch.decode import beam
+
+    lib = kernels._load()
+    worst = 0.0
+    for B, W, V in K7_SHAPES:
+        if lib.avsr_beam_step_smem(W, V) != kernels.beam_step_smem(W, V):
+            fail("K7", f"W={W}, V={V}: the library's shared memory "
+                       f"{lib.avsr_beam_step_smem(W, V)} is not kernels.beam_step_smem's")
+        worst = max(worst, k7_check(B, W, V, dev))
+        print(f"K7 [B={B},W={W},V={V}] ({kernels.beam_step_level1(W, V)}): tokens, parents, "
+              f"flat parents, feeds, lens, finished and settled identical to the twin over "
+              f"random, no-finished, all-finished and tied states, alpha 0 and 0.6")
+    stream = torch.cuda.current_stream(dev).cuda_stream  # looked up once, as BeamStep does
+    floor_dev = device_ms(lambda: kernels.launch_floor(stream))
+    floor_ms = time_ms(lambda: kernels.launch_floor(stream))
+    print(f"launch floor (an empty kernel): device {floor_dev:.4f} ms, "
+          f"CUDA events {floor_ms:.4f} ms")
+    times = {}
+    for B, W, V in K7_SHAPES:
+        args = k7_inputs(B, W, V, dev, seed=8)
+        lp_table = beam.length_penalty_table(150, 0.0, dev)
+        L = 4
+        tokens = torch.empty((L, B, W), dtype=torch.int64, device=dev)
+        parents = torch.empty((L, B, W), dtype=torch.int64, device=dev)
+        carries = (beam.step_buffers(B, W, dev), beam.step_buffers(B, W, dev))
+        for x, y in zip(carries[0][2:5], args[1:]):
+            x.copy_(y)
+        step = beam.beam_stepper(lp_table, tokens, parents, carries, V)
+        logits = args[0]
+        out = beam.step_buffers(B, W, dev)
+        one = (*args, lp_table, tokens[0], parents[0], out)
+        t = dict(ms=time_ms(lambda: step(logits, 0, 0)),
+                 one_shot_ms=time_ms(lambda: beam.beam_step(*one)),
+                 device_ms=device_ms(lambda: step(logits, 0, 0)),
+                 plain_ms=time_ms(lambda: beam.beam_step_plain(*one)),
+                 bound=bound(nbytes(*args, lp_table, tokens[0], parents[0], *out),
+                             6 * B * W * V, "fp32"))
+        times[(B, W, V)] = t
+        print(f"K7 [B={B},W={W},V={V}] a search's step {t['ms']:.4f} ms (one-shot call "
+              f"{t['one_shot_ms']:.4f} ms), device {t['device_ms']:.4f} ms (launch floor "
+              f"{floor_dev:.4f}), plain {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.7f} ms")
+    main = times[K7_SHAPES[0]]  # a serve request's step
     report["beam_step"] = dict(
-        max_abs_err=worst, ms=tk, plain_ms=tp, library_ms=None,
-        device_ms=device_ms(lambda: beam.beam_step(*args, lp_table, tok, par)),
-        bound=bound(nbytes(*args, lp_table) + out_bytes, 6 * B * W * V, "fp32"))
+        max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"], library_ms=None,
+        device_ms=main["device_ms"], bound=main["bound"], one_shot_ms=main["one_shot_ms"],
+        launch_floor_device_ms=floor_dev, launch_floor_ms=floor_ms,
+        by_shape={f"B={B},W={W},V={V}": dict(ms=t["ms"], device_ms=t["device_ms"],
+                                             level1=kernels.beam_step_level1(W, V))
+                  for (B, W, V), t in times.items()})
 
 
 def phase_greedy(dev, card, cfg, label="greedy", needed=GREEDY_KERNELS):

@@ -96,5 +96,6 @@ def test_cuda_launcher_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="expected a tensor on"):
         kernels.logmel_post_dft(
             torch.zeros(B, T, F), torch.zeros(B, T, F), torch.ones(B, dtype=torch.int32),
-            torch.zeros(F, M), log_floor=1e-6, delta_window=2, stack=8, skip=3)
+            torch.zeros(M, 3, dtype=torch.int32), torch.zeros(F * M), log_floor=1e-6,
+            delta_window=2, stack=8, skip=3)
     assert kernels.LAUNCHES == before

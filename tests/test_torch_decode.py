@@ -101,7 +101,8 @@ def test_beam_step_twin_matches_jax_step_body(case, alpha):
     par = torch.full((B, W), -1, dtype=torch.int64)
     out = tbeam.beam_step_plain(torch.from_numpy(logits), torch.from_numpy(logp),
                                 torch.from_numpy(lens), torch.from_numpy(finished),
-                                tbeam.length_penalty_table(12, alpha, "cpu"), tok, par)
+                                tbeam.length_penalty_table(12, alpha, "cpu"), tok, par,
+                                tbeam.step_buffers(B, W, "cpu"))
     np.testing.assert_array_equal(tok.numpy(), np.asarray(want["token"]))
     np.testing.assert_array_equal(par.numpy(), np.asarray(want["parent"]))
     np.testing.assert_array_equal(out.flat_parent.numpy(),
@@ -109,13 +110,17 @@ def test_beam_step_twin_matches_jax_step_body(case, alpha):
     for name in ("lens", "finished", "feed"):
         np.testing.assert_array_equal(getattr(out, name).numpy(), np.asarray(want[name]))
     np.testing.assert_allclose(out.logp.numpy(), np.asarray(want["logp"]), rtol=1e-6, atol=1e-5)
+    # the loop's condition on the new carry (avsr_tpu/decode/beam.py:130-140)
+    settled = jnp.logical_or(want["finished"], want["logp"] < NEG_INF / 2)
+    np.testing.assert_array_equal(out.settled.numpy(), np.asarray(jnp.all(settled, axis=1)))
     if case == "ties":  # lax.top_k's order: the lower flat index first
         assert (par == 0).all() and (tok == torch.arange(2, 2 + W)).all()
     # the wrapper on CPU tensors is the twin
     tok2, par2 = torch.empty_like(tok), torch.empty_like(par)
     out2 = tbeam.beam_step(torch.from_numpy(logits), torch.from_numpy(logp),
                            torch.from_numpy(lens), torch.from_numpy(finished),
-                           tbeam.length_penalty_table(12, alpha, "cpu"), tok2, par2)
+                           tbeam.length_penalty_table(12, alpha, "cpu"), tok2, par2,
+                           tbeam.step_buffers(B, W, "cpu"))
     assert torch.equal(tok2, tok) and torch.equal(out2.logp, out.logp)
 
 

@@ -32,6 +32,7 @@ from avsr_tpu.configs import DecoderConfig
 from avsr_tpu.models import transformer_decoder as jtd
 from avsr_tpu.ops import attention as jattn
 from avsr_tpu_torch import convert, kernels
+from avsr_tpu_torch.decode.beam import step_buffers
 from avsr_tpu_torch.models import transformer_decoder as ttd
 from avsr_tpu_torch.ops import attention as tattn
 
@@ -479,5 +480,5 @@ def test_decoder_launchers_reject_cpu_tensors():
                           torch.zeros(2, 3, dtype=torch.int32),
                           torch.zeros(2, 3, dtype=torch.bool), torch.ones(4),
                           torch.zeros(2, 3, dtype=torch.int64),
-                          torch.zeros(2, 3, dtype=torch.int64))
+                          torch.zeros(2, 3, dtype=torch.int64), step_buffers(2, 3, "cpu"))
     assert kernels.LAUNCHES == before

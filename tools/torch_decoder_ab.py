@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time K5 and K6, the decoder's attention kernels, in several checkouts on one card.
+"""Time K5, K6 and K7, the decoder's attention kernels and the beam step, in several checkouts on one card.
 
-    python3 tools/torch_decoder_ab.py --trees build/parent . --order ABBA [--parts k5 k6]
+    python3 tools/torch_decoder_ab.py --trees build/parent . --order ABBA [--parts k5 k6 k7]
 
 Each run is a process of its own started in one checkout (``--trees``, A
 first, then B, C, ...): it builds that checkout's kernels and times the
@@ -29,6 +29,18 @@ checkout whose K6 reads the untiled memory (``kernels.decode_attention_route``)
 gets B memory rows; an older one the memory tiled over the beams, as its
 beam search gave it (the tiling is set-up, outside the timed calls).  The
 pairs (self + cross) are summed from the parts.
+
+K7, the beam step (``--parts k7``), on chip_smoke's ``k7_inputs`` at [B=8,
+W=10, V=44] (a serve request) and B=128: the device ms and the CUDA-event
+ms of one step as the checkout's beam search calls it (its
+``decode.beam.beam_stepper``'s step, checked once per search, where it has
+one; else the one-shot ``beam_step``); then 150 steps of the search's loop
+without the decoder (the step and the loop's condition with its host
+sync, as the checkout's ``beam_search`` issues them), their host us and
+device events a step; then the full-width ``lrs2_av_fast`` beam search of
+one B=8 request (random weights from a seed, 6 s, width 10, horizon 150:
+``Predictor.beam`` on encoded memories), its ms (host clock, median of 5)
+and device events a beam step under the profiler.
 
 The runs go in ``--order`` (A B B A by default), so the checkouts share the
 card's state; the last line is one JSON object with every run's numbers.
@@ -96,6 +108,81 @@ for N, B in ((80, 8), (128, 128)) if "k6" in PARTS else ():
         ms = cs.device_ms(lambda: tdec.decode_attention(qc, kc, vc, bc, S))
         out[f"k6_cross_S{S}_N{N}"] = ms
         out[f"k6_pair_S{S}_N{N}"] = self_ms + ms
+
+
+def k7_loop(B):
+    # a search's step and loop condition on fixed inputs: (call, loop step)
+    from avsr_tpu_torch.decode import beam
+    W, V = 10, 44
+    logits, logp, lens, finished = cs.k7_inputs(B, W, V, dev, seed=8)
+    lp = beam.length_penalty_table(150, 0.0, dev)
+    tokens = torch.empty((150, B, W), dtype=torch.int64, device=dev)
+    parents = torch.empty((150, B, W), dtype=torch.int64, device=dev)
+    if hasattr(beam, "beam_stepper"):
+        carries = (beam.step_buffers(B, W, dev), beam.step_buffers(B, W, dev))
+        for c in carries:
+            for x, y in zip((c.logp, c.lens, c.finished), (logp, lens, finished)):
+                x.copy_(y)
+        step = beam.beam_stepper(lp, tokens, parents, carries, V)
+
+        def loop(t):
+            step(logits, t, t % 2)
+            return bool(carries[1 - t % 2].settled.all())
+        return (lambda: step(logits, 0, 0)), loop
+
+    def loop(t):
+        settled = finished | (logp < -1.0e30 / 2)
+        done = bool(settled.all())
+        beam.beam_step(logits, logp, lens, finished, lp, tokens[t], parents[t])
+        return done
+    return (lambda: beam.beam_step(logits, logp, lens, finished, lp, tokens[0], parents[0])), loop
+
+
+if "k7" in PARTS:
+    import time
+    import numpy as np
+    from avsr_tpu_torch.configs import lrs2_av_fast
+    from avsr_tpu_torch.data.units import builtin_unit_dict
+    from avsr_tpu_torch.models import seq2seq
+    from avsr_tpu_torch.serve import Predictor
+
+    with torch.inference_mode():
+        for B in (8, 128):
+            call, loop = k7_loop(B)
+            out[f"k7_dev_B{B}"] = cs.device_ms(call)
+            out[f"k7_ms_B{B}"] = cs.time_ms(call)
+            for t in range(10):
+                loop(t)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(150):
+                loop(t)
+            torch.cuda.synchronize()
+            out[f"k7_loop_host_us_B{B}"] = (time.perf_counter() - t0) / 150 * 1e6
+            events, _ = cs.device_events(lambda: [loop(t) for t in range(150)])
+            out[f"k7_loop_events_B{B}"] = len(events) / 150
+    cfg = lrs2_av_fast()
+    units = builtin_unit_dict(cfg.data.unit)
+    params = seq2seq.model_init(cfg, units.vocab_size, torch.Generator().manual_seed(0), dev)
+    pred = Predictor(params, cfg, units, device=dev, batch_size=8, audio_seconds=6.0,
+                     transfer="compact")
+    audio, video = cs.request(np.random.default_rng(0), 8)
+    arrays, _ = pred.assemble(audio, video)
+    enc = pred.encode(arrays)
+    res = pred.beam(enc)
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pred.beam(enc)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    events, span = cs.device_events(lambda: pred.beam(enc))
+    busy, share = cs.busy_share(events, span)
+    out["beam_ms"] = sorted(times)[2]
+    out["beam_steps"] = res.steps
+    out["beam_events_per_step"] = len(events) / res.steps
+    out["beam_busy_share"] = share
 print(json.dumps(out))
 """
 
@@ -104,7 +191,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trees", nargs="+", required=True, help="checkouts A, B, ...")
     ap.add_argument("--order", default="ABBA")
-    ap.add_argument("--parts", nargs="+", default=["k5", "k6"], choices=["k5", "k6"])
+    ap.add_argument("--parts", nargs="+", default=["k5", "k6"], choices=["k5", "k6", "k7"])
     args = ap.parse_args()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
