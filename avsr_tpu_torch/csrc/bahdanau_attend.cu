@@ -8,7 +8,7 @@
 // beam-tiled copy: keys [B, S, A] (fp32 projected keys, or the bf16 memory
 // for Luong, A its width), values [B, S, Dv] bf16, bias and mask [B, S]
 // fp32 -> context [N, Dv] fp32 and weights [N, S] fp32.  The arithmetic
-// and its rounding points are those of bahdanau_core.cuh.  Two kernels,
+// and its rounding points are those of bahdanau_core.cuh.  Three kernels,
 // chosen by shape alone (kernels.attend_route):
 //
 // * "grouped" (attend_grouped.cuh), a beam step's read (2 <= W <= 16 at
@@ -17,10 +17,16 @@
 //   (B = 8, W = 10), S = 197, A = 128, Dv = 768 the untiled memory is 0.8 MB
 //   of keys and 2.4 MB of values a step (~1.0 us at 3.35 TB/s; tiled over
 //   the beams it would be 32 MB); Luong's 512-wide memory, one tensor, 1.6 MB.
-// * "row" (bahdanau_attend_kernel), every other shape (W = 1: greedy and
-//   the teacher-forced loop; widths that are not multiples of 16; more than
-//   16 beams): one block of 256 threads per query row, the q product inside
-//   it (bahdanau_core.cuh's read), the keys and values of row n / W.
+// * "row" (attend_row.cuh), one query row a memory row (W = 1: greedy and
+//   the teacher-forced loop's forward) at widths that are multiples of 16:
+//   a CTA of 512 threads a row, the memory row streamed through a ring of
+//   bulk-copied chunks in shared memory from the kernel's first cycle, q
+//   formed while it streams.  At N = 128, S = 197 the row is 403 KB (Luong
+//   202 KB, read once), 51.6 MB a step (25.8 MB).
+// * "general" (bahdanau_attend_kernel), every other shape (widths that are
+//   not multiples of 16; more than 16 beams): one block of 256 threads per
+//   query row, the q product inside it (bahdanau_core.cuh's read), the keys
+//   and values of row n / W.
 //
 // Backward: the teacher-forced decoder's K reads of one memory form a loop
 // (avsr_tpu/models/decoder.py:267-295 differentiates attend inside a
@@ -77,6 +83,7 @@
 #include <algorithm>
 
 #include "attend_grouped.cuh"
+#include "attend_row.cuh"
 #include "bahdanau_core.cuh"
 #include "cluster_ptx.cuh"
 
@@ -498,8 +505,8 @@ extern "C" long long avsr_bahdanau_smem(int Hq, int A, int S) {
   return (long long)bahdanau::read_smem_bytes(Hq, A, S);
 }
 
-// "row": N query rows over N / W memory rows, a block a query row.  dot !=
-// 0: the Luong read (keys bf16, vatt null); else the Bahdanau read (keys
+// "general": N query rows over N / W memory rows, a block a query row.  dot
+// != 0: the Luong read (keys bf16, vatt null); else the Bahdanau read (keys
 // fp32).
 extern "C" int avsr_bahdanau_attend(const void* query, const void* wq, const void* vatt,
                                     const void* keys, const void* values, const void* bias,
@@ -521,6 +528,106 @@ extern "C" int avsr_bahdanau_attend(const void* query, const void* wq, const voi
       static_cast<const float*>(bias), static_cast<const float*>(mask), static_cast<float*>(ctx),
       static_cast<float*>(weights), W, Hq, A, S, Dv);
   return (int)cudaGetLastError();
+}
+
+namespace {
+
+bool row_shape_ok(int Hq, int A, int S, int Dv, bool dot) {
+  return S >= 1 && S <= attend_row::MAX_S && Hq >= 16 && Hq % 16 == 0 &&
+         Hq <= attend_row::MAX_HQ && A >= 16 && A % 16 == 0 && A <= 512 && Dv >= 16 &&
+         Dv % 16 == 0 && Dv <= 2048 &&
+         attend_row::Layout(Hq, A, S, Dv, dot, false).total <= 232448;
+}
+
+}  // namespace
+
+// The row read's shared memory per CTA in bytes (attend_row.cuh's Layout;
+// kernels.attend_row_smem mirrors it), or -1 for a shape it does not take.
+extern "C" long long avsr_attend_row_smem(int Hq, int A, int S, int Dv, int dot) {
+  if (!row_shape_ok(Hq, A, S, Dv, dot != 0)) return -1;
+  return (long long)attend_row::Layout(Hq, A, S, Dv, dot != 0, false).total;
+}
+
+namespace {
+
+// N / C clusters of C CTAs (consecutive query rows; C = 2 where N is even,
+// else 1), the row read's shared memory set
+template <bool DOT>
+cudaError_t row_config(int N, int C, size_t smem, cudaLaunchAttribute* attr,
+                       cudaLaunchConfig_t* cfg) {
+  *cfg = {};
+  cfg->gridDim = dim3(N, 1, 1);
+  cfg->blockDim = dim3(attend_row::THREADS, 1, 1);
+  cfg->dynamicSmemBytes = smem;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaFuncSetAttribute(attend_row::attend_row_kernel<DOT>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <bool DOT>
+cudaError_t row_launch(const void* query, const void* wq, const void* vatt, const void* keys,
+                       const void* values, const void* bias, const void* mask, void* ctx,
+                       void* weights, int N, int W, int Hq, int A, int S, int Dv,
+                       cudaStream_t st) {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  const size_t smem = attend_row::Layout(Hq, A, S, Dv, DOT, false).total;
+  cudaError_t e = row_config<DOT>(N, N % 2 == 0 ? 2 : 1, smem, attr, &cfg);
+  if (e != cudaSuccess) return e;
+  cfg.stream = st;
+  using bf = __nv_bfloat16;
+  e = cudaLaunchKernelEx(&cfg, attend_row::attend_row_kernel<DOT>,
+                         static_cast<const float*>(query), static_cast<const bf*>(wq),
+                         static_cast<const bf*>(vatt), keys, static_cast<const bf*>(values),
+                         static_cast<const float*>(bias), static_cast<const float*>(mask),
+                         static_cast<float*>(ctx), static_cast<float*>(weights), W, Hq, A, S,
+                         Dv);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <bool DOT>
+int row_max_active(int Hq, int A, int S, int Dv) {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  const size_t smem = attend_row::Layout(Hq, A, S, Dv, DOT, false).total;
+  if (row_config<DOT>(264, 2, smem, attr, &cfg) != cudaSuccess) return 0;
+  int n = 0;
+  return cudaOccupancyMaxActiveClusters(&n, (void*)attend_row::attend_row_kernel<DOT>, &cfg) ==
+                 cudaSuccess
+             ? n
+             : 0;
+}
+
+}  // namespace
+
+// The row read's clusters of two CTAs (two query rows) that can be resident
+// at once (0 on an error or a shape it does not take).
+extern "C" int avsr_attend_row_max_active(int Hq, int A, int S, int Dv, int dot) {
+  if (!row_shape_ok(Hq, A, S, Dv, dot != 0)) return 0;
+  return dot ? row_max_active<true>(Hq, A, S, Dv) : row_max_active<false>(Hq, A, S, Dv);
+}
+
+// "row": N query rows over N / W memory rows, a CTA of 512 threads and a
+// producer warp a query row, the memory row streamed through shared memory,
+// q formed by clusters of two CTAs (one where N is odd) (dot != 0: Luong,
+// keys bf16, vatt null; keys == values: the row read once where it fits).
+extern "C" int avsr_attend_row(const void* query, const void* wq, const void* vatt,
+                               const void* keys, const void* values, const void* bias,
+                               const void* mask, void* ctx, void* weights, int N, int W, int Hq,
+                               int A, int S, int Dv, int dot, void* stream) {
+  if (N < 1 || W < 1 || N % W || !row_shape_ok(Hq, A, S, Dv, dot != 0) ||
+      (!dot && vatt == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  auto* const launch = dot ? &row_launch<true> : &row_launch<false>;
+  return (int)launch(query, wq, vatt, keys, values, bias, mask, ctx, weights, N, W, Hq, A, S, Dv,
+                     st);
 }
 
 namespace {

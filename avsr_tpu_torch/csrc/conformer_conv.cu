@@ -48,17 +48,34 @@
 // byte-bound.  The backward's own function reads u (51.6 MB) and dout (25.8
 // MB) and writes du (51.6 MB): ~129 MB, ~39 us, also byte-bound.
 //
-// Forward: one block per (utterance, tile of TT = 16 time steps); a thread
-// owns one channel pair (256 threads at d = 512).  The tile's GLU'd rows
-// plus the k - 1 halo rows are staged in shared memory as fp32 ([TT + k -
-// 1][d], 60 KB at d = 512, k = 15); each thread then runs the k-tap conv of
-// its own two channels for the TT rows in registers, so the stage and the
-// conv need no barrier.  The LayerNorm reduces over the d channels of each
-// row with warp shuffles and one shared partial per warp, summed in a fixed
-// order (the same bits every run), mean first, then the centred squares,
-// as the reference does.  The halo rows are read by two neighbouring
-// blocks (k - 1 = 14 extra rows per 16: up to 1.9x u's bytes, mostly from
-// L2); a wider tile is later work.
+// Forward, "fused" (k = 15, d a multiple of 8 up to 512: every preset's
+// conformer conv; kernels.conformer_fwd_plan): the fused backward's
+// skeleton.  One pass over time per item (utterance b, chunk [c0, c1) of
+// its steps, chunks cut so that a small batch fills a wave of two blocks an
+// SM); a thread owns one channel (512 threads at d = 512).  Tiles of BR = 8
+// rows in two stages that lag by k / 2 + 2 rows: A computes each row's GLU
+// once (biased, masked, exactly bf16) into a window of y's last 24 rows in
+// the thread's registers; B runs the k-tap conv of its 8 rows over the
+// window (own channel: no barrier, no shared memory),
+// the LayerNorm statistics (two row reductions: per warp by halving
+// exchanges, then the warps' partials by a 16-lane tree, the same bits in
+// every thread), the swish, and writes out once.  u's rows (2 KB at d =
+// 512) arrive by bulk copies issued by one thread two tiles ahead, counted
+// on three mbarriers.  u is read once, plus 14 rows at each chunk edge.
+// The GLU (glu_channel) and the conv with its statistics (conv_ln_tile)
+// are the fused backward's own functions, so the backward's stage B
+// recomputes z with the forward's bits.  The sigmoids are sigmoid_fast
+// (ex2.approx and rcp.approx, no div.rn slow path).
+//
+// Forward, "tiles" (every other shape the wrapper takes): one block per
+// (utterance, tile of TT = 16 time steps); a thread owns one channel pair.
+// The tile's GLU'd rows plus the k - 1 halo rows are staged in shared
+// memory as fp32 ([TT + k - 1][d]); each thread then runs the k-tap conv of
+// its own two channels for the TT rows in registers.  The LayerNorm
+// reduces over the d channels of each row with warp shuffles and one shared
+// partial per warp, summed in a fixed order, mean first, then the centred
+// squares, as the reference does.  The halo rows are read by two
+// neighbouring blocks (k - 1 = 14 extra rows per 16: up to 1.9x u's bytes).
 //
 // Backward, "fused" (k = 15, d a multiple of 8 up to 512: every preset's
 // conformer conv; kernels.conformer_bwd_plan): one pass over time per item
@@ -68,11 +85,11 @@
 // three stages that lag each other by k / 2 = 7 rows, so each stage finds
 // in shared memory the rows it needs, computed by the same thread (its own
 // channel: no barrier):
-//   A  rows t + 14: the GLU of u (biased, masked; exactly bf16) into a ring
-//      of the last 22 rows of y, and bf16(sigmoid(gate)) into a ring of
-//      its own for stage C;
-//   B  rows t + 7: the conv over y's ring (the forward's taps and sum
-//      order), the LayerNorm statistics, the swish and LayerNorm backward
+//   A  rows t + 14: the GLU of u (biased, masked; exactly bf16; the
+//      forward's glu_channel) into a ring of the last 22 rows of y, and
+//      bf16(sigmoid(gate)) into a ring of its own for stage C;
+//   B  rows t + 7: the conv over y's ring and the LayerNorm statistics (the
+//      forward's conv_ln_tile: the same z), the swish and LayerNorm backward
 //      (four row reductions: per warp by halving exchanges, 9 shuffles for
 //      the tile's 8 rows, then the warps' partials by a 16-lane tree, the
 //      same bits in every thread) -> dx into a ring of its last 22 rows
@@ -540,6 +557,65 @@ __device__ __forceinline__ void rows_total(const float* red, int nwarps, float (
   }
 }
 
+// sigmoid(x) = 1 / (1 + e^-x) from one ex2.approx and one rcp.approx, both
+// flushing subnormals (a few ulps; 0 where e^-x overflows): no div.rn slow
+// path and none of __expf's subnormal scaling
+__device__ __forceinline__ float sigmoid_fast(float x) {
+  float e, r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(e) : "f"(x * -1.4426950408889634f));
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(1.f + e));
+  return r;
+}
+
+// One channel of a row's biased GLU from u's two halves ua, ug (bf16
+// values) and the bias ba, bg: a = bf16(ua + ba), g = bf16(ug + bg), *sg =
+// bf16(sigmoid(g)) and the unmasked y = bf16(a * sg).  The fused forward
+// and the fused backward's stage A both run it: the same y.
+__device__ __forceinline__ float glu_channel(float ua, float ug, float ba, float bg, float* sg) {
+  const float a = bf_round(ua + ba), g = bf_round(ug + bg);
+  *sg = bf_round(sigmoid_fast(g));
+  return bf_round(a * *sg);
+}
+
+// The conv of this thread's channel over a tile's BR rows from yw, y's rows
+// t - k/2 .. t + BR - 1 + k/2 (the forward's taps and sum order), the rows'
+// LayerNorm statistics over the block's channels (the mean, then the
+// centred squares; two row reductions, each ending at a block barrier,
+// over the per-warp partials red1 / red2; the means as products with inv_d
+// = 1 / d), and for each row xh = (x - mu) rstd and z = xh scale + bias.
+// The fused forward and the fused backward's stage B both run it, so z has
+// the same bits in both.
+__device__ __forceinline__ void conv_ln_tile(const float (&yw)[RW], const float (&w)[BK], bool own,
+                                             int nwarps, float inv_d, float sc, float bi,
+                                             float* red1, float* red2, float (&xh)[BR],
+                                             float (&z)[BR], float (&rstd)[BR]) {
+  float x[BR], mu[BR], t1[BR];
+#pragma unroll
+  for (int r = 0; r < BR; ++r) {
+    x[r] = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK; ++j) x[r] = fmaf(yw[r + j], w[j], x[r]);
+  }
+  put_rows(red1, x);
+  __syncthreads();
+  rows_total(red1, nwarps, mu);
+#pragma unroll
+  for (int r = 0; r < BR; ++r) {
+    mu[r] = __fmul_rn(mu[r], inv_d);
+    const float e = __fsub_rn(x[r], mu[r]);
+    t1[r] = own ? __fmul_rn(e, e) : 0.f;
+  }
+  put_rows(red2, t1);
+  __syncthreads();
+  rows_total(red2, nwarps, t1);
+#pragma unroll
+  for (int r = 0; r < BR; ++r) {
+    rstd[r] = rsqrtf(__fmaf_rn(t1[r], inv_d, 1e-6f));
+    xh[r] = __fmul_rn(__fsub_rn(x[r], mu[r]), rstd[r]);
+    z[r] = __fmaf_rn(xh[r], sc, bi);
+  }
+}
+
 // Item blockIdx.x = b * nc + chunk: the steps [c0, c1), c0 = chunk * CH
 // (the chunks: kernels.conformer_bwd_plan); thread c owns channel c (and
 // channel d + c of u and du).  Partial row of the item: ddw [k][d],
@@ -554,6 +630,7 @@ conv_bwd_fused_kernel(const __nv_bfloat16* __restrict__ u,       // [T, B, 2d]
                       const __nv_bfloat16* __restrict__ dout,    // [T, B, d]
                       float* __restrict__ part,                  // [B * nc][(k + 4) d]
                       __nv_bfloat16* __restrict__ du,            // [T, B, 2d]
+                      float* __restrict__ z_out,                 // [T, B, d] or null
                       int T, int B, int d, int CH, int nc) {
   extern __shared__ __align__(128) unsigned char fsm[];  // FusedLayout
   const FusedLayout lay(d);
@@ -618,6 +695,7 @@ conv_bwd_fused_kernel(const __nv_bfloat16* __restrict__ u,       // [T, B, 2d]
     for (int j = 0; j < BK; ++j) w[j] = dw[(size_t)j * d + c];
   }
   float dsc = 0.f, dbi = 0.f, dba = 0.f, dbg = 0.f;
+  const float inv_d = 1.f / d;
 
   for (int n = 0; n < ntiles; ++n) {
     const int C0 = c0 + (n - PRO) * BR, B0 = C0 + BH, A0 = C0 + 2 * BH;
@@ -638,10 +716,8 @@ conv_bwd_fused_kernel(const __nv_bfloat16* __restrict__ u,       // [T, B, 2d]
         float y = 0.f, sg = 0.f;
         if (t >= 0 && t < T) {
           const __nv_bfloat16* row = u_s + (size_t)wrap(su + 2 * BH + r, RU) * 2 * d;
-          const float a = bf_round(__bfloat162float(row[c]) + ba);
-          const float g = bf_round(__bfloat162float(row[d + c]) + bg);
-          sg = bf_round(sigmoid(g));
-          y = bf_round(a * sg) * (t < len ? 1.f : 0.f);
+          y = glu_channel(__bfloat162float(row[c]), __bfloat162float(row[d + c]), ba, bg, &sg) *
+              (t < len ? 1.f : 0.f);
         }
         const size_t slot = (size_t)wrap(sy + 2 * BH + r, RW) * d + c;
         y_s[slot] = __float2bfloat16(y);    // exact
@@ -655,41 +731,22 @@ conv_bwd_fused_kernel(const __nv_bfloat16* __restrict__ u,       // [T, B, 2d]
 #pragma unroll
       for (int i = 0; i < RW; ++i)
         yw[i] = own ? __bfloat162float(y_s[(size_t)wrap(sy + i, RW) * d + c]) : 0.f;
-      float x[BR], mu[BR], t1[BR], t2[BR];
-#pragma unroll
-      for (int r = 0; r < BR; ++r) {
-        x[r] = 0.f;
-#pragma unroll
-        for (int j = 0; j < BK; ++j) x[r] = fmaf(yw[r + j], w[j], x[r]);
-      }
-      put_rows(red1, x);
-      __syncthreads();
-      rows_total(red1, nwarps, mu);
-#pragma unroll
-      for (int r = 0; r < BR; ++r) {
-        mu[r] /= d;
-        const float e = x[r] - mu[r];
-        t1[r] = own ? e * e : 0.f;
-      }
-      put_rows(red2, t1);
-      __syncthreads();
-      rows_total(red2, nwarps, t1);
+      float x[BR], zr[BR], rstd[BR], t1[BR], t2[BR];
+      conv_ln_tile(yw, w, own, nwarps, inv_d, sc, bi, red1, red2, x, zr, rstd);  // x: xh
       const __nv_bfloat16* dob = do_s + (size_t)(n % NBUF) * BR * d;
-      float rstd[BR], dxh[BR];
+      float dxh[BR];
 #pragma unroll
       for (int r = 0; r < BR; ++r) {
         const int t = B0 + r;
-        rstd[r] = rsqrtf(t1[r] / d + 1e-6f);
-        const float xh = (x[r] - mu[r]) * rstd[r];
+        const float xh = x[r], z = zr[r];
         const float g = own && t >= 0 && t < T ? __bfloat162float(dob[(size_t)r * d + c]) : 0.f;
-        const float z = xh * sc + bi;
         const float sp = sigmoid(z);
         const float dz = g * sp + (z * g) * (sp * sigmoid(-z));
         if (t >= c0 && t < c1) {
           dsc = fmaf(dz, xh, dsc);
           dbi += dz;
+          if (z_out != nullptr && own) z_out[((size_t)t * B + b) * d + c] = z;
         }
-        x[r] = xh;
         dxh[r] = dz * sc;
         t2[r] = dxh[r] * xh;
       }
@@ -754,6 +811,161 @@ conv_bwd_fused_kernel(const __nv_bfloat16* __restrict__ u,       // [T, B, 2d]
   }
 }
 
+// ---- the fused forward ------------------------------------------------------
+
+constexpr int FPRO = 2;      // tiles of stage A alone before the first of stage B
+constexpr int FWD_CTAS = 2;  // blocks of the fused forward an SM (kernels.CONV_FWD_CTAS_PER_SM)
+
+// Shared memory of the fused forward at d channels, byte offsets: u's tiles
+// [NBUF][BR][2d] bf16 (the one in use and DEPTH ahead), the two row
+// reductions' per-warp partials [16 warps][BR] fp32, the tiles' mbarriers.
+// (y's window lives in each thread's registers: its own channel.)
+struct FwdLayout {
+  size_t red, bars, total;
+  __host__ __device__ explicit FwdLayout(int d) {
+    red = (size_t)NBUF * BR * 2 * d * 2;
+    bars = red + (size_t)2 * FUSED_WARPS * BR * 4;
+    total = bars + (size_t)NBUF * 8;
+  }
+};
+
+// Item blockIdx.x = b * nc + chunk: the steps [c0, c1), c0 = chunk * CH
+// (kernels.conformer_fwd_plan); thread c owns channel c.  Z: also write
+// LayerNorm's output z_out (the checks' instance).  Tile n: stage A,
+// y of rows c0 - 9 + 8 n .. c0 - 2 + 8 n (those of [c0 - k/2, c1 + k/2)
+// inside [0, T) from u, every other row 0, computed without a branch so
+// the rows' chains overlap); stage B from tile FPRO on, the conv, LayerNorm
+// and swish of rows c0 + 8 (n - FPRO) .., written where they lie in [c0,
+// c1).  Two blocks an SM (at most 64 registers a thread, 50 KB of shared
+// memory at d = 512); the checks' instance one.
+template <bool Z>
+__global__ void __launch_bounds__(FUSED_MAX_D, Z ? 1 : FWD_CTAS)
+conv_fwd_fused_kernel(const __nv_bfloat16* __restrict__ u,       // [T, B, 2d]
+                      const __nv_bfloat16* __restrict__ b_in,    // [2d]
+                      const float* __restrict__ dw,              // [k, d]
+                      const float* __restrict__ ln_scale,        // [d]
+                      const float* __restrict__ ln_bias,         // [d]
+                      const int* __restrict__ lengths,           // [B]
+                      __nv_bfloat16* __restrict__ out,           // [T, B, d]
+                      float* __restrict__ z_out,                 // [T, B, d] (Z)
+                      int T, int B, int d, int CH, int nc) {
+  extern __shared__ __align__(128) unsigned char fsm[];  // FwdLayout
+  const FwdLayout lay(d);
+  const int b = blockIdx.x / nc, c0 = (blockIdx.x % nc) * CH, c1 = min(c0 + CH, T);
+  const int len = lengths[b];
+  const int c = threadIdx.x, nwarps = blockDim.x / 32;
+  const bool own = c < d;
+  const __nv_bfloat16* u_s = reinterpret_cast<const __nv_bfloat16*>(fsm);   // [NBUF][BR][2d]
+  float* red1 = reinterpret_cast<float*>(fsm + lay.red);                   // [2][16][BR]
+  float* red2 = red1 + FUSED_WARPS * BR;
+  uint64_t* full = reinterpret_cast<uint64_t*>(fsm + lay.bars);            // [NBUF]
+  const int ntiles = FPRO + (c1 - c0 + BR - 1) / BR;
+  // the rows of y the item needs, and those of them that u gives
+  const int a_lo = c0 - BH, a_hi = c1 + BH, u_lo = max(a_lo, 0), u_hi = min(a_hi, T);
+
+  // tile n's u rows (stage A's) into buffer n % NBUF, a bulk copy a row
+  // issued by lane r of warp 0 (the rows' issues side by side), after lane
+  // 0 has announced their bytes
+  const int lane = threadIdx.x % 32;
+  auto issue = [&](int n) {
+    const int A0 = c0 + BH + (n - FPRO) * BR;
+    const int r0 = max(A0, u_lo), r1 = min(A0 + BR, u_hi);
+    const uint32_t bar = cluster_ptx::smem_addr(&full[n % NBUF]);
+    if (lane == 0)
+      cluster_ptx::mbar_expect(&full[n % NBUF], (uint32_t)(r1 > r0 ? (r1 - r0) * 4 * d : 0));
+    __syncwarp();
+    const int t = A0 + lane;
+    if (lane < BR && t >= r0 && t < r1)
+      cluster_ptx::bulk_g2s(
+          cluster_ptx::smem_addr(u_s + ((size_t)(n % NBUF) * BR + lane) * 2 * d),
+          u + ((size_t)t * B + b) * 2 * d, 4 * d, bar);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NBUF; ++i) cluster_ptx::mbar_init(&full[i], 1);
+    cluster_ptx::fence_mbar_init();
+  }
+  __syncwarp();
+  if (threadIdx.x < 32)
+    for (int n = 0; n < DEPTH && n < ntiles; ++n) issue(n);
+
+  // this thread's channel of the operands
+  float ba = 0.f, bg = 0.f, sc = 0.f, bi = 0.f, w[BK];
+#pragma unroll
+  for (int j = 0; j < BK; ++j) w[j] = 0.f;
+  if (own) {
+    ba = __bfloat162float(b_in[c]);
+    bg = __bfloat162float(b_in[d + c]);
+    sc = ln_scale[c];
+    bi = ln_bias[c];
+#pragma unroll
+    for (int j = 0; j < BK; ++j) w[j] = dw[(size_t)j * d + c];
+  }
+  const float inv_d = 1.f / d;
+  const int cc = own ? c : 0;  // a thread past d reads channel 0 and keeps nothing
+  // y of this thread's channel, the last three tiles of stage A: rows A0 -
+  // 2 BR .. A0 + BR - 1 of the current tile (those before the item's first
+  // tile never reach stage B)
+  float win[3 * BR];
+#pragma unroll
+  for (int i = 0; i < 3 * BR; ++i) win[i] = 0.f;
+
+  for (int n = 0; n < ntiles; ++n) {
+    const int A0 = c0 + BH + (n - FPRO) * BR, B0 = c0 + (n - FPRO) * BR;
+    // fwd: tile start
+    // every thread is past tile n - 1: its u buffer takes tile n + DEPTH's rows
+    __syncthreads();
+    if (threadIdx.x < 32 && n + DEPTH < ntiles) issue(n + DEPTH);
+    cluster_ptx::mbar_wait(&full[n % NBUF], (n / NBUF) & 1);
+    // fwd: u rows in
+
+    // A: y of rows A0 .. A0 + BR - 1 into the window's last tile (this
+    // thread's channel, exactly bf16); a row u does not give reads whatever
+    // the buffer holds, and keeps 0
+    {
+#pragma unroll
+      for (int i = 0; i < 2 * BR; ++i) win[i] = win[i + BR];
+      const __nv_bfloat16* ub = u_s + (size_t)(n % NBUF) * BR * 2 * d + cc;
+      // the tile's rows [r_lo, r_hi) that u gives and the mask keeps
+      const int r_lo = max(u_lo, A0) - A0, r_hi = min(min(u_hi, len), A0 + BR) - A0;
+#pragma unroll
+      for (int r = 0; r < BR; ++r) {
+        float sg;
+        const float y = glu_channel(__bfloat162float(ub[(size_t)r * 2 * d]),
+                                    __bfloat162float(ub[(size_t)r * 2 * d + d]), ba, bg, &sg);
+        win[2 * BR + r] = own && r >= r_lo && r < r_hi ? y : 0.f;
+      }
+    }
+    // fwd: y formed
+
+    // B: rows B0 .. B0 + BR - 1 from y's rows B0 - k/2 .. B0 + BR - 1 + k/2,
+    // the window's rows 2 .. 2 BR + BR - 1 (B0 - k/2 = A0 - 2 BR + 2)
+    if (n >= FPRO) {
+      float yw[RW];
+#pragma unroll
+      for (int i = 0; i < RW; ++i) yw[i] = win[i + 3 * BR - RW];
+      float xh[BR], z[BR], rstd[BR];
+      conv_ln_tile(yw, w, own, nwarps, inv_d, sc, bi, red1, red2, xh, z, rstd);
+      // fwd: z formed
+      // the tile's rows the item owns, from row B0's element of this thread
+      const int nv = own ? min(BR, c1 - B0) : 0;
+      const size_t step = (size_t)B * d;
+      __nv_bfloat16* op = out + ((size_t)B0 * B + b) * d + cc;
+      float* zp = Z ? z_out + ((size_t)B0 * B + b) * d + cc : nullptr;
+#pragma unroll
+      for (int r = 0; r < BR; ++r) {
+        if (r < nv) {
+          *op = __float2bfloat16(z[r] * sigmoid_fast(z[r]));  // swish
+          if (Z) *zp = z[r];
+        }
+        op += step;
+        if (Z) zp += step;
+      }
+    }
+    // fwd: out written
+  }
+  // fwd: end
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -780,6 +992,47 @@ extern "C" int avsr_conformer_conv_bwd_parts(int T, int B) { return B * ((T + CH
 // Shared-memory bytes of the fused backward at d channels (FusedLayout).
 extern "C" long long avsr_conformer_conv_bwd_fused_smem(int d) {
   return (long long)FusedLayout(d).total;
+}
+
+// Shared-memory bytes of the fused forward at d channels (FwdLayout).
+extern "C" long long avsr_conformer_conv_fwd_fused_smem(int d) {
+  return (long long)FwdLayout(d).total;
+}
+
+// Blocks of the fused forward that an SM holds at once at d channels (0 on
+// an error).
+extern "C" int avsr_conformer_conv_fwd_fused_occupancy(int d) {
+  const size_t smem = FwdLayout(d).total;
+  if (allow_smem(conv_fwd_fused_kernel<false>, smem) != cudaSuccess) return 0;
+  int n = 0;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, conv_fwd_fused_kernel<false>,
+                                                       (d + 31) / 32 * 32, smem) == cudaSuccess
+             ? n
+             : 0;
+}
+
+// The fused forward (k = 15, d a multiple of 8 up to 512): the items
+// (utterance, chunk of CH steps), nc chunks an utterance, nc * CH >= T; out
+// [T, B, d] bf16, and where z is not null z [T, B, d] fp32 (LayerNorm's
+// output, for the checks).
+extern "C" int avsr_conformer_conv_fwd_fused(const void* u, const void* b_in, const void* dw,
+                                             const void* ln_scale, const void* ln_bias,
+                                             const void* lengths, void* out, void* z, int T,
+                                             int B, int d, int k, int CH, int nc, void* stream) {
+  if (bad_shape(T, B, d, k) || !fused_shape(d, k) || CH < 1 || nc < 1 || nc * CH < T ||
+      (nc - 1) * CH >= T || out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = FwdLayout(d).total;
+  auto* const kernel =
+      z != nullptr ? &conv_fwd_fused_kernel<true> : &conv_fwd_fused_kernel<false>;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<B * nc, (d + 31) / 32 * 32, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(u), static_cast<const __nv_bfloat16*>(b_in),
+      static_cast<const float*>(dw), static_cast<const float*>(ln_scale),
+      static_cast<const float*>(ln_bias), static_cast<const int*>(lengths),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(z), T, B, d, CH, nc);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int avsr_conformer_conv(const void* u, const void* b_in, const void* dw,
@@ -838,12 +1091,14 @@ extern "C" int avsr_conformer_conv_bwd(const void* u, const void* b_in, const vo
 
 // The fused backward (k = 15, d a multiple of 8 up to 512): the items
 // (utterance, chunk of CH steps), nc chunks an utterance, nc * CH >= T; part
-// [B * nc, (k + 4) * d] fp32 is scratch; the outputs as the general entry's.
+// [B * nc, (k + 4) * d] fp32 is scratch; the outputs as the general entry's;
+// z [T, B, d] fp32, where not null, takes stage B's recompute of
+// LayerNorm's output (for the checks).
 extern "C" int avsr_conformer_conv_bwd_fused(const void* u, const void* b_in, const void* dw,
                                              const void* ln_scale, const void* ln_bias,
                                              const void* lengths, const void* dout, void* part,
-                                             void* du, void* grads, int T, int B, int d, int k,
-                                             int CH, int nc, void* stream) {
+                                             void* du, void* grads, void* z, int T, int B, int d,
+                                             int k, int CH, int nc, void* stream) {
   if (bad_shape(T, B, d, k) || !fused_shape(d, k) || CH < 1 || nc < 1 || nc * CH < T ||
       (nc - 1) * CH >= T)
     return (int)cudaErrorInvalidValue;
@@ -856,8 +1111,8 @@ extern "C" int avsr_conformer_conv_bwd_fused(const void* u, const void* b_in, co
       static_cast<const __nv_bfloat16*>(u), static_cast<const __nv_bfloat16*>(b_in),
       static_cast<const float*>(dw), static_cast<const float*>(ln_scale),
       static_cast<const float*>(ln_bias), static_cast<const int*>(lengths),
-      static_cast<const __nv_bfloat16*>(dout), pf, static_cast<__nv_bfloat16*>(du), T, B, d, CH,
-      nc);
+      static_cast<const __nv_bfloat16*>(dout), pf, static_cast<__nv_bfloat16*>(du),
+      static_cast<float*>(z), T, B, d, CH, nc);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int n = (k + 4) * d;

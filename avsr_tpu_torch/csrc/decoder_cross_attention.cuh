@@ -98,9 +98,7 @@ constexpr size_t SMEM_LIMIT = 232448;  // bytes a block may use on an H100
 // ---- PTX ------------------------------------------------------------------
 
 using cluster_ptx::bulk_g2s;
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
+using cluster_ptx::mbar_arrive;
 // the consumer warps' barrier (the producer warp never joins it)
 __device__ __forceinline__ void consumers_sync(int nthreads) {
   asm volatile("bar.sync 1, %0;\n" ::"r"(nthreads) : "memory");

@@ -47,19 +47,23 @@ NVCC_FLAGS = (
 # direction-fused one (K1); the Bahdanau read kernels count a Luong (dot
 # score) read apart from an additive one.  K10's backward counts its
 # per-step kernel per step (``*_attend_bwd``) and the memory's sums per
-# loop (``*_attend_sums``); its forward counts the grouped read
-# (``*_attend_grouped``) apart from the row kernel (``*_attend``).
+# loop (``*_attend_sums``).  K9's forward counts the pass over time
+# (``conformer_conv_fwd``) apart from the tiles (``conformer_conv_fwd_tiles``,
+# other shapes).  K10's forward counts the grouped read
+# (``*_attend_grouped``), the row read (``*_attend_row``) and the general
+# kernel (``*_attend``) apart.
 LAUNCHES: Dict[str, int] = {
     "lstm_scan_fwd": 0, "lstm_scan_bwd": 0, "lstm_scan_uni_fwd": 0, "lstm_scan_uni_bwd": 0,
     "logmel_post_dft": 0,
     "fusion_attention_fwd": 0, "fusion_attention_bwd": 0,
     "decoder_attention_fwd": 0, "decoder_attention_bwd": 0,
     "decode_attention": 0, "beam_step": 0, "av_align_scan": 0, "av_align_scan_bwd": 0,
-    "bahdanau_attend": 0, "bahdanau_attend_grouped": 0, "bahdanau_attend_bwd": 0,
-    "bahdanau_attend_sums": 0, "av_align_scan_luong": 0, "av_align_scan_luong_bwd": 0,
-    "luong_attend": 0, "luong_attend_grouped": 0, "luong_attend_bwd": 0, "luong_attend_sums": 0,
+    "bahdanau_attend": 0, "bahdanau_attend_grouped": 0, "bahdanau_attend_row": 0,
+    "bahdanau_attend_bwd": 0, "bahdanau_attend_sums": 0, "av_align_scan_luong": 0,
+    "av_align_scan_luong_bwd": 0, "luong_attend": 0, "luong_attend_grouped": 0,
+    "luong_attend_row": 0, "luong_attend_bwd": 0, "luong_attend_sums": 0,
     "encoder_attention_fwd": 0, "encoder_attention_bwd": 0, "conformer_conv_fwd": 0,
-    "conformer_conv_bwd": 0,
+    "conformer_conv_fwd_tiles": 0, "conformer_conv_bwd": 0,
 }
 
 LSTM_UNIT_TILE = 16  # hidden units per block of the per-step LSTM kernels (UT in the source)
@@ -250,6 +254,12 @@ def _load() -> ctypes.CDLL:
         lib.avsr_bahdanau_smem.restype = ctypes.c_longlong
         lib.avsr_bahdanau_attend.argtypes = [p] * 9 + [i] * 7 + [p]
         lib.avsr_bahdanau_attend.restype = i
+        lib.avsr_attend_row.argtypes = [p] * 9 + [i] * 7 + [p]
+        lib.avsr_attend_row.restype = i
+        lib.avsr_attend_row_smem.argtypes = [i] * 5
+        lib.avsr_attend_row_smem.restype = ctypes.c_longlong
+        lib.avsr_attend_row_max_active.argtypes = [i] * 5
+        lib.avsr_attend_row_max_active.restype = i
         lib.avsr_attend_grouped.argtypes = [p] * 9 + [i] * 8 + [p]
         lib.avsr_attend_grouped.restype = i
         lib.avsr_attend_grouped_smem.argtypes = [i] * 7
@@ -284,8 +294,14 @@ def _load() -> ctypes.CDLL:
         lib.avsr_conformer_conv_bwd.restype = i
         lib.avsr_conformer_conv_bwd_fused_smem.argtypes = [i]
         lib.avsr_conformer_conv_bwd_fused_smem.restype = ctypes.c_longlong
-        lib.avsr_conformer_conv_bwd_fused.argtypes = [p] * 10 + [i] * 6 + [p]
+        lib.avsr_conformer_conv_bwd_fused.argtypes = [p] * 11 + [i] * 6 + [p]
         lib.avsr_conformer_conv_bwd_fused.restype = i
+        lib.avsr_conformer_conv_fwd_fused_smem.argtypes = [i]
+        lib.avsr_conformer_conv_fwd_fused_smem.restype = ctypes.c_longlong
+        lib.avsr_conformer_conv_fwd_fused.argtypes = [p] * 8 + [i] * 6 + [p]
+        lib.avsr_conformer_conv_fwd_fused.restype = i
+        lib.avsr_conformer_conv_fwd_fused_occupancy.argtypes = [i]
+        lib.avsr_conformer_conv_fwd_fused_occupancy.restype = i
         _lib = lib
     return _lib
 
@@ -1675,23 +1691,91 @@ def attend_grouped_cluster(B: int, W: int, S: int, Hq: int, A: int, Dv: int, dot
     return max(wave) if wave else min(fits)
 
 
+# K10's row read (``csrc/attend_row.cuh``, "row"): a CTA a query row, 512
+# threads that compute and a producer warp that streams the memory row
+# through a ring of slots of shared memory by bulk copies; clusters of two
+# CTAs (one where N is odd) split q's columns
+ATTEND_ROW_CLUSTER = 2
+ATTEND_ROW_CONSUMERS = 512  # CONSUMERS
+ATTEND_ROW_SLOTS = 8        # chunks of the row in flight or in use (SLOTS)
+ATTEND_ROW_SLOT = 25600     # bytes a slot (SLOT): Luong's 197 x 512 bf16 row in 8 slots
+ATTEND_ROW_MAX_HQ = 1024    # MAX_HQ, MAX_S: two values a consumer
+ATTEND_ROW_MAX_S = 1024
+
+
+def attend_row_plan(S: int, A: int, Dv: int, dot: bool, same: bool) -> Dict[str, int]:
+    """The chunks of K10's row read (``Layout`` in ``csrc/attend_row.cuh``):
+    ``kc`` / ``vc`` keys a chunk of the keys' / the values' pass and ``nk``
+    / ``nv`` chunks of each; ``nv`` 0 where the keys are the values
+    (``same``: Luong's one tensor) and the row fits in the ring, whose
+    context then reads the keys' chunks again (the row read once)."""
+    kb, vb = A * (2 if dot else 4), Dv * 2
+    kc, vc = min(S, ATTEND_ROW_SLOT // kb), min(S, ATTEND_ROW_SLOT // vb)
+    if same and S <= ATTEND_ROW_SLOTS * kc:
+        kc = vc = -(-S // ATTEND_ROW_SLOTS)
+        return {"kc": kc, "vc": vc, "nk": -(-S // kc), "nv": 0}
+    return {"kc": kc, "vc": vc, "nk": -(-S // kc), "nv": -(-S // vc)}
+
+
+def attend_row_smem(Hq: int, A: int, S: int, Dv: int, dot: bool) -> int:
+    """Shared memory of a CTA of K10's row read (``Layout`` in
+    ``csrc/attend_row.cuh``), bytes: the ring [SLOTS, SLOT] (q's partial sums
+    first, the context's after its last chunk), q [A] fp32, v [A] fp32
+    (Bahdanau), the cluster's two bf16(query) [2, Hq] fp32, the scores,
+    bias and mask [S] fp32 each (every region rounded up to 16 bytes), the
+    reductions' slots [2 x 16 consumer warps], the slots' full and empty
+    mbarriers and two more (q's partial sums read, the other CTA's columns
+    of q landed)."""
+    def up16(x):
+        return (x + 15) // 16 * 16
+
+    return (ATTEND_ROW_SLOTS * ATTEND_ROW_SLOT + up16(4 * A) + (0 if dot else up16(4 * A))
+            + up16(8 * Hq) + 3 * up16(4 * S) + 2 * (ATTEND_ROW_CONSUMERS // 32) * 4
+            + (2 * ATTEND_ROW_SLOTS + 2) * 8)
+
+
+def attend_row_info(Hq: int, A: int, S: int, Dv: int, dot: bool) -> Dict[str, int]:
+    """K10's row read as built: a CTA's shared memory (the library's
+    ``Layout``; -1 for a shape it does not take) and the clusters of
+    ``ATTEND_ROW_CLUSTER`` CTAs that can be resident at once."""
+    lib = _load()
+    return {"smem": int(lib.avsr_attend_row_smem(Hq, A, S, Dv, int(dot))),
+            "max_active_clusters": int(lib.avsr_attend_row_max_active(Hq, A, S, Dv, int(dot)))}
+
+
+def attend_row_admits(Hq: int, A: int, S: int, Dv: int, dot: bool) -> bool:
+    """Whether K10's row read takes these widths: Hq, A and Dv multiples of
+    16 (Hq up to 1024, A up to 512, Dv up to 2048), S up to 1024, and a CTA
+    within a block's shared memory (``attend_row_smem``)."""
+    return (1 <= S <= ATTEND_ROW_MAX_S and 16 <= Hq <= ATTEND_ROW_MAX_HQ and Hq % 16 == 0
+            and A % 16 == 0 and 16 <= A <= 512
+            and Dv % 16 == 0 and 16 <= Dv <= 2048
+            and attend_row_smem(Hq, A, S, Dv, dot) <= SMEM_LIMIT)
+
+
 def attend_route(N: int, B: int, S: int, Hq: int, A: int, Dv: int, dot: bool) -> str:
     """The kernel that runs K10 for N query rows over a memory of B rows
     (W = N / B beams a row): "grouped", a beam step's read, W from 2 to
     ``ATTEND_GROUP_MAX_W`` at widths that are multiples of 16 while a
     cluster's CTAs hold the row (``attend_grouped_cluster``): each key and
-    value row read once for the W queries; "row", every other shape the
-    wrapper takes (W = 1, greedy and the teacher-forced loop, where the
-    grouped read measured 2.3-3.2x slower on the H100; other widths): a block
-    per query row.  The grouped read also beat the row kernel on the H100
-    where its clusters take two or more waves (8 rows of 16 CTAs over the
-    16 s memory, 32 rows at S = 197), so W >= 2 takes it at every shape it
-    holds.  Chosen by shape alone, never after a failure."""
+    value row read once for the W queries; "row", one query a memory row (W
+    = 1: greedy and the teacher-forced loop) at widths the row read takes
+    (``attend_row_admits``): a CTA a row streaming it through shared memory
+    (where the grouped read measured 2.3-3.2x slower than a block per
+    query row on the H100); "general", every other shape the wrapper takes
+    (widths that are not multiples of 16, more than 16 beams): a block of
+    256 threads per query row (``bahdanau_core.cuh``'s read).  The grouped
+    read also beat the general kernel on the H100 where its clusters take
+    two or more waves (8 rows of 16 CTAs over the 16 s memory, 32 rows at S
+    = 197), so W >= 2 takes it at every shape it holds.  Chosen by shape
+    alone, never after a failure."""
     _check_attend_shape("attend", N, B, S, A, Dv)
     W = N // B
     if W >= 2 and attend_grouped_cluster(B, W, S, Hq, A, Dv, dot) > 0:
         return "grouped"
-    return "row"
+    if W == 1 and attend_row_admits(Hq, A, S, Dv, dot):
+        return "row"
+    return "general"
 
 
 def attend_grouped_info(W: int, S: int, Hq: int, A: int, Dv: int, C: int,
@@ -1706,8 +1790,10 @@ def attend_grouped_info(W: int, S: int, Hq: int, A: int, Dv: int, C: int,
 
 def bahdanau_attend(query, wq, v, keys, values, bias, mask):
     """K10: the attention read (CUDA): Bahdanau, or with ``v`` None Luong;
-    the row kernel counted as ``bahdanau_attend`` / ``luong_attend``, the
-    grouped read as ``bahdanau_attend_grouped`` / ``luong_attend_grouped``.
+    the grouped read counted as ``bahdanau_attend_grouped`` /
+    ``luong_attend_grouped``, the row read as ``bahdanau_attend_row`` /
+    ``luong_attend_row``, the general kernel as ``bahdanau_attend`` /
+    ``luong_attend``.
 
     query [N,Hq] f32, wq [Hq,A] bf16, v [A] bf16 (None: Luong), and a
     memory of B rows, N = B W: keys [B,S,A] f32 (Luong: the bf16 memory, A
@@ -1732,12 +1818,19 @@ def bahdanau_attend(query, wq, v, keys, values, bias, mask):
     if route == "grouped":
         C = attend_grouped_cluster(B, N // B, S, Hq, A, Dv, dot)
         err = lib.avsr_attend_grouped(*args, B, N // B, Hq, A, S, Dv, C, int(dot), stream)
+    elif route == "row":
+        err = lib.avsr_attend_row(*args, N, N // B, Hq, A, S, Dv, int(dot), stream)
     else:
         err = lib.avsr_bahdanau_attend(*args, N, N // B, Hq, A, S, Dv, int(dot), stream)
     _raise_on(err, f"bahdanau_attend ({route}) launch")
-    LAUNCHES[("luong_attend" if dot else "bahdanau_attend")
-             + ("_grouped" if route == "grouped" else "")] += 1
+    LAUNCHES[attend_counter(route, dot)] += 1
     return ctx, weights
+
+
+def attend_counter(route: str, dot: bool) -> str:
+    """The ``LAUNCHES`` entry of a K10 forward launch on ``route``."""
+    return (("luong_attend" if dot else "bahdanau_attend")
+            + {"grouped": "_grouped", "row": "_row", "general": ""}[route])
 
 
 def attend_bwd_info(Hq: int, A: int, S: int, Dv: int, dot: bool) -> Dict[str, int]:
@@ -1965,24 +2058,73 @@ def _check_conformer_conv(u, b_in, dw, ln_scale, ln_bias, lengths):
     return T, B, d, k, dev
 
 
-def conformer_conv_fwd(u, b_in, dw, ln_scale, ln_bias, lengths):
+def conformer_conv_fwd(u, b_in, dw, ln_scale, ln_bias, lengths, z=None):
     """K9: the conformer conv module between its two pointwise products,
-    forward (CUDA).
+    forward (CUDA); the kernel by ``conformer_fwd_plan``: the pass over
+    time counted as ``conformer_conv_fwd``, the tiles as
+    ``conformer_conv_fwd_tiles``.
 
     u [T,B,2d] bf16 (the first pointwise product), b_in [2d] bf16, dw [k,d]
     f32 (the depthwise kernel), ln_scale / ln_bias [d] f32, lengths [B]
     int32 -> [T,B,d] bf16: GLU, mask, depthwise conv, LayerNorm, swish.
+    ``z`` (the pass over time only; checks): an f32 [T,B,d] tensor that
+    takes LayerNorm's output.
     """
     T, B, d, k, dev = _check_conformer_conv(u, b_in, dw, ln_scale, ln_bias, lengths)
+    plan = conformer_fwd_plan(T, B, d, k)
+    if z is not None:
+        if plan["route"] != "fused":
+            raise ValueError("conformer conv: z is written by the pass over time only")
+        _check("z", z, torch.float32, (T, B, d), dev)
     lib = _load()
     out = torch.empty((T, B, d), dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.avsr_conformer_conv(u.data_ptr(), b_in.data_ptr(), dw.data_ptr(),
-                                  ln_scale.data_ptr(), ln_bias.data_ptr(), lengths.data_ptr(),
-                                  out.data_ptr(), T, B, d, k, stream)
-    _raise_on(err, "conformer_conv_fwd launch")
-    LAUNCHES["conformer_conv_fwd"] += 1
+    operands = (u.data_ptr(), b_in.data_ptr(), dw.data_ptr(), ln_scale.data_ptr(),
+                ln_bias.data_ptr(), lengths.data_ptr(), out.data_ptr())
+    if plan["route"] == "fused":
+        err = lib.avsr_conformer_conv_fwd_fused(*operands, _ptr(z), T, B, d, k, plan["chunk"],
+                                                plan["chunks"], stream)
+    else:
+        err = lib.avsr_conformer_conv(*operands, T, B, d, k, stream)
+    _raise_on(err, f"conformer_conv_fwd ({plan['route']}) launch")
+    LAUNCHES["conformer_conv_fwd" if plan["route"] == "fused" else "conformer_conv_fwd_tiles"] += 1
     return out
+
+
+# K9's fused forward (``csrc/conformer_conv.cu``, ``conv_fwd_fused_kernel``):
+# one pass over time per item, a thread per channel, the backward's taps and
+# widths
+CONV_FWD_CTAS_PER_SM = 2  # FWD_CTAS: blocks an SM holds (64 registers at most, 50 KB at d = 512)
+CONV_FWD_ITEMS = CONV_FWD_CTAS_PER_SM * WAVE_BLOCKS  # items of one wave of an H100
+
+
+def conformer_fwd_fused_smem(d: int) -> int:
+    """Shared memory of K9's fused forward at d channels, bytes
+    (``FwdLayout``): u's three tiles [BR, 2d] bf16, the two row reductions'
+    per-warp partials (2 x 16 warps x BR fp32), three mbarriers (y's window
+    is in registers)."""
+    rows, bufs = CONV_BWD_ROWS, CONV_BWD_BUFS
+    return bufs * rows * 4 * d + 2 * (CONV_BWD_MAX_D // 32) * rows * 4 + bufs * 8
+
+
+def conformer_fwd_plan(T: int, B: int, d: int, k: int) -> Dict[str, object]:
+    """How K9's forward runs at (T, B, d, k), by shape alone: the route
+    ("fused", one pass over time per item, at the fused backward's shapes:
+    k = 15 and d a multiple of 8 up to 512; "tiles", a block per 16 steps,
+    every other shape), its items' chunks of steps (``chunks`` an
+    utterance of ``chunk`` steps each, ``chunk`` a multiple of the 8-row
+    tile: as many chunks as keep the B utterances' items within one wave of
+    ``CONV_FWD_ITEMS``, one where B fills it) and its shared memory
+    (bytes)."""
+    if k == CONV_BWD_TAPS and d % 8 == 0 and 8 <= d <= CONV_BWD_MAX_D:
+        rows = CONV_BWD_ROWS
+        nc = max(1, CONV_FWD_ITEMS // B)
+        ch = rows * -(-T // (rows * nc))
+        return {"route": "fused", "chunks": -(-T // ch), "chunk": ch,
+                "smem": conformer_fwd_fused_smem(d)}
+    tt = 16  # TT: steps a block of the tiles; their fp32 stage [TT + k - 1, d] and partials
+    return {"route": "tiles", "chunks": -(-T // tt), "chunk": tt,
+            "smem": (tt + k - 1) * d * 4 + 2 * -(-(d // 2) // 32) * tt * 4}
 
 
 # K9's fused backward (``csrc/conformer_conv.cu``, ``conv_bwd_fused_kernel``):
@@ -2039,17 +2181,23 @@ def conformer_bwd_plan(T: int, B: int, d: int, k: int) -> Dict[str, object]:
             "dx_elements": T * B * d, "smem": conformer_general_smem(d, k)}
 
 
-def conformer_conv_bwd(u, b_in, dw, ln_scale, ln_bias, lengths, dout):
+def conformer_conv_bwd(u, b_in, dw, ln_scale, ln_bias, lengths, dout, z=None):
     """K9: the conformer conv module's backward (CUDA), recomputing the
     forward from its inputs; the kernels by ``conformer_bwd_plan``.
 
     The forward's operands and the output's cotangent dout [T,B,d] bf16 ->
     (du [T,B,2d] bf16, db_in [2d], ddw [k,d], dln_scale [d], dln_bias [d],
     all f32; db_in holds bf16 values, the transpose of the bias's cast).
+    ``z`` (the fused route only; checks): an f32 [T,B,d] tensor that takes
+    the recompute of LayerNorm's output.
     """
     T, B, d, k, dev = _check_conformer_conv(u, b_in, dw, ln_scale, ln_bias, lengths)
     _check("dout", dout, torch.bfloat16, (T, B, d), dev)
     plan = conformer_bwd_plan(T, B, d, k)
+    if z is not None:
+        if plan["route"] != "fused":
+            raise ValueError("conformer conv bwd: z is written by the fused route only")
+        _check("z", z, torch.float32, (T, B, d), dev)
     lib = _load()
     f32 = torch.float32
     part = torch.empty((plan["part_rows"], (k + 4) * d), dtype=f32, device=dev)
@@ -2060,8 +2208,8 @@ def conformer_conv_bwd(u, b_in, dw, ln_scale, ln_bias, lengths, dout):
                 ln_bias.data_ptr(), lengths.data_ptr(), dout.data_ptr())
     if plan["route"] == "fused":
         err = lib.avsr_conformer_conv_bwd_fused(*operands, part.data_ptr(), du.data_ptr(),
-                                                grads.data_ptr(), T, B, d, k, plan["chunk"],
-                                                plan["chunks"], stream)
+                                                grads.data_ptr(), _ptr(z), T, B, d, k,
+                                                plan["chunk"], plan["chunks"], stream)
     else:
         dx = torch.empty((T, B, d), dtype=f32, device=dev)
         err = lib.avsr_conformer_conv_bwd(*operands, dx.data_ptr(), part.data_ptr(),

@@ -410,9 +410,9 @@ TRAIN_KERNELS = ("lstm_scan_fwd", "lstm_scan_bwd", "logmel_post_dft", "fusion_at
 GREEDY_KERNELS = ("decode_attention",)
 SERVE_ALIGN_KERNELS = ("lstm_scan_fwd", "logmel_post_dft", "av_align_scan",
                        "bahdanau_attend_grouped", "beam_step")
-GREEDY_ALIGN_KERNELS = ("bahdanau_attend",)
+GREEDY_ALIGN_KERNELS = ("bahdanau_attend_row",)
 TRAIN_ALIGN_KERNELS = ("lstm_scan_fwd", "lstm_scan_bwd", "logmel_post_dft", "av_align_scan",
-                       "av_align_scan_bwd", "bahdanau_attend", "bahdanau_attend_bwd",
+                       "av_align_scan_bwd", "bahdanau_attend_row", "bahdanau_attend_bwd",
                        "bahdanau_attend_sums")
 # the keys every phase's report entry has; any other (what a library call
 # covers, a second shape's times) is carried into the kernels line as is
@@ -424,17 +424,27 @@ TRAIN_V2_KERNELS = ("logmel_post_dft", "encoder_attention_fwd", "encoder_attenti
                     "fusion_attention_bwd", "decoder_attention_fwd", "decoder_attention_bwd")
 SERVE_UL_KERNELS = ("lstm_scan_uni_fwd", "logmel_post_dft", "av_align_scan_luong",
                     "luong_attend_grouped", "beam_step")
-# the K10 forward kernel a path must not launch: a beam step's reads (10
+# the K10 forward kernels a path must not launch: a beam step's reads (10
 # beams a memory row) take the grouped read, greedy's and the teacher-forced
-# loop's (a query row per memory row) the row kernel
-K10_OTHER_ROUTE = {"serve_align": "bahdanau_attend", "serve_uni_luong": "luong_attend",
-                   "greedy_align": "bahdanau_attend_grouped",
-                   "greedy_uni_luong": "luong_attend_grouped",
-                   "train_align": "bahdanau_attend_grouped",
-                   "train_uni_luong": "luong_attend_grouped"}
-GREEDY_UL_KERNELS = ("luong_attend",)
+# loop's (a query row per memory row) the row read; no path of the presets
+# takes the general kernel (a block per query row, for other widths).  The
+# v2 paths' K9 forward takes the pass over time, never the tiles (other
+# shapes).
+OTHER_ROUTES = {"serve_align": ("bahdanau_attend", "bahdanau_attend_row"),
+                "serve_uni_luong": ("luong_attend", "luong_attend_row"),
+                "greedy_align": ("bahdanau_attend", "bahdanau_attend_grouped"),
+                "greedy_uni_luong": ("luong_attend", "luong_attend_grouped"),
+                "train_align": ("bahdanau_attend", "bahdanau_attend_grouped"),
+                "train_uni_luong": ("luong_attend", "luong_attend_grouped"),
+                "serve_v2": ("conformer_conv_fwd_tiles",),
+                "greedy_v2": ("conformer_conv_fwd_tiles",),
+                "train_v2": ("conformer_conv_fwd_tiles",)}
+# kernels no path of the presets launches (routes of other shapes), listed
+# in the kernels line with their phases' numbers and 0 launches
+OFF_PATH = ("bahdanau_attend", "luong_attend", "conformer_conv_fwd_tiles")
+GREEDY_UL_KERNELS = ("luong_attend_row",)
 TRAIN_UL_KERNELS = ("lstm_scan_uni_fwd", "lstm_scan_uni_bwd", "logmel_post_dft",
-                    "av_align_scan_luong", "av_align_scan_luong_bwd", "luong_attend",
+                    "av_align_scan_luong", "av_align_scan_luong_bwd", "luong_attend_row",
                     "luong_attend_bwd", "luong_attend_sums")
 
 
@@ -444,12 +454,12 @@ def fail(phase: str, msg: str) -> None:
 
 
 def check_other_route(label, launches):
-    """Fails where the path ``label`` launched the K10 forward kernel of the
-    other route (``K10_OTHER_ROUTE``): every read took the route its shape
-    gives."""
-    other = K10_OTHER_ROUTE.get(label)
-    if other is not None and launches[other] != 0:
-        fail(label, f"{launches[other]} reads launched {other}, the other route's kernel")
+    """Fails where the path ``label`` launched a K10 forward or K9 forward
+    kernel of another route (``OTHER_ROUTES``): every call took the route
+    its shape gives."""
+    for other in OTHER_ROUTES.get(label, ()):
+        if launches[other] != 0:
+            fail(label, f"{launches[other]} calls launched {other}, another route's kernel")
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -2240,16 +2250,24 @@ def k10_inputs(N, dev, seed, S=197, Hq=256, A=128, Dv=768, W=1):
 # K10's forward shapes: (label, N, W, S, widths, the route attend_route gives):
 # the beam step of a serve request (8 utterances, 10 beams) over 6 s and 16 s
 # memories, 3 beams, greedy's and the teacher-forced loop's one query a row
-# (also over 16 s), key widths off the tensor cores' 16-column steps, and 17
-# column groups of q (A = 272) over a cluster of 8, where the CTAs own 2 or 3
+# at N = 128 (also over 16 s, and with Luong's keys a tensor apart from its
+# values: the row read's two passes), key widths off the tensor cores'
+# 16-column steps (a beam step and one beam a row), and 17 column groups of
+# q (A = 272) over a cluster of 8, where the CTAs own 2 or 3
 K10_FWD_CASES = (("beam step", 80, 10, 197, "preset", "grouped"),
                  ("3 beams", 24, 3, 197, "preset", "grouped"),
                  ("beam step, 16 s", 80, 10, 531, "preset", "grouped"),
                  ("one beam", 128, 1, 197, "preset", "row"),
-                 ("one beam, 16 s", 16, 1, 531, "preset", "row"),
-                 ("beam step, odd width", 80, 10, 197, "odd", "row"),
-                 ("beam step, 17 q groups", 80, 10, 197, "groups", "grouped"))
+                 ("one beam, 16 s", 128, 1, 531, "preset", "row"),
+                 ("one beam, keys apart", 128, 1, 197, "apart", "row"),
+                 ("beam step, odd width", 80, 10, 197, "odd", "general"),
+                 ("one beam, odd width", 128, 1, 197, "odd", "general"),
+                 ("beam step, 17 q groups", 80, 10, 197, "groups", "grouped"),
+                 ("one beam, 17 q groups", 128, 1, 197, "groups", "row"))
 
+
+# the K10 forward kernels by route, as k10_launch takes them
+K10_ROUTES = ("grouped", "row", "general")
 
 # the beam steps (10 beams) timed on both kernels, (memory rows B, S): a
 # serve request's over 6 s and 16 s memories, and 32 utterances
@@ -2257,9 +2275,9 @@ K10_TIMED = ((8, 197), (8, 531), (32, 197))
 
 
 def k10_launch(route, query, wq, v, keys, values, bias, mask):
-    """One K10 forward launch on ``route`` ("grouped" or "row") straight
-    through the library, whatever ``kernels.attend_route`` would pick, and
-    uncounted: the timings' second kernel.  -> (ctx, weights)."""
+    """One K10 forward launch on ``route`` ("grouped", "row" or "general")
+    straight through the library, whatever ``kernels.attend_route`` would
+    pick, and uncounted: the timings' other kernels.  -> (ctx, weights)."""
     import torch
 
     from avsr_tpu_torch import kernels
@@ -2276,6 +2294,8 @@ def k10_launch(route, query, wq, v, keys, values, bias, mask):
     if route == "grouped":
         C = kernels.attend_grouped_cluster(B, N // B, S, Hq, A, Dv, dot)
         err = lib.avsr_attend_grouped(*args, B, N // B, Hq, A, S, Dv, C, int(dot), stream)
+    elif route == "row":
+        err = lib.avsr_attend_row(*args, N, N // B, Hq, A, S, Dv, int(dot), stream)
     else:
         err = lib.avsr_bahdanau_attend(*args, N, N // B, Hq, A, S, Dv, int(dot), stream)
     kernels._raise_on(err, f"K10 {route} launch")
@@ -2311,6 +2331,37 @@ def k10_fwd_check(tag, args, w_tol, W):
     return max(e.values())
 
 
+def k10_row_build_info():
+    """K10's row read as built: registers and spills of both instances
+    (fails on a spill or a missing one) and its shared memory a CTA, the
+    library's against ``kernels.attend_row_smem`` over a grid of shapes
+    (fails where they differ)."""
+    from avsr_tpu_torch import kernels
+
+    rep = {k: r for k, r in kernels.ptxas_report("bahdanau_attend").items()
+           if "attend_row_kernel" in k}
+    if len(rep) != 2 or any(r["spill_stores"] or r["spill_loads"] for r in rep.values()):
+        fail("K10 row", f"a row-read kernel spills or is missing: {rep}")
+    lib = kernels._load()
+    bad = [(Hq, A, S, Dv, dot) for Hq in (16, 256, 512) for A in (16, 128, 272, 512)
+           for S in (1, 197, 531) for Dv in (16, 512, 768, 2048) for dot in (False, True)
+           if lib.avsr_attend_row_smem(Hq, A, S, Dv, int(dot))
+           != (kernels.attend_row_smem(Hq, A, S, Dv, dot)
+               if kernels.attend_row_admits(Hq, A, S, Dv, dot) else -1)]
+    occ = {kind: kernels.attend_row_info(*widths)["max_active_clusters"]
+           for kind, widths in (("bahdanau", (256, 128, 197, 768, False)),
+                                ("luong", (256, 512, 197, 512, True)))}
+    print(f"K10 row read (ptxas -v): {rep}; its shared memory a CTA at the presets' widths "
+          f"{kernels.attend_row_smem(256, 128, 197, 768, False)} B (Luong "
+          f"{kernels.attend_row_smem(256, 512, 197, 512, True)} B); clusters of "
+          f"{kernels.ATTEND_ROW_CLUSTER} resident at once {occ} (N = 128 rows: 64)")
+    if bad:
+        fail("K10 row", f"kernels.attend_row_smem differs from the library's Layout at {bad}")
+    if min(occ.values()) < 1:
+        fail("K10 row", f"a cluster of the row read cannot be resident: {occ}")
+    return rep
+
+
 def k10_fwd_phase(dev, report, key, label, make, w_tol, odd, groups):
     """K10's forward for one read (``make``: ``k10_inputs`` or
     ``k10_luong_inputs``; ``odd`` their widths off the tensor cores' steps,
@@ -2318,22 +2369,26 @@ def k10_fwd_phase(dev, report, key, label, make, w_tol, odd, groups):
     the route ``kernels.attend_route`` gives it against the plain twin, each
     grouped shape's shared memory (``kernels.attend_grouped_smem``) and
     resident clusters (``kernels.ATTEND_GROUP_WAVE``) against the library's.
-    Then the device ms of both kernels at the beam steps of K10_TIMED, of
-    the row kernel over the memory
-    tiled 10 times (the parent's read), and at one beam a row (N = 128,
-    greedy's and the teacher-forced loop's), the bounds of the untiled and
-    the tiled memory.  Reports the row kernel as ``key`` (at one beam a row)
-    and the grouped read as ``key``_grouped (at the beam step)."""
+    Then the device ms of the grouped read and the general kernel at the
+    beam steps of K10_TIMED, of the general kernel over the memory tiled 10
+    times (the read before the memory was untiled), and at one beam a row
+    (N = 128, greedy's and the teacher-forced loop's, over S = 197 and 531)
+    of the row read, the general kernel (the route there before the row
+    read) and the grouped read, with the bounds.  Reports the row read as ``key``_row
+    and the general kernel as ``key`` (both at one beam a row), the grouped
+    read as ``key``_grouped (at the beam step)."""
     import torch
 
     from avsr_tpu_torch import kernels
     from avsr_tpu_torch.ops import attention as attn
 
-    worst = {"row": 0.0, "grouped": 0.0}
+    worst = {"row": 0.0, "grouped": 0.0, "general": 0.0}
     for i, (what, N, W, S, widths, want) in enumerate(K10_FWD_CASES):
-        kw = {"preset": {}, "odd": odd, "groups": groups}[widths]
+        kw = {"preset": {}, "apart": {}, "odd": odd, "groups": groups}[widths]
         args = make(N, dev, seed=i + N + S, S=S, W=W, **kw)
         mem = args[3]
+        if widths == "apart" and mem.keys is mem.values:
+            args[3] = mem = mem._replace(keys=mem.values.clone())
         B, S_, A = mem.keys.shape
         N, Hq = args[2].shape
         Dv = mem.values.shape[-1]
@@ -2357,7 +2412,24 @@ def k10_fwd_phase(dev, report, key, label, make, w_tol, odd, groups):
                 fail(label, f"{tag}: the library holds {info['max_active_clusters']} clusters "
                             f"of {C} at once, kernels.ATTEND_GROUP_WAVE plans "
                             f"{kernels.ATTEND_GROUP_WAVE[C]}")
+        if route == "row":
+            plan = kernels.attend_row_plan(S_, A, Dv, dot, mem.keys is mem.values)
+            tag += f" (chunks {plan})"
+        before = dict(kernels.LAUNCHES)
         worst[route] = max(worst[route], k10_fwd_check(tag, args, w_tol, W))
+        counter = kernels.attend_counter(route, dot)
+        if kernels.LAUNCHES[counter] - before[counter] != 2:
+            fail(label, f"{tag}: two reads launched {counter} "
+                        f"{kernels.LAUNCHES[counter] - before[counter]} times")
+        if widths == "apart" and dot:
+            # the same chunks, read twice (keys, then values) or once (the
+            # row resident): the same bits
+            one = attn.attend(*args[:3], args[3]._replace(keys=args[3].values), args[4])
+            two = attn.attend(*args)
+            same = all(torch.equal(a, b) for a, b in zip(one, two))
+            print(f"{tag}: equal bit for bit to the resident read of the same row: {same}")
+            if not same:
+                fail(label, f"{tag}: the two-pass read differs from the resident one")
 
     def ops(args, route, tile=1):
         # one read as attn.attend issues it (the operands' casts included) on
@@ -2398,57 +2470,75 @@ def k10_fwd_phase(dev, report, key, label, make, w_tol, odd, groups):
         Hq, Dv = args[2].shape[1], args[3].values.shape[-1]
         C = kernels.attend_grouped_cluster(B, 10, S, Hq, A, Dv, dot)
         route = kernels.attend_route(10 * B, B, S, Hq, A, Dv, dot)
-        t = {"grouped": device_ms(ops(args, "grouped")), "row": device_ms(ops(args, "row")),
+        t = {"grouped": device_ms(ops(args, "grouped")), "general": device_ms(ops(args, "general")),
              "route": route, "cluster": C}
         if (B, S) == (8, 197):
-            t["tiled_row"] = device_ms(ops(args, "row", tile=10))
+            t["tiled_general"] = device_ms(ops(args, "general", tile=10))
             t["ms"] = time_ms(lambda: attn.attend(*args))
             t["plain_ms"] = time_ms(lambda: attn.attend_plain(*args))
             (t["bound"], nb), (b_tiled, nb_tiled) = bounds(args), bounds(args, tile=10)
             t["bound_tiled_ms"] = b_tiled[0]
         print(f"{label} beam step [N={10 * B}={B}x10,S={S}]: device ms grouped {t['grouped']:.5f} "
-              f"(clusters of {C}, {kernels.ATTEND_GROUP_WAVE[C]} resident at once), row kernel "
-              f"{t['row']:.5f}" + (f", row kernel over the tiled memory {t['tiled_row']:.5f}; "
-                                   f"ms {t['ms']:.4f} (host clock), plain {t['plain_ms']:.4f}; "
-                                   f"bound {t['bound'][0]:.5f} ms ({t['bound'][1]}, untiled "
-                                   f"{nb / 1e6:.2f} MB), tiled {b_tiled[0]:.5f} ms "
-                                   f"({nb_tiled / 1e6:.2f} MB)" if (B, S) == (8, 197) else "")
+              f"(clusters of {C}, {kernels.ATTEND_GROUP_WAVE[C]} resident at once), general "
+              f"kernel {t['general']:.5f}"
+              + (f", general kernel over the tiled memory {t['tiled_general']:.5f}; "
+                 f"ms {t['ms']:.4f} (host clock), plain {t['plain_ms']:.4f}; "
+                 f"bound {t['bound'][0]:.5f} ms ({t['bound'][1]}, untiled "
+                 f"{nb / 1e6:.2f} MB), tiled {b_tiled[0]:.5f} ms "
+                 f"({nb_tiled / 1e6:.2f} MB)" if (B, S) == (8, 197) else "")
               + f"; the route: {route}")
         times[B, S] = t
-    g1 = make(128, dev, seed=128)
-    C1 = kernels.attend_grouped_cluster(128, 1, 197, Hq, A, Dv, dot)
-    one = {"row": device_ms(ops(g1, "row")), "grouped": device_ms(ops(g1, "grouped")),
-           "ms": time_ms(lambda: attn.attend(*g1)),
-           "plain_ms": time_ms(lambda: attn.attend_plain(*g1)), "bound": bounds(g1)[0]}
-    print(f"{label} one beam a row [N=128=128x1,S=197]: device ms row {one['row']:.5f} (the "
-          f"route), grouped {one['grouped']:.5f} (clusters of {C1}); ms {one['ms']:.4f} (host "
-          f"clock), plain {one['plain_ms']:.4f}; bound {one['bound'][0]:.5f} ms "
-          f"({one['bound'][1]})")
+    one = {}
+    for S in (197, 531):
+        g1 = make(128, dev, seed=128 + S, S=S)
+        o = {r: device_ms(ops(g1, r)) for r in ("row", "general", "grouped")}
+        o["bound"], nb = bounds(g1)
+        if S == 197:
+            o["ms"] = time_ms(lambda: attn.attend(*g1))
+            o["ms_general"] = time_ms(ops(g1, "general"))
+            o["plain_ms"] = time_ms(lambda: attn.attend_plain(*g1))
+        print(f"{label} one beam a row [N=128=128x1,S={S}]: device ms row {o['row']:.5f} (the "
+              f"route), general {o['general']:.5f}, grouped {o['grouped']:.5f}; "
+              + (f"ms {o['ms']:.4f} (host clock; general {o['ms_general']:.4f}), plain "
+                 f"{o['plain_ms']:.4f}; " if S == 197 else "")
+              + f"bound {o['bound'][0]:.5f} ms ({o['bound'][1]}, {nb / 1e6:.2f} MB)")
+        one[S] = o
+    build = k10_row_build_info()
+    o, o16 = one[197], one[531]
     t, t16, t32 = times[8, 197], times[8, 531], times[32, 197]
-    report[key] = dict(max_abs_err=worst["row"], ms=one["ms"], plain_ms=one["plain_ms"],
-                       library_ms=None, device_ms=one["row"], bound=one["bound"],
-                       device_ms_one_beam_grouped=one["grouped"])
+    report[f"{key}_row"] = dict(
+        max_abs_err=worst["row"], ms=o["ms"], plain_ms=o["plain_ms"], library_ms=None,
+        device_ms=o["row"], bound=o["bound"], device_ms_general=o["general"],
+        device_ms_grouped=o["grouped"], device_ms_16s=o16["row"],
+        device_ms_16s_general=o16["general"], bound_16s_ms=o16["bound"][0],
+        registers={k.split("kernel")[-1][:4]: r["registers"] for k, r in build.items()})
+    report[key] = dict(max_abs_err=worst["general"], ms=o["ms_general"], plain_ms=o["plain_ms"],
+                       library_ms=None, device_ms=o["general"], bound=o["bound"],
+                       device_ms_16s=o16["general"], bound_16s_ms=o16["bound"][0])
     report[f"{key}_grouped"] = dict(
         max_abs_err=worst["grouped"], ms=t["ms"], plain_ms=t["plain_ms"], library_ms=None,
         device_ms=t["grouped"], bound=t["bound"], cluster=t["cluster"],
-        device_ms_row=t["row"], device_ms_tiled_row=t["tiled_row"],
+        device_ms_general=t["general"], device_ms_tiled_general=t["tiled_general"],
         bound_tiled_ms=t["bound_tiled_ms"], device_ms_16s=t16["grouped"],
-        device_ms_16s_row=t16["row"], attend_route_16s=t16["route"], cluster_16s=t16["cluster"],
-        device_ms_B32=t32["grouped"], device_ms_B32_row=t32["row"],
-        attend_route_B32=t32["route"], cluster_B32=t32["cluster"])
+        device_ms_16s_general=t16["general"], attend_route_16s=t16["route"],
+        cluster_16s=t16["cluster"], device_ms_B32=t32["grouped"],
+        device_ms_B32_general=t32["general"], attend_route_B32=t32["route"],
+        cluster_B32=t32["cluster"])
 
 
 def phase_k10(dev, report):
     k10_fwd_phase(dev, report, "bahdanau_attend", "K10", k10_inputs, K10_W_TOL, {"A": 72},
                   {"Hq": 512, "A": 272})
     # keys past |k| = 40, where the grouped read's factored energies could
-    # leave fp32's range and it takes tanhf(k + q) instead
-    args = k10_inputs(80, dev, seed=41, W=10)
-    args[3] = args[3]._replace(keys=args[3].keys * 30.0)
-    worst = k10_fwd_check("K10 beam step, keys x 30 (the tanhf energies) [N=80=8x10,S=197] route "
-                          "grouped", args, K10_W_TOL, 10)
-    r = report["bahdanau_attend_grouped"]
-    r["max_abs_err"] = max(r["max_abs_err"], worst)
+    # leave fp32's range and it takes tanhf(k + q) instead, and where the row
+    # read's energies saturate
+    for N, W, route in ((80, 10, "grouped"), (128, 1, "row")):
+        args = k10_inputs(N, dev, seed=41, W=W)
+        args[3] = args[3]._replace(keys=args[3].keys * 30.0)
+        worst = k10_fwd_check(f"K10 keys x 30 (the tanhf energies) [N={N}={N // W}x{W},S=197] "
+                              f"route {route}", args, K10_W_TOL, W)
+        r = report[f"bahdanau_attend_{route}"]
+        r["max_abs_err"] = max(r["max_abs_err"], worst)
 
 
 def k8_bwd_inputs(B, dev, seed, attention_type="bahdanau", **widths):
@@ -2989,25 +3079,121 @@ def k9_inputs(B, T, dev, seed, d=512, k=15):
     return [x.to(dev) for x in (u, b_in, dw, ln_scale, ln_bias, lens)]
 
 
+def k9_launch(route, u, b_in, dw, ln_scale, ln_bias, lengths):
+    """One K9 forward launch on ``route`` ("fused" or "tiles") straight
+    through the library with the wrapper's operands, whatever
+    ``kernels.conformer_fwd_plan`` would pick, and uncounted: the timings'
+    other kernel.  -> out [T, B, d] bf16."""
+    import torch
+
+    from avsr_tpu_torch import kernels
+
+    T, B, d2 = u.shape
+    d, k = d2 // 2, dw.shape[0]
+    ops = (u.contiguous(), b_in.to(torch.bfloat16).contiguous(),
+           dw.float().reshape(k, -1).contiguous(), ln_scale.float().contiguous(),
+           ln_bias.float().contiguous(), lengths.to(torch.int32).contiguous())
+    out = torch.empty((T, B, d), dtype=torch.bfloat16, device=u.device)
+    ptrs = [x.data_ptr() for x in ops] + [out.data_ptr()]
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    lib = kernels._load()
+    if route == "fused":
+        plan = kernels.conformer_fwd_plan(T, B, d, k)
+        err = lib.avsr_conformer_conv_fwd_fused(*ptrs, None, T, B, d, k, plan["chunk"],
+                                                plan["chunks"], stream)
+    else:
+        err = lib.avsr_conformer_conv(*ptrs, T, B, d, k, stream)
+    kernels._raise_on(err, f"K9 {route} launch")
+    return out
+
+
+# K9's forward shapes: (B, T, d): lrs2_av_v2's train batch, a request's B =
+# 8, the 16 s limit (B = 4, T = 531); a width past the pass over time (d =
+# 1024: the tiles)
+K9_SHAPES = ((128, 197, 512), (8, 197, 512), (4, 531, 512), (5, 70, 1024))
+
+
 def phase_k9(dev, report):
+    """K9's forward at every K9_SHAPES shape on the route
+    ``kernels.conformer_fwd_plan`` gives it, against the plain twin (within
+    K9_TOL + K9_ULP |plain|), a rerun bit-equal; on the pass over time, its
+    LayerNorm output z against the fused backward's recompute of it, bit for
+    bit, and its shared memory against ``kernels.conformer_fwd_fused_smem``;
+    the device ms of both kernels at the presets' shapes, the bound, the
+    plain twin and cuDNN's depthwise conv1d alone."""
     import torch
     import torch.nn.functional as F
 
+    from avsr_tpu_torch import kernels
     from avsr_tpu_torch.models import transformer as tfm
 
-    errs = {}
-    for B, T in ((128, 197), (4, 531)):
-        args = k9_inputs(B, T, dev, seed=T + 1)
+    lib = kernels._load()
+    bad = [d for d in range(8, kernels.CONV_BWD_MAX_D + 1, 8)
+           if lib.avsr_conformer_conv_fwd_fused_smem(d) != kernels.conformer_fwd_fused_smem(d)]
+    if bad:
+        fail("K9", f"kernels.conformer_fwd_fused_smem differs from the library's at d={bad}")
+    # the pass over time and its instance that also writes z for the checks
+    rep = {"z" if "ILb1" in n else "out": r
+           for n, r in kernels.ptxas_report("conformer_conv").items()
+           if "conv_fwd_fused_kernel" in n}
+    occ = lib.avsr_conformer_conv_fwd_fused_occupancy(512)
+    print(f"K9 fused forward (ptxas -v): {rep}; blocks an SM at d = 512: {occ} "
+          f"(kernels.CONV_FWD_CTAS_PER_SM {kernels.CONV_FWD_CTAS_PER_SM})")
+    if len(rep) != 2 or any(r["spill_stores"] or r["spill_loads"] for r in rep.values()):
+        fail("K9", f"the fused forward spills or is missing: {rep}")
+    if occ != kernels.CONV_FWD_CTAS_PER_SM:
+        fail("K9", f"an SM holds {occ} blocks of the fused forward, the plan's wave "
+                   f"{kernels.CONV_FWD_CTAS_PER_SM}")
+    errs = {"fused": 0.0, "tiles": 0.0}
+    times = {}
+    for B, T, d in K9_SHAPES:
+        args = k9_inputs(B, T, dev, seed=T + B + 1, d=d)
+        plan = kernels.conformer_fwd_plan(T, B, d, 15)
+        route = plan["route"]
+        counter = "conformer_conv_fwd" if route == "fused" else "conformer_conv_fwd_tiles"
+        before = kernels.LAUNCHES[counter]
         out_k = tfm.conformer_conv(*args)
+        out_k2 = tfm.conformer_conv(*args)
         out_p = tfm.conformer_conv_plain(*args)
         torch.cuda.synchronize()
+        if kernels.LAUNCHES[counter] - before != 2:
+            fail("K9", f"[T={T},B={B},d={d}]: two calls launched {counter} "
+                       f"{kernels.LAUNCHES[counter] - before} times")
         diff = (out_k.float() - out_p.float()).abs()
-        errs[T] = float(diff.max())
+        err = float(diff.max())
+        errs[route] = max(errs[route], err)
         over = float((diff - K9_TOL - K9_ULP * out_p.float().abs()).max())
-        print(f"K9 [T={T},B={B},d=512,k=15] max abs err {errs[T]} mean {float(diff.mean())} "
-              f"(tol {K9_TOL} + {K9_ULP} |plain|: margin {-over})")
-        if not (torch.isfinite(out_k.float()).all() and over <= 0.0):
-            fail("K9", f"kernel disagrees with the plain version at T={T}: {errs[T]}")
+        same = bool(torch.equal(out_k, out_k2))
+        line = (f"K9 [T={T},B={B},d={d},k=15] route {route} (chunks {plan['chunks']} of "
+                f"{plan['chunk']}) max abs err {err} mean {float(diff.mean())} (tol {K9_TOL} + "
+                f"{K9_ULP} |plain|: margin {-over}); rerun bit-equal {same}")
+        if route == "fused":
+            u, b_in, dw, ln_scale, ln_bias, lens = args
+            ops = (u, b_in.to(torch.bfloat16), dw.float().reshape(15, d).contiguous(),
+                   ln_scale.float(), ln_bias.float(), lens.to(torch.int32))
+            z_f = torch.empty((T, B, d), device=dev)
+            z_b = torch.full((T, B, d), float("nan"), device=dev)
+            kernels.conformer_conv_fwd(*ops, z=z_f)
+            dout = torch.randn((T, B, d), generator=torch.Generator().manual_seed(T)).to(
+                torch.bfloat16).to(dev)
+            kernels.conformer_conv_bwd(*ops, dout, z=z_b)
+            torch.cuda.synchronize()
+            z_same = bool(torch.equal(z_f, z_b))
+            line += (f"; its z equals the fused backward's recompute bit for bit: {z_same} "
+                     f"(backward chunks {kernels.conformer_bwd_plan(T, B, d, 15)['chunks']})")
+            if not z_same:
+                fail("K9", f"[T={T},B={B}]: the forward's z differs from the backward's "
+                           f"recompute at {int((z_f != z_b).sum())} elements")
+        print(line)
+        if not (torch.isfinite(out_k.float()).all() and over <= 0.0 and same):
+            fail("K9", f"kernel disagrees with the plain version at T={T}, B={B}, d={d}: {err}, "
+                       f"rerun bit-equal {same}")
+        if d == 512:
+            times[B, T] = {r: device_ms(lambda: k9_launch(r, *args)) for r in ("fused", "tiles")}
+            times[B, T]["bound"] = bound(nbytes(*args, out_k), T * B * d * (2 * 15 + 18), "fp32")
+            print(f"K9 [T={T},B={B},d=512] device ms: pass over time {times[B, T]['fused']:.5f}, "
+                  f"tiles {times[B, T]['tiles']:.5f}; bound {times[B, T]['bound'][0]:.5f} "
+                  f"ms ({times[B, T]['bound'][1]})")
     args = k9_inputs(128, 197, dev, seed=198)
     u, _, dw, *_ = args
     T, B, d2 = u.shape
@@ -3016,18 +3202,28 @@ def phase_k9(dev, report):
     x = torch.randn((B, d, T), device=dev)
     w = dw.float()[:, 0, :].t()[:, None, :].contiguous()
     tk = time_ms(lambda: tfm.conformer_conv(*args))
+    t_tiles = time_ms(lambda: k9_launch("tiles", *args))
     tp = time_ms(lambda: tfm.conformer_conv_plain(*args))
     tl = time_ms(lambda: F.conv1d(x, w, padding=k // 2, groups=d))
     dms = device_ms(lambda: tfm.conformer_conv(*args))
     # per output element: the k-tap conv (2k), the bias and GLU (~6), the
     # LayerNorm (~7) and the swish (~5), fp32
     b = bound(nbytes(*args, out), T * B * d * (2 * k + 18), "fp32")
-    print(f"K9 [T=197,B=128,d=512,k=15] kernel {tk:.4f} ms (device {dms:.4f} ms)  plain "
-          f"{tp:.4f} ms  library (the depthwise conv1d alone) {tl:.4f} ms  bound {b[0]:.5f} ms "
-          f"({b[1]})")
-    report["conformer_conv_fwd"] = dict(max_abs_err=max(errs.values()), ms=tk, plain_ms=tp,
-                                        library_ms=tl, device_ms=dms, bound=b,
-                                        library_covers="the depthwise conv1d alone")
+    t8, t16 = times[8, 197], times[4, 531]
+    print(f"K9 [T=197,B=128,d=512,k=15] kernel {tk:.4f} ms (device {dms:.4f} ms; tiles "
+          f"{t_tiles:.4f} ms)  plain {tp:.4f} ms  library (the depthwise conv1d alone) {tl:.4f} ms "
+          f" bound {b[0]:.5f} ms ({b[1]})")
+    report["conformer_conv_fwd"] = dict(
+        max_abs_err=errs["fused"], ms=tk, plain_ms=tp, library_ms=tl, device_ms=dms, bound=b,
+        library_covers="the depthwise conv1d alone", device_ms_tiles=times[128, 197]["tiles"],
+        device_ms_B8=t8["fused"], device_ms_B8_tiles=t8["tiles"], bound_B8_ms=t8["bound"][0],
+        device_ms_16s=t16["fused"], device_ms_16s_tiles=t16["tiles"],
+        bound_16s_ms=t16["bound"][0],
+        registers=rep["out"]["registers"], blocks_per_sm=occ)
+    report["conformer_conv_fwd_tiles"] = dict(
+        max_abs_err=errs["tiles"], ms=t_tiles, plain_ms=tp, library_ms=tl,
+        device_ms=times[128, 197]["tiles"], bound=b,
+        library_covers="the depthwise conv1d alone")
 
 
 def sdpa_bwd_device_ms(q, k, v, mask, dctx):
@@ -3759,6 +3955,8 @@ def main() -> int:
                             "avsr_tpu/ops/attention.py:125"),
         "bahdanau_attend_grouped": ("avsr_tpu_torch/csrc/attend_grouped.cuh",
                                     "avsr_tpu/ops/attention.py:125"),
+        "bahdanau_attend_row": ("avsr_tpu_torch/csrc/attend_row.cuh",
+                                "avsr_tpu/ops/attention.py:125"),
         "bahdanau_attend_bwd": ("avsr_tpu_torch/csrc/bahdanau_attend.cu",
                                 "avsr_tpu/ops/attention.py:125"),
         "bahdanau_attend_sums": ("avsr_tpu_torch/csrc/av_align_bwd.cuh",
@@ -3769,6 +3967,8 @@ def main() -> int:
                                   "avsr_tpu/models/transformer.py:204"),
         "conformer_conv_fwd": ("avsr_tpu_torch/csrc/conformer_conv.cu",
                                "avsr_tpu/models/transformer.py:231"),
+        "conformer_conv_fwd_tiles": ("avsr_tpu_torch/csrc/conformer_conv.cu",
+                                     "avsr_tpu/models/transformer.py:231"),
         "conformer_conv_bwd": ("avsr_tpu_torch/csrc/conformer_conv.cu",
                                "avsr_tpu/models/transformer.py:231"),
         "lstm_scan_uni_fwd": ("avsr_tpu_torch/csrc/lstm_scan.cu", "avsr_tpu/ops/rnn.py:184"),
@@ -3777,6 +3977,8 @@ def main() -> int:
                          "avsr_tpu/ops/attention.py:152"),
         "luong_attend_grouped": ("avsr_tpu_torch/csrc/attend_grouped.cuh",
                                  "avsr_tpu/ops/attention.py:152"),
+        "luong_attend_row": ("avsr_tpu_torch/csrc/attend_row.cuh",
+                             "avsr_tpu/ops/attention.py:152"),
         "luong_attend_bwd": ("avsr_tpu_torch/csrc/bahdanau_attend.cu",
                              "avsr_tpu/ops/attention.py:152"),
         "luong_attend_sums": ("avsr_tpu_torch/csrc/av_align_bwd.cuh",
@@ -3797,7 +3999,11 @@ def main() -> int:
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             "device_ms": r["device_ms"],
             **{k: x for k, x in r.items() if k not in REPORT_KEYS}})
-        if entries[-1]["launches"] == 0:
+        if name in OFF_PATH:
+            entries[-1]["off_path"] = True
+            if entries[-1]["launches"] != 0:
+                fail("kernels", f"kernel {name}, off every path, was launched by {by_path}")
+        elif entries[-1]["launches"] == 0:
             fail("kernels", f"kernel {name} was launched by no path")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

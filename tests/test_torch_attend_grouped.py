@@ -327,8 +327,9 @@ def test_read_loop_takes_a_query_row_per_memory_row():
 def test_route_table_is_a_function_of_shape():
     """``attend_route`` by shape alone: the grouped read for 2 to 16 beams a
     memory row at widths that are multiples of 16 while a cluster's CTAs
-    hold the row, the row kernel for every other shape the wrapper takes;
-    the same answer every call.  The cluster size: the most CTAs a row whose
+    hold the row, the row read for one query a row at such widths, the
+    general kernel for every other shape the wrapper takes; the same answer
+    every call.  The cluster size: the most CTAs a row whose
     B clusters fit in one wave of the card (``ATTEND_GROUP_WAVE``)."""
     route, plan, smem = kernels.attend_route, kernels.attend_grouped_cluster, \
         kernels.attend_grouped_smem
@@ -348,14 +349,14 @@ def test_route_table_is_a_function_of_shape():
         assert route(128, 128, 197, Hq, A, Dv, dot) == "row"
         assert route(8, 8, 197, Hq, A, Dv, dot) == "row"
         assert route(8, 8, 531, Hq, A, Dv, dot) == "row"
-        assert route(17 * 8, 8, 197, Hq, A, Dv, dot) == "row"
+        assert route(17 * 8, 8, 197, Hq, A, Dv, dot) == "general"
         for _ in range(3):
             assert route(80, 8, 197, Hq, A, Dv, dot) == "grouped"
     # widths that are not multiples of 16 (the tensor cores' k step)
-    assert route(80, 8, 197, 256, 136, 768, False) == "row"
-    assert route(80, 8, 197, 256, 128, 776, False) == "row"
-    assert route(80, 8, 197, 250, 128, 768, False) == "row"
-    assert route(80, 8, 197, 256, 72, 768, False) == "row"
+    assert route(80, 8, 197, 256, 136, 768, False) == "general"
+    assert route(80, 8, 197, 256, 128, 776, False) == "general"
+    assert route(80, 8, 197, 250, 128, 768, False) == "general"
+    assert route(80, 8, 197, 256, 72, 768, False) == "general"
     assert route(6, 3, 9, 16, 16, 16, False) == "grouped"
     # the cluster size by the rows: one wave of clusters while one fits
     assert plan(1, 10, 197, 256, 128, 768, False) == 16
@@ -390,16 +391,16 @@ def test_route_table_is_a_function_of_shape():
 
 
 # (route, W, widths) the launcher is given, one of each route
-LAUNCH_SHAPES = (("grouped", 10, None), ("row", 1, None), ("row", 10, 72))
+LAUNCH_SHAPES = (("grouped", 10, None), ("row", 1, None), ("general", 10, 72))
 
 
 @pytest.mark.parametrize("route, W, odd", LAUNCH_SHAPES)
 @pytest.mark.parametrize("dot", [False, True])
 def test_launcher_rejects_cpu_tensors_and_counts_no_launch(route, W, odd, dot):
     """The CUDA wrapper checks the device before building or launching, on
-    either route (10 beams of 2 memory rows at the presets' widths: the
-    grouped read; one beam a row, or widths off the 16-column steps: the row
-    kernel), and counts no launch."""
+    every route (10 beams of 2 memory rows at the presets' widths: the
+    grouped read; one beam a row: the row read; widths off the 16-column
+    steps: the general kernel), and counts no launch."""
     bf = torch.bfloat16
     Hq, A, Dv = (256, 512, 512) if dot else (256, 128, 768)
     if odd and dot:

@@ -13,10 +13,14 @@ its own keys), times:
 (``ops.attention.attend`` under ``torch.inference_mode``): a serve
 request's beam step, N = 80 query rows (8 utterances, 10 beams) over S =
 197 and over the 16 s memory (S = 531), and a greedy step, N = 128 rows of
-one beam, each memory ragged with a 0-length row; device ms (chip_smoke's
-``device_ms``: CUDA events around 20 calls queued behind a spin kernel).
-Where the checkout's chip_smoke has ``k10_launch``, each shape also on both
-kernels, the grouped read and the row kernel, whatever the route.  A checkout whose K10 reads the
+one beam, over S = 197 and 531, each memory ragged with a 0-length row;
+device ms (chip_smoke's ``device_ms``: CUDA events around 20 calls queued
+behind a spin kernel); and the teacher-forced loop's forward, K = 80 reads
+of one memory at N = 128, S = 197 (through the checkout's read loop where
+it has one).  Where the checkout's chip_smoke has ``k10_launch``, each shape
+also on every kernel it names (``K10_ROUTES``: the grouped read, the row
+read and the general kernel; in a checkout before the row read, "row" is
+the block per query row of the general kernel), whatever the route.  A checkout whose K10 reads the
 untiled memory (``kernels.attend_route``) gets the beam step's 8 memory
 rows; an older one the memory tiled over the beams, as its beam search
 gave it (the tiling is set-up, outside the timed calls).
@@ -110,9 +114,11 @@ def fwd_memory(typ, A, Dv, B, W, S, seed):
     return params, query, mem
 
 
+ROUTES = getattr(cs, "K10_ROUTES", ("grouped", "row"))
 for typ, A, Dv in (("bahdanau", 128, 768), ("luong", 512, 512)) if "fwd" in PARTS else ():
     with torch.inference_mode():
-        for what, B, W, S_ in (("beam", 8, 10, S), ("beam16", 8, 10, 531), ("greedy", 128, 1, S)):
+        for what, B, W, S_ in (("beam", 8, 10, S), ("beam16", 8, 10, 531), ("greedy", 128, 1, S),
+                               ("greedy16", 128, 1, 531)):
             params, query, mem = fwd_memory(typ, A, Dv, B, W, S_, seed=B + W + (S_ != S))
             out[f"{typ}_fwd_{what}_device_ms"] = cs.device_ms(
                 lambda: attn.attend(typ, params, query, mem, bf))
@@ -120,7 +126,19 @@ for typ, A, Dv in (("bahdanau", 128, 768), ("luong", 512, 512)) if "fwd" in PART
                 ops = attn.kernel_operands(typ, params, mem)
                 out[f"{typ}_fwd_{what}_by_route"] = {r: cs.device_ms(
                     lambda: cs.k10_launch(r, query, *ops, mem.bias, mem.mask))
-                    for r in ("grouped", "row")}
+                    for r in ROUTES}
+        # the teacher-forced loop's forward: K reads of one memory (B = 128,
+        # S = 197), each step's query its own, as the train step issues them
+        params, _, mem = fwd_memory(typ, A, Dv, N, 1, S, seed=7)
+        queries = (0.5 * torch.randn(K, N, Hq, generator=torch.Generator().manual_seed(8))).to(dev)
+        if LOOP:
+            st = attn.LoopState(typ, mem, bf, K)
+            st.bind(mem.keys, mem.values, params["wq"], params.get("v"))
+            step = lambda k: attn.read_fwd(st, queries[k])  # noqa: E731
+        else:
+            step = lambda k: attn.attend(typ, params, queries[k], mem, bf)  # noqa: E731
+        out[f"{typ}_fwd_loop{K}_device_ms"] = cs.device_ms(
+            lambda: [step(k) for k in range(K)], reps=3, warmup=1)
 
 for typ, A, Dv in (("bahdanau", 128, 768), ("luong", 512, 512)) if "bwd" in PARTS else ():
     g = torch.Generator().manual_seed(5)
@@ -231,12 +249,15 @@ def main() -> int:
             if "fwd" in args.parts:
                 parts.append(f"{t} fwd device ms beam step {r[f'{t}_fwd_beam_device_ms']:.5f}, "
                              f"over 16 s {r[f'{t}_fwd_beam16_device_ms']:.5f}, "
-                             f"greedy step {r[f'{t}_fwd_greedy_device_ms']:.5f}")
+                             f"greedy step {r[f'{t}_fwd_greedy_device_ms']:.5f}, "
+                             f"over 16 s {r[f'{t}_fwd_greedy16_device_ms']:.5f}; the loop's "
+                             f"forward, K = 80 reads, {r[f'{t}_fwd_loop80_device_ms']:.4f}")
                 if f"{t}_fwd_beam_by_route" in r:
                     parts.append(f"{t} fwd device ms by kernel: beam step "
                                  f"{r[f'{t}_fwd_beam_by_route']}, over 16 s "
                                  f"{r[f'{t}_fwd_beam16_by_route']}, greedy step "
-                                 f"{r[f'{t}_fwd_greedy_by_route']}")
+                                 f"{r[f'{t}_fwd_greedy_by_route']}, over 16 s "
+                                 f"{r[f'{t}_fwd_greedy16_by_route']}")
             if "bwd" in args.parts:
                 parts.append(
                     f"{t} loop bwd {r[f'{t}_loop_bwd_device_ms']:.4f} ms device, "

@@ -17,7 +17,8 @@ the encoder's self attention, which shares K4's tensor-core header
 lrs2_av_v2's [B=128, 8 heads, T=197, 64] on chip_smoke's ``k11_inputs``.
 K9 (``k9``), the conformer conv module, forward and backward at
 lrs2_av_v2's [T=197, B=128, d=512, k=15] on chip_smoke's ``k9_inputs``
-(ragged lengths, a 0-length row), and the library yardstick of the
+(ragged lengths, a 0-length row), the forward also at a request's B = 8
+and at the 16 s limit (B = 4, T = 531), and the library yardstick of the
 backward, cuDNN's depthwise conv1d backward alone (autograd's device time
 less the forward's, as chip_smoke phase 26 takes it).  The runs go in
 ``--order`` (A B B A by default), so both checkouts share the card's
@@ -68,6 +69,9 @@ if "k9" in PARTS:
     dout = torch.randn((197, 128, 512), generator=torch.Generator().manual_seed(204))
     dout = dout.to(torch.bfloat16).to(dev)
     out["k9_fwd"] = cs.device_ms(lambda: tfm.conformer_conv_fwd(*args))
+    for tag, B, T in (("B8", 8, 197), ("16s", 4, 531)):
+        a = cs.k9_inputs(B, T, dev, seed=T + B)
+        out[f"k9_fwd_{tag}"] = cs.device_ms(lambda: tfm.conformer_conv_fwd(*a))
     out["k9_bwd"] = cs.device_ms(lambda: tfm.conformer_conv_bwd(*args, dout))
     x = torch.randn((128, 512, 197), device=dev, requires_grad=True)
     w = args[2].float()[:, 0, :].t()[:, None, :].contiguous().requires_grad_(True)
