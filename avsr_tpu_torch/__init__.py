@@ -5,8 +5,8 @@ layout module by module (``ops/``, ``models/``, ``decode/``, ``serve.py``)
 so each function's counterpart is found under the same path.  It imports
 ``torch`` and nothing of ``jax`` or ``avsr_tpu``: the framework-free parts
 of the reference it needs are copies of their own (``configs.py``,
-``data/units.py``).  Its entry points place tensors on the card unless the
-caller asks for the CPU.
+``data/``, ``eval/``, ``native/``).  Its entry points place tensors on the
+card unless the caller asks for the CPU.
 
 Covered so far: the serving path, the eval-time greedy decode and the
 training step of the ``lrs2_av_fast`` preset — compact-transfer
@@ -19,7 +19,11 @@ the serving path and greedy decode of the reference-dims ``lrs2_av_align``
 preset: the AV-Align fusion (a fusion LSTM with input feeding and a
 Bahdanau read of the video memory per audio step) and the attention-LSTM
 decoder, also with one-direction encoders and Luong reads
-(``lrs2_av_align_uni_luong``).  The compute cores run as hand-written CUDA
+(``lrs2_av_align_uni_luong``) — and the reference's other regimes:
+audio-only, video-only (lip-ROI CNN or AU features) and bimodal (two
+decoder memories), fixed-SNR eval noise drawn as the JAX package draws it,
+and the eval set's data path and scoring (``data/``, ``eval/``, the host
+code of ``native/``).  The compute cores run as hand-written CUDA
 kernels on a GPU (``kernels/``, ``csrc/``) and as plain PyTorch on the
 CPU: the direction-batched LSTM recurrence forward and backward (K1; at
 one direction K2), the post-DFT

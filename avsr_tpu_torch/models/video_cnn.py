@@ -7,6 +7,11 @@ padding with stride 2 is asymmetric (36 -> 18 -> 9 -> 5 pads (0,1),
 (0,1), (1,1)), so each layer pads explicitly; ``Conv2d(padding=1)`` would
 shift the output by one pixel.  Conv kernels are stored ``OIHW``
 (``convert.py``).
+
+With ``use_au_features`` the CNN is bypassed: precomputed action-unit
+intensities [B, T, au_dim] (float32) are projected by ``au_proj [au_dim,
+E]`` in the compute dtype with fp32 accumulation, plus ``au_bias``, and
+masked (the TASLP-2020 visual features).
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ from avsr_tpu_torch.utils.params import Params, glorot_uniform, zeros
 
 def video_cnn_init(gen: torch.Generator, cfg: VideoFrontendConfig, device) -> Params:
     if cfg.use_au_features:
-        raise ValueError("the port runs the CNN video frontend only (no AU features)")
+        return {"au_proj": glorot_uniform(gen, (cfg.au_dim, cfg.embedding_dim), device),
+                "au_bias": zeros((cfg.embedding_dim,), device)}
     params: Params = {"convs": []}
     c_in = cfg.channels
     h, w = cfg.roi_height, cfg.roi_width
@@ -51,9 +57,13 @@ def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
 
 def video_cnn_apply(params: Params, cfg: VideoFrontendConfig, frames: torch.Tensor,
                     lengths: torch.Tensor, cdt: torch.dtype):
-    """[B, T, H, W, C] lip crops -> ([B, T, E] fp32 embeddings, lengths)."""
+    """[B, T, H, W, C] lip crops (or [B, T, au_dim] AU intensities) ->
+    ([B, T, E] fp32 embeddings, lengths)."""
     B, T = frames.shape[:2]
     mask = (torch.arange(T, device=frames.device)[None, :] < lengths[:, None]).float()
+    if cfg.use_au_features:
+        emb = dot_f32(frames.reshape(B * T, -1), params["au_proj"], cdt) + params["au_bias"]
+        return emb.reshape(B, T, -1) * mask[:, :, None], lengths
     x = frames.reshape(B * T, *frames.shape[2:]).permute(0, 3, 1, 2).to(cdt)
     for conv in params["convs"]:
         kh = conv["w"].shape[-1]

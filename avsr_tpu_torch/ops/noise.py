@@ -7,8 +7,11 @@ a noise type, a bank row, an offset and an SNR are drawn (from the step's
 ``torch.Generator``), and the example stays clean with
 ``clean_probability``.  SNR convention: ``snr_db = 10*log10(P_speech /
 P_noise)``, powers measured over the utterance's valid samples.  The
-fixed-condition eval mixing (``mix_fixed_snr``) keys its draws on JAX's
-threefry PRNG and is not ported.
+fixed-condition eval mixing (``mix_fixed_snr``) keys each utterance's
+(row, offset) draw on its uid hash through JAX's threefry PRNG: the port
+draws them on the host with ``utils/rng.py``'s numpy threefry2x32, bit for
+bit as the JAX package draws them, copies the B pairs to the device once,
+and gathers and mixes there.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from avsr_tpu_torch.utils import rng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,3 +133,35 @@ def sample_and_mix(generator: torch.Generator, wav: torch.Tensor, wav_lengths: t
         keep_clean = torch.rand((B,), generator=generator, device=dev) < clean_probability
         noisy = torch.where(keep_clean[:, None], wav, noisy)
     return noisy
+
+
+def mix_fixed_snr(wav: torch.Tensor, wav_lengths: torch.Tensor,
+                  noise_bank: Union[NoiseBank, torch.Tensor], snr_db, *,
+                  noise_type: Optional[str] = None, seed: int = 0,
+                  uid_hashes=None) -> torch.Tensor:
+    """Deterministic fixed-(type x SNR) mixing for evaluation: one bank row
+    and offset per utterance, a function of ``seed`` and the utterance's
+    ``uid_hashes`` entry ([B] uint32 crc32 of the uid, on the host; without
+    hashes its batch position), so an utterance gets the same noise in any
+    batch.  ``snr_db`` is a float or a 0-d tensor; ``noise_type`` picks the
+    bank type by name (None -> the first)."""
+    bank = NoiseBank.create(noise_bank, device=wav.device)
+    arr = bank.banks[bank.type_index(noise_type)]
+    B, S = wav.shape
+    N, L = arr.shape
+    if L < S:
+        raise ValueError(f"noise bank rows ({L}) shorter than waveform ({S})")
+    if uid_hashes is None:
+        hashes = np.arange(B, dtype=np.uint32)
+    else:
+        if isinstance(uid_hashes, torch.Tensor):
+            uid_hashes = uid_hashes.cpu().numpy()
+        hashes = np.asarray(uid_hashes).astype(np.uint32)
+    idx, offsets = rng.fixed_snr_draws(seed, hashes, N, L - S + 1)
+    draws = torch.from_numpy(np.stack([idx, offsets]).astype(np.int64))
+    if wav.device.type == "cuda":
+        draws = draws.pin_memory()
+    draws = draws.to(wav.device, non_blocking=True)
+    noise = _gather_segments(arr, draws[0], draws[1], S)
+    snrs = torch.as_tensor(snr_db, dtype=torch.float32, device=wav.device).expand(B)
+    return mix_at_snr(wav, wav_lengths, noise, snrs)

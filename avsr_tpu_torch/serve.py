@@ -1,12 +1,14 @@
 """Serving: pad, quantize, encode + beam decode, ids -> text.
 
 Counterpart of ``avsr_tpu/serve.py``'s ``Predictor`` around the exported
-``decode`` program, for each structure the port runs (``lrs2_av_fast``:
-BiLSTM encoders, cross-attention fusion + transformer decoder;
-``lrs2_av_align``: AV-Align fusion + attention-LSTM decoder, with BiLSTM
-encoders and Bahdanau reads or one-direction encoders and Luong reads;
-``lrs2_av_v2``: transformer encoders, cross-attention fusion + transformer
-decoder): the same static (B, S) request shape,
+``decode`` program, for every architecture the port runs (``audio``,
+``video`` with the ROI CNN or AU features, ``bimodal``, and ``av_align``:
+``lrs2_av_fast``, BiLSTM encoders, cross-attention fusion + transformer
+decoder; ``lrs2_av_align``, AV-Align fusion + attention-LSTM decoder, with
+BiLSTM encoders and Bahdanau reads or one-direction encoders and Luong
+reads; ``lrs2_av_v2``, transformer encoders, cross-attention fusion +
+transformer decoder): the inputs the architecture reads (the others are
+None), the same static (B, S) request shape,
 the same host quantization for compact transfer (int16 PCM audio, uint8
 ROI pixels, dequantized on the device inside ``seq2seq.encode``), and the
 same ``decode_ids`` rules.  The port runs the model code directly from port
@@ -17,6 +19,7 @@ under ``torch.inference_mode()``, so parameters that require a gradient
 
 >>> p = Predictor(params, cfg, unit_dict)  # on the card; device="cpu" for the plain path
 >>> p.transcribe(audio=[wav1, wav2], video=[roi1, roi2])
+>>> Predictor(audio_params, audio_cfg, unit_dict).transcribe(audio=[wav1, wav2])
 """
 
 from __future__ import annotations
@@ -37,20 +40,29 @@ from avsr_tpu_torch.utils.params import Params
 
 def input_signature(cfg: ExperimentConfig, batch_size: int, audio_seconds: float,
                     video_seconds: Optional[float], transfer: str) -> List[Tuple[str, tuple, str]]:
-    """(name, shape, dtype) of each request array (``av_align``, ROI video)."""
+    """(name, shape, dtype) of each array the architecture reads
+    (``avsr_tpu/serve.py:_input_signature``): compact transfer ships int16
+    PCM audio and uint8 ROI video; AU-feature video stays float32 (its
+    intensities are not bounded to [0, 1])."""
     if video_seconds is None:
         video_seconds = audio_seconds
     compact = transfer == "compact"
-    S = int(round(audio_seconds * cfg.audio.sample_rate))
-    T_v = int(math.ceil(video_seconds * cfg.data.video_fps))
-    v = cfg.video
-    return [
-        ("audio", (batch_size, S), "int16" if compact else "float32"),
-        ("audio_lengths", (batch_size,), "int32"),
-        ("video", (batch_size, T_v, v.roi_height, v.roi_width, v.channels),
-         "uint8" if compact else "float32"),
-        ("video_lengths", (batch_size,), "int32"),
-    ]
+    sig: List[Tuple[str, tuple, str]] = []
+    if seq2seq.uses_audio(cfg):
+        S = int(round(audio_seconds * cfg.audio.sample_rate))
+        sig.append(("audio", (batch_size, S), "int16" if compact else "float32"))
+        sig.append(("audio_lengths", (batch_size,), "int32"))
+    if seq2seq.uses_video(cfg):
+        T_v = int(math.ceil(video_seconds * cfg.data.video_fps))
+        v = cfg.video
+        if v.use_au_features:
+            shape, vdt = (batch_size, T_v, v.au_dim), "float32"
+        else:
+            shape = (batch_size, T_v, v.roi_height, v.roi_width, v.channels)
+            vdt = "uint8" if compact else "float32"
+        sig.append(("video", shape, vdt))
+        sig.append(("video_lengths", (batch_size,), "int32"))
+    return sig
 
 
 def quantize(name: str, s: np.ndarray, dtype: str) -> np.ndarray:
@@ -111,18 +123,26 @@ class Predictor:
             lengths[i] = s.shape[0]
         return out, lengths
 
-    def assemble(self, audio: Sequence[np.ndarray], video: Sequence[np.ndarray]):
-        """Pad and quantize a request: (host arrays by input name, count)."""
-        if audio is None or video is None:
-            raise ValueError("the av_align model needs audio and video")
-        if len(audio) != len(video):
-            raise ValueError("audio/video request counts differ")
-        if not audio:
-            raise ValueError("empty request: no utterances")
+    def assemble(self, audio: Optional[Sequence[np.ndarray]] = None,
+                 video: Optional[Sequence[np.ndarray]] = None):
+        """Pad and quantize a request: (host arrays by input name, count).
+        Each modality the architecture reads is required; one it does not
+        read is ignored (``avsr_tpu/serve.py:_assemble``)."""
+        n = None
         arrays: Dict[str, np.ndarray] = {}
         for name, seqs in (("audio", audio), ("video", video)):
+            if name not in self._inputs:
+                continue
+            if seqs is None:
+                raise ValueError(f"the {self.cfg.architecture} model needs {name}")
             arrays[name], arrays[f"{name}_lengths"] = self._pad_batch(name, seqs)
-        return arrays, len(audio)
+            if n is None:
+                n = len(seqs)
+            elif len(seqs) != n:
+                raise ValueError("audio/video request counts differ")
+        if not n:
+            raise ValueError("empty request: no utterances")
+        return arrays, n
 
     @torch.inference_mode()
     def encode(self, arrays: Dict[str, np.ndarray]) -> seq2seq.EncodeOutput:
@@ -152,8 +172,8 @@ class Predictor:
             toks.append(self._units[i - 3])
         return ("" if self._unit_type.startswith("character") else " ").join(toks)
 
-    def transcribe(self, *, audio: Sequence[np.ndarray],
-                   video: Sequence[np.ndarray]) -> List[str]:
+    def transcribe(self, *, audio: Optional[Sequence[np.ndarray]] = None,
+                   video: Optional[Sequence[np.ndarray]] = None) -> List[str]:
         """Variable-length utterances in, transcripts out."""
         arrays, n = self.assemble(audio, video)
         ids = self(**arrays)

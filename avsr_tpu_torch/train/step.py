@@ -99,7 +99,7 @@ def train_step(state: TrainState, batch: Batch, *, cfg: ExperimentConfig,
     ``ce_loss``, ``au_loss`` (when the AU loss is on) and ``grad_norm``,
     the global norm of the gradient before clipping.  The parameters are
     updated in place; the returned state holds the same tensors."""
-    dev = batch.audio.device
+    dev = batch.targets.device
     step_seed = rng.fold_in(generator.initial_seed(), state.step)
     sampling_p = host_sampling_p(cfg, state.step)
     leaves = param_leaves(state.params)

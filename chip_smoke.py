@@ -269,8 +269,41 @@ Phases, in order; any failure exits nonzero before the final line:
              through ``AVAlignScan``: every gradient leaf present, finite and
              nonzero, K8 launched, each leaf against the same step on the
              plain twins.
-Serve (5, 15, 22, 31) also beams the same memories through the plain path and
-holds the best scores to a tolerance.  Each serve and greedy path and the
+38. serve-audio — the full-width ``audio_tcdtimit`` model (log-mel, 3-layer
+             BiLSTM without time reduction, attention-LSTM decoder reading
+             the [8, 197, 512] audio memory with Bahdanau's score) behind a
+             CUDA ``Predictor`` as in phase 5, audio-only requests; requires
+             K3, K1, the grouped K10 read at Dv = 512 and K7.
+39. serve-video — the full-width ``video_tcdtimit`` model (lip-ROI CNN,
+             1-layer BiLSTM, the decoder over [8, 150, 512]), video-only
+             requests; requires K1, the grouped K10 and K7.
+40. serve-video-au — the same with ``video.use_au_features``: float32
+             AU-intensity requests [T_v, 2] through the linear bypass.
+41. serve-bimodal — the full-width ``bimodal_tcdtimit`` model: the decoder
+             reads the audio [8, 197, 512] and the video [8, 150, 512]
+             memories, two grouped K10 reads a beam step; both memories
+             held against the plain path.
+42. greedy-bimodal — a B=128, 6 s, horizon 150 greedy decode of the same
+             model, kernel path against plain path (two row reads a step).
+43. no-autograd-bimodal — phase 42's batch through ``Predictor.encode``
+             and ``greedy_decode`` with ``requires_grad`` parameters, as 24.
+44. train-bimodal — ten full-width ``bimodal_tcdtimit`` train steps at
+             B=128, as phase 19: the loss and every gradient leaf against the
+             plain path, every leaf present, finite and nonzero, K1 and K3,
+             and K10's row read, step backward and memory sums at Dv = 512
+             over two read loops open at once; the loss falling.
+45. eval-noisy — the records-to-CER eval of the full-width
+             ``av_align_noisy`` model: synthetic records and a babble / cafe
+             noise bank written and read back with the port's record code,
+             the bucketing loader, ``to_model_batch``, the fixed-SNR encode
+             (``eval_snr``), ``loss_given_encode`` and the width-10 beam on
+             the same encode, scored by ``ErrorRateAccumulator`` at clean,
+             babble 0 dB and cafe -5 dB; the card's fixed-SNR mix of one
+             batch against the CPU's (the host's draws, equal by
+             construction); CER, WER, loss and ms per condition, and which
+             host path (native library or Python) framed and scored.
+Serve (5, 15, 22, 31, 38-41) also beams the same memories through the plain path
+and holds the best scores to a tolerance.  Each serve and greedy path and the
 train path end with a ``torch.profiler`` reading of one run: the device's
 busy share of the host span, device events per beam, train or decode step,
 and the top kernels.  The line before the last is a JSON object with one
@@ -438,7 +471,33 @@ OTHER_ROUTES = {"serve_align": ("bahdanau_attend", "bahdanau_attend_row"),
                 "train_uni_luong": ("luong_attend", "luong_attend_grouped"),
                 "serve_v2": ("conformer_conv_fwd_tiles",),
                 "greedy_v2": ("conformer_conv_fwd_tiles",),
-                "train_v2": ("conformer_conv_fwd_tiles",)}
+                "train_v2": ("conformer_conv_fwd_tiles",),
+                "serve_audio": ("bahdanau_attend", "bahdanau_attend_row"),
+                "serve_video": ("bahdanau_attend", "bahdanau_attend_row"),
+                "serve_video_au": ("bahdanau_attend", "bahdanau_attend_row"),
+                "serve_bimodal": ("bahdanau_attend", "bahdanau_attend_row"),
+                "greedy_bimodal": ("bahdanau_attend", "bahdanau_attend_grouped"),
+                "train_bimodal": ("bahdanau_attend", "bahdanau_attend_grouped"),
+                # the eval loss reads one query a row, its beam 10
+                "eval_noisy": ("bahdanau_attend",)}
+# the reference's unimodal and bimodal regimes (audio_tcdtimit,
+# video_tcdtimit with the ROI CNN or AU features, bimodal_tcdtimit: the RNN
+# decoder reads each memory with Bahdanau's score, at Dv = 512) and the
+# records-to-CER eval of av_align_noisy under fixed-SNR noise, whose
+# teacher-forced loss reads one query a row and whose beam reads 10
+SERVE_AUDIO_KERNELS = ("lstm_scan_fwd", "logmel_post_dft", "bahdanau_attend_grouped",
+                       "beam_step")
+SERVE_VIDEO_KERNELS = ("lstm_scan_fwd", "bahdanau_attend_grouped", "beam_step")
+SERVE_BIMODAL_KERNELS = SERVE_AUDIO_KERNELS
+GREEDY_BIMODAL_KERNELS = ("bahdanau_attend_row",)
+TRAIN_BIMODAL_KERNELS = ("lstm_scan_fwd", "lstm_scan_bwd", "logmel_post_dft",
+                         "bahdanau_attend_row", "bahdanau_attend_bwd", "bahdanau_attend_sums")
+EVAL_NOISY_KERNELS = ("lstm_scan_fwd", "logmel_post_dft", "av_align_scan",
+                      "bahdanau_attend_grouped", "bahdanau_attend_row", "beam_step")
+# the card's fixed-SNR mix against the CPU's on the same draws: fp32 powers
+# of up to 2^17 squares summed in another order (relative 1e-6 of the
+# scale), on waveforms of order one
+MIX_TOL = 1e-5
 # kernels no path of the presets launches (routes of other shapes), listed
 # in the kernels line with their phases' numbers and 0 launches
 OFF_PATH = ("bahdanau_attend", "luong_attend", "conformer_conv_fwd_tiles")
@@ -701,6 +760,22 @@ def request(rng, n, seconds=6.0, fps=25.0):
         nf = min(int(np.ceil(sec * fps)), int(np.ceil(seconds * fps)))
         video.append(rng.uniform(0, 1, (nf, 36, 36, 1)).astype(np.float32))
     return audio, video
+
+
+def regime_request(cfg):
+    """``request`` for ``cfg``'s architecture: its audio and ROI video, AU
+    intensities in [0, 1] for an AU-feature frontend, and None for a
+    modality the architecture does not read."""
+    from avsr_tpu_torch.models import seq2seq
+
+    def make(rng, n, seconds=6.0):
+        audio, video = request(rng, n, seconds)
+        if cfg.video.use_au_features:
+            video = [rng.uniform(0, 1, (len(v), cfg.video.au_dim)).astype(np.float32)
+                     for v in video]
+        return (audio if seq2seq.uses_audio(cfg) else None,
+                video if seq2seq.uses_video(cfg) else None)
+    return make
 
 
 def train_batch(cfg, vocab_size, dev, B=128, seconds=6.0, label_cap=80, seed=3):
@@ -1026,10 +1101,12 @@ def phase_k3(dev, report, cfg):
                             bound_ms=t["bound"][0]) for tag, t in times.items()})
 
 
-def phase_serve(dev, card, cfg, label="serve", needed=SERVE_KERNELS, mem_shape=(8, 50, 1024)):
+def phase_serve(dev, card, cfg, label="serve", needed=SERVE_KERNELS,
+                mem_shapes=((8, 50, 1024),)):
     """Serve 3 full-width requests of ``cfg``'s model through a CUDA
-    ``Predictor``; ``needed`` kernels must launch, the fused memory (of
-    ``mem_shape``) and the beam must agree with the plain path."""
+    ``Predictor``; ``needed`` kernels must launch, the memories (of
+    ``mem_shapes``, one a memory) and the beam must agree with the plain
+    path."""
     import torch
 
     from avsr_tpu_torch.data.units import builtin_unit_dict
@@ -1046,7 +1123,8 @@ def phase_serve(dev, card, cfg, label="serve", needed=SERVE_KERNELS, mem_shape=(
     print(f"{label}: {cfg.name} model_init {time.perf_counter() - t0:.3f} s, "
           f"{param_count(params)} params")
     rng = np.random.default_rng(0)
-    requests = [request(rng, 8) for _ in range(4)]
+    make_request = regime_request(cfg)
+    requests = [make_request(rng, 8) for _ in range(4)]
     pred.transcribe(audio=requests[0][0], video=requests[0][1])  # warm-up request
     torch.cuda.synchronize()
 
@@ -1097,15 +1175,19 @@ def phase_serve(dev, card, cfg, label="serve", needed=SERVE_KERNELS, mem_shape=(
           f"{t_beam_p:.3f} ms")
     if not score_rel <= BEAM_SCORE_REL_TOL:
         fail(label, f"kernel path beam scores disagree with the plain path: {score_rel}")
-    mk, mp = enc_k.memories[0].values, enc_p.memories[0].values
-    if tuple(mk.shape) != mem_shape or not torch.isfinite(mk).all():
-        fail(label, f"fused memory of shape {tuple(mk.shape)} or not finite")
-    mem_err = max_err(mk, mp)
-    mem_mean = float((mk - mp).abs().mean())
-    print(f"{label} fused memory {tuple(mk.shape)}: max abs err {mem_err} mean {mem_mean} "
-          f"(tol {MEMORY_TOL}) vs the plain path")
-    if not mem_err <= MEMORY_TOL:
-        fail(label, f"kernel path memory disagrees with the plain path: {mem_err}")
+    if len(enc_k.memories) != len(mem_shapes):
+        fail(label, f"{len(enc_k.memories)} memories, expected {len(mem_shapes)}")
+    for i, (m_k, m_p, shape) in enumerate(zip(enc_k.memories, enc_p.memories, mem_shapes)):
+        mk, mp = m_k.values, m_p.values
+        what = "fused memory" if cfg.architecture == "av_align" else f"memory {i}"
+        if tuple(mk.shape) != shape or not torch.isfinite(mk).all():
+            fail(label, f"{what} of shape {tuple(mk.shape)} or not finite")
+        mem_err = max_err(mk, mp)
+        mem_mean = float((mk - mp).abs().mean())
+        print(f"{label} {what} {tuple(mk.shape)}: max abs err {mem_err} mean {mem_mean} "
+              f"(tol {MEMORY_TOL}) vs the plain path")
+        if not mem_err <= MEMORY_TOL:
+            fail(label, f"kernel path memory disagrees with the plain path: {mem_err}")
     print(f"{label} [{card}] per-request latency ms (B=8, 6 s, beam 10, horizon 150): "
           f"{[round(x, 3) for x in latencies]} median {statistics.median(latencies):.3f}; "
           f"encode {t_enc:.3f} ms, beam {t_beam:.3f} ms ({res.steps} steps)")
@@ -1357,7 +1439,7 @@ def phase_train(dev, card, cfg, label="train", needed=TRAIN_KERNELS, lr=1e-4, sh
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(metrics["loss"]))
-        parts.append((float(metrics["ce_loss"]), float(metrics["au_loss"])))
+        parts.append((float(metrics["ce_loss"]), float(metrics.get("au_loss", float("nan")))))
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     print(f"{label} (b) launches over 10 steps at scheduled-sampling p "
@@ -1978,7 +2060,8 @@ def decode_records_no_autograd(dev, cfg, params, batch, res, label):
     params_rg = tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
     B = batch.audio.shape[0]
     arrays = {k: getattr(batch, k).cpu().numpy()
-              for k in ("audio", "audio_lengths", "video", "video_lengths")}
+              for k in ("audio", "audio_lengths", "video", "video_lengths")
+              if getattr(batch, k) is not None}
     grad_in_steps = []
     step = dec.decoder_step
 
@@ -1997,14 +2080,14 @@ def decode_records_no_autograd(dev, cfg, params, batch, res, label):
                          batch_size=B, audio_seconds=6.0)
         t0 = time.perf_counter()
         try:
-            mem = pred.encode(arrays).memories[0]
-            res_rg = greedy_decode(params_rg["decoder"], cfg.decoder, [mem],
+            mems = pred.encode(arrays).memories
+            res_rg = greedy_decode(params_rg["decoder"], cfg.decoder, mems,
                                    cfg.decode.max_decode_length)
         except RuntimeError as e:
             fail(label, f"decoding with requires_grad parameters: {e}")
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-    graph = [n for n in ("values", "mask", "bias")
+    graph = [f"{i}/{n}" for i, mem in enumerate(mems) for n in ("values", "mask", "bias")
              if getattr(mem, n).grad_fn is not None or getattr(mem, n).requires_grad]
     if graph or not grad_in_steps or any(grad_in_steps):
         fail(label, f"decoding with requires_grad parameters recorded autograd: memory fields "
@@ -2253,7 +2336,10 @@ def k10_inputs(N, dev, seed, S=197, Hq=256, A=128, Dv=768, W=1):
 # at N = 128 (also over 16 s, and with Luong's keys a tensor apart from its
 # values: the row read's two passes), key widths off the tensor cores'
 # 16-column steps (a beam step and one beam a row), and 17 column groups of
-# q (A = 272) over a cluster of 8, where the CTAs own 2 or 3
+# q (A = 272) over a cluster of 8, where the CTAs own 2 or 3; and the
+# TCD-TIMIT presets' widths (Bahdanau Dv = 512) over their audio memory
+# (S = 197) and video memory (S = 150), a beam step and one beam a row, as
+# the unimodal and bimodal serve, greedy and train paths read them
 K10_FWD_CASES = (("beam step", 80, 10, 197, "preset", "grouped"),
                  ("3 beams", 24, 3, 197, "preset", "grouped"),
                  ("beam step, 16 s", 80, 10, 531, "preset", "grouped"),
@@ -2263,7 +2349,11 @@ K10_FWD_CASES = (("beam step", 80, 10, 197, "preset", "grouped"),
                  ("beam step, odd width", 80, 10, 197, "odd", "general"),
                  ("one beam, odd width", 128, 1, 197, "odd", "general"),
                  ("beam step, 17 q groups", 80, 10, 197, "groups", "grouped"),
-                 ("one beam, 17 q groups", 128, 1, 197, "groups", "row"))
+                 ("one beam, 17 q groups", 128, 1, 197, "groups", "row"),
+                 ("beam step, regime widths", 80, 10, 197, "regime", "grouped"),
+                 ("beam step, regime widths, S = 150", 80, 10, 150, "regime", "grouped"),
+                 ("one beam, regime widths", 128, 1, 197, "regime", "row"),
+                 ("one beam, regime widths, S = 150", 128, 1, 150, "regime", "row"))
 
 
 # the K10 forward kernels by route, as k10_launch takes them
@@ -2362,10 +2452,11 @@ def k10_row_build_info():
     return rep
 
 
-def k10_fwd_phase(dev, report, key, label, make, w_tol, odd, groups):
+def k10_fwd_phase(dev, report, key, label, make, w_tol, odd, groups, regime):
     """K10's forward for one read (``make``: ``k10_inputs`` or
     ``k10_luong_inputs``; ``odd`` their widths off the tensor cores' steps,
-    ``groups`` widths of 17 column groups of q): every K10_FWD_CASES shape on
+    ``groups`` widths of 17 column groups of q, ``regime`` the TCD-TIMIT
+    presets' widths): every K10_FWD_CASES shape on
     the route ``kernels.attend_route`` gives it against the plain twin, each
     grouped shape's shared memory (``kernels.attend_grouped_smem``) and
     resident clusters (``kernels.ATTEND_GROUP_WAVE``) against the library's.
@@ -2384,7 +2475,7 @@ def k10_fwd_phase(dev, report, key, label, make, w_tol, odd, groups):
 
     worst = {"row": 0.0, "grouped": 0.0, "general": 0.0}
     for i, (what, N, W, S, widths, want) in enumerate(K10_FWD_CASES):
-        kw = {"preset": {}, "apart": {}, "odd": odd, "groups": groups}[widths]
+        kw = {"preset": {}, "apart": {}, "odd": odd, "groups": groups, "regime": regime}[widths]
         args = make(N, dev, seed=i + N + S, S=S, W=W, **kw)
         mem = args[3]
         if widths == "apart" and mem.keys is mem.values:
@@ -2528,7 +2619,7 @@ def k10_fwd_phase(dev, report, key, label, make, w_tol, odd, groups):
 
 def phase_k10(dev, report):
     k10_fwd_phase(dev, report, "bahdanau_attend", "K10", k10_inputs, K10_W_TOL, {"A": 72},
-                  {"Hq": 512, "A": 272})
+                  {"Hq": 512, "A": 272}, {"Dv": 512})
     # keys past |k| = 40, where the grouped read's factored energies could
     # leave fp32's range and it takes tanhf(k + q) instead, and where the row
     # read's energies saturate
@@ -2926,12 +3017,18 @@ def k10_bwd_times(label, args, st, queries, dctxs, out_k):
 def phase_k10_bwd(dev, report):
     """K10's backward, the Bahdanau read: a K=80 loop at N=128 (the train
     batch) on the kernels against the plain mirror, reruns bit-equal, the
-    length-0 row exactly 0; one loop at S=531 (16 s, N=16); device ms."""
+    length-0 row exactly 0; one loop at S=531 (16 s, N=16); loops at N=128
+    at the TCD-TIMIT presets' Dv = 512 over their audio and video memories
+    (S = 197 and 150, the bimodal train step's two read loops); device ms."""
     args = k10_inputs(128, dev, seed=131)
     st, out_k, queries, dctxs, worst = k10_bwd_check(
         "K10 bwd [N=128,S=197,A=128,Dv=768]", args, K10_LOOP, seed=7)
     worst = max(worst, k10_bwd_check("K10 bwd [N=16,S=531,A=128,Dv=768]",
                                      k10_inputs(16, dev, seed=531, S=531), 8, seed=8)[-1])
+    for S in (197, 150):
+        worst = max(worst, k10_bwd_check(f"K10 bwd [N=128,S={S},A=128,Dv=512]",
+                                         k10_inputs(128, dev, seed=512 + S, S=S, Dv=512),
+                                         K10_LOOP, seed=S)[-1])
     step, sums = k10_bwd_times("K10 bwd", args, st, queries, dctxs, out_k)
     report["bahdanau_attend_bwd"] = dict(max_abs_err=worst, **step)
     report["bahdanau_attend_sums"] = dict(max_abs_err=worst, **sums)
@@ -3524,8 +3621,10 @@ def k10_luong_inputs(N, dev, seed, S=197, Hq=256, Hk=512, W=1):
 
 
 def phase_k10_luong(dev, report):
+    # the regime cases: no preset reads Luong at the TCD-TIMIT widths; they
+    # run at its own (Hk = Dv = 512) over S = 150 too
     k10_fwd_phase(dev, report, "luong_attend", "K10 Luong", k10_luong_inputs, K10L_W_TOL,
-                  {"Hk": 200}, {"Hk": 272})
+                  {"Hk": 200}, {"Hk": 272}, {})
 
     # backward: a K=80 loop at N = 128 (the teacher-forced decoder's reads)
     # and one at S = 531
@@ -3821,6 +3920,155 @@ def align_step_train(dev):
             fail("K8 step train", f"{label}: leaves {bad}, launches {ran}, errors {errs}")
 
 
+def eval_records(tmp, cfg, seed=7):
+    """Write a synthetic eval corpus (48 utterances of 4-12 characters at
+    0.4 s each, 1.6-4.8 s) and a two-type noise bank (``babble`` and
+    ``cafe``: ``synthetic.make_noise_bank`` rows of 10 s, one record file a
+    type, as the JAX package's CLI writes banks) under ``tmp`` with the
+    port's record writer; read them back -> (a record source of the
+    corpus, {type: [N, L] float32})."""
+    import os
+
+    from avsr_tpu_torch.data import grain_loader, synthetic, tfrecord
+
+    spec = synthetic.SyntheticSpec(num_utterances=48, min_chars=4, max_chars=12,
+                                   char_duration_s=0.4, seed=seed)
+    corpus = os.path.join(tmp, "eval.tfrecord")
+    tfrecord.write_dataset(synthetic.generate(spec), corpus, video_codec="uint8")
+    banks = {}
+    for i, ntype in enumerate(cfg.noise.noise_types):
+        path = os.path.join(tmp, f"noise_{ntype}.tfrecord")
+        rows = synthetic.make_noise_bank(num_rows=4, row_samples=160_000, seed=seed + 1 + i)
+        tfrecord.write_dataset([synthetic.Utterance(uid=f"noise{j}", transcript="", waveform=r)
+                                for j, r in enumerate(rows)], path)
+        banks[ntype] = np.stack([u.waveform for u in tfrecord.read_dataset(path)])
+    return grain_loader.TFRecordDataSource(corpus), banks
+
+
+def phase_eval_noisy(dev, card, cfg, label="eval_noisy", needed=EVAL_NOISY_KERNELS):
+    """The records-to-CER eval of ``cfg``'s full-width model (random
+    weights from a seeded generator) at three conditions, clean, babble
+    0 dB and cafe -5 dB, as the JAX package's
+    ``Trainer.evaluate_noise_matrix`` runs them: records through the
+    bucketing loader, ``to_model_batch`` onto the card, the fixed-SNR encode
+    (``eval_snr``), ``loss_given_encode`` and the width-10 beam on the same
+    encode, hypotheses scored by ``ErrorRateAccumulator``.  The card's mixed
+    waveform of one batch is held against the same batch mixed on the CPU
+    (the draws are the host's, equal by construction)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from avsr_tpu_torch import kernels, native
+    from avsr_tpu_torch.data import loader
+    from avsr_tpu_torch.data.units import builtin_unit_dict
+    from avsr_tpu_torch.decode.beam import beam_search
+    from avsr_tpu_torch.eval.metrics import ErrorRateAccumulator
+    from avsr_tpu_torch.models import encoder as enc
+    from avsr_tpu_torch.models import seq2seq
+    from avsr_tpu_torch.ops import noise as noise_ops
+    from avsr_tpu_torch.utils.numerics import compute_dtype_of
+
+    units = builtin_unit_dict(cfg.data.unit)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        source, banks = eval_records(tmp, cfg)
+        au_stacking = ((cfg.audio.frame_stacking, cfg.audio.frame_skipping)
+                       if cfg.fusion.au_loss_weight > 0 else None)
+        eval_loader = loader.BucketingLoader(
+            source, units, cfg.data, require_audio=True, require_video=True,
+            frame_step=cfg.audio.frame_step, frame_length=cfg.audio.frame_length,
+            au_target_stacking=au_stacking, au_dim=cfg.fusion.au_dim)
+        batches = list(eval_loader.epoch(shuffle=False))
+    t_data = (time.perf_counter() - t0) * 1e3
+    bank = noise_ops.NoiseBank.create(banks, device=dev)
+    params = seq2seq.model_init(cfg, units.vocab_size, torch.Generator().manual_seed(0), dev)
+    H = cfg.audio_encoder.hidden_units[-1]
+    Dv = enc.encoder_output_dim(cfg.video_encoder)
+    S_v = max(nb["video"].shape[1] for _, nb in batches)
+    print(f"{label}: {len(source)} records, {len(batches)} batches "
+          f"{[(b, nb['audio'].shape, nb['num_real']) for b, nb in batches]}, noise bank "
+          f"{ {t: a.shape for t, a in banks.items()} }; records + loader {t_data:.3f} ms; host "
+          f"framing and scoring on the {'native library' if native.available() else 'Python path'}"
+          f"; K8 route {kernels.av_align_family(H, Dv, cfg.fusion.attention_units, S_v, Dv)!r} "
+          f"at [H={H}, A={cfg.fusion.attention_units}, T_v={S_v}, Dv={Dv}]")
+
+    # (3) the card's mix of one batch against the CPU's: same host draws
+    nb = batches[0][1]
+    b = loader.to_model_batch(nb, device=dev)
+    wav = b.audio.float() / 32767.0 if b.audio.dtype == torch.int16 else b.audio
+    mixes = {}
+    for where, w, ln, bk in (("card", wav, b.audio_lengths, bank),
+                             ("cpu", wav.cpu(), b.audio_lengths.cpu(),
+                              noise_ops.NoiseBank.create(banks))):
+        mixes[where] = noise_ops.mix_fixed_snr(w, ln, bk, -5.0, noise_type="cafe",
+                                               uid_hashes=b.uid_hashes)
+    mix_err = max_err(mixes["card"].cpu(), mixes["cpu"])
+    moved = max_err(mixes["cpu"], wav.cpu())
+    print(f"{label} fixed-SNR mix [B={wav.shape[0]}, S={wav.shape[1]}, cafe -5 dB]: card vs CPU "
+          f"max abs err {mix_err:.3e} (tol {MIX_TOL}); the mix moved the waveform by {moved:.3f}")
+    if not (mix_err <= MIX_TOL and moved > 0.1):
+        fail(label, f"the card's fixed-SNR mix disagrees with the CPU's: {mix_err}")
+
+    def run(ccfg, snr):
+        acc = ErrorRateAccumulator()
+        losses, weights = [], []
+        ev = None if snr is None else torch.tensor(snr, dtype=torch.float32)
+        with torch.no_grad():
+            for _, nb in batches:
+                batch = loader.to_model_batch(nb, device=dev)
+                out = seq2seq.encode(params, ccfg, batch, noise_bank=bank, eval_snr=ev)
+                _, metrics = seq2seq.loss_given_encode(params, ccfg, batch, out)
+                res = beam_search(params["decoder"], ccfg.decoder, out.memories,
+                                  ccfg.decode.max_decode_length,
+                                  beam_width=ccfg.decode.beam_width,
+                                  length_penalty=ccfg.decode.length_penalty,
+                                  cdt=compute_dtype_of(ccfg))
+                ids = res.ids.numpy()
+                n_real = nb["num_real"]
+                losses.append(float(metrics["loss"]))
+                weights.append(int(np.minimum(nb["target_lengths"][:n_real],
+                                              nb["targets"].shape[1]).sum()))
+                for j in range(n_real):
+                    acc.update(nb["references"][j], units.decode(ids[j]), nb["uids"][j])
+        summary = acc.summary()
+        summary["loss"] = float(np.average(losses, weights=np.maximum(weights, 1)))
+        return summary
+
+    conditions = (("clean", None, None), ("babble_0dB", "babble", 0.0),
+                  ("cafe_-5dB", "cafe", -5.0))
+    cfgs = {tag: cfg.replace(noise=dataclasses.replace(
+        cfg.noise, eval_snr_db=snr, eval_noise_type=ntype or cfg.noise.eval_noise_type))
+        for tag, ntype, snr in conditions}
+    run(cfgs["babble_0dB"], 0.0)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    results = {}
+    for tag, _, snr in conditions:
+        t0 = time.perf_counter()
+        summary = run(cfgs[tag], snr)
+        torch.cuda.synchronize()
+        summary["ms"] = (time.perf_counter() - t0) * 1e3
+        results[tag] = summary
+    launches = dict(kernels.LAUNCHES)
+    print(f"{label} launches over the three conditions {launches}")
+    for name in needed:
+        if launches[name] == 0:
+            fail(label, f"kernel {name} was not launched by the eval pass")
+    check_other_route(label, launches)
+    for tag, r in results.items():
+        if not (np.isfinite(r["loss"]) and 0.0 <= r["cer"] and r["num_utterances"] == len(source)):
+            fail(label, f"{tag}: {r}")
+        print(f"{label} [{card}] {cfg.name} {tag}: CER {r['cer']:.4f} WER {r['wer']:.4f} loss "
+              f"{r['loss']:.4f} over {r['num_utterances']} utterances, {len(batches)} batches; "
+              f"{r['ms']:.3f} ms ({r['ms'] / len(batches):.3f} ms per batch of "
+              f"{cfg.data.batch_size})")
+    if results["clean"]["loss"] == results["cafe_-5dB"]["loss"]:
+        fail(label, "the noisy condition left the loss unchanged: no noise was mixed")
+    return launches
+
+
 def tree_map_like(tree, values):
     """``tree`` with its tensor leaves replaced, in ``tree_leaves`` order,
     by the next items of the iterator ``values``."""
@@ -3840,7 +4088,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from avsr_tpu_torch.configs import lrs2_av_fast, lrs2_av_v2, lrs2_full
+        from avsr_tpu_torch.configs import (audio_only_tcdtimit, av_align_noisy, bimodal_tcdtimit,
+                                            lrs2_av_fast, lrs2_av_v2, lrs2_full,
+                                            video_only_tcdtimit)
         from avsr_tpu_torch import kernels
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
@@ -3875,6 +4125,10 @@ def main() -> int:
     align_cfg = lrs2_full()  # the lrs2_av_align preset
     v2_cfg = lrs2_av_v2()
     ul_cfg = uni_luong_cfg()
+    audio_cfg, video_cfg, bimodal_cfg = (audio_only_tcdtimit(), video_only_tcdtimit(),
+                                         bimodal_tcdtimit())
+    au_cfg = video_cfg.override({"video.use_au_features": True})
+    noisy_cfg = av_align_noisy()
     report, paths, greedy_runs = {}, {}, {}
 
     def greedy(c, label, needed):
@@ -3894,7 +4148,7 @@ def main() -> int:
                    (13, lambda: phase_k8(dev, report)),
                    (14, lambda: phase_k10(dev, report)),
                    (15, lambda: paths.update(serve_align=phase_serve(
-                       dev, card, align_cfg, "serve_align", SERVE_ALIGN_KERNELS, (8, 197, 768)))),
+                       dev, card, align_cfg, "serve_align", SERVE_ALIGN_KERNELS, ((8, 197, 768),)))),
                    (16, lambda: greedy(align_cfg, "greedy_align", GREEDY_ALIGN_KERNELS)),
                    (17, lambda: phase_k8_bwd(dev, report)),
                    (18, lambda: phase_k10_bwd(dev, report)),
@@ -3903,7 +4157,7 @@ def main() -> int:
                    (20, lambda: phase_k11(dev, report)),
                    (21, lambda: phase_k9(dev, report)),
                    (22, lambda: paths.update(serve_v2=phase_serve(
-                       dev, card, v2_cfg, "serve_v2", SERVE_V2_KERNELS, (8, 197, 1024)))),
+                       dev, card, v2_cfg, "serve_v2", SERVE_V2_KERNELS, ((8, 197, 1024),)))),
                    (23, lambda: greedy(v2_cfg, "greedy_v2", GREEDY_KERNELS)),
                    (24, lambda: decode_records_no_autograd(
                        dev, v2_cfg, *greedy_runs.pop("greedy_v2"), "greedy_v2")),
@@ -3919,7 +4173,7 @@ def main() -> int:
                    (29, lambda: phase_k10_luong(dev, report)),
                    (30, lambda: phase_k8_luong(dev, report)),
                    (31, lambda: paths.update(serve_uni_luong=phase_serve(
-                       dev, card, ul_cfg, "serve_uni_luong", SERVE_UL_KERNELS, (8, 197, 512)))),
+                       dev, card, ul_cfg, "serve_uni_luong", SERVE_UL_KERNELS, ((8, 197, 512),)))),
                    (32, lambda: greedy(ul_cfg, "greedy_uni_luong", GREEDY_UL_KERNELS)),
                    (33, lambda: decode_records_no_autograd(
                        dev, ul_cfg, *greedy_runs.pop("greedy_uni_luong"), "greedy_uni_luong")),
@@ -3927,10 +4181,32 @@ def main() -> int:
                        dev, card, ul_cfg, "train_uni_luong", TRAIN_UL_KERNELS))),
                    (35, lambda: phase_core_route(dev)),
                    (36, lambda: phase_lstm_step_route(dev)),
-                   (37, lambda: phase_align_step_route(dev))):
+                   (37, lambda: phase_align_step_route(dev)),
+                   (38, lambda: paths.update(serve_audio=phase_serve(
+                       dev, card, audio_cfg, "serve_audio", SERVE_AUDIO_KERNELS,
+                       ((8, 197, 512),)))),
+                   (39, lambda: paths.update(serve_video=phase_serve(
+                       dev, card, video_cfg, "serve_video", SERVE_VIDEO_KERNELS,
+                       ((8, 150, 512),)))),
+                   (40, lambda: paths.update(serve_video_au=phase_serve(
+                       dev, card, au_cfg, "serve_video_au", SERVE_VIDEO_KERNELS,
+                       ((8, 150, 512),)))),
+                   (41, lambda: paths.update(serve_bimodal=phase_serve(
+                       dev, card, bimodal_cfg, "serve_bimodal", SERVE_BIMODAL_KERNELS,
+                       ((8, 197, 512), (8, 150, 512))))),
+                   (42, lambda: greedy(bimodal_cfg, "greedy_bimodal", GREEDY_BIMODAL_KERNELS)),
+                   (43, lambda: decode_records_no_autograd(
+                       dev, bimodal_cfg, *greedy_runs.pop("greedy_bimodal"), "greedy_bimodal")),
+                   (44, lambda: paths.update(train_bimodal=phase_train(
+                       dev, card, bimodal_cfg, "train_bimodal", TRAIN_BIMODAL_KERNELS))),
+                   (45, lambda: paths.update(eval_noisy=phase_eval_noisy(dev, card, noisy_cfg)))):
         t0 = time.perf_counter()
         run()
         print(f"phase {n}: {time.perf_counter() - t0:.1f} s")
+        if n == 37:
+            t_new = time.perf_counter()
+    print(f"phases 38-45 (the unimodal and bimodal regimes, the noisy eval) "
+          f"{time.perf_counter() - t_new:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     td = "avsr_tpu/models/transformer_decoder.py"

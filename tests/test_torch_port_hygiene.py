@@ -6,8 +6,8 @@
   ``avsr_tpu/data/units.py`` agree with the originals: every preset of
   ``PRESETS`` as ``dataclasses.asdict``, the (de)serialization helpers, and
   every builtin unit inventory with its id conventions.
-* ``convert.from_jax``, ``seq2seq.model_init`` and ``serve.Predictor``
-  default to the card (a CPU-only torch refuses the first two without
+* ``convert.from_jax``, ``seq2seq.model_init``, ``data.loader.to_model_batch``
+  and ``serve.Predictor`` default to the card (a CPU-only torch refuses the first two without
   ``device="cpu"``); the internal ``*_init`` helpers take the device from
   their caller.
 * Every CUDA source has a plain C interface (no PyTorch headers) and names
@@ -28,6 +28,7 @@ from avsr_tpu import configs as jconfigs
 from avsr_tpu.data import units as junits
 from avsr_tpu_torch import configs as tconfigs
 from avsr_tpu_torch import convert, kernels
+from avsr_tpu_torch.data import loader
 from avsr_tpu_torch.data import units as tunits
 from avsr_tpu_torch.models import (decoder, encoder, fusion, seq2seq, transformer,
                                    transformer_decoder, video_cnn)
@@ -88,7 +89,7 @@ def test_builtin_units_equal_in_both_packages(unit_type):
 
 
 def test_entry_points_default_to_the_card():
-    for fn in (convert.from_jax, seq2seq.model_init):
+    for fn in (convert.from_jax, seq2seq.model_init, loader.to_model_batch):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         pytest.skip("a CUDA build of torch would place the tensors on the card")
@@ -97,8 +98,13 @@ def test_entry_points_default_to_the_card():
         convert.from_jax({"w": np.zeros(2, np.float32)})
     with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
         seq2seq.model_init(cfg, 44, torch.Generator().manual_seed(0))
+    nb = loader.NumpyBatch(audio=np.zeros((2, 8), np.int16),
+                           audio_lengths=np.array([8, 4], np.int32))
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA|accelerator"):
+        loader.to_model_batch(nb)
     p = convert.from_jax({"w": np.zeros(2, np.float32)}, device="cpu")
     assert p["w"].device.type == "cpu"
+    assert loader.to_model_batch(nb, device="cpu").audio.device.type == "cpu"
 
 
 @pytest.mark.parametrize("fn", [

@@ -151,9 +151,14 @@ def test_port_never_imports_jax():
         "assert not bad, bad\n"
         "bad = sorted(k for k in sys.modules if k == 'avsr_tpu' or k.startswith('avsr_tpu.'))\n"
         "assert not bad, bad\n"
-        "print(len([k for k in sys.modules if k.startswith('avsr_tpu_torch')]))\n"
+        "print(' '.join(k for k in sys.modules if k.startswith('avsr_tpu_torch')))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 28  # configs, data/units, decode/greedy
+    seen = set(out.stdout.split())
+    assert len(seen) >= 28  # configs, data/units, decode/greedy
+    # the data path, the scoring and the native host code are walked too
+    assert {f"avsr_tpu_torch.{m}" for m in (
+        "data.synthetic", "data.proto", "data.tfrecord", "data.grain_loader", "data.loader",
+        "eval.metrics", "eval.analysis", "native")} <= seen
