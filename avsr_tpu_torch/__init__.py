@@ -23,7 +23,12 @@ decoder, also with one-direction encoders and Luong reads
 audio-only, video-only (lip-ROI CNN or AU features) and bimodal (two
 decoder memories), fixed-SNR eval noise drawn as the JAX package draws it,
 and the eval set's data path and scoring (``data/``, ``eval/``, the host
-code of ``native/``).  The compute cores run as hand-written CUDA
+code of ``native/``) — and the experiment workflow above the steps: the
+training loop with checkpoints, resume, warm-up, in-loop eval and the
+noise matrix (``train/loop.py``, ``train/checkpoint.py``), the ``AVSR``
+API (``avsr.py``), the CLI (``cli.py``), the corpus builder
+(``data/ingest.py``) and metrics logging (``utils/logging.py``,
+``utils/tensorboard.py``).  The compute cores run as hand-written CUDA
 kernels on a GPU (``kernels/``, ``csrc/``) and as plain PyTorch on the
 CPU: the direction-batched LSTM recurrence forward and backward (K1; at
 one direction K2), the post-DFT

@@ -19,11 +19,17 @@ Both directions copy values bit-exactly; the round trip is pinned by
 ``tests/test_torch_convert.py``.  The input of ``from_jax`` is a tree of
 numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``, or the
 leaves of a serving artifact's ``params.npz`` unflattened).
+
+``jax_order_leaves`` lists a tree's leaves as ``jax.tree_util.tree_flatten``
+orders them (dict keys sorted, list items by index), each under its path
+key (``path_key``: the keys joined by ``/``, e.g.
+``decoder/atts/0/wq``): the key and order of the port's checkpoint files
+(``train/checkpoint.py``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, List, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +39,39 @@ from avsr_tpu_torch.utils.params import Params
 
 def _is_conv_kernel(path: Tuple) -> bool:
     return len(path) >= 3 and path[-3] == "convs" and path[-1] == "w"
+
+
+def leaf_to_jax(path: Tuple, x: np.ndarray) -> np.ndarray:
+    """One leaf's array from the port's layout into JAX's (by its path)."""
+    return np.transpose(x, (2, 3, 1, 0)) if _is_conv_kernel(path) else x  # OIHW -> HWIO
+
+
+def leaf_from_jax(path: Tuple, x: np.ndarray) -> np.ndarray:
+    """One leaf's array from JAX's layout into the port's (by its path)."""
+    return np.transpose(x, (3, 2, 0, 1)) if _is_conv_kernel(path) else x  # HWIO -> OIHW
+
+
+def path_key(path: Tuple) -> str:
+    return "/".join(str(k) for k in path)
+
+
+def jax_order_leaves(tree: Any) -> List[Tuple[Tuple, Any]]:
+    """(path, leaf) for every leaf, in ``jax.tree_util.tree_flatten``'s
+    order: dict keys sorted, list and tuple items by index."""
+    out: List[Tuple[Tuple, Any]] = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], path + (k,))
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                walk(v, path + (i,))
+        else:
+            out.append((path, t))
+
+    walk(tree, ())
+    return out
 
 
 def _walk(tree: Any, path: Tuple, leaf_fn):
@@ -47,9 +86,7 @@ def from_jax(tree: Any, *, device="cuda") -> Params:
     """JAX parameter tree (numpy leaves) -> port parameters on ``device``."""
 
     def leaf(path, x):
-        x = np.asarray(x)
-        if _is_conv_kernel(path):
-            x = np.transpose(x, (3, 2, 0, 1))  # HWIO -> OIHW
+        x = leaf_from_jax(path, np.asarray(x))
         return torch.from_numpy(np.array(x, order="C")).to(device)  # owned copy
 
     return _walk(tree, (), leaf)
@@ -59,9 +96,6 @@ def to_jax_numpy(params: Params) -> Any:
     """Port parameters -> JAX-layout tree of numpy arrays (host copies)."""
 
     def leaf(path, x):
-        x = x.detach().cpu()
-        if _is_conv_kernel(path):
-            x = x.permute(2, 3, 1, 0)  # OIHW -> HWIO
-        return np.ascontiguousarray(x.numpy())
+        return np.ascontiguousarray(leaf_to_jax(path, x.detach().cpu().numpy()))
 
     return _walk(params, (), leaf)

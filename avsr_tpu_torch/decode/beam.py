@@ -1,6 +1,6 @@
 """Batched width-W beam search (counterpart of ``avsr_tpu/decode/beam.py``).
 
-Same semantics as the reference, top-1 only:
+Same semantics as the reference:
 
 * beams are folded into the batch axis, contiguous per row ([B*W]);
 * PAD and GO are masked AFTER the log-softmax, so surviving scores are
@@ -30,7 +30,10 @@ Same semantics as the reference, top-1 only:
 * the loop exits early, on the host, once every row's settled flag is set:
   the remaining steps would only append zero-score EOS continuations;
 * the (token, parent) trellis is backtracked from the best leaf, on the
-  host, and everything after the first EOS becomes PAD.
+  host, and everything after the first EOS becomes PAD; with ``n_best``
+  N > 1 from the top N (<= W) leaves of the final ranking (a stable
+  descending sort, ties to the lower beam index, so rank 0 is the best
+  leaf), filling the ``nbest_*`` fields.
 
 The search runs under ``torch.inference_mode()``: parameters that require
 a gradient (a train state's) record no graph and take no kernel's save
@@ -57,6 +60,11 @@ class BeamResult(NamedTuple):
     lengths: torch.Tensor  # [B] tokens incl. EOS
     scores: torch.Tensor   # [B] length-normalized log prob of the winner
     steps: int             # decode steps actually executed (early exit)
+    # Only with beam_search(n_best > 1): the ranked alternatives, rank 0
+    # equal to the fields above
+    nbest_ids: "torch.Tensor | None" = None      # [B, N, L]
+    nbest_lengths: "torch.Tensor | None" = None  # [B, N]
+    nbest_scores: "torch.Tensor | None" = None   # [B, N]
 
 
 class StepOut(NamedTuple):
@@ -185,7 +193,7 @@ def _gather_rows(state, index: torch.Tensor):
 @torch.inference_mode()
 def beam_search(params, cfg: DecoderConfig, memories: Sequence[attn.AttentionMemory],
                 max_length: int, *, beam_width: int = 10, length_penalty: float = 0.0,
-                cdt: torch.dtype = torch.bfloat16) -> BeamResult:
+                cdt: torch.dtype = torch.bfloat16, n_best: int = 1) -> BeamResult:
     B = memories[0].values.shape[0]
     W = beam_width
     dev = memories[0].values.device
@@ -232,20 +240,25 @@ def beam_search(params, cfg: DecoderConfig, memories: Sequence[attn.AttentionMem
     any_finished = finished.any(dim=1, keepdim=True)
     eff = torch.where(finished | ~any_finished, final_scores,
                       torch.full_like(final_scores, NEG_INF)).cpu()
-    leaf = torch.argmax(eff, dim=1, keepdim=True)                     # [B, 1]
-    score = torch.gather(eff, 1, leaf)[:, 0]
-    length = torch.gather(lens.cpu(), 1, leaf)[:, 0]
+    n = min(max(n_best, 1), W)
+    # Stable: a tie goes to the lowest beam, as argmax's first maximum does.
+    leaves = torch.sort(eff, dim=1, descending=True, stable=True).indices[:, :n]  # [B, n]
+    scores = torch.gather(eff, 1, leaves)                             # [B, n]
+    lengths = torch.gather(lens.cpu(), 1, leaves)
 
     tokens_h, parents_h = tokens_buf.cpu(), parents_buf.cpu()
-    ids = torch.empty((B, max_length), dtype=torch.long)
-    beams = leaf
+    ids = torch.empty((B, n, max_length), dtype=torch.long)
+    beams = leaves
     for s in range(max_length - 1, -1, -1):
-        ids[:, s] = torch.gather(tokens_h[s], 1, beams)[:, 0]
+        ids[:, :, s] = torch.gather(tokens_h[s], 1, beams)
         beams = torch.gather(parents_h[s], 1, beams)
     # PAD everything after the first EOS (finished beams kept feeding EOS).
     is_eos = ids == EOS_ID
-    first_eos = torch.where(is_eos.any(dim=1), is_eos.int().argmax(dim=1),
-                            torch.full((B,), max_length - 1))
-    ids = torch.where(torch.arange(max_length)[None, :] > first_eos[:, None],
+    first_eos = torch.where(is_eos.any(dim=-1), is_eos.int().argmax(dim=-1),
+                            torch.full((B, n), max_length - 1))
+    ids = torch.where(torch.arange(max_length)[None, None, :] > first_eos[:, :, None],
                       torch.full_like(ids, PAD_ID), ids)
-    return BeamResult(ids=ids, lengths=length, scores=score, steps=t)
+    nb = n_best > 1
+    return BeamResult(ids=ids[:, 0], lengths=lengths[:, 0], scores=scores[:, 0], steps=t,
+                      nbest_ids=ids if nb else None, nbest_lengths=lengths if nb else None,
+                      nbest_scores=scores if nb else None)

@@ -71,7 +71,10 @@ LSTM_ROW_TILE = 16   # batch rows per block of the per-step LSTM kernels (BT in 
 LSTM_CLUSTER = 8     # CTAs per cluster of the cluster LSTM kernels (C in lstm_cluster.cuh)
 LSTM_CLUSTER_ROWS = 16  # batch rows per cluster (BR in lstm_cluster.cuh)
 ALIGN_CLUSTER = 16   # CTAs per cluster of K8's cluster kernels (C in av_align_fwd/bwd.cuh)
-FUSION_MAX_TV = 400  # video frames the fusion kernels (K4, K8) take: 16 s at 25 fps
+# video frames the fusion kernels (K4, K8) take: the largest bucket's video
+# capacity, ceil(1600 * 25 / 100) + 1 (``data/loader.py``'s bucket shapes;
+# every preset's last audio boundary is 1600 frames), one past 16 s at 25 fps
+FUSION_MAX_TV = 401
 ATTEND_MAX_S = 531   # steps K10, K11 and K4 (T_a) take: the audio steps of 16 s, (1598 - 8) // 3 + 1
 CONV_MAX_D = 1024    # channels K9 takes: one channel pair per thread, 512 threads at most
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on an H100

@@ -14,7 +14,8 @@ Phases, in order; any failure exits nonzero before the final line:
              version on the card at [G=2, H=256], bf16, ragged lengths with a
              0-length row, at every (T, B) the paths launch (``K1_SHAPES``:
              T = 50, 99, 150, 197 at B=128; B=8 and B=1; 16 s, T=531, at
-             B=4): max errors, two launches bit-equal, the 0-length row's
+             B=4; ``K1_BUCKET_SHAPES``: the train buckets' 17 more of
+             phases 46-47, T = 17-531 at B = 128, 64, 32): max errors, two launches bit-equal, the 0-length row's
              state kept; device ms and per-step us; the cluster kernels'
              registers, spills and HMMA count (ptxas -v, cuobjdump), their
              shared memory against ``kernels.lstm_cluster_smem`` and their
@@ -43,7 +44,7 @@ Phases, in order; any failure exits nonzero before the final line:
 7. K4      — the fusion attention kernels (tensor cores), forward and
              backward, against their plain twins at [B=128, 4 heads,
              T_a=50, T_v=150, A=dv=128] (the fast model), T_a=197 (v2),
-             the 16 s limits [B=4, T_a=133 and 531, T_v=400] and the
+             the 16 s limits [B=4, T_a=133 and 531, T_v=401] and the
              (A, dv) = (128, 64) instance, ragged video lengths including 0
              (uniform weights required there), both backwards fed the plain
              forward's row statistics: errors on ctx, P, the weights the
@@ -110,7 +111,7 @@ Phases, in order; any failure exits nonzero before the final line:
              against its plain twin at [H=256, A=128, Dv=512], bf16, ragged
              audio and video lengths with a 0-length row of each, at the
              serving, train and 16 s shapes (``K8_FWD_SHAPES``: [T_a=197,
-             B=8 and 128, T_v=150], [531, 32, 400]), in save mode: errors on
+             B=8 and 128, T_v=150], [531, 32, 401]), in save mode: errors on
              hs, ctxs, aligns, the final and the saved carries; exact zeros
              of the empty rows; reruns (and the run without save)
              bit-equal; the kernel's registers, spills and HMMA count, its
@@ -133,7 +134,7 @@ Phases, in order; any failure exits nonzero before the final line:
              [T_a=197, B=128, H=256, T_v=150, A=128, Dv=512] on the kernel
              forward's saved carries and random cotangents, ragged with a
              0-length audio row and a 0-length video row, and at the 16 s
-             limits [T_a=531, B=16, T_v=400]: errors on dxw, db, dq,
+             limits [T_a=531, B=16, T_v=401]: errors on dxw, db, dq,
              dkeys, dvalues and the weight gradients dWh, dctx_proj, dwq,
              dv; the empty rows' gradients exactly zero; two launches
              bit-equal; its kernels' registers, spills and HMMA count and
@@ -302,6 +303,40 @@ Phases, in order; any failure exits nonzero before the final line:
              batch against the CPU's (the host's draws, equal by
              construction); CER, WER, loss and ms per condition, and which
              host path (native library or Python) framed and scored.
+46. trainer-align — the ``AVSR`` API on the full-width ``lrs2_av_align``
+             preset (random weights from its seed) on the card: 288
+             synthetic train and 48 eval utterances of 1.6-6 s
+             (``character_lrs2``) and a babble / cafe noise bank written
+             with the port's record code, read through ``noise.bank_records``;
+             run A warms up (a step per bucket), trains 2 epochs with
+             checkpoints every 2 steps and a beam eval an epoch; run B is
+             stopped by ``request_stop`` after the first step of epoch 2;
+             run C, a new ``AVSR`` over B's directory, resumes it (its
+             restored state must equal B's bit for bit, its losses A's
+             within ``RESUME_LOSS_REL_TOL``; whether they are bit-equal is
+             printed), averages the checkpoints, evaluates
+             ``checkpoint="best"``, runs the clean / babble 0 dB / cafe 0 dB
+             matrix and ``predict(n_best=3)``; every checkpoint needs its
+             files, its extra and ``best.json``; prints train ms a step
+             (CUDA events), the epochs' frames/s, the synchronizing calls a
+             step (``set_sync_debug_mode("warn")``), warm-up seconds,
+             checkpoint save ms and MB, eval seconds and utterances/s per
+             condition, the warm-up steps' losses (all finite); requires
+             K1, K3, K8, K10's row read, step backward and sums, K10's
+             grouped read and K7.
+47. cli-fast — ``cli.main`` in process on the full-width ``lrs2_av_fast``
+             preset: ``write-records``, ``show-config`` with the records and
+             1 epoch, ``train``, ``train --resume --epochs 2``, ``evaluate
+             --greedy``, ``average-checkpoints``, ``decode``; requires K1,
+             K3, K4 and K5 forward and backward, K6 and K7.
+48. shapes — every call of a kernel wrapper in phases 46-47 (each of the
+             five train buckets, ``TRAIN_BUCKETS``, their warm-ups, the
+             evals) must have been made at the same tensor shapes in a
+             phase that holds that kernel against its plain twin
+             (``KERNEL_PHASES``; ``record_shapes``): the kernel phases take
+             the buckets' shapes (``*_BUCKET_SHAPES``, ``K10_BUCKET_READS``,
+             phases 3, 4, 6, 7, 9, 10, 13, 14, 17, 18) at their own
+             tolerances; prints each kernel's shapes on the paths and held.
 Serve (5, 15, 22, 31, 38-41) also beams the same memories through the plain path
 and holds the best scores to a tolerance.  Each serve and greedy path and the
 train path end with a ``torch.profiler`` reading of one run: the device's
@@ -479,7 +514,8 @@ OTHER_ROUTES = {"serve_align": ("bahdanau_attend", "bahdanau_attend_row"),
                 "greedy_bimodal": ("bahdanau_attend", "bahdanau_attend_grouped"),
                 "train_bimodal": ("bahdanau_attend", "bahdanau_attend_grouped"),
                 # the eval loss reads one query a row, its beam 10
-                "eval_noisy": ("bahdanau_attend",)}
+                "eval_noisy": ("bahdanau_attend",),
+                "trainer_align": ("bahdanau_attend",)}
 # the reference's unimodal and bimodal regimes (audio_tcdtimit,
 # video_tcdtimit with the ROI CNN or AU features, bimodal_tcdtimit: the RNN
 # decoder reads each memory with Bahdanau's score, at Dv = 512) and the
@@ -501,6 +537,24 @@ MIX_TOL = 1e-5
 # kernels no path of the presets launches (routes of other shapes), listed
 # in the kernels line with their phases' numbers and 0 launches
 OFF_PATH = ("bahdanau_attend", "luong_attend", "conformer_conv_fwd_tiles")
+# the training loop, checkpoints, API and CLI: lrs2_av_align's train step
+# (K1, K3, K8 and K10's teacher-forced loop), its eval loss (K10's row
+# read) and beam (K10's grouped read, K7); lrs2_av_fast's train step, greedy
+# and beam eval through the CLI
+TRAINER_ALIGN_KERNELS = ("lstm_scan_fwd", "lstm_scan_bwd", "logmel_post_dft", "av_align_scan",
+                         "av_align_scan_bwd", "bahdanau_attend_row", "bahdanau_attend_bwd",
+                         "bahdanau_attend_sums", "bahdanau_attend_grouped", "beam_step")
+CLI_FAST_KERNELS = ("lstm_scan_fwd", "lstm_scan_bwd", "logmel_post_dft", "fusion_attention_fwd",
+                    "fusion_attention_bwd", "decoder_attention_fwd", "decoder_attention_bwd",
+                    "decode_attention", "beam_step")
+# a resumed run's losses against the uninterrupted run's at the same steps:
+# the card's backward sums some gradients with atomics (the embedding's),
+# so the restored state can differ from the uninterrupted run's by fp32 ulps
+# and Adam carries that on for the two steps compared; 1e-4 is that drift.
+# The runs on the H100 were bit-equal.  A step's randomness taken from the
+# wrong step or micro-batch (dropout, scheduled sampling) moves the loss by
+# far more.
+RESUME_LOSS_REL_TOL = 1e-4
 GREEDY_UL_KERNELS = ("luong_attend_row",)
 TRAIN_UL_KERNELS = ("lstm_scan_uni_fwd", "lstm_scan_uni_bwd", "logmel_post_dft",
                     "av_align_scan_luong", "av_align_scan_luong_bwd", "luong_attend_row",
@@ -519,6 +573,73 @@ def check_other_route(label, launches):
     for other in OTHER_ROUTES.get(label, ()):
         if launches[other] != 0:
             fail(label, f"{launches[other]} calls launched {other}, another route's kernel")
+
+
+# the kernel wrappers of ``avsr_tpu_torch.kernels`` whose calls
+# ``record_shapes`` logs (K7's ``BeamStep`` too, as ``beam_step``)
+WRAPPERS = ("lstm_scan_fwd", "lstm_scan_bwd", "logmel_post_dft", "fusion_attention_fwd",
+            "fusion_attention_bwd", "decoder_attention_fwd", "decoder_attention_bwd",
+            "attention_bwd_core", "decode_attention", "beam_step", "av_align_scan",
+            "av_align_scan_bwd", "bahdanau_attend", "attend_step_bwd", "attend_loop_sums",
+            "encoder_attention_fwd", "encoder_attention_bwd", "encoder_attention_bwd_core",
+            "conformer_conv_fwd", "conformer_conv_bwd")
+# the phases that hold kernels against their plain twins: the shapes their
+# calls take are the shapes checked
+KERNEL_PHASES = (3, 4, 6, 7, 9, 10, 11, 13, 14, 17, 18, 20, 21, 25, 26, 28, 29, 30, 35, 36, 37)
+# the phases whose shapes must all be among KERNEL_PHASES' (phase 48)
+COVERED_PHASES = (46, 47)
+
+
+@contextlib.contextmanager
+def record_shapes(into):
+    """Within: each call of a kernel wrapper (``WRAPPERS``) adds (its name,
+    the shapes of its tensor arguments, None for a None argument) to the
+    set ``into``; K7 adds (beam_step, (B, W, V)) whether a ``BeamStep`` or
+    ``kernels.beam_step`` launches it.  A call that raises adds nothing."""
+    import torch
+
+    from avsr_tpu_torch import kernels
+
+    def shapes(args, kwargs):
+        return tuple(None if x is None else tuple(x.shape)
+                     for x in (*args, *kwargs.values()) if x is None or torch.is_tensor(x))
+
+    def recorded(name, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            if name == "beam_step":  # (logits [B * W, V], logp [B, W], ...)
+                into.add((name, (*args[1].shape, args[0].shape[1])))
+            else:
+                into.add((name, shapes(args, kwargs)))
+            return out
+        return call
+
+    class RecordedBeamStep(kernels.BeamStep):
+        def __init__(self, lp_table, tokens, parents, carries, V):
+            super().__init__(lp_table, tokens, parents, carries, V)
+            into.add(("beam_step", (*tokens.shape[1:], V)))
+
+    with contextlib.ExitStack() as stack:
+        for name in WRAPPERS:
+            stack.enter_context(mock.patch.object(kernels, name,
+                                                  recorded(name, getattr(kernels, name))))
+        stack.enter_context(mock.patch.object(kernels, "BeamStep", RecordedBeamStep))
+        yield into
+
+
+def phase_shapes_covered(held, launched):
+    """Fails where phases 46-47 called a kernel at shapes (``record_shapes``)
+    that no kernel-vs-plain phase held it at; prints each kernel's count of
+    shapes on the paths and among the held ones."""
+    missing = sorted(launched - held)
+    for name in sorted({n for n, _ in launched}):
+        on_path = sorted(s for n, s in launched if n == name)
+        print(f"shapes {name}: {len(on_path)} on phases {COVERED_PHASES}, "
+              f"{sum(1 for n, _ in held if n == name)} held against the plain twin; "
+              f"not held: {[s for n, s in missing if n == name]}")
+    if missing:
+        fail("shapes", f"{len(missing)} kernel calls of phases {COVERED_PHASES} at shapes no "
+                       f"kernel-vs-plain phase held: {missing}")
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -872,6 +993,19 @@ def plain_cores():
 # B = 128; a ragged B = 8 (a serve request) with a 0-length row, B = 1, and
 # 16 s of audio (T = 531, the longest the presets take) at B = 4
 K1_SHAPES = ((99, 128), (50, 128), (150, 128), (197, 128), (99, 8), (99, 1), (531, 4))
+# The train buckets of lrs2_av_align and lrs2_av_fast (2, 4, 6, 10 and 16 s
+# of audio; phases 46-47 step each, their warm-ups the 10 s and 16 s ones):
+# (B, STFT frames, T_a after stacking, T_v, label cap).  The kernel phases
+# hold each kernel at the shapes these give (the ``*_BUCKET_SHAPES``), and
+# phase 48 fails where phases 46-47 call a kernel at shapes no kernel phase
+# held.
+TRAIN_BUCKETS = ((128, 200, 65, 51, 30), (128, 400, 131, 101, 55), (128, 600, 198, 151, 80),
+                 (64, 1000, 331, 251, 130), (32, 1600, 531, 401, 150))
+# K1 at the buckets: align's audio layers (T_a) and both video encoders
+# (T_v), fast's audio layers (T_a, then halved twice: 65 -> 33 -> 17)
+K1_BUCKET_SHAPES = tuple(sorted({(T, B) for B, _, Ta, Tv, _ in TRAIN_BUCKETS
+                                 for T in (Ta, -(-Ta // 2), -(-Ta // 4), Tv)}
+                                - set(K1_SHAPES)))
 K2_SHAPES = ((197, 128), (150, 128), (197, 8), (197, 1), (531, 4))
 _LSTM_INFO = {}  # the cluster kernels' build report and occupancy, read once
 
@@ -970,7 +1104,7 @@ def phase_k1(dev, report):
     info = lstm_cluster_info()
     bf = torch.bfloat16
     errs, dms = {}, {}
-    for T, B in K1_SHAPES:
+    for T, B in K1_SHAPES + K1_BUCKET_SHAPES:
         args = k1_inputs(T, 2, B, 256, dev, seed=T + B)
         out_k = rnn.bilstm_scan_core(*args, bf)
         again = rnn.bilstm_scan_core(*args, bf)
@@ -1015,6 +1149,8 @@ def phase_k1(dev, report):
 
 
 K3_SHAPES = ((128, 96000), (8, 96000), (128, 256000), (8, 256000))  # (B, S): 6 s and 16 s
+# the train buckets' padded audio (S = (frames - 1) * 160 + 400 samples)
+K3_BUCKET_SHAPES = tuple((B, (F - 1) * 160 + 400) for B, F, *_ in TRAIN_BUCKETS)
 
 
 def k3_stage_ms(args, cfg):
@@ -1067,7 +1203,7 @@ def phase_k3(dev, report, cfg):
             fail("K3", f"chunk {chunk}: the writer's shared memory {got} is not "
                        f"kernels.logmel_writer_smem's {want}")
     worst, times = 0.0, {}
-    for B, S in K3_SHAPES:
+    for B, S in K3_SHAPES + K3_BUCKET_SHAPES:
         args = k3_inputs(cfg.audio, B, S, dev, seed=B + S)
         f_k, n_k = af.logmel_post_dft(*args, cfg.audio)
         f_p, n_p = af.logmel_post_dft_plain(*args, cfg.audio)
@@ -1206,7 +1342,7 @@ def phase_k1_bwd(dev, report):
     info = lstm_cluster_info()
     names = ("dWh", "db", "dxw", "dh0", "dc0")
     errs, abs_errs, dms = {}, {}, {}
-    for T, B in K1_SHAPES:
+    for T, B in K1_SHAPES + K1_BUCKET_SHAPES:
         args = k1_bwd_inputs(T, 2, B, 256, dev, seed=T + B)
         out_k = rnn.scan_core_bwd(*args)
         again = rnn.scan_core_bwd(*args)
@@ -1254,10 +1390,15 @@ def phase_k1_bwd(dev, report):
 
 # K4's shapes (B, T_a, T_v, dv) at 4 heads, A = 128: the fast model's, the
 # v2 model's (T_a = 197, no time reduction), the 16 s limits of the fast
-# (T_a = 133) and the v2 model (T_a = 531) at T_v = 400, and the (128, 64)
+# (T_a = 133) and the v2 model (T_a = 531) at T_v = 401 (the largest
+# bucket's video frames, ``kernels.FUSION_MAX_TV``), and the (128, 64)
 # instance (memory_value_dim = 256 over 4 heads) at the fast shape
-K4_SHAPES = ((128, 50, 150, 128), (128, 197, 150, 128), (4, 133, 400, 128), (4, 531, 400, 128),
+K4_SHAPES = ((128, 50, 150, 128), (128, 197, 150, 128), (4, 133, 401, 128), (4, 531, 401, 128),
              (128, 50, 150, 64))
+
+
+# the fast model's fusion at the train buckets: its audio halved twice
+K4_BUCKET_SHAPES = tuple((B, -(-Ta // 4), Tv, 128) for B, _, Ta, Tv, _ in TRAIN_BUCKETS)
 
 
 def k4_bounds(q, k, v, vlen, ctx, P, dctx, grads):
@@ -1282,7 +1423,7 @@ def phase_k4(dev, report):
                                                "LengthMask")
         for dk, dv in ((128, 128), (128, 64)) for kind in ("fwd", "bwd_q", "bwd_kv")})
     errs, abs_errs, timed = {}, {}, {}
-    for B, Ta, Tv, dv in K4_SHAPES:
+    for B, Ta, Tv, dv in K4_SHAPES + K4_BUCKET_SHAPES:
         q, k, v, vlen, dctx = k4_inputs(B, 4, Ta, Tv, 128, dev, seed=Ta + Tv + dv, dv=dv)
         ctx_k, w_k, st_k = fus.fusion_attention_fwd(q, k, v, vlen, save=True)
         ctx_k2, w_k2, st_k2 = fus.fusion_attention_fwd(q, k, v, vlen, save=True)
@@ -1548,6 +1689,15 @@ def k5_bounds(q, k, v, bias, ctx, stats, dctx, grads):
             bound(nbytes(q, k, v, bias, *stats, dctx, *grads), 2 * pairs * (3 * dk + 2 * dv)))
 
 
+# the fast decoder's self and cross pair at the train buckets (Q the label
+# cap, S the fused memory: the audio halved twice); bucket 2's are "fast
+# self" and "fast cross"
+K5_BUCKET_SHAPES = tuple(
+    x for B, _, Ta, _, L in TRAIN_BUCKETS if L != 80
+    for x in ((f"bucket self Q={L}", B, L, L, 64, 64, True),
+              (f"bucket cross Q={L}", B, L, -(-Ta // 4), 128, 256, False)))
+
+
 def phase_k5(dev, report):
     import torch
 
@@ -1562,7 +1712,7 @@ def phase_k5(dev, report):
            for kind in ("fwd", "bwd_q", "bwd_kv")}})
     k5_cross_layout_check()
     fwd_err, bwd_err, timed = {}, {}, {}
-    for name, B, Q, S, dk, dv, causal in K5_SHAPES:
+    for name, B, Q, S, dk, dv, causal in K5_SHAPES + K5_BUCKET_SHAPES:
         routes = ("causal", "causal") if causal else tuple(
             kernels.decoder_cross_route(Q, S, backward=d) for d in (False, True))
         q, k, v, bias, dctx = k5_inputs(B, Q, S, dk, dv, dev, causal, seed=Q + S + dv)
@@ -1731,6 +1881,12 @@ def k6_inputs(N, B, L, dk, dv, dev, cross, seed, nh=4):
 K6_ROWS = ((80, 8), (128, 128))
 K6_POS = (0, 37, 149)
 K6_MEMORIES = (50, 197, 531)
+# the eval of phase 47 at the train buckets its 1.6-6 s utterances fill (B
+# = 128): greedy (N = B) and the width-10 beam (N = 10 B) over the fast
+# memories (the audio halved twice), the beam's self read over its cache
+K6_BUCKET_CROSS = tuple(sorted({(N, B, -(-Ta // 4)) for B, _, Ta, _, _ in TRAIN_BUCKETS[:3]
+                                for N in (B, 10 * B)} - {(128, 128, 50)}))
+K6_BUCKET_SELF = (1280,)
 
 
 def k6_pair_bytes(N, B, pos, S, dk=128, dv=256, dh=64, nh=4):
@@ -1792,6 +1948,15 @@ def phase_k6(dev, report):
             q, k, v, bias = k6_inputs(N, B, S, 128, 256, dev, True, seed=N + S)
             worst = max(worst, check(f"cross [N={N},B={B},W={W},S={S},dk=128,dv=256]",
                                      q, k, v, bias, S, W))
+    for N in K6_BUCKET_SELF:
+        for pos in K6_POS:
+            q, k, v, _ = k6_inputs(N, N, 150, 64, 64, dev, False, seed=N + pos)
+            worst = max(worst, check(f"self, train bucket eval [N={N},L=150,pos={pos},4x64]",
+                                     q, k, v, None, pos + 1))
+    for N, B, S in K6_BUCKET_CROSS:
+        q, k, v, bias = k6_inputs(N, B, S, 128, 256, dev, True, seed=N + S)
+        worst = max(worst, check(f"cross, train bucket eval [N={N},B={B},W={N // B},S={S},"
+                                 f"dk=128,dv=256]", q, k, v, bias, S, N // B))
     q, k, v, _ = k6_inputs(16, 16, 40, 32, 32, dev, False, seed=5)
     check("self off the main path [N=16,L=40,pos=19,4x32]", q, k, v, None, 20)
     q, k, v, bias = k6_inputs(30, 10, 40, 64, 96, dev, True, seed=6)
@@ -2130,7 +2295,9 @@ def k8_inputs(B, dev, seed, T=197, H=256, Tv=150, A=128, Dv=512):
 
 # K8 forward's shapes (T_a, B, T_v): a serving request, the train batch, the
 # 16 s limits
-K8_FWD_SHAPES = ((197, 8, 150), (197, 128, 150), (531, 32, 400))
+K8_FWD_SHAPES = ((197, 8, 150), (197, 128, 150), (531, 32, 401))
+# lrs2_av_align's fusion at the train buckets (phase 46)
+K8_BUCKET_SHAPES = tuple((Ta, B, Tv) for B, _, Ta, Tv, _ in TRAIN_BUCKETS)
 _K8F_INFO = {}  # K8 forward's build report, shared memory and occupancy, read once
 
 
@@ -2252,9 +2419,10 @@ def k8_fwd_bound(args, attention_type, out):
     return bound(nb, flops)
 
 
-def k8_fwd_phase(dev, report, key, label, attention_type, make, seed, align_tol, widths):
+def k8_fwd_phase(dev, report, key, label, attention_type, make, seed, align_tol, widths,
+                 extra=()):
     """Phases 13 and 30: K8 forward (one read) against the plain twin at
-    ``K8_FWD_SHAPES``, its build report, device ms, us a step in one
+    ``K8_FWD_SHAPES`` and the (T_a, B, T_v) of ``extra``, its build report, device ms, us a step in one
     cluster with and without masked steps, and the kernels
     line's entry ``key`` (the serving shape's times, B = 128's beside)."""
     import torch
@@ -2264,7 +2432,8 @@ def k8_fwd_phase(dev, report, key, label, attention_type, make, seed, align_tol,
     info = k8_fwd_build_info()
     kw = {"attention_type": attention_type}
     errs, by_shape = [], {}
-    for i, (T, B, Tv) in enumerate(K8_FWD_SHAPES):
+    for i, (T, B, Tv) in enumerate(K8_FWD_SHAPES + tuple(x for x in extra
+                                                         if x not in K8_FWD_SHAPES)):
         args = make(B, dev, seed + B + T, T=T, Tv=Tv)
         errs.append(k8_fwd_check(f"{label} [T_a={T},B={B},T_v={Tv},{widths}]", args,
                                  attention_type, align_tol))
@@ -2303,7 +2472,7 @@ def k8_fwd_phase(dev, report, key, label, attention_type, make, seed, align_tol,
 
 def phase_k8(dev, report):
     k8_fwd_phase(dev, report, "av_align_scan", "K8", "bahdanau", k8_inputs, 13, K8_ALIGN_TOL,
-                 "H=256,A=128,Dv=512")
+                 "H=256,A=128,Dv=512", extra=K8_BUCKET_SHAPES)
 
 
 def k10_inputs(N, dev, seed, S=197, Hq=256, A=128, Dv=768, W=1):
@@ -2617,9 +2786,27 @@ def k10_fwd_phase(dev, report, key, label, make, w_tol, odd, groups, regime):
         cluster_B32=t32["cluster"])
 
 
+# lrs2_av_align's reads at the train buckets (phase 46), (N, W, S): the
+# loss's one query a row at N = B over S = T_a, and the eval's width-10
+# beam over the buckets its 1.6-6 s utterances fill
+K10_BUCKET_READS = (tuple((B, 1, Ta) for B, _, Ta, _, _ in TRAIN_BUCKETS)
+                    + tuple((10 * B, 10, Ta) for B, _, Ta, _, _ in TRAIN_BUCKETS[:3]))
+
+
 def phase_k10(dev, report):
+    from avsr_tpu_torch import kernels
+
     k10_fwd_phase(dev, report, "bahdanau_attend", "K10", k10_inputs, K10_W_TOL, {"A": 72},
                   {"Hq": 512, "A": 272}, {"Dv": 512})
+    for N, W, S in K10_BUCKET_READS:
+        args = k10_inputs(N, dev, seed=N + S, S=S, W=W)
+        route = kernels.attend_route(N, N // W, S, 256, 128, 768, False)
+        if route != ("row" if W == 1 else "grouped"):
+            fail("K10", f"train bucket [N={N},W={W},S={S}] takes the {route} route")
+        worst = k10_fwd_check(f"K10 train bucket [N={N}={N // W}x{W},S={S}] route {route}",
+                              args, K10_W_TOL, W)
+        r = report[f"bahdanau_attend_{route}"]
+        r["max_abs_err"] = max(r["max_abs_err"], worst)
     # keys past |k| = 40, where the grouped read's factored energies could
     # leave fp32's range and it takes tanhf(k + q) instead, and where the row
     # read's energies saturate
@@ -2797,16 +2984,16 @@ def k8_bwd_against_plain(label, args, attention_type):
 
 
 def k8_bwd_16s(attention_type, dev, seed):
-    """K8 backward at the 16 s limits, T_a = 531 and T_v = 400, B=16 (one
+    """K8 backward at the 16 s limits, T_a = 531 and T_v = 401, B=16 (one
     cluster), against the plain twin; (max abs error, device ms)."""
     from avsr_tpu_torch.models import fusion as fus
 
-    args = k8_bwd_inputs(16, dev, seed, attention_type=attention_type, T=531, Tv=400)
-    err, _ = k8_bwd_against_plain(f"K8 {attention_type} bwd [T_a=531,B=16,T_v=400]", args,
+    args = k8_bwd_inputs(16, dev, seed, attention_type=attention_type, T=531, Tv=401)
+    err, _ = k8_bwd_against_plain(f"K8 {attention_type} bwd [T_a=531,B=16,T_v=401]", args,
                                   attention_type)
     dms = device_ms(lambda: fus.av_align_scan_bwd(*args, attention_type=attention_type), reps=3,
                     warmup=1)
-    print(f"K8 {attention_type} bwd [T_a=531,B=16,T_v=400] device {dms} ms")
+    print(f"K8 {attention_type} bwd [T_a=531,B=16,T_v=401] device {dms} ms")
     return err, dms
 
 
@@ -2819,6 +3006,10 @@ def phase_k8_bwd(dev, report):
     err, _ = k8_bwd_against_plain("K8 bwd [T_a=197,B=128,H=256,T_v=150,A=128,Dv=512]", args,
                                   "bahdanau")
     err16, dms16 = k8_bwd_16s("bahdanau", dev, seed=31)
+    for T, B, Tv in K8_BUCKET_SHAPES:
+        e, _ = k8_bwd_against_plain(f"K8 bwd, train bucket [T_a={T},B={B},T_v={Tv}]",
+                                    k8_bwd_inputs(B, dev, seed=T + B, T=T, Tv=Tv), "bahdanau")
+        err16 = max(err16, e)
     t_k = time_ms(lambda: fus.av_align_scan_bwd(*args), reps=5, warmup=1)
     t_p = time_ms(lambda: fus.av_align_scan_bwd_plain(*args), reps=2, warmup=1)
     dms = device_ms(lambda: fus.av_align_scan_bwd(*args), reps=5, warmup=1)
@@ -3029,6 +3220,10 @@ def phase_k10_bwd(dev, report):
         worst = max(worst, k10_bwd_check(f"K10 bwd [N=128,S={S},A=128,Dv=512]",
                                          k10_inputs(128, dev, seed=512 + S, S=S, Dv=512),
                                          K10_LOOP, seed=S)[-1])
+    for B, _, Ta, _, L in TRAIN_BUCKETS:  # the teacher-forced loops of phase 46
+        worst = max(worst, k10_bwd_check(f"K10 bwd, train bucket [N={B},S={Ta},A=128,Dv=768]",
+                                         k10_inputs(B, dev, seed=B + Ta, S=Ta), L,
+                                         seed=L)[-1])
     step, sums = k10_bwd_times("K10 bwd", args, st, queries, dctxs, out_k)
     report["bahdanau_attend_bwd"] = dict(max_abs_err=worst, **step)
     report["bahdanau_attend_sums"] = dict(max_abs_err=worst, **sums)
@@ -4069,6 +4264,391 @@ def phase_eval_noisy(dev, card, cfg, label="eval_noisy", needed=EVAL_NOISY_KERNE
     return launches
 
 
+def trainer_records(tmp, n_train, n_eval, seconds, seed=31, bank_rows=4, bank_samples=160_000):
+    """Write a synthetic train and eval corpus of ``seconds`` (min, max)
+    utterances (0.4 s a character) and a babble / cafe noise bank (one
+    record file a type) under ``tmp`` with the port's record writer ->
+    (train path, eval path, ((type, bank path), ...))."""
+    import os
+
+    from avsr_tpu_torch.data import synthetic, tfrecord
+
+    chars = (int(round(seconds[0] / 0.4)), int(round(seconds[1] / 0.4)))
+    paths = []
+    for name, n, s in (("train", n_train, seed), ("eval", n_eval, seed + 1)):
+        spec = synthetic.SyntheticSpec(num_utterances=n, min_chars=chars[0], max_chars=chars[1],
+                                       char_duration_s=0.4, seed=s)
+        paths.append(os.path.join(tmp, f"{name}.tfrecord"))
+        tfrecord.write_dataset(synthetic.generate(spec), paths[-1], video_codec="uint8")
+    banks = []
+    for i, ntype in enumerate(("babble", "cafe")):
+        rows = synthetic.make_noise_bank(num_rows=bank_rows, row_samples=bank_samples,
+                                         seed=seed + 2 + i)
+        banks.append((ntype, os.path.join(tmp, f"noise_{ntype}.tfrecord")))
+        tfrecord.write_dataset([synthetic.Utterance(uid=f"{ntype}{j}", transcript="", waveform=r)
+                                for j, r in enumerate(rows)], banks[-1][1])
+    return paths[0], paths[1], tuple(banks)
+
+
+def instrument_steps(trainer, records, count_syncs=False):
+    """Wrap ``trainer._train_step``: each step appends (its loss as a device
+    tensor, CUDA events before and after it, the synchronizing calls it
+    made under ``torch.cuda.set_sync_debug_mode("warn")`` or None, its
+    bucket) to ``records``.  Neither the events nor the stored loss wait on
+    the card."""
+    import warnings
+
+    import torch
+
+    inner = trainer._train_step
+
+    def step(bucket, batch):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        syncs = None
+        start.record()
+        if count_syncs:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    metrics = inner(bucket, batch)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            syncs = sum("synchroniz" in str(w.message) for w in seen)
+        else:
+            metrics = inner(bucket, batch)
+        end.record()
+        records.append((metrics["loss"].detach(), start, end, syncs, bucket))
+        return metrics
+
+    trainer._train_step = step
+
+
+def timed_prefetch(waits):
+    """A ``loader.prefetch`` that appends to ``waits`` the host milliseconds
+    the train loop waited for each batch of the prefetch thread."""
+    from avsr_tpu_torch.data import loader
+
+    def wrapped(iterator, depth=2):
+        it = loader.prefetch(iterator, depth)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            waits.append((time.perf_counter() - t0) * 1e3)
+            yield item
+
+    return wrapped
+
+
+def warmup_losses(trainer, losses):
+    """Wrap ``trainer.warmup``: the loss of each of its steps (a device
+    tensor) is appended to ``losses``."""
+    from avsr_tpu_torch.train import loop
+
+    inner, step = trainer.warmup, loop.step_lib.train_step
+
+    def train_step(*args, **kwargs):
+        state, metrics = step(*args, **kwargs)
+        losses.append(metrics["loss"].detach())
+        return state, metrics
+
+    def warmup():
+        with mock.patch.object(loop.step_lib, "train_step", train_step):
+            return inner()
+
+    trainer.warmup = warmup
+
+
+def timed_method(obj, name, times):
+    """Wrap ``obj.name``: each call appends its host milliseconds to ``times``."""
+    inner = getattr(obj, name)
+
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(obj, name, call)
+
+
+def state_tensors(state):
+    from avsr_tpu_torch.utils.params import tree_leaves
+
+    opt = state.opt_state
+    return ([t for _, t in tree_leaves(state.params)]
+            + [m for k in ("mu", "nu", "trace") if k in opt for m in opt[k]])
+
+
+def phase_trainer_align(dev, card, cfg, label="trainer_align", needed=TRAINER_ALIGN_KERNELS,
+                        n_train=288, n_eval=48, seconds=(1.6, 6.0), n_predict=4):
+    """The ``AVSR`` API on ``cfg``'s model (the full-width ``lrs2_av_align``
+    preset, random weights from its seed) from synthetic records: an
+    uninterrupted run A (warm-up, 2 epochs with checkpoints every 2 steps
+    and a beam eval an epoch); run B, the same, stopped by ``request_stop``
+    after the first step of epoch 2; run C, a new ``AVSR`` over B's run
+    directory that resumes it (``train(try_restore_latest_checkpoint=
+    True)``), then ``average_checkpoints``, ``evaluate(checkpoint="best")``,
+    the clean / babble 0 dB / cafe 0 dB noise matrix and
+    ``predict(n_best=3)``.  Returns the launches of all of it."""
+    import json
+    import os
+    import tempfile
+    from unittest import mock
+
+    import torch
+
+    from avsr_tpu_torch import kernels
+    from avsr_tpu_torch.avsr import AVSR
+    from avsr_tpu_torch.data import tfrecord
+
+    with tempfile.TemporaryDirectory() as tmp:
+        train_path, eval_path, banks = trainer_records(tmp, n_train, n_eval, seconds)
+        cfg = cfg.override({"data.audio_train_records": train_path,
+                            "data.audio_eval_records": eval_path,
+                            "train.save_every_steps": 2, "train.num_epochs": 2,
+                            "noise.bank_records": [list(b) for b in banks]})
+        predict_utts = tfrecord.read_dataset(eval_path)[:n_predict]
+
+        def avsr(name):
+            return AVSR(config=cfg, run_dir=os.path.join(tmp, name), device=dev)
+
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t_phase = time.perf_counter()
+        a = avsr("A")
+        loader = a.trainer.train_loader
+        steps_a, warm_a, saves_a, waits_a, warm_loss = [], [], [], [], []
+        instrument_steps(a.trainer, steps_a, count_syncs=True)
+        warmup_losses(a.trainer, warm_loss)
+        timed_method(a.trainer, "warmup", warm_a)
+        write = a.trainer.ckpt._write
+
+        def timed_write(step, state):
+            t0 = time.perf_counter()
+            write(step, state)
+            d = a.trainer.ckpt._step_dir(step)
+            saves_a.append(((time.perf_counter() - t0) * 1e3,
+                            sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)) / 1e6))
+
+        a.trainer.ckpt._write = timed_write
+        with mock.patch("avsr_tpu_torch.train.loop.prefetch", timed_prefetch(waits_a)):
+            a.train()
+        torch.cuda.synchronize()
+        n_epoch = len(steps_a) // 2
+        buckets = [x[4] for x in steps_a]
+        print(f"{label} data: {n_train} train / {n_eval} eval records of {seconds[0]}-"
+              f"{seconds[1]} s; buckets of the steps {buckets} (batch sizes "
+              f"{[loader.batch_size_for(b) for b in buckets]}); checkpoints "
+              f"{a.trainer.ckpt.all_steps()}")
+        if (a.trainer._host_step != 2 * n_epoch or n_epoch < 2
+                or sorted(buckets[:n_epoch]) != sorted(buckets[n_epoch:])):
+            fail(label, f"run A took {a.trainer._host_step} steps of 2 epochs: buckets {buckets}")
+
+        # run B: stopped after the first step of epoch 2
+        b = avsr("B")
+        stop_at = n_epoch + 1
+        inner = b.trainer._train_step
+
+        def stopping(bucket, batch):
+            metrics = inner(bucket, batch)
+            if b.trainer._host_step + 1 == stop_at:
+                b.trainer.request_stop()
+            return metrics
+
+        b.trainer._train_step = stopping
+        b.train()
+        saved = [t.clone() for t in state_tensors(b.trainer.state)]
+        saved_meta = (b.trainer.state.step, b.trainer.state.opt_state["count"])
+        # run C: a new session resumes B's run directory
+        c = avsr("B")
+        steps_c, warm_c = [], []
+        restored = {}
+        inner_restore = c.trainer.restore_checkpoint
+
+        def restore(step=None):
+            out = inner_restore(step)
+            restored["equal"] = (
+                all(torch.equal(x, y) for x, y in zip(state_tensors(c.trainer.state), saved))
+                and (c.trainer.state.step, c.trainer.state.opt_state["count"]) == saved_meta)
+            restored["at"] = (out, c.trainer.epoch, c.trainer._resume_batches)
+            return out
+
+        c.trainer.restore_checkpoint = restore
+        instrument_steps(c.trainer, steps_c)
+        warmup_losses(c.trainer, warm_loss)
+        timed_method(c.trainer, "warmup", warm_c)
+        c.train(try_restore_latest_checkpoint=True)
+        torch.cuda.synchronize()
+        if restored.get("at") != (stop_at, 1, 1) or not restored["equal"]:
+            fail(label, f"resume: restored {restored}, expected step {stop_at}, epoch 1, 1 batch, "
+                        "the saved state bit for bit")
+        losses_a = [float(x[0]) for x in steps_a]
+        losses_c = [float(x[0]) for x in steps_c]
+        rel = [abs(x - y) / abs(y) for x, y in zip(losses_c, losses_a[stop_at:])]
+        bit_equal = losses_c == losses_a[stop_at:]
+        print(f"{label} resume: run B stopped at step {stop_at} (epoch 1, 1 batch); run C "
+              f"restored step, epoch, batches {restored['at']}, state bit-equal to the saved "
+              f"one: {restored['equal']}; C's losses {[round(x, 5) for x in losses_c]} against "
+              f"A's {[round(x, 5) for x in losses_a[stop_at:]]}: rel diff "
+              f"{[f'{r:.2e}' for r in rel]} (tol {RESUME_LOSS_REL_TOL}); bit-equal {bit_equal}")
+        if len(losses_c) != n_epoch - 1 or not max(rel) <= RESUME_LOSS_REL_TOL:
+            fail(label, "the resumed run's losses left the uninterrupted run's")
+        warm = [float(x) for x in warm_loss]
+        n_buckets = len(loader.bucket_shapes())
+        print(f"{label} warm-up losses (a step per bucket, runs A and C): "
+              f"{[round(x, 4) for x in warm]}")
+        if not (np.isfinite(losses_a).all() and np.isfinite(losses_c).all()
+                and np.isfinite(warm).all() and len(warm) == 2 * n_buckets):
+            fail(label, f"non-finite losses or missing warm-up steps: A {losses_a}, C {losses_c}, "
+                        f"warm-up {warm} ({n_buckets} buckets, 2 runs)")
+
+        # every checkpoint on disk complete, its extra beside it, best.json
+        for run, tr in (("A", a.trainer), ("B", c.trainer)):
+            steps = tr.ckpt.all_steps()
+            missing = [s for s in steps for f in ("params.npz", "opt_state.npz", "meta.json")
+                       if not os.path.exists(os.path.join(tr.ckpt.directory, str(s), f))]
+            missing += [f"extra_{s}.json" for s in steps
+                        if not os.path.exists(os.path.join(tr.ckpt.directory, f"extra_{s}.json"))]
+            if not steps or missing or not os.path.exists(os.path.join(tr.run_dir, "best.json")):
+                fail(label, f"run {run}: checkpoints {steps}, missing {missing} or best.json")
+
+        new_step = c.trainer.average_checkpoints()
+        with open(os.path.join(c.trainer.run_dir, "best.json")) as f:
+            best = json.load(f)
+        ev_best = c.evaluate(checkpoint="best")
+        if c.trainer._host_step != best["step"]:
+            fail(label, f"evaluate(checkpoint='best') left step {c.trainer._host_step}, "
+                        f"best.json names {best['step']}")
+        matrix = c.evaluate_noise_matrix(snrs=(None, 0.0))
+        nbest = c.predict(predict_utts, n_best=3)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        seconds_all = time.perf_counter() - t_phase
+        with open(os.path.join(a.trainer.run_dir, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+
+    step_ms = [s.elapsed_time(e) for _, s, e, _, _ in steps_a]
+    syncs = [x[3] for x in steps_a]
+    fps = [r["frames_per_sec"] for r in records if r["kind"] == "epoch"]
+    evals = [r for r in records if r["kind"] == "eval"]
+    print(f"{label} [{card}] {cfg.name}: train ms a step (CUDA events, run A) "
+          f"{[round(x, 3) for x in step_ms]}, median after the first "
+          f"{statistics.median(step_ms[1:]):.3f}; epoch frames/s (10 ms audio frames) "
+          f"{[round(x) for x in fps]}; losses {[round(x, 4) for x in losses_a]}")
+    print(f"{label} syncs a step between log steps (set_sync_debug_mode warn): {syncs}; the "
+          f"loop's host wait for each batch of the prefetch thread, ms "
+          f"{[round(x, 1) for x in waits_a]}")
+    print(f"{label} warmup (one step per bucket, {len(loader.bucket_shapes())} buckets): run A "
+          f"{[round(x / 1e3, 3) for x in warm_a]} s, run C {[round(x / 1e3, 3) for x in warm_c]} s")
+    print(f"{label} checkpoint save (params.npz, opt_state.npz, meta.json; run A): ms "
+          f"{[round(ms, 1) for ms, _ in saves_a]}, median "
+          f"{statistics.median(ms for ms, _ in saves_a):.1f}; {saves_a[-1][1]:.2f} MB a step")
+    for r in evals:
+        print(f"{label} in-loop eval epoch {int(r['epoch'])} (run A): CER {r['cer']:.4f} loss "
+              f"{r['loss']:.4f}, {r['seconds']} s, {r['utterances_per_sec']} utterances/s")
+    print(f"{label} average_checkpoints -> step {new_step}; evaluate(checkpoint='best') step "
+          f"{best['step']} (CER {best['cer']:.4f} in-loop): CER {ev_best['cer']:.4f}, "
+          f"{ev_best['seconds']} s, {ev_best['utterances_per_sec']} utterances/s")
+    for tag, r in matrix.items():
+        print(f"{label} noise matrix [{card}] {tag}: CER {r['cer']:.4f} WER {r['wer']:.4f} loss "
+              f"{r['loss']:.4f} over {r['num_utterances']} utterances, {r['seconds']} s, "
+              f"{r['utterances_per_sec']} utterances/s")
+    print(f"{label} predict n_best=3: {[(u, [h for h, _ in alts][:3]) for u, alts in nbest]}")
+    print(f"{label} launches {launches}; {seconds_all:.1f} s")
+    for name in needed:
+        if launches[name] == 0:
+            fail(label, f"kernel {name} was not launched by the API run")
+    check_other_route(label, launches)
+    bad = [t for t, r in matrix.items() if not np.isfinite(r["loss"])]
+    if bad or set(matrix) != {"clean", "babble_0dB", "cafe_0dB"} or len(nbest) != n_predict \
+            or any(len(alts) != 3 for _, alts in nbest):
+        fail(label, f"noise matrix {sorted(matrix)} (non-finite {bad}) or predict {nbest}")
+    return launches
+
+
+def run_cli(argv):
+    """``cli.main(argv)`` in this process (the kernel counters see its
+    launches): (its standard output, seconds)."""
+    import io
+
+    from avsr_tpu_torch import cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    if rc != 0:
+        fail("cli", f"{argv[0]} returned {rc}")
+    return out.getvalue(), time.perf_counter() - t0
+
+
+def phase_cli_fast(dev, card, preset="lrs2_av_fast", label="cli_fast", needed=CLI_FAST_KERNELS,
+                   n_train=160, n_eval=32, extra_sets=()):
+    """The CLI on ``preset`` at full width, in process: ``write-records``
+    (synthetic train and eval corpora of 1.6-6 s), ``show-config`` with the
+    records and 1 epoch set, ``train``, ``train --resume --epochs 2``,
+    ``evaluate --greedy``, ``average-checkpoints`` and ``decode``, each on
+    ``--device`` of ``dev``.  Returns the launches of the commands after
+    ``show-config``."""
+    import json
+    import os
+    import tempfile
+
+    import torch
+
+    from avsr_tpu_torch import kernels
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for name, n, seed in (("train", n_train, 41), ("eval", n_eval, 42)):
+            paths[name] = os.path.join(tmp, f"{name}.tfrecord")
+            run_cli(["write-records", "--synthetic", str(n), "--out", paths[name], "--seed",
+                     str(seed), "--min-chars", "4", "--max-chars", "15", "--char-duration",
+                     "0.4", "--video-codec", "uint8"])
+        sets = [f"data.audio_train_records={paths['train']}",
+                f"data.audio_eval_records={paths['eval']}", "train.num_epochs=1", *extra_sets]
+        cfg_json, _ = run_cli(["show-config", "--preset", preset,
+                               *[x for s in sets for x in ("--set", s)]])
+        cfg_path = os.path.join(tmp, "cfg.json")
+        with open(cfg_path, "w") as f:
+            f.write(cfg_json)
+        run = ["--config", cfg_path, "--run-dir", os.path.join(tmp, "run"), "--device", str(dev)]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        results = {}
+        for name, argv in (("train", ["train", *run]),
+                           ("resume", ["train", *run, "--resume", "--epochs", "2"]),
+                           ("evaluate_greedy", ["evaluate", *run, "--greedy"]),
+                           ("average", ["average-checkpoints", *run, "--last", "2"]),
+                           ("decode", ["decode", *run])):
+            out, secs = run_cli(argv)
+            results[name] = (json.loads(out.strip().splitlines()[-1]), secs)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        with open(os.path.join(tmp, "run", "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    fps = [round(r["frames_per_sec"]) for r in records if r["kind"] == "epoch"]
+    for name, (res, secs) in results.items():
+        res = res.get("final", res)
+        keys = {k: (round(v, 4) if isinstance(v, float) else v) for k, v in res.items()}
+        print(f"{label} [{card}] {preset} {name}: {secs:.2f} s; {keys}")
+    print(f"{label} epoch frames/s (10 ms audio frames) {fps}; launches {launches}")
+    for name in needed:
+        if launches[name] == 0:
+            fail(label, f"kernel {name} was not launched by the CLI run")
+    check_other_route(label, launches)
+    final = results["resume"][0]["final"]
+    if results["average"][0]["averaged_step"] < 2 or not all(
+            np.isfinite(r.get("final", r).get("loss", 0.0)) for r, _ in results.values()
+            if r.get("final", r)) or final.get("num_utterances") != n_eval:
+        fail(label, f"results {results}")
+    return launches
+
+
 def tree_map_like(tree, values):
     """``tree`` with its tensor leaves replaced, in ``tree_leaves`` order,
     by the next items of the iterator ``values``."""
@@ -4130,6 +4710,7 @@ def main() -> int:
     au_cfg = video_cfg.override({"video.use_au_features": True})
     noisy_cfg = av_align_noisy()
     report, paths, greedy_runs = {}, {}, {}
+    held, launched = set(), set()  # (kernel, shapes) of KERNEL_PHASES and COVERED_PHASES
 
     def greedy(c, label, needed):
         paths[label], greedy_runs[label] = phase_greedy(dev, card, c, label, needed)
@@ -4199,14 +4780,24 @@ def main() -> int:
                        dev, bimodal_cfg, *greedy_runs.pop("greedy_bimodal"), "greedy_bimodal")),
                    (44, lambda: paths.update(train_bimodal=phase_train(
                        dev, card, bimodal_cfg, "train_bimodal", TRAIN_BIMODAL_KERNELS))),
-                   (45, lambda: paths.update(eval_noisy=phase_eval_noisy(dev, card, noisy_cfg)))):
+                   (45, lambda: paths.update(eval_noisy=phase_eval_noisy(dev, card, noisy_cfg))),
+                   (46, lambda: paths.update(trainer_align=phase_trainer_align(dev, card,
+                                                                               align_cfg))),
+                   (47, lambda: paths.update(cli_fast=phase_cli_fast(dev, card)))):
         t0 = time.perf_counter()
-        run()
+        with (record_shapes(held) if n in KERNEL_PHASES
+              else record_shapes(launched) if n in COVERED_PHASES else contextlib.nullcontext()):
+            run()
         print(f"phase {n}: {time.perf_counter() - t0:.1f} s")
         if n == 37:
             t_new = time.perf_counter()
-    print(f"phases 38-45 (the unimodal and bimodal regimes, the noisy eval) "
+        if n == 45:
+            print(f"phases 38-45 (the unimodal and bimodal regimes, the noisy eval) "
+                  f"{time.perf_counter() - t_new:.1f} s")
+            t_new = time.perf_counter()
+    print(f"phases 46-47 (the training loop, checkpoints, API and CLI) "
           f"{time.perf_counter() - t_new:.1f} s")
+    phase_shapes_covered(held, launched)  # 48
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     td = "avsr_tpu/models/transformer_decoder.py"

@@ -1,7 +1,7 @@
 """K8's backward takes every width its forward takes.
 
 The forward (``kernels.av_align_family``) runs H and Dv that are multiples
-of 16 and A a multiple of 8 (up to 512; Dv up to 2048; T_v up to 400): one
+of 16 and A a multiple of 8 (up to 512; Dv up to 2048; T_v up to 401): one
 cluster launch at the presets' widths, the per-step kernels elsewhere.  The
 backward's cluster recurrence (``csrc/av_align_bwd.cuh``) takes a narrower
 set; ``kernels.av_align_bwd_family`` sends every other shape to the
@@ -100,7 +100,7 @@ def test_every_forward_width_gets_a_backward_route_over_H(dot, feed):
     for H in range(16, 1632, 16):
         for A in (8, 64, 72, 128, 512, 520):
             for Dv in (16, 64, 80, 192, 512, 2048):
-                for S in (1, 150, 400, 401):
+                for S in (1, 150, 400, 401, 402):
                     routes.add(_check_route(H, Dv if feed else 0, A, S, Dv, dot))
     assert {"cluster", "step", None} <= routes
     assert _route(8, 0, 64, 150, 64, dot) == (None, None)  # H below a unit tile
@@ -109,8 +109,10 @@ def test_every_forward_width_gets_a_backward_route_over_H(dot, feed):
 @pytest.mark.parametrize("widths, dot", [
     ((256, 512, 128, 150, 512), False),  # lrs2_full: Bahdanau, H=256, video memory 512
     ((256, 256, 256, 150, 256), True),   # the uni-Luong variant: Hk = Dv = 256
-    ((256, 512, 128, 400, 512), False),  # the 16 s limit
+    ((256, 512, 128, 400, 512), False),  # 16 s at 25 fps
     ((256, 256, 256, 400, 256), True),
+    ((256, 512, 128, 401, 512), False),  # the largest bucket's video frames
+    ((256, 256, 256, 401, 256), True),
 ])
 def test_presets_take_the_cluster_backward(widths, dot):
     assert kernels.av_align_family(*widths) == "cluster"
@@ -147,8 +149,8 @@ def test_backward_family_is_a_function_of_the_shape_alone(monkeypatch):
 def test_backward_family_raises_with_the_forwards_numbers():
     with pytest.raises(ValueError, match="A=12"):
         kernels.av_align_bwd_family(256, 512, 12, 150, 512, False)
-    with pytest.raises(ValueError, match="T_v=401"):
-        kernels.av_align_bwd_family(256, 512, 128, 401, 512, False)
+    with pytest.raises(ValueError, match=f"T_v={kernels.FUSION_MAX_TV + 1}"):
+        kernels.av_align_bwd_family(256, 512, 128, kernels.FUSION_MAX_TV + 1, 512, False)
 
 
 def test_two_rows_a_cta_only_where_they_fit(monkeypatch):

@@ -92,7 +92,7 @@ def test_av_align_family_routes_by_shape(H, Dc, A, S, Dv, family):
 
 @pytest.mark.parametrize("H,Dc,A,S,Dv", [
     (100, 512, 128, 150, 512),   # H not a multiple of 16
-    (256, 512, 128, 401, 512),   # past 16 s of video
+    (256, 512, 128, 402, 512),   # past the largest bucket's 401 video frames
     (256, 512, 128, 0, 512),
     (256, 512, 520, 150, 512),   # A past 512
     (256, 256, 128, 150, 512),   # Dc neither 0 nor Dv

@@ -6,10 +6,11 @@
   ``avsr_tpu/data/units.py`` agree with the originals: every preset of
   ``PRESETS`` as ``dataclasses.asdict``, the (de)serialization helpers, and
   every builtin unit inventory with its id conventions.
-* ``convert.from_jax``, ``seq2seq.model_init``, ``data.loader.to_model_batch``
-  and ``serve.Predictor`` default to the card (a CPU-only torch refuses the first two without
-  ``device="cpu"``); the internal ``*_init`` helpers take the device from
-  their caller.
+* ``convert.from_jax``, ``seq2seq.model_init``, ``data.loader.to_model_batch``,
+  ``serve.Predictor``, ``AVSR``, ``train.loop.Trainer`` and the CLI's
+  ``--device`` default to the card (a CPU-only torch refuses them without
+  ``device="cpu"``: none runs on the CPU unasked); the internal ``*_init``
+  helpers take the device from their caller.
 * Every CUDA source has a plain C interface (no PyTorch headers) and names
   the JAX function it replaces; every kernel counted in ``LAUNCHES`` has
   its entry, with its source, in ``chip_smoke.py``'s kernels line.
@@ -19,6 +20,7 @@ import ast
 import dataclasses
 import inspect
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -88,9 +90,22 @@ def test_builtin_units_equal_in_both_packages(unit_type):
     assert t.decode(j.encode(text)) == j.decode(j.encode(text))
 
 
-def test_entry_points_default_to_the_card():
-    for fn in (convert.from_jax, seq2seq.model_init, loader.to_model_batch):
+def test_entry_points_default_to_the_card(tmp_path):
+    from avsr_tpu_torch import cli
+    from avsr_tpu_torch.avsr import AVSR
+    from avsr_tpu_torch.data.synthetic import SyntheticSpec, generate
+    from avsr_tpu_torch.train.loop import Trainer
+
+    for fn in (convert.from_jax, seq2seq.model_init, loader.to_model_batch, AVSR, Trainer):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    records = str(tmp_path / "train.tfrecord")
+    assert cli.main(["write-records", "--synthetic", "2", "--out", records]) == 0
+    seen = {}
+    with mock.patch.object(cli, "_build_avsr", lambda args: seen.setdefault("device",
+                                                                            args.device)):
+        with pytest.raises(AttributeError):
+            cli.main(["train", "--preset", "lrs2_av_fast"])
+    assert seen["device"] == "cuda"
     if torch.cuda.is_available():
         pytest.skip("a CUDA build of torch would place the tensors on the card")
     cfg = tconfigs.lrs2_av_fast()
@@ -102,6 +117,19 @@ def test_entry_points_default_to_the_card():
                            audio_lengths=np.array([8, 4], np.int32))
     with pytest.raises((AssertionError, RuntimeError), match="CUDA|accelerator"):
         loader.to_model_batch(nb)
+    data = generate(SyntheticSpec(num_utterances=2, seed=0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AVSR(architecture="audio", train_utterances=data, run_dir=str(tmp_path / "a"))
+    units = tunits.builtin_unit_dict("character")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(tconfigs.audio_only_tcdtimit(), units,
+                loader.BucketingLoader(data, units, tconfigs.DataConfig()),
+                run_dir=str(tmp_path / "t"))
+    argv = ["--set", f"data.audio_train_records={records}", "--run-dir", str(tmp_path / "c")]
+    for cmd in ("train", "evaluate", "decode", "average-checkpoints"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main([cmd, "--preset", "audio_tcdtimit", *argv])
+    assert not (tmp_path / "a").exists() and not (tmp_path / "t").exists()
     p = convert.from_jax({"w": np.zeros(2, np.float32)}, device="cpu")
     assert p["w"].device.type == "cpu"
     assert loader.to_model_batch(nb, device="cpu").audio.device.type == "cpu"
@@ -118,6 +146,25 @@ def test_entry_points_default_to_the_card():
 def test_init_helpers_take_the_callers_device(fn):
     param = inspect.signature(fn).parameters["device"]
     assert param.default is inspect.Parameter.empty
+
+
+@pytest.mark.parametrize("name", sorted(tconfigs.PRESETS))
+def test_kernel_length_limits_take_every_bucket(name):
+    """The loader's largest bucket (16 s: 1600 audio frames) fits the
+    kernels' length limits: its video frames ``kernels.FUSION_MAX_TV``
+    (K4, K8; 401 = ceil(1600 * 25 / 100) + 1) and its stacked audio steps
+    ``kernels.ATTEND_MAX_S`` (K4's T_a, K10, K11), so a warm-up step on
+    every bucket reaches the kernels."""
+    cfg = tconfigs.PRESETS[name]()
+    shapes = loader.BucketingLoader([], tunits.builtin_unit_dict(cfg.data.unit), cfg.data,
+                                    frame_step=cfg.audio.frame_step,
+                                    frame_length=cfg.audio.frame_length).bucket_shapes()
+    a = cfg.audio
+    video = max(s.video_frames for s in shapes.values())
+    frames = max((s.audio_samples - a.frame_length) // a.frame_step + 1 for s in shapes.values())
+    steps = (frames - a.frame_stacking) // a.frame_skipping + 1
+    assert video == kernels.FUSION_MAX_TV == 401
+    assert steps == kernels.ATTEND_MAX_S == 531
 
 
 def test_predictor_defaults_to_the_card():
