@@ -1,11 +1,10 @@
-"""Command-line interface: train / evaluate / decode / write-records
-(counterpart of ``avsr_tpu/cli.py``).
+"""Command-line interface: train / evaluate / decode / write-records /
+export / serve / transcribe (counterpart of ``avsr_tpu/cli.py``).
 
 A preset name or a JSON config file selects the experiment, and dotted-path
-overrides reach every knob.  Commands that build a model take ``--device``
-(default ``cuda``; ``--device cpu`` runs the plain PyTorch path on the
-CPU).  The serving commands (``export``, ``serve``, ``transcribe``) are not
-ported yet.
+overrides reach every knob.  Commands that build a model or load an
+artifact take ``--device`` (default ``cuda``; ``--device cpu`` runs the
+plain PyTorch path on the CPU).
 
 Examples:
   python -m avsr_tpu_torch.cli train --preset lrs2_av_fast \
@@ -13,6 +12,10 @@ Examples:
       --set train.learning_rate=3e-4
   python -m avsr_tpu_torch.cli evaluate --preset lrs2_av_align --run-dir runs/x
   python -m avsr_tpu_torch.cli write-records --synthetic 64 --out data/train.tfrecord
+  python -m avsr_tpu_torch.cli export --preset lrs2_av_fast --run-dir runs/x \
+      --set data.audio_eval_records=eval.tfrecord --out artifacts/fast --seconds 2,6,10
+  python -m avsr_tpu_torch.cli serve --artifact artifacts/fast --port 8000
+  python -m avsr_tpu_torch.cli transcribe --artifact artifacts/fast a.wav --video a.npy
 """
 
 from __future__ import annotations
@@ -210,6 +213,121 @@ def cmd_average_checkpoints(args) -> int:
     return 0
 
 
+def cmd_export(args) -> int:
+    """Write a serving artifact (``avsr_tpu_torch/serve.py``: the parameters
+    in the JAX tree's order and layout, the config and the request
+    signature) from the run's checkpoint."""
+    from avsr_tpu_torch.serve import export_serving_artifact
+
+    avsr = _build_avsr(args)
+    seconds = [float(s) for s in str(args.seconds).split(",")]
+    out = export_serving_artifact(
+        avsr, args.out, use_beam=not args.greedy, batch_size=args.batch_size,
+        audio_seconds=seconds[0] if len(seconds) == 1 else seconds,
+        platforms=tuple(args.platforms.split(",")) if args.platforms else None,
+        # ints, step strings, paths, and "best" (best.json)
+        checkpoint=avsr._resolve_checkpoint_step(args.checkpoint) if args.checkpoint else None,
+        data_parallel=args.data_parallel, transfer=args.transfer, n_best=args.n_best)
+    print(json.dumps({"artifact": out}))
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """Serve an artifact over HTTP with dynamic request batching
+    (``avsr_tpu_torch/serve_host.py``): concurrent requests arriving within
+    --max-wait-ms coalesce into one batched decode."""
+    from avsr_tpu_torch.serve_host import make_server
+
+    server, batcher = make_server(args.artifact, host=args.host, port=args.port,
+                                  max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+                                  device=args.device)
+    host, port = server.server_address[:2]
+    print(json.dumps({"serving": args.artifact, "host": host, "port": port,
+                      "max_batch": batcher.max_batch, "max_wait_ms": args.max_wait_ms}),
+          flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.shutdown()
+        batcher.close()
+    return 0
+
+
+def cmd_transcribe(args) -> int:
+    """Transcribe media files with a serving artifact alone (no config, no
+    checkpoint): ``.wav`` or ``.npy`` audio, ``.npy`` ROI arrays or video
+    files (cv2 lip-ROI extraction) for video."""
+    import numpy as np
+
+    from avsr_tpu_torch.serve import BucketedPredictor, load_predictor
+
+    pred = load_predictor(args.artifact, device=args.device)
+    B = (min(p.batch_size for p in pred.buckets) if isinstance(pred, BucketedPredictor)
+         else pred.batch_size)
+    names = {i["name"] for i in pred.meta["inputs"]}
+    need_audio, need_video = "audio" in names, "video" in names
+
+    def load_audio(path):
+        if path.endswith(".npy"):
+            return np.asarray(np.load(path), np.float32)
+        from avsr_tpu_torch.data.ingest import load_wav
+
+        return load_wav(path)
+
+    def load_video(path):
+        if path.endswith(".npy"):
+            v = np.asarray(np.load(path), np.float32)
+            return v[..., None] if v.ndim == 3 else v
+        from avsr_tpu_torch.data.ingest import extract_lip_rois
+
+        return extract_lip_rois(path)
+
+    files = list(args.inputs)
+    videos = list(args.video or [])
+    if need_video and not need_audio:
+        # video-only artifact: the positional inputs ARE the videos
+        files, videos = [], (videos or files)
+    if need_audio and not files:
+        raise SystemExit("artifact requires audio inputs (.wav or .npy)")
+    if need_video and not videos:
+        raise SystemExit("artifact requires video inputs: --video FILE per utterance (.npy ROI "
+                         "array or a video file for cv2 extraction)")
+    if need_audio and need_video and len(files) != len(videos):
+        raise SystemExit(f"{len(files)} audio but {len(videos)} video inputs")
+
+    want_n = max(int(args.n_best or 1), 1)
+    if want_n > 1 and pred.n_best < want_n:
+        raise SystemExit(f"--n-best {want_n} but the artifact was exported with "
+                         f"n_best={pred.n_best}; re-export with --n-best {want_n}")
+    keys = files if need_audio else videos
+    results: list = []
+    for lo in range(0, len(keys), B):
+        kw = {}
+        if need_audio:
+            kw["audio"] = [load_audio(p) for p in files[lo:lo + B]]
+        if need_video:
+            kw["video"] = [load_video(p) for p in videos[lo:lo + B]]
+        results.extend(pred.transcribe_nbest(**kw) if want_n > 1 else pred.transcribe(**kw))
+
+    out_f = open(args.out, "w") if args.out else None
+    try:
+        for name, r in zip(keys, results):
+            if want_n > 1:
+                line = json.dumps({"file": name, "text": r[0][0], "alternatives": [
+                    {"text": t, "score": s} for t, s in r[:want_n]]})
+            else:
+                line = json.dumps({"file": name, "text": r})
+            print(line)
+            if out_f:
+                out_f.write(line + "\n")
+    finally:
+        if out_f:
+            out_f.close()
+    return 0
+
+
 def cmd_show_config(args) -> int:
     print(_load_config(args).to_json())
     return 0
@@ -324,6 +442,28 @@ def main(argv=None) -> int:
                    help="unit file to write (use via data.unit_file + data.unit_type)")
     p.set_defaults(fn=cmd_build_units)
 
+    p = sub.add_parser("export", help="write a serving artifact from the run's checkpoint")
+    model_args(p)
+    p.add_argument("--out", required=True, help="artifact directory")
+    p.add_argument("--checkpoint", default=None, help="a step, a step directory or 'best'")
+    p.add_argument("--greedy", action="store_true")
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--seconds", default="6.0",
+                   help="audio horizon(s); a comma-separated list writes one bucket a horizon "
+                        "(e.g. 2,6,10)")
+    p.add_argument("--platforms", default="cpu,gpu",
+                   help="comma-separated platforms the artifact serves on: the port's "
+                        "artifacts run on both cpu and gpu")
+    p.add_argument("--data-parallel", type=int, default=None,
+                   help="data-parallel artifact over N devices (not ported: raises)")
+    p.add_argument("--transfer", default="compact", choices=("compact", "float32"),
+                   help="request wire dtypes: compact = int16 PCM audio / uint8 ROI video, "
+                        "dequantized on the device (2-4x fewer host-to-device bytes)")
+    p.add_argument("--n-best", type=int, default=1,
+                   help="keep the ranked top-N hypotheses + scores (beam only); serving "
+                        "still returns top-1 by default")
+    p.set_defaults(fn=cmd_export)
+
     p = sub.add_parser("average-checkpoints",
                        help="average the last-N checkpoints into a new checkpoint step")
     model_args(p)
@@ -331,6 +471,38 @@ def main(argv=None) -> int:
     p.add_argument("--steps", default=None,
                    help="explicit comma-separated steps instead of --last")
     p.set_defaults(fn=cmd_average_checkpoints)
+
+    def device_arg(p):
+        p.add_argument("--device", default="cuda",
+                       help="torch device the artifact is loaded on (default cuda; cpu runs "
+                            "the plain PyTorch path)")
+
+    p = sub.add_parser("serve", help="serve an artifact over HTTP with dynamic batching")
+    p.add_argument("--artifact", required=True, help="artifact directory from `export`")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000,
+                   help="0 = pick an ephemeral port (printed on startup)")
+    p.add_argument("--max-batch", type=int, default=None,
+                   help="cap coalesced batch size (default: the artifact's batch size)")
+    p.add_argument("--max-wait-ms", type=float, default=5.0,
+                   help="how long the first request in a batch waits for company")
+    device_arg(p)
+    p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("transcribe", help="transcribe media files with a serving artifact")
+    p.add_argument("--artifact", required=True, help="artifact directory written by `export`")
+    p.add_argument("inputs", nargs="+",
+                   help=".wav or .npy waveform files (video-only artifacts: the video "
+                        "files / ROI .npy arrays)")
+    p.add_argument("--video", action="append", default=None,
+                   help="one per utterance: .npy ROI array [T,h,w(,1)] or a video file for "
+                        "cv2 lip-ROI extraction")
+    p.add_argument("--out", default=None, help="also write the JSONL transcripts here")
+    p.add_argument("--n-best", type=int, default=1,
+                   help="emit the top-N ranked alternatives with scores (artifact exported "
+                        "with --n-best >= N)")
+    device_arg(p)
+    p.set_defaults(fn=cmd_transcribe)
 
     p = sub.add_parser("show-config", help="print the resolved config")
     config_args(p)

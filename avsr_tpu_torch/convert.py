@@ -18,7 +18,9 @@ that PyTorch's operators want differently are converted:
 Both directions copy values bit-exactly; the round trip is pinned by
 ``tests/test_torch_convert.py``.  The input of ``from_jax`` is a tree of
 numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``, or the
-leaves of a serving artifact's ``params.npz`` unflattened).
+leaves of a serving artifact's ``params.npz`` unflattened; ``from_jax_leaves``
+takes those leaves as they are, in flatten order, against a template
+tree).
 
 ``jax_order_leaves`` lists a tree's leaves as ``jax.tree_util.tree_flatten``
 orders them (dict keys sorted, list items by index), each under its path
@@ -82,14 +84,36 @@ def _walk(tree: Any, path: Tuple, leaf_fn):
     return leaf_fn(path, tree)
 
 
+def _placed(x: np.ndarray, device) -> torch.Tensor:
+    """A contiguous copy of the port-layout array ``x`` in the allocator's
+    own (aligned) memory on ``device``, as the model's own tensors are: a
+    conv over other strides, or on the CPU a product over a numpy buffer's
+    alignment, may round otherwise."""
+    return torch.tensor(np.ascontiguousarray(x), device=device)
+
+
 def from_jax(tree: Any, *, device="cuda") -> Params:
     """JAX parameter tree (numpy leaves) -> port parameters on ``device``."""
+    return _walk(tree, (), lambda path, x: _placed(leaf_from_jax(path, np.asarray(x)), device))
 
-    def leaf(path, x):
+
+def from_jax_leaves(template: Params, leaves: List[np.ndarray], *, device="cuda") -> Params:
+    """JAX-layout leaves in ``tree_flatten`` order (a serving artifact's
+    ``params.npz``) -> port parameters on ``device`` with ``template``'s
+    structure (its tensors give only the shapes: a ``device="meta"`` tree
+    will do).  A leaf whose shape or dtype is not its slot's raises."""
+    order = jax_order_leaves(template)
+    if len(order) != len(leaves):
+        raise ValueError(f"{len(leaves)} parameter leaves; the model has {len(order)}")
+    placed = {}
+    for i, ((path, t), x) in enumerate(zip(order, leaves)):
         x = leaf_from_jax(path, np.asarray(x))
-        return torch.from_numpy(np.array(x, order="C")).to(device)  # owned copy
-
-    return _walk(tree, (), leaf)
+        want = str(t.dtype).replace("torch.", "")
+        if tuple(x.shape) != tuple(t.shape) or x.dtype.name != want:
+            raise ValueError(f"leaf {i} ({path_key(path)}): {x.dtype.name} {tuple(x.shape)}, "
+                             f"the model wants {want} {tuple(t.shape)}")
+        placed[path] = _placed(x, device)
+    return _walk(template, (), lambda path, _: placed[path])
 
 
 def to_jax_numpy(params: Params) -> Any:

@@ -329,14 +329,49 @@ Phases, in order; any failure exits nonzero before the final line:
              1 epoch, ``train``, ``train --resume --epochs 2``, ``evaluate
              --greedy``, ``average-checkpoints``, ``decode``; requires K1,
              K3, K4 and K5 forward and backward, K6 and K7.
-48. shapes — every call of a kernel wrapper in phases 46-47 (each of the
-             five train buckets, ``TRAIN_BUCKETS``, their warm-ups, the
-             evals) must have been made at the same tensor shapes in a
-             phase that holds that kernel against its plain twin
-             (``KERNEL_PHASES``; ``record_shapes``): the kernel phases take
-             the buckets' shapes (``*_BUCKET_SHAPES``, ``K10_BUCKET_READS``,
-             phases 3, 4, 6, 7, 9, 10, 13, 14, 17, 18) at their own
-             tolerances; prints each kernel's shapes on the paths and held.
+49. export — the serving artifacts of phases 46-47's runs in the 2, 6
+             and 10 s buckets (``SERVE_BUCKETS``: B = 8, compact transfer):
+             ``lrs2_av_fast`` through ``cli export --seconds 2,6,10 --n-best
+             3``, ``lrs2_av_align`` through ``export_serving_artifact`` with
+             the beam and greedy; each loaded by ``load_predictor`` onto the
+             card decodes a B = 8 ragged request in each bucket (routed there
+             by its lengths), ids and scores bit-equal to the in-process
+             ``Predictor`` on the same parameters and padded batch, and so
+             are the encoder's memories, the search's whole result and (the
+             RNN decoder) teacher-forced logits over random tokens
+             (``artifact_internals``); ``transcribe`` / ``transcribe_nbest``
+             give those ids' texts; ``cli transcribe`` of a ``.wav`` and two
+             ``.npy`` waveforms with ``.npy`` ROIs from the fast artifact;
+             the launches counted are each artifact's decodes alone
+             (``artifact_*``) and the command's (``cli_transcribe``);
+             requires K1, K3, K4, K6 and K7 (fast, and the command), K1, K3,
+             K8, K10's grouped read and K7 (align beam), K10's row read
+             (align greedy), none of another route; prints export and load
+             seconds, MB, decode ms a bucket.
+50. serve-http — ``serve_host.make_server`` on the fast artifact on
+             127.0.0.1 in a thread: 24 single-utterance requests of 1.6-9 s
+             on the compact wire from 24 concurrent clients, then from one
+             client in sequence (each its utterance's n-best alone, three
+             held equal to ``transcribe_nbest`` of it), then concurrently
+             under the profiler; every reply 200, fewer batches than
+             requests under concurrency, at most ``SERVE_MAX_DIFF_TEXTS``
+             concurrent replies other than the utterance's alone (its text,
+             or a shared hypothesis's score past ``SERVE_SCORE_RTOL``), every
+             reply bit-equal to its utterance decoded alone in the bucket its
+             batch took, no two utterances' n-best lists equal; prints p50
+             / p90 latency at 1 and 24 clients, utterances/s, utterances a
+             batch, hits per bucket and the device busy share.
+48. shapes — every call of a kernel wrapper in phases 46-47 and 49-50
+             (``COVERED_PHASES``: each of the five train buckets,
+             ``TRAIN_BUCKETS``, their warm-ups, the evals, and the three
+             serving buckets, ``SERVE_BUCKETS``) must have been made at the
+             same tensor shapes in a phase that holds that kernel against
+             its plain twin (``KERNEL_PHASES``; ``record_shapes``): the
+             kernel phases take the buckets' shapes (``*_BUCKET_SHAPES``,
+             ``K10_BUCKET_READS``, ``*_SERVE_SHAPES``, ``K6_SERVE_CROSS``,
+             ``K10_SERVE_READS``; phases 3, 4, 6, 7, 9, 10, 13, 14, 17, 18)
+             at their own tolerances; prints each kernel's shapes on the
+             paths and held.
 Serve (5, 15, 22, 31, 38-41) also beams the same memories through the plain path
 and holds the best scores to a tolerance.  Each serve and greedy path and the
 train path end with a ``torch.profiler`` reading of one run: the device's
@@ -515,7 +550,9 @@ OTHER_ROUTES = {"serve_align": ("bahdanau_attend", "bahdanau_attend_row"),
                 "train_bimodal": ("bahdanau_attend", "bahdanau_attend_grouped"),
                 # the eval loss reads one query a row, its beam 10
                 "eval_noisy": ("bahdanau_attend",),
-                "trainer_align": ("bahdanau_attend",)}
+                "trainer_align": ("bahdanau_attend",),
+                "artifact_align": ("bahdanau_attend", "bahdanau_attend_row"),
+                "artifact_align_greedy": ("bahdanau_attend", "bahdanau_attend_grouped")}
 # the reference's unimodal and bimodal regimes (audio_tcdtimit,
 # video_tcdtimit with the ROI CNN or AU features, bimodal_tcdtimit: the RNN
 # decoder reads each memory with Bahdanau's score, at Dv = 512) and the
@@ -556,6 +593,31 @@ CLI_FAST_KERNELS = ("lstm_scan_fwd", "lstm_scan_bwd", "logmel_post_dft", "fusion
 # far more.
 RESUME_LOSS_REL_TOL = 1e-4
 GREEDY_UL_KERNELS = ("luong_attend_row",)
+# the serving artifacts (phases 49-50): lrs2_av_fast exported through the
+# CLI (the width-10 beam, n-best 3), lrs2_av_align through
+# export_serving_artifact (the beam, and greedy), each in the 2, 6 and 10 s
+# buckets, and the fast artifact behind the HTTP host
+ARTIFACT_FAST_KERNELS = SERVE_KERNELS
+ARTIFACT_ALIGN_KERNELS = SERVE_ALIGN_KERNELS
+ARTIFACT_GREEDY_KERNELS = ("lstm_scan_fwd", "logmel_post_dft", "av_align_scan",
+                           "bahdanau_attend_row")
+SERVE_HTTP_KERNELS = SERVE_KERNELS
+# HTTP replies under concurrency against each utterance's transcription
+# alone: a coalesced batch takes the bucket of its longest utterance, so an
+# utterance that alone fits the 2 or 6 s bucket is decoded over a longer
+# padded memory (other GEMM shapes for the memory's projections, other
+# tiles of the masked sums: bf16 ulps), beside other partners.  On weights
+# barely trained past random, a near tie of two beams flips on such an ulp
+# (as GREEDY_MAX_DIFF_ROWS allows for greedy rows).  More than 6 of the 24
+# replies (1 in 4) is a fault, not ties.  A reply with its utterance's
+# text alone must hold the scores of the hypotheses both n-best lists
+# have within SERVE_SCORE_RTOL of them, relatively: two bf16 ulps (2^-6;
+# on the H100 the others came out bit-equal or within 3.1e-3).  Scores
+# this close cannot tell utterances apart (two utterances' replies came
+# within 1.5e-4 of each other), so each reply is also held bit-equal to
+# its utterance decoded alone in the bucket its batch took.
+SERVE_MAX_DIFF_TEXTS = 6
+SERVE_SCORE_RTOL = 2.0 ** -6
 TRAIN_UL_KERNELS = ("lstm_scan_uni_fwd", "lstm_scan_uni_bwd", "logmel_post_dft",
                     "av_align_scan_luong", "av_align_scan_luong_bwd", "luong_attend_row",
                     "luong_attend_bwd", "luong_attend_sums")
@@ -587,7 +649,7 @@ WRAPPERS = ("lstm_scan_fwd", "lstm_scan_bwd", "logmel_post_dft", "fusion_attenti
 # calls take are the shapes checked
 KERNEL_PHASES = (3, 4, 6, 7, 9, 10, 11, 13, 14, 17, 18, 20, 21, 25, 26, 28, 29, 30, 35, 36, 37)
 # the phases whose shapes must all be among KERNEL_PHASES' (phase 48)
-COVERED_PHASES = (46, 47)
+COVERED_PHASES = (46, 47, 49, 50)
 
 
 @contextlib.contextmanager
@@ -628,7 +690,7 @@ def record_shapes(into):
 
 
 def phase_shapes_covered(held, launched):
-    """Fails where phases 46-47 called a kernel at shapes (``record_shapes``)
+    """Fails where ``COVERED_PHASES`` called a kernel at shapes (``record_shapes``)
     that no kernel-vs-plain phase held it at; prints each kernel's count of
     shapes on the paths and among the held ones."""
     missing = sorted(launched - held)
@@ -869,10 +931,12 @@ def sdpa(q, k, v, mask):
                                           v.transpose(1, 2), attn_mask=mask)
 
 
-def request(rng, n, seconds=6.0, fps=25.0):
+def request(rng, n, seconds=6.0, fps=25.0, low=None):
+    """n utterances of ``low`` (default 2 s, or half of ``seconds``) to
+    ``seconds``: a two-tone waveform with noise and uniform 36x36 ROIs."""
     audio, video = [], []
     for _ in range(n):
-        sec = float(rng.uniform(min(2.0, seconds / 2), seconds))
+        sec = float(rng.uniform(min(2.0, seconds / 2) if low is None else low, seconds))
         ns = int(sec * 16000)
         t = np.arange(ns) / 16000.0
         f0 = rng.uniform(120, 300)
@@ -1001,11 +1065,21 @@ K1_SHAPES = ((99, 128), (50, 128), (150, 128), (197, 128), (99, 8), (99, 1), (53
 # held.
 TRAIN_BUCKETS = ((128, 200, 65, 51, 30), (128, 400, 131, 101, 55), (128, 600, 198, 151, 80),
                  (64, 1000, 331, 251, 130), (32, 1600, 531, 401, 150))
+# The serving buckets of phases 49-50: artifacts of 2, 6 and 10 s of audio at
+# B = 8 (a request padded to its bucket), the beam's horizon 150, in
+# TRAIN_BUCKETS' form.  The kernel phases hold the serving kernels (K1 fwd,
+# K3, K4 fwd, K6, K7, K8 fwd, K10) at these shapes too (``*_SERVE_SHAPES``,
+# ``K10_SERVE_READS``).
+SERVE_SECONDS = (2, 6, 10)
+SERVE_BUCKETS = ((8, 198, 64, 50, 150), (8, 598, 197, 150, 150), (8, 998, 331, 250, 150))
 # K1 at the buckets: align's audio layers (T_a) and both video encoders
 # (T_v), fast's audio layers (T_a, then halved twice: 65 -> 33 -> 17)
 K1_BUCKET_SHAPES = tuple(sorted({(T, B) for B, _, Ta, Tv, _ in TRAIN_BUCKETS
                                  for T in (Ta, -(-Ta // 2), -(-Ta // 4), Tv)}
                                 - set(K1_SHAPES)))
+K1_SERVE_SHAPES = tuple(sorted({(T, B) for B, _, Ta, Tv, _ in SERVE_BUCKETS
+                                for T in (Ta, -(-Ta // 2), -(-Ta // 4), Tv)}
+                               - set(K1_SHAPES) - set(K1_BUCKET_SHAPES)))
 K2_SHAPES = ((197, 128), (150, 128), (197, 8), (197, 1), (531, 4))
 _LSTM_INFO = {}  # the cluster kernels' build report and occupancy, read once
 
@@ -1104,7 +1178,7 @@ def phase_k1(dev, report):
     info = lstm_cluster_info()
     bf = torch.bfloat16
     errs, dms = {}, {}
-    for T, B in K1_SHAPES + K1_BUCKET_SHAPES:
+    for T, B in K1_SHAPES + K1_BUCKET_SHAPES + K1_SERVE_SHAPES:
         args = k1_inputs(T, 2, B, 256, dev, seed=T + B)
         out_k = rnn.bilstm_scan_core(*args, bf)
         again = rnn.bilstm_scan_core(*args, bf)
@@ -1151,6 +1225,9 @@ def phase_k1(dev, report):
 K3_SHAPES = ((128, 96000), (8, 96000), (128, 256000), (8, 256000))  # (B, S): 6 s and 16 s
 # the train buckets' padded audio (S = (frames - 1) * 160 + 400 samples)
 K3_BUCKET_SHAPES = tuple((B, (F - 1) * 160 + 400) for B, F, *_ in TRAIN_BUCKETS)
+# a serving bucket's request holds exactly its horizon's samples
+K3_SERVE_SHAPES = tuple((B, s * 16000) for (B, *_), s in zip(SERVE_BUCKETS, SERVE_SECONDS)
+                        if (B, s * 16000) not in K3_SHAPES)
 
 
 def k3_stage_ms(args, cfg):
@@ -1203,7 +1280,7 @@ def phase_k3(dev, report, cfg):
             fail("K3", f"chunk {chunk}: the writer's shared memory {got} is not "
                        f"kernels.logmel_writer_smem's {want}")
     worst, times = 0.0, {}
-    for B, S in K3_SHAPES + K3_BUCKET_SHAPES:
+    for B, S in K3_SHAPES + K3_BUCKET_SHAPES + K3_SERVE_SHAPES:
         args = k3_inputs(cfg.audio, B, S, dev, seed=B + S)
         f_k, n_k = af.logmel_post_dft(*args, cfg.audio)
         f_p, n_p = af.logmel_post_dft_plain(*args, cfg.audio)
@@ -1399,6 +1476,7 @@ K4_SHAPES = ((128, 50, 150, 128), (128, 197, 150, 128), (4, 133, 401, 128), (4, 
 
 # the fast model's fusion at the train buckets: its audio halved twice
 K4_BUCKET_SHAPES = tuple((B, -(-Ta // 4), Tv, 128) for B, _, Ta, Tv, _ in TRAIN_BUCKETS)
+K4_SERVE_SHAPES = tuple((B, -(-Ta // 4), Tv, 128) for B, _, Ta, Tv, _ in SERVE_BUCKETS)
 
 
 def k4_bounds(q, k, v, vlen, ctx, P, dctx, grads):
@@ -1423,7 +1501,7 @@ def phase_k4(dev, report):
                                                "LengthMask")
         for dk, dv in ((128, 128), (128, 64)) for kind in ("fwd", "bwd_q", "bwd_kv")})
     errs, abs_errs, timed = {}, {}, {}
-    for B, Ta, Tv, dv in K4_SHAPES + K4_BUCKET_SHAPES:
+    for B, Ta, Tv, dv in K4_SHAPES + K4_BUCKET_SHAPES + K4_SERVE_SHAPES:
         q, k, v, vlen, dctx = k4_inputs(B, 4, Ta, Tv, 128, dev, seed=Ta + Tv + dv, dv=dv)
         ctx_k, w_k, st_k = fus.fusion_attention_fwd(q, k, v, vlen, save=True)
         ctx_k2, w_k2, st_k2 = fus.fusion_attention_fwd(q, k, v, vlen, save=True)
@@ -1887,6 +1965,10 @@ K6_MEMORIES = (50, 197, 531)
 K6_BUCKET_CROSS = tuple(sorted({(N, B, -(-Ta // 4)) for B, _, Ta, _, _ in TRAIN_BUCKETS[:3]
                                 for N in (B, 10 * B)} - {(128, 128, 50)}))
 K6_BUCKET_SELF = (1280,)
+# the fast artifacts' width-10 beam (N = 80 over B = 8) over each serving
+# bucket's memory
+K6_SERVE_CROSS = tuple((10 * B, B, -(-Ta // 4)) for B, _, Ta, _, _ in SERVE_BUCKETS
+                       if -(-Ta // 4) not in K6_MEMORIES)
 
 
 def k6_pair_bytes(N, B, pos, S, dk=128, dv=256, dh=64, nh=4):
@@ -1953,10 +2035,12 @@ def phase_k6(dev, report):
             q, k, v, _ = k6_inputs(N, N, 150, 64, 64, dev, False, seed=N + pos)
             worst = max(worst, check(f"self, train bucket eval [N={N},L=150,pos={pos},4x64]",
                                      q, k, v, None, pos + 1))
-    for N, B, S in K6_BUCKET_CROSS:
-        q, k, v, bias = k6_inputs(N, B, S, 128, 256, dev, True, seed=N + S)
-        worst = max(worst, check(f"cross, train bucket eval [N={N},B={B},W={N // B},S={S},"
-                                 f"dk=128,dv=256]", q, k, v, bias, S, N // B))
+    for tag, shapes in (("train bucket eval", K6_BUCKET_CROSS), ("serving bucket",
+                                                                 K6_SERVE_CROSS)):
+        for N, B, S in shapes:
+            q, k, v, bias = k6_inputs(N, B, S, 128, 256, dev, True, seed=N + S)
+            worst = max(worst, check(f"cross, {tag} [N={N},B={B},W={N // B},S={S},dk=128,"
+                                     f"dv=256]", q, k, v, bias, S, N // B))
     q, k, v, _ = k6_inputs(16, 16, 40, 32, 32, dev, False, seed=5)
     check("self off the main path [N=16,L=40,pos=19,4x32]", q, k, v, None, 20)
     q, k, v, bias = k6_inputs(30, 10, 40, 64, 96, dev, True, seed=6)
@@ -2298,6 +2382,7 @@ def k8_inputs(B, dev, seed, T=197, H=256, Tv=150, A=128, Dv=512):
 K8_FWD_SHAPES = ((197, 8, 150), (197, 128, 150), (531, 32, 401))
 # lrs2_av_align's fusion at the train buckets (phase 46)
 K8_BUCKET_SHAPES = tuple((Ta, B, Tv) for B, _, Ta, Tv, _ in TRAIN_BUCKETS)
+K8_SERVE_SHAPES = tuple((Ta, B, Tv) for B, _, Ta, Tv, _ in SERVE_BUCKETS)
 _K8F_INFO = {}  # K8 forward's build report, shared memory and occupancy, read once
 
 
@@ -2472,7 +2557,7 @@ def k8_fwd_phase(dev, report, key, label, attention_type, make, seed, align_tol,
 
 def phase_k8(dev, report):
     k8_fwd_phase(dev, report, "av_align_scan", "K8", "bahdanau", k8_inputs, 13, K8_ALIGN_TOL,
-                 "H=256,A=128,Dv=512", extra=K8_BUCKET_SHAPES)
+                 "H=256,A=128,Dv=512", extra=K8_BUCKET_SHAPES + K8_SERVE_SHAPES)
 
 
 def k10_inputs(N, dev, seed, S=197, Hq=256, A=128, Dv=768, W=1):
@@ -2791,6 +2876,9 @@ def k10_fwd_phase(dev, report, key, label, make, w_tol, odd, groups, regime):
 # beam over the buckets its 1.6-6 s utterances fill
 K10_BUCKET_READS = (tuple((B, 1, Ta) for B, _, Ta, _, _ in TRAIN_BUCKETS)
                     + tuple((10 * B, 10, Ta) for B, _, Ta, _, _ in TRAIN_BUCKETS[:3]))
+# the align artifacts at the serving buckets: the width-10 beam's read (N =
+# 80 over B = 8) and greedy's (N = B)
+K10_SERVE_READS = tuple((W * B, W, Ta) for B, _, Ta, _, _ in SERVE_BUCKETS for W in (10, 1))
 
 
 def phase_k10(dev, report):
@@ -2798,12 +2886,12 @@ def phase_k10(dev, report):
 
     k10_fwd_phase(dev, report, "bahdanau_attend", "K10", k10_inputs, K10_W_TOL, {"A": 72},
                   {"Hq": 512, "A": 272}, {"Dv": 512})
-    for N, W, S in K10_BUCKET_READS:
+    for N, W, S in K10_BUCKET_READS + K10_SERVE_READS:
         args = k10_inputs(N, dev, seed=N + S, S=S, W=W)
         route = kernels.attend_route(N, N // W, S, 256, 128, 768, False)
         if route != ("row" if W == 1 else "grouped"):
-            fail("K10", f"train bucket [N={N},W={W},S={S}] takes the {route} route")
-        worst = k10_fwd_check(f"K10 train bucket [N={N}={N // W}x{W},S={S}] route {route}",
+            fail("K10", f"bucket read [N={N},W={W},S={S}] takes the {route} route")
+        worst = k10_fwd_check(f"K10 bucket read [N={N}={N // W}x{W},S={S}] route {route}",
                               args, K10_W_TOL, W)
         r = report[f"bahdanau_attend_{route}"]
         r["max_abs_err"] = max(r["max_abs_err"], worst)
@@ -4384,7 +4472,8 @@ def state_tensors(state):
 
 
 def phase_trainer_align(dev, card, cfg, label="trainer_align", needed=TRAINER_ALIGN_KERNELS,
-                        n_train=288, n_eval=48, seconds=(1.6, 6.0), n_predict=4):
+                        n_train=288, n_eval=48, seconds=(1.6, 6.0), n_predict=4, work=None,
+                        keep=None):
     """The ``AVSR`` API on ``cfg``'s model (the full-width ``lrs2_av_align``
     preset, random weights from its seed) from synthetic records: an
     uninterrupted run A (warm-up, 2 epochs with checkpoints every 2 steps
@@ -4393,10 +4482,11 @@ def phase_trainer_align(dev, card, cfg, label="trainer_align", needed=TRAINER_AL
     directory that resumes it (``train(try_restore_latest_checkpoint=
     True)``), then ``average_checkpoints``, ``evaluate(checkpoint="best")``,
     the clean / babble 0 dB / cafe 0 dB noise matrix and
-    ``predict(n_best=3)``.  Returns the launches of all of it."""
+    ``predict(n_best=3)``.  Returns the launches of all of it.  With
+    ``work`` the runs are written there and kept, and ``keep["align"]`` is
+    run C's ``AVSR`` (phase 49 exports it)."""
     import json
     import os
-    import tempfile
     from unittest import mock
 
     import torch
@@ -4405,7 +4495,7 @@ def phase_trainer_align(dev, card, cfg, label="trainer_align", needed=TRAINER_AL
     from avsr_tpu_torch.avsr import AVSR
     from avsr_tpu_torch.data import tfrecord
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with work_dir(work) as tmp:
         train_path, eval_path, banks = trainer_records(tmp, n_train, n_eval, seconds)
         cfg = cfg.override({"data.audio_train_records": train_path,
                             "data.audio_eval_records": eval_path,
@@ -4527,6 +4617,8 @@ def phase_trainer_align(dev, card, cfg, label="trainer_align", needed=TRAINER_AL
         nbest = c.predict(predict_utts, n_best=3)
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
+        if keep is not None:
+            keep["align"] = c
         seconds_all = time.perf_counter() - t_phase
         with open(os.path.join(a.trainer.run_dir, "metrics.jsonl")) as f:
             records = [json.loads(line) for line in f]
@@ -4570,6 +4662,13 @@ def phase_trainer_align(dev, card, cfg, label="trainer_align", needed=TRAINER_AL
     return launches
 
 
+def work_dir(work):
+    """``work`` as a context (kept after it), or a temporary directory."""
+    import tempfile
+
+    return contextlib.nullcontext(work) if work else tempfile.TemporaryDirectory()
+
+
 def run_cli(argv):
     """``cli.main(argv)`` in this process (the kernel counters see its
     launches): (its standard output, seconds)."""
@@ -4587,22 +4686,22 @@ def run_cli(argv):
 
 
 def phase_cli_fast(dev, card, preset="lrs2_av_fast", label="cli_fast", needed=CLI_FAST_KERNELS,
-                   n_train=160, n_eval=32, extra_sets=()):
+                   n_train=160, n_eval=32, extra_sets=(), work=None, keep=None):
     """The CLI on ``preset`` at full width, in process: ``write-records``
     (synthetic train and eval corpora of 1.6-6 s), ``show-config`` with the
     records and 1 epoch set, ``train``, ``train --resume --epochs 2``,
     ``evaluate --greedy``, ``average-checkpoints`` and ``decode``, each on
     ``--device`` of ``dev``.  Returns the launches of the commands after
-    ``show-config``."""
+    ``show-config``.  With ``work`` the run is written there and kept, and
+    ``keep["fast"]`` is the run's arguments (phase 49 exports it)."""
     import json
     import os
-    import tempfile
 
     import torch
 
     from avsr_tpu_torch import kernels
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with work_dir(work) as tmp:
         paths = {}
         for name, n, seed in (("train", n_train, 41), ("eval", n_eval, 42)):
             paths[name] = os.path.join(tmp, f"{name}.tfrecord")
@@ -4617,6 +4716,8 @@ def phase_cli_fast(dev, card, preset="lrs2_av_fast", label="cli_fast", needed=CL
         with open(cfg_path, "w") as f:
             f.write(cfg_json)
         run = ["--config", cfg_path, "--run-dir", os.path.join(tmp, "run"), "--device", str(dev)]
+        if keep is not None:
+            keep["fast"] = run
         torch.cuda.synchronize()
         kernels.reset_launches()
         results = {}
@@ -4649,6 +4750,442 @@ def phase_cli_fast(dev, card, preset="lrs2_av_fast", label="cli_fast", needed=CL
     return launches
 
 
+def phase_export(dev, card, keep, work, label="export"):
+    """Phase 49: the serving artifacts from phases 46-47's runs, in the 2, 6
+    and 10 s buckets (``SERVE_SECONDS``) at B = 8, compact transfer:
+    ``lrs2_av_fast`` through ``cli export --seconds 2,6,10 --n-best 3``
+    (its latest checkpoint), ``lrs2_av_align`` through
+    ``export_serving_artifact`` (run C's state) with the beam and greedy.
+    Each is loaded by ``load_predictor`` onto the card and decodes a B = 8
+    ragged request in each bucket (routed there by its lengths), its ids
+    and scores bit-equal to the in-process ``Predictor`` on the same
+    parameters (the fast checkpoint restored by a new ``AVSR``) and the same
+    padded batch, and so are its internals (``artifact_internals``);
+    ``transcribe`` / ``transcribe_nbest`` give those ids' texts; then ``cli
+    transcribe`` of ``.wav`` and ``.npy`` files from the fast artifact.
+    Returns the launches of each artifact's own decodes (label
+    ``artifact_*``; the reference's decodes and the checks after them are
+    not counted) and of the command (``cli_transcribe``), the needed
+    kernels held as each path's."""
+    import os
+
+    import torch
+
+    from avsr_tpu_torch import kernels
+    from avsr_tpu_torch.avsr import AVSR
+    from avsr_tpu_torch.configs import ExperimentConfig
+    from avsr_tpu_torch.serve import (BucketedPredictor, Predictor, export_serving_artifact,
+                                      load_predictor)
+    from avsr_tpu_torch.utils.params import tree_map
+
+    outs, secs = {}, {}
+    t0 = time.perf_counter()
+    outs["artifact_fast"] = os.path.join(work, "artifact_fast")
+    out, _ = run_cli(["export", *keep["fast"], "--out", outs["artifact_fast"], "--seconds",
+                      ",".join(str(x) for x in SERVE_SECONDS), "--n-best", "3"])
+    if json.loads(out.strip().splitlines()[-1]) != {"artifact": outs["artifact_fast"]}:
+        fail(label, f"cli export printed {out!r}")
+    secs["artifact_fast"] = time.perf_counter() - t0
+    align = keep["align"]
+    for name, use_beam in (("artifact_align", True), ("artifact_align_greedy", False)):
+        t0 = time.perf_counter()
+        outs[name] = export_serving_artifact(align, os.path.join(work, name), use_beam=use_beam,
+                                             audio_seconds=SERVE_SECONDS)
+        secs[name] = time.perf_counter() - t0
+    keep["artifacts"] = outs
+
+    # the parameters in process: the fast run's latest checkpoint restored by
+    # the checkpoint code (not the artifact's loader), run C's live state
+    run = keep["fast"]
+    with open(run[run.index("--config") + 1]) as f:
+        fast_cfg = ExperimentConfig.from_json(f.read())
+    fast = AVSR(config=fast_cfg, run_dir=run[run.index("--run-dir") + 1], device=dev)
+    fast.trainer.state, _, step = fast.trainer.ckpt.restore(fast.trainer.state)
+    fast.trainer._host_step = int(step)
+
+    # the train state's tensors without their gradient flag, as the loaded
+    # ones are (on the CPU a convolution over a weight that requires a
+    # gradient takes another route, which rounds otherwise)
+    def detached(params):
+        return tree_map(lambda t: t.detach(), params)
+
+    refs = {"artifact_fast": (fast, True, 3, ARTIFACT_FAST_KERNELS),
+            "artifact_align": (align, True, 1, ARTIFACT_ALIGN_KERNELS),
+            "artifact_align_greedy": (align, False, 1, ARTIFACT_GREEDY_KERNELS)}
+    rng = np.random.default_rng(49)
+    results = {}
+    for name, out in outs.items():
+        avsr, use_beam, n_best, needed = refs[name]
+        mb = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(out)
+                 for f in fs) / 1e6
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred = load_predictor(out, device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        metas = [p.meta for p in getattr(pred, "buckets", ())]
+        if not isinstance(pred, BucketedPredictor) or [m["audio_seconds"] for m in metas] != [
+                float(x) for x in SERVE_SECONDS] or any(
+                (m["use_beam"], m["n_best"], m["transfer"], m["checkpoint_step"])
+                != (use_beam, n_best, "compact", avsr.trainer._host_step) for m in metas):
+            fail(name, f"loaded {type(pred).__name__} with buckets {metas}")
+        print(f"{name} [{card}] {avsr.config.name}: export {secs[name]:.2f} s, {mb:.1f} MB, "
+              f"load {t_load:.2f} s ({len(pred.buckets)} buckets, checkpoint step "
+              f"{metas[0]['checkpoint_step']}, use_beam {use_beam}, n_best {n_best})")
+        launches = dict.fromkeys(kernels.LAUNCHES, 0)
+        for bucket, sec, low in zip(pred.buckets, SERVE_SECONDS, (1.6,) + SERVE_SECONDS[:-1]):
+            audio, video = request(rng, 8, seconds=float(sec), low=low)
+            if pred._pick(audio, video) is not bucket:
+                fail(name, f"a request of {low}-{sec} s was not routed to the {sec} s bucket")
+            arrays, _ = bucket.assemble(audio, video)
+            ref = Predictor(detached(avsr.trainer.state.params), avsr.config, avsr.unit_dict,
+                            device=dev, batch_size=8, audio_seconds=sec, transfer="compact",
+                            use_beam=use_beam, n_best=n_best)
+            want = ref(**arrays)
+            # the counts hold the artifact's own decodes and nothing else
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            got = bucket(**arrays)
+            ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            for k, v in kernels.LAUNCHES.items():
+                launches[k] += v
+            got, want = (got if n_best > 1 else (got,)), (want if n_best > 1 else (want,))
+            if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+                fail(name, f"{sec} s bucket: the artifact's ids / scores differ from the "
+                           "in-process Predictor's on the same parameters and batch")
+            held = artifact_internals(name, sec, bucket, ref, arrays, rng)
+            texts = [bucket.decode_ids(got[0][i, 0] if n_best > 1 else got[0][i])
+                     for i in range(8)]
+            if n_best > 1:
+                alts = pred.transcribe_nbest(audio=audio, video=video)
+                bad = [a for i, a in enumerate(alts) if a[0][0] != texts[i]
+                       or [s_ for _, s_ in a] != [float(x) for x in got[1][i]]]
+            else:
+                bad = [t for t, want_t in zip(pred.transcribe(audio=audio, video=video), texts)
+                       if t != want_t]
+            if bad:
+                fail(name, f"{sec} s bucket: transcribe gave {bad}, not the ids' texts")
+            print(f"{name} bucket {sec} s [{card}]: B=8 ragged {low}-{sec} s, artifact decode "
+                  f"{ms:.1f} ms; ids{' and scores' if n_best > 1 else ''} bit-equal to the "
+                  f"in-process Predictor, and {held}; sample {texts[0][:40]!r}")
+        print(f"{name} launches (the artifact's decodes alone) {launches}")
+        for k in needed:
+            if launches[k] == 0:
+                fail(name, f"kernel {k} was not launched by the artifact's decodes")
+        check_other_route(name, launches)
+        results[name] = launches
+        if name == "artifact_fast":
+            results["cli_transcribe"] = cli_transcribe(dev, card, pred, out,
+                                                       os.path.join(work, "media"), rng)
+    return results
+
+
+def artifact_internals(name, sec, bucket, ref, arrays, rng, n_tokens=24):
+    """Holds, bit for bit, what an artifact's ids alone may hide (a beam that
+    stops on EOS, a greedy row of repeats): every tensor of the encoder's
+    memories, the search's whole result (its scores, lengths and step
+    count), and for an RNN decoder the teacher-forced logits over
+    ``n_tokens`` random tokens, of the loaded ``bucket`` against the
+    in-process ``ref`` on the same padded ``arrays``.  Returns what it held,
+    as text."""
+    import torch
+
+    from avsr_tpu_torch.models import decoder
+
+    enc, enc_ref = bucket.encode(arrays), ref.encode(arrays)
+    pairs = [(f"memory {i}.{f}", getattr(m, f), getattr(r, f))
+             for i, (m, r) in enumerate(zip(enc.memories, enc_ref.memories))
+             for f in m._fields if getattr(m, f) is not None]
+    res = bucket.beam(enc) if bucket.use_beam else bucket.greedy(enc)
+    res_ref = ref.beam(enc_ref) if ref.use_beam else ref.greedy(enc_ref)
+    pairs += [(f"result.{f}", getattr(res, f), getattr(res_ref, f)) for f in res._fields]
+    held = [f"memories ({len(enc.memories)})", f"the {'beam' if bucket.use_beam else 'greedy'}"
+            f" result ({', '.join(res._fields)})"]
+    if not decoder._is_transformer(bucket.cfg.decoder):
+        vocab = bucket.params["decoder"]["embedding"].shape[0]
+        tokens = torch.as_tensor(rng.integers(3, vocab, (8, n_tokens)), device=bucket.device)
+        lengths = torch.full((8,), n_tokens, dtype=torch.int32, device=bucket.device)
+        with torch.inference_mode():
+            logits = [decoder.teacher_forced_logits(p.params["decoder"], p.cfg.decoder, tokens,
+                                                    lengths, e.memories, p._cdt)
+                      for p, e in ((bucket, enc), (ref, enc_ref))]
+        pairs.append(("teacher-forced logits", *logits))
+        held.append(f"teacher-forced logits over {n_tokens} random tokens (spread "
+                    f"{float(logits[0].std()):.3f})")
+    bad = [k for k, a, b in pairs
+           if not (torch.equal(a, b) if torch.is_tensor(a) else a == b)]
+    if bad:
+        fail(name, f"{sec} s bucket: the artifact's {bad} differ from the in-process "
+                   "Predictor's")
+    if bucket.use_beam:
+        held.append(f"scores {[round(float(x), 4) for x in res.scores[:3]]}...")
+    return "; ".join(held)
+
+
+def cli_transcribe(dev, card, pred, artifact, media, rng, needed=ARTIFACT_FAST_KERNELS):
+    """``cli transcribe`` of a ``.wav`` and two ``.npy`` waveforms with
+    ``.npy`` ROI videos from the fast artifact, ``--n-best 2``: its lines
+    name the files in order and hold ``pred.transcribe_nbest``'s
+    hypotheses and scores on the same files.  Returns the command's own
+    launches (its artifact load and decode)."""
+    import os
+    import wave
+
+    import torch
+
+    from avsr_tpu_torch import kernels
+    from avsr_tpu_torch.data.ingest import load_wav
+
+    os.makedirs(media, exist_ok=True)
+    audio, video = request(rng, 3, seconds=9.0, low=1.6)
+    files, videos = [], []
+    for i, (a, v) in enumerate(zip(audio, video)):
+        if i == 0:
+            files.append(os.path.join(media, "u0.wav"))
+            with wave.open(files[-1], "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(16000)
+                w.writeframes(np.clip(np.round(a * 32767.0), -32768, 32767)
+                              .astype("<i2").tobytes())
+        else:
+            files.append(os.path.join(media, f"u{i}.npy"))
+            np.save(files[-1], a)
+        videos.append(os.path.join(media, f"v{i}.npy"))
+        np.save(videos[-1], v[..., 0])  # [T, h, w]: the command adds the channel
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out, _ = run_cli(["transcribe", "--artifact", artifact, *files,
+                      *[x for v in videos for x in ("--video", v)], "--n-best", "2",
+                      "--device", str(dev)])
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    lines = [json.loads(line) for line in out.strip().splitlines()]
+    want = pred.transcribe_nbest(audio=[load_wav(files[0])] + [np.load(f) for f in files[1:]],
+                                 video=[np.load(v)[..., None] for v in videos])
+    got = [(line["file"], line["text"], [(a["text"], a["score"]) for a in line["alternatives"]])
+           for line in lines]
+    if got != [(f, w[0][0], w[:2]) for f, w in zip(files, want)]:
+        fail("cli_transcribe", f"lines {got} against {want}")
+    print(f"cli_transcribe [{card}]: {len(lines)} files (.wav, .npy; .npy ROIs) in {secs:.2f} s "
+          f"(artifact load included); lines equal transcribe_nbest's; launches {launches}")
+    for k in needed:
+        if launches[k] == 0:
+            fail("cli_transcribe", f"kernel {k} was not launched by the command")
+    check_other_route("cli_transcribe", launches)
+    return launches
+
+
+def phase_serve_http(dev, card, artifact, label="serve_http", needed=SERVE_HTTP_KERNELS, n=24,
+                     max_wait_ms=20.0, n_best=3):
+    """Phase 50: ``serve_host.make_server(artifact, port=0)`` on 127.0.0.1
+    in a thread, the fast n-best artifact of phase 49 on the card: ``n``
+    ragged 1.6-9 s single-utterance requests on the compact wire (base64
+    int16 PCM and uint8 ROIs) from ``n`` concurrent client threads, then the
+    same from one client in sequence (each a batch of one: its
+    transcription alone), then the concurrent run once more under the
+    profiler.  Every reply must be 200, ``/stats`` must count fewer batches
+    than requests under concurrency and one a request in sequence, the
+    sequential replies of the shortest, a middle and the longest utterance
+    must equal ``transcribe_nbest`` of it alone, at most
+    ``SERVE_MAX_DIFF_TEXTS`` concurrent replies may differ from the
+    sequential ones (the text, or the score of a hypothesis both n-best
+    lists hold by more than ``SERVE_SCORE_RTOL``, relatively), every reply
+    must be bit-equal to its utterance decoded alone in the bucket its batch
+    took, and no two utterances' n-best lists may be equal.  Prints p50 /
+    p90 request latency at 1 and ``n`` clients, utterances/s, utterances a
+    batch, hits per bucket and the device busy share of the concurrent run.
+    Returns the launches."""
+    import base64
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import torch
+
+    from avsr_tpu_torch import kernels
+    from avsr_tpu_torch.serve_host import make_server
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server, batcher = make_server(artifact, port=0, max_wait_ms=max_wait_ms, device=dev)
+    t_load = time.perf_counter() - t0
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    pred = batcher._pred
+    hits, routes = {}, {}  # per run: decodes a bucket; utterance length -> its bucket
+    pick = pred._pick
+
+    def counted(audio, video):
+        p = pick(audio, video)
+        hits[p.meta["audio_seconds"]] = hits.get(p.meta["audio_seconds"], 0) + 1
+        routes.update((len(a), p.meta["audio_seconds"]) for a in audio)
+        return p
+
+    pred._pick = counted
+    audio, video = request(np.random.default_rng(50), n, seconds=9.0, low=1.6)
+    wire = [(np.clip(np.round(a * 32767.0), -32768, 32767).astype(np.int16),
+             np.round(v * 255.0).astype(np.uint8)) for a, v in zip(audio, video)]
+
+    def b64(x):
+        return base64.b64encode(x.tobytes()).decode()
+
+    bodies = [json.dumps({"audio": [{"b64": b64(a), "dtype": "int16"}],
+                          "video": [{"b64": b64(v), "dtype": "uint8", "shape": list(v.shape)}],
+                          "n_best": n_best}).encode() for a, v in wire]
+
+    def post(body):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/transcribe", data=body,
+                                     headers={"Content-Type": "application/json"})
+        t = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                status, reply = r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            status, reply = e.code, json.loads(e.read())
+        return status, reply, (time.perf_counter() - t) * 1e3
+
+    def stats():
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats", timeout=60) as r:
+            return json.loads(r.read())
+
+    def concurrent():
+        got = [None] * n
+
+        def client(i):
+            got[i] = post(bodies[i])
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        return got, time.perf_counter() - t
+
+    order = np.argsort([len(a) for a in audio])
+    probes = [int(order[0]), int(order[n // 2]), int(order[-1])]
+    try:
+        for i in probes:  # warm-up: each bucket once, the worker thread's first decodes
+            post(bodies[i])
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        s0 = stats()
+        hits.clear()
+        routes.clear()
+        conc, wall_c = concurrent()
+        s1 = stats()
+        hits_c, route_c = dict(hits), dict(routes)
+        hits.clear()
+        routes.clear()
+        seq, t = [], time.perf_counter()
+        for body in bodies:
+            seq.append(post(body))
+        wall_s = time.perf_counter() - t
+        s2 = stats()
+        hits_s, route_s = dict(hits), dict(routes)
+        # the host span is the run's wall clock: the worker thread, not this
+        # one, makes the torch calls
+        prof = {}
+        dev_events, _ = device_events(lambda: prof.update(wall=concurrent()[1]))
+        span = prof["wall"] * 1e6
+    finally:
+        server.shutdown()
+        batcher.close()
+        server.server_close()
+        thread.join(timeout=30)
+    launches = dict(kernels.LAUNCHES)
+    pred._pick = pick
+    bad = [(i, st, r) for i, (st, r, _) in enumerate(conc + seq) if st != 200]
+    if bad:
+        fail(label, f"replies not 200: {bad[:3]}")
+    d_c = {k: s1[k] - s0[k] for k in ("requests", "batches", "utterances")}
+    d_s = {k: s2[k] - s1[k] for k in ("requests", "batches", "utterances")}
+    if not (d_c["requests"] == d_s["requests"] == d_s["batches"] == n
+            and d_c["batches"] < n):
+        fail(label, f"/stats under concurrency {d_c}, in sequence {d_s}")
+
+    def alts(reply):  # [(text, score), ...] of the reply's one utterance
+        return [(t, s_) for t, s_ in reply["alternatives"][0]]
+
+    alone = [pred.transcribe_nbest(audio=[wire[i][0]], video=[wire[i][1]])[0][:n_best]
+             for i in probes]
+    if alone != [alts(seq[i][1]) for i in probes]:
+        fail(label, f"sequential replies {[alts(seq[i][1]) for i in probes]} are not the "
+                    f"utterances' n-best alone {alone}")
+    # against the utterance alone (its own bucket): a reply differs when its
+    # text does, or the score of a hypothesis both n-best lists hold does
+    # (near-tied lower ranks may trade places)
+    def dist(a, b):
+        if a[0][0] != b[0][0]:
+            return float("inf")
+        sb = dict(b)
+        return max(abs(x - sb[t]) / max(abs(x), abs(sb[t]), 1e-30) for t, x in a if t in sb)
+
+    own = [dist(alts(conc[i][1]), alts(seq[i][1])) for i in range(n)]
+    diff = [i for i in range(n) if own[i] > SERVE_SCORE_RTOL]
+    same = [d for d in own if d != float("inf")]
+    # against the utterance alone in the bucket its coalesced batch took:
+    # the same program on the same row, so bit-equal whatever its partners;
+    # a reply delivered to the wrong client shows unless two utterances'
+    # n-best lists are equal, which fails too
+    keys = [len(a) for a, _ in wire]
+    if len(set(keys)) != n or set(route_c) != set(keys) or set(route_s) != set(keys):
+        fail(label, f"utterance lengths {keys} are not one a request, or a run's routes "
+                    f"{route_c} / {route_s} miss one")
+    buckets = {p.meta["audio_seconds"]: p for p in pred.buckets}
+    in_bucket = [alts(seq[i][1]) if route_s[k] == route_c[k] else
+                 buckets[route_c[k]].transcribe_nbest(audio=[wire[i][0]],
+                                                      video=[wire[i][1]])[0][:n_best]
+                 for i, k in enumerate(keys)]
+    moved = [i for i in range(n) if alts(conc[i][1]) != in_bucket[i]]
+    twins = [(i, j) for i in range(n) for j in range(i + 1, n) if in_bucket[i] == in_bucket[j]]
+    busy, share = busy_share(dev_events, span)
+    lat_c = [ms for _, _, ms in conc]
+    lat_s = [ms for _, _, ms in seq]
+
+    def pct(x):
+        return f"p50 {np.percentile(x, 50):.1f} ms, p90 {np.percentile(x, 90):.1f} ms"
+
+    print(f"{label} [{card}] {n} requests of one 1.6-9 s utterance, fast n-best artifact, "
+          f"max_wait_ms {max_wait_ms}, max_batch {batcher.max_batch}; server start "
+          f"{t_load:.2f} s")
+    print(f"{label} [{card}] {n} concurrent clients: {pct(lat_c)}; {n / wall_c:.2f} "
+          f"utterances/s ({wall_c:.2f} s); {d_c['batches']} batches, "
+          f"{d_c['utterances'] / d_c['batches']:.2f} utterances a batch; hits per bucket "
+          f"{dict(sorted(hits_c.items()))}")
+    print(f"{label} [{card}] 1 client in sequence: {pct(lat_s)}; {n / wall_s:.2f} "
+          f"utterances/s ({wall_s:.2f} s); {d_s['batches']} batches; hits per bucket "
+          f"{dict(sorted(hits_s.items()))}")
+    print(f"{label} [{card}] concurrent run under the profiler: host span {span / 1e3:.1f} ms, "
+          f"device busy {busy / 1e3:.1f} ms, busy share {share:.3f}")
+    print(f"{label} concurrent replies differing from the utterance's alone (the text, or "
+          f"a shared hypothesis's score by more than {SERVE_SCORE_RTOL:.4g} relative): "
+          f"{len(diff)} of {n} (tol {SERVE_MAX_DIFF_TEXTS}) {diff}; of the {len(same)} with "
+          f"the same text, {sum(d == 0.0 for d in same)} bit-equal, the others' relative "
+          f"score distances {[f'{d:.3g}' for d in sorted(d for d in same if d)]}; "
+          f"sequential = transcribe_nbest alone at {len(probes)} probes; launches {launches}")
+    print(f"{label} concurrent replies against the utterance alone in the bucket its batch "
+          f"took ({sum(route_s[k] != route_c[k] for k in keys)} decoded again there): "
+          f"{n - len(moved)} of {n} bit-equal (texts and scores); utterances with equal n-best "
+          f"lists {twins}")
+    if len(diff) > SERVE_MAX_DIFF_TEXTS:
+        fail(label, f"{len(diff)} concurrent replies differ from the utterances' alone")
+    if moved or twins:
+        fail(label, f"replies {moved} are not their utterance's in the same bucket, or "
+                    f"utterances {twins} cannot be told apart by their replies")
+    for k in needed:
+        if launches[k] == 0:
+            fail(label, f"kernel {k} was not launched by the HTTP requests")
+    check_other_route(label, launches)
+    return launches
+
+
 def tree_map_like(tree, values):
     """``tree`` with its tensor leaves replaced, in ``tree_leaves`` order,
     by the next items of the iterator ``values``."""
@@ -4662,6 +5199,9 @@ def tree_map_like(tree, values):
 
 
 def main() -> int:
+    import os
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -4711,6 +5251,12 @@ def main() -> int:
     noisy_cfg = av_align_noisy()
     report, paths, greedy_runs = {}, {}, {}
     held, launched = set(), set()  # (kernel, shapes) of KERNEL_PHASES and COVERED_PHASES
+    # phases 46-47's runs, kept for phase 49's exports, and its artifacts
+    work, keep = tempfile.TemporaryDirectory(prefix="chip_smoke_"), {}
+
+    def subdir(name):
+        os.makedirs(os.path.join(work.name, name))
+        return os.path.join(work.name, name)
 
     def greedy(c, label, needed):
         paths[label], greedy_runs[label] = phase_greedy(dev, card, c, label, needed)
@@ -4781,9 +5327,13 @@ def main() -> int:
                    (44, lambda: paths.update(train_bimodal=phase_train(
                        dev, card, bimodal_cfg, "train_bimodal", TRAIN_BIMODAL_KERNELS))),
                    (45, lambda: paths.update(eval_noisy=phase_eval_noisy(dev, card, noisy_cfg))),
-                   (46, lambda: paths.update(trainer_align=phase_trainer_align(dev, card,
-                                                                               align_cfg))),
-                   (47, lambda: paths.update(cli_fast=phase_cli_fast(dev, card)))):
+                   (46, lambda: paths.update(trainer_align=phase_trainer_align(
+                       dev, card, align_cfg, work=subdir("align"), keep=keep))),
+                   (47, lambda: paths.update(cli_fast=phase_cli_fast(
+                       dev, card, work=subdir("fast"), keep=keep))),
+                   (49, lambda: paths.update(phase_export(dev, card, keep, work.name))),
+                   (50, lambda: paths.update(serve_http=phase_serve_http(
+                       dev, card, keep["artifacts"]["artifact_fast"])))):
         t0 = time.perf_counter()
         with (record_shapes(held) if n in KERNEL_PHASES
               else record_shapes(launched) if n in COVERED_PHASES else contextlib.nullcontext()):
@@ -4795,8 +5345,14 @@ def main() -> int:
             print(f"phases 38-45 (the unimodal and bimodal regimes, the noisy eval) "
                   f"{time.perf_counter() - t_new:.1f} s")
             t_new = time.perf_counter()
-    print(f"phases 46-47 (the training loop, checkpoints, API and CLI) "
+        if n == 47:
+            print(f"phases 46-47 (the training loop, checkpoints, API and CLI) "
+                  f"{time.perf_counter() - t_new:.1f} s")
+            t_new = time.perf_counter()
+    print(f"phases 49-50 (the serving artifacts, their CLI and the HTTP host) "
           f"{time.perf_counter() - t_new:.1f} s")
+    keep.clear()
+    work.cleanup()
     phase_shapes_covered(held, launched)  # 48
     print(f"total {time.perf_counter() - t_start:.1f} s")
 

@@ -5,11 +5,17 @@ recordings, and a real-media manifest through ``data/ingest.py``) writes
 byte-equal files; ``build-units`` and ``analyze`` print the same reports.
 Then a ``train`` -> ``train --resume`` -> ``evaluate --greedy`` ->
 ``average-checkpoints`` -> ``decode`` round trip on a tiny config with
-``--device cpu``."""
+``--device cpu``, and a ``train`` -> ``export`` -> ``transcribe`` round
+trip (a greedy artifact, a bucketed n-best one from the best checkpoint;
+``.wav`` and ``.npy`` inputs).  The port's parser has every subcommand and
+flag of the JAX parser, and ``--device`` where a command builds a model or
+loads an artifact."""
 
+import argparse
 import json
 import os
 import wave
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -221,3 +227,96 @@ def test_train_resume_evaluate_average_decode_round_trip(tmp_path, capsys):
     assert np.isfinite(best["loss"])
     assert os.path.exists(tmp_path / "train.log")
     assert os.path.exists(tmp_path / "run" / "predictions_final.txt")
+
+
+def test_train_export_transcribe_round_trip(tmp_path, capsys):
+    """The CLI's serving path: write-records -> train -> export -> a
+    ``Predictor`` and ``transcribe`` from the artifact alone."""
+    from avsr_tpu_torch.serve import BucketedPredictor, Predictor, load_predictor
+
+    records = str(tmp_path / "train.tfrecord")
+    _out(capsys, tcli.main, ["write-records", "--synthetic", "6", "--out", records,
+                             "--max-chars", "3", "--char-duration", "0.1"])
+    cfg = tiny_cfg(tconfigs, num_epochs=1, save_every_steps=0).override(
+        {"data.audio_train_records": records, "data.audio_eval_records": records})
+    cfg_path = str(tmp_path / "cfg.json")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    run = ["--config", cfg_path, "--run-dir", str(tmp_path / "run"), "--device", "cpu"]
+    _out(capsys, tcli.main, ["train", *run, "--epochs", "1"])
+
+    art = str(tmp_path / "artifact")
+    out = json.loads(_out(capsys, tcli.main, ["export", *run, "--out", art, "--greedy",
+                                              "--batch-size", "2", "--seconds", "0.5"]))
+    assert out == {"artifact": art}
+    utts = tfrecord.read_dataset(records)
+    pred = Predictor.load(art, device="cpu")
+    hyps = pred.transcribe(audio=[utts[0].waveform, utts[1].waveform])
+    assert len(hyps) == 2 and all(isinstance(h, str) for h in hyps)
+    assert pred.meta["checkpoint_step"] > 0 and not pred.use_beam
+    with pytest.raises(ValueError, match="tpu"):
+        tcli.main(["export", *run, "--out", str(tmp_path / "x"), "--platforms", "cpu,tpu"])
+
+    # 3 inputs > batch size 2: the chunking loop; the wav goes through int16
+    # PCM, the .npy files are the raw waveforms
+    wav_path = str(tmp_path / "u0.wav")
+    _write_wav(wav_path, np.clip(utts[0].waveform, -1, 1))
+    npys = []
+    for i in (1, 2):
+        npys.append(str(tmp_path / f"u{i}.npy"))
+        np.save(npys[-1], utts[i].waveform)
+    out_path = str(tmp_path / "hyps.jsonl")
+    stdout = _out(capsys, tcli.main, ["transcribe", "--artifact", art, wav_path, *npys,
+                                      "--out", out_path, "--device", "cpu"])
+    with open(out_path) as f:
+        lines = [json.loads(line) for line in f]
+    assert [line["file"] for line in lines] == [wav_path, *npys]
+    assert lines[1]["text"] == hyps[1]  # the same bytes as the request above
+    assert [json.loads(line) for line in stdout.strip().splitlines()] == lines
+    with pytest.raises(SystemExit, match="n_best=1"):
+        tcli.main(["transcribe", "--artifact", art, npys[0], "--n-best", "2", "--device", "cpu"])
+
+    buckets = str(tmp_path / "buckets")
+    _out(capsys, tcli.main, ["export", *run, "--out", buckets, "--checkpoint", "best",
+                             "--batch-size", "2", "--seconds", "0.4,1.0", "--n-best", "2",
+                             "--transfer", "float32"])
+    bp = load_predictor(buckets, device="cpu")
+    assert isinstance(bp, BucketedPredictor) and bp.n_best == 2
+    assert [p.meta["transfer"] for p in bp.buckets] == ["float32", "float32"]
+    lines = [json.loads(line) for line in _out(capsys, tcli.main, [
+        "transcribe", "--artifact", buckets, *npys, "--n-best", "2", "--device",
+        "cpu"]).strip().splitlines()]
+    want = bp.transcribe_nbest(audio=[np.load(p) for p in npys])
+    assert [(line["text"], [(a["text"], a["score"]) for a in line["alternatives"]])
+            for line in lines] == [(w[0][0], w) for w in want]
+
+
+class _Parsed(Exception):
+    pass
+
+
+def _subcommands(main):
+    """{subcommand: its option strings (positionals by dest)} of ``main``'s
+    parser, caught at its ``parse_args``."""
+    seen = {}
+
+    def parse_args(self, args=None, namespace=None):
+        seen["parser"] = self
+        raise _Parsed
+
+    with mock.patch.object(argparse.ArgumentParser, "parse_args", parse_args):
+        with pytest.raises(_Parsed):
+            main(["show-config"])
+    sub = next(a for a in seen["parser"]._actions if isinstance(a, argparse._SubParsersAction))
+    return {name: {o for a in p._actions for o in (a.option_strings or [a.dest])}
+            for name, p in sub.choices.items()}
+
+
+def test_parser_has_every_reference_command_and_flag():
+    ref, port = _subcommands(jcli.main), _subcommands(tcli.main)
+    assert list(port) == list(ref)
+    with_device = {"train", "evaluate", "decode", "average-checkpoints", "export", "serve",
+                   "transcribe"}
+    for name, flags in ref.items():
+        assert port[name] - flags == ({"--device"} if name in with_device else set()), name
+        assert flags <= port[name], name

@@ -7,10 +7,12 @@
   ``PRESETS`` as ``dataclasses.asdict``, the (de)serialization helpers, and
   every builtin unit inventory with its id conventions.
 * ``convert.from_jax``, ``seq2seq.model_init``, ``data.loader.to_model_batch``,
-  ``serve.Predictor``, ``AVSR``, ``train.loop.Trainer`` and the CLI's
-  ``--device`` default to the card (a CPU-only torch refuses them without
-  ``device="cpu"``: none runs on the CPU unasked); the internal ``*_init``
-  helpers take the device from their caller.
+  ``serve.Predictor``, ``Predictor.load``, ``serve.load_predictor``,
+  ``serve_host.make_server``, ``AVSR``, ``train.loop.Trainer`` and the CLI's
+  ``--device`` (``export``, ``serve`` and ``transcribe`` too) default to the
+  card (a CPU-only torch refuses them without ``device="cpu"``: none runs on
+  the CPU unasked); the internal ``*_init`` helpers take the device from
+  their caller.
 * Every CUDA source has a plain C interface (no PyTorch headers) and names
   the JAX function it replaces; every kernel counted in ``LAUNCHES`` has
   its entry, with its source, in ``chip_smoke.py``'s kernels line.
@@ -37,6 +39,7 @@ from avsr_tpu_torch.models import (decoder, encoder, fusion, seq2seq, transforme
 from avsr_tpu_torch.ops import attention, rnn
 from avsr_tpu_torch.serve import Predictor
 from avsr_tpu_torch.utils import params as uparams
+from test_torch_trainer import tiny_cfg
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -96,7 +99,11 @@ def test_entry_points_default_to_the_card(tmp_path):
     from avsr_tpu_torch.data.synthetic import SyntheticSpec, generate
     from avsr_tpu_torch.train.loop import Trainer
 
-    for fn in (convert.from_jax, seq2seq.model_init, loader.to_model_batch, AVSR, Trainer):
+    from avsr_tpu_torch import serve, serve_host
+
+    for fn in (convert.from_jax, convert.from_jax_leaves, seq2seq.model_init,
+               loader.to_model_batch, AVSR, Trainer, Predictor.load, serve.load_predictor,
+               serve_host.make_server):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     records = str(tmp_path / "train.tfrecord")
     assert cli.main(["write-records", "--synthetic", "2", "--out", records]) == 0
@@ -106,6 +113,23 @@ def test_entry_points_default_to_the_card(tmp_path):
         with pytest.raises(AttributeError):
             cli.main(["train", "--preset", "lrs2_av_fast"])
     assert seen["device"] == "cuda"
+    with mock.patch.object(cli, "_build_avsr", lambda args: seen.__setitem__("export",
+                                                                             args.device)):
+        with pytest.raises(AttributeError):
+            cli.main(["export", "--preset", "lrs2_av_fast", "--out", str(tmp_path / "x")])
+
+    def loaded(what):
+        def load(*args, **kwargs):
+            seen[what] = kwargs["device"]
+            raise RuntimeError("loaded")
+        return load
+
+    with mock.patch.object(serve_host, "make_server", loaded("serve")), \
+            mock.patch.object(serve, "load_predictor", loaded("transcribe")):
+        for argv in (["serve", "--artifact", "x"], ["transcribe", "--artifact", "x", "a.wav"]):
+            with pytest.raises(RuntimeError, match="loaded"):
+                cli.main(argv)
+    assert (seen["export"], seen["serve"], seen["transcribe"]) == ("cuda",) * 3
     if torch.cuda.is_available():
         pytest.skip("a CUDA build of torch would place the tensors on the card")
     cfg = tconfigs.lrs2_av_fast()
@@ -130,6 +154,15 @@ def test_entry_points_default_to_the_card(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main([cmd, "--preset", "audio_tcdtimit", *argv])
     assert not (tmp_path / "a").exists() and not (tmp_path / "t").exists()
+    art = str(tmp_path / "artifact")
+    cfg = tiny_cfg(tconfigs, "audio")
+    params = seq2seq.model_init(cfg, units.vocab_size, torch.Generator().manual_seed(0), "cpu")
+    serve.save_artifact(art, *serve.export_decode(params, cfg, batch_size=2, audio_seconds=0.2),
+                        units)
+    for load in (Predictor.load, serve.load_predictor):
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            load(art)
+        assert load(art, device="cpu").transcribe(audio=[np.zeros(1600, np.float32)])
     p = convert.from_jax({"w": np.zeros(2, np.float32)}, device="cpu")
     assert p["w"].device.type == "cpu"
     assert loader.to_model_batch(nb, device="cpu").audio.device.type == "cpu"

@@ -158,7 +158,8 @@ def test_port_never_imports_jax():
     assert out.returncode == 0, out.stderr
     seen = set(out.stdout.split())
     assert len(seen) >= 28  # configs, data/units, decode/greedy
-    # the data path, the scoring and the native host code are walked too
+    # the data path, the scoring, the native host code and the serving
+    # host are walked too
     assert {f"avsr_tpu_torch.{m}" for m in (
         "data.synthetic", "data.proto", "data.tfrecord", "data.grain_loader", "data.loader",
-        "eval.metrics", "eval.analysis", "native")} <= seen
+        "eval.metrics", "eval.analysis", "native", "serve", "serve_host", "cli")} <= seen
