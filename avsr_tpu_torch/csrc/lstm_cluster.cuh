@@ -80,6 +80,18 @@
 // bits.  Rows past B (the last tile) run on zeros and write nothing; masked
 // steps carry the state through exactly, as the reference's m * new +
 // (1 - m) * old does.
+//
+// Recurrent dropout (lstm_scan.cu's header): each thread holds the rd mask
+// of its four cells for the whole scan.  The forward scales its h by it
+// before rounding what it sends (bf16(h * rd): every CTA's units are
+// rounded after the product, before the exchange) and what it saves as
+// h_res; bf16(h0 * rd) is staged the same way.  The forward is an instance
+// of its own (RD), since a runtime factor of 1.0 on the exchange's chain
+// cost the unmasked G = 2 forward 10-17 % (PERF.md §6); the unmasked
+// instance keeps the unmasked kernel's statements, and its rd parameter
+// comes last so that the others keep their offsets.  The backward
+// scales the summed partials, the cotangent of that operand, before adding
+// dh_direct; without a mask its factor is 1.0, the same bits as before.
 
 #pragma once
 
@@ -207,7 +219,7 @@ __device__ __forceinline__ void gate_product(const bf16* ht, const bf16* ws, int
 
 // ---- forward ----------------------------------------------------------------
 
-template <int H>
+template <int H, bool RD>
 __global__ void __launch_bounds__(Shape<H>::THREADS, 1)
 lstm_cluster_fwd(const bf16* __restrict__ wcl,    // [G, C, NCOL, H]
                  const float* __restrict__ bias,  // [G, 4H]
@@ -218,7 +230,8 @@ lstm_cluster_fwd(const bf16* __restrict__ wcl,    // [G, C, NCOL, H]
                  bf16* __restrict__ ys,           // [T, G, B, H]
                  bf16* __restrict__ h_res,        // [T, G, B, H] or null
                  bf16* __restrict__ c_res,        // [T, G, B, H] or null
-                 int T, int G, int B) {
+                 int T, int G, int B,
+                 const float* __restrict__ rd) {  // [G, B, H] (RD) or null
   using S = Shape<H>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ws = reinterpret_cast<bf16*>(smem);
@@ -239,21 +252,31 @@ lstm_cluster_fwd(const bf16* __restrict__ wcl,    // [G, C, NCOL, H]
 
   stage_slice<H>(ws, wcl + ((size_t)g * C + rank) * S::NCOL * H, tid);
 
-  // bf16(h0) of the tile's rows, all H units, into slot 0
+  // bf16(h0 * rd) of the tile's rows, all H units, into slot 0
   const float* h0 = hbuf + (size_t)g * B * H;
   for (int i = tid; i < BR * H / 2; i += S::THREADS) {
     const int r = i / (H / 2), k = 2 * (i - r * (H / 2));
     float2 v = make_float2(0.f, 0.f);
-    if (row0 + r < B) v = *reinterpret_cast<const float2*>(h0 + (size_t)(row0 + r) * H + k);
+    if constexpr (RD) {
+      if (row0 + r < B) {
+        const size_t o = (size_t)(row0 + r) * H + k;
+        const float2 q = *reinterpret_cast<const float2*>(rd + (size_t)g * B * H + o);
+        v = *reinterpret_cast<const float2*>(h0 + o);
+        v = make_float2(v.x * q.x, v.y * q.y);
+      }
+    } else {
+      if (row0 + r < B) v = *reinterpret_cast<const float2*>(h0 + (size_t)(row0 + r) * H + k);
+    }
     *reinterpret_cast<uint32_t*>(hs + swz<H>(r, k >> 3) + (k & 7)) = pack_bf16(v.x, v.y);
   }
-  // the thread's cells: fp32 h and c, and its bias
-  float h[4], cs[4], bq[4][2];
+  // the thread's cells: fp32 h and c, the recurrent-dropout factors, its bias
+  float h[4], cs[4], rdv[4], bq[4][2];
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const size_t o = ((size_t)g * B + (live[e >> 1] ? rows[e >> 1] : 0)) * H + unit + (e & 1);
     h[e] = live[e >> 1] ? hbuf[o] : 0.f;  // slot 0
     cs[e] = live[e >> 1] ? c[o] : 0.f;
+    if constexpr (RD) rdv[e] = live[e >> 1] ? rd[o] : 1.f;
   }
 #pragma unroll
   for (int q = 0; q < 4; ++q)
@@ -316,9 +339,18 @@ lstm_cluster_fwd(const bf16* __restrict__ wcl,    // [G, C, NCOL, H]
         h[e] = m * h_new + (1.0f - m) * h[e];
         cs[e] = m * c_new + (1.0f - m) * cs[e];
       }
-      hpk[r] = pack_bf16(h[2 * r], h[2 * r + 1]);
-      ypk[r] = pack_bf16(y[0], y[1]);
-      hrpk[r] = pack_bf16(hin[0], hin[1]);  // the carries entering step t:
+      // the next product's operand, bf16(h * rd), and the backward's
+      // residuals: step t's operand and the carry entering it (the
+      // unmasked instance keeps the unmasked kernel's statements)
+      if constexpr (RD) {
+        hpk[r] = pack_bf16(h[2 * r] * rdv[2 * r], h[2 * r + 1] * rdv[2 * r + 1]);
+        ypk[r] = pack_bf16(y[0], y[1]);
+        hrpk[r] = pack_bf16(hin[0] * rdv[2 * r], hin[1] * rdv[2 * r + 1]);
+      } else {
+        hpk[r] = pack_bf16(h[2 * r], h[2 * r + 1]);
+        ypk[r] = pack_bf16(y[0], y[1]);
+        hrpk[r] = pack_bf16(hin[0], hin[1]);  // the carries entering step t:
+      }
       crpk[r] = pack_bf16(cin[0], cin[1]);  // the backward's residuals
     }
 
@@ -383,6 +415,7 @@ lstm_cluster_bwd(const bf16* __restrict__ wcl,     // [G, C, NCOL, H]
                  float* __restrict__ db_part,      // [G, ceil(B / BR), 4H]
                  bf16* __restrict__ dxw,           // [T, G, B, 4H]
                  float* __restrict__ dh0,          // [G, B, H]
+                 const float* __restrict__ rd,     // [G, B, H] or null
                  int T, int G, int B) {
   using S = Shape<H>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -407,12 +440,13 @@ lstm_cluster_bwd(const bf16* __restrict__ wcl,     // [G, C, NCOL, H]
   stage_slice<H>(ws, wcl + ((size_t)g * C + rank) * S::NCOL * H, tid);
   stage_rows<H>(hr, h_res + ((size_t)(T - 1) * G + g) * B * H, row0, B, tid);
 
-  float dhd[4], dcs[4], bq[4][2], dbacc[4][4];
+  float dhd[4], dcs[4], rdv[4], bq[4][2], dbacc[4][4];
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const size_t o = ((size_t)g * B + (live[e >> 1] ? rows[e >> 1] : 0)) * H + unit + (e & 1);
     dhd[e] = live[e >> 1] ? dhT[o] : 0.f;
     dcs[e] = live[e >> 1] ? dc[o] : 0.f;
+    rdv[e] = live[e >> 1] && rd != nullptr ? rd[o] : 1.f;
 #pragma unroll
     for (int q = 0; q < 4; ++q) dbacc[q][e] = 0.f;
   }
@@ -485,7 +519,7 @@ lstm_cluster_bwd(const bf16* __restrict__ wcl,     // [G, C, NCOL, H]
       wait_partials(t + 1);
       sum_partials(t + 1, dh_out);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dh_out[e] += dhd[e];
+      for (int e = 0; e < 4; ++e) dh_out[e] = dh_out[e] * rdv[e] + dhd[e];
     } else {
 #pragma unroll
       for (int e = 0; e < 4; ++e) dh_out[e] = dhd[e];
@@ -601,7 +635,7 @@ lstm_cluster_bwd(const bf16* __restrict__ wcl,     // [G, C, NCOL, H]
   for (int e = 0; e < 4; ++e) {
     if (!live[e >> 1]) continue;
     const size_t o = ((size_t)g * B + rows[e >> 1]) * H + unit + (e & 1);
-    dh0[o] = part[e] + dhd[e];
+    dh0[o] = part[e] * rdv[e] + dhd[e];
     dc[o] = dcs[e];
   }
   // db over the tile's rows: the thread's two, then the quad's 8 row groups
@@ -659,21 +693,23 @@ cudaError_t launch_cluster(Kernel kern, size_t smem, int threads, int n_tiles, i
 
 template <int H>
 cudaError_t fwd(const void* wcl, const void* bias, const void* xw, const void* mask, void* hbuf,
-                void* c, void* ys, void* h_res, void* c_res, int T, int G, int B,
+                void* c, void* ys, void* h_res, void* c_res, const void* rd, int T, int G, int B,
                 cudaStream_t st) {
   using S = Shape<H>;
-  return launch_cluster(lstm_cluster_fwd<H>, S::FWD_SMEM, S::THREADS, (B + BR - 1) / BR, G, st,
+  return launch_cluster(rd != nullptr ? lstm_cluster_fwd<H, true> : lstm_cluster_fwd<H, false>,
+                        S::FWD_SMEM, S::THREADS, (B + BR - 1) / BR, G, st,
                         static_cast<const bf16*>(wcl), static_cast<const float*>(bias),
                         static_cast<const bf16*>(xw), static_cast<const float*>(mask),
                         static_cast<float*>(hbuf), static_cast<float*>(c), static_cast<bf16*>(ys),
-                        static_cast<bf16*>(h_res), static_cast<bf16*>(c_res), T, G, B);
+                        static_cast<bf16*>(h_res), static_cast<bf16*>(c_res), T, G, B,
+                        static_cast<const float*>(rd));
 }
 
 template <int H>
 cudaError_t bwd(const void* wcl, const void* bias, const void* xw, const void* mask,
                 const void* h_res, const void* c_res, const void* dys, const void* dhT, void* dc,
-                void* db_part, void* dxw, void* dh0, void* db, int T, int G, int B,
-                cudaStream_t st) {
+                void* db_part, void* dxw, void* dh0, void* db, const void* rd, int T, int G,
+                int B, cudaStream_t st) {
   using S = Shape<H>;
   const int n_tiles = (B + BR - 1) / BR;
   cudaError_t e = launch_cluster(
@@ -682,7 +718,8 @@ cudaError_t bwd(const void* wcl, const void* bias, const void* xw, const void* m
       static_cast<const bf16*>(xw), static_cast<const float*>(mask),
       static_cast<const bf16*>(h_res), static_cast<const bf16*>(c_res),
       static_cast<const bf16*>(dys), static_cast<const float*>(dhT), static_cast<float*>(dc),
-      static_cast<float*>(db_part), static_cast<bf16*>(dxw), static_cast<float*>(dh0), T, G, B);
+      static_cast<float*>(db_part), static_cast<bf16*>(dxw), static_cast<float*>(dh0),
+      static_cast<const float*>(rd), T, G, B);
   if (e != cudaSuccess) return e;
   lstm_db_reduce<<<dim3((4 * H + 255) / 256, G), 256, 0, st>>>(
       static_cast<const float*>(db_part), static_cast<float*>(db), n_tiles, 4 * H);
@@ -712,10 +749,10 @@ int max_active(bool backward) {
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveClusters(&n, (void*)lstm_cluster_bwd<H>, &cfg);
   } else {
-    e = cudaFuncSetAttribute(lstm_cluster_fwd<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)S::FWD_SMEM);
+    e = cudaFuncSetAttribute(lstm_cluster_fwd<H, false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::FWD_SMEM);
     if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveClusters(&n, (void*)lstm_cluster_fwd<H>, &cfg);
+      e = cudaOccupancyMaxActiveClusters(&n, (void*)lstm_cluster_fwd<H, false>, &cfg);
   }
   return e == cudaSuccess ? n : 0;
 }

@@ -14,6 +14,17 @@
 // The backward direction's stream arrives pre-flipped in time, so one
 // forward scan serves both directions (G = 2 for a BiLSTM layer).
 //
+// Variational recurrent dropout (train mode only; the reference's plain
+// scan with recurrent_dropout_masks, avsr_tpu/ops/rnn.py:535-547 one
+// direction, :654-668 fused): an optional rd [G, B, H] fp32 mask (0 or
+// 1/keep, constant over time, not flipped with the stream) scales the
+// recurrent product's operand, which becomes bf16(h * rd), NOT bf16(h) * rd
+// (1/keep is not a power of two); the fp32 carry h stays unmasked, and the
+// saved residual h_res is that operand, bf16(h * rd).  The backward
+// multiplies the cotangent of the operand (dgates @ Wh^T) by rd before it
+// adds the carried dh.  With no mask (serving, or rate 0) the factor is 1.0
+// and every value keeps its bits.
+//
 // Two routes, chosen by shape (kernels.lstm_family, the `cluster` argument
 // of the entry points below).  Where H is a multiple of 64 from 128 to 384
 // (every preset: H = 256), each entry point issues ONE persistent launch of
@@ -74,6 +85,7 @@ lstm_step_kernel(const __nv_bfloat16* __restrict__ wh_tiled,  // [G, H/UT, H, UT
                  __nv_bfloat16* __restrict__ ys_t,            // [G, B, H]
                  __nv_bfloat16* __restrict__ h_res_t,         // [G, B, H] or null
                  __nv_bfloat16* __restrict__ c_res_t,         // [G, B, H] or null
+                 const float* __restrict__ rd,                // [G, B, H] or null
                  int B, int H) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [H][UT][4]
@@ -104,9 +116,9 @@ lstm_step_kernel(const __nv_bfloat16* __restrict__ wh_tiled,  // [G, H/UT, H, UT
     c_prev = c[s];
     h_prev = h_in[s];
     m = mask_t[gb];
-    if (h_res_t != nullptr) {  // residuals for the backward: the carries entering step t
-      h_res_t[s] = __float2bfloat16(h_prev);
-      c_res_t[s] = __float2bfloat16(c_prev);
+    if (h_res_t != nullptr) {  // residuals for the backward: the product's operand
+      h_res_t[s] = __float2bfloat16(rd != nullptr ? h_prev * rd[s] : h_prev);
+      c_res_t[s] = __float2bfloat16(c_prev);  // and the carry entering step t
     }
   }
   const float bi = bb[unit], bf = bb[H + unit], bg = bb[2 * H + unit], bo = bb[3 * H + unit];
@@ -131,8 +143,9 @@ lstm_step_kernel(const __nv_bfloat16* __restrict__ wh_tiled,  // [G, H/UT, H, UT
       }
     }
   }
-  // The previous h of this block's rows, rounded to bf16 (the reference
-  // casts h to the compute dtype before the recurrent product).
+  // The previous h of this block's rows, times the recurrent-dropout mask
+  // where there is one, rounded to bf16 (the reference casts h, or h * rd,
+  // to the compute dtype before the recurrent product).
   {
     const int per_row = H / 4;
     const int n = BT * per_row;
@@ -145,9 +158,14 @@ lstm_step_kernel(const __nv_bfloat16* __restrict__ wh_tiled,  // [G, H/UT, H, UT
         const int rr = ci / per_row;
         const int rrow = row0 + rr;
         v[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (ci < n && rrow < B)
-          v[j] = reinterpret_cast<const float4*>(h_in + ((size_t)g * B + rrow) * H)
-              [ci - rr * per_row];
+        if (ci < n && rrow < B) {
+          const size_t ro = ((size_t)g * B + rrow) * H;
+          v[j] = reinterpret_cast<const float4*>(h_in + ro)[ci - rr * per_row];
+          if (rd != nullptr) {
+            const float4 q = reinterpret_cast<const float4*>(rd + ro)[ci - rr * per_row];
+            v[j] = make_float4(v[j].x * q.x, v[j].y * q.y, v[j].z * q.z, v[j].w * q.w);
+          }
+        }
       }
 #pragma unroll
       for (int j = 0; j < VEC; ++j) {
@@ -281,6 +299,7 @@ lstm_bwd_step_kernel(const __nv_bfloat16* __restrict__ wh_tiled,   // [G, H/UT, 
                      float* __restrict__ dc,                       // [G, B, H] in/out
                      float* __restrict__ db_part,                  // [G, B/BT, 4H]
                      __nv_bfloat16* __restrict__ dxw_t,            // [G, B, 4H]
+                     const float* __restrict__ rd,                 // [G, B, H] or null
                      int B, int H) {
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t tile_elems = (size_t)H * UT * 4;
@@ -308,8 +327,9 @@ lstm_bwd_step_kernel(const __nv_bfloat16* __restrict__ wh_tiled,   // [G, H/UT, 
   const __nv_bfloat16* x = xw_t + gb * H4;
   const float* bb = bias + (size_t)g * H4;
   float xi = 0.f, xf = 0.f, xg = 0.f, xo = 0.f, c_prev = 0.f, m = 0.f, dy = 0.f;
-  float dhd = 0.f, dco = 0.f;
+  float dhd = 0.f, dco = 0.f, rdv = 1.f;
   if (live) {
+    if (rd != nullptr) rdv = rd[s];
     xi = __bfloat162float(x[unit]);
     xf = __bfloat162float(x[H + unit]);
     xg = __bfloat162float(x[2 * H + unit]);
@@ -340,8 +360,10 @@ lstm_bwd_step_kernel(const __nv_bfloat16* __restrict__ wh_tiled,   // [G, H/UT, 
   }
   __syncthreads();
 
-  // dh_out = dgates[t+1] @ Wh^T + dh_direct (rnn.py:427-431); at t = T-1 it is dhT.
-  const float dh_out = (dg_next != nullptr ? dh_product(dg_s, wT_s, r, u, H) : 0.f) + dhd;
+  // dh_out = (dgates[t+1] @ Wh^T) * rd + dh_direct (rnn.py:427-431; the
+  // product is the cotangent of the operand h * rd); at t = T-1 it is dhT.
+  const float dh_out =
+      (dg_next != nullptr ? dh_product(dg_s, wT_s, r, u, H) * rdv : 0.f) + dhd;
 
   // Gate recompute from the bf16 residual h (rnn.py:393-398).
   float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
@@ -409,8 +431,8 @@ lstm_bwd_step_kernel(const __nv_bfloat16* __restrict__ wh_tiled,   // [G, H/UT, 
   }
 }
 
-// After the reverse loop: dh0 = dgates[0] @ Wh^T + dh_direct[0], and (row
-// tile 0's blocks) db = sum of the row-tile partials, in row-tile order.
+// After the reverse loop: dh0 = (dgates[0] @ Wh^T) * rd + dh_direct[0], and
+// (row tile 0's blocks) db = sum of the row-tile partials, in row-tile order.
 __global__ void __launch_bounds__(THREADS)
 lstm_bwd_final_kernel(const __nv_bfloat16* __restrict__ whT_tiled,  // [G, H/UT, H, UT, 4]
                       const __nv_bfloat16* __restrict__ dg0,        // [G, B, 4H]
@@ -418,6 +440,7 @@ lstm_bwd_final_kernel(const __nv_bfloat16* __restrict__ whT_tiled,  // [G, H/UT,
                       const float* __restrict__ db_part,            // [G, B/BT, 4H]
                       float* __restrict__ dh0,                      // [G, B, H]
                       float* __restrict__ db,                       // [G, 4H]
+                      const float* __restrict__ rd,                 // [G, B, H] or null
                       int B, int H) {
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t tile_elems = (size_t)H * UT * 4;
@@ -445,7 +468,7 @@ lstm_bwd_final_kernel(const __nv_bfloat16* __restrict__ whT_tiled,  // [G, H/UT,
   const float acc = dh_product(dg_s, wT_s, r, u, H);
   if (row < B) {
     const size_t s = ((size_t)g * B + row) * H + unit;
-    dh0[s] = acc + dh_dir[s];
+    dh0[s] = (rd != nullptr ? acc * rd[s] : acc) + dh_dir[s];
   }
   if (blockIdx.y == 0 && tid < 4 * UT) {
     const int q = tid / UT, uu = tid - q * UT;
@@ -497,10 +520,11 @@ extern "C" int avsr_lstm_cluster_max_active(int H, int backward) {
 // hbuf: [2][G, B, H] fp32 with h0 in slot 0; after T steps h_T is in slot
 // T % 2.  c: [G, B, H] fp32 holding c0 on entry and c_T on return.
 // h_res, c_res: [T, G, B, H] bf16 residuals, or both null (no save).
+// rd: [G, B, H] fp32 recurrent-dropout mask, or null.
 extern "C" int avsr_lstm_scan_fwd(const void* wh_tiled, const void* bias,
                                   const void* xw, const void* mask, void* hbuf,
-                                  void* c, void* ys, void* h_res, void* c_res, int T,
-                                  int G, int B, int H, int cluster, void* stream) {
+                                  void* c, void* ys, void* h_res, void* c_res, const void* rd,
+                                  int T, int G, int B, int H, int cluster, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (cluster) {
     if (B < 1 || G < 1 || (h_res == nullptr) != (c_res == nullptr))
@@ -508,7 +532,8 @@ extern "C" int avsr_lstm_scan_fwd(const void* wh_tiled, const void* bias,
     switch (H) {
 #define AVSR_CASE(W) \
   case W:            \
-    return (int)lstm_cl::fwd<W>(wh_tiled, bias, xw, mask, hbuf, c, ys, h_res, c_res, T, G, B, st);
+    return (int)lstm_cl::fwd<W>(wh_tiled, bias, xw, mask, hbuf, c, ys, h_res, c_res, rd, T, G, \
+                                B, st);
       AVSR_LSTM_CLUSTER_WIDTHS(AVSR_CASE)
 #undef AVSR_CASE
       default:
@@ -539,7 +564,7 @@ extern "C" int avsr_lstm_scan_fwd(const void* wh_tiled, const void* bias,
         h_p + (size_t)(t & 1) * gbh, h_p + (size_t)((t + 1) & 1) * gbh,
         static_cast<float*>(c), ys_p + (size_t)t * gbh,
         save ? hr_p + (size_t)t * gbh : nullptr, save ? cr_p + (size_t)t * gbh : nullptr,
-        B, H);
+        static_cast<const float*>(rd), B, H);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -550,14 +575,15 @@ extern "C" int avsr_lstm_scan_fwd(const void* wh_tiled, const void* bias,
 // j] = Wh[g, t*UT + u, 4*kq + j]; dh_dir / dc: [G, B, H] fp32 holding dhT /
 // dcT on entry; db_part: [G, ceil(B/BT), 4H] fp32, zeroed.  cluster = 1:
 // wh_tiled in the cluster layout, whT_tiled unused, dh_dir read only (dhT),
-// db_part [G, ceil(B/16), 4H] scratch.  dc holds dc0 on return.  Outputs:
-// dxw [T, G, B, 4H] bf16, dh0 [G, B, H], db [G, 4H] fp32.
+// db_part [G, ceil(B/16), 4H] scratch.  dc holds dc0 on return.  rd: the
+// forward's [G, B, H] fp32 mask, or null.  Outputs: dxw [T, G, B, 4H] bf16,
+// dh0 [G, B, H], db [G, 4H] fp32.
 extern "C" int avsr_lstm_scan_bwd(const void* wh_tiled, const void* whT_tiled,
                                   const void* bias, const void* xw, const void* mask,
                                   const void* h_res, const void* c_res, const void* dys,
                                   void* dh_dir, void* dc, void* db_part, void* dxw,
-                                  void* dh0, void* db, int T, int G, int B, int H,
-                                  int cluster, void* stream) {
+                                  void* dh0, void* db, const void* rd, int T, int G, int B,
+                                  int H, int cluster, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (cluster) {
     if (T < 1 || B < 1 || G < 1) return (int)cudaErrorInvalidValue;
@@ -565,7 +591,7 @@ extern "C" int avsr_lstm_scan_bwd(const void* wh_tiled, const void* whT_tiled,
 #define AVSR_CASE(W)                                                                   \
   case W:                                                                              \
     return (int)lstm_cl::bwd<W>(wh_tiled, bias, xw, mask, h_res, c_res, dys, dh_dir, dc, \
-                                db_part, dxw, dh0, db, T, G, B, st);
+                                db_part, dxw, dh0, db, rd, T, G, B, st);
       AVSR_LSTM_CLUSTER_WIDTHS(AVSR_CASE)
 #undef AVSR_CASE
       default:
@@ -602,14 +628,14 @@ extern "C" int avsr_lstm_scan_bwd(const void* wh_tiled, const void* whT_tiled,
         xw_p + (size_t)t * gb4h, mask_p + (size_t)t * G * B, hr_p + (size_t)t * gbh,
         cr_p + (size_t)t * gbh, dys_p + (size_t)t * gbh,
         t + 1 < T ? dxw_p + (size_t)(t + 1) * gb4h : nullptr, static_cast<float*>(dh_dir),
-        static_cast<float*>(dc), static_cast<float*>(db_part), dxw_p + (size_t)t * gb4h, B,
-        H);
+        static_cast<float*>(dc), static_cast<float*>(db_part), dxw_p + (size_t)t * gb4h,
+        static_cast<const float*>(rd), B, H);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   lstm_bwd_final_kernel<<<grid, block, smem_final, st>>>(
       static_cast<const __nv_bfloat16*>(whT_tiled), dxw_p, static_cast<const float*>(dh_dir),
-      static_cast<const float*>(db_part), static_cast<float*>(dh0), static_cast<float*>(db), B,
-      H);
+      static_cast<const float*>(db_part), static_cast<float*>(dh0), static_cast<float*>(db),
+      static_cast<const float*>(rd), B, H);
   return (int)cudaGetLastError();
 }

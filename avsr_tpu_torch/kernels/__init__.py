@@ -44,7 +44,9 @@ NVCC_FLAGS = (
 # Launch counts of each kernel wrapper: +1 per wrapper call that launched
 # its kernel (one call may issue several grid launches, e.g. one per step).
 # The LSTM kernels count a one-direction scan (G = 1, K2) apart from the
-# direction-fused one (K1); the Bahdanau read kernels count a Luong (dot
+# direction-fused one (K1), and a scan under a recurrent-dropout mask
+# (``*_rd_*``, train mode) apart from an unmasked one; the GRU scan (K12)
+# counts G = 1 apart (``gru_scan_uni_*``); the Bahdanau read kernels count a Luong (dot
 # score) read apart from an additive one.  K10's backward counts its
 # per-step kernel per step (``*_attend_bwd``) and the memory's sums per
 # loop (``*_attend_sums``).  K9's forward counts the pass over time
@@ -54,6 +56,9 @@ NVCC_FLAGS = (
 # kernel (``*_attend``) apart.
 LAUNCHES: Dict[str, int] = {
     "lstm_scan_fwd": 0, "lstm_scan_bwd": 0, "lstm_scan_uni_fwd": 0, "lstm_scan_uni_bwd": 0,
+    "lstm_scan_rd_fwd": 0, "lstm_scan_rd_bwd": 0, "lstm_scan_uni_rd_fwd": 0,
+    "lstm_scan_uni_rd_bwd": 0,
+    "gru_scan_fwd": 0, "gru_scan_bwd": 0, "gru_scan_uni_fwd": 0, "gru_scan_uni_bwd": 0,
     "logmel_post_dft": 0,
     "fusion_attention_fwd": 0, "fusion_attention_bwd": 0,
     "decoder_attention_fwd": 0, "decoder_attention_bwd": 0,
@@ -175,10 +180,16 @@ def _load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.avsr_lstm_scan_fwd.argtypes = [p] * 9 + [i] * 5 + [p]
+        lib.avsr_lstm_scan_fwd.argtypes = [p] * 10 + [i] * 5 + [p]
         lib.avsr_lstm_scan_fwd.restype = i
-        lib.avsr_lstm_scan_bwd.argtypes = [p] * 14 + [i] * 5 + [p]
+        lib.avsr_lstm_scan_bwd.argtypes = [p] * 15 + [i] * 5 + [p]
         lib.avsr_lstm_scan_bwd.restype = i
+        lib.avsr_gru_step_smem.argtypes = [i, i]
+        lib.avsr_gru_step_smem.restype = ctypes.c_longlong
+        lib.avsr_gru_scan_fwd.argtypes = [p] * 7 + [i] * 4 + [p]
+        lib.avsr_gru_scan_fwd.restype = i
+        lib.avsr_gru_scan_bwd.argtypes = [p] * 13 + [i] * 4 + [p]
+        lib.avsr_gru_scan_bwd.restype = i
         lib.avsr_lstm_cluster_smem.argtypes = [i, i]
         lib.avsr_lstm_cluster_smem.restype = ctypes.c_longlong
         lib.avsr_lstm_cluster_max_active.argtypes = [i, i]
@@ -396,20 +407,30 @@ def _check_lstm(xw, wh, b, mask, T, G, B, H, dev):
     return lstm_family(G, B, H)
 
 
-def _lstm_counter(name: str, G: int) -> str:
-    return name.replace("lstm_scan", "lstm_scan_uni") if G == 1 else name
+def _lstm_counter(name: str, G: int, rd=None) -> str:
+    """``lstm_scan_fwd`` -> ``lstm_scan[_uni][_rd]_fwd``: G = 1 (K2) and a
+    recurrent-dropout mask counted apart."""
+    stem, kind = name.rsplit("_", 1)
+    return stem + ("_uni" if G == 1 else "") + ("_rd" if rd is not None else "") + "_" + kind
 
 
-def lstm_scan_fwd(wh, b, xw, mask, h0, c0, *, save: bool = False):
+def _check_rd(rd, G, B, H, dev) -> None:
+    if rd is not None:
+        _check("rd", rd, torch.float32, (G, B, H), dev)
+
+
+def lstm_scan_fwd(wh, b, xw, mask, h0, c0, *, save: bool = False, rd=None):
     """K1: direction-batched masked LSTM recurrence, forward (CUDA); at
     G = 1, K2 (one direction), counted as ``lstm_scan_uni_fwd``.
 
     wh [G,H,4H] bf16, b [G,4H] f32, xw [T,G,B,4H] bf16, mask [T,G,B] f32,
     h0/c0 [G,B,H] f32 -> (ys [T,G,B,H] bf16, hT [G,B,H] f32, cT f32,
-    h_res, c_res), the last two the bf16 [T,G,B,H] carries entering each
-    step when ``save`` (the backward's residuals), else None.  Runs on the
-    family ``lstm_family`` names: one cluster launch, or one launch per
-    step.
+    h_res, c_res), the last two when ``save`` (the backward's residuals:
+    the bf16 [T,G,B,H] operand of each step's recurrent product and the
+    carry c entering it), else None.  ``rd`` [G,B,H] f32 is the recurrent
+    dropout mask (the operand becomes bf16(h * rd)); a masked call counts
+    as ``lstm_scan[_uni]_rd_fwd``.  Runs on the family ``lstm_family``
+    names: one cluster launch, or one launch per step.
     """
     T, G, B, H4 = xw.shape
     H = H4 // 4
@@ -417,6 +438,7 @@ def lstm_scan_fwd(wh, b, xw, mask, h0, c0, *, save: bool = False):
     family = _check_lstm(xw, wh, b, mask, T, G, B, H, dev)
     _check("h0", h0, torch.float32, (G, B, H), dev)
     _check("c0", c0, torch.float32, (G, B, H), dev)
+    _check_rd(rd, G, B, H, dev)
     lib = _load()
     cluster = family == "cluster"
     w = cluster_lstm_weights(wh) if cluster else tile_lstm_weights(wh)
@@ -431,24 +453,26 @@ def lstm_scan_fwd(wh, b, xw, mask, h0, c0, *, save: bool = False):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.avsr_lstm_scan_fwd(
         w.data_ptr(), b.data_ptr(), xw.data_ptr(), mask.data_ptr(),
-        hbuf.data_ptr(), c.data_ptr(), ys.data_ptr(), _ptr(h_res), _ptr(c_res),
+        hbuf.data_ptr(), c.data_ptr(), ys.data_ptr(), _ptr(h_res), _ptr(c_res), _ptr(rd),
         T, G, B, H, int(cluster), stream,
     )
     _raise_on(err, "lstm_scan_fwd launch")
-    LAUNCHES[_lstm_counter("lstm_scan_fwd", G)] += 1
+    LAUNCHES[_lstm_counter("lstm_scan_fwd", G, rd)] += 1
     return ys, hbuf[T % 2], c, h_res, c_res
 
 
-def lstm_scan_bwd(wh, b, xw, mask, h_res, c_res, dys, dhT, dcT):
+def lstm_scan_bwd(wh, b, xw, mask, h_res, c_res, dys, dhT, dcT, *, rd=None):
     """K1: the reverse scan of the hand-written VJP (CUDA); at G = 1, K2's,
     counted as ``lstm_scan_uni_bwd``.
 
     Same operands as the forward plus the bf16 residuals h_res/c_res
     [T,G,B,H] and the cotangents dys [T,G,B,H] bf16, dhT/dcT [G,B,H] f32
     -> (dxw [T,G,B,4H] bf16 (= dgates), db [G,4H] f32, dh0, dc0 [G,B,H]
-    f32).  dWh is one product over all steps, left to the caller.  The
-    cluster family is one cluster launch and a row-tile sum of db; the
-    per-step family one launch per step and a final one.
+    f32).  dWh is one product over all steps, left to the caller.  With
+    the forward's mask ``rd`` the cotangent of each product's operand is
+    scaled by it (counted as ``lstm_scan[_uni]_rd_bwd``).  The cluster
+    family is one cluster launch and a row-tile sum of db; the per-step
+    family one launch per step and a final one.
     """
     T, G, B, H4 = xw.shape
     H = H4 // 4
@@ -458,6 +482,7 @@ def lstm_scan_bwd(wh, b, xw, mask, h_res, c_res, dys, dhT, dcT):
         _check(name, x, torch.bfloat16, (T, G, B, H), dev)
     _check("dhT", dhT, torch.float32, (G, B, H), dev)
     _check("dcT", dcT, torch.float32, (G, B, H), dev)
+    _check_rd(rd, G, B, H, dev)
     if T < 1:
         raise ValueError("lstm_scan_bwd: needs at least one step")
     lib = _load()
@@ -478,11 +503,125 @@ def lstm_scan_bwd(wh, b, xw, mask, h_res, c_res, dys, dhT, dcT):
         w.data_ptr(), _ptr(wT), b.data_ptr(), xw.data_ptr(),
         mask.data_ptr(), h_res.data_ptr(), c_res.data_ptr(), dys.data_ptr(),
         dh_dir.data_ptr(), dc.data_ptr(), db_part.data_ptr(), dxw.data_ptr(),
-        dh0.data_ptr(), db.data_ptr(), T, G, B, H, int(family == "cluster"), stream,
+        dh0.data_ptr(), db.data_ptr(), _ptr(rd), T, G, B, H, int(family == "cluster"), stream,
     )
     _raise_on(err, "lstm_scan_bwd launch")
-    LAUNCHES[_lstm_counter("lstm_scan_bwd", G)] += 1
+    LAUNCHES[_lstm_counter("lstm_scan_bwd", G, rd)] += 1
     return dxw, db, dh0, dc
+
+
+def gru_step_smem(H: int, backward: bool) -> int:
+    """Shared memory of one block of K12's step kernels at width H
+    (``csrc/gru_scan.cu``): the forward's tiled Wh slice [H, 16, 4] and 16
+    bf16 h rows (160 H bytes); the backward's 16 fp32 dhw rows [16, 3H], its
+    fp32 db partials [16, 3, 16], the tiled Wh and Wh^T slices and 16 bf16
+    h_res rows (448 H + 3072 bytes)."""
+    return 448 * H + 3072 if backward else 160 * H
+
+
+def gru_family(G: int, B: int, H: int) -> str:
+    """The kernels that run a GRU scan (K12) of G directions, B rows and
+    width H: "step", one launch a step (``csrc/gru_scan.cu``), where H is a
+    multiple of 16 whose backward block fits the shared memory (H <= 512;
+    the presets' encoders have H = 256).  Chosen by shape alone; other
+    shapes raise."""
+    if G < 1 or B < 1 or H < LSTM_UNIT_TILE or H % LSTM_UNIT_TILE \
+            or gru_step_smem(H, backward=True) > SMEM_LIMIT:
+        raise ValueError(f"gru scan: G={G}, B={B}, H={H}; the kernels take G, B >= 1 and H a "
+                         f"positive multiple of {LSTM_UNIT_TILE} up to 512")
+    return "step"
+
+
+def tile_gru_weights(wh: torch.Tensor) -> torch.Tensor:
+    """[G, H, 3H] -> [G, H/UT, H, UT, 4], K1's per-step layout with the
+    fourth gate slot zero: a thread reads its unit's r, z, n weights for
+    one k as one 8-byte load (``csrc/gru_scan.cu``)."""
+    G, H, _ = wh.shape
+    return tile_lstm_weights(torch.cat([wh, wh.new_zeros((G, H, H))], dim=-1))
+
+
+def tile_gru_weights_t(wh: torch.Tensor) -> torch.Tensor:
+    """[G, H, 3H] -> [G, H/UT, 3H/4, UT, 4]: [g, t, kq, u, j] = Wh[g, t*UT
+    + u, 4*kq + j], the layout the backward's dh product reads."""
+    G, H, H3 = wh.shape
+    nt = H // LSTM_UNIT_TILE
+    return wh.view(G, nt, LSTM_UNIT_TILE, H3 // 4, 4).permute(0, 1, 3, 2, 4).contiguous()
+
+
+def _check_gru(xw, wh, b, mask, T, G, B, H, dev):
+    _check("xw", xw, torch.bfloat16, (T, G, B, 3 * H), dev)
+    _check("wh", wh, torch.bfloat16, (G, H, 3 * H), dev)
+    _check("b", b, torch.float32, (G, 3 * H), dev)
+    _check("mask", mask, torch.float32, (T, G, B), dev)
+    return gru_family(G, B, H)
+
+
+def gru_scan_fwd(wh, b, xw, mask, h0, *, save: bool = False):
+    """K12: direction-batched masked GRU recurrence, forward (CUDA); at
+    G = 1 counted as ``gru_scan_uni_fwd``.
+
+    wh [G,H,3H] bf16, b [G,3H] f32, xw [T,G,B,3H] bf16, mask [T,G,B] f32,
+    h0 [G,B,H] f32 -> (ys [T,G,B,H] bf16, hT [G,B,H] f32, h_res), h_res the
+    bf16 [T,G,B,H] carries entering each step (the product's operand) when
+    ``save``, else None.  One launch per step.
+    """
+    T, G, B, H3 = xw.shape
+    H = H3 // 3
+    dev = xw.device
+    _check_gru(xw, wh, b, mask, T, G, B, H, dev)
+    _check("h0", h0, torch.float32, (G, B, H), dev)
+    lib = _load()
+    hbuf = torch.empty((2, G, B, H), dtype=torch.float32, device=dev)
+    hbuf[0].copy_(h0)
+    ys = torch.empty((T, G, B, H), dtype=torch.bfloat16, device=dev)
+    h_res = torch.empty((T, G, B, H), dtype=torch.bfloat16, device=dev) if save else None
+    w = tile_gru_weights(wh)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.avsr_gru_scan_fwd(
+        w.data_ptr(), b.data_ptr(), xw.data_ptr(), mask.data_ptr(),
+        hbuf.data_ptr(), ys.data_ptr(), _ptr(h_res), T, G, B, H, stream)
+    _raise_on(err, "gru_scan_fwd launch")
+    LAUNCHES["gru_scan_uni_fwd" if G == 1 else "gru_scan_fwd"] += 1
+    return ys, hbuf[T % 2], h_res
+
+
+def gru_scan_bwd(wh, b, xw, mask, h_res, dys, dhT):
+    """K12: the reverse scan of the GRU's gradient (CUDA); at G = 1
+    counted as ``gru_scan_uni_bwd``.
+
+    Same operands as the forward plus its h_res [T,G,B,H] bf16 and the
+    cotangents dys [T,G,B,H] bf16, dhT [G,B,H] f32 -> (dxw [T,G,B,3H] bf16,
+    db [G,3H] f32, dh0 [G,B,H] f32, dhw [T,G,B,3H] f32: the cotangent of
+    each step's recurrent product, whose n block is dn * r, so dWh =
+    h_res^T dhw, one product over all steps, is the caller's).  One launch
+    per step and a final one.
+    """
+    T, G, B, H3 = xw.shape
+    H = H3 // 3
+    dev = xw.device
+    _check_gru(xw, wh, b, mask, T, G, B, H, dev)
+    _check("h_res", h_res, torch.bfloat16, (T, G, B, H), dev)
+    _check("dys", dys, torch.bfloat16, (T, G, B, H), dev)
+    _check("dhT", dhT, torch.float32, (G, B, H), dev)
+    if T < 1:
+        raise ValueError("gru_scan_bwd: needs at least one step")
+    lib = _load()
+    dh_dir = dhT.clone()
+    db_part = torch.zeros((G, -(-B // LSTM_ROW_TILE), H3), dtype=torch.float32, device=dev)
+    dxw = torch.empty((T, G, B, H3), dtype=torch.bfloat16, device=dev)
+    dhw = torch.empty((T, G, B, H3), dtype=torch.float32, device=dev)
+    dh0 = torch.empty((G, B, H), dtype=torch.float32, device=dev)
+    db = torch.empty((G, H3), dtype=torch.float32, device=dev)
+    w, wT = tile_gru_weights(wh), tile_gru_weights_t(wh)  # alive until the launches are queued
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.avsr_gru_scan_bwd(
+        w.data_ptr(), wT.data_ptr(), b.data_ptr(),
+        xw.data_ptr(), mask.data_ptr(), h_res.data_ptr(), dys.data_ptr(), dh_dir.data_ptr(),
+        db_part.data_ptr(), dxw.data_ptr(), dhw.data_ptr(), dh0.data_ptr(), db.data_ptr(),
+        T, G, B, H, stream)
+    _raise_on(err, "gru_scan_bwd launch")
+    LAUNCHES["gru_scan_uni_bwd" if G == 1 else "gru_scan_bwd"] += 1
+    return dxw, db, dh0, dhw
 
 
 def mel_band_table(mel_w) -> Tuple[np.ndarray, np.ndarray]:

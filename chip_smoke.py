@@ -361,18 +361,56 @@ Phases, in order; any failure exits nonzero before the final line:
              batch took, no two utterances' n-best lists equal; prints p50
              / p90 latency at 1 and 24 clients, utterances/s, utterances a
              batch, hits per bucket and the device busy share.
-48. shapes — every call of a kernel wrapper in phases 46-47 and 49-50
-             (``COVERED_PHASES``: each of the five train buckets,
+51. K1 rd  — K1 / K2 under a recurrent-dropout mask (1/0.8, not a power
+             of two; ``kernels.LAUNCHES`` ``lstm_scan[_uni]_rd_*``), forward in
+             save mode and backward, against the masked plain twins at G=2,
+             H=256 (the cluster route) at the two paths' shapes [T=197 and
+             150, B=128 and 8] and the train buckets' audio and video steps,
+             at G=1 [197, 128] and [531, 4] (nonzero h0/c0), and at H=80 (the
+             per-step route, G=2 and 1, [50, 20]), ragged with a 0-length
+             row: errors on ys, hT, cT, the saved operand bf16(h * rd) and c,
+             dWh, db, dxw, dh0, dc0; reruns bit-equal; the 0-length row's
+             state and cotangents passed through; at [197, 128] device ms a
+             call and us a step beside the unmasked kernel's at the same
+             shape, times and the bound.
+52. K12    — the GRU scan (``csrc/gru_scan.cu``, one launch a step) forward in
+             save mode and backward against the plain twins at phase 51's
+             shapes: errors on ys, hT, h_res, dWh, db, dxw, dh0; reruns
+             bit-equal; the 0-length row; the step kernels' shared memory
+             against ``kernels.gru_step_smem``; registers and spills
+             (``ptxas -v``); at [197, 128] device ms, us a step, times, the
+             bound and, as a reference point that computes more (the input
+             product) with its own rounding, cuDNN's bidirectional
+             ``nn.GRU`` (b_hh = 0) on a packed sequence.
+53. train-rd-residual — ten full-width train steps of
+             ``lrs2_av_align_rd_residual`` (``rd_residual_cfg``: recurrent
+             dropout 0.2 in both encoders, residual audio layers 1-2) at
+             B=128, as phase 19: the loss and every gradient leaf against the
+             plain path on the same draws, every leaf present, finite and
+             nonzero; the masked K1 launched and the unmasked one not.
+54. serve-rd-residual — the same model behind a CUDA ``Predictor`` as phase
+             15 (B=8 requests, width-10 beam): the unmasked K1 launched, the
+             masked one not.
+55. train-gru-highway — ten full-width train steps of
+             ``lrs2_av_align_gru_highway`` (``gru_highway_cfg``: GRU cells in
+             both encoders, highway audio layers 1-2, ``hw_w`` / ``hw_b``
+             among the leaves), as phase 53; K12 forward and backward
+             launched, no LSTM scan.
+56. serve-gru-highway — the same model served as phase 54; K12's forward
+             launched, no LSTM scan.
+48. shapes — every call of a kernel wrapper in phases 46-47, 49-50 and
+             53-56 (``COVERED_PHASES``: each of the five train buckets,
              ``TRAIN_BUCKETS``, their warm-ups, the evals, and the three
              serving buckets, ``SERVE_BUCKETS``) must have been made at the
              same tensor shapes in a phase that holds that kernel against
              its plain twin (``KERNEL_PHASES``; ``record_shapes``): the
              kernel phases take the buckets' shapes (``*_BUCKET_SHAPES``,
              ``K10_BUCKET_READS``, ``*_SERVE_SHAPES``, ``K6_SERVE_CROSS``,
-             ``K10_SERVE_READS``; phases 3, 4, 6, 7, 9, 10, 13, 14, 17, 18)
+             ``K10_SERVE_READS``, ``RNN_OPTION_*``; phases 3, 4, 6, 7, 9, 10,
+             13, 14, 17, 18, 51, 52)
              at their own tolerances; prints each kernel's shapes on the
              paths and held.
-Serve (5, 15, 22, 31, 38-41) also beams the same memories through the plain path
+Serve (5, 15, 22, 31, 38-41, 54, 56) also beams the same memories through the plain path
 and holds the best scores to a tolerance.  Each serve and greedy path and the
 train path end with a ``torch.profiler`` reading of one run: the device's
 busy share of the host span, device events per beam, train or decode step,
@@ -552,7 +590,20 @@ OTHER_ROUTES = {"serve_align": ("bahdanau_attend", "bahdanau_attend_row"),
                 "eval_noisy": ("bahdanau_attend",),
                 "trainer_align": ("bahdanau_attend",),
                 "artifact_align": ("bahdanau_attend", "bahdanau_attend_row"),
-                "artifact_align_greedy": ("bahdanau_attend", "bahdanau_attend_grouped")}
+                "artifact_align_greedy": ("bahdanau_attend", "bahdanau_attend_grouped"),
+                # the encoder options (phases 53-56): the masked K1 in the
+                # rd_residual training only, the unmasked one in its serving,
+                # no LSTM scan on the GRU paths
+                "train_rd_residual": ("lstm_scan_fwd", "lstm_scan_bwd", "bahdanau_attend",
+                                      "bahdanau_attend_grouped"),
+                "serve_rd_residual": ("lstm_scan_rd_fwd", "lstm_scan_rd_bwd", "bahdanau_attend",
+                                      "bahdanau_attend_row"),
+                "train_gru_highway": ("lstm_scan_fwd", "lstm_scan_bwd", "lstm_scan_rd_fwd",
+                                      "lstm_scan_rd_bwd", "bahdanau_attend",
+                                      "bahdanau_attend_grouped"),
+                "serve_gru_highway": ("lstm_scan_fwd", "lstm_scan_bwd", "lstm_scan_rd_fwd",
+                                      "lstm_scan_rd_bwd", "gru_scan_bwd", "bahdanau_attend",
+                                      "bahdanau_attend_row")}
 # the reference's unimodal and bimodal regimes (audio_tcdtimit,
 # video_tcdtimit with the ROI CNN or AU features, bimodal_tcdtimit: the RNN
 # decoder reads each memory with Bahdanau's score, at Dv = 512) and the
@@ -571,9 +622,13 @@ EVAL_NOISY_KERNELS = ("lstm_scan_fwd", "logmel_post_dft", "av_align_scan",
 # of up to 2^17 squares summed in another order (relative 1e-6 of the
 # scale), on waveforms of order one
 MIX_TOL = 1e-5
-# kernels no path of the presets launches (routes of other shapes), listed
-# in the kernels line with their phases' numbers and 0 launches
-OFF_PATH = ("bahdanau_attend", "luong_attend", "conformer_conv_fwd_tiles")
+# kernels no path launches, listed in the kernels line with their phases'
+# numbers and 0 launches: routes of other shapes, and the one-direction
+# instances of the encoder options (a one-direction GRU layer, a
+# one-direction LSTM layer under recurrent dropout), which phases 51-52 hold
+# at G = 1 but no configuration on the card uses
+OFF_PATH = ("bahdanau_attend", "luong_attend", "conformer_conv_fwd_tiles",
+            "lstm_scan_uni_rd_fwd", "lstm_scan_uni_rd_bwd", "gru_scan_uni_fwd", "gru_scan_uni_bwd")
 # the training loop, checkpoints, API and CLI: lrs2_av_align's train step
 # (K1, K3, K8 and K10's teacher-forced loop), its eval loss (K10's row
 # read) and beam (K10's grouped read, K7); lrs2_av_fast's train step, greedy
@@ -639,7 +694,8 @@ def check_other_route(label, launches):
 
 # the kernel wrappers of ``avsr_tpu_torch.kernels`` whose calls
 # ``record_shapes`` logs (K7's ``BeamStep`` too, as ``beam_step``)
-WRAPPERS = ("lstm_scan_fwd", "lstm_scan_bwd", "logmel_post_dft", "fusion_attention_fwd",
+WRAPPERS = ("lstm_scan_fwd", "lstm_scan_bwd", "gru_scan_fwd", "gru_scan_bwd",
+            "logmel_post_dft", "fusion_attention_fwd",
             "fusion_attention_bwd", "decoder_attention_fwd", "decoder_attention_bwd",
             "attention_bwd_core", "decode_attention", "beam_step", "av_align_scan",
             "av_align_scan_bwd", "bahdanau_attend", "attend_step_bwd", "attend_loop_sums",
@@ -647,9 +703,10 @@ WRAPPERS = ("lstm_scan_fwd", "lstm_scan_bwd", "logmel_post_dft", "fusion_attenti
             "conformer_conv_fwd", "conformer_conv_bwd")
 # the phases that hold kernels against their plain twins: the shapes their
 # calls take are the shapes checked
-KERNEL_PHASES = (3, 4, 6, 7, 9, 10, 11, 13, 14, 17, 18, 20, 21, 25, 26, 28, 29, 30, 35, 36, 37)
+KERNEL_PHASES = (3, 4, 6, 7, 9, 10, 11, 13, 14, 17, 18, 20, 21, 25, 26, 28, 29, 30, 35, 36, 37,
+                 51, 52)
 # the phases whose shapes must all be among KERNEL_PHASES' (phase 48)
-COVERED_PHASES = (46, 47, 49, 50)
+COVERED_PHASES = (46, 47, 49, 50, 53, 54, 55, 56)
 
 
 @contextlib.contextmanager
@@ -1028,27 +1085,30 @@ def plain_cores():
     from avsr_tpu_torch.ops import audio_features as af
     from avsr_tpu_torch.ops import rnn
 
-    with mock.patch.object(rnn, "scan_core_fwd", rnn.bilstm_scan_core_fwd_impl), \
-            mock.patch.object(rnn, "scan_core_bwd", rnn.bilstm_scan_core_bwd_plain), \
-            mock.patch.object(af, "logmel_post_dft", af.logmel_post_dft_plain), \
-            mock.patch.object(fus, "fusion_attention_fwd", fus.fusion_attention_fwd_plain), \
-            mock.patch.object(fus, "fusion_attention_bwd", fus.fusion_attention_bwd_plain), \
-            mock.patch.object(tdec, "decoder_attention_fwd", tdec.decoder_attention_fwd_plain), \
-            mock.patch.object(tdec, "decoder_attention_bwd", tdec.decoder_attention_bwd_plain), \
-            mock.patch.object(tdec, "decode_attention", tdec.decode_attention_plain), \
-            mock.patch.object(beam, "beam_stepper", beam.plain_stepper), \
-            mock.patch.object(fus, "av_align_scan_fwd", fus.av_align_scan_fwd_plain), \
-            mock.patch.object(fus, "av_align_scan_bwd", fus.av_align_scan_bwd_plain), \
-            mock.patch.object(attn, "attend_fwd", attn.attend_plain), \
-            mock.patch.object(attn, "read_fwd", attn.read_fwd_plain), \
-            mock.patch.object(attn, "read_step_bwd", attn.read_step_bwd_plain), \
-            mock.patch.object(attn, "read_loop_sums", attn.read_loop_sums_plain), \
-            mock.patch.object(tfm, "encoder_self_attention_fwd",
-                              tfm.encoder_self_attention_fwd_plain), \
-            mock.patch.object(tfm, "encoder_self_attention_bwd",
-                              tfm.encoder_self_attention_bwd_plain), \
-            mock.patch.object(tfm, "conformer_conv_fwd", tfm.conformer_conv_plain), \
-            mock.patch.object(tfm, "conformer_conv_bwd", tfm.conformer_conv_bwd_plain):
+    plain = ((rnn, "scan_core_fwd", rnn.bilstm_scan_core_fwd_impl),
+             (rnn, "scan_core_bwd", rnn.bilstm_scan_core_bwd_plain),
+             (rnn, "gru_core_fwd", rnn.gru_scan_core_fwd_plain),
+             (rnn, "gru_core_bwd", rnn.gru_scan_core_bwd_plain),
+             (af, "logmel_post_dft", af.logmel_post_dft_plain),
+             (fus, "fusion_attention_fwd", fus.fusion_attention_fwd_plain),
+             (fus, "fusion_attention_bwd", fus.fusion_attention_bwd_plain),
+             (tdec, "decoder_attention_fwd", tdec.decoder_attention_fwd_plain),
+             (tdec, "decoder_attention_bwd", tdec.decoder_attention_bwd_plain),
+             (tdec, "decode_attention", tdec.decode_attention_plain),
+             (beam, "beam_stepper", beam.plain_stepper),
+             (fus, "av_align_scan_fwd", fus.av_align_scan_fwd_plain),
+             (fus, "av_align_scan_bwd", fus.av_align_scan_bwd_plain),
+             (attn, "attend_fwd", attn.attend_plain),
+             (attn, "read_fwd", attn.read_fwd_plain),
+             (attn, "read_step_bwd", attn.read_step_bwd_plain),
+             (attn, "read_loop_sums", attn.read_loop_sums_plain),
+             (tfm, "encoder_self_attention_fwd", tfm.encoder_self_attention_fwd_plain),
+             (tfm, "encoder_self_attention_bwd", tfm.encoder_self_attention_bwd_plain),
+             (tfm, "conformer_conv_fwd", tfm.conformer_conv_plain),
+             (tfm, "conformer_conv_bwd", tfm.conformer_conv_bwd_plain))
+    with contextlib.ExitStack() as stack:
+        for module, name, twin in plain:
+            stack.enter_context(mock.patch.object(module, name, twin))
         yield
 
 
@@ -5186,6 +5246,315 @@ def phase_serve_http(dev, card, artifact, label="serve_http", needed=SERVE_HTTP_
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the encoder's cell options: recurrent dropout on K1 / K2, GRU cells on K12,
+# residual and highway layers (phases 51-56)
+# ---------------------------------------------------------------------------
+
+
+def rd_residual_cfg():
+    """``lrs2_av_align_rd_residual``: the lrs2_av_align preset with
+    variational recurrent dropout 0.2 in both encoders (K1 with a mask in
+    training) and residual audio layers (layers 1-2 of the 3 x 256 BiLSTM,
+    512 -> 512; layer 0, 720 -> 512, and the video layer, 128 -> 512, take
+    no wrapper)."""
+    from avsr_tpu_torch.configs import lrs2_full
+
+    return lrs2_full().override({
+        "audio_encoder.recurrent_dropout_rate": 0.2, "video_encoder.recurrent_dropout_rate": 0.2,
+        "audio_encoder.residual": True, "name": "lrs2_av_align_rd_residual"})
+
+
+def gru_highway_cfg():
+    """``lrs2_av_align_gru_highway``: the lrs2_av_align preset with GRU cells
+    in both encoders (K12) and highway audio layers (a gate on layers 1-2)."""
+    from avsr_tpu_torch.configs import lrs2_full
+
+    return lrs2_full().override({
+        "audio_encoder.cell_type": "gru", "video_encoder.cell_type": "gru",
+        "audio_encoder.highway": True, "name": "lrs2_av_align_gru_highway"})
+
+
+# the two paths' (T, B) at G = 2, H = 256: the train step's audio (197) and
+# video (150) layers at B = 128 and a serve request's at B = 8; the train
+# buckets' audio and video steps (what the Trainer would call); G = 1 at the
+# train step's audio and the 16 s limit; the per-step route at H = 80
+RNN_OPTION_SHAPES = ((197, 128), (150, 128), (197, 8), (150, 8))
+RNN_OPTION_BUCKET_SHAPES = tuple(sorted({(T, B) for B, _, Ta, Tv, _ in TRAIN_BUCKETS
+                                         for T in (Ta, Tv)} - set(RNN_OPTION_SHAPES)))
+RNN_OPTION_UNI_SHAPES = ((197, 128), (531, 4))
+RNN_OPTION_STEP_ROUTE = ((50, 2, 20), (50, 1, 20))  # (T, G, B) at H = 80
+RD_KEEP = 0.8  # the masks' keep: 1/keep = 1.25 is not a power of two
+# masked train path: K1 with the mask only; its serve path the unmasked K1
+TRAIN_RD_KERNELS = ("lstm_scan_rd_fwd", "lstm_scan_rd_bwd", "logmel_post_dft", "av_align_scan",
+                    "av_align_scan_bwd", "bahdanau_attend_row", "bahdanau_attend_bwd",
+                    "bahdanau_attend_sums")
+SERVE_RD_KERNELS = SERVE_ALIGN_KERNELS
+TRAIN_GRU_KERNELS = ("gru_scan_fwd", "gru_scan_bwd", "logmel_post_dft", "av_align_scan",
+                     "av_align_scan_bwd", "bahdanau_attend_row", "bahdanau_attend_bwd",
+                     "bahdanau_attend_sums")
+SERVE_GRU_KERNELS = ("gru_scan_fwd", "logmel_post_dft", "av_align_scan",
+                     "bahdanau_attend_grouped", "beam_step")
+
+
+def rd_mask(G, B, H, dev, seed):
+    """A recurrent-dropout mask [G, B, H]: 0 or 1/RD_KEEP."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return ((torch.rand((G, B, H), generator=g) < RD_KEEP).float() / RD_KEEP).to(dev)
+
+
+def k12_inputs(T, G, B, H, dev, seed):
+    """K12's operands: Wh [G, H, 3H], b, the bf16 input product, a ragged
+    mask with a 0-length row 1 (the backward stream flipped at G = 2) and
+    h0 (zero at G = 2, as a bidirectional layer starts; nonzero at G = 1)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    wh = torch.randn((G, H, 3 * H), generator=g) / H ** 0.5
+    b = 0.1 * torch.randn((G, 3 * H), generator=g)
+    xw = torch.randn((T, G, B, 3 * H), generator=g).to(torch.bfloat16)
+    lengths = torch.randint(1, T + 1, (B,), generator=g)
+    lengths[0] = T
+    if B > 1:
+        lengths[1] = 0
+    m = (torch.arange(T)[:, None] < lengths[None, :]).float()
+    mask = torch.stack([m, torch.flip(m, (0,))], dim=1)[:, :G]
+    h0 = torch.zeros((G, B, H)) if G == 2 else 0.5 * torch.randn((G, B, H), generator=g)
+    return [x.to(dev) for x in (wh, b, xw, mask, h0)]
+
+
+def rnn_option_cases():
+    """(G, H, T, B) of phases 51-52, the full width's first."""
+    return ([(2, 256, T, B) for T, B in RNN_OPTION_SHAPES + RNN_OPTION_BUCKET_SHAPES]
+            + [(1, 256, T, B) for T, B in RNN_OPTION_UNI_SHAPES]
+            + [(G, 80, T, B) for T, G, B in RNN_OPTION_STEP_ROUTE])
+
+
+def phase_k1_rd(dev, report):
+    """K1 / K2 under a recurrent-dropout mask, forward (save mode) and
+    backward, against the masked plain twins."""
+    import torch
+
+    from avsr_tpu_torch import kernels
+    from avsr_tpu_torch.ops import rnn
+
+    bf = torch.bfloat16
+    names = ("dWh", "db", "dxw", "dh0", "dc0")
+    runs = {}
+    for G, H, T, B in rnn_option_cases():
+        seed = 500 + T + B + G + H
+        args = k1_inputs(T, 2, B, H, dev, seed) if G == 2 else k2_inputs(T, B, H, dev, seed)
+        rd = rd_mask(G, B, H, dev, seed)
+        out_k, res_k = rnn.scan_core_fwd(*args, bf, True, rd)
+        again, res_again = rnn.scan_core_fwd(*args, bf, True, rd)
+        out_p, res_p = rnn.bilstm_scan_core_fwd_impl(*args, bf, True, rd)
+        g = torch.Generator().manual_seed(seed + 1)
+        cot = [torch.randn((T, G, B, H), generator=g).to(bf).to(dev),
+               torch.randn((G, B, H), generator=g).to(dev),
+               torch.randn((G, B, H), generator=g).to(dev)]
+        bargs = [*args[:4], *res_k, *cot, bf, rd]
+        g_k = rnn.scan_core_bwd(*bargs)
+        g_again = rnn.scan_core_bwd(*bargs)
+        g_p = rnn.bilstm_scan_core_bwd_plain(*bargs)
+        torch.cuda.synchronize()
+        e = {n: max_err(a, b_) for n, a, b_ in zip(("ys", "hT", "cT", "h_res", "c_res"),
+                                                   (*out_k, *res_k), (*out_p, *res_p))}
+        ge = {n: rel_err(a, b_) for n, a, b_ in zip(names, g_k, g_p)}
+        same = all(torch.equal(a, b_) for a, b_ in zip((*out_k, *res_k, *g_k),
+                                                       (*again, *res_again, *g_again)))
+        kept = lstm_kept(*out_k, args[4], args[5]) and lstm_passed(g_k[2], g_k[3], g_k[4],
+                                                                   cot[1], cot[2])
+        family = kernels.lstm_family(G, B, H)
+        want = "cluster" if H == 256 else "step"
+        print(f"K1 rd [T={T},G={G},B={B},H={H}] family {family}: fwd max abs err "
+              f"{ {n: f'{x:.3e}' for n, x in e.items()} } (tol {K1_TOL}); bwd relative to max "
+              f"|plain| { {n: f'{x:.3e}' for n, x in ge.items()} } (tol {K1B_REL_TOL}); reruns "
+              f"bit-equal: {same}; the 0-length row kept its state, passed dhT/dcT: {kept}")
+        if not (family == want
+                and all(torch.isfinite(x.float()).all() for x in (*out_k, *res_k, *g_k))
+                and max(e.values()) <= K1_TOL and max(ge.values()) <= K1B_REL_TOL and same
+                and kept):
+            fail("K1 rd", f"kernels disagree with the masked twins at G={G}, T={T}, B={B}, "
+                          f"H={H}: {e}, {ge}; bit-equal {same}; kept {kept}; family {family}")
+        runs[(G, H, T, B)] = dict(args=args, rd=rd, bargs=bargs, out=(*out_k, *res_k), grads=g_k,
+                                  fwd_err=max(e.values()),
+                                  bwd_err=max(max_err(a, b_) for a, b_ in zip(g_k, g_p)))
+    for G, (T, B) in ((2, (197, 128)), (1, (197, 128))):
+        r = runs[(G, 256, T, B)]
+        a, rd, ba = r["args"], r["rd"], r["bargs"]
+        fwd = lambda rd_=rd: rnn.scan_core_fwd(*a, bf, True, rd_)  # noqa: E731
+        ka = [ba[0].to(bf).contiguous(), *ba[1:9]]  # the wrapper's operands
+        dms = dict(fwd=device_ms(fwd), fwd_unmasked=device_ms(lambda: fwd(None)),
+                   bwd=device_ms(lambda: kernels.lstm_scan_bwd(*ka, rd=rd)),
+                   bwd_unmasked=device_ms(lambda: kernels.lstm_scan_bwd(*ka)),
+                   bwd_with_dwh=device_ms(lambda: rnn.scan_core_bwd(*ba)))
+        ms = dict(fwd=time_ms(fwd), plain_fwd=time_ms(
+            lambda: rnn.bilstm_scan_core_fwd_impl(*a, bf, True, rd), reps=3, warmup=1),
+                  bwd=time_ms(lambda: rnn.scan_core_bwd(*ba)), plain_bwd=time_ms(
+            lambda: rnn.bilstm_scan_core_bwd_plain(*ba), reps=3, warmup=1))
+        H4 = 1024
+        flops = 2 * T * G * B * 256 * H4
+        kind = "" if G == 2 else "_uni"
+        print(f"K1 rd [T={T},G={G},B={B},H=256] device fwd (save) {dms['fwd']:.4f} ms "
+              f"({dms['fwd'] / T * 1e3:.3f} us a step; unmasked {dms['fwd_unmasked']:.4f} ms), "
+              f"bwd {dms['bwd']:.4f} ms ({dms['bwd'] / T * 1e3:.3f} us a step; unmasked "
+              f"{dms['bwd_unmasked']:.4f} ms; {dms['bwd_with_dwh']:.4f} ms with the caller's dWh); "
+              f"kernel {ms['fwd']:.4f} / {ms['bwd']:.4f} ms, plain {ms['plain_fwd']:.4f} / "
+              f"{ms['plain_bwd']:.4f} ms (fwd / bwd)")
+        shapes = [k for k in runs if k[0] == G]
+        report[f"lstm_scan{kind}_rd_fwd"] = dict(
+            max_abs_err=max(runs[k]["fwd_err"] for k in shapes), ms=ms["fwd"],
+            plain_ms=ms["plain_fwd"], library_ms=None, device_ms=dms["fwd"],
+            bound=bound(nbytes(*a, rd, *r["out"]), flops), per_step_us=dms["fwd"] / T * 1e3,
+            unmasked_device_ms=dms["fwd_unmasked"], shape=f"T={T},G={G},B={B},H=256")
+        report[f"lstm_scan{kind}_rd_bwd"] = dict(
+            max_abs_err=max(runs[k]["bwd_err"] for k in shapes), ms=ms["bwd"],
+            plain_ms=ms["plain_bwd"], library_ms=None, device_ms=dms["bwd"],
+            bound=bound(nbytes(*ba[:9], rd, *r["grads"][1:]), 2 * flops),
+            per_step_us=dms["bwd"] / T * 1e3, unmasked_device_ms=dms["bwd_unmasked"],
+            device_ms_with_dwh=dms["bwd_with_dwh"], shape=f"T={T},G={G},B={B},H=256")
+
+
+def k12_build_info():
+    """Registers and spills of K12's kernels (``ptxas -v``)."""
+    from avsr_tpu_torch import kernels
+
+    rep = {name: r for name, r in kernels.ptxas_report("gru_scan").items() if "gru_" in name}
+    if len(rep) != 3:
+        fail("K12", f"expected K12's three kernels in the ptxas report, got {sorted(rep)}")
+    print(f"K12 build (gru_scan.cu; ptxas -v): {rep}")
+    return rep
+
+
+def cudnn_gru_ms(T, B, H, lengths, dev, D=512):
+    """(forward, backward) device ms of cuDNN's bidirectional ``nn.GRU``
+    (fp16, input width D, b_hh = 0) on a packed sequence of ``lengths`` at
+    [T, B, H]: a reference point, timed only, never on a path; it computes
+    K12's cell function but also the input product, with its own rounding."""
+    import torch
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    gru = torch.nn.GRU(D, H, bidirectional=True).to(dev, torch.float16)
+    with torch.no_grad():
+        for name, p in gru.named_parameters():
+            if name.startswith("bias_hh"):
+                p.zero_()
+    g = torch.Generator().manual_seed(T + B + 1)
+    x = torch.randn((T, B, D), generator=g).to(dev, torch.float16).requires_grad_(True)
+    lens = lengths.clamp(min=1).cpu()  # a packed sequence has no empty row
+    packed = lambda: pack_padded_sequence(x, lens, enforce_sorted=False)  # noqa: E731
+    with torch.no_grad():
+        fwd = device_ms(lambda: gru(packed()))
+    both = device_ms(lambda: gru(packed())[0].data.float().sum().backward())
+    return fwd, both - fwd
+
+
+def phase_k12(dev, report):
+    """K12, the GRU scan, forward (save mode) and backward, against the plain
+    twins."""
+    import torch
+
+    from avsr_tpu_torch import kernels
+    from avsr_tpu_torch.ops import rnn
+
+    bf = torch.bfloat16
+    build = k12_build_info()
+    lib = kernels._load()
+    for H in (80, 256, 512):
+        for bwd in (0, 1):
+            if lib.avsr_gru_step_smem(H, bwd) != kernels.gru_step_smem(H, bool(bwd)):
+                fail("K12", f"H={H}: the library's step kernel takes "
+                            f"{lib.avsr_gru_step_smem(H, bwd)} bytes, gru_step_smem "
+                            f"{kernels.gru_step_smem(H, bool(bwd))}")
+    names = ("dWh", "db", "dxw", "dh0")
+    runs = {}
+    for G, H, T, B in rnn_option_cases():
+        seed = 700 + T + B + G + H
+        args = k12_inputs(T, G, B, H, dev, seed)
+        (ys, hT), h_res = rnn.gru_core_fwd(*args, bf, True)
+        (ys2, hT2), h_res2 = rnn.gru_core_fwd(*args, bf, True)
+        (ys_p, hT_p), h_res_p = rnn.gru_scan_core_fwd_plain(*args, bf, True)
+        g = torch.Generator().manual_seed(seed + 1)
+        dys = torch.randn((T, G, B, H), generator=g).to(bf).to(dev)
+        dhT = torch.randn((G, B, H), generator=g).to(dev)
+        bargs = [*args[:4], h_res, dys, dhT, bf]
+        g_k = rnn.gru_core_bwd(*bargs)
+        g_again = rnn.gru_core_bwd(*bargs)
+        g_p = rnn.gru_scan_core_bwd_plain(*bargs)
+        torch.cuda.synchronize()
+        e = {n: max_err(a, b_) for n, a, b_ in zip(("ys", "hT", "h_res"), (ys, hT, h_res),
+                                                   (ys_p, hT_p, h_res_p))}
+        ge = {n: rel_err(a, b_) for n, a, b_ in zip(names, g_k, g_p)}
+        same = all(torch.equal(a, b_) for a, b_ in zip((ys, hT, h_res, *g_k),
+                                                       (ys2, hT2, h_res2, *g_again)))
+        kept = B < 2 or (torch.equal(hT[:, 1], args[4][:, 1])
+                         and float(ys[:, :, 1].float().abs().max()) == 0.0
+                         and float(g_k[2][:, :, 1].float().abs().max()) == 0.0
+                         and torch.equal(g_k[3][:, 1], dhT[:, 1]))
+        family = kernels.gru_family(G, B, H)
+        print(f"K12 [T={T},G={G},B={B},H={H}] family {family}: fwd max abs err "
+              f"{ {n: f'{x:.3e}' for n, x in e.items()} } (tol {K1_TOL}); bwd relative to max "
+              f"|plain| { {n: f'{x:.3e}' for n, x in ge.items()} } (tol {K1B_REL_TOL}); reruns "
+              f"bit-equal: {same}; the 0-length row kept h0 and passed dhT: {kept}")
+        if not (all(torch.isfinite(x.float()).all() for x in (ys, hT, *g_k))
+                and max(e.values()) <= K1_TOL and max(ge.values()) <= K1B_REL_TOL and same
+                and kept):
+            fail("K12", f"kernels disagree with the plain twins at G={G}, T={T}, B={B}, H={H}: "
+                        f"{e}, {ge}; bit-equal {same}; kept {kept}")
+        runs[(G, H, T, B)] = dict(args=args, bargs=bargs, out=(ys, hT, h_res), grads=g_k,
+                                  fwd_err=max(e.values()),
+                                  bwd_err=max(max_err(a, b_) for a, b_ in zip(g_k, g_p)))
+    for G, (T, B) in ((2, (197, 128)), (1, (197, 128))):
+        r = runs[(G, 256, T, B)]
+        a, ba = r["args"], r["bargs"]
+        ka = [ba[0].to(bf).contiguous(), *ba[1:7]]  # the wrapper's operands
+        dms = dict(fwd=device_ms(lambda: rnn.gru_core_fwd(*a, bf, True)),
+                   fwd_serve=device_ms(lambda: rnn.gru_core_fwd(*a, bf, False)),
+                   bwd=device_ms(lambda: kernels.gru_scan_bwd(*ka)),
+                   bwd_with_dwh=device_ms(lambda: rnn.gru_core_bwd(*ba)))
+        ms = dict(fwd=time_ms(lambda: rnn.gru_core_fwd(*a, bf, True)),
+                  plain_fwd=time_ms(lambda: rnn.gru_scan_core_fwd_plain(*a, bf, True), reps=3,
+                                    warmup=1),
+                  bwd=time_ms(lambda: rnn.gru_core_bwd(*ba)),
+                  plain_bwd=time_ms(lambda: rnn.gru_scan_core_bwd_plain(*ba), reps=3, warmup=1))
+        flops = 2 * T * G * B * 256 * 768
+        cud = cudnn_gru_ms(T, B, 256, a[3][:, 0].sum(0).long(), dev) if G == 2 else None
+        print(f"K12 [T={T},G={G},B={B},H=256] device fwd (save) {dms['fwd']:.4f} ms "
+              f"({dms['fwd'] / T * 1e3:.3f} us a step; {dms['fwd_serve']:.4f} ms without "
+              f"save), bwd {dms['bwd']:.4f} ms ({dms['bwd'] / T * 1e3:.3f} us a step; "
+              f"{dms['bwd_with_dwh']:.4f} ms with the caller's dWh); kernel {ms['fwd']:.4f} / "
+              f"{ms['bwd']:.4f} ms, plain {ms['plain_fwd']:.4f} / {ms['plain_bwd']:.4f} ms "
+              f"(fwd / bwd)"
+              + ("" if cud is None else
+                 f"; reference point, not K12's function: cuDNN bidirectional nn.GRU (fp16, "
+                 f"input width 512, b_hh = 0, packed sequence; it also computes the input "
+                 f"product) device {cud[0]:.4f} ms forward, {cud[1]:.4f} ms backward"))
+        kind = "" if G == 2 else "_uni"
+        shapes = [k for k in runs if k[0] == G]
+        common = dict(shape=f"T={T},G={G},B={B},H=256", library_ms=None,
+                      registers={k: x["registers"] for k, x in build.items()},
+                      spill_bytes={k: x["spill_stores"] + x["spill_loads"]
+                                   for k, x in build.items()})
+        report[f"gru_scan{kind}_fwd"] = dict(
+            common, max_abs_err=max(runs[k]["fwd_err"] for k in shapes), ms=ms["fwd"],
+            plain_ms=ms["plain_fwd"], device_ms=dms["fwd"], device_ms_serve=dms["fwd_serve"],
+            bound=bound(nbytes(*a, *r["out"]), flops), per_step_us=dms["fwd"] / T * 1e3,
+            **({} if cud is None else {"cudnn_reference_device_ms": cud[0]}))
+        report[f"gru_scan{kind}_bwd"] = dict(
+            common, max_abs_err=max(runs[k]["bwd_err"] for k in shapes), ms=ms["bwd"],
+            plain_ms=ms["plain_bwd"], device_ms=dms["bwd"],
+            # The function's own operands: wh, b, xw, mask, h_res, dys, dhT
+            # in; db, dxw, dh0 out (dWh left out, as for K1).  dhw, the fp32
+            # recurrent cotangent this design writes for the caller's dWh, is
+            # an intermediate: its bytes are reported apart, not bounded.
+            bound=bound(nbytes(*ka, *r["grads"][1:]), 2 * flops),
+            dhw_write_bytes=T * G * B * 768 * 4,
+            per_step_us=dms["bwd"] / T * 1e3, device_ms_with_dwh=dms["bwd_with_dwh"],
+            **({} if cud is None else {"cudnn_reference_device_ms": cud[1]}))
+
+
 def tree_map_like(tree, values):
     """``tree`` with its tensor leaves replaced, in ``tree_leaves`` order,
     by the next items of the iterator ``values``."""
@@ -5245,6 +5614,7 @@ def main() -> int:
     align_cfg = lrs2_full()  # the lrs2_av_align preset
     v2_cfg = lrs2_av_v2()
     ul_cfg = uni_luong_cfg()
+    rd_cfg, gru_cfg = rd_residual_cfg(), gru_highway_cfg()
     audio_cfg, video_cfg, bimodal_cfg = (audio_only_tcdtimit(), video_only_tcdtimit(),
                                          bimodal_tcdtimit())
     au_cfg = video_cfg.override({"video.use_au_features": True})
@@ -5333,7 +5703,19 @@ def main() -> int:
                        dev, card, work=subdir("fast"), keep=keep))),
                    (49, lambda: paths.update(phase_export(dev, card, keep, work.name))),
                    (50, lambda: paths.update(serve_http=phase_serve_http(
-                       dev, card, keep["artifacts"]["artifact_fast"])))):
+                       dev, card, keep["artifacts"]["artifact_fast"]))),
+                   (51, lambda: phase_k1_rd(dev, report)),
+                   (52, lambda: phase_k12(dev, report)),
+                   (53, lambda: paths.update(train_rd_residual=phase_train(
+                       dev, card, rd_cfg, "train_rd_residual", TRAIN_RD_KERNELS))),
+                   (54, lambda: paths.update(serve_rd_residual=phase_serve(
+                       dev, card, rd_cfg, "serve_rd_residual", SERVE_RD_KERNELS,
+                       ((8, 197, 768),)))),
+                   (55, lambda: paths.update(train_gru_highway=phase_train(
+                       dev, card, gru_cfg, "train_gru_highway", TRAIN_GRU_KERNELS))),
+                   (56, lambda: paths.update(serve_gru_highway=phase_serve(
+                       dev, card, gru_cfg, "serve_gru_highway", SERVE_GRU_KERNELS,
+                       ((8, 197, 768),))))):
         t0 = time.perf_counter()
         with (record_shapes(held) if n in KERNEL_PHASES
               else record_shapes(launched) if n in COVERED_PHASES else contextlib.nullcontext()):
@@ -5349,10 +5731,14 @@ def main() -> int:
             print(f"phases 46-47 (the training loop, checkpoints, API and CLI) "
                   f"{time.perf_counter() - t_new:.1f} s")
             t_new = time.perf_counter()
-    print(f"phases 49-50 (the serving artifacts, their CLI and the HTTP host) "
-          f"{time.perf_counter() - t_new:.1f} s")
-    keep.clear()
-    work.cleanup()
+        if n == 50:
+            print(f"phases 49-50 (the serving artifacts, their CLI and the HTTP host) "
+                  f"{time.perf_counter() - t_new:.1f} s")
+            t_new = time.perf_counter()
+            keep.clear()
+            work.cleanup()
+    print(f"phases 51-56 (the encoder's cell options: recurrent dropout, GRU, residual, "
+          f"highway) {time.perf_counter() - t_new:.1f} s")
     phase_shapes_covered(held, launched)  # 48
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -5410,6 +5796,14 @@ def main() -> int:
                                 "avsr_tpu/models/fusion.py:118"),
         "av_align_scan_luong_bwd": ("avsr_tpu_torch/csrc/av_align_scan.cu",
                                     "avsr_tpu/models/fusion.py:118"),
+        "lstm_scan_rd_fwd": ("avsr_tpu_torch/csrc/lstm_scan.cu", "avsr_tpu/ops/rnn.py:654"),
+        "lstm_scan_rd_bwd": ("avsr_tpu_torch/csrc/lstm_scan.cu", "avsr_tpu/ops/rnn.py:654"),
+        "lstm_scan_uni_rd_fwd": ("avsr_tpu_torch/csrc/lstm_scan.cu", "avsr_tpu/ops/rnn.py:535"),
+        "lstm_scan_uni_rd_bwd": ("avsr_tpu_torch/csrc/lstm_scan.cu", "avsr_tpu/ops/rnn.py:535"),
+        "gru_scan_fwd": ("avsr_tpu_torch/csrc/gru_scan.cu", "avsr_tpu/ops/rnn.py:576"),
+        "gru_scan_bwd": ("avsr_tpu_torch/csrc/gru_scan.cu", "avsr_tpu/ops/rnn.py:576"),
+        "gru_scan_uni_fwd": ("avsr_tpu_torch/csrc/gru_scan.cu", "avsr_tpu/ops/rnn.py:576"),
+        "gru_scan_uni_bwd": ("avsr_tpu_torch/csrc/gru_scan.cu", "avsr_tpu/ops/rnn.py:576"),
     }
     entries = []
     for name, (src, rep) in sources.items():

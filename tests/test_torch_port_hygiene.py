@@ -169,7 +169,7 @@ def test_entry_points_default_to_the_card(tmp_path):
 
 
 @pytest.mark.parametrize("fn", [
-    rnn.lstm_init, attention.value_only_init, attention.bahdanau_init, attention.attention_init,
+    rnn.lstm_init, rnn.gru_init, rnn.cell_init, attention.value_only_init, attention.bahdanau_init, attention.attention_init,
     encoder.encoder_init, video_cnn.video_cnn_init, fusion.cross_attention_fusion_init,
     fusion.av_align_init, decoder.decoder_init,
     transformer_decoder.transformer_decoder_init, transformer.transformer_encoder_init,
@@ -198,6 +198,25 @@ def test_kernel_length_limits_take_every_bucket(name):
     steps = (frames - a.frame_stacking) // a.frame_skipping + 1
     assert video == kernels.FUSION_MAX_TV == 401
     assert steps == kernels.ATTEND_MAX_S == 531
+
+
+@pytest.mark.parametrize("name", sorted(tconfigs.PRESETS))
+def test_rnn_option_kernels_take_every_bucket(name):
+    """Every RNN encoder of every preset, with GRU cells or under recurrent
+    dropout, reaches a kernel at every bucket's batch size: K12
+    (``kernels.gru_family``; one launch a step, so no length limit) and the
+    masked K1 / K2 (``kernels.lstm_family``, the unmasked kernels' route)
+    take the encoder's width at each direction count."""
+    cfg = tconfigs.PRESETS[name]()
+    sizes = cfg.data.bucket_batch_sizes or (cfg.data.batch_size,)
+    encoders = [e for e in (cfg.audio_encoder, cfg.video_encoder) if e.encoder_type == "rnn"]
+    for enc in encoders:
+        G = 2 if enc.bidirectional else 1
+        for H in enc.hidden_units:
+            for B in sorted(set(sizes)) + [1, 8]:
+                assert kernels.gru_family(G, B, H) == "step"
+                assert kernels.lstm_family(G, B, H) in ("cluster", "step")
+            assert kernels.gru_step_smem(H, backward=True) <= kernels.SMEM_LIMIT
 
 
 def test_predictor_defaults_to_the_card():

@@ -175,9 +175,9 @@ def test_residuals_are_saved_only_when_a_gradient_is_wanted():
     calls = []
     real = trnn.scan_core_fwd
 
-    def spy(wh, b, xw, mask, h0, c0, cdt, save):
+    def spy(wh, b, xw, mask, h0, c0, cdt, save, *rest):
         calls.append(save)
-        return real(wh, b, xw, mask, h0, c0, cdt, save)
+        return real(wh, b, xw, mask, h0, c0, cdt, save, *rest)
 
     with mock.patch.object(trnn, "scan_core_fwd", spy):
         trnn.bilstm_scan_core(*args, torch.float32)
