@@ -40,6 +40,19 @@
 // The delta window is a template parameter at the presets' 2 (unrolled),
 // a runtime one otherwise.
 //
+// The frontend's options are instances of the same launches:
+// feature_type="spectrogram" (log(power + floor) over the fft/2+1 bins) is
+// launch 1 with the identity as its banded matrix (a band of one bin of
+// weight 1 a bin: fmaf(p, 1, 0) is p, so the product is exact);
+// add_deltas=False stages and writes the static features only (D = M, no
+// halo); normalization="none" replaces launch 2 by a block of the lengths,
+// and "global" (one mean and variance over every valid frame and feature of
+// the batch, denominator max(valid frames * D, 1), rsqrt(var + 1e-8): the
+// reference's audio_features.py:297-309) runs launch 2 twice, once for
+// every column's valid sum and once for its squared deviations from the
+// mean, each followed by a one-block reduce of the [B, M, 3] partial sums in
+// a fixed order: no atomics, the same bits every run.
+//
 // ``stages`` (bit 1, 2, 4) runs the launches apart for timing; the kernel
 // wrapper runs all three.
 
@@ -130,6 +143,11 @@ __device__ __forceinline__ int stacked_len(int L, int T, int Tp, int stack, int 
   return min(max(nl, 0), Tp);
 }
 
+// feature columns a frame: the static features and, with deltas, Δ and ΔΔ
+__host__ __device__ __forceinline__ int feature_width(int M, int deltas) {
+  return deltas ? 3 * M : M;
+}
+
 __device__ __forceinline__ float delta_denom(int N) {
   float denom = 0.f;
   for (int n = 1; n <= N; ++n) denom += 2.0f * n * n;
@@ -181,16 +199,25 @@ __device__ __forceinline__ void block_sum3(float& a, float& b, float& c, float* 
   __syncthreads();  // red is reused by the next call
 }
 
-// A block per (utterance, bin): stats [B, 2, 3M] = (means, inverse std) of
-// the static, Δ and ΔΔ columns over the valid frames; new_len [B].
+// What launch 2's blocks write: the per-utterance statistics, or the
+// partial sums of the global ones.
+enum StatMode { STATS_UTTERANCE = 1, STATS_GLOBAL_SUM = 2, STATS_GLOBAL_SQ = 3 };
+
+// A block per (utterance, bin): in STATS_UTTERANCE, stats [B, 2, D] = (means,
+// inverse std) of the static, Δ and ΔΔ columns (the static only without
+// deltas) over the valid frames; in STATS_GLOBAL_SUM / _SQ, part [B, M, 3]
+// = the columns' sums over the valid frames / their squared deviations from
+// the batch mean gstat[0]; new_len [B].
 template <int NT>
 __global__ void __launch_bounds__(STAT_THREADS)
 stats_kernel(const float* __restrict__ logmel,  // [B, M, T]
              const int* __restrict__ feat_len, float* __restrict__ stats,
-             int* __restrict__ new_len, int T, int M, int Tp, int stack, int skip, int N_rt) {
+             int* __restrict__ new_len, float* __restrict__ part,
+             const float* __restrict__ gstat, int T, int M, int Tp, int stack, int skip,
+             int N_rt, int deltas, int mode) {
   extern __shared__ float sm[];
   __shared__ float red[3 * STAT_THREADS / 32];
-  const int N = NT > 0 ? NT : N_rt;
+  const int N = deltas ? (NT > 0 ? NT : N_rt) : 0;
   const int col = blockIdx.x;  // b * M + m
   const int b = col / M, m = col - b * M;
   float* e = sm;       // [T]
@@ -217,39 +244,114 @@ stats_kernel(const float* __restrict__ logmel,  // [B, M, T]
     }
   }
   __syncthreads();
-  for (int t = threadIdx.x; t < T1; t += STAT_THREADS) d1[t] = delta_at<NT>(e, 0, t, T, N, denom);
+  if (deltas)
+    for (int t = threadIdx.x; t < T1; t += STAT_THREADS) d1[t] = delta_at<NT>(e, 0, t, T, N, denom);
   __syncthreads();
 
-  // first pass: the sums (ΔΔ formed on the fly), second: the squares
+  // the sums (ΔΔ formed on the fly); per utterance then the squares
   const float cnt = (float)max(Lc, 1);
+  float* pb = part + (size_t)col * 3;
+  if (mode == STATS_GLOBAL_SQ) {
+    const float mu = gstat[0];
+    float v0 = 0.f, v1 = 0.f, v2 = 0.f;
+    for (int t = threadIdx.x; t < Lc; t += STAT_THREADS) {
+      const float a = e[t] - mu;
+      v0 += a * a;
+      if (deltas) {
+        const float bb = d1[t] - mu, cc = delta_at<NT>(d1, 0, t, T, N, denom) - mu;
+        v1 += bb * bb;
+        v2 += cc * cc;
+      }
+    }
+    block_sum3(v0, v1, v2, red);
+    if (threadIdx.x == 0) {
+      pb[0] = v0;
+      pb[1] = v1;
+      pb[2] = v2;
+    }
+    return;
+  }
   float s0 = 0.f, s1 = 0.f, s2 = 0.f;
   for (int t = threadIdx.x; t < Lc; t += STAT_THREADS) {
     s0 += e[t];
-    s1 += d1[t];
-    s2 += delta_at<NT>(d1, 0, t, T, N, denom);
+    if (deltas) {
+      s1 += d1[t];
+      s2 += delta_at<NT>(d1, 0, t, T, N, denom);
+    }
   }
   block_sum3(s0, s1, s2, red);
+  if (threadIdx.x == 0 && m == 0) new_len[b] = stacked_len(L, T, Tp, stack, skip);
+  if (mode == STATS_GLOBAL_SUM) {
+    if (threadIdx.x == 0) {
+      pb[0] = s0;
+      pb[1] = s1;
+      pb[2] = s2;
+    }
+    return;
+  }
   const float mu0 = s0 / cnt, mu1 = s1 / cnt, mu2 = s2 / cnt;
   float v0 = 0.f, v1 = 0.f, v2 = 0.f;
   for (int t = threadIdx.x; t < Lc; t += STAT_THREADS) {
-    const float a = e[t] - mu0, bb = d1[t] - mu1;
-    const float cc = delta_at<NT>(d1, 0, t, T, N, denom) - mu2;
+    const float a = e[t] - mu0;
     v0 += a * a;
-    v1 += bb * bb;
-    v2 += cc * cc;
+    if (deltas) {
+      const float bb = d1[t] - mu1;
+      const float cc = delta_at<NT>(d1, 0, t, T, N, denom) - mu2;
+      v1 += bb * bb;
+      v2 += cc * cc;
+    }
   }
   block_sum3(v0, v1, v2, red);
   if (threadIdx.x == 0) {
-    float* mu = stats + (size_t)b * 6 * M;
-    float* inv = mu + 3 * M;
+    const int D = feature_width(M, deltas);
+    float* mu = stats + (size_t)b * 2 * D;
+    float* inv = mu + D;
     mu[m] = mu0;
-    mu[M + m] = mu1;
-    mu[2 * M + m] = mu2;
     inv[m] = 1.0f / sqrtf(v0 / cnt + 1e-8f);
-    inv[M + m] = 1.0f / sqrtf(v1 / cnt + 1e-8f);
-    inv[2 * M + m] = 1.0f / sqrtf(v2 / cnt + 1e-8f);
-    if (m == 0) new_len[b] = stacked_len(L, T, Tp, stack, skip);
+    if (deltas) {
+      mu[M + m] = mu1;
+      mu[2 * M + m] = mu2;
+      inv[M + m] = 1.0f / sqrtf(v1 / cnt + 1e-8f);
+      inv[2 * M + m] = 1.0f / sqrtf(v2 / cnt + 1e-8f);
+    }
   }
+}
+
+constexpr int REDUCE_THREADS = 1024;
+
+// The global statistics from launch 2's partial sums part [n], in a fixed
+// order (a thread a strided run, then a tree): pass 1 writes the mean
+// gstat[0] = sum / max(valid frames * D, 1), pass 2 the inverse standard
+// deviation gstat[1] = 1 / sqrt(sum / max(..) + 1e-8).
+__global__ void __launch_bounds__(REDUCE_THREADS)
+global_stat_reduce(const float* __restrict__ part, const int* __restrict__ feat_len,
+                   float* __restrict__ gstat, int n, int B, int T, int D, int pass) {
+  __shared__ float red[REDUCE_THREADS];
+  __shared__ int frames;
+  float s = 0.f;
+  for (int i = threadIdx.x; i < n; i += REDUCE_THREADS) s += part[i];
+  red[threadIdx.x] = s;
+  if (threadIdx.x == 0) {
+    int c = 0;
+    for (int b = 0; b < B; ++b) c += min(max(feat_len[b], 0), T);
+    frames = c;
+  }
+  __syncthreads();
+  for (int w = REDUCE_THREADS / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    const float denom = fmaxf((float)frames * (float)D, 1.0f);
+    gstat[pass - 1] = pass == 1 ? red[0] / denom : 1.0f / sqrtf(red[0] / denom + 1e-8f);
+  }
+}
+
+// normalization="none": new_len [B] only
+__global__ void lengths_kernel(const int* __restrict__ feat_len, int* __restrict__ new_len,
+                               int B, int T, int Tp, int stack, int skip) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b < B) new_len[b] = stacked_len(feat_len[b], T, Tp, stack, skip);
 }
 
 // The frames a chunk of stacked frames [tp0, tp1) reads, and the halo its
@@ -272,19 +374,23 @@ __host__ __device__ __forceinline__ ChunkFrames chunk_frames(int tp0, int tp1, i
   return c;
 }
 
-size_t writer_smem(int M, int chunk, int stack, int skip, int N) {
+// N is the delta window with deltas, else 0 (no halo)
+size_t writer_smem(int M, int chunk, int stack, int skip, int N, int deltas) {
   const int ns = (chunk - 1) * skip + stack + 4 * N;  // staged frames, at most
   const int ny = (chunk - 1) * skip + stack;          // output frames, at most
-  return ((size_t)2 * M * ns + (size_t)ny * 3 * M + (size_t)6 * M) * sizeof(float);
+  const int D = feature_width(M, deltas);
+  return ((size_t)(deltas ? 2 : 1) * M * ns + (size_t)ny * D + (size_t)2 * D) * sizeof(float);
 }
 
-// A block per (chunk of stacked frames, utterance): out [B, Tp, stack * 3M].
+// A block per (chunk of stacked frames, utterance): out [B, Tp, stack * D],
+// normalized by the utterance's statistics (norm 1), the batch's gstat
+// (norm 2) or not at all (norm 0).  N is 0 without deltas.
 template <int NT>
 __global__ void __launch_bounds__(WR_THREADS)
 writer_kernel(const float* __restrict__ logmel,  // [B, M, T]
               const int* __restrict__ feat_len, const float* __restrict__ stats,
-              float* __restrict__ out, int T, int M, int Tp, int stack, int skip, int N,
-              int chunk) {
+              const float* __restrict__ gstat, float* __restrict__ out, int T, int M, int Tp,
+              int stack, int skip, int N, int chunk, int deltas, int norm) {
   extern __shared__ __align__(16) float sm[];
   const int b = blockIdx.y;
   const int tp0 = blockIdx.x * chunk;
@@ -292,18 +398,20 @@ writer_kernel(const float* __restrict__ logmel,  // [B, M, T]
   const ChunkFrames c = chunk_frames(tp0, tp1, T, stack, skip, N);
   const int ns = c.s1 - c.s0 + 1;
   const int ny = c.tb - c.ta + 1;
-  const int D = 3 * M;
-  float* e_s = sm;                 // [M][ns]: log-mel frames s0..s1
-  float* d1_s = e_s + M * ns;      // [M][ns]: Δ at frames u0..u1 (index frame - s0)
-  float* y_s = d1_s + M * ns;      // [ny][D]: normalized features of frames ta..tb
-  float* st_s = y_s + ny * D;      // [6M]: means, inverse std
+  const int D = feature_width(M, deltas);
+  float* e_s = sm;                            // [M][ns]: log-mel frames s0..s1
+  float* d1_s = e_s + M * ns;                 // [M][ns]: Δ at frames u0..u1 (index frame - s0)
+  float* y_s = d1_s + (deltas ? M * ns : 0);  // [ny][D]: normalized features of frames ta..tb
+  float* st_s = y_s + ny * D;                 // [2D]: means, inverse std
   const int L = feat_len[b];
   const int Lc = min(max(L, 0), T);
   const int last = max(Lc - 1, 0);
   const int nl = stacked_len(L, T, Tp, stack, skip);
   const float denom = delta_denom(N);
 
-  for (int i = threadIdx.x; i < 2 * D; i += WR_THREADS) st_s[i] = stats[(size_t)b * 2 * D + i];
+  for (int i = threadIdx.x; i < 2 * D; i += WR_THREADS)
+    st_s[i] = norm == 1 ? stats[(size_t)b * 2 * D + i] : norm == 2 ? gstat[i < D ? 0 : 1]
+                                                                   : (i < D ? 0.f : 1.f);
   const float* src = logmel + (size_t)b * M * T;
   for (int i0 = 0; i0 < M * ns; i0 += 4 * WR_THREADS) {  // four loads in flight a thread
     float x[4];
@@ -322,7 +430,7 @@ writer_kernel(const float* __restrict__ logmel,  // [B, M, T]
     }
   }
   __syncthreads();
-  const int nu = c.u1 - c.u0 + 1;
+  const int nu = deltas ? c.u1 - c.u0 + 1 : 0;
   for (int i = threadIdx.x; i < M * nu; i += WR_THREADS) {
     const int m = i / nu;
     const int t = c.u0 + (i - m * nu);
@@ -334,14 +442,18 @@ writer_kernel(const float* __restrict__ logmel,  // [B, M, T]
     const int m = i - tl * M;
     const int t = c.ta + tl;
     float* y = y_s + tl * D + m;
+    // norm 0 keeps the raw features: (x - 0) * 1 is x
     if (t < Lc) {
       const int at = m * ns + t - c.s0;
-      y[0] = (e_s[at] - st_s[m]) * st_s[D + m];
-      y[M] = (d1_s[at] - st_s[M + m]) * st_s[D + M + m];
-      y[2 * M] = (delta_at<NT>(d1_s + m * ns, c.s0, t, T, N, denom) - st_s[2 * M + m]) *
-                 st_s[D + 2 * M + m];
+      y[0] = norm == 0 ? e_s[at] : (e_s[at] - st_s[m]) * st_s[D + m];
+      if (deltas) {
+        const float d2 = delta_at<NT>(d1_s + m * ns, c.s0, t, T, N, denom);
+        y[M] = norm == 0 ? d1_s[at] : (d1_s[at] - st_s[M + m]) * st_s[D + M + m];
+        y[2 * M] = norm == 0 ? d2 : (d2 - st_s[2 * M + m]) * st_s[D + 2 * M + m];
+      }
     } else {
-      y[0] = y[M] = y[2 * M] = 0.f;
+      y[0] = 0.f;
+      if (deltas) y[M] = y[2 * M] = 0.f;
     }
   }
   __syncthreads();
@@ -377,21 +489,26 @@ size_t mel_smem(int rows_per_block, int F, int M, int nw) {
 }  // namespace
 
 // Shared memory of launch 3's blocks (``kernels.logmel_writer_smem``).
-extern "C" long long avsr_logmel_writer_smem(int M, int chunk, int stack, int skip, int N) {
-  return (long long)writer_smem(M, chunk, stack, skip, N);
+extern "C" long long avsr_logmel_writer_smem(int M, int chunk, int stack, int skip, int N,
+                                             int deltas) {
+  return (long long)writer_smem(M, chunk, stack, skip, deltas ? N : 0, deltas);
 }
 
-// logmel: [B, M, T] fp32 scratch; stats: [B, 2, 3M] fp32 scratch;
-// out: [B, Tp, stack * 3M]; new_len: [B]; band [M, 3] int32 and weights
-// [nw] fp32 from kernels.mel_band_table.
+// logmel: [B, M, T] fp32 scratch; stats: [B, 2, D] fp32 scratch (D = 3M with
+// deltas, else M); gpart: [B * M * 3 + 2] fp32 scratch (the global
+// statistics' partial sums, then their mean and inverse std); out: [B, Tp,
+// stack * D]; new_len: [B]; band [M, 3] int32 and weights [nw] fp32 from
+// kernels.mel_band_table (the identity for the spectrogram); norm 0 none, 1
+// per utterance, 2 global.
 extern "C" int avsr_logmel_post_dft(const void* re, const void* im, const void* feat_len,
                                     const void* band, const void* weights, void* logmel,
-                                    void* stats, void* out, void* new_len, int B, int T, int F,
-                                    int M, int nw, int Tp, int stack, int skip, int delta_window,
-                                    int chunk, float log_floor, int stages, void* stream) {
+                                    void* stats, void* out, void* new_len, void* gpart, int B,
+                                    int T, int F, int M, int nw, int Tp, int stack, int skip,
+                                    int delta_window, int chunk, float log_floor, int deltas,
+                                    int norm, int stages, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (B < 0 || T < 0 || F < 1 || M < 1 || nw < 0 || Tp < 0 || stack < 1 || skip < 1 ||
-      delta_window < 0 || chunk < 1)
+      delta_window < 0 || chunk < 1 || norm < 0 || norm > 2 || (deltas && delta_window < 1))
     return (int)cudaErrorInvalidValue;
   const int rows = B * T;
   if ((stages & 1) && rows > 0) {
@@ -407,27 +524,47 @@ extern "C" int avsr_logmel_post_dft(const void* re, const void* im, const void* 
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  const bool n2 = delta_window == 2;  // the presets' window, unrolled
-  if ((stages & 2) && B > 0) {
+  const bool n2 = deltas && delta_window == 2;  // the presets' window, unrolled
+  const int N = deltas ? delta_window : 0;
+  const int D = feature_width(M, deltas);
+  float* part = static_cast<float*>(gpart);
+  float* gstat = part + (size_t)B * M * 3;
+  if ((stages & 2) && B > 0 && norm == 0) {
+    lengths_kernel<<<(B + 127) / 128, 128, 0, st>>>(static_cast<const int*>(feat_len),
+                                                    static_cast<int*>(new_len), B, T, Tp, stack,
+                                                    skip);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  } else if ((stages & 2) && B > 0) {
     const size_t smem = (size_t)2 * T * sizeof(float);
     const void* fn = n2 ? (const void*)stats_kernel<2> : (const void*)stats_kernel<0>;
     cudaError_t e = allow_smem(fn, smem);
     if (e != cudaSuccess) return (int)e;
-    if (n2)
-      stats_kernel<2><<<B * M, STAT_THREADS, smem, st>>>(
-          static_cast<const float*>(logmel), static_cast<const int*>(feat_len),
-          static_cast<float*>(stats), static_cast<int*>(new_len), T, M, Tp, stack, skip,
-          delta_window);
-    else
-      stats_kernel<0><<<B * M, STAT_THREADS, smem, st>>>(
-          static_cast<const float*>(logmel), static_cast<const int*>(feat_len),
-          static_cast<float*>(stats), static_cast<int*>(new_len), T, M, Tp, stack, skip,
-          delta_window);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
+    const int passes = norm == 1 ? 1 : 2;
+    for (int pass = 1; pass <= passes; ++pass) {
+      const int mode = norm == 1 ? STATS_UTTERANCE : pass == 1 ? STATS_GLOBAL_SUM : STATS_GLOBAL_SQ;
+      if (n2)
+        stats_kernel<2><<<B * M, STAT_THREADS, smem, st>>>(
+            static_cast<const float*>(logmel), static_cast<const int*>(feat_len),
+            static_cast<float*>(stats), static_cast<int*>(new_len), part, gstat, T, M, Tp,
+            stack, skip, delta_window, deltas, mode);
+      else
+        stats_kernel<0><<<B * M, STAT_THREADS, smem, st>>>(
+            static_cast<const float*>(logmel), static_cast<const int*>(feat_len),
+            static_cast<float*>(stats), static_cast<int*>(new_len), part, gstat, T, M, Tp,
+            stack, skip, delta_window, deltas, mode);
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return (int)e;
+      if (norm == 2) {
+        global_stat_reduce<<<1, REDUCE_THREADS, 0, st>>>(part, static_cast<const int*>(feat_len),
+                                                         gstat, B * M * 3, B, T, D, pass);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+      }
+    }
   }
   if ((stages & 4) && B > 0 && Tp > 0) {
-    const size_t smem = writer_smem(M, chunk, stack, skip, delta_window);
+    const size_t smem = writer_smem(M, chunk, stack, skip, N, deltas);
     const void* fn = n2 ? (const void*)writer_kernel<2> : (const void*)writer_kernel<0>;
     cudaError_t e = allow_smem(fn, smem);
     if (e != cudaSuccess) return (int)e;
@@ -435,13 +572,13 @@ extern "C" int avsr_logmel_post_dft(const void* re, const void* im, const void* 
     if (n2)
       writer_kernel<2><<<grid, WR_THREADS, smem, st>>>(
           static_cast<const float*>(logmel), static_cast<const int*>(feat_len),
-          static_cast<const float*>(stats), static_cast<float*>(out), T, M, Tp, stack, skip,
-          delta_window, chunk);
+          static_cast<const float*>(stats), gstat, static_cast<float*>(out), T, M, Tp, stack,
+          skip, N, chunk, deltas, norm);
     else
       writer_kernel<0><<<grid, WR_THREADS, smem, st>>>(
           static_cast<const float*>(logmel), static_cast<const int*>(feat_len),
-          static_cast<const float*>(stats), static_cast<float*>(out), T, M, Tp, stack, skip,
-          delta_window, chunk);
+          static_cast<const float*>(stats), gstat, static_cast<float*>(out), T, M, Tp, stack,
+          skip, N, chunk, deltas, norm);
   }
   return (int)cudaGetLastError();
 }

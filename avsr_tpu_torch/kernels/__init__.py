@@ -46,20 +46,26 @@ NVCC_FLAGS = (
 # The LSTM kernels count a one-direction scan (G = 1, K2) apart from the
 # direction-fused one (K1), and a scan under a recurrent-dropout mask
 # (``*_rd_*``, train mode) apart from an unmasked one; the GRU scan (K12)
-# counts G = 1 apart (``gru_scan_uni_*``); the Bahdanau read kernels count a Luong (dot
+# counts G = 1 apart (``gru_scan_uni_*``), and the LN-LSTM scan (K13) both
+# (``ln_lstm_scan[_uni][_rd]_*``); the Bahdanau read kernels count a Luong (dot
 # score) read apart from an additive one.  K10's backward counts its
 # per-step kernel per step (``*_attend_bwd``) and the memory's sums per
 # loop (``*_attend_sums``).  K9's forward counts the pass over time
 # (``conformer_conv_fwd``) apart from the tiles (``conformer_conv_fwd_tiles``,
 # other shapes).  K10's forward counts the grouped read
 # (``*_attend_grouped``), the row read (``*_attend_row``) and the general
-# kernel (``*_attend``) apart.
+# kernel (``*_attend``) apart.  K3 counts the frontend's option instances
+# (spectrogram, no deltas, global or no normalization) apart from the
+# presets' log-mel one.
 LAUNCHES: Dict[str, int] = {
     "lstm_scan_fwd": 0, "lstm_scan_bwd": 0, "lstm_scan_uni_fwd": 0, "lstm_scan_uni_bwd": 0,
     "lstm_scan_rd_fwd": 0, "lstm_scan_rd_bwd": 0, "lstm_scan_uni_rd_fwd": 0,
     "lstm_scan_uni_rd_bwd": 0,
     "gru_scan_fwd": 0, "gru_scan_bwd": 0, "gru_scan_uni_fwd": 0, "gru_scan_uni_bwd": 0,
-    "logmel_post_dft": 0,
+    "ln_lstm_scan_fwd": 0, "ln_lstm_scan_bwd": 0, "ln_lstm_scan_uni_fwd": 0,
+    "ln_lstm_scan_uni_bwd": 0, "ln_lstm_scan_rd_fwd": 0, "ln_lstm_scan_rd_bwd": 0,
+    "ln_lstm_scan_uni_rd_fwd": 0, "ln_lstm_scan_uni_rd_bwd": 0,
+    "logmel_post_dft": 0, "logmel_post_dft_options": 0,
     "fusion_attention_fwd": 0, "fusion_attention_bwd": 0,
     "decoder_attention_fwd": 0, "decoder_attention_bwd": 0,
     "decode_attention": 0, "beam_step": 0, "av_align_scan": 0, "av_align_scan_bwd": 0,
@@ -190,6 +196,12 @@ def _load() -> ctypes.CDLL:
         lib.avsr_gru_scan_fwd.restype = i
         lib.avsr_gru_scan_bwd.argtypes = [p] * 13 + [i] * 4 + [p]
         lib.avsr_gru_scan_bwd.restype = i
+        lib.avsr_ln_lstm_smem.argtypes = [i, i]
+        lib.avsr_ln_lstm_smem.restype = ctypes.c_longlong
+        lib.avsr_ln_lstm_scan_fwd.argtypes = [p] * 14 + [i] * 4 + [p]
+        lib.avsr_ln_lstm_scan_fwd.restype = i
+        lib.avsr_ln_lstm_scan_bwd.argtypes = [p] * 15 + [i] * 4 + [p]
+        lib.avsr_ln_lstm_scan_bwd.restype = i
         lib.avsr_lstm_cluster_smem.argtypes = [i, i]
         lib.avsr_lstm_cluster_smem.restype = ctypes.c_longlong
         lib.avsr_lstm_cluster_max_active.argtypes = [i, i]
@@ -198,9 +210,9 @@ def _load() -> ctypes.CDLL:
         lib.avsr_fusion_attn_fwd.restype = i
         lib.avsr_fusion_attn_bwd.argtypes = [p] * 11 + [i] * 6 + [p]
         lib.avsr_fusion_attn_bwd.restype = i
-        lib.avsr_logmel_post_dft.argtypes = [p] * 9 + [i] * 10 + [f, i, p]
+        lib.avsr_logmel_post_dft.argtypes = [p] * 10 + [i] * 10 + [f] + [i] * 3 + [p]
         lib.avsr_logmel_post_dft.restype = i
-        lib.avsr_logmel_writer_smem.argtypes = [i] * 5
+        lib.avsr_logmel_writer_smem.argtypes = [i] * 6
         lib.avsr_logmel_writer_smem.restype = ctypes.c_longlong
         lib.avsr_fusion_attn_core_fwd.argtypes = [p] * 6 + [i] * 6 + [p]
         lib.avsr_fusion_attn_core_fwd.restype = i
@@ -624,6 +636,118 @@ def gru_scan_bwd(wh, b, xw, mask, h_res, dys, dhT):
     return dxw, db, dh0, dhw
 
 
+LN_LSTM_MAX_H = 512  # two column quads a thread of 256 (NQ in ln_lstm_scan.cu)
+LN_LSTM_ROWS = 4     # batch rows a block of K13 (BR in ln_lstm_scan.cu)
+
+
+def ln_lstm_smem(H: int, backward: bool) -> int:
+    """Shared memory of one block of K13 at width H (``csrc/ln_lstm_scan.cu``
+    ``fwd_floats`` / ``bwd_floats``): the forward's operand, gates, carries
+    and statistics, BR * (8H + 11) floats; the backward's normalised gates,
+    their cotangents (and transposed), the saved carry, the cell's state and
+    cotangents, BR * (17H + 21) floats."""
+    return 4 * LN_LSTM_ROWS * ((17 * H + 21) if backward else (8 * H + 11))
+
+
+def ln_lstm_family(G: int, B: int, H: int) -> str:
+    """The kernel that runs an LN-LSTM scan (K13) of G directions, B rows and
+    width H: "block", one persistent launch a call, a block a (direction,
+    tile of ``LN_LSTM_ROWS`` rows) owning all 4H gate columns
+    (``csrc/ln_lstm_scan.cu``), at every multiple of 4 up to
+    ``LN_LSTM_MAX_H`` (the presets' encoders have H = 256; the LSTM kernels
+    K1 / K2 take multiples of 16) and any T.  Chosen by shape alone; other
+    shapes raise."""
+    if G < 1 or B < 1 or not 4 <= H <= LN_LSTM_MAX_H or H % 4:
+        raise ValueError(f"ln_lstm scan: G={G}, B={B}, H={H}; the kernel takes G, B >= 1 and "
+                         f"H a multiple of 4 up to {LN_LSTM_MAX_H}")
+    return "block"
+
+
+def _check_ln_lstm(wh, b, lng, lncg, lncb, mask, T, G, B, H, dev):
+    _check("wh", wh, torch.bfloat16, (G, H, 4 * H), dev)
+    _check("b", b, torch.float32, (G, 4 * H), dev)
+    _check("ln_gamma", lng, torch.float32, (G, 4 * H), dev)
+    _check("ln_cell_gamma", lncg, torch.float32, (G, H), dev)
+    _check("ln_cell_beta", lncb, torch.float32, (G, H), dev)
+    _check("mask", mask, torch.float32, (T, G, B), dev)
+    return ln_lstm_family(G, B, H)
+
+
+def ln_lstm_scan_fwd(wh, b, lng, lncg, lncb, xw, mask, h0, c0, *, save: bool = False,
+                     rd=None):
+    """K13: direction-batched masked LN-LSTM recurrence, forward (CUDA), one
+    launch; counted as ``ln_lstm_scan[_uni][_rd]_fwd`` (G = 1 and a
+    recurrent-dropout mask apart).
+
+    wh [G,H,4H] bf16, b / lng [G,4H] f32, lncg / lncb [G,H] f32, xw
+    [T,G,B,4H] bf16, mask [T,G,B] f32, h0 / c0 [G,B,H] f32, rd [G,B,H] f32 or
+    None -> (ys [T,G,B,H] bf16, hT, cT [G,B,H] f32, h_res, c_res, z): when
+    ``save``, each step's bf16 operand bf16(h * rd) and the fp32 carry c
+    entering it [T,G,B,H] and its fp32 pre-LN gates [T,G,B,4H], else None.
+    """
+    T, G, B, H4 = xw.shape
+    H = H4 // 4
+    dev = xw.device
+    _check_ln_lstm(wh, b, lng, lncg, lncb, mask, T, G, B, H, dev)
+    _check("xw", xw, torch.bfloat16, (T, G, B, 4 * H), dev)
+    _check("h0", h0, torch.float32, (G, B, H), dev)
+    _check("c0", c0, torch.float32, (G, B, H), dev)
+    _check_rd(rd, G, B, H, dev)
+    h, c = h0.clone(), c0.clone()
+    ys = torch.empty((T, G, B, H), dtype=torch.bfloat16, device=dev)
+    h_res = c_res = z = None
+    if save:
+        h_res = torch.empty((T, G, B, H), dtype=torch.bfloat16, device=dev)
+        c_res = torch.empty((T, G, B, H), dtype=torch.float32, device=dev)
+        z = torch.empty((T, G, B, 4 * H), dtype=torch.float32, device=dev)
+    err = _load().avsr_ln_lstm_scan_fwd(
+        wh.data_ptr(), b.data_ptr(), lng.data_ptr(), lncg.data_ptr(), lncb.data_ptr(),
+        xw.data_ptr(), mask.data_ptr(), _ptr(rd), h.data_ptr(), c.data_ptr(), ys.data_ptr(),
+        _ptr(h_res), _ptr(c_res), _ptr(z), T, G, B, H,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "ln_lstm_scan_fwd launch")
+    LAUNCHES[_lstm_counter("ln_lstm_scan_fwd", G, rd)] += 1
+    return ys, h, c, h_res, c_res, z
+
+
+def ln_lstm_scan_bwd(wh, b, lng, lncg, lncb, mask, c_res, z, dys, dhT, dcT, *, rd=None):
+    """K13: the reverse scan of the LN-LSTM's gradient (CUDA), one launch and
+    the parameter sums' reduce; counted as ``ln_lstm_scan[_uni][_rd]_bwd``.
+
+    The forward's parameters and mask, its saved c_res [T,G,B,H] f32 and z
+    [T,G,B,4H] f32, the cotangents dys [T,G,B,H] bf16, dhT / dcT [G,B,H] f32
+    -> (dxw [T,G,B,4H] bf16 (= bf16(dz)), db, dln_gamma [G,4H], dln_cell_gamma,
+    dln_cell_beta [G,H], dh0, dc0 [G,B,H], all f32).  dWh = h_res^T dxw, one
+    product over all steps, is the caller's.
+    """
+    T, G, B, H4 = z.shape
+    H = H4 // 4
+    dev = z.device
+    _check_ln_lstm(wh, b, lng, lncg, lncb, mask, T, G, B, H, dev)
+    _check("c_res", c_res, torch.float32, (T, G, B, H), dev)
+    _check("z", z, torch.float32, (T, G, B, 4 * H), dev)
+    _check("dys", dys, torch.bfloat16, (T, G, B, H), dev)
+    _check("dhT", dhT, torch.float32, (G, B, H), dev)
+    _check("dcT", dcT, torch.float32, (G, B, H), dev)
+    _check_rd(rd, G, B, H, dev)
+    if T < 1:
+        raise ValueError("ln_lstm_scan_bwd: needs at least one step")
+    whT = wh.transpose(1, 2).contiguous()  # alive until the launch is queued
+    dh, dc = dhT.clone(), dcT.clone()
+    dxw = torch.empty((T, G, B, 4 * H), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((G, -(-B // LN_LSTM_ROWS), 10 * H), dtype=torch.float32, device=dev)
+    grads = torch.empty((G, 10 * H), dtype=torch.float32, device=dev)
+    err = _load().avsr_ln_lstm_scan_bwd(
+        whT.data_ptr(), b.data_ptr(), lng.data_ptr(), lncg.data_ptr(), lncb.data_ptr(),
+        mask.data_ptr(), _ptr(rd), c_res.data_ptr(), z.data_ptr(), dys.data_ptr(),
+        dh.data_ptr(), dc.data_ptr(), dxw.data_ptr(), part.data_ptr(), grads.data_ptr(),
+        T, G, B, H, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "ln_lstm_scan_bwd launch")
+    LAUNCHES[_lstm_counter("ln_lstm_scan_bwd", G, rd)] += 1
+    db, dlng, dlncg, dlncb = grads.split((4 * H, 4 * H, H, H), dim=1)
+    return dxw, db, dlng, dlncg, dlncb, dh, dc
+
+
 def mel_band_table(mel_w) -> Tuple[np.ndarray, np.ndarray]:
     """K3's banded mel matrix from the dense one ([F, M], numpy): band [M, 3]
     int32 (first bin, count, offset into the weights) and the weights
@@ -651,25 +775,32 @@ def mel_band_table(mel_w) -> Tuple[np.ndarray, np.ndarray]:
 LOGMEL_STAGES = 7  # K3's three launches: 1 the mel product, 2 the statistics, 4 the writer
 LOGMEL_CHUNKS = (16, 8, 4, 2, 1)  # stacked frames a block of K3's writer, largest first
 WAVE_BLOCKS = 132  # one block an SM of an H100
+# K3's normalizations (``AudioFrontendConfig.normalization``) as the kernel's codes
+LOGMEL_NORMS = {"none": 0, "per_utterance": 1, "global": 2}
 
 
-def logmel_writer_smem(M: int, chunk: int, stack: int, skip: int, N: int) -> int:
+def logmel_writer_smem(M: int, chunk: int, stack: int, skip: int, N: int,
+                       deltas: bool = True) -> int:
     """Shared memory of a block of K3's writer (``writer_smem`` in
-    ``csrc/logmel.cu``): the staged log-mel and Δ of the chunk's frames with
-    their 2N halo, its normalized features and the utterance's statistics."""
+    ``csrc/logmel.cu``): the staged log-mel (and, with deltas, Δ) of the
+    chunk's frames with their 2N halo (none without deltas), its normalized
+    features (3M or M a frame) and the statistics."""
+    N = N if deltas else 0
+    D = 3 * M if deltas else M
     ns = (chunk - 1) * skip + stack + 4 * N
     ny = (chunk - 1) * skip + stack
-    return 4 * (2 * M * ns + ny * 3 * M + 6 * M)
+    return 4 * ((2 if deltas else 1) * M * ns + ny * D + 2 * D)
 
 
 def logmel_writer_chunk(B: int, Tp: int, M: int = 30, stack: int = 8, skip: int = 3,
-                        N: int = 2) -> int:
+                        N: int = 2, deltas: bool = True) -> int:
     """Stacked frames a block of K3's writer takes: the largest chunk whose
     blocks fit shared memory and still number two an SM (a request's B = 8
     has few utterances, so its blocks come from time); else the smallest."""
-    fits = [c for c in LOGMEL_CHUNKS if logmel_writer_smem(M, c, stack, skip, N) <= SMEM_LIMIT]
+    fits = [c for c in LOGMEL_CHUNKS
+            if logmel_writer_smem(M, c, stack, skip, N, deltas) <= SMEM_LIMIT]
     if not fits:
-        raise ValueError(f"logmel: {M} mel bins, stack {stack}, skip {skip}, window {N}: a "
+        raise ValueError(f"logmel: {M} bins, stack {stack}, skip {skip}, window {N}: a "
                          "stacked frame does not fit one block")
     for chunk in fits:
         if B * -(-Tp // chunk) >= 2 * WAVE_BLOCKS:
@@ -683,7 +814,7 @@ def logmel_stats_fits(T: int) -> bool:
     return 8 * T <= SMEM_LIMIT
 
 
-def _check_logmel(re, im, feat_len, band, weights):
+def _check_logmel(re, im, feat_len, band, weights, normalization):
     B, T, F = re.shape
     M = band.shape[0]
     dev = re.device
@@ -694,60 +825,75 @@ def _check_logmel(re, im, feat_len, band, weights):
     _check("weights", weights, torch.float32, tuple(weights.shape), dev)
     if weights.dim() != 1 or not logmel_stats_fits(T):
         raise ValueError(f"logmel: weights of shape {tuple(weights.shape)} or T={T} frames")
+    if normalization not in LOGMEL_NORMS:
+        raise ValueError(f"logmel: unknown normalization {normalization!r}")
     return B, T, F, M, dev
 
 
 def _logmel_launch(re, im, feat_len, band, weights, scratch, log_floor, delta_window, stack,
-                   skip, stages):
+                   skip, deltas, normalization, stages):
     B, T, F = re.shape
     M = band.shape[0]
-    logmel, stats, out, new_len = scratch
+    logmel, stats, out, new_len, gpart = scratch
     Tp = out.shape[1]
-    chunk = logmel_writer_chunk(B, Tp, M, stack, skip, delta_window)
+    chunk = logmel_writer_chunk(B, Tp, M, stack, skip, delta_window, deltas)
     err = _load().avsr_logmel_post_dft(
         re.data_ptr(), im.data_ptr(), feat_len.data_ptr(), band.data_ptr(), weights.data_ptr(),
         logmel.data_ptr(), stats.data_ptr(), out.data_ptr(), new_len.data_ptr(),
-        B, T, F, M, weights.shape[0], Tp, stack, skip, delta_window, chunk, float(log_floor),
-        stages, torch.cuda.current_stream(re.device).cuda_stream)
+        gpart.data_ptr(), B, T, F, M, weights.shape[0], Tp, stack, skip, delta_window, chunk,
+        float(log_floor), int(deltas), LOGMEL_NORMS[normalization], stages,
+        torch.cuda.current_stream(re.device).cuda_stream)
     _raise_on(err, "logmel_post_dft launch")
 
 
-def logmel_scratch(B: int, T: int, M: int, stack: int, skip: int, dev):
-    """K3's scratch and outputs: (logmel [B, M, T], stats [B, 2, 3M], out
-    [B, T', 3M * stack], new_len [B])."""
+def logmel_scratch(B: int, T: int, M: int, stack: int, skip: int, dev, deltas: bool = True):
+    """K3's scratch and outputs: (logmel [B, M, T], stats [B, 2, D], out
+    [B, T', D * stack], new_len [B], gpart [B * M * 3 + 2]: the global
+    statistics' partial sums, then their mean and inverse std), D = 3M with
+    deltas, else M."""
     Tp = max(0, (T - stack) // skip + 1)
+    D = 3 * M if deltas else M
     return (torch.empty((B, M, T), dtype=torch.float32, device=dev),
-            torch.empty((B, 2, 3 * M), dtype=torch.float32, device=dev),
-            torch.empty((B, Tp, 3 * M * stack), dtype=torch.float32, device=dev),
-            torch.empty((B,), dtype=torch.int32, device=dev))
+            torch.empty((B, 2, D), dtype=torch.float32, device=dev),
+            torch.empty((B, Tp, D * stack), dtype=torch.float32, device=dev),
+            torch.empty((B,), dtype=torch.int32, device=dev),
+            torch.empty((B * M * 3 + 2,), dtype=torch.float32, device=dev))
 
 
 def logmel_stages(re, im, feat_len, band, weights, scratch, *, log_floor: float,
-                  delta_window: int, stack: int, skip: int, stages: int) -> None:
+                  delta_window: int, stack: int, skip: int, stages: int, deltas: bool = True,
+                  normalization: str = "per_utterance") -> None:
     """K3's launches of ``stages`` (bits of ``LOGMEL_STAGES``) into
     ``scratch`` (``logmel_scratch``'s tensors): chip_smoke times the three
     apart.  Counts no launch."""
-    B, T, F, M, dev = _check_logmel(re, im, feat_len, band, weights)
-    for name, x, want in zip(("logmel", "stats", "out", "new_len"), scratch,
-                             logmel_scratch(0, T, M, stack, skip, "meta")):
-        _check(name, x, want.dtype, (B, *want.shape[1:]), dev)
+    B, T, F, M, dev = _check_logmel(re, im, feat_len, band, weights, normalization)
+    for name, x, want in zip(("logmel", "stats", "out", "new_len", "gpart"), scratch,
+                             logmel_scratch(B, T, M, stack, skip, "meta", deltas)):
+        _check(name, x, want.dtype, tuple(want.shape), dev)
     _logmel_launch(re, im, feat_len, band, weights, scratch, log_floor, delta_window, stack,
-                   skip, stages)
+                   skip, deltas, normalization, stages)
 
 
 def logmel_post_dft(re, im, feat_len, band, weights, *, log_floor: float,
-                    delta_window: int, stack: int, skip: int):
-    """K3: power -> mel -> log -> Δ/ΔΔ -> masked CMVN -> stack (CUDA).
+                    delta_window: int, stack: int, skip: int, deltas: bool = True,
+                    normalization: str = "per_utterance"):
+    """K3: power -> banded product (the mel matrix, or the identity for the
+    spectrogram) -> log -> Δ/ΔΔ (``deltas``) -> normalization (per
+    utterance, global over the batch, or none) -> stack (CUDA).
 
-    re/im [B,T,F] f32, feat_len [B] int32, the banded mel matrix (band [M,
-    3] int32, weights f32, ``mel_band_table``) -> (features [B,T',3*M*stack]
-    f32, lengths [B] int32).
+    re/im [B,T,F] f32, feat_len [B] int32, the banded matrix (band [M, 3]
+    int32, weights f32, ``mel_band_table``) -> (features [B,T',D*stack]
+    f32, D = 3M with deltas else M, lengths [B] int32).  The presets'
+    instance (a mel band of M < F bins, deltas, per-utterance) counts as
+    ``logmel_post_dft``, every other (the spectrogram's band holds all F
+    bins) as ``logmel_post_dft_options``.
     """
-    B, T, F, M, dev = _check_logmel(re, im, feat_len, band, weights)
-    scratch = logmel_scratch(B, T, M, stack, skip, dev)
+    B, T, F, M, dev = _check_logmel(re, im, feat_len, band, weights, normalization)
+    scratch = logmel_scratch(B, T, M, stack, skip, dev, deltas)
     _logmel_launch(re, im, feat_len, band, weights, scratch, log_floor, delta_window, stack,
-                   skip, LOGMEL_STAGES)
-    LAUNCHES["logmel_post_dft"] += 1
+                   skip, deltas, normalization, LOGMEL_STAGES)
+    default = M < F and deltas and normalization == "per_utterance"
+    LAUNCHES["logmel_post_dft" if default else "logmel_post_dft_options"] += 1
     return scratch[2], scratch[3]
 
 

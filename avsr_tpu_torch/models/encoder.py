@@ -1,8 +1,10 @@
 """Encoder stacks (counterpart of ``avsr_tpu/models/encoder.py``): the
 stacked BiLSTM (one direction-fused K1 scan per layer) or, with
 ``bidirectional=False``, the stacked one-direction LSTM (one K2 scan per
-layer); with ``cell_type="gru"`` the same stacks of GRU layers (one K12
-scan per layer); and ``encoder_type="transformer"`` dispatched to
+layer); with ``layer_norm`` the same stacks of LN-LSTM layers (one K13
+scan per layer, either way); with ``cell_type="gru"`` the same stacks of
+GRU layers (one K12 scan per layer; GRU cells ignore ``layer_norm``, as the
+reference's do); and ``encoder_type="transformer"`` dispatched to
 ``models/transformer.py`` (the ``lrs2_av_v2`` preset's encoders).
 
 Time-major [T, B, D] throughout.  Pyramidal time reduction folds r
@@ -16,8 +18,8 @@ inverted dropout on the output; each transformer layer gets its
 residual-branch dropout instead.  In train mode an LSTM layer also draws
 variational recurrent dropout masks (``recurrent_dropout_rate``, two [B, H]
 masks a layer, one a direction, as the reference draws them; GRU layers
-ignore the rate, as the reference's do).  All draws come from the step's
-generator.  LN-LSTM cells (``layer_norm``) are not ported and raise.
+ignore the rate, as the reference's do; LN-LSTM layers take the masks on
+K13).  All draws come from the step's generator.
 """
 
 from __future__ import annotations
@@ -68,8 +70,6 @@ def _check_supported(cfg: EncoderConfig) -> None:
         raise ValueError(
             "EncoderConfig.conv_kernel is transformer-only (the conformer conv module); the "
             "RNN stack is already local")
-    if cfg.layer_norm:
-        raise ValueError(rnn.LN_LSTM_UNPORTED)
     if cfg.cell_type not in ("lstm", "gru"):
         raise ValueError(f"unknown cell type {cfg.cell_type}")
 
@@ -83,9 +83,11 @@ def encoder_init(gen: torch.Generator, cfg: EncoderConfig, input_dim: int,
     d = input_dim
     for h, r in zip(cfg.hidden_units, time_reductions(cfg)):
         d *= r
-        layer = {"fwd": rnn.cell_init(cfg.cell_type, gen, d, h, device)}
+        layer = {"fwd": rnn.cell_init(cfg.cell_type, gen, d, h, device,
+                                      layer_norm=cfg.layer_norm)}
         if cfg.bidirectional:
-            layer["bwd"] = rnn.cell_init(cfg.cell_type, gen, d, h, device)
+            layer["bwd"] = rnn.cell_init(cfg.cell_type, gen, d, h, device,
+                                         layer_norm=cfg.layer_norm)
         d_out = 2 * h if cfg.bidirectional else h
         if cfg.highway and d == d_out:
             # transform-gate bias -1: the layer starts close to carrying its input

@@ -30,9 +30,10 @@ decoder, the cross-entropy and (``av_align``) the AU regression loss;
 ``loss_given_encode`` does the same from an encode already made.
 
 Randomness (noise draws, dropout masks) comes from ONE generator per
-call, drawn in a fixed order: noise, the audio encoder's layers, the video
-encoder's, then the decoder's.  SpecAugment and ``train.remat`` are not
-ported and raise.
+call, drawn in a fixed order: noise, SpecAugment's masks (``cfg.audio.
+spec_augment``, train mode, after the frontend), the audio encoder's
+layers, the video encoder's, then the decoder's.  ``train.remat`` is not
+ported and raises.
 
 Layouts: frontends batch-major [B, T, D]; the recurrent core time-major
 [T, B, D]; decoder memories batch-major [B, S, H].
@@ -53,6 +54,7 @@ from avsr_tpu_torch.models import video_cnn
 from avsr_tpu_torch.ops import attention as attn
 from avsr_tpu_torch.ops import noise as noise_ops
 from avsr_tpu_torch.ops.audio_features import logmel_frontend
+from avsr_tpu_torch.ops.specaugment import spec_augment
 from avsr_tpu_torch.utils.numerics import compute_dtype_of
 from avsr_tpu_torch.utils.params import Params
 
@@ -187,8 +189,6 @@ def encode(params: Params, cfg: ExperimentConfig, batch: Batch, *, train: bool =
     _check_supported(cfg)
     if train and cfg.train.remat:
         raise ValueError("train.remat is not ported")
-    if train and cfg.audio.spec_augment:
-        raise ValueError("SpecAugment is not ported")
     arch = cfg.architecture
     cdt = compute_dtype_of(cfg)
     aux: Dict[str, Any] = {}
@@ -199,6 +199,11 @@ def encode(params: Params, cfg: ExperimentConfig, batch: Batch, *, train: bool =
             wav = wav.float() / 32767.0  # compact-transfer PCM
         wav = _noisy_waveform(cfg, batch, wav, train, generator, noise_bank, eval_snr)
         feats, feat_len = logmel_frontend(wav, batch.audio_lengths, cfg.audio, cdt=cdt)
+        if train and cfg.audio.spec_augment and generator is not None:
+            a = cfg.audio
+            feats = spec_augment(generator, feats, feat_len, num_time_masks=a.time_masks,
+                                 time_mask_width=a.time_mask_width,
+                                 num_freq_masks=a.freq_masks, freq_mask_width=a.freq_mask_width)
         aux["audio_frontend_lengths"] = feat_len
 
     if uses_video(cfg):

@@ -42,7 +42,8 @@ weight gradients as one product over the steps, so no step forms a
 memory-sized gradient.  ``attend_bwd_plain`` is the per-step twin (the
 hand-derived gradient JAX's autodiff takes through one read, with its
 rounding points) against which the tests hold the loop.
-``attend_batched_queries`` is not ported.
+``attend_batched_queries`` (every query of a known sequence at once) is
+plain PyTorch, as the reference leaves it to XLA; no module calls it.
 """
 
 from __future__ import annotations
@@ -167,6 +168,28 @@ def attend_plain(attention_type: str, params: Params, query: torch.Tensor,
     weights = weights * torch.clamp(mem.mask.sum(dim=-1, keepdim=True), max=1.0)
     context = torch.einsum("ns,nsh->nh", weights.to(cdt).float(), mem.values.to(cdt).float())
     return context, weights
+
+
+def attend_batched_queries(attention_type: str, params: Params, queries: torch.Tensor,
+                           mem: AttentionMemory, cdt: torch.dtype
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All-timesteps attention (the reference's ``attend_batched_queries``):
+    queries [B, T, Q] over the memory [B, S, .] -> (contexts [B, T, V] fp32,
+    weights [B, T, S] fp32), the weights renormalised over the valid
+    positions with the reference's 1e-9 floor (an empty memory's rows are
+    0); compute-dtype operands, fp32 products."""
+    _check_type(attention_type)
+    q = dot_f32(queries, params["wq"], cdt)                      # [B, T, A] (Luong: [B, T, H])
+    if attention_type == "bahdanau":
+        e = torch.tanh(mem.keys[:, None, :, :] + q[:, :, None, :])  # [B, T, S, A] fp32
+        scores = torch.einsum("btsa,a->bts", e.to(cdt).float(), params["v"].to(cdt).float())
+    else:
+        scores = torch.einsum("bth,bsh->bts", q.to(cdt).float(), mem.keys.to(cdt).float())
+    scores = scores + mem.bias[:, None, :]
+    weights = torch.softmax(scores, dim=-1) * mem.mask[:, None, :]
+    weights = weights / torch.clamp(weights.sum(dim=-1, keepdim=True), min=1e-9)
+    contexts = torch.einsum("bts,bsh->bth", weights.to(cdt).float(), mem.values.to(cdt).float())
+    return contexts, weights
 
 
 def attend_fwd(attention_type: str, params: Params, query: torch.Tensor, mem: AttentionMemory,

@@ -2,13 +2,20 @@
 
 Same pipeline and layouts as the reference: framing by gather, a
 Hann-windowed real DFT as two matmuls (compute-dtype operands, fp32
-accumulation), the power spectrum, a mel product, ``log(. + floor)``,
-edge-clamped Δ/ΔΔ, per-utterance masked normalization, zeroing of padded
-frames, and stack/skip framing.  Batch-major [B, T, D]; lengths are int32.
+accumulation) or, with ``use_matmul_dft=False``, ``torch.fft.rfft`` of the
+windowed fp32 frames (the reference's XLA rfft: a library call in both),
+the power spectrum, a mel product (``feature_type="logmel"``) or none
+(``"spectrogram"``: the fft/2+1 bins), ``log(. + floor)``, edge-clamped
+Δ/ΔΔ (``add_deltas``), masked normalization (``"per_utterance"``,
+``"global"`` over every valid frame and feature of the batch, or
+``"none"``), zeroing of padded frames, and stack/skip framing.
+Batch-major [B, T, D]; lengths are int32.
 
 Everything after the DFT is kernel K3: ``logmel_post_dft`` launches the
 CUDA kernel (``csrc/logmel.cu``) for tensors on a GPU and runs
-``logmel_post_dft_plain`` for tensors on the CPU.  The mel filterbank and
+``logmel_post_dft_plain`` for tensors on the CPU; each option is an
+instance of the kernel's launches (the spectrogram's banded matrix is the
+identity).  The mel filterbank and
 the DFT matrices are numpy copies of the reference's (its module imports
 jax); ``tests/test_torch_audio_features.py`` holds them equal.  Their
 tensors (the DFT matrices rounded to the compute dtype, the dense mel
@@ -104,16 +111,25 @@ def _dft_operands(frame_length: int, fft_length: int, device: torch.device,
 
 
 def stft(wav: torch.Tensor, frame_length: int, frame_step: int, fft_length: int,
-         cdt: torch.dtype = torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+         cdt: torch.dtype = torch.float32, use_matmul_dft: bool = True
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[B, S] -> (re, im) [B, T, fft_length//2+1] fp32 via the matmul DFT
-    (``dot_f32``'s rounding: compute-dtype operands, fp32 products)."""
+    (``dot_f32``'s rounding: compute-dtype operands, fp32 products), or
+    ``torch.fft.rfft`` of the Hann-windowed fp32 frames (zero-padded or
+    truncated to ``fft_length``)."""
+    if not use_matmul_dft:
+        frames = frame_signal(wav, frame_length, frame_step).float()
+        frames = frames * torch.from_numpy(hann_window(frame_length)).to(wav.device)
+        spec = torch.fft.rfft(frames, n=fft_length, dim=-1)
+        return spec.real.contiguous(), spec.imag.contiguous()
     cos_m, sin_m = _dft_operands(frame_length, fft_length, wav.device, cdt)
     f = frame_signal(wav, frame_length, frame_step)[..., :cos_m.shape[0]].to(cdt).float()
     return f @ cos_m, f @ sin_m
 
 
-def stft_power(wav, frame_length, frame_step, fft_length, cdt=torch.float32):
-    re, im = stft(wav, frame_length, frame_step, fft_length, cdt)
+def stft_power(wav, frame_length, frame_step, fft_length, cdt=torch.float32,
+               use_matmul_dft: bool = True):
+    re, im = stft(wav, frame_length, frame_step, fft_length, cdt, use_matmul_dft)
     return re * re + im * im
 
 
@@ -164,15 +180,29 @@ def stack_frames(feat: torch.Tensor, lengths: torch.Tensor, stack: int, skip: in
     return out * _time_mask(Tp, new_len)[..., None], new_len
 
 
+def global_normalize(feat: torch.Tensor, lengths: torch.Tensor, eps: float = 1e-8):
+    """One mean and variance over every valid frame and feature of the batch
+    (denominator max(valid frames * D, 1)); padded frames are normalized too
+    and zeroed by the caller, as the reference does."""
+    m = _time_mask(feat.shape[1], lengths)[..., None]
+    denom = torch.clamp(m.sum() * feat.shape[-1], min=1.0)
+    mu = (feat * m).sum() / denom
+    var = ((feat - mu).square() * m).sum() / denom
+    return (feat - mu) * torch.rsqrt(var + eps)
+
+
 def _check_supported(cfg: AudioFrontendConfig) -> None:
-    if (cfg.feature_type != "logmel" or not cfg.add_deltas
-            or cfg.normalization != "per_utterance" or not cfg.use_matmul_dft):
-        raise ValueError(
-            "the port's frontend covers feature_type='logmel', add_deltas=True, "
-            "normalization='per_utterance', use_matmul_dft=True")
+    if cfg.feature_type not in ("logmel", "spectrogram"):
+        raise ValueError(f"unknown feature_type {cfg.feature_type!r}")
+    if cfg.normalization not in kernels.LOGMEL_NORMS:
+        raise ValueError(f"unknown normalization {cfg.normalization!r}")
 
 
 def _filterbank(cfg: AudioFrontendConfig) -> np.ndarray:
+    """The [F, M] matrix K3's product takes: the mel filterbank, or the
+    identity over the F = fft/2+1 bins for the spectrogram."""
+    if cfg.feature_type == "spectrogram":
+        return np.eye(cfg.fft_length // 2 + 1, dtype=np.float32)
     return mel_filterbank(cfg.num_mel_bins, cfg.fft_length // 2 + 1, cfg.sample_rate,
                           cfg.mel_lower_hz, cfg.mel_upper_hz)
 
@@ -186,25 +216,33 @@ def _mel_matrix(cfg: AudioFrontendConfig, device: torch.device) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _mel_band(cfg: AudioFrontendConfig,
               device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The banded mel matrix on ``device`` (K3's: ``kernels.mel_band_table``)."""
+    """The banded matrix on ``device`` (K3's: ``kernels.mel_band_table``):
+    the mel filterbank's, or the identity's (one bin of weight 1 a band)."""
     return tuple(_constant(x, device) for x in kernels.mel_band_table(_filterbank(cfg)))
 
 
 def logmel_post_dft_plain(re, im, feat_len, cfg: AudioFrontendConfig):
     """Plain-PyTorch K3: everything ``logmel_frontend`` does after the DFT."""
     power = re * re + im * im
-    feat = torch.log(power @ _mel_matrix(cfg, re.device) + cfg.log_floor)
-    # Edge-replicate the last valid frame into the padded tail before the
-    # delta windows, so tail deltas do not depend on the pad length.
+    if cfg.feature_type == "spectrogram":
+        feat = torch.log(power + cfg.log_floor)
+    else:
+        feat = torch.log(power @ _mel_matrix(cfg, re.device) + cfg.log_floor)
     T = feat.shape[1]
-    t_idx = torch.minimum(
-        torch.arange(T, device=feat.device)[None, :],
-        torch.clamp(feat_len[:, None].long() - 1, min=0))
-    feat_edge = torch.gather(feat, 1, t_idx[..., None].expand(-1, -1, feat.shape[-1]))
-    d1 = delta_features(feat_edge, cfg.delta_window)
-    d2 = delta_features(d1, cfg.delta_window)
-    feat = torch.cat([feat, d1, d2], dim=-1)
-    feat = masked_normalize(feat, feat_len)
+    if cfg.add_deltas:
+        # Edge-replicate the last valid frame into the padded tail before the
+        # delta windows, so tail deltas do not depend on the pad length.
+        t_idx = torch.minimum(
+            torch.arange(T, device=feat.device)[None, :],
+            torch.clamp(feat_len[:, None].long() - 1, min=0))
+        feat_edge = torch.gather(feat, 1, t_idx[..., None].expand(-1, -1, feat.shape[-1]))
+        d1 = delta_features(feat_edge, cfg.delta_window)
+        d2 = delta_features(d1, cfg.delta_window)
+        feat = torch.cat([feat, d1, d2], dim=-1)
+    if cfg.normalization == "per_utterance":
+        feat = masked_normalize(feat, feat_len)
+    elif cfg.normalization == "global":
+        feat = global_normalize(feat, feat_len)
     feat = feat * _time_mask(T, feat_len)[..., None]
     return stack_frames(feat, feat_len, cfg.frame_stacking, cfg.frame_skipping)
 
@@ -218,7 +256,8 @@ def logmel_post_dft(re, im, feat_len, cfg: AudioFrontendConfig):
         re.float().contiguous(), im.float().contiguous(),
         feat_len.to(torch.int32).contiguous(), *_mel_band(cfg, re.device),
         log_floor=cfg.log_floor, delta_window=cfg.delta_window,
-        stack=cfg.frame_stacking, skip=cfg.frame_skipping,
+        stack=cfg.frame_stacking, skip=cfg.frame_skipping, deltas=cfg.add_deltas,
+        normalization=cfg.normalization,
     )
 
 
@@ -226,7 +265,8 @@ def logmel_frontend(wav: torch.Tensor, wav_lengths: torch.Tensor,
                     cfg: AudioFrontendConfig, *, cdt: torch.dtype = torch.float32):
     """[B, S] waveform + [B] int32 lengths -> ([B, T', D_out] fp32, [B] int32)."""
     _check_supported(cfg)
-    re, im = stft(wav, cfg.frame_length, cfg.frame_step, cfg.fft_length, cdt)
+    re, im = stft(wav, cfg.frame_length, cfg.frame_step, cfg.fft_length, cdt,
+                  cfg.use_matmul_dft)
     wav_lengths = wav_lengths.to(torch.int32)
     feat_len = torch.where(
         wav_lengths >= cfg.frame_length,

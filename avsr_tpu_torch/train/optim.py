@@ -1,8 +1,8 @@
 """Optimizer and LR schedules (counterpart of ``avsr_tpu/train/optim.py``).
 
 The reference builds an optax chain: ``clip_by_global_norm`` (when
-``max_gradient_norm > 0``), then Adam / AdamW / SGD with momentum 0.9,
-scaled by a schedule.  This module writes the same update out in torch,
+``max_gradient_norm > 0``), then Adam / AdamW / SGD with momentum 0.9 /
+LAMB, scaled by a schedule.  This module writes the same update out in torch,
 equal to optax's arithmetic:
 
 * clipping scales the gradients by ``max_norm / g_norm`` only when
@@ -12,6 +12,11 @@ equal to optax's arithmetic:
   correction by ``1 - b^count`` at the incremented count, update
   ``mu_hat / (sqrt(nu_hat) + eps)``; AdamW adds ``weight_decay * param``;
   SGD keeps the trace ``g + 0.9 trace``;
+* LAMB (``optax.lamb``): Adam's moments at eps 1e-6, plus ``weight_decay *
+  param`` on every leaf, then each leaf's update scaled by its trust ratio
+  ``||param|| / ||update||`` (1 where either norm is 0); its state is
+  Adam's (the other two transforms keep none), so checkpoints store the
+  same ``mu/``, ``nu/`` and ``count``;
 * the step is ``param - lr(count) * update`` with the schedule read at
   the count BEFORE the update, so the first warmup-cosine step has lr 0.
 
@@ -19,7 +24,6 @@ The update runs in place on the parameter tensors and on the moment
 buffers (under ``no_grad``): the train state's parameters are the tensors
 autograd tracks, and a second copy of an 11M-parameter tree per step would
 only cost memory.
-``lamb`` is not ported and raises.
 """
 
 from __future__ import annotations
@@ -76,7 +80,8 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
 
 
 class Optimizer:
-    """Clip-by-global-norm then Adam / AdamW / SGD(0.9), as optax chains them.
+    """Clip-by-global-norm then Adam / AdamW / SGD(0.9) / LAMB, as optax
+    chains them.
 
     ``init(params)`` returns the state for a list of parameter tensors;
     ``update(params, grads, state)`` applies one step in place and returns
@@ -84,13 +89,12 @@ class Optimizer:
     """
 
     B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adam defaults
+    LAMB_EPS = 1e-6  # optax.lamb's
     MOMENTUM = 0.9
 
     def __init__(self, kind: str, schedule: Schedule, max_gradient_norm: float,
                  weight_decay: float = 0.0):
-        if kind not in ("adam", "adamw", "sgd"):
-            if kind == "lamb":
-                raise ValueError("the lamb optimizer is not ported")
+        if kind not in ("adam", "adamw", "sgd", "lamb"):
             raise ValueError(f"unknown optimizer {kind}")
         self.kind = kind
         self.schedule = schedule
@@ -115,6 +119,18 @@ class Optimizer:
         torch._foreach_mul_(out, torch.where(clipped, one * self.max_gradient_norm, one))
         return out
 
+    @staticmethod
+    def trust_ratios(params: List[torch.Tensor], updates: List[torch.Tensor]
+                     ) -> List[torch.Tensor]:
+        """optax's ``scale_by_trust_ratio``: per leaf ``||param|| /
+        ||update||``, or 1 where either norm is 0 (0-d tensors, decided on
+        the device)."""
+        ratios = []
+        for pn, un in zip(torch._foreach_norm(params), torch._foreach_norm(updates)):
+            zero = (pn == 0) | (un == 0)
+            ratios.append(torch.where(zero, torch.ones_like(pn), pn / torch.where(zero, 1, un)))
+        return ratios
+
     @torch.no_grad()
     def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
                state: Dict) -> Dict:
@@ -137,11 +153,13 @@ class Optimizer:
             torch._foreach_addcmul_(new["nu"], grads, grads, value=1 - b2)
             denom = torch._foreach_div(new["nu"], bias_correction(b2, count + 1))
             torch._foreach_sqrt_(denom)
-            torch._foreach_add_(denom, self.EPS)
+            torch._foreach_add_(denom, self.LAMB_EPS if self.kind == "lamb" else self.EPS)
             updates = torch._foreach_div(new["mu"], bias_correction(b1, count + 1))
             torch._foreach_div_(updates, denom)
-            if self.kind == "adamw":
+            if self.kind in ("adamw", "lamb"):
                 torch._foreach_add_(updates, params, alpha=self.weight_decay)
+            if self.kind == "lamb":
+                torch._foreach_mul_(updates, self.trust_ratios(params, updates))
         torch._foreach_add_(params, updates, alpha=-lr)
         return new
 

@@ -72,14 +72,15 @@ def threefry2x32(k0, k1, x0, x1) -> Tuple[np.ndarray, np.ndarray]:
     x1): uint32 arrays, broadcast together."""
     k0, k1, x0, x1 = (np.asarray(a, _U32) for a in (k0, k1, x0, x1))
     ks = (k0, k1, k0 ^ k1 ^ _U32(0x1BD11BDA))
-    x0 = x0 + ks[0]
-    x1 = x1 + ks[1]
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x0 = x0 + x1
-            x1 = _rotl(x1, r) ^ x0
-        x0 = x0 + ks[(i + 1) % 3]
-        x1 = x1 + ks[(i + 2) % 3] + _U32(i + 1)
+    with np.errstate(over="ignore"):  # 0-d operands warn where arrays wrap silently
+        x0 = x0 + ks[0]
+        x1 = x1 + ks[1]
+        for i in range(5):
+            for r in _ROTATIONS[i % 2]:
+                x0 = x0 + x1
+                x1 = _rotl(x1, r) ^ x0
+            x0 = x0 + ks[(i + 1) % 3]
+            x1 = x1 + ks[(i + 2) % 3] + _U32(i + 1)
     return x0, x1
 
 
@@ -103,24 +104,30 @@ def split_key(key, i: int) -> Tuple[np.ndarray, np.ndarray]:
     return threefry2x32(key[0], key[1], _U32(0), _U32(i))
 
 
-def random_bits32(key) -> np.ndarray:
-    """``jax.random.bits(key, (), uint32)``: the two words of counter (0, 0)
-    xor'ed."""
-    y0, y1 = threefry2x32(key[0], key[1], _U32(0), _U32(0))
+def random_bits32(key, n=None) -> np.ndarray:
+    """``jax.random.bits(key, (), uint32)`` (the two words of counter (0, 0)
+    xor'ed), or with ``n`` the bits of shape (n,): counters (0, i), as jax's
+    partitionable threefry counts a flattened shape."""
+    count = _U32(0) if n is None else np.arange(n, dtype=_U32)
+    y0, y1 = threefry2x32(key[0], key[1], _U32(0), count)
     return y0 ^ y1
 
 
-def randint32(key, minval: int, maxval: int) -> np.ndarray:
-    """``jax.random.randint(key, (), minval, maxval)`` (int32): two words of
-    bits summed modulo the span in uint32, whose multiplier
-    ``(2^16 mod span)^2`` wraps to 0 for spans past 2^16."""
-    hi = random_bits32(split_key(key, 0))
-    lo = random_bits32(split_key(key, 1))
-    span = _U32(max(int(maxval) - int(minval), 1) & 0xFFFFFFFF)
+def randint32(key, minval, maxval, n=None) -> np.ndarray:
+    """``jax.random.randint(key, (), minval, maxval)`` (int32), or of shape
+    (n,) with ``n`` (``minval`` / ``maxval`` scalars or arrays of that
+    shape): two words of bits summed modulo the span in uint32, whose
+    multiplier ``(2^16 mod span)^2`` wraps to 0 for spans past 2^16; a span
+    of maxval <= minval is 1 (minval is drawn)."""
+    hi = random_bits32(split_key(key, 0), n)
+    lo = random_bits32(split_key(key, 1), n)
+    minval = np.asarray(minval, np.int64)
+    maxval = np.asarray(maxval, np.int64)
+    span = np.where(maxval > minval, maxval - minval, 1).astype(_U32)
     mult = np.asarray(_U32(65536) % span, _U32)
     mult = (mult * mult) % span
     offset = ((hi % span) * mult + lo % span) % span
-    return (np.int64(minval) + offset.astype(np.int64)).astype(np.int32)
+    return (minval + offset.astype(np.int64)).astype(np.int32)
 
 
 def fixed_snr_draws(seed: int, uid_hashes, rows: int, offsets: int):

@@ -382,7 +382,7 @@ Phases, in order; any failure exits nonzero before the final line:
              bound and, as a reference point that computes more (the input
              product) with its own rounding, cuDNN's bidirectional
              ``nn.GRU`` (b_hh = 0) on a packed sequence.
-53. train-rd-residual — ten full-width train steps of
+53. train-rd-residual — five full-width train steps (``CELL_OPTION_STEPS``) of
              ``lrs2_av_align_rd_residual`` (``rd_residual_cfg``: recurrent
              dropout 0.2 in both encoders, residual audio layers 1-2) at
              B=128, as phase 19: the loss and every gradient leaf against the
@@ -391,15 +391,42 @@ Phases, in order; any failure exits nonzero before the final line:
 54. serve-rd-residual — the same model behind a CUDA ``Predictor`` as phase
              15 (B=8 requests, width-10 beam): the unmasked K1 launched, the
              masked one not.
-55. train-gru-highway — ten full-width train steps of
+55. train-gru-highway — five full-width train steps of
              ``lrs2_av_align_gru_highway`` (``gru_highway_cfg``: GRU cells in
              both encoders, highway audio layers 1-2, ``hw_w`` / ``hw_b``
              among the leaves), as phase 53; K12 forward and backward
              launched, no LSTM scan.
 56. serve-gru-highway — the same model served as phase 54; K12's forward
              launched, no LSTM scan.
-48. shapes — every call of a kernel wrapper in phases 46-47, 49-50 and
-             53-56 (``COVERED_PHASES``: each of the five train buckets,
+57. k13 — K13 (``csrc/ln_lstm_scan.cu``, the LN-LSTM scan) forward in save
+             mode and backward against the plain twins, with and without an
+             rd mask, at G = 2 and 1: the paths' shapes, the train and
+             serving buckets', G = 1 at [197, 128] and [531, 4], H = 80;
+             0-length rows exact, reruns bit-equal; ptxas registers and
+             spills, the library's shared memory against
+             ``kernels.ln_lstm_smem``; device ms, times and bounds.
+58. k3-options — K3's option instances (the spectrogram, no deltas, global
+             or no normalization) against the plain twin at B = 8 and 128,
+             6 s and 16 s and the serving buckets; reruns bit-equal.
+59. train-ln — ten full-width train steps of ``lrs2_av_align_ln``
+             (``ln_cfg``: LN-LSTM encoders, recurrent dropout 0.2 in the
+             video one) as phase 19, every leaf (the ``ln_*`` ones among
+             them) present, finite and nonzero; the kernel path against the
+             plain path within ``SPREAD_FACTOR`` times the plain path's own
+             spread, and every K13 call of the kernel path's step held on its
+             own activations (``hold_k13_calls``: each forward step by step
+             from the kernel's states, each backward against the twin);
+             K13 masked and unmasked launched, no K1 / K2.
+60. serve-ln — the same model served as phase 15, its encode's K13 calls
+             held the same way.
+61. train-spectrogram — ten full-width train steps of
+             ``lrs2_av_fast_spectrogram`` (``spectrogram_cfg``: the
+             spectrogram without deltas, global normalization, SpecAugment,
+             LAMB) as phase 8; K3's option instance launched, not the
+             presets'.
+62. serve-spectrogram — the same model served as phase 5.
+48. shapes — every call of a kernel wrapper in phases 46-47, 49-50,
+             53-56 and 59-62 (``COVERED_PHASES``: each of the five train buckets,
              ``TRAIN_BUCKETS``, their warm-ups, the evals, and the three
              serving buckets, ``SERVE_BUCKETS``) must have been made at the
              same tensor shapes in a phase that holds that kernel against
@@ -407,7 +434,7 @@ Phases, in order; any failure exits nonzero before the final line:
              kernel phases take the buckets' shapes (``*_BUCKET_SHAPES``,
              ``K10_BUCKET_READS``, ``*_SERVE_SHAPES``, ``K6_SERVE_CROSS``,
              ``K10_SERVE_READS``, ``RNN_OPTION_*``; phases 3, 4, 6, 7, 9, 10,
-             13, 14, 17, 18, 51, 52)
+             13, 14, 17, 18, 51, 52, 57, 58)
              at their own tolerances; prints each kernel's shapes on the
              paths and held.
 Serve (5, 15, 22, 31, 38-41, 54, 56) also beams the same memories through the plain path
@@ -451,6 +478,20 @@ K4_GRAD_REL_TOL = 2e-2
 # train step, kernel path against plain path with the same draws: bf16
 # rounding flips through 4 recurrent layers, forward and backward.
 LOSS_REL_TOL = 1e-2
+# A model whose own outputs move far more than its arithmetic's ulps (the
+# full-width LN-LSTM model at init, under the bf16 policy: one part in 1e6 on
+# every weight moves the plain path's loss by ~1e-4 and its gradient leaves
+# by a median 0.2-0.5, its bf16 roundings flipping and the layer norms
+# amplifying the flips; the JAX package's own spread at this width is not
+# measured) is compared with its plain path within SPREAD_FACTOR times the
+# plain path's own spread under that perturbation (SPREAD_EPS), or the
+# usual tolerance where that is larger.  That comparison catches only a
+# path gone wrong wholesale; what holds the kernels there is
+# ``hold_k13_calls``: every K13 call of the path on its own activations.
+SPREAD_EPS = 1e-6
+# train steps of phases 53 and 55 (the other paths take ten)
+CELL_OPTION_STEPS = 5
+SPREAD_FACTOR = 4.0
 GRAD_LEAF_REL_TOL = 5e-2
 # K5: the K4 tolerances, for the same reasons (bf16 ctx and gradients, fp32
 # P from bf16-rounded scores).
@@ -603,7 +644,17 @@ OTHER_ROUTES = {"serve_align": ("bahdanau_attend", "bahdanau_attend_row"),
                                       "bahdanau_attend_grouped"),
                 "serve_gru_highway": ("lstm_scan_fwd", "lstm_scan_bwd", "lstm_scan_rd_fwd",
                                       "lstm_scan_rd_bwd", "gru_scan_bwd", "bahdanau_attend",
-                                      "bahdanau_attend_row")}
+                                      "bahdanau_attend_row"),
+                # the LN-LSTM paths (phases 59-60): no K1 or K2, the masked
+                # K13 in the training only; the spectrogram paths (61-62):
+                # K3's option instance, never the presets' one
+                "train_ln": ("lstm_scan_fwd", "lstm_scan_bwd", "lstm_scan_rd_fwd",
+                             "lstm_scan_rd_bwd", "bahdanau_attend", "bahdanau_attend_grouped"),
+                "serve_ln": ("lstm_scan_fwd", "lstm_scan_rd_fwd", "ln_lstm_scan_rd_fwd",
+                             "ln_lstm_scan_bwd", "ln_lstm_scan_rd_bwd", "bahdanau_attend",
+                             "bahdanau_attend_row"),
+                "train_spectrogram": ("logmel_post_dft",),
+                "serve_spectrogram": ("logmel_post_dft",)}
 # the reference's unimodal and bimodal regimes (audio_tcdtimit,
 # video_tcdtimit with the ROI CNN or AU features, bimodal_tcdtimit: the RNN
 # decoder reads each memory with Bahdanau's score, at Dv = 512) and the
@@ -626,9 +677,12 @@ MIX_TOL = 1e-5
 # numbers and 0 launches: routes of other shapes, and the one-direction
 # instances of the encoder options (a one-direction GRU layer, a
 # one-direction LSTM layer under recurrent dropout), which phases 51-52 hold
-# at G = 1 but no configuration on the card uses
+# at G = 1 but no configuration on the card uses, and K13's one-direction
+# instances (phase 57)
 OFF_PATH = ("bahdanau_attend", "luong_attend", "conformer_conv_fwd_tiles",
-            "lstm_scan_uni_rd_fwd", "lstm_scan_uni_rd_bwd", "gru_scan_uni_fwd", "gru_scan_uni_bwd")
+            "lstm_scan_uni_rd_fwd", "lstm_scan_uni_rd_bwd", "gru_scan_uni_fwd", "gru_scan_uni_bwd",
+            "ln_lstm_scan_uni_fwd", "ln_lstm_scan_uni_bwd", "ln_lstm_scan_uni_rd_fwd",
+            "ln_lstm_scan_uni_rd_bwd")
 # the training loop, checkpoints, API and CLI: lrs2_av_align's train step
 # (K1, K3, K8 and K10's teacher-forced loop), its eval loss (K10's row
 # read) and beam (K10's grouped read, K7); lrs2_av_fast's train step, greedy
@@ -683,11 +737,23 @@ def fail(phase: str, msg: str) -> None:
     sys.exit(1)
 
 
+# the paths of phases 59-62: K13 runs on the LN paths only, K3's option
+# instances on the spectrogram paths only
+LN_PATHS = ("train_ln", "serve_ln")
+K3_OPTION_PATHS = ("train_spectrogram", "serve_spectrogram")
+
+
 def check_other_route(label, launches):
     """Fails where the path ``label`` launched a K10 forward or K9 forward
     kernel of another route (``OTHER_ROUTES``): every call took the route
-    its shape gives."""
-    for other in OTHER_ROUTES.get(label, ()):
+    its shape gives; or K13 off the LN paths, or K3's option instances off
+    the spectrogram paths."""
+    others = list(OTHER_ROUTES.get(label, ()))
+    if label not in LN_PATHS:
+        others += [n for n in launches if n.startswith("ln_lstm_scan")]
+    if label not in K3_OPTION_PATHS:
+        others.append("logmel_post_dft_options")
+    for other in others:
         if launches[other] != 0:
             fail(label, f"{launches[other]} calls launched {other}, another route's kernel")
 
@@ -695,6 +761,7 @@ def check_other_route(label, launches):
 # the kernel wrappers of ``avsr_tpu_torch.kernels`` whose calls
 # ``record_shapes`` logs (K7's ``BeamStep`` too, as ``beam_step``)
 WRAPPERS = ("lstm_scan_fwd", "lstm_scan_bwd", "gru_scan_fwd", "gru_scan_bwd",
+            "ln_lstm_scan_fwd", "ln_lstm_scan_bwd",
             "logmel_post_dft", "fusion_attention_fwd",
             "fusion_attention_bwd", "decoder_attention_fwd", "decoder_attention_bwd",
             "attention_bwd_core", "decode_attention", "beam_step", "av_align_scan",
@@ -704,9 +771,9 @@ WRAPPERS = ("lstm_scan_fwd", "lstm_scan_bwd", "gru_scan_fwd", "gru_scan_bwd",
 # the phases that hold kernels against their plain twins: the shapes their
 # calls take are the shapes checked
 KERNEL_PHASES = (3, 4, 6, 7, 9, 10, 11, 13, 14, 17, 18, 20, 21, 25, 26, 28, 29, 30, 35, 36, 37,
-                 51, 52)
+                 51, 52, 57, 58)
 # the phases whose shapes must all be among KERNEL_PHASES' (phase 48)
-COVERED_PHASES = (46, 47, 49, 50, 53, 54, 55, 56)
+COVERED_PHASES = (46, 47, 49, 50, 53, 54, 55, 56, 59, 60, 61, 62)
 
 
 @contextlib.contextmanager
@@ -750,9 +817,11 @@ def phase_shapes_covered(held, launched):
     """Fails where ``COVERED_PHASES`` called a kernel at shapes (``record_shapes``)
     that no kernel-vs-plain phase held it at; prints each kernel's count of
     shapes on the paths and among the held ones."""
-    missing = sorted(launched - held)
+    # shapes hold None for a None argument (an unmasked scan's rd), so they
+    # sort by their text
+    missing = sorted(launched - held, key=repr)
     for name in sorted({n for n, _ in launched}):
-        on_path = sorted(s for n, s in launched if n == name)
+        on_path = sorted((s for n, s in launched if n == name), key=repr)
         print(f"shapes {name}: {len(on_path)} on phases {COVERED_PHASES}, "
               f"{sum(1 for n, _ in held if n == name)} held against the plain twin; "
               f"not held: {[s for n, s in missing if n == name]}")
@@ -1089,6 +1158,8 @@ def plain_cores():
              (rnn, "scan_core_bwd", rnn.bilstm_scan_core_bwd_plain),
              (rnn, "gru_core_fwd", rnn.gru_scan_core_fwd_plain),
              (rnn, "gru_core_bwd", rnn.gru_scan_core_bwd_plain),
+             (rnn, "ln_core_fwd", rnn.ln_lstm_scan_core_fwd_plain),
+             (rnn, "ln_core_bwd", rnn.ln_lstm_scan_core_bwd_plain),
              (af, "logmel_post_dft", af.logmel_post_dft_plain),
              (fus, "fusion_attention_fwd", fus.fusion_attention_fwd_plain),
              (fus, "fusion_attention_bwd", fus.fusion_attention_bwd_plain),
@@ -1335,7 +1406,7 @@ def phase_k3(dev, report, cfg):
         want = kernels.logmel_writer_smem(cfg.audio.num_mel_bins, chunk, cfg.audio.frame_stacking,
                                           cfg.audio.frame_skipping, cfg.audio.delta_window)
         got = lib.avsr_logmel_writer_smem(cfg.audio.num_mel_bins, chunk, cfg.audio.frame_stacking,
-                                          cfg.audio.frame_skipping, cfg.audio.delta_window)
+                                          cfg.audio.frame_skipping, cfg.audio.delta_window, 1)
         if got != want:
             fail("K3", f"chunk {chunk}: the writer's shared memory {got} is not "
                        f"kernels.logmel_writer_smem's {want}")
@@ -1375,11 +1446,13 @@ def phase_k3(dev, report, cfg):
 
 
 def phase_serve(dev, card, cfg, label="serve", needed=SERVE_KERNELS,
-                mem_shapes=((8, 50, 1024),)):
+                mem_shapes=((8, 50, 1024),), spread=False):
     """Serve 3 full-width requests of ``cfg``'s model through a CUDA
     ``Predictor``; ``needed`` kernels must launch, the memories (of
     ``mem_shapes``, one a memory) and the beam must agree with the plain
-    path."""
+    path (with ``spread``, the memories within ``SPREAD_FACTOR`` times the
+    plain path's own spread under ``scaled`` parameters, and every K13 call
+    of the encode held by ``hold_k13_calls``)."""
     import torch
 
     from avsr_tpu_torch.data.units import builtin_unit_dict
@@ -1420,9 +1493,13 @@ def phase_serve(dev, card, cfg, label="serve", needed=SERVE_KERNELS,
     arrays, _ = pred.assemble(*requests[1])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    enc_k = pred.encode(arrays)
+    with k13_calls() if spread else contextlib.nullcontext() as calls:
+        enc_k = pred.encode(arrays)
     torch.cuda.synchronize()
     t_enc = (time.perf_counter() - t0) * 1e3
+    if spread:
+        hold_k13_calls(label, calls)
+        del calls
     res = pred.beam(enc_k)
     t_beam = (time.perf_counter() - t0) * 1e3 - t_enc
     ids = res.ids
@@ -1450,6 +1527,13 @@ def phase_serve(dev, card, cfg, label="serve", needed=SERVE_KERNELS,
         fail(label, f"kernel path beam scores disagree with the plain path: {score_rel}")
     if len(enc_k.memories) != len(mem_shapes):
         fail(label, f"{len(enc_k.memories)} memories, expected {len(mem_shapes)}")
+    enc_s = None
+    if spread:
+        params = pred.params
+        pred.params = scaled(params)
+        with plain_cores():
+            enc_s = pred.encode(arrays)
+        pred.params = params
     for i, (m_k, m_p, shape) in enumerate(zip(enc_k.memories, enc_p.memories, mem_shapes)):
         mk, mp = m_k.values, m_p.values
         what = "fused memory" if cfg.architecture == "av_align" else f"memory {i}"
@@ -1457,9 +1541,15 @@ def phase_serve(dev, card, cfg, label="serve", needed=SERVE_KERNELS,
             fail(label, f"{what} of shape {tuple(mk.shape)} or not finite")
         mem_err = max_err(mk, mp)
         mem_mean = float((mk - mp).abs().mean())
+        tol = MEMORY_TOL
+        if enc_s is not None:
+            own = max_err(enc_s.memories[i].values, mp)
+            tol = max(MEMORY_TOL, SPREAD_FACTOR * own)
+            print(f"{label} {what}: the plain path's own spread at parameters times (1 + "
+                  f"{SPREAD_EPS}): max abs {own}")
         print(f"{label} {what} {tuple(mk.shape)}: max abs err {mem_err} mean {mem_mean} "
-              f"(tol {MEMORY_TOL}) vs the plain path")
-        if not mem_err <= MEMORY_TOL:
+              f"(tol {tol}) vs the plain path")
+        if not mem_err <= tol:
             fail(label, f"kernel path memory disagrees with the plain path: {mem_err}")
     print(f"{label} [{card}] per-request latency ms (B=8, 6 s, beam 10, horizon 150): "
           f"{[round(x, 3) for x in latencies]} median {statistics.median(latencies):.3f}; "
@@ -1648,10 +1738,25 @@ def phase_k4(dev, report):
         hmma={kind: r.get("hmma") for kind, r in build.items() if "bwd" in kind})
 
 
-def phase_train(dev, card, cfg, label="train", needed=TRAIN_KERNELS, lr=1e-4, shares=()):
+def scaled(params, eps=SPREAD_EPS):
+    """A copy of the parameter tree with every leaf times (1 + eps), leaves
+    that want a gradient as the originals."""
+    import torch
+
+    from avsr_tpu_torch.utils.params import tree_map
+
+    with torch.no_grad():
+        return tree_map(lambda t: (t * (1 + eps)).requires_grad_(t.requires_grad), params)
+
+
+def phase_train(dev, card, cfg, label="train", needed=TRAIN_KERNELS, lr=1e-4, shares=(),
+                spread=False, steps=10):
     """The full-width train step of ``cfg``'s model; ``needed`` kernels
-    must launch during its steps, which run at the constant ``lr``;
-    ``shares`` as ``profile_report``'s."""
+    must launch during its ``steps`` steps, which run at the constant ``lr``;
+    ``shares`` as ``profile_report``'s.  With ``spread`` the kernel path is
+    held against the plain path within ``SPREAD_FACTOR`` times the plain
+    path's own spread under ``scaled`` parameters, and every K13 call of its
+    loss and gradients by ``hold_k13_calls``."""
     import dataclasses
 
     import torch
@@ -1674,8 +1779,12 @@ def phase_train(dev, card, cfg, label="train", needed=TRAIN_KERNELS, lr=1e-4, sh
     # off here: the paths' logits differ in bf16 ulps, and a near-tied
     # sample would feed them different tokens.
     cfg_a = cfg.replace(decoder=dataclasses.replace(cfg.decoder, sampling_probability=0.0))
-    m_k, g_k = tstep.loss_and_grads(state.params, batch, cfg=cfg_a,
-                                    generator=trng.generator_for(7, dev), noise_bank=bank)
+    with k13_calls() if spread else contextlib.nullcontext() as calls:
+        m_k, g_k = tstep.loss_and_grads(state.params, batch, cfg=cfg_a,
+                                        generator=trng.generator_for(7, dev), noise_bank=bank)
+    if spread:
+        hold_k13_calls(f"{label} (a)", calls)
+        del calls
     before = dict(kernels.LAUNCHES)
     with plain_cores():
         m_p, g_p = tstep.loss_and_grads(state.params, batch, cfg=cfg_a,
@@ -1691,14 +1800,30 @@ def phase_train(dev, card, cfg, label="train", needed=TRAIN_KERNELS, lr=1e-4, sh
     loss_rel = abs(float(m_k["loss"]) - float(m_p["loss"])) / abs(float(m_p["loss"]))
     rels = {n: float((a - b).norm() / b.norm()) for n, a, b in zip(names, g_k, g_p)}
     worst = max(rels, key=rels.get)
+    loss_tol, leaf_tol, median_tol = LOSS_REL_TOL, GRAD_LEAF_REL_TOL, GRAD_LEAF_REL_TOL
+    if spread:
+        with plain_cores():
+            m_s, g_s = tstep.loss_and_grads(scaled(state.params), batch, cfg=cfg_a,
+                                            generator=trng.generator_for(7, dev),
+                                            noise_bank=bank)
+        spread_loss = abs(float(m_s["loss"]) - float(m_p["loss"])) / abs(float(m_p["loss"]))
+        spread_rels = [float((a - b).norm() / b.norm()) for a, b in zip(g_s, g_p)]
+        loss_tol = max(LOSS_REL_TOL, SPREAD_FACTOR * spread_loss)
+        leaf_tol = float("inf")  # a single leaf's spread is itself noise: the median decides
+        median_tol = max(GRAD_LEAF_REL_TOL, SPREAD_FACTOR * statistics.median(spread_rels))
+        print(f"{label} (a) the plain path's own spread at parameters times (1 + "
+              f"{SPREAD_EPS}): loss rel {spread_loss:.3e}, gradient leaves worst "
+              f"{max(spread_rels):.3e} median {statistics.median(spread_rels):.3e}")
     print(f"{label} (a) loss kernel {float(m_k['loss']):.6f} plain {float(m_p['loss']):.6f} "
-          f"(rel diff {loss_rel:.3e}, tol {LOSS_REL_TOL}); {len(names)} gradient leaves, "
-          f"all present, finite, nonzero; worst leaf rel err {rels[worst]:.3e} ({worst}), "
-          f"median {statistics.median(rels.values()):.3e} (tol {GRAD_LEAF_REL_TOL})")
-    if not (loss_rel <= LOSS_REL_TOL and rels[worst] <= GRAD_LEAF_REL_TOL):
+          f"(rel diff {loss_rel:.3e}, tol {loss_tol:.3e}); {len(names)} gradient leaves, "
+          f"all present, finite, nonzero; worst leaf rel err {rels[worst]:.3e} ({worst}, tol "
+          f"{leaf_tol:.3e}), median {statistics.median(rels.values()):.3e} (tol "
+          f"{median_tol:.3e})")
+    if not (loss_rel <= loss_tol and rels[worst] <= leaf_tol
+            and statistics.median(rels.values()) <= median_tol):
         fail(label, "kernel path disagrees with the plain path")
 
-    # (b)-(d): 10 steps on the batch at a constant lr, launches counted.  The
+    # (b)-(d): ``steps`` steps on the batch at a constant lr, launches counted.  The
     # presets warm up to 1e-3 over 400 steps; a constant 1e-3 from random
     # weights overshoots (Adam's first steps move every weight by ~lr), so
     # the check runs at a tenth of the peak, or lower where the model needs
@@ -1711,7 +1836,7 @@ def phase_train(dev, card, cfg, label="train", needed=TRAIN_KERNELS, lr=1e-4, sh
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     losses, parts, times = [], [], []
-    for _ in range(10):
+    for _ in range(steps):
         t0 = time.perf_counter()
         state, metrics = tstep.train_step(state, batch, cfg=cfg_c, optimizer=opt,
                                           generator=gen, noise_bank=bank)
@@ -1721,7 +1846,7 @@ def phase_train(dev, card, cfg, label="train", needed=TRAIN_KERNELS, lr=1e-4, sh
         parts.append((float(metrics["ce_loss"]), float(metrics.get("au_loss", float("nan")))))
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    print(f"{label} (b) launches over 10 steps at scheduled-sampling p "
+    print(f"{label} (b) launches over {steps} steps at scheduled-sampling p "
           f"{tstep.host_sampling_p(cfg_c, 0)} {launches}")
     for name in needed:
         if launches[name] == 0:
@@ -1731,7 +1856,7 @@ def phase_train(dev, card, cfg, label="train", needed=TRAIN_KERNELS, lr=1e-4, sh
           f"{[(round(c, 4), round(a, 4)) for c, a in parts]}; grad_norm last "
           f"{float(metrics['grad_norm']):.4f}")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
-        fail(label, "the loss did not fall over 10 steps")
+        fail(label, f"the loss did not fall over {steps} steps")
     step_ms = statistics.median(times[2:])
 
     def three_steps():
@@ -5555,6 +5680,385 @@ def phase_k12(dev, report):
             **({} if cud is None else {"cudnn_reference_device_ms": cud[1]}))
 
 
+# ---------------------------------------------------------------------------
+# LN-LSTM encoders on K13, the frontend's options on K3, SpecAugment and LAMB
+# (phases 57-62)
+# ---------------------------------------------------------------------------
+
+
+def ln_cfg():
+    """``lrs2_av_align_ln``: the lrs2_av_align preset with LN-LSTM cells in
+    both encoders (K13) and recurrent dropout 0.2 in the video encoder, so
+    training runs K13 unmasked (audio) and masked (video)."""
+    from avsr_tpu_torch.configs import lrs2_full
+
+    return lrs2_full().override({
+        "audio_encoder.layer_norm": True, "video_encoder.layer_norm": True,
+        "video_encoder.recurrent_dropout_rate": 0.2, "name": "lrs2_av_align_ln"})
+
+
+def spectrogram_cfg():
+    """``lrs2_av_fast_spectrogram``: the lrs2_av_fast preset with the log
+    power spectrogram (257 bins), no deltas, global normalization (K3's
+    option instance), SpecAugment and LAMB (weight decay 1e-4)."""
+    from avsr_tpu_torch.configs import lrs2_av_fast
+
+    return lrs2_av_fast().override({
+        "audio.feature_type": "spectrogram", "audio.add_deltas": False,
+        "audio.normalization": "global", "audio.spec_augment": True,
+        "train.optimizer": "lamb", "train.weight_decay": 1e-4,
+        "name": "lrs2_av_fast_spectrogram"})
+
+
+# K13's (T, B) at G = 2, H = 256 beyond RNN_OPTION_SHAPES and the train
+# buckets': the serving buckets' audio and video steps at B = 8
+K13_SERVE_SHAPES = tuple(sorted({(T, B) for B, _, Ta, Tv, _ in SERVE_BUCKETS for T in (Ta, Tv)}
+                                - set(RNN_OPTION_SHAPES) - set(RNN_OPTION_BUCKET_SHAPES)))
+TRAIN_LN_KERNELS = ("ln_lstm_scan_fwd", "ln_lstm_scan_bwd", "ln_lstm_scan_rd_fwd",
+                    "ln_lstm_scan_rd_bwd", "logmel_post_dft", "av_align_scan",
+                    "av_align_scan_bwd", "bahdanau_attend_row", "bahdanau_attend_bwd",
+                    "bahdanau_attend_sums")
+SERVE_LN_KERNELS = ("ln_lstm_scan_fwd", "logmel_post_dft", "av_align_scan",
+                    "bahdanau_attend_grouped", "beam_step")
+TRAIN_SPEC_KERNELS = tuple("logmel_post_dft_options" if k == "logmel_post_dft" else k
+                           for k in TRAIN_KERNELS)
+SERVE_SPEC_KERNELS = tuple("logmel_post_dft_options" if k == "logmel_post_dft" else k
+                           for k in SERVE_KERNELS)
+# LAMB moves each leaf by lr times its own norm (the trust ratio), so its lr
+# is a relative step: 1e-2, where Adam's 1e-4 is an absolute one
+SPEC_LR = 1e-2
+
+
+K13_STAT_BYTES = 4 * 2 * 4  # the 4 gate blocks' mean and rstd, fp32, a row-step
+# K13's fp32 pre-LN gates z against xw + h_res @ bf16(Wh) on the same
+# operands: exact products of bf16 values summed in fp32 in another order
+# (H of them, |z| of order 1-5)
+K13_Z_TOL = 1e-3
+
+
+def k13_inputs(T, G, B, H, dev, seed):
+    """K13's operands: Wh [G, H, 4H], b, ln_gamma, ln_cell_gamma,
+    ln_cell_beta (perturbed from their init), the bf16 input product, a
+    ragged mask with a 0-length row 1 (the backward stream flipped at G = 2),
+    h0 and c0 (zero at G = 2, as a bidirectional layer starts; nonzero at
+    G = 1)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    wh = torch.randn((G, H, 4 * H), generator=g) / H ** 0.5
+    b = 0.1 * torch.randn((G, 4 * H), generator=g)
+    lng = 1 + 0.1 * torch.randn((G, 4 * H), generator=g)
+    lncg = 1 + 0.1 * torch.randn((G, H), generator=g)
+    lncb = 0.1 * torch.randn((G, H), generator=g)
+    xw = torch.randn((T, G, B, 4 * H), generator=g).to(torch.bfloat16)
+    lengths = torch.randint(1, T + 1, (B,), generator=g)
+    lengths[0] = T
+    if B > 1:
+        lengths[1] = 0
+    m = (torch.arange(T)[:, None] < lengths[None, :]).float()
+    mask = torch.stack([m, torch.flip(m, (0,))], dim=1)[:, :G]
+    if G == 2:
+        h0, c0 = torch.zeros((G, B, H)), torch.zeros((G, B, H))
+    else:
+        h0 = 0.5 * torch.randn((G, B, H), generator=g)
+        c0 = 0.5 * torch.randn((G, B, H), generator=g)
+    return [x.to(dev) for x in (wh, b, lng, lncg, lncb, xw, mask, h0, c0)]
+
+
+def k13_cases():
+    """(G, H, T, B) of phase 57, the full width's first: the paths' shapes,
+    the train buckets', the serving buckets', G = 1 at the train step's
+    audio and the 16 s limit, and an off-multiple width (H = 80)."""
+    return ([(2, 256, T, B) for T, B in RNN_OPTION_SHAPES + RNN_OPTION_BUCKET_SHAPES
+             + K13_SERVE_SHAPES]
+            + [(1, 256, T, B) for T, B in RNN_OPTION_UNI_SHAPES]
+            + [(G, 80, T, B) for T, G, B in RNN_OPTION_STEP_ROUTE])
+
+
+@contextlib.contextmanager
+def k13_calls():
+    """Records every K13 call of the block (``rnn.ln_core_fwd`` /
+    ``ln_core_bwd``, as the path makes it): {"fwd": [(args, out)], "bwd":
+    [(args, out)]}, the tensors as the path handed them."""
+    from avsr_tpu_torch.ops import rnn
+
+    calls = {"fwd": [], "bwd": []}
+
+    def recorder(kind, fn):
+        def call(*args):
+            out = fn(*args)
+            calls[kind].append((args, out))
+            return out
+        return call
+
+    with mock.patch.object(rnn, "ln_core_fwd", recorder("fwd", rnn.ln_core_fwd)), \
+            mock.patch.object(rnn, "ln_core_bwd", recorder("bwd", rnn.ln_core_bwd)):
+        yield calls
+
+
+def k13_stepwise_errs(args, out, res):
+    """K13's forward on a path's call, held step by step from the kernel's
+    own saved states, so that no difference compounds over the steps (the
+    full-width LN model at init is chaotic: a whole scan of the same inputs
+    in another summation order ends elsewhere): z[t] against xw[t] +
+    h_res[t] @ bf16(Wh), and each step's cell, from the kernel's z[t] and
+    c_res[t] through the twin's ``_ln_cell``, against ys[t], the next
+    step's h_res and c_res, and (hT, cT).  -> {name: max abs error}."""
+    import torch
+
+    from avsr_tpu_torch.ops import rnn
+
+    wh, b, lng, lncg, lncb, xw, mask, h0, c0, cdt = args[:10]
+    rd = args[11] if len(args) > 11 else None
+    ys, hT, cT = out
+    h_res, c_res, z = res
+    T, G, B, H4 = z.shape
+    z_p = xw.float() + torch.einsum("tgbh,ghk->tgbk", h_res.float(),
+                                    wh.to(torch.bfloat16).float())
+
+    def flat(x):
+        return x.float().permute(1, 0, 2, 3).reshape(G, T * B, x.shape[-1])
+
+    _, (_, _, _, o), _, c_new, tc = rnn._ln_cell(flat(z), b.float(), lng.float(), lncg.float(),
+                                                 lncb.float(), flat(c_res))
+    h_new, c_new = ((x.reshape(G, T, B, H4 // 4).permute(1, 0, 2, 3)) for x in (o * tc, c_new))
+    m = mask.float()[..., None]
+    c_next = m * c_new + (1.0 - m) * c_res
+    h, hs = h0.float(), []
+    for t in range(T):
+        h = m[t] * h_new[t] + (1.0 - m[t]) * h
+        hs.append(h)
+    hs = torch.stack(hs)
+    rdm = 1.0 if rd is None else rd
+    return dict(z=max_err(z, z_p), ys=max_err(ys, (h_new * m).to(cdt)),
+                h_res=max_err(h_res, torch.cat([(h0 * rdm)[None], hs[:-1] * rdm]).to(cdt)),
+                c_res=max_err(c_res, torch.cat([c0[None], c_next[:-1]])),
+                hT=max_err(hT, hs[-1]), cT=max_err(cT, c_next[-1]))
+
+
+def hold_k13_calls(label, calls):
+    """Every K13 call a path made, on its own activations: each forward
+    step by step (``k13_stepwise_errs``; a serving call's forward is rerun
+    in save mode for its states, its outputs held against the call's), each
+    backward against the plain twin on the call's own operands (the
+    kernel's saved states and the path's cotangents), at K1's tolerances."""
+    import torch
+
+    from avsr_tpu_torch.ops import rnn
+
+    if not calls["fwd"]:
+        fail(label, "the path made no K13 call")
+    for i, (args, (out, res)) in enumerate(calls["fwd"]):
+        extra = ""
+        if res is None:
+            out_s, res = rnn.ln_core_fwd(*args[:10], True, *args[11:])
+            same = all(torch.equal(x, y) for x, y in zip(out, out_s))
+            serve_err = max(max_err(x, y) for x, y in zip(out, out_s))
+            extra = f"; the call's outputs against its save-mode rerun {serve_err:.3e} " \
+                    f"(bit-equal: {same})"
+            if not serve_err <= K1_TOL:
+                fail(label, f"K13 forward call {i}: save mode changed its outputs by {serve_err}")
+        e = k13_stepwise_errs(args, out, res)
+        rd = len(args) > 11 and args[11] is not None
+        print(f"{label} K13 fwd call {i} [T,G,B,4H={tuple(res[2].shape)}{',rd' if rd else ''}] "
+              f"step by step from the kernel's states, max abs err "
+              f"{ {n: f'{x:.3e}' for n, x in e.items()} } (tol z {K13_Z_TOL}, others "
+              f"{K1_TOL}){extra}")
+        if not (e.pop("z") <= K13_Z_TOL and max(e.values()) <= K1_TOL):
+            fail(label, f"K13 forward call {i} disagrees with the twin's step: {e}")
+    names = ("dWh", "db", "dln_gamma", "dln_cell_gamma", "dln_cell_beta", "dxw", "dh0", "dc0")
+    for i, (args, g_k) in enumerate(calls["bwd"]):
+        g_p = rnn.ln_lstm_scan_core_bwd_plain(*args)
+        ge = {n: rel_err(a, b) for n, a, b in zip(names, g_k, g_p)}
+        print(f"{label} K13 bwd call {i} [T,G,B,4H={tuple(args[8].shape)}"
+              f"{',rd' if args[13] is not None else ''}] against the twin on its operands, "
+              f"relative to max |plain| { {n: f'{x:.3e}' for n, x in ge.items()} } "
+              f"(tol {K1B_REL_TOL})")
+        if not (all(torch.isfinite(x.float()).all() for x in g_k)
+                and max(ge.values()) <= K1B_REL_TOL):
+            fail(label, f"K13 backward call {i} disagrees with the plain twin: {ge}")
+
+
+def phase_k13(dev, report):
+    """K13, the LN-LSTM scan, forward (save mode) and backward, with and
+    without a recurrent-dropout mask, against the plain twins."""
+    import torch
+
+    from avsr_tpu_torch import kernels
+    from avsr_tpu_torch.ops import rnn
+
+    bf = torch.bfloat16
+    build = {n: r for n, r in kernels.ptxas_report("ln_lstm_scan").items() if "ln_lstm" in n}
+    print(f"K13 build (ln_lstm_scan.cu; ptxas -v): {build}")
+    if len(build) != 9:
+        fail("K13", f"expected K13's 9 kernels in the ptxas report, got {sorted(build)}")
+    lib = kernels._load()
+    for H in (80, 256, 512):
+        for bwd in (0, 1):
+            if lib.avsr_ln_lstm_smem(H, bwd) != kernels.ln_lstm_smem(H, bool(bwd)):
+                fail("K13", f"H={H}: the library's block takes {lib.avsr_ln_lstm_smem(H, bwd)} "
+                            f"bytes, ln_lstm_smem {kernels.ln_lstm_smem(H, bool(bwd))}")
+    names = ("dWh", "db", "dln_gamma", "dln_cell_gamma", "dln_cell_beta", "dxw", "dh0", "dc0")
+    runs = {}
+    for G, H, T, B in k13_cases():
+        for masked in (False, True):
+            seed = 900 + T + B + G + H + masked
+            args = k13_inputs(T, G, B, H, dev, seed)
+            rd = rd_mask(G, B, H, dev, seed) if masked else None
+            out_k, res_k = rnn.ln_core_fwd(*args, bf, True, rd)
+            again, res_again = rnn.ln_core_fwd(*args, bf, True, rd)
+            out_p, res_p = rnn.ln_lstm_scan_core_fwd_plain(*args, bf, True, rd)
+            g = torch.Generator().manual_seed(seed + 1)
+            cot = [torch.randn((T, G, B, H), generator=g).to(bf).to(dev),
+                   torch.randn((G, B, H), generator=g).to(dev),
+                   torch.randn((G, B, H), generator=g).to(dev)]
+            bargs = [*args[:5], args[6], *res_k, *cot, bf, rd]
+            g_k = rnn.ln_core_bwd(*bargs)
+            g_again = rnn.ln_core_bwd(*bargs)
+            g_p = rnn.ln_lstm_scan_core_bwd_plain(*bargs)
+            torch.cuda.synchronize()
+            e = {n: max_err(a, b_) for n, a, b_ in zip(("ys", "hT", "cT", "h_res", "c_res", "z"),
+                                                       (*out_k, *res_k), (*out_p, *res_p))}
+            ge = {n: rel_err(a, b_) for n, a, b_ in zip(names, g_k, g_p)}
+            same = all(torch.equal(a, b_) for a, b_ in zip((*out_k, *res_k, *g_k),
+                                                           (*again, *res_again, *g_again)))
+            kept = lstm_kept(*out_k, args[7], args[8]) and lstm_passed(g_k[5], g_k[6], g_k[7],
+                                                                       cot[1], cot[2])
+            tag = f"T={T},G={G},B={B},H={H}" + (",rd" if masked else "")
+            print(f"K13 [{tag}] {kernels.ln_lstm_family(G, B, H)} route: fwd max abs err "
+                  f"{ {n: f'{x:.3e}' for n, x in e.items()} } (tol {K1_TOL}); bwd relative to max "
+                  f"|plain| { {n: f'{x:.3e}' for n, x in ge.items()} } (tol {K1B_REL_TOL}); reruns "
+                  f"bit-equal: {same}; the 0-length row kept its state, passed dhT/dcT: {kept}")
+            if not (all(torch.isfinite(x.float()).all() for x in (*out_k, *res_k, *g_k))
+                    and max(e.values()) <= K1_TOL and max(ge.values()) <= K1B_REL_TOL and same
+                    and kept):
+                fail("K13", f"kernels disagree with the plain twins at {tag}: {e}, {ge}; "
+                            f"bit-equal {same}; kept {kept}")
+            runs[(G, H, T, B, masked)] = dict(
+                args=args, rd=rd, bargs=bargs, out=(*out_k, *res_k), grads=g_k,
+                fwd_err=max(e.values()), bwd_err=max(max_err(a, b_) for a, b_ in zip(g_k, g_p)))
+    for G, masked in ((2, False), (2, True), (1, False), (1, True)):
+        T, B = 197, 128
+        r = runs[(G, 256, T, B, masked)]
+        a, rd, ba = r["args"], r["rd"], r["bargs"]
+        ka = [ba[0].to(bf).contiguous(), *ba[1:6], *ba[7:12]]  # the wrapper's operands
+        fwd = lambda: rnn.ln_core_fwd(*a, bf, True, rd)  # noqa: E731
+        dms = dict(fwd=device_ms(fwd, reps=5, warmup=1),
+                   fwd_serve=device_ms(lambda: rnn.ln_core_fwd(*a, bf, False, rd), reps=5,
+                                       warmup=1),
+                   bwd=device_ms(lambda: kernels.ln_lstm_scan_bwd(*ka, rd=rd), reps=5, warmup=1),
+                   bwd_with_dwh=device_ms(lambda: rnn.ln_core_bwd(*ba), reps=5, warmup=1))
+        ms = dict(fwd=time_ms(fwd, reps=5, warmup=1),
+                  plain_fwd=time_ms(lambda: rnn.ln_lstm_scan_core_fwd_plain(*a, bf, True, rd),
+                                    reps=3, warmup=1),
+                  bwd=time_ms(lambda: rnn.ln_core_bwd(*ba), reps=5, warmup=1),
+                  plain_bwd=time_ms(lambda: rnn.ln_lstm_scan_core_bwd_plain(*ba), reps=3,
+                                    warmup=1))
+        flops = 2 * T * G * B * 256 * 1024
+        print(f"K13 [T={T},G={G},B={B},H=256{',rd' if masked else ''}] device fwd (save) "
+              f"{dms['fwd']:.4f} ms ({dms['fwd'] / T * 1e3:.3f} us a step; "
+              f"{dms['fwd_serve']:.4f} ms without save), bwd {dms['bwd']:.4f} ms "
+              f"({dms['bwd'] / T * 1e3:.3f} us a step; {dms['bwd_with_dwh']:.4f} ms with the "
+              f"caller's dWh); kernel {ms['fwd']:.4f} / {ms['bwd']:.4f} ms, plain "
+              f"{ms['plain_fwd']:.4f} / {ms['plain_bwd']:.4f} ms (fwd / bwd)")
+        kind = ("" if G == 2 else "_uni") + ("_rd" if masked else "")
+        shapes = [k for k in runs if k[0] == G and k[4] == masked]
+        common = dict(shape=f"T={T},G={G},B={B},H=256", library_ms=None,
+                      registers={k: x["registers"] for k, x in build.items()},
+                      spill_bytes={k: x["spill_stores"] + x["spill_loads"]
+                                   for k, x in build.items()})
+        # The function's own operands, with the least a backward needs
+        # saved: the operand h_res, the carry c_res and the gate blocks'
+        # statistics (mean and rstd, K13_STAT_BYTES a row-step).  z, the
+        # fp32 pre-LN gates this design saves instead of recomputing them,
+        # is reported apart (z_write_bytes), not bounded; the backward's
+        # bound reads xw and h_res in its place and recomputes the product.
+        ys, hT, cT, h_res, c_res, z = r["out"]
+        stats = T * G * B * K13_STAT_BYTES
+        report[f"ln_lstm_scan{kind}_fwd"] = dict(
+            common, max_abs_err=max(runs[k]["fwd_err"] for k in shapes), ms=ms["fwd"],
+            plain_ms=ms["plain_fwd"], device_ms=dms["fwd"], device_ms_serve=dms["fwd_serve"],
+            bound=bound(nbytes(*a, rd, ys, hT, cT, h_res, c_res) + stats, flops),
+            z_write_bytes=nbytes(z), per_step_us=dms["fwd"] / T * 1e3)
+        # wh, b, the LN leaves, mask, xw, h_res, c_res, the statistics, dys,
+        # dhT, dcT, rd in; db, the LN leaves' sums, dxw, dh0, dc0 out (dWh
+        # the caller's, as for K1); the recomputed product and dh's product
+        report[f"ln_lstm_scan{kind}_bwd"] = dict(
+            common, max_abs_err=max(runs[k]["bwd_err"] for k in shapes), ms=ms["bwd"],
+            plain_ms=ms["plain_bwd"], device_ms=dms["bwd"],
+            bound=bound(nbytes(*ka[:6], a[5], h_res, c_res, *ka[8:], rd, *r["grads"][1:])
+                        + stats, 2 * flops),
+            z_read_bytes=nbytes(z), per_step_us=dms["bwd"] / T * 1e3,
+            device_ms_with_dwh=dms["bwd_with_dwh"])
+
+
+K3_OPTIONS = tuple((ft, d, nm) for ft in ("logmel", "spectrogram") for d in (True, False)
+                   for nm in ("per_utterance", "global", "none")
+                   if (ft, d, nm) != ("logmel", True, "per_utterance"))
+K3_OPTION_PATH = ("spectrogram", False, "global")  # spectrogram_cfg()'s
+
+
+def phase_k3_options(dev, report, cfg):
+    """K3's option instances (every (feature_type, add_deltas,
+    normalization) but the presets') against the plain twin at B = 8 and
+    128, 6 s and 16 s, and the serving buckets; reruns bit-equal."""
+    import dataclasses
+
+    import torch
+
+    from avsr_tpu_torch import kernels
+    from avsr_tpu_torch.ops import audio_features as af
+
+    lib = kernels._load()
+    a0 = cfg.audio
+    for ft, deltas, norm in K3_OPTIONS:
+        c = dataclasses.replace(a0, feature_type=ft, add_deltas=deltas, normalization=norm)
+        M = af._mel_band(c, dev)[0].shape[0]
+        for chunk in kernels.LOGMEL_CHUNKS:
+            want = kernels.logmel_writer_smem(M, chunk, c.frame_stacking, c.frame_skipping,
+                                              c.delta_window, deltas)
+            got = lib.avsr_logmel_writer_smem(M, chunk, c.frame_stacking, c.frame_skipping,
+                                              c.delta_window, int(deltas))
+            if got != want:
+                fail("K3 options", f"{ft}/{deltas}/{norm} chunk {chunk}: the writer's shared "
+                                   f"memory {got} is not kernels.logmel_writer_smem's {want}")
+    worst, times = 0.0, {}
+    for B, S in K3_SHAPES + K3_SERVE_SHAPES:
+        args = k3_inputs(a0, B, S, dev, seed=B + S)
+        for ft, deltas, norm in K3_OPTIONS:
+            c = dataclasses.replace(a0, feature_type=ft, add_deltas=deltas, normalization=norm)
+            f_k, n_k = af.logmel_post_dft(*args, c)
+            f_again, _ = af.logmel_post_dft(*args, c)
+            f_p, n_p = af.logmel_post_dft_plain(*args, c)
+            torch.cuda.synchronize()
+            err = max_err(f_k, f_p)
+            worst = max(worst, err)
+            tag = f"{ft},deltas={deltas},{norm},B={B},S={S}"
+            D = (3 if deltas else 1) * (af._mel_band(c, dev)[0].shape[0])
+            if f_k.shape[-1] != D * c.frame_stacking or not torch.equal(n_k, n_p):
+                fail("K3 options", f"{tag}: features {tuple(f_k.shape)} or lengths differ")
+            if not (err <= K3_TOL) or not torch.isfinite(f_k).all() \
+                    or not torch.equal(f_again, f_k):
+                fail("K3 options", f"{tag}: kernel disagrees with the plain version ({err}) "
+                                   f"or two launches differ")
+            if B == 8 or (ft, deltas, norm) == K3_OPTION_PATH or S == K3_SHAPES[0][1]:
+                t = dict(device_ms=device_ms(lambda: af.logmel_post_dft(*args, c), reps=5),
+                         bound=k3_bound(args, f_k, n_k, c))
+                if (ft, deltas, norm) == K3_OPTION_PATH:
+                    t.update(ms=time_ms(lambda: af.logmel_post_dft(*args, c), reps=5),
+                             plain_ms=time_ms(lambda: af.logmel_post_dft_plain(*args, c), reps=3))
+                times[tag] = t
+                print(f"K3 option [{tag}] max abs err {err:.3e} (tol {K3_TOL}); device "
+                      f"{t['device_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms ({t['bound'][1]})")
+    main = times["{},deltas={},{},B=128,S={}".format(*K3_OPTION_PATH, K3_SHAPES[0][1])]
+    report["logmel_post_dft_options"] = dict(
+        max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"], library_ms=None,
+        device_ms=main["device_ms"], bound=main["bound"],
+        shape="spectrogram, no deltas, global, B=128, 6 s",
+        by_option={tag: dict(device_ms=t["device_ms"], bound_ms=t["bound"][0])
+                   for tag, t in times.items()})
+
+
 def tree_map_like(tree, values):
     """``tree`` with its tensor leaves replaced, in ``tree_leaves`` order,
     by the next items of the iterator ``values``."""
@@ -5615,6 +6119,7 @@ def main() -> int:
     v2_cfg = lrs2_av_v2()
     ul_cfg = uni_luong_cfg()
     rd_cfg, gru_cfg = rd_residual_cfg(), gru_highway_cfg()
+    ln, spec = ln_cfg(), spectrogram_cfg()
     audio_cfg, video_cfg, bimodal_cfg = (audio_only_tcdtimit(), video_only_tcdtimit(),
                                          bimodal_tcdtimit())
     au_cfg = video_cfg.override({"video.use_au_features": True})
@@ -5707,15 +6212,28 @@ def main() -> int:
                    (51, lambda: phase_k1_rd(dev, report)),
                    (52, lambda: phase_k12(dev, report)),
                    (53, lambda: paths.update(train_rd_residual=phase_train(
-                       dev, card, rd_cfg, "train_rd_residual", TRAIN_RD_KERNELS))),
+                       dev, card, rd_cfg, "train_rd_residual", TRAIN_RD_KERNELS,
+                       steps=CELL_OPTION_STEPS))),
                    (54, lambda: paths.update(serve_rd_residual=phase_serve(
                        dev, card, rd_cfg, "serve_rd_residual", SERVE_RD_KERNELS,
                        ((8, 197, 768),)))),
                    (55, lambda: paths.update(train_gru_highway=phase_train(
-                       dev, card, gru_cfg, "train_gru_highway", TRAIN_GRU_KERNELS))),
+                       dev, card, gru_cfg, "train_gru_highway", TRAIN_GRU_KERNELS,
+                       steps=CELL_OPTION_STEPS))),
                    (56, lambda: paths.update(serve_gru_highway=phase_serve(
                        dev, card, gru_cfg, "serve_gru_highway", SERVE_GRU_KERNELS,
-                       ((8, 197, 768),))))):
+                       ((8, 197, 768),)))),
+                   (57, lambda: phase_k13(dev, report)),
+                   (58, lambda: phase_k3_options(dev, report, cfg)),
+                   (59, lambda: paths.update(train_ln=phase_train(
+                       dev, card, ln, "train_ln", TRAIN_LN_KERNELS, spread=True))),
+                   (60, lambda: paths.update(serve_ln=phase_serve(
+                       dev, card, ln, "serve_ln", SERVE_LN_KERNELS, ((8, 197, 768),),
+                       spread=True))),
+                   (61, lambda: paths.update(train_spectrogram=phase_train(
+                       dev, card, spec, "train_spectrogram", TRAIN_SPEC_KERNELS, lr=SPEC_LR))),
+                   (62, lambda: paths.update(serve_spectrogram=phase_serve(
+                       dev, card, spec, "serve_spectrogram", SERVE_SPEC_KERNELS)))):
         t0 = time.perf_counter()
         with (record_shapes(held) if n in KERNEL_PHASES
               else record_shapes(launched) if n in COVERED_PHASES else contextlib.nullcontext()):
@@ -5737,8 +6255,12 @@ def main() -> int:
             t_new = time.perf_counter()
             keep.clear()
             work.cleanup()
-    print(f"phases 51-56 (the encoder's cell options: recurrent dropout, GRU, residual, "
-          f"highway) {time.perf_counter() - t_new:.1f} s")
+        if n == 56:
+            print(f"phases 51-56 (the encoder's cell options: recurrent dropout, GRU, residual, "
+                  f"highway) {time.perf_counter() - t_new:.1f} s")
+            t_new = time.perf_counter()
+    print(f"phases 57-62 (LN-LSTM on K13, the frontend's options on K3, SpecAugment, LAMB) "
+          f"{time.perf_counter() - t_new:.1f} s")
     phase_shapes_covered(held, launched)  # 48
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -5804,6 +6326,16 @@ def main() -> int:
         "gru_scan_bwd": ("avsr_tpu_torch/csrc/gru_scan.cu", "avsr_tpu/ops/rnn.py:576"),
         "gru_scan_uni_fwd": ("avsr_tpu_torch/csrc/gru_scan.cu", "avsr_tpu/ops/rnn.py:576"),
         "gru_scan_uni_bwd": ("avsr_tpu_torch/csrc/gru_scan.cu", "avsr_tpu/ops/rnn.py:576"),
+        "ln_lstm_scan_fwd": ("avsr_tpu_torch/csrc/ln_lstm_scan.cu", "avsr_tpu/ops/rnn.py:535"),
+        "ln_lstm_scan_bwd": ("avsr_tpu_torch/csrc/ln_lstm_scan.cu", "avsr_tpu/ops/rnn.py:535"),
+        "ln_lstm_scan_rd_fwd": ("avsr_tpu_torch/csrc/ln_lstm_scan.cu", "avsr_tpu/ops/rnn.py:535"),
+        "ln_lstm_scan_rd_bwd": ("avsr_tpu_torch/csrc/ln_lstm_scan.cu", "avsr_tpu/ops/rnn.py:535"),
+        "ln_lstm_scan_uni_fwd": ("avsr_tpu_torch/csrc/ln_lstm_scan.cu", "avsr_tpu/ops/rnn.py:535"),
+        "ln_lstm_scan_uni_bwd": ("avsr_tpu_torch/csrc/ln_lstm_scan.cu", "avsr_tpu/ops/rnn.py:535"),
+        "ln_lstm_scan_uni_rd_fwd": ("avsr_tpu_torch/csrc/ln_lstm_scan.cu", "avsr_tpu/ops/rnn.py:535"),
+        "ln_lstm_scan_uni_rd_bwd": ("avsr_tpu_torch/csrc/ln_lstm_scan.cu", "avsr_tpu/ops/rnn.py:535"),
+        "logmel_post_dft_options": ("avsr_tpu_torch/csrc/logmel.cu",
+                                    "avsr_tpu/ops/audio_features.py:269"),
     }
     entries = []
     for name, (src, rep) in sources.items():

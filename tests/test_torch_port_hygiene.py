@@ -219,6 +219,84 @@ def test_rnn_option_kernels_take_every_bucket(name):
             assert kernels.gru_step_smem(H, backward=True) <= kernels.SMEM_LIMIT
 
 
+@pytest.mark.parametrize("name", sorted(tconfigs.PRESETS))
+def test_ln_lstm_and_frontend_options_take_every_bucket(name):
+    """Every RNN encoder of every preset, with LN-LSTM cells, reaches K13 at
+    every bucket's batch size (``kernels.ln_lstm_family``; one launch a
+    call whose block loops over time, so no length limit), and every
+    frontend option of the preset's audio frontend fits K3 at every bucket
+    (the writer's chunk for 3M or M features, the spectrogram's 257 bins;
+    the statistics' column of frames)."""
+    cfg = tconfigs.PRESETS[name]()
+    sizes = sorted(set(cfg.data.bucket_batch_sizes or (cfg.data.batch_size,))) + [1, 8]
+    for enc in (cfg.audio_encoder, cfg.video_encoder):
+        if enc.encoder_type != "rnn":
+            continue
+        G = 2 if enc.bidirectional else 1
+        for H in enc.hidden_units:
+            for B in sizes:
+                assert kernels.ln_lstm_family(G, B, H) == "block"
+            assert kernels.ln_lstm_smem(H, backward=True) <= kernels.SMEM_LIMIT
+    a = cfg.audio
+    shapes = loader.BucketingLoader([], tunits.builtin_unit_dict(cfg.data.unit), cfg.data,
+                                    frame_step=a.frame_step,
+                                    frame_length=a.frame_length).bucket_shapes()
+    for s in shapes.values():
+        T = (s.audio_samples - a.frame_length) // a.frame_step + 1
+        Tp = (T - a.frame_stacking) // a.frame_skipping + 1
+        assert kernels.logmel_stats_fits(T)
+        for M in (a.num_mel_bins, a.fft_length // 2 + 1):
+            for deltas in (True, False):
+                for B in sizes:
+                    chunk = kernels.logmel_writer_chunk(B, Tp, M, a.frame_stacking,
+                                                        a.frame_skipping, a.delta_window, deltas)
+                    assert kernels.logmel_writer_smem(M, chunk, a.frame_stacking,
+                                                      a.frame_skipping, a.delta_window,
+                                                      deltas) <= kernels.SMEM_LIMIT
+
+
+OPTIONS = {"layer_norm": {"audio_encoder.layer_norm": True,
+                          "audio_encoder.recurrent_dropout_rate": 0.2},
+           "spectrogram": {"audio.feature_type": "spectrogram"},
+           "static": {"audio.add_deltas": False},
+           "global": {"audio.normalization": "global"},
+           "none": {"audio.normalization": "none"},
+           "rfft": {"audio.use_matmul_dft": False},
+           "spec_augment": {"audio.spec_augment": True},
+           "lamb": {"train.optimizer": "lamb"}}
+
+
+@pytest.mark.parametrize("option", sorted(OPTIONS))
+def test_no_option_raises_but_fp32_on_the_card_and_remat(option):
+    """Each option the port used to refuse now initialises, trains a step,
+    and decodes on the CPU; what still raises is ``train.remat`` and the
+    fp32 policy on the card's kernels."""
+    cfg = tiny_cfg(tconfigs).override(OPTIONS[option])
+    V = tunits.builtin_unit_dict(cfg.data.unit).vocab_size
+    from avsr_tpu_torch.train import step as tstep
+    from test_torch_train import batch_arrays
+
+    state, opt = tstep.create_train_state(cfg, V, torch.Generator().manual_seed(0), "cpu")
+    batch = seq2seq.batch_to_device(batch_arrays(0, V), "cpu")
+    state, metrics = tstep.train_step(state, batch, cfg=cfg, optimizer=opt,
+                                      generator=torch.Generator().manual_seed(1))
+    assert np.isfinite(float(metrics["loss"]))
+    with torch.no_grad():
+        enc = seq2seq.encode(state.params, cfg, batch)
+    assert all(torch.isfinite(m.values).all() for m in enc.memories)
+    with pytest.raises(ValueError, match="remat"):
+        seq2seq.encode(state.params, cfg.override({"train.remat": True}), batch, train=True,
+                       generator=torch.Generator())
+    with pytest.raises(ValueError, match="bf16 policy only"):
+        rnn._check_policy(torch.float32)
+
+
+def test_ln_leaves_take_the_callers_device():
+    """The LN leaves are made on the caller's device, as the LSTM's are."""
+    p = rnn.lstm_init(torch.Generator(), 4, 8, "meta", layer_norm=True)
+    assert {k: v.device.type for k, v in p.items()} == dict.fromkeys(p, "meta")
+
+
 def test_predictor_defaults_to_the_card():
     assert inspect.signature(Predictor).parameters["device"].default == "cuda"
 

@@ -75,11 +75,22 @@ def test_lstm_step_matches_jax(dtype, preprojected):
 
 
 def test_lstm_step_refuses_layer_norm():
+    """LN cells used to raise here (no decoder cell uses them); ported with
+    K13, ``lstm_step`` now normalises the gate blocks where the params hold
+    ``ln_gamma`` (and the cell only with ``ln_cell_gamma``), as the
+    reference's does."""
     p = trnn.lstm_init(torch.Generator().manual_seed(0), 4, 8, "cpu")
-    p["ln_gamma"] = torch.ones(32)
-    with pytest.raises(ValueError, match="LN-LSTM"):
-        trnn.lstm_step(p, torch.zeros(2, 4), (torch.zeros(2, 8), torch.zeros(2, 8)),
-                       torch.float32)
+    p["ln_gamma"] = 1.0 + 0.1 * torch.arange(32, dtype=torch.float32) / 32
+    x = torch.randn((2, 4), generator=torch.Generator().manual_seed(1))
+    state = (0.5 * torch.ones(2, 8), torch.linspace(-1, 1, 16).view(2, 8))
+    (h, c), out = trnn.lstm_step(p, x, state, torch.float32)
+    jp = {k: jnp.asarray(v.numpy()) for k, v in p.items()}
+    (hj, cj), _ = jrnn.lstm_step(jp, jnp.asarray(x.numpy()),
+                                 tuple(jnp.asarray(t.numpy()) for t in state),
+                                 compute_dtype=jnp.float32)
+    np.testing.assert_allclose(h.numpy(), np.asarray(hj), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(c.numpy(), np.asarray(cj), atol=1e-5, rtol=1e-5)
+    assert out is h
 
 
 def _decoder_and_memory(seed, cfg, lengths=(7, 4, 0), S=7, M=10, Vv=11):

@@ -162,4 +162,5 @@ def test_port_never_imports_jax():
     # host are walked too
     assert {f"avsr_tpu_torch.{m}" for m in (
         "data.synthetic", "data.proto", "data.tfrecord", "data.grain_loader", "data.loader",
-        "eval.metrics", "eval.analysis", "native", "serve", "serve_host", "cli")} <= seen
+        "eval.metrics", "eval.analysis", "native", "serve", "serve_host", "cli",
+        "ops.specaugment")} <= seen

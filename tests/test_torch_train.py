@@ -231,8 +231,12 @@ def test_optimizer_updates_match_optax(kind):
 
 
 def test_unported_optimizer_and_options_raise():
-    with pytest.raises(ValueError, match="lamb"):
-        toptim.build_optimizer(TrainConfig(optimizer="lamb"))
+    """``lamb`` is ported now (it used to raise; ``test_torch_frontend_options.py``
+    holds it against optax); an unknown optimizer or schedule still raises."""
+    opt, _ = toptim.build_optimizer(TrainConfig(optimizer="lamb"))
+    assert opt.kind == "lamb"
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        toptim.build_optimizer(TrainConfig(optimizer="adagrad"))
     with pytest.raises(ValueError, match="unknown lr schedule"):
         toptim.build_schedule(TrainConfig(lr_schedule="step"))
 
