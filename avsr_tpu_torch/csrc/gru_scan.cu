@@ -57,10 +57,19 @@
 // unchanged.  The products are exact fp32 FMAs of bf16-rounded operands (the
 // backward's dh product of fp32 dhw by bf16 Wh), only summed in another
 // order than the reference.
+//
+// Two routes, chosen by shape (kernels.gru_family): at H a multiple of 128
+// from 128 to 384 (every preset's 256) the cluster kernels of
+// gru_cluster.cuh (avsr_gru_cluster_*: one persistent launch of 8-CTA
+// clusters a call, Wh slices resident in shared memory, the products on the
+// tensor cores), which describes them; every other multiple of 16 up to 512
+// the per-step kernels below (avsr_gru_scan_*).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gru_cluster.cuh"
 
 namespace {
 
@@ -465,4 +474,79 @@ extern "C" int avsr_gru_scan_bwd(const void* wh_tiled, const void* whT_tiled, co
       static_cast<const float*>(db_part), static_cast<float*>(dh0), static_cast<float*>(db), B,
       H);
   return (int)cudaGetLastError();
+}
+
+// The H of the cluster kernels' instances (kernels.gru_family's rule: a
+// multiple of 128 from 128, the backward's shared memory within the card's).
+#define AVSR_GRU_CLUSTER_WIDTHS(X) X(128) X(256) X(384)
+
+// Shared memory of one CTA of the cluster kernels at width H
+// (``kernels.gru_cluster_smem``), or -1 for a width with no instance.
+extern "C" long long avsr_gru_cluster_smem(int H, int backward) {
+  switch (H) {
+#define AVSR_CASE(W) \
+  case W:            \
+    return (long long)(backward ? gru_cl::Shape<W>::BWD_SMEM : gru_cl::Shape<W>::FWD_SMEM);
+    AVSR_GRU_CLUSTER_WIDTHS(AVSR_CASE)
+#undef AVSR_CASE
+    default:
+      return -1;
+  }
+}
+
+// cudaOccupancyMaxActiveClusters of the cluster forward or backward at
+// width H (0 on an error or a width with no instance).
+extern "C" int avsr_gru_cluster_max_active(int H, int backward) {
+  switch (H) {
+#define AVSR_CASE(W) \
+  case W:            \
+    return gru_cl::max_active<W>(backward != 0);
+    AVSR_GRU_CLUSTER_WIDTHS(AVSR_CASE)
+#undef AVSR_CASE
+    default:
+      return 0;
+  }
+}
+
+// Forward on the cluster route, one launch.  wcl: Wh in the cluster layout
+// [G, 8, H/64, 3, 8, H] bf16 (kernels.cluster_gru_weights); hbuf [2][G, B,
+// H] fp32 with h0 in slot 0, h_T in slot T % 2 after T steps; the other
+// operands as avsr_gru_scan_fwd's.
+extern "C" int avsr_gru_cluster_fwd(const void* wcl, const void* bias, const void* xw,
+                                    const void* mask, void* hbuf, void* ys, void* h_res, int T,
+                                    int G, int B, int H, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (T < 0 || G < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  switch (H) {
+#define AVSR_CASE(W) \
+  case W:            \
+    return (int)gru_cl::fwd<W>(wcl, bias, xw, mask, hbuf, ys, h_res, T, G, B, st);
+    AVSR_GRU_CLUSTER_WIDTHS(AVSR_CASE)
+#undef AVSR_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Backward on the cluster route, two launches: the reverse scan and the row
+// tiles' db reduced in order.  wcl in the cluster layout; dhT [G, B, H]
+// fp32 (read only); db_part [G, ceil(B/16), 3H] fp32 scratch; outputs as
+// avsr_gru_scan_bwd's.
+extern "C" int avsr_gru_cluster_bwd(const void* wcl, const void* bias, const void* xw,
+                                    const void* mask, const void* h_res, const void* dys,
+                                    const void* dhT, void* db_part, void* dxw, void* dhw,
+                                    void* dh0, void* db, int T, int G, int B, int H,
+                                    void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (T < 1 || G < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  switch (H) {
+#define AVSR_CASE(W)                                                                       \
+  case W:                                                                                  \
+    return (int)gru_cl::bwd<W>(wcl, bias, xw, mask, h_res, dys, dhT, db_part, dxw, dhw, dh0, \
+                               db, T, G, B, st);
+    AVSR_GRU_CLUSTER_WIDTHS(AVSR_CASE)
+#undef AVSR_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -67,10 +67,20 @@
 // rows of length 0 included) keep their carries bit for bit and give zero
 // outputs and cotangents.  The recurrent-dropout mask is a template
 // instance: without it the kernel reads nothing more.
+//
+// Two routes, chosen by shape (kernels.ln_lstm_family): at H a multiple of
+// 64 from 128 to 384 (every preset's 256) the cluster kernels of
+// ln_lstm_cluster.cuh (avsr_ln_lstm_cluster_*: one persistent launch of
+// 8-CTA clusters a call, Wh slices resident in shared memory, the products
+// on the tensor cores, the LayerNorm statistics exchanged between the
+// CTAs), which describes them; every other multiple of 4 up to 512 the
+// block kernels below (avsr_ln_lstm_scan_*).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "ln_lstm_cluster.cuh"
 
 namespace {
 
@@ -700,5 +710,93 @@ extern "C" int avsr_ln_lstm_scan_bwd(const void* whT, const void* bias, const vo
   const int n = 10 * H;
   ln_lstm_part_reduce<<<dim3((n + 255) / 256, G), 256, 0, st>>>(
       static_cast<const float*>(part), static_cast<float*>(grads), tiles, n);
+  return (int)cudaGetLastError();
+}
+
+// The H of the cluster kernels' instances (kernels.ln_lstm_family's rule: a
+// multiple of 64 from 128, the backward's shared memory within the card's).
+#define AVSR_LN_LSTM_CLUSTER_WIDTHS(X) X(128) X(192) X(256) X(320) X(384)
+
+// Shared memory of one CTA of the cluster kernels at width H
+// (``kernels.ln_lstm_cluster_smem``), or -1 for a width with no instance.
+extern "C" long long avsr_ln_lstm_cluster_smem(int H, int backward) {
+  switch (H) {
+#define AVSR_CASE(W) \
+  case W:            \
+    return (long long)(backward ? ln_cl::Shape<W>::BWD_SMEM : ln_cl::Shape<W>::FWD_SMEM);
+    AVSR_LN_LSTM_CLUSTER_WIDTHS(AVSR_CASE)
+#undef AVSR_CASE
+    default:
+      return -1;
+  }
+}
+
+// cudaOccupancyMaxActiveClusters of the cluster forward or backward at
+// width H (0 on an error or a width with no instance).
+extern "C" int avsr_ln_lstm_cluster_max_active(int H, int backward) {
+  switch (H) {
+#define AVSR_CASE(W) \
+  case W:            \
+    return ln_cl::max_active<W>(backward != 0);
+    AVSR_LN_LSTM_CLUSTER_WIDTHS(AVSR_CASE)
+#undef AVSR_CASE
+    default:
+      return 0;
+  }
+}
+
+// Forward on the cluster route, one launch.  wcl: Wh in the cluster layout
+// [G, 8, H/64, 4, 8, H] bf16 (kernels.cluster_lstm_weights); the other
+// operands as avsr_ln_lstm_scan_fwd's.
+extern "C" int avsr_ln_lstm_cluster_fwd(const void* wcl, const void* bias, const void* lng,
+                                        const void* lncg, const void* lncb, const void* xw,
+                                        const void* mask, const void* rd, void* h, void* c,
+                                        void* ys, void* h_res, void* c_res, void* z_res, int T,
+                                        int G, int B, int H, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (T < 0 || G < 1 || B < 1 || (h_res == nullptr) != (z_res == nullptr) ||
+      (c_res == nullptr) != (z_res == nullptr))
+    return (int)cudaErrorInvalidValue;
+  switch (H) {
+#define AVSR_CASE(W) \
+  case W:            \
+    return (int)ln_cl::fwd<W>(wcl, bias, lng, lncg, lncb, xw, mask, rd, h, c, ys, h_res, c_res, \
+                              z_res, T, G, B, st);
+    AVSR_LN_LSTM_CLUSTER_WIDTHS(AVSR_CASE)
+#undef AVSR_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Backward on the cluster route, three launches: the row statistics of
+// every step (stats [T, G, B, 10] fp32 scratch), the reverse scan, the
+// tiles' parameter sums reduced in order (part [G, ceil(B/16), 10H] fp32
+// scratch; grads as avsr_ln_lstm_scan_bwd's).  wcl in the cluster layout;
+// dh, dc [G, B, H] fp32: dhT, dcT in, dh0, dc0 out.
+extern "C" int avsr_ln_lstm_cluster_bwd(const void* wcl, const void* bias, const void* lng,
+                                        const void* lncg, const void* lncb, const void* mask,
+                                        const void* rd, const void* c_res, const void* z_res,
+                                        const void* dys, void* dh, void* dc, void* dxw,
+                                        void* stats, void* part, void* grads, int T, int G,
+                                        int B, int H, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (T < 1 || G < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  switch (H) {
+#define AVSR_CASE(W)                                                                        \
+  case W:                                                                                   \
+    e = ln_cl::bwd<W>(wcl, bias, lng, lncg, lncb, mask, rd, c_res, z_res, dys, dh, dc, dxw, \
+                      stats, part, T, G, B, st);                                            \
+    break;
+    AVSR_LN_LSTM_CLUSTER_WIDTHS(AVSR_CASE)
+#undef AVSR_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (e != cudaSuccess) return (int)e;
+  const int n = 10 * H;
+  ln_lstm_part_reduce<<<dim3((n + 255) / 256, G), 256, 0, st>>>(
+      static_cast<const float*>(part), static_cast<float*>(grads), (B + 15) / 16, n);
   return (int)cudaGetLastError();
 }

@@ -156,12 +156,13 @@ using cluster_ptx::st_async_v2f32;
 // ---- shared pieces ----------------------------------------------------------
 
 // The CTA's Wh slice [NCOL][H] (global: contiguous per (g, rank)) into
-// swizzled shared memory; one cp.async group.
-template <int H>
+// swizzled shared memory; one cp.async group.  NCOL: K1's 4 gates of H/8
+// units, or K12's 3.
+template <int H, int NCOL = Shape<H>::NCOL>
 __device__ __forceinline__ void stage_slice(bf16* ws, const bf16* src, int tid) {
   using S = Shape<H>;
   constexpr int CPR = H / 8;  // 16-byte chunks per row
-  for (int ci = tid; ci < S::NCOL * CPR; ci += S::THREADS) {
+  for (int ci = tid; ci < NCOL * CPR; ci += S::THREADS) {
     const int n = ci / CPR;
     cp_async16(ws + swz<H>(n, ci - n * CPR), src + (size_t)ci * 8, true);
   }
@@ -215,6 +216,88 @@ __device__ __forceinline__ void gate_product(const bf16* ht, const bf16* ws, int
   for (int q = 0; q < 4; ++q)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[q][e] = acc2[0][q][e] + acc2[1][q][e];
+}
+
+// ---- the backward's dh partials ---------------------------------------------
+// (K1's, and K12's and K13's in gru_cluster.cuh and ln_lstm_cluster.cuh)
+
+// Step s's partials have arrived in this CTA's receive slot s % 2 (its ((T
+// - 1 - s) / 2)-th phase of the reverse scan).
+template <int H>
+__device__ __forceinline__ void wait_partials(uint64_t* full, int s, int T, int tid) {
+  if (tid == 0) mbar_expect(&full[s & 1], (uint32_t)Shape<H>::RED_BYTES);
+  mbar_wait(&full[s & 1], ((T - 1 - s) >> 1) & 1);
+}
+
+// The thread's cells' sums, in rank order, of the 8 CTAs' partials of step
+// s in the receive slots red [2][C][BR][UR] (ul: the thread's first unit
+// within the CTA).
+template <int H>
+__device__ __forceinline__ void sum_partials(const float* red, int s, int gid, int ul,
+                                             float (&out)[4]) {
+  constexpr int UR = Shape<H>::UR;
+  const float* rp = red + (s & 1) * C * BR * UR;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float2 acc = *reinterpret_cast<const float2*>(rp + (gid + 8 * r) * UR + ul);
+#pragma unroll
+    for (int src = 1; src < C; ++src) {
+      const float2 v = *reinterpret_cast<const float2*>(rp + (src * BR + gid + 8 * r) * UR + ul);
+      acc.x += v.x;
+      acc.y += v.y;
+    }
+    out[2 * r] = acc.x;
+    out[2 * r + 1] = acc.y;
+  }
+}
+
+// The partial dh = sum over a < NA of dg[a] . slice^T ([BR x NCOL] bf16
+// tiles of pitch P against the resident slice, into one fp32 sum: K1's
+// bf16(dgates), or the hi and lo halves of K12's and K13's fp32 cotangent):
+// warp w's 64 hidden columns, sent to their owners' receive slot t % 2 at
+// this CTA's rank (st.async.v2.f32, counted on the owner's barrier).
+template <int H, int NCOL, int P, int NA>
+__device__ __forceinline__ void send_dh_partials(const bf16* const (&dg)[NA], const bf16* ws,
+                                                 float* red, uint64_t* full, int t, int rank,
+                                                 int warp, int lane) {
+  constexpr int UR = Shape<H>::UR;
+  const int gid = lane >> 2, tig = lane & 3;
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const int arow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int achunk = lane >> 4;
+  const int brow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int bchunk = warp * 8 + (lane >> 4);
+#pragma unroll
+  for (int kk = 0; kk < NCOL / 16; ++kk) {
+    uint32_t a[NA][4];
+#pragma unroll
+    for (int i = 0; i < NA; ++i) ldsm_x4(a[i], dg[i] + swz<P>(arow, kk * 2 + achunk));
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {  // hidden columns 64 w + 16 p + [0, 16)
+      uint32_t b[4];
+      ldsm_x4_trans(b, ws + swz<H>(kk * 16 + brow, bchunk + 2 * p));
+#pragma unroll
+      for (int i = 0; i < NA; ++i) {
+        mma(acc[2 * p], a[i], b[0], b[1]);
+        mma(acc[2 * p + 1], a[i], b[2], b[3]);
+      }
+    }
+  }
+  float* sl = red + (t & 1) * C * BR * UR + rank * BR * UR;
+  const uint32_t bar = smem_addr(&full[t & 1]);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int hc = warp * 64 + j * 8 + 2 * tig;
+    const int owner = hc / UR, uc = hc - owner * UR;
+    const uint32_t obar = map_rank(bar, owner);
+    st_async_v2f32(map_rank(smem_addr(sl + gid * UR + uc), owner), acc[j][0], acc[j][1], obar);
+    st_async_v2f32(map_rank(smem_addr(sl + (gid + 8) * UR + uc), owner), acc[j][2], acc[j][3],
+                   obar);
+  }
 }
 
 // ---- forward ----------------------------------------------------------------
@@ -489,35 +572,11 @@ lstm_cluster_bwd(const bf16* __restrict__ wcl,     // [G, C, NCOL, H]
   cluster_arrive();
   cluster_wait();
 
-  // step s's partials: receive slot s % 2, its ((T - 1 - s) / 2)-th phase
-  auto wait_partials = [&](int s) {
-    if (tid == 0) mbar_expect(&full[s & 1], (uint32_t)S::RED_BYTES);
-    mbar_wait(&full[s & 1], ((T - 1 - s) >> 1) & 1);
-  };
-
-  // the receive slot of step s's partials, as seen from this CTA
-  auto sum_partials = [&](int s, float (&out)[4]) {
-    const float* rd = red + (s & 1) * C * BR * S::UR;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float2 acc = *reinterpret_cast<const float2*>(rd + (gid + 8 * r) * S::UR + ul);
-#pragma unroll
-      for (int src = 1; src < C; ++src) {
-        const float2 v =
-            *reinterpret_cast<const float2*>(rd + (src * BR + gid + 8 * r) * S::UR + ul);
-        acc.x += v.x;
-        acc.y += v.y;
-      }
-      out[2 * r] = acc.x;
-      out[2 * r + 1] = acc.y;
-    }
-  };
-
   for (int t = T - 1; t >= 0; --t) {
     float dh_out[4];
     if (t < T - 1) {
-      wait_partials(t + 1);
-      sum_partials(t + 1, dh_out);
+      wait_partials<H>(full, t + 1, T, tid);
+      sum_partials<H>(red, t + 1, gid, ul, dh_out);
 #pragma unroll
       for (int e = 0; e < 4; ++e) dh_out[e] = dh_out[e] * rdv[e] + dhd[e];
     } else {
@@ -568,43 +627,10 @@ lstm_cluster_bwd(const bf16* __restrict__ wcl,     // [G, C, NCOL, H]
     }
     __syncthreads();
 
-    // partial dh = bf16(dgates) . slice^T: warp w's 64 hidden columns
+    // partial dh = bf16(dgates) . slice^T, to the owners
     {
-      float acc[8][4];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-      const int arow = (lane & 7) + ((lane >> 3) & 1) * 8;
-      const int achunk = lane >> 4;
-      const int brow = (lane & 7) + ((lane >> 3) & 1) * 8;
-      const int bchunk = warp * 8 + (lane >> 4);
-#pragma unroll
-      for (int kk = 0; kk < S::NCOL / 16; ++kk) {
-        uint32_t a[4];
-        ldsm_x4(a, dg + swz<S::NCOL>(arow, kk * 2 + achunk));
-#pragma unroll
-        for (int p = 0; p < 4; ++p) {  // hidden columns 64 w + 16 p + [0, 16)
-          uint32_t b[4];
-          ldsm_x4_trans(b, ws + swz<H>(kk * 16 + brow, bchunk + 2 * p));
-          mma(acc[2 * p], a, b[0], b[1]);
-          mma(acc[2 * p + 1], a, b[2], b[3]);
-        }
-      }
-      // to the owners' receive slot t % 2, at this CTA's rank, counted on
-      // the owner's barrier of that slot
-      float* sl = red + (t & 1) * C * BR * S::UR + rank * BR * S::UR;
-      const uint32_t bar = smem_addr(&full[t & 1]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int hc = warp * 64 + j * 8 + 2 * tig;
-        const int owner = hc / S::UR, uc = hc - owner * S::UR;
-        const uint32_t obar = map_rank(bar, owner);
-        st_async_v2f32(map_rank(smem_addr(sl + gid * S::UR + uc), owner), acc[j][0], acc[j][1],
-                       obar);
-        st_async_v2f32(map_rank(smem_addr(sl + (gid + 8) * S::UR + uc), owner), acc[j][2],
-                       acc[j][3], obar);
-      }
+      const bf16* const tiles[1] = {dg};
+      send_dh_partials<H, S::NCOL, S::NCOL, 1>(tiles, ws, red, full, t, rank, warp, lane);
     }
     // dxw[t], after the sends
 #pragma unroll
@@ -628,9 +654,9 @@ lstm_cluster_bwd(const bf16* __restrict__ wcl,     // [G, C, NCOL, H]
     }
   }
 
-  wait_partials(0);
+  wait_partials<H>(full, 0, T, tid);
   float part[4];
-  sum_partials(0, part);
+  sum_partials<H>(red, 0, gid, ul, part);
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     if (!live[e >> 1]) continue;
@@ -726,14 +752,13 @@ cudaError_t bwd(const void* wcl, const void* bias, const void* xw, const void* m
   return cudaGetLastError();
 }
 
-// the clusters of one launch that can be resident at once (0 on an error)
-template <int H>
-int max_active(bool backward) {
-  using S = Shape<H>;
+// the clusters of a launch of `kern` that can be resident at once (0 on an
+// error)
+inline int max_active_clusters(const void* kern, int threads, size_t smem) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C * 64, 2, 1);
-  cfg.blockDim = dim3(S::THREADS, 1, 1);
-  cfg.dynamicSmemBytes = backward ? S::BWD_SMEM : S::FWD_SMEM;
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = C;
@@ -742,19 +767,19 @@ int max_active(bool backward) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   int n = 0;
-  cudaError_t e;
-  if (backward) {
-    e = cudaFuncSetAttribute(lstm_cluster_bwd<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)S::BWD_SMEM);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveClusters(&n, (void*)lstm_cluster_bwd<H>, &cfg);
-  } else {
-    e = cudaFuncSetAttribute(lstm_cluster_fwd<H, false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::FWD_SMEM);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveClusters(&n, (void*)lstm_cluster_fwd<H, false>, &cfg);
-  }
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
   return e == cudaSuccess ? n : 0;
+}
+
+template <int H>
+int max_active(bool backward) {
+  using S = Shape<H>;
+  return backward ? max_active_clusters((const void*)lstm_cluster_bwd<H>, S::THREADS,
+                                        S::BWD_SMEM)
+                  : max_active_clusters((const void*)lstm_cluster_fwd<H, false>, S::THREADS,
+                                        S::FWD_SMEM);
 }
 
 }  // namespace lstm_cl

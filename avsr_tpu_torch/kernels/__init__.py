@@ -47,7 +47,10 @@ NVCC_FLAGS = (
 # direction-fused one (K1), and a scan under a recurrent-dropout mask
 # (``*_rd_*``, train mode) apart from an unmasked one; the GRU scan (K12)
 # counts G = 1 apart (``gru_scan_uni_*``), and the LN-LSTM scan (K13) both
-# (``ln_lstm_scan[_uni][_rd]_*``); the Bahdanau read kernels count a Luong (dot
+# (``ln_lstm_scan[_uni][_rd]_*``), each on its cluster route; their other
+# routes (other widths) count apart, whatever G and the mask:
+# ``gru_scan_step_*`` (K12's per-step kernels) and ``ln_lstm_scan_block_*``
+# (K13's block kernel); the Bahdanau read kernels count a Luong (dot
 # score) read apart from an additive one.  K10's backward counts its
 # per-step kernel per step (``*_attend_bwd``) and the memory's sums per
 # loop (``*_attend_sums``).  K9's forward counts the pass over time
@@ -62,9 +65,11 @@ LAUNCHES: Dict[str, int] = {
     "lstm_scan_rd_fwd": 0, "lstm_scan_rd_bwd": 0, "lstm_scan_uni_rd_fwd": 0,
     "lstm_scan_uni_rd_bwd": 0,
     "gru_scan_fwd": 0, "gru_scan_bwd": 0, "gru_scan_uni_fwd": 0, "gru_scan_uni_bwd": 0,
+    "gru_scan_step_fwd": 0, "gru_scan_step_bwd": 0,
     "ln_lstm_scan_fwd": 0, "ln_lstm_scan_bwd": 0, "ln_lstm_scan_uni_fwd": 0,
     "ln_lstm_scan_uni_bwd": 0, "ln_lstm_scan_rd_fwd": 0, "ln_lstm_scan_rd_bwd": 0,
     "ln_lstm_scan_uni_rd_fwd": 0, "ln_lstm_scan_uni_rd_bwd": 0,
+    "ln_lstm_scan_block_fwd": 0, "ln_lstm_scan_block_bwd": 0,
     "logmel_post_dft": 0, "logmel_post_dft_options": 0,
     "fusion_attention_fwd": 0, "fusion_attention_bwd": 0,
     "decoder_attention_fwd": 0, "decoder_attention_bwd": 0,
@@ -196,12 +201,28 @@ def _load() -> ctypes.CDLL:
         lib.avsr_gru_scan_fwd.restype = i
         lib.avsr_gru_scan_bwd.argtypes = [p] * 13 + [i] * 4 + [p]
         lib.avsr_gru_scan_bwd.restype = i
+        lib.avsr_gru_cluster_smem.argtypes = [i, i]
+        lib.avsr_gru_cluster_smem.restype = ctypes.c_longlong
+        lib.avsr_gru_cluster_max_active.argtypes = [i, i]
+        lib.avsr_gru_cluster_max_active.restype = i
+        lib.avsr_gru_cluster_fwd.argtypes = [p] * 7 + [i] * 4 + [p]
+        lib.avsr_gru_cluster_fwd.restype = i
+        lib.avsr_gru_cluster_bwd.argtypes = [p] * 12 + [i] * 4 + [p]
+        lib.avsr_gru_cluster_bwd.restype = i
         lib.avsr_ln_lstm_smem.argtypes = [i, i]
         lib.avsr_ln_lstm_smem.restype = ctypes.c_longlong
         lib.avsr_ln_lstm_scan_fwd.argtypes = [p] * 14 + [i] * 4 + [p]
         lib.avsr_ln_lstm_scan_fwd.restype = i
         lib.avsr_ln_lstm_scan_bwd.argtypes = [p] * 15 + [i] * 4 + [p]
         lib.avsr_ln_lstm_scan_bwd.restype = i
+        lib.avsr_ln_lstm_cluster_smem.argtypes = [i, i]
+        lib.avsr_ln_lstm_cluster_smem.restype = ctypes.c_longlong
+        lib.avsr_ln_lstm_cluster_max_active.argtypes = [i, i]
+        lib.avsr_ln_lstm_cluster_max_active.restype = i
+        lib.avsr_ln_lstm_cluster_fwd.argtypes = [p] * 14 + [i] * 4 + [p]
+        lib.avsr_ln_lstm_cluster_fwd.restype = i
+        lib.avsr_ln_lstm_cluster_bwd.argtypes = [p] * 16 + [i] * 4 + [p]
+        lib.avsr_ln_lstm_cluster_bwd.restype = i
         lib.avsr_lstm_cluster_smem.argtypes = [i, i]
         lib.avsr_lstm_cluster_smem.restype = ctypes.c_longlong
         lib.avsr_lstm_cluster_max_active.argtypes = [i, i]
@@ -531,17 +552,52 @@ def gru_step_smem(H: int, backward: bool) -> int:
     return 448 * H + 3072 if backward else 160 * H
 
 
+def _dz_pitch(ncol: int) -> int:
+    """Columns of a row of the cluster backwards' bf16 cotangent tiles (DGP
+    in the sources): the slice's columns rounded up to 64, 8 swizzle
+    chunks."""
+    return -(-ncol // 64) * 64
+
+
+def gru_cluster_smem(H: int, backward: bool) -> int:
+    """Shared memory of one CTA of K12's cluster kernels at width H
+    (``csrc/gru_cluster.cuh`` ``Shape``): the resident Wh slice (3 H/8 x H
+    bf16, 3 H^2 / 4 bytes); the forward's two bf16 h tiles (64 H); the
+    backward's h_res tile (32 H), the hi and lo bf16 dhw tiles (64 DGP
+    bytes) and two slots of fp32 dh partials (128 H); two 8-byte
+    mbarriers."""
+    w = 3 * H * H // 4
+    if not backward:
+        return w + 64 * H + 16
+    return w + 32 * H + 64 * _dz_pitch(3 * H // LSTM_CLUSTER) + 128 * H + 16
+
+
 def gru_family(G: int, B: int, H: int) -> str:
     """The kernels that run a GRU scan (K12) of G directions, B rows and
-    width H: "step", one launch a step (``csrc/gru_scan.cu``), where H is a
-    multiple of 16 whose backward block fits the shared memory (H <= 512;
-    the presets' encoders have H = 256).  Chosen by shape alone; other
-    shapes raise."""
+    width H: "cluster", one persistent launch of 8-CTA clusters a call
+    (``csrc/gru_cluster.cuh``), where H is a multiple of 128 (8 units a
+    warp; the slice's 3 H/8 columns in 16-column k-steps) whose backward
+    fits a CTA's shared memory (H <= 384; every preset has H = 256); else
+    "step", one launch a step (``csrc/gru_scan.cu``), where H is a multiple
+    of 16 whose backward block fits (H <= 512).  Chosen by shape alone,
+    never after a failure; other shapes raise."""
     if G < 1 or B < 1 or H < LSTM_UNIT_TILE or H % LSTM_UNIT_TILE \
             or gru_step_smem(H, backward=True) > SMEM_LIMIT:
         raise ValueError(f"gru scan: G={G}, B={B}, H={H}; the kernels take G, B >= 1 and H a "
                          f"positive multiple of {LSTM_UNIT_TILE} up to 512")
+    if H % 128 == 0 and gru_cluster_smem(H, backward=True) <= SMEM_LIMIT:
+        return "cluster"
     return "step"
+
+
+def cluster_gru_weights(wh: torch.Tensor) -> torch.Tensor:
+    """[G, H, 3H] -> [G, 8, H/64, 3, 8, H], the layout K12's cluster kernels
+    read: [g, r, w, q, j, k] = Wh[g, k, q*H + r*H/8 + 8*w + j], so CTA r's
+    slice (its H/8 units' r, z and n gates over all H inputs) is one
+    contiguous [3H/8, H] run, column-major, whose rows are warp w's 8 units
+    gate by gate (``csrc/gru_cluster.cuh``)."""
+    G, H, _ = wh.shape
+    return wh.view(G, H, 3, LSTM_CLUSTER, H // 64, 8).permute(0, 3, 4, 2, 5, 1).contiguous()
 
 
 def tile_gru_weights(wh: torch.Tensor) -> torch.Tensor:
@@ -575,25 +631,29 @@ def gru_scan_fwd(wh, b, xw, mask, h0, *, save: bool = False):
     wh [G,H,3H] bf16, b [G,3H] f32, xw [T,G,B,3H] bf16, mask [T,G,B] f32,
     h0 [G,B,H] f32 -> (ys [T,G,B,H] bf16, hT [G,B,H] f32, h_res), h_res the
     bf16 [T,G,B,H] carries entering each step (the product's operand) when
-    ``save``, else None.  One launch per step.
+    ``save``, else None.  Runs on the family ``gru_family`` names: one
+    cluster launch, or one launch per step (counted as
+    ``gru_scan_step_fwd``).
     """
     T, G, B, H3 = xw.shape
     H = H3 // 3
     dev = xw.device
-    _check_gru(xw, wh, b, mask, T, G, B, H, dev)
+    family = _check_gru(xw, wh, b, mask, T, G, B, H, dev)
     _check("h0", h0, torch.float32, (G, B, H), dev)
     lib = _load()
     hbuf = torch.empty((2, G, B, H), dtype=torch.float32, device=dev)
     hbuf[0].copy_(h0)
     ys = torch.empty((T, G, B, H), dtype=torch.bfloat16, device=dev)
     h_res = torch.empty((T, G, B, H), dtype=torch.bfloat16, device=dev) if save else None
-    w = tile_gru_weights(wh)
+    cluster = family == "cluster"
+    w = cluster_gru_weights(wh) if cluster else tile_gru_weights(wh)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.avsr_gru_scan_fwd(
-        w.data_ptr(), b.data_ptr(), xw.data_ptr(), mask.data_ptr(),
-        hbuf.data_ptr(), ys.data_ptr(), _ptr(h_res), T, G, B, H, stream)
+    launch = lib.avsr_gru_cluster_fwd if cluster else lib.avsr_gru_scan_fwd
+    err = launch(w.data_ptr(), b.data_ptr(), xw.data_ptr(), mask.data_ptr(),
+                 hbuf.data_ptr(), ys.data_ptr(), _ptr(h_res), T, G, B, H, stream)
     _raise_on(err, "gru_scan_fwd launch")
-    LAUNCHES["gru_scan_uni_fwd" if G == 1 else "gru_scan_fwd"] += 1
+    LAUNCHES[("gru_scan_uni_fwd" if G == 1 else "gru_scan_fwd") if cluster
+             else "gru_scan_step_fwd"] += 1
     return ys, hbuf[T % 2], h_res
 
 
@@ -605,34 +665,47 @@ def gru_scan_bwd(wh, b, xw, mask, h_res, dys, dhT):
     cotangents dys [T,G,B,H] bf16, dhT [G,B,H] f32 -> (dxw [T,G,B,3H] bf16,
     db [G,3H] f32, dh0 [G,B,H] f32, dhw [T,G,B,3H] f32: the cotangent of
     each step's recurrent product, whose n block is dn * r, so dWh =
-    h_res^T dhw, one product over all steps, is the caller's).  One launch
-    per step and a final one.
+    h_res^T dhw, one product over all steps, is the caller's).  The cluster
+    family is one cluster launch and a row-tile sum of db; the per-step
+    family one launch per step and a final one (counted as
+    ``gru_scan_step_bwd``).
     """
     T, G, B, H3 = xw.shape
     H = H3 // 3
     dev = xw.device
-    _check_gru(xw, wh, b, mask, T, G, B, H, dev)
+    family = _check_gru(xw, wh, b, mask, T, G, B, H, dev)
     _check("h_res", h_res, torch.bfloat16, (T, G, B, H), dev)
     _check("dys", dys, torch.bfloat16, (T, G, B, H), dev)
     _check("dhT", dhT, torch.float32, (G, B, H), dev)
     if T < 1:
         raise ValueError("gru_scan_bwd: needs at least one step")
     lib = _load()
-    dh_dir = dhT.clone()
-    db_part = torch.zeros((G, -(-B // LSTM_ROW_TILE), H3), dtype=torch.float32, device=dev)
     dxw = torch.empty((T, G, B, H3), dtype=torch.bfloat16, device=dev)
     dhw = torch.empty((T, G, B, H3), dtype=torch.float32, device=dev)
     dh0 = torch.empty((G, B, H), dtype=torch.float32, device=dev)
     db = torch.empty((G, H3), dtype=torch.float32, device=dev)
-    w, wT = tile_gru_weights(wh), tile_gru_weights_t(wh)  # alive until the launches are queued
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.avsr_gru_scan_bwd(
-        w.data_ptr(), wT.data_ptr(), b.data_ptr(),
-        xw.data_ptr(), mask.data_ptr(), h_res.data_ptr(), dys.data_ptr(), dh_dir.data_ptr(),
-        db_part.data_ptr(), dxw.data_ptr(), dhw.data_ptr(), dh0.data_ptr(), db.data_ptr(),
-        T, G, B, H, stream)
+    if family == "cluster":
+        w = cluster_gru_weights(wh)  # alive until the launches are queued
+        db_part = torch.empty((G, -(-B // LSTM_CLUSTER_ROWS), H3), dtype=torch.float32,
+                              device=dev)
+        err = lib.avsr_gru_cluster_bwd(
+            w.data_ptr(), b.data_ptr(), xw.data_ptr(), mask.data_ptr(), h_res.data_ptr(),
+            dys.data_ptr(), dhT.data_ptr(), db_part.data_ptr(), dxw.data_ptr(), dhw.data_ptr(),
+            dh0.data_ptr(), db.data_ptr(), T, G, B, H, stream)
+        counter = "gru_scan_uni_bwd" if G == 1 else "gru_scan_bwd"
+    else:
+        dh_dir = dhT.clone()
+        db_part = torch.zeros((G, -(-B // LSTM_ROW_TILE), H3), dtype=torch.float32, device=dev)
+        w, wT = tile_gru_weights(wh), tile_gru_weights_t(wh)
+        err = lib.avsr_gru_scan_bwd(
+            w.data_ptr(), wT.data_ptr(), b.data_ptr(),
+            xw.data_ptr(), mask.data_ptr(), h_res.data_ptr(), dys.data_ptr(), dh_dir.data_ptr(),
+            db_part.data_ptr(), dxw.data_ptr(), dhw.data_ptr(), dh0.data_ptr(), db.data_ptr(),
+            T, G, B, H, stream)
+        counter = "gru_scan_step_bwd"
     _raise_on(err, "gru_scan_bwd launch")
-    LAUNCHES["gru_scan_uni_bwd" if G == 1 else "gru_scan_bwd"] += 1
+    LAUNCHES[counter] += 1
     return dxw, db, dh0, dhw
 
 
@@ -649,17 +722,38 @@ def ln_lstm_smem(H: int, backward: bool) -> int:
     return 4 * LN_LSTM_ROWS * ((17 * H + 21) if backward else (8 * H + 11))
 
 
+LN_LSTM_NSTAT = 10  # a row-step's statistics the cluster backward reads (NSTAT)
+
+
+def ln_lstm_cluster_smem(H: int, backward: bool) -> int:
+    """Shared memory of one CTA of K13's cluster kernels at width H
+    (``csrc/ln_lstm_cluster.cuh`` ``Shape``): K1's resident Wh slice (H*H
+    bytes); the forward's two bf16 h tiles (64 H), the backward's hi and lo
+    bf16 dz tiles (64 DGP bytes) and two slots of fp32 dh partials (128 H);
+    the statistics' buffers, the warps' (mean, M2) or sums partials for 16
+    rows x (4 gate blocks + the cell) and the 8 CTAs' (640 NW + 5120 bytes,
+    NW = H/64 warps); four 8-byte mbarriers."""
+    stat = 640 * (H // 64) + 5120 + 32
+    if not backward:
+        return H * H + 64 * H + stat
+    return H * H + 64 * _dz_pitch(H // 2) + 128 * H + stat
+
+
 def ln_lstm_family(G: int, B: int, H: int) -> str:
-    """The kernel that runs an LN-LSTM scan (K13) of G directions, B rows and
-    width H: "block", one persistent launch a call, a block a (direction,
-    tile of ``LN_LSTM_ROWS`` rows) owning all 4H gate columns
+    """The kernels that run an LN-LSTM scan (K13) of G directions, B rows and
+    width H: "cluster", one persistent launch of 8-CTA clusters a call
+    (``csrc/ln_lstm_cluster.cuh``), where H is a multiple of 64 from 128
+    whose backward fits a CTA's shared memory (H <= 384; every preset has H
+    = 256); else "block", one persistent launch a call, a block a
+    (direction, tile of ``LN_LSTM_ROWS`` rows) owning all 4H gate columns
     (``csrc/ln_lstm_scan.cu``), at every multiple of 4 up to
-    ``LN_LSTM_MAX_H`` (the presets' encoders have H = 256; the LSTM kernels
-    K1 / K2 take multiples of 16) and any T.  Chosen by shape alone; other
-    shapes raise."""
+    ``LN_LSTM_MAX_H``.  Any T.  Chosen by shape alone, never after a
+    failure; other shapes raise."""
     if G < 1 or B < 1 or not 4 <= H <= LN_LSTM_MAX_H or H % 4:
         raise ValueError(f"ln_lstm scan: G={G}, B={B}, H={H}; the kernel takes G, B >= 1 and "
                          f"H a multiple of 4 up to {LN_LSTM_MAX_H}")
+    if H % 64 == 0 and H >= 128 and ln_lstm_cluster_smem(H, backward=True) <= SMEM_LIMIT:
+        return "cluster"
     return "block"
 
 
@@ -684,11 +778,13 @@ def ln_lstm_scan_fwd(wh, b, lng, lncg, lncb, xw, mask, h0, c0, *, save: bool = F
     None -> (ys [T,G,B,H] bf16, hT, cT [G,B,H] f32, h_res, c_res, z): when
     ``save``, each step's bf16 operand bf16(h * rd) and the fp32 carry c
     entering it [T,G,B,H] and its fp32 pre-LN gates [T,G,B,4H], else None.
+    Runs on the family ``ln_lstm_family`` names (the block route counted as
+    ``ln_lstm_scan_block_fwd``).
     """
     T, G, B, H4 = xw.shape
     H = H4 // 4
     dev = xw.device
-    _check_ln_lstm(wh, b, lng, lncg, lncb, mask, T, G, B, H, dev)
+    family = _check_ln_lstm(wh, b, lng, lncg, lncb, mask, T, G, B, H, dev)
     _check("xw", xw, torch.bfloat16, (T, G, B, 4 * H), dev)
     _check("h0", h0, torch.float32, (G, B, H), dev)
     _check("c0", c0, torch.float32, (G, B, H), dev)
@@ -700,13 +796,18 @@ def ln_lstm_scan_fwd(wh, b, lng, lncg, lncb, xw, mask, h0, c0, *, save: bool = F
         h_res = torch.empty((T, G, B, H), dtype=torch.bfloat16, device=dev)
         c_res = torch.empty((T, G, B, H), dtype=torch.float32, device=dev)
         z = torch.empty((T, G, B, 4 * H), dtype=torch.float32, device=dev)
-    err = _load().avsr_ln_lstm_scan_fwd(
-        wh.data_ptr(), b.data_ptr(), lng.data_ptr(), lncg.data_ptr(), lncb.data_ptr(),
+    cluster = family == "cluster"
+    lib = _load()
+    w = cluster_lstm_weights(wh) if cluster else wh  # alive until the launch is queued
+    launch = lib.avsr_ln_lstm_cluster_fwd if cluster else lib.avsr_ln_lstm_scan_fwd
+    err = launch(
+        w.data_ptr(), b.data_ptr(), lng.data_ptr(), lncg.data_ptr(), lncb.data_ptr(),
         xw.data_ptr(), mask.data_ptr(), _ptr(rd), h.data_ptr(), c.data_ptr(), ys.data_ptr(),
         _ptr(h_res), _ptr(c_res), _ptr(z), T, G, B, H,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "ln_lstm_scan_fwd launch")
-    LAUNCHES[_lstm_counter("ln_lstm_scan_fwd", G, rd)] += 1
+    LAUNCHES[_lstm_counter("ln_lstm_scan_fwd", G, rd) if cluster
+             else "ln_lstm_scan_block_fwd"] += 1
     return ys, h, c, h_res, c_res, z
 
 
@@ -718,12 +819,15 @@ def ln_lstm_scan_bwd(wh, b, lng, lncg, lncb, mask, c_res, z, dys, dhT, dcT, *, r
     [T,G,B,4H] f32, the cotangents dys [T,G,B,H] bf16, dhT / dcT [G,B,H] f32
     -> (dxw [T,G,B,4H] bf16 (= bf16(dz)), db, dln_gamma [G,4H], dln_cell_gamma,
     dln_cell_beta [G,H], dh0, dc0 [G,B,H], all f32).  dWh = h_res^T dxw, one
-    product over all steps, is the caller's.
+    product over all steps, is the caller's.  The cluster family is a
+    launch for the steps' row statistics, one cluster launch and the
+    parameter sums' reduce; the block family (counted as
+    ``ln_lstm_scan_block_bwd``) one launch and the reduce.
     """
     T, G, B, H4 = z.shape
     H = H4 // 4
     dev = z.device
-    _check_ln_lstm(wh, b, lng, lncg, lncb, mask, T, G, B, H, dev)
+    family = _check_ln_lstm(wh, b, lng, lncg, lncb, mask, T, G, B, H, dev)
     _check("c_res", c_res, torch.float32, (T, G, B, H), dev)
     _check("z", z, torch.float32, (T, G, B, 4 * H), dev)
     _check("dys", dys, torch.bfloat16, (T, G, B, H), dev)
@@ -732,18 +836,33 @@ def ln_lstm_scan_bwd(wh, b, lng, lncg, lncb, mask, c_res, z, dys, dhT, dcT, *, r
     _check_rd(rd, G, B, H, dev)
     if T < 1:
         raise ValueError("ln_lstm_scan_bwd: needs at least one step")
-    whT = wh.transpose(1, 2).contiguous()  # alive until the launch is queued
     dh, dc = dhT.clone(), dcT.clone()
     dxw = torch.empty((T, G, B, 4 * H), dtype=torch.bfloat16, device=dev)
-    part = torch.empty((G, -(-B // LN_LSTM_ROWS), 10 * H), dtype=torch.float32, device=dev)
     grads = torch.empty((G, 10 * H), dtype=torch.float32, device=dev)
-    err = _load().avsr_ln_lstm_scan_bwd(
-        whT.data_ptr(), b.data_ptr(), lng.data_ptr(), lncg.data_ptr(), lncb.data_ptr(),
-        mask.data_ptr(), _ptr(rd), c_res.data_ptr(), z.data_ptr(), dys.data_ptr(),
-        dh.data_ptr(), dc.data_ptr(), dxw.data_ptr(), part.data_ptr(), grads.data_ptr(),
-        T, G, B, H, torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _load()
+    if family == "cluster":
+        w = cluster_lstm_weights(wh)  # alive until the launches are queued
+        stats = torch.empty((T, G, B, LN_LSTM_NSTAT), dtype=torch.float32, device=dev)
+        part = torch.empty((G, -(-B // LSTM_CLUSTER_ROWS), 10 * H), dtype=torch.float32,
+                           device=dev)
+        err = lib.avsr_ln_lstm_cluster_bwd(
+            w.data_ptr(), b.data_ptr(), lng.data_ptr(), lncg.data_ptr(), lncb.data_ptr(),
+            mask.data_ptr(), _ptr(rd), c_res.data_ptr(), z.data_ptr(), dys.data_ptr(),
+            dh.data_ptr(), dc.data_ptr(), dxw.data_ptr(), stats.data_ptr(), part.data_ptr(),
+            grads.data_ptr(), T, G, B, H, stream)
+        counter = _lstm_counter("ln_lstm_scan_bwd", G, rd)
+    else:
+        whT = wh.transpose(1, 2).contiguous()
+        part = torch.empty((G, -(-B // LN_LSTM_ROWS), 10 * H), dtype=torch.float32, device=dev)
+        err = lib.avsr_ln_lstm_scan_bwd(
+            whT.data_ptr(), b.data_ptr(), lng.data_ptr(), lncg.data_ptr(), lncb.data_ptr(),
+            mask.data_ptr(), _ptr(rd), c_res.data_ptr(), z.data_ptr(), dys.data_ptr(),
+            dh.data_ptr(), dc.data_ptr(), dxw.data_ptr(), part.data_ptr(), grads.data_ptr(),
+            T, G, B, H, stream)
+        counter = "ln_lstm_scan_block_bwd"
     _raise_on(err, "ln_lstm_scan_bwd launch")
-    LAUNCHES[_lstm_counter("ln_lstm_scan_bwd", G, rd)] += 1
+    LAUNCHES[counter] += 1
     db, dlng, dlncg, dlncb = grads.split((4 * H, 4 * H, H, H), dim=1)
     return dxw, db, dlng, dlncg, dlncb, dh, dc
 

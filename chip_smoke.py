@@ -373,15 +373,19 @@ Phases, in order; any failure exits nonzero before the final line:
              state and cotangents passed through; at [197, 128] device ms a
              call and us a step beside the unmasked kernel's at the same
              shape, times and the bound.
-52. K12    — the GRU scan (``csrc/gru_scan.cu``, one launch a step) forward in
-             save mode and backward against the plain twins at phase 51's
-             shapes: errors on ys, hT, h_res, dWh, db, dxw, dh0; reruns
-             bit-equal; the 0-length row; the step kernels' shared memory
-             against ``kernels.gru_step_smem``; registers and spills
-             (``ptxas -v``); at [197, 128] device ms, us a step, times, the
-             bound and, as a reference point that computes more (the input
-             product) with its own rounding, cuDNN's bidirectional
-             ``nn.GRU`` (b_hh = 0) on a packed sequence.
+52. K12    — the GRU scan forward in save mode and backward against the
+             plain twins at phase 51's shapes, each call's family printed:
+             the cluster route (``csrc/gru_cluster.cuh``, one launch a call)
+             at H = 256, the per-step kernels (``csrc/gru_scan.cu``) at H =
+             80: errors on ys, hT, h_res, dWh, db, dxw, dh0; reruns
+             bit-equal; the 0-length row; both routes' shared memory
+             against ``kernels.gru_step_smem`` / ``gru_cluster_smem``,
+             resident clusters; registers and spills (``ptxas -v``; a
+             cluster instance's spill fails); at [197, 128] and the step
+             route's [50, 20] device ms, us a step, times, the bound and,
+             as a reference point that computes more (the input product)
+             with its own rounding, cuDNN's bidirectional ``nn.GRU`` (b_hh
+             = 0) on a packed sequence.
 53. train-rd-residual — five full-width train steps (``CELL_OPTION_STEPS``) of
              ``lrs2_av_align_rd_residual`` (``rd_residual_cfg``: recurrent
              dropout 0.2 in both encoders, residual audio layers 1-2) at
@@ -395,16 +399,19 @@ Phases, in order; any failure exits nonzero before the final line:
              ``lrs2_av_align_gru_highway`` (``gru_highway_cfg``: GRU cells in
              both encoders, highway audio layers 1-2, ``hw_w`` / ``hw_b``
              among the leaves), as phase 53; K12 forward and backward
-             launched, no LSTM scan.
+             launched on its cluster route, no LSTM scan.
 56. serve-gru-highway — the same model served as phase 54; K12's forward
-             launched, no LSTM scan.
-57. k13 — K13 (``csrc/ln_lstm_scan.cu``, the LN-LSTM scan) forward in save
-             mode and backward against the plain twins, with and without an
-             rd mask, at G = 2 and 1: the paths' shapes, the train and
-             serving buckets', G = 1 at [197, 128] and [531, 4], H = 80;
-             0-length rows exact, reruns bit-equal; ptxas registers and
-             spills, the library's shared memory against
-             ``kernels.ln_lstm_smem``; device ms, times and bounds.
+             launched on its cluster route, no LSTM scan.
+57. k13 — K13, the LN-LSTM scan, forward in save mode and backward against
+             the plain twins, with and without an rd mask, at G = 2 and 1,
+             each call's family printed: the cluster route
+             (``csrc/ln_lstm_cluster.cuh``) at the paths' shapes, the train
+             and serving buckets', G = 1 at [197, 128] and [531, 4]; the
+             block kernel (``csrc/ln_lstm_scan.cu``) at H = 80; 0-length
+             rows exact, reruns bit-equal; ptxas registers and spills (a
+             cluster instance's spill fails), the library's shared memory
+             against ``kernels.ln_lstm_smem`` / ``ln_lstm_cluster_smem``,
+             resident clusters; device ms, times and bounds.
 58. k3-options — K3's option instances (the spectrogram, no deltas, global
              or no normalization) against the plain twin at B = 8 and 128,
              6 s and 16 s and the serving buckets; reruns bit-equal.
@@ -416,7 +423,8 @@ Phases, in order; any failure exits nonzero before the final line:
              spread, and every K13 call of the kernel path's step held on its
              own activations (``hold_k13_calls``: each forward step by step
              from the kernel's states, each backward against the twin);
-             K13 masked and unmasked launched, no K1 / K2.
+             K13 masked and unmasked launched on its cluster route, no K1 /
+             K2.
 60. serve-ln — the same model served as phase 15, its encode's K13 calls
              held the same way.
 61. train-spectrogram — ten full-width train steps of
@@ -639,20 +647,26 @@ OTHER_ROUTES = {"serve_align": ("bahdanau_attend", "bahdanau_attend_row"),
                                       "bahdanau_attend_grouped"),
                 "serve_rd_residual": ("lstm_scan_rd_fwd", "lstm_scan_rd_bwd", "bahdanau_attend",
                                       "bahdanau_attend_row"),
+                # (H = 256: K12 on its cluster route, never the per-step one)
                 "train_gru_highway": ("lstm_scan_fwd", "lstm_scan_bwd", "lstm_scan_rd_fwd",
-                                      "lstm_scan_rd_bwd", "bahdanau_attend",
+                                      "lstm_scan_rd_bwd", "gru_scan_step_fwd",
+                                      "gru_scan_step_bwd", "bahdanau_attend",
                                       "bahdanau_attend_grouped"),
                 "serve_gru_highway": ("lstm_scan_fwd", "lstm_scan_bwd", "lstm_scan_rd_fwd",
-                                      "lstm_scan_rd_bwd", "gru_scan_bwd", "bahdanau_attend",
+                                      "lstm_scan_rd_bwd", "gru_scan_bwd", "gru_scan_step_fwd",
+                                      "gru_scan_step_bwd", "bahdanau_attend",
                                       "bahdanau_attend_row"),
                 # the LN-LSTM paths (phases 59-60): no K1 or K2, the masked
-                # K13 in the training only; the spectrogram paths (61-62):
+                # K13 in the training only, K13 on its cluster route (H =
+                # 256), never the block one; the spectrogram paths (61-62):
                 # K3's option instance, never the presets' one
                 "train_ln": ("lstm_scan_fwd", "lstm_scan_bwd", "lstm_scan_rd_fwd",
-                             "lstm_scan_rd_bwd", "bahdanau_attend", "bahdanau_attend_grouped"),
+                             "lstm_scan_rd_bwd", "ln_lstm_scan_block_fwd",
+                             "ln_lstm_scan_block_bwd", "bahdanau_attend",
+                             "bahdanau_attend_grouped"),
                 "serve_ln": ("lstm_scan_fwd", "lstm_scan_rd_fwd", "ln_lstm_scan_rd_fwd",
-                             "ln_lstm_scan_bwd", "ln_lstm_scan_rd_bwd", "bahdanau_attend",
-                             "bahdanau_attend_row"),
+                             "ln_lstm_scan_bwd", "ln_lstm_scan_rd_bwd", "ln_lstm_scan_block_fwd",
+                             "ln_lstm_scan_block_bwd", "bahdanau_attend", "bahdanau_attend_row"),
                 "train_spectrogram": ("logmel_post_dft",),
                 "serve_spectrogram": ("logmel_post_dft",)}
 # the reference's unimodal and bimodal regimes (audio_tcdtimit,
@@ -678,11 +692,13 @@ MIX_TOL = 1e-5
 # instances of the encoder options (a one-direction GRU layer, a
 # one-direction LSTM layer under recurrent dropout), which phases 51-52 hold
 # at G = 1 but no configuration on the card uses, and K13's one-direction
-# instances (phase 57)
+# instances (phase 57), and the routes K12 and K13 take at widths off the
+# presets' (the per-step and block kernels, phases 52 and 57 at H = 80)
 OFF_PATH = ("bahdanau_attend", "luong_attend", "conformer_conv_fwd_tiles",
             "lstm_scan_uni_rd_fwd", "lstm_scan_uni_rd_bwd", "gru_scan_uni_fwd", "gru_scan_uni_bwd",
             "ln_lstm_scan_uni_fwd", "ln_lstm_scan_uni_bwd", "ln_lstm_scan_uni_rd_fwd",
-            "ln_lstm_scan_uni_rd_bwd")
+            "ln_lstm_scan_uni_rd_bwd", "gru_scan_step_fwd", "gru_scan_step_bwd",
+            "ln_lstm_scan_block_fwd", "ln_lstm_scan_block_bwd")
 # the training loop, checkpoints, API and CLI: lrs2_av_align's train step
 # (K1, K3, K8 and K10's teacher-forced loop), its eval loss (K10's row
 # read) and beam (K10's grouped read, K7); lrs2_av_fast's train step, greedy
@@ -5542,15 +5558,33 @@ def phase_k1_rd(dev, report):
             device_ms_with_dwh=dms["bwd_with_dwh"], shape=f"T={T},G={G},B={B},H=256")
 
 
-def k12_build_info():
-    """Registers and spills of K12's kernels (``ptxas -v``)."""
+def cluster_build_info(label, stem, cluster_tag, route_names, n_cluster, n_route):
+    """Registers and spills of a scan's kernels (``ptxas -v`` of
+    ``csrc/<stem>.cu``): its cluster instances (mangled names holding
+    ``cluster_tag``) and its other route's kernels (``route_names``), in
+    the counts the library instantiates; fails on a spill of a cluster
+    instance."""
     from avsr_tpu_torch import kernels
 
-    rep = {name: r for name, r in kernels.ptxas_report("gru_scan").items() if "gru_" in name}
-    if len(rep) != 3:
-        fail("K12", f"expected K12's three kernels in the ptxas report, got {sorted(rep)}")
-    print(f"K12 build (gru_scan.cu; ptxas -v): {rep}")
-    return rep
+    report = kernels.ptxas_report(stem)
+    cl = {n: r for n, r in report.items() if cluster_tag in n}
+    other = {n: r for n, r in report.items() if any(k in n for k in route_names)}
+    print(f"{label} build ({stem}.cu; ptxas -v): cluster {cl}; other route {other}")
+    if len(cl) != n_cluster or len(other) != n_route:
+        fail(label, f"expected {n_cluster} cluster and {n_route} other kernels in the ptxas "
+                    f"report, got {sorted(cl)} and {sorted(other)}")
+    spilled = [n for n, r in cl.items() if r["spill_stores"] or r["spill_loads"]]
+    if spilled:
+        fail(label, f"cluster kernels spill: {spilled}")
+    return {**cl, **other}
+
+
+def k12_build_info():
+    """Registers and spills of K12's kernels: 6 cluster instances (forward
+    and backward at H = 128, 256, 384) and the three per-step kernels."""
+    return cluster_build_info("K12", "gru_scan", "gru_cl", ("gru_step_kernel",
+                                                             "gru_bwd_step_kernel",
+                                                             "gru_bwd_final_kernel"), 6, 3)
 
 
 def cudnn_gru_ms(T, B, H, lengths, dev, D=512):
@@ -5593,6 +5627,15 @@ def phase_k12(dev, report):
                 fail("K12", f"H={H}: the library's step kernel takes "
                             f"{lib.avsr_gru_step_smem(H, bwd)} bytes, gru_step_smem "
                             f"{kernels.gru_step_smem(H, bool(bwd))}")
+    active = {}
+    for H in (128, 256, 384):
+        for bwd in (0, 1):
+            if lib.avsr_gru_cluster_smem(H, bwd) != kernels.gru_cluster_smem(H, bool(bwd)):
+                fail("K12", f"H={H}: the library's cluster CTA takes "
+                            f"{lib.avsr_gru_cluster_smem(H, bwd)} bytes, gru_cluster_smem "
+                            f"{kernels.gru_cluster_smem(H, bool(bwd))}")
+            active[(H, "bwd" if bwd else "fwd")] = lib.avsr_gru_cluster_max_active(H, bwd)
+    print(f"K12 cluster: max active 8-CTA clusters {active}")
     names = ("dWh", "db", "dxw", "dh0")
     runs = {}
     for G, H, T, B in rnn_option_cases():
@@ -5619,20 +5662,22 @@ def phase_k12(dev, report):
                          and float(g_k[2][:, :, 1].float().abs().max()) == 0.0
                          and torch.equal(g_k[3][:, 1], dhT[:, 1]))
         family = kernels.gru_family(G, B, H)
+        want = "cluster" if H == 256 else "step"
         print(f"K12 [T={T},G={G},B={B},H={H}] family {family}: fwd max abs err "
               f"{ {n: f'{x:.3e}' for n, x in e.items()} } (tol {K1_TOL}); bwd relative to max "
               f"|plain| { {n: f'{x:.3e}' for n, x in ge.items()} } (tol {K1B_REL_TOL}); reruns "
               f"bit-equal: {same}; the 0-length row kept h0 and passed dhT: {kept}")
-        if not (all(torch.isfinite(x.float()).all() for x in (ys, hT, *g_k))
+        if not (family == want and all(torch.isfinite(x.float()).all() for x in (ys, hT, *g_k))
                 and max(e.values()) <= K1_TOL and max(ge.values()) <= K1B_REL_TOL and same
                 and kept):
             fail("K12", f"kernels disagree with the plain twins at G={G}, T={T}, B={B}, H={H}: "
-                        f"{e}, {ge}; bit-equal {same}; kept {kept}")
+                        f"{e}, {ge}; bit-equal {same}; kept {kept}; family {family}")
         runs[(G, H, T, B)] = dict(args=args, bargs=bargs, out=(ys, hT, h_res), grads=g_k,
                                   fwd_err=max(e.values()),
                                   bwd_err=max(max_err(a, b_) for a, b_ in zip(g_k, g_p)))
-    for G, (T, B) in ((2, (197, 128)), (1, (197, 128))):
-        r = runs[(G, 256, T, B)]
+    T80, G80, B80 = RNN_OPTION_STEP_ROUTE[0]
+    for G, H, T, B in ((2, 256, 197, 128), (1, 256, 197, 128), (G80, 80, T80, B80)):
+        r = runs[(G, H, T, B)]
         a, ba = r["args"], r["bargs"]
         ka = [ba[0].to(bf).contiguous(), *ba[1:7]]  # the wrapper's operands
         dms = dict(fwd=device_ms(lambda: rnn.gru_core_fwd(*a, bf, True)),
@@ -5644,9 +5689,12 @@ def phase_k12(dev, report):
                                     warmup=1),
                   bwd=time_ms(lambda: rnn.gru_core_bwd(*ba)),
                   plain_bwd=time_ms(lambda: rnn.gru_scan_core_bwd_plain(*ba), reps=3, warmup=1))
-        flops = 2 * T * G * B * 256 * 768
-        cud = cudnn_gru_ms(T, B, 256, a[3][:, 0].sum(0).long(), dev) if G == 2 else None
-        print(f"K12 [T={T},G={G},B={B},H=256] device fwd (save) {dms['fwd']:.4f} ms "
+        flops = 2 * T * G * B * H * 3 * H
+        cud = (cudnn_gru_ms(T, B, H, a[3][:, 0].sum(0).long(), dev) if (G, H) == (2, 256)
+               else None)
+        family = kernels.gru_family(G, B, H)
+        print(f"K12 [T={T},G={G},B={B},H={H}] {family} route: device fwd (save) "
+              f"{dms['fwd']:.4f} ms "
               f"({dms['fwd'] / T * 1e3:.3f} us a step; {dms['fwd_serve']:.4f} ms without "
               f"save), bwd {dms['bwd']:.4f} ms ({dms['bwd'] / T * 1e3:.3f} us a step; "
               f"{dms['bwd_with_dwh']:.4f} ms with the caller's dWh); kernel {ms['fwd']:.4f} / "
@@ -5656,9 +5704,10 @@ def phase_k12(dev, report):
                  f"; reference point, not K12's function: cuDNN bidirectional nn.GRU (fp16, "
                  f"input width 512, b_hh = 0, packed sequence; it also computes the input "
                  f"product) device {cud[0]:.4f} ms forward, {cud[1]:.4f} ms backward"))
-        kind = "" if G == 2 else "_uni"
-        shapes = [k for k in runs if k[0] == G]
-        common = dict(shape=f"T={T},G={G},B={B},H=256", library_ms=None,
+        kind = "_step" if family == "step" else "" if G == 2 else "_uni"
+        shapes = [k for k in runs if kernels.gru_family(k[0], k[3], k[1]) == family
+                  and (family == "step" or k[0] == G)]
+        common = dict(shape=f"T={T},G={G},B={B},H={H}", library_ms=None, family=family,
                       registers={k: x["registers"] for k, x in build.items()},
                       spill_bytes={k: x["spill_stores"] + x["spill_loads"]
                                    for k, x in build.items()})
@@ -5675,7 +5724,7 @@ def phase_k12(dev, report):
             # recurrent cotangent this design writes for the caller's dWh, is
             # an intermediate: its bytes are reported apart, not bounded.
             bound=bound(nbytes(*ka, *r["grads"][1:]), 2 * flops),
-            dhw_write_bytes=T * G * B * 768 * 4,
+            dhw_write_bytes=T * G * B * 3 * H * 4,
             per_step_us=dms["bwd"] / T * 1e3, device_ms_with_dwh=dms["bwd_with_dwh"],
             **({} if cud is None else {"cudnn_reference_device_ms": cud[1]}))
 
@@ -5888,16 +5937,27 @@ def phase_k13(dev, report):
     from avsr_tpu_torch.ops import rnn
 
     bf = torch.bfloat16
-    build = {n: r for n, r in kernels.ptxas_report("ln_lstm_scan").items() if "ln_lstm" in n}
-    print(f"K13 build (ln_lstm_scan.cu; ptxas -v): {build}")
-    if len(build) != 9:
-        fail("K13", f"expected K13's 9 kernels in the ptxas report, got {sorted(build)}")
+    # 25 cluster instances (forward and backward, with and without the rd
+    # mask, and the statistics launch, at H = 128..384) and the block
+    # route's 9 kernels
+    build = cluster_build_info("K13", "ln_lstm_scan", "ln_cl",
+                               ("ln_lstm_fwd_kernel", "ln_lstm_bwd_kernel",
+                                "ln_lstm_part_reduce"), 25, 9)
     lib = kernels._load()
     for H in (80, 256, 512):
         for bwd in (0, 1):
             if lib.avsr_ln_lstm_smem(H, bwd) != kernels.ln_lstm_smem(H, bool(bwd)):
                 fail("K13", f"H={H}: the library's block takes {lib.avsr_ln_lstm_smem(H, bwd)} "
                             f"bytes, ln_lstm_smem {kernels.ln_lstm_smem(H, bool(bwd))}")
+    active = {}
+    for H in (128, 192, 256, 320, 384):
+        for bwd in (0, 1):
+            if lib.avsr_ln_lstm_cluster_smem(H, bwd) != kernels.ln_lstm_cluster_smem(H, bool(bwd)):
+                fail("K13", f"H={H}: the library's cluster CTA takes "
+                            f"{lib.avsr_ln_lstm_cluster_smem(H, bwd)} bytes, ln_lstm_cluster_smem "
+                            f"{kernels.ln_lstm_cluster_smem(H, bool(bwd))}")
+            active[(H, "bwd" if bwd else "fwd")] = lib.avsr_ln_lstm_cluster_max_active(H, bwd)
+    print(f"K13 cluster: max active 8-CTA clusters {active}")
     names = ("dWh", "db", "dln_gamma", "dln_cell_gamma", "dln_cell_beta", "dxw", "dh0", "dc0")
     runs = {}
     for G, H, T, B in k13_cases():
@@ -5925,21 +5985,25 @@ def phase_k13(dev, report):
             kept = lstm_kept(*out_k, args[7], args[8]) and lstm_passed(g_k[5], g_k[6], g_k[7],
                                                                        cot[1], cot[2])
             tag = f"T={T},G={G},B={B},H={H}" + (",rd" if masked else "")
-            print(f"K13 [{tag}] {kernels.ln_lstm_family(G, B, H)} route: fwd max abs err "
+            family = kernels.ln_lstm_family(G, B, H)
+            print(f"K13 [{tag}] {family} route: fwd max abs err "
                   f"{ {n: f'{x:.3e}' for n, x in e.items()} } (tol {K1_TOL}); bwd relative to max "
                   f"|plain| { {n: f'{x:.3e}' for n, x in ge.items()} } (tol {K1B_REL_TOL}); reruns "
                   f"bit-equal: {same}; the 0-length row kept its state, passed dhT/dcT: {kept}")
-            if not (all(torch.isfinite(x.float()).all() for x in (*out_k, *res_k, *g_k))
+            if not (family == ("cluster" if H == 256 else "block")
+                    and all(torch.isfinite(x.float()).all() for x in (*out_k, *res_k, *g_k))
                     and max(e.values()) <= K1_TOL and max(ge.values()) <= K1B_REL_TOL and same
                     and kept):
                 fail("K13", f"kernels disagree with the plain twins at {tag}: {e}, {ge}; "
-                            f"bit-equal {same}; kept {kept}")
+                            f"bit-equal {same}; kept {kept}; family {family}")
             runs[(G, H, T, B, masked)] = dict(
                 args=args, rd=rd, bargs=bargs, out=(*out_k, *res_k), grads=g_k,
                 fwd_err=max(e.values()), bwd_err=max(max_err(a, b_) for a, b_ in zip(g_k, g_p)))
-    for G, masked in ((2, False), (2, True), (1, False), (1, True)):
-        T, B = 197, 128
-        r = runs[(G, 256, T, B, masked)]
+    T80, G80, B80 = RNN_OPTION_STEP_ROUTE[0]
+    for G, H, T, B, masked in ((2, 256, 197, 128, False), (2, 256, 197, 128, True),
+                               (1, 256, 197, 128, False), (1, 256, 197, 128, True),
+                               (G80, 80, T80, B80, False)):
+        r = runs[(G, H, T, B, masked)]
         a, rd, ba = r["args"], r["rd"], r["bargs"]
         ka = [ba[0].to(bf).contiguous(), *ba[1:6], *ba[7:12]]  # the wrapper's operands
         fwd = lambda: rnn.ln_core_fwd(*a, bf, True, rd)  # noqa: E731
@@ -5954,16 +6018,22 @@ def phase_k13(dev, report):
                   bwd=time_ms(lambda: rnn.ln_core_bwd(*ba), reps=5, warmup=1),
                   plain_bwd=time_ms(lambda: rnn.ln_lstm_scan_core_bwd_plain(*ba), reps=3,
                                     warmup=1))
-        flops = 2 * T * G * B * 256 * 1024
-        print(f"K13 [T={T},G={G},B={B},H=256{',rd' if masked else ''}] device fwd (save) "
+        flops = 2 * T * G * B * H * 4 * H
+        family = kernels.ln_lstm_family(G, B, H)
+        print(f"K13 [T={T},G={G},B={B},H={H}{',rd' if masked else ''}] {family} route: device "
+              f"fwd (save) "
               f"{dms['fwd']:.4f} ms ({dms['fwd'] / T * 1e3:.3f} us a step; "
               f"{dms['fwd_serve']:.4f} ms without save), bwd {dms['bwd']:.4f} ms "
               f"({dms['bwd'] / T * 1e3:.3f} us a step; {dms['bwd_with_dwh']:.4f} ms with the "
               f"caller's dWh); kernel {ms['fwd']:.4f} / {ms['bwd']:.4f} ms, plain "
               f"{ms['plain_fwd']:.4f} / {ms['plain_bwd']:.4f} ms (fwd / bwd)")
-        kind = ("" if G == 2 else "_uni") + ("_rd" if masked else "")
-        shapes = [k for k in runs if k[0] == G and k[4] == masked]
-        common = dict(shape=f"T={T},G={G},B={B},H=256", library_ms=None,
+        if family == "block":
+            kind = "_block"
+            shapes = [k for k in runs if kernels.ln_lstm_family(k[0], k[3], k[1]) == "block"]
+        else:
+            kind = ("" if G == 2 else "_uni") + ("_rd" if masked else "")
+            shapes = [k for k in runs if k[0] == G and k[4] == masked and k[1] == 256]
+        common = dict(shape=f"T={T},G={G},B={B},H={H}", library_ms=None, family=family,
                       registers={k: x["registers"] for k, x in build.items()},
                       spill_bytes={k: x["spill_stores"] + x["spill_loads"]
                                    for k, x in build.items()})
@@ -6322,18 +6392,32 @@ def main() -> int:
         "lstm_scan_rd_bwd": ("avsr_tpu_torch/csrc/lstm_scan.cu", "avsr_tpu/ops/rnn.py:654"),
         "lstm_scan_uni_rd_fwd": ("avsr_tpu_torch/csrc/lstm_scan.cu", "avsr_tpu/ops/rnn.py:535"),
         "lstm_scan_uni_rd_bwd": ("avsr_tpu_torch/csrc/lstm_scan.cu", "avsr_tpu/ops/rnn.py:535"),
-        "gru_scan_fwd": ("avsr_tpu_torch/csrc/gru_scan.cu", "avsr_tpu/ops/rnn.py:576"),
-        "gru_scan_bwd": ("avsr_tpu_torch/csrc/gru_scan.cu", "avsr_tpu/ops/rnn.py:576"),
-        "gru_scan_uni_fwd": ("avsr_tpu_torch/csrc/gru_scan.cu", "avsr_tpu/ops/rnn.py:576"),
-        "gru_scan_uni_bwd": ("avsr_tpu_torch/csrc/gru_scan.cu", "avsr_tpu/ops/rnn.py:576"),
-        "ln_lstm_scan_fwd": ("avsr_tpu_torch/csrc/ln_lstm_scan.cu", "avsr_tpu/ops/rnn.py:535"),
-        "ln_lstm_scan_bwd": ("avsr_tpu_torch/csrc/ln_lstm_scan.cu", "avsr_tpu/ops/rnn.py:535"),
-        "ln_lstm_scan_rd_fwd": ("avsr_tpu_torch/csrc/ln_lstm_scan.cu", "avsr_tpu/ops/rnn.py:535"),
-        "ln_lstm_scan_rd_bwd": ("avsr_tpu_torch/csrc/ln_lstm_scan.cu", "avsr_tpu/ops/rnn.py:535"),
-        "ln_lstm_scan_uni_fwd": ("avsr_tpu_torch/csrc/ln_lstm_scan.cu", "avsr_tpu/ops/rnn.py:535"),
-        "ln_lstm_scan_uni_bwd": ("avsr_tpu_torch/csrc/ln_lstm_scan.cu", "avsr_tpu/ops/rnn.py:535"),
-        "ln_lstm_scan_uni_rd_fwd": ("avsr_tpu_torch/csrc/ln_lstm_scan.cu", "avsr_tpu/ops/rnn.py:535"),
-        "ln_lstm_scan_uni_rd_bwd": ("avsr_tpu_torch/csrc/ln_lstm_scan.cu", "avsr_tpu/ops/rnn.py:535"),
+        "gru_scan_fwd": ("avsr_tpu_torch/csrc/gru_cluster.cuh", "avsr_tpu/ops/rnn.py:576"),
+        "gru_scan_bwd": ("avsr_tpu_torch/csrc/gru_cluster.cuh", "avsr_tpu/ops/rnn.py:576"),
+        "gru_scan_uni_fwd": ("avsr_tpu_torch/csrc/gru_cluster.cuh", "avsr_tpu/ops/rnn.py:576"),
+        "gru_scan_uni_bwd": ("avsr_tpu_torch/csrc/gru_cluster.cuh", "avsr_tpu/ops/rnn.py:576"),
+        "gru_scan_step_fwd": ("avsr_tpu_torch/csrc/gru_scan.cu", "avsr_tpu/ops/rnn.py:576"),
+        "gru_scan_step_bwd": ("avsr_tpu_torch/csrc/gru_scan.cu", "avsr_tpu/ops/rnn.py:576"),
+        "ln_lstm_scan_fwd": ("avsr_tpu_torch/csrc/ln_lstm_cluster.cuh",
+                                 "avsr_tpu/ops/rnn.py:535"),
+        "ln_lstm_scan_bwd": ("avsr_tpu_torch/csrc/ln_lstm_cluster.cuh",
+                                 "avsr_tpu/ops/rnn.py:535"),
+        "ln_lstm_scan_rd_fwd": ("avsr_tpu_torch/csrc/ln_lstm_cluster.cuh",
+                                 "avsr_tpu/ops/rnn.py:535"),
+        "ln_lstm_scan_rd_bwd": ("avsr_tpu_torch/csrc/ln_lstm_cluster.cuh",
+                                 "avsr_tpu/ops/rnn.py:535"),
+        "ln_lstm_scan_uni_fwd": ("avsr_tpu_torch/csrc/ln_lstm_cluster.cuh",
+                                 "avsr_tpu/ops/rnn.py:535"),
+        "ln_lstm_scan_uni_bwd": ("avsr_tpu_torch/csrc/ln_lstm_cluster.cuh",
+                                 "avsr_tpu/ops/rnn.py:535"),
+        "ln_lstm_scan_uni_rd_fwd": ("avsr_tpu_torch/csrc/ln_lstm_cluster.cuh",
+                                 "avsr_tpu/ops/rnn.py:535"),
+        "ln_lstm_scan_uni_rd_bwd": ("avsr_tpu_torch/csrc/ln_lstm_cluster.cuh",
+                                 "avsr_tpu/ops/rnn.py:535"),
+        "ln_lstm_scan_block_fwd": ("avsr_tpu_torch/csrc/ln_lstm_scan.cu",
+                                   "avsr_tpu/ops/rnn.py:535"),
+        "ln_lstm_scan_block_bwd": ("avsr_tpu_torch/csrc/ln_lstm_scan.cu",
+                                   "avsr_tpu/ops/rnn.py:535"),
         "logmel_post_dft_options": ("avsr_tpu_torch/csrc/logmel.cu",
                                     "avsr_tpu/ops/audio_features.py:269"),
     }

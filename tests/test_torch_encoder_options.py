@@ -319,18 +319,19 @@ def test_gru_twins_hold_the_length_0_row_and_save_only_for_grads():
 
 
 def test_kernel_wrappers_count_apart_and_route_by_shape():
-    """The masked K1 launches and K12's count under their own names; K12's
-    route is "step" at every width its backward fits, and the wrappers
+    """The masked K1 launches and K12's count under their own names (K12's
+    per-step route apart); K12's route is "cluster" at the presets' H =
+    256, "step" at the other widths its backward fits, and the wrappers
     refuse CPU tensors before building or counting anything."""
     assert kernels._lstm_counter("lstm_scan_fwd", 2, rd=torch.ones(1)) == "lstm_scan_rd_fwd"
     assert kernels._lstm_counter("lstm_scan_bwd", 1, rd=torch.ones(1)) == "lstm_scan_uni_rd_bwd"
     assert kernels._lstm_counter("lstm_scan_bwd", 1) == "lstm_scan_uni_bwd"
     for name in ("lstm_scan_rd_fwd", "lstm_scan_rd_bwd", "lstm_scan_uni_rd_fwd",
                  "lstm_scan_uni_rd_bwd", "gru_scan_fwd", "gru_scan_bwd", "gru_scan_uni_fwd",
-                 "gru_scan_uni_bwd"):
+                 "gru_scan_uni_bwd", "gru_scan_step_fwd", "gru_scan_step_bwd"):
         assert name in kernels.LAUNCHES
     for Hs in (16, 80, 256, 512):
-        assert kernels.gru_family(2, 128, Hs) == "step"
+        assert kernels.gru_family(2, 128, Hs) == ("cluster" if Hs == 256 else "step")
         assert kernels.gru_step_smem(Hs, True) <= kernels.SMEM_LIMIT
     for bad in (8, 40, 528):
         with pytest.raises(ValueError, match="gru scan"):

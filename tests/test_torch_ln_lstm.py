@@ -313,18 +313,20 @@ def test_ln_twins_save_only_for_grads_and_hold_padding():
 
 
 def test_k13_wrappers_count_apart_and_route_by_shape():
-    """K13's launches count under their own names; its route is "block" at
-    every multiple of 4 up to 512 (its backward's block fits); the wrappers
+    """K13's launches count under their own names (the block route apart);
+    its route is "cluster" at the presets' H = 256, "block" at the other
+    multiples of 4 up to 512 (its backward's block fits); the wrappers
     refuse CPU tensors before building or counting anything."""
     for name in ("ln_lstm_scan_fwd", "ln_lstm_scan_bwd", "ln_lstm_scan_uni_fwd",
                  "ln_lstm_scan_uni_bwd", "ln_lstm_scan_rd_fwd", "ln_lstm_scan_rd_bwd",
-                 "ln_lstm_scan_uni_rd_fwd", "ln_lstm_scan_uni_rd_bwd"):
+                 "ln_lstm_scan_uni_rd_fwd", "ln_lstm_scan_uni_rd_bwd",
+                 "ln_lstm_scan_block_fwd", "ln_lstm_scan_block_bwd"):
         assert name in kernels.LAUNCHES
     assert kernels._lstm_counter("ln_lstm_scan_fwd", 1, rd=torch.ones(1)) == \
         "ln_lstm_scan_uni_rd_fwd"
     for Hs in (4, 16, 80, 256, 260, 512):
         for Bs in (1, 8, 128):
-            assert kernels.ln_lstm_family(2, Bs, Hs) == "block"
+            assert kernels.ln_lstm_family(2, Bs, Hs) == ("cluster" if Hs == 256 else "block")
         assert kernels.ln_lstm_smem(Hs, True) <= kernels.SMEM_LIMIT
     assert kernels.ln_lstm_smem(256, False) == 4 * 4 * (8 * 256 + 11)
     for bad in (0, 2, 81, 516):

@@ -204,9 +204,10 @@ def test_kernel_length_limits_take_every_bucket(name):
 def test_rnn_option_kernels_take_every_bucket(name):
     """Every RNN encoder of every preset, with GRU cells or under recurrent
     dropout, reaches a kernel at every bucket's batch size: K12
-    (``kernels.gru_family``; one launch a step, so no length limit) and the
-    masked K1 / K2 (``kernels.lstm_family``, the unmasked kernels' route)
-    take the encoder's width at each direction count."""
+    (``kernels.gru_family``: one cluster launch a call, or one launch a
+    step, each looping over time, so no length limit) and the masked K1 /
+    K2 (``kernels.lstm_family``, the unmasked kernels' route) take the
+    encoder's width at each direction count."""
     cfg = tconfigs.PRESETS[name]()
     sizes = cfg.data.bucket_batch_sizes or (cfg.data.batch_size,)
     encoders = [e for e in (cfg.audio_encoder, cfg.video_encoder) if e.encoder_type == "rnn"]
@@ -214,16 +215,18 @@ def test_rnn_option_kernels_take_every_bucket(name):
         G = 2 if enc.bidirectional else 1
         for H in enc.hidden_units:
             for B in sorted(set(sizes)) + [1, 8]:
-                assert kernels.gru_family(G, B, H) == "step"
+                assert kernels.gru_family(G, B, H) in ("cluster", "step")
                 assert kernels.lstm_family(G, B, H) in ("cluster", "step")
-            assert kernels.gru_step_smem(H, backward=True) <= kernels.SMEM_LIMIT
+            smem = (kernels.gru_cluster_smem if kernels.gru_family(G, 1, H) == "cluster"
+                    else kernels.gru_step_smem)
+            assert smem(H, backward=True) <= kernels.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("name", sorted(tconfigs.PRESETS))
 def test_ln_lstm_and_frontend_options_take_every_bucket(name):
     """Every RNN encoder of every preset, with LN-LSTM cells, reaches K13 at
     every bucket's batch size (``kernels.ln_lstm_family``; one launch a
-    call whose block loops over time, so no length limit), and every
+    call, cluster or block, that loops over time, so no length limit), and every
     frontend option of the preset's audio frontend fits K3 at every bucket
     (the writer's chunk for 3M or M features, the spectrogram's 257 bins;
     the statistics' column of frames)."""
@@ -235,8 +238,10 @@ def test_ln_lstm_and_frontend_options_take_every_bucket(name):
         G = 2 if enc.bidirectional else 1
         for H in enc.hidden_units:
             for B in sizes:
-                assert kernels.ln_lstm_family(G, B, H) == "block"
-            assert kernels.ln_lstm_smem(H, backward=True) <= kernels.SMEM_LIMIT
+                assert kernels.ln_lstm_family(G, B, H) in ("cluster", "block")
+            smem = (kernels.ln_lstm_cluster_smem if kernels.ln_lstm_family(G, 1, H) == "cluster"
+                    else kernels.ln_lstm_smem)
+            assert smem(H, backward=True) <= kernels.SMEM_LIMIT
     a = cfg.audio
     shapes = loader.BucketingLoader([], tunits.builtin_unit_dict(cfg.data.unit), cfg.data,
                                     frame_step=a.frame_step,

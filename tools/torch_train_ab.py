@@ -8,12 +8,16 @@ first): it builds that checkout's kernels, makes the train cell of its
 ``chip_smoke.py`` for ``--preset`` (``fast``: ``lrs2_av_fast`` at constant
 lr 1e-4; ``v2``: ``lrs2_av_v2`` at constant lr 3e-5; ``align``:
 ``lrs2_av_align`` (``configs.lrs2_full``) at 1e-4; ``uni_luong``: chip_smoke's
-``uni_luong_cfg`` (``lrs2_av_align_uni_luong``) at 1e-4; all B=128, 6 s,
+``uni_luong_cfg`` (``lrs2_av_align_uni_luong``) at 1e-4; ``ln``: its
+``ln_cfg`` (``lrs2_av_align_ln``, LN-LSTM encoders on K13) and
+``gru_highway``: its ``gru_highway_cfg`` (``lrs2_av_align_gru_highway``, GRU
+encoders on K12), both at 1e-4; all B=128, 6 s,
 label cap 80, noise mixing on), times ``--steps`` train steps on the host
 clock to a synchronise, reads the peak device memory, and profiles three
 more steps: the device's busy time and event count per step and the device
-time per step of the kernels by name: the LSTM scan (``lstm``: K1 and K2,
-every kernel whose name holds ``lstm``, with its event count), the RNN
+time per step of the kernels by name: the LSTM scan (``lstm``: K1, K2 and
+K13, every kernel whose name holds ``lstm``, with its event count), the GRU
+scan (``gru``: K12, every kernel whose name holds ``gru_``), the RNN
 decoder's read (``k10``: every kernel whose name holds ``attend``, with its
 event count), the memory gradients' sums after a scan or a teacher-forced
 loop (``sums``: ``align_outer_sum`` and ``align_dkeys_energy``, K8's and
@@ -88,6 +92,8 @@ busy, share = cs.busy_share(ev, span)
 def kind(name):
     if "lstm" in name:
         return "lstm"
+    if "gru_" in name:
+        return "gru"
     if "attend" in name:
         return "k10"
     if "align_outer_sum" in name or "align_dkeys_energy" in name:
@@ -119,17 +125,19 @@ for s, e, name in ev:
 print(json.dumps({"step_ms": times, "peak_gib": peak / 2**30, "busy_ms_per_step": busy / 3e3,
                   "busy_share": share, "events_per_step": len(ev) / 3,
                   "lstm_events_per_step": count["lstm"] / 3,
+                  "gru_events_per_step": count["gru"] / 3,
                   "k8_fwd_events_per_step": count["k8_fwd"] / 3,
                   "k8_events_per_step": count["k8"] / 3, "k10_events_per_step": count["k10"] / 3,
                   **{f"{k}_ms_per_step": by[k] / 3e3
-                     for k in ("lstm", "k8_fwd", "k8", "k10", "sums", "k11", "k4", "k5", "k9",
+                     for k in ("lstm", "gru", "k8_fwd", "k8", "k10", "sums", "k11", "k4", "k5", "k9",
                                "fill", "copy", "add")}}))
 """
 
 
 # --preset: the config function and the constant learning rate of its train cell
 PRESETS = {"fast": ("configs.lrs2_av_fast", "1e-4"), "v2": ("configs.lrs2_av_v2", "3e-5"),
-           "align": ("configs.lrs2_full", "1e-4"), "uni_luong": ("cs.uni_luong_cfg", "1e-4")}
+           "align": ("configs.lrs2_full", "1e-4"), "uni_luong": ("cs.uni_luong_cfg", "1e-4"),
+           "ln": ("cs.ln_cfg", "1e-4"), "gru_highway": ("cs.gru_highway_cfg", "1e-4")}
 
 
 def main() -> int:
