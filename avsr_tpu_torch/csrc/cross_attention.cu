@@ -42,7 +42,12 @@
 // branch had doubled the kernels' time.  Other head widths (multiples of
 // 8) run on attention_core.cuh's CUDA-core kernels, whose residual is P
 // itself (avsr_fusion_attn_core_fwd, and the backward shared with K5,
-// avsr_attn_core_bwd; kernels.attention_family routes).
+// avsr_attn_core_bwd; kernels.attention_family routes).  The fp32 policy's
+// K4 is attention_core.cuh's fp32 instance at every width
+// (avsr_fusion_attn_core_fwd_f32, avsr_attn_core_bwd_f32): at the fast
+// model's shapes its forward does 2.0 GFLOP of CUDA-core FMAs (~29 us at
+// 67 TFLOP/s) and moves 120 MB of fp32 q, k, v, ctx and P (~36 us at 3.35
+// TB/s).
 
 #include "attention_mma.cuh"
 #include "attention_core.cuh"
@@ -93,7 +98,18 @@ extern "C" int avsr_fusion_attn_bwd(const void* q, const void* k, const void* v,
 extern "C" int avsr_fusion_attn_core_fwd(const void* q, const void* k, const void* v,
                                          const void* vlen, void* P, void* ctx, int B, int Ta,
                                          int Tv, int nh, int A, int dv, void* stream) {
-  return (int)core_attn::launch_attn_fwd(q, k, v, LengthMask{static_cast<const int*>(vlen)}, P,
-                                         ctx, B, Ta, Tv, nh, A, dv, nh * A, nh * A, nh * dv,
-                                         reinterpret_cast<cudaStream_t>(stream));
+  return (int)core_attn::launch_attn_fwd<__nv_bfloat16>(
+      q, k, v, LengthMask{static_cast<const int*>(vlen)}, P, ctx, B, Ta, Tv, nh, A, dv, nh * A,
+      nh * A, nh * dv, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The fp32 policy's K4 (attention_core.cuh's fp32 instance, at any A, dv
+// that are multiples of 8): q, k, v and ctx fp32, P as above.  Its backward
+// is avsr_attn_core_bwd_f32.
+extern "C" int avsr_fusion_attn_core_fwd_f32(const void* q, const void* k, const void* v,
+                                             const void* vlen, void* P, void* ctx, int B, int Ta,
+                                             int Tv, int nh, int A, int dv, void* stream) {
+  return (int)core_attn::launch_attn_fwd<float>(
+      q, k, v, LengthMask{static_cast<const int*>(vlen)}, P, ctx, B, Ta, Tv, nh, A, dv, nh * A,
+      nh * A, nh * dv, reinterpret_cast<cudaStream_t>(stream));
 }

@@ -62,6 +62,14 @@
 //   fp32 softmax over the block; P.V with a thread per channel pair and the
 //   keys split over the remaining thread slices, summed in a fixed order.
 //
+// The fp32 policy (train.compute_dtype = "float32": the fp32 KV cache and
+// memory, the reference's same lines with no bf16 rounding point) runs the
+// "general" kernel's fp32 instance (avsr_decode_attn_f32) for every read,
+// self and cross, beam and greedy: its CUDA-core FMAs take fp32 operands
+// as they are, and the bytes it reads double.  A beam step's cross read of
+// the fp32 memory is then one block per (beam, head), each reading its
+// utterance's memory row: W times the untiled bytes, through L2.
+//
 // Every route sums in a fixed order: the same bits every run.  Two
 // launches per decoder layer per step; the cache write at pos stays a slice
 // assignment on the same stream before the self launch.
@@ -106,34 +114,85 @@ __device__ __forceinline__ float block_reduce(float x, float* red) {
 }
 
 // ---- "general" ---------------------------------------------------------------
+//
+// Templated on the element type E of q, k, v and ctx: bf16 (the bf16
+// policy, above) or fp32 (the fp32 policy: the same lines with no rounding
+// point, s_j = (q . k_j) * (1 / sqrt(dk)) + bias, ctx = sum_j p_j v_j, all
+// fp32 FMAs; kernels.decode_attention_route sends every fp32 read here,
+// counted as decode_attention_f32).  A lane's 16-byte chunk of a key row
+// holds 16 / sizeof(E) elements: 8 bf16 or 4 fp32.
 
-template <bool HAS_BIAS>
+template <typename E> struct Elem;
+template <> struct Elem<__nv_bfloat16> {
+  __device__ static float round(float x) { return bf_round(x); }
+  __device__ static float get(__nv_bfloat16 x) { return __bfloat162float(x); }
+  // q_s[0..7] . the 8 elements of u
+  __device__ static float dot_chunk(const float* qq, uint4 u, float acc) {
+    acc = fmaf(qq[0], bf_lo(u.x), acc);
+    acc = fmaf(qq[1], bf_hi(u.x), acc);
+    acc = fmaf(qq[2], bf_lo(u.y), acc);
+    acc = fmaf(qq[3], bf_hi(u.y), acc);
+    acc = fmaf(qq[4], bf_lo(u.z), acc);
+    acc = fmaf(qq[5], bf_hi(u.z), acc);
+    acc = fmaf(qq[6], bf_lo(u.w), acc);
+    acc = fmaf(qq[7], bf_hi(u.w), acc);
+    return acc;
+  }
+  __device__ static float2 pair(const __nv_bfloat16* row, int cp) {
+    const uint32_t vv = reinterpret_cast<const uint32_t*>(row)[cp];
+    return make_float2(bf_lo(vv), bf_hi(vv));
+  }
+  __device__ static void store_pair(__nv_bfloat16* row, int cp, float a0, float a1) {
+    reinterpret_cast<__nv_bfloat162*>(row)[cp] = __floats2bfloat162_rn(a0, a1);
+  }
+};
+template <> struct Elem<float> {
+  __device__ static float round(float x) { return x; }
+  __device__ static float get(float x) { return x; }
+  __device__ static float dot_chunk(const float* qq, uint4 u, float acc) {
+    acc = fmaf(qq[0], __uint_as_float(u.x), acc);
+    acc = fmaf(qq[1], __uint_as_float(u.y), acc);
+    acc = fmaf(qq[2], __uint_as_float(u.z), acc);
+    acc = fmaf(qq[3], __uint_as_float(u.w), acc);
+    return acc;
+  }
+  __device__ static float2 pair(const float* row, int cp) {
+    return reinterpret_cast<const float2*>(row)[cp];
+  }
+  __device__ static void store_pair(float* row, int cp, float a0, float a1) {
+    reinterpret_cast<float2*>(row)[cp] = make_float2(a0, a1);
+  }
+};
+
+template <bool HAS_BIAS, typename E>
 __global__ void __launch_bounds__(THREADS)
-decode_attn_kernel(const __nv_bfloat16* __restrict__ q,  // [N, nh, dk]
-                   const __nv_bfloat16* __restrict__ k,  // [N / W, L, nh, dk]
-                   const __nv_bfloat16* __restrict__ v,  // [N / W, L, nh, dv]
-                   const float* __restrict__ bias,       // [N / W, L] (cross mode)
-                   __nv_bfloat16* __restrict__ ctx,      // [N, nh, dv]
+decode_attn_kernel(const E* __restrict__ q,       // [N, nh, dk]
+                   const E* __restrict__ k,       // [N / W, L, nh, dk]
+                   const E* __restrict__ v,       // [N / W, L, nh, dv]
+                   const float* __restrict__ bias,  // [N / W, L] (cross mode)
+                   E* __restrict__ ctx,           // [N, nh, dv]
                    int W, int L, int n_keys, int nh, int dk, int dv) {
+  using X = Elem<E>;
+  constexpr int EPC = 16 / sizeof(E);  // elements a 16-byte chunk
   extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.x, n = blockIdx.y, m = n / W;  // m: the key / value row
   float* q_s = reinterpret_cast<float*>(smem);  // [dk]
-  float* p_s = q_s + dk;                        // [n_keys] scores, then bf16(P)
+  float* p_s = q_s + dk;                        // [n_keys] scores, then P
   float* red = p_s + L;                         // [WARPS]
   float* part = red + WARPS;                    // [THREADS * 2] P.V partial sums
   const int tid = threadIdx.x;
 
-  const __nv_bfloat16* qn = q + ((size_t)n * nh + h) * dk;
-  for (int i = tid; i < dk; i += THREADS) q_s[i] = __bfloat162float(qn[i]);
+  const E* qn = q + ((size_t)n * nh + h) * dk;
+  for (int i = tid; i < dk; i += THREADS) q_s[i] = X::get(qn[i]);
   __syncthreads();
 
-  // scores: G lanes per key, each lane a 16-byte chunk (8 elements) of it
-  const int cpr = dk / 8;
+  // scores: G lanes per key, each lane a 16-byte chunk (EPC elements) of it
+  const int cpr = dk / EPC;
   int G = 1;
   while (G * 2 <= cpr && G * 2 <= 32) G *= 2;
   const int groups = THREADS / G, g = tid / G, lg = tid % G;
   const size_t row = (size_t)nh * dk;
-  const __nv_bfloat16* kb = k + ((size_t)m * L * nh + h) * dk;
+  const E* kb = k + ((size_t)m * L * nh + h) * dk;
   const float inv_sq = 1.0f / sqrtf((float)dk);
   // unrolled: the key rows' loads of four passes in flight at once
 #pragma unroll 4
@@ -142,29 +201,18 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,  // [N, nh, dk]
     float acc = 0.f;
     if (j < n_keys) {
       const uint4* kr = reinterpret_cast<const uint4*>(kb + (size_t)j * row);
-      for (int c = lg; c < cpr; c += G) {
-        const uint4 u = kr[c];
-        const float* qq = q_s + c * 8;
-        acc = fmaf(qq[0], bf_lo(u.x), acc);
-        acc = fmaf(qq[1], bf_hi(u.x), acc);
-        acc = fmaf(qq[2], bf_lo(u.y), acc);
-        acc = fmaf(qq[3], bf_hi(u.y), acc);
-        acc = fmaf(qq[4], bf_lo(u.z), acc);
-        acc = fmaf(qq[5], bf_hi(u.z), acc);
-        acc = fmaf(qq[6], bf_lo(u.w), acc);
-        acc = fmaf(qq[7], bf_hi(u.w), acc);
-      }
+      for (int c = lg; c < cpr; c += G) acc = X::dot_chunk(q_s + c * EPC, kr[c], acc);
     }
     for (int o = G / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
     if (j < n_keys && lg == 0) {
-      float s = bf_round(acc) * inv_sq;
+      float s = X::round(acc) * inv_sq;
       if (HAS_BIAS) s += bias[(size_t)m * L + j];
       p_s[j] = s;
     }
   }
   __syncthreads();
 
-  // fp32 softmax over the block; P rounded to bf16 for the product
+  // fp32 softmax over the block; P rounded to E for the product
   float mx = __int_as_float(0xff800000u);  // -inf
   for (int j = tid; j < n_keys; j += THREADS) mx = fmaxf(mx, p_s[j]);
   mx = block_reduce<true>(mx, red);
@@ -175,25 +223,25 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,  // [N, nh, dk]
     sum += e;
   }
   sum = block_reduce<false>(sum, red);
-  for (int j = tid; j < n_keys; j += THREADS) p_s[j] = bf_round(p_s[j] / sum);
+  for (int j = tid; j < n_keys; j += THREADS) p_s[j] = X::round(p_s[j] / sum);
   __syncthreads();
 
   // P.V: a thread per channel pair, keys split over `slices` thread groups
   const int npair = dv / 2;
   const size_t vrow = (size_t)nh * dv;
-  const __nv_bfloat16* vb = v + ((size_t)m * L * nh + h) * dv;
-  __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(ctx + ((size_t)n * nh + h) * dv);
+  const E* vb = v + ((size_t)m * L * nh + h) * dv;
+  E* out = ctx + ((size_t)n * nh + h) * dv;
   // unrolled: eight value rows' loads in flight, summed in key order
   if (npair > THREADS) {
     for (int cp = tid; cp < npair; cp += THREADS) {
       float a0 = 0.f, a1 = 0.f;
 #pragma unroll 8
       for (int j = 0; j < n_keys; ++j) {
-        const uint32_t vv = reinterpret_cast<const uint32_t*>(vb + (size_t)j * vrow)[cp];
-        a0 = fmaf(p_s[j], bf_lo(vv), a0);
-        a1 = fmaf(p_s[j], bf_hi(vv), a1);
+        const float2 vv = X::pair(vb + (size_t)j * vrow, cp);
+        a0 = fmaf(p_s[j], vv.x, a0);
+        a1 = fmaf(p_s[j], vv.y, a1);
       }
-      out[cp] = __floats2bfloat162_rn(a0, a1);
+      X::store_pair(out, cp, a0, a1);
     }
     return;
   }
@@ -203,9 +251,9 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,  // [N, nh, dk]
     float a0 = 0.f, a1 = 0.f;
 #pragma unroll 8
     for (int j = sl; j < n_keys; j += slices) {
-      const uint32_t vv = reinterpret_cast<const uint32_t*>(vb + (size_t)j * vrow)[cp];
-      a0 = fmaf(p_s[j], bf_lo(vv), a0);
-      a1 = fmaf(p_s[j], bf_hi(vv), a1);
+      const float2 vv = X::pair(vb + (size_t)j * vrow, cp);
+      a0 = fmaf(p_s[j], vv.x, a0);
+      a1 = fmaf(p_s[j], vv.y, a1);
     }
     part[2 * tid] = a0;
     part[2 * tid + 1] = a1;
@@ -217,7 +265,7 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,  // [N, nh, dk]
       a0 += part[2 * (s * npair + tid)];
       a1 += part[2 * (s * npair + tid) + 1];
     }
-    out[tid] = __floats2bfloat162_rn(a0, a1);
+    X::store_pair(out, tid, a0, a1);
   }
 }
 
@@ -521,40 +569,56 @@ decode_grouped_kernel(const __nv_bfloat16* __restrict__ q,  // [B W, nh, dk]
   }
 }
 
+template <typename E>
+cudaError_t launch_general(const void* q, const void* k, const void* v, const void* bias,
+                           void* ctx, int N, int B, int L, int n_keys, int nh, int dk, int dv,
+                           cudaStream_t st) {
+  if (dk % 8 || dv % 8 || n_keys < 1 || n_keys > L || N < 1 || B < 1 || N % B || nh < 1)
+    return cudaErrorInvalidValue;
+  if (bias != nullptr && n_keys != L) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)(dk + L + WARPS + 2 * THREADS) * sizeof(float);
+  if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+  const dim3 grid(nh, N);
+  const int W = N / B;
+  const E* qb = static_cast<const E*>(q);
+  const E* kb = static_cast<const E*>(k);
+  const E* vb = static_cast<const E*>(v);
+  E* cb = static_cast<E*>(ctx);
+  if (smem > 48 * 1024) {  // lengths past ~12,000 keys
+    const cudaFuncAttribute at = cudaFuncAttributeMaxDynamicSharedMemorySize;
+    const cudaError_t e = bias == nullptr
+                              ? cudaFuncSetAttribute(decode_attn_kernel<false, E>, at, (int)smem)
+                              : cudaFuncSetAttribute(decode_attn_kernel<true, E>, at, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  if (bias == nullptr) {
+    decode_attn_kernel<false, E><<<grid, THREADS, smem, st>>>(qb, kb, vb, nullptr, cb, W, L,
+                                                              n_keys, nh, dk, dv);
+  } else {
+    decode_attn_kernel<true, E><<<grid, THREADS, smem, st>>>(
+        qb, kb, vb, static_cast<const float*>(bias), cb, W, L, n_keys, nh, dk, dv);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // "general": bias null, self mode over keys [0, n_keys) of row n's cache
 // (B == N); else cross mode over memory row n / (N / B), n_keys = L.
+// bf16 operands and context.
 extern "C" int avsr_decode_attn(const void* q, const void* k, const void* v, const void* bias,
                                 void* ctx, int N, int B, int L, int n_keys, int nh, int dk,
                                 int dv, void* stream) {
-  if (dk % 8 || dv % 8 || n_keys < 1 || n_keys > L || N < 1 || B < 1 || N % B || nh < 1)
-    return (int)cudaErrorInvalidValue;
-  if (bias != nullptr && n_keys != L) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(dk + L + WARPS + 2 * THREADS) * sizeof(float);
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  const dim3 grid(nh, N);
-  const int W = N / B;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(q);
-  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(k);
-  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(v);
-  __nv_bfloat16* cb = static_cast<__nv_bfloat16*>(ctx);
-  if (smem > 48 * 1024) {  // lengths past ~12,000 keys
-    const cudaFuncAttribute at = cudaFuncAttributeMaxDynamicSharedMemorySize;
-    const cudaError_t e = bias == nullptr
-                              ? cudaFuncSetAttribute(decode_attn_kernel<false>, at, (int)smem)
-                              : cudaFuncSetAttribute(decode_attn_kernel<true>, at, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (bias == nullptr) {
-    decode_attn_kernel<false><<<grid, THREADS, smem, st>>>(qb, kb, vb, nullptr, cb, W, L, n_keys,
-                                                           nh, dk, dv);
-  } else {
-    decode_attn_kernel<true><<<grid, THREADS, smem, st>>>(
-        qb, kb, vb, static_cast<const float*>(bias), cb, W, L, n_keys, nh, dk, dv);
-  }
-  return (int)cudaGetLastError();
+  return (int)launch_general<__nv_bfloat16>(q, k, v, bias, ctx, N, B, L, n_keys, nh, dk, dv,
+                                            reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The same over fp32 operands and context (the fp32 policy's K6).
+extern "C" int avsr_decode_attn_f32(const void* q, const void* k, const void* v,
+                                    const void* bias, void* ctx, int N, int B, int L, int n_keys,
+                                    int nh, int dk, int dv, void* stream) {
+  return (int)launch_general<float>(q, k, v, bias, ctx, N, B, L, n_keys, nh, dk, dv,
+                                    reinterpret_cast<cudaStream_t>(stream));
 }
 
 // Shared-memory bytes of the rows kernel (the wrapper's route checks the limit).

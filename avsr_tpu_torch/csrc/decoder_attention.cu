@@ -61,6 +61,12 @@
 //   2), each forming the same scores and P; the backward streams 32-row
 //   tiles so that two ~97 KB blocks share an SM.  D is an fp32 [B, nh, Q]
 //   scratch there.
+// * The fp32 policy (train.compute_dtype = "float32"), both attentions at
+//   every width: attention_core.cuh's fp32 instance (avsr_decoder_attn_
+//   core_fwd_f32, avsr_attn_core_bwd_f32), fp32 operands and FMA sums with
+//   no rounding point, its residual the fp32 weights.  At the main path's
+//   shapes its operations bound it: the self forward's 0.84 GFLOP and the
+//   cross forward's 1.6 GFLOP of FMAs take ~13 and ~23 us at 67 TFLOP/s.
 
 #include "attention_mma.cuh"
 #include "attention_core.cuh"
@@ -171,36 +177,58 @@ extern "C" long long avsr_decoder_cross_bwd_smem(int ns) {
 
 // The CUDA-core route (attention_core.cuh): any dk, dv that are multiples of
 // 8.  P: the fp32 weights [B, nh, Q, S], written where not null (the
-// backward's residual on this route).
+// backward's residual on this route).  E: bf16, or fp32 (the fp32 policy's
+// K5, at every width).
+template <typename E>
+cudaError_t core_fwd(const void* q, const void* k, const void* v, const void* bias, void* P,
+                     void* ctx, int B, int Q, int S, int nh, int dk, int dv, void* stream) {
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (bias == nullptr) {
+    if (Q != S) return cudaErrorInvalidValue;
+    return core_attn::launch_attn_fwd<E>(q, k, v, CausalMask{}, P, ctx, B, Q, S, nh, dk, dv,
+                                         nh * dk, nh * dk, nh * dv, st);
+  }
+  return core_attn::launch_attn_fwd<E>(q, k, v, BiasMask{static_cast<const float*>(bias), S}, P,
+                                       ctx, B, Q, S, nh, dk, dv, nh * dk, nh * dk, nh * dv, st);
+}
+
 extern "C" int avsr_decoder_attn_core_fwd(const void* q, const void* k, const void* v,
                                           const void* bias, void* P, void* ctx, int B, int Q,
                                           int S, int nh, int dk, int dv, void* stream) {
-  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (bias == nullptr) {
-    if (Q != S) return (int)cudaErrorInvalidValue;
-    return (int)core_attn::launch_attn_fwd(q, k, v, CausalMask{}, P, ctx, B, Q, S, nh, dk, dv,
-                                           nh * dk, nh * dk, nh * dv, st);
-  }
-  return (int)core_attn::launch_attn_fwd(q, k, v, BiasMask{static_cast<const float*>(bias), S},
-                                         P, ctx, B, Q, S, nh, dk, dv, nh * dk, nh * dk, nh * dv,
-                                         st);
+  return (int)core_fwd<__nv_bfloat16>(q, k, v, bias, P, ctx, B, Q, S, nh, dk, dv, stream);
+}
+
+extern "C" int avsr_decoder_attn_core_fwd_f32(const void* q, const void* k, const void* v,
+                                              const void* bias, void* P, void* ctx, int B, int Q,
+                                              int S, int nh, int dk, int dv, void* stream) {
+  return (int)core_fwd<float>(q, k, v, bias, P, ctx, B, Q, S, nh, dk, dv, stream);
 }
 
 // The CUDA-core route's backward from the fp32 weights P [B, nh, Tq, Tk]
 // over contiguous q [B, Tq, nh, dk], k [B, Tk, nh, dk], v [B, Tk, nh, dv]:
-// K5's and K4's (the mask enters only through P).  dsc: a bf16 [B, nh, Tq,
-// Tk] scratch; dq, dk_out, dv_out shaped as q, k, v.
+// K5's and K4's (the mask enters only through P).  dsc: a [B, nh, Tq, Tk]
+// scratch of the operands' type; dq, dk_out, dv_out shaped as q, k, v.
 extern "C" int avsr_attn_core_bwd(const void* q, const void* k, const void* v, const void* P,
                                   const void* dctx, void* dsc, void* dq, void* dk_out,
                                   void* dv_out, int B, int Tq, int Tk, int nh, int dk, int dv,
                                   void* stream) {
-  return (int)core_attn::launch_attn_bwd(q, k, v, P, dctx, dsc, dq, dk_out, dv_out, B, Tq, Tk, nh,
-                                         dk, dv, nh * dk, nh * dk, nh * dv, nh * dk, nh * dk,
-                                         nh * dv, reinterpret_cast<cudaStream_t>(stream));
+  return (int)core_attn::launch_attn_bwd<__nv_bfloat16>(
+      q, k, v, P, dctx, dsc, dq, dk_out, dv_out, B, Tq, Tk, nh, dk, dv, nh * dk, nh * dk, nh * dv,
+      nh * dk, nh * dk, nh * dv, reinterpret_cast<cudaStream_t>(stream));
+}
+
+extern "C" int avsr_attn_core_bwd_f32(const void* q, const void* k, const void* v, const void* P,
+                                      const void* dctx, void* dsc, void* dq, void* dk_out,
+                                      void* dv_out, int B, int Tq, int Tk, int nh, int dk, int dv,
+                                      void* stream) {
+  return (int)core_attn::launch_attn_bwd<float>(
+      q, k, v, P, dctx, dsc, dq, dk_out, dv_out, B, Tq, Tk, nh, dk, dv, nh * dk, nh * dk, nh * dv,
+      nh * dk, nh * dk, nh * dv, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // Shared-memory bytes of the largest launch of the CUDA-core route at these
-// lengths and widths (for K4, K5 and K11 alike: the wrappers check it).
-extern "C" long long avsr_attn_core_smem(int Tq, int Tk, int dk, int dv) {
-  return (long long)core_attn::attn_smem(Tq, Tk, dk, dv);
+// lengths and widths, bf16 operands (fp32 = 0) or fp32 ones (for K4, K5 and
+// K11 alike: the wrappers check it).
+extern "C" long long avsr_attn_core_smem(int Tq, int Tk, int dk, int dv, int fp32) {
+  return (long long)core_attn::attn_smem(Tq, Tk, dk, dv, fp32 ? 4 : 2);
 }

@@ -97,7 +97,7 @@ extern "C" int avsr_encoder_attn_core_fwd(const void* qkv, const void* lengths, 
                                           void* ctx, int B, int T, int nh, int dh, void* stream) {
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(qkv);
   const int d = nh * dh;
-  return (int)core_attn::launch_attn_fwd(
+  return (int)core_attn::launch_attn_fwd<__nv_bfloat16>(
       q, q + d, q + 2 * d, mma_attn::LengthMask{static_cast<const int*>(lengths)}, P, ctx, B, T,
       T, nh, dh, dh, 3 * d, 3 * d, 3 * d, reinterpret_cast<cudaStream_t>(stream));
 }
@@ -109,7 +109,7 @@ extern "C" int avsr_encoder_attn_core_bwd(const void* qkv, const void* P, const 
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(qkv);
   __nv_bfloat16* dq = static_cast<__nv_bfloat16*>(dqkv);
   const int d = nh * dh;
-  return (int)core_attn::launch_attn_bwd(q, q + d, q + 2 * d, P, dctx, dsc, dq, dq + d, dq + 2 * d,
+  return (int)core_attn::launch_attn_bwd<__nv_bfloat16>(q, q + d, q + 2 * d, P, dctx, dsc, dq, dq + d, dq + 2 * d,
                                          B, T, T, nh, dh, dh, 3 * d, 3 * d, 3 * d, 3 * d, 3 * d,
                                          3 * d, reinterpret_cast<cudaStream_t>(stream));
 }

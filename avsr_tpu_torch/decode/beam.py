@@ -51,6 +51,7 @@ from avsr_tpu_torch.configs import DecoderConfig
 from avsr_tpu_torch.data.units import EOS_ID, GO_ID, PAD_ID
 from avsr_tpu_torch.models import decoder as dec
 from avsr_tpu_torch.ops import attention as attn
+from avsr_tpu_torch.utils.numerics import full_precision
 
 NEG_INF = -1.0e30
 
@@ -194,6 +195,14 @@ def _gather_rows(state, index: torch.Tensor):
 def beam_search(params, cfg: DecoderConfig, memories: Sequence[attn.AttentionMemory],
                 max_length: int, *, beam_width: int = 10, length_penalty: float = 0.0,
                 cdt: torch.dtype = torch.bfloat16, n_best: int = 1) -> BeamResult:
+    with full_precision(cdt):
+        return _beam_search(params, cfg, memories, max_length, beam_width=beam_width,
+                            length_penalty=length_penalty, cdt=cdt, n_best=n_best)
+
+
+def _beam_search(params, cfg: DecoderConfig, memories: Sequence[attn.AttentionMemory],
+                 max_length: int, *, beam_width: int, length_penalty: float,
+                 cdt: torch.dtype, n_best: int) -> BeamResult:
     B = memories[0].values.shape[0]
     W = beam_width
     dev = memories[0].values.device

@@ -22,6 +22,7 @@ from avsr_tpu_torch.configs import DecoderConfig
 from avsr_tpu_torch.data.units import EOS_ID, GO_ID, PAD_ID
 from avsr_tpu_torch.models import decoder as dec
 from avsr_tpu_torch.ops import attention as attn
+from avsr_tpu_torch.utils.numerics import full_precision
 
 
 class GreedyResult(NamedTuple):
@@ -33,6 +34,12 @@ class GreedyResult(NamedTuple):
 @torch.inference_mode()
 def greedy_decode(params, cfg: DecoderConfig, memories: Sequence[attn.AttentionMemory],
                   max_length: int, *, cdt: torch.dtype = torch.bfloat16) -> GreedyResult:
+    with full_precision(cdt):
+        return _greedy_decode(params, cfg, memories, max_length, cdt)
+
+
+def _greedy_decode(params, cfg: DecoderConfig, memories: Sequence[attn.AttentionMemory],
+                   max_length: int, cdt: torch.dtype) -> GreedyResult:
     B = memories[0].values.shape[0]
     dev = memories[0].values.device
     # the values in the compute dtype and contiguous once, not at every step

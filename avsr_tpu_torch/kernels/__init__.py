@@ -59,7 +59,9 @@ NVCC_FLAGS = (
 # (``*_attend_grouped``), the row read (``*_attend_row``) and the general
 # kernel (``*_attend``) apart.  K3 counts the frontend's option instances
 # (spectrogram, no deltas, global or no normalization) apart from the
-# presets' log-mel one.
+# presets' log-mel one.  The fp32 policy's instances (K1's per-step
+# kernels, the CUDA-core attention family for K4 and K5, K6's general
+# kernel) count apart, as ``*_f32_*``.
 LAUNCHES: Dict[str, int] = {
     "lstm_scan_fwd": 0, "lstm_scan_bwd": 0, "lstm_scan_uni_fwd": 0, "lstm_scan_uni_bwd": 0,
     "lstm_scan_rd_fwd": 0, "lstm_scan_rd_bwd": 0, "lstm_scan_uni_rd_fwd": 0,
@@ -80,6 +82,9 @@ LAUNCHES: Dict[str, int] = {
     "luong_attend_row": 0, "luong_attend_bwd": 0, "luong_attend_sums": 0,
     "encoder_attention_fwd": 0, "encoder_attention_bwd": 0, "conformer_conv_fwd": 0,
     "conformer_conv_fwd_tiles": 0, "conformer_conv_bwd": 0,
+    "lstm_scan_f32_fwd": 0, "lstm_scan_f32_bwd": 0, "fusion_attention_f32_fwd": 0,
+    "fusion_attention_f32_bwd": 0, "decoder_attention_f32_fwd": 0,
+    "decoder_attention_f32_bwd": 0, "decode_attention_f32": 0,
 }
 
 LSTM_UNIT_TILE = 16  # hidden units per block of the per-step LSTM kernels (UT in the source)
@@ -195,6 +200,10 @@ def _load() -> ctypes.CDLL:
         lib.avsr_lstm_scan_fwd.restype = i
         lib.avsr_lstm_scan_bwd.argtypes = [p] * 15 + [i] * 5 + [p]
         lib.avsr_lstm_scan_bwd.restype = i
+        lib.avsr_lstm_scan_fwd_f32.argtypes = [p] * 9 + [i] * 4 + [p]
+        lib.avsr_lstm_scan_fwd_f32.restype = i
+        lib.avsr_lstm_scan_bwd_f32.argtypes = [p] * 14 + [i] * 4 + [p]
+        lib.avsr_lstm_scan_bwd_f32.restype = i
         lib.avsr_gru_step_smem.argtypes = [i, i]
         lib.avsr_gru_step_smem.restype = ctypes.c_longlong
         lib.avsr_gru_scan_fwd.argtypes = [p] * 7 + [i] * 4 + [p]
@@ -237,7 +246,9 @@ def _load() -> ctypes.CDLL:
         lib.avsr_logmel_writer_smem.restype = ctypes.c_longlong
         lib.avsr_fusion_attn_core_fwd.argtypes = [p] * 6 + [i] * 6 + [p]
         lib.avsr_fusion_attn_core_fwd.restype = i
-        lib.avsr_attn_core_smem.argtypes = [i, i, i, i]
+        lib.avsr_fusion_attn_core_fwd_f32.argtypes = [p] * 6 + [i] * 6 + [p]
+        lib.avsr_fusion_attn_core_fwd_f32.restype = i
+        lib.avsr_attn_core_smem.argtypes = [i, i, i, i, i]
         lib.avsr_attn_core_smem.restype = ctypes.c_longlong
         lib.avsr_decoder_attn_fwd.argtypes = [p] * 7 + [i] * 6 + [p]
         lib.avsr_decoder_attn_fwd.restype = i
@@ -255,10 +266,16 @@ def _load() -> ctypes.CDLL:
         lib.avsr_decoder_cross_bwd_smem.restype = ctypes.c_longlong
         lib.avsr_decoder_attn_core_fwd.argtypes = [p] * 6 + [i] * 6 + [p]
         lib.avsr_decoder_attn_core_fwd.restype = i
+        lib.avsr_decoder_attn_core_fwd_f32.argtypes = [p] * 6 + [i] * 6 + [p]
+        lib.avsr_decoder_attn_core_fwd_f32.restype = i
         lib.avsr_attn_core_bwd.argtypes = [p] * 9 + [i] * 6 + [p]
         lib.avsr_attn_core_bwd.restype = i
+        lib.avsr_attn_core_bwd_f32.argtypes = [p] * 9 + [i] * 6 + [p]
+        lib.avsr_attn_core_bwd_f32.restype = i
         lib.avsr_decode_attn.argtypes = [p] * 5 + [i] * 7 + [p]
         lib.avsr_decode_attn.restype = i
+        lib.avsr_decode_attn_f32.argtypes = [p] * 5 + [i] * 7 + [p]
+        lib.avsr_decode_attn_f32.restype = i
         lib.avsr_decode_attn_rows.argtypes = [p] * 4 + [i] * 5 + [p]
         lib.avsr_decode_attn_rows.restype = i
         lib.avsr_decode_rows_smem.argtypes = [i, i]
@@ -406,17 +423,39 @@ def lstm_cluster_smem(H: int, backward: bool) -> int:
     return H * H + (176 * H if backward else 64 * H) + 16
 
 
-def lstm_family(G: int, B: int, H: int) -> str:
+def lstm_step_smem(H: int, backward: bool, elem_bytes: int = 2) -> int:
+    """Shared memory of a block of the per-step LSTM kernels at width H with
+    ``elem_bytes`` operands (``csrc/lstm_scan.cu``): the forward's Wh slice
+    [H, UT, 4] and h rows [BT, H]; the backward's two slices, the dgates
+    rows [BT, 4H], the h_res rows and the db partials [BT, 4, UT] fp32."""
+    tile, rows = H * LSTM_UNIT_TILE * 4, LSTM_ROW_TILE * H
+    if not backward:
+        return (tile + rows) * elem_bytes
+    return (2 * tile + 5 * rows) * elem_bytes + LSTM_ROW_TILE * 4 * LSTM_UNIT_TILE * 4
+
+
+def lstm_family(G: int, B: int, H: int, dtype: torch.dtype = torch.bfloat16) -> str:
     """The kernels that run an LSTM scan of G directions, B rows and width
-    H: "cluster", one persistent launch of thread-block clusters per layer
-    call (``csrc/lstm_cluster.cuh``), where H is a multiple of 64 from 128
-    (8 units a warp, 8 swizzle chunks a dgates row) whose backward fits a
-    CTA's shared memory (H <= 384; every preset has H = 256); else "step",
-    the per-step kernels (``csrc/lstm_scan.cu``), which take any multiple of
-    16.  Chosen by shape alone, never after a failure; other shapes raise."""
+    H with ``dtype`` operands: "cluster", one persistent launch of
+    thread-block clusters per layer call (``csrc/lstm_cluster.cuh``), where
+    the operands are bf16 and H is a multiple of 64 from 128 (8 units a
+    warp, 8 swizzle chunks a dgates row) whose backward fits a CTA's shared
+    memory (H <= 384; every preset has H = 256); else "step", the per-step
+    kernels (``csrc/lstm_scan.cu``), which take any multiple of 16 in bf16
+    and, in fp32 (the fp32 policy's instance), the multiples of 16 whose
+    backward fits a block (H <= 272).  Chosen by shape and type alone, never
+    after a failure; other shapes raise."""
     if G < 1 or B < 1 or H < LSTM_UNIT_TILE or H % LSTM_UNIT_TILE:
         raise ValueError(f"lstm scan: G={G}, B={B}, H={H}; the kernels take G, B >= 1 and H a "
                          f"positive multiple of {LSTM_UNIT_TILE}")
+    if dtype == torch.float32:
+        if lstm_step_smem(H, backward=True, elem_bytes=4) > SMEM_LIMIT:
+            raise ValueError(f"lstm scan: the fp32 per-step kernels stage a block's fp32 Wh "
+                             f"slices whole; H={H} needs {lstm_step_smem(H, True, 4)} bytes "
+                             f"of shared memory (limit {SMEM_LIMIT})")
+        return "step"
+    if dtype != torch.bfloat16:
+        raise ValueError(f"lstm scan: the kernels take bf16 or fp32 operands, got {dtype}")
     if H % 64 == 0 and H >= 128 and lstm_cluster_smem(H, backward=True) <= SMEM_LIMIT:
         return "cluster"
     return "step"
@@ -432,18 +471,28 @@ def cluster_lstm_weights(wh: torch.Tensor) -> torch.Tensor:
     return wh.view(G, H, 4, LSTM_CLUSTER, H // 64, 8).permute(0, 3, 4, 2, 5, 1).contiguous()
 
 
-def _check_lstm(xw, wh, b, mask, T, G, B, H, dev):
-    _check("xw", xw, torch.bfloat16, (T, G, B, 4 * H), dev)
-    _check("wh", wh, torch.bfloat16, (G, H, 4 * H), dev)
+def _check_lstm(xw, wh, b, mask, T, G, B, H, dev, rd=None):
+    """The operands of K1 / K2 in bf16 (the bf16 policy) or fp32 (the fp32
+    policy: K1 only, G = 2 without a recurrent-dropout mask; the other
+    fp32 instances are still to be ported) -> (family, dtype)."""
+    dt = xw.dtype
+    if dt == torch.float32 and (G != 2 or rd is not None):
+        raise ValueError(f"lstm scan: the fp32 instance runs K1 (G = 2) without a recurrent-"
+                         f"dropout mask; G={G}, mask {rd is not None} is still to be ported")
+    _check("xw", xw, dt, (T, G, B, 4 * H), dev)
+    _check("wh", wh, dt, (G, H, 4 * H), dev)
     _check("b", b, torch.float32, (G, 4 * H), dev)
     _check("mask", mask, torch.float32, (T, G, B), dev)
-    return lstm_family(G, B, H)
+    return lstm_family(G, B, H, dt), dt
 
 
-def _lstm_counter(name: str, G: int, rd=None) -> str:
+def _lstm_counter(name: str, G: int, rd=None, dtype: torch.dtype = torch.bfloat16) -> str:
     """``lstm_scan_fwd`` -> ``lstm_scan[_uni][_rd]_fwd``: G = 1 (K2) and a
-    recurrent-dropout mask counted apart."""
+    recurrent-dropout mask counted apart; ``lstm_scan_f32_fwd`` for the fp32
+    policy's instance."""
     stem, kind = name.rsplit("_", 1)
+    if dtype == torch.float32:
+        return f"{stem}_f32_{kind}"
     return stem + ("_uni" if G == 1 else "") + ("_rd" if rd is not None else "") + "_" + kind
 
 
@@ -463,12 +512,15 @@ def lstm_scan_fwd(wh, b, xw, mask, h0, c0, *, save: bool = False, rd=None):
     carry c entering it), else None.  ``rd`` [G,B,H] f32 is the recurrent
     dropout mask (the operand becomes bf16(h * rd)); a masked call counts
     as ``lstm_scan[_uni]_rd_fwd``.  Runs on the family ``lstm_family``
-    names: one cluster launch, or one launch per step.
+    names: one cluster launch, or one launch per step.  With wh and xw in
+    fp32 (the fp32 policy: G = 2, no mask) the per-step kernels' fp32
+    instance runs and ys, h_res and c_res are fp32, counted as
+    ``lstm_scan_f32_fwd``.
     """
     T, G, B, H4 = xw.shape
     H = H4 // 4
     dev = xw.device
-    family = _check_lstm(xw, wh, b, mask, T, G, B, H, dev)
+    family, dt = _check_lstm(xw, wh, b, mask, T, G, B, H, dev, rd)
     _check("h0", h0, torch.float32, (G, B, H), dev)
     _check("c0", c0, torch.float32, (G, B, H), dev)
     _check_rd(rd, G, B, H, dev)
@@ -478,19 +530,20 @@ def lstm_scan_fwd(wh, b, xw, mask, h0, c0, *, save: bool = False, rd=None):
     hbuf = torch.empty((2, G, B, H), dtype=torch.float32, device=dev)
     hbuf[0].copy_(h0)
     c = c0.clone()
-    ys = torch.empty((T, G, B, H), dtype=torch.bfloat16, device=dev)
+    ys = torch.empty((T, G, B, H), dtype=dt, device=dev)
     h_res = c_res = None
     if save:
-        h_res = torch.empty((T, G, B, H), dtype=torch.bfloat16, device=dev)
-        c_res = torch.empty((T, G, B, H), dtype=torch.bfloat16, device=dev)
+        h_res = torch.empty((T, G, B, H), dtype=dt, device=dev)
+        c_res = torch.empty((T, G, B, H), dtype=dt, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.avsr_lstm_scan_fwd(
-        w.data_ptr(), b.data_ptr(), xw.data_ptr(), mask.data_ptr(),
-        hbuf.data_ptr(), c.data_ptr(), ys.data_ptr(), _ptr(h_res), _ptr(c_res), _ptr(rd),
-        T, G, B, H, int(cluster), stream,
-    )
+    common = (w.data_ptr(), b.data_ptr(), xw.data_ptr(), mask.data_ptr(), hbuf.data_ptr(),
+              c.data_ptr(), ys.data_ptr(), _ptr(h_res), _ptr(c_res))
+    if dt == torch.float32:
+        err = lib.avsr_lstm_scan_fwd_f32(*common, T, G, B, H, stream)
+    else:
+        err = lib.avsr_lstm_scan_fwd(*common, _ptr(rd), T, G, B, H, int(cluster), stream)
     _raise_on(err, "lstm_scan_fwd launch")
-    LAUNCHES[_lstm_counter("lstm_scan_fwd", G, rd)] += 1
+    LAUNCHES[_lstm_counter("lstm_scan_fwd", G, rd, dt)] += 1
     return ys, hbuf[T % 2], c, h_res, c_res
 
 
@@ -505,14 +558,16 @@ def lstm_scan_bwd(wh, b, xw, mask, h_res, c_res, dys, dhT, dcT, *, rd=None):
     the forward's mask ``rd`` the cotangent of each product's operand is
     scaled by it (counted as ``lstm_scan[_uni]_rd_bwd``).  The cluster
     family is one cluster launch and a row-tile sum of db; the per-step
-    family one launch per step and a final one.
+    family one launch per step and a final one.  In fp32 (the fp32
+    policy's instance, ``lstm_scan_f32_bwd``) the residuals, dys and dxw
+    are fp32.
     """
     T, G, B, H4 = xw.shape
     H = H4 // 4
     dev = xw.device
-    family = _check_lstm(xw, wh, b, mask, T, G, B, H, dev)
+    family, dt = _check_lstm(xw, wh, b, mask, T, G, B, H, dev, rd)
     for name, x in (("h_res", h_res), ("c_res", c_res), ("dys", dys)):
-        _check(name, x, torch.bfloat16, (T, G, B, H), dev)
+        _check(name, x, dt, (T, G, B, H), dev)
     _check("dhT", dhT, torch.float32, (G, B, H), dev)
     _check("dcT", dcT, torch.float32, (G, B, H), dev)
     _check_rd(rd, G, B, H, dev)
@@ -528,18 +583,21 @@ def lstm_scan_bwd(wh, b, xw, mask, h_res, c_res, dys, dhT, dcT, *, rd=None):
         w, wT, dh_dir = tile_lstm_weights(wh), tile_lstm_weights_t(wh), dhT.clone()
         db_part = torch.zeros((G, -(-B // LSTM_ROW_TILE), 4 * H), dtype=torch.float32,
                               device=dev)
-    dxw = torch.empty((T, G, B, 4 * H), dtype=torch.bfloat16, device=dev)
+    dxw = torch.empty((T, G, B, 4 * H), dtype=dt, device=dev)
     dh0 = torch.empty((G, B, H), dtype=torch.float32, device=dev)
     db = torch.empty((G, 4 * H), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.avsr_lstm_scan_bwd(
-        w.data_ptr(), _ptr(wT), b.data_ptr(), xw.data_ptr(),
-        mask.data_ptr(), h_res.data_ptr(), c_res.data_ptr(), dys.data_ptr(),
-        dh_dir.data_ptr(), dc.data_ptr(), db_part.data_ptr(), dxw.data_ptr(),
-        dh0.data_ptr(), db.data_ptr(), _ptr(rd), T, G, B, H, int(family == "cluster"), stream,
-    )
+    common = (w.data_ptr(), _ptr(wT), b.data_ptr(), xw.data_ptr(),
+              mask.data_ptr(), h_res.data_ptr(), c_res.data_ptr(), dys.data_ptr(),
+              dh_dir.data_ptr(), dc.data_ptr(), db_part.data_ptr(), dxw.data_ptr(),
+              dh0.data_ptr(), db.data_ptr())
+    if dt == torch.float32:
+        err = lib.avsr_lstm_scan_bwd_f32(*common, T, G, B, H, stream)
+    else:
+        err = lib.avsr_lstm_scan_bwd(*common, _ptr(rd), T, G, B, H, int(family == "cluster"),
+                                     stream)
     _raise_on(err, "lstm_scan_bwd launch")
-    LAUNCHES[_lstm_counter("lstm_scan_bwd", G, rd)] += 1
+    LAUNCHES[_lstm_counter("lstm_scan_bwd", G, rd, dt)] += 1
     return dxw, db, dh0, dc
 
 
@@ -1035,15 +1093,19 @@ DECODER_CROSS_MAX_Q = 160
 DECODER_CROSS_FWD_STRIPS = 5
 
 
-def attention_family(kernel: str, dk: int, dv: int) -> str:
+def attention_family(kernel: str, dk: int, dv: int, dtype: torch.dtype = torch.bfloat16) -> str:
     """The kernel family that runs ``kernel`` (a key of ``MMA_WIDTHS``) at
-    head widths (dk, dv): "cross", K5's cross kernels (one block per
-    (b, h), ``csrc/decoder_cross_attention.cuh``), "mma", the tensor-core
-    instances of ``csrc/attention_mma.cuh``, or "core", the CUDA-core
-    kernels that take any widths that are multiples of 8 (their 16-byte
-    row loads) and save the fp32 weights for the backward.  Chosen by shape
-    alone, never after a failure; other widths raise."""
+    head widths (dk, dv) on ``dtype`` operands: "cross", K5's cross kernels
+    (one block per (b, h), ``csrc/decoder_cross_attention.cuh``), "mma",
+    the tensor-core instances of ``csrc/attention_mma.cuh``, or "core", the
+    CUDA-core kernels that take any widths that are multiples of 8 (their
+    16-byte row loads) and save the fp32 weights for the backward; fp32
+    operands (the fp32 policy: K4 and K5) always take "core", its fp32
+    instance.  Chosen by shape and type alone, never after a failure; other
+    widths raise."""
     _check_widths(kernel, dk, dv)
+    if dtype == torch.float32:
+        return "core"
     if kernel == "decoder_cross_attention" and (dk, dv) == DECODER_CROSS_WIDTHS:
         return "cross"
     return "mma" if (dk, dv) in MMA_WIDTHS[kernel] else "core"
@@ -1095,28 +1157,50 @@ def _check_widths(what: str, dk: int, dv: int) -> None:
                          f"multiples of 8")
 
 
-def _check_core(what: str, Tq: int, Tk: int, dk: int, dv: int) -> None:
-    """The CUDA-core route stages whole rows in shared memory: its lengths
-    are capped by the card's limit at the given widths."""
-    smem = _load().avsr_attn_core_smem(Tq, Tk, dk, dv)
+def attention_core_smem(Tq: int, Tk: int, dk: int, dv: int, elem_bytes: int = 2) -> int:
+    """Shared memory of the largest launch of the CUDA-core attention family
+    (``csrc/attention_core.cuh`` ``attn_smem``) over ``elem_bytes``
+    operands: a chunk of 64 streamed rows, a tile of 16 rows, the scores'
+    rows fp32 and the 16 rows' fp32 sums; pass 2 the tile's dsc / P columns
+    over every query."""
+    fwd = 64 * max(dk, dv) * elem_bytes + 16 * dk * elem_bytes + 64 * Tk + 64 * dv
+    bwd_q = 64 * max(dk, dv) * elem_bytes + 16 * dv * elem_bytes + 64 * Tk + 64 * dk
+    bwd_kv = 64 * (dk + dv) * elem_bytes + 128 * Tq + 64 * (dk + dv)
+    return max(fwd, bwd_q, bwd_kv)
+
+
+def _check_core(what: str, Tq: int, Tk: int, dk: int, dv: int,
+                dtype: torch.dtype = torch.bfloat16) -> None:
+    """The CUDA-core route keeps whole rows of scores in shared memory: its
+    lengths are capped by the card's limit at the given widths."""
+    fp32 = dtype == torch.float32
+    smem = _load().avsr_attn_core_smem(Tq, Tk, dk, dv, int(fp32))
     if smem > SMEM_LIMIT:
-        raise ValueError(f"{what}: the CUDA-core kernels at head widths dk={dk}, dv={dv} (no "
-                         f"tensor-core instance) stage whole rows; T_q={Tq}, T_k={Tk} need {smem} "
-                         f"bytes of shared memory per block (limit {SMEM_LIMIT})")
+        raise ValueError(f"{what}: the CUDA-core kernels at head widths dk={dk}, dv={dv} "
+                         f"({'the fp32 instance' if fp32 else 'no tensor-core instance'}) keep "
+                         f"whole rows of scores; T_q={Tq}, T_k={Tk} need {smem} bytes of shared "
+                         f"memory per block (limit {SMEM_LIMIT})")
+
+
+def _check_dtype(what: str, x: torch.Tensor) -> torch.dtype:
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{what}: the kernels take bf16 or fp32 operands, got {x.dtype}")
+    return x.dtype
 
 
 def _check_fusion(q, k, v, video_lengths, dev):
     B, Ta, nh, A = q.shape
     Tv, dv = k.shape[1], v.shape[-1]
-    _check("q", q, torch.bfloat16, (B, Ta, nh, A), dev)
-    _check("k", k, torch.bfloat16, (B, Tv, nh, A), dev)
-    _check("v", v, torch.bfloat16, (B, Tv, nh, dv), dev)
+    dt = _check_dtype("fusion attention", q)
+    _check("q", q, dt, (B, Ta, nh, A), dev)
+    _check("k", k, dt, (B, Tv, nh, A), dev)
+    _check("v", v, dt, (B, Tv, nh, dv), dev)
     _check("video_lengths", video_lengths, torch.int32, (B,), dev, align=4)
     if not (1 <= Ta <= ATTEND_MAX_S and 1 <= Tv <= FUSION_MAX_TV):
         raise ValueError(f"fusion attention: T_a={Ta}, T_v={Tv}; the kernels take "
                          f"1 <= T_a <= {ATTEND_MAX_S} and 1 <= T_v <= {FUSION_MAX_TV}")
-    if attention_family("fusion_attention", A, dv) == "core":
-        _check_core("fusion attention", Ta, Tv, A, dv)
+    if attention_family("fusion_attention", A, dv, dt) == "core":
+        _check_core("fusion attention", Ta, Tv, A, dv, dt)
     return B, Ta, Tv, nh, A, dv
 
 
@@ -1128,18 +1212,21 @@ def fusion_attention_fwd(q, k, v, video_lengths, *, save: bool = False):
     backward's residual when ``save``, else None): on the tensor cores
     (``attention_family`` "mma") the softmax's row statistics (row_max,
     row_sum), fp32 [B,nh,T_a] each; on the CUDA-core route the weights
-    themselves, a one-tuple.
+    themselves, a one-tuple.  fp32 q, k, v (the fp32 policy) run the
+    CUDA-core family's fp32 instance, ctx fp32, counted as
+    ``fusion_attention_f32_fwd``.
     """
     dev = q.device
     B, Ta, Tv, nh, A, dv = _check_fusion(q, k, v, video_lengths, dev)
     lib = _load()
+    fp32 = q.dtype == torch.float32
     P = torch.empty((B, nh, Ta, Tv), dtype=torch.float32, device=dev)
-    ctx = torch.empty((B, Ta, nh, dv), dtype=torch.bfloat16, device=dev)
+    ctx = torch.empty((B, Ta, nh, dv), dtype=q.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if attention_family("fusion_attention", A, dv) == "core":
-        err = lib.avsr_fusion_attn_core_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                            video_lengths.data_ptr(), P.data_ptr(), ctx.data_ptr(),
-                                            B, Ta, Tv, nh, A, dv, stream)
+    if attention_family("fusion_attention", A, dv, q.dtype) == "core":
+        launch = lib.avsr_fusion_attn_core_fwd_f32 if fp32 else lib.avsr_fusion_attn_core_fwd
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), video_lengths.data_ptr(),
+                     P.data_ptr(), ctx.data_ptr(), B, Ta, Tv, nh, A, dv, stream)
         res = (P,) if save else None
     else:
         res = tuple(torch.empty((B, nh, Ta), dtype=torch.float32, device=dev)
@@ -1149,7 +1236,7 @@ def fusion_attention_fwd(q, k, v, video_lengths, *, save: bool = False):
             *((None, None) if res is None else map(_ptr, res)), ctx.data_ptr(),
             B, Ta, Tv, nh, A, dv, stream)
     _raise_on(err, "fusion_attention_fwd launch")
-    LAUNCHES["fusion_attention_fwd"] += 1
+    LAUNCHES["fusion_attention_f32_fwd" if fp32 else "fusion_attention_fwd"] += 1
     return ctx, P, res
 
 
@@ -1164,7 +1251,7 @@ def fusion_attention_bwd(q, k, v, video_lengths, row_max, row_sum, dctx):
     """
     dev = q.device
     B, Ta, Tv, nh, A, dv = _check_fusion(q, k, v, video_lengths, dev)
-    if attention_family("fusion_attention", A, dv) != "mma":
+    if attention_family("fusion_attention", A, dv, q.dtype) != "mma":
         raise ValueError(f"fusion attention: no tensor-core instance at A={A}, dv={dv}; its "
                          f"backward reads the weights (attention_bwd_core)")
     _check("row_max", row_max, torch.float32, (B, nh, Ta), dev, align=4)
@@ -1192,9 +1279,10 @@ def _check_decoder_attention(q, k, v, bias, dev):
     route is capped by shared memory."""
     B, Q, nh, dk = q.shape
     S, dv = k.shape[1], v.shape[-1]
-    _check("q", q, torch.bfloat16, (B, Q, nh, dk), dev)
-    _check("k", k, torch.bfloat16, (B, S, nh, dk), dev)
-    _check("v", v, torch.bfloat16, (B, S, nh, dv), dev)
+    dt = _check_dtype("decoder attention", q)
+    _check("q", q, dt, (B, Q, nh, dk), dev)
+    _check("k", k, dt, (B, S, nh, dk), dev)
+    _check("v", v, dt, (B, S, nh, dv), dev)
     if bias is None:
         if Q != S:
             raise ValueError(f"decoder attention: the causal mask needs Q == S, got {Q} and {S}")
@@ -1203,9 +1291,9 @@ def _check_decoder_attention(q, k, v, bias, dev):
     if Q < 1 or S < 1:
         raise ValueError(f"decoder attention: Q={Q} and S={S} must be at least 1")
     kind = "decoder_self_attention" if bias is None else "decoder_cross_attention"
-    family = attention_family(kind, dk, dv)
+    family = attention_family(kind, dk, dv, dt)
     if family == "core":
-        _check_core("decoder attention", Q, S, dk, dv)
+        _check_core("decoder attention", Q, S, dk, dv, dt)
     elif bias is None and S > DECODER_SELF_MAX_S:
         raise ValueError(f"decoder attention: the causal instance stages whole rows and takes "
                          f"Q = S <= {DECODER_SELF_MAX_S}, got {S}")
@@ -1221,18 +1309,20 @@ def decoder_attention_fwd(q, k, v, bias, *, save: bool):
     None): on the tensor cores (``attention_family`` "mma" or "cross") the
     softmax's row statistics (row_max, row_sum), fp32 [B,nh,Q] each, and no weights
     are written; on the CUDA-core route the fp32 weights [B,nh,Q,S], a
-    one-tuple.
+    one-tuple.  fp32 q, k, v (the fp32 policy) run the CUDA-core family's
+    fp32 instance, ctx fp32, counted as ``decoder_attention_f32_fwd``.
     """
     dev = q.device
     B, Q, S, nh, dk, dv, family = _check_decoder_attention(q, k, v, bias, dev)
     lib = _load()
-    ctx = torch.empty((B, Q, nh, dv), dtype=torch.bfloat16, device=dev)
+    fp32 = q.dtype == torch.float32
+    ctx = torch.empty((B, Q, nh, dv), dtype=q.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if family == "core":
         P = torch.empty((B, nh, Q, S), dtype=torch.float32, device=dev) if save else None
-        err = lib.avsr_decoder_attn_core_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                             _ptr(bias), _ptr(P), ctx.data_ptr(),
-                                             B, Q, S, nh, dk, dv, stream)
+        launch = lib.avsr_decoder_attn_core_fwd_f32 if fp32 else lib.avsr_decoder_attn_core_fwd
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), _ptr(P),
+                     ctx.data_ptr(), B, Q, S, nh, dk, dv, stream)
         res = (P,) if save else None
     else:
         res = tuple(torch.empty((B, nh, Q), dtype=torch.float32, device=dev)
@@ -1247,7 +1337,7 @@ def decoder_attention_fwd(q, k, v, bias, *, save: bool):
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), *stats, ctx.data_ptr(),
                 B, Q, S, nh, dk, dv, stream)
     _raise_on(err, "decoder_attention_fwd launch")
-    LAUNCHES["decoder_attention_fwd"] += 1
+    LAUNCHES["decoder_attention_f32_fwd" if fp32 else "decoder_attention_fwd"] += 1
     return ctx, res
 
 
@@ -1296,28 +1386,33 @@ def attention_bwd_core(kernel: str, q, k, v, weights, dctx):
     weights [B,nh,T_q,T_k]: q [B,T_q,nh,dk], k [B,T_k,nh,dk], v
     [B,T_k,nh,dv] and dctx [B,T_q,nh,dv] bf16 -> (dq, dk, dv) in bf16.  The
     mask enters only through the weights; the scratch is the scores'
-    cotangent, bf16 [B,nh,T_q,T_k].  Counted as the kernel's backward."""
+    cotangent, bf16 [B,nh,T_q,T_k].  Counted as the kernel's backward.  In
+    fp32 (the fp32 policy's instance: operands, gradients and scratch
+    fp32) counted as ``<kernel>_f32_bwd``."""
     B, Tq, nh, dk = q.shape
     Tk, dv = k.shape[1], v.shape[-1]
     dev = q.device
-    _check("q", q, torch.bfloat16, (B, Tq, nh, dk), dev)
-    _check("k", k, torch.bfloat16, (B, Tk, nh, dk), dev)
-    _check("v", v, torch.bfloat16, (B, Tk, nh, dv), dev)
+    dt = _check_dtype(kernel, q)
+    _check("q", q, dt, (B, Tq, nh, dk), dev)
+    _check("k", k, dt, (B, Tk, nh, dk), dev)
+    _check("v", v, dt, (B, Tk, nh, dv), dev)
     _check("weights", weights, torch.float32, (B, nh, Tq, Tk), dev)
-    _check("dctx", dctx, torch.bfloat16, (B, Tq, nh, dv), dev)
+    _check("dctx", dctx, dt, (B, Tq, nh, dv), dev)
     _check_widths(kernel, dk, dv)
-    _check_core(kernel, Tq, Tk, dk, dv)
+    _check_core(kernel, Tq, Tk, dk, dv, dt)
     lib = _load()
-    dsc = torch.empty((B, nh, Tq, Tk), dtype=torch.bfloat16, device=dev)
+    fp32 = dt == torch.float32
+    dsc = torch.empty((B, nh, Tq, Tk), dtype=dt, device=dev)
     dq = torch.empty_like(q)
     dkk = torch.empty_like(k)
     dvv = torch.empty_like(v)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.avsr_attn_core_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), weights.data_ptr(),
-                                 dctx.data_ptr(), dsc.data_ptr(), dq.data_ptr(), dkk.data_ptr(),
-                                 dvv.data_ptr(), B, Tq, Tk, nh, dk, dv, stream)
+    launch = lib.avsr_attn_core_bwd_f32 if fp32 else lib.avsr_attn_core_bwd
+    err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), weights.data_ptr(), dctx.data_ptr(),
+                 dsc.data_ptr(), dq.data_ptr(), dkk.data_ptr(), dvv.data_ptr(), B, Tq, Tk, nh, dk,
+                 dv, stream)
     _raise_on(err, f"{kernel}_bwd launch")
-    LAUNCHES[f"{kernel}_bwd"] += 1
+    LAUNCHES[f"{kernel}_f32_bwd" if fp32 else f"{kernel}_bwd"] += 1
     return dq, dkk, dvv
 
 
@@ -1377,7 +1472,7 @@ def decode_grouped_slices(B: int, W: int, S: int, nh: int, dk: int, dv: int) -> 
 
 
 def decode_attention_route(N: int, B: int, L: int, n_keys: int, nh: int, dk: int, dv: int,
-                           cross: bool) -> str:
+                           cross: bool, dtype: torch.dtype = torch.bfloat16) -> str:
     """The kernel that runs K6 for N query rows over B key rows of length L
     (W = N / B queries a key row), ``n_keys`` of them read: "grouped", the
     cross read of W >= 2 beams at widths that are multiples of 16 while a
@@ -1388,13 +1483,17 @@ def decode_attention_route(N: int, B: int, L: int, n_keys: int, nh: int, dk: int
     two, while the row's keys and values fit in shared memory;
     "general", the CUDA-core kernel of one block per (n, h), every other
     shape (greedy's cross read among them: at W = 1 there is nothing to
-    share).  Chosen by shape alone, never after a failure."""
+    share), and every read of fp32 operands (the fp32 policy: the general
+    kernel's fp32 instance).  Chosen by shape and type alone, never after a
+    failure."""
     if N < 1 or B < 1 or N % B:
         raise ValueError(f"decode attention: {N} query rows over {B} key rows; N must be a "
                          f"positive multiple of B")
     _check_widths("decode attention", dk, dv)
     if not 1 <= n_keys <= L:
         raise ValueError(f"decode attention: n_keys={n_keys} with L={L}")
+    if dtype == torch.float32:
+        return "general"
     if cross:
         W = N // B
         if W >= 2 and decode_grouped_slices(B, W, L, nh, dk, dv) > 0:
@@ -1415,16 +1514,19 @@ def decode_attention(q, k, v, bias, n_keys: int):
     its untiled memory); ``bias`` [B,L] f32 adds the memory's key bias to all
     L keys (cross attention, ``n_keys`` == L), or None: self attention over
     keys [0, n_keys) of each row's cache (B == N) -> ctx [N,nh,dv] bf16.
-    The kernel by ``decode_attention_route``.
+    The kernel by ``decode_attention_route``.  fp32 q, k, v (the fp32
+    policy) run the general kernel's fp32 instance, ctx fp32, counted as
+    ``decode_attention_f32``.
     """
     N, nh, dk = q.shape
     B, L = k.shape[:2]
     dv = v.shape[-1]
     dev = q.device
-    route = decode_attention_route(N, B, L, n_keys, nh, dk, dv, bias is not None)
-    _check("q", q, torch.bfloat16, (N, nh, dk), dev)
-    _check("k", k, torch.bfloat16, (B, L, nh, dk), dev)
-    _check("v", v, torch.bfloat16, (B, L, nh, dv), dev)
+    dt = _check_dtype("decode attention", q)
+    route = decode_attention_route(N, B, L, n_keys, nh, dk, dv, bias is not None, dt)
+    _check("q", q, dt, (N, nh, dk), dev)
+    _check("k", k, dt, (B, L, nh, dk), dev)
+    _check("v", v, dt, (B, L, nh, dv), dev)
     if bias is not None:
         _check("bias", bias, torch.float32, (B, L), dev)
         if n_keys != L:
@@ -1434,8 +1536,9 @@ def decode_attention(q, k, v, bias, n_keys: int):
         raise ValueError(f"decode attention: the self read takes a cache row per query row, "
                          f"got {N} queries over {B} rows")
     lib = _load()
-    ctx = torch.empty((N, nh, dv), dtype=torch.bfloat16, device=dev)
+    ctx = torch.empty((N, nh, dv), dtype=dt, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    fp32 = dt == torch.float32
     if route == "grouped":
         cv = decode_grouped_slices(B, N // B, L, nh, dk, dv)
         err = lib.avsr_decode_attn_grouped(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -1445,11 +1548,11 @@ def decode_attention(q, k, v, bias, n_keys: int):
         err = lib.avsr_decode_attn_rows(q.data_ptr(), k.data_ptr(), v.data_ptr(), ctx.data_ptr(),
                                         N, L, n_keys, nh, dk, stream)
     else:
-        err = lib.avsr_decode_attn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), ctx.data_ptr(), N, B, L,
-            n_keys, nh, dk, dv, stream)
+        launch = lib.avsr_decode_attn_f32 if fp32 else lib.avsr_decode_attn
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), ctx.data_ptr(), N, B,
+                     L, n_keys, nh, dk, dv, stream)
     _raise_on(err, "decode_attention launch")
-    LAUNCHES["decode_attention"] += 1
+    LAUNCHES["decode_attention_f32" if fp32 else "decode_attention"] += 1
     return ctx
 
 

@@ -54,7 +54,7 @@ from avsr_tpu_torch.configs import FusionConfig
 from avsr_tpu_torch import kernels
 from avsr_tpu_torch.ops import attention as attn
 from avsr_tpu_torch.ops import rnn
-from avsr_tpu_torch.utils.numerics import dot_f32, rounded
+from avsr_tpu_torch.utils.numerics import check_policy, dot_f32, rounded
 from avsr_tpu_torch.utils.params import Params, glorot_uniform, zeros
 
 
@@ -132,11 +132,6 @@ def av_align_scan_plain(cell: Params, att: Params, ctx_proj: Optional[torch.Tens
     return hs, ctxs, aligns, (hT, cT, ctxT)
 
 
-def _check_align_policy(cdt):
-    if cdt != torch.bfloat16:
-        raise ValueError(f"the AV-Align fusion kernels run the bf16 policy only, got {cdt}")
-
-
 def _cell_operands(cell: Params, ctx_proj: Optional[torch.Tensor]):
     bf = torch.bfloat16
     return (cell["wh"].to(bf).contiguous(), cell["b"].float().contiguous(),
@@ -154,7 +149,7 @@ def av_align_scan_fwd(cell: Params, att: Params, ctx_proj: Optional[torch.Tensor
     if xw.device.type == "cpu":
         return av_align_scan_fwd_plain(cell, att, ctx_proj, xw, mask, mem, cdt, save,
                                        attention_type=attention_type)
-    _check_align_policy(cdt)
+    check_policy(cdt, "K8")
     wq, v, keys, values = attn.kernel_operands(attention_type, att, mem)
     hs, ctxs, aligns, hT, cT, ctxT, res = kernels.av_align_scan(
         *_cell_operands(cell, ctx_proj), wq, v, xw.float().contiguous(),
@@ -334,7 +329,7 @@ def av_align_scan_bwd(cell: Params, att: Params, ctx_proj: Optional[torch.Tensor
         return av_align_scan_bwd_plain(cell, att, ctx_proj, xw, mask, mem, aligns, res, dhs,
                                        dctxs, dhT, dcT, dctxT, cdt,
                                        attention_type=attention_type)
-    _check_align_policy(cdt)
+    check_policy(cdt, "K8")
     wq, v, keys, values = attn.kernel_operands(attention_type, att, mem)
     return kernels.av_align_scan_bwd(
         *_cell_operands(cell, ctx_proj), wq, v, xw.float().contiguous(),
@@ -529,11 +524,6 @@ def fusion_attention_bwd_plain(q, k, v, video_lengths, row_max, row_sum, dctx):
     return attention_bwd_from_weights(q, k, v, w, dctx)
 
 
-def _check_policy(q):
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"the fusion attention kernels run the bf16 policy only, got {q.dtype}")
-
-
 def fusion_attention_fwd(q, k, v, video_lengths, *, save: bool = False):
     """K4 forward wrapper: the CUDA kernels for GPU tensors, the plain
     version on the CPU; same contract as ``fusion_attention_fwd_plain``,
@@ -542,7 +532,7 @@ def fusion_attention_fwd(q, k, v, video_lengths, *, save: bool = False):
     one-tuple, in place of the row statistics."""
     if q.device.type == "cpu":
         return fusion_attention_fwd_plain(q, k, v, video_lengths, save=save)
-    _check_policy(q)
+    check_policy(q.dtype, "K4")
     return kernels.fusion_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
                                         video_lengths.to(torch.int32).contiguous(), save=save)
 
@@ -552,11 +542,11 @@ def fusion_attention_bwd(q, k, v, video_lengths, row_max, row_sum, dctx):
     plain version on the CPU; same contract as ``fusion_attention_bwd_plain``."""
     if q.device.type == "cpu":
         return fusion_attention_bwd_plain(q, k, v, video_lengths, row_max, row_sum, dctx)
-    _check_policy(q)
+    check_policy(q.dtype, "K4")
     return kernels.fusion_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(),
                                         video_lengths.to(torch.int32).contiguous(),
                                         row_max.contiguous(), row_sum.contiguous(),
-                                        dctx.to(torch.bfloat16).contiguous())
+                                        dctx.to(q.dtype).contiguous())
 
 
 def core_route_bwd(kernel, q, k, v, weights, dctx):
@@ -566,9 +556,9 @@ def core_route_bwd(kernel, q, k, v, weights, dctx):
     for GPU tensors, ``attention_bwd_from_weights`` on the CPU."""
     if q.device.type == "cpu":
         return attention_bwd_from_weights(q, k, v, weights, dctx)
-    _check_policy(q)
+    check_policy(q.dtype, "K4" if kernel == "fusion_attention" else "K5")
     return kernels.attention_bwd_core(kernel, q.contiguous(), k.contiguous(), v.contiguous(),
-                                      weights.contiguous(), dctx.to(torch.bfloat16).contiguous())
+                                      weights.contiguous(), dctx.to(q.dtype).contiguous())
 
 
 class FusionAttention(torch.autograd.Function):

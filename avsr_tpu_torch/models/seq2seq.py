@@ -32,8 +32,17 @@ decoder, the cross-entropy and (``av_align``) the AU regression loss;
 Randomness (noise draws, dropout masks) comes from ONE generator per
 call, drawn in a fixed order: noise, SpecAugment's masks (``cfg.audio.
 spec_augment``, train mode, after the frontend), the audio encoder's
-layers, the video encoder's, then the decoder's.  ``train.remat`` is not
-ported and raises.
+layers, the video encoder's, then the decoder's.
+
+``train.remat`` (train mode) runs each encoder stack under
+``torch.utils.checkpoint`` (non-reentrant), as the reference wraps its
+``encoder_apply`` in ``jax.checkpoint``: the backward recomputes the
+stack's activations and its kernels' residuals from the stack's input
+instead of keeping them.  The frontends, the video CNN, the fusion and the
+decoder stay outside the region.  The recompute replays the region's
+dropout draws from the generator state the region began with, then leaves
+the generator where the forward left it (``_remat_replay``), so the remat
+step's draws, loss and gradients are those of the step without it.
 
 Layouts: frontends batch-major [B, T, D]; the recurrent core time-major
 [T, B, D]; decoder memories batch-major [B, S, H].
@@ -41,10 +50,12 @@ Layouts: frontends batch-major [B, T, D]; the recurrent core time-major
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from avsr_tpu_torch.configs import ExperimentConfig
 from avsr_tpu_torch.models import decoder as dec
@@ -55,7 +66,7 @@ from avsr_tpu_torch.ops import attention as attn
 from avsr_tpu_torch.ops import noise as noise_ops
 from avsr_tpu_torch.ops.audio_features import logmel_frontend
 from avsr_tpu_torch.ops.specaugment import spec_augment
-from avsr_tpu_torch.utils.numerics import compute_dtype_of
+from avsr_tpu_torch.utils.numerics import compute_dtype_of, full_precision
 from avsr_tpu_torch.utils.params import Params
 
 
@@ -179,17 +190,59 @@ def _noisy_waveform(cfg: ExperimentConfig, batch: Batch, wav: torch.Tensor, trai
     return wav
 
 
+def _remat_replay(generator: torch.Generator):
+    """``context_fn`` of a checkpointed region drawing from ``generator``:
+    ``torch.utils.checkpoint`` restores the global RNG states around its
+    recompute, not an explicit generator's.  The recompute context sets the
+    generator to the state it had when the region began, so the recompute
+    draws the forward's masks, and on exit puts back the state it found,
+    so no later draw moves."""
+    entry = generator.get_state()
+
+    @contextlib.contextmanager
+    def replay():
+        found = generator.get_state()
+        generator.set_state(entry)
+        try:
+            yield
+        finally:
+            generator.set_state(found)
+
+    return contextlib.nullcontext(), replay()
+
+
+def _encoder_apply(params: Params, ecfg, x_tbd, lengths, cdt, *, train: bool, remat: bool,
+                   generator: Optional[torch.Generator]):
+    """``enc.encoder_apply``, under ``torch.utils.checkpoint`` with
+    ``remat`` in train mode (the reference's ``jax.checkpoint`` of its
+    ``enc_apply``)."""
+    def run(p, x):
+        return enc.encoder_apply(p, ecfg, x, lengths, cdt, train=train, generator=generator)
+
+    if not (train and remat):
+        return run(params, x_tbd)
+    kwargs = {} if generator is None else {"context_fn": lambda: _remat_replay(generator)}
+    return checkpoint(run, params, x_tbd, use_reentrant=False, **kwargs)
+
+
 def encode(params: Params, cfg: ExperimentConfig, batch: Batch, *, train: bool = False,
            generator: Optional[torch.Generator] = None,
            noise_bank=None, eval_snr=None) -> EncodeOutput:
     """Batch -> prepared decoder memories.  ``train`` mixes noise (when
     ``cfg.noise.enabled`` and a bank is given) and applies the encoders'
-    dropout, both drawn from ``generator``; evaluation mixes the fixed
+    dropout, both drawn from ``generator``, with each encoder stack
+    rematerialised under ``cfg.train.remat``; evaluation mixes the fixed
     condition of ``cfg.noise`` (``eval_snr`` over ``eval_snr_db``)."""
     _check_supported(cfg)
-    if train and cfg.train.remat:
-        raise ValueError("train.remat is not ported")
+    with full_precision(compute_dtype_of(cfg)):
+        return _encode(params, cfg, batch, train=train, generator=generator,
+                       noise_bank=noise_bank, eval_snr=eval_snr)
+
+
+def _encode(params: Params, cfg: ExperimentConfig, batch: Batch, *, train: bool,
+            generator: Optional[torch.Generator], noise_bank, eval_snr) -> EncodeOutput:
     arch = cfg.architecture
+    remat = cfg.train.remat
     cdt = compute_dtype_of(cfg)
     aux: Dict[str, Any] = {}
 
@@ -214,15 +267,15 @@ def encode(params: Params, cfg: ExperimentConfig, batch: Batch, *, train: bool =
             params["video_frontend"], cfg.video, video, batch.video_lengths, cdt)
 
     if uses_audio(cfg):
-        audio_out_tb, _ = enc.encoder_apply(
+        audio_out_tb, _ = _encoder_apply(
             params["audio_encoder"], cfg.audio_encoder, feats.transpose(0, 1), feat_len, cdt,
-            train=train, generator=generator)
+            train=train, remat=remat, generator=generator)
         audio_mem_len = enc.encoder_output_lengths(cfg.audio_encoder, feat_len)
         aux["audio_feature_lengths"] = audio_mem_len
     if uses_video(cfg):
-        v_out_tb, _ = enc.encoder_apply(
+        v_out_tb, _ = _encoder_apply(
             params["video_encoder"], cfg.video_encoder, v_emb.transpose(0, 1), v_len, cdt,
-            train=train, generator=generator)
+            train=train, remat=remat, generator=generator)
         video_mem_len = enc.encoder_output_lengths(cfg.video_encoder, v_len)
 
     dc = cfg.decoder
@@ -257,9 +310,11 @@ def forward(params: Params, cfg: ExperimentConfig, batch: Batch, *, train: bool 
         p = float(sampling_p)
     else:
         p = cfg.decoder.sampling_probability
-    logits = dec.teacher_forced_logits(
-        params["decoder"], cfg.decoder, batch.targets, batch.target_lengths, out.memories,
-        compute_dtype_of(cfg), generator=generator, dropout=train, sampling_probability=p)
+    cdt = compute_dtype_of(cfg)
+    with full_precision(cdt):
+        logits = dec.teacher_forced_logits(
+            params["decoder"], cfg.decoder, batch.targets, batch.target_lengths, out.memories,
+            cdt, generator=generator, dropout=train, sampling_probability=p)
     return logits, out.aux
 
 
@@ -281,9 +336,11 @@ def loss_given_encode(params: Params, cfg: ExperimentConfig, batch: Batch,
     the encoder between the teacher-forced loss and the beam or greedy
     decode (``avsr_tpu/models/seq2seq.py:loss_given_encode``)."""
     p = cfg.decoder.sampling_probability if train else 0.0
-    logits = dec.teacher_forced_logits(
-        params["decoder"], cfg.decoder, batch.targets, batch.target_lengths, enc_out.memories,
-        compute_dtype_of(cfg), generator=generator, dropout=train, sampling_probability=p)
+    cdt = compute_dtype_of(cfg)
+    with full_precision(cdt):
+        logits = dec.teacher_forced_logits(
+            params["decoder"], cfg.decoder, batch.targets, batch.target_lengths,
+            enc_out.memories, cdt, generator=generator, dropout=train, sampling_probability=p)
     return _losses(cfg, batch, logits, enc_out.aux, train=train)
 
 

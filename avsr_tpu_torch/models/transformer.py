@@ -55,6 +55,7 @@ from avsr_tpu_torch import kernels
 from avsr_tpu_torch.configs import EncoderConfig
 from avsr_tpu_torch.models.fusion import attention_bwd_from_weights
 from avsr_tpu_torch.models.transformer_common import layer_norm, sinusoidal_pe
+from avsr_tpu_torch.utils.numerics import check_policy
 from avsr_tpu_torch.utils.params import Params, glorot_uniform, zeros
 from avsr_tpu_torch.utils.rng import dropout_mask
 
@@ -138,11 +139,6 @@ def transformer_encoder_init(gen: torch.Generator, cfg: EncoderConfig, input_dim
     return params
 
 
-def _check_policy(x: torch.Tensor, what: str) -> None:
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"the {what} kernels run the bf16 policy only, got {x.dtype}")
-
-
 def _attention_scores(qkv: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """fp32 [B,nh,T,T] scores of the [B,T,3,nh,dh] product: float(q.k in the
     compute dtype) / sqrt(dh) + (1 - valid_key) * -1e9."""
@@ -213,7 +209,7 @@ def encoder_self_attention_fwd(qkv: torch.Tensor, lengths: torch.Tensor, *, save
     one-tuple) from the CUDA-core ones (``kernels.attention_family``)."""
     if qkv.device.type == "cpu":
         return encoder_self_attention_fwd_plain(qkv, lengths, save=save)
-    _check_policy(qkv, "encoder attention")
+    check_policy(qkv.dtype, "K11")
     return kernels.encoder_attention_fwd(qkv.contiguous(), lengths.to(torch.int32).contiguous(),
                                          save=save)
 
@@ -224,7 +220,7 @@ def encoder_self_attention_bwd(qkv: torch.Tensor, lengths: torch.Tensor, row_max
     on the CPU; same contract as ``encoder_self_attention_bwd_plain``."""
     if qkv.device.type == "cpu":
         return encoder_self_attention_bwd_plain(qkv, lengths, row_max, row_sum, dctx)
-    _check_policy(qkv, "encoder attention")
+    check_policy(qkv.dtype, "K11")
     return kernels.encoder_attention_bwd(qkv.contiguous(), lengths.to(torch.int32).contiguous(),
                                          row_max.contiguous(), row_sum.contiguous(),
                                          dctx.to(torch.bfloat16).contiguous())
@@ -238,7 +234,7 @@ def encoder_self_attention_bwd_from_weights(qkv: torch.Tensor, lengths: torch.Te
     for GPU tensors, the weights-based backward on the CPU -> dqkv."""
     if qkv.device.type == "cpu":
         return torch.stack(attention_bwd_from_weights(*qkv.unbind(2), weights, dctx), dim=2)
-    _check_policy(qkv, "encoder attention")
+    check_policy(qkv.dtype, "K11")
     return kernels.encoder_attention_bwd_core(qkv.contiguous(),
                                               lengths.to(torch.int32).contiguous(),
                                               weights.contiguous(),
@@ -351,7 +347,7 @@ def conformer_conv_fwd(u: torch.Tensor, b_in: torch.Tensor, dw: torch.Tensor,
     version on the CPU; same contract as ``conformer_conv_plain``."""
     if u.device.type == "cpu":
         return conformer_conv_plain(u, b_in, dw, ln_scale, ln_bias, lengths)
-    _check_policy(u, "conformer conv")
+    check_policy(u.dtype, "K9")
     return kernels.conformer_conv_fwd(
         u.contiguous(), b_in.to(torch.bfloat16).contiguous(),
         dw.float().reshape(dw.shape[0], -1).contiguous(), ln_scale.float().contiguous(),
@@ -365,7 +361,7 @@ def conformer_conv_bwd(u: torch.Tensor, b_in: torch.Tensor, dw: torch.Tensor,
     CPU; same contract as ``conformer_conv_bwd_plain``."""
     if u.device.type == "cpu":
         return conformer_conv_bwd_plain(u, b_in, dw, ln_scale, ln_bias, lengths, dout)
-    _check_policy(u, "conformer conv")
+    check_policy(u.dtype, "K9")
     du, db_in, ddw, dln_scale, dln_bias = kernels.conformer_conv_bwd(
         u.contiguous(), b_in.to(torch.bfloat16).contiguous(),
         dw.float().reshape(dw.shape[0], -1).contiguous(), ln_scale.float().contiguous(),

@@ -50,6 +50,7 @@ from avsr_tpu_torch.data.units import GO_ID
 from avsr_tpu_torch.models.fusion import attention_bwd_from_weights, core_route_bwd
 from avsr_tpu_torch.models.transformer_common import layer_norm, sinusoidal_pe
 from avsr_tpu_torch.ops import attention as attn
+from avsr_tpu_torch.utils.numerics import check_policy
 from avsr_tpu_torch.utils.params import Params, glorot_uniform, normal_init, zeros
 
 
@@ -68,11 +69,6 @@ def validate_config(cfg: DecoderConfig, ctx_dims: Sequence[int]) -> int:
         if m % cfg.num_heads:
             raise ValueError(f"memory dim {m} not divisible by num_heads {cfg.num_heads}")
     return d
-
-
-def _check_policy(q: torch.Tensor) -> None:
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"the decoder attention kernels run the bf16 policy only, got {q.dtype}")
 
 
 def _decoder_scores(q, k, bias):
@@ -130,7 +126,7 @@ def decoder_attention_fwd(q, k, v, bias, *, save: bool = False):
     one-tuple (``kernels.attention_family``)."""
     if q.device.type == "cpu":
         return decoder_attention_fwd_plain(q, k, v, bias, save=save)
-    _check_policy(q)
+    check_policy(q.dtype, "K5")
     return kernels.decoder_attention_fwd(
         q.contiguous(), k.contiguous(), v.contiguous(),
         None if bias is None else bias.contiguous(), save=save)
@@ -142,11 +138,11 @@ def decoder_attention_bwd(q, k, v, bias, row_max, row_sum, dctx):
     ``decoder_attention_bwd_plain``."""
     if q.device.type == "cpu":
         return decoder_attention_bwd_plain(q, k, v, bias, row_max, row_sum, dctx)
-    _check_policy(q)
+    check_policy(q.dtype, "K5")
     return kernels.decoder_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(),
                                          None if bias is None else bias.contiguous(),
                                          row_max.contiguous(), row_sum.contiguous(),
-                                         dctx.to(torch.bfloat16).contiguous())
+                                         dctx.to(q.dtype).contiguous())
 
 
 class DecoderAttention(torch.autograd.Function):
@@ -215,7 +211,7 @@ def decode_attention(q, k, v, bias, n_keys: int):
     CPU; same contract as ``decode_attention_plain``."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, bias, n_keys)
-    _check_policy(q)
+    check_policy(q.dtype, "K6")
     return kernels.decode_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                     None if bias is None else bias.contiguous(), n_keys)
 

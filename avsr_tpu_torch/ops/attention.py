@@ -53,7 +53,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from avsr_tpu_torch import kernels
-from avsr_tpu_torch.utils.numerics import dot_f32, rounded
+from avsr_tpu_torch.utils.numerics import check_policy, dot_f32, rounded
 from avsr_tpu_torch.utils.params import Params, glorot_uniform
 
 NEG_INF = -1e30
@@ -201,7 +201,7 @@ def attend_fwd(attention_type: str, params: Params, query: torch.Tensor, mem: At
     if query.device.type == "cpu":
         return attend_plain(attention_type, params, query, mem, cdt)
     _check_type(attention_type)
-    _check_policy(cdt)
+    check_policy(cdt, "K10")
     return kernels.bahdanau_attend(
         query.float().contiguous(), *kernel_operands(attention_type, params, mem),
         mem.bias.float().contiguous(), mem.mask.float().contiguous())
@@ -273,11 +273,6 @@ def attention_weight_grads(query: torch.Tensor, dq: torch.Tensor,
     return dwq, None if dv_rows is None else dv_rows.reshape(-1, A).sum(dim=0)
 
 
-def _check_policy(cdt: torch.dtype) -> None:
-    if cdt != torch.bfloat16:
-        raise ValueError(f"the attention read kernels run the bf16 policy only, got {cdt}")
-
-
 class LoopState:
     """What the steps of one memory's read loop share (``open_read_loop``):
     the kernels' operands, cast once (``kernel_operands``), the steps'
@@ -316,7 +311,7 @@ class LoopState:
         self.mem = AttentionMemory(values=values_d, keys=keys_d, mask=self.mask, bias=self.bias)
         self.params = {"wq": wq.detach(), "v": None if v is None else v.detach()}
         if values.device.type != "cpu":
-            _check_policy(self.cdt)
+            check_policy(self.cdt, "K10")
             self.operands = kernel_operands(self.attention_type, self.params, self.mem)
 
     def next_step(self) -> int:

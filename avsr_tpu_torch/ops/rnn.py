@@ -63,7 +63,7 @@ from typing import Optional, Tuple
 import torch
 
 from avsr_tpu_torch import kernels
-from avsr_tpu_torch.utils.numerics import dot_f32, rounded
+from avsr_tpu_torch.utils.numerics import check_policy, dot_f32, rounded
 from avsr_tpu_torch.utils.params import Params, glorot_uniform, orthogonal
 
 LN_EPS = 1e-5  # the reference's LayerNorm epsilon (``_gate_layer_norm``, the cell LN)
@@ -275,9 +275,10 @@ def _dwh(h_res, dxw):
     return torch.einsum("tgbh,tgbk->ghk", h_res.float(), dxw.float())
 
 
-def _check_policy(cdt):
-    if cdt != torch.bfloat16:
-        raise ValueError(f"the LSTM scan kernels run the bf16 policy only, got {cdt}")
+def _lstm_family(xw, rd) -> str:
+    """The LSTM scan's kernel family for ``numerics.check_policy``: "K1",
+    "K1 rd" (under a recurrent-dropout mask) or "K2" (one direction)."""
+    return "K2" if xw.shape[1] == 1 else ("K1 rd" if rd is not None else "K1")
 
 
 def _rd_arg(rd):
@@ -288,15 +289,16 @@ def scan_core_fwd(wh, b, xw, mask, h0, c0, cdt, save, rd=None):
     """K1 forward wrapper: the CUDA kernel for GPU tensors, the plain
     version on the CPU; same contract as ``bilstm_scan_core_fwd_impl``.
 
-    The kernel implements the main path's bf16 policy only; any other
-    compute dtype on a GPU raises rather than falling back.
+    The kernels run the bf16 policy, and K1 without a mask the fp32 one too
+    (its fp32 instance, operands and residuals in ``cdt``); any other
+    family or dtype on a GPU raises rather than falling back.
     """
     if xw.device.type == "cpu":
         return bilstm_scan_core_fwd_impl(wh, b, xw, mask, h0, c0, cdt, save, rd)
-    _check_policy(cdt)
+    check_policy(cdt, _lstm_family(xw, rd))
     ys, hT, cT, h_res, c_res = kernels.lstm_scan_fwd(
-        wh.to(torch.bfloat16).contiguous(), b.float().contiguous(),
-        xw.to(torch.bfloat16).contiguous(), mask.float().contiguous(),
+        wh.to(cdt).contiguous(), b.float().contiguous(),
+        xw.to(cdt).contiguous(), mask.float().contiguous(),
         h0.float().contiguous(), c0.float().contiguous(), save=save, rd=_rd_arg(rd),
     )
     return (ys, hT, cT), ((h_res, c_res) if save else None)
@@ -307,11 +309,11 @@ def scan_core_bwd(wh, b, xw, mask, h_res, c_res, dys, dhT, dcT, cdt, rd=None):
     version on the CPU; same contract as ``bilstm_scan_core_bwd_plain``."""
     if xw.device.type == "cpu":
         return bilstm_scan_core_bwd_plain(wh, b, xw, mask, h_res, c_res, dys, dhT, dcT, cdt, rd)
-    _check_policy(cdt)
+    check_policy(cdt, _lstm_family(xw, rd))
     dxw, db, dh0, dc0 = kernels.lstm_scan_bwd(
-        wh.to(torch.bfloat16).contiguous(), b.float().contiguous(),
-        xw.to(torch.bfloat16).contiguous(), mask.float().contiguous(),
-        h_res.contiguous(), c_res.contiguous(), dys.to(torch.bfloat16).contiguous(),
+        wh.to(cdt).contiguous(), b.float().contiguous(),
+        xw.to(cdt).contiguous(), mask.float().contiguous(),
+        h_res.contiguous(), c_res.contiguous(), dys.to(cdt).contiguous(),
         dhT.float().contiguous(), dcT.float().contiguous(), rd=_rd_arg(rd),
     )
     return _dwh(h_res, dxw).to(wh.dtype), db.to(b.dtype), dxw.to(xw.dtype), dh0, dc0
@@ -442,7 +444,7 @@ def gru_core_fwd(wh, b, xw, mask, h0, cdt, save):
     ``gru_scan_core_fwd_plain``."""
     if xw.device.type == "cpu":
         return gru_scan_core_fwd_plain(wh, b, xw, mask, h0, cdt, save)
-    _check_policy(cdt)
+    check_policy(cdt, "K12")
     ys, hT, h_res = kernels.gru_scan_fwd(
         wh.to(torch.bfloat16).contiguous(), b.float().contiguous(),
         xw.to(torch.bfloat16).contiguous(), mask.float().contiguous(),
@@ -455,7 +457,7 @@ def gru_core_bwd(wh, b, xw, mask, h_res, dys, dhT, cdt):
     version on the CPU; same contract as ``gru_scan_core_bwd_plain``."""
     if xw.device.type == "cpu":
         return gru_scan_core_bwd_plain(wh, b, xw, mask, h_res, dys, dhT, cdt)
-    _check_policy(cdt)
+    check_policy(cdt, "K12")
     dxw, db, dh0, dhw = kernels.gru_scan_bwd(
         wh.to(torch.bfloat16).contiguous(), b.float().contiguous(),
         xw.to(torch.bfloat16).contiguous(), mask.float().contiguous(), h_res.contiguous(),
@@ -620,7 +622,7 @@ def ln_core_fwd(wh, b, lng, lncg, lncb, xw, mask, h0, c0, cdt, save, rd=None):
     if xw.device.type == "cpu":
         return ln_lstm_scan_core_fwd_plain(wh, b, lng, lncg, lncb, xw, mask, h0, c0, cdt, save,
                                            rd)
-    _check_policy(cdt)
+    check_policy(cdt, "K13")
     ys, hT, cT, h_res, c_res, z = kernels.ln_lstm_scan_fwd(
         *_ln_params(wh, b, lng, lncg, lncb), xw.to(torch.bfloat16).contiguous(),
         mask.float().contiguous(), h0.float().contiguous(), c0.float().contiguous(),
@@ -634,7 +636,7 @@ def ln_core_bwd(wh, b, lng, lncg, lncb, mask, h_res, c_res, z, dys, dhT, dcT, cd
     if z.device.type == "cpu":
         return ln_lstm_scan_core_bwd_plain(wh, b, lng, lncg, lncb, mask, h_res, c_res, z, dys,
                                            dhT, dcT, cdt, rd)
-    _check_policy(cdt)
+    check_policy(cdt, "K13")
     dxw, db, dlng, dlncg, dlncb, dh0, dc0 = kernels.ln_lstm_scan_bwd(
         *_ln_params(wh, b, lng, lncg, lncb), mask.float().contiguous(), c_res.contiguous(),
         z.contiguous(), dys.to(torch.bfloat16).contiguous(), dhT.float().contiguous(),

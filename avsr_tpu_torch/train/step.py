@@ -33,6 +33,7 @@ from avsr_tpu_torch.models import seq2seq
 from avsr_tpu_torch.models.seq2seq import Batch
 from avsr_tpu_torch.train.optim import Optimizer, build_optimizer, global_norm
 from avsr_tpu_torch.utils import rng
+from avsr_tpu_torch.utils.numerics import compute_dtype_of, full_precision
 from avsr_tpu_torch.utils.params import Params, tree_leaves, tree_map
 
 
@@ -82,9 +83,10 @@ def loss_and_grads(params: Params, batch: Batch, *, cfg: ExperimentConfig,
     ``params`` (``tree_leaves`` order); a leaf the loss does not reach
     gets None.  ``sampling_p`` as ``seq2seq.forward`` takes it."""
     leaves = param_leaves(params)
-    loss, metrics = seq2seq.loss_fn(params, cfg, batch, train=True, generator=generator,
-                                    noise_bank=noise_bank, sampling_p=sampling_p)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with full_precision(compute_dtype_of(cfg)):  # the backward's products too
+        loss, metrics = seq2seq.loss_fn(params, cfg, batch, train=True, generator=generator,
+                                        noise_bank=noise_bank, sampling_p=sampling_p)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     return {k: v.detach() for k, v in metrics.items()}, list(grads)
 
 

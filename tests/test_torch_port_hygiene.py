@@ -272,10 +272,11 @@ OPTIONS = {"layer_norm": {"audio_encoder.layer_norm": True,
 
 
 @pytest.mark.parametrize("option", sorted(OPTIONS))
-def test_no_option_raises_but_fp32_on_the_card_and_remat(option):
-    """Each option the port used to refuse now initialises, trains a step,
-    and decodes on the CPU; what still raises is ``train.remat`` and the
-    fp32 policy on the card's kernels."""
+def test_every_option_trains_with_remat_and_only_k1_of_its_scans_takes_fp32(option):
+    """Each option the port used to refuse now initialises, trains a step
+    (and one more with ``train.remat``), and decodes on the CPU; on the
+    card the fp32 policy is accepted by K1's kernels and still refused by
+    K12's and K13's, whose fp32 instances are still to be ported."""
     cfg = tiny_cfg(tconfigs).override(OPTIONS[option])
     V = tunits.builtin_unit_dict(cfg.data.unit).vocab_size
     from avsr_tpu_torch.train import step as tstep
@@ -286,14 +287,18 @@ def test_no_option_raises_but_fp32_on_the_card_and_remat(option):
     state, metrics = tstep.train_step(state, batch, cfg=cfg, optimizer=opt,
                                       generator=torch.Generator().manual_seed(1))
     assert np.isfinite(float(metrics["loss"]))
+    state, metrics = tstep.train_step(state, batch, cfg=cfg.override({"train.remat": True}),
+                                      optimizer=opt, generator=torch.Generator().manual_seed(2))
+    assert np.isfinite(float(metrics["loss"])) and state.step == 2
     with torch.no_grad():
         enc = seq2seq.encode(state.params, cfg, batch)
     assert all(torch.isfinite(m.values).all() for m in enc.memories)
-    with pytest.raises(ValueError, match="remat"):
-        seq2seq.encode(state.params, cfg.override({"train.remat": True}), batch, train=True,
-                       generator=torch.Generator())
-    with pytest.raises(ValueError, match="bf16 policy only"):
-        rnn._check_policy(torch.float32)
+    from avsr_tpu_torch.utils.numerics import check_policy
+
+    check_policy(torch.float32, "K1")
+    for family in ("K12", "K13"):
+        with pytest.raises(ValueError, match=f"{family}: the fp32 instance"):
+            check_policy(torch.float32, family)
 
 
 def test_ln_leaves_take_the_callers_device():
