@@ -40,6 +40,23 @@
 // reference's jax.checkpoint keeps, the backward's residuals (~103 MB at
 // T = 197, B = 128; the cluster route writes the same).  The backward is
 // described further down, above its kernels.
+//
+// The fp32 policy (train.compute_dtype = "float32"; avsr_av_align_scan_f32,
+// counted as av_align_scan_f32): the per-step route's instance on fp32 Wh,
+// ctx_proj, wq, v and values, every bf16 rounding point above the identity
+// and the products fp32 FMAs on fp32 operands (the reference's same lines
+// with every cast to the compute dtype the identity; tanhf, never
+// tanh_fast).  Every fp32 shape takes it (kernels.av_align_family routes by
+// dtype: the cluster forward keeps bf16 [Wh ; ctx_proj] resident for the
+// tensor cores).  A block's fp32 slices of [Wh ; ctx_proj] are 196 KB at
+// align's H = 256, Dc = 512, and with its fp32 h and ctx rows would pass
+// the 227 KB a block may use, so the fp32 gate launch stages them in chunks
+// of RCH_E<float> = 128 input rows (32 KB, with the rows' 8 KB), summing
+// the same terms in the same order.  What bounds a step on an H100: the
+// 128 blocks' 25 MB of weight slices from L2 (B = 128) and the chunks'
+// barriers, the read's dependent reductions, and two launches' latency;
+// its arithmetic, 2 x 128 x 768 x 1024 FLOP (0.2 GFLOP, 3 us at 67 TFLOP/s
+// fp32), is the least of it.
 
 #include "av_align_fwd.cuh"
 #include "bahdanau_core.cuh"
@@ -68,6 +85,14 @@ __device__ __forceinline__ void stage_copy(uint4* dst, const uint4* src, int n, 
       if (ci < n) dst[ci] = v[j];
     }
   }
+}
+
+// Input rows of [Wh ; ctx_proj] a chunk of the chunked gate product stages:
+// 32 KB of a block's weight slices in either element type.
+constexpr int RCH = 256;
+template <typename E>
+__host__ __device__ constexpr int rch() {
+  return RCH * 2 / (int)sizeof(E);
 }
 
 // Rows row0 .. row0 + BT of an fp32 [B, K] matrix, rounded to bf16, into
@@ -119,6 +144,94 @@ __device__ __forceinline__ void gate_product(const __nv_bfloat16* x_s, const __n
     a[2] = fmaf(x1, bahdanau::bf_lo(w1.y), a[2]);
     a[3] = fmaf(x1, bahdanau::bf_hi(w1.y), a[3]);
   }
+}
+
+// fp32 a[q] += sum_k x[k] * W[k, q*H + unit] (the fp32 policy's instance):
+// the same terms in the same order.
+__device__ __forceinline__ void gate_product(const float* x_s, const float* w_s, int u, int K,
+                                             float (&a)[4]) {
+  const float4* wu = reinterpret_cast<const float4*>(w_s) + u;  // 4 gates / k
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    const float x = x_s[k];
+    const float4 w = wu[k * UT];
+    a[0] = fmaf(x, w.x, a[0]);
+    a[1] = fmaf(x, w.y, a[1]);
+    a[2] = fmaf(x, w.z, a[2]);
+    a[3] = fmaf(x, w.w, a[3]);
+  }
+}
+
+// Columns [k0, k0 + kn) of rows row0 .. row0 + BT of an fp32 [B, K] matrix,
+// rounded to bf16 (or copied, for an fp32 dst), into dst [BT][kn]; rows
+// past B are zero (kn, k0 multiples of 4).
+__device__ __forceinline__ void stage_cols(__nv_bfloat16* dst, const float* src, int row0, int B,
+                                           int K, int k0, int kn, int tid) {
+  const int per_row = kn / 4;
+  __nv_bfloat162* d2 = reinterpret_cast<__nv_bfloat162*>(dst);
+  for (int ci = tid; ci < BT * per_row; ci += GTHREADS) {
+    const int rr = ci / per_row;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + rr < B)
+      v = reinterpret_cast<const float4*>(src + (size_t)(row0 + rr) * K + k0)[ci - rr * per_row];
+    d2[2 * ci] = __floats2bfloat162_rn(v.x, v.y);
+    d2[2 * ci + 1] = __floats2bfloat162_rn(v.z, v.w);
+  }
+}
+__device__ __forceinline__ void stage_cols(float* dst, const float* src, int row0, int B, int K,
+                                           int k0, int kn, int tid) {
+  const int per_row = kn / 4;
+  float4* d4 = reinterpret_cast<float4*>(dst);
+  for (int ci = tid; ci < BT * per_row; ci += GTHREADS) {
+    const int rr = ci / per_row;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + rr < B)
+      v = reinterpret_cast<const float4*>(src + (size_t)(row0 + rr) * K + k0)[ci - rr * per_row];
+    d4[ci] = v;
+  }
+}
+
+// a[q] += sum_k x[k] W[k, q H + unit] over the K rows of one input (the
+// carried context against ctx_proj, or h against Wh), rch<E>() rows at a
+// time: the same terms in the same order as gate_product over all K at
+// once.  Every thread of the block takes part (barriers inside).
+template <typename E>
+__device__ __forceinline__ void gate_product_chunked(const E* __restrict__ w_tiled,
+                                                     const float* __restrict__ x, int row0,
+                                                     int B, int K, int r, int u, int tid,
+                                                     E* w_s, E* x_s, float (&a)[4]) {
+  for (int k0 = 0; k0 < K; k0 += rch<E>()) {
+    const int kn = min(rch<E>(), K - k0);
+    __syncthreads();  // the previous chunk is consumed
+    stage_copy(reinterpret_cast<uint4*>(w_s),
+               reinterpret_cast<const uint4*>(w_tiled + (size_t)k0 * UT * 4),
+               kn * UT * 4 * (int)sizeof(E) / 16, tid);
+    stage_cols(x_s, x, row0, B, K, k0, kn, tid);
+    __syncthreads();
+    gate_product(x_s + (size_t)r * kn, w_s, u, kn, a);
+  }
+}
+
+// The cell update from the four gates' sums, the mask and the step's
+// outputs of one (row, unit): both gate launches' epilogue.
+__device__ __forceinline__ void gate_cell(const float (&xg)[4], const float (&ac)[4],
+                                          const float (&ah)[4], const float (&bq)[4],
+                                          float c_prev, float h_prev, float m, size_t s,
+                                          float* __restrict__ h_out, float* __restrict__ c,
+                                          float* __restrict__ hnew, float* __restrict__ hs_t) {
+  float gt[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) gt[q] = ((xg[q] + ac[q]) + ah[q]) + bq[q];
+  const float i = sigmoidf_(gt[0]);
+  const float f = sigmoidf_(gt[1]);
+  const float g = tanhf(gt[2]);
+  const float o = sigmoidf_(gt[3]);
+  const float c_new = f * c_prev + i * g;
+  const float h_new = o * tanhf(c_new);
+  h_out[s] = m * h_new + (1.0f - m) * h_prev;
+  c[s] = m * c_new + (1.0f - m) * c_prev;
+  hnew[s] = h_new;
+  hs_t[s] = h_new * m;
 }
 
 __global__ void __launch_bounds__(GTHREADS)
@@ -186,20 +299,65 @@ align_gate_kernel(const __nv_bfloat16* __restrict__ wh_tiled,  // [H/UT, H, UT, 
   if (Dc > 0) gate_product(x_s + (size_t)r * Dc, cp_s, u, Dc, ac);
   gate_product(h_s + (size_t)r * H, wh_s, u, H, ah);
   if (!live) return;
+  gate_cell(xg, ac, ah, bq, c_prev, h_prev, m, s, h_out, c, hnew, hs_t);
+}
 
-  float gt[4];
+// The fp32 policy's gate launch: align_gate_kernel's arithmetic on fp32
+// operands (no rounding point), the weight slices and the h / ctx rows
+// staged rch<float>() input rows at a time.
+__global__ void __launch_bounds__(GTHREADS)
+align_gate_f32_kernel(const float* __restrict__ wh_tiled,  // [H/UT, H, UT, 4]
+                      const float* __restrict__ cp_tiled,  // [H/UT, Dc, UT, 4] or null
+                      const float* __restrict__ bias,      // [4H]
+                      const float* __restrict__ xw_t,      // [B, 4H]
+                      const float* __restrict__ mask_t,    // [B]
+                      const float* __restrict__ h_in,      // [B, H]
+                      float* __restrict__ h_out,           // [B, H]
+                      float* __restrict__ c,               // [B, H] in place
+                      const float* __restrict__ ctx_in,    // [B, Dc]
+                      float* __restrict__ hnew,            // [B, H] h' (the read's query)
+                      float* __restrict__ hs_t,            // [B, H]
+                      float* __restrict__ h_res_t,         // [B, H] or null (save)
+                      float* __restrict__ c_res_t,         // [B, H] or null (save)
+                      int B, int H, int Dc) {
+  __shared__ __align__(16) float w_s[rch<float>() * UT * 4];
+  __shared__ __align__(16) float x_s[BT * rch<float>()];
+
+  const int tile = blockIdx.x;
+  const int row0 = blockIdx.y * BT;
+  const int tid = threadIdx.x;
+  const int r = tid / UT;
+  const int u = tid - r * UT;
+  const int row = row0 + r;
+  const int unit = tile * UT + u;
+  const bool live = row < B;
+
+  const size_t s = (size_t)(live ? row : 0) * H + unit;
+  float xg[4] = {0.f, 0.f, 0.f, 0.f}, c_prev = 0.f, h_prev = 0.f, m = 0.f;
+  if (live) {
+    const float* x = xw_t + (size_t)row * 4 * H;
 #pragma unroll
-  for (int q = 0; q < 4; ++q) gt[q] = ((xg[q] + ac[q]) + ah[q]) + bq[q];
-  const float i = sigmoidf_(gt[0]);
-  const float f = sigmoidf_(gt[1]);
-  const float g = tanhf(gt[2]);
-  const float o = sigmoidf_(gt[3]);
-  const float c_new = f * c_prev + i * g;
-  const float h_new = o * tanhf(c_new);
-  h_out[s] = m * h_new + (1.0f - m) * h_prev;
-  c[s] = m * c_new + (1.0f - m) * c_prev;
-  hnew[s] = h_new;
-  hs_t[s] = h_new * m;
+    for (int q = 0; q < 4; ++q) xg[q] = x[q * H + unit];
+    c_prev = c[s];
+    h_prev = h_in[s];
+    m = mask_t[row];
+    if (h_res_t != nullptr) {  // the carries entering step t
+      h_res_t[s] = h_prev;
+      c_res_t[s] = c_prev;
+    }
+  }
+  float bq[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) bq[q] = bias[q * H + unit];
+
+  float ac[4] = {0.f, 0.f, 0.f, 0.f}, ah[4] = {0.f, 0.f, 0.f, 0.f};
+  if (Dc > 0)
+    gate_product_chunked(cp_tiled + (size_t)tile * Dc * UT * 4, ctx_in, row0, B, Dc, r, u, tid,
+                         w_s, x_s, ac);
+  gate_product_chunked(wh_tiled + (size_t)tile * H * UT * 4, h_in, row0, B, H, r, u, tid, w_s,
+                       x_s, ah);
+  if (!live) return;
+  gate_cell(xg, ac, ah, bq, c_prev, h_prev, m, s, h_out, c, hnew, hs_t);
 }
 
 using align_fwd::AlignWeights;
@@ -216,14 +374,14 @@ struct AlignContext {
   }
 };
 
-template <bool DOT>
+template <bool DOT, typename E>
 __global__ void __launch_bounds__(bahdanau::THREADS)
 align_read_kernel_t(const float* __restrict__ hnew,            // [B, H]
                     const float* __restrict__ mask_t,          // [B]
-                    const __nv_bfloat16* __restrict__ wq,      // [H, A]
-                    const __nv_bfloat16* __restrict__ vatt,    // [A] or null (dot)
+                    const E* __restrict__ wq,                  // [H, A]
+                    const E* __restrict__ vatt,                // [A] or null (dot)
                     const void* __restrict__ keys_in,          // [B, S, A] Key<DOT>
-                    const __nv_bfloat16* __restrict__ values,  // [B, S, Dv]
+                    const E* __restrict__ values,              // [B, S, Dv]
                     const float* __restrict__ mbias,           // [B, S]
                     const float* __restrict__ mmask,           // [B, S]
                     const float* __restrict__ ctx_in,          // [B, Dv]
@@ -256,6 +414,81 @@ align_read_kernel_t(const float* __restrict__ hnew,            // [B, H]
 size_t gate_smem_bytes(int H, int Dc) {
   return ((size_t)H * UT * 4 + (size_t)Dc * UT * 4 + (size_t)BT * H + (size_t)BT * Dc) *
          sizeof(__nv_bfloat16);
+}
+
+// the fp32 gate launch's (static) shared memory: a chunk's slices and rows
+constexpr size_t GATE_F32_SMEM = ((size_t)rch<float>() * UT * 4 + BT * rch<float>()) *
+                                 sizeof(float);
+
+// The per-step forward's host loop over the T steps, two launches a step
+// (gate, read) on E operands (bf16: the whole slices staged, dynamic
+// shared memory; fp32: the chunked gate launch).  Operands as
+// avsr_av_align_scan's.
+template <bool DOT, typename E>
+int step_scan(const void* wh_tiled, const void* cp_tiled, const void* bias, const void* xw,
+              const void* mask, const void* wq, const void* vatt, const void* keys,
+              const void* values, const void* mbias, const void* mmask, void* hbuf, void* c,
+              void* ctxbuf, void* hnew, void* hs, void* ctxs, void* aligns, void* h_res,
+              void* c_res, void* ctx_res, int T, int B, int H, int Dc, int A, int S, int Dv,
+              cudaStream_t st) {
+  constexpr bool F32 = sizeof(E) == 4;
+  const size_t smem_g = F32 ? 0 : gate_smem_bytes(H, Dc);
+  const size_t smem_r = bahdanau::read_smem_bytes(H, A, S);
+  auto* const align_read_kernel = &align_read_kernel_t<DOT, E>;
+  cudaError_t e;
+  if (smem_g > 48 * 1024) {
+    e = cudaFuncSetAttribute(align_gate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_g);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (smem_r > 48 * 1024) {
+    e = cudaFuncSetAttribute(align_read_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_r);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 ggrid(H / UT, (B + BT - 1) / BT);
+  const size_t bh = (size_t)B * H, bd = (size_t)B * Dv;
+  const float* xw_p = static_cast<const float*>(xw);
+  const float* mask_p = static_cast<const float*>(mask);
+  float* h_p = static_cast<float*>(hbuf);
+  float* ctx_p = static_cast<float*>(ctxbuf);
+  float* hs_p = static_cast<float*>(hs);
+  float* ctxs_p = static_cast<float*>(ctxs);
+  float* al_p = static_cast<float*>(aligns);
+  const bool save = h_res != nullptr && c_res != nullptr && ctx_res != nullptr;
+  float* hr_p = static_cast<float*>(h_res);
+  float* cr_p = static_cast<float*>(c_res);
+  float* xr_p = static_cast<float*>(ctx_res);
+  for (int t = 0; t < T; ++t) {
+    const size_t cur = (size_t)(t & 1), nxt = (size_t)((t + 1) & 1);
+    const float* b_p = static_cast<const float*>(bias);
+    float* hr_t = save ? hr_p + (size_t)t * bh : nullptr;
+    float* cr_t = save ? cr_p + (size_t)t * bh : nullptr;
+    if constexpr (F32)
+      align_gate_f32_kernel<<<ggrid, GTHREADS, 0, st>>>(
+          static_cast<const float*>(wh_tiled), static_cast<const float*>(cp_tiled), b_p,
+          xw_p + (size_t)t * B * 4 * H, mask_p + (size_t)t * B, h_p + cur * bh, h_p + nxt * bh,
+          static_cast<float*>(c), ctx_p + cur * bd, static_cast<float*>(hnew),
+          hs_p + (size_t)t * bh, hr_t, cr_t, B, H, Dc);
+    else
+      align_gate_kernel<<<ggrid, GTHREADS, smem_g, st>>>(
+          static_cast<const __nv_bfloat16*>(wh_tiled),
+          static_cast<const __nv_bfloat16*>(cp_tiled), b_p, xw_p + (size_t)t * B * 4 * H,
+          mask_p + (size_t)t * B, h_p + cur * bh, h_p + nxt * bh, static_cast<float*>(c),
+          ctx_p + cur * bd, static_cast<float*>(hnew), hs_p + (size_t)t * bh, hr_t, cr_t, B, H,
+          Dc);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    align_read_kernel<<<B, bahdanau::THREADS, smem_r, st>>>(
+        static_cast<const float*>(hnew), mask_p + (size_t)t * B, static_cast<const E*>(wq),
+        static_cast<const E*>(vatt), keys, static_cast<const E*>(values),
+        static_cast<const float*>(mbias), static_cast<const float*>(mmask), ctx_p + cur * bd,
+        ctx_p + nxt * bd, ctxs_p + (size_t)t * bd, al_p + (size_t)t * B * S,
+        save ? xr_p + (size_t)t * bd : nullptr, H, A, S, Dv);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -323,55 +556,39 @@ extern "C" int avsr_av_align_scan(const void* wh_tiled, const void* cp_tiled, co
   if (B < 1 || S < 1 || H % UT || H % 4 || Dc % 4 || (Dc > 0 && cp_tiled == nullptr) ||
       A % 8 || A > 512 || Dv % 8 || Dv > 2048 || (!dot && vatt == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t smem_g = gate_smem_bytes(H, Dc);
-  const size_t smem_r = bahdanau::read_smem_bytes(H, A, S);
-  auto* const align_read_kernel = dot ? &align_read_kernel_t<true> : &align_read_kernel_t<false>;
-  cudaError_t e;
-  if (smem_g > 48 * 1024) {
-    e = cudaFuncSetAttribute(align_gate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_g);
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (smem_r > 48 * 1024) {
-    e = cudaFuncSetAttribute(align_read_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_r);
-    if (e != cudaSuccess) return (int)e;
-  }
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const dim3 ggrid(H / UT, (B + BT - 1) / BT);
-  const size_t bh = (size_t)B * H, bd = (size_t)B * Dv;
-  const float* xw_p = static_cast<const float*>(xw);
-  const float* mask_p = static_cast<const float*>(mask);
-  float* h_p = static_cast<float*>(hbuf);
-  float* ctx_p = static_cast<float*>(ctxbuf);
-  float* hs_p = static_cast<float*>(hs);
-  float* ctxs_p = static_cast<float*>(ctxs);
-  float* al_p = static_cast<float*>(aligns);
-  const bool save = h_res != nullptr && c_res != nullptr && ctx_res != nullptr;
-  float* hr_p = static_cast<float*>(h_res);
-  float* cr_p = static_cast<float*>(c_res);
-  float* xr_p = static_cast<float*>(ctx_res);
-  for (int t = 0; t < T; ++t) {
-    const size_t cur = (size_t)(t & 1), nxt = (size_t)((t + 1) & 1);
-    align_gate_kernel<<<ggrid, GTHREADS, smem_g, st>>>(
-        static_cast<const __nv_bfloat16*>(wh_tiled), static_cast<const __nv_bfloat16*>(cp_tiled),
-        static_cast<const float*>(bias), xw_p + (size_t)t * B * 4 * H, mask_p + (size_t)t * B,
-        h_p + cur * bh, h_p + nxt * bh, static_cast<float*>(c), ctx_p + cur * bd,
-        static_cast<float*>(hnew), hs_p + (size_t)t * bh, save ? hr_p + (size_t)t * bh : nullptr,
-        save ? cr_p + (size_t)t * bh : nullptr, B, H, Dc);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    align_read_kernel<<<B, bahdanau::THREADS, smem_r, st>>>(
-        static_cast<const float*>(hnew), mask_p + (size_t)t * B,
-        static_cast<const __nv_bfloat16*>(wq), static_cast<const __nv_bfloat16*>(vatt), keys,
-        static_cast<const __nv_bfloat16*>(values),
-        static_cast<const float*>(mbias), static_cast<const float*>(mmask), ctx_p + cur * bd,
-        ctx_p + nxt * bd, ctxs_p + (size_t)t * bd, al_p + (size_t)t * B * S,
-        save ? xr_p + (size_t)t * bd : nullptr, H, A, S, Dv);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaGetLastError();
+  using bf = __nv_bfloat16;
+  auto* const scan = dot ? &step_scan<true, bf> : &step_scan<false, bf>;
+  return scan(wh_tiled, cp_tiled, bias, xw, mask, wq, vatt, keys, values, mbias, mmask, hbuf, c,
+              ctxbuf, hnew, hs, ctxs, aligns, h_res, c_res, ctx_res, T, B, H, Dc, A, S, Dv,
+              reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The fp32 policy's per-step forward (the Bahdanau read): wh_tiled,
+// cp_tiled, wq, vatt and values fp32, the rest as avsr_av_align_scan's.
+extern "C" int avsr_av_align_scan_f32(const void* wh_tiled, const void* cp_tiled,
+                                      const void* bias, const void* xw, const void* mask,
+                                      const void* wq, const void* vatt, const void* keys,
+                                      const void* values, const void* mbias, const void* mmask,
+                                      void* hbuf, void* c, void* ctxbuf, void* hnew, void* hs,
+                                      void* ctxs, void* aligns, void* h_res, void* c_res,
+                                      void* ctx_res, int T, int B, int H, int Dc, int A, int S,
+                                      int Dv, void* stream) {
+  if (B < 1 || S < 1 || H % UT || Dc % UT || (Dc > 0 && cp_tiled == nullptr) || A % 8 ||
+      A > 512 || Dv % 8 || Dv > 2048 || vatt == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return step_scan<false, float>(wh_tiled, cp_tiled, bias, xw, mask, wq, vatt, keys, values,
+                                 mbias, mmask, hbuf, c, ctxbuf, hnew, hs, ctxs, aligns, h_res,
+                                 c_res, ctx_res, T, B, H, Dc, A, S, Dv,
+                                 reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The fp32 per-step forward's shared memory per block of its largest
+// launch, in bytes: the chunked gate launch's or the read's.
+extern "C" long long avsr_av_align_f32_smem(int H, int Dc, int A, int S, int Dv) {
+  (void)Dc;
+  (void)Dv;
+  const size_t r = bahdanau::read_smem_bytes(H, A, S);
+  return (long long)(GATE_F32_SMEM > r ? GATE_F32_SMEM : r);
 }
 
 // The cluster route of the forward (av_align_fwd.cuh).  Shapes it takes: H
@@ -614,6 +831,77 @@ extern "C" int avsr_av_align_bwd_sums(const void* keys, const void* vatt, const 
 
 // The per-step backward (av_align_step_bwd.cuh): every shape the forward's
 // per-step kernels take.  Two entry points, called in order by the wrapper.
+namespace {
+
+template <typename E>
+int step_bwd_prep(const void* wh_tiled, const void* cp_tiled, const void* bias, const void* xw,
+                  const void* h_res, const void* c_res, const void* ctx_res, void* act,
+                  void* hnew, int T, int B, int H, int Dc, void* stream) {
+  if (T < 1 || B < 1 || H % UT || Dc % UT || (Dc > 0 && cp_tiled == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int t_per_block = 8;  // enough blocks to fill the card
+  align_regate_kernel<E><<<dim3(H / UT, (B + BT - 1) / BT, (T + t_per_block - 1) / t_per_block),
+                           GTHREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const E*>(wh_tiled), static_cast<const E*>(cp_tiled),
+      static_cast<const float*>(bias), static_cast<const float*>(xw),
+      static_cast<const float*>(h_res), static_cast<const float*>(c_res),
+      static_cast<const float*>(ctx_res), static_cast<float*>(act), static_cast<float*>(hnew), T,
+      B, H, Dc, t_per_block);
+  return (int)cudaGetLastError();
+}
+
+template <bool DOT, typename E>
+int step_bwd_scan(const void* w_all_t, const void* mask, const void* wq, const void* vatt,
+                  const void* keys, const void* values, const void* aligns, const void* hnew,
+                  const void* act, const void* c_res, const void* dhs, const void* dctxs,
+                  void* dh, void* dc, void* dctx, void* dxw, void* dq, void* dv_acc,
+                  void* db_acc, void* dkeys, void* dvalues, int T, int B, int H, int Dc, int A,
+                  int S, int Dv, void* stream) {
+  if (T < 1 || B < 1 || S < 1 || H % UT || Dc % UT || Dv % UT || (Dc > 0 && Dc != Dv) ||
+      A % 8 || A > 512 || Dv > 2048 || (!DOT && (vatt == nullptr || dv_acc == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem_r = step_row_smem_bytes(H, A, S, Dv);
+  auto* const align_bwd_row_kernel = &align_bwd_row_kernel_t<DOT, E>;
+  cudaError_t e;
+  if (smem_r > 48 * 1024) {
+    e = cudaFuncSetAttribute(align_bwd_row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_r);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const dim3 pgrid((H + Dv) / UT, (B + BT - 1) / BT);
+  const size_t bh = (size_t)B * H, b4h = 4 * bh, bd = (size_t)B * Dv, bs = (size_t)B * S;
+  const size_t ba = (size_t)B * A;
+  const float* mask_p = static_cast<const float*>(mask);
+  float* dxw_p = static_cast<float*>(dxw);
+  for (int t = T - 1; t >= 0; --t) {
+    if (t + 1 < T) {
+      align_bwd_product_kernel<E><<<pgrid, GTHREADS, 0, st>>>(
+          static_cast<const E*>(w_all_t), dxw_p + (size_t)(t + 1) * b4h,
+          mask_p + (size_t)(t + 1) * B, static_cast<float*>(dh), static_cast<float*>(dctx), B, H,
+          Dc, Dv);
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return (int)e;
+    }
+    align_bwd_row_kernel<<<B, bahdanau::THREADS, smem_r, st>>>(
+        static_cast<const E*>(wq), static_cast<const E*>(vatt), keys,
+        static_cast<const E*>(values), static_cast<const float*>(aligns) + (size_t)t * bs,
+        static_cast<const float*>(hnew) + (size_t)t * bh, mask_p + (size_t)t * B,
+        static_cast<const float*>(act) + (size_t)t * b4h,
+        static_cast<const float*>(c_res) + (size_t)t * bh,
+        static_cast<const float*>(dhs) + (size_t)t * bh,
+        static_cast<const float*>(dctxs) + (size_t)t * bd, static_cast<const float*>(dh),
+        static_cast<const float*>(dctx), static_cast<float*>(dc), dxw_p + (size_t)t * b4h,
+        static_cast<float*>(dq) + (size_t)t * ba, static_cast<float*>(dv_acc),
+        static_cast<float*>(db_acc), static_cast<float*>(dkeys), static_cast<float*>(dvalues), H,
+        A, S, Dv);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 // The regate.  wh_tiled [H/UT, H, UT, 4], cp_tiled [H/UT, Dc, UT, 4] bf16
 // (null when Dc = 0); bias [4H]; xw [T, B, 4H]; the saved carries h_res /
@@ -624,17 +912,18 @@ extern "C" int avsr_av_align_step_bwd_prep(const void* wh_tiled, const void* cp_
                                            const void* c_res, const void* ctx_res, void* act,
                                            void* hnew, int T, int B, int H, int Dc,
                                            void* stream) {
-  if (T < 1 || B < 1 || H % UT || Dc % UT || (Dc > 0 && cp_tiled == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const int t_per_block = 8;  // enough blocks to fill the card
-  align_regate_kernel<<<dim3(H / UT, (B + BT - 1) / BT, (T + t_per_block - 1) / t_per_block),
-                        GTHREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(wh_tiled), static_cast<const __nv_bfloat16*>(cp_tiled),
-      static_cast<const float*>(bias), static_cast<const float*>(xw),
-      static_cast<const float*>(h_res), static_cast<const float*>(c_res),
-      static_cast<const float*>(ctx_res), static_cast<float*>(act), static_cast<float*>(hnew), T,
-      B, H, Dc, t_per_block);
-  return (int)cudaGetLastError();
+  return step_bwd_prep<__nv_bfloat16>(wh_tiled, cp_tiled, bias, xw, h_res, c_res, ctx_res, act,
+                                      hnew, T, B, H, Dc, stream);
+}
+
+// The fp32 policy's regate: wh_tiled and cp_tiled fp32, the rest as above.
+extern "C" int avsr_av_align_step_bwd_prep_f32(const void* wh_tiled, const void* cp_tiled,
+                                               const void* bias, const void* xw,
+                                               const void* h_res, const void* c_res,
+                                               const void* ctx_res, void* act, void* hnew, int T,
+                                               int B, int H, int Dc, void* stream) {
+  return step_bwd_prep<float>(wh_tiled, cp_tiled, bias, xw, h_res, c_res, ctx_res, act, hnew, T,
+                              B, H, Dc, stream);
 }
 
 // The reverse scan, two launches a step.  w_all_t [(H+Dc)/UT, H, UT, 4]
@@ -652,48 +941,21 @@ extern "C" int avsr_av_align_step_bwd_scan(
     const void* dhs, const void* dctxs, void* dh, void* dc, void* dctx, void* dxw, void* dq,
     void* dv_acc, void* db_acc, void* dkeys, void* dvalues, int T, int B, int H, int Dc, int A,
     int S, int Dv, int dot, void* stream) {
-  if (T < 1 || B < 1 || S < 1 || H % UT || Dc % UT || Dv % UT || (Dc > 0 && Dc != Dv) ||
-      A % 8 || A > 512 || Dv > 2048 || (!dot && (vatt == nullptr || dv_acc == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem_r = step_row_smem_bytes(H, A, S, Dv);
-  auto* const align_bwd_row_kernel =
-      dot ? &align_bwd_row_kernel_t<true> : &align_bwd_row_kernel_t<false>;
-  cudaError_t e;
-  if (smem_r > 48 * 1024) {
-    e = cudaFuncSetAttribute(align_bwd_row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_r);
-    if (e != cudaSuccess) return (int)e;
-  }
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const dim3 pgrid((H + Dv) / UT, (B + BT - 1) / BT);
-  const size_t bh = (size_t)B * H, b4h = 4 * bh, bd = (size_t)B * Dv, bs = (size_t)B * S;
-  const size_t ba = (size_t)B * A;
-  const float* mask_p = static_cast<const float*>(mask);
-  float* dxw_p = static_cast<float*>(dxw);
-  for (int t = T - 1; t >= 0; --t) {
-    if (t + 1 < T) {
-      align_bwd_product_kernel<<<pgrid, GTHREADS, 0, st>>>(
-          static_cast<const __nv_bfloat16*>(w_all_t), dxw_p + (size_t)(t + 1) * b4h,
-          mask_p + (size_t)(t + 1) * B, static_cast<float*>(dh), static_cast<float*>(dctx), B, H,
-          Dc, Dv);
-      e = cudaGetLastError();
-      if (e != cudaSuccess) return (int)e;
-    }
-    align_bwd_row_kernel<<<B, bahdanau::THREADS, smem_r, st>>>(
-        static_cast<const __nv_bfloat16*>(wq), static_cast<const __nv_bfloat16*>(vatt), keys,
-        static_cast<const __nv_bfloat16*>(values),
-        static_cast<const float*>(aligns) + (size_t)t * bs,
-        static_cast<const float*>(hnew) + (size_t)t * bh, mask_p + (size_t)t * B,
-        static_cast<const float*>(act) + (size_t)t * b4h,
-        static_cast<const float*>(c_res) + (size_t)t * bh,
-        static_cast<const float*>(dhs) + (size_t)t * bh,
-        static_cast<const float*>(dctxs) + (size_t)t * bd, static_cast<const float*>(dh),
-        static_cast<const float*>(dctx), static_cast<float*>(dc), dxw_p + (size_t)t * b4h,
-        static_cast<float*>(dq) + (size_t)t * ba, static_cast<float*>(dv_acc),
-        static_cast<float*>(db_acc), static_cast<float*>(dkeys), static_cast<float*>(dvalues), H,
-        A, S, Dv);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaGetLastError();
+  using bf = __nv_bfloat16;
+  auto* const scan = dot ? &step_bwd_scan<true, bf> : &step_bwd_scan<false, bf>;
+  return scan(w_all_t, mask, wq, vatt, keys, values, aligns, hnew, act, c_res, dhs, dctxs, dh,
+              dc, dctx, dxw, dq, dv_acc, db_acc, dkeys, dvalues, T, B, H, Dc, A, S, Dv, stream);
+}
+
+// The fp32 policy's reverse scan (the Bahdanau read): w_all_t, wq, vatt and
+// values fp32, the rest as above.
+extern "C" int avsr_av_align_step_bwd_scan_f32(
+    const void* w_all_t, const void* mask, const void* wq, const void* vatt, const void* keys,
+    const void* values, const void* aligns, const void* hnew, const void* act, const void* c_res,
+    const void* dhs, const void* dctxs, void* dh, void* dc, void* dctx, void* dxw, void* dq,
+    void* dv_acc, void* db_acc, void* dkeys, void* dvalues, int T, int B, int H, int Dc, int A,
+    int S, int Dv, void* stream) {
+  return step_bwd_scan<false, float>(w_all_t, mask, wq, vatt, keys, values, aligns, hnew, act,
+                                     c_res, dhs, dctxs, dh, dc, dctx, dxw, dq, dv_acc, db_acc,
+                                     dkeys, dvalues, T, B, H, Dc, A, S, Dv, stream);
 }

@@ -38,8 +38,17 @@
 // element has one writer per launch: no atomics, the same bits every run.
 // What bounds it: the steps' latency (three launches a step).
 //
+// The fp32 policy (avsr_av_align_step_bwd_prep_f32 / _scan_f32, counted as
+// av_align_scan_f32_bwd): the three launches templated on the element type
+// E of [Wh ; ctx_proj], wq, v and the values (bahdanau_core.cuh's Elem),
+// every bf16 rounding point above the identity, the products fp32 FMAs;
+// the regate's and the product's chunks hold half as many fp32 rows, the
+// same 32 KB.  Every fp32 shape takes it (kernels.av_align_bwd_family
+// routes by dtype).
+//
 // Included by av_align_scan.cu after its per-step forward, whose helpers
-// (BT, UT, GTHREADS, stage_copy, gate_product, sigmoidf_) it uses.
+// (BT, UT, GTHREADS, RCH, rch, stage_copy, stage_cols, gate_product,
+// gate_product_chunked, sigmoidf_) it uses.
 
 #pragma once
 
@@ -81,20 +90,23 @@ __host__ __device__ inline size_t read_bwd_smem_floats(int Hq, int A, int S, int
   return (size_t)2 * A + Dv + Hq + S + WARPS + 8 * THREADS;
 }
 
-// query [Hq] fp32, wq [Hq, A] bf16, vatt [A] bf16 (null for the dot score),
-// keys [S, A] (fp32 additive, bf16 dot), values [S, Dv] bf16, w [S] fp32
-// (the forward's weights); dctx_in(d) gives the context cotangent.  dkeys
-// [S, A] and dvalues [S, Dv] fp32 are accumulated (+=), dv_acc [A] too
-// (additive only: null for the dot score); dq_out [A] and dquery [Hq] are
-// written (dquery may point to shared memory).
-template <bool DOT, class DctxIn>
-__device__ void read_bwd(const float* __restrict__ query, const __nv_bfloat16* __restrict__ wq,
-                         const __nv_bfloat16* __restrict__ vatt,
+// query [Hq] fp32, wq [Hq, A] E, vatt [A] E (null for the dot score), keys
+// [S, A] (fp32 additive, bf16 dot), values [S, Dv] E, w [S] fp32 (the
+// forward's weights); dctx_in(d) gives the context cotangent.  dkeys [S, A]
+// and dvalues [S, Dv] fp32 are accumulated (+=), dv_acc [A] too (additive
+// only: null for the dot score); dq_out [A] and dquery [Hq] are written
+// (dquery may point to shared memory).  E = float: the fp32 policy's
+// instance (the additive score only).
+template <bool DOT, class DctxIn, typename E>
+__device__ void read_bwd(const float* __restrict__ query, const E* __restrict__ wq,
+                         const E* __restrict__ vatt,
                          const typename Key<DOT>::type* __restrict__ keys,
-                         const __nv_bfloat16* __restrict__ values, const float* __restrict__ w,
+                         const E* __restrict__ values, const float* __restrict__ w,
                          DctxIn dctx_in, int Hq, int A, int S, int Dv, float* smem,
                          float* __restrict__ dkeys, float* __restrict__ dvalues,
                          float* __restrict__ dq_out, float* __restrict__ dv_acc, float* dquery) {
+  using X = Elem<E>;
+  static_assert(!DOT || sizeof(E) == 2, "the dot score's fp32 read is still to be ported");
   float* q_s = smem;          // [A] q, then dq
   float* v_s = q_s + A;       // [A]
   float* dctx_s = v_s + A;    // [Dv]
@@ -104,9 +116,9 @@ __device__ void read_bwd(const float* __restrict__ query, const __nv_bfloat16* _
   float* part = red + WARPS;  // [8 * THREADS]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  for (int i = tid; i < Hq; i += THREADS) qin[i] = bf_round(query[i]);
+  for (int i = tid; i < Hq; i += THREADS) qin[i] = X::round(query[i]);
   if (!DOT)
-    for (int i = tid; i < A; i += THREADS) v_s[i] = __bfloat162float(vatt[i]);
+    for (int i = tid; i < A; i += THREADS) v_s[i] = X::get(vatt[i]);
   for (int d = tid; d < Dv; d += THREADS) dctx_s[d] = dctx_in(d);
   __syncthreads();
   q_product<DOT>(qin, wq, Hq, A, part, q_s);
@@ -124,29 +136,23 @@ __device__ void read_bwd(const float* __restrict__ query, const __nv_bfloat16* _
       }
       for (int c = lane; c < C; c += 32) {
         const float4 g0 = dc4[2 * c], g1 = dc4[2 * c + 1];
-        uint4 u[KPW];
+        const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+        typename X::Chunk u[KPW];
 #pragma unroll
         for (int j = 0; j < KPW; ++j)
-          u[j] = wb[j] != 0.f ? reinterpret_cast<const uint4*>(values + (size_t)(s0 + j) * Dv)[c]
-                              : make_uint4(0u, 0u, 0u, 0u);
+          u[j] = wb[j] != 0.f ? X::load8(values + (size_t)(s0 + j) * Dv, c) : X::zero8();
 #pragma unroll
         for (int j = 0; j < KPW; ++j) {
           if (wb[j] == 0.f) continue;  // uniform over the warp: one key
-          acc[j] = fmaf(g0.x, bf_lo(u[j].x), acc[j]);
-          acc[j] = fmaf(g0.y, bf_hi(u[j].x), acc[j]);
-          acc[j] = fmaf(g0.z, bf_lo(u[j].y), acc[j]);
-          acc[j] = fmaf(g0.w, bf_hi(u[j].y), acc[j]);
-          acc[j] = fmaf(g1.x, bf_lo(u[j].z), acc[j]);
-          acc[j] = fmaf(g1.y, bf_hi(u[j].z), acc[j]);
-          acc[j] = fmaf(g1.z, bf_lo(u[j].w), acc[j]);
-          acc[j] = fmaf(g1.w, bf_hi(u[j].w), acc[j]);
-          const float ws = bf_round(wb[j]);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[j] = fmaf(g[i], X::at(u[j], i), acc[j]);
+          const float ws = X::round(wb[j]);
           float4* dv4 = reinterpret_cast<float4*>(dvalues + (size_t)(s0 + j) * Dv) + 2 * c;
           float4 a0 = dv4[0], a1 = dv4[1];
-          a0.x += bf_round(ws * g0.x); a0.y += bf_round(ws * g0.y);
-          a0.z += bf_round(ws * g0.z); a0.w += bf_round(ws * g0.w);
-          a1.x += bf_round(ws * g1.x); a1.y += bf_round(ws * g1.y);
-          a1.z += bf_round(ws * g1.z); a1.w += bf_round(ws * g1.w);
+          a0.x += X::round(ws * g0.x); a0.y += X::round(ws * g0.y);
+          a0.z += X::round(ws * g0.z); a0.w += X::round(ws * g0.w);
+          a1.x += X::round(ws * g1.x); a1.y += X::round(ws * g1.y);
+          a1.z += X::round(ws * g1.z); a1.w += X::round(ws * g1.w);
           dv4[0] = a0;
           dv4[1] = a1;
         }
@@ -156,7 +162,7 @@ __device__ void read_bwd(const float* __restrict__ query, const __nv_bfloat16* _
         float a = acc[j];
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
-        if (lane == 0 && s0 + j < S) dsc_s[s0 + j] = bf_round(a);
+        if (lane == 0 && s0 + j < S) dsc_s[s0 + j] = X::round(a);
       }
     }
     __syncthreads();
@@ -252,10 +258,10 @@ __device__ void read_bwd(const float* __restrict__ query, const __nv_bfloat16* _
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const float e = tanhf(kx[i] + qx[i]);
-            const float deb = bf_round(d[j] * vx[i]);
+            const float deb = X::round(d[j] * vx[i]);
             dp[i] = (deb + deb * e) * (1.0f - e);
             dq[i] += dp[i];
-            dv[i] = fmaf(d[j], bf_round(e), dv[i]);
+            dv[i] = fmaf(d[j], X::round(e), dv[i]);
           }
           acc[j].x += dp[0];
           acc[j].y += dp[1];
@@ -286,21 +292,15 @@ __device__ void read_bwd(const float* __restrict__ query, const __nv_bfloat16* _
 
   // dquery = bf16(dq @ wq^T): a thread per query unit, its row of wq
   for (int k = tid; k < Hq; k += THREADS) {
-    const uint4* wr = reinterpret_cast<const uint4*>(wq + (size_t)k * A);
+    const E* wr = wq + (size_t)k * A;
     float acc = 0.f;
     for (int c8 = 0; c8 < A / 8; ++c8) {
-      const uint4 u = wr[c8];
+      const typename X::Chunk u = X::load8(wr, c8);
       const float* g = q_s + 8 * c8;
-      acc = fmaf(g[0], bf_lo(u.x), acc);
-      acc = fmaf(g[1], bf_hi(u.x), acc);
-      acc = fmaf(g[2], bf_lo(u.y), acc);
-      acc = fmaf(g[3], bf_hi(u.y), acc);
-      acc = fmaf(g[4], bf_lo(u.z), acc);
-      acc = fmaf(g[5], bf_hi(u.z), acc);
-      acc = fmaf(g[6], bf_lo(u.w), acc);
-      acc = fmaf(g[7], bf_hi(u.w), acc);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc = fmaf(g[i], X::at(u, i), acc);
     }
-    dquery[k] = bf_round(acc);
+    dquery[k] = X::round(acc);
   }
 }
 
@@ -308,48 +308,10 @@ __device__ void read_bwd(const float* __restrict__ query, const __nv_bfloat16* _
 
 namespace {
 
-constexpr int RCH = 256;  // input rows of [Wh ; ctx_proj] a regate or product chunk stages
-
-// Columns [k0, k0 + kn) of rows row0 .. row0 + BT of an fp32 [B, K] matrix,
-// rounded to bf16, into dst [BT][kn]; rows past B are zero (kn, k0
-// multiples of 4).
-__device__ __forceinline__ void stage_cols(__nv_bfloat16* dst, const float* src, int row0, int B,
-                                           int K, int k0, int kn, int tid) {
-  const int per_row = kn / 4;
-  __nv_bfloat162* d2 = reinterpret_cast<__nv_bfloat162*>(dst);
-  for (int ci = tid; ci < BT * per_row; ci += GTHREADS) {
-    const int rr = ci / per_row;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + rr < B)
-      v = reinterpret_cast<const float4*>(src + (size_t)(row0 + rr) * K + k0)[ci - rr * per_row];
-    d2[2 * ci] = __floats2bfloat162_rn(v.x, v.y);
-    d2[2 * ci + 1] = __floats2bfloat162_rn(v.z, v.w);
-  }
-}
-
-// a[q] += sum_k x[k] W[k, q H + unit] over the K rows of one input (the
-// carried context against ctx_proj, or h against Wh), RCH rows at a time:
-// the same terms in the same order as gate_product over all K at once.
-__device__ __forceinline__ void gate_product_chunked(const __nv_bfloat16* __restrict__ w_tiled,
-                                                     const float* __restrict__ x, int row0,
-                                                     int B, int K, int r, int u, int tid,
-                                                     __nv_bfloat16* w_s, __nv_bfloat16* x_s,
-                                                     float (&a)[4]) {
-  for (int k0 = 0; k0 < K; k0 += RCH) {
-    const int kn = min(RCH, K - k0);
-    __syncthreads();  // the previous chunk is consumed
-    stage_copy(reinterpret_cast<uint4*>(w_s),
-               reinterpret_cast<const uint4*>(w_tiled + (size_t)k0 * UT * 4), kn * UT * 4 / 8,
-               tid);
-    stage_cols(x_s, x, row0, B, K, k0, kn, tid);
-    __syncthreads();
-    gate_product(x_s + (size_t)r * kn, w_s, u, kn, a);
-  }
-}
-
+template <typename E>
 __global__ void __launch_bounds__(GTHREADS)
-align_regate_kernel(const __nv_bfloat16* __restrict__ wh_tiled,  // [H/UT, H, UT, 4]
-                    const __nv_bfloat16* __restrict__ cp_tiled,  // [H/UT, Dc, UT, 4] or null
+align_regate_kernel(const E* __restrict__ wh_tiled,              // [H/UT, H, UT, 4]
+                    const E* __restrict__ cp_tiled,              // [H/UT, Dc, UT, 4] or null
                     const float* __restrict__ bias,              // [4H]
                     const float* __restrict__ xw,                // [T, B, 4H]
                     const float* __restrict__ h_res,             // [T, B, H]
@@ -358,8 +320,8 @@ align_regate_kernel(const __nv_bfloat16* __restrict__ wh_tiled,  // [H/UT, H, UT
                     float* __restrict__ act,                     // [T, B, 4H] i, f, g, o
                     float* __restrict__ hnew,                    // [T, B, H]
                     int T, int B, int H, int Dc, int t_per_block) {
-  __shared__ __align__(16) __nv_bfloat16 w_s[RCH * UT * 4];
-  __shared__ __align__(16) __nv_bfloat16 x_s[BT * RCH];
+  __shared__ __align__(16) E w_s[rch<E>() * UT * 4];
+  __shared__ __align__(16) E x_s[BT * rch<E>()];
 
   const int tile = blockIdx.x;
   const int row0 = blockIdx.y * BT;
@@ -409,20 +371,33 @@ align_regate_kernel(const __nv_bfloat16* __restrict__ wh_tiled,  // [H/UT, H, UT
   }
 }
 
+// the four gate weights of one (k, unit) of a tiled slice: element quad i
+// of p, as fp32
+__device__ __forceinline__ float4 quad(const __nv_bfloat16* p, int i) {
+  const uint2 w = reinterpret_cast<const uint2*>(p)[i];
+  return make_float4(bahdanau::bf_lo(w.x), bahdanau::bf_hi(w.x), bahdanau::bf_lo(w.y),
+                     bahdanau::bf_hi(w.y));
+}
+__device__ __forceinline__ float4 quad(const float* p, int i) {
+  return reinterpret_cast<const float4*>(p)[i];
+}
+
 // dh_out / dctx_out of the step below from this step's dgates: a block owns
 // BT rows x UT of the H + Dv output columns; columns < H + Dc take the
 // product against rows of [Wh ; ctx_proj] (w_all_t [(H+Dc)/UT, H, UT, 4]:
-// [t, kq, u, j] = W[t*UT + u, 4*kq + j]), RCH / 2 quads of the 4H dgates
-// at a time; the rest (no input feeding) only the masked carry term.
+// [t, kq, u, j] = W[t*UT + u, 4*kq + j]), rch<E>() / 2 quads of the 4H
+// dgates at a time; the rest (no input feeding) only the masked carry term.
+template <typename E>
 __global__ void __launch_bounds__(GTHREADS)
-align_bwd_product_kernel(const __nv_bfloat16* __restrict__ w_all_t,
+align_bwd_product_kernel(const E* __restrict__ w_all_t,
                          const float* __restrict__ dg,      // [B, 4H] this step's dgates
                          const float* __restrict__ mask_t,  // [B] this step's mask
                          float* __restrict__ dh,            // [B, H] in/out
                          float* __restrict__ dctx,          // [B, Dv] in/out
                          int B, int H, int Dc, int Dv) {
-  constexpr int QCH = RCH / 2;  // quads of dgates a chunk: 128 (16 KB of weights, 32 KB of rows)
-  __shared__ __align__(16) __nv_bfloat16 w_s[QCH * UT * 4];
+  // quads of dgates a chunk: 128 in bf16 (16 KB of weights, 32 KB of rows), 64 in fp32
+  constexpr int QCH = rch<E>() / 2;
+  __shared__ __align__(16) E w_s[QCH * UT * 4];
   __shared__ __align__(16) float4 dg_s[BT * QCH];
 
   const int tile = blockIdx.x;
@@ -443,14 +418,14 @@ align_bwd_product_kernel(const __nv_bfloat16* __restrict__ w_all_t,
   if (product) {
     const int nrows = min(BT, B - row0);
     const float4* s4 = reinterpret_cast<const float4*>(dg);  // [B][H] quads
-    const uint2* wu = reinterpret_cast<const uint2*>(w_s) + u;
+    const E* wu = w_s + 4 * u;
     float a0 = 0.f, a1 = 0.f;
     for (int k0 = 0; k0 < H; k0 += QCH) {
       const int kn = min(QCH, H - k0);
       __syncthreads();  // the previous chunk is consumed
       stage_copy(reinterpret_cast<uint4*>(w_s),
                  reinterpret_cast<const uint4*>(w_all_t + ((size_t)tile * H + k0) * UT * 4),
-                 kn * UT * 4 / 8, tid);
+                 kn * UT * 4 * (int)sizeof(E) / 16, tid);
       for (int ci = tid; ci < BT * kn; ci += GTHREADS) {
         const int rr = ci / kn, kq = ci - rr * kn;
         dg_s[rr * kn + kq] = rr < nrows ? s4[(size_t)(row0 + rr) * H + k0 + kq]
@@ -461,14 +436,14 @@ align_bwd_product_kernel(const __nv_bfloat16* __restrict__ w_all_t,
 #pragma unroll 4
       for (int kq = 0; kq < kn; ++kq) {
         const float4 d = dr[kq];
-        const uint2 w = wu[kq * UT];
-        a0 = fmaf(d.x, bahdanau::bf_lo(w.x), a0);
-        a1 = fmaf(d.y, bahdanau::bf_hi(w.x), a1);
-        a0 = fmaf(d.z, bahdanau::bf_lo(w.y), a0);
-        a1 = fmaf(d.w, bahdanau::bf_hi(w.y), a1);
+        const float4 w = quad(wu, kq * UT);
+        a0 = fmaf(d.x, w.x, a0);
+        a1 = fmaf(d.y, w.y, a1);
+        a0 = fmaf(d.z, w.z, a0);
+        a1 = fmaf(d.w, w.w, a1);
       }
     }
-    acc = bahdanau::bf_round(a0 + a1);
+    acc = bahdanau::Elem<E>::round(a0 + a1);
   }
   if (row >= B) return;
   const float x = acc + (1.0f - m) * old;
@@ -486,12 +461,12 @@ struct AlignDctx {
 };
 
 // One step's row launch: the read backward and the cell backward of row b.
-template <bool DOT>
+template <bool DOT, typename E>
 __global__ void __launch_bounds__(bahdanau::THREADS)
-align_bwd_row_kernel_t(const __nv_bfloat16* __restrict__ wq,      // [H, A]
-                       const __nv_bfloat16* __restrict__ vatt,    // [A] or null (dot)
+align_bwd_row_kernel_t(const E* __restrict__ wq,                  // [H, A]
+                       const E* __restrict__ vatt,                // [A] or null (dot)
                        const void* __restrict__ keys_in,          // [B, S, A] Key<DOT>
-                       const __nv_bfloat16* __restrict__ values,  // [B, S, Dv]
+                       const E* __restrict__ values,              // [B, S, Dv]
                        const float* __restrict__ aligns_t,        // [B, S]
                        const float* __restrict__ hnew_t,          // [B, H]
                        const float* __restrict__ mask_t,          // [B]

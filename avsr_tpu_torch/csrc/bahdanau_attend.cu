@@ -80,6 +80,22 @@
 // cluster splits a row's 400 KB stream over two SMs' load queues (one CTA
 // a row is 128 CTAs on 132 SMs).
 
+// The fp32 policy (train.compute_dtype = "float32"; avsr_bahdanau_attend_f32,
+// avsr_attend_step_bwd_f32, avsr_attend_loop_sums_f32, counted as
+// bahdanau_attend_f32[_bwd, _sums]): the general kernel, the per-step
+// backward and the CUDA-core loop sums are templated on the element type E
+// of wq, v and the values (bahdanau_core.cuh's Elem): fp32 operands, every
+// bf16 rounding point above the identity, the products fp32 FMAs.  Every
+// fp32 read takes the general kernel (kernels.attend_route routes by
+// dtype: the grouped and row reads stage bf16 tiles for the tensor cores
+// and the bulk copies), every fp32 loop the CUDA-core sums.  Bahdanau's
+// score only: the Luong reads' fp32 instance is still to be ported.  What
+// bounds them on an H100: the bytes of the memory rows, the values now in
+// fp32 (4.8 MB of values and 0.8 MB of keys a beam step at B = 8, S = 197,
+// A = 128, Dv = 768, 1.7 us at 3.35 TB/s; the general kernel reads a
+// memory row once per query row, so a width-10 beam step streams 56 MB,
+// mostly from L2), and the dependent reductions of a block a row.
+
 #include <algorithm>
 
 #include "attend_grouped.cuh"
@@ -89,6 +105,7 @@
 
 namespace {
 
+using bahdanau::Elem;
 using bahdanau::Key;
 
 struct RowWeights {
@@ -101,13 +118,13 @@ struct RowContext {
   __device__ void operator()(int d, float x) const { ctx[d] = x; }
 };
 
-template <bool DOT>
+template <bool DOT, typename E>
 __global__ void __launch_bounds__(bahdanau::THREADS)
 bahdanau_attend_kernel(const float* __restrict__ query,          // [N, Hq]
-                       const __nv_bfloat16* __restrict__ wq,     // [Hq, A]
-                       const __nv_bfloat16* __restrict__ vatt,   // [A] or null (dot)
+                       const E* __restrict__ wq,                 // [Hq, A]
+                       const E* __restrict__ vatt,               // [A] or null (dot)
                        const void* __restrict__ keys_in,         // [B, S, A] Key<DOT>
-                       const __nv_bfloat16* __restrict__ values, // [B, S, Dv]
+                       const E* __restrict__ values,             // [B, S, Dv]
                        const float* __restrict__ bias,           // [B, S]
                        const float* __restrict__ mask,           // [B, S]
                        float* __restrict__ ctx,                  // [N, Dv]
@@ -180,13 +197,13 @@ struct StepLayout {
 // gradients.  Writes dquery [N, Hq] and this step's rows of the loop's
 // buffers: dsc [N, S], dctx [N, Dv], q [N, A] (bf16(q) for the dot score),
 // dq [N, A], dv [N, A] (additive only).
-template <bool DOT>
+template <bool DOT, typename E>
 __global__ void __launch_bounds__(THREADS)
 attend_step_bwd_kernel(const float* __restrict__ query,           // [N, Hq]
-                       const __nv_bfloat16* __restrict__ wq,      // [Hq, A]
-                       const __nv_bfloat16* __restrict__ vatt,    // [A] or null (dot)
+                       const E* __restrict__ wq,                  // [Hq, A]
+                       const E* __restrict__ vatt,                // [A] or null (dot)
                        const void* __restrict__ keys_in,          // [N, S, A] Key<DOT>
-                       const __nv_bfloat16* __restrict__ values,  // [N, S, Dv]
+                       const E* __restrict__ values,              // [N, S, Dv]
                        const float* __restrict__ weights,         // [N, S]
                        const float* __restrict__ dctx,            // [N, Dv]
                        float* __restrict__ dquery,                // [N, Hq]
@@ -196,6 +213,8 @@ attend_step_bwd_kernel(const float* __restrict__ query,           // [N, Hq]
                        float* __restrict__ dq_out,                // [N, A]
                        float* __restrict__ dv_out,                // [N, A] or null (dot)
                        int Hq, int A, int S, int Dv) {
+  using X = Elem<E>;
+  static_assert(!DOT || sizeof(E) == 2, "the dot score's fp32 read is still to be ported");
   extern __shared__ __align__(16) float smem[];
   const StepLayout L(Hq, A, S, Dv);
   float* q_s = smem + L.q;
@@ -224,9 +243,9 @@ attend_step_bwd_kernel(const float* __restrict__ query,           // [N, Hq]
   // the peers' shared memory is written only once every CTA has started
   cluster_ptx::cluster_arrive();
 
-  for (int i = tid; i < Hq; i += THREADS) qin[i] = bf_round(query[n * Hq + i]);
+  for (int i = tid; i < Hq; i += THREADS) qin[i] = X::round(query[n * Hq + i]);
   if (!DOT)
-    for (int i = tid; i < A; i += THREADS) v_s[i] = __bfloat162float(vatt[i]);
+    for (int i = tid; i < A; i += THREADS) v_s[i] = X::get(vatt[i]);
   for (int d = tid; d < Dv; d += THREADS) {
     const float x = dctx[n * Dv + d];
     dctx_s[d] = x;
@@ -264,22 +283,16 @@ attend_step_bwd_kernel(const float* __restrict__ query,           // [N, Hq]
       }
       for (int c = lane; c < C; c += 32) {
         const float4 g0 = dc4[2 * c], g1 = dc4[2 * c + 1];
-        uint4 u[KW];
+        const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+        typename X::Chunk u[KW];
 #pragma unroll
         for (int j = 0; j < KW; ++j)
-          u[j] = wb[j] != 0.f ? reinterpret_cast<const uint4*>(values + (size_t)(s0 + j) * Dv)[c]
-                              : make_uint4(0u, 0u, 0u, 0u);
+          u[j] = wb[j] != 0.f ? X::load8(values + (size_t)(s0 + j) * Dv, c) : X::zero8();
 #pragma unroll
         for (int j = 0; j < KW; ++j) {
           if (wb[j] == 0.f) continue;  // uniform over the warp: one key
-          acc[j] = fmaf(g0.x, bf_lo(u[j].x), acc[j]);
-          acc[j] = fmaf(g0.y, bf_hi(u[j].x), acc[j]);
-          acc[j] = fmaf(g0.z, bf_lo(u[j].y), acc[j]);
-          acc[j] = fmaf(g0.w, bf_hi(u[j].y), acc[j]);
-          acc[j] = fmaf(g1.x, bf_lo(u[j].z), acc[j]);
-          acc[j] = fmaf(g1.y, bf_hi(u[j].z), acc[j]);
-          acc[j] = fmaf(g1.z, bf_lo(u[j].w), acc[j]);
-          acc[j] = fmaf(g1.w, bf_hi(u[j].w), acc[j]);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[j] = fmaf(g[i], X::at(u[j], i), acc[j]);
         }
       }
 #pragma unroll
@@ -287,7 +300,7 @@ attend_step_bwd_kernel(const float* __restrict__ query,           // [N, Hq]
         float a = acc[j];
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
-        if (lane == 0 && s0 + j < s_hi) dsc_s[s0 + j - s_lo] = bf_round(a);
+        if (lane == 0 && s0 + j < s_hi) dsc_s[s0 + j - s_lo] = X::round(a);
       }
     }
     __syncthreads();
@@ -368,9 +381,9 @@ attend_step_bwd_kernel(const float* __restrict__ query,           // [N, Hq]
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
               const float e = tanhf(kx[i] + qx[i]);
-              const float deb = bf_round(d[j] * vx[i]);
+              const float deb = X::round(d[j] * vx[i]);
               dq[i] += (deb + deb * e) * (1.0f - e);  // tanh' as JAX takes it
-              dv[i] = fmaf(d[j], bf_round(e), dv[i]);
+              dv[i] = fmaf(d[j], X::round(e), dv[i]);
             }
           }
         }
@@ -419,23 +432,17 @@ attend_step_bwd_kernel(const float* __restrict__ query,           // [N, Hq]
 #pragma unroll
     for (int j = 0; j < KQ; ++j) acc[j] = 0.f;
     for (int c8 = lane; c8 < A / 8; c8 += 32) {
-      uint4 u[KQ];
+      typename X::Chunk u[KQ];
 #pragma unroll
       for (int j = 0; j < KQ; ++j)
-        u[j] = k0 + j < k_hi ? reinterpret_cast<const uint4*>(wq + (size_t)(k0 + j) * A)[c8]
-                             : make_uint4(0u, 0u, 0u, 0u);
+        u[j] = k0 + j < k_hi ? X::load8(wq + (size_t)(k0 + j) * A, c8) : X::zero8();
       const float4 ga = reinterpret_cast<const float4*>(q_s)[2 * c8];
       const float4 gb = reinterpret_cast<const float4*>(q_s)[2 * c8 + 1];
+      const float g[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
 #pragma unroll
       for (int j = 0; j < KQ; ++j) {
-        acc[j] = fmaf(ga.x, bf_lo(u[j].x), acc[j]);
-        acc[j] = fmaf(ga.y, bf_hi(u[j].x), acc[j]);
-        acc[j] = fmaf(ga.z, bf_lo(u[j].y), acc[j]);
-        acc[j] = fmaf(ga.w, bf_hi(u[j].y), acc[j]);
-        acc[j] = fmaf(gb.x, bf_lo(u[j].z), acc[j]);
-        acc[j] = fmaf(gb.y, bf_hi(u[j].z), acc[j]);
-        acc[j] = fmaf(gb.z, bf_lo(u[j].w), acc[j]);
-        acc[j] = fmaf(gb.w, bf_hi(u[j].w), acc[j]);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[j] = fmaf(g[i], X::at(u[j], i), acc[j]);
       }
     }
 #pragma unroll
@@ -443,7 +450,7 @@ attend_step_bwd_kernel(const float* __restrict__ query,           // [N, Hq]
       float a = acc[j];
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
-      if (lane == 0 && k0 + j < k_hi) dquery[n * Hq + k0 + j] = bf_round(a);
+      if (lane == 0 && k0 + j < k_hi) dquery[n * Hq + k0 + j] = X::round(a);
     }
   }
 }
@@ -455,10 +462,10 @@ attend_step_bwd_kernel(const float* __restrict__ query,           // [N, Hq]
 // the K steps in order: dvalues = sum_k bf16(w[k]) dctx[k]; dot dkeys = sum_k
 // dsc[k] q[k]; additive dkeys = sum_k (deb + deb e)(1 - e).  Steps of
 // weight or dsc exactly 0 add nothing.
-template <bool DOT>
+template <bool DOT, typename E>
 __global__ void __launch_bounds__(256)
 attend_loop_sums_kernel(const float* __restrict__ keys,            // [N, S, A] (additive)
-                        const __nv_bfloat16* __restrict__ vatt,    // [A] or null (dot)
+                        const E* __restrict__ vatt,                // [A] or null (dot)
                         const float* __restrict__ weights,         // [K, N, S]
                         const float* __restrict__ q,               // [K, N, A]
                         const float* __restrict__ dsc,             // [K, N, S]
@@ -474,7 +481,7 @@ attend_loop_sums_kernel(const float* __restrict__ keys,            // [N, S, A] 
     if (i < nv) {
       const size_t d = i % Dv, ns = i / Dv, n = ns / S;
       for (int k = 0; k < K; ++k) {
-        const float w = bf_round(weights[k * NS + ns]);
+        const float w = Elem<E>::round(weights[k * NS + ns]);
         if (w != 0.f) acc = fmaf(w, dctx[((size_t)k * N + n) * Dv + d], acc);
       }
       dvalues[i] = acc;
@@ -486,12 +493,12 @@ attend_loop_sums_kernel(const float* __restrict__ keys,            // [N, S, A] 
           if (d != 0.f) acc = fmaf(d, q[((size_t)k * N + n) * A + a], acc);
         }
       } else {
-        const float key = keys[j], v = __bfloat162float(vatt[a]);
+        const float key = keys[j], v = Elem<E>::get(vatt[a]);
         for (int k = 0; k < K; ++k) {
           const float d = dsc[k * NS + ns];
           if (d == 0.f) continue;
           const float e = tanhf(key + q[((size_t)k * N + n) * A + a]);
-          const float deb = bf_round(d * v);
+          const float deb = Elem<E>::round(d * v);
           acc += (deb + deb * e) * (1.0f - e);
         }
       }
@@ -508,14 +515,16 @@ extern "C" long long avsr_bahdanau_smem(int Hq, int A, int S) {
 // "general": N query rows over N / W memory rows, a block a query row.  dot
 // != 0: the Luong read (keys bf16, vatt null); else the Bahdanau read (keys
 // fp32).
-extern "C" int avsr_bahdanau_attend(const void* query, const void* wq, const void* vatt,
-                                    const void* keys, const void* values, const void* bias,
-                                    const void* mask, void* ctx, void* weights, int N, int W,
-                                    int Hq, int A, int S, int Dv, int dot, void* stream) {
+namespace {
+
+template <bool DOT, typename E>
+int general_launch(const void* query, const void* wq, const void* vatt, const void* keys,
+                   const void* values, const void* bias, const void* mask, void* ctx,
+                   void* weights, int N, int W, int Hq, int A, int S, int Dv, void* stream) {
   if (N < 1 || W < 1 || N % W || S < 1 || Hq < 1 || A % 8 || A > 512 || Dv % 8 || Dv > 2048 ||
-      (!dot && vatt == nullptr))
+      (!DOT && vatt == nullptr))
     return (int)cudaErrorInvalidValue;
-  auto* const kernel = dot ? &bahdanau_attend_kernel<true> : &bahdanau_attend_kernel<false>;
+  auto* const kernel = &bahdanau_attend_kernel<DOT, E>;
   const size_t smem = bahdanau::read_smem_bytes(Hq, A, S);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -523,11 +532,33 @@ extern "C" int avsr_bahdanau_attend(const void* query, const void* wq, const voi
     if (e != cudaSuccess) return (int)e;
   }
   kernel<<<N, bahdanau::THREADS, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(query), static_cast<const __nv_bfloat16*>(wq),
-      static_cast<const __nv_bfloat16*>(vatt), keys, static_cast<const __nv_bfloat16*>(values),
-      static_cast<const float*>(bias), static_cast<const float*>(mask), static_cast<float*>(ctx),
-      static_cast<float*>(weights), W, Hq, A, S, Dv);
+      static_cast<const float*>(query), static_cast<const E*>(wq), static_cast<const E*>(vatt),
+      keys, static_cast<const E*>(values), static_cast<const float*>(bias),
+      static_cast<const float*>(mask), static_cast<float*>(ctx), static_cast<float*>(weights),
+      W, Hq, A, S, Dv);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int avsr_bahdanau_attend(const void* query, const void* wq, const void* vatt,
+                                    const void* keys, const void* values, const void* bias,
+                                    const void* mask, void* ctx, void* weights, int N, int W,
+                                    int Hq, int A, int S, int Dv, int dot, void* stream) {
+  auto* const launch = dot ? &general_launch<true, __nv_bfloat16>
+                           : &general_launch<false, __nv_bfloat16>;
+  return launch(query, wq, vatt, keys, values, bias, mask, ctx, weights, N, W, Hq, A, S, Dv,
+                stream);
+}
+
+// The fp32 policy's general kernel (the Bahdanau read): wq [Hq, A], vatt [A]
+// and values [B, S, Dv] fp32, the rest as above.
+extern "C" int avsr_bahdanau_attend_f32(const void* query, const void* wq, const void* vatt,
+                                        const void* keys, const void* values, const void* bias,
+                                        const void* mask, void* ctx, void* weights, int N, int W,
+                                        int Hq, int A, int S, int Dv, void* stream) {
+  return general_launch<false, float>(query, wq, vatt, keys, values, bias, mask, ctx, weights,
+                                      N, W, Hq, A, S, Dv, stream);
 }
 
 namespace {
@@ -743,7 +774,7 @@ size_t step_smem(int Hq, int A, int S, int Dv) {
 }
 
 // N clusters of CS CTAs, the kernel's shared memory set
-template <bool DOT>
+template <bool DOT, typename E>
 cudaError_t step_config(int N, size_t smem, cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg) {
   *cfg = {};
   cfg->gridDim = dim3(N * CS, 1, 1);
@@ -755,24 +786,23 @@ cudaError_t step_config(int N, size_t smem, cudaLaunchAttribute* attr, cudaLaunc
   attr[0].val.clusterDim.z = 1;
   cfg->attrs = attr;
   cfg->numAttrs = 1;
-  return cudaFuncSetAttribute(attend_step_bwd_kernel<DOT>,
+  return cudaFuncSetAttribute(attend_step_bwd_kernel<DOT, E>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <bool DOT>
+template <bool DOT, typename E>
 cudaError_t step_launch(const void* query, const void* wq, const void* vatt, const void* keys,
                         const void* values, const void* weights, const void* dctx, void* dquery,
                         void* dsc, void* dctx_out, void* q, void* dq, void* dv, int N, int Hq,
                         int A, int S, int Dv, cudaStream_t st) {
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
-  cudaError_t e = step_config<DOT>(N, step_smem(Hq, A, S, Dv), attr, &cfg);
+  cudaError_t e = step_config<DOT, E>(N, step_smem(Hq, A, S, Dv), attr, &cfg);
   if (e != cudaSuccess) return e;
   cfg.stream = st;
-  using bf = __nv_bfloat16;
-  e = cudaLaunchKernelEx(&cfg, attend_step_bwd_kernel<DOT>, static_cast<const float*>(query),
-                         static_cast<const bf*>(wq), static_cast<const bf*>(vatt), keys,
-                         static_cast<const bf*>(values), static_cast<const float*>(weights),
+  e = cudaLaunchKernelEx(&cfg, attend_step_bwd_kernel<DOT, E>, static_cast<const float*>(query),
+                         static_cast<const E*>(wq), static_cast<const E*>(vatt), keys,
+                         static_cast<const E*>(values), static_cast<const float*>(weights),
                          static_cast<const float*>(dctx), static_cast<float*>(dquery),
                          static_cast<float*>(dsc), static_cast<float*>(dctx_out),
                          static_cast<float*>(q), static_cast<float*>(dq), static_cast<float*>(dv),
@@ -783,11 +813,12 @@ cudaError_t step_launch(const void* query, const void* wq, const void* vatt, con
 
 template <bool DOT>
 int step_max_active(int Hq, int A, int S, int Dv) {
+  using bf = __nv_bfloat16;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
-  if (step_config<DOT>(128, step_smem(Hq, A, S, Dv), attr, &cfg) != cudaSuccess) return 0;
+  if (step_config<DOT, bf>(128, step_smem(Hq, A, S, Dv), attr, &cfg) != cudaSuccess) return 0;
   int n = 0;
-  return cudaOccupancyMaxActiveClusters(&n, (void*)attend_step_bwd_kernel<DOT>, &cfg) ==
+  return cudaOccupancyMaxActiveClusters(&n, (void*)attend_step_bwd_kernel<DOT, bf>, &cfg) ==
                  cudaSuccess
              ? n
              : 0;
@@ -823,10 +854,35 @@ extern "C" int avsr_attend_step_bwd(const void* query, const void* wq, const voi
   if (N < 1 || !step_shape_ok(Hq, A, S, Dv) || (!dot && (vatt == nullptr || dv == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  auto* const launch = dot ? &step_launch<true> : &step_launch<false>;
+  using bf = __nv_bfloat16;
+  auto* const launch = dot ? &step_launch<true, bf> : &step_launch<false, bf>;
   return (int)launch(query, wq, vatt, keys, values, weights, dctx, dquery, dsc, dctx_out, q, dq,
                      dv, N, Hq, A, S, Dv, st);
 }
+
+// The fp32 policy's step (the Bahdanau read): wq [Hq, A], vatt [A] and values
+// [N, S, Dv] fp32, the rest as above.
+extern "C" int avsr_attend_step_bwd_f32(const void* query, const void* wq, const void* vatt,
+                                        const void* keys, const void* values,
+                                        const void* weights, const void* dctx, void* dquery,
+                                        void* dsc, void* dctx_out, void* q, void* dq, void* dv,
+                                        int N, int Hq, int A, int S, int Dv, void* stream) {
+  if (N < 1 || !step_shape_ok(Hq, A, S, Dv) || vatt == nullptr || dv == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return (int)step_launch<false, float>(query, wq, vatt, keys, values, weights, dctx, dquery,
+                                        dsc, dctx_out, q, dq, dv, N, Hq, A, S, Dv,
+                                        reinterpret_cast<cudaStream_t>(stream));
+}
+
+namespace {
+
+// a thread an output element, at most 16 blocks of 256 an SM
+int loop_sums_blocks(int N, int S, int A, int Dv) {
+  const size_t total = (size_t)N * S * (A + Dv);
+  return (int)std::min<size_t>((total + 255) / 256, 132 * 16);
+}
+
+}  // namespace
 
 // The memory's gradients after a loop of K steps on the CUDA cores, any A
 // and Dv multiples of 8: keys [N, S, A] fp32 and vatt [A] (Bahdanau; unused
@@ -839,14 +895,29 @@ extern "C" int avsr_attend_loop_sums(const void* keys, const void* vatt, const v
   if (K < 1 || N < 1 || S < 1 || A < 1 || Dv < 1 || (!dot && vatt == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const size_t total = (size_t)N * S * (A + Dv);
-  const int blocks = (int)std::min<size_t>((total + 255) / 256, 132 * 16);
-  auto* kern = dot ? &attend_loop_sums_kernel<true> : &attend_loop_sums_kernel<false>;
-  kern<<<blocks, 256, 0, st>>>(static_cast<const float*>(keys),
-                               static_cast<const __nv_bfloat16*>(vatt),
-                               static_cast<const float*>(weights), static_cast<const float*>(q),
-                               static_cast<const float*>(dsc), static_cast<const float*>(dctx),
-                               static_cast<float*>(dkeys), static_cast<float*>(dvalues), K, N, S,
-                               A, Dv);
+  using bf = __nv_bfloat16;
+  auto* kern = dot ? &attend_loop_sums_kernel<true, bf> : &attend_loop_sums_kernel<false, bf>;
+  kern<<<loop_sums_blocks(N, S, A, Dv), 256, 0, st>>>(
+      static_cast<const float*>(keys), static_cast<const bf*>(vatt),
+      static_cast<const float*>(weights), static_cast<const float*>(q),
+      static_cast<const float*>(dsc), static_cast<const float*>(dctx), static_cast<float*>(dkeys),
+      static_cast<float*>(dvalues), K, N, S, A, Dv);
+  return (int)cudaGetLastError();
+}
+
+// The fp32 policy's sums (the Bahdanau read): vatt [A] fp32, the rest as
+// above.
+extern "C" int avsr_attend_loop_sums_f32(const void* keys, const void* vatt, const void* weights,
+                                         const void* q, const void* dsc, const void* dctx,
+                                         void* dkeys, void* dvalues, int K, int N, int A, int S,
+                                         int Dv, void* stream) {
+  if (K < 1 || N < 1 || S < 1 || A < 1 || Dv < 1 || vatt == nullptr)
+    return (int)cudaErrorInvalidValue;
+  attend_loop_sums_kernel<false, float>
+      <<<loop_sums_blocks(N, S, A, Dv), 256, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(keys), static_cast<const float*>(vatt),
+          static_cast<const float*>(weights), static_cast<const float*>(q),
+          static_cast<const float*>(dsc), static_cast<const float*>(dctx),
+          static_cast<float*>(dkeys), static_cast<float*>(dvalues), K, N, S, A, Dv);
   return (int)cudaGetLastError();
 }

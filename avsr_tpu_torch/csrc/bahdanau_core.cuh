@@ -19,7 +19,12 @@
 //
 // so a memory of length 0 (every bias -1e30, every mask 0) gives zero
 // weights and a zero context, as the reference does (not K6's uniform
-// mean).  The bias is added to every key, never used to skip one; a key
+// mean).  Under the fp32 policy (train.compute_dtype = "float32") the same
+// lines run on fp32 wq, v and values with every bf16 rounding point the
+// identity and the additive energies by tanhf: the read, its q product and
+// its context loop are templated on the element type E of those operands
+// (Elem below; the additive score only: the dot score's fp32 instance is
+// still to be ported).  The bias is added to every key, never used to skip one; a key
 // whose bf16 weight is 0 is left out of the context sum, which adds
 // exactly 0 for it.
 //
@@ -78,6 +83,55 @@ __device__ __forceinline__ float tanh_fast(float x) {
 template <bool DOT> struct Key { using type = float; };
 template <> struct Key<true> { using type = __nv_bfloat16; };
 
+// The element type E of wq, v and the values: bf16 (the bf16 policy) or
+// fp32 (the fp32 policy).  Elem<E> holds what differs: the conversion, the
+// rounding point (bf16, or the identity), a chunk of 8 consecutive
+// elements loaded at once (one 16-byte load, or two) and a pair of them;
+// the loops that use them keep the bf16 instance's order of operations.
+template <typename E> struct Elem;
+template <> struct Elem<__nv_bfloat16> {
+  using Chunk = uint4;
+  static __device__ __forceinline__ float get(__nv_bfloat16 x) { return __bfloat162float(x); }
+  static __device__ __forceinline__ float round(float x) { return bf_round(x); }
+  // elements 8c .. 8c + 7 of p
+  static __device__ __forceinline__ Chunk load8(const __nv_bfloat16* p, size_t c) {
+    return reinterpret_cast<const uint4*>(p)[c];
+  }
+  static __device__ __forceinline__ Chunk zero8() { return make_uint4(0u, 0u, 0u, 0u); }
+  // element j of a chunk (j a constant once the caller's loop is unrolled)
+  static __device__ __forceinline__ float at(const Chunk& u, int j) {
+    const uint32_t w = j < 2 ? u.x : j < 4 ? u.y : j < 6 ? u.z : u.w;
+    return (j & 1) ? bf_hi(w) : bf_lo(w);
+  }
+  // elements 2i and 2i + 1 of p
+  static __device__ __forceinline__ float2 pair(const __nv_bfloat16* p, size_t i) {
+    const uint32_t w = reinterpret_cast<const uint32_t*>(p)[i];
+    return make_float2(bf_lo(w), bf_hi(w));
+  }
+};
+template <> struct Elem<float> {
+  struct Chunk {
+    float4 a, b;
+  };
+  static __device__ __forceinline__ float get(float x) { return x; }
+  static __device__ __forceinline__ float round(float x) { return x; }
+  static __device__ __forceinline__ Chunk load8(const float* p, size_t c) {
+    const float4* q = reinterpret_cast<const float4*>(p) + 2 * c;
+    return Chunk{q[0], q[1]};
+  }
+  static __device__ __forceinline__ Chunk zero8() {
+    return Chunk{make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+  }
+  static __device__ __forceinline__ float at(const Chunk& u, int j) {
+    const float4& v = j < 4 ? u.a : u.b;
+    const int k = j & 3;
+    return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+  }
+  static __device__ __forceinline__ float2 pair(const float* p, size_t i) {
+    return reinterpret_cast<const float2*>(p)[i];
+  }
+};
+
 // The THREADS threads that run one read, and their barrier: a whole block
 // (K10, K8's per-step read kernel) or one row's threads inside a larger
 // block (K8's cluster forward, av_align_fwd.cuh: named barrier `id`).
@@ -115,34 +169,34 @@ __device__ __forceinline__ float block_reduce(float x, float* red) {
 }
 
 // The q product's partial sums over the column pairs [p_lo, p_hi) of wq
-// [Hq, A] bf16, qin [Hq] (bf16-rounded, in shared memory): a thread per
-// pair, k split over THREADS / (p_hi - p_lo) slices (LD rows of wq in
-// flight); slice sl's sum of column 2 p_lo + j lands at part[sl * 2 (p_hi
-// - p_lo) + j].  Returns the slices, which the caller sums in order after
-// a barrier.  The read takes every column; the per-step backward a
-// cluster CTA's slice.
-template <int LD>
-__device__ __forceinline__ int q_partials(const float* qin, const __nv_bfloat16* __restrict__ wq,
-                                          int Hq, int A, int p_lo, int p_hi, float* part) {
+// [Hq, A] E, qin [Hq] (E-rounded, in shared memory): a thread per pair, k
+// split over THREADS / (p_hi - p_lo) slices (LD rows of wq in flight);
+// slice sl's sum of column 2 p_lo + j lands at part[sl * 2 (p_hi - p_lo) +
+// j].  Returns the slices, which the caller sums in order after a
+// barrier.  The read takes every column; the per-step backward a cluster
+// CTA's slice.
+template <int LD, typename E>
+__device__ __forceinline__ int q_partials(const float* qin, const E* __restrict__ wq, int Hq,
+                                          int A, int p_lo, int p_hi, float* part) {
   const int tid = threadIdx.x;
   const int npair = p_hi - p_lo, slices = THREADS / npair;
   const int cp = tid % npair, sl = tid / npair;
   if (sl < slices) {
-    const uint32_t* w2 = reinterpret_cast<const uint32_t*>(wq) + p_lo + cp;
     float a0 = 0.f, a1 = 0.f;
     for (int k0 = sl; k0 < Hq; k0 += LD * slices) {
-      uint32_t ww[LD];
+      float2 ww[LD];
 #pragma unroll
       for (int j = 0; j < LD; ++j) {
         const int k = k0 + j * slices;
-        ww[j] = k < Hq ? w2[(size_t)k * (A / 2)] : 0u;
+        ww[j] = k < Hq ? Elem<E>::pair(wq, (size_t)k * (A / 2) + p_lo + cp)
+                       : make_float2(0.f, 0.f);
       }
 #pragma unroll
       for (int j = 0; j < LD; ++j) {
         const int k = k0 + j * slices;
         const float x = k < Hq ? qin[k] : 0.f;
-        a0 = fmaf(x, bf_lo(ww[j]), a0);
-        a1 = fmaf(x, bf_hi(ww[j]), a1);
+        a0 = fmaf(x, ww[j].x, a0);
+        a1 = fmaf(x, ww[j].y, a1);
       }
     }
     part[sl * 2 * npair + 2 * cp] = a0;
@@ -154,9 +208,9 @@ __device__ __forceinline__ int q_partials(const float* qin, const __nv_bfloat16*
 // q = qin @ wq for one row -> q_s [A] fp32, rounded to bf16 when ROUND (the
 // dot score's cast of q): q_partials over every column (LOADS rows of wq
 // in flight), the slices summed in a fixed order.  Ends with a barrier.
-template <bool ROUND>
-__device__ __forceinline__ void q_product(const float* qin, const __nv_bfloat16* __restrict__ wq,
-                                          int Hq, int A, float* part, float* q_s) {
+template <bool ROUND, typename E>
+__device__ __forceinline__ void q_product(const float* qin, const E* __restrict__ wq, int Hq,
+                                          int A, float* part, float* q_s) {
   const int slices = q_partials<LOADS>(qin, wq, Hq, A, 0, A / 2, part);
   __syncthreads();
   for (int a = threadIdx.x; a < A; a += THREADS) {
@@ -176,21 +230,23 @@ __host__ __device__ inline size_t read_smem_bytes(int Hq, int A, int S) {
 
 // The read from its q: the scores, the softmax with the mask and the
 // renormalisation, and the context, run by the group's THREADS threads.
-// q_s [A] fp32 (bf16-rounded for the dot score), v_s [A] (bf16 v as fp32;
+// q_s [A] fp32 (bf16-rounded for the dot score), v_s [A] (E v as fp32;
 // unused by the dot score), keys [S, A] (fp32 additive, bf16 dot), values
-// [S, Dv] bf16, bias / mask [S] fp32 (this row's slices); scratch p_s [S],
+// [S, Dv] E, bias / mask [S] fp32 (this row's slices); scratch p_s [S],
 // red [WARPS], part [8 * THREADS] fp32.  w_out(s, w) receives each weight,
 // ctx_out(d, x) each context channel.  FAST: the additive score's tanh is
-// tanh_fast (fewer registers than tanhf's slow path); LOADS_ value rows in
-// flight per thread in the context.
+// tanh_fast (fewer registers than tanhf's slow path; never in fp32);
+// LOADS_ value rows in flight per thread in the context.
 template <bool DOT, bool FAST = false, int LOADS_ = LOADS, class G, class WeightOut,
-          class CtxOut>
+          class CtxOut, typename E>
 __device__ void scores_context(const G& grp, const float* q_s, const float* v_s,
                                const typename Key<DOT>::type* __restrict__ keys,
-                               const __nv_bfloat16* __restrict__ values,
-                               const float* __restrict__ bias, const float* __restrict__ mask,
-                               int A, int S, int Dv, float* p_s, float* red, float* part,
-                               WeightOut w_out, CtxOut ctx_out) {
+                               const E* __restrict__ values, const float* __restrict__ bias,
+                               const float* __restrict__ mask, int A, int S, int Dv, float* p_s,
+                               float* red, float* part, WeightOut w_out, CtxOut ctx_out) {
+  using X = Elem<E>;
+  static_assert(!DOT || sizeof(E) == 2, "the dot score's fp32 read is still to be ported");
+  static_assert(!FAST || sizeof(E) == 2, "the fp32 read takes tanhf");
   const int tid = grp.tid(), lane = tid & 31, warp = tid >> 5;
   const auto tanh_ = [](float x) { return FAST ? tanh_fast(x) : tanhf(x); };
 
@@ -248,10 +304,10 @@ __device__ void scores_context(const G& grp, const float* q_s, const float* v_s,
         const float4 qq = q4[c], vv = v4[c];
 #pragma unroll
         for (int j = 0; j < KPW; ++j) {
-          acc[j] = fmaf(bf_round(tanh_(kv[j].x + qq.x)), vv.x, acc[j]);
-          acc[j] = fmaf(bf_round(tanh_(kv[j].y + qq.y)), vv.y, acc[j]);
-          acc[j] = fmaf(bf_round(tanh_(kv[j].z + qq.z)), vv.z, acc[j]);
-          acc[j] = fmaf(bf_round(tanh_(kv[j].w + qq.w)), vv.w, acc[j]);
+          acc[j] = fmaf(X::round(tanh_(kv[j].x + qq.x)), vv.x, acc[j]);
+          acc[j] = fmaf(X::round(tanh_(kv[j].y + qq.y)), vv.y, acc[j]);
+          acc[j] = fmaf(X::round(tanh_(kv[j].z + qq.z)), vv.z, acc[j]);
+          acc[j] = fmaf(X::round(tanh_(kv[j].w + qq.w)), vv.w, acc[j]);
         }
       }
 #pragma unroll
@@ -291,7 +347,7 @@ __device__ void scores_context(const G& grp, const float* q_s, const float* v_s,
     for (int s = tid; s < S; s += THREADS) {
       const float w = p_s[s] / denom * scale;
       w_out(s, w);
-      p_s[s] = bf_round(w);
+      p_s[s] = X::round(w);
     }
     grp.sync();
   }
@@ -301,30 +357,23 @@ __device__ void scores_context(const G& grp, const float* q_s, const float* v_s,
     const int C = Dv / 8, slices = THREADS / C;
     const int c = tid % C, sl = tid / C;
     if (sl < slices) {
-      const uint4* vr = reinterpret_cast<const uint4*>(values) + c;
       float acc[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[j] = 0.f;
       for (int s0 = sl; s0 < S; s0 += LOADS_ * slices) {
         float p[LOADS_];
-        uint4 u[LOADS_];  // LOADS_ value rows in flight
+        typename X::Chunk u[LOADS_];  // LOADS_ value rows in flight
 #pragma unroll
         for (int j = 0; j < LOADS_; ++j) {
           const int s = s0 + j * slices;
           p[j] = s < S ? p_s[s] : 0.f;
-          u[j] = p[j] != 0.f ? vr[(size_t)s * C] : make_uint4(0u, 0u, 0u, 0u);
+          u[j] = p[j] != 0.f ? X::load8(values, (size_t)s * C + c) : X::zero8();
         }
 #pragma unroll
         for (int j = 0; j < LOADS_; ++j) {
           if (p[j] == 0.f) continue;
-          acc[0] = fmaf(p[j], bf_lo(u[j].x), acc[0]);
-          acc[1] = fmaf(p[j], bf_hi(u[j].x), acc[1]);
-          acc[2] = fmaf(p[j], bf_lo(u[j].y), acc[2]);
-          acc[3] = fmaf(p[j], bf_hi(u[j].y), acc[3]);
-          acc[4] = fmaf(p[j], bf_lo(u[j].z), acc[4]);
-          acc[5] = fmaf(p[j], bf_hi(u[j].z), acc[5]);
-          acc[6] = fmaf(p[j], bf_lo(u[j].w), acc[6]);
-          acc[7] = fmaf(p[j], bf_hi(u[j].w), acc[7]);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[i] = fmaf(p[j], X::at(u[j], i), acc[i]);
         }
       }
 #pragma unroll
@@ -339,15 +388,14 @@ __device__ void scores_context(const G& grp, const float* q_s, const float* v_s,
   }
 }
 
-// One read.  query [Hq] fp32, wq [Hq, A] bf16, vatt [A] bf16 (null for
-// the dot score), keys [S, A] (fp32 additive, bf16 dot), values [S, Dv]
-// bf16, bias / mask [S] fp32 (this row's slices).  w_out(s, w) receives
-// each weight, ctx_out(d, x) each context channel.
-template <bool DOT, class WeightOut, class CtxOut>
-__device__ void read(const float* __restrict__ query, const __nv_bfloat16* __restrict__ wq,
-                     const __nv_bfloat16* __restrict__ vatt,
-                     const typename Key<DOT>::type* __restrict__ keys,
-                     const __nv_bfloat16* __restrict__ values, const float* __restrict__ bias,
+// One read.  query [Hq] fp32, wq [Hq, A] E, vatt [A] E (null for the dot
+// score), keys [S, A] (fp32 additive, bf16 dot), values [S, Dv] E, bias /
+// mask [S] fp32 (this row's slices).  w_out(s, w) receives each weight,
+// ctx_out(d, x) each context channel.
+template <bool DOT, class WeightOut, class CtxOut, typename E>
+__device__ void read(const float* __restrict__ query, const E* __restrict__ wq,
+                     const E* __restrict__ vatt, const typename Key<DOT>::type* __restrict__ keys,
+                     const E* __restrict__ values, const float* __restrict__ bias,
                      const float* __restrict__ mask, int Hq, int A, int S, int Dv, float* smem,
                      WeightOut w_out, CtxOut ctx_out) {
   float* q_s = smem;           // [A]
@@ -358,14 +406,16 @@ __device__ void read(const float* __restrict__ query, const __nv_bfloat16* __res
   float* part = red + WARPS;   // [8 * THREADS]
   const int tid = threadIdx.x;
 
-  for (int i = tid; i < Hq; i += THREADS) qin[i] = bf_round(query[i]);
+  for (int i = tid; i < Hq; i += THREADS) qin[i] = Elem<E>::round(query[i]);
   if (!DOT)
-    for (int i = tid; i < A; i += THREADS) v_s[i] = __bfloat162float(vatt[i]);
+    for (int i = tid; i < A; i += THREADS) v_s[i] = Elem<E>::get(vatt[i]);
   __syncthreads();
 
   q_product<DOT>(qin, wq, Hq, A, part, q_s);
-  scores_context<DOT>(BlockGroup{}, q_s, v_s, keys, values, bias, mask, A, S, Dv, p_s, red, part,
-                      w_out, ctx_out);
+  // an fp32 value chunk takes twice a bf16 one's registers: half as many in flight
+  constexpr int LD = sizeof(E) == 2 ? LOADS : LOADS / 2;
+  scores_context<DOT, false, LD>(BlockGroup{}, q_s, v_s, keys, values, bias, mask, A, S, Dv, p_s,
+                                 red, part, w_out, ctx_out);
 }
 
 }  // namespace bahdanau

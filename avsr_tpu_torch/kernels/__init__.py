@@ -61,7 +61,8 @@ NVCC_FLAGS = (
 # (spectrogram, no deltas, global or no normalization) apart from the
 # presets' log-mel one.  The fp32 policy's instances (K1's per-step
 # kernels, the CUDA-core attention family for K4 and K5, K6's general
-# kernel) count apart, as ``*_f32_*``.
+# kernel, K8's per-step kernels and K10's general kernel, per-step backward
+# and CUDA-core sums) count apart, as ``*_f32*``.
 LAUNCHES: Dict[str, int] = {
     "lstm_scan_fwd": 0, "lstm_scan_bwd": 0, "lstm_scan_uni_fwd": 0, "lstm_scan_uni_bwd": 0,
     "lstm_scan_rd_fwd": 0, "lstm_scan_rd_bwd": 0, "lstm_scan_uni_rd_fwd": 0,
@@ -84,7 +85,9 @@ LAUNCHES: Dict[str, int] = {
     "conformer_conv_fwd_tiles": 0, "conformer_conv_bwd": 0,
     "lstm_scan_f32_fwd": 0, "lstm_scan_f32_bwd": 0, "fusion_attention_f32_fwd": 0,
     "fusion_attention_f32_bwd": 0, "decoder_attention_f32_fwd": 0,
-    "decoder_attention_f32_bwd": 0, "decode_attention_f32": 0,
+    "decoder_attention_f32_bwd": 0, "decode_attention_f32": 0, "av_align_scan_f32": 0,
+    "av_align_scan_f32_bwd": 0, "bahdanau_attend_f32": 0, "bahdanau_attend_f32_bwd": 0,
+    "bahdanau_attend_f32_sums": 0,
 }
 
 LSTM_UNIT_TILE = 16  # hidden units per block of the per-step LSTM kernels (UT in the source)
@@ -314,6 +317,20 @@ def _load() -> ctypes.CDLL:
         lib.avsr_av_align_step_bwd_prep.restype = i
         lib.avsr_av_align_step_bwd_scan.argtypes = [p] * 21 + [i] * 8 + [p]
         lib.avsr_av_align_step_bwd_scan.restype = i
+        lib.avsr_av_align_scan_f32.argtypes = [p] * 21 + [i] * 7 + [p]
+        lib.avsr_av_align_scan_f32.restype = i
+        lib.avsr_av_align_f32_smem.argtypes = [i] * 5
+        lib.avsr_av_align_f32_smem.restype = ctypes.c_longlong
+        lib.avsr_av_align_step_bwd_prep_f32.argtypes = [p] * 9 + [i] * 4 + [p]
+        lib.avsr_av_align_step_bwd_prep_f32.restype = i
+        lib.avsr_av_align_step_bwd_scan_f32.argtypes = [p] * 21 + [i] * 7 + [p]
+        lib.avsr_av_align_step_bwd_scan_f32.restype = i
+        lib.avsr_bahdanau_attend_f32.argtypes = [p] * 9 + [i] * 6 + [p]
+        lib.avsr_bahdanau_attend_f32.restype = i
+        lib.avsr_attend_step_bwd_f32.argtypes = [p] * 13 + [i] * 5 + [p]
+        lib.avsr_attend_step_bwd_f32.restype = i
+        lib.avsr_attend_loop_sums_f32.argtypes = [p] * 8 + [i] * 5 + [p]
+        lib.avsr_attend_loop_sums_f32.restype = i
         lib.avsr_bahdanau_smem.argtypes = [i, i, i]
         lib.avsr_bahdanau_smem.restype = ctypes.c_longlong
         lib.avsr_bahdanau_attend.argtypes = [p] * 9 + [i] * 7 + [p]
@@ -1708,22 +1725,59 @@ def launch_floor(stream: Optional[int] = None) -> None:
     _raise_on(_load().avsr_launch_floor(stream), "launch_floor")
 
 
-def _check_score(v, keys, B, S, A, dev):
-    """The score's operands: Bahdanau's v [A] bf16 and fp32 keys [B, S, A],
-    or Luong's (v None) bf16 keys [B, S, A], A the memory width."""
+def _operand_dtype(what: str, x: torch.Tensor, dot: bool) -> torch.dtype:
+    """The compute dtype of a K8 / K10 call, from its weight ``x``: bf16
+    (the bf16 policy, either score) or fp32 (the fp32 policy's instance:
+    Bahdanau's score only; its Luong read is still to be ported)."""
+    dt = x.dtype
+    if dt == torch.float32 and dot:
+        raise ValueError(f"{what}: the fp32 instance runs the Bahdanau read; the Luong read's "
+                         f"fp32 instance is still to be ported")
+    if dt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{what}: the kernels take bf16 or fp32 operands, got {dt}")
+    return dt
+
+
+def _check_score(v, keys, B, S, A, dev, dt=torch.bfloat16):
+    """The score's operands: Bahdanau's v [A] in the compute dtype ``dt``
+    and fp32 keys [B, S, A], or Luong's (v None) bf16 keys [B, S, A], A the
+    memory width."""
     if v is not None:
-        _check("v", v, torch.bfloat16, (A,), dev)
+        _check("v", v, dt, (A,), dev)
     _check("keys", keys, torch.float32 if v is not None else torch.bfloat16, (B, S, A), dev)
 
 
-def av_align_step_smem(H: int, Dc: int, A: int, S: int) -> int:
-    """Shared memory per block of K8's per-step forward (``csrc/av_align_scan.cu``
-    ``avsr_av_align_smem``), bytes: the larger of the gate launch's (the
-    [H + Dc, 16 units, 4 gates] weight slices and 16 bf16 h and ctx rows)
-    and the read launch's (``bahdanau_core.cuh`` ``read_smem_bytes``)."""
-    gate = (64 * (H + Dc) + 16 * (H + Dc)) * 2
-    read = (2 * A + H + S + 8 + 8 * 256) * 4
-    return max(gate, read)
+ALIGN_F32_CHUNK = 128  # input rows a chunk of K8's fp32 gate launch and regate (rch<float>)
+
+
+def av_align_step_smem(H: int, Dc: int, A: int, S: int, elem_bytes: int = 2) -> int:
+    """Shared memory per block of K8's per-step forward with ``elem_bytes``
+    operands (``csrc/av_align_scan.cu`` ``avsr_av_align_smem`` /
+    ``avsr_av_align_f32_smem``), bytes: the larger of the gate launch's
+    (bf16: the [H + Dc, 16 units, 4 gates] weight slices and 16 bf16 h and
+    ctx rows; fp32: a chunk of ``ALIGN_F32_CHUNK`` input rows of them) and
+    the read launch's (``bahdanau_core.cuh`` ``read_smem_bytes``)."""
+    K = H + Dc if elem_bytes == 2 else ALIGN_F32_CHUNK
+    gate = (64 * K + 16 * K) * elem_bytes
+    return max(gate, attend_general_smem(H, A, S))
+
+
+def attend_general_smem(Hq: int, A: int, S: int) -> int:
+    """Shared memory of a block of one read on 256 threads (K10's general
+    kernel, K8's per-step read launch; ``bahdanau_core.cuh``
+    ``read_smem_bytes``), bytes, in either policy: q and v [A], the query
+    [Hq], the scores [S], 8 reduction slots and 8 x 256 partial sums, fp32."""
+    return (2 * A + Hq + S + 8 + 8 * 256) * 4
+
+
+def attend_step_bwd_smem(Hq: int, A: int, S: int, Dv: int) -> int:
+    """Shared memory of a CTA of K10's per-step backward
+    (``csrc/bahdanau_attend.cu`` ``StepLayout``), bytes, in either policy:
+    q and v [A], dctx [Dv], the query [Hq], the CTA's half of dw / dsc,
+    the exchange of g [2], 8 reduction slots (then aligned to 16 bytes), 8
+    x 256 partial sums and the dq and dv exchanges [2, A], fp32."""
+    o = 2 * A + Dv + Hq + -(-S // 2) + 2 + 8
+    return ((o + 3) // 4 * 4 + 8 * 256 + 4 * A) * 4
 
 
 def av_align_fwd_smem(H: int, Dc: int, A: int, S: int, Dv: int, rows_per_cta: int) -> int:
@@ -1745,16 +1799,19 @@ def av_align_fwd_smem(H: int, Dc: int, A: int, S: int, Dv: int, rows_per_cta: in
             + 8 * (3 + rpc))
 
 
-def av_align_family(H: int, Dc: int, A: int, S: int, Dv: int) -> str:
+def av_align_family(H: int, Dc: int, A: int, S: int, Dv: int,
+                    dtype: torch.dtype = torch.bfloat16) -> str:
     """The kernels that run K8's forward at these widths (Dc = 0 without
-    input feeding, else Dv; A the key width): "cluster", one persistent
-    launch of 16-CTA thread-block clusters per call (``csrc/av_align_fwd.cuh``),
-    where H is 128 or 256 (one or two groups of 8 units a CTA), Dc = Dv is
-    a multiple of 64 (a swizzled ctx tile; input feeding), A a multiple of
-    128 (whole n-tiles of q a CTA) and one row a CTA fits a CTA's shared
-    memory (every preset's and uni-Luong's widths); else "step", the
-    per-step kernels (``csrc/av_align_scan.cu``).  Chosen by shape alone,
-    never after a failure; other shapes raise."""
+    input feeding, else Dv; A the key width) on ``dtype`` operands:
+    "cluster", one persistent launch of 16-CTA thread-block clusters per
+    call (``csrc/av_align_fwd.cuh``), where the operands are bf16, H is 128
+    or 256 (one or two groups of 8 units a CTA), Dc = Dv is a multiple of 64
+    (a swizzled ctx tile; input feeding), A a multiple of 128 (whole n-tiles
+    of q a CTA) and one row a CTA fits a CTA's shared memory (every
+    preset's and uni-Luong's widths); else "step", the per-step kernels
+    (``csrc/av_align_scan.cu``), every fp32 call among them (the fp32
+    policy's instance).  Chosen by shape and type alone, never after a
+    failure; other shapes raise."""
     if (H < LSTM_UNIT_TILE or H % LSTM_UNIT_TILE or A < 8 or A % 8 or A > 512
             or Dv < LSTM_UNIT_TILE or Dv % LSTM_UNIT_TILE or Dv > 2048 or Dc not in (0, Dv)):
         raise ValueError(f"av_align scan: H={H}, Dc={Dc}, A={A}, Dv={Dv}; the kernels take H and "
@@ -1762,10 +1819,13 @@ def av_align_family(H: int, Dc: int, A: int, S: int, Dv: int) -> str:
                          f"up to 512 and Dc 0 or Dv")
     if not 1 <= S <= FUSION_MAX_TV:
         raise ValueError(f"av_align scan: T_v={S}; the kernels take 1 <= T_v <= {FUSION_MAX_TV}")
-    if (H in (128, 256) and Dc == Dv and Dv % 64 == 0 and A % 128 == 0
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"av_align scan: the kernels take bf16 or fp32 operands, got {dtype}")
+    f32 = dtype == torch.float32
+    if (not f32 and H in (128, 256) and Dc == Dv and Dv % 64 == 0 and A % 128 == 0
             and av_align_fwd_smem(H, Dc, A, S, Dv, 1) <= SMEM_LIMIT):
         return "cluster"
-    smem = av_align_step_smem(H, Dc, A, S)
+    smem = av_align_step_smem(H, Dc, A, S, 4 if f32 else 2)
     if smem > SMEM_LIMIT:
         raise ValueError(f"av_align scan: H={H}, Dc={Dc}, A={A}, T_v={S} need {smem} bytes "
                          f"of shared memory per block (limit {SMEM_LIMIT})")
@@ -1804,31 +1864,37 @@ def cluster_align_weights(wh: torch.Tensor, ctx_proj: Optional[torch.Tensor]) ->
 
 
 def _check_av_align(wh, b, ctx_proj, wq, v, xw, mask, keys, values):
+    """K8's operands, wh, ctx_proj, wq, v and values all bf16 (the bf16
+    policy) or all fp32 (the fp32 policy, Bahdanau's read) -> (T, B, H, Dc,
+    A, S, Dv, dev, family, dtype)."""
     T, B, H4 = xw.shape
     H = H4 // 4
     S, A = keys.shape[1], keys.shape[2]
     Dv = values.shape[-1]
     dev = xw.device
-    _check("wh", wh, torch.bfloat16, (H, 4 * H), dev)
+    dt = _operand_dtype("av_align scan", wh, v is None)
+    _check("wh", wh, dt, (H, 4 * H), dev)
     _check("b", b, torch.float32, (4 * H,), dev)
     if ctx_proj is not None:
-        _check("ctx_proj", ctx_proj, torch.bfloat16, (Dv, 4 * H), dev)
-    _check("wq", wq, torch.bfloat16, (H, A), dev)
-    _check_score(v, keys, B, S, A, dev)
+        _check("ctx_proj", ctx_proj, dt, (Dv, 4 * H), dev)
+    _check("wq", wq, dt, (H, A), dev)
+    _check_score(v, keys, B, S, A, dev, dt)
     _check("xw", xw, torch.float32, (T, B, 4 * H), dev)
     _check("mask", mask, torch.float32, (T, B), dev)
-    _check("values", values, torch.bfloat16, (B, S, Dv), dev)
+    _check("values", values, dt, (B, S, Dv), dev)
     if B < 1:
         raise ValueError(f"av_align scan: B={B}; the kernels take B >= 1")
     Dc = Dv if ctx_proj is not None else 0
-    family = av_align_family(H, Dc, A, S, Dv)
-    return T, B, H, Dc, A, S, Dv, dev, family
+    family = av_align_family(H, Dc, A, S, Dv, dt)
+    return T, B, H, Dc, A, S, Dv, dev, family, dt
 
 
 def av_align_scan(wh, b, ctx_proj, wq, v, xw, mask, keys, values, mbias, mmask, *,
                   save: bool = False):
     """K8: the AV-Align fusion scan, forward (CUDA); with ``v`` None its
-    Luong instance, counted as ``av_align_scan_luong``.
+    Luong instance, counted as ``av_align_scan_luong``; with fp32 wh,
+    ctx_proj, wq, v and values the fp32 policy's instance (the per-step
+    kernels), counted as ``av_align_scan_f32``.
 
     wh [H,4H] bf16, b [4H] f32, ctx_proj [Dv,4H] bf16 or None (no input
     feeding), wq [H,A] bf16, v [A] bf16 (None: Luong), xw [T,B,4H] f32, mask
@@ -1841,8 +1907,8 @@ def av_align_scan(wh, b, ctx_proj, wq, v, xw, mask, keys, values, mbias, mmask, 
     family ``av_align_family`` names: one cluster launch after the weights'
     layout (``cluster_align_weights``), or two launches per step.
     """
-    T, B, H, Dc, A, S, Dv, dev, family = _check_av_align(wh, b, ctx_proj, wq, v, xw, mask, keys,
-                                                         values)
+    T, B, H, Dc, A, S, Dv, dev, family, dt = _check_av_align(wh, b, ctx_proj, wq, v, xw, mask,
+                                                             keys, values)
     _check("mbias", mbias, torch.float32, (B, S), dev)
     _check("mmask", mmask, torch.float32, (B, S), dev)
     lib = _load()
@@ -1874,16 +1940,27 @@ def av_align_scan(wh, b, ctx_proj, wq, v, xw, mask, keys, values, mbias, mmask, 
         c = torch.zeros((B, H), dtype=torch.float32, device=dev)
         ctxbuf = torch.zeros((2, B, Dv), dtype=torch.float32, device=dev)
         hnew = empty(B, H)
-        err = lib.avsr_av_align_scan(
-            wh_tiled.data_ptr(), _ptr(cp_tiled), b.data_ptr(), xw.data_ptr(), mask.data_ptr(),
-            wq.data_ptr(), _ptr(v), keys.data_ptr(), values.data_ptr(), mbias.data_ptr(),
-            mmask.data_ptr(), hbuf.data_ptr(), c.data_ptr(), ctxbuf.data_ptr(), hnew.data_ptr(),
-            hs.data_ptr(), ctxs.data_ptr(), aligns.data_ptr(), *res_ptrs,
-            T, B, H, Dc, A, S, Dv, int(dot), stream)
+        ptrs = (wh_tiled.data_ptr(), _ptr(cp_tiled), b.data_ptr(), xw.data_ptr(),
+                mask.data_ptr(), wq.data_ptr(), _ptr(v), keys.data_ptr(), values.data_ptr(),
+                mbias.data_ptr(), mmask.data_ptr(), hbuf.data_ptr(), c.data_ptr(),
+                ctxbuf.data_ptr(), hnew.data_ptr(), hs.data_ptr(), ctxs.data_ptr(),
+                aligns.data_ptr(), *res_ptrs)
+        if dt == torch.float32:
+            err = lib.avsr_av_align_scan_f32(*ptrs, T, B, H, Dc, A, S, Dv, stream)
+        else:
+            err = lib.avsr_av_align_scan(*ptrs, T, B, H, Dc, A, S, Dv, int(dot), stream)
         hT, cT, ctxT = hbuf[T % 2], c, ctxbuf[T % 2]
     _raise_on(err, "av_align_scan launch")
-    LAUNCHES["av_align_scan_luong" if dot else "av_align_scan"] += 1
+    LAUNCHES[align_counter("av_align_scan", dot, dt)] += 1
     return hs, ctxs, aligns, hT, cT, ctxT, res
+
+
+def align_counter(name: str, dot: bool, dtype: torch.dtype = torch.bfloat16) -> str:
+    """``av_align_scan[_bwd]`` -> the ``LAUNCHES`` entry of a K8 call: the
+    Luong instance's ``av_align_scan_luong[_bwd]``, the fp32 policy's
+    ``av_align_scan_f32[_bwd]``."""
+    tag = "_f32" if dtype == torch.float32 else "_luong" if dot else ""
+    return "av_align_scan" + tag + name[len("av_align_scan"):]
 
 
 def av_align_bwd_smem(H: int, Dc: int, A: int, S: int, Dv: int, dot: bool,
@@ -1910,24 +1987,30 @@ def av_align_bwd_smem(H: int, Dc: int, A: int, S: int, Dv: int, dot: bool,
 
 def av_align_step_bwd_smem(H: int, A: int, S: int, Dv: int) -> int:
     """Shared memory of the row launch of K8's per-step backward
-    (``csrc/av_align_step_bwd.cuh`` ``step_row_smem_bytes``), bytes: the
-    read's fp32 scratch (q, v [A]; dctx [Dv]; the query [H]; dw / dsc [S];
-    8 reduction slots; 8 x 256 partial sums) and dquery [H].  Its regate
-    and product launches stage fixed chunks (40 and 48 KB)."""
+    (``csrc/av_align_step_bwd.cuh`` ``step_row_smem_bytes``), bytes, in
+    either policy: the read's fp32 scratch (q, v [A]; dctx [Dv]; the query
+    [H]; dw / dsc [S]; 8 reduction slots; 8 x 256 partial sums) and dquery
+    [H].  Its regate and product launches stage fixed chunks (40 and 48 KB
+    in bf16; 40 and 32 KB in fp32)."""
     return (2 * A + Dv + 2 * H + S + 8 + 8 * 256) * 4
 
 
-def av_align_bwd_family(H: int, Dc: int, A: int, S: int, Dv: int, dot: bool) -> str:
-    """The kernels that run K8's backward at these widths: "cluster", the
-    regate, one persistent launch of 16-CTA clusters for the recurrence and
-    the memory's sums after it (``csrc/av_align_bwd.cuh``), where H is a
+def av_align_bwd_family(H: int, Dc: int, A: int, S: int, Dv: int, dot: bool,
+                        dtype: torch.dtype = torch.bfloat16) -> str:
+    """The kernels that run K8's backward at these widths on ``dtype``
+    operands: "cluster", the regate, one persistent launch of 16-CTA
+    clusters for the recurrence and the memory's sums after it
+    (``csrc/av_align_bwd.cuh``), where the operands are bf16, H is a
     multiple of 64 (Luong: 128) up to 512, H + Dc a multiple of 128 up to
     1024, A and Dv multiples of 64 and one row a CTA fits a CTA's shared
     memory (every preset's and uni-Luong's widths); else "step", the
     per-step kernels (``csrc/av_align_step_bwd.cuh``), which take every
-    shape the forward takes.  Chosen by shape alone, never after a
-    failure; it raises exactly where ``av_align_family`` raises."""
-    av_align_family(H, Dc, A, S, Dv)
+    shape the forward takes, every fp32 call among them (the fp32 policy's
+    instance).  Chosen by shape and type alone, never after a failure; it
+    raises exactly where ``av_align_family`` raises."""
+    av_align_family(H, Dc, A, S, Dv, dtype)
+    if dtype == torch.float32:
+        return "step"
     if (H % (128 if dot else 64) == 0 and H <= 512 and (H + Dc) % (8 * ALIGN_CLUSTER) == 0
             and H + Dc <= 64 * ALIGN_CLUSTER and Dv % 64 == 0 and A % 64 == 0
             and av_align_bwd_smem(H, Dc, A, S, Dv, dot, 1) <= SMEM_LIMIT):
@@ -1982,8 +2065,8 @@ def av_align_scan_bwd_stages(wh, b, ctx_proj, wq, v, xw, mask, keys, values, ali
     call.  Same operands and checks as ``av_align_scan_bwd``;
     ``rows_per_cta`` (1 or 2) is the cluster recurrence's layout, by
     default ``av_align_bwd_rows_per_cta``'s."""
-    T, B, H, Dc, A, S, Dv, dev, _ = _check_av_align(wh, b, ctx_proj, wq, v, xw, mask, keys,
-                                                    values)
+    T, B, H, Dc, A, S, Dv, dev, _, dt = _check_av_align(wh, b, ctx_proj, wq, v, xw, mask, keys,
+                                                        values)
     f32 = torch.float32
     _check("aligns", aligns, f32, (T, B, S), dev)
     for name, x, shape in (("h_res", h_res, (T, B, H)), ("c_res", c_res, (T, B, H)),
@@ -1993,7 +2076,7 @@ def av_align_scan_bwd_stages(wh, b, ctx_proj, wq, v, xw, mask, keys, values, ali
         _check(name, x, f32, shape, dev)
     lib = _load()
     dot = int(v is None)
-    family = av_align_bwd_family(H, Dc, A, S, Dv, bool(dot))
+    family = av_align_bwd_family(H, Dc, A, S, Dv, bool(dot), dt)
     w_all = wh if ctx_proj is None else torch.cat([wh, ctx_proj], dim=0)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
@@ -2016,20 +2099,26 @@ def av_align_scan_bwd_stages(wh, b, ctx_proj, wq, v, xw, mask, keys, values, ali
         dv_acc = None if dot else zeros(B, A)
         db_acc, dkeys, dvalues = zeros(B, 4 * H), zeros(B, S, A), zeros(B, S, Dv)
 
+        fp32 = dt == f32
+
         def step_prep():
-            _raise_on(lib.avsr_av_align_step_bwd_prep(
+            prep = lib.avsr_av_align_step_bwd_prep_f32 if fp32 else lib.avsr_av_align_step_bwd_prep
+            _raise_on(prep(
                 wh_tiled.data_ptr(), _ptr(cp_tiled), b.data_ptr(), xw.data_ptr(),
                 h_res.data_ptr(), c_res.data_ptr(), ctx_res.data_ptr(), act.data_ptr(),
                 hnew.data_ptr(), T, B, H, Dc, stream), "av_align_scan_bwd prep launch")
 
         def step_scan():
-            _raise_on(lib.avsr_av_align_step_bwd_scan(
-                w_all_t.data_ptr(), mask.data_ptr(), wq.data_ptr(), _ptr(v), keys.data_ptr(),
-                values.data_ptr(), aligns.data_ptr(), hnew.data_ptr(), act.data_ptr(),
-                c_res.data_ptr(), dhs.data_ptr(), dctxs.data_ptr(), dh.data_ptr(), dc.data_ptr(),
-                dctx.data_ptr(), dxw.data_ptr(), dq.data_ptr(), _ptr(dv_acc), db_acc.data_ptr(),
-                dkeys.data_ptr(), dvalues.data_ptr(), T, B, H, Dc, A, S, Dv, dot, stream),
-                "av_align_scan_bwd scan launch")
+            ptrs = (w_all_t.data_ptr(), mask.data_ptr(), wq.data_ptr(), _ptr(v), keys.data_ptr(),
+                    values.data_ptr(), aligns.data_ptr(), hnew.data_ptr(), act.data_ptr(),
+                    c_res.data_ptr(), dhs.data_ptr(), dctxs.data_ptr(), dh.data_ptr(),
+                    dc.data_ptr(), dctx.data_ptr(), dxw.data_ptr(), dq.data_ptr(), _ptr(dv_acc),
+                    db_acc.data_ptr(), dkeys.data_ptr(), dvalues.data_ptr())
+            if fp32:
+                err = lib.avsr_av_align_step_bwd_scan_f32(*ptrs, T, B, H, Dc, A, S, Dv, stream)
+            else:
+                err = lib.avsr_av_align_step_bwd_scan(*ptrs, T, B, H, Dc, A, S, Dv, dot, stream)
+            _raise_on(err, "av_align_scan_bwd scan launch")
 
         def step_finish():
             return dxw, db_acc.sum(dim=0), dq, dv_acc, dkeys, dvalues, hnew
@@ -2077,7 +2166,9 @@ def av_align_scan_bwd_stages(wh, b, ctx_proj, wq, v, xw, mask, keys, values, ali
 def av_align_scan_bwd(wh, b, ctx_proj, wq, v, xw, mask, keys, values, aligns, h_res, c_res,
                       ctx_res, dhs, dctxs, dhT, dcT, dctxT):
     """K8: the reverse scan of the fusion's gradient (CUDA); with ``v``
-    None its Luong instance, counted as ``av_align_scan_luong_bwd``.
+    None its Luong instance, counted as ``av_align_scan_luong_bwd``; with
+    fp32 weights and values the fp32 policy's instance (the per-step
+    kernels), counted as ``av_align_scan_f32_bwd``.
 
     The forward's operands (no memory bias or mask: they enter through
     ``aligns`` [T,B,S], the forward's read weights), its saved fp32 carries
@@ -2098,7 +2189,7 @@ def av_align_scan_bwd(wh, b, ctx_proj, wq, v, xw, mask, keys, values, aligns, h_
                                               dcT, dctxT)
     for name in ("prep", "scan", "sums"):
         stages[name]()
-    LAUNCHES["av_align_scan_bwd" if v is not None else "av_align_scan_luong_bwd"] += 1
+    LAUNCHES[align_counter("av_align_scan_bwd", v is None, wh.dtype)] += 1
     return finish()
 
 
@@ -2107,21 +2198,23 @@ def _check_bahdanau(what, query, wq, v, keys, values, smem_fn, *smem_args):
     over a memory of B rows (keys and values [B, S, *], N a multiple of B),
     their limits and the shared memory that the row kernel's ``smem_fn(Hq,
     A, S, *smem_args)`` asks (the library is loaded only once the operands
-    pass): (N, Hq, S, A, Dv, dev)."""
+    pass): (N, Hq, S, A, Dv, dev, dtype), wq, v and values all in the
+    compute dtype (bf16, or fp32 for the fp32 policy's Bahdanau read)."""
     N, Hq = query.shape
     B, S, A = keys.shape
     Dv = values.shape[-1]
     dev = query.device
+    dt = _operand_dtype(what, wq, v is None)
     _check("query", query, torch.float32, (N, Hq), dev)
-    _check("wq", wq, torch.bfloat16, (Hq, A), dev)
-    _check_score(v, keys, B, S, A, dev)
-    _check("values", values, torch.bfloat16, (B, S, Dv), dev)
+    _check("wq", wq, dt, (Hq, A), dev)
+    _check_score(v, keys, B, S, A, dev, dt)
+    _check("values", values, dt, (B, S, Dv), dev)
     _check_attend_shape(what, N, B, S, A, Dv)
     smem = getattr(_load(), smem_fn)(Hq, A, S, *smem_args)
     if smem > SMEM_LIMIT:
         raise ValueError(f"{what}: Hq={Hq}, A={A}, S={S}, Dv={Dv} need {smem} bytes of "
                          f"shared memory per block (limit {SMEM_LIMIT})")
-    return N, Hq, S, A, Dv, dev
+    return N, Hq, S, A, Dv, dev, dt
 
 
 def _check_attend_shape(what, N, B, S, A, Dv):
@@ -2263,7 +2356,8 @@ def attend_row_admits(Hq: int, A: int, S: int, Dv: int, dot: bool) -> bool:
             and attend_row_smem(Hq, A, S, Dv, dot) <= SMEM_LIMIT)
 
 
-def attend_route(N: int, B: int, S: int, Hq: int, A: int, Dv: int, dot: bool) -> str:
+def attend_route(N: int, B: int, S: int, Hq: int, A: int, Dv: int, dot: bool,
+                 dtype: torch.dtype = torch.bfloat16) -> str:
     """The kernel that runs K10 for N query rows over a memory of B rows
     (W = N / B beams a row): "grouped", a beam step's read, W from 2 to
     ``ATTEND_GROUP_MAX_W`` at widths that are multiples of 16 while a
@@ -2277,9 +2371,13 @@ def attend_route(N: int, B: int, S: int, Hq: int, A: int, Dv: int, dot: bool) ->
     256 threads per query row (``bahdanau_core.cuh``'s read).  The grouped
     read also beat the general kernel on the H100 where its clusters take
     two or more waves (8 rows of 16 CTAs over the 16 s memory, 32 rows at S
-    = 197), so W >= 2 takes it at every shape it holds.  Chosen by shape
-    alone, never after a failure."""
+    = 197), so W >= 2 takes it at every shape it holds.  fp32 operands (the
+    fp32 policy's instance) take "general" at every shape: the grouped and
+    row reads stage bf16 tiles.  Chosen by shape and type alone, never
+    after a failure."""
     _check_attend_shape("attend", N, B, S, A, Dv)
+    if dtype == torch.float32:
+        return "general"
     W = N // B
     if W >= 2 and attend_grouped_cluster(B, W, S, Hq, A, Dv, dot) > 0:
         return "grouped"
@@ -2310,15 +2408,16 @@ def bahdanau_attend(query, wq, v, keys, values, bias, mask):
     its width), values [B,S,Dv] bf16, bias / mask [B,S] f32; query row n
     reads memory row n // W -> (ctx [N,Dv] f32, weights [N,S] f32; a row
     whose every position is masked gets zeros in both).  The kernel by
-    ``attend_route``.
+    ``attend_route``.  With wq, v and values fp32 (the fp32 policy) the
+    general kernel's fp32 instance, counted as ``bahdanau_attend_f32``.
     """
-    N, Hq, S, A, Dv, dev = _check_bahdanau("bahdanau attend", query, wq, v, keys, values,
-                                           "avsr_bahdanau_smem")
+    N, Hq, S, A, Dv, dev, dt = _check_bahdanau("bahdanau attend", query, wq, v, keys, values,
+                                               "avsr_bahdanau_smem")
     B = keys.shape[0]
     _check("bias", bias, torch.float32, (B, S), dev)
     _check("mask", mask, torch.float32, (B, S), dev)
     dot = v is None
-    route = attend_route(N, B, S, Hq, A, Dv, dot)
+    route = attend_route(N, B, S, Hq, A, Dv, dot, dt)
     lib = _load()
     ctx = torch.empty((N, Dv), dtype=torch.float32, device=dev)
     weights = torch.empty((N, S), dtype=torch.float32, device=dev)
@@ -2330,15 +2429,20 @@ def bahdanau_attend(query, wq, v, keys, values, bias, mask):
         err = lib.avsr_attend_grouped(*args, B, N // B, Hq, A, S, Dv, C, int(dot), stream)
     elif route == "row":
         err = lib.avsr_attend_row(*args, N, N // B, Hq, A, S, Dv, int(dot), stream)
+    elif dt == torch.float32:
+        err = lib.avsr_bahdanau_attend_f32(*args, N, N // B, Hq, A, S, Dv, stream)
     else:
         err = lib.avsr_bahdanau_attend(*args, N, N // B, Hq, A, S, Dv, int(dot), stream)
     _raise_on(err, f"bahdanau_attend ({route}) launch")
-    LAUNCHES[attend_counter(route, dot)] += 1
+    LAUNCHES[attend_counter(route, dot, dt)] += 1
     return ctx, weights
 
 
-def attend_counter(route: str, dot: bool) -> str:
-    """The ``LAUNCHES`` entry of a K10 forward launch on ``route``."""
+def attend_counter(route: str, dot: bool, dtype: torch.dtype = torch.bfloat16) -> str:
+    """The ``LAUNCHES`` entry of a K10 forward launch on ``route``
+    (``bahdanau_attend_f32`` for the fp32 policy's general kernel)."""
+    if dtype == torch.float32:
+        return "bahdanau_attend_f32"
     return (("luong_attend" if dot else "bahdanau_attend")
             + {"grouped": "_grouped", "row": "_row", "general": ""}[route])
 
@@ -2363,13 +2467,14 @@ def attend_step_bwd(query, wq, v, keys, values, weights, dctx, dsc, dctx_out, q,
     [N,Hq] f32; writes the step's rows (slot k of the loop's buffers, each
     contiguous fp32): dsc [N,S], dctx_out [N,Dv], q [N,A] (Luong: bf16(q)),
     dq [N,A] and dv [N,A] (None for Luong).  No memory-sized gradient.  A
-    cluster of two CTAs a row.
+    cluster of two CTAs a row.  With wq, v and values fp32 (the fp32
+    policy) its fp32 instance, counted as ``bahdanau_attend_f32_bwd``.
     """
     if keys.shape[0] != query.shape[0]:
         raise ValueError(f"attend step bwd: a memory row per query row, got {query.shape[0]} "
                          f"queries over {keys.shape[0]} rows")
-    N, Hq, S, A, Dv, dev = _check_bahdanau("attend step bwd", query, wq, v, keys, values,
-                                           "avsr_bahdanau_smem")
+    N, Hq, S, A, Dv, dev, dt = _check_bahdanau("attend step bwd", query, wq, v, keys, values,
+                                               "avsr_bahdanau_smem")
     f32 = torch.float32
     _check("weights", weights, f32, (N, S), dev)
     _check("dctx", dctx, f32, (N, Dv), dev)
@@ -2386,21 +2491,28 @@ def attend_step_bwd(query, wq, v, keys, values, weights, dctx, dsc, dctx_out, q,
                          f"kernel takes")
     dquery = torch.empty((N, Hq), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.avsr_attend_step_bwd(
-        query.data_ptr(), wq.data_ptr(), _ptr(v), keys.data_ptr(), values.data_ptr(),
-        weights.data_ptr(), dctx.data_ptr(), dquery.data_ptr(), dsc.data_ptr(),
-        dctx_out.data_ptr(), q.data_ptr(), dq.data_ptr(), _ptr(dv), N, Hq, A, S, Dv,
-        int(v is None), stream)
+    ptrs = (query.data_ptr(), wq.data_ptr(), _ptr(v), keys.data_ptr(), values.data_ptr(),
+            weights.data_ptr(), dctx.data_ptr(), dquery.data_ptr(), dsc.data_ptr(),
+            dctx_out.data_ptr(), q.data_ptr(), dq.data_ptr(), _ptr(dv))
+    if dt == f32:
+        err = lib.avsr_attend_step_bwd_f32(*ptrs, N, Hq, A, S, Dv, stream)
+        counter = "bahdanau_attend_f32_bwd"
+    else:
+        err = lib.avsr_attend_step_bwd(*ptrs, N, Hq, A, S, Dv, int(v is None), stream)
+        counter = "bahdanau_attend_bwd" if v is not None else "luong_attend_bwd"
     _raise_on(err, "attend_step_bwd launch")
-    LAUNCHES["bahdanau_attend_bwd" if v is not None else "luong_attend_bwd"] += 1
+    LAUNCHES[counter] += 1
     return dquery
 
 
-def attend_sums_family(A: int, Dv: int) -> str:
-    """The route of a read loop's memory sums, by width alone: the tensor-core
-    sums of ``av_align_bwd.cuh`` (``"tensor_core"``) where A and Dv are
-    multiples of 64, else the CUDA-core kernel of ``bahdanau_attend.cu``
-    (``"cuda_core"``)."""
+def attend_sums_family(A: int, Dv: int, dtype: torch.dtype = torch.bfloat16) -> str:
+    """The route of a read loop's memory sums, by width and type alone: the
+    tensor-core sums of ``av_align_bwd.cuh`` (``"tensor_core"``) where the
+    operands are bf16 and A and Dv are multiples of 64, else the CUDA-core
+    kernel of ``bahdanau_attend.cu`` (``"cuda_core"``; every fp32 loop, the
+    fp32 policy's instance)."""
+    if dtype == torch.float32:
+        return "cuda_core"
     return "tensor_core" if A % 64 == 0 and Dv % 64 == 0 else "cuda_core"
 
 
@@ -2413,15 +2525,18 @@ def attend_loop_sums(keys, v, weights, q, dsc, dctx):
     the loop's rows: the forward's weights [K,N,S], q [K,N,A] (Luong:
     bf16(q)), dsc [K,N,S], dctx [K,N,Dv], all f32 -> (dkeys [N,S,A], dvalues
     [N,S,Dv]) f32, each element written once: the steps' terms summed in a
-    fixed order.  Routed by ``attend_sums_family``.
+    fixed order.  Routed by ``attend_sums_family``.  With an fp32 v (the
+    fp32 policy) the CUDA-core kernel's fp32 instance, counted as
+    ``bahdanau_attend_f32_sums``.
     """
     K, N, S = weights.shape
     A, Dv = q.shape[-1], dctx.shape[-1]
     dev = weights.device
     f32 = torch.float32
+    dt = torch.bfloat16 if v is None else _operand_dtype("attend loop sums", v, False)
     _check("keys", keys, f32 if v is not None else torch.bfloat16, (N, S, A), dev)
     if v is not None:
-        _check("v", v, torch.bfloat16, (A,), dev)
+        _check("v", v, dt, (A,), dev)
     for name, x, shape in (("weights", weights, (K, N, S)), ("q", q, (K, N, A)),
                            ("dsc", dsc, (K, N, S)), ("dctx", dctx, (K, N, Dv))):
         _check(name, x, f32, shape, dev)
@@ -2432,7 +2547,13 @@ def attend_loop_sums(keys, v, weights, q, dsc, dctx):
     dvalues = torch.empty((N, S, Dv), dtype=f32, device=dev)
     dot = int(v is None)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if attend_sums_family(A, Dv) == "tensor_core":
+    counter = "bahdanau_attend_sums" if v is not None else "luong_attend_sums"
+    if dt == f32:
+        err = lib.avsr_attend_loop_sums_f32(
+            keys.data_ptr(), v.data_ptr(), weights.data_ptr(), q.data_ptr(), dsc.data_ptr(),
+            dctx.data_ptr(), dkeys.data_ptr(), dvalues.data_ptr(), K, N, A, S, Dv, stream)
+        counter = "bahdanau_attend_f32_sums"
+    elif attend_sums_family(A, Dv) == "tensor_core":
         dv_part = None if dot else torch.empty((N, -(-S // 32), A), dtype=f32, device=dev)
         err = lib.avsr_av_align_bwd_sums(
             keys.data_ptr(), _ptr(v), weights.data_ptr(), q.data_ptr(), dsc.data_ptr(),
@@ -2443,7 +2564,7 @@ def attend_loop_sums(keys, v, weights, q, dsc, dctx):
             keys.data_ptr(), _ptr(v), weights.data_ptr(), q.data_ptr(), dsc.data_ptr(),
             dctx.data_ptr(), dkeys.data_ptr(), dvalues.data_ptr(), K, N, A, S, Dv, dot, stream)
     _raise_on(err, "attend_loop_sums launch")
-    LAUNCHES["bahdanau_attend_sums" if v is not None else "luong_attend_sums"] += 1
+    LAUNCHES[counter] += 1
     return dkeys, dvalues
 
 

@@ -26,7 +26,12 @@ memory's gradients summed over the steps after it, is mirrored in plain
 PyTorch by ``av_align_scan_bwd_split_plain``.  The weight gradients of Wh,
 ctx_proj, wq and v are single products over all steps after the scan.
 The attention type is a non-tensor argument of every function of the scan
-(``attention_type``), and the kernels take either score.  The hoisted fp32
+(``attention_type``), and the kernels take either score under the bf16
+policy; under the fp32 policy (``train.compute_dtype="float32"``) the
+wrappers hand the kernels fp32 operands and ``kernels.av_align_family``
+routes them to the per-step kernels' fp32 instance (the Bahdanau read:
+the Luong read's fp32 instance, family "K8 Luong", is still to be ported
+and raises on the card).  The hoisted fp32
 input product, the memory preparation, the AU head and the concat stay
 torch code.
 
@@ -132,10 +137,17 @@ def av_align_scan_plain(cell: Params, att: Params, ctx_proj: Optional[torch.Tens
     return hs, ctxs, aligns, (hT, cT, ctxT)
 
 
-def _cell_operands(cell: Params, ctx_proj: Optional[torch.Tensor]):
-    bf = torch.bfloat16
-    return (cell["wh"].to(bf).contiguous(), cell["b"].float().contiguous(),
-            None if ctx_proj is None else ctx_proj.to(bf).contiguous())
+def _cell_operands(cell: Params, ctx_proj: Optional[torch.Tensor], cdt: torch.dtype):
+    """(wh, b, ctx_proj) as K8's kernels take them: the weights in the
+    compute dtype, the bias fp32."""
+    return (cell["wh"].to(cdt).contiguous(), cell["b"].float().contiguous(),
+            None if ctx_proj is None else ctx_proj.to(cdt).contiguous())
+
+
+def _family(attention_type: str) -> str:
+    """K8's kernel family for ``numerics.check_policy``: "K8", or "K8 Luong"
+    (its Luong read, whose fp32 instance is still to be ported)."""
+    return "K8 Luong" if attention_type == "luong" else "K8"
 
 
 def av_align_scan_fwd(cell: Params, att: Params, ctx_proj: Optional[torch.Tensor],
@@ -144,15 +156,16 @@ def av_align_scan_fwd(cell: Params, att: Params, ctx_proj: Optional[torch.Tensor
                       attention_type: str = "bahdanau"):
     """K8 forward wrapper: the CUDA kernel for GPU tensors, the plain
     version on the CPU; same contract as ``av_align_scan_fwd_plain``.  The
-    kernel runs the bf16 policy only; any other compute dtype on a GPU
-    raises."""
+    kernels run the bf16 policy, and the Bahdanau read the fp32 one too (its
+    operands in ``cdt``); any other family or compute dtype on a GPU
+    raises rather than falling back."""
     if xw.device.type == "cpu":
         return av_align_scan_fwd_plain(cell, att, ctx_proj, xw, mask, mem, cdt, save,
                                        attention_type=attention_type)
-    check_policy(cdt, "K8")
-    wq, v, keys, values = attn.kernel_operands(attention_type, att, mem)
+    check_policy(cdt, _family(attention_type))
+    wq, v, keys, values = attn.kernel_operands(attention_type, att, mem, cdt)
     hs, ctxs, aligns, hT, cT, ctxT, res = kernels.av_align_scan(
-        *_cell_operands(cell, ctx_proj), wq, v, xw.float().contiguous(),
+        *_cell_operands(cell, ctx_proj, cdt), wq, v, xw.float().contiguous(),
         mask.float().contiguous(), keys, values, mem.bias.float().contiguous(),
         mem.mask.float().contiguous(), save=save)
     return (hs, ctxs, aligns, hT, cT, ctxT), res
@@ -329,10 +342,10 @@ def av_align_scan_bwd(cell: Params, att: Params, ctx_proj: Optional[torch.Tensor
         return av_align_scan_bwd_plain(cell, att, ctx_proj, xw, mask, mem, aligns, res, dhs,
                                        dctxs, dhT, dcT, dctxT, cdt,
                                        attention_type=attention_type)
-    check_policy(cdt, "K8")
-    wq, v, keys, values = attn.kernel_operands(attention_type, att, mem)
+    check_policy(cdt, _family(attention_type))
+    wq, v, keys, values = attn.kernel_operands(attention_type, att, mem, cdt)
     return kernels.av_align_scan_bwd(
-        *_cell_operands(cell, ctx_proj), wq, v, xw.float().contiguous(),
+        *_cell_operands(cell, ctx_proj, cdt), wq, v, xw.float().contiguous(),
         mask.float().contiguous(), keys, values, aligns.float().contiguous(),
         *(r.float().contiguous() for r in res), dhs.float().contiguous(),
         dctxs.float().contiguous(), dhT.float().contiguous(), dcT.float().contiguous(),

@@ -44,6 +44,14 @@ hand-derived gradient JAX's autodiff takes through one read, with its
 rounding points) against which the tests hold the loop.
 ``attend_batched_queries`` (every query of a known sequence at once) is
 plain PyTorch, as the reference leaves it to XLA; no module calls it.
+
+Under the fp32 policy (``train.compute_dtype="float32"``) every rounding
+point above is the identity: the wrappers hand the kernels fp32 wq, v and
+values (``kernel_operands`` casts to the compute dtype), which
+``kernels.attend_route`` and ``kernels.attend_sums_family`` route to K10's
+fp32 instances by dtype (the general kernel, the per-step backward and the
+CUDA-core sums).  The Bahdanau read only: the Luong read's fp32 instance
+(family "K10 Luong") is still to be ported and raises on the card.
 """
 
 from __future__ import annotations
@@ -197,28 +205,36 @@ def attend_fwd(attention_type: str, params: Params, query: torch.Tensor, mem: At
     """K10 forward wrapper: the CUDA kernel for GPU tensors (the grouped
     read or the row kernel, ``kernels.attend_route``), the plain version on
     the CPU; same contract as ``attend_plain``.  The kernels run the bf16
-    policy only; any other compute dtype on a GPU raises."""
+    policy, and the Bahdanau read the fp32 one too; any other family or
+    compute dtype on a GPU raises rather than falling back."""
     if query.device.type == "cpu":
         return attend_plain(attention_type, params, query, mem, cdt)
     _check_type(attention_type)
-    check_policy(cdt, "K10")
+    check_policy(cdt, policy_family(attention_type))
     return kernels.bahdanau_attend(
-        query.float().contiguous(), *kernel_operands(attention_type, params, mem),
+        query.float().contiguous(), *kernel_operands(attention_type, params, mem, cdt),
         mem.bias.float().contiguous(), mem.mask.float().contiguous())
 
 
-def kernel_operands(attention_type: str, params: Params, mem: AttentionMemory):
-    """(wq, v, keys, values) as the read kernels take them: bf16 wq and
-    values; Bahdanau's bf16 v and fp32 keys, or Luong's bf16 keys and no v
-    (one bf16 copy serves as both when the keys are the values)."""
-    bf = torch.bfloat16
-    values = mem.values.to(bf).contiguous()
+def policy_family(attention_type: str) -> str:
+    """K10's kernel family for ``numerics.check_policy``: "K10", or "K10
+    Luong" (its Luong read, whose fp32 instance is still to be ported)."""
+    return "K10 Luong" if attention_type == "luong" else "K10"
+
+
+def kernel_operands(attention_type: str, params: Params, mem: AttentionMemory,
+                    cdt: torch.dtype):
+    """(wq, v, keys, values) as the read kernels take them: wq and values
+    in the compute dtype; Bahdanau's v in the compute dtype and fp32 keys,
+    or Luong's keys in the compute dtype and no v (one copy serves as both
+    when the keys are the values)."""
+    values = mem.values.to(cdt).contiguous()
     if attention_type == "luong":
-        keys = values if mem.keys is mem.values else mem.keys.to(bf).contiguous()
+        keys = values if mem.keys is mem.values else mem.keys.to(cdt).contiguous()
         v = None
     else:
-        keys, v = mem.keys.float().contiguous(), params["v"].to(bf).contiguous()
-    return params["wq"].to(bf).contiguous(), v, keys, values
+        keys, v = mem.keys.float().contiguous(), params["v"].to(cdt).contiguous()
+    return params["wq"].to(cdt).contiguous(), v, keys, values
 
 
 def attend_bwd_plain(attention_type: str, params: Params, query: torch.Tensor,
@@ -311,8 +327,8 @@ class LoopState:
         self.mem = AttentionMemory(values=values_d, keys=keys_d, mask=self.mask, bias=self.bias)
         self.params = {"wq": wq.detach(), "v": None if v is None else v.detach()}
         if values.device.type != "cpu":
-            check_policy(self.cdt, "K10")
-            self.operands = kernel_operands(self.attention_type, self.params, self.mem)
+            check_policy(self.cdt, policy_family(self.attention_type))
+            self.operands = kernel_operands(self.attention_type, self.params, self.mem, self.cdt)
 
     def next_step(self) -> int:
         if self.n == self.steps:

@@ -55,15 +55,18 @@ def full_precision(cdt: torch.dtype):
         torch.backends.cudnn.allow_tf32 = cudnn
 
 
-# The kernel families with an fp32 instance on the card: the main path's
-# (lrs2_av_fast: K1's direction-fused scan without a recurrent-dropout
-# mask, K4, K5 and K6; K3 and K7 take no operand of the compute dtype).
-FP32_FAMILIES = ("K1", "K4", "K5", "K6")
+# The kernel families with an fp32 instance on the card: lrs2_av_fast's
+# (K1's direction-fused scan without a recurrent-dropout mask, K4, K5 and
+# K6) and lrs2_av_align's (K1, K8 and K10 with the Bahdanau read); K3 and
+# K7 take no operand of the compute dtype.  The Luong reads' instances
+# ("K8 Luong", "K10 Luong") are still to be ported.
+FP32_FAMILIES = ("K1", "K4", "K5", "K6", "K8", "K10")
 
 
 def check_policy(cdt: torch.dtype, family: str) -> None:
     """Raises unless the CUDA kernels of ``family`` ("K1", "K1 rd", "K2",
-    "K4", ..., "K13") run the compute dtype ``cdt`` on the card: every
+    "K4", ..., "K8 Luong", "K10 Luong", ..., "K13") run the compute dtype
+    ``cdt`` on the card: every
     family takes the bf16 policy, those of ``FP32_FAMILIES`` the fp32 one
     too.  A wrapper calls it for GPU tensors only: on the CPU every family
     runs its plain version under either policy."""

@@ -481,8 +481,46 @@ Phases, in order; any failure exits nonzero before the final line:
 70. remat-rd-residual — the same for ``rd_residual_cfg()`` (recurrent
              dropout 0.2, encoder dropout and residual layers): the
              recompute replays the step's masks.
+71. k8-fp32 — K8's fp32 instance (the per-step kernels: the chunked gate
+             launch and the read, the regate, the row and the product
+             launches) against the plain fp32 twins at ``K8F32_SHAPES``
+             (the train batch [T_a = 197, B = 128, T_v = 150], a ragged B =
+             8 request, the 16 s limits T_a = 531, T_v = 401 at B = 4; H =
+             256, A = 128, Dv = Dc = 512), operands with full fp32 mantissas
+             (``full_f32``): the forward in save mode and serving, the
+             backward with every weight gradient, at ``K8F32_*_TOL``, the
+             empty rows exactly 0, reruns bit-equal; the fp32 instances'
+             registers and spills, the gate launch's shared memory against
+             ``kernels.av_align_step_smem``; device ms at each shape, grid
+             launches a call, times and bounds at the train shape.
+72. k10-fp32 — K10's fp32 instances against the plain fp32 twins: the
+             general kernel at a beam step (N = 80 over 8 rows), one query
+             a row (N = 128: greedy, the teacher-forced loop), each over S =
+             197 and 531 (Hq = 256, A = 128, Dv = 768); the loop's per-step
+             backward and CUDA-core sums at N = 128, K = 80 and at S = 531;
+             the length-0 row exactly 0, reruns bit-equal; shared memory
+             against ``kernels.attend_general_smem`` /
+             ``attend_step_bwd_smem``; device ms, times, bounds; then K8's
+             and K10's Luong reads and K2 refuse the fp32 policy on the
+             card by name, launching nothing.
+73. train-align-fp32 — ``lrs2_av_align`` under the fp32 policy
+             (``align_fp32_cfg``) trained at full width, B = 128, 6 s, as
+             phase 66: the loss and every gradient leaf against the plain
+             fp32 path, ``FP32_TRAIN_STEPS`` steps (label cap 80, sampling
+             0.1, AU loss); the fp32 instances of K1, K8 and K10 launched,
+             never a bf16 one of those families (``OTHER_ROUTES``).
+74. serve-align-fp32 — the same model served as phase 15: the fused
+             memory within ``FP32_MEMORY_TOL`` of the plain path's, the
+             request's ids equal to the whole plain path's.
+75. greedy-align-fp32 — the same model's B = 128 greedy decode, its encode
+             counted too: every row's ids equal to the plain fp32 decode's
+             on the kernel path's memories, and a row that differs from the
+             whole plain fp32 path parts from it at a tie of the two
+             tokens' logits within ``GREEDY_F32_TIE_TOL`` on both paths
+             (the encoders' fp32 sums in another order move the logits by
+             a few fp32 ulps).
 48. shapes — every call of a kernel wrapper in phases 46-47, 49-50,
-             53-56, 59-62 and 66-70 (``COVERED_PHASES``: each of the five train buckets,
+             53-56, 59-62, 66-70 and 73-75 (``COVERED_PHASES``: each of the five train buckets,
              ``TRAIN_BUCKETS``, their warm-ups, the evals, and the three
              serving buckets, ``SERVE_BUCKETS``) must have been made at the
              same tensor shapes in a phase that holds that kernel against
@@ -490,7 +528,7 @@ Phases, in order; any failure exits nonzero before the final line:
              kernel phases take the buckets' shapes (``*_BUCKET_SHAPES``,
              ``K10_BUCKET_READS``, ``*_SERVE_SHAPES``, ``K6_SERVE_CROSS``,
              ``K10_SERVE_READS``, ``RNN_OPTION_*``; phases 3, 4, 6, 7, 9, 10,
-             13, 14, 17, 18, 51, 52, 57, 58, 63-65)
+             13, 14, 17, 18, 51, 52, 57, 58, 63-65, 71-72)
              at their own tolerances; prints each kernel's shapes on the
              paths and held.
 Serve (5, 15, 22, 31, 38-41, 54, 56) also beams the same memories through the plain path
@@ -644,9 +682,11 @@ PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 # the fp32 policy (phases 63-68): lrs2_av_fast under train.compute_dtype = "float32"
 # K1's fp32 instance (the per-step kernels) at G = 2, H = 256, (T, B): the
 # fast audio encoder's layers (T = 99, 50) and the video encoder (150) at
-# B = 128 (the train step, greedy) and B = 8 (a serve request), and 16 s
-# (the first audio layer's 266 steps, the video's 401 frames) at B = 4
-K1F32_SHAPES = ((99, 128), (50, 128), (150, 128), (99, 8), (50, 8), (150, 8), (266, 4), (401, 4))
+# B = 128 (the train step, greedy) and B = 8 (a serve request), 16 s (the
+# first audio layer's 266 steps, the video's 401 frames) at B = 4, and
+# lrs2_av_align's audio layers (T = 197, no time reduction; phases 73-75)
+K1F32_SHAPES = ((99, 128), (50, 128), (150, 128), (99, 8), (50, 8), (150, 8), (266, 4), (401, 4),
+                (197, 128), (197, 8))
 # fp32 outputs of order one against the plain twin's fp32 bmm: only the
 # order of the fp32 sums differs (about 1e-6 of a value, carried through
 # the recurrence); the backward relative to the largest plain value (db
@@ -691,6 +731,59 @@ GREEDY_FP32_KERNELS = ("lstm_scan_f32_fwd", "logmel_post_dft", "fusion_attention
 BF16_MAIN_KERNELS = ("lstm_scan_fwd", "lstm_scan_bwd", "fusion_attention_fwd",
                      "fusion_attention_bwd", "decoder_attention_fwd", "decoder_attention_bwd",
                      "decode_attention")
+
+# the fp32 policy on lrs2_av_align (phases 71-75): align_fp32_cfg()
+# K8's fp32 instance (the per-step kernels) at H = 256, A = 128, Dv = Dc =
+# 512, (T_a, B, T_v): the train batch and greedy (B = 128), a serve request
+# (B = 8, ragged) and the 16 s limits (T_a = 531, T_v = 401) at B = 4
+K8F32_SHAPES = ((197, 128, 150), (197, 8, 150), (531, 4, 401))
+# fp32 states and contexts of order one against the plain twin's fp32
+# products: only the order of the fp32 sums differs (about 1e-6 of a value a
+# step), carried 197 (531) steps through the recurrence and the context fed
+# back through ctx_proj, so two orders of magnitude of room; a bf16
+# rounding of any operand (the inputs carry full fp32 mantissas, full_f32)
+# moves them by ~2^-9, 20 times past it.  The alignments are weights in
+# [0, 1] from scores moved by those states; the backward relative to the
+# largest plain value (db, dWh and the memory's gradients sum T * B terms)
+K8F32_TOL = 1e-4
+K8F32_ALIGN_TOL = 1e-5
+K8F32B_REL_TOL = 1e-4
+# K10's fp32 instance (the general kernel) at the align decoder's widths
+# (Hq = 256, A = 128, Dv = 768): (label, N, W, S): the beam step of a serve
+# request (8 utterances of 10 beams over the untiled memory), greedy's and
+# the teacher-forced loop's one query a row (N = 128), each at 6 s and at
+# the 16 s limit (S = 531)
+K10F32_CASES = (("beam step", 80, 10, 197), ("one query a row", 128, 1, 197),
+                ("beam step, 16 s", 80, 10, 531), ("one query a row, 16 s", 128, 1, 531))
+# fp32 contexts of order one and weights, sums in another order (K6's fp32
+# tolerances); the loop's backward relative to the largest plain value
+# (its sums run over the K = 80 steps of the loop and the N rows)
+K10F32_CTX_TOL = 2e-5
+K10F32_W_TOL = 2e-6
+K10F32B_REL_TOL = 5e-5
+# greedy under fp32 over align's 197-step fusion: the encoders' fp32 sums
+# in another order move the fused memory by ~2e-5 (phase 74) and so the
+# logits by a few fp32 ulps (logits of order 10: an ulp ~1e-6), so a row
+# whose two best logits lie that close may part from the whole plain path.  Phase 75 holds the decode
+# on the kernel path's memories bit for bit in ids (every row), and each
+# row that parts from the whole plain path must part at such a tie: both
+# paths' gaps between the two tokens within this of 0 (logits, absolute)
+GREEDY_F32_TIE_TOL = 1e-5
+TRAIN_ALIGN_FP32_KERNELS = ("lstm_scan_f32_fwd", "lstm_scan_f32_bwd", "logmel_post_dft",
+                            "av_align_scan_f32", "av_align_scan_f32_bwd", "bahdanau_attend_f32",
+                            "bahdanau_attend_f32_bwd", "bahdanau_attend_f32_sums")
+SERVE_ALIGN_FP32_KERNELS = ("lstm_scan_f32_fwd", "logmel_post_dft", "av_align_scan_f32",
+                            "bahdanau_attend_f32", "beam_step")
+GREEDY_ALIGN_FP32_KERNELS = ("lstm_scan_f32_fwd", "logmel_post_dft", "av_align_scan_f32",
+                             "bahdanau_attend_f32")
+# the bf16 instances (every route) of the families the align fp32 paths run
+# in fp32: K1, K8 and K10
+BF16_ALIGN_KERNELS = ("lstm_scan_fwd", "lstm_scan_bwd", "av_align_scan", "av_align_scan_bwd",
+                      "bahdanau_attend", "bahdanau_attend_grouped", "bahdanau_attend_row",
+                      "bahdanau_attend_bwd", "bahdanau_attend_sums")
+# the align fp32 instances, which the fast fp32 paths do not run
+ALIGN_F32_KERNELS = ("av_align_scan_f32", "av_align_scan_f32_bwd", "bahdanau_attend_f32",
+                     "bahdanau_attend_f32_bwd", "bahdanau_attend_f32_sums")
 
 
 
@@ -771,9 +864,14 @@ OTHER_ROUTES = {"serve_align": ("bahdanau_attend", "bahdanau_attend_row"),
                 "train_spectrogram": ("logmel_post_dft",),
                 "serve_spectrogram": ("logmel_post_dft",),
                 # the fp32 paths (phases 66-68): the fp32 instances of K1,
-                # K4, K5 and K6, never their bf16 ones
-                "train_fp32": BF16_MAIN_KERNELS, "serve_fp32": BF16_MAIN_KERNELS,
-                "greedy_fp32": BF16_MAIN_KERNELS,
+                # K4, K5 and K6, never their bf16 ones (nor K8's or K10's)
+                "train_fp32": BF16_MAIN_KERNELS + ALIGN_F32_KERNELS,
+                "serve_fp32": BF16_MAIN_KERNELS + ALIGN_F32_KERNELS,
+                "greedy_fp32": BF16_MAIN_KERNELS + ALIGN_F32_KERNELS,
+                # the align fp32 paths (phases 73-75): the fp32 instances of
+                # K1, K8 and K10, never a bf16 one of those families
+                "train_align_fp32": BF16_ALIGN_KERNELS, "serve_align_fp32": BF16_ALIGN_KERNELS,
+                "greedy_align_fp32": BF16_ALIGN_KERNELS,
                 # the remat runs (phases 69-70) take their paths' routes
                 "remat_align": ("bahdanau_attend", "bahdanau_attend_grouped"),
                 "remat_rd_residual": ("lstm_scan_fwd", "lstm_scan_bwd", "bahdanau_attend",
@@ -864,10 +962,11 @@ def fail(phase: str, msg: str) -> None:
 
 # the paths of phases 59-62: K13 runs on the LN paths only, K3's option
 # instances on the spectrogram paths only; the fp32 instances run on the
-# fp32 paths of phases 66-68 only
+# fp32 paths of phases 66-68 and 73-75 only
 LN_PATHS = ("train_ln", "serve_ln")
 K3_OPTION_PATHS = ("train_spectrogram", "serve_spectrogram")
-FP32_PATHS = ("train_fp32", "serve_fp32", "greedy_fp32")
+FP32_PATHS = ("train_fp32", "serve_fp32", "greedy_fp32", "train_align_fp32", "serve_align_fp32",
+              "greedy_align_fp32")
 
 
 def check_other_route(label, launches):
@@ -899,15 +998,19 @@ WRAPPERS = ("lstm_scan_fwd", "lstm_scan_bwd", "gru_scan_fwd", "gru_scan_bwd",
             "encoder_attention_fwd", "encoder_attention_bwd", "encoder_attention_bwd_core",
             "conformer_conv_fwd", "conformer_conv_bwd")
 # the wrappers whose fp32 calls (the fp32 policy's instances) ``record_shapes``
-# logs apart, as "<name> fp32": a shape held in bf16 does not cover it
-F32_WRAPPERS = ("lstm_scan_fwd", "lstm_scan_bwd", "fusion_attention_fwd",
-                "decoder_attention_fwd", "attention_bwd_core", "decode_attention")
+# logs apart, as "<name> fp32": a shape held in bf16 does not cover it; each
+# with the position of the argument whose dtype is the compute dtype (K10's
+# query and keys are fp32 under either policy: its wq, or its v, tells)
+F32_WRAPPERS = {"lstm_scan_fwd": 0, "lstm_scan_bwd": 0, "fusion_attention_fwd": 0,
+                "decoder_attention_fwd": 0, "attention_bwd_core": 1, "decode_attention": 0,
+                "av_align_scan": 0, "av_align_scan_bwd": 0, "bahdanau_attend": 1,
+                "attend_step_bwd": 1, "attend_loop_sums": 1}
 # the phases that hold kernels against their plain twins: the shapes their
 # calls take are the shapes checked
 KERNEL_PHASES = (3, 4, 6, 7, 9, 10, 11, 13, 14, 17, 18, 20, 21, 25, 26, 28, 29, 30, 35, 36, 37,
-                 51, 52, 57, 58, 63, 64, 65)
+                 51, 52, 57, 58, 63, 64, 65, 71, 72)
 # the phases whose shapes must all be among KERNEL_PHASES' (phase 48)
-COVERED_PHASES = (46, 47, 49, 50, 53, 54, 55, 56, 59, 60, 61, 62, 66, 67, 68, 69, 70)
+COVERED_PHASES = (46, 47, 49, 50, 53, 54, 55, 56, 59, 60, 61, 62, 66, 67, 68, 69, 70, 73, 74, 75)
 
 
 @contextlib.contextmanager
@@ -931,9 +1034,9 @@ def record_shapes(into):
             if name == "beam_step":  # (logits [B * W, V], logp [B, W], ...)
                 into.add((name, (*args[1].shape, args[0].shape[1])))
             else:
-                first = next((x for x in args if torch.is_tensor(x)), None)
-                fp32 = (name in F32_WRAPPERS and first is not None
-                        and first.dtype == torch.float32)
+                at = F32_WRAPPERS.get(name)
+                fp32 = (at is not None and at < len(args) and torch.is_tensor(args[at])
+                        and args[at].dtype == torch.float32)
                 into.add((name + (" fp32" if fp32 else ""), shapes(args, kwargs)))
             return out
         return call
@@ -2566,19 +2669,78 @@ def phase_k7(dev, report):
                   for (B, W, V), t in times.items()})
 
 
-def phase_greedy(dev, card, cfg, label="greedy", needed=GREEDY_KERNELS, exact=False):
+def greedy_partings(params, cfg, mems_k, mems_p, horizon, cdt):
+    """Greedy on the kernel path's memories ``mems_k`` with the kernels and
+    on ``mems_p`` with the plain cores, step by step in lockstep (each as
+    ``greedy_decode`` runs it) -> {row: (the step where its tokens first
+    part, the kernel path's gap between its token's logit and the plain
+    path's token's, the plain path's gap the other way)} over the rows not
+    yet finished on both paths."""
+    import torch
+
+    from avsr_tpu_torch.data.units import EOS_ID, GO_ID, PAD_ID
+    from avsr_tpu_torch.models import decoder as dec
+    from avsr_tpu_torch.ops import attention as attn
+
+    pd, dc = params["decoder"], cfg.decoder
+    B, dev = mems_k[0].values.shape[0], mems_k[0].values.device
+
+    def prepared(m):  # as greedy_decode prepares a memory
+        values = m.values.to(cdt).contiguous()
+        keys = values if m.keys is m.values else (
+            None if m.keys is None else m.keys.contiguous())
+        return attn.AttentionMemory(values=values, keys=keys, mask=m.mask.contiguous(),
+                                    bias=m.bias.contiguous())
+
+    def start(mems):  # the prepared memories, the state, the cross keys, the token, done
+        mems = [prepared(m) for m in mems]
+        state = dec.initial_state(dc, B, horizon, cdt, dev,
+                                  memory_dims=[m.values.shape[-1] for m in mems])
+        return [mems, state, dec.prepare_cross(pd, dc, mems, cdt),
+                torch.full((B,), GO_ID, dtype=torch.long, device=dev),
+                torch.zeros((B,), dtype=torch.bool, device=dev)]
+
+    paths, parted = (start(mems_k), start(mems_p)), {}
+    for t in range(horizon):
+        logits = []
+        for i, run in enumerate(paths):
+            mems, state, cross, tok, _ = run
+            with plain_cores() if i else contextlib.nullcontext():
+                run[1], lg = dec.decoder_step(pd, dc, tok, state, mems, cross, cdt)
+            lg[:, PAD_ID] = -1e30
+            lg[:, GO_ID] = -1e30
+            logits.append(lg)
+        nk, np_ = (lg.argmax(-1) for lg in logits)
+        live = ~(paths[0][4] | paths[1][4])
+        for r in torch.nonzero(live & (nk != np_)).flatten().tolist():
+            if r not in parted:
+                a, b = int(nk[r]), int(np_[r])
+                parted[r] = (t, float(logits[0][r, a] - logits[0][r, b]),
+                             float(logits[1][r, b] - logits[1][r, a]))
+        for run, nxt in zip(paths, (nk, np_)):
+            run[3] = torch.where(run[4], torch.full_like(nxt, EOS_ID), nxt)
+            run[4] = run[4] | (nxt == EOS_ID)
+    return parted
+
+
+def phase_greedy(dev, card, cfg, label="greedy", needed=GREEDY_KERNELS, exact=False,
+                 tie_tol=None):
     """Greedy-decode one B=128 batch of ``cfg``'s model on the kernel path
     and on the plain path -> (the kernel path's launches, (params, batch,
     result)).  With ``exact`` the launches count the encode too, the plain
     path encodes with the plain cores as well, and every row's ids must
-    equal the plain path's."""
+    equal the plain path's; with ``tie_tol`` too, every row's ids must
+    equal the plain decode's on the kernel path's memories, and a row that
+    differs from the whole plain path must part from it at a tie
+    (``greedy_partings``: both paths' gaps between the two tokens within
+    ``tie_tol``)."""
     import torch
 
     from avsr_tpu_torch import kernels
     from avsr_tpu_torch.data.units import builtin_unit_dict
     from avsr_tpu_torch.decode.greedy import greedy_decode as greedy_cdt
     from avsr_tpu_torch.models import seq2seq
-    from avsr_tpu_torch.utils.numerics import compute_dtype_of
+    from avsr_tpu_torch.utils.numerics import compute_dtype_of, full_precision
 
     def greedy_decode(*args):  # in the config's compute dtype
         return greedy_cdt(*args, cdt=compute_dtype_of(cfg))
@@ -2606,8 +2768,15 @@ def phase_greedy(dev, card, cfg, label="greedy", needed=GREEDY_KERNELS, exact=Fa
             res_p = greedy_decode(params["decoder"], cfg.decoder, mems_p, horizon)
             torch.cuda.synchronize()
             ms_p = (time.perf_counter() - t0) * 1e3
+            res_pk = (greedy_decode(params["decoder"], cfg.decoder, mems, horizon)
+                      if tie_tol is not None else None)
         if kernels.LAUNCHES != launches:
             fail(label, "the plain reference run launched a kernel")
+        ties = None
+        if tie_tol is not None and not torch.equal(res.ids, res_p.ids):
+            with full_precision(compute_dtype_of(cfg)):
+                ties = greedy_partings(params, cfg, mems, mems_p, horizon,
+                                       compute_dtype_of(cfg))
     for name in needed:
         if launches[name] == 0:
             fail(label, f"kernel {name} was not launched by greedy decode")
@@ -2621,6 +2790,19 @@ def phase_greedy(dev, card, cfg, label="greedy", needed=GREEDY_KERNELS, exact=Fa
             per_name="decode step")
     same = int((res.ids == res_p.ids).all(dim=1).sum())
     allowed = 0 if exact else GREEDY_MAX_DIFF_ROWS
+    if tie_tol is not None:
+        same_k = int((res.ids == res_pk.ids).all(dim=1).sum())
+        differ = torch.nonzero(~(res.ids == res_p.ids).all(dim=1)).flatten().tolist()
+        print(f"{label}: {same_k} of 128 rows with ids identical to the plain decode's on the "
+              f"kernel path's memories (all 128 required); the rows that differ from the whole "
+              f"plain path {differ} part from it at (row: step, kernel gap, plain gap) {ties} "
+              f"(ties: both gaps within {tie_tol})")
+        if same_k != 128:
+            fail(label, f"{128 - same_k} rows differ from the plain decode on the same memories")
+        if ties is not None and (sorted(ties) != differ or any(
+                abs(gk) > tie_tol or abs(gp) > tie_tol for _, gk, gp in ties.values())):
+            fail(label, f"rows {differ} part from the plain path away from a tie: {ties}")
+        allowed = len(differ)
     print(f"{label} [{card}] {cfg.name} B=128, 6 s, horizon {horizon}: decode {ms:.3f} ms, "
           f"{res.steps} steps ({ms / max(res.steps, 1):.3f} ms per step), "
           f"launches {({n: launches[n] for n in needed})}; "
@@ -2777,11 +2959,11 @@ def k8_fwd_build_info():
     return _K8F_INFO
 
 
-def k8_fwd_check(label, args, attention_type, align_tol, route="cluster"):
+def k8_fwd_check(label, args, attention_type, align_tol, route="cluster", tol=K8_TOL):
     """K8 forward (either read) against its plain twin on the same operands,
     in save mode (the train launch): the max abs error of hs, ctxs, aligns,
     the final carries and the saved carries h_res, c_res, ctx_res; fails
-    past ``K8_TOL`` (aligns: ``align_tol``), on a non-finite value, a route
+    past ``tol`` (aligns: ``align_tol``), on a non-finite value, a route
     other than ``route``, a 0-length row (1: no audio step, 2: no video
     frame) that is not exactly zero, a full row whose alignments do not sum
     to 1, a rerun or a run without save that is not bit-equal.  Returns the
@@ -2795,7 +2977,7 @@ def k8_fwd_check(label, args, attention_type, align_tol, route="cluster"):
     cell, att, ctx_proj, xw, mask, mem, cdt = args
     T, B, H4 = xw.shape
     S, A, Dv = mem.keys.shape[1], mem.keys.shape[2], mem.values.shape[-1]
-    family = kernels.av_align_family(H4 // 4, 0 if ctx_proj is None else Dv, A, S, Dv)
+    family = kernels.av_align_family(H4 // 4, 0 if ctx_proj is None else Dv, A, S, Dv, cdt)
     out, res = fus.av_align_scan_fwd(*args, save=True, **kw)
     out2, res2 = fus.av_align_scan_fwd(*args, save=True, **kw)
     out3, _ = fus.av_align_scan_fwd(*args, save=False, **kw)
@@ -2810,7 +2992,7 @@ def k8_fwd_check(label, args, attention_type, align_tol, route="cluster"):
     rows2 = float(al[: int(mask[:, 0].sum()), 0].sum(-1).sub(1).abs().max())
     same = (all(torch.equal(a, b) for a, b in zip((*out, *res), (*out2, *res2)))
             and all(torch.equal(a, b) for a, b in zip(out, out3)))
-    print(f"{label}: family {family}; max abs err {e} (tol {K8_TOL}, aligns {align_tol}); "
+    print(f"{label}: family {family}; max abs err {e} (tol {tol}, aligns {align_tol}); "
           f"0-length audio row hs/ctxs/aligns/ctx_res and 0-length video row ctxs/aligns "
           f"max |x| {zeros}; full row's alignments sum to 1 within {rows2}; reruns (and save "
           f"off) bit-equal {same}")
@@ -2822,7 +3004,7 @@ def k8_fwd_check(label, args, attention_type, align_tol, route="cluster"):
         fail(label, f"a 0-length row is not exactly zero: {zeros}")
     if not same:
         fail(label, "two launches on the same operands differ")
-    if not (max(v for n, v in e.items() if n != "aligns") <= K8_TOL and e["aligns"] <= align_tol
+    if not (max(v for n, v in e.items() if n != "aligns") <= tol and e["aligns"] <= align_tol
             and rows2 <= 1e-5):
         fail(label, f"kernel disagrees with the plain twin: {e}")
     return max(e.values())
@@ -2989,9 +3171,9 @@ def k10_launch(route, query, wq, v, keys, values, bias, mask):
     return ctx, w
 
 
-def k10_fwd_check(tag, args, w_tol, W):
+def k10_fwd_check(tag, args, w_tol, W, ctx_tol=K10_CTX_TOL):
     """K10's forward (``attn.attend``, routed by shape) against the plain
-    twin: errors within K10_CTX_TOL and ``w_tol``, the beams of the length-0
+    twin: errors within ``ctx_tol`` and ``w_tol``, the beams of the length-0
     memory row exactly 0, a rerun bit-equal.  -> the worst error."""
     import torch
 
@@ -3005,11 +3187,11 @@ def k10_fwd_check(tag, args, w_tol, W):
     empty = (float(ctx[W:2 * W].abs().max()), float(w[W:2 * W].abs().max()))
     same = bool(torch.equal(ctx, ctx2) and torch.equal(w, w2))
     others = (w.sum(-1) - 1)[2 * W:].abs()
-    print(f"{tag}: max abs err {e} (tol ctx {K10_CTX_TOL}, weights {w_tol}); length-0 row's "
+    print(f"{tag}: max abs err {e} (tol ctx {ctx_tol}, weights {w_tol}); length-0 row's "
           f"beams max |ctx|, |w| {empty}; rerun bit-equal {same}; weight sums of the other "
           f"rows within {float(others.max()) if others.numel() else 0.0} of 1; largest weight "
           f"{float(w.max()):.4f}")
-    if not (torch.isfinite(ctx).all() and e["ctx"] <= K10_CTX_TOL and e["weights"] <= w_tol):
+    if not (torch.isfinite(ctx).all() and e["ctx"] <= ctx_tol and e["weights"] <= w_tol):
         fail(tag, f"kernel disagrees with the plain twin: {e}")
     if empty != (0.0, 0.0):
         fail(tag, f"a length-0 memory does not give a zero context and weights: {empty}")
@@ -3130,8 +3312,8 @@ def k10_fwd_phase(dev, report, key, label, make, w_tol, odd, groups, regime):
             mem = attn.AttentionMemory(values=values, keys=keys, mask=rows(mem.mask),
                                        bias=rows(mem.bias))
         q = query.float().contiguous()
-        return lambda: k10_launch(route, q, *attn.kernel_operands(typ, att, mem), mem.bias,
-                                  mem.mask)
+        return lambda: k10_launch(route, q, *attn.kernel_operands(typ, att, mem, cdt),
+                                  mem.bias, mem.mask)
 
     def bounds(args, tile=1):
         # the bound of the read's bytes (each memory row read once, or
@@ -3250,15 +3432,16 @@ def phase_k10(dev, report):
         r["max_abs_err"] = max(r["max_abs_err"], worst)
 
 
-def k8_bwd_inputs(B, dev, seed, attention_type="bahdanau", **widths):
-    """K8 backward operands: ``k8_inputs`` (``k8_luong_inputs`` for Luong),
-    the kernel forward's alignments and saved carries, random cotangents of
-    the outputs and final carries."""
+def k8_bwd_inputs(B, dev, seed, attention_type="bahdanau", make=None, **widths):
+    """K8 backward operands: ``make``'s (by default ``k8_inputs``,
+    ``k8_luong_inputs`` for Luong), the kernel forward's alignments and
+    saved carries, random cotangents of the outputs and final carries."""
     import torch
 
     from avsr_tpu_torch.models import fusion as fus
 
-    make = k8_luong_inputs if attention_type == "luong" else k8_inputs
+    if make is None:
+        make = k8_luong_inputs if attention_type == "luong" else k8_inputs
     cell, att, ctx_proj, xw, mask, mem, cdt = make(B, dev, seed, **widths)
     (_, _, aligns, *_), res = fus.av_align_scan_fwd(cell, att, ctx_proj, xw, mask, mem, cdt,
                                                     save=True, attention_type=attention_type)
@@ -3357,21 +3540,21 @@ def k8_bwd_split(args, attention_type, rows_per_cta=None):
     from avsr_tpu_torch.models import fusion as fus
     from avsr_tpu_torch.ops import attention as attn
 
-    cell, att, ctx_proj, xw, mask, mem, aligns, res, dhs, dctxs, dhT, dcT, dctxT, _ = args
-    wq, v, keys, values = attn.kernel_operands(attention_type, att, mem)
+    cell, att, ctx_proj, xw, mask, mem, aligns, res, dhs, dctxs, dhT, dcT, dctxT, cdt = args
+    wq, v, keys, values = attn.kernel_operands(attention_type, att, mem, cdt)
     rpc = {} if rows_per_cta is None else {"rows_per_cta": rows_per_cta}
     stages, _ = kernels.av_align_scan_bwd_stages(
-        *fus._cell_operands(cell, ctx_proj), wq, v, xw, mask, keys, values, aligns, *res, dhs,
+        *fus._cell_operands(cell, ctx_proj, cdt), wq, v, xw, mask, keys, values, aligns, *res, dhs,
         dctxs, dhT, dcT, dctxT, **rpc)
     for name in ("prep", "scan", "sums"):
         stages[name]()
     return {name: device_ms(stages[name], reps=5, warmup=1) for name in ("prep", "scan", "sums")}
 
 
-def k8_bwd_against_plain(label, args, attention_type):
+def k8_bwd_against_plain(label, args, attention_type, tol=K8B_REL_TOL):
     """K8 backward (either read) against its plain twin on the same
     operands: the max abs error and the error relative to max |plain| of
-    every output and weight gradient; fails past ``K8B_REL_TOL``, on a
+    every output and weight gradient; fails past ``tol``, on a
     non-finite value, a v factor from a Luong read (or none from a
     Bahdanau one), an empty row's gradient that is not exactly 0 (row 1 has
     no audio step, row 2 no video frame) or a rerun that is not bit-equal.
@@ -3397,7 +3580,7 @@ def k8_bwd_against_plain(label, args, attention_type):
     same = all(torch.equal(a, b) for a, b in zip(out_k, out_k2) if a is not None)
     zeros = (float(out_k[0][:, 1].abs().max()), float(out_k[2][:, 1].abs().max()),
              float(out_k[4][2].abs().max()), float(out_k[5][2].abs().max()))
-    print(f"{label} max abs err {abs_errs}; relative to max |plain| {errs} (tol {K8B_REL_TOL}); "
+    print(f"{label} max abs err {abs_errs}; relative to max |plain| {errs} (tol {tol}); "
           f"rerun bit-equal {same}; 0-length audio row dxw/dq and 0-length video row "
           f"dkeys/dvalues max |x| {zeros}")
     luong = attention_type == "luong"
@@ -3409,7 +3592,7 @@ def k8_bwd_against_plain(label, args, attention_type):
         fail(label, f"an empty row's gradient is not exactly zero: {zeros}")
     if not same:
         fail(label, "two launches on the same operands differ")
-    if not max(errs.values()) <= K8B_REL_TOL:
+    if not max(errs.values()) <= tol:
         fail(label, f"kernel disagrees with the plain twin: {errs}")
     return max(abs_errs.values()), errs
 
@@ -3484,15 +3667,16 @@ def k10_bwd_build_info():
         return _K10B_INFO
     rep = {k: r for k, r in kernels.ptxas_report("bahdanau_attend").items()
            if "attend_step_bwd" in k or "attend_loop_sums" in k}
-    if len(rep) != 4 or any(r["spill_stores"] or r["spill_loads"] for r in rep.values()):
+    # both reads' bf16 instances and the Bahdanau read's fp32 one, of each
+    if len(rep) != 6 or any(r["spill_stores"] or r["spill_loads"] for r in rep.values()):
         fail("K10 bwd", f"a backward kernel spills or is missing: {rep}")
     occ = {kind: kernels.attend_bwd_info(*widths)
            for kind, widths in (("bahdanau", (256, 128, 197, 768, False)),
                                 ("luong", (256, 512, 197, 512, True)))}
 
-    def short(name):  # the instance of a mangled name: its kernel and template argument
+    def short(name):  # the instance of a mangled name: its kernel and template arguments
         base = "step_bwd" if "attend_step_bwd" in name else "loop_sums"
-        return f"{base}<{name.split('kernel')[-1][:4]}>"
+        return f"{base}<{name.split('kernel')[-1][:4]}{', f32' if f32_instance(name) else ''}>"
 
     print(f"K10 bwd kernels (ptxas -v): { {short(k): r for k, r in rep.items()} }; the per-step "
           f"kernel's shared memory per CTA and max active clusters of a row "
@@ -3549,7 +3733,7 @@ def k10_loop(args, queries, dctxs, plain=False, weights=None):
     return st, {n: x for n, x in out.items() if x is not None}
 
 
-def k10_bwd_check(label, args, K, seed):
+def k10_bwd_check(label, args, K, seed, tol=K10B_REL_TOL):
     """K10's backward loop on the kernels against the plain mirror (the
     same queries, cotangents and forward weights), twice on the kernels
     (bit-equal), the length-0 row (1) exactly 0.  -> (state, the kernels'
@@ -3567,14 +3751,14 @@ def k10_bwd_check(label, args, K, seed):
     empty = max(float((out_k[n][1] if n in ("dkeys", "dvalues") else out_k[n][:, 1]).abs().max())
                 for n in out_k if n not in ("q", "dwq", "dv"))
     print(f"{label} loop of K={K}: max abs err {abs_errs}; relative to max |plain| {errs} (tol "
-          f"{K10B_REL_TOL}); reruns bit-equal {same}; length-0 row's gradients max |x| {empty}")
+          f"{tol}); reruns bit-equal {same}; length-0 row's gradients max |x| {empty}")
     if not all(torch.isfinite(x).all() for x in out_k.values()):
         fail(label, "non-finite kernel output")
     if not same:
         fail(label, "two runs of the kernels differ")
     if empty != 0.0:
         fail(label, f"a length-0 memory's gradients are not zero: {empty}")
-    if not max(errs.values()) <= K10B_REL_TOL:
+    if not max(errs.values()) <= tol:
         fail(label, f"kernels disagree with the plain mirror: {errs}")
     return st, out_k, queries, dctxs, max(abs_errs.values())
 
@@ -3607,12 +3791,11 @@ def k10_bwd_times(label, args, st, queries, dctxs, out_k):
     wq_b = nbytes(st.operands[0], v)
     # a step: its keys and values read once, the query, weights and
     # cotangent, dquery and the saved rows written
-    nb_step = (keys_read * (kb + Dv * 2) + wq_b
+    nb_step = (keys_read * (kb + Dv * values.element_size()) + wq_b
                + nbytes(queries[k], st.weights[k], dctxs[k], out_k["dquery"][k])
                + N * (S + Dv + 3 * A) * 4)
     ops_step = {"bf16": 2 * N * 2 * Hq * A + 2 * keys_read * Dv,
                 "fp32": keys_read * A * (8 if v is not None else 2)}
-    b_step = bound(nb_step, ops_step)
     # the sums: the loop's rows read once, (Bahdanau's keys,) the outputs
     # written once (one gradient where the keys are the values); the terms
     # of the nonzero weights
@@ -3620,19 +3803,23 @@ def k10_bwd_times(label, args, st, queries, dctxs, out_k):
                + N * S * (Dv if st.shared else A + Dv) * 4)
     ops_sums = {"bf16": 2 * K * keys_read * (Dv + (A if v is None else 0)),
                 "fp32": K * keys_read * A * 8 if v is not None else 0}
-    b_sums = bound(nb_sums, ops_sums)
+    if values.dtype == torch.float32:  # the fp32 policy: every product on fp32 operands
+        ops_step = {"fp32": sum(ops_step.values())}
+        ops_sums = {"fp32": sum(ops_sums.values())}
+    b_step, b_sums = bound(nb_step, ops_step), bound(nb_sums, ops_sums)
+    sums_route = kernels.attend_sums_family(A, Dv, values.dtype)
     info = k10_bwd_build_info()
     print(f"{label} per step [N={N},S={S},A={A},Dv={Dv}]: kernel {t_k:.4f} ms (device {dms} "
           f"ms)  plain {t_p:.4f} ms  bound {b_step[0]:.5f} ms ({b_step[1]}, "
           f"{nb_step / 1e6:.2f} MB)")
-    print(f"{label} sums per loop of K={K} ({kernels.attend_sums_family(A, Dv)} route): "
+    print(f"{label} sums per loop of K={K} ({sums_route} route): "
           f"{s_k:.4f} ms (device {s_dms} ms)  plain {s_p:.4f} ms  bound {b_sums[0]:.5f} ms "
           f"({b_sums[1]}, {nb_sums / 1e6:.2f} MB); the loop's backward kernels "
           f"{K * dms + s_dms:.4f} ms device")
     step_entry = dict(ms=t_k, plain_ms=t_p, library_ms=None, device_ms=dms, bound=b_step,
                       occupancy=info["occupancy"])
     sums_entry = dict(ms=s_k, plain_ms=s_p, library_ms=None, device_ms=s_dms, bound=b_sums,
-                      sums_route=kernels.attend_sums_family(A, Dv))
+                      sums_route=sums_route)
     return step_entry, sums_entry
 
 
@@ -3678,6 +3865,14 @@ def k11_inputs(B, T, dev, seed, nh=8, dh=64):
 
 
 _SASS = {}  # library path -> cuobjdump -sass text
+
+
+def f32_instance(name):
+    """Whether the mangled kernel ``name`` is the fp32 policy's instance of
+    a kernel templated on its element type (or named for it): no bf16
+    among the template arguments that follow the kernel's name."""
+    rest = name.split("kernel", 1)[-1]
+    return "f32" in name or "__nv_bfloat16" not in rest.split("Ev", 1)[0]
 
 
 def build_report(phase, stem, kinds):
@@ -4470,10 +4665,12 @@ def phase_align_step_route(dev):
              if any(k in name for k in ("align_regate_kernel", "align_bwd_product_kernel",
                                         "align_bwd_row_kernel"))}
     kinds = ("align_regate_kernel", "align_bwd_product_kernel", "align_bwd_row_kernel")
-    short = {next(k for k in kinds if k in n) + ("<luong>" if "ILb1E" in n else ""): r
-             for n, r in steps.items()}
+    short = {next(k for k in kinds if k in n) + ("<luong>" if "ILb1E" in n else "")
+             + ("<f32>" if f32_instance(n) else ""): r for n, r in steps.items()}
     print(f"K8 step bwd build (ptxas -v; CUDA cores): {short}")
-    if len(steps) != 4 or any(r["spill_stores"] or r["spill_loads"] for r in steps.values()):
+    # the bf16 instances (the row launch at both reads) and the fp32 ones
+    # (the Bahdanau read): 4 + 3
+    if len(steps) != 7 or any(r["spill_stores"] or r["spill_loads"] for r in steps.values()):
         fail("K8 step bwd", f"the per-step backward's kernels missing or spilling: {steps}")
     align_step_train(dev)
 
@@ -6282,6 +6479,13 @@ def fp32_cfg():
     return lrs2_av_fast().override({"train.compute_dtype": "float32"})
 
 
+def align_fp32_cfg():
+    """lrs2_av_align (``lrs2_full``) under the fp32 compute policy."""
+    from avsr_tpu_torch.configs import lrs2_full
+
+    return lrs2_full().override({"train.compute_dtype": "float32"})
+
+
 def full_f32(tensors, seed):
     """The float tensors of ``tensors`` in fp32 with a relative 2^-12 of
     noise added, so that no value is a bf16 value (a kernel that rounded an
@@ -6662,6 +6866,269 @@ def phase_k6_f32(dev, report):
                 "bound_ms": greedy["bound"][0], "bound_by": greedy["bound"][1]})
 
 
+def k8_f32_inputs(B, dev, seed, T=197, Tv=150):
+    """``k8_inputs`` as the fp32 policy holds them: the weights, the input
+    product and the prepared video memory (fp32 keys and values) with full
+    fp32 mantissas (``full_f32``: a kernel that rounded one to bf16 would
+    show); the masks and the memory bias exact."""
+    import torch
+
+    cell, att, ctx_proj, xw, mask, mem, _ = k8_inputs(B, dev, seed, T=T, Tv=Tv)
+    wh, b, cp, wq, v, wm, xw, values, keys = full_f32(
+        (cell["wh"], cell["b"], ctx_proj, att["wq"], att["v"], att["wm"], xw, mem.values,
+         mem.keys), seed)
+    mem = mem._replace(values=values, keys=keys)
+    return [{"wh": wh, "b": b}, {"wq": wq, "v": v, "wm": wm}, cp, xw, mask, mem, torch.float32]
+
+
+def k10_f32_inputs(N, dev, seed, S=197, W=1):
+    """``k10_inputs`` as the fp32 policy holds them: the query, the attention
+    and the prepared fused memory (fp32 keys and values) with full fp32
+    mantissas (``full_f32``); the mask and the bias exact."""
+    import torch
+
+    typ, att, query, mem, _ = k10_inputs(N, dev, seed, S=S, W=W)
+    wq, v, wm, query, keys, values = full_f32(
+        (att["wq"], att["v"], att["wm"], query, mem.keys, mem.values), seed)
+    return [typ, {"wq": wq, "v": v, "wm": wm}, query, mem._replace(keys=keys, values=values),
+            torch.float32]
+
+
+def f32_build(phase, stem, parts):
+    """The fp32 instances of ``csrc/<stem>.cu``'s kernels whose mangled names
+    hold one of ``parts``: registers and spills (``ptxas -v``); fails on a
+    spill or a missing one."""
+    from avsr_tpu_torch import kernels
+
+    rep = {next(p for p in parts if p in n): r for n, r in kernels.ptxas_report(stem).items()
+           if f32_instance(n) and any(p in n for p in parts)}
+    print(f"{phase} fp32 instances (ptxas -v; CUDA cores): {rep}")
+    if len(rep) != len(parts) or any(r["spill_stores"] or r["spill_loads"] for r in rep.values()):
+        fail(phase, f"an fp32 instance spills or is missing: {rep}")
+    return rep
+
+
+def phase_k8_f32(dev, report):
+    """K8's fp32 instance (``av_align_scan_f32[_bwd]``, the per-step
+    kernels) against the plain fp32 twins at ``K8F32_SHAPES``: the forward in
+    save mode and serving (``k8_fwd_check``: hs, ctxs, aligns, the final and
+    saved carries, the empty rows exactly 0, reruns bit-equal), the backward
+    on the forward's carries with random cotangents (``k8_bwd_against_plain``:
+    every output and weight gradient); the chunked gate launch's shared
+    memory against the library's; device ms, the grid launches a call, times
+    and bounds at the train shape, and at the others' device ms."""
+    import torch
+
+    from avsr_tpu_torch import kernels
+    from avsr_tpu_torch.models import fusion as fus
+
+    f32 = torch.float32
+    lib = kernels._load()
+    bad = [(H, Dv, A, S) for H in (64, 256, 512) for Dv in (64, 512, 768) for A in (64, 128, 512)
+           for S in (1, 150, kernels.FUSION_MAX_TV)
+           if lib.avsr_av_align_f32_smem(H, Dv, A, S, Dv) != kernels.av_align_step_smem(
+               H, Dv, A, S, 4)]
+    if bad:
+        fail("K8 fp32", f"kernels.av_align_step_smem(..., 4) differs from the library's at {bad}")
+    build = f32_build("K8 fp32", "av_align_scan", (
+        "align_gate_f32_kernel", "align_read_kernel_t", "align_regate_kernel",
+        "align_bwd_product_kernel", "align_bwd_row_kernel"))
+    errs, berrs, babs, by_shape = [], [], [], {}
+    for T, B, Tv in K8F32_SHAPES:
+        tag = f"[T_a={T},B={B},H=256,T_v={Tv},A=128,Dv=512]"
+        smem = kernels.av_align_step_smem(256, 512, 128, Tv, 4)
+        args = k8_f32_inputs(B, dev, seed=T + B + 11, T=T, Tv=Tv)
+        errs.append(k8_fwd_check(f"K8 fp32 {tag} (gate launch {smem} B a block)", args,
+                                 "bahdanau", K8F32_ALIGN_TOL, route="step", tol=K8F32_TOL))
+        bargs = k8_bwd_inputs(B, dev, seed=T + B + 13, make=k8_f32_inputs, T=T, Tv=Tv)
+        route = kernels.av_align_bwd_family(256, 512, 128, Tv, 512, False, f32)
+        if route != "step" or any(r.dtype != f32 for r in bargs[7]):
+            fail("K8 fp32", f"{tag}: backward route {route}, residuals "
+                            f"{[r.dtype for r in bargs[7]]}")
+        e, rel = k8_bwd_against_plain(f"K8 fp32 bwd {tag}", bargs, "bahdanau", K8F32B_REL_TOL)
+        babs.append(e)
+        berrs.append(max(rel.values()))
+        fwd = lambda: fus.av_align_scan_fwd(*args)  # noqa: E731
+        train = lambda: fus.av_align_scan_fwd(*args, save=True)  # noqa: E731
+        bwd = lambda: fus.av_align_scan_bwd(*bargs)  # noqa: E731
+        r = {"device_ms": device_ms(fwd, reps=3, warmup=1),
+             "device_ms_save": device_ms(train, reps=3, warmup=1),
+             "bwd_device_ms": device_ms(bwd, reps=3, warmup=1)}
+        if (T, B, Tv) == K8F32_SHAPES[0]:  # the train shape: times, bounds, launches
+            r.update(ms=time_ms(train, reps=5, warmup=1),
+                     plain_ms=time_ms(lambda: fus.av_align_scan_fwd_plain(*args, save=True),
+                                      reps=2, warmup=1),
+                     bwd_ms=time_ms(bwd, reps=5, warmup=1),
+                     bwd_plain_ms=time_ms(lambda: fus.av_align_scan_bwd_plain(*bargs), reps=2,
+                                          warmup=1),
+                     # the route's host loop: a gate and a read launch a step;
+                     # the backward's regate, then a row launch a step and a
+                     # product launch between two steps
+                     grid_launches=2 * T, bwd_grid_launches=2 * T)
+            cell, att, ctx_proj, xw, mask, mem, _ = args
+            H4, S, A, Dv = xw.shape[-1], mem.keys.shape[1], mem.keys.shape[2], mem.values.shape[-1]
+            H, Dc = H4 // 4, Dv
+            # what this run's data needs: the live steps' gates and reads, the
+            # context and the backward's key terms over the valid keys
+            live = float(mask.sum())
+            keys_read = float((mask * mem.mask.sum(-1)[None, :]).sum())
+            w_bytes = nbytes(cell["wh"], cell["b"], ctx_proj, att["wq"], att["v"])
+            out, res = train()
+            r["bound"] = bound(
+                nbytes(xw, mask, mem.keys, mem.values, mem.bias, mem.mask, *out, *res) + w_bytes,
+                2 * live * ((H + Dc) * H4 + H * A + S * A) + 2 * keys_read * Dv, "fp32")
+            r["bound_gates_ms"] = 2 * T * B * (H + Dc) * H4 / PEAK_FLOPS["fp32"] * 1e3
+            out_b = bwd()
+            b_xw, b_mask, b_mem, aligns, res_b = bargs[3], bargs[4], bargs[5], bargs[6], bargs[7]
+            r["bwd_bound"] = bound(
+                nbytes(b_xw, b_mask, b_mem.keys, b_mem.values, aligns, *res_b, *bargs[8:13],
+                       *out_b) + w_bytes,
+                4 * live * (H + Dc) * H4 + 4 * live * H * A + 4 * keys_read * Dv
+                + 8 * keys_read * A, "fp32")
+        r["us_per_step"] = r["device_ms_save"] * 1e3 / T
+        r["bwd_us_per_step"] = r["bwd_device_ms"] * 1e3 / T
+        by_shape[(T, B, Tv)] = r
+        print(f"K8 fp32 {tag}: {r}")
+        del args, bargs
+    t, s8, s16 = (by_shape[x] for x in K8F32_SHAPES)
+    T = K8F32_SHAPES[0][0]
+    print(f"K8 fp32 [T_a={T},B=128] forward (save) kernel {t['ms']:.4f} ms (device "
+          f"{t['device_ms_save']:.4f}, {t['grid_launches']} grid launches, "
+          f"{t['us_per_step']:.2f} us a step)  plain {t['plain_ms']:.4f} ms  bound "
+          f"{t['bound'][0]:.5f} ms ({t['bound'][1]}; the gate products alone "
+          f"{t['bound_gates_ms']:.5f}); backward kernel {t['bwd_ms']:.4f} ms (device "
+          f"{t['bwd_device_ms']:.4f}, {t['bwd_grid_launches']} grid launches)  plain "
+          f"{t['bwd_plain_ms']:.4f} ms  bound {t['bwd_bound'][0]:.5f} ms ({t['bwd_bound'][1]}); "
+          f"no single PyTorch call computes the scan")
+    report["av_align_scan_f32"] = dict(
+        max_abs_err=max(errs), ms=t["ms"], plain_ms=t["plain_ms"], library_ms=None,
+        device_ms=t["device_ms_save"], bound=t["bound"], shape="T_a=197, B=128, save mode",
+        device_ms_no_save=t["device_ms"], grid_launches_per_call=t["grid_launches"],
+        us_per_step=t["us_per_step"], bound_gate_products_ms=t["bound_gates_ms"],
+        device_ms_B8=s8["device_ms"], device_ms_T531_B4=s16["device_ms"],
+        build={k: v for k, v in build.items() if k in ("align_gate_f32_kernel",
+                                                       "align_read_kernel_t")})
+    report["av_align_scan_f32_bwd"] = dict(
+        max_abs_err=max(babs), max_rel_err=max(berrs), ms=t["bwd_ms"],
+        plain_ms=t["bwd_plain_ms"], library_ms=None, device_ms=t["bwd_device_ms"],
+        bound=t["bwd_bound"], shape="T_a=197, B=128", grid_launches_per_call=t["bwd_grid_launches"],
+        us_per_step=t["bwd_us_per_step"], device_ms_B8=s8["bwd_device_ms"],
+        device_ms_T531_B4=s16["bwd_device_ms"],
+        build={k: v for k, v in build.items() if k not in ("align_gate_f32_kernel",
+                                                           "align_read_kernel_t")})
+
+
+def unported_raise(dev):
+    """The families whose fp32 instance is still to be ported refuse the fp32
+    policy on the card by name, launching nothing: K8's and K10's Luong
+    reads and K2."""
+    import torch
+
+    from avsr_tpu_torch import kernels
+    from avsr_tpu_torch.models import fusion as fus
+    from avsr_tpu_torch.ops import attention as attn
+    from avsr_tpu_torch.ops import rnn
+
+    f32 = torch.float32
+    k8l = k8_luong_inputs(4, dev, seed=5, T=20, Tv=15)[:-1]
+    _, att, query, mem, _ = k10_luong_inputs(4, dev, seed=6, S=20)
+    wh, b, xw, mask, h0, c0 = k1_inputs(20, 1, 4, 256, dev)
+    calls = (("K8 Luong", lambda: fus.av_align_scan_fwd(*k8l, f32, attention_type="luong")),
+             ("K10 Luong", lambda: attn.attend_fwd("luong", att, query, mem, f32)),
+             ("K2", lambda: rnn.scan_core_fwd(wh, b, xw.float(), mask, h0, c0, f32, False)))
+    for family, call in calls:
+        before = dict(kernels.LAUNCHES)
+        try:
+            call()
+        except ValueError as e:
+            said = str(e)
+        else:
+            said = None
+        torch.cuda.synchronize()
+        print(f"fp32 policy, {family} on the card: {said!r}")
+        if said is None or not said.startswith(f"{family}: the fp32 instance"):
+            fail("fp32 unported", f"{family} under fp32 did not raise its named ValueError")
+        if kernels.LAUNCHES != before:
+            fail("fp32 unported", f"{family} under fp32 launched a kernel")
+
+
+def phase_k10_f32(dev, report):
+    """K10's fp32 instances against the plain fp32 twins: the general kernel
+    (``bahdanau_attend_f32``) at ``K10F32_CASES`` (the empty row exactly 0,
+    reruns bit-equal), the read loop's backward (``bahdanau_attend_f32_bwd``
+    per step, ``bahdanau_attend_f32_sums`` once a loop) at N = 128, K = 80
+    and over the 16 s memory; the general kernel's and the per-step
+    kernel's shared memory against the library's; device ms, times and
+    bounds at the beam step, greedy's read and the loop; then the named
+    refusal of the families still to be ported (``unported_raise``)."""
+    import torch
+
+    from avsr_tpu_torch import kernels
+    from avsr_tpu_torch.ops import attention as attn
+
+    f32 = torch.float32
+    lib = kernels._load()
+    bad = [(Hq, A, S, Dv) for Hq in (16, 256, 512) for A in (8, 128, 512) for S in (1, 197, 531)
+           for Dv in (8, 768, 2048)
+           if lib.avsr_bahdanau_smem(Hq, A, S) != kernels.attend_general_smem(Hq, A, S)
+           or lib.avsr_attend_step_bwd_smem(Hq, A, S, Dv) != kernels.attend_step_bwd_smem(
+               Hq, A, S, Dv)]
+    if bad:
+        fail("K10 fp32", f"kernels.attend_general_smem / attend_step_bwd_smem differ from the "
+                         f"library's at {bad}")
+    build = f32_build("K10 fp32", "bahdanau_attend", (
+        "bahdanau_attend_kernel", "attend_step_bwd_kernel", "attend_loop_sums_kernel"))
+    worst, times = 0.0, {}
+    for i, (what, N, W, S) in enumerate(K10F32_CASES):
+        args = k10_f32_inputs(N, dev, seed=N + S + i, S=S, W=W)
+        B = N // W
+        route = kernels.attend_route(N, B, S, 256, 128, 768, False, f32)
+        tag = f"K10 fp32 {what} [N={N}={B}x{W},S={S},Hq=256,A=128,Dv=768] route {route}"
+        if route != "general":
+            fail("K10 fp32", f"{tag}: expected the general kernel")
+        before = kernels.LAUNCHES["bahdanau_attend_f32"]
+        worst = max(worst, k10_fwd_check(tag, args, K10F32_W_TOL, W, ctx_tol=K10F32_CTX_TOL))
+        if kernels.LAUNCHES["bahdanau_attend_f32"] - before != 2:
+            fail("K10 fp32", f"{tag}: two reads did not launch bahdanau_attend_f32 twice")
+        typ, att, query, mem, _ = args
+        read = lambda: attn.attend(*args)  # noqa: E731
+        t = {"device_ms": device_ms(read)}
+        if S == 197:
+            ctx, w = read()
+            memory = nbytes(mem.keys, mem.values, mem.bias, mem.mask)
+            nb = nbytes(query, att["wq"], att["v"], ctx, w) + memory
+            t.update(ms=time_ms(read), plain_ms=time_ms(lambda: attn.attend_plain(*args)),
+                     bound=bound(nb, 2 * N * (256 * 128 + 2 * S * 128 + S * 768), "fp32"),
+                     memory_streamed_mb=N * memory / B / 1e6)
+        times[what] = t
+        print(f"{tag}: {t}")
+    args = k10_f32_inputs(128, dev, seed=131)
+    st, out_k, queries, dctxs, bw = k10_bwd_check(
+        "K10 fp32 bwd [N=128,S=197,A=128,Dv=768]", args, K10_LOOP, seed=7, tol=K10F32B_REL_TOL)
+    bw = max(bw, k10_bwd_check("K10 fp32 bwd [N=16,S=531,A=128,Dv=768]",
+                               k10_f32_inputs(16, dev, seed=531, S=531), 8, seed=8,
+                               tol=K10F32B_REL_TOL)[-1])
+    step, sums = k10_bwd_times("K10 fp32 bwd", args, st, queries, dctxs, out_k)
+    if sums["sums_route"] != "cuda_core" or st.operands[0].dtype != f32:
+        fail("K10 fp32", f"the loop's sums took {sums['sums_route']}, operands "
+                         f"{st.operands[0].dtype}")
+    beam, one = times["beam step"], times["one query a row"]
+    report["bahdanau_attend_f32"] = dict(
+        max_abs_err=worst, ms=beam["ms"], plain_ms=beam["plain_ms"], library_ms=None,
+        device_ms=beam["device_ms"], bound=beam["bound"], shape="beam step N=80 (B=8, W=10), S=197",
+        memory_streamed_mb=beam["memory_streamed_mb"],
+        greedy={"ms": one["ms"], "plain_ms": one["plain_ms"], "device_ms": one["device_ms"],
+                "bound_ms": one["bound"][0], "bound_by": one["bound"][1]},
+        device_ms_16s_beam=times["beam step, 16 s"]["device_ms"],
+        device_ms_16s_one=times["one query a row, 16 s"]["device_ms"],
+        registers=build["bahdanau_attend_kernel"]["registers"])
+    report["bahdanau_attend_f32_bwd"] = dict(max_abs_err=bw, **step,
+                                             registers=build["attend_step_bwd_kernel"]["registers"])
+    report["bahdanau_attend_f32_sums"] = dict(
+        max_abs_err=bw, **sums, registers=build["attend_loop_sums_kernel"]["registers"])
+    unported_raise(dev)
+
+
 def phase_remat(dev, card, cfg, label, needed, steps=CELL_OPTION_STEPS):
     """``cfg`` trained at full width from one seed without ``train.remat``,
     with it, and without it again (B = 128, 6 s, noise and dropout on): the
@@ -6826,7 +7293,7 @@ def main() -> int:
     ul_cfg = uni_luong_cfg()
     rd_cfg, gru_cfg = rd_residual_cfg(), gru_highway_cfg()
     ln, spec = ln_cfg(), spectrogram_cfg()
-    f32 = fp32_cfg()
+    f32, af32 = fp32_cfg(), align_fp32_cfg()
     audio_cfg, video_cfg, bimodal_cfg = (audio_only_tcdtimit(), video_only_tcdtimit(),
                                          bimodal_tcdtimit())
     au_cfg = video_cfg.override({"video.use_au_features": True})
@@ -6956,7 +7423,19 @@ def main() -> int:
                    (69, lambda: paths.update(remat_align=phase_remat(
                        dev, card, align_cfg, "remat_align", TRAIN_ALIGN_KERNELS))),
                    (70, lambda: paths.update(remat_rd_residual=phase_remat(
-                       dev, card, rd_cfg, "remat_rd_residual", TRAIN_RD_KERNELS)))):
+                       dev, card, rd_cfg, "remat_rd_residual", TRAIN_RD_KERNELS))),
+                   (71, lambda: phase_k8_f32(dev, report)),
+                   (72, lambda: phase_k10_f32(dev, report)),
+                   (73, lambda: paths.update(train_align_fp32=phase_train(
+                       dev, card, af32, "train_align_fp32", TRAIN_ALIGN_FP32_KERNELS,
+                       steps=FP32_TRAIN_STEPS, loss_tol=FP32_LOSS_REL_TOL,
+                       leaf_tol=FP32_GRAD_LEAF_REL_TOL))),
+                   (74, lambda: paths.update(serve_align_fp32=phase_serve(
+                       dev, card, af32, "serve_align_fp32", SERVE_ALIGN_FP32_KERNELS,
+                       ((8, 197, 768),), mem_tol=FP32_MEMORY_TOL, exact=True))),
+                   (75, lambda: paths.update(greedy_align_fp32=phase_greedy(
+                       dev, card, af32, "greedy_align_fp32", GREEDY_ALIGN_FP32_KERNELS,
+                       exact=True, tie_tol=GREEDY_F32_TIE_TOL)[0]))):
         t0 = time.perf_counter()
         with (record_shapes(held) if n in KERNEL_PHASES
               else record_shapes(launched) if n in COVERED_PHASES else contextlib.nullcontext()):
@@ -6986,7 +7465,11 @@ def main() -> int:
             print(f"phases 57-62 (LN-LSTM on K13, the frontend's options on K3, SpecAugment, "
                   f"LAMB) {time.perf_counter() - t_new:.1f} s")
             t_new = time.perf_counter()
-    print(f"phases 63-70 (the fp32 policy on K1, K4, K5 and K6; train.remat) "
+        if n == 70:
+            print(f"phases 63-70 (the fp32 policy on K1, K4, K5 and K6; train.remat) "
+                  f"{time.perf_counter() - t_new:.1f} s")
+            t_new = time.perf_counter()
+    print(f"phases 71-75 (the fp32 policy on lrs2_av_align: K8 and K10) "
           f"{time.perf_counter() - t_new:.1f} s")
     phase_shapes_covered(held, launched)  # 48
     print(f"total {time.perf_counter() - t_start:.1f} s")
@@ -7086,6 +7569,16 @@ def main() -> int:
         "decoder_attention_f32_fwd": ("avsr_tpu_torch/csrc/attention_core.cuh", f"{td}:305"),
         "decoder_attention_f32_bwd": ("avsr_tpu_torch/csrc/attention_core.cuh", f"{td}:305"),
         "decode_attention_f32": ("avsr_tpu_torch/csrc/decode_attention.cu", f"{td}:217"),
+        "av_align_scan_f32": ("avsr_tpu_torch/csrc/av_align_scan.cu",
+                              "avsr_tpu/models/fusion.py:118"),
+        "av_align_scan_f32_bwd": ("avsr_tpu_torch/csrc/av_align_step_bwd.cuh",
+                                  "avsr_tpu/models/fusion.py:118"),
+        "bahdanau_attend_f32": ("avsr_tpu_torch/csrc/bahdanau_attend.cu",
+                                "avsr_tpu/ops/attention.py:125"),
+        "bahdanau_attend_f32_bwd": ("avsr_tpu_torch/csrc/bahdanau_attend.cu",
+                                    "avsr_tpu/ops/attention.py:125"),
+        "bahdanau_attend_f32_sums": ("avsr_tpu_torch/csrc/bahdanau_attend.cu",
+                                     "avsr_tpu/models/decoder.py:267"),
     }
     entries = []
     for name, (src, rep) in sources.items():

@@ -2,14 +2,16 @@
 kernels, as far as the CPU can see it.
 
 * The wrappers of the families with an fp32 instance (K1 without a
-  recurrent-dropout mask, K4, K5, K6) hand their kernels the caller's fp32
+  recurrent-dropout mask, K4, K5, K6; K8 and K10 in
+  ``tests/test_torch_fp32_align.py``) hand their kernels the caller's fp32
   operands as they are: no cast to bf16 (the tensors reach the kernel
   function unchanged, so their dtype and values are the plain twin's).
   The wrappers run on ``meta`` tensors here, whose device is not the CPU,
   with the ``kernels`` functions replaced by recorders.
-* Every family whose fp32 instance is still to be ported (K1 rd, K2, K8,
-  K9, K10, K11, K12, K13) raises a ``ValueError`` naming it, never falls
-  back; the bf16 policy still reaches every kernel.
+* Every family whose fp32 instance is still to be ported (K1 rd, K2, the
+  Luong reads of K8 and K10, K9, K11, K12, K13) raises a ``ValueError``
+  naming it, never falls back; the bf16 policy still reaches every
+  kernel.
 * The routes: fp32 operands take K1's per-step kernels (H <= 272), the
   CUDA-core attention family for K4 and K5 and K6's general kernel, and
   the CUDA-core family's shared memory holds the presets' 16 s limits.
@@ -110,8 +112,8 @@ def test_bf16_operands_still_reach_the_kernels():
     with mock.patch.object(kernels, "lstm_scan_fwd", fwd):
         rnn.scan_core_fwd(wh, b, xw, mask, h0, c0, BF16, False)
     assert fwd.args[2] is xw
-    for family in ("K1", "K1 rd", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10", "K11",
-                   "K12", "K13"):
+    for family in ("K1", "K1 rd", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K8 Luong", "K9",
+                   "K10", "K10 Luong", "K11", "K12", "K13"):
         numerics.check_policy(BF16, family)
 
 
@@ -135,10 +137,15 @@ def test_families_not_yet_ported_raise_with_their_name():
     _raises("K9", lambda: transformer.conformer_conv_fwd(
         meta(5, 2, 16), meta(16), meta(15, 1, 8), meta(8), meta(8),
         torch.empty((2,), dtype=torch.int64, device="meta")))
-    _raises("K8", lambda: fusion.av_align_scan_fwd({}, {}, None, meta(T, B, 4 * H),
-                                                   meta(T, B), None, F32))
-    _raises("K10", lambda: attention.attend_fwd("bahdanau", {}, meta(B, H), None, F32))
-    numerics.check_policy(F32, "K1")
+    # K8 and K10 take fp32 with the Bahdanau read; their Luong reads raise
+    _raises("K8 Luong", lambda: fusion.av_align_scan_fwd(
+        {}, {}, None, meta(T, B, 4 * H), meta(T, B), None, F32, attention_type="luong"))
+    _raises("K8 Luong", lambda: fusion.av_align_scan_bwd(
+        {}, {}, None, meta(T, B, 4 * H), meta(T, B), None, None, None, None, None, None, None,
+        None, F32, attention_type="luong"))
+    _raises("K10 Luong", lambda: attention.attend_fwd("luong", {}, meta(B, H), None, F32))
+    for family in ("K1", "K8", "K10"):
+        numerics.check_policy(F32, family)
     # the kernels layer itself refuses an fp32 call of another instance
     with pytest.raises(ValueError, match="still to be ported"):
         kernels.lstm_scan_fwd(*(torch.zeros(t.shape, dtype=t.dtype)

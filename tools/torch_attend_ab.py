@@ -123,7 +123,7 @@ for typ, A, Dv in (("bahdanau", 128, 768), ("luong", 512, 512)) if "fwd" in PART
             out[f"{typ}_fwd_{what}_device_ms"] = cs.device_ms(
                 lambda: attn.attend(typ, params, query, mem, bf))
             if hasattr(cs, "k10_launch"):
-                ops = attn.kernel_operands(typ, params, mem)
+                ops = attn.kernel_operands(typ, params, mem, bf)
                 out[f"{typ}_fwd_{what}_by_route"] = {r: cs.device_ms(
                     lambda: cs.k10_launch(r, query, *ops, mem.bias, mem.mask))
                     for r in ROUTES}
@@ -189,9 +189,9 @@ for typ, A, Dv in (("bahdanau", 128, 768), ("luong", 512, 512)) if "bwd" in PART
         q0, d0 = queries[0].detach().contiguous(), dctxs[0].contiguous()
         split = {}
         if hasattr(kernels, "bahdanau_attend_bwd"):
-            wq, v, keys, values = attn.kernel_operands(typ, params, mem)
+            wq, v, keys, values = attn.kernel_operands(typ, params, mem, bf)
             _, w = attn.attend_fwd(typ, params, q0, mem, bf)
-            split["casts"] = cs.device_ms(lambda: attn.kernel_operands(typ, params, mem))
+            split["casts"] = cs.device_ms(lambda: attn.kernel_operands(typ, params, mem, bf))
             split["zeros"] = cs.device_ms(lambda: (
                 torch.zeros((N, A), device=dev), torch.zeros((N, S, A), device=dev),
                 torch.zeros((N, S, Dv), device=dev)))

@@ -122,7 +122,7 @@ def main() -> int:
         for S in args.S:
             for make in (cs.k10_inputs, cs.k10_luong_inputs):
                 typ, att, query, mem, _ = make(128, dev, seed=S + 3, S=S)
-                ops = attn.kernel_operands(typ, att, mem)
+                ops = attn.kernel_operands(typ, att, mem, torch.bfloat16)
                 run = lambda: cs.k10_launch(kernel, query, *ops, mem.bias, mem.mask)  # noqa: E731
                 lib.timeline_set_marks(None)
                 plain_ms = cs.device_ms(run)
